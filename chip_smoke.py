@@ -9,11 +9,13 @@ Phases (any failure raises and exits non-zero):
   2. build    nvcc builds every kernel from icek_torch/csrc/ (one process
               per source, all at once) and prints ptxas's register,
               shared-memory and spill report;
-  3. kernels  each kernel at the shapes the geo main path gives it, held
-              against its plain PyTorch version on the card in f32 and
-              bf16, and timed with CUDA events beside its plain version,
-              a one-call PyTorch yardstick where one exists, and the
-              card's bound for the same work;
+  3. kernels  each kernel at the shapes the geo serving and training paths
+              give it, held against its plain PyTorch version on the card
+              in f32 and bf16 (the dropout kernels at rate 0.2 under the
+              mask the kernel itself exports, with the mask's keep rate and
+              the forward / backward mask identity), and timed with CUDA
+              events beside its plain version, a one-call PyTorch yardstick
+              where one exists, and the card's bound for the same work;
   4. main     the geo preset at full width (ResNet-101 at 256x256, d=300,
               10 heads, 3 layers, V=10000, E=301, beam 5, max_len 30,
               weights from a seed) answers requests through
@@ -21,13 +23,22 @@ Phases (any failure raises and exits non-zero):
               256 raw f16 CHW images and one greedy batch, with every
               kernel's launch count read around that run;
   5. check    the same f32 Evaluator on the card and on the CPU for two
-              images: image tokens, memory and first-step scores agree.
+              images: image tokens, memory and first-step scores agree;
+  6. train    the same model takes train steps through
+              train.step.make_train_step: batch 256, captions of 32 tokens,
+              cached image tokens, bf16 with the preset's dropout, one
+              warm-up and 6 timed steps, the training kernels' launch
+              counts read around the timed steps and held to the counts
+              the code predicts; the deterministic eval loss must fall;
+              then a 2-sample f32 step without dropout on the card against
+              the same step on the CPU.
 The last two lines are the card's nvidia-smi name/power limit and
 {"ok": true, "device": {...}}; the kernels' JSON line comes before them.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -43,6 +54,7 @@ HBM_BYTES_PER_S = 3.35e12                      # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SEED = 0
 BATCH, BEAM, MAX_LEN, VOCAB, ENT_ROWS, IMG = 256, 5, 30, 10000, 301, 256
+CAP_LEN, TRAIN_STEPS, RATE = 32, 6, 0.2
 
 
 def log(*a):
@@ -90,32 +102,106 @@ def max_err(a, b) -> float:
 # phase 3: kernels at main-path shapes
 # --------------------------------------------------------------------------
 
+def _rel_err(got, want) -> float:
+    """max |got - want| over the largest |want| (at least 1)."""
+    if isinstance(got, (tuple, list)):
+        return max(_rel_err(a, b) for a, b in zip(got, want))
+    return max_err(got, want) / max(1.0, float(want.float().abs().max()))
+
+
+def _flash_site(dev, dtype, Tq, Tk):
+    """q, k, v as strided views of fused projections (self-attention: one
+    QKV projection; cross: a Q and a KV projection), and a d_out."""
+    B, H, Hd = BATCH, 10, 30
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev).to(dtype)
+    if Tq == Tk:
+        q, k, v = (t.view(B, Tk, H, Hd) for t in rnd(B, Tk, 3 * H * Hd).split(H * Hd, dim=-1))
+    else:
+        q = rnd(B, Tq, H * Hd).view(B, Tq, H, Hd)
+        k, v = (t.view(B, Tk, H, Hd) for t in rnd(B, Tk, 2 * H * Hd).split(H * Hd, dim=-1))
+    return q, k, v, rnd(B, Tq, H, Hd)
+
+
 def check_flash(dev):
+    """Forward at rate 0 (the serving shape) and at rate 0.2, and the
+    backward, at the encoder site (301 x 301) and the decoder's cross site
+    (32 x 497); returns (forward results, backward results) by dtype."""
     from icek_torch.kernels import flash_attention as fa
 
     B, T, H, Hd = BATCH, ENT_ROWS, 10, 30
-    res = {}
-    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
-        g = torch.Generator(device=dev).manual_seed(SEED)
-        qkv = torch.randn((B, T, 3 * H * Hd), generator=g, device=dev).to(dtype)
-        q, k, v = (t.view(B, T, H, Hd) for t in qkv.split(H * Hd, dim=-1))
+    M = 14 * 14 + ENT_ROWS
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd, bwd = {}, {}
+    for dtype, tol, btol in ((torch.float32, 1e-4, 1e-4), (torch.bfloat16, 3e-2, 4e-2)):
+        q, k, v, _ = _flash_site(dev, dtype, T, T)
+        esz = q.element_size()
         got = fa.flash_mha(q, k, v)
         want = fa.reference_mha(q, k, v)
         torch.cuda.synchronize()
         err = max_err(got, want)
         require(err <= tol, f"flash {dtype}: max abs err {err} > {tol}")
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        nbytes = 4 * B * T * H * Hd * qkv.element_size()
-        flops = 2 * 2 * B * H * T * T * Hd
-        bms, by = bound_ms(nbytes, flops, dtype)
-        res[dtype] = dict(
+        bms, by = bound_ms(4 * B * T * H * Hd * esz, 2 * 2 * B * H * T * T * Hd, dtype)
+        fwd[dtype] = dict(
             max_abs_err=err, tol=tol, ms=cuda_ms(lambda: fa.flash_mha(q, k, v)),
             plain_ms=cuda_ms(lambda: fa.reference_mha(q, k, v)),
-            library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qh, kh, vh)),
-            bound_ms=bms, bound_by=by)
-        log(f"kernel flash_attention {dtype}: {res[dtype]}")
-    return res
+            library_ms=cuda_ms(lambda: sdpa(qh, kh, vh)), bound_ms=bms, bound_by=by)
+
+        # rate 0.2 under the kernel's own mask; keep rate; one mask both ways
+        keep = fa.keep_mask(B, H, T, T, rate=RATE, seed=77, device=dev)
+        kept = float(keep.float().mean())
+        require(abs(kept - (1 - RATE)) <= 0.005, f"flash mask keep rate {kept}")
+        got = fa.flash_mha(q, k, v, dropout_rate=RATE, seed=77)
+        want = fa.reference_mha(q, k, v, dropout_rate=RATE, keep=keep)
+        torch.cuda.synchronize()
+        derr = max_err(got, want)
+        require(derr <= tol, f"flash dropout {dtype}: max abs err {derr} > {tol}")
+        fwd[dtype]["dropout"] = dict(
+            rate=RATE, max_abs_err=derr, keep_rate=kept,
+            ms=cuda_ms(lambda: fa.flash_mha(q, k, v, dropout_rate=RATE, seed=77)),
+            plain_ms=cuda_ms(lambda: fa.reference_mha(q, k, v, dropout_rate=RATE, keep=keep),
+                             iters=5))
+        del keep, got, want
+        log(f"kernel flash_attention {dtype}: {fwd[dtype]}")
+
+        sites = {}
+        for name, Tq, Tk in (("encoder", T, T), ("cross", CAP_LEN, M)):
+            q, k, v, d_out = _flash_site(dev, dtype, Tq, Tk)
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            keep = fa.keep_mask(B, H, Tq, Tk, rate=RATE, seed=78, device=dev)
+            out = fa.flash_mha(*leaves, dropout_rate=RATE, seed=78)
+            got = torch.autograd.grad(out, leaves, d_out, retain_graph=True)
+            ref = fa.reference_mha(*leaves, dropout_rate=RATE, keep=keep)
+            want = torch.autograd.grad(ref, leaves, d_out, retain_graph=True)
+            torch.cuda.synchronize()
+            err, rel = max_err(got, want), _rel_err(got, want)
+            require(rel <= btol, f"flash backward {name} {dtype}: err {rel} > {btol} "
+                                 "of the largest expected value")
+            # <f(v), g> == <v, df/dv(g)>: forward and backward saw one mask
+            lhs, rhs = float((out.detach().float() * d_out.float()).sum()), \
+                float((leaves[2].detach().float() * got[2].float()).sum())
+            ident = abs(lhs - rhs) / max(abs(lhs), 1.0)
+            require(ident <= (1e-3 if dtype == torch.float32 else 3e-2),
+                    f"flash backward {name} {dtype}: mask identity off by {ident}")
+            ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, d_out, retain_graph=True))
+            plain = cuda_ms(lambda: torch.autograd.grad(ref, leaves, d_out, retain_graph=True),
+                            iters=5)
+            del ref, want, keep
+            # yardstick: SDPA's backward under autograd, rate 0, (B, H, T, Hd) copies
+            lib_in = [t.detach().transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v)]
+            lib_out = sdpa(*lib_in)
+            lib_g = d_out.transpose(1, 2).contiguous()
+            lib = cuda_ms(lambda: torch.autograd.grad(lib_out, lib_in, lib_g, retain_graph=True))
+            nbytes = esz * B * H * Hd * (3 * Tq + 4 * Tk)       # q, dO, dq; k, v, dk, dv
+            bms, by = bound_ms(nbytes, 5 * 2 * B * H * Tq * Tk * Hd, dtype)
+            sites[name] = dict(max_abs_err=err, rel_err=rel, tol=btol, mask_identity=ident, ms=ms, plain_ms=plain, library_ms=lib,
+                               bound_ms=bms, bound_by=by)
+            del out, got, lib_out, lib_in
+        bwd[dtype] = dict(sites["encoder"], cross=sites["cross"])
+        log(f"kernel flash_attention_bwd {dtype}: {bwd[dtype]}")
+    return fwd, bwd
 
 
 def check_scores(dev):
@@ -232,6 +318,87 @@ def check_decoder_step(dev):
     return res
 
 
+def check_norm(dev):
+    """dropout_add_ln forward and backward at the encoder's (77056, 300) and
+    hw_dropout at its FFN's (77056, 512), rate 0.2 under the kernels' own
+    mask; returns (ln forward, ln backward, dropout) results by dtype."""
+    from icek_torch.kernels import fused_norm as fn
+
+    F = torch.nn.functional
+    N, D, DF = BATCH * ENT_ROWS, 300, 512
+    ln_f, ln_b, drop = {}, {}, {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        g = torch.Generator(device=dev).manual_seed(SEED + 4)
+        rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+        x, h, gy = (rnd(N, D).to(dtype) for _ in range(3))
+        scale, bias = 1 + 0.1 * rnd(D), 0.1 * rnd(D)
+        esz = x.element_size()
+        keep = fn.keep_mask(N, D, rate=RATE, seed=55, device=dev)
+        kept = float(keep.float().mean())
+        require(abs(kept - (1 - RATE)) <= 0.005, f"norm mask keep rate {kept}")
+        leaves = [t.detach().requires_grad_(True) for t in (x, h, scale, bias)]
+        out = fn.dropout_add_ln(*leaves, rate=RATE, seed=55)
+        got = torch.autograd.grad(out, leaves, gy, retain_graph=True)
+        ref = fn.reference_dropout_add_ln(*leaves, rate=RATE, keep=keep)
+        want = torch.autograd.grad(ref, leaves, gy, retain_graph=True)
+        torch.cuda.synchronize()
+        ferr = max_err(out, ref)
+        require(ferr <= tol, f"dropout_add_ln {dtype}: max abs err {ferr} > {tol}")
+        # dx, dh: a few output ulps; dscale, dbias: sums over N rows in another
+        # order, held relative to their size
+        berr = max_err(got[:2], want[:2])
+        perr = _rel_err(got[2:], want[2:])
+        require(berr <= 4 * tol and perr <= tol,
+                f"dropout_add_ln backward {dtype}: dx/dh err {berr}, dscale/dbias rel {perr}")
+        require(not bool(got[1][~keep].any()), "dh is non-zero where the forward dropped h")
+
+        def library():
+            return F.layer_norm(x + F.dropout(h, RATE), (D,), scale.to(dtype), bias.to(dtype))
+
+        lib_leaves = [t.detach().requires_grad_(True)
+                      for t in (x, h, scale.to(dtype), bias.to(dtype))]
+        lib_out = F.layer_norm(lib_leaves[0] + F.dropout(lib_leaves[1], RATE), (D,),
+                               lib_leaves[2], lib_leaves[3])
+        bms, by = bound_ms(3 * N * D * esz, 8 * N * D, dtype)
+        ln_f[dtype] = dict(
+            max_abs_err=ferr, tol=tol, keep_rate=kept,
+            ms=cuda_ms(lambda: fn.dropout_add_ln(x, h, scale, bias, rate=RATE, seed=55)),
+            plain_ms=cuda_ms(lambda: fn.reference_dropout_add_ln(
+                x, h, scale, bias, rate=RATE, keep=keep)),
+            library_ms=cuda_ms(library), bound_ms=bms, bound_by=by)
+        bms, by = bound_ms(5 * N * D * esz, 20 * N * D, dtype)
+        ln_b[dtype] = dict(
+            max_abs_err=berr, param_rel_err=perr, tol=4 * tol,
+            ms=cuda_ms(lambda: torch.autograd.grad(out, leaves, gy, retain_graph=True)),
+            plain_ms=cuda_ms(lambda: torch.autograd.grad(ref, leaves, gy, retain_graph=True)),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, gy,
+                                                           retain_graph=True)),
+            bound_ms=bms, bound_by=by)
+        log(f"kernel dropout_add_ln {dtype}: {ln_f[dtype]}")
+        log(f"kernel dropout_add_ln_bwd {dtype}: {ln_b[dtype]}")
+        del out, ref, got, want, lib_out, keep
+
+        hf = rnd(N, DF).to(dtype).requires_grad_(True)
+        gf = rnd(N, DF).to(dtype)
+        keep = fn.keep_mask(N, DF, rate=RATE, seed=56, device=dev)
+        y = fn.hw_dropout(hf, rate=RATE, seed=56)
+        (dh,) = torch.autograd.grad(y, hf, gf)
+        torch.cuda.synchronize()
+        derr = max(max_err(y, fn.reference_hw_dropout(hf.detach(), rate=RATE, keep=keep)),
+                   max_err(dh, fn.reference_hw_dropout(gf, rate=RATE, keep=keep)))
+        dtol = 1e-5 if dtype == torch.float32 else tol     # x * 1.25 against x / 0.8
+        require(derr <= dtol, f"hw_dropout {dtype}: max abs err {derr} > {dtol}")
+        hd = hf.detach()
+        bms, by = bound_ms(2 * N * DF * esz, N * DF, dtype)
+        drop[dtype] = dict(
+            max_abs_err=derr, tol=dtol,
+            ms=cuda_ms(lambda: fn.hw_dropout(hd, rate=RATE, seed=56)),
+            plain_ms=cuda_ms(lambda: fn.reference_hw_dropout(hd, rate=RATE, keep=keep)),
+            library_ms=cuda_ms(lambda: F.dropout(hd, RATE)), bound_ms=bms, bound_by=by)
+        log(f"kernel hw_dropout {dtype}: {drop[dtype]}")
+    return ln_f, ln_b, drop
+
+
 # --------------------------------------------------------------------------
 # phase 4: the full-width main path
 # --------------------------------------------------------------------------
@@ -257,13 +424,18 @@ def full_width_model():
     return cfg, wm, params, enc
 
 
-def make_batch(rng, n):
+def _entity_rows(rng, n):
     ents = np.zeros((n, ENT_ROWS, 5), np.float32)
     ents[:, :, 0] = np.arange(ENT_ROWS)
     ents[:, :, 1] = rng.uniform(0, 1, (n, ENT_ROWS))
     ents[:, :, 2] = rng.uniform(-179, 179, (n, ENT_ROWS))
     ents[:, :, 3] = rng.uniform(0, 0.1, (n, ENT_ROWS))
     ents[:, :, 4] = rng.integers(0, 500, (n, ENT_ROWS))
+    return ents
+
+
+def make_batch(rng, n):
+    ents = _entity_rows(rng, n)
     raw = rng.random((n, 3, IMG, IMG), dtype=np.float32).astype(np.float16)
     return {"raw_images": raw, "entity_features": ents}
 
@@ -278,11 +450,25 @@ def entity_names(n):
 
 
 def counters():
+    """The wrappers that count the launches of the serving path's kernels."""
     from icek_torch.kernels import copy_scores, decoder_step, flash_attention
 
     return {"flash_attention": flash_attention.flash_mha,
             "fused_score_topk": copy_scores.fused_score_topk,
             "decoder_step": decoder_step.fused_beam_decoder_step}
+
+
+def train_counters():
+    """Likewise for the train step, with the launches one step makes: three
+    encoder and six decoder attentions, 6 + 9 residual LayerNorms, and six
+    FFN dropouts each way through one entry point."""
+    from icek_torch.kernels import flash_attention, fused_norm
+
+    return {"flash_attention": (flash_attention.flash_mha, 9),
+            "flash_attention_bwd": (flash_attention.flash_mha_bwd, 9),
+            "dropout_add_ln": (fused_norm.dropout_add_ln, 15),
+            "dropout_add_ln_bwd": (fused_norm.dropout_add_ln_bwd, 15),
+            "hw_dropout": (fused_norm.hw_dropout, 12)}
 
 
 def run_main_path(dev, model):
@@ -418,6 +604,140 @@ def cross_check(dev, model):
 
 
 # --------------------------------------------------------------------------
+# phase 6: train steps at full width
+# --------------------------------------------------------------------------
+
+def make_train_batch(rng, n, wm):
+    """Captions of CAP_LEN tokens (<start>, words, a few entity ids >= V,
+    <end>, <pad> tail) with their kinds and lengths, entity rows and cached
+    image tokens."""
+    caps = rng.integers(5, VOCAB - 5, (n, CAP_LEN)).astype(np.int64)
+    ent = rng.random((n, CAP_LEN)) < 0.08
+    caps[ent] = VOCAB + rng.integers(0, ENT_ROWS, int(ent.sum()))
+    lengths = rng.integers(8, CAP_LEN + 1, (n,))
+    caps[:, 0] = wm.start_id
+    for b in range(n):
+        caps[b, lengths[b] - 1] = wm.end_id
+        caps[b, lengths[b]:] = wm.pad_id
+    return {"caption_ids": caps, "caption_mask": (caps >= VOCAB).astype(np.int64),
+            "lengths": lengths.astype(np.int64),
+            "entity_features": _entity_rows(rng, n),
+            "image_tokens": rng.standard_normal((n, 196, 300), dtype=np.float32)}
+
+
+def run_train_path(dev, model):
+    from icek_torch import bridge
+    from icek_torch.models import captioner
+    from icek_torch.train import step as step_lib
+
+    cfg, wm, params, _ = model
+    m = cfg.model
+    require((m.dropout_enc, m.dropout_dec, m.dropout_pos) == (0.2, 0.2, 0.1),
+            "the train path runs the preset's dropout rates")
+    params = bridge.trainable(copy.deepcopy(params), dev)
+    optimizer = step_lib.make_optimizer(cfg.train.decoder_lr, cfg.train.grad_clip)
+    opt_state = optimizer.init(params)
+    train_step, eval_step = step_lib.make_train_step(
+        cfg, VOCAB, wm.pad_id, optimizer, compute_dtype=torch.bfloat16,
+        encode_images=False, device=dev)
+    batch = make_train_batch(np.random.default_rng(SEED + 5), BATCH, wm)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    gen = torch.Generator().manual_seed(SEED)
+
+    eval_before = float(eval_step(params, None, batch)[0])
+    t0 = time.perf_counter()
+    _, _, loss, count = train_step(params, opt_state, None, batch, gen)     # warm-up
+    losses = [float(loss)]
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    for fn, _ in train_counters().values():
+        fn.launches = 0
+    times = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        _, _, loss, count = train_step(params, opt_state, None, batch, gen)
+        losses.append(float(loss))            # reading the loss waits for the step
+        times.append(time.perf_counter() - t0)
+    launches = {name: fn.launches for name, (fn, _) in train_counters().items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    eval_after = float(eval_step(params, None, batch)[0])
+    log(f"train path launches over {TRAIN_STEPS} steps: {launches}")
+    for name, (_, per_step) in train_counters().items():
+        require(launches[name] == per_step * TRAIN_STEPS,
+                f"kernel {name}: {launches[name]} launches, expected "
+                f"{per_step} x {TRAIN_STEPS}")
+    require(all(math.isfinite(l) for l in losses), f"non-finite loss in {losses}")
+    require(math.isfinite(eval_after) and eval_after < eval_before,
+            f"eval loss did not fall: {eval_before} -> {eval_after}")
+
+    # one more step, stage by stage (each synchronised)
+    stages = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = (time.perf_counter() - t) * 1e3
+        return out
+
+    def forward():
+        scores = captioner.captioner_forward(
+            params, m, VOCAB, wm.pad_id, batch["caption_ids"], batch["caption_mask"],
+            batch["image_tokens"].to(torch.bfloat16), batch["entity_features"], gen=gen,
+            deterministic=False, compute_dtype=torch.bfloat16, score_dtype=torch.bfloat16)
+        return step_lib.caption_loss(scores, batch["caption_ids"], batch["lengths"],
+                                     wm.pad_id)[0]
+
+    loss = timed("forward_ms", forward)
+    timed("backward_ms", loss.backward)
+    timed("optimizer_ms", lambda: optimizer.update(opt_state))
+
+    summary = dict(
+        warmup_s=warm_s, step_ms=[t * 1e3 for t in times],
+        step_ms_median=statistics.median(times) * 1e3,
+        samples_per_s_median=BATCH / statistics.median(times),
+        tokens_per_step=int(count), losses=losses, eval_loss_before=eval_before,
+        eval_loss_after=eval_after, peak_mem_gb=peak_gb, **stages)
+    log(f"train path (geo, batch {BATCH}, T {CAP_LEN}, bf16, dropout on): {summary}")
+    return launches, summary
+
+
+def train_cross_check(dev, model):
+    """A 2-sample f32 step without dropout on the card against the same step
+    on the CPU: loss, and Adam's first moments (0.1 x the clipped gradients)
+    leaf by leaf relative to the leaf's largest value (at least 1% of the
+    tree's largest, so leaves whose true gradient is 0 do not compare noise)."""
+    from icek_torch import bridge
+    from icek_torch.train import step as step_lib
+
+    cfg, wm, params, _ = model
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, dropout_enc=0.0, dropout_dec=0.0, dropout_pos=0.0))
+    batch = make_train_batch(np.random.default_rng(SEED + 6), 2, wm)
+    res = {}
+    for where in ("cpu", dev):
+        p = bridge.trainable(copy.deepcopy(params), where)
+        optimizer = step_lib.make_optimizer(cfg.train.decoder_lr, cfg.train.grad_clip)
+        state = optimizer.init(p)
+        train_step, _ = step_lib.make_train_step(
+            cfg, VOCAB, wm.pad_id, optimizer, compute_dtype=torch.float32,
+            encode_images=False, device=where)
+        _, _, loss, _ = train_step(p, state, None, batch, torch.Generator().manual_seed(0))
+        mu, _ = state.moments(p)
+        res[where] = (float(loss), [t.cpu() for t in step_lib.tree_leaves(mu)])
+    (l_cpu, g_cpu), (l_dev, g_dev) = res["cpu"], res[dev]
+    loss_rel = abs(l_dev - l_cpu) / abs(l_cpu)
+    top = max(float(g.abs().max()) for g in g_cpu)
+    grad_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 0.01 * top)
+                   for a, b in zip(g_dev, g_cpu))
+    log(f"train step, card vs CPU at f32, 2 samples, no dropout: loss {l_dev} vs "
+        f"{l_cpu} (rel {loss_rel}); worst leaf gradient rel err {grad_rel} (tol 1e-4)")
+    require(loss_rel <= 1e-4 and grad_rel <= 1e-4, "card vs CPU train step disagrees")
+    return loss_rel, grad_rel
+
+
+# --------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -441,34 +761,52 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    kernels = {"flash_attention": check_flash(dev),
+    flash_fwd, flash_bwd = check_flash(dev)
+    kernels = {"flash_attention": flash_fwd, "flash_attention_bwd": flash_bwd,
                "fused_score_topk": check_scores(dev),
                "decoder_step": check_decoder_step(dev)}
+    kernels["dropout_add_ln"], kernels["dropout_add_ln_bwd"], kernels["hw_dropout"] = \
+        check_norm(dev)
     model = full_width_model()
     launches, summary = run_main_path(dev, model)
     cross_check(dev, model)
+    train_launches, train_summary = run_train_path(dev, model)
+    train_cross_check(dev, model)
 
+    # name: (source, the TPU kernel it replaces)
+    tpu = "icek_tpu/kernels/"
     meta = {
-        "flash_attention": ("icek_torch/csrc/flash_attention.cu",
-                            "icek_tpu/kernels/flash_attention.py:268"),
-        "fused_score_topk": ("icek_torch/csrc/score_topk.cu",
-                             "icek_tpu/kernels/copy_scores.py:106"),
-        "decoder_step": ("icek_torch/csrc/decoder_step.cu",
-                         "icek_tpu/kernels/decoder_step.py:296"),
+        "flash_attention": ("flash_attention.cu", tpu + "flash_attention.py:268"),
+        "flash_attention_bwd": ("flash_attention.cu", tpu + "flash_attention.py:287"),
+        "fused_score_topk": ("score_topk.cu", tpu + "copy_scores.py:106"),
+        "decoder_step": ("decoder_step.cu", tpu + "decoder_step.py:296"),
+        "dropout_add_ln": ("fused_norm.cu", tpu + "fused_norm.py:159"),
+        "dropout_add_ln_bwd": ("fused_norm.cu", tpu + "fused_norm.py:176"),
+        "hw_dropout": ("fused_norm.cu", tpu + "fused_norm.py:268"),
     }
     rows = []
     for name, by_dtype in kernels.items():
         bf, f32 = by_dtype[torch.bfloat16], by_dtype[torch.float32]
-        rows.append({
-            "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1], "launches": launches[name],
+        row = {
+            "name": name, "route": "cuda", "source": "icek_torch/csrc/" + meta[name][0],
+            "replaces": meta[name][1],
+            # counted on the path that runs the kernel: per TRAIN_STEPS train
+            # steps, or over the serving run (3 beam batches + 1 greedy batch)
+            "launches": train_launches.get(name, launches.get(name)),
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"],
             "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
             "bound_by": bf["bound_by"], "library_ms": bf["library_ms"],
             "dtype": "bfloat16", "tol": bf["tol"],
             "f32": {k: f32[k] for k in ("max_abs_err", "tol", "ms", "plain_ms",
                                         "library_ms", "bound_ms")},
-        })
+        }
+        if name in launches and name in train_launches:
+            row["launches_serving"] = launches[name]
+        for extra in ("dropout", "cross"):
+            if extra in bf:
+                row[extra] = bf[extra]
+        rows.append(row)
+    log(f"card: {card}; train path: {json.dumps(train_summary)}")
     log(f"card: {card}; main path: {json.dumps(summary)}")
     print(json.dumps({"kernels": rows}))
     print(card)

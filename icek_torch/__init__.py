@@ -6,12 +6,14 @@ ported path is a hand-written CUDA kernel under ``csrc/``, built with nvcc
 at first use (``kernels/_build.py``) and called through a wrapper that runs
 the kernel's plain PyTorch version only for CPU tensors.
 
-Ported so far (geo-preset serving):
+Ported so far (geo preset: serving and the train step):
     core/      config dataclasses + presets (own copy)
     data/      image normalization, the codec pieces detok needs
     models/    transformer stacks, ResNet-101 encoder, captioner (geo)
-    kernels/   flash-attention forward, fused score/top-k, decoder-step
+    kernels/   flash attention forward and backward, fused residual-dropout-
+               LayerNorm and dropout, fused score/top-k, decoder-step
     decode/    top-k, greedy and beam decode, detok
+    train/     masked-CE loss, clip + Adam, train and eval steps
     bridge.py  JAX param trees (as numpy) <-> the port's tensors
     eval_driver.py  Evaluator.decode_batch, the serving entry point
 """

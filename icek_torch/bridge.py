@@ -77,3 +77,25 @@ def to_numpy(tree, resnet: bool = False):
         return np.ascontiguousarray(x.numpy())
 
     return _map(tree, convert)
+
+
+def trainable(tree, device=None):
+    """The tree moved to `device` (no copy for leaves already there) with
+    every floating leaf marked as an autograd leaf, in place: what
+    ``train.step`` takes as `params`.  The serving path reads the same
+    tensors under ``torch.inference_mode``, where the mark costs nothing."""
+    def convert(t, _path):
+        t = t if device is None else t.to(device)
+        return t.requires_grad_(True) if t.is_floating_point() else t
+
+    return _map(tree, convert)
+
+
+def grads_to_numpy(tree):
+    """The gradients of a param tree as a numpy tree of the same layout
+    (zeros where a leaf has none), for comparing gradient trees leaf by leaf."""
+    def convert(t, _path):
+        g = t.grad if t.grad is not None else torch.zeros_like(t)
+        return np.ascontiguousarray(g.detach().cpu().numpy())
+
+    return _map(tree, convert)

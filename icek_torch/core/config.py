@@ -94,6 +94,10 @@ class TrainConfig:
     fine_tune_encoder: bool = False
     print_freq: int = 100
     seed: int = 0
+    # Microbatches per step (gradients of the summed NLL accumulate, one
+    # optimizer step).  "auto" resolves to 1 until an accumulation table has
+    # been measured on the H100 (train/step.py::resolve_grad_accum).
+    grad_accum_steps: object = "auto"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -34,6 +34,56 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Counter-based random bits for the dropout kernels: Philox-4x32-10
+// (Salmon et al., "Parallel random numbers: as easy as 1, 2, 3", SC'11),
+// written out here.  The key is (seed, stream), the counter a 64-bit block
+// number; one block yields four 32-bit words.  A kernel's mask depends only
+// on (seed, stream, element index), never on its tiling, so a backward
+// kernel with another tiling regenerates the forward's mask.
+__device__ __forceinline__ uint4 philox4x32_10(uint32_t seed, uint32_t stream,
+                                               unsigned long long block) {
+  uint32_t c0 = static_cast<uint32_t>(block);
+  uint32_t c1 = static_cast<uint32_t>(block >> 32);
+  uint32_t c2 = 0u, c3 = 0u, k0 = seed, k1 = stream;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
+    c0 = n0; c1 = lo1; c2 = n2; c3 = lo0;
+    k0 += 0x9E3779B9u; k1 += 0xBB67AE85u;
+  }
+  return make_uint4(c0, c1, c2, c3);
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& r, int i) {
+  return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
+}
+
+// 32 random bits of element `index` under (seed, stream): word index % 4 of
+// Philox block index / 4, so four adjacent elements share one block.
+__device__ __forceinline__ uint32_t random_bits(uint32_t seed, uint32_t stream,
+                                                unsigned long long index) {
+  return word_of(philox4x32_10(seed, stream, index >> 2),
+                 static_cast<int>(index & 3ull));
+}
+
+// Dropout keeps an element iff the top 24 of its bits lie below
+// int((1 - rate) * 2^24): the integer compare of the TPU kernels
+// (icek_tpu/kernels/flash_attention.py::_keep_mask).
+__device__ __forceinline__ bool keep_bits(uint32_t bits, uint32_t thresh) {
+  return (bits >> 8) < thresh;
+}
+
+constexpr uint32_t KEEP_ALL = 1u << 24;     // thresh at rate 0: no Philox needed
+constexpr uint32_t STREAM_FLASH = 1u;       // attention-weight dropout
+constexpr uint32_t STREAM_NORM = 2u;        // residual / FFN dropout
+
+// round a float through T (the working dtype), as a store and reload would
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f32<T>(from_f32<T>(x));
+}
+
 ICEK_EXPORT const char* icek_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -1,0 +1,455 @@
+// Residual-dropout-LayerNorm (forward and backward) and plain dropout for
+// Hopper (sm_90a), f32 and bf16.
+//
+// Replaces the three Pallas kernels of icek_tpu/kernels/fused_norm.py:
+//   _ln_fwd    y = LayerNorm(x + dropout(h)) over the last axis, row
+//              statistics in float32, y in x's dtype, scale / bias float32;
+//   _ln_bwd    regenerates the mask, recomputes the row statistics, emits
+//              dx, dh (masked and scaled), dscale = sum_rows g * zhat and
+//              dbias = sum_rows g in float32;
+//   _drop_call out = where(keep, in / (1 - rate), 0), one entry point for
+//              the forward and the backward (which keeps only the seed).
+//
+// What bounds them: bytes.  Each is one pass over (N, D) tensors (3, 5 and
+// 2 of them) with a few operations per element, far below the card's
+// operations-per-byte balance.  Design: one warp per row; a lane owns
+// groups of four adjacent columns (one 8- or 16-byte access each), so a
+// row of D <= 1024 lives in registers, the two row reductions are warp
+// shuffles and nothing but the inputs and outputs touches device memory.
+// The TPU kernel carries dscale / dbias across its sequential grid; blocks
+// here run in no order, so each lane sums its own columns over the rows
+// its warp walks, a block folds its warps in a fixed order into one
+// partial row, and a second small kernel adds the partial rows in block
+// order: a deterministic sum, no atomics.
+//
+// Mask: element (row, col) keeps iff keep_bits(random_bits(seed,
+// STREAM_NORM, row * D4 + col)) with D4 = D rounded up to a multiple of 4,
+// so the four columns of a group share one Philox block whatever D is.
+#include "common.cuh"
+
+namespace {
+
+constexpr int WARPS = 4;       // rows per block and pass
+constexpr int MAXD = 1024;     // a lane holds NG = 4 or 8 groups: D <= 128 * NG
+
+// four adjacent columns starting at `col` of a row of D values
+template <typename T>
+__device__ __forceinline__ void load4(const T* row, int col, int D, bool vec,
+                                      float out[4]);
+
+template <>
+__device__ __forceinline__ void load4<float>(const float* row, int col, int D,
+                                             bool vec, float out[4]) {
+  if (vec) {
+    const float4 v = *reinterpret_cast<const float4*>(row + col);
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) out[c] = col + c < D ? row[col + c] : 0.f;
+  }
+}
+
+template <>
+__device__ __forceinline__ void load4<__nv_bfloat16>(const __nv_bfloat16* row,
+                                                     int col, int D, bool vec,
+                                                     float out[4]) {
+  if (vec) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(row + col);
+    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+    out[0] = __low2float(a); out[1] = __high2float(a);
+    out[2] = __low2float(b); out[3] = __high2float(b);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      out[c] = col + c < D ? __bfloat162float(row[col + c]) : 0.f;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store4(T* row, int col, int D, bool vec,
+                                       const float in[4]);
+
+template <>
+__device__ __forceinline__ void store4<float>(float* row, int col, int D,
+                                              bool vec, const float in[4]) {
+  if (vec) {
+    *reinterpret_cast<float4*>(row + col) = make_float4(in[0], in[1], in[2], in[3]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (col + c < D) row[col + c] = in[c];
+  }
+}
+
+template <>
+__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* row, int col,
+                                                      int D, bool vec,
+                                                      const float in[4]) {
+  if (vec) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(in[0], in[1]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(in[2], in[3]);
+    uint2 raw;
+    raw.x = *reinterpret_cast<const uint32_t*>(&a);
+    raw.y = *reinterpret_cast<const uint32_t*>(&b);
+    *reinterpret_cast<uint2*>(row + col) = raw;
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (col + c < D) row[col + c] = __float2bfloat16(in[c]);
+  }
+}
+
+// keep flags of the group's four columns as the low bits of the result
+__device__ __forceinline__ uint32_t keep4(uint32_t seed, uint32_t thresh,
+                                          unsigned long long block) {
+  if (thresh >= KEEP_ALL) return 0xFu;
+  const uint4 r = philox4x32_10(seed, STREAM_NORM, block);
+  return (keep_bits(r.x, thresh) ? 1u : 0u) | (keep_bits(r.y, thresh) ? 2u : 0u) |
+         (keep_bits(r.z, thresh) ? 4u : 0u) | (keep_bits(r.w, thresh) ? 8u : 0u);
+}
+
+// z = x + dropout(h) for this lane's groups of one row; returns the lane's
+// part of sum(z).  `keeps` gets four flags per group.
+template <typename T, int NG>
+__device__ __forceinline__ float load_row(const T* xr, const T* hr, long long row,
+                                          int D, int G, bool vec, int lane,
+                                          uint32_t seed, uint32_t thresh, float inv,
+                                          float z[NG][4], uint32_t& keeps) {
+  float sum = 0.f;
+  keeps = 0u;
+#pragma unroll
+  for (int i = 0; i < NG; ++i) {
+    const int g = lane + 32 * i;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) z[i][c] = 0.f;
+    if (g < G) {
+      float xv[4], hv[4];
+      load4<T>(xr, 4 * g, D, vec, xv);
+      load4<T>(hr, 4 * g, D, vec, hv);
+      const uint32_t k = keep4(seed, thresh, (unsigned long long)row * G + g);
+      keeps |= k << (4 * i);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        z[i][c] = xv[c] + ((k >> c) & 1u ? hv[c] * inv : 0.f);
+        sum += z[i][c];
+      }
+    }
+  }
+  return sum;
+}
+
+// centre z in place and return rstd; columns at or beyond D stay 0
+template <int NG>
+__device__ __forceinline__ float normalise(float z[NG][4], float sum, int D,
+                                           int G, int lane, float eps) {
+  const float mean = warp_sum(sum) / D;
+  float sq = 0.f;
+#pragma unroll
+  for (int i = 0; i < NG; ++i) {
+    const int g = lane + 32 * i;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const bool valid = g < G && 4 * g + c < D;
+      z[i][c] = valid ? z[i][c] - mean : 0.f;
+      sq += z[i][c] * z[i][c];
+    }
+  }
+  return rsqrtf(warp_sum(sq) / D + eps);
+}
+
+template <typename T, int NG>
+__global__ void __launch_bounds__(32 * WARPS) ln_fwd_kernel(
+    const T* __restrict__ x, const T* __restrict__ h,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    T* __restrict__ y, long long N, int D, float eps, float inv,
+    uint32_t thresh, uint32_t seed, int vec) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (row >= N) return;
+  const int G = (D + 3) >> 2;
+  float z[NG][4];
+  uint32_t keeps;
+  const float sum = load_row<T, NG>(x + row * D, h + row * D, row, D, G, vec != 0,
+                                lane, seed, thresh, inv, z, keeps);
+  const float rstd = normalise<NG>(z, sum, D, G, lane, eps);
+  const bool vec_par = D % 4 == 0;   // scale / bias are float32 and 16-byte aligned
+#pragma unroll
+  for (int i = 0; i < NG; ++i) {
+    const int g = lane + 32 * i;
+    if (g < G) {
+      float sv[4], bv[4], out[4];
+      load4<float>(scale, 4 * g, D, vec_par, sv);
+      load4<float>(bias, 4 * g, D, vec_par, bv);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) out[c] = z[i][c] * rstd * sv[c] + bv[c];
+      store4<T>(y + row * D, 4 * g, D, vec != 0, out);
+    }
+  }
+}
+
+// partial: (gridDim.x, 2, D) float32; [b][0] = sum g * zhat, [b][1] = sum g
+template <typename T, int NG>
+__global__ void __launch_bounds__(32 * WARPS) ln_bwd_kernel(
+    const T* __restrict__ x, const T* __restrict__ h,
+    const float* __restrict__ scale, const T* __restrict__ gy,
+    T* __restrict__ dx, T* __restrict__ dh, float* __restrict__ partial,
+    long long N, int D, float eps, float inv, uint32_t thresh, uint32_t seed,
+    int vec) {
+  __shared__ float red[2][MAXD];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int G = (D + 3) >> 2;
+  const bool vec_par = D % 4 == 0;
+  float sc[NG][4], acc_gz[NG][4], acc_g[NG][4];
+#pragma unroll
+  for (int i = 0; i < NG; ++i) {
+    const int g = lane + 32 * i;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) sc[i][c] = acc_gz[i][c] = acc_g[i][c] = 0.f;
+    if (g < G) load4<float>(scale, 4 * g, D, vec_par, sc[i]);
+  }
+  for (long long row = (long long)blockIdx.x * WARPS + warp; row < N;
+       row += (long long)gridDim.x * WARPS) {
+    float z[NG][4], gs[NG][4];
+    uint32_t keeps;
+    const float sum = load_row<T, NG>(x + row * D, h + row * D, row, D, G, vec != 0,
+                                  lane, seed, thresh, inv, z, keeps);
+    const float rstd = normalise<NG>(z, sum, D, G, lane, eps);
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NG; ++i) {
+      const int g = lane + 32 * i;
+      float gv[4] = {0.f, 0.f, 0.f, 0.f};
+      if (g < G) load4<T>(gy + row * D, 4 * g, D, vec != 0, gv);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        z[i][c] *= rstd;                       // zhat
+        acc_gz[i][c] += gv[c] * z[i][c];
+        acc_g[i][c] += gv[c];
+        gs[i][c] = gv[c] * sc[i][c];
+        s1 += gs[i][c] * z[i][c];
+        s2 += gs[i][c];
+      }
+    }
+    const float c1 = warp_sum(s1) / D, c2 = warp_sum(s2) / D;
+#pragma unroll
+    for (int i = 0; i < NG; ++i) {
+      const int g = lane + 32 * i;
+      if (g < G) {
+        float dz[4], dhv[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          dz[c] = (gs[i][c] - c2 - z[i][c] * c1) * rstd;
+          dhv[c] = (keeps >> (4 * i + c)) & 1u ? dz[c] * inv : 0.f;
+        }
+        store4<T>(dx + row * D, 4 * g, D, vec != 0, dz);
+        store4<T>(dh + row * D, 4 * g, D, vec != 0, dhv);
+      }
+    }
+  }
+  // fold the block's warps in warp order, then write one partial row
+  for (int w = 0; w < WARPS; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int i = 0; i < NG; ++i) {
+        const int g = lane + 32 * i;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int col = 4 * g + c;
+          if (g < G && col < D) {
+            red[0][col] = (w ? red[0][col] : 0.f) + acc_gz[i][c];
+            red[1][col] = (w ? red[1][col] : 0.f) + acc_g[i][c];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  for (int e = threadIdx.x; e < 2 * D; e += blockDim.x)
+    partial[(long long)blockIdx.x * 2 * D + e] = red[e / D][e % D];
+}
+
+__global__ void ln_bwd_reduce_kernel(const float* __restrict__ partial,
+                                     int nblocks, int D,
+                                     float* __restrict__ dscale,
+                                     float* __restrict__ dbias) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= 2 * D) return;
+  float s = 0.f;
+  for (int b = 0; b < nblocks; ++b) s += partial[(long long)b * 2 * D + e];
+  (e < D ? dscale : dbias)[e % D] = s;
+}
+
+// one thread per group of four columns; Philox block = the group's number
+template <typename T>
+__global__ void __launch_bounds__(256) dropout_kernel(
+    const T* __restrict__ in, T* __restrict__ out, long long N, int D, float inv,
+    uint32_t thresh, uint32_t seed, int vec) {
+  const int G = (D + 3) >> 2;
+  const long long total = N * G;
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < total;
+       t += (long long)gridDim.x * blockDim.x) {
+    const long long row = t / G;
+    const int g = static_cast<int>(t - row * G);
+    float v[4];
+    load4<T>(in + row * D, 4 * g, D, vec != 0, v);
+    const uint32_t k = keep4(seed, thresh, (unsigned long long)t);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c] = (k >> c) & 1u ? v[c] * inv : 0.f;
+    store4<T>(out + row * D, 4 * g, D, vec != 0, v);
+  }
+}
+
+__global__ void __launch_bounds__(256) keep_mask_kernel(
+    uint8_t* __restrict__ out, long long N, int D, uint32_t thresh, uint32_t seed) {
+  const int G = (D + 3) >> 2;
+  const long long total = N * G;
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < total;
+       t += (long long)gridDim.x * blockDim.x) {
+    const long long row = t / G;
+    const int g = static_cast<int>(t - row * G);
+    const uint32_t k = keep4(seed, thresh, (unsigned long long)t);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (4 * g + c < D) out[row * D + 4 * g + c] = (k >> c) & 1u;
+  }
+}
+
+__global__ void random_bits_kernel(uint32_t* __restrict__ out, long long n,
+                                   uint32_t seed, uint32_t stream) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = random_bits(seed, stream, (unsigned long long)i);
+}
+
+bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+int flat_grid(long long work, int threads) {
+  const long long blocks = (work + threads - 1) / threads;
+  return static_cast<int>(blocks < 1 ? 1 : blocks > 132 * 16 ? 132 * 16 : blocks);
+}
+
+template <typename T>
+int ln_fwd(const void* x, const void* h, const void* scale, const void* bias,
+           void* y, long long N, int D, float eps, float inv, unsigned thresh,
+           unsigned seed, void* stream) {
+  if (D < 1 || D > MAXD || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = D % 4 == 0 && aligned(x, 4 * sizeof(T)) &&
+                  aligned(h, 4 * sizeof(T)) && aligned(y, 4 * sizeof(T));
+  const long long blocks = (N + WARPS - 1) / WARPS;
+  auto kernel = D <= 512 ? ln_fwd_kernel<T, 4> : ln_fwd_kernel<T, 8>;
+  kernel<<<static_cast<unsigned>(blocks), 32 * WARPS, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(h),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<T*>(y), N, D, eps, inv, thresh, seed, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int ln_bwd(const void* x, const void* h, const void* scale, const void* gy,
+           void* dx, void* dh, void* partial, void* dscale, void* dbias,
+           long long N, int D, float eps, float inv, unsigned thresh,
+           unsigned seed, int nblocks, void* stream) {
+  if (D < 1 || D > MAXD || N < 1 || nblocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = D % 4 == 0 && aligned(x, 4 * sizeof(T)) &&
+                  aligned(h, 4 * sizeof(T)) && aligned(gy, 4 * sizeof(T)) &&
+                  aligned(dx, 4 * sizeof(T)) && aligned(dh, 4 * sizeof(T));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto kernel = D <= 512 ? ln_bwd_kernel<T, 4> : ln_bwd_kernel<T, 8>;
+  kernel<<<nblocks, 32 * WARPS, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(h),
+      static_cast<const float*>(scale), static_cast<const T*>(gy),
+      static_cast<T*>(dx), static_cast<T*>(dh), static_cast<float*>(partial), N,
+      D, eps, inv, thresh, seed, vec);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  ln_bwd_reduce_kernel<<<(2 * D + 127) / 128, 128, 0, s>>>(
+      static_cast<const float*>(partial), nblocks, D,
+      static_cast<float*>(dscale), static_cast<float*>(dbias));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dropout(const void* in, void* out, long long N, int D, float inv,
+            unsigned thresh, unsigned seed, void* stream) {
+  if (D < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = D % 4 == 0 && aligned(in, 4 * sizeof(T)) &&
+                  aligned(out, 4 * sizeof(T));
+  const long long groups = N * ((D + 3) / 4);
+  dropout_kernel<T><<<flat_grid(groups, 256), 256, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), N, D, inv, thresh, seed,
+      vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+ICEK_EXPORT int ln_fwd_f32(const void* x, const void* h, const void* scale,
+                           const void* bias, void* y, long long N, int D,
+                           float eps, float inv, unsigned thresh, unsigned seed,
+                           void* stream) {
+  return ln_fwd<float>(x, h, scale, bias, y, N, D, eps, inv, thresh, seed, stream);
+}
+
+ICEK_EXPORT int ln_fwd_bf16(const void* x, const void* h, const void* scale,
+                            const void* bias, void* y, long long N, int D,
+                            float eps, float inv, unsigned thresh, unsigned seed,
+                            void* stream) {
+  return ln_fwd<__nv_bfloat16>(x, h, scale, bias, y, N, D, eps, inv, thresh, seed,
+                               stream);
+}
+
+ICEK_EXPORT int ln_bwd_f32(const void* x, const void* h, const void* scale,
+                           const void* gy, void* dx, void* dh, void* partial,
+                           void* dscale, void* dbias, long long N, int D,
+                           float eps, float inv, unsigned thresh, unsigned seed,
+                           int nblocks, void* stream) {
+  return ln_bwd<float>(x, h, scale, gy, dx, dh, partial, dscale, dbias, N, D, eps,
+                       inv, thresh, seed, nblocks, stream);
+}
+
+ICEK_EXPORT int ln_bwd_bf16(const void* x, const void* h, const void* scale,
+                            const void* gy, void* dx, void* dh, void* partial,
+                            void* dscale, void* dbias, long long N, int D,
+                            float eps, float inv, unsigned thresh, unsigned seed,
+                            int nblocks, void* stream) {
+  return ln_bwd<__nv_bfloat16>(x, h, scale, gy, dx, dh, partial, dscale, dbias, N,
+                               D, eps, inv, thresh, seed, nblocks, stream);
+}
+
+ICEK_EXPORT int dropout_f32(const void* in, void* out, long long N, int D,
+                            float inv, unsigned thresh, unsigned seed,
+                            void* stream) {
+  return dropout<float>(in, out, N, D, inv, thresh, seed, stream);
+}
+
+ICEK_EXPORT int dropout_bf16(const void* in, void* out, long long N, int D,
+                             float inv, unsigned thresh, unsigned seed,
+                             void* stream) {
+  return dropout<__nv_bfloat16>(in, out, N, D, inv, thresh, seed, stream);
+}
+
+// the mask the kernels above use, as (N, D) bytes of 0 / 1
+ICEK_EXPORT int norm_keep_mask(void* out, long long N, int D, unsigned thresh,
+                               unsigned seed, void* stream) {
+  if (D < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  keep_mask_kernel<<<flat_grid(N * ((D + 3) / 4), 256), 256, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint8_t*>(out), N, D, thresh, seed);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// random_bits(seed, stream_id, 0 .. n-1), for known-answer tests
+ICEK_EXPORT int philox_random_bits(void* out, long long n, unsigned seed,
+                                   unsigned stream_id, void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  random_bits_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(out), n, seed, stream_id);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,13 +1,23 @@
-"""Flash-attention forward (port of ``icek_tpu/kernels/flash_attention.py``).
+"""Flash attention, forward and backward (port of
+``icek_tpu/kernels/flash_attention.py``).
 
 ``flash_mha`` runs ``csrc/flash_attention.cu`` for CUDA tensors and its
 plain PyTorch version ``reference_mha`` for CPU tensors:
-    softmax(Q K^T / sqrt(Hd), keys >= kv_len masked, optional causal) @ V
-with a float32 softmax.  Q/K/V come in the (B, T, H, Hd) layout with the
-head dim contiguous; the TPU head-slot packing is not part of the port.
-Only the deterministic forward is ported (the context encoder of the
-serving path); attention-weight dropout and the backward belong to the
-training slice.
+    dropout(softmax(Q K^T / sqrt(Hd), keys >= kv_len masked, optional causal)) @ V
+with a float32 softmax and attention-weight dropout.  It is differentiable:
+on CUDA tensors the backward is the kernel pair of the same source (dQ,
+then dK/dV), which regenerates the forward's dropout mask from the seed
+and reads the forward's per-row logsumexp; on CPU tensors autograd
+differentiates the plain version.  Q/K/V come in the (B, T, H, Hd) layout
+with the head dim contiguous; the TPU head-slot packing is not part of the
+port.
+
+Dropout: an element keeps iff the top 24 of its random bits lie below
+``int((1 - rate) * 2**24)``.  The kernels draw the bits from a Philox
+counter keyed by ``seed`` and the score's absolute position (``keep_mask``
+returns that mask); the plain version takes an explicit ``keep`` mask or
+draws one from a ``torch.Generator``.  The two streams differ, as the TPU
+kernel's differs from ``jax.random``.
 """
 
 from __future__ import annotations
@@ -20,14 +30,24 @@ import torch
 from icek_torch.kernels import _build
 
 NEG = -1e30
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-             _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _F, _P]
+_P, _I, _LL, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_float, ctypes.c_uint)
+_SHAPE = [_I] * 5 + [_LL] * 6 + [_I, _I, _F, _F, _U, _U, _P]
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
-def reference_mha(q, k, v, *, kv_len=None, causal=False):
-    """Plain version: (B, Tq, H, Hd) x (B, Tk, H, Hd) -> (B, Tq, H, Hd)."""
+def keep_threshold(rate: float) -> int:
+    """The integer the top 24 random bits are compared with."""
+    return int((1.0 - rate) * (1 << 24))
+
+
+def reference_mha(q, k, v, *, kv_len=None, causal=False, dropout_rate=0.0,
+                  keep=None, gen=None):
+    """Plain version: (B, Tq, H, Hd) x (B, Tk, H, Hd) -> (B, Tq, H, Hd).
+
+    With `dropout_rate` > 0 the softmax weights are masked by `keep`
+    ((B, H, Tq, Tk) bool) and scaled by 1 / (1 - rate); without `keep` the
+    mask is drawn from `gen`."""
     Hd = q.shape[-1]
     Tq, Tk = q.shape[1], k.shape[1]
     kv_len = Tk if kv_len is None else kv_len
@@ -38,16 +58,77 @@ def reference_mha(q, k, v, *, kv_len=None, causal=False):
         valid = valid & (j <= torch.arange(Tq, device=q.device)[:, None])
     logits = logits.masked_fill(~valid, NEG)
     weights = torch.softmax(logits, dim=-1)
+    if dropout_rate > 0.0:
+        if keep is None:
+            keep = torch.rand(weights.shape, generator=gen,
+                              device=weights.device) < 1.0 - dropout_rate
+        weights = torch.where(keep, weights / (1.0 - dropout_rate), 0.0)
     return torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype), v)
 
 
-def flash_mha(q, k, v, *, kv_len=None, causal=False, dropout_rate=0.0):
-    """Fused attention forward; returns a contiguous (B, Tq, H, Hd) tensor
-    in q's dtype.  Key columns at or beyond `kv_len` are masked."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "flash attention with dropout is not ported yet (training slice)"
-        )
+def _shape_args(q, k, v, kv_len, causal, rate, seed):
+    B, Tq, H, Hd = q.shape
+    return (B, Tq, k.shape[1], H, Hd, q.stride(0), q.stride(1), k.stride(0),
+            k.stride(1), v.stride(0), v.stride(1), kv_len, int(causal),
+            1.0 / math.sqrt(Hd), 1.0 / (1.0 - rate), keep_threshold(rate),
+            seed, _build.stream_of(q))
+
+
+def _forward(q, k, v, kv_len, causal, rate, seed):
+    """Launch the forward kernel; returns (out, lse (B, H, Tq) f32)."""
+    B, Tq, H, Hd = q.shape
+    out = torch.empty((B, Tq, H, Hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    fn = _build.bind("flash_attention", "flash_fwd_" + _SUFFIX[q.dtype],
+                     [_P] * 5 + _SHAPE)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), *_shape_args(q, k, v, kv_len, causal, rate, seed))
+    _build.check(err, "flash_attention", "flash_mha")
+    flash_mha.launches += 1
+    return out, lse
+
+
+def flash_mha_bwd(q, k, v, out, lse, d_out, kv_len, causal, rate, seed):
+    """Launch the backward kernels (dQ, then dK/dV) on the forward's saved
+    tensors; returns contiguous (dq, dk, dv) in the inputs' dtype.  `d_out`
+    is made contiguous first (autograd may hand over a strided view)."""
+    if q.shape[-1] > 32:
+        raise ValueError(f"flash_mha backward: head dim {q.shape[-1]} > 32 "
+                         "is unsupported")
+    d_out = d_out.contiguous()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    delta = torch.empty_like(lse)
+    fn = _build.bind("flash_attention", "flash_bwd_" + _SUFFIX[q.dtype],
+                     [_P] * 10 + _SHAPE)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             d_out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(),
+             *_shape_args(q, k, v, kv_len, causal, rate, seed))
+    _build.check(err, "flash_attention", "flash_mha backward")
+    flash_mha_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _FlashMHA(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, causal, rate, seed):
+        out, lse = _forward(q, k, v, kv_len, causal, rate, seed)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.static = (kv_len, causal, rate, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        dq, dk, dv = flash_mha_bwd(*ctx.saved_tensors, d_out, *ctx.static)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_mha(q, k, v, *, kv_len=None, causal=False, dropout_rate=0.0, seed=None):
+    """Fused attention; returns a contiguous (B, Tq, H, Hd) tensor in q's
+    dtype.  Key columns at or beyond `kv_len` are masked.  `seed` (an int in
+    [0, 2**31)) is required when `dropout_rate` > 0."""
     B, Tq, H, Hd = q.shape
     Tk = k.shape[1]
     kv_len = Tk if kv_len is None else int(kv_len)
@@ -56,26 +137,41 @@ def flash_mha(q, k, v, *, kv_len=None, causal=False, dropout_rate=0.0):
                          f"v {tuple(v.shape)} do not agree")
     if not 0 < kv_len <= Tk:
         raise ValueError(f"flash_mha: kv_len {kv_len} outside (0, {Tk}]")
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"flash_mha: dropout_rate {dropout_rate} outside [0, 1)")
+    if dropout_rate > 0.0 and seed is None:
+        raise ValueError("flash_mha: seed is required when dropout_rate > 0")
+    seed = 0 if seed is None else int(seed)
     if q.device.type == "cpu":
-        return reference_mha(q, k, v, kv_len=kv_len, causal=causal)
+        gen = torch.Generator().manual_seed(seed) if dropout_rate > 0.0 else None
+        return reference_mha(q, k, v, kv_len=kv_len, causal=causal,
+                             dropout_rate=dropout_rate, gen=gen)
     _build.require_cuda("flash_mha", q, k, v, dtype=q.dtype)
     if q.dtype not in _SUFFIX:
         raise TypeError(f"flash_mha: unsupported dtype {q.dtype}")
-    if Hd > 128:
-        raise ValueError(f"flash_mha: head dim {Hd} > 128 is unsupported")
+    if Hd > 128 or (dropout_rate > 0.0 and Hd > 32):
+        raise ValueError(f"flash_mha: head dim {Hd} is unsupported (at most 128, "
+                         "and at most 32 with dropout or for the backward)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1 or t.stride(2) != Hd:
             raise ValueError(f"flash_mha: {name} needs a contiguous (H, Hd) "
                              f"tail, got strides {t.stride()}")
-    out = torch.empty((B, Tq, H, Hd), dtype=q.dtype, device=q.device)
-    fn = _build.bind("flash_attention", "flash_fwd_" + _SUFFIX[q.dtype], _ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             B, Tq, Tk, H, Hd, q.stride(0), q.stride(1), k.stride(0),
-             k.stride(1), v.stride(0), v.stride(1), kv_len, int(causal),
-             1.0 / math.sqrt(Hd), _build.stream_of(q))
-    _build.check(err, "flash_attention", "flash_mha")
-    flash_mha.launches += 1
+    return _FlashMHA.apply(q, k, v, kv_len, causal, float(dropout_rate), seed)
+
+
+def keep_mask(B, H, Tq, Tk, *, rate, seed, device):
+    """The (B, H, Tq, Tk) bool mask the kernels use for (rate, seed), written
+    by the same device function; for holding a kernel against its plain
+    version."""
+    out = torch.empty((B, H, Tq, Tk), dtype=torch.bool, device=device)
+    _build.require_cuda("flash keep_mask", out)
+    fn = _build.bind("flash_attention", "flash_keep_mask",
+                     [_P, _I, _I, _I, _I, _U, _U, _P])
+    err = fn(out.data_ptr(), B, H, Tq, Tk, keep_threshold(rate), int(seed),
+             _build.stream_of(out))
+    _build.check(err, "flash_attention", "flash keep_mask")
     return out
 
 
 flash_mha.launches = 0
+flash_mha_bwd.launches = 0

@@ -8,6 +8,9 @@ embedding are not ported yet and raise NotImplementedError.
 
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 
 from icek_torch.core.config import ModelConfig
@@ -107,16 +110,51 @@ def resolve_flash(cfg: ModelConfig, device: torch.device) -> bool:
 
 
 def encode_memory(params, cfg: ModelConfig, image_tokens, entity_features,
+                  gen: Optional[torch.Generator] = None,
                   deterministic: bool = True, compute_dtype=torch.float32):
     """Encode the entity context and assemble the cross-attention memory.
 
+    `gen` feeds the context encoder's dropout on non-deterministic passes.
     Returns (memory (B, 196+E, D), entities_encoded).
     """
     _no_facts(cfg, "encode_memory")
     ents = encode_entities(params, cfg, entity_features)
     ent_ctx = tfm.encoder_stack(
         params["ctx_encoder_entities"], ents, cfg.num_heads, cfg.dropout_enc,
-        deterministic, compute_dtype, flash=resolve_flash(cfg, ents.device),
+        gen, deterministic, compute_dtype, flash=resolve_flash(cfg, ents.device),
     )
     dt = torch.promote_types(image_tokens.dtype, ent_ctx.dtype)
     return torch.cat([image_tokens.to(dt), ent_ctx.to(dt)], dim=1), ents
+
+
+def captioner_forward(params, cfg: ModelConfig, vocab_size: int, pad_id: int,
+                      caption_ids, caption_mask, image_tokens, entity_features,
+                      gen: Optional[torch.Generator] = None,
+                      deterministic: bool = True, compute_dtype=torch.float32,
+                      pos_table: Optional[torch.Tensor] = None,
+                      score_dtype=torch.float32):
+    """Teacher-forced pass returning (B, T, V+E) logits in `score_dtype`.
+
+    caption_ids, caption_mask: (B, T) int64; image_tokens: (B, 196, D).
+    There is no length sort or packing: the loss masks the padding.  `gen`
+    feeds every dropout site of a non-deterministic pass, in the order
+    context encoder, positional dropout, decoder.
+    """
+    _no_facts(cfg, "captioner_forward")
+    T = caption_ids.shape[1]
+    memory, ents = encode_memory(params, cfg, image_tokens, entity_features,
+                                 gen, deterministic, compute_dtype)
+    emb = embed_captions(params, vocab_size, pad_id, caption_ids, caption_mask, ents)
+    if pos_table is None:
+        pos_table = torch.as_tensor(tfm.sinusoidal_positions(T, cfg.emb_dim),
+                                    device=emb.device)
+    emb = emb * math.sqrt(cfg.emb_dim) + pos_table[:T]
+    emb = tfm.dropout(emb, cfg.dropout_pos, gen, deterministic)
+    h, _ = tfm.decoder_stack(
+        params["decoder"], emb, memory, cfg.num_heads,
+        causal_mask=tfm.causal_mask(T, device=emb.device), rate=cfg.dropout_dec,
+        gen=gen, deterministic=deterministic, compute_dtype=compute_dtype,
+        flash=resolve_flash(cfg, emb.device),
+    )
+    return copy_scores(params, cfg, h, ents, compute_dtype=compute_dtype,
+                       out_dtype=score_dtype)

@@ -7,7 +7,13 @@ plain functions over a params dict with the JAX package's layout:
   * batch-first (B, T, D) activations;
   * attention runs in ``compute_dtype`` with float32 softmax.
 
-Dropout is not ported yet (training slice): an active dropout raises.
+Dropout draws from an explicit host ``torch.Generator`` (`gen`) that the
+caller threads through the stacks where JAX threads a key; each dropout
+site advances it.  On dropout-active passes with `flash` set, the attention
+weights, the residual + LayerNorm chains and the FFN-internal dropout run
+through the kernels (``kernels/flash_attention.py``,
+``kernels/fused_norm.py``), each seeded with an integer drawn from `gen`;
+otherwise the stock dropout below runs.
 The self-attention KV cache of the single-step decode path is updated in
 place (the JAX version returns a new buffer); the returned cache is the
 same dict.
@@ -22,6 +28,7 @@ import numpy as np
 import torch
 
 from icek_torch.kernels import flash_attention as fa
+from icek_torch.kernels import fused_norm
 
 
 def _uniform(gen, shape, bound):
@@ -68,15 +75,47 @@ def init_mha(gen: torch.Generator, d_model):
     }
 
 
-def dropout(x, rate, deterministic):
+def _kernel_seed(gen: torch.Generator) -> int:
+    """A fresh seed in [0, 2**31) for one dropout kernel launch, drawn on
+    the host (`gen` is a CPU generator, so nothing waits for the device)."""
+    if gen is None:
+        raise ValueError("an active dropout needs a torch.Generator")
+    if gen.device.type != "cpu":
+        raise ValueError("the dropout generator must be a CPU torch.Generator")
+    return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gen))
+
+
+def dropout(x, rate, gen, deterministic):
+    """Stock dropout: a Bernoulli(1 - rate) keep mask, survivors scaled by
+    1 / (1 - rate).  The mask comes from `gen` for CPU tensors and from a
+    device generator seeded from `gen` otherwise."""
     if deterministic or rate == 0.0:
         return x
-    raise NotImplementedError("dropout is not ported yet (training slice)")
+    if x.device.type == "cpu" and gen is not None:
+        mask_gen = gen
+    else:
+        mask_gen = torch.Generator(device=x.device).manual_seed(_kernel_seed(gen))
+    keep = torch.rand(x.shape, generator=mask_gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
-def residual_norm(norm, x, h, rate, deterministic):
-    """``layer_norm(norm, x + dropout(h))``."""
-    return layer_norm(norm, x + dropout(h, rate, deterministic))
+def _active(rate, deterministic) -> bool:
+    return rate > 0.0 and not deterministic
+
+
+def residual_norm(norm, x, h, rate, gen, deterministic, fused=False,
+                  compute_dtype=torch.float32):
+    """``layer_norm(norm, x + dropout(h))``.
+
+    On dropout-active `fused` passes the chain is one kernel
+    (``fused_norm.dropout_add_ln``): x and h go in in the compute dtype, the
+    mask is regenerated in the backward and the result comes out in the
+    compute dtype.  Otherwise the stock chain runs and returns float32."""
+    if fused and _active(rate, deterministic):
+        return fused_norm.dropout_add_ln(
+            x.to(compute_dtype), h.to(compute_dtype), norm["scale"], norm["bias"],
+            rate=rate, seed=_kernel_seed(gen))
+    return layer_norm(norm, x + dropout(h, rate, gen, deterministic))
 
 
 def multi_head_attention(
@@ -86,6 +125,7 @@ def multi_head_attention(
     num_heads: int,
     attn_mask: Optional[torch.Tensor] = None,   # (Tq, Tk) additive, -inf masked
     dropout_rate: float = 0.0,
+    gen: Optional[torch.Generator] = None,
     deterministic: bool = True,
     compute_dtype=torch.float32,
     kv_cache: Optional[dict] = None,
@@ -102,7 +142,8 @@ def multi_head_attention(
     (B, Tk, H, Hd)) the static memory's projections are reused; a KV batch
     smaller than the query batch is shared by beam groups.  With `flash`
     (full-sequence passes only) the attention core runs through the
-    flash-attention kernel wrapper; `causal` then replaces `attn_mask`.
+    flash-attention kernel wrapper, attention-weight dropout included (its
+    seed drawn from `gen`); `causal` then replaces `attn_mask`.
     Returns (output, updated_cache_or_None).
     """
     B, Tq, D = q_in.shape
@@ -111,17 +152,13 @@ def multi_head_attention(
     dt = compute_dtype
     w = params["qkv_w"].to(dt)
     b = params["qkv_b"].to(dt)
-    active_dropout = dropout_rate > 0.0 and not deterministic
+    rate = dropout_rate if _active(dropout_rate, deterministic) else 0.0
 
     if flash and kv_cache is None and precomputed_kv is None:
         if attn_mask is not None and not causal:
             raise ValueError(
                 "the flash path only supports causal masking via `causal`; "
                 "an explicit attn_mask would be silently dropped"
-            )
-        if active_dropout:
-            raise NotImplementedError(
-                "flash attention with dropout is not ported yet (training slice)"
             )
         if kv_in is q_in:
             qkv = q_in.to(dt) @ w + b
@@ -132,7 +169,8 @@ def multi_head_attention(
         Tk = k.shape[1]
         out = fa.flash_mha(
             q.view(B, Tq, H, Hd), k.view(B, Tk, H, Hd), v.view(B, Tk, H, Hd),
-            causal=causal,
+            causal=causal, dropout_rate=rate,
+            seed=_kernel_seed(gen) if rate > 0.0 else None,
         )
         return linear(params["out"], out.reshape(B, Tq, D), dt), None
 
@@ -174,7 +212,7 @@ def multi_head_attention(
         valid = torch.arange(Tk, device=logits.device) <= cache_index
         logits = logits.masked_fill(~valid, float("-inf"))
     weights = torch.softmax(logits, dim=-1)
-    weights = dropout(weights, dropout_rate, deterministic)
+    weights = dropout(weights, dropout_rate, gen, deterministic)
     out = torch.einsum("bhqk,bkhd->bqhd", weights.to(dt), v)
     out = linear(params["out"], out.reshape(B, Tq, D), dt)
     return out, new_cache
@@ -192,22 +230,27 @@ def init_encoder_layer(gen, d_model, ffn_dim):
     }
 
 
-def _ffn(params, x, rate, deterministic, compute_dtype):
+def _ffn(params, x, rate, gen, deterministic, compute_dtype, fused=False):
     h = torch.relu(linear(params["lin1"], x, compute_dtype))
-    h = dropout(h, rate, deterministic)
+    if fused and _active(rate, deterministic):
+        h = fused_norm.hw_dropout(h, rate=rate, seed=_kernel_seed(gen))
+    else:
+        h = dropout(h, rate, gen, deterministic)
     return linear(params["lin2"], h, compute_dtype)
 
 
-def encoder_layer(params, x, num_heads, rate=0.0, deterministic=True,
+def encoder_layer(params, x, num_heads, rate=0.0, gen=None, deterministic=True,
                   compute_dtype=torch.float32, flash=False):
     """Post-LN transformer encoder layer (self-attn + FFN)."""
     attn, _ = multi_head_attention(
-        params["self_attn"], x, x, num_heads, dropout_rate=rate,
+        params["self_attn"], x, x, num_heads, dropout_rate=rate, gen=gen,
         deterministic=deterministic, compute_dtype=compute_dtype, flash=flash,
     )
-    x = residual_norm(params["norm1"], x, attn, rate, deterministic)
-    ff = _ffn(params["ffn"], x, rate, deterministic, compute_dtype)
-    return residual_norm(params["norm2"], x, ff, rate, deterministic)
+    x = residual_norm(params["norm1"], x, attn, rate, gen, deterministic, flash,
+                      compute_dtype)
+    ff = _ffn(params["ffn"], x, rate, gen, deterministic, compute_dtype, fused=flash)
+    return residual_norm(params["norm2"], x, ff, rate, gen, deterministic, flash,
+                         compute_dtype)
 
 
 def init_decoder_layer(gen, d_model, ffn_dim):
@@ -225,7 +268,7 @@ def init_decoder_layer(gen, d_model, ffn_dim):
 
 
 def decoder_layer(params, x, memory, num_heads, causal_mask=None, rate=0.0,
-                  deterministic=True, compute_dtype=torch.float32,
+                  gen=None, deterministic=True, compute_dtype=torch.float32,
                   kv_cache=None, cache_index=None, cross_kv=None, flash=False):
     """Post-LN transformer decoder layer (masked self-attn, cross-attn, FFN).
 
@@ -236,19 +279,22 @@ def decoder_layer(params, x, memory, num_heads, causal_mask=None, rate=0.0,
     self_cache = kv_cache["self"] if kv_cache is not None else None
     attn, new_self_cache = multi_head_attention(
         params["self_attn"], x, x, num_heads, attn_mask=causal_mask,
-        dropout_rate=rate, deterministic=deterministic,
+        dropout_rate=rate, gen=gen, deterministic=deterministic,
         compute_dtype=compute_dtype, kv_cache=self_cache,
         cache_index=cache_index, flash=flash, causal=causal_mask is not None,
     )
-    x = residual_norm(params["norm1"], x, attn, rate, deterministic)
+    x = residual_norm(params["norm1"], x, attn, rate, gen, deterministic, flash,
+                      compute_dtype)
     cross, _ = multi_head_attention(
-        params["cross_attn"], x, memory, num_heads, dropout_rate=rate,
+        params["cross_attn"], x, memory, num_heads, dropout_rate=rate, gen=gen,
         deterministic=deterministic, compute_dtype=compute_dtype,
         precomputed_kv=cross_kv, flash=flash,
     )
-    x = residual_norm(params["norm2"], x, cross, rate, deterministic)
-    ff = _ffn(params["ffn"], x, rate, deterministic, compute_dtype)
-    x = residual_norm(params["norm3"], x, ff, rate, deterministic)
+    x = residual_norm(params["norm2"], x, cross, rate, gen, deterministic, flash,
+                      compute_dtype)
+    ff = _ffn(params["ffn"], x, rate, gen, deterministic, compute_dtype, fused=flash)
+    x = residual_norm(params["norm3"], x, ff, rate, gen, deterministic, flash,
+                      compute_dtype)
     return x, new_self_cache
 
 
@@ -257,10 +303,10 @@ def init_encoder_stack(gen, num_layers, d_model, ffn_dim):
                        for _ in range(num_layers)]}
 
 
-def encoder_stack(params, x, num_heads, rate=0.0, deterministic=True,
+def encoder_stack(params, x, num_heads, rate=0.0, gen=None, deterministic=True,
                   compute_dtype=torch.float32, flash=False):
     for layer in params["layers"]:
-        x = encoder_layer(layer, x, num_heads, rate, deterministic,
+        x = encoder_layer(layer, x, num_heads, rate, gen, deterministic,
                           compute_dtype, flash=flash)
     return x
 
@@ -271,7 +317,7 @@ def init_decoder_stack(gen, num_layers, d_model, ffn_dim):
 
 
 def decoder_stack(params, x, memory, num_heads, causal_mask=None, rate=0.0,
-                  deterministic=True, compute_dtype=torch.float32,
+                  gen=None, deterministic=True, compute_dtype=torch.float32,
                   kv_caches=None, cache_index=None, cross_kvs=None, flash=False):
     """Run the decoder layers; returns (output, new_kv_caches_or_None)."""
     new_caches = [] if kv_caches is not None else None
@@ -279,7 +325,7 @@ def decoder_stack(params, x, memory, num_heads, causal_mask=None, rate=0.0,
         cache = kv_caches[i] if kv_caches is not None else None
         cross = cross_kvs[i] if cross_kvs is not None else None
         x, new_self = decoder_layer(
-            layer, x, memory, num_heads, causal_mask, rate, deterministic,
+            layer, x, memory, num_heads, causal_mask, rate, gen, deterministic,
             compute_dtype, kv_cache=cache, cache_index=cache_index,
             cross_kv=cross, flash=flash,
         )

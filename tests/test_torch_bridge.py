@@ -18,6 +18,7 @@ from icek_torch import bridge
 from icek_torch.kernels import copy_scores as tcs
 from icek_torch.kernels import decoder_step as tds
 from icek_torch.kernels import flash_attention as tfa
+from icek_torch.kernels import fused_norm as tfn
 from test_torch_common import jax_params_numpy, small_cfgs
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -87,14 +88,18 @@ def test_port_imports_nothing_of_jax():
             bad += [f"{path.name}: {n}" for n in names
                     if n.split(".")[0] in FORBIDDEN]
     assert not bad, bad
-    assert len(_port_sources()) > 15
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert len(names) > 15
+    assert {"icek_torch/train/step.py", "icek_torch/train/__init__.py",
+            "icek_torch/kernels/fused_norm.py"} <= names
 
 
 def test_port_import_loads_no_jax_subprocess():
     code = (
         "import sys, icek_torch.eval_driver, icek_torch.bridge, "
         "icek_torch.kernels.decoder_step, icek_torch.kernels.copy_scores, "
-        "icek_torch.kernels.flash_attention; "
+        "icek_torch.kernels.flash_attention, icek_torch.kernels.fused_norm, "
+        "icek_torch.train.step; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r}]; "
         "assert not bad, bad"
@@ -107,7 +112,9 @@ def test_port_import_loads_no_jax_subprocess():
 
 def _counts():
     return (tfa.flash_mha.launches, tcs.fused_score_topk.launches,
-            tds.fused_beam_decoder_step.launches)
+            tds.fused_beam_decoder_step.launches, tfa.flash_mha_bwd.launches,
+            tfn.dropout_add_ln.launches, tfn.dropout_add_ln_bwd.launches,
+            tfn.hw_dropout.launches)
 
 
 def test_cpu_tensors_take_the_plain_version(rng):
@@ -123,6 +130,23 @@ def test_cpu_tensors_take_the_plain_version(rng):
     for got, want in zip(tcs.fused_score_topk(h, wv, bv, tail, k=3),
                          tcs.reference_score_topk(h, wv, bv, tail, k=3)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+    x, hh = (torch.as_tensor(rng.standard_normal((5, 12)).astype(np.float32))
+             for _ in range(2))
+    scale, bias = torch.ones(12), torch.zeros(12)
+    torch.testing.assert_close(
+        tfn.dropout_add_ln(x, hh, scale, bias, rate=0.0),
+        tfn.reference_dropout_add_ln(x, hh, scale, bias, rate=0.0), rtol=0, atol=0)
+    g7 = lambda: torch.Generator().manual_seed(7)
+    torch.testing.assert_close(
+        tfn.dropout_add_ln(x, hh, scale, bias, rate=0.25, seed=7),
+        tfn.reference_dropout_add_ln(x, hh, scale, bias, rate=0.25, gen=g7()),
+        rtol=0, atol=0)
+    torch.testing.assert_close(tfn.hw_dropout(x, rate=0.25, seed=7),
+                               tfn.reference_hw_dropout(x, rate=0.25, gen=g7()),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(
+        tfa.flash_mha(q, k, v, dropout_rate=0.25, seed=7),
+        tfa.reference_mha(q, k, v, dropout_rate=0.25, gen=g7()), rtol=0, atol=0)
     assert _counts() == before   # no kernel was launched
 
 
@@ -135,5 +159,61 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     with pytest.raises(ValueError, match="CUDA"):
         tcs.fused_score_topk(torch.empty((4, 8), **meta), torch.empty((8, 50), **meta),
                              torch.empty((50,), **meta), torch.empty((4, 6), **meta))
-    with pytest.raises(NotImplementedError):
-        tfa.flash_mha(q, q, q, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_mha(q, q, q, dropout_rate=0.1, seed=3)
+    x = torch.empty((6, 8), **meta)
+    scale = torch.empty((8,), **meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfn.dropout_add_ln(x, x, scale, scale, rate=0.1, seed=3)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfn.hw_dropout(x, rate=0.1, seed=3)
+
+
+def test_train_step_imports_without_cuda_nvcc_or_triton():
+    """icek_torch.train.step (and the kernel wrappers under it) import in a
+    process with no CUDA device, no nvcc on PATH and triton blocked; nothing
+    is built and neither triton nor jax gets loaded."""
+    code = (
+        "import sys, shutil; sys.modules['triton'] = None; "
+        "import torch, icek_torch.train.step as st, "
+        "icek_torch.kernels._build as b, icek_torch.kernels.fused_norm; "
+        "assert not torch.cuda.is_available(); "
+        "assert shutil.which('nvcc') is None; "
+        "assert not b._libs and not b.ptxas_reports; "
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r}]; "
+        "assert not bad, bad; "
+        "assert callable(st.make_train_step) and callable(st.caption_loss)"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT), PATH="/nonexistent",
+               CUDA_VISIBLE_DEVICES="")
+    env.pop("CUDA_HOME", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_make_train_step_refuses_missing_card_and_unported_options():
+    from icek_torch.train import step as tstep
+
+    _, tc = small_cfgs()
+    opt = tstep.make_optimizer(1e-3)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA"):
+            tstep.make_train_step(tc, 30, 0, opt, encode_images=False)
+    for kw in (dict(), dict(encode_images=False, encoder_optimizer=object()),
+               dict(encode_images=False, token_cache=object()),
+               dict(encode_images=False, token_cache_mesh=object()),
+               dict(bn_train_mode=True)):
+        with pytest.raises(NotImplementedError):
+            tstep.make_train_step(tc, 30, 0, opt, device="cpu", **kw)
+
+
+def test_trainable_marks_leaves_without_copy():
+    jc, tc = small_cfgs()
+    port = bridge.from_jax_params(jax_params_numpy(jc.model, 30), tc.model, 30)
+    w = port["fc_vocab"]["w"]
+    out = bridge.trainable(port, "cpu")
+    assert out["fc_vocab"]["w"] is w and w.requires_grad and w.is_leaf
+    assert all(not g.any() for g in _leaves(bridge.grads_to_numpy(out)))
+    with torch.inference_mode():          # the serving path reads them as before
+        assert not (w * 2).requires_grad

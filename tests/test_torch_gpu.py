@@ -165,3 +165,257 @@ def test_beam_decode_kernels_match_stock_on_card(cuda):
              tds.fused_beam_decoder_step.launches)
     assert after[0] == counts[0] + cfg.num_layers   # the context encoder
     assert after[1] > counts[1] and after[2] > counts[2]
+
+
+# ---------------------------------------------------------------------------
+# training kernels: each against its plain version under the kernel's own mask
+# ---------------------------------------------------------------------------
+
+def _philox4x32_10(counter, key):
+    """Philox-4x32-10 on Python ints (Salmon et al., SC'11)."""
+    c, k = list(counter), list(key)
+    for _ in range(10):
+        p0, p1 = 0xD2511F53 * c[0], 0xCD9E8D57 * c[2]
+        c = [(p1 >> 32) ^ c[1] ^ k[0], p1 & 0xFFFFFFFF,
+             (p0 >> 32) ^ c[3] ^ k[1], p0 & 0xFFFFFFFF]
+        k = [(k[0] + 0x9E3779B9) & 0xFFFFFFFF, (k[1] + 0xBB67AE85) & 0xFFFFFFFF]
+    return c
+
+
+def test_philox_known_answers(cuda):
+    """The host model reproduces Random123's published vectors, and the
+    device function equals the host model word for word."""
+    from icek_torch.kernels import fused_norm as tfn
+
+    assert _philox4x32_10([0, 0, 0, 0], [0, 0]) == [
+        0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]
+    assert _philox4x32_10([0xFFFFFFFF] * 4, [0xFFFFFFFF] * 2) == [
+        0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD]
+    for seed, stream in ((0, 0), (12345, 2), (2 ** 31 - 2, 1)):
+        got = tfn.philox_bits(64, seed=seed, stream_id=stream, device=cuda).cpu().tolist()
+        want = [w for blk in range(16)
+                for w in _philox4x32_10([blk, 0, 0, 0], [seed, stream])]
+        assert got == want
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.2, 0.5])
+def test_keep_masks_rate_and_seed(cuda, rate):
+    from icek_torch.kernels import fused_norm as tfn
+
+    m = tfn.keep_mask(2000, 300, rate=rate, seed=3, device=cuda)
+    assert abs(float(m.float().mean()) - (1 - rate)) < 0.005
+    assert torch.equal(m, tfn.keep_mask(2000, 300, rate=rate, seed=3, device=cuda))
+    assert not torch.equal(m, tfn.keep_mask(2000, 300, rate=rate, seed=4, device=cuda))
+    # a row's mask does not depend on how many rows there are
+    assert torch.equal(m[:7], tfn.keep_mask(7, 300, rate=rate, seed=3, device=cuda))
+    f = tfa.keep_mask(4, 10, 64, 301, rate=rate, seed=3, device=cuda)
+    assert abs(float(f.float().mean()) - (1 - rate)) < 0.005
+    # a score's mask does not depend on the batch size
+    assert torch.equal(f[:2], tfa.keep_mask(2, 10, 64, 301, rate=rate, seed=3,
+                                            device=cuda))
+    assert tfn.keep_mask(5, 30, rate=0.0, seed=1, device=cuda).all()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("n,d", [(530, 36), (64, 300), (77, 511), (9, 1024)])
+def test_dropout_add_ln_kernel_matches_plain(cuda, dtype, tol, rate, n, d):
+    """Forward and all four gradients against the plain version under the
+    kernel's own mask.  f32: 1e-4 on values of order 1 (dscale / dbias: 1e-4
+    x sqrt(rows), sums over the rows in another order); bf16: one bf16 ulp of
+    the outputs, 3e-2."""
+    from icek_torch.kernels import fused_norm as tfn
+
+    g = _gen(4)
+    x, h, gy = (torch.randn((n, d), generator=g).to(cuda, dtype) for _ in range(3))
+    scale = (1 + 0.1 * torch.randn(d, generator=g)).to(cuda)
+    bias = (0.1 * torch.randn(d, generator=g)).to(cuda)
+    keep = tfn.keep_mask(n, d, rate=rate, seed=21, device=cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (x, h, scale, bias)]
+    before = (tfn.dropout_add_ln.launches, tfn.dropout_add_ln_bwd.launches)
+    got = tfn.dropout_add_ln(*leaves, rate=rate, seed=21)
+    ggrads = torch.autograd.grad(got, leaves, gy)
+    torch.cuda.synchronize()
+    assert (tfn.dropout_add_ln.launches, tfn.dropout_add_ln_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = [t.clone().requires_grad_(True) for t in (x, h, scale, bias)]
+    want = tfn.reference_dropout_add_ln(*ref, rate=rate, keep=keep)
+    wgrads = torch.autograd.grad(want, ref, gy)
+    assert got.dtype == dtype and ggrads[2].shape == (d,)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    for i, (a, b) in enumerate(zip(ggrads, wgrads)):
+        atol = tol * (4 if i < 2 else max(1.0, n ** 0.5))
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=atol)
+    if rate:
+        assert not ggrads[1][~keep].any()       # dh is zero exactly where h dropped
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(300, 512), (33, 37), (5, 2050)])
+def test_hw_dropout_kernel_matches_plain(cuda, dtype, n, d):
+    from icek_torch.kernels import fused_norm as tfn
+
+    g = _gen(5)
+    h = torch.randn((n, d), generator=g).to(cuda, dtype).requires_grad_(True)
+    gy = torch.randn((n, d), generator=g).to(cuda, dtype)
+    keep = tfn.keep_mask(n, d, rate=0.2, seed=8, device=cuda)
+    before = tfn.hw_dropout.launches
+    y = tfn.hw_dropout(h, rate=0.2, seed=8)
+    (dh,) = torch.autograd.grad(y, h, gy)
+    torch.cuda.synchronize()
+    assert tfn.hw_dropout.launches == before + 2       # forward and backward
+    tol = 0 if dtype == torch.float32 else 2e-2        # x / 0.8 against x * 1.25, rounded
+    torch.testing.assert_close(y.float(), tfn.reference_hw_dropout(
+        h.detach(), rate=0.2, keep=keep).float(), rtol=1e-6, atol=tol)
+    torch.testing.assert_close(dh.float(), tfn.reference_hw_dropout(
+        gy, rate=0.2, keep=keep).float(), rtol=1e-6, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 4e-2)])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("causal,tq,tk,h,kv_len", [
+    (False, 17, 17, 3, 17), (True, 32, 32, 10, 32), (False, 32, 497, 10, 497),
+    (False, 13, 37, 3, 30), (True, 70, 70, 2, 70), (False, 301, 301, 2, 301)])
+def test_flash_backward_kernel_matches_plain(cuda, dtype, tol, rate, causal, tq, tk,
+                                             h, kv_len):
+    """Forward with dropout and dq / dk / dv against the plain version under
+    the kernel's own mask, on strided views of one fused projection and a
+    non-contiguous d_out.  f32 1e-4, bf16 4e-2 (sums of bf16-rounded
+    products), both times the largest expected value where that exceeds 1.  Keys at or beyond kv_len get exactly 0."""
+    hd, B = 30, 2
+    g = _gen(6)
+    qkv = torch.randn((B, tk, 3 * h * hd), generator=g).to(cuda, dtype).requires_grad_(True)
+    q0 = torch.randn((B, tq, h * hd), generator=g).to(cuda, dtype).requires_grad_(True)
+    d_out = torch.randn((B, h, tq, hd), generator=g).to(cuda, dtype).transpose(1, 2)
+
+    def run(fn, **kw):
+        q = q0.view(B, tq, h, hd)
+        k = qkv[..., h * hd:2 * h * hd].view(B, tk, h, hd)
+        v = qkv[..., 2 * h * hd:].view(B, tk, h, hd)
+        out = fn(q, k, v, kv_len=kv_len, causal=causal, dropout_rate=rate, **kw)
+        return (out,) + torch.autograd.grad(out, (q0, qkv), d_out)
+
+    before = (tfa.flash_mha.launches, tfa.flash_mha_bwd.launches)
+    got = run(tfa.flash_mha, seed=31)
+    torch.cuda.synchronize()
+    assert (tfa.flash_mha.launches, tfa.flash_mha_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    keep = tfa.keep_mask(B, h, tq, tk, rate=rate, seed=31, device=cuda)
+    want = run(tfa.reference_mha, keep=keep)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=tol * max(1.0, float(b.detach().abs().max())))
+    dkv = got[2].view(B, tk, 3, h * hd)
+    assert not dkv[:, kv_len:, 1:].any() and not dkv[:, :, 0].any()
+
+
+def test_flash_dropout_forward_and_backward_see_one_mask(cuda):
+    """The output is linear in v for a fixed mask, so <f(v), g> == <v, df/dv(g)>
+    holds iff the forward and the dK/dV kernel saw the same mask; and the
+    dropped share of the weights is the rate."""
+    B, Tq, Tk, H, Hd, rate = 2, 32, 301, 10, 30, 0.3
+    g = _gen(7)
+    q, k, v, gy = (torch.randn((B, t, H, Hd), generator=g).to(cuda)
+                   for t in (Tq, Tk, Tk, Tq))
+    v.requires_grad_(True)
+    out = tfa.flash_mha(q, k, v, dropout_rate=rate, seed=7)
+    (dv,) = torch.autograd.grad(out, v, gy)
+    torch.testing.assert_close((out * gy).sum(), (v * dv).sum(), rtol=1e-4, atol=1e-3)
+    # the weights of one head, read through a (120 x 120) basis as v, 30 columns a call
+    Tk = 120
+    basis = torch.eye(Tk, device=cuda)[None, :, None, :].expand(B, Tk, 1, Tk)
+    p = torch.cat([tfa.flash_mha(q[:, :, :1], k[:, :Tk, :1], basis[..., c:c + 30].contiguous(),
+                                 dropout_rate=rate, seed=7) for c in range(0, Tk, 30)], -1)
+    assert abs(float((p == 0).float().mean()) - rate) < 0.01
+
+
+def test_flash_refuses_wide_heads_with_dropout_or_backward(cuda):
+    q = torch.randn((1, 8, 2, 64), device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_mha(q, q, q, dropout_rate=0.1, seed=1)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_mha(q, q, q).sum().backward()
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """A small f32 step with dropout 0 on the card (every kernel on) against
+    the same step on the CPU: loss and Adam's first moments (0.1 x the
+    clipped gradients) within 1e-4 relative to the largest value."""
+    import copy
+
+    from icek_torch import bridge
+    from icek_torch.core import config as cfgs
+    from icek_torch.models import captioner
+    from icek_torch.train import step as tstep
+
+    base = cfgs.georic()
+    cfg = base.replace(model=dataclasses.replace(
+        base.model, emb_dim=40, num_heads=4, decoder_ffn_dim=64, encoder_ffn_dim=64,
+        num_layers=2, type_vocab=20, dropout_enc=0.0, dropout_dec=0.0, dropout_pos=0.0))
+    V, E, B, T = 60, 9, 4, 7
+    g = _gen(8)
+    params = captioner.init_captioner_params(g, cfg.model, V)
+    ents = torch.zeros((B, E, 5))
+    ents[:, :, 0] = torch.arange(E)
+    ents[:, :, 1:4] = torch.rand((B, E, 3), generator=g)
+    ents[:, :, 4] = torch.randint(0, 20, (B, E), generator=g)
+    caps = torch.randint(1, V + E, (B, T), generator=g)
+    batch = {"caption_ids": caps, "caption_mask": (caps >= V).long(),
+             "lengths": torch.tensor([7, 5, 3, 6]), "entity_features": ents,
+             "image_tokens": torch.randn((B, 12, 40), generator=g)}
+    res = {}
+    for dev in ("cpu", cuda):
+        p = bridge.trainable(copy.deepcopy(params), dev)
+        opt = tstep.make_optimizer(1e-3)
+        state = opt.init(p)
+        train, _ = tstep.make_train_step(cfg, V, 0, opt, encode_images=False, device=dev)
+        _, _, loss, count = train(p, state, None, batch, torch.Generator().manual_seed(0))
+        mu, _ = state.moments(p)
+        res[str(dev)] = (float(loss), int(count),
+                         [m.cpu() for m in tstep.tree_leaves(mu)])
+    (l0, n0, m0), (l1, n1, m1) = res["cpu"], res[str(cuda)]
+    assert n0 == n1 and abs(l0 - l1) <= 1e-4 * abs(l0)
+    for a, b in zip(m0, m1):
+        assert float((a - b).abs().max()) <= 1e-4 * max(float(a.abs().max()), 1e-3)
+    # dropout 0 routes around the dropout kernels, not around flash
+    assert tfa.flash_mha_bwd.launches > 0
+
+
+def test_train_step_with_dropout_launches_every_kernel(cuda):
+    """One small bf16 step with the preset's dropout on the card: finite
+    loss, and per step 3 flash launches per layer pair forward and as many
+    backward, 5 LayerNorm launches per layer pair each way, 2 dropout
+    launches per layer each way."""
+    from icek_torch import bridge
+    from icek_torch.core import config as cfgs
+    from icek_torch.kernels import fused_norm as tfn
+    from icek_torch.models import captioner
+    from icek_torch.train import step as tstep
+
+    base = cfgs.georic()
+    L = 2
+    cfg = base.replace(model=dataclasses.replace(
+        base.model, emb_dim=60, num_heads=2, decoder_ffn_dim=64, encoder_ffn_dim=64,
+        num_layers=L, type_vocab=20))
+    V, E, B, T = 60, 9, 4, 7
+    g = _gen(9)
+    params = bridge.trainable(captioner.init_captioner_params(g, cfg.model, V), cuda)
+    ents = torch.zeros((B, E, 5))
+    ents[:, :, 0] = torch.arange(E)
+    caps = torch.randint(1, V, (B, T), generator=g)
+    batch = {"caption_ids": caps, "caption_mask": torch.zeros_like(caps),
+             "lengths": torch.full((B,), T), "entity_features": ents,
+             "image_tokens": torch.randn((B, 12, 60), generator=g)}
+    opt = tstep.make_optimizer(1e-3)
+    state = opt.init(params)
+    train, evaluate = tstep.make_train_step(cfg, V, 0, opt, torch.bfloat16,
+                                            encode_images=False, device=cuda)
+    fns = (tfa.flash_mha, tfa.flash_mha_bwd, tfn.dropout_add_ln,
+           tfn.dropout_add_ln_bwd, tfn.hw_dropout)
+    before = [f.launches for f in fns]
+    _, _, loss, _ = train(params, state, None, batch, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert [f.launches - b for f, b in zip(fns, before)] == [
+        3 * L, 3 * L, 5 * L, 5 * L, 4 * L]
+    assert torch.isfinite(evaluate(params, None, batch)[0])

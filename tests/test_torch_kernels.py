@@ -1,7 +1,7 @@
-"""The three kernels' plain versions (what each wrapper runs for CPU
+"""The serving kernels' plain versions (what each wrapper runs for CPU
 tensors) against the JAX Pallas functions, run as tests/test_kernels.py
 runs them on the CPU (the Pallas interpreter), and against the JAX
-oracles.  The CUDA kernels themselves are held against these plain
+oracles (the flash backward is in tests/test_torch_norm.py).  The CUDA kernels themselves are held against these plain
 versions on the card (tests/test_torch_gpu.py, chip_smoke.py).
 
 Tolerances: attention outputs atol 2e-5 (as test_flash_mha_matches_oracle);

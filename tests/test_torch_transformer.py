@@ -173,10 +173,69 @@ def test_tables():
 
 
 def test_active_dropout_raises(rng):
+    """An active dropout without a generator raises on both branches (as
+    the JAX flash branch does without a key); it no longer raises for
+    being unported."""
     _, tp = _mha_pair()
     x = torch.as_tensor(rng.standard_normal((1, 3, D)).astype(np.float32))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="Generator"):
         ttf.multi_head_attention(tp, x, x, H, dropout_rate=0.1, deterministic=False)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="Generator"):
         ttf.multi_head_attention(tp, x, x, H, dropout_rate=0.1,
                                  deterministic=False, flash=True)
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_mha_dropout_runs_and_follows_the_generator(rng, flash):
+    """rate > 0: the output differs from the deterministic one, the same
+    generator seed repeats it and another seed changes it."""
+    _, tp = _mha_pair()
+    x = torch.as_tensor(rng.standard_normal((2, 9, D)).astype(np.float32))
+    run = lambda seed: ttf.multi_head_attention(
+        tp, x, x, H, dropout_rate=0.3, deterministic=False, flash=flash,
+        gen=torch.Generator().manual_seed(seed))[0]
+    base, _ = ttf.multi_head_attention(tp, x, x, H, flash=flash)
+    a, b, c = run(1), run(1), run(2)
+    assert torch.equal(a, b)
+    assert not torch.equal(a, c) and not torch.equal(a, base)
+    assert torch.isfinite(a).all()
+
+
+def test_stock_dropout_statistics():
+    """dropout(): keep rate within 0.01 of 1 - rate, survivors scaled by
+    1 / (1 - rate), deterministic passes untouched."""
+    x = torch.ones((400, 250))
+    gen = torch.Generator().manual_seed(0)
+    y = ttf.dropout(x, 0.2, gen, False)
+    assert abs(float((y != 0).float().mean()) - 0.8) < 0.01
+    torch.testing.assert_close(y[y != 0], torch.full_like(y[y != 0], 1.25))
+    assert ttf.dropout(x, 0.2, None, True) is x
+    assert ttf.dropout(x, 0.0, None, False) is x
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_stacks_with_dropout_thread_one_generator(rng, fused):
+    """Encoder and decoder stacks with rate > 0 on the CPU, stock and fused
+    (kernel wrappers' plain versions) routes: finite, reproducible from the
+    generator seed, and each dropout site advances the generator."""
+    enc = bridge.to_torch(jax.tree.map(np.asarray, jtf.init_encoder_stack(
+        jax.random.PRNGKey(6), 2, D, 24)))
+    dec = bridge.to_torch(jax.tree.map(np.asarray, jtf.init_decoder_stack(
+        jax.random.PRNGKey(7), 2, D, 24)))
+    x = torch.as_tensor(rng.standard_normal((2, 11, D)).astype(np.float32))
+    y = torch.as_tensor(rng.standard_normal((2, 5, D)).astype(np.float32))
+
+    def run(seed):
+        gen = torch.Generator().manual_seed(seed)
+        mem = ttf.encoder_stack(enc, x, H, 0.2, gen, False, flash=fused)
+        state = gen.get_state().clone()
+        out, _ = ttf.decoder_stack(dec, y, mem, H, causal_mask=ttf.causal_mask(5),
+                                   rate=0.2, gen=gen, deterministic=False,
+                                   flash=fused)
+        assert not torch.equal(state, gen.get_state())
+        return mem, out
+
+    (m1, o1), (m2, o2), (m3, o3) = run(3), run(3), run(4)
+    assert torch.equal(m1, m2) and torch.equal(o1, o2)
+    assert not torch.equal(m1, m3) and not torch.equal(o1, o3)
+    assert torch.isfinite(o1).all()
