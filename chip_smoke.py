@@ -11,7 +11,8 @@ Phases (any failure raises and exits non-zero):
               shared-memory and spill report;
   3. kernels  each kernel at the shapes the geo serving and training paths
               give it, held against its plain PyTorch version on the card
-              in f32 and bf16 (the dropout kernels at rate 0.2 under the
+              in f32 and bf16 (flash attention at all three attention
+              sites of a train step; the dropout kernels at rate 0.2 under the
               mask the kernel itself exports, with the mask's keep rate and
               the forward / backward mask identity), and timed with CUDA
               events beside its plain version, a one-call PyTorch yardstick
@@ -32,6 +33,9 @@ Phases (any failure raises and exits non-zero):
               the code predicts; the deterministic eval loss must fall;
               then a 2-sample f32 step without dropout on the card against
               the same step on the CPU.
+After the phases one more train step and one more beam-5 batch run under
+torch.profiler, which logs the ten largest device operations and the
+device's idle share; a profiler fault is logged and changes nothing.
 The last two lines are the card's nvidia-smi name/power limit and
 {"ok": true, "device": {...}}; the kernels' JSON line comes before them.
 """
@@ -123,58 +127,74 @@ def _flash_site(dev, dtype, Tq, Tk):
     return q, k, v, rnd(B, Tq, H, Hd)
 
 
+# the three attention sites of the geo train step: (name, Tq, Tk, causal)
+FLASH_SITES = (("encoder", ENT_ROWS, ENT_ROWS, False), ("self", CAP_LEN, CAP_LEN, True),
+               ("cross", CAP_LEN, 14 * 14 + ENT_ROWS, False))
+
+
+def _flash_bounds(dtype, Tq, Tk, causal, backward):
+    """The card's least time for one attention: q, k, v, o (forward) or q, dO,
+    dq, k, v, dk, dv (backward) moved once; two (forward) or five (backward)
+    products over the visible (query, key) pairs."""
+    B, H, Hd = BATCH, 10, 30
+    esz = torch.finfo(dtype).bits // 8
+    pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk
+    rows = 3 * Tq + 4 * Tk if backward else 2 * Tq + 2 * Tk
+    return bound_ms(esz * B * H * Hd * rows, (5 if backward else 2) * 2 * B * H * pairs * Hd,
+                    dtype)
+
+
 def check_flash(dev):
-    """Forward at rate 0 (the serving shape) and at rate 0.2, and the
-    backward, at the encoder site (301 x 301) and the decoder's cross site
-    (32 x 497); returns (forward results, backward results) by dtype."""
+    """Forward and backward at the three sites of the train step (encoder
+    301 x 301, decoder self 32 x 32 causal, cross 32 x 497) at rate 0.2 under
+    the kernel's own mask, and at the encoder site at rate 0 (the serving
+    shape, and the work SDPA's backward does); returns (forward results,
+    backward results) by dtype.  bf16 runs the tensor-core kernels, f32 the
+    CUDA-core ones."""
     from icek_torch.kernels import flash_attention as fa
 
-    B, T, H, Hd = BATCH, ENT_ROWS, 10, 30
-    M = 14 * 14 + ENT_ROWS
+    B, H = BATCH, 10
     sdpa = torch.nn.functional.scaled_dot_product_attention
     fwd, bwd = {}, {}
     for dtype, tol, btol in ((torch.float32, 1e-4, 1e-4), (torch.bfloat16, 3e-2, 4e-2)):
-        q, k, v, _ = _flash_site(dev, dtype, T, T)
-        esz = q.element_size()
-        got = fa.flash_mha(q, k, v)
-        want = fa.reference_mha(q, k, v)
-        torch.cuda.synchronize()
-        err = max_err(got, want)
-        require(err <= tol, f"flash {dtype}: max abs err {err} > {tol}")
-        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        bms, by = bound_ms(4 * B * T * H * Hd * esz, 2 * 2 * B * H * T * T * Hd, dtype)
-        fwd[dtype] = dict(
-            max_abs_err=err, tol=tol, ms=cuda_ms(lambda: fa.flash_mha(q, k, v)),
-            plain_ms=cuda_ms(lambda: fa.reference_mha(q, k, v)),
-            library_ms=cuda_ms(lambda: sdpa(qh, kh, vh)), bound_ms=bms, bound_by=by)
-
-        # rate 0.2 under the kernel's own mask; keep rate; one mask both ways
-        keep = fa.keep_mask(B, H, T, T, rate=RATE, seed=77, device=dev)
-        kept = float(keep.float().mean())
-        require(abs(kept - (1 - RATE)) <= 0.005, f"flash mask keep rate {kept}")
-        got = fa.flash_mha(q, k, v, dropout_rate=RATE, seed=77)
-        want = fa.reference_mha(q, k, v, dropout_rate=RATE, keep=keep)
-        torch.cuda.synchronize()
-        derr = max_err(got, want)
-        require(derr <= tol, f"flash dropout {dtype}: max abs err {derr} > {tol}")
-        fwd[dtype]["dropout"] = dict(
-            rate=RATE, max_abs_err=derr, keep_rate=kept,
-            ms=cuda_ms(lambda: fa.flash_mha(q, k, v, dropout_rate=RATE, seed=77)),
-            plain_ms=cuda_ms(lambda: fa.reference_mha(q, k, v, dropout_rate=RATE, keep=keep),
-                             iters=5))
-        del keep, got, want
-        log(f"kernel flash_attention {dtype}: {fwd[dtype]}")
-
-        sites = {}
-        for name, Tq, Tk in (("encoder", T, T), ("cross", CAP_LEN, M)):
+        fsites, bsites = {}, {}
+        for name, Tq, Tk, causal in FLASH_SITES:
             q, k, v, d_out = _flash_site(dev, dtype, Tq, Tk)
+            require(fa.uses_tensor_cores(q, k, v) == (dtype == torch.bfloat16),
+                    f"flash {name} {dtype}: unexpected kernel family")
+            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            res = {}
+            if name == "encoder":       # rate 0: the serving launch
+                got = fa.flash_mha(q, k, v)
+                want = fa.reference_mha(q, k, v)
+                torch.cuda.synchronize()
+                err = max_err(got, want)
+                require(err <= tol, f"flash {dtype}: max abs err {err} > {tol}")
+                bms, by = _flash_bounds(dtype, Tq, Tk, causal, False)
+                res = dict(max_abs_err=err, tol=tol, ms=cuda_ms(lambda: fa.flash_mha(q, k, v)),
+                           plain_ms=cuda_ms(lambda: fa.reference_mha(q, k, v)),
+                           library_ms=cuda_ms(lambda: sdpa(qh, kh, vh)),
+                           bound_ms=bms, bound_by=by)
+                del got, want
+
+            # rate 0.2 under the kernel's own mask; keep rate; one mask both ways
+            keep = fa.keep_mask(B, H, Tq, Tk, rate=RATE, seed=77, device=dev)
+            kept = float(keep.float().mean())
+            require(abs(kept - (1 - RATE)) <= 0.005, f"flash mask keep rate {kept}")
             leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-            keep = fa.keep_mask(B, H, Tq, Tk, rate=RATE, seed=78, device=dev)
-            out = fa.flash_mha(*leaves, dropout_rate=RATE, seed=78)
+            run = lambda: fa.flash_mha(*leaves, causal=causal, dropout_rate=RATE, seed=77)
+            plain = lambda: fa.reference_mha(*leaves, causal=causal, dropout_rate=RATE,
+                                             keep=keep)
+            out, ref = run(), plain()
             got = torch.autograd.grad(out, leaves, d_out, retain_graph=True)
-            ref = fa.reference_mha(*leaves, dropout_rate=RATE, keep=keep)
             want = torch.autograd.grad(ref, leaves, d_out, retain_graph=True)
             torch.cuda.synchronize()
+            # the decoder's sites put a few keys' worth of v into a row, so their
+            # outputs exceed 1 and a bf16 ulp exceeds the tolerance: they are
+            # held, as the gradients are, relative to the largest expected value
+            derr = max_err(out.detach(), ref.detach())
+            dheld = derr if name == "encoder" else _rel_err(out.detach(), ref.detach())
+            require(dheld <= tol, f"flash dropout {name} {dtype}: err {dheld} > {tol}")
             err, rel = max_err(got, want), _rel_err(got, want)
             require(rel <= btol, f"flash backward {name} {dtype}: err {rel} > {btol} "
                                  "of the largest expected value")
@@ -184,22 +204,39 @@ def check_flash(dev):
             ident = abs(lhs - rhs) / max(abs(lhs), 1.0)
             require(ident <= (1e-3 if dtype == torch.float32 else 3e-2),
                     f"flash backward {name} {dtype}: mask identity off by {ident}")
-            ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, d_out, retain_graph=True))
-            plain = cuda_ms(lambda: torch.autograd.grad(ref, leaves, d_out, retain_graph=True),
-                            iters=5)
-            del ref, want, keep
-            # yardstick: SDPA's backward under autograd, rate 0, (B, H, T, Hd) copies
-            lib_in = [t.detach().transpose(1, 2).contiguous().requires_grad_(True)
-                      for t in (q, k, v)]
-            lib_out = sdpa(*lib_in)
+            with torch.no_grad():
+                fms, fplain = cuda_ms(run), cuda_ms(plain, iters=5)
+            bms_ = cuda_ms(lambda: torch.autograd.grad(out, leaves, d_out, retain_graph=True))
+            bplain = cuda_ms(lambda: torch.autograd.grad(ref, leaves, d_out, retain_graph=True),
+                             iters=5)
+            del ref, want, keep, got
+            # yardstick: SDPA and its backward under autograd, rate 0 (it has no
+            # such mask), on (B, H, T, Hd) copies
+            lib_in = [t.detach().requires_grad_(True) for t in (qh, kh, vh)]
+            lib_out = sdpa(*lib_in, is_causal=causal)
             lib_g = d_out.transpose(1, 2).contiguous()
-            lib = cuda_ms(lambda: torch.autograd.grad(lib_out, lib_in, lib_g, retain_graph=True))
-            nbytes = esz * B * H * Hd * (3 * Tq + 4 * Tk)       # q, dO, dq; k, v, dk, dv
-            bms, by = bound_ms(nbytes, 5 * 2 * B * H * Tq * Tk * Hd, dtype)
-            sites[name] = dict(max_abs_err=err, rel_err=rel, tol=btol, mask_identity=ident, ms=ms, plain_ms=plain, library_ms=lib,
-                               bound_ms=bms, bound_by=by)
-            del out, got, lib_out, lib_in
-        bwd[dtype] = dict(sites["encoder"], cross=sites["cross"])
+            with torch.no_grad():
+                flib = cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=causal))
+            blib = cuda_ms(lambda: torch.autograd.grad(lib_out, lib_in, lib_g,
+                                                       retain_graph=True))
+            bound, by = _flash_bounds(dtype, Tq, Tk, causal, False)
+            fsites[name] = dict(rate=RATE, max_abs_err=derr, keep_rate=kept, ms=fms,
+                                plain_ms=fplain, library_ms=flib, bound_ms=bound, bound_by=by)
+            bound, by = _flash_bounds(dtype, Tq, Tk, causal, True)
+            bsites[name] = dict(max_abs_err=err, rel_err=rel, tol=btol, mask_identity=ident,
+                                ms=bms_, plain_ms=bplain, library_ms=blib, bound_ms=bound,
+                                bound_by=by)
+            if name == "encoder":       # the backward at SDPA's own work, rate 0
+                out0 = fa.flash_mha(*leaves)
+                bsites["rate0_ms"] = cuda_ms(
+                    lambda: torch.autograd.grad(out0, leaves, d_out, retain_graph=True))
+                fwd[dtype] = dict(res, dropout=fsites["encoder"])
+                del out0
+            del out, lib_out, lib_in
+        fwd[dtype].update({"self": fsites["self"], "cross": fsites["cross"]})
+        bwd[dtype] = dict(bsites["encoder"], rate0_ms=bsites["rate0_ms"],
+                          self=bsites["self"], cross=bsites["cross"])
+        log(f"kernel flash_attention {dtype}: {fwd[dtype]}")
         log(f"kernel flash_attention_bwd {dtype}: {bwd[dtype]}")
     return fwd, bwd
 
@@ -517,7 +554,7 @@ def run_main_path(dev, model):
         greedy_batch_ms=greedy_s * 1e3, peak_mem_gb=peak_gb)
     log(f"main path (geo, batch {BATCH}, beam {BEAM}, bf16): {summary}")
     log(f"main path breakdown: {breakdown(ev, batches[1])}")
-    return launches, summary
+    return launches, summary, batches[1]
 
 
 def breakdown(ev, batch):
@@ -700,7 +737,7 @@ def run_train_path(dev, model):
         tokens_per_step=int(count), losses=losses, eval_loss_before=eval_before,
         eval_loss_after=eval_after, peak_mem_gb=peak_gb, **stages)
     log(f"train path (geo, batch {BATCH}, T {CAP_LEN}, bf16, dropout on): {summary}")
-    return launches, summary
+    return launches, summary, lambda: float(train_step(params, opt_state, None, batch, gen)[2])
 
 
 def train_cross_check(dev, model):
@@ -738,6 +775,70 @@ def train_cross_check(dev, model):
 
 
 # --------------------------------------------------------------------------
+# after the phases: one traced train step and one traced beam-5 batch
+# --------------------------------------------------------------------------
+
+PORT_KERNELS = ("flash_fwd", "flash_bwd", "ln_fwd_kernel", "ln_bwd", "dropout_kernel",
+                "score_partial", "score_merge", "decoder_step_kernel")
+
+
+def trace_device(what, fn):
+    """Run `fn` once under torch.profiler and log the ten device operations
+    that took most time and the device's idle share (1 - the union of the
+    device operations' intervals over the host's wall time, which includes
+    the profiler's own cost).  Instrumentation only: whatever goes wrong here
+    is logged and the run goes on."""
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events() if e.device_type == DeviceType.CUDA)
+        if not spans:
+            log(f"trace of {what}: torch.profiler recorded no device operation")
+            return
+        by_name, busy_us, reach = {}, 0.0, spans[0][0]
+        for start, end, name in spans:
+            n, total = by_name.get(name, (0, 0.0))
+            by_name[name] = (n + 1, total + (end - start))
+            busy_us += max(0.0, end - max(start, reach))
+            reach = max(reach, end)
+        span_ms = (reach - spans[0][0]) / 1e3
+        log(f"trace of {what}: host wall {wall_ms:.2f} ms under the profiler, "
+            f"{len(spans)} device operations, device busy {busy_us / 1e3:.2f} ms, "
+            f"first to last device operation {span_ms:.2f} ms, idle share "
+            f"{1 - busy_us / 1e3 / wall_ms:.3f} of the wall, "
+            f"{1 - busy_us / 1e3 / span_ms:.3f} of the device span")
+        ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+        for name, (n, total) in ranked[:10]:
+            log(f"  trace {what}: {total / 1e3:8.3f} ms {n:5d} x {name[:110]}")
+        # the port's own kernels by template instance, whatever their rank: the
+        # device time of launches too short for phase 3's event timing to see
+        for name, (n, total) in ranked:
+            if any(k in name for k in PORT_KERNELS):
+                short = name.split("(anonymous namespace)::", 1)[-1].split("(")[0]
+                log(f"  trace {what}, port kernel: {total / 1e3:8.3f} ms {n:5d} x {short}")
+    except Exception as e:                       # noqa: BLE001
+        log(f"trace of {what}: torch.profiler failed: {type(e).__name__}: {e}")
+
+
+def trace_serving(dev, model, batch):
+    """One beam-5 batch under the profiler, through an Evaluator of its own
+    (the timed one is gone, so that it does not weigh on the train path's
+    peak memory), warmed by one batch first."""
+    from icek_torch import eval_driver
+
+    cfg, wm, params, enc = model
+    ev = eval_driver.Evaluator(cfg, wm, params, enc, device=dev)
+    ev.decode_batch(batch)
+    trace_device("one beam-5 batch", lambda: ev.decode_batch(batch))
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -768,17 +869,21 @@ def main() -> int:
     kernels["dropout_add_ln"], kernels["dropout_add_ln_bwd"], kernels["hw_dropout"] = \
         check_norm(dev)
     model = full_width_model()
-    launches, summary = run_main_path(dev, model)
+    launches, summary, serve_batch = run_main_path(dev, model)
     cross_check(dev, model)
-    train_launches, train_summary = run_train_path(dev, model)
+    train_launches, train_summary, step_once = run_train_path(dev, model)
     train_cross_check(dev, model)
+    # after every timed run, so the profiler cannot disturb one
+    trace_device("one train step", step_once)
+    del step_once
+    trace_serving(dev, model, serve_batch)
 
     # name: (source, the TPU kernel it replaces)
     tpu = "icek_tpu/kernels/"
     meta = {
         "flash_attention": ("flash_attention.cu", tpu + "flash_attention.py:268"),
         "flash_attention_bwd": ("flash_attention.cu", tpu + "flash_attention.py:287"),
-        "fused_score_topk": ("score_topk.cu", tpu + "copy_scores.py:106"),
+        "fused_score_topk": ("score_topk.cu", tpu + "copy_scores.py:107"),
         "decoder_step": ("decoder_step.cu", tpu + "decoder_step.py:296"),
         "dropout_add_ln": ("fused_norm.cu", tpu + "fused_norm.py:159"),
         "dropout_add_ln_bwd": ("fused_norm.cu", tpu + "fused_norm.py:176"),
@@ -802,7 +907,7 @@ def main() -> int:
         }
         if name in launches and name in train_launches:
             row["launches_serving"] = launches[name]
-        for extra in ("dropout", "cross"):
+        for extra in ("dropout", "self", "cross", "rate0_ms"):
             if extra in bf:
                 row[extra] = bf[extra]
         rows.append(row)

@@ -6,11 +6,22 @@ plain PyTorch version ``reference_mha`` for CPU tensors:
     dropout(softmax(Q K^T / sqrt(Hd), keys >= kv_len masked, optional causal)) @ V
 with a float32 softmax and attention-weight dropout.  It is differentiable:
 on CUDA tensors the backward is the kernel pair of the same source (dQ,
-then dK/dV), which regenerates the forward's dropout mask from the seed
-and reads the forward's per-row logsumexp; on CPU tensors autograd
+then dK/dV), which reads the forward's per-row logsumexp and takes the
+forward's dropout mask either from the bits the tensor-core forward saved
+(one a score) or, in the CUDA-core kernels, anew from the seed; on CPU tensors autograd
 differentiates the plain version.  Q/K/V come in the (B, T, H, Hd) layout
 with the head dim contiguous; the TPU head-slot packing is not part of the
 port.
+
+Which kernels a CUDA call runs is decided by dtype and shape alone
+(``uses_tensor_cores``): bfloat16 with an even head dim of at most 32 and
+4-byte aligned head rows (even strides, a ``data_ptr()`` that is a
+multiple of 4: every view of a fused projection with an even head dim)
+runs the tensor-core kernels, forward and backward.  float32 at any
+supported head dim, bfloat16 with a head dim in (32, 128] (forward, rate 0)
+and bfloat16 inputs that miss the alignment run the CUDA-core kernels of
+the same source.  Neither gives way to the other or to the plain version:
+a kernel that fails to build or launch raises.
 
 Dropout: an element keeps iff the top 24 of its random bits lie below
 ``int((1 - rate) * 2**24)``.  The kernels draw the bits from a Philox
@@ -66,6 +77,25 @@ def reference_mha(q, k, v, *, kv_len=None, causal=False, dropout_rate=0.0,
     return torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype), v)
 
 
+def uses_tensor_cores(q, k, v) -> bool:
+    """Whether (q, k, v) go to the tensor-core kernels: bfloat16, an even
+    head dim <= 32, and every head row on a 4-byte boundary (the kernels
+    move bf16 pairs as 32-bit words)."""
+    Hd = q.shape[-1]
+    if q.dtype != torch.bfloat16 or Hd > 32 or Hd % 2:
+        return False
+    return all(t.data_ptr() % 4 == 0 and t.stride(0) % 2 == 0 and t.stride(1) % 2 == 0
+               for t in (q, k, v))
+
+
+def _entry(q, k, v) -> str:
+    return _SUFFIX[q.dtype] + ("_mma" if uses_tensor_cores(q, k, v) else "")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _shape_args(q, k, v, kv_len, causal, rate, seed):
     B, Tq, H, Hd = q.shape
     return (B, Tq, k.shape[1], H, Hd, q.stride(0), q.stride(1), k.stride(0),
@@ -75,36 +105,48 @@ def _shape_args(q, k, v, kv_len, causal, rate, seed):
 
 
 def _forward(q, k, v, kv_len, causal, rate, seed):
-    """Launch the forward kernel; returns (out, lse (B, H, Tq) f32)."""
+    """Launch the forward kernel; returns (out, lse (B, H, Tq) f32,
+    keep_words).  `keep_words` is the tensor-core forward's dropout mask for
+    its backward, one bit a score in cells of 16 rows x 64 keys of 32 words
+    each (``keep_cell`` in the source), and None at rate 0 and in the
+    CUDA-core kernels."""
     B, Tq, H, Hd = q.shape
     out = torch.empty((B, Tq, H, Hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    fn = _build.bind("flash_attention", "flash_fwd_" + _SUFFIX[q.dtype],
-                     [_P] * 5 + _SHAPE)
+    keep_words = None
+    if rate > 0.0 and uses_tensor_cores(q, k, v):
+        keep_words = torch.empty((B, H, 4 * (-(-Tq // 64)), -(-k.shape[1] // 64), 32),
+                                 dtype=torch.int32, device=q.device)
+    fn = _build.bind("flash_attention", "flash_fwd_" + _entry(q, k, v),
+                     [_P] * 6 + _SHAPE)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), *_shape_args(q, k, v, kv_len, causal, rate, seed))
+             lse.data_ptr(), _ptr(keep_words),
+             *_shape_args(q, k, v, kv_len, causal, rate, seed))
     _build.check(err, "flash_attention", "flash_mha")
     flash_mha.launches += 1
-    return out, lse
+    return out, lse, keep_words
 
 
-def flash_mha_bwd(q, k, v, out, lse, d_out, kv_len, causal, rate, seed):
+def flash_mha_bwd(q, k, v, out, lse, keep_words, d_out, kv_len, causal, rate, seed):
     """Launch the backward kernels (dQ, then dK/dV) on the forward's saved
     tensors; returns contiguous (dq, dk, dv) in the inputs' dtype.  `d_out`
-    is made contiguous first (autograd may hand over a strided view)."""
+    is made contiguous first (autograd may hand over a strided view).
+    `keep_words` is what the forward returned with these inputs."""
     if q.shape[-1] > 32:
         raise ValueError(f"flash_mha backward: head dim {q.shape[-1]} > 32 "
                          "is unsupported")
     d_out = d_out.contiguous()
+    if d_out.data_ptr() % 4:        # a contiguous view that starts mid-word
+        d_out = d_out.clone()
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     delta = torch.empty_like(lse)
-    fn = _build.bind("flash_attention", "flash_bwd_" + _SUFFIX[q.dtype],
-                     [_P] * 10 + _SHAPE)
+    fn = _build.bind("flash_attention", "flash_bwd_" + _entry(q, k, v),
+                     [_P] * 11 + _SHAPE)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             d_out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(),
+             d_out.data_ptr(), lse.data_ptr(), _ptr(keep_words), delta.data_ptr(),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              *_shape_args(q, k, v, kv_len, causal, rate, seed))
     _build.check(err, "flash_attention", "flash_mha backward")
     flash_mha_bwd.launches += 1
@@ -114,8 +156,8 @@ def flash_mha_bwd(q, k, v, out, lse, d_out, kv_len, causal, rate, seed):
 class _FlashMHA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, kv_len, causal, rate, seed):
-        out, lse = _forward(q, k, v, kv_len, causal, rate, seed)
-        ctx.save_for_backward(q, k, v, out, lse)
+        out, lse, keep_words = _forward(q, k, v, kv_len, causal, rate, seed)
+        ctx.save_for_backward(q, k, v, out, lse, keep_words)
         ctx.static = (kv_len, causal, rate, seed)
         return out
 

@@ -42,13 +42,18 @@ def _gen(seed):
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("tq,tk,h,hd,kv_len", [
     (17, 17, 3, 30, 17), (13, 37, 3, 30, 30), (301, 301, 10, 30, 301),
-    (40, 70, 2, 64, 70), (9, 20, 2, 100, 11)])
+    (40, 70, 2, 64, 70), (9, 20, 2, 100, 11),
+    # the edges of the 16-row, 8-key and 64-key tiles of the tensor-core path
+    (1, 1, 2, 30, 1), (15, 17, 3, 30, 17), (16, 16, 2, 30, 16), (65, 129, 3, 30, 129),
+    (301, 497, 2, 30, 497), (65, 129, 2, 30, 100), (33, 200, 2, 30, 65),
+    (40, 70, 3, 8, 70), (40, 70, 3, 16, 50), (40, 70, 3, 32, 70)])
 def test_flash_kernel_matches_plain(cuda, dtype, tol, causal, tq, tk, h, hd, kv_len):
     g = _gen(0)
     qkv = torch.randn((2, tk, 3 * h * hd), generator=g).to(cuda, dtype)
     q = torch.randn((2, tq, h, hd), generator=g).to(cuda, dtype)
     k = qkv[..., h * hd:2 * h * hd].view(2, tk, h, hd)   # strided views
     v = qkv[..., 2 * h * hd:].view(2, tk, h, hd)
+    assert tfa.uses_tensor_cores(q, k, v) == (dtype == torch.bfloat16 and hd <= 32)
     before = tfa.flash_mha.launches
     got = tfa.flash_mha(q, k, v, kv_len=kv_len, causal=causal)
     torch.cuda.synchronize()
@@ -273,16 +278,21 @@ def test_hw_dropout_kernel_matches_plain(cuda, dtype, n, d):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 4e-2)])
 @pytest.mark.parametrize("rate", [0.0, 0.2])
-@pytest.mark.parametrize("causal,tq,tk,h,kv_len", [
-    (False, 17, 17, 3, 17), (True, 32, 32, 10, 32), (False, 32, 497, 10, 497),
-    (False, 13, 37, 3, 30), (True, 70, 70, 2, 70), (False, 301, 301, 2, 301)])
+@pytest.mark.parametrize("causal,tq,tk,h,kv_len,hd", [
+    (False, 17, 17, 3, 17, 30), (True, 32, 32, 10, 32, 30), (False, 32, 497, 10, 497, 30),
+    (False, 13, 37, 3, 30, 30), (True, 70, 70, 2, 70, 30), (False, 301, 301, 2, 301, 30),
+    # the edges of the 16-row, 8-key and 64-row tiles of the tensor-core path
+    (False, 1, 1, 2, 1, 30), (False, 15, 17, 3, 17, 30), (True, 16, 16, 2, 16, 30),
+    (False, 65, 129, 3, 129, 30), (True, 65, 129, 3, 100, 30), (False, 301, 497, 2, 497, 30),
+    (False, 33, 200, 2, 65, 30), (True, 129, 65, 2, 40, 30),
+    (False, 40, 70, 3, 70, 8), (True, 40, 70, 3, 50, 16), (False, 40, 70, 3, 70, 32)])
 def test_flash_backward_kernel_matches_plain(cuda, dtype, tol, rate, causal, tq, tk,
-                                             h, kv_len):
+                                             h, kv_len, hd):
     """Forward with dropout and dq / dk / dv against the plain version under
     the kernel's own mask, on strided views of one fused projection and a
     non-contiguous d_out.  f32 1e-4, bf16 4e-2 (sums of bf16-rounded
     products), both times the largest expected value where that exceeds 1.  Keys at or beyond kv_len get exactly 0."""
-    hd, B = 30, 2
+    B = 2
     g = _gen(6)
     qkv = torch.randn((B, tk, 3 * h * hd), generator=g).to(cuda, dtype).requires_grad_(True)
     q0 = torch.randn((B, tq, h * hd), generator=g).to(cuda, dtype).requires_grad_(True)
@@ -307,6 +317,57 @@ def test_flash_backward_kernel_matches_plain(cuda, dtype, tol, rate, causal, tq,
                                    atol=tol * max(1.0, float(b.detach().abs().max())))
     dkv = got[2].view(B, tk, 3, h * hd)
     assert not dkv[:, kv_len:, 1:].any() and not dkv[:, :, 0].any()
+
+
+def _odd_offset_view(t):
+    """The same values in a buffer that starts one element later."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t.reshape(-1))
+    return buf[1:].view(t.shape)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_flash_bf16_odd_offset_takes_cuda_core_path(cuda, rate):
+    """bf16 inputs whose head rows start mid-word cannot be moved as 32-bit
+    words: they run the CUDA-core kernels and agree with the aligned call's
+    tensor-core kernels (forward 3e-2, backward 4e-2 of the largest value)
+    under the same mask."""
+    B, Tq, Tk, H, Hd = 2, 40, 70, 3, 30
+    g = _gen(11)
+    q, k, v, gy = (torch.randn((B, t, H, Hd), generator=g).to(cuda, torch.bfloat16)
+                   for t in (Tq, Tk, Tk, Tq))
+    res = []
+    for shift in (False, True):
+        leaves = [(_odd_offset_view(t) if shift else t.clone()).requires_grad_(True)
+                  for t in (q, k, v)]
+        assert tfa.uses_tensor_cores(*leaves) == (not shift)
+        assert (leaves[0].data_ptr() % 4 == 2) == shift
+        out = tfa.flash_mha(*leaves, dropout_rate=rate, seed=5)
+        res.append((out,) + torch.autograd.grad(out, leaves, gy))
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(*res)):
+        a, b = a.detach().float(), b.detach().float()
+        tol = (3e-2 if i == 0 else 4e-2) * max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a, b, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,tq,tk", [(False, 301, 301), (True, 32, 32), (False, 32, 497)])
+def test_flash_backward_is_bit_identical_between_launches(cuda, dtype, causal, tq, tk):
+    """No atomics: two backward launches on the same inputs give the same
+    bits in dq, dk and dv, and so do two forward launches in the output."""
+    B, H, Hd = 4, 10, 30
+    g = _gen(12)
+    q, k, v, gy = (torch.randn((B, t, H, Hd), generator=g).to(cuda, dtype)
+                   for t in (tq, tk, tk, tq))
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = tfa.flash_mha(*leaves, causal=causal, dropout_rate=0.2, seed=13)
+        runs.append((out,) + torch.autograd.grad(out, leaves, gy))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_flash_dropout_forward_and_backward_see_one_mask(cuda):
