@@ -35,7 +35,10 @@ Phases (any failure raises and exits non-zero):
               the same step on the CPU.
 After the phases one more train step and one more beam-5 batch run under
 torch.profiler, which logs the ten largest device operations and the
-device's idle share; a profiler fault is logged and changes nothing.
+device's idle share, and the profiler gives the score head's and the
+LayerNorm backward's device time per kernel on phase 3's inputs.  Before
+them 3 greedy batches are timed warm.  Nothing is timed after a profiler
+session; a profiler fault is logged and changes nothing.
 The last two lines are the card's nvidia-smi name/power limit and
 {"ok": true, "device": {...}}; the kernels' JSON line comes before them.
 """
@@ -241,40 +244,114 @@ def check_flash(dev):
     return fwd, bwd
 
 
+def device_split(fn, parts, reps=10) -> dict:
+    """Device ms per call of the kernels whose names hold each of `parts`, from
+    torch.profiler over `reps` calls of `fn`.  Instrumentation only: a fault
+    is logged and gives {}."""
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                for part in parts:
+                    if part in e.name:
+                        span = (e.time_range.end - e.time_range.start) / 1e3 / reps
+                        out[part] = out.get(part, 0.0) + span
+        return out
+    except Exception as e:                       # noqa: BLE001
+        log(f"device split of {parts}: torch.profiler failed: {type(e).__name__}: {e}")
+        return {}
+
+
+SCORE_SHAPES = ((BATCH * BEAM, BEAM), (BATCH, 2))             # (rows, k): beam, greedy
+
+
+def _score_inputs(dev, dtype, n):
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    h = torch.randn((n, 300), generator=g, device=dev).to(dtype)
+    wv = ((torch.rand((300, VOCAB), generator=g, device=dev) * 2 - 1) * 0.1).to(dtype)
+    bv = torch.randn((VOCAB,), generator=g, device=dev) * 0.01
+    tail = torch.randn((n, ENT_ROWS), generator=g, device=dev)
+    return h, wv, bv, tail
+
+
+def device_splits(dev, kernels):
+    """Add to phase 3's records the device time of each of the score head's
+    and the LayerNorm backward's two kernels (`parts_ms`) and of the
+    LayerNorm backward's library chain (`library_device_ms`), from
+    torch.profiler on phase 3's inputs.  Run after every timed phase, so
+    that no profiler session comes before a timed run."""
+    from icek_torch.kernels import copy_scores as cs
+    from icek_torch.kernels import fused_norm as fn
+
+    F = torch.nn.functional
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, k in SCORE_SHAPES:
+            h, wv, bv, tail = _score_inputs(dev, dtype, n)
+            rec = kernels["fused_score_topk"][dtype]
+            rec = rec if n == BATCH * BEAM else rec["greedy"]
+            rec["parts_ms"] = device_split(lambda: cs.fused_score_topk(h, wv, bv, tail, k=k),
+                                           ("score_partial", "score_merge"))
+        x, h, gy, scale, bias, _ = _norm_inputs(dev, dtype)
+        s32 = scale.float().contiguous()
+        rec = kernels["dropout_add_ln_bwd"][dtype]
+        rec["parts_ms"] = device_split(
+            lambda: fn.dropout_add_ln_bwd(x, h, s32, gy, RATE, 55, 1e-5),
+            ("ln_bwd_kernel", "ln_bwd_reduce_kernel"))
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (x, h, scale.to(dtype), bias.to(dtype))]
+        out = F.layer_norm(leaves[0] + F.dropout(leaves[1], RATE), (x.shape[1],),
+                           leaves[2], leaves[3])
+        rec["library_device_ms"] = device_split(
+            lambda: torch.autograd.grad(out, leaves, gy, retain_graph=True), ("",)).get("")
+        log(f"device split {dtype}: score head {kernels['fused_score_topk'][dtype]['parts_ms']}"
+            f", greedy {kernels['fused_score_topk'][dtype]['greedy']['parts_ms']}; LayerNorm "
+            f"backward {rec['parts_ms']}, library chain {rec['library_device_ms']}")
+
+
 def check_scores(dev):
+    """The score head at the beam (1280 rows, k 5) and greedy (256, k 2)
+    shapes; bf16 runs the tensor-core first pass, f32 the CUDA-core one."""
     from icek_torch.kernels import copy_scores as cs
 
     res = {}
-    for n, k in ((BATCH * BEAM, BEAM), (BATCH, 2)):          # beam, greedy
+    for n, k in SCORE_SHAPES:
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-4)):
-            g = torch.Generator(device=dev).manual_seed(SEED + 1)
-            h = torch.randn((n, 300), generator=g, device=dev).to(dtype)
-            wv = ((torch.rand((300, VOCAB), generator=g, device=dev) * 2 - 1) * 0.1).to(dtype)
-            bv = torch.randn((VOCAB,), generator=g, device=dev) * 0.01
-            tail = torch.randn((n, ENT_ROWS), generator=g, device=dev)
+            h, wv, bv, tail = _score_inputs(dev, dtype, n)
+            require(cs.uses_tensor_cores(h, wv) == (dtype == torch.bfloat16),
+                    f"score/top-k {dtype}: unexpected kernel family")
             got = cs.fused_score_topk(h, wv, bv, tail, k=k)
             want = cs.reference_score_topk(h, wv, bv, tail, k=k)
             torch.cuda.synchronize()
             require(torch.equal(got[1], want[1]), f"score/top-k {dtype} n={n}: indices differ")
             err = max_err((got[0], got[2]), (want[0], want[2]))
             require(err <= tol, f"score/top-k {dtype} n={n}: max abs err {err} > {tol}")
-            if n != BATCH * BEAM:
-                log(f"kernel fused_score_topk {dtype} greedy n={n} k={k}: err {err}")
-                continue
 
             def library():
                 s = torch.cat([torch.addmm(bv.to(dtype), h, wv).float(), tail], dim=1)
                 return torch.topk(s, k), torch.logsumexp(s, dim=1)
 
+            run = lambda: cs.fused_score_topk(h, wv, bv, tail, k=k)
             nbytes = (h.numel() * h.element_size() + wv.numel() * wv.element_size()
                       + 4 * VOCAB + 4 * tail.numel() + n * (8 * k + 4))
             bms, by = bound_ms(nbytes, 2 * n * 300 * VOCAB, dtype)
-            res[dtype] = dict(
-                max_abs_err=err, tol=tol,
-                ms=cuda_ms(lambda: cs.fused_score_topk(h, wv, bv, tail, k=k)),
-                plain_ms=cuda_ms(lambda: cs.reference_score_topk(h, wv, bv, tail, k=k)),
-                library_ms=cuda_ms(library), bound_ms=bms, bound_by=by)
-            log(f"kernel fused_score_topk {dtype} beam n={n} k={k}: {res[dtype]}")
+            timed = dict(max_abs_err=err, tol=tol, ms=cuda_ms(run),
+                         plain_ms=cuda_ms(lambda: cs.reference_score_topk(h, wv, bv, tail, k=k)),
+                         library_ms=cuda_ms(library), bound_ms=bms, bound_by=by)
+            shape = "beam" if n == BATCH * BEAM else "greedy"
+            log(f"kernel fused_score_topk {dtype} {shape} n={n} k={k}: {timed}")
+            if shape == "beam":
+                res[dtype] = timed
+            else:
+                res[dtype]["greedy"] = timed
     return res
 
 
@@ -355,6 +432,17 @@ def check_decoder_step(dev):
     return res
 
 
+def _norm_inputs(dev, dtype):
+    """x, h, gy (77056, 300) in dtype, f32 scale and bias, and the seeded
+    draw that made them (phase 3 draws the dropout inputs from it next)."""
+    N, D = BATCH * ENT_ROWS, 300
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    x, h, gy = (rnd(N, D).to(dtype) for _ in range(3))
+    scale, bias = 1 + 0.1 * rnd(D), 0.1 * rnd(D)
+    return x, h, gy, scale, bias, rnd
+
+
 def check_norm(dev):
     """dropout_add_ln forward and backward at the encoder's (77056, 300) and
     hw_dropout at its FFN's (77056, 512), rate 0.2 under the kernels' own
@@ -365,10 +453,7 @@ def check_norm(dev):
     N, D, DF = BATCH * ENT_ROWS, 300, 512
     ln_f, ln_b, drop = {}, {}, {}
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
-        g = torch.Generator(device=dev).manual_seed(SEED + 4)
-        rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
-        x, h, gy = (rnd(N, D).to(dtype) for _ in range(3))
-        scale, bias = 1 + 0.1 * rnd(D), 0.1 * rnd(D)
+        x, h, gy, scale, bias, rnd = _norm_inputs(dev, dtype)
         esz = x.element_size()
         keep = fn.keep_mask(N, D, rate=RATE, seed=55, device=dev)
         kept = float(keep.float().mean())
@@ -404,9 +489,15 @@ def check_norm(dev):
                 x, h, scale, bias, rate=RATE, keep=keep)),
             library_ms=cuda_ms(library), bound_ms=bms, bound_by=by)
         bms, by = bound_ms(5 * N * D * esz, 20 * N * D, dtype)
+        # `ms` and `library_ms` both time a backward under autograd, which
+        # passes through the engine's device thread (into a Python Function
+        # for the kernel) and so carries host time; `wrapper_ms` times the
+        # kernels' own wrapper (device_splits adds each side's device time)
+        s32 = scale.float().contiguous()
         ln_b[dtype] = dict(
             max_abs_err=berr, param_rel_err=perr, tol=4 * tol,
             ms=cuda_ms(lambda: torch.autograd.grad(out, leaves, gy, retain_graph=True)),
+            wrapper_ms=cuda_ms(lambda: fn.dropout_add_ln_bwd(x, h, s32, gy, RATE, 55, 1e-5)),
             plain_ms=cuda_ms(lambda: torch.autograd.grad(ref, leaves, gy, retain_graph=True)),
             library_ms=cuda_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, gy,
                                                            retain_graph=True)),
@@ -555,6 +646,24 @@ def run_main_path(dev, model):
     log(f"main path (geo, batch {BATCH}, beam {BEAM}, bf16): {summary}")
     log(f"main path breakdown: {breakdown(ev, batches[1])}")
     return launches, summary, batches[1]
+
+
+def time_greedy_warm(dev, model, reps=3) -> list:
+    """Host ms of `reps` greedy (beam 1) batches after one warm-up batch;
+    not part of the counted main path."""
+    from icek_torch import eval_driver
+
+    cfg, wm, params, enc = model
+    greedy = eval_driver.Evaluator(cfg, wm, params, enc, device=dev, beam_size=1)
+    rng = np.random.default_rng(SEED + 7)
+    batches = [make_batch(rng, BATCH) for _ in range(reps + 1)]
+    greedy.decode_batch(batches[0])
+    out = []
+    for b in batches[1:]:
+        t0 = time.perf_counter()
+        greedy.decode_batch(b)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
 
 
 def breakdown(ev, batch):
@@ -873,10 +982,14 @@ def main() -> int:
     cross_check(dev, model)
     train_launches, train_summary, step_once = run_train_path(dev, model)
     train_cross_check(dev, model)
+    greedy_warm = time_greedy_warm(dev, model)
+    summary.update(greedy_warm_ms=greedy_warm,
+                   greedy_warm_median_ms=statistics.median(greedy_warm))
     # after every timed run, so the profiler cannot disturb one
     trace_device("one train step", step_once)
     del step_once
     trace_serving(dev, model, serve_batch)
+    device_splits(dev, kernels)
 
     # name: (source, the TPU kernel it replaces)
     tpu = "icek_tpu/kernels/"
@@ -907,7 +1020,8 @@ def main() -> int:
         }
         if name in launches and name in train_launches:
             row["launches_serving"] = launches[name]
-        for extra in ("dropout", "self", "cross", "rate0_ms"):
+        for extra in ("dropout", "self", "cross", "rate0_ms", "parts_ms", "greedy",
+                      "wrapper_ms", "library_device_ms"):
             if extra in bf:
                 row[extra] = bf[extra]
         rows.append(row)

@@ -12,15 +12,16 @@
 //
 // What bounds them: bytes.  Each is one pass over (N, D) tensors (3, 5 and
 // 2 of them) with a few operations per element, far below the card's
-// operations-per-byte balance.  Design: one warp per row; a lane owns
-// groups of four adjacent columns (one 8- or 16-byte access each), so a
-// row of D <= 1024 lives in registers, the two row reductions are warp
-// shuffles and nothing but the inputs and outputs touches device memory.
-// The TPU kernel carries dscale / dbias across its sequential grid; blocks
-// here run in no order, so each lane sums its own columns over the rows
-// its warp walks, a block folds its warps in a fixed order into one
-// partial row, and a second small kernel adds the partial rows in block
-// order: a deterministic sum, no atomics.
+// operations-per-byte balance.  The forward: one warp per row; a lane owns
+// groups of four adjacent columns (one 8- or 16-byte access each), so a row
+// of D <= 1024 lives in registers, the two row reductions are warp shuffles
+// and nothing but the inputs and outputs touches device memory.  The
+// backward (see its section) keeps the next row's loads in flight under the
+// current row's reductions, fuses its four row reductions into two, and
+// sums dscale / dbias without atomics: the TPU kernel carries them across
+// its sequential grid, here persistent blocks keep them in registers, each
+// block writes one partial row and a second kernel adds the partial rows
+// in a fixed order.
 //
 // Mask: element (row, col) keeps iff keep_bits(random_bits(seed,
 // STREAM_NORM, row * D4 + col)) with D4 = D rounded up to a multiple of 4,
@@ -188,72 +189,250 @@ __global__ void __launch_bounds__(32 * WARPS) ln_fwd_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward.  A team of LPR lanes (a half warp or a warp) owns one row at a
+// time; lane l of a team holds groups l, l + LPR, ... (NG of them) of four
+// columns.  Persistent blocks, as many as fit on the card at once, walk the
+// rows with a fixed stride; a team issues the loads of x, h and gy of its
+// next row before it reduces the current one, so each warp keeps a row's
+// bytes in flight under its arithmetic (rows of up to 512 bf16 or 384 f32
+// columns; wider ones load after the current row).  Per row there are two
+// team reductions: (count, mean, M2) combined by Chan's rule, which gives the
+// centred variance in one pass, and the pair (sum g s zhat, sum g s).  Each
+// lane sums g * zhat and g over its columns for dscale / dbias; a block folds
+// its teams in a fixed order into one partial row, and ln_bwd_reduce_kernel
+// adds the partial rows in a fixed order: no atomics, the same bits from
+// launch to launch.
+// ---------------------------------------------------------------------------
+
+constexpr int BWD_THREADS = 128;
+
+// four adjacent elements of a row as they lie in memory: 16 bytes (f32) or
+// 8 bytes (bf16); columns at or beyond D read as 0 off the vector path
+template <typename T> struct Raw4;
+template <> struct Raw4<float> { using type = float4; };
+template <> struct Raw4<__nv_bfloat16> { using type = uint2; };
+
+template <typename T>
+__device__ __forceinline__ typename Raw4<T>::type load_raw(const T* row, int col, int D,
+                                                           bool vec);
+
+template <>
+__device__ __forceinline__ float4 load_raw<float>(const float* row, int col, int D,
+                                                  bool vec) {
+  if (vec) return *reinterpret_cast<const float4*>(row + col);
+  float e[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) e[c] = col + c < D ? row[col + c] : 0.f;
+  return make_float4(e[0], e[1], e[2], e[3]);
+}
+
+template <>
+__device__ __forceinline__ uint2 load_raw<__nv_bfloat16>(const __nv_bfloat16* row, int col,
+                                                         int D, bool vec) {
+  if (vec) return *reinterpret_cast<const uint2*>(row + col);
+  uint32_t e[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    e[c] = col + c < D ? static_cast<uint32_t>(__bfloat16_as_ushort(row[col + c])) : 0u;
+  return make_uint2(e[0] | (e[1] << 16), e[2] | (e[3] << 16));
+}
+
+__device__ __forceinline__ void unpack4(float4 r, float out[4]) {
+  out[0] = r.x; out[1] = r.y; out[2] = r.z; out[3] = r.w;
+}
+
+__device__ __forceinline__ void unpack4(uint2 r, float out[4]) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
+  out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+}
+
 // partial: (gridDim.x, 2, D) float32; [b][0] = sum g * zhat, [b][1] = sum g
-template <typename T, int NG>
-__global__ void __launch_bounds__(32 * WARPS) ln_bwd_kernel(
+template <typename T, int LPR, int NG>
+__global__ void __launch_bounds__(BWD_THREADS, 4) ln_bwd_kernel(
     const T* __restrict__ x, const T* __restrict__ h,
     const float* __restrict__ scale, const T* __restrict__ gy,
     T* __restrict__ dx, T* __restrict__ dh, float* __restrict__ partial,
     long long N, int D, float eps, float inv, uint32_t thresh, uint32_t seed,
     int vec) {
+  using R = typename Raw4<T>::type;
+  constexpr int TEAMS = BWD_THREADS / LPR;
+  // the next row's raw inputs take 3 NG sizeof(T) registers; wider rows
+  // load after the current row instead, where holding both would spill
+  constexpr bool PREFETCH = NG * sizeof(T) <= 12;
+  constexpr int WARPS_B = BWD_THREADS / 32;
   __shared__ float red[2][MAXD];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  __shared__ float4 sc[MAXD / 4];
+  const int team = threadIdx.x / LPR, l = threadIdx.x % LPR;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // the lanes of this lane's team: the two teams of a half-warp instance
+  // leave the row loop apart when one of them runs out of rows (odd N), so
+  // the loop's shuffles name only the team's own half
+  const unsigned team_mask = LPR == 32 ? 0xffffffffu : 0xffffu << (lane & 16);
   const int G = (D + 3) >> 2;
-  const bool vec_par = D % 4 == 0;
-  float sc[NG][4], acc_gz[NG][4], acc_g[NG][4];
+  const bool vec_d = vec != 0;
+  for (int g = threadIdx.x; g < G; g += BWD_THREADS) {
+    float s4[4];
+    load4<float>(scale, 4 * g, D, D % 4 == 0, s4);
+    sc[g] = make_float4(s4[0], s4[1], s4[2], s4[3]);
+  }
+  // this lane's valid columns, as a float for the statistics
+  float cnt = 0.f;
 #pragma unroll
   for (int i = 0; i < NG; ++i) {
-    const int g = lane + 32 * i;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) sc[i][c] = acc_gz[i][c] = acc_g[i][c] = 0.f;
-    if (g < G) load4<float>(scale, 4 * g, D, vec_par, sc[i]);
+    const int g = l + LPR * i;
+    if (g < G) cnt += static_cast<float>(min(4, D - 4 * g));
   }
-  for (long long row = (long long)blockIdx.x * WARPS + warp; row < N;
-       row += (long long)gridDim.x * WARPS) {
-    float z[NG][4], gs[NG][4];
-    uint32_t keeps;
-    const float sum = load_row<T, NG>(x + row * D, h + row * D, row, D, G, vec != 0,
-                                  lane, seed, thresh, inv, z, keeps);
-    const float rstd = normalise<NG>(z, sum, D, G, lane, eps);
+  __syncthreads();
+
+  float acc_gz[NG][4], acc_g[NG][4];
+#pragma unroll
+  for (int i = 0; i < NG; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc_gz[i][c] = acc_g[i][c] = 0.f;
+
+  const long long stride = (long long)gridDim.x * TEAMS;
+  long long row = (long long)blockIdx.x * TEAMS + team;
+  R cx[NG], ch[NG], cg[NG];
+  auto load = [&](long long r, R (&rx)[NG], R (&rh)[NG], R (&rg)[NG]) {
+#pragma unroll
+    for (int i = 0; i < NG; ++i) {
+      const int g = l + LPR * i;
+      if (g < G) {
+        rx[i] = load_raw<T>(x + r * D, 4 * g, D, vec_d);
+        rh[i] = load_raw<T>(h + r * D, 4 * g, D, vec_d);
+        rg[i] = load_raw<T>(gy + r * D, 4 * g, D, vec_d);
+      }
+    }
+  };
+  if (row < N) load(row, cx, ch, cg);
+  for (; row < N; row += stride) {
+    R nx[NG], nh[NG], ng[NG];
+    if (PREFETCH && row + stride < N) load(row + stride, nx, nh, ng);
+
+    // z = x + dropout(h); the lane's own mean and M2 first
+    float z[NG][4];
+    uint32_t keeps = 0u;
+    float lsum = 0.f;
+#pragma unroll
+    for (int i = 0; i < NG; ++i) {
+      const int g = l + LPR * i;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) z[i][c] = 0.f;
+      if (g < G) {
+        float xv[4], hv[4];
+        unpack4(cx[i], xv);
+        unpack4(ch[i], hv);
+        const uint32_t k = keep4(seed, thresh, (unsigned long long)row * G + g);
+        keeps |= k << (4 * i);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          z[i][c] = xv[c] + ((k >> c) & 1u ? hv[c] * inv : 0.f);
+          lsum += z[i][c];          // columns past D read as 0 on both inputs
+        }
+      }
+    }
+    float mean = cnt > 0.f ? lsum / cnt : 0.f, m2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NG; ++i) {
+      const int g = l + LPR * i;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (g < G && 4 * g + c < D) m2 += (z[i][c] - mean) * (z[i][c] - mean);
+    }
+    // Chan's rule over the team; the lower lane of a pair is always the
+    // left operand, so both lanes compute the same bits
+    float n = cnt;
+#pragma unroll
+    for (int o = LPR / 2; o > 0; o >>= 1) {
+      const float on = __shfl_xor_sync(team_mask, n, o);
+      const float om = __shfl_xor_sync(team_mask, mean, o);
+      const float oq = __shfl_xor_sync(team_mask, m2, o);
+      const bool low = (l & o) == 0;
+      const float na = low ? n : on, nb = low ? on : n;
+      const float ma = low ? mean : om, mb = low ? om : mean;
+      const float qa = low ? m2 : oq, qb = low ? oq : m2;
+      const float nt = na + nb;
+      const float f = nt > 0.f ? nb / nt : 0.f;
+      const float d = mb - ma;
+      mean = ma + d * f;
+      m2 = qa + qb + d * d * na * f;
+      n = nt;
+    }
+    const float rstd = rsqrtf(m2 / D + eps);
+
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int i = 0; i < NG; ++i) {
-      const int g = lane + 32 * i;
-      float gv[4] = {0.f, 0.f, 0.f, 0.f};
-      if (g < G) load4<T>(gy + row * D, 4 * g, D, vec != 0, gv);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        z[i][c] *= rstd;                       // zhat
-        acc_gz[i][c] += gv[c] * z[i][c];
-        acc_g[i][c] += gv[c];
-        gs[i][c] = gv[c] * sc[i][c];
-        s1 += gs[i][c] * z[i][c];
-        s2 += gs[i][c];
-      }
-    }
-    const float c1 = warp_sum(s1) / D, c2 = warp_sum(s2) / D;
-#pragma unroll
-    for (int i = 0; i < NG; ++i) {
-      const int g = lane + 32 * i;
+      const int g = l + LPR * i;
       if (g < G) {
-        float dz[4], dhv[4];
+        float gv[4];
+        unpack4(cg[i], gv);
+        const float4 s4 = sc[g];
+        const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          dz[c] = (gs[i][c] - c2 - z[i][c] * c1) * rstd;
-          dhv[c] = (keeps >> (4 * i + c)) & 1u ? dz[c] * inv : 0.f;
+          z[i][c] = 4 * g + c < D ? (z[i][c] - mean) * rstd : 0.f;     // zhat
+          acc_gz[i][c] += gv[c] * z[i][c];
+          acc_g[i][c] += gv[c];
+          s1 += gv[c] * sv[c] * z[i][c];
+          s2 += gv[c] * sv[c];
         }
-        store4<T>(dx + row * D, 4 * g, D, vec != 0, dz);
-        store4<T>(dh + row * D, 4 * g, D, vec != 0, dhv);
       }
     }
+#pragma unroll
+    for (int o = LPR / 2; o > 0; o >>= 1) {
+      s1 += __shfl_xor_sync(team_mask, s1, o);
+      s2 += __shfl_xor_sync(team_mask, s2, o);
+    }
+    const float c1 = s1 / D, c2 = s2 / D;
+#pragma unroll
+    for (int i = 0; i < NG; ++i) {
+      const int g = l + LPR * i;
+      if (g < G) {
+        float gv[4], dz[4], dhv[4];
+        unpack4(cg[i], gv);
+        const float4 s4 = sc[g];
+        const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          dz[c] = (gv[c] * sv[c] - c2 - z[i][c] * c1) * rstd;
+          dhv[c] = (keeps >> (4 * i + c)) & 1u ? dz[c] * inv : 0.f;
+        }
+        store4<T>(dx + row * D, 4 * g, D, vec_d, dz);
+        store4<T>(dh + row * D, 4 * g, D, vec_d, dhv);
+      }
+    }
+    if (!PREFETCH) {
+      if (row + stride < N) load(row + stride, cx, ch, cg);
+      continue;
+    }
+#pragma unroll
+    for (int i = 0; i < NG; ++i) {
+      cx[i] = nx[i];
+      ch[i] = nh[i];
+      cg[i] = ng[i];
+    }
   }
-  // fold the block's warps in warp order, then write one partial row
-  for (int w = 0; w < WARPS; ++w) {
-    if (warp == w) {
+
+  // the two teams of a warp hold the same columns: add them (a + b on both
+  // lanes; every lane of the warp is past its loop here), then fold the
+  // block's warps in warp order into one partial row
+  if (LPR == 16) {
+#pragma unroll
+    for (int i = 0; i < NG; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        acc_gz[i][c] += __shfl_xor_sync(0xffffffffu, acc_gz[i][c], 16);
+        acc_g[i][c] += __shfl_xor_sync(0xffffffffu, acc_g[i][c], 16);
+      }
+  }
+  for (int w = 0; w < WARPS_B; ++w) {
+    if (warp == w && lane < LPR) {
 #pragma unroll
       for (int i = 0; i < NG; ++i) {
-        const int g = lane + 32 * i;
+        const int g = l + LPR * i;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int col = 4 * g + c;
@@ -266,19 +445,34 @@ __global__ void __launch_bounds__(32 * WARPS) ln_bwd_kernel(
     }
     __syncthreads();
   }
-  for (int e = threadIdx.x; e < 2 * D; e += blockDim.x)
+  for (int e = threadIdx.x; e < 2 * D; e += BWD_THREADS)
     partial[(long long)blockIdx.x * 2 * D + e] = red[e / D][e % D];
 }
 
-__global__ void ln_bwd_reduce_kernel(const float* __restrict__ partial,
-                                     int nblocks, int D,
-                                     float* __restrict__ dscale,
-                                     float* __restrict__ dbias) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= 2 * D) return;
+// dscale / dbias: column e of the (nblocks, 2D) partial rows, summed in a
+// fixed order.  A block takes 32 columns; warp w adds rows w, w + 16, ...
+// and the 16 warp sums are added in warp order.
+constexpr int RED_WARPS = 16;
+
+__global__ void __launch_bounds__(32 * RED_WARPS) ln_bwd_reduce_kernel(
+    const float* __restrict__ partial, int nblocks, int D,
+    float* __restrict__ dscale, float* __restrict__ dbias) {
+  __shared__ float part[RED_WARPS][33];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int e = blockIdx.x * 32 + lane;
   float s = 0.f;
-  for (int b = 0; b < nblocks; ++b) s += partial[(long long)b * 2 * D + e];
-  (e < D ? dscale : dbias)[e % D] = s;
+  if (e < 2 * D) {
+#pragma unroll 4
+    for (int b = warp; b < nblocks; b += RED_WARPS) s += partial[(long long)b * 2 * D + e];
+  }
+  part[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && e < 2 * D) {
+    float t = part[0][lane];
+#pragma unroll
+    for (int w = 1; w < RED_WARPS; ++w) t += part[w][lane];
+    (e < D ? dscale : dbias)[e % D] = t;
+  }
 }
 
 // one thread per group of four columns; Philox block = the group's number
@@ -348,6 +542,30 @@ int ln_fwd(const void* x, const void* h, const void* scale, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the backward instance for rows of D: LPR lanes a row, NG groups a lane,
+// LPR * NG >= G; bf16 rows of up to 320 columns take half warps
+template <typename T>
+using LnBwdFn = void (*)(const T*, const T*, const float*, const T*, T*, T*, float*,
+                         long long, int, float, float, uint32_t, uint32_t, int);
+
+template <typename T>
+LnBwdFn<T> ln_bwd_pick(int D) {
+  const int G = (D + 3) / 4;
+  if constexpr (sizeof(T) == 2)
+    if (G <= 16 * 5) return ln_bwd_kernel<T, 16, 5>;
+  if (G <= 32 * 3) return ln_bwd_kernel<T, 32, 3>;
+  if (G <= 32 * 4) return ln_bwd_kernel<T, 32, 4>;
+  return ln_bwd_kernel<T, 32, 8>;
+}
+
+template <typename T>
+int ln_bwd_teams(int D) {
+  const int G = (D + 3) / 4;
+  return sizeof(T) == 2 && G <= 16 * 5 ? BWD_THREADS / 16 : BWD_THREADS / 32;
+}
+
+// nblocks: the rows of `partial`, at most ln_bwd_grid's count; fewer
+// blocks run when there are fewer rows than teams
 template <typename T>
 int ln_bwd(const void* x, const void* h, const void* scale, const void* gy,
            void* dx, void* dh, void* partial, void* dscale, void* dbias,
@@ -359,16 +577,18 @@ int ln_bwd(const void* x, const void* h, const void* scale, const void* gy,
                   aligned(h, 4 * sizeof(T)) && aligned(gy, 4 * sizeof(T)) &&
                   aligned(dx, 4 * sizeof(T)) && aligned(dh, 4 * sizeof(T));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto kernel = D <= 512 ? ln_bwd_kernel<T, 4> : ln_bwd_kernel<T, 8>;
-  kernel<<<nblocks, 32 * WARPS, 0, s>>>(
+  const long long teams = ln_bwd_teams<T>(D);
+  const int blocks = static_cast<int>(
+      nblocks < (N + teams - 1) / teams ? nblocks : (N + teams - 1) / teams);
+  ln_bwd_pick<T>(D)<<<blocks, BWD_THREADS, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(h),
       static_cast<const float*>(scale), static_cast<const T*>(gy),
       static_cast<T*>(dx), static_cast<T*>(dh), static_cast<float*>(partial), N,
       D, eps, inv, thresh, seed, vec);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  ln_bwd_reduce_kernel<<<(2 * D + 127) / 128, 128, 0, s>>>(
-      static_cast<const float*>(partial), nblocks, D,
+  ln_bwd_reduce_kernel<<<(2 * D + 31) / 32, 32 * RED_WARPS, 0, s>>>(
+      static_cast<const float*>(partial), blocks, D,
       static_cast<float*>(dscale), static_cast<float*>(dbias));
   return static_cast<int>(cudaGetLastError());
 }
@@ -420,6 +640,14 @@ ICEK_EXPORT int ln_bwd_bf16(const void* x, const void* h, const void* scale,
                             int nblocks, void* stream) {
   return ln_bwd<__nv_bfloat16>(x, h, scale, gy, dx, dh, partial, dscale, dbias, N,
                                D, eps, inv, thresh, seed, nblocks, stream);
+}
+
+// blocks of the backward resident on the current device at once: its
+// persistent grid and the rows of its partial sums
+ICEK_EXPORT int ln_bwd_grid(int D, int bf16, int* blocks) {
+  if (D < 1 || D > MAXD) return static_cast<int>(cudaErrorInvalidValue);
+  return bf16 ? resident_blocks(ln_bwd_pick<__nv_bfloat16>(D), BWD_THREADS, 0, blocks)
+              : resident_blocks(ln_bwd_pick<float>(D), BWD_THREADS, 0, blocks);
 }
 
 ICEK_EXPORT int dropout_f32(const void* in, void* out, long long N, int D,

@@ -10,20 +10,40 @@
 // The TPU kernel carries its running top-k and online logsumexp across a
 // sequential vocab grid; GPU blocks run in no order, so the work is split:
 //   pass 1  one block per (64-row tile, vocab chunk of several 64-column
-//           tiles) computes the score tiles in its own tiled f32 product
-//           (h and Wv tiles staged in shared memory), and keeps per row a
-//           running top-k (ordered by (value desc, index asc), which IS
-//           the lax.top_k order, so no insertion-order argument is
-//           needed) and an online (max, sum exp) over its chunk;
+//           tiles) computes its score tiles and keeps per row a top-k
+//           (ordered by (value desc, index asc), which IS the lax.top_k
+//           order, so the result does not depend on the order of
+//           insertion) and an online (max, sum exp) over its chunk;
 //   pass 2  one warp per row merges the chunks' partial lists with the
 //           tail row and combines the (max, sum exp) pairs into the lse.
 // The (N, V) score matrix never reaches device memory.
 //
 // What bounds it: at the beam-5 geo shapes (N=1280, D=300, V=10000,
 // tail 301) the product is ~7.7 GFLOP against ~6 MB of bf16 weights, so
-// the card's bound is operations (~8 us on bf16 tensor cores).  This
-// first version multiplies on the CUDA cores in f32 (exact for the f32
-// parity mode); moving the product to tensor cores is later work.
+// the card's bound is operations (~8 us on bf16 tensor cores).  Two first
+// passes live here:
+//   * bf16 on the tensor cores (score_partial_mma_kernel), taken when the
+//     operands allow 8- and 16-byte copies (kernels/copy_scores.py::
+//     uses_tensor_cores).  A block of four warps holds its 64 rows of h in
+//     shared memory, D padded to a multiple of 16 by zero-filling copies,
+//     and streams Wv through a three-stage cp.async ring of 64 x 64 tiles;
+//     each warp multiplies its 16 rows with mma.sync m16n8k16 (ldmatrix for
+//     h, ldmatrix.trans for Wv) into f32 accumulators.  The epilogue stays
+//     in registers: bias, the ragged last tile masked, a per-lane online
+//     (max, sum 2^x) and a per-lane top-k list (k a template parameter, so
+//     the list and its insertion network are registers) that a score
+//     enters only if it beats the row's threshold, the best k-th entry of
+//     the four lanes' lists, shared by shuffles at each tile's end: about
+//     one score in eight takes that path, where the CUDA-core kernel runs
+//     k warp-wide arg-max rounds on every tile.  At the chunk's end the
+//     four lanes of a row combine their (max, sum) by shuffles and their
+//     lists through shared memory.
+//   * f32 (and bf16 that misses the alignment) on the CUDA cores
+//     (score_partial_kernel): an f32 tiled product from shared memory, each
+//     64-column tile merged into the rows' lists by k warp-wide arg-max
+//     rounds.  TF32 would break the f32 checks at 1e-4.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -236,7 +256,317 @@ __global__ void __launch_bounds__(THREADS) score_merge_kernel(
   if (lane == 0) lse[n] = m + logf(s);
 }
 
-template <typename Scalar>
+// ---------------------------------------------------------------------------
+// bf16 first pass on the tensor cores
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TC_THREADS = 128;      // four warps of 16 rows: BN rows a block
+constexpr int TC_BK = 64;            // depth of a ring stage
+constexpr int TC_STAGES = 3;
+constexpr int TC_WPITCH = BV + 8;    // a stage's row pitch in bf16: 144 bytes
+constexpr int TC_MAXD = 512;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// h's rows in shared memory: D padded to 16, plus 8 so that the eight rows of
+// an ldmatrix phase fall on distinct banks
+__host__ __device__ constexpr int tc_hpitch(int D) { return ((D + 15) & ~15) + 8; }
+
+size_t tc_smem_bytes(int D) {
+  return sizeof(bf16) * ((size_t)BN * tc_hpitch(D) + (size_t)TC_STAGES * TC_BK * TC_WPITCH);
+}
+
+// insert (v, i), which beats the list's last entry, into the sorted list
+// lv / li of length K
+template <int K>
+__device__ __forceinline__ void insert_topk(float (&lv)[K], int (&li)[K], float v, int i) {
+#pragma unroll
+  for (int j = K - 1; j >= 0; --j) {
+    if (better(v, i, lv[j], li[j])) {
+      const int p = j ? j - 1 : 0;
+      const bool up = j > 0 && better(v, i, lv[p], li[p]);
+      lv[j] = up ? lv[p] : v;
+      li[j] = up ? li[p] : i;
+    }
+  }
+}
+
+// One row's part of a tile's epilogue for this lane: H = 0 is row g
+// (acc[n][0..1]), H = 1 row g + 8 (acc[n][2..3]); masked scores are -inf.
+// (tv, ti) is the row's threshold: the best k-th entry of the quad's four
+// lists, so at least k scores of the row already beat it and a score that
+// does not can never be among the row's k best.
+template <int H, int K>
+__device__ __forceinline__ void row_epilogue(const float (&acc)[8][4], int col0, int t,
+                                             float& m_run, float& s_run, float (&lv)[K],
+                                             int (&li)[K], float& tv, int& ti) {
+  float tmax = -INFINITY;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) tmax = fmaxf(tmax, fmaxf(acc[n][2 * H], acc[n][2 * H + 1]));
+  const float m_new = fmaxf(m_run, tmax);
+  if (m_new != -INFINITY) {
+    const float mL = m_new * LOG2E;
+    float sum = s_run * fast_exp2(fmaf(m_run, LOG2E, -mL));
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) sum += fast_exp2(fmaf(acc[n][2 * H + e], LOG2E, -mL));
+    s_run = sum;
+    m_run = m_new;
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float v = acc[n][2 * H + e];
+      const int col = col0 + 8 * n + 2 * t + e;
+      if (v != -INFINITY && better(v, col, tv, ti)) {
+        insert_topk<K>(lv, li, v, col);
+        if (better(lv[K - 1], li[K - 1], tv, ti)) {
+          tv = lv[K - 1];
+          ti = li[K - 1];
+        }
+      }
+    }
+}
+
+// the best (in lax.top_k order) of the quad's four (v, i)
+__device__ __forceinline__ void quad_best(float& v, int& i) {
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, o);
+    if (better(ov, oi, v, i)) {
+      v = ov;
+      i = oi;
+    }
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(TC_THREADS) score_partial_mma_kernel(
+    const bf16* __restrict__ h, const bf16* __restrict__ wv,
+    const float* __restrict__ bv, int N, int D, int V, int chunk_cols,
+    int n_chunks, float* __restrict__ part_v, int* __restrict__ part_i,
+    float* __restrict__ part_m, float* __restrict__ part_s) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hp = tc_hpitch(D), dpad = hp - 8;
+  bf16* hs = reinterpret_cast<bf16*>(smem);
+  bf16* ring = hs + BN * hp;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.y * BN;
+  const int chunk = blockIdx.x;
+  const int c_begin = chunk * chunk_cols;
+  const int c_end = min(V, c_begin + chunk_cols);
+  const int kstages = (dpad + TC_BK - 1) / TC_BK;
+  const int total = (c_end - c_begin + BV - 1) / BV * kstages;
+
+  // rows [r0, r0 + BN) of h, 8 bytes a copy, zeros past N and past D
+  for (int r = warp; r < BN; r += TC_THREADS / 32) {
+    const bool row_ok = r0 + r < N;
+    const bf16* src = h + (long long)(row_ok ? r0 + r : 0) * D;
+    for (int c = lane; 4 * c < dpad; c += 32)
+      cp_async8(smem_u32(hs + r * hp + 4 * c), src + 4 * c, row_ok && 4 * c < D);
+  }
+  // stage s: depth rows [64 (s % kstages), + 64) of tile s / kstages, 16
+  // bytes a copy; a thread copies column chunk tid % 8 of rows tid / 8 + 16 i
+  const int cc = 8 * (tid & 7), rr = tid >> 3;
+  auto issue = [&](int s) {
+    if (s < total) {
+      const int tile = s / kstages;
+      const int d0 = (s - tile * kstages) * TC_BK;
+      const int col = c_begin + tile * BV + cc;
+      const uint32_t dst =
+          smem_u32(ring + (s % TC_STAGES) * TC_BK * TC_WPITCH + rr * TC_WPITCH + cc);
+#pragma unroll
+      for (int i = 0; i < TC_BK / 16; ++i) {
+        const int d = d0 + rr + 16 * i;
+        const bool ok = col < V && d < D;
+        cp_async16(dst + i * 16 * TC_WPITCH * 2,
+                   ok ? wv + (long long)d * V + col : wv, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0);          // with h's copies
+  issue(1);
+
+  // ldmatrix addresses: A (h) rows warp * 16 + lane % 16, depth 8 (lane / 16);
+  // B (a Wv stage) depth lane % 16, columns 8 (lane / 16)
+  const bf16* a_src = hs + (warp * 16 + (lane & 15)) * hp + (lane >> 4) * 8;
+  const int b_off = (lane & 15) * TC_WPITCH + (lane >> 4) * 8;
+
+  float acc[8][4];
+  float lv0[K], lv1[K], m_run[2], s_run[2], tv[2];
+  int li0[K], li1[K], ti[2];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    lv0[j] = lv1[j] = -INFINITY;
+    li0[j] = li1[j] = INT_MAX;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m_run[r] = tv[r] = -INFINITY;
+    s_run[r] = 0.f;
+    ti[r] = INT_MAX;
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  int ks = 0, col0 = c_begin;
+  for (int s = 0; s < total; ++s) {
+    cp_async_wait<TC_STAGES - 2>();
+    __syncthreads();                 // stage s is in; stage s - 1's buffer is free
+    issue(s + TC_STAGES - 1);
+    const bf16* w = ring + (s % TC_STAGES) * TC_BK * TC_WPITCH + b_off;
+    const int d0 = ks * TC_BK;
+    const int steps = min(TC_BK, dpad - d0) / 16;
+#pragma unroll
+    for (int q = 0; q < TC_BK / 16; ++q) {
+      if (q < steps) {
+        uint32_t a[4];
+        ldsm_x4(a, a_src + d0 + 16 * q);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, w + 16 * q * TC_WPITCH + 16 * np);
+          mma_bf16(acc[2 * np], a, b[0], b[1]);
+          mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    if (++ks < kstages) continue;
+
+    // the tile at col0 is done: lane holds columns col0 + 8 n + 2 t + {0, 1}
+    // of rows g and g + 8; bias, mask, then each row's (max, sum) and list
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = col0 + 8 * n + 2 * t + e;
+        const bool ok = col < c_end;
+        const float b = ok ? bv[col] : 0.f;
+        acc[n][e] = ok ? acc[n][e] + b : -INFINITY;
+        acc[n][2 + e] = ok ? acc[n][2 + e] + b : -INFINITY;
+      }
+    row_epilogue<0, K>(acc, col0, t, m_run[0], s_run[0], lv0, li0, tv[0], ti[0]);
+    row_epilogue<1, K>(acc, col0, t, m_run[1], s_run[1], lv1, li1, tv[1], ti[1]);
+    quad_best(tv[0], ti[0]);
+    quad_best(tv[1], ti[1]);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    ks = 0;
+    col0 += BV;
+  }
+
+  // the four lanes of a row: (max, sum) by shuffles, lists through shared
+  // memory (the ring is free once every warp is past its last stage)
+  cp_async_wait<0>();
+  __syncthreads();
+  float* mv = reinterpret_cast<float*>(ring);              // [BN][4][K]
+  int* mi = reinterpret_cast<int*>(mv + BN * 4 * K);       // [BN][4][K]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + g + 8 * r;
+    const float m = quad_max(m_run[r]);
+    const float part = m_run[r] == -INFINITY
+        ? 0.f : s_run[r] * fast_exp2((m_run[r] - m) * LOG2E);
+    const float sum = quad_sum(part);
+    if (t == 0 && r0 + row < N) {
+      part_m[(long long)(r0 + row) * n_chunks + chunk] = m;
+      part_s[(long long)(r0 + row) * n_chunks + chunk] = sum;
+    }
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      mv[(row * 4 + t) * K + j] = r ? lv1[j] : lv0[j];
+      mi[(row * 4 + t) * K + j] = r ? li1[j] : li0[j];
+    }
+  }
+  __syncthreads();
+  if (tid < BN && r0 + tid < N) {
+    const float* rv = mv + tid * 4 * K;
+    const int* ri = mi + tid * 4 * K;
+    int head[4] = {0, 0, 0, 0};
+    for (int j = 0; j < K; ++j) {
+      float bvv = -INFINITY;
+      int bi = INT_MAX, bq = 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (head[q] < K) {
+          const float v = rv[q * K + head[q]];
+          const int i = ri[q * K + head[q]];
+          if (better(v, i, bvv, bi)) {
+            bvv = v;
+            bi = i;
+            bq = q;
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) head[q] += q == bq;
+      const long long o = ((long long)(r0 + tid) * n_chunks + chunk) * K + j;
+      part_v[o] = bvv;
+      part_i[o] = bi;
+    }
+  }
+}
+
+// the tensor-core kernel takes more than 48 KB of shared memory only after
+// opting in, once per device
+template <int K>
+cudaError_t mma_opt_in() {
+  static bool opted[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev >= 64 || !opted[dev])) {
+    err = cudaFuncSetAttribute(score_partial_mma_kernel<K>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(tc_smem_bytes(TC_MAXD)));
+    if (err == cudaSuccess && dev < 64) opted[dev] = true;
+  }
+  return err;
+}
+
+// fn(std::integral_constant<int, k>{}) for k in [1, KMAX]: k is a
+// compile-time constant of the tensor-core kernel, so its lists and
+// insertion network live in registers
+template <typename Fn>
+int with_k(int k, Fn&& fn) {
+  switch (k) {
+    case 1: return fn(std::integral_constant<int, 1>{});
+    case 2: return fn(std::integral_constant<int, 2>{});
+    case 3: return fn(std::integral_constant<int, 3>{});
+    case 4: return fn(std::integral_constant<int, 4>{});
+    case 5: return fn(std::integral_constant<int, 5>{});
+    case 6: return fn(std::integral_constant<int, 6>{});
+    case 7: return fn(std::integral_constant<int, 7>{});
+    case 8: return fn(std::integral_constant<int, 8>{});
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch_mma(int k, dim3 grid, cudaStream_t s, const bf16* h, const bf16* wv,
+               const float* bv, int N, int D, int V, int chunk_cols, int n_chunks,
+               float* part_v, int* part_i, float* part_m, float* part_s) {
+  return with_k(k, [&](auto kc) {
+    constexpr int K = decltype(kc)::value;
+    const cudaError_t err = mma_opt_in<K>();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    score_partial_mma_kernel<K><<<grid, TC_THREADS, tc_smem_bytes(D), s>>>(
+        h, wv, bv, N, D, V, chunk_cols, n_chunks, part_v, part_i, part_m, part_s);
+    return 0;
+  });
+}
+
+// TC: the bf16 tensor-core first pass, which needs D % 4 == 0, D <= 512,
+// V % 8 == 0, h on an 8-byte and wv on a 16-byte boundary
+template <typename Scalar, bool TC>
 int run(const void* h, const void* wv, const float* bv, const float* tail,
         float* part_v, int* part_i, float* part_m, float* part_s, float* vals,
         int* idx, float* lse, int N, int D, int V, int T, int k,
@@ -245,9 +575,19 @@ int run(const void* h, const void* wv, const float* bv, const float* tail,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   dim3 grid1(n_chunks, (N + BN - 1) / BN);
-  score_partial_kernel<Scalar><<<grid1, THREADS, 0, s>>>(
-      static_cast<const Scalar*>(h), static_cast<const Scalar*>(wv), bv, N, D, V, k,
-      chunk_cols, n_chunks, part_v, part_i, part_m, part_s);
+  if constexpr (TC) {
+    if (D % 4 || D > TC_MAXD || V % 8 || reinterpret_cast<uintptr_t>(h) % 8 ||
+        reinterpret_cast<uintptr_t>(wv) % 16)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int err = launch_mma(k, grid1, s, static_cast<const bf16*>(h),
+                               static_cast<const bf16*>(wv), bv, N, D, V, chunk_cols,
+                               n_chunks, part_v, part_i, part_m, part_s);
+    if (err) return err;
+  } else {
+    score_partial_kernel<Scalar><<<grid1, THREADS, 0, s>>>(
+        static_cast<const Scalar*>(h), static_cast<const Scalar*>(wv), bv, N, D, V, k,
+        chunk_cols, n_chunks, part_v, part_i, part_m, part_s);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows_per_block = THREADS / 32;
@@ -267,5 +607,28 @@ int run(const void* h, const void* wv, const float* bv, const float* tail,
   h, wv, bv, tail, part_v, part_i, part_m, part_s, vals, idx, lse, N, D, V, T, \
       k, chunk_cols, n_chunks, stream
 
-ICEK_EXPORT int score_topk_f32(SCORE_ARGS) { return run<float>(SCORE_PASS); }
-ICEK_EXPORT int score_topk_bf16(SCORE_ARGS) { return run<__nv_bfloat16>(SCORE_PASS); }
+ICEK_EXPORT int score_topk_f32(SCORE_ARGS) { return run<float, false>(SCORE_PASS); }
+ICEK_EXPORT int score_topk_bf16(SCORE_ARGS) {
+  return run<__nv_bfloat16, false>(SCORE_PASS);
+}
+ICEK_EXPORT int score_topk_bf16_mma(SCORE_ARGS) {
+  return run<__nv_bfloat16, true>(SCORE_PASS);
+}
+
+// blocks of the first pass that score_topk_<dtype>[_mma] launches for this k
+// and D, resident on the current device at once: the wrapper splits the
+// vocab so the first pass has about that many blocks
+ICEK_EXPORT int score_topk_grid(int bf16, int tc, int k, int D, int* blocks) {
+  if (k < 1 || k > KMAX || D < 1 || (tc && (!bf16 || D > TC_MAXD)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (tc)
+    return with_k(k, [&](auto kc) {
+      constexpr int K = decltype(kc)::value;
+      const cudaError_t err = mma_opt_in<K>();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      return resident_blocks(score_partial_mma_kernel<K>, TC_THREADS, tc_smem_bytes(D),
+                             blocks);
+    });
+  return bf16 ? resident_blocks(score_partial_kernel<__nv_bfloat16>, THREADS, 0, blocks)
+              : resident_blocks(score_partial_kernel<float>, THREADS, 0, blocks);
+}

@@ -4,7 +4,12 @@ The decode loops only consume the top-k entries of the [vocab | tail]
 logits (argmax + runner-up for greedy, top-K for beam) and the row
 logsumexp.  ``fused_score_topk`` runs ``csrc/score_topk.cu`` for CUDA
 tensors, which never writes the (N, V) scores to device memory, and its
-plain PyTorch version ``reference_score_topk`` for CPU tensors.  Ties go
+plain PyTorch version ``reference_score_topk`` for CPU tensors.  Which
+first pass a CUDA call runs is decided by dtype and alignment alone
+(``uses_tensor_cores``): bfloat16 operands that allow 8-byte copies of h's
+rows and 16-byte copies of Wv's run the tensor-core kernel; float32, and
+bfloat16 that misses the alignment, run the CUDA-core kernel of the same
+source.  Neither gives way to the other or to the plain version.  Ties go
 to the lower index of [V | tail] (the lax.top_k contract), so vocab
 entries win ties against the tail.
 """
@@ -12,6 +17,7 @@ entries win ties against the tail.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -21,9 +27,9 @@ from icek_torch.kernels import _build
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 11 + [_I] * 7 + [_P]
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_TILE = 64          # vocab columns per tile in the kernel
-_ROWS = 64          # rows per block in the kernel
-_TARGET_BLOCKS = 264  # two blocks per SM on a 132-SM card
+_TILE = 64          # vocab columns per tile in the kernels
+_ROWS = 64          # rows per block in the kernels
+_TC_MAX_D = 512     # widest h the tensor-core kernel holds in shared memory
 
 
 def reference_score_topk(h, wv, bv, tail, k: int = 5):
@@ -37,12 +43,36 @@ def reference_score_topk(h, wv, bv, tail, k: int = 5):
     return vals, idx.to(torch.int32), torch.logsumexp(scores, dim=1)
 
 
-def _chunking(n_rows: int, vocab: int):
+def uses_tensor_cores(h, wv) -> bool:
+    """Whether contiguous (h, wv) go to the tensor-core kernel: bfloat16, D a
+    multiple of 4 and at most 512, V a multiple of 8, h on an 8-byte and wv
+    on a 16-byte boundary (the kernel stages h's rows 8 bytes and Wv's rows
+    16 bytes a copy)."""
+    D, V = wv.shape
+    return (h.dtype == torch.bfloat16 and D % 4 == 0 and D <= _TC_MAX_D and V % 8 == 0
+            and h.data_ptr() % 8 == 0 and wv.data_ptr() % 16 == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(device_index: int, dtype, tc: bool, k: int, d: int) -> int:
+    """Blocks of the first pass resident on the card at once, for the kernel
+    a call with this dtype, dispatch, k and width runs.  Asked once per
+    (device, dtype, dispatch, k, width)."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        fn = _build.bind("score_topk", "score_topk_grid",
+                         [_I] * 4 + [ctypes.POINTER(ctypes.c_int)])
+        _build.check(fn(int(dtype == torch.bfloat16), int(tc), k, d, ctypes.byref(out)),
+                     "score_topk", "fused_score_topk grid")
+    return out.value
+
+
+def _chunking(n_rows: int, vocab: int, target: int):
     """(chunk_cols, n_chunks): split the vocab so the first pass has about
-    _TARGET_BLOCKS blocks whatever the row count."""
+    `target` blocks, and no more, whatever the row count."""
     n_tiles = -(-vocab // _TILE)
     row_blocks = -(-n_rows // _ROWS)
-    chunks = min(n_tiles, max(1, -(-_TARGET_BLOCKS // row_blocks)))
+    chunks = min(n_tiles, max(1, target // row_blocks))
     tiles_per_chunk = -(-n_tiles // chunks)
     return tiles_per_chunk * _TILE, -(-n_tiles // tiles_per_chunk)
 
@@ -71,7 +101,8 @@ def fused_score_topk(h, wv, bv, tail, k: int = 5):
     bv = bv.to(torch.float32).contiguous()
     tail = tail.to(torch.float32).contiguous()
     T = tail.shape[1]
-    chunk_cols, n_chunks = _chunking(N, V)
+    tc = uses_tensor_cores(h, wv)
+    chunk_cols, n_chunks = _chunking(N, V, _resident_blocks(h.device.index, h.dtype, tc, k, D))
     f32 = dict(dtype=torch.float32, device=h.device)
     i32 = dict(dtype=torch.int32, device=h.device)
     part_v = torch.empty((N, n_chunks, k), **f32)
@@ -81,7 +112,8 @@ def fused_score_topk(h, wv, bv, tail, k: int = 5):
     vals = torch.empty((N, k), **f32)
     idx = torch.empty((N, k), **i32)
     lse = torch.empty((N,), **f32)
-    fn = _build.bind("score_topk", "score_topk_" + _SUFFIX[h.dtype], _ARGTYPES)
+    entry = _SUFFIX[h.dtype] + ("_mma" if tc else "")
+    fn = _build.bind("score_topk", "score_topk_" + entry, _ARGTYPES)
     err = fn(h.data_ptr(), wv.data_ptr(), bv.data_ptr(), tail.data_ptr(),
              part_v.data_ptr(), part_i.data_ptr(), part_m.data_ptr(),
              part_s.data_ptr(), vals.data_ptr(), idx.data_ptr(), lse.data_ptr(),

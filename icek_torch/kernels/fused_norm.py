@@ -22,6 +22,7 @@ explicit ``keep`` mask or draw one from a ``torch.Generator``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -32,7 +33,6 @@ _P, _I, _LL, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float, ctypes.c_uint)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_D = 1024          # widest row the LayerNorm kernels hold in registers
-_ROWS_PER_BLOCK = 4   # warps (rows) per block in the kernels
 
 
 def _drop(h, rate, keep, gen):
@@ -90,13 +90,26 @@ def _ln_forward(x2, h2, scale, bias, rate, seed, eps):
     return y
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_blocks(device_index: int, dtype, d: int) -> int:
+    """Blocks of the backward kernel resident on the card at once: its
+    persistent grid and the rows of its partial sums.  Asked once per
+    (device, dtype, width)."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        fn = _build.bind("fused_norm", "ln_bwd_grid",
+                         [_I, _I, ctypes.POINTER(ctypes.c_int)])
+        _build.check(fn(d, int(dtype == torch.bfloat16), ctypes.byref(out)), "fused_norm",
+                     "dropout_add_ln backward grid")
+    return out.value
+
+
 def dropout_add_ln_bwd(x2, h2, scale, g2, rate, seed, eps):
     """Launch the backward kernel on (N, D) rows; returns (dx, dh, dscale,
     dbias) with dx, dh in x's dtype and (D,) float32 parameter gradients."""
     N, D = x2.shape
     dx, dh = torch.empty_like(x2), torch.empty_like(x2)
-    sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
-    nblocks = min(-(-N // _ROWS_PER_BLOCK), 8 * sms)
+    nblocks = _bwd_blocks(x2.device.index, x2.dtype, D)
     f32 = dict(dtype=torch.float32, device=x2.device)
     partial = torch.empty((nblocks, 2, D), **f32)
     dscale, dbias = torch.empty((D,), **f32), torch.empty((D,), **f32)

@@ -94,6 +94,53 @@ def test_score_kernel_ties_and_tail(cuda):
     assert (idx[:, 0] == v + 7).all() and (vals[:, 0] == 5.0).all()
 
 
+def _score_inputs(cuda, dtype, n, v, t, seed=9):
+    g = _gen(seed)
+    h = torch.randn((n, 300), generator=g).to(cuda, dtype)
+    wv = ((torch.rand((300, v), generator=g) * 2 - 1) * 0.1).to(cuda, dtype)
+    bv = (torch.randn((v,), generator=g) * 0.01).to(cuda)
+    tail = torch.randn((n, t), generator=g).to(cuda)
+    return h, wv, bv, tail
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 301])
+@pytest.mark.parametrize("v", [64, 520, 10000, 10001])
+@pytest.mark.parametrize("n", [1, 63, 65, 1280])
+def test_score_kernel_edges(cuda, dtype, n, v, t):
+    """Rows on both sides of the 64-row tile, a vocab of one tile, a ragged
+    last tile, one that misses the tensor-core alignment (V = 10001), and
+    tails of 1 and 301: indices identical, values and lse within 1e-4."""
+    h, wv, bv, tail = _score_inputs(cuda, dtype, n, v, t)
+    assert tcs.uses_tensor_cores(h, wv) == (dtype == torch.bfloat16 and v % 8 == 0)
+    before = tcs.fused_score_topk.launches
+    got = tcs.fused_score_topk(h, wv, bv, tail, k=5)
+    torch.cuda.synchronize()
+    assert tcs.fused_score_topk.launches == before + 1
+    want = tcs.reference_score_topk(h, wv, bv, tail, k=5)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("k", [1, 2, 5, 8])
+def test_score_kernel_bf16_offset_h_takes_cuda_core_path(cuda, k):
+    """A bf16 h that starts one element into its buffer cannot be staged 8
+    bytes a copy: it runs the CUDA-core kernel and agrees with the aligned
+    call's tensor-core kernel and with the plain version."""
+    h, wv, bv, tail = _score_inputs(cuda, torch.bfloat16, 1280, 10000, 301)
+    buf = torch.empty(h.numel() + 1, dtype=h.dtype, device=cuda)
+    buf[1:].copy_(h.reshape(-1))
+    shifted = buf[1:].view(h.shape)
+    assert tcs.uses_tensor_cores(h, wv) and not tcs.uses_tensor_cores(shifted, wv)
+    want = tcs.reference_score_topk(h, wv, bv, tail, k=k)
+    for hh in (h, shifted):
+        got = tcs.fused_score_topk(hh, wv, bv, tail, k=k)
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
+        torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-4)
+
+
 def _decoder_inputs(cuda, dtype, B=4, K=5, L=8, M=37, D=60, H=6, F=48, i=5):
     from icek_torch.models import transformer as tfm
 
@@ -253,6 +300,38 @@ def test_dropout_add_ln_kernel_matches_plain(cuda, dtype, tol, rate, n, d):
         torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=atol)
     if rate:
         assert not ggrads[1][~keep].any()       # dh is zero exactly where h dropped
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("n,d", [(9001, 300), (1, 300), (9001, 36), (3, 36)])
+def test_dropout_add_ln_backward_odd_rows_matches_plain(cuda, dtype, tol, n, d):
+    """An odd row count leaves the last row's half-warp team (bf16, D <= 320)
+    without a partner row: the same checks as the test above, rate 0.2."""
+    test_dropout_add_ln_kernel_matches_plain(cuda, dtype, tol, 0.2, n, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(9000, 36), (9000, 300), (5000, 511), (3000, 1024),
+                                 (9000, 302), (9001, 300), (1, 300), (9001, 36)])
+def test_dropout_add_ln_backward_is_bit_identical_between_launches(cuda, dtype, n, d):
+    """No atomics: two backward launches on the same inputs give the same
+    bits in dx, dh, dscale and dbias, with more rows than the persistent
+    grid has teams (D = 302 takes the unvectorised loads; odd row counts
+    leave a half-warp team without a partner row)."""
+    from icek_torch.kernels import fused_norm as tfn
+
+    g = _gen(14)
+    x, h, gy = (torch.randn((n, d), generator=g).to(cuda, dtype) for _ in range(3))
+    scale = (1 + 0.1 * torch.randn(d, generator=g)).to(cuda)
+    bias = (0.1 * torch.randn(d, generator=g)).to(cuda)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in (x, h, scale, bias)]
+        out = tfn.dropout_add_ln(*leaves, rate=0.2, seed=17)
+        runs.append(torch.autograd.grad(out, leaves, gy))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

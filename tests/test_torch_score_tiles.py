@@ -1,0 +1,275 @@
+"""The tiling of the tensor-core score head (``icek_torch/csrc/score_topk.cu``,
+``score_partial_mma_kernel`` then ``score_merge_kernel``), emulated in torch
+on the CPU.
+
+The CUDA kernel runs only on the card (tests/test_torch_gpu.py); what it does
+tile by tile is written out here with the same chunk split
+(``copy_scores._chunking``), the same zero pad of D to a multiple of 16
+(300 -> 304), the same lanes and walk order, and held against the plain
+version and the JAX package:
+
+* a block takes 64 rows and a chunk of 64-column tiles; in a tile, lane t of
+  a row's quad holds columns 8 n + 2 t + e (n < 8, e < 2), walked in that
+  order, tile after tile;
+* each lane keeps an online (max, sum 2^x) in the log2 domain and a sorted
+  top-k list (value descending, ties to the lower index) that a score
+  enters, through the kernel's insertion network, only if it beats the
+  row's threshold: the best k-th entry of the quad's four lists, shared at
+  each tile's end, or the lane's own k-th entry since;
+* at the chunk's end the quad's (max, sum) pairs are combined and its four
+  lists merged; the merge kernel then takes the chunks' lists and the tail
+  row, and the lse from the chunks' pairs and the tail.
+
+Tolerances: values and lse atol 1e-4 with IDENTICAL indices, as
+tests/test_torch_kernels.py holds the plain version (f32 inputs; the
+emulation's scores come from one f32 product, so only the tiling differs).
+"""
+
+import math
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from icek_torch.kernels import copy_scores as tcs
+from icek_tpu.kernels import copy_scores as jcs
+
+ROWS, TILE, KMAX = 64, 64, 8
+LOG2E = 1.4426950408889634
+INT_MAX = 2 ** 31 - 1
+
+
+def _better(av, ai, bv, bi):
+    return (av > bv) | ((av == bv) & (ai < bi))
+
+
+def _insert(lv, li, k, v, i, take):
+    """The kernel's insertion network on (M, KMAX) sorted lists, for the rows
+    where `take` holds: slot j < k takes the candidate or its upper neighbour."""
+    nv, ni = lv.clone(), li.clone()
+    for j in range(KMAX - 1, -1, -1):
+        if j >= k:
+            continue
+        here = take & _better(v, i, lv[:, j], li[:, j])
+        p = max(j - 1, 0)
+        up = here & _better(v, i, lv[:, p], li[:, p]) if j else torch.zeros_like(here)
+        nv[:, j] = torch.where(here, torch.where(up, lv[:, p], v), lv[:, j])
+        ni[:, j] = torch.where(here, torch.where(up, li[:, p], i), li[:, j])
+    return nv, ni
+
+
+def _topk_sorted(v, i, k):
+    """The first k of (v, i) pairs in (value desc, index asc) order, per row."""
+    order = torch.argsort(i, dim=1, stable=True)
+    v, i = v.gather(1, order), i.gather(1, order)
+    order = torch.argsort(-v, dim=1, stable=True)[:, :k]
+    return v.gather(1, order), i.gather(1, order)
+
+
+# the tensor-core first pass's resident blocks on an H100 at D = 300: three
+# blocks of 66 KB of shared memory on each of 132 SMs (the wrapper asks the
+# card's occupancy API for this number)
+RESIDENT = 3 * 132
+
+
+def _chunks(n, v):
+    return tcs._chunking(n, v, RESIDENT)
+
+
+def padded_depth(d):
+    return -(-d // 16) * 16
+
+
+def tiled_partials(h, wv, bv, k):
+    """The first pass: per (row, chunk) the chunk's top-k (value, index) and
+    its (max, sum exp), as the kernel writes them; also the number of list
+    insertions per (row, chunk, lane)."""
+    N, D = h.shape
+    V = wv.shape[1]
+    dpad = padded_depth(D)
+    chunk_cols, n_chunks = _chunks(N, V)
+    n_pad = -(-N // ROWS) * ROWS
+    hp = torch.zeros((n_pad, dpad))
+    hp[:N, :D] = h
+    wp = torch.zeros((dpad, n_chunks * chunk_cols))
+    wp[:D, :V] = wv
+    scores = hp @ wp + torch.nn.functional.pad(bv, (0, n_chunks * chunk_cols - V))
+    col = torch.arange(n_chunks * chunk_cols)
+    chunk_of = col // chunk_cols
+    c_end = torch.clamp((chunk_of + 1) * chunk_cols, max=V)
+    scores = torch.where(col < c_end, scores, -math.inf)[:N]
+
+    # walk position p of lane t in chunk c: tile p // 16, n = p % 16 // 2, e = p % 2
+    walk = chunk_cols // 4
+    p = torch.arange(walk)
+    t = torch.arange(4)
+    cols = (torch.arange(n_chunks)[:, None, None] * chunk_cols + TILE * (p // 16)[None, None]
+            + 8 * (p % 16 // 2)[None, None] + 2 * t[None, :, None] + (p % 2)[None, None])
+    lane_scores = scores[:, cols]                       # (N, chunks, 4, walk)
+    M = N * n_chunks * 4
+    flat = lane_scores.reshape(M, walk)
+    flat_cols = cols.expand(N, -1, -1, -1).reshape(M, walk)
+
+    # per-lane online (max, sum 2^x), one 16-score tile at a time
+    m = torch.full((M,), -math.inf)
+    s = torch.zeros((M,))
+    for t0 in range(0, walk, 16):
+        tile = flat[:, t0:t0 + 16]
+        m_new = torch.maximum(m, tile.max(dim=1).values)
+        live = m_new != -math.inf
+        mL = torch.where(live, m_new, 0.0) * LOG2E
+        part = torch.exp2(tile * LOG2E - mL[:, None]).sum(dim=1)
+        s = torch.where(live, s * torch.exp2(m * LOG2E - mL) + part, s)
+        m = m_new
+
+    # per-lane top-k by threshold: a score enters the lane's list only if it
+    # beats (tv, ti), the best k-th entry of the quad's lists at the last
+    # tile's end or the lane's own k-th entry since, whichever is better
+    lv = torch.full((M, KMAX), -math.inf)
+    li = torch.full((M, KMAX), INT_MAX, dtype=torch.int64)
+    tv = torch.full((M,), -math.inf)
+    ti = torch.full((M,), INT_MAX, dtype=torch.int64)
+    inserts = torch.zeros((M,), dtype=torch.int64)
+    for q in range(walk):
+        v, i = flat[:, q], flat_cols[:, q]
+        take = (v != -math.inf) & _better(v, i, tv, ti)
+        inserts += take
+        lv, li = _insert(lv, li, k, v, i, take)
+        up = take & _better(lv[:, k - 1], li[:, k - 1], tv, ti)
+        tv, ti = torch.where(up, lv[:, k - 1], tv), torch.where(up, li[:, k - 1], ti)
+        if q % 16 == 15:                                # the tile's end: quad_best
+            qv, qi = _topk_sorted(tv.view(-1, 4), ti.view(-1, 4), 1)
+            tv, ti = qv.expand(-1, 4).reshape(M), qi.expand(-1, 4).reshape(M)
+
+    # the quad: (max, sum) combined, four lists merged
+    m4, s4 = m.view(N, n_chunks, 4), s.view(N, n_chunks, 4)
+    qm = m4.max(dim=2).values
+    qs = torch.where(m4 == -math.inf, 0.0,
+                     s4 * torch.exp2((m4 - qm[..., None]) * LOG2E)).sum(dim=2)
+    lv = lv[:, :k].reshape(N * n_chunks, 4 * k)
+    li = li[:, :k].reshape(N * n_chunks, 4 * k)
+    pv, pi = _topk_sorted(lv, li, k)
+    return (pv.view(N, n_chunks, k), pi.view(N, n_chunks, k), qm, qs,
+            inserts.view(N, n_chunks, 4))
+
+
+def tiled_score_topk(h, wv, bv, tail, k):
+    """Both passes: (vals (N, k) f32, idx (N, k) int32, lse (N,) f32)."""
+    N, V = h.shape[0], wv.shape[1]
+    pv, pi, pm, ps, _ = tiled_partials(h, wv, bv, k)
+    T = tail.shape[1]
+    cand_v = torch.cat([pv.reshape(N, -1), tail], dim=1)
+    cand_i = torch.cat([pi.reshape(N, -1), V + torch.arange(T).expand(N, T)], dim=1)
+    used = cand_i == INT_MAX                            # padding never wins
+    vals, idx = _topk_sorted(torch.where(used, -math.inf, cand_v),
+                             torch.where(used, INT_MAX, cand_i), k)
+    m = torch.maximum(pm.max(dim=1).values, tail.max(dim=1).values)
+    s = (ps * torch.exp(pm - m[:, None])).sum(dim=1) + torch.exp(tail - m[:, None]).sum(dim=1)
+    return vals, idx.to(torch.int32), m + torch.log(s)
+
+
+def _inputs(seed, n, v, d=300, t=301):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n, d)).astype(np.float32),
+            ((rng.random((d, v)) * 2 - 1) * 0.1).astype(np.float32),
+            (rng.standard_normal(v) * 0.01).astype(np.float32),
+            rng.standard_normal((n, t)).astype(np.float32))
+
+
+def _hold(got, args, k, jax_ref=True):
+    want = tcs.reference_score_topk(*(torch.as_tensor(a) for a in args), k=k)
+    wants = [want]
+    if jax_ref:
+        wants.append(jcs.reference_score_topk(*(jnp.asarray(a) for a in args), k=k))
+    for w in wants:
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(w[1]))
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(w[0]), atol=1e-4)
+        np.testing.assert_allclose(got[2].numpy(), np.asarray(w[2]), atol=1e-4)
+
+
+@pytest.mark.parametrize("n,v,k", [(1280, 10000, 5), (256, 10000, 2), (70, 10001, 5),
+                                   (65, 10000, 1), (1, 520, 8)])
+def test_tiled_scores_match_plain_and_jax(n, v, k):
+    args = _inputs(n + v + k, n, v)
+    got = tiled_score_topk(*(torch.as_tensor(a) for a in args), k)
+    _hold(got, args, k)
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+def test_tiled_scores_every_k(k):
+    """k = 1 ... 8 on rows that are not a multiple of the 64-row tile."""
+    args = _inputs(40 + k, 67, 1000, d=36, t=17)
+    _hold(tiled_score_topk(*(torch.as_tensor(a) for a in args), k), args, k)
+
+
+def test_tiled_scores_match_pallas_interpret():
+    """A small case against the JAX package's Pallas kernel in interpret
+    mode, as tests/test_torch_kernels.py runs it."""
+    args = _inputs(7, 16, 1000, d=32, t=37)
+    got = tiled_score_topk(*(torch.as_tensor(a) for a in args), 5)
+    with pltpu.force_tpu_interpret_mode():
+        want = jcs.fused_score_topk(*(jnp.asarray(a) for a in args), k=5)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), atol=1e-4)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), atol=1e-4)
+
+
+@pytest.mark.parametrize("k", [2, 5, 8])
+@pytest.mark.parametrize("v", [10000, 10001])
+def test_tiled_scores_ties_across_tiles_chunks_and_tail(k, v):
+    """Exact ties planted on both sides of a tile boundary, a chunk boundary,
+    the ragged last tile and the tail: the lower index wins, vocab beats the
+    tail, and equal scores seen in one lane, in two lanes of a quad or in
+    two chunks all come out in index order."""
+    n, d, t = 700, 8, 16
+    chunk_cols, n_chunks = _chunks(n, v)
+    assert n_chunks > 3 and chunk_cols > TILE and chunk_cols % TILE == 0
+    bv = np.zeros(v, np.float32)
+    planted = [63, 64, 3 * chunk_cols - 1, 3 * chunk_cols, v - 2, v - 1]
+    bv[planted] = 3.0
+    bv[[10, 11, 3 * chunk_cols + 1]] = 2.0
+    tail = np.zeros((n, t), np.float32)
+    tail[:, 4] = 3.0
+    args = (np.zeros((n, d), np.float32), np.zeros((d, v), np.float32), bv, tail)
+    got = tiled_score_topk(*(torch.as_tensor(a) for a in args), k)
+    want = (planted + [v + 4, 10, 11, 3 * chunk_cols + 1])[:k]
+    assert got[1].numpy()[0].tolist() == want
+    _hold(got, args, k)
+
+
+def test_tiled_first_pass_pads_and_inserts():
+    """At the beam shape: D 300 pads to 304; the chunk split covers V once
+    with no more blocks than three an SM; for the n scores of a row in a
+    chunk the row's quad inserts fewer times than four lanes with lists of
+    their own would, 4 k (1 + ln(n / 4k)) (each lane fills its list in the
+    chunk's first tile, before the quad shares a threshold), so fewer than
+    one score in seven takes the insertion path, where the CUDA-core kernel
+    runs k warp-wide arg-max rounds on every tile."""
+    n, v, k = 1280, 10000, 5
+    args = [torch.as_tensor(a) for a in _inputs(3, n, v, d=32)]
+    assert padded_depth(300) == 304 and padded_depth(304) == 304
+    chunk_cols, n_chunks = _chunks(n, v)
+    assert (n_chunks - 1) * chunk_cols < v <= n_chunks * chunk_cols
+    assert n_chunks * -(-n // ROWS) <= RESIDENT
+    _, _, _, _, inserts = tiled_partials(*args[:3], k)
+    per_row = inserts.sum(dim=2).float()                # the quad's, per chunk
+    assert float(per_row.mean()) < 4 * k * (1 + math.log(chunk_cols / (4 * k)))
+    assert int(inserts.sum()) < n * v / 7
+
+
+def test_tensor_core_dispatch():
+    """bf16 with D % 4 == 0, V % 8 == 0 and aligned operands takes the
+    tensor-core kernel; f32, V = 10001 and an h that starts mid-word do not."""
+    h = torch.zeros((4, 300), dtype=torch.bfloat16)
+    wv = torch.zeros((300, 10000), dtype=torch.bfloat16)
+    assert tcs.uses_tensor_cores(h, wv)
+    assert not tcs.uses_tensor_cores(h.float(), wv.float())
+    assert not tcs.uses_tensor_cores(h, torch.zeros((300, 10001), dtype=torch.bfloat16))
+    buf = torch.zeros(4 * 300 + 1, dtype=torch.bfloat16)
+    assert not tcs.uses_tensor_cores(buf[1:].view(4, 300), wv)
+    assert not tcs.uses_tensor_cores(torch.zeros((4, 600), dtype=torch.bfloat16),
+                                     torch.zeros((600, 64), dtype=torch.bfloat16))
