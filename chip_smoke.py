@@ -14,15 +14,20 @@ Phases (any failure raises and exits non-zero):
               in f32 and bf16 (flash attention at all three attention
               sites of a train step; the dropout kernels at rate 0.2 under the
               mask the kernel itself exports, with the mask's keep rate and
-              the forward / backward mask identity), and timed with CUDA
-              events beside its plain version, a one-call PyTorch yardstick
-              where one exists, and the card's bound for the same work;
+              the forward / backward mask identity; the decoder step on
+              both its routes in bf16, tensor cores and CUDA cores), and
+              timed with CUDA events beside its plain version, a one-call
+              PyTorch yardstick where one exists, and the card's bound for
+              the same work; the loops' instruction counts of the
+              tensor-core decoder step are logged;
   4. main     the geo preset at full width (ResNet-101 at 256x256, d=300,
               10 heads, 3 layers, V=10000, E=301, beam 5, max_len 30,
               weights from a seed) answers requests through
               Evaluator.decode_batch: a warm-up, 3 timed beam-5 batches of
               256 raw f16 CHW images and one greedy batch, with every
-              kernel's launch count read around that run;
+              kernel's launch count read around that run; then the share of
+              beam-5 tokens the decoder-step kernel and the stock step agree
+              on is logged (not asserted);
   5. check    the same f32 Evaluator on the card and on the CPU for two
               images: image tokens, memory and first-step scores agree;
   6. train    the same model takes train steps through
@@ -49,6 +54,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -408,28 +414,62 @@ def _tree(tree, dev, dtype):
 
 
 def check_decoder_step(dev):
+    """The decoder step at step 15 of the beam shape: bf16 on both routes (the
+    tensor-core one the beam loop takes, fed the head-padded cross K/V the
+    loop lays out once per batch, and the CUDA-core one, taken when the
+    weights come without their packed copy) and f32 on the CUDA-core route,
+    each against its plain version and the bound."""
     from icek_torch.kernels import decoder_step as dsk
 
     res = {}
     step = MAX_LEN // 2
     for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 0.15)):
         stacked, x, anc, ck, cv, xk, xv, m = _decoder_step_inputs(dev, dtype, step)
-        args = (stacked, x, anc, ck, cv, xk, xv, step)
-        got = dsk.fused_beam_decoder_step(*args, num_heads=m.num_heads)
-        want = dsk.reference_decoder_step(*args, num_heads=m.num_heads)
-        torch.cuda.synchronize()
-        err = max_err(got, want)
-        require(err <= tol, f"decoder step {dtype}: max abs err {err} > {tol}")
+        H = m.num_heads
         nbytes, flops = _decoder_step_work(anc, step, m, dtype)
         bms, by = bound_ms(nbytes, flops, dtype)
-        res[dtype] = dict(
-            max_abs_err=err, tol=tol,
-            ms=cuda_ms(lambda: dsk.fused_beam_decoder_step(*args, num_heads=m.num_heads)),
-            plain_ms=cuda_ms(lambda: dsk.reference_decoder_step(*args, num_heads=m.num_heads),
-                             iters=5),
-            library_ms=None, bound_ms=bms, bound_by=by)
-        log(f"kernel decoder_step {dtype} step {step}: {res[dtype]}")
+        want = dsk.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv, step, num_heads=H)
+        plain_ms = cuda_ms(lambda: dsk.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv,
+                                                               step, num_heads=H), iters=5)
+        routes = {"cuda_cores": (stacked._replace(mma=None), (xk, xv), {})}
+        if dtype == torch.bfloat16:
+            nL, B, M, D = xk.shape
+            heads = dsk.pad_cross_heads([{"k": xk[l].view(B, M, H, D // H),
+                                          "v": xv[l].view(B, M, H, D // H)} for l in range(nL)],
+                                        dtype)
+            routes["tensor_cores"] = (stacked, (None, None), {"cross_heads": heads})
+        timed = {}
+        for route, (st, cross, kw) in routes.items():
+            require(dsk.uses_tensor_cores(st, ck, x.shape[1], H) == (route == "tensor_cores"),
+                    f"decoder step {dtype}: {route} is not the route the predicate picks")
+            run = lambda: dsk.fused_beam_decoder_step(st, x, anc, ck, cv, *cross, step,
+                                                      num_heads=H, **kw)
+            got = run()
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            require(err <= tol, f"decoder step {dtype} {route}: max abs err {err} > {tol}")
+            timed[route] = dict(max_abs_err=err, tol=tol, ms=cuda_ms(run), plain_ms=plain_ms,
+                                library_ms=None, bound_ms=bms, bound_by=by)
+            log(f"kernel decoder_step {dtype} {route} step {step}: {timed[route]}")
+        res[dtype] = timed.get("tensor_cores", timed["cuda_cores"])
+        if dtype == torch.bfloat16:
+            res[dtype]["cuda_cores"] = timed["cuda_cores"]
     return res
+
+
+def decoder_step_sass():
+    """The instruction count of each loop of the tensor-core decoder step
+    (cuobjdump; its registers and spills are in the build's ptxas lines)."""
+    from icek_torch.kernels import _build, _sass
+
+    try:
+        cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+        sass = subprocess.run([cuobjdump, "-sass", _build._lib_path("decoder_step")],
+                              capture_output=True, text=True, check=True, timeout=120).stdout
+        for line in _sass.report(sass, "decoder_step_mma_kernel"):
+            log(f"  sass {line}")
+    except Exception as e:                       # noqa: BLE001
+        log(f"sass of decoder_step_mma_kernel: {type(e).__name__}: {e}")
 
 
 def _norm_inputs(dev, dtype):
@@ -578,12 +618,13 @@ def entity_names(n):
 
 
 def counters():
-    """The wrappers that count the launches of the serving path's kernels."""
+    """The launch counts of the serving path's kernels (the decoder step's
+    tensor-core route: bf16 at the beam shape takes it)."""
     from icek_torch.kernels import copy_scores, decoder_step, flash_attention
 
     return {"flash_attention": flash_attention.flash_mha,
             "fused_score_topk": copy_scores.fused_score_topk,
-            "decoder_step": decoder_step.fused_beam_decoder_step}
+            "decoder_step": decoder_step.fused_beam_decoder_step.routes["tensor_cores"]}
 
 
 def train_counters():
@@ -645,7 +686,29 @@ def run_main_path(dev, model):
         greedy_batch_ms=greedy_s * 1e3, peak_mem_gb=peak_gb)
     log(f"main path (geo, batch {BATCH}, beam {BEAM}, bf16): {summary}")
     log(f"main path breakdown: {breakdown(ev, batches[1])}")
+    log(f"main path, beam-5 tokens with the decoder-step kernel against the stock step "
+        f"(bf16, not asserted: near-tie picks follow the summation order): "
+        f"{megakernel_agreement(ev, batches[1])}")
     return launches, summary, batches[1]
+
+
+def megakernel_agreement(ev, batch):
+    """Share of equal beam-5 tokens (and of equal captions) between
+    use_megakernel on and off for one batch; after the counted run."""
+    from icek_torch.decode import beam, greedy
+
+    cfg, wm = ev.cfg, ev.wordmap
+    with torch.inference_mode():
+        raw = torch.as_tensor(batch["raw_images"], device=ev.device)
+        ents = torch.as_tensor(batch["entity_features"], device=ev.device)
+        ctx = greedy.prepare_decode_context(ev.params, cfg.model, ev._encode_tokens(raw, "raw"),
+                                            ents, compute_dtype=ev.compute_dtype)
+        outs = [beam.beam_decode(ev.params, cfg.model, len(wm), ents.shape[1], wm.start_id,
+                                 wm.end_id, wm.pad_id, ctx, MAX_LEN, beam_size=BEAM,
+                                 compute_dtype=ev.compute_dtype, use_megakernel=on)[0]
+                for on in (True, False)]
+    same = outs[0] == outs[1]
+    return dict(tokens=float(same.float().mean()), captions=float(same.all(dim=1).float().mean()))
 
 
 def time_greedy_warm(dev, model, reps=3) -> list:
@@ -888,7 +951,7 @@ def train_cross_check(dev, model):
 # --------------------------------------------------------------------------
 
 PORT_KERNELS = ("flash_fwd", "flash_bwd", "ln_fwd_kernel", "ln_bwd", "dropout_kernel",
-                "score_partial", "score_merge", "decoder_step_kernel")
+                "score_partial", "score_merge", "decoder_step_kernel", "decoder_step_mma_kernel")
 
 
 def trace_device(what, fn):
@@ -970,6 +1033,7 @@ def main() -> int:
         for line in rep.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    decoder_step_sass()
 
     flash_fwd, flash_bwd = check_flash(dev)
     kernels = {"flash_attention": flash_fwd, "flash_attention_bwd": flash_bwd,
@@ -1021,7 +1085,7 @@ def main() -> int:
         if name in launches and name in train_launches:
             row["launches_serving"] = launches[name]
         for extra in ("dropout", "self", "cross", "rate0_ms", "parts_ms", "greedy",
-                      "wrapper_ms", "library_device_ms"):
+                      "wrapper_ms", "library_device_ms", "cuda_cores"):
             if extra in bf:
                 row[extra] = bf[extra]
         rows.append(row)

@@ -161,8 +161,15 @@ def beam_decode(params, cfg: ModelConfig, vocab_size: int, num_entity_rows: int,
     caches_k = torch.zeros(cache_shape, dtype=compute_dtype, device=dev)
     caches_v = torch.zeros(cache_shape, dtype=compute_dtype, device=dev)
     if use_megakernel:
+        # layouts for the kernel, once per batch: the tensor-core route reads
+        # packed weights and head-padded cross K/V, the CUDA-core route the
+        # stacked ones
         stacked = dsk.stack_decoder_params(params["decoder"], compute_dtype)
-        cross_k, cross_v = dsk.stack_cross_kv(ctx.cross_kvs, compute_dtype)
+        cross_k = cross_v = cross_heads = None
+        if dsk.uses_tensor_cores(stacked, caches_k, K, H):
+            cross_heads = dsk.pad_cross_heads(ctx.cross_kvs, compute_dtype)
+        else:
+            cross_k, cross_v = dsk.stack_cross_kv(ctx.cross_kvs, compute_dtype)
     own_slot = torch.arange(K, **long)[None, :].expand(B, K)
     ancestry = own_slot[:, :, None].expand(B, K, max_len).contiguous()
     pad_only = torch.full((K, S), NEG_INF, device=dev)
@@ -179,7 +186,7 @@ def beam_decode(params, cfg: ModelConfig, vocab_size: int, num_entity_rows: int,
         if use_megakernel:
             h, k_new, v_new = dsk.fused_beam_decoder_step(
                 stacked, x, ancestry, caches_k, caches_v, cross_k, cross_v, i,
-                num_heads=H,
+                num_heads=H, cross_heads=cross_heads,
             )
             h = h.to(compute_dtype)
             caches_k[:, :, i * K:(i + 1) * K] = k_new

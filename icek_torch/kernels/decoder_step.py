@@ -11,13 +11,26 @@ attends to the current step's K/V directly and returns them; the caller
 writes them at cache rows ``i*K .. i*K+K-1``.  The ancestry goes in as
 int32 (B, K, L) indices (the JAX kernel takes a one-hot selector), and
 the cross K/V as (nL, B, M, D) with M the true memory length (no lane
-padding).
+padding), or head-major with the head dim padded to 32
+(``pad_cross_heads``, laid out once per decode batch).
+
+A CUDA call takes one of two kernels, by ``uses_tensor_cores`` alone:
+bfloat16 at widths the tensor-core kernel holds (up to 16 hypotheses an
+image, 10 heads of at most 32 dims, shared memory within the card's) runs
+``decoder_step_mma_kernel`` (G images a block, the linears and the cross
+attention on the tensor cores, the weights packed by ``pack_mma``); float32
+and the rest run the CUDA-core ``decoder_step_kernel``.  Neither gives way
+to the other or to the plain version.  Each route counts its launches in
+``fused_beam_decoder_step.routes``; ``fused_beam_decoder_step.launches``
+counts both.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple
+import functools
+import types
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -25,7 +38,25 @@ from icek_torch.kernels import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 23 + [_I] * 9 + [_F, _P]
+_MMA_ARGTYPES = [_P] * 23 + [_I] * 10 + [_F, _P]
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# the tensor-core kernel (csrc/decoder_step.cu, route 1)
+ROWS = 16           # hypothesis rows of a block (one m16 tile)
+WARPS = 10          # warps of a block; warp h takes head h of the cross attention
+HEAD_PAD = 32       # head dim of the padded cross layout
+CROSS_TILE = 32     # memory rows of a cross ring stage
+CROSS_STAGES = 3
+MAX_SMEM = 232448   # shared memory a block may use on sm_90
+
+
+class PackedLinears(NamedTuple):
+    """The six linears of every layer in B-fragment order (``pack_mma``)."""
+    qkv: torch.Tensor
+    so: torch.Tensor
+    cq: torch.Tensor
+    co: torch.Tensor
+    f1: torch.Tensor
+    f2: torch.Tensor
 
 
 class StackedDecoder(NamedTuple):
@@ -47,6 +78,27 @@ class StackedDecoder(NamedTuple):
     ln_s: torch.Tensor    # (nL, 3, D)
     ln_b: torch.Tensor
     layers: List[dict]
+    mma: Optional[PackedLinears] = None   # bfloat16 only: the tensor-core route's weights
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def pack_mma(w):
+    """(nL, din, dout) weights -> (nL, dout/8, din/32, 32, 8): for each n8
+    tile and each pair of k16 steps, lane l = 4 g + t's two B fragments of
+    mma.sync m16n8k16 (b0, b1 of the even step, then of the odd one), B[k][n]
+    = w[k0 + k][n0 + n], so a lane loads both steps with one 16-byte load.
+    Register j = 2 s + h of a lane holds w[32 kp + 16 s + 8 h + 2 t + e][8 nt +
+    g] at half e.  din is zero-padded to a multiple of 32, dout of 8."""
+    nL, din, dout = w.shape
+    dk, dn = _round_up(din, 32), _round_up(dout, 8)
+    wp = torch.zeros((nL, dk, dn), dtype=w.dtype, device=w.device)
+    wp[:, :din, :dout] = w
+    # k = 32 kp + 16 s + 8 h + 2 t + e, n = 8 nt + g
+    v = wp.view(nL, dk // 32, 2, 2, 4, 2, dn // 8, 8)        # l kp s h t e nt g
+    return v.permute(0, 6, 1, 7, 4, 2, 3, 5).reshape(nL, dn // 8, dk // 32, 32, 8).contiguous()
 
 
 def stack_decoder_params(decoder_params, dtype=torch.float32) -> StackedDecoder:
@@ -61,7 +113,7 @@ def stack_decoder_params(decoder_params, dtype=torch.float32) -> StackedDecoder:
     def stack_b(get):
         return stack(get, torch.float32)
 
-    return StackedDecoder(
+    st = StackedDecoder(
         qkv_w=stack(lambda l: l["self_attn"]["qkv_w"]),
         qkv_b=stack_b(lambda l: l["self_attn"]["qkv_b"]),
         so_w=stack(lambda l: l["self_attn"]["out"]["w"]),
@@ -78,6 +130,10 @@ def stack_decoder_params(decoder_params, dtype=torch.float32) -> StackedDecoder:
         ln_b=stack_b(lambda l: torch.stack([l[f"norm{n}"]["bias"] for n in (1, 2, 3)])),
         layers=layers,
     )
+    if dtype != torch.bfloat16:
+        return st
+    return st._replace(mma=PackedLinears(*(pack_mma(w) for w in (
+        st.qkv_w, st.so_w, st.cq_w, st.co_w, st.f1_w, st.f2_w))))
 
 
 def stack_cross_kv(cross_kvs, dtype):
@@ -88,6 +144,52 @@ def stack_cross_kv(cross_kvs, dtype):
         ).to(dtype).contiguous()
 
     return stack("k"), stack("v")
+
+
+def pad_cross_heads(cross_kvs, dtype):
+    """[{'k','v'} of (B, M, H, Hd)] per layer -> (nL, B, M, H * 32) K and V,
+    head-major with each head's dims zero-padded to 32: the tensor-core
+    route's layout (16-byte aligned rows and heads)."""
+    def stack(key):
+        return torch.stack([torch.nn.functional.pad(c[key], (0, HEAD_PAD - c[key].shape[-1]))
+                            .reshape(c[key].shape[0], c[key].shape[1], -1)
+                            for c in cross_kvs]).to(dtype).contiguous()
+
+    return stack("k"), stack("v")
+
+
+def mma_smem_bytes(D: int, H: int, F: int, L: int) -> int:
+    """Shared memory of a tensor-core block (csrc/decoder_step.cu::mma_smem)."""
+    pa, pq, pf = _round_up(D, 32) + 8, H * HEAD_PAD + 8, _round_up(F, 32) + 8
+    pb = max(_round_up(3 * D, 8), pq, pf)
+    ring = _round_up(_round_up(4 * ROWS * D, 16) + 2 * ROWS * (2 * pa + pb) + 4 * ROWS * L, 16)
+    return ring + 2 * CROSS_STAGES * 2 * CROSS_TILE * pq
+
+
+def uses_tensor_cores(stacked: StackedDecoder, caches_k, K: int, num_heads: int) -> bool:
+    """Whether a CUDA call with these weights, caches and beam width takes the
+    tensor-core kernel: bfloat16 with packed weights, K <= 16 hypotheses an
+    image, at most 10 heads of an even head dim <= 32, an even FFN width, and
+    a block's shared memory within the card's."""
+    nL, B, LK, D = caches_k.shape
+    H, F = num_heads, stacked.f1_w.shape[-1]
+    if caches_k.dtype != torch.bfloat16 or stacked.mma is None or not 1 <= K <= ROWS:
+        return False
+    if H > WARPS or D % H or (D // H) % 2 or D // H > HEAD_PAD or F % 2:
+        return False
+    return mma_smem_bytes(D, H, F, LK // K) <= MAX_SMEM
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def images_per_block(B: int, K: int, sms: int) -> int:
+    """G of the tensor-core kernel: as many images a block as its 16 rows
+    hold, but no more than a wave of `sms` blocks needs (G = 2 at B = 256,
+    K = 5 on 132 SMs: 128 blocks)."""
+    return max(1, min(ROWS // K, -(-B // sms)))
 
 
 def reference_decoder_step(stacked: StackedDecoder, x, ancestry, caches_k,
@@ -111,40 +213,70 @@ def reference_decoder_step(stacked: StackedDecoder, x, ancestry, caches_k,
 
 def fused_beam_decoder_step(stacked: StackedDecoder, x, ancestry, caches_k,
                             caches_v, cross_k, cross_v, i: int, *,
-                            num_heads: int, eps: float = 1e-5):
+                            num_heads: int, eps: float = 1e-5, cross_heads=None):
     """One decoder-stack step for every (image, hypothesis).
 
     x (B, K, D); ancestry int32 (B, K, L); caches (nL, B, L*K, D); cross
-    K/V (nL, B, M, D); i the step index.  Returns (h (B, K, D) f32,
-    k_new, v_new (nL, B, K, D) in the caches' dtype).
+    K/V (nL, B, M, D), or None when ``cross_heads`` holds them as
+    ``pad_cross_heads`` lays them out ((nL, B, M, H * 32) K and V, which
+    the tensor-core kernel reads; the other routes undo the padding); i
+    the step index.  Returns (h (B, K, D) f32, k_new, v_new (nL, B, K, D)
+    in the caches' dtype).
     """
     nL, B, LK, D = caches_k.shape
     K = x.shape[1]
     L = LK // K
-    M = cross_k.shape[2]
-    dt = caches_k.dtype
+    H = num_heads
+    if cross_k is None or cross_v is None:
+        if cross_heads is None:
+            raise ValueError("fused_beam_decoder_step: no cross K/V given")
+        M = cross_heads[0].shape[2]
+    else:
+        M = cross_k.shape[2]
+    heads_ok = cross_heads is None or all(
+        c.shape == (nL, B, M, H * HEAD_PAD) for c in cross_heads)
     if (x.shape != (B, K, D) or ancestry.shape != (B, K, L)
-            or caches_v.shape != caches_k.shape
-            or cross_k.shape != (nL, B, M, D) or cross_v.shape != cross_k.shape
-            or not 0 <= i < L or D % num_heads):
+            or caches_v.shape != caches_k.shape or D % H or not heads_ok
+            or (cross_k is not None and (cross_k.shape != (nL, B, M, D)
+                                         or cross_v.shape != cross_k.shape))
+            or not 0 <= i < L):
         raise ValueError(
             f"fused_beam_decoder_step: x {tuple(x.shape)} ancestry "
             f"{tuple(ancestry.shape)} caches {tuple(caches_k.shape)} cross "
-            f"{tuple(cross_k.shape)} step {i} heads {num_heads} do not agree")
+            f"{None if cross_k is None else tuple(cross_k.shape)} step {i} "
+            f"heads {H} do not agree")
+
+    def unpadded():   # pad_cross_heads undone
+        return [c.view(nL, B, M, H, HEAD_PAD)[..., :D // H].reshape(nL, B, M, D)
+                for c in cross_heads]
+
     if x.device.type == "cpu":
+        if cross_k is None:
+            cross_k, cross_v = unpadded()
         return reference_decoder_step(stacked, x, ancestry, caches_k, caches_v,
-                                      cross_k, cross_v, i, num_heads=num_heads)
-    if dt not in _SUFFIX or not 1 <= K <= 8:
+                                      cross_k, cross_v, i, num_heads=H)
+    dt = caches_k.dtype
+    tc = uses_tensor_cores(stacked, caches_k, K, H)
+    if dt not in _SUFFIX or not (tc or 1 <= K <= 8):
         raise ValueError(f"fused_beam_decoder_step: dtype {dt}, K={K} unsupported")
-    weights = [stacked.qkv_w, stacked.so_w, stacked.cq_w, stacked.co_w,
-               stacked.f1_w, stacked.f2_w]
+    if tc:
+        if cross_heads is None:
+            cross_heads = pad_cross_heads(
+                [{"k": cross_k[l].view(B, M, H, D // H), "v": cross_v[l].view(B, M, H, D // H)}
+                 for l in range(nL)], dt)
+        xk, xv = cross_heads
+        weights = list(stacked.mma)
+    else:
+        xk, xv = (cross_k, cross_v) if cross_k is not None else unpadded()
+        weights = [stacked.qkv_w, stacked.so_w, stacked.cq_w, stacked.co_w,
+                   stacked.f1_w, stacked.f2_w]
     floats = [stacked.qkv_b, stacked.so_b, stacked.cq_b, stacked.co_b,
               stacked.f1_b, stacked.f2_b, stacked.ln_s, stacked.ln_b]
-    _build.require_cuda("fused_beam_decoder_step", caches_k, caches_v,
-                        cross_k, cross_v, *weights, dtype=dt)
+    _build.require_cuda("fused_beam_decoder_step", caches_k, caches_v, xk, xv, *weights,
+                        dtype=dt)
     _build.require_cuda("fused_beam_decoder_step", *floats, dtype=torch.float32)
     _build.require_cuda("fused_beam_decoder_step", caches_k, floats[0], x, ancestry)
-    tensors = [caches_k, caches_v, cross_k, cross_v, *weights, *floats]
+    tensors = [caches_k, caches_v, xk, xv, *weights, *floats]
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_beam_decoder_step: inputs must be contiguous")
     F = stacked.f1_w.shape[-1]
@@ -153,20 +285,27 @@ def fused_beam_decoder_step(stacked: StackedDecoder, x, ancestry, caches_k,
     h = torch.empty((B, K, D), dtype=torch.float32, device=x.device)
     k_new = torch.empty((nL, B, K, D), dtype=dt, device=x.device)
     v_new = torch.empty_like(k_new)
-    s = stacked
-    fn = _build.bind("decoder_step", "decoder_step_" + _SUFFIX[dt], _ARGTYPES)
-    err = fn(x.data_ptr(), anc.data_ptr(), caches_k.data_ptr(),
-             caches_v.data_ptr(), cross_k.data_ptr(), cross_v.data_ptr(),
-             s.qkv_w.data_ptr(), s.qkv_b.data_ptr(), s.so_w.data_ptr(),
-             s.so_b.data_ptr(), s.cq_w.data_ptr(), s.cq_b.data_ptr(),
-             s.co_w.data_ptr(), s.co_b.data_ptr(), s.f1_w.data_ptr(),
-             s.f1_b.data_ptr(), s.f2_w.data_ptr(), s.f2_b.data_ptr(),
-             s.ln_s.data_ptr(), s.ln_b.data_ptr(), h.data_ptr(),
-             k_new.data_ptr(), v_new.data_ptr(),
-             B, K, L, D, num_heads, F, nL, M, i, eps, _build.stream_of(x))
+    b = floats
+    ptrs = [x.data_ptr(), anc.data_ptr(), caches_k.data_ptr(), caches_v.data_ptr(),
+            xk.data_ptr(), xv.data_ptr(),
+            weights[0].data_ptr(), b[0].data_ptr(), weights[1].data_ptr(), b[1].data_ptr(),
+            weights[2].data_ptr(), b[2].data_ptr(), weights[3].data_ptr(), b[3].data_ptr(),
+            weights[4].data_ptr(), b[4].data_ptr(), weights[5].data_ptr(), b[5].data_ptr(),
+            b[6].data_ptr(), b[7].data_ptr(), h.data_ptr(), k_new.data_ptr(),
+            v_new.data_ptr(), B, K, L, D, H, F, nL, M, i]
+    if tc:
+        G = images_per_block(B, K, _sm_count(x.device.index))
+        fn = _build.bind("decoder_step", "decoder_step_bf16_mma", _MMA_ARGTYPES)
+        err = fn(*ptrs, G, eps, _build.stream_of(x))
+    else:
+        fn = _build.bind("decoder_step", "decoder_step_" + _SUFFIX[dt], _ARGTYPES)
+        err = fn(*ptrs, eps, _build.stream_of(x))
     _build.check(err, "decoder_step", "fused_beam_decoder_step")
+    fused_beam_decoder_step.routes["tensor_cores" if tc else "cuda_cores"].launches += 1
     fused_beam_decoder_step.launches += 1
     return h, k_new, v_new
 
 
 fused_beam_decoder_step.launches = 0
+fused_beam_decoder_step.routes = {"tensor_cores": types.SimpleNamespace(launches=0),
+                                  "cuda_cores": types.SimpleNamespace(launches=0)}

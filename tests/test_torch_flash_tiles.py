@@ -35,6 +35,18 @@ import jax.numpy as jnp
 from icek_torch.kernels import flash_attention as tfa
 from icek_tpu.kernels import flash_attention as jfa
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The emulation is thousands of small torch ops; with the suite's other
+    workers on the same cores, torch's thread pool waits at every op's
+    barrier for threads that are not running.  One thread each op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TILE, CHUNK, WARP = 64, 32, 16
 LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
 

@@ -186,6 +186,170 @@ def test_decoder_step_kernel_matches_plain(cuda, dtype, tol, step):
         torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=tol)
 
 
+def _geo_step_inputs(cuda, B, K, step, M=497, L=30, seed=4):
+    """The geo decoder's widths (3 layers, D 300, H 10, F 512) in bf16."""
+    from icek_torch.models import transformer as tfm
+
+    D, H, F = 300, 10, 512
+    g = _gen(seed)
+    layers = tfm.init_decoder_stack(g, 3, D, F)
+    for lay in layers["layers"]:
+        for mha in (lay["self_attn"], lay["cross_attn"]):
+            mha["qkv_b"] = torch.randn(3 * D, generator=g) * 0.1
+        for n in (1, 2, 3):
+            lay[f"norm{n}"]["scale"] = 1 + 0.1 * torch.randn(D, generator=g)
+            lay[f"norm{n}"]["bias"] = 0.1 * torch.randn(D, generator=g)
+    layers = {"layers": [_tree_to(lay, cuda, torch.bfloat16) for lay in layers["layers"]]}
+    stacked = tds.stack_decoder_params(layers, torch.bfloat16)
+    x = torch.randn((B, K, D), generator=g).to(cuda)
+    caches = torch.zeros((2, 3, B, L * K, D))
+    caches[:, :, :, :step * K] = torch.randn((2, 3, B, step * K, D), generator=g)
+    ck, cv = (c.to(cuda, torch.bfloat16).contiguous() for c in caches)
+    xk, xv = (torch.randn((3, B, M, D), generator=g).to(cuda, torch.bfloat16) for _ in range(2))
+    anc = torch.randint(0, K, (B, K, L), generator=g, dtype=torch.int32)
+    anc[:, :, step:] = torch.arange(K, dtype=torch.int32)[None, :, None]
+    return stacked, x, anc.to(cuda), ck, cv, xk, xv, H
+
+
+def _padded(xk, xv, H):
+    nL, B, M, D = xk.shape
+    return tds.pad_cross_heads([{"k": xk[l].view(B, M, H, D // H), "v": xv[l].view(B, M, H, D // H)}
+                                for l in range(nL)], xk.dtype)
+
+
+@pytest.mark.parametrize("step", [0, 15, 29])
+@pytest.mark.parametrize("K", [1, 5, 8])
+@pytest.mark.parametrize("B", [1, 3, 257])
+def test_decoder_step_tensor_cores_match_plain(cuda, B, K, step):
+    """The tensor-core route at the geo widths and M 497 (15 full memory
+    tiles and a ragged one): G-image blocks with a ragged last group (B 257),
+    one image (B 1), beam widths 1, 5, 8, the first, a middle and the last
+    step; bf16 against the plain version at 0.15, with the cross K/V padded
+    by the caller (as the beam loop does) and by the wrapper alike."""
+    stacked, x, anc, ck, cv, xk, xv, H = _geo_step_inputs(cuda, B, K, step)
+    assert tds.uses_tensor_cores(stacked, ck, K, H)
+    before = dict((k, r.launches) for k, r in tds.fused_beam_decoder_step.routes.items())
+    got = tds.fused_beam_decoder_step(stacked, x, anc, ck, cv, None, None, step, num_heads=H,
+                                      cross_heads=_padded(xk, xv, H))
+    again = tds.fused_beam_decoder_step(stacked, x, anc, ck, cv, xk, xv, step, num_heads=H)
+    torch.cuda.synchronize()
+    routes = tds.fused_beam_decoder_step.routes
+    assert routes["tensor_cores"].launches == before["tensor_cores"] + 2
+    assert routes["cuda_cores"].launches == before["cuda_cores"]
+    want = tds.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv, step, num_heads=H)
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), c.float(), rtol=0, atol=0.15)
+
+
+@pytest.mark.parametrize("M", [1, 31, 32, 33, 64, 200])
+def test_decoder_step_tensor_cores_memory_lengths(cuda, M):
+    """Memories of one row, of one tile less a row, of whole tiles and of a
+    ragged tile after whole ones, at B 3, K 5, step 15."""
+    stacked, x, anc, ck, cv, xk, xv, H = _geo_step_inputs(cuda, 3, 5, 15, M=M)
+    got = tds.fused_beam_decoder_step(stacked, x, anc, ck, cv, xk, xv, 15, num_heads=H)
+    want = tds.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv, 15, num_heads=H)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=0.15)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decoder_step_is_bit_identical_between_launches(cuda, dtype):
+    """Both routes at the beam shape (B 256, K 5, step 15): no atomics, so two
+    launches give the same bits."""
+    stacked, x, anc, ck, cv, xk, xv, H = _geo_step_inputs(cuda, 256, 5, 15)
+    if dtype == torch.float32:
+        f32 = lambda t: t.float().contiguous()
+        stacked = tds.stack_decoder_params({"layers": [_tree_to(lay, cuda, torch.float32)
+                                                       for lay in stacked.layers]})
+        ck, cv, xk, xv = map(f32, (ck, cv, xk, xv))
+    runs = [tds.fused_beam_decoder_step(stacked, x, anc, ck, cv, xk, xv, 15, num_heads=H)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_decoder_step_route_predicate(cuda):
+    """The wrapper's shared-memory layout is the kernel's; f32 takes the
+    CUDA-core route; bf16 at the beam shape the tensor-core one; bf16 the
+    tensor-core route refuses (weights without the packed copy, 12 heads)
+    takes the CUDA-core route, still within 0.15 of the plain version; K = 17
+    neither route holds raises."""
+    import ctypes
+
+    from icek_torch.kernels import _build
+
+    smem = _build.bind("decoder_step", "decoder_step_mma_smem", [ctypes.c_int] * 4)
+    for dims in ((300, 10, 512, 30), (60, 6, 48, 8), (40, 4, 64, 6)):
+        assert smem(*dims) == tds.mma_smem_bytes(*dims)   # the predicate's copy of the layout
+    routes = tds.fused_beam_decoder_step.routes
+
+    def launches():
+        return routes["tensor_cores"].launches, routes["cuda_cores"].launches
+
+    stacked, x, anc, ck, cv, xk, xv, H = _geo_step_inputs(cuda, 4, 5, 3)
+    n = launches()
+    tds.fused_beam_decoder_step(stacked, x, anc, ck, cv, xk, xv, 3, num_heads=H)
+    assert launches() == (n[0] + 1, n[1])
+    refused = stacked._replace(mma=None)
+    assert not tds.uses_tensor_cores(refused, ck, 5, H)
+    n = launches()
+    got = tds.fused_beam_decoder_step(refused, x, anc, ck, cv, xk, xv, 3, num_heads=H)
+    assert launches() == (n[0], n[1] + 1)
+    want = tds.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv, 3, num_heads=H)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=0.15)
+    assert not tds.uses_tensor_cores(stacked, ck, 5, 12)
+    n = launches()
+    got = tds.fused_beam_decoder_step(stacked, x, anc, ck, cv, xk, xv, 3, num_heads=12)
+    assert launches() == (n[0], n[1] + 1)
+    want = tds.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv, 3, num_heads=12)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=0.15)
+    f32 = [_tree_to(lay, cuda, torch.float32) for lay in stacked.layers]
+    st32 = tds.stack_decoder_params({"layers": f32})
+    args = [t.float().contiguous() for t in (ck, cv, xk, xv)]
+    n = launches()
+    tds.fused_beam_decoder_step(st32, x, anc, *args, 3, num_heads=H)
+    assert launches() == (n[0], n[1] + 1)
+    big = _geo_step_inputs(cuda, 1, 17, 3, L=4)
+    with pytest.raises(ValueError):
+        tds.fused_beam_decoder_step(big[0], *big[1:7], 3, num_heads=H)
+
+
+def test_beam_decode_bf16_takes_the_tensor_core_route(cuda):
+    """A bf16 beam-5 decode on the card launches the tensor-core decoder step
+    once a step: max_len times (<end> is kept out of reach, so no batch ends
+    early)."""
+    from icek_torch.core import config as cfgs
+    from icek_torch.decode import beam, greedy
+    from icek_torch.models import captioner
+
+    base = cfgs.georic().model
+    cfg = dataclasses.replace(base, emb_dim=40, num_heads=4, decoder_ffn_dim=64,
+                              encoder_ffn_dim=64, num_layers=2, type_vocab=20)
+    V, E, B, max_len = 60, 9, 3, 10
+    g = _gen(5)
+    params = captioner.init_captioner_params(g, cfg, V)
+    params["fc_vocab"]["b"][V - 1] = -1e4
+    params = _tree_to(params, cuda, torch.float32)
+    ents = torch.zeros((B, E, 5))
+    ents[:, :, 0] = torch.arange(E)
+    ents[:, :, 1:4] = torch.rand((B, E, 3), generator=g)
+    ents[:, :, 4] = torch.randint(0, 20, (B, E), generator=g)
+    tokens = torch.randn((B, 12, 40), generator=g)
+    ctx = greedy.prepare_decode_context(params, cfg, tokens.to(cuda), ents.to(cuda),
+                                        compute_dtype=torch.bfloat16)
+    routes = tds.fused_beam_decoder_step.routes
+    before = (routes["tensor_cores"].launches, routes["cuda_cores"].launches)
+    out, _ = beam.beam_decode(params, cfg, V, E, V - 2, V - 1, 0, ctx, max_len, beam_size=5,
+                              compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert out.shape == (B, max_len)
+    assert routes["tensor_cores"].launches == before[0] + max_len
+    assert routes["cuda_cores"].launches == before[1]
+
+
 def test_beam_decode_kernels_match_stock_on_card(cuda):
     """Small f32 beam decode on the card: the kernel paths give the stock
     path's tokens, and every kernel launched."""

@@ -34,6 +34,18 @@ import jax.numpy as jnp
 from icek_torch.kernels import fused_norm as tfn
 from icek_tpu.models import transformer as jtf
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The emulation is thousands of small torch ops; with the suite's other
+    workers on the same cores, torch's thread pool waits at every op's
+    barrier for threads that are not running.  One thread each op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 THREADS, RED_WARPS, EPS = 128, 16, 1e-5
 
 

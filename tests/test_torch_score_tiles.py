@@ -43,22 +43,32 @@ LOG2E = 1.4426950408889634
 INT_MAX = 2 ** 31 - 1
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The emulation is thousands of small torch ops; with the suite's other
+    workers on the same cores, torch's thread pool waits at every op's
+    barrier for threads that are not running.  One thread each op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _better(av, ai, bv, bi):
     return (av > bv) | ((av == bv) & (ai < bi))
 
 
 def _insert(lv, li, k, v, i, take):
-    """The kernel's insertion network on (M, KMAX) sorted lists, for the rows
-    where `take` holds: slot j < k takes the candidate or its upper neighbour."""
+    """The kernel's insertion network on (KMAX, M) sorted lists (slot-major),
+    for the lanes where `take` holds: slot j < k takes the candidate or its
+    upper neighbour."""
     nv, ni = lv.clone(), li.clone()
-    for j in range(KMAX - 1, -1, -1):
-        if j >= k:
-            continue
-        here = take & _better(v, i, lv[:, j], li[:, j])
+    for j in range(min(k, KMAX) - 1, -1, -1):
+        here = take & _better(v, i, lv[j], li[j])
         p = max(j - 1, 0)
-        up = here & _better(v, i, lv[:, p], li[:, p]) if j else torch.zeros_like(here)
-        nv[:, j] = torch.where(here, torch.where(up, lv[:, p], v), lv[:, j])
-        ni[:, j] = torch.where(here, torch.where(up, li[:, p], i), li[:, j])
+        up = here & _better(v, i, lv[p], li[p]) if j else torch.zeros_like(here)
+        nv[j] = torch.where(here, torch.where(up, lv[p], v), lv[j])
+        ni[j] = torch.where(here, torch.where(up, li[p], i), li[j])
     return nv, ni
 
 
@@ -129,21 +139,35 @@ def tiled_partials(h, wv, bv, k):
     # per-lane top-k by threshold: a score enters the lane's list only if it
     # beats (tv, ti), the best k-th entry of the quad's lists at the last
     # tile's end or the lane's own k-th entry since, whichever is better
+    # tiles (16 steps) at once: a score that does not beat the lane's
+    # threshold at the tile's start never takes the path, since the
+    # threshold only rises; the steps then walk the remaining lanes only
     lv = torch.full((M, KMAX), -math.inf)
     li = torch.full((M, KMAX), INT_MAX, dtype=torch.int64)
     tv = torch.full((M,), -math.inf)
     ti = torch.full((M,), INT_MAX, dtype=torch.int64)
     inserts = torch.zeros((M,), dtype=torch.int64)
-    for q in range(walk):
-        v, i = flat[:, q], flat_cols[:, q]
-        take = (v != -math.inf) & _better(v, i, tv, ti)
-        inserts += take
-        lv, li = _insert(lv, li, k, v, i, take)
-        up = take & _better(lv[:, k - 1], li[:, k - 1], tv, ti)
-        tv, ti = torch.where(up, lv[:, k - 1], tv), torch.where(up, li[:, k - 1], ti)
-        if q % 16 == 15:                                # the tile's end: quad_best
-            qv, qi = _topk_sorted(tv.view(-1, 4), ti.view(-1, 4), 1)
-            tv, ti = qv.expand(-1, 4).reshape(M), qi.expand(-1, 4).reshape(M)
+    for t0 in range(0, walk, 16):
+        tile_v, tile_i = flat[:, t0:t0 + 16], flat_cols[:, t0:t0 + 16]
+        live = ((tile_v != -math.inf)
+                & _better(tile_v, tile_i, tv[:, None], ti[:, None])).any(dim=1)
+        rows = live.nonzero()[:, 0]
+        rv, ri = tile_v[rows].T.contiguous(), tile_i[rows].T.contiguous()
+        lvr, lir = lv[rows].T.contiguous(), li[rows].T.contiguous()
+        tvr, tir = tv[rows], ti[rows]
+        ins = torch.zeros_like(tir)
+        for q in range(rv.shape[0]):
+            v, i = rv[q], ri[q]
+            take = (v != -math.inf) & _better(v, i, tvr, tir)
+            ins += take
+            lvr, lir = _insert(lvr, lir, k, v, i, take)
+            up = take & _better(lvr[k - 1], lir[k - 1], tvr, tir)
+            tvr = torch.where(up, lvr[k - 1], tvr)
+            tir = torch.where(up, lir[k - 1], tir)
+        lv[rows], li[rows], tv[rows], ti[rows] = lvr.T, lir.T, tvr, tir
+        inserts[rows] += ins
+        qv, qi = _topk_sorted(tv.view(-1, 4), ti.view(-1, 4), 1)  # the tile's end:
+        tv, ti = qv.expand(-1, 4).reshape(M), qi.expand(-1, 4).reshape(M)  # quad_best
 
     # the quad: (max, sum) combined, four lists merged
     m4, s4 = m.view(N, n_chunks, 4), s.view(N, n_chunks, 4)
