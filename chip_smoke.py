@@ -19,33 +19,54 @@ Phases (any failure raises and exits non-zero):
               timed with CUDA events beside its plain version, a one-call
               PyTorch yardstick where one exists, and the card's bound for
               the same work; the loops' instruction counts of the
-              tensor-core decoder step are logged;
-  4. main     the geo preset at full width (ResNet-101 at 256x256, d=300,
-              10 heads, 3 layers, V=10000, E=301, beam 5, max_len 30,
-              weights from a seed) answers requests through
-              Evaluator.decode_batch: a warm-up, 3 timed beam-5 batches of
-              256 raw f16 CHW images and one greedy batch, with every
-              kernel's launch count read around that run; then the share of
-              beam-5 tokens the decoder-step kernel and the stock step agree
-              on is logged (not asserted);
-  5. check    the same f32 Evaluator on the card and on the CPU for two
+              tensor-core decoder step are logged; then every kernel again
+              at the knowledge (k_georic) and news (nytimes800k) shapes:
+              flash at their entity and fact encoders and decoder sites, the
+              score head with the [entity | fact] tail, the decoder step at
+              40 steps over memories of 548 and 598 rows, the LayerNorm and
+              dropout kernels at the decoders' B x T rows;
+  4. serve    each preset at full width (ResNet-101 at 256x256, d=300, 10
+              heads, 3 layers (+ 3 fact-encoder layers), V=10000; geo E 301,
+              knowledge E 301 / F 51 / P 3000, news E 101 / F 301 / P 3500
+              with name ids; beam 5, 30 steps geo and 40 the others; weights
+              from a seed) answers requests through Evaluator.decode_batch:
+              a warm-up, 3 timed beam-5 batches of 256 raw f16 CHW images and
+              one greedy batch, with every kernel's launches held to the
+              counts the code predicts; then the share of beam-5 tokens the
+              decoder-step kernel and the stock step agree on is logged (not
+              asserted), and for the fact presets the same share between the
+              plain bf16 and plain f32 decodes beside it;
+  5. check    the same f32 Evaluators on the card and on the CPU for two
               images: image tokens, memory and first-step scores agree;
-  6. train    the same model takes train steps through
-              train.step.make_train_step: batch 256, captions of 32 tokens,
-              cached image tokens, bf16 with the preset's dropout, one
-              warm-up and 6 timed steps, the training kernels' launch
-              counts read around the timed steps and held to the counts
-              the code predicts; the deterministic eval loss must fall;
-              then a 2-sample f32 step without dropout on the card against
-              the same step on the CPU.
-After the phases one more train step and one more beam-5 batch run under
-torch.profiler, which logs the ten largest device operations and the
+  6. train    each preset takes train steps through
+              train.step.make_train_step: batch 256, captions of 32 (geo),
+              102 (knowledge) and 52 (news) tokens, cached image tokens,
+              bf16 with the preset's dropout, one warm-up and 6 (geo) or 3
+              timed steps, the training kernels' launch counts read around
+              the timed steps and held to the counts the code predicts; the
+              deterministic eval loss must fall; then a 2-sample f32 step
+              without dropout on the card against the same step on the CPU;
+  wide beam   the score head at k 10 and the decoder step at K 10 against
+              their plain versions, then geo beam 10 in bf16 and f32 through
+              Evaluator.decode_batch against the plain path: every step
+              through the kernels, each route's count held to the
+              prediction, f32 tokens equal.
+After the phases one more train step and one more beam-5 batch of each
+preset run under torch.profiler, which logs the ten largest device operations and the
 device's idle share, and the profiler gives the score head's and the
 LayerNorm backward's device time per kernel on phase 3's inputs.  Before
 them 3 greedy batches are timed warm.  Nothing is timed after a profiler
 session; a profiler fault is logged and changes nothing.
 The last two lines are the card's nvidia-smi name/power limit and
 {"ok": true, "device": {...}}; the kernels' JSON line comes before them.
+
+    python3 chip_smoke.py --paired <checkout root> <label>
+
+times the geo serving path (3 beam-5 batches after a warm-up), 6 geo train
+steps and 3 warm greedy batches of the port in another checkout (the parent
+of a change, say) with this script's own timing code, and prints one line
+"PAIRED {...}": run it in turns (parent, change, change, parent) within one
+call to compare two trees on one card.
 """
 
 from __future__ import annotations
@@ -68,6 +89,20 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SEED = 0
 BATCH, BEAM, MAX_LEN, VOCAB, ENT_ROWS, IMG = 256, 5, 30, 10000, 301, 256
 CAP_LEN, TRAIN_STEPS, RATE = 32, 6, 0.2
+IMG_TOKENS = 196
+# the knowledge and news presets at full width: stored entity and fact rows
+# (E + 1, F + 1 of core/config.py), predicates, decode length
+# (DecodeConfig.max_caption_len), the training caption length of
+# benchmarks/train_throughput.py's PRESET_SHAPES, and the gains on the
+# random entity and fact pointer heads that make the seeded model emit
+# entity and fact ids (at 1 it emits words only, so the seen / predicate
+# state would never change); 3 timed train steps each
+FACT_PRESETS = {
+    "k_georic": dict(E=301, F=51, P=3000, L=40, T=102, gains=(1.6, 4.0)),
+    "nytimes800k": dict(E=101, F=301, P=3500, L=40, T=52, gains=(2.5, 2.5)),
+}
+FACT_TRAIN_STEPS = 3
+WIDE_BEAM, WIDE_BATCH = 10, 32          # a beam wider than 8 (fault F1's width)
 
 
 def log(*a):
@@ -153,101 +188,140 @@ def _flash_bounds(dtype, Tq, Tk, causal, backward):
                     dtype)
 
 
+FLASH_TOLS = ((torch.float32, 1e-4, 1e-4), (torch.bfloat16, 3e-2, 4e-2))
+
+
+def _flash_one_site(dev, dtype, tol, btol, name, Tq, Tk, causal, serving, relative):
+    """One attention site: at rate 0 when `serving` (the context encoder's
+    serving launch, against SDPA), and at rate 0.2 under the kernel's own mask
+    forward and backward, with the mask's keep rate and the forward /
+    backward mask identity; the dropout forward is held `relative` to the
+    largest expected value where that exceeds 1 (sites whose rows put a few
+    keys' worth of v into an output: a bf16 ulp there exceeds the tolerance),
+    else absolutely.  Returns (serving record or None, forward record,
+    backward record; the backward's `rate0_ms` when `serving`)."""
+    from icek_torch.kernels import flash_attention as fa
+
+    B, H = BATCH, 10
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v, d_out = _flash_site(dev, dtype, Tq, Tk)
+    require(fa.uses_tensor_cores(q, k, v) == (dtype == torch.bfloat16),
+            f"flash {name} {dtype}: unexpected kernel family")
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    res = None
+    if serving:                 # rate 0: the serving launch
+        got = fa.flash_mha(q, k, v)
+        want = fa.reference_mha(q, k, v)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        require(err <= tol, f"flash {name} {dtype}: max abs err {err} > {tol}")
+        bms, by = _flash_bounds(dtype, Tq, Tk, causal, False)
+        res = dict(max_abs_err=err, tol=tol, ms=cuda_ms(lambda: fa.flash_mha(q, k, v)),
+                   plain_ms=cuda_ms(lambda: fa.reference_mha(q, k, v)),
+                   library_ms=cuda_ms(lambda: sdpa(qh, kh, vh)),
+                   bound_ms=bms, bound_by=by)
+        del got, want
+
+    # rate 0.2 under the kernel's own mask; keep rate; one mask both ways
+    keep = fa.keep_mask(B, H, Tq, Tk, rate=RATE, seed=77, device=dev)
+    kept = float(keep.float().mean())
+    require(abs(kept - (1 - RATE)) <= 0.005, f"flash mask keep rate {kept}")
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    run = lambda: fa.flash_mha(*leaves, causal=causal, dropout_rate=RATE, seed=77)
+    plain = lambda: fa.reference_mha(*leaves, causal=causal, dropout_rate=RATE, keep=keep)
+    out, ref = run(), plain()
+    got = torch.autograd.grad(out, leaves, d_out, retain_graph=True)
+    want = torch.autograd.grad(ref, leaves, d_out, retain_graph=True)
+    torch.cuda.synchronize()
+    derr = max_err(out.detach(), ref.detach())
+    dheld = _rel_err(out.detach(), ref.detach()) if relative else derr
+    require(dheld <= tol, f"flash dropout {name} {dtype}: err {dheld} > {tol}")
+    err, rel = max_err(got, want), _rel_err(got, want)
+    require(rel <= btol, f"flash backward {name} {dtype}: err {rel} > {btol} "
+                         "of the largest expected value")
+    # <f(v), g> == <v, df/dv(g)>: forward and backward saw one mask
+    lhs, rhs = float((out.detach().float() * d_out.float()).sum()), \
+        float((leaves[2].detach().float() * got[2].float()).sum())
+    ident = abs(lhs - rhs) / max(abs(lhs), 1.0)
+    require(ident <= (1e-3 if dtype == torch.float32 else 3e-2),
+            f"flash backward {name} {dtype}: mask identity off by {ident}")
+    with torch.no_grad():
+        fms, fplain = cuda_ms(run), cuda_ms(plain, iters=5)
+    bms_ = cuda_ms(lambda: torch.autograd.grad(out, leaves, d_out, retain_graph=True))
+    bplain = cuda_ms(lambda: torch.autograd.grad(ref, leaves, d_out, retain_graph=True),
+                     iters=5)
+    del ref, want, keep, got
+    # yardstick: SDPA and its backward under autograd, rate 0 (it has no such
+    # mask), on (B, H, T, Hd) copies
+    lib_in = [t.detach().requires_grad_(True) for t in (qh, kh, vh)]
+    lib_out = sdpa(*lib_in, is_causal=causal)
+    lib_g = d_out.transpose(1, 2).contiguous()
+    with torch.no_grad():
+        flib = cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=causal))
+    blib = cuda_ms(lambda: torch.autograd.grad(lib_out, lib_in, lib_g, retain_graph=True))
+    bound, by = _flash_bounds(dtype, Tq, Tk, causal, False)
+    fwd = dict(rate=RATE, max_abs_err=derr, keep_rate=kept, ms=fms, plain_ms=fplain,
+               library_ms=flib, bound_ms=bound, bound_by=by)
+    bound, by = _flash_bounds(dtype, Tq, Tk, causal, True)
+    bwd = dict(max_abs_err=err, rel_err=rel, tol=btol, mask_identity=ident, ms=bms_,
+               plain_ms=bplain, library_ms=blib, bound_ms=bound, bound_by=by)
+    if serving:                 # the backward at SDPA's own work, rate 0
+        out0 = fa.flash_mha(*leaves)
+        bwd["rate0_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(out0, leaves, d_out, retain_graph=True))
+        del out0
+    del out, lib_out, lib_in
+    return res, fwd, bwd
+
+
 def check_flash(dev):
-    """Forward and backward at the three sites of the train step (encoder
+    """Forward and backward at the three sites of the geo train step (encoder
     301 x 301, decoder self 32 x 32 causal, cross 32 x 497) at rate 0.2 under
     the kernel's own mask, and at the encoder site at rate 0 (the serving
     shape, and the work SDPA's backward does); returns (forward results,
     backward results) by dtype.  bf16 runs the tensor-core kernels, f32 the
     CUDA-core ones."""
-    from icek_torch.kernels import flash_attention as fa
-
-    B, H = BATCH, 10
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     fwd, bwd = {}, {}
-    for dtype, tol, btol in ((torch.float32, 1e-4, 1e-4), (torch.bfloat16, 3e-2, 4e-2)):
-        fsites, bsites = {}, {}
+    for dtype, tol, btol in FLASH_TOLS:
+        f, b = {}, {}
         for name, Tq, Tk, causal in FLASH_SITES:
-            q, k, v, d_out = _flash_site(dev, dtype, Tq, Tk)
-            require(fa.uses_tensor_cores(q, k, v) == (dtype == torch.bfloat16),
-                    f"flash {name} {dtype}: unexpected kernel family")
-            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            res = {}
-            if name == "encoder":       # rate 0: the serving launch
-                got = fa.flash_mha(q, k, v)
-                want = fa.reference_mha(q, k, v)
-                torch.cuda.synchronize()
-                err = max_err(got, want)
-                require(err <= tol, f"flash {dtype}: max abs err {err} > {tol}")
-                bms, by = _flash_bounds(dtype, Tq, Tk, causal, False)
-                res = dict(max_abs_err=err, tol=tol, ms=cuda_ms(lambda: fa.flash_mha(q, k, v)),
-                           plain_ms=cuda_ms(lambda: fa.reference_mha(q, k, v)),
-                           library_ms=cuda_ms(lambda: sdpa(qh, kh, vh)),
-                           bound_ms=bms, bound_by=by)
-                del got, want
-
-            # rate 0.2 under the kernel's own mask; keep rate; one mask both ways
-            keep = fa.keep_mask(B, H, Tq, Tk, rate=RATE, seed=77, device=dev)
-            kept = float(keep.float().mean())
-            require(abs(kept - (1 - RATE)) <= 0.005, f"flash mask keep rate {kept}")
-            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-            run = lambda: fa.flash_mha(*leaves, causal=causal, dropout_rate=RATE, seed=77)
-            plain = lambda: fa.reference_mha(*leaves, causal=causal, dropout_rate=RATE,
-                                             keep=keep)
-            out, ref = run(), plain()
-            got = torch.autograd.grad(out, leaves, d_out, retain_graph=True)
-            want = torch.autograd.grad(ref, leaves, d_out, retain_graph=True)
-            torch.cuda.synchronize()
-            # the decoder's sites put a few keys' worth of v into a row, so their
-            # outputs exceed 1 and a bf16 ulp exceeds the tolerance: they are
-            # held, as the gradients are, relative to the largest expected value
-            derr = max_err(out.detach(), ref.detach())
-            dheld = derr if name == "encoder" else _rel_err(out.detach(), ref.detach())
-            require(dheld <= tol, f"flash dropout {name} {dtype}: err {dheld} > {tol}")
-            err, rel = max_err(got, want), _rel_err(got, want)
-            require(rel <= btol, f"flash backward {name} {dtype}: err {rel} > {btol} "
-                                 "of the largest expected value")
-            # <f(v), g> == <v, df/dv(g)>: forward and backward saw one mask
-            lhs, rhs = float((out.detach().float() * d_out.float()).sum()), \
-                float((leaves[2].detach().float() * got[2].float()).sum())
-            ident = abs(lhs - rhs) / max(abs(lhs), 1.0)
-            require(ident <= (1e-3 if dtype == torch.float32 else 3e-2),
-                    f"flash backward {name} {dtype}: mask identity off by {ident}")
-            with torch.no_grad():
-                fms, fplain = cuda_ms(run), cuda_ms(plain, iters=5)
-            bms_ = cuda_ms(lambda: torch.autograd.grad(out, leaves, d_out, retain_graph=True))
-            bplain = cuda_ms(lambda: torch.autograd.grad(ref, leaves, d_out, retain_graph=True),
-                             iters=5)
-            del ref, want, keep, got
-            # yardstick: SDPA and its backward under autograd, rate 0 (it has no
-            # such mask), on (B, H, T, Hd) copies
-            lib_in = [t.detach().requires_grad_(True) for t in (qh, kh, vh)]
-            lib_out = sdpa(*lib_in, is_causal=causal)
-            lib_g = d_out.transpose(1, 2).contiguous()
-            with torch.no_grad():
-                flib = cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=causal))
-            blib = cuda_ms(lambda: torch.autograd.grad(lib_out, lib_in, lib_g,
-                                                       retain_graph=True))
-            bound, by = _flash_bounds(dtype, Tq, Tk, causal, False)
-            fsites[name] = dict(rate=RATE, max_abs_err=derr, keep_rate=kept, ms=fms,
-                                plain_ms=fplain, library_ms=flib, bound_ms=bound, bound_by=by)
-            bound, by = _flash_bounds(dtype, Tq, Tk, causal, True)
-            bsites[name] = dict(max_abs_err=err, rel_err=rel, tol=btol, mask_identity=ident,
-                                ms=bms_, plain_ms=bplain, library_ms=blib, bound_ms=bound,
-                                bound_by=by)
-            if name == "encoder":       # the backward at SDPA's own work, rate 0
-                out0 = fa.flash_mha(*leaves)
-                bsites["rate0_ms"] = cuda_ms(
-                    lambda: torch.autograd.grad(out0, leaves, d_out, retain_graph=True))
-                fwd[dtype] = dict(res, dropout=fsites["encoder"])
-                del out0
-            del out, lib_out, lib_in
-        fwd[dtype].update({"self": fsites["self"], "cross": fsites["cross"]})
-        bwd[dtype] = dict(bsites["encoder"], rate0_ms=bsites["rate0_ms"],
-                          self=bsites["self"], cross=bsites["cross"])
+            # the decoder's sites are held relative to their largest value
+            serve, f[name], b[name] = _flash_one_site(dev, dtype, tol, btol, name, Tq, Tk,
+                                                      causal, name == "encoder",
+                                                      name != "encoder")
+            if serve is not None:
+                fwd[dtype] = dict(serve, dropout=f["encoder"])
+        fwd[dtype].update({"self": f["self"], "cross": f["cross"]})
+        bwd[dtype] = dict(b["encoder"], self=b["self"], cross=b["cross"])
         log(f"kernel flash_attention {dtype}: {fwd[dtype]}")
         log(f"kernel flash_attention_bwd {dtype}: {bwd[dtype]}")
     return fwd, bwd
+
+
+def fact_flash_sites(shape):
+    """The attention sites of a knowledge / news train step: (name, Tq, Tk,
+    causal, a serving site too)."""
+    E, F, T = shape["E"], shape["F"], shape["T"]
+    return (("entity_encoder", E, E, False, True), ("fact_encoder", F, F, False, True),
+            ("self", T, T, True, False), ("cross", T, IMG_TOKENS + E + F, False, False))
+
+
+def check_flash_facts(dev, shape):
+    """Flash forward and backward at a fact preset's four sites (T 51 is
+    less than one 64-row tile; 301 and 598 end in partial tiles); returns
+    {dtype: {site: {"serving", "dropout", "backward"}}}.  Every dropout
+    forward is held as the geo decoder's sites are: the fact encoder's 51
+    keys put outputs above 4."""
+    out = {}
+    for dtype, tol, btol in FLASH_TOLS:
+        out[dtype] = {}
+        for name, Tq, Tk, causal, serving in fact_flash_sites(shape):
+            serve, f, b = _flash_one_site(dev, dtype, tol, btol, name, Tq, Tk, causal,
+                                          serving, True)
+            out[dtype][name] = dict(serving=serve, dropout=f, backward=b)
+            log(f"kernel flash_attention {dtype} {name} {Tq}x{Tk}: serving {serve}; "
+                f"rate {RATE} {f}; backward {b}")
+    return out
 
 
 def device_split(fn, parts, reps=10) -> dict:
@@ -277,16 +351,23 @@ def device_split(fn, parts, reps=10) -> dict:
         return {}
 
 
-SCORE_SHAPES = ((BATCH * BEAM, BEAM), (BATCH, 2))             # (rows, k): beam, greedy
+SCORE_SHAPES = (("beam", BATCH * BEAM, BEAM), ("greedy", BATCH, 2))     # (label, rows, k)
 
 
-def _score_inputs(dev, dtype, n):
+def _score_inputs(dev, dtype, n, t=ENT_ROWS, predicates=0):
+    """h (n, 300), Wv, bv and an (n, t) tail; with `predicates`, h is
+    modulated row by row as the fact presets' vocab input is: times the
+    projection of a sparse 0/1 predicate indicator."""
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    h = torch.randn((n, 300), generator=g, device=dev).to(dtype)
+    h = torch.randn((n, 300), generator=g, device=dev)
+    if predicates:
+        ind = (torch.rand((n, predicates), generator=g, device=dev) < 0.01).float()
+        w = (torch.rand((predicates, 300), generator=g, device=dev) * 2 - 1) * 0.1
+        h = h * (ind @ w + torch.randn((300,), generator=g, device=dev))
     wv = ((torch.rand((300, VOCAB), generator=g, device=dev) * 2 - 1) * 0.1).to(dtype)
     bv = torch.randn((VOCAB,), generator=g, device=dev) * 0.01
-    tail = torch.randn((n, ENT_ROWS), generator=g, device=dev)
-    return h, wv, bv, tail
+    tail = torch.randn((n, t), generator=g, device=dev)
+    return h.to(dtype), wv, bv, tail
 
 
 def device_splits(dev, kernels):
@@ -300,10 +381,10 @@ def device_splits(dev, kernels):
 
     F = torch.nn.functional
     for dtype in (torch.float32, torch.bfloat16):
-        for n, k in SCORE_SHAPES:
+        for shape, n, k in SCORE_SHAPES:
             h, wv, bv, tail = _score_inputs(dev, dtype, n)
             rec = kernels["fused_score_topk"][dtype]
-            rec = rec if n == BATCH * BEAM else rec["greedy"]
+            rec = rec if shape == "beam" else rec["greedy"]
             rec["parts_ms"] = device_split(lambda: cs.fused_score_topk(h, wv, bv, tail, k=k),
                                            ("score_partial", "score_merge"))
         x, h, gy, scale, bias, _ = _norm_inputs(dev, dtype)
@@ -323,45 +404,65 @@ def device_splits(dev, kernels):
             f"backward {rec['parts_ms']}, library chain {rec['library_device_ms']}")
 
 
-def check_scores(dev):
-    """The score head at the beam (1280 rows, k 5) and greedy (256, k 2)
-    shapes; bf16 runs the tensor-core first pass, f32 the CUDA-core one."""
+def _score_record(dev, dtype, tol, n, k, t=ENT_ROWS, predicates=0):
+    """The score head at (n rows, top k, tail t) against its plain version,
+    timed beside its bound and the library chain."""
     from icek_torch.kernels import copy_scores as cs
 
+    h, wv, bv, tail = _score_inputs(dev, dtype, n, t, predicates)
+    require(cs.uses_tensor_cores(h, wv) == (dtype == torch.bfloat16),
+            f"score/top-k {dtype}: unexpected kernel family")
+    got = cs.fused_score_topk(h, wv, bv, tail, k=k)
+    want = cs.reference_score_topk(h, wv, bv, tail, k=k)
+    torch.cuda.synchronize()
+    require(torch.equal(got[1], want[1]), f"score/top-k {dtype} n={n} t={t}: indices differ")
+    err = max_err((got[0], got[2]), (want[0], want[2]))
+    require(err <= tol, f"score/top-k {dtype} n={n} t={t}: max abs err {err} > {tol}")
+
+    def library():
+        s = torch.cat([torch.addmm(bv.to(dtype), h, wv).float(), tail], dim=1)
+        return torch.topk(s, k), torch.logsumexp(s, dim=1)
+
+    run = lambda: cs.fused_score_topk(h, wv, bv, tail, k=k)
+    nbytes = (h.numel() * h.element_size() + wv.numel() * wv.element_size()
+              + 4 * VOCAB + 4 * tail.numel() + n * (8 * k + 4))
+    bms, by = bound_ms(nbytes, 2 * n * 300 * VOCAB, dtype)
+    return dict(max_abs_err=err, tol=tol, ms=cuda_ms(run),
+                plain_ms=cuda_ms(lambda: cs.reference_score_topk(h, wv, bv, tail, k=k)),
+                library_ms=cuda_ms(library), bound_ms=bms, bound_by=by)
+
+
+def check_scores(dev, shapes=SCORE_SHAPES):
+    """The score head at the beam (1280 rows, k 5) and greedy (256, k 2)
+    shapes, or at `shapes`; bf16 runs the tensor-core first pass, f32 the
+    CUDA-core one."""
     res = {}
-    for n, k in SCORE_SHAPES:
+    for shape, n, k in shapes:
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-4)):
-            h, wv, bv, tail = _score_inputs(dev, dtype, n)
-            require(cs.uses_tensor_cores(h, wv) == (dtype == torch.bfloat16),
-                    f"score/top-k {dtype}: unexpected kernel family")
-            got = cs.fused_score_topk(h, wv, bv, tail, k=k)
-            want = cs.reference_score_topk(h, wv, bv, tail, k=k)
-            torch.cuda.synchronize()
-            require(torch.equal(got[1], want[1]), f"score/top-k {dtype} n={n}: indices differ")
-            err = max_err((got[0], got[2]), (want[0], want[2]))
-            require(err <= tol, f"score/top-k {dtype} n={n}: max abs err {err} > {tol}")
-
-            def library():
-                s = torch.cat([torch.addmm(bv.to(dtype), h, wv).float(), tail], dim=1)
-                return torch.topk(s, k), torch.logsumexp(s, dim=1)
-
-            run = lambda: cs.fused_score_topk(h, wv, bv, tail, k=k)
-            nbytes = (h.numel() * h.element_size() + wv.numel() * wv.element_size()
-                      + 4 * VOCAB + 4 * tail.numel() + n * (8 * k + 4))
-            bms, by = bound_ms(nbytes, 2 * n * 300 * VOCAB, dtype)
-            timed = dict(max_abs_err=err, tol=tol, ms=cuda_ms(run),
-                         plain_ms=cuda_ms(lambda: cs.reference_score_topk(h, wv, bv, tail, k=k)),
-                         library_ms=cuda_ms(library), bound_ms=bms, bound_by=by)
-            shape = "beam" if n == BATCH * BEAM else "greedy"
+            timed = _score_record(dev, dtype, tol, n, k)
             log(f"kernel fused_score_topk {dtype} {shape} n={n} k={k}: {timed}")
-            if shape == "beam":
-                res[dtype] = timed
-            else:
+            if shape == "greedy":
                 res[dtype]["greedy"] = timed
+            else:
+                res[dtype] = timed
     return res
 
 
-def _decoder_step_inputs(dev, dtype, step):
+def check_scores_facts(dev, shape):
+    """The score head at a fact preset's shapes: tail [E | F] (352 or 402
+    columns), h modulated per row by the predicate projection."""
+    res = {}
+    tail = shape["E"] + shape["F"]
+    for label, n, k in SCORE_SHAPES:
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-4)):
+            timed = _score_record(dev, dtype, tol, n, k, tail, shape["P"])
+            log(f"kernel fused_score_topk {dtype} {label} n={n} k={k} tail {tail}: {timed}")
+            res.setdefault(dtype, {})[label] = timed
+    return res
+
+
+def _decoder_step_inputs(dev, dtype, step, L=MAX_LEN, M=IMG_TOKENS + ENT_ROWS, B=BATCH,
+                         K=BEAM):
     from icek_torch.core import config as cfgs
     from icek_torch.kernels import decoder_step as dsk
     from icek_torch.models import transformer as tfm
@@ -371,8 +472,7 @@ def _decoder_step_inputs(dev, dtype, step):
     layers = tfm.init_decoder_stack(g, m.num_layers, m.emb_dim, m.decoder_ffn_dim)
     layers = {"layers": [_tree(l, dev, dtype) for l in layers["layers"]]}
     stacked = dsk.stack_decoder_params(layers, dtype)
-    nL, B, K, L, D = m.num_layers, BATCH, BEAM, MAX_LEN, m.emb_dim
-    M = m.encoded_image_size ** 2 + ENT_ROWS
+    nL, D = m.num_layers, m.emb_dim
     gd = torch.Generator(device=dev).manual_seed(SEED + 3)
     rnd = lambda *s: torch.randn(s, generator=gd, device=dev)
     x = rnd(B, K, D)
@@ -385,13 +485,12 @@ def _decoder_step_inputs(dev, dtype, step):
     return stacked, x, anc, ck, cv, xk, xv, m
 
 
-def _decoder_step_work(anc, step, m, dtype):
+def _decoder_step_work(anc, step, m, dtype, M):
     """(bytes, flops) one decoder step needs for these inputs: each input
     read once (the cache rows the ancestry actually selects), each output
     written once."""
     B, K, _ = anc.shape
     nL, D, H, F = m.num_layers, m.emb_dim, m.num_heads, m.decoder_ffn_dim
-    M = m.encoded_image_size ** 2 + ENT_ROWS
     Hd = D // H
     esz = torch.finfo(dtype).bits // 8
     hist = anc[:, :, :step].long() + torch.arange(step, device=anc.device) * K
@@ -413,8 +512,9 @@ def _tree(tree, dev, dtype):
     return tree.to(dev, dtype) if tree.is_floating_point() else tree.to(dev)
 
 
-def check_decoder_step(dev):
-    """The decoder step at step 15 of the beam shape: bf16 on both routes (the
+def check_decoder_step(dev, L=MAX_LEN, M=IMG_TOKENS + ENT_ROWS, B=BATCH, K=BEAM):
+    """The decoder step at the middle step of the beam shape (B 256, K 5,
+    L steps, memory M; or B images of K hypotheses): bf16 on both routes (the
     tensor-core one the beam loop takes, fed the head-padded cross K/V the
     loop lays out once per batch, and the CUDA-core one, taken when the
     weights come without their packed copy) and f32 on the CUDA-core route,
@@ -422,18 +522,18 @@ def check_decoder_step(dev):
     from icek_torch.kernels import decoder_step as dsk
 
     res = {}
-    step = MAX_LEN // 2
+    step = L // 2
     for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 0.15)):
-        stacked, x, anc, ck, cv, xk, xv, m = _decoder_step_inputs(dev, dtype, step)
+        stacked, x, anc, ck, cv, xk, xv, m = _decoder_step_inputs(dev, dtype, step, L, M, B, K)
         H = m.num_heads
-        nbytes, flops = _decoder_step_work(anc, step, m, dtype)
+        nbytes, flops = _decoder_step_work(anc, step, m, dtype, M)
         bms, by = bound_ms(nbytes, flops, dtype)
         want = dsk.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv, step, num_heads=H)
         plain_ms = cuda_ms(lambda: dsk.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv,
                                                                step, num_heads=H), iters=5)
         routes = {"cuda_cores": (stacked._replace(mma=None), (xk, xv), {})}
         if dtype == torch.bfloat16:
-            nL, B, M, D = xk.shape
+            nL, B, _, D = xk.shape
             heads = dsk.pad_cross_heads([{"k": xk[l].view(B, M, H, D // H),
                                           "v": xv[l].view(B, M, H, D // H)} for l in range(nL)],
                                         dtype)
@@ -441,16 +541,17 @@ def check_decoder_step(dev):
         timed = {}
         for route, (st, cross, kw) in routes.items():
             require(dsk.uses_tensor_cores(st, ck, x.shape[1], H) == (route == "tensor_cores"),
-                    f"decoder step {dtype}: {route} is not the route the predicate picks")
+                    f"decoder step {dtype} L {L}: {route} is not the route the predicate picks")
             run = lambda: dsk.fused_beam_decoder_step(st, x, anc, ck, cv, *cross, step,
                                                       num_heads=H, **kw)
             got = run()
             torch.cuda.synchronize()
             err = max_err(got, want)
-            require(err <= tol, f"decoder step {dtype} {route}: max abs err {err} > {tol}")
+            require(err <= tol, f"decoder step {dtype} {route} M {M}: max abs err {err} > {tol}")
             timed[route] = dict(max_abs_err=err, tol=tol, ms=cuda_ms(run), plain_ms=plain_ms,
                                 library_ms=None, bound_ms=bms, bound_by=by)
-            log(f"kernel decoder_step {dtype} {route} step {step}: {timed[route]}")
+            log(f"kernel decoder_step {dtype} {route} B {B} K {K} L {L} M {M} step {step}: "
+                f"{timed[route]}")
         res[dtype] = timed.get("tensor_cores", timed["cuda_cores"])
         if dtype == torch.bfloat16:
             res[dtype]["cuda_cores"] = timed["cuda_cores"]
@@ -472,10 +573,10 @@ def decoder_step_sass():
         log(f"sass of decoder_step_mma_kernel: {type(e).__name__}: {e}")
 
 
-def _norm_inputs(dev, dtype):
-    """x, h, gy (77056, 300) in dtype, f32 scale and bias, and the seeded
-    draw that made them (phase 3 draws the dropout inputs from it next)."""
-    N, D = BATCH * ENT_ROWS, 300
+def _norm_inputs(dev, dtype, N=BATCH * ENT_ROWS):
+    """x, h, gy (N, 300) in dtype, f32 scale and bias, and the seeded draw
+    that made them (phase 3 draws the dropout inputs from it next)."""
+    D = 300
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
     x, h, gy = (rnd(N, D).to(dtype) for _ in range(3))
@@ -483,17 +584,18 @@ def _norm_inputs(dev, dtype):
     return x, h, gy, scale, bias, rnd
 
 
-def check_norm(dev):
-    """dropout_add_ln forward and backward at the encoder's (77056, 300) and
-    hw_dropout at its FFN's (77056, 512), rate 0.2 under the kernels' own
-    mask; returns (ln forward, ln backward, dropout) results by dtype."""
+def check_norm(dev, N=BATCH * ENT_ROWS):
+    """dropout_add_ln forward and backward at (N, 300) and hw_dropout at
+    (N, 512) (geo: the entity encoder's 77056 rows), rate 0.2 under the
+    kernels' own mask; returns (ln forward, ln backward, dropout) results by
+    dtype."""
     from icek_torch.kernels import fused_norm as fn
 
     F = torch.nn.functional
-    N, D, DF = BATCH * ENT_ROWS, 300, 512
+    D, DF = 300, 512
     ln_f, ln_b, drop = {}, {}, {}
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
-        x, h, gy, scale, bias, rnd = _norm_inputs(dev, dtype)
+        x, h, gy, scale, bias, rnd = _norm_inputs(dev, dtype, N)
         esz = x.element_size()
         keep = fn.keep_mask(N, D, rate=RATE, seed=55, device=dev)
         kept = float(keep.float().mean())
@@ -542,8 +644,8 @@ def check_norm(dev):
             library_ms=cuda_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, gy,
                                                            retain_graph=True)),
             bound_ms=bms, bound_by=by)
-        log(f"kernel dropout_add_ln {dtype}: {ln_f[dtype]}")
-        log(f"kernel dropout_add_ln_bwd {dtype}: {ln_b[dtype]}")
+        log(f"kernel dropout_add_ln {dtype} N {N}: {ln_f[dtype]}")
+        log(f"kernel dropout_add_ln_bwd {dtype} N {N}: {ln_b[dtype]}")
         del out, ref, got, want, lib_out, keep
 
         hf = rnd(N, DF).to(dtype).requires_grad_(True)
@@ -563,49 +665,136 @@ def check_norm(dev):
             ms=cuda_ms(lambda: fn.hw_dropout(hd, rate=RATE, seed=56)),
             plain_ms=cuda_ms(lambda: fn.reference_hw_dropout(hd, rate=RATE, keep=keep)),
             library_ms=cuda_ms(lambda: F.dropout(hd, RATE)), bound_ms=bms, bound_by=by)
-        log(f"kernel hw_dropout {dtype}: {drop[dtype]}")
+        log(f"kernel hw_dropout {dtype} N {N}: {drop[dtype]}")
     return ln_f, ln_b, drop
 
 
+def _compact(bf, f32):
+    """A kernel record at one shape: the bf16 numbers, the f32 time and error."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
+    return dict({k: bf[k] for k in keys}, f32_ms=f32["ms"], f32_max_abs_err=f32["max_abs_err"])
+
+
+def check_kernels_facts(dev, shape):
+    """Phase 3 at a fact preset's shapes: flash at its four attention sites,
+    the score head with its [E | F] tail, the decoder step at L 40 and
+    memory M = 196 + E + F (the tensor-core route must still hold it), and
+    the LayerNorm and dropout kernels at the decoder's B x T rows.  Returns
+    {kernel: {shape label: compact record}}."""
+    bf, f32 = torch.bfloat16, torch.float32
+    flash = check_flash_facts(dev, shape)
+    out = {"flash_attention": {}, "flash_attention_bwd": {}}
+    for site, rec in flash[bf].items():
+        other = flash[f32][site]
+        if rec["serving"] is not None:
+            out["flash_attention"][site] = _compact(rec["serving"], other["serving"])
+        out["flash_attention"][f"{site} rate {RATE}"] = _compact(rec["dropout"],
+                                                                 other["dropout"])
+        out["flash_attention_bwd"][f"{site} rate {RATE}"] = _compact(rec["backward"],
+                                                                     other["backward"])
+    scores = check_scores_facts(dev, shape)
+    out["fused_score_topk"] = {k: _compact(scores[bf][k], scores[f32][k])
+                               for k in ("beam", "greedy")}
+    M = IMG_TOKENS + shape["E"] + shape["F"]
+    step = check_decoder_step(dev, shape["L"], M)
+    label = f"L {shape['L']} M {M} step {shape['L'] // 2}"
+    out["decoder_step"] = {label: _compact(step[bf], step[f32]),
+                           label + " cuda cores": _compact(step[bf]["cuda_cores"], step[f32])}
+    N = BATCH * shape["T"]
+    ln_f, ln_b, drop = check_norm(dev, N)
+    for name, rec in (("dropout_add_ln", ln_f), ("dropout_add_ln_bwd", ln_b),
+                      ("hw_dropout", drop)):
+        out[name] = {f"rows {N}": _compact(rec[bf], rec[f32])}
+    return out
+
+
 # --------------------------------------------------------------------------
-# phase 4: the full-width main path
+# phase 4: the full-width main path, one preset at a time
 # --------------------------------------------------------------------------
 
-def full_width_model():
-    """Geo preset at full width with seeded random weights.  The random
-    batch-norm statistics (mean 0, var 1) let ResNet-101's activations grow
-    through the residual sums; the 1x1 projection is scaled so the image
-    tokens come out at order 1, as a trained encoder's do."""
+def preset_shape(preset):
+    """E, F, P, L (decode steps) and T (training caption) of a preset."""
+    if preset == "georic":
+        return dict(E=ENT_ROWS, F=0, P=0, L=MAX_LEN, T=CAP_LEN)
+    return FACT_PRESETS[preset]
+
+
+def full_width_model(preset="georic", enc=None):
+    """A preset at full width with seeded random weights (V 10000, beam 5,
+    batch 256).  The random batch-norm statistics (mean 0, var 1) let
+    ResNet-101's activations grow through the residual sums; the 1x1
+    projection is scaled so the image tokens come out at order 1, as a
+    trained encoder's do.  `enc` shares one encoder between presets.  The
+    predicate head's bias is drawn N(0, 1) (its init is 0, which would leave
+    the fact presets' vocab logits all 0 until a predicate is active), and
+    their pointer heads are scaled by the preset's gains."""
     from icek_torch.core import config as cfgs
     from icek_torch.data.codec import Wordmap
     from icek_torch.models import captioner, resnet
 
-    cfg = cfgs.georic()
+    cfg = cfgs.get_config(preset)
     cfg = cfg.replace(decode=dataclasses.replace(
-        cfg.decode, max_caption_len=MAX_LEN, beam_size=BEAM, batch_size=BATCH))
+        cfg.decode, max_caption_len=preset_shape(preset)["L"], beam_size=BEAM,
+        batch_size=BATCH))
     wm = Wordmap.from_words([f"w{i}" for i in range(VOCAB - 5)] + ["."])
     require(len(wm) == VOCAB, "wordmap size")
     g = torch.Generator().manual_seed(SEED)
     params = captioner.init_captioner_params(g, cfg.model, VOCAB)
-    enc = resnet.init_resnet101(g, cfg.model.emb_dim)
-    enc["proj"]["w"] = enc["proj"]["w"] * 3e-6
+    if cfg.model.has_facts:
+        params["fc_predicate"]["b"] = torch.randn(cfg.model.emb_dim, generator=g)
+        for head, gain in zip(("fc_entity", "fc_fact"), FACT_PRESETS[preset]["gains"]):
+            params[head]["w"] = params[head]["w"] * gain
+    if enc is None:
+        enc = resnet.init_resnet101(g, cfg.model.emb_dim)
+        enc["proj"]["w"] = enc["proj"]["w"] * 3e-6
     return cfg, wm, params, enc
 
 
-def _entity_rows(rng, n):
-    ents = np.zeros((n, ENT_ROWS, 5), np.float32)
-    ents[:, :, 0] = np.arange(ENT_ROWS)
-    ents[:, :, 1] = rng.uniform(0, 1, (n, ENT_ROWS))
-    ents[:, :, 2] = rng.uniform(-179, 179, (n, ENT_ROWS))
-    ents[:, :, 3] = rng.uniform(0, 0.1, (n, ENT_ROWS))
-    ents[:, :, 4] = rng.integers(0, 500, (n, ENT_ROWS))
+def _entity_rows(rng, n, preset="georic"):
+    """Packed entity rows: geo and knowledge (n, E, 5) [row_idx, dist, az,
+    size, type]; news (n, E, 10) [row_idx, count, in_headline,
+    in_first_paragraph, type, five name word ids]."""
+    E = preset_shape(preset)["E"]
+    if preset == "nytimes800k":
+        ents = np.zeros((n, E, 10), np.float32)
+        ents[:, :, 1] = rng.integers(0, 10, (n, E))
+        ents[:, :, 2:4] = rng.integers(0, 2, (n, E, 2))
+        ents[:, :, 4] = rng.integers(0, 20, (n, E))
+        ents[:, :, 5:] = rng.integers(5, VOCAB, (n, E, 5))
+    else:
+        ents = np.zeros((n, E, 5), np.float32)
+        ents[:, :, 1] = rng.uniform(0, 1, (n, E))
+        ents[:, :, 2] = rng.uniform(-179, 179, (n, E))
+        ents[:, :, 3] = rng.uniform(0, 0.1, (n, E))
+        ents[:, :, 4] = rng.integers(0, 500, (n, E))
+    ents[:, :, 0] = np.arange(E)
     return ents
 
 
-def make_batch(rng, n):
-    ents = _entity_rows(rng, n)
+def _fact_rows(rng, n, preset):
+    """(n, F, 3) fact rows [row_idx, subject row, predicate]: a quarter to all
+    of the rows are real facts on the real entity rows, the rest padding
+    facts on the <unk_ent> dummy row E - 1 with predicate 0."""
+    s = preset_shape(preset)
+    E, F = s["E"], s["F"]
+    facts = np.zeros((n, F, 3), np.float32)
+    facts[:, :, 0] = np.arange(F)
+    facts[:, :, 1] = rng.integers(0, E - 1, (n, F))
+    facts[:, :, 2] = rng.integers(0, s["P"], (n, F))
+    real = rng.integers(F // 4, F, (n,))
+    pad = np.arange(F)[None, :] >= real[:, None]
+    facts[:, :, 1][pad] = E - 1
+    facts[:, :, 2][pad] = 0
+    return facts
+
+
+def make_batch(rng, n, preset="georic"):
+    ents = _entity_rows(rng, n, preset)
     raw = rng.random((n, 3, IMG, IMG), dtype=np.float32).astype(np.float16)
-    return {"raw_images": raw, "entity_features": ents}
+    batch = {"raw_images": raw, "entity_features": ents}
+    if preset != "georic":
+        batch["fact_features"] = _fact_rows(rng, n, preset)
+    return batch
 
 
 def entity_names(n):
@@ -618,44 +807,76 @@ def entity_names(n):
 
 
 def counters():
-    """The launch counts of the serving path's kernels (the decoder step's
-    tensor-core route: bf16 at the beam shape takes it)."""
+    """The launch counts of the serving path's kernels (the decoder step by
+    route: bf16 at the beam shape takes the tensor-core one)."""
     from icek_torch.kernels import copy_scores, decoder_step, flash_attention
 
+    routes = decoder_step.fused_beam_decoder_step.routes
     return {"flash_attention": flash_attention.flash_mha,
             "fused_score_topk": copy_scores.fused_score_topk,
-            "decoder_step": decoder_step.fused_beam_decoder_step.routes["tensor_cores"]}
+            "decoder_step": routes["tensor_cores"],
+            "decoder_step_cuda_cores": routes["cuda_cores"]}
 
 
-def train_counters():
-    """Likewise for the train step, with the launches one step makes: three
-    encoder and six decoder attentions, 6 + 9 residual LayerNorms, and six
-    FFN dropouts each way through one entry point."""
+def serving_prediction(cfg, beam_batches, greedy_batches):
+    """The serving launches the code predicts, every batch running all L
+    steps (random weights never end all of a batch's hypotheses): the context
+    encoders' layers once a batch (entity, and fact with facts), the score head
+    once a step of every batch, the decoder step's tensor-core route once a
+    step of a beam batch (greedy runs the plain decoder), its CUDA-core route
+    never."""
+    m, L = cfg.model, cfg.decode.max_caption_len
+    batches = beam_batches + greedy_batches
+    return {"flash_attention": m.num_layers * (2 if m.has_facts else 1) * batches,
+            "fused_score_topk": L * batches, "decoder_step": L * beam_batches,
+            "decoder_step_cuda_cores": 0}
+
+
+def _read_serving_counts():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def _zero_serving_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def train_counters(has_facts=False):
+    """Likewise for the train step, with the launches one step makes: one
+    attention per encoder layer and two per decoder layer, two residual
+    LayerNorms per encoder layer and three per decoder layer, and one FFN
+    dropout per layer each way through one entry point (geo: 3 encoder
+    layers; knowledge and news: 3 + 3)."""
     from icek_torch.kernels import flash_attention, fused_norm
 
-    return {"flash_attention": (flash_attention.flash_mha, 9),
-            "flash_attention_bwd": (flash_attention.flash_mha_bwd, 9),
-            "dropout_add_ln": (fused_norm.dropout_add_ln, 15),
-            "dropout_add_ln_bwd": (fused_norm.dropout_add_ln_bwd, 15),
-            "hw_dropout": (fused_norm.hw_dropout, 12)}
+    enc, dec = (6 if has_facts else 3), 3
+    return {"flash_attention": (flash_attention.flash_mha, enc + 2 * dec),
+            "flash_attention_bwd": (flash_attention.flash_mha_bwd, enc + 2 * dec),
+            "dropout_add_ln": (fused_norm.dropout_add_ln, 2 * enc + 3 * dec),
+            "dropout_add_ln_bwd": (fused_norm.dropout_add_ln_bwd, 2 * enc + 3 * dec),
+            "hw_dropout": (fused_norm.hw_dropout, 2 * (enc + dec))}
 
 
-def run_main_path(dev, model):
+def serve(dev, model, preset="georic"):
+    """A warm-up, 3 timed beam-5 batches of 256 raw f16 images and one greedy
+    batch through Evaluator.decode_batch, with every kernel's launches held
+    to the code's prediction."""
     from icek_torch import eval_driver
     from icek_torch.decode import detok
 
     cfg, wm, params, enc = model
+    s = preset_shape(preset)
+    L, S = s["L"], VOCAB + s["E"] + s["F"]
     ev = eval_driver.Evaluator(cfg, wm, params, enc, device=dev)
     require(ev.compute_dtype == torch.bfloat16 and ev.batch_size == BATCH,
             "the main path serves bf16 at batch 256")
     rng = np.random.default_rng(SEED)
-    batches = [make_batch(rng, BATCH) for _ in range(4)]
+    batches = [make_batch(rng, BATCH, preset) for _ in range(4)]
     t0 = time.perf_counter()
     ev.decode_batch(batches[0])                                  # warm-up
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters().values():
-        fn.launches = 0
+    _zero_serving_counts()
     times, outs = [], []
     for b in batches[1:]:
         t0 = time.perf_counter()
@@ -666,49 +887,105 @@ def run_main_path(dev, model):
     t0 = time.perf_counter()
     g_out = greedy.decode_batch(batches[0])
     greedy_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters().items()}
+    launches = _read_serving_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"main path launches (3 beam-5 batches + 1 greedy batch): {launches}")
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} was not launched on the main path")
+    want = serving_prediction(cfg, len(times), 1)
+    log(f"{preset} serving launches (3 beam-5 batches + 1 greedy batch): {launches}; "
+        f"predicted {want}")
+    require(launches == want, f"{preset}: serving launches {launches} != predicted {want}")
     for out in outs + [g_out]:
-        require(out.shape == (BATCH, MAX_LEN), f"output shape {out.shape}")
-        require(out.min() >= 0 and out.max() < VOCAB + ENT_ROWS, "token ids out of range")
-    names = entity_names(ENT_ROWS)
+        require(out.shape == (BATCH, L), f"output shape {out.shape}")
+        require(out.min() >= 0 and out.max() < S, "token ids out of range")
+    pointer_share = float(np.mean([(o >= VOCAB).mean() for o in outs]))
+    fact_share = float(np.mean([(o >= VOCAB + s["E"]).mean() for o in outs]))
+    names = entity_names(s["E"])
     for b in range(3):
-        text, kinds = detok.caption_text(outs[0][b], wm, names)
-        log(f"caption {b}: {text[:120]!r} (kinds {kinds[:10]})")
+        text, k = detok.caption_text(outs[0][b], wm, names)
+        log(f"{preset} caption {b}: {text[:120]!r} (kinds {k[:10]})")
     caps = [BATCH / t for t in times]
     summary = dict(
         warmup_s=warm_s, batch_ms=[t * 1e3 for t in times],
         captions_per_s_median=statistics.median(caps),
         captions_per_s_all=BATCH * len(times) / sum(times),
-        greedy_batch_ms=greedy_s * 1e3, peak_mem_gb=peak_gb)
-    log(f"main path (geo, batch {BATCH}, beam {BEAM}, bf16): {summary}")
-    log(f"main path breakdown: {breakdown(ev, batches[1])}")
-    log(f"main path, beam-5 tokens with the decoder-step kernel against the stock step "
-        f"(bf16, not asserted: near-tie picks follow the summation order): "
+        greedy_batch_ms=greedy_s * 1e3, peak_mem_gb=peak_gb,
+        pointer_token_share=pointer_share, fact_token_share=fact_share)
+    log(f"{preset} serving (batch {BATCH}, beam {BEAM}, L {L}, bf16): {summary}")
+    require(preset == "georic" or pointer_share > 0,
+            f"{preset}: no entity id emitted, so the seen / predicate state was never driven")
+    log(f"{preset} serving breakdown: {breakdown(ev, batches[1])}")
+    log(f"{preset} serving, beam-5 tokens with the decoder-step kernel against the stock "
+        f"step (bf16, not asserted: near-tie picks follow the summation order): "
         f"{megakernel_agreement(ev, batches[1])}")
+    if preset != "georic":
+        log(f"{preset} serving, beam-5 token agreement between precisions and routes "
+            f"(not asserted): {precision_agreement(ev, batches[1])}")
     return launches, summary, batches[1]
+
+
+def _context(ev, batch):
+    """(decode context, raw image tensor) of one batch on the Evaluator's
+    device, as decode_batch builds it."""
+    from icek_torch.decode import greedy
+
+    raw = torch.as_tensor(batch["raw_images"], device=ev.device)
+    ents = torch.as_tensor(batch["entity_features"], device=ev.device)
+    facts = batch.get("fact_features")
+    facts = None if facts is None else torch.as_tensor(facts, device=ev.device)
+    ctx = greedy.prepare_decode_context(ev.params, ev.cfg.model, ev._encode_tokens(raw, "raw"),
+                                        ents, facts, compute_dtype=ev.compute_dtype)
+    return ctx, ents.shape[1]
 
 
 def megakernel_agreement(ev, batch):
     """Share of equal beam-5 tokens (and of equal captions) between
     use_megakernel on and off for one batch; after the counted run."""
-    from icek_torch.decode import beam, greedy
+    from icek_torch.decode import beam
 
     cfg, wm = ev.cfg, ev.wordmap
     with torch.inference_mode():
-        raw = torch.as_tensor(batch["raw_images"], device=ev.device)
-        ents = torch.as_tensor(batch["entity_features"], device=ev.device)
-        ctx = greedy.prepare_decode_context(ev.params, cfg.model, ev._encode_tokens(raw, "raw"),
-                                            ents, compute_dtype=ev.compute_dtype)
-        outs = [beam.beam_decode(ev.params, cfg.model, len(wm), ents.shape[1], wm.start_id,
-                                 wm.end_id, wm.pad_id, ctx, MAX_LEN, beam_size=BEAM,
+        ctx, E = _context(ev, batch)
+        outs = [beam.beam_decode(ev.params, cfg.model, len(wm), E, wm.start_id, wm.end_id,
+                                 wm.pad_id, ctx, cfg.decode.max_caption_len, beam_size=BEAM,
                                  compute_dtype=ev.compute_dtype, use_megakernel=on)[0]
                 for on in (True, False)]
     same = outs[0] == outs[1]
     return dict(tokens=float(same.float().mean()), captions=float(same.all(dim=1).float().mean()))
+
+
+def precision_agreement(ev, batch):
+    """Witness for the kernel-vs-stock agreement above: beam-5 tokens of one
+    batch decoded with the plain step and scores in bf16 and in f32 (from the
+    same image tokens), and with the kernels in bf16, each pair's share of
+    equal tokens and captions.  If the bf16 kernel's disagreement with the
+    stock bf16 step comes from near-tie picks, the plain bf16 run disagrees
+    with the plain f32 run about as often."""
+    from icek_torch.decode import beam, greedy
+
+    cfg, wm = ev.cfg, ev.wordmap
+
+    def run(dtype, kernels):
+        ctx = greedy.prepare_decode_context(ev.params, cfg.model, tokens.to(dtype), ents, facts,
+                                            compute_dtype=dtype)
+        return beam.beam_decode(ev.params, cfg.model, len(wm), ents.shape[1], wm.start_id,
+                                wm.end_id, wm.pad_id, ctx, cfg.decode.max_caption_len,
+                                beam_size=BEAM, compute_dtype=dtype, use_megakernel=kernels,
+                                use_fused_scores=kernels)[0]
+
+    with torch.inference_mode():
+        raw = torch.as_tensor(batch["raw_images"], device=ev.device)
+        ents = torch.as_tensor(batch["entity_features"], device=ev.device)
+        facts = torch.as_tensor(batch["fact_features"], device=ev.device)
+        tokens = ev._encode_tokens(raw, "raw")
+        outs = {"kernels_bf16": run(torch.bfloat16, True),
+                "plain_bf16": run(torch.bfloat16, False),
+                "plain_f32": run(torch.float32, False)}
+    res = {}
+    for a, b in (("kernels_bf16", "plain_bf16"), ("plain_bf16", "plain_f32"),
+                 ("kernels_bf16", "plain_f32")):
+        same = outs[a] == outs[b]
+        res[f"{a} vs {b}"] = dict(tokens=float(same.float().mean()),
+                                  captions=float(same.all(dim=1).float().mean()))
+    return res
 
 
 def time_greedy_warm(dev, model, reps=3) -> list:
@@ -739,6 +1016,8 @@ def breakdown(ev, batch):
         t = time.perf_counter()
         raw = torch.as_tensor(batch["raw_images"], device=ev.device)
         ents = torch.as_tensor(batch["entity_features"], device=ev.device)
+        facts = batch.get("fact_features")
+        facts = None if facts is None else torch.as_tensor(facts, device=ev.device)
         torch.cuda.synchronize()
         stages["upload_ms"] = (time.perf_counter() - t) * 1e3
         t = time.perf_counter()
@@ -746,33 +1025,77 @@ def breakdown(ev, batch):
         torch.cuda.synchronize()
         stages["encode_ms"] = (time.perf_counter() - t) * 1e3
         t = time.perf_counter()
-        ctx = greedy.prepare_decode_context(ev.params, cfg.model, tokens, ents,
+        ctx = greedy.prepare_decode_context(ev.params, cfg.model, tokens, ents, facts,
                                             compute_dtype=ev.compute_dtype)
         torch.cuda.synchronize()
         stages["context_ms"] = (time.perf_counter() - t) * 1e3
         t = time.perf_counter()
-        out, _ = beam.beam_decode(ev.params, cfg.model, len(wm), ents.shape[1],
-                                  wm.start_id, wm.end_id, wm.pad_id, ctx, MAX_LEN,
-                                  beam_size=BEAM, compute_dtype=ev.compute_dtype)
+        beam.beam_decode(ev.params, cfg.model, len(wm), ents.shape[1], wm.start_id,
+                         wm.end_id, wm.pad_id, ctx, cfg.decode.max_caption_len,
+                         beam_size=BEAM, compute_dtype=ev.compute_dtype)
         torch.cuda.synchronize()
         stages["decode_ms"] = (time.perf_counter() - t) * 1e3
     return stages
+
+
+def wide_beam(dev, model):
+    """A beam wider than 8: geo beam 10 through Evaluator.decode_batch, bf16 and f32,
+    kernels on (the defaults) against the plain path (both switches off).
+    The score head runs at k 10 in both; the decoder step on its tensor-core
+    route in bf16 (K <= 16) and on its CUDA-core route in f32 (two blocks an
+    image).  Each route's count is held to that; f32 tokens must equal the
+    plain path's, bf16 agreement is logged.  First the two kernels alone at
+    the wide shapes against their plain versions."""
+    from icek_torch import eval_driver
+
+    cfg, wm, params, enc = model
+    kernels = dict(fused_score_topk=check_scores(dev, (("wide", WIDE_BATCH * WIDE_BEAM,
+                                                         WIDE_BEAM),)),
+                   decoder_step=check_decoder_step(dev, B=WIDE_BATCH, K=WIDE_BEAM))
+    batch = make_batch(np.random.default_rng(SEED + 11), WIDE_BATCH)
+    plain_cfg = cfg.replace(decode=dataclasses.replace(
+        cfg.decode, use_megakernel=False, use_fused_scores=False))
+    L = cfg.decode.max_caption_len
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        kw = dict(device=dev, beam_size=WIDE_BEAM, batch_size=WIDE_BATCH, compute_dtype=dtype)
+        _zero_serving_counts()
+        got = eval_driver.Evaluator(cfg, wm, params, enc, **kw).decode_batch(batch)
+        routes = _read_serving_counts()
+        want = eval_driver.Evaluator(plain_cfg, wm, params, enc, **kw).decode_batch(batch)
+        tc = dtype == torch.bfloat16
+        expect = dict(flash_attention=cfg.model.num_layers, fused_score_topk=L,
+                      decoder_step=L if tc else 0, decoder_step_cuda_cores=0 if tc else L)
+        log(f"wide beam: geo beam {WIDE_BEAM} {dtype}, {WIDE_BATCH} images, routes {routes} "
+            f"(expected {expect})")
+        require(routes == expect, f"wide beam {dtype}: routes {routes} != {expect}")
+        same = float((got == want).mean())
+        if dtype == torch.float32:
+            require(np.array_equal(got, want),
+                    "wide beam: f32 beam-10 tokens differ from the plain path")
+        res[str(dtype)] = dict(routes=routes, token_agreement=same)
+        log(f"wide beam: geo beam {WIDE_BEAM} {dtype}: token agreement with the plain path "
+            f"{same}")
+    res["kernels"] = {name: {str(dt): {k: rec[dt][k] for k in ("max_abs_err", "ms", "plain_ms")}
+                             for dt in rec} for name, rec in kernels.items()}
+    return res
 
 
 # --------------------------------------------------------------------------
 # phase 5: card vs CPU at f32
 # --------------------------------------------------------------------------
 
-def cross_check(dev, model):
+def cross_check(dev, model, preset="georic"):
     from icek_torch import eval_driver
-    from icek_torch.decode import beam
     from icek_torch.decode import greedy as greedy_lib
     from icek_torch.kernels import decoder_step as dsk
     from icek_torch.models import captioner
     from icek_torch.models import transformer as tfm
 
     cfg, wm, params, enc = model
-    batch = make_batch(np.random.default_rng(SEED + 9), 2)
+    m = cfg.model
+    batch = make_batch(np.random.default_rng(SEED + 9), 2, preset)
+    L = preset_shape(preset)["L"]
     got = {}
     for where in (dev, "cpu"):
         ev = eval_driver.Evaluator(cfg, wm, params, enc, device=where,
@@ -780,23 +1103,31 @@ def cross_check(dev, model):
         with torch.inference_mode():
             raw = torch.as_tensor(batch["raw_images"], device=ev.device)
             ents = torch.as_tensor(batch["entity_features"], device=ev.device)
+            facts = batch.get("fact_features")
+            facts = None if facts is None else torch.as_tensor(facts, device=ev.device)
             tokens = ev._encode_tokens(raw, "raw")
-            memory, ents_enc = captioner.encode_memory(ev.params, cfg.model, tokens, ents)
-            ctx = greedy_lib.prepare_decode_context(ev.params, cfg.model, tokens, ents)
-            K, D = BEAM, cfg.model.emb_dim
+            memory, ents_enc, facts_enc = captioner.encode_memory(ev.params, m, tokens, ents,
+                                                                  facts)
+            ctx = greedy_lib.prepare_decode_context(ev.params, m, tokens, ents, facts)
+            K, D = BEAM, m.emb_dim
             start = torch.full((2, K), wm.start_id, device=ev.device)
-            x = (beam._embed_tokens_beam(ev.params, VOCAB, wm.pad_id, start,
-                                         torch.zeros_like(start), ents_enc)
+            x = (captioner.embed_captions(ev.params, VOCAB, wm.pad_id, start,
+                                          torch.zeros_like(start), ents_enc)
                  * math.sqrt(D) + torch.as_tensor(tfm.sinusoidal_positions(1, D)[0],
                                                   device=ev.device))
-            caches = torch.zeros((cfg.model.num_layers, 2, MAX_LEN * K, D), device=ev.device)
-            anc = torch.arange(K, device=ev.device)[None, :, None].expand(2, K, MAX_LEN)
+            caches = torch.zeros((m.num_layers, 2, L * K, D), device=ev.device)
+            anc = torch.arange(K, device=ev.device)[None, :, None].expand(2, K, L)
             stacked = dsk.stack_decoder_params(ev.params["decoder"])
             ck, cv = dsk.stack_cross_kv(ctx.cross_kvs, torch.float32)
             h, _, _ = dsk.fused_beam_decoder_step(stacked, x, anc.contiguous(), caches,
                                                   caches.clone(), ck, cv, 0,
-                                                  num_heads=cfg.model.num_heads)
-            scores = captioner.copy_scores(ev.params, cfg.model, h, ents_enc)
+                                                  num_heads=m.num_heads)
+            ind = {}
+            if m.has_facts:     # nothing is seen before the first step
+                ind = dict(fact_before=torch.zeros((2, K, facts.shape[1]), device=ev.device),
+                           predicate_indicator=torch.zeros((2, K, m.num_predicates),
+                                                           device=ev.device))
+            scores = captioner.copy_scores(ev.params, m, h, ents_enc, facts_enc, **ind)
         ids = ev.decode_batch(batch)
         got[where] = [t.cpu() for t in (tokens, memory, scores)] + [ids]
     names = ("image tokens", "memory", "first-step scores")
@@ -805,9 +1136,9 @@ def cross_check(dev, model):
         a, b = got[dev][i], got["cpu"][i]
         scale = float(b.abs().max())
         errs[name] = float((a - b).abs().max()) / max(scale, 1e-30)
-        require(errs[name] <= 1e-4, f"card vs CPU {name}: rel err {errs[name]} > 1e-4")
+        require(errs[name] <= 1e-4, f"{preset} card vs CPU {name}: rel err {errs[name]} > 1e-4")
     agree = float((got[dev][3] == got["cpu"][3]).mean())
-    log(f"card vs CPU at f32 (max abs err / max |cpu|, tol 1e-4): {errs}; "
+    log(f"{preset} card vs CPU at f32 (max abs err / max |cpu|, tol 1e-4): {errs}; "
         f"beam-5 token agreement {agree:.3f}")
     return errs, agree
 
@@ -816,31 +1147,41 @@ def cross_check(dev, model):
 # phase 6: train steps at full width
 # --------------------------------------------------------------------------
 
-def make_train_batch(rng, n, wm):
-    """Captions of CAP_LEN tokens (<start>, words, a few entity ids >= V,
-    <end>, <pad> tail) with their kinds and lengths, entity rows and cached
-    image tokens."""
-    caps = rng.integers(5, VOCAB - 5, (n, CAP_LEN)).astype(np.int64)
-    ent = rng.random((n, CAP_LEN)) < 0.08
-    caps[ent] = VOCAB + rng.integers(0, ENT_ROWS, int(ent.sum()))
-    lengths = rng.integers(8, CAP_LEN + 1, (n,))
+def make_train_batch(rng, n, wm, preset="georic"):
+    """Captions of T tokens (<start>, words, a few entity ids >= V and, with
+    facts, fact ids >= V + E, <end>, <pad> tail) with their kinds and
+    lengths, entity (and fact) rows and cached image tokens."""
+    s = preset_shape(preset)
+    T, E, F = s["T"], s["E"], s["F"]
+    caps = rng.integers(5, VOCAB - 5, (n, T)).astype(np.int64)
+    ent = rng.random((n, T)) < 0.08
+    caps[ent] = VOCAB + rng.integers(0, E, int(ent.sum()))
+    if F:
+        fact = rng.random((n, T)) < 0.04
+        caps[fact] = VOCAB + E + rng.integers(0, F, int(fact.sum()))
+    lengths = rng.integers(8, T + 1, (n,))
     caps[:, 0] = wm.start_id
     for b in range(n):
         caps[b, lengths[b] - 1] = wm.end_id
         caps[b, lengths[b]:] = wm.pad_id
-    return {"caption_ids": caps, "caption_mask": (caps >= VOCAB).astype(np.int64),
-            "lengths": lengths.astype(np.int64),
-            "entity_features": _entity_rows(rng, n),
-            "image_tokens": rng.standard_normal((n, 196, 300), dtype=np.float32)}
+    kind = np.where(caps >= VOCAB + E, 2, (caps >= VOCAB).astype(np.int64)) if F \
+        else (caps >= VOCAB).astype(np.int64)
+    batch = {"caption_ids": caps, "caption_mask": kind, "lengths": lengths.astype(np.int64),
+             "entity_features": _entity_rows(rng, n, preset),
+             "image_tokens": rng.standard_normal((n, IMG_TOKENS, 300), dtype=np.float32)}
+    if F:
+        batch["fact_features"] = _fact_rows(rng, n, preset)
+    return batch
 
 
-def run_train_path(dev, model):
+def run_train_path(dev, model, preset="georic", steps=TRAIN_STEPS):
     from icek_torch import bridge
     from icek_torch.models import captioner
     from icek_torch.train import step as step_lib
 
     cfg, wm, params, _ = model
     m = cfg.model
+    T = preset_shape(preset)["T"]
     require((m.dropout_enc, m.dropout_dec, m.dropout_pos) == (0.2, 0.2, 0.1),
             "the train path runs the preset's dropout rates")
     params = bridge.trainable(copy.deepcopy(params), dev)
@@ -849,9 +1190,10 @@ def run_train_path(dev, model):
     train_step, eval_step = step_lib.make_train_step(
         cfg, VOCAB, wm.pad_id, optimizer, compute_dtype=torch.bfloat16,
         encode_images=False, device=dev)
-    batch = make_train_batch(np.random.default_rng(SEED + 5), BATCH, wm)
+    batch = make_train_batch(np.random.default_rng(SEED + 5), BATCH, wm, preset)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     gen = torch.Generator().manual_seed(SEED)
+    counted = train_counters(m.has_facts)
 
     eval_before = float(eval_step(params, None, batch)[0])
     t0 = time.perf_counter()
@@ -859,25 +1201,25 @@ def run_train_path(dev, model):
     losses = [float(loss)]
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    for fn, _ in train_counters().values():
+    for fn, _ in counted.values():
         fn.launches = 0
     times = []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         _, _, loss, count = train_step(params, opt_state, None, batch, gen)
         losses.append(float(loss))            # reading the loss waits for the step
         times.append(time.perf_counter() - t0)
-    launches = {name: fn.launches for name, (fn, _) in train_counters().items()}
+    launches = {name: fn.launches for name, (fn, _) in counted.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     eval_after = float(eval_step(params, None, batch)[0])
-    log(f"train path launches over {TRAIN_STEPS} steps: {launches}")
-    for name, (_, per_step) in train_counters().items():
-        require(launches[name] == per_step * TRAIN_STEPS,
-                f"kernel {name}: {launches[name]} launches, expected "
-                f"{per_step} x {TRAIN_STEPS}")
+    log(f"{preset} train path launches over {steps} steps: {launches}")
+    for name, (_, per_step) in counted.items():
+        require(launches[name] == per_step * steps,
+                f"{preset} kernel {name}: {launches[name]} launches, expected "
+                f"{per_step} x {steps}")
     require(all(math.isfinite(l) for l in losses), f"non-finite loss in {losses}")
     require(math.isfinite(eval_after) and eval_after < eval_before,
-            f"eval loss did not fall: {eval_before} -> {eval_after}")
+            f"{preset} eval loss did not fall: {eval_before} -> {eval_after}")
 
     # one more step, stage by stage (each synchronised)
     stages = {}
@@ -893,8 +1235,9 @@ def run_train_path(dev, model):
     def forward():
         scores = captioner.captioner_forward(
             params, m, VOCAB, wm.pad_id, batch["caption_ids"], batch["caption_mask"],
-            batch["image_tokens"].to(torch.bfloat16), batch["entity_features"], gen=gen,
-            deterministic=False, compute_dtype=torch.bfloat16, score_dtype=torch.bfloat16)
+            batch["image_tokens"].to(torch.bfloat16), batch["entity_features"],
+            batch.get("fact_features"), gen=gen, deterministic=False,
+            compute_dtype=torch.bfloat16, score_dtype=torch.bfloat16)
         return step_lib.caption_loss(scores, batch["caption_ids"], batch["lengths"],
                                      wm.pad_id)[0]
 
@@ -908,11 +1251,11 @@ def run_train_path(dev, model):
         samples_per_s_median=BATCH / statistics.median(times),
         tokens_per_step=int(count), losses=losses, eval_loss_before=eval_before,
         eval_loss_after=eval_after, peak_mem_gb=peak_gb, **stages)
-    log(f"train path (geo, batch {BATCH}, T {CAP_LEN}, bf16, dropout on): {summary}")
+    log(f"{preset} train path (batch {BATCH}, T {T}, bf16, dropout on): {summary}")
     return launches, summary, lambda: float(train_step(params, opt_state, None, batch, gen)[2])
 
 
-def train_cross_check(dev, model):
+def train_cross_check(dev, model, preset="georic"):
     """A 2-sample f32 step without dropout on the card against the same step
     on the CPU: loss, and Adam's first moments (0.1 x the clipped gradients)
     leaf by leaf relative to the leaf's largest value (at least 1% of the
@@ -923,7 +1266,7 @@ def train_cross_check(dev, model):
     cfg, wm, params, _ = model
     cfg = cfg.replace(model=dataclasses.replace(
         cfg.model, dropout_enc=0.0, dropout_dec=0.0, dropout_pos=0.0))
-    batch = make_train_batch(np.random.default_rng(SEED + 6), 2, wm)
+    batch = make_train_batch(np.random.default_rng(SEED + 6), 2, wm, preset)
     res = {}
     for where in ("cpu", dev):
         p = bridge.trainable(copy.deepcopy(params), where)
@@ -940,9 +1283,9 @@ def train_cross_check(dev, model):
     top = max(float(g.abs().max()) for g in g_cpu)
     grad_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 0.01 * top)
                    for a, b in zip(g_dev, g_cpu))
-    log(f"train step, card vs CPU at f32, 2 samples, no dropout: loss {l_dev} vs "
+    log(f"{preset} train step, card vs CPU at f32, 2 samples, no dropout: loss {l_dev} vs "
         f"{l_cpu} (rel {loss_rel}); worst leaf gradient rel err {grad_rel} (tol 1e-4)")
-    require(loss_rel <= 1e-4 and grad_rel <= 1e-4, "card vs CPU train step disagrees")
+    require(loss_rel <= 1e-4 and grad_rel <= 1e-4, f"{preset}: card vs CPU train step disagrees")
     return loss_rel, grad_rel
 
 
@@ -1000,7 +1343,7 @@ def trace_device(what, fn):
         log(f"trace of {what}: torch.profiler failed: {type(e).__name__}: {e}")
 
 
-def trace_serving(dev, model, batch):
+def trace_serving(dev, model, batch, preset="georic"):
     """One beam-5 batch under the profiler, through an Evaluator of its own
     (the timed one is gone, so that it does not weigh on the train path's
     peak memory), warmed by one batch first."""
@@ -1009,10 +1352,69 @@ def trace_serving(dev, model, batch):
     cfg, wm, params, enc = model
     ev = eval_driver.Evaluator(cfg, wm, params, enc, device=dev)
     ev.decode_batch(batch)
-    trace_device("one beam-5 batch", lambda: ev.decode_batch(batch))
+    what = "one beam-5 batch" if preset == "georic" else f"one {preset} beam-5 batch"
+    trace_device(what, lambda: ev.decode_batch(batch))
+
+
+def paired(root, label) -> int:
+    """Geo serving, train-step and warm greedy times of the checkout at
+    `root`, through the public entry points alone (Evaluator.decode_batch,
+    train.step.make_train_step), so one timing code serves any two trees."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(root))
+    from icek_torch import bridge, eval_driver
+    from icek_torch.kernels import _build
+    from icek_torch.train import step as step_lib
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"[{label}] {os.path.dirname(_build.__file__)}: build {time.perf_counter() - t0:.1f} s")
+    cfg, wm, params, enc = model = full_width_model()
+    ev = eval_driver.Evaluator(cfg, wm, params, enc, device=dev)
+    rng = np.random.default_rng(SEED)
+    batches = [make_batch(rng, BATCH) for _ in range(4)]
+    ev.decode_batch(batches[0])
+    batch_ms = []
+    for b in batches[1:]:
+        t0 = time.perf_counter()
+        ev.decode_batch(b)
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+
+    tparams = bridge.trainable(copy.deepcopy(params), dev)
+    optimizer = step_lib.make_optimizer(cfg.train.decoder_lr, cfg.train.grad_clip)
+    opt_state = optimizer.init(tparams)
+    train_step, _ = step_lib.make_train_step(cfg, VOCAB, wm.pad_id, optimizer,
+                                             compute_dtype=torch.bfloat16,
+                                             encode_images=False, device=dev)
+    tb = make_train_batch(np.random.default_rng(SEED + 5), BATCH, wm)
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in tb.items()}
+    gen = torch.Generator().manual_seed(SEED)
+    float(train_step(tparams, opt_state, None, tb, gen)[2])
+    step_ms = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        float(train_step(tparams, opt_state, None, tb, gen)[2])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    greedy_ms = time_greedy_warm(dev, model)
+    L = cfg.decode.max_caption_len
+    out = {"label": label, "card": smi_name_power(), "batch_ms": batch_ms,
+           "captions_per_s_median": BATCH / statistics.median(batch_ms) * 1e3,
+           "host_ms_per_beam_step_median": statistics.median(batch_ms) / L,
+           "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
+           "samples_per_s_median": BATCH / statistics.median(step_ms) * 1e3,
+           "greedy_warm_ms": greedy_ms}
+    print("PAIRED " + json.dumps(out), flush=True)
+    return 0
 
 
 def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--paired":
+        return paired(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card",
               file=sys.stderr)
@@ -1034,25 +1436,49 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     decoder_step_sass()
+    rows = run_phases(dev, card)
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
+
+def run_phases(dev, card) -> list:
+    """Phases 3 to 6, the wide beam, the traces and the device splits on `dev`; returns
+    the kernels' JSON rows."""
     flash_fwd, flash_bwd = check_flash(dev)
     kernels = {"flash_attention": flash_fwd, "flash_attention_bwd": flash_bwd,
                "fused_score_topk": check_scores(dev),
                "decoder_step": check_decoder_step(dev)}
     kernels["dropout_add_ln"], kernels["dropout_add_ln_bwd"], kernels["hw_dropout"] = \
         check_norm(dev)
-    model = full_width_model()
-    launches, summary, serve_batch = run_main_path(dev, model)
-    cross_check(dev, model)
-    train_launches, train_summary, step_once = run_train_path(dev, model)
-    train_cross_check(dev, model)
-    greedy_warm = time_greedy_warm(dev, model)
+    fact_kernels = {preset: check_kernels_facts(dev, shape)
+                    for preset, shape in FACT_PRESETS.items()}
+
+    geo = full_width_model()
+    models = {"georic": geo}
+    models.update({p: full_width_model(p, enc=geo[3]) for p in FACT_PRESETS})
+    launches, summary, serve_batch = serve(dev, geo)
+    served = {p: serve(dev, models[p], p) for p in FACT_PRESETS}
+    for preset, model in models.items():
+        cross_check(dev, model, preset)
+    train_launches, train_summary, step_once = run_train_path(dev, geo)
+    trained = {p: run_train_path(dev, models[p], p, FACT_TRAIN_STEPS) for p in FACT_PRESETS}
+    for preset, model in models.items():
+        train_cross_check(dev, model, preset)
+    wide = wide_beam(dev, geo)
+    greedy_warm = time_greedy_warm(dev, geo)
     summary.update(greedy_warm_ms=greedy_warm,
                    greedy_warm_median_ms=statistics.median(greedy_warm))
     # after every timed run, so the profiler cannot disturb one
     trace_device("one train step", step_once)
     del step_once
-    trace_serving(dev, model, serve_batch)
+    trace_serving(dev, geo, serve_batch)
+    for p in FACT_PRESETS:
+        trace_device(f"one {p} train step", trained[p][2])
+        trace_serving(dev, models[p], served[p][2], p)
     device_splits(dev, kernels)
 
     # name: (source, the TPU kernel it replaces)
@@ -1088,15 +1514,20 @@ def main() -> int:
                       "wrapper_ms", "library_device_ms", "cuda_cores"):
             if extra in bf:
                 row[extra] = bf[extra]
+        # the knowledge and news presets: launches on their paths, and the
+        # kernel at their shapes (bf16, with the f32 time and error)
+        row["presets"] = {p: dict(launches_serving=served[p][0].get(name),
+                                  launches_train=trained[p][0].get(name),
+                                  shapes=fact_kernels[p][name])
+                          for p in FACT_PRESETS}
         rows.append(row)
     log(f"card: {card}; train path: {json.dumps(train_summary)}")
     log(f"card: {card}; main path: {json.dumps(summary)}")
-    print(json.dumps({"kernels": rows}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    for p in FACT_PRESETS:
+        log(f"card: {card}; {p} serving: {json.dumps(served[p][1])}")
+        log(f"card: {card}; {p} train path: {json.dumps(trained[p][1])}")
+    log(f"card: {card}; wide beam (geo beam {WIDE_BEAM}): {json.dumps(wide)}")
+    return rows
 
 
 if __name__ == "__main__":

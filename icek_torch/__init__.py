@@ -6,10 +6,12 @@ ported path is a hand-written CUDA kernel under ``csrc/``, built with nvcc
 at first use (``kernels/_build.py``) and called through a wrapper that runs
 the kernel's plain PyTorch version only for CPU tensors.
 
-Ported so far (geo preset: serving and the train step):
+Ported so far (the geo, knowledge and news presets: serving and the train
+step):
     core/      config dataclasses + presets (own copy)
     data/      image normalization, the codec pieces detok needs
-    models/    transformer stacks, ResNet-101 encoder, captioner (geo)
+    models/    transformer stacks, ResNet-101 encoder, captioner (all
+               three variants: entity and fact encoders, pointer head)
     kernels/   flash attention forward and backward, fused residual-dropout-
                LayerNorm and dropout, fused score/top-k, decoder-step
     decode/    top-k, greedy and beam decode, detok

@@ -37,13 +37,28 @@ def to_torch(tree):
 
 
 def from_jax_params(tree, cfg: ModelConfig, vocab: int):
-    """Captioner params (numpy tree) -> torch tensors of the same layout."""
+    """Captioner params (numpy tree) -> torch tensors of the same layout.
+    The shapes of the embeddings and heads (with facts: the predicate
+    embedding, the fact and predicate heads and the fact encoder's layers)
+    are checked against `cfg` and `vocab`."""
     D = cfg.emb_dim
     want = {
         "word_embedding": (vocab, D),
         "type_embedding": (cfg.type_vocab, cfg.type_emb_dim),
         "fc_vocab": {"w": (D, vocab), "b": (vocab,)},
     }
+    if cfg.has_facts:
+        P = cfg.num_predicates
+        want.update({
+            "predicate_embedding": (P, D),
+            "fc_fact": {"w": (D, 1), "b": (1,)},
+            "fc_predicate": {"w": (P, D), "b": (D,)},
+        })
+        layers = tree["ctx_encoder_facts"]["layers"]
+        if len(layers) != cfg.num_layers or any(
+                np.shape(lay["self_attn"]["qkv_w"]) != (D, 3 * D) for lay in layers):
+            raise ValueError(f"ctx_encoder_facts: expected {cfg.num_layers} layers of "
+                             f"width {D}")
     for key, shape in want.items():
         got = tree[key]
         pairs = ((got[k], s) for k, s in shape.items()) if isinstance(shape, dict) \

@@ -55,16 +55,19 @@
 //   the linears, bound by L2 (~5.5 TB/s of weight reads), and the stream
 //   take turns (python -m icek_torch.kernels._ablate).
 // Route 2, the CUDA-core kernel (decoder_step_kernel): f32, and any shape
-// route 1 refuses.  One block per image; activations (K x D, K x 3D, K x F)
-// and the (K*H) x max(M, L) attention weights live in shared memory; each
-// memory / cache row is read once and used by all K hypotheses and all
+// route 1 refuses.  A block owns R <= 8 hypotheses of one image (grid B x
+// ceil(K / R)): R = min(K, 8), lowered until the block's shared memory fits
+// the card, so beams of any width run (two or more blocks an image above 8,
+// each reading the image's memory once).  Activations (R x D, R x 3D, R x F)
+// and the (R*H) x max(M, L) attention weights live in shared memory; each
+// memory / cache row a block reads is used by all its R hypotheses and all
 // heads; products in f32 on the CUDA cores (TF32 would break the f32
 // checks at 1e-4).
 #include "common.cuh"
 
 namespace {
 
-constexpr int KMAX = 8;
+constexpr int KMAX = 8;           // hypothesis rows of a CUDA-core block
 constexpr int THREADS = 512;
 
 template <typename T>
@@ -94,6 +97,7 @@ struct StepArgs {
   T* v_new;
   int B, K, L, D, H, F, nL, M, step;
   float eps;
+  int R;             // hypotheses a block (the host picks it)
 };
 
 // out[r][j] = act(sum_d in[r][d] * W[d][j] + bias[j]) for the K rows
@@ -171,8 +175,10 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS) decoder_step_kernel(StepArgs<T> a) {
   extern __shared__ float sm[];
   const int b = blockIdx.x;
-  const int K = a.K, D = a.D, H = a.H, F = a.F, L = a.L, M = a.M;
-  const int Hd = D / H, LK = L * K, i = a.step;
+  // hypotheses [k0, k0 + K) of image b; the caches keep the beam's width
+  const int KB = a.K, k0 = blockIdx.y * a.R, K = min(a.R, KB - k0);
+  const int D = a.D, H = a.H, F = a.F, L = a.L, M = a.M;
+  const int Hd = D / H, LK = L * KB, i = a.step;
   const int lgw = max(M, L);
   const float scale = rsqrtf((float)Hd);
   float* xs = sm;                 // (K, D)   running activations
@@ -183,9 +189,9 @@ __global__ void __launch_bounds__(THREADS) decoder_step_kernel(StepArgs<T> a) {
   int* anc = reinterpret_cast<int*>(lg + K * H * lgw);  // (K, L)
 
   for (int e = threadIdx.x; e < K * D; e += blockDim.x)
-    xs[e] = to_f32(a.x[(long long)b * K * D + e]);
+    xs[e] = to_f32(a.x[((long long)b * KB + k0) * D + e]);
   for (int e = threadIdx.x; e < K * L; e += blockDim.x)
-    anc[e] = a.anc[(long long)b * K * L + e];
+    anc[e] = a.anc[((long long)b * KB + k0) * L + e];
   __syncthreads();
 
   for (int l = 0; l < a.nL; ++l) {
@@ -200,7 +206,7 @@ __global__ void __launch_bounds__(THREADS) decoder_step_kernel(StepArgs<T> a) {
     __syncthreads();
     for (int e = threadIdx.x; e < K * D; e += blockDim.x) {
       const int r = e / D, j = e % D;
-      const long long o = (((long long)l * a.B + b) * K + r) * D + j;
+      const long long o = (((long long)l * a.B + b) * KB + k0 + r) * D + j;
       a.k_new[o] = from_f32<T>(proj[r * 3 * D + D + j]);
       a.v_new[o] = from_f32<T>(proj[r * 3 * D + 2 * D + j]);
     }
@@ -211,7 +217,7 @@ __global__ void __launch_bounds__(THREADS) decoder_step_kernel(StepArgs<T> a) {
       float dot = 0.f;
       if (t < i) {
         const T* kp = a.ck + cache_base +
-                      (long long)(t * K + anc[r * L + t]) * D + hh * Hd;
+                      (long long)(t * KB + anc[r * L + t]) * D + hh * Hd;
         for (int d = 0; d < Hd; ++d) dot = fmaf(qv[d], to_f32(kp[d]), dot);
       } else {
         const float* kp = proj + r * 3 * D + D + hh * Hd;
@@ -227,7 +233,7 @@ __global__ void __launch_bounds__(THREADS) decoder_step_kernel(StepArgs<T> a) {
       const float* w = lg + (r * H + hh) * lgw;
       float acc = 0.f;
       for (int t = 0; t < i; ++t)
-        acc = fmaf(w[t], to_f32(a.cv[cache_base + (long long)(t * K + anc[r * L + t]) * D + j]), acc);
+        acc = fmaf(w[t], to_f32(a.cv[cache_base + (long long)(t * KB + anc[r * L + t]) * D + j]), acc);
       att[e] = fmaf(w[i], proj[r * 3 * D + 2 * D + j], acc);
     }
     __syncthreads();
@@ -294,22 +300,41 @@ __global__ void __launch_bounds__(THREADS) decoder_step_kernel(StepArgs<T> a) {
     __syncthreads();
   }
   for (int e = threadIdx.x; e < K * D; e += blockDim.x)
-    a.h[(long long)b * K * D + e] = xs[e];
+    a.h[((long long)b * KB + k0) * D + e] = xs[e];
+}
+
+// shared memory of a CUDA-core block of R hypotheses
+size_t rows_smem_bytes(int R, int D, int H, int F, int M, int L) {
+  return sizeof(float) * ((size_t)R * D * 5 + (size_t)R * F + (size_t)R * H * max(M, L)) +
+         sizeof(int) * (size_t)R * L;
+}
+
+// R of a CUDA-core block: min(K, KMAX), lowered until the block fits the
+// device's opt-in shared memory; 0 when not even one hypothesis fits
+int rows_per_block(int K, int D, int H, int F, int M, int L) {
+  int dev = 0, limit = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess)
+    return 0;
+  int R = min(K, KMAX);
+  while (R > 0 && rows_smem_bytes(R, D, H, F, M, L) > (size_t)limit) --R;
+  return R;
 }
 
 template <typename T>
-int run(const StepArgs<T>& a, void* stream) {
-  if (a.K < 1 || a.K > KMAX || a.D % a.H != 0 || a.step < 0 || a.step >= a.L)
+int run(StepArgs<T> a, void* stream) {
+  if (a.K < 1 || a.H < 1 || a.D % a.H != 0 || a.step < 0 || a.step >= a.L)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      sizeof(float) * ((size_t)a.K * a.D * 5 + (size_t)a.K * a.F +
-                       (size_t)a.K * a.H * max(a.M, a.L)) +
-      sizeof(int) * (size_t)a.K * a.L;
+  a.R = rows_per_block(a.K, a.D, a.H, a.F, a.M, a.L);
+  if (a.R < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = rows_smem_bytes(a.R, a.D, a.H, a.F, a.M, a.L);
   cudaError_t err = cudaFuncSetAttribute(
       decoder_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  decoder_step_kernel<T><<<a.B, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  const dim3 grid(a.B, (a.K + a.R - 1) / a.R);
+  decoder_step_kernel<T><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -333,7 +358,7 @@ int entry(const void* x, const int* anc, const void* ck, const void* cv,
                 static_cast<const T*>(f2_w), f2_b,
                 ln_s, ln_b, h,
                 static_cast<T*>(k_new), static_cast<T*>(v_new),
-                B, K, L, D, H, F, nL, M, step, eps};
+                B, K, L, D, H, F, nL, M, step, eps, 0};
   return run<T>(a, stream);
 }
 

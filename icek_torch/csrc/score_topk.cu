@@ -51,7 +51,7 @@ namespace {
 constexpr int BN = 64;     // rows per block
 constexpr int BV = 64;     // vocab columns per tile
 constexpr int BD = 32;     // depth per staged tile
-constexpr int KMAX = 8;    // largest k served
+constexpr int KMAX = 16;   // largest k served (beam widths up to 16)
 constexpr int THREADS = 256;
 
 struct Cand {
@@ -273,8 +273,12 @@ constexpr float LOG2E = 1.4426950408889634f;
 // an ldmatrix phase fall on distinct banks
 __host__ __device__ constexpr int tc_hpitch(int D) { return ((D + 15) & ~15) + 8; }
 
-size_t tc_smem_bytes(int D) {
-  return sizeof(bf16) * ((size_t)BN * tc_hpitch(D) + (size_t)TC_STAGES * TC_BK * TC_WPITCH);
+// h's rows, then the ring; at the chunk's end the ring holds the four lanes'
+// lists of each row ((value, index) x BN x 4 x K), which outgrow it above K 13
+size_t tc_smem_bytes(int D, int K) {
+  const size_t ring = sizeof(bf16) * (size_t)TC_STAGES * TC_BK * TC_WPITCH;
+  const size_t lists = (sizeof(float) + sizeof(int)) * (size_t)BN * 4 * K;
+  return sizeof(bf16) * (size_t)BN * tc_hpitch(D) + (ring > lists ? ring : lists);
 }
 
 // insert (v, i), which beats the list's last entry, into the sorted list
@@ -466,7 +470,8 @@ __global__ void __launch_bounds__(TC_THREADS) score_partial_mma_kernel(
   }
 
   // the four lanes of a row: (max, sum) by shuffles, lists through shared
-  // memory (the ring is free once every warp is past its last stage)
+  // memory (the ring, which tc_smem_bytes sizes for them, is free once every
+  // warp is past its last stage)
   cp_async_wait<0>();
   __syncthreads();
   float* mv = reinterpret_cast<float*>(ring);              // [BN][4][K]
@@ -527,7 +532,7 @@ cudaError_t mma_opt_in() {
   if (err == cudaSuccess && (dev >= 64 || !opted[dev])) {
     err = cudaFuncSetAttribute(score_partial_mma_kernel<K>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(tc_smem_bytes(TC_MAXD)));
+                               static_cast<int>(tc_smem_bytes(TC_MAXD, K)));
     if (err == cudaSuccess && dev < 64) opted[dev] = true;
   }
   return err;
@@ -547,6 +552,14 @@ int with_k(int k, Fn&& fn) {
     case 6: return fn(std::integral_constant<int, 6>{});
     case 7: return fn(std::integral_constant<int, 7>{});
     case 8: return fn(std::integral_constant<int, 8>{});
+    case 9: return fn(std::integral_constant<int, 9>{});
+    case 10: return fn(std::integral_constant<int, 10>{});
+    case 11: return fn(std::integral_constant<int, 11>{});
+    case 12: return fn(std::integral_constant<int, 12>{});
+    case 13: return fn(std::integral_constant<int, 13>{});
+    case 14: return fn(std::integral_constant<int, 14>{});
+    case 15: return fn(std::integral_constant<int, 15>{});
+    case 16: return fn(std::integral_constant<int, 16>{});
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -558,7 +571,7 @@ int launch_mma(int k, dim3 grid, cudaStream_t s, const bf16* h, const bf16* wv,
     constexpr int K = decltype(kc)::value;
     const cudaError_t err = mma_opt_in<K>();
     if (err != cudaSuccess) return static_cast<int>(err);
-    score_partial_mma_kernel<K><<<grid, TC_THREADS, tc_smem_bytes(D), s>>>(
+    score_partial_mma_kernel<K><<<grid, TC_THREADS, tc_smem_bytes(D, K), s>>>(
         h, wv, bv, N, D, V, chunk_cols, n_chunks, part_v, part_i, part_m, part_s);
     return 0;
   });
@@ -626,7 +639,7 @@ ICEK_EXPORT int score_topk_grid(int bf16, int tc, int k, int D, int* blocks) {
       constexpr int K = decltype(kc)::value;
       const cudaError_t err = mma_opt_in<K>();
       if (err != cudaSuccess) return static_cast<int>(err);
-      return resident_blocks(score_partial_mma_kernel<K>, TC_THREADS, tc_smem_bytes(D),
+      return resident_blocks(score_partial_mma_kernel<K>, TC_THREADS, tc_smem_bytes(D, K),
                              blocks);
     });
   return bf16 ? resident_blocks(score_partial_kernel<__nv_bfloat16>, THREADS, 0, blocks)

@@ -1,11 +1,13 @@
-"""Batched beam search over the extended [V | E] vocabulary (port of
+"""Batched beam search over the extended [V | E | F] vocabulary (port of
 ``icek_tpu/decode/beam.py``, float KV path).
 
 Design kept from the JAX package:
   * hypotheses live on an explicit beam axis K; per-hypothesis state is
     (B, K, ...);
-  * the cross-attention K/V of the memory and the entity table stay at
-    batch B and are shared by the K hypotheses of an image;
+  * the cross-attention K/V of the memory and the entity and fact tables
+    stay at batch B and are shared by the K hypotheses of an image; the
+    seen-entity mask and predicate indicator are per hypothesis and follow
+    the parent like the tokens;
   * self-attention caches are never reordered by parent: each hypothesis
     writes its step-i K/V into its own slot (cache row i*K + k) and an
     (B, K, L) ancestry index records which slot holds each history
@@ -26,8 +28,8 @@ import torch
 
 from icek_torch.core.config import ModelConfig
 from icek_torch.decode import topk
-from icek_torch.decode.greedy import (DecodeContext, _token_kind, pointer_tail,
-                                      resolve_switch, vocab_input)
+from icek_torch.decode.greedy import (DecodeContext, _token_kind, emit_entities,
+                                      pointer_tail, resolve_switch, vocab_input)
 from icek_torch.kernels import copy_scores as cs
 from icek_torch.kernels import decoder_step as dsk
 from icek_torch.models import captioner as cap
@@ -112,18 +114,6 @@ def _beam_decoder_step(layers, x, caches_k, caches_v, anc, i, cross_kvs,
     return x
 
 
-def _embed_tokens_beam(params, vocab_size, pad_id, token, kind, ents):
-    """token/kind: (B, K) -> (B, K, D), gathering entity rows from the
-    shared per-image table (cf. captioner.embed_captions)."""
-    E = ents.shape[1]
-    word_emb = params["word_embedding"][torch.where(token >= vocab_size, pad_id, token)]
-    ent_ids = token - vocab_size
-    ent_ids = torch.where((ent_ids < 0) | (ent_ids >= E), E - 1, ent_ids)
-    ent_emb = torch.gather(ents, 1, ent_ids[..., None].expand(-1, -1, ents.shape[-1]))
-    dt = torch.promote_types(word_emb.dtype, ent_emb.dtype)
-    return torch.where((kind == 1)[..., None], ent_emb.to(dt), word_emb.to(dt))
-
-
 def beam_decode(params, cfg: ModelConfig, vocab_size: int, num_entity_rows: int,
                 start_id: int, end_id: int, pad_id: int, ctx: DecodeContext,
                 max_len: int, beam_size: int = 5, compute_dtype=torch.float32,
@@ -132,10 +122,17 @@ def beam_decode(params, cfg: ModelConfig, vocab_size: int, num_entity_rows: int,
                 use_megakernel: Optional[bool] = None,
                 kv_dtype: Optional[str] = None):
     """Returns (tokens (B, max_len) int64, scores (B,) f32) for the best
-    hypothesis of each image."""
+    hypothesis of each image.
+
+    A kernel whose switch is on runs every step, or the call raises before
+    the first one: the score head takes K <= 16 (``copy_scores.supports``),
+    the decoder step any K (``decoder_step.supports``: the tensor-core route
+    up to K = 16 in bf16, the CUDA-core route otherwise).  Nothing gives way
+    to the plain step or scores; those run only with the switch off.
+    """
     if kv_dtype not in (None, "auto"):
         raise NotImplementedError(f"kv_dtype={kv_dtype!r} is not ported yet")
-    ents = ctx.entities_encoded
+    ents, facts = ctx.entities_encoded, ctx.facts_encoded
     dev = ents.device
     use_fused_scores = resolve_switch(use_fused_scores, dev)
     use_megakernel = resolve_switch(use_megakernel, dev)
@@ -144,14 +141,19 @@ def beam_decode(params, cfg: ModelConfig, vocab_size: int, num_entity_rows: int,
     K = beam_size
     D = cfg.emb_dim
     H = cfg.num_heads
-    S = vocab_size + num_entity_rows
+    S = vocab_size + num_entity_rows + (facts.shape[1] if facts is not None else 0)
     pos_table = torch.as_tensor(tfm.sinusoidal_positions(max_len, D), device=dev)
     sqrt_d = math.sqrt(D)
     long = dict(dtype=torch.int64, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
 
     tokens = torch.full((B, K, max_len), pad_id, **long)
     prev_token = torch.full((B, K), start_id, **long)
     prev_kind = torch.zeros((B, K), **long)
+    seen = pred_ind = None
+    if cfg.has_facts:
+        seen = torch.zeros((B, K, num_entity_rows), **f32)
+        pred_ind = torch.zeros((B, K, cfg.num_predicates), **f32)
     finished = torch.zeros((B, K), dtype=torch.bool, device=dev)
     lengths = torch.zeros((B, K), **long)
     # Only beam 0 is alive at step 0 (all beams start identical).
@@ -160,11 +162,17 @@ def beam_decode(params, cfg: ModelConfig, vocab_size: int, num_entity_rows: int,
     cache_shape = (cfg.num_layers, B, max_len * K, D)
     caches_k = torch.zeros(cache_shape, dtype=compute_dtype, device=dev)
     caches_v = torch.zeros(cache_shape, dtype=compute_dtype, device=dev)
+    if use_fused_scores and not cs.supports(K):
+        raise ValueError(f"beam_decode: the fused score head takes beams of 1 to "
+                         f"{cs.MAX_K}, not {K}")
     if use_megakernel:
+        stacked = dsk.stack_decoder_params(params["decoder"], compute_dtype)
+        if not dsk.supports(stacked, caches_k, K, H):
+            raise ValueError(f"beam_decode: the decoder-step kernel does not take "
+                             f"{compute_dtype} at beam {K}")
         # layouts for the kernel, once per batch: the tensor-core route reads
         # packed weights and head-padded cross K/V, the CUDA-core route the
         # stacked ones
-        stacked = dsk.stack_decoder_params(params["decoder"], compute_dtype)
         cross_k = cross_v = cross_heads = None
         if dsk.uses_tensor_cores(stacked, caches_k, K, H):
             cross_heads = dsk.pad_cross_heads(ctx.cross_kvs, compute_dtype)
@@ -180,8 +188,8 @@ def beam_decode(params, cfg: ModelConfig, vocab_size: int, num_entity_rows: int,
     for i in range(max_len):
         # this step's K/V land in the hypothesis's own slot
         ancestry[:, :, i] = own_slot
-        emb = _embed_tokens_beam(params, vocab_size, pad_id, prev_token,
-                                 prev_kind, ents)
+        emb = cap.embed_captions(params, vocab_size, pad_id, prev_token, prev_kind, ents,
+                                 facts)
         x = emb * sqrt_d + pos_table[i]
         if use_megakernel:
             h, k_new, v_new = dsk.fused_beam_decoder_step(
@@ -195,12 +203,13 @@ def beam_decode(params, cfg: ModelConfig, vocab_size: int, num_entity_rows: int,
             h = _beam_decoder_step(params["decoder"]["layers"], x, caches_k,
                                    caches_v, ancestry, i, ctx.cross_kvs, H,
                                    compute_dtype)
+        fact_before = cap.facts_seen(seen, ctx.fact_features) if cfg.has_facts else None
         if use_fused_scores:
             # fused vocab product + per-hypothesis top-K + logsumexp; the
             # global top-K is then exact over the K*K finalists
-            tail = pointer_tail(params, h, ents, compute_dtype)
+            tail = pointer_tail(params, cfg, h, ents, facts, fact_before, compute_dtype)
             vals, idx, lse = cs.fused_score_topk(
-                vocab_input(h, compute_dtype).reshape(B * K, D),
+                vocab_input(params, cfg, h, pred_ind, compute_dtype).reshape(B * K, D),
                 params["fc_vocab"]["w"],
                 params["fc_vocab"]["b"].to(torch.float32),
                 tail.reshape(B * K, -1), k=K,
@@ -219,7 +228,8 @@ def beam_decode(params, cfg: ModelConfig, vocab_size: int, num_entity_rows: int,
             parent = pos // K
             token = torch.gather(cand_token.reshape(B, K * K), -1, pos)
         else:
-            scores = cap.copy_scores(params, cfg, h, ents, compute_dtype=compute_dtype)
+            scores = cap.copy_scores(params, cfg, h, ents, facts, fact_before, pred_ind,
+                                     compute_dtype=compute_dtype)
             step_logp = torch.log_softmax(scores.to(torch.float32), dim=-1)
             # Finished hypotheses contribute exactly one continuation (<pad>, +0).
             step_logp = torch.where(finished[:, :, None], pad_only[None], step_logp)
@@ -239,8 +249,12 @@ def beam_decode(params, cfg: ModelConfig, vocab_size: int, num_entity_rows: int,
         tokens[:, :, i] = torch.where(emit, token, pad_id)
         lengths = torch.where(emit, len_parent + 1, len_parent)
         finished = fin_parent | (token == end_id)
+        if cfg.has_facts:
+            seen, pred_ind = emit_entities(seen[batch, parent], pred_ind[batch, parent],
+                                           token, emit, vocab_size, ctx)
         prev_token = torch.where(emit, token, pad_id)
-        prev_kind = torch.where(emit, _token_kind(token, vocab_size), 0)
+        prev_kind = torch.where(
+            emit, _token_kind(token, vocab_size, num_entity_rows, cfg.has_facts), 0)
         log_probs = top_vals
         if bool(finished.all()):
             break

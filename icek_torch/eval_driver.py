@@ -4,11 +4,12 @@ serving entry point ``Evaluator.decode_batch``).
 Images are encoded and decoded in large static batches on the device
 (greedy or beam); only detokenization stays on the host.  One batch runs
 the slice's whole path: normalize the raw f16 CHW rows, ResNet-101 (BN
-folded when the compute dtype is not f32), the entity context encoder,
-the precomputed cross K/V, then beam or greedy decode.
+folded when the compute dtype is not f32), the entity (and, for the
+knowledge and news presets, fact) context encoders, the precomputed cross
+K/V, then beam or greedy decode.
 
 Not ported yet: ``Evaluator.run`` (CSV + metrics), the token cache, the
-int8 encoder, meshes, and the knowledge / news presets.
+int8 encoder and meshes.
 """
 
 from __future__ import annotations
@@ -58,9 +59,6 @@ class Evaluator:
         on CPU."""
         if mesh is not None:
             raise NotImplementedError("meshes are not ported yet")
-        if cfg.model.has_facts or cfg.model.entity_name_embedding:
-            raise NotImplementedError(
-                f"preset {cfg.name!r}: only the geo variant is ported")
         if cfg.decode.kv_dtype not in (None, "auto"):
             raise NotImplementedError(f"kv_dtype={cfg.decode.kv_dtype!r} is not ported yet")
         self.cfg = cfg
@@ -94,7 +92,9 @@ class Evaluator:
                                     compute_dtype=self.compute_dtype)
 
     def decode_batch(self, batch: Dict[str, np.ndarray]) -> np.ndarray:
-        """One static-shape batch -> (B, max_len) extended-vocab ids."""
+        """One static-shape batch -> (B, max_len) extended-vocab ids.  The
+        batch holds "raw_images" or "images", "entity_features" and, for the
+        knowledge and news presets, "fact_features" (B, F, 3)."""
         mode, key = next(((m, k) for m, k in _MODES if k in batch), (None, None))
         if mode is None:
             raise NotImplementedError(
@@ -103,10 +103,14 @@ class Evaluator:
         with torch.inference_mode():
             inputs = torch.as_tensor(batch[key], device=self.device)
             ents = torch.as_tensor(batch["entity_features"], device=self.device)
+            facts = batch.get("fact_features")
+            if facts is not None:
+                facts = torch.as_tensor(facts, device=self.device)
             num_entity_rows = ents.shape[1]
             tokens = self._encode_tokens(inputs, mode)
             ctx = greedy_lib.prepare_decode_context(
-                self.params, cfg.model, tokens, ents, compute_dtype=self.compute_dtype)
+                self.params, cfg.model, tokens, ents, facts,
+                compute_dtype=self.compute_dtype)
             if self.beam_size <= 1:
                 out = greedy_lib.greedy_decode(
                     self.params, cfg.model, len(wm), num_entity_rows,

@@ -43,6 +43,15 @@ def reference_score_topk(h, wv, bv, tail, k: int = 5):
     return vals, idx.to(torch.int32), torch.logsumexp(scores, dim=1)
 
 
+MAX_K = 16          # widest top-k the kernels keep (their lists live in registers)
+
+
+def supports(k: int) -> bool:
+    """Whether ``fused_score_topk`` takes a top-k of width `k`: 1 to
+    ``MAX_K``.  A call outside it raises, on the CPU too."""
+    return 1 <= k <= MAX_K
+
+
 def uses_tensor_cores(h, wv) -> bool:
     """Whether contiguous (h, wv) go to the tensor-core kernel: bfloat16, D a
     multiple of 4 and at most 512, V a multiple of 8, h on an 8-byte and wv
@@ -89,8 +98,8 @@ def fused_score_topk(h, wv, bv, tail, k: int = 5):
         raise ValueError(f"fused_score_topk: h {tuple(h.shape)} wv "
                          f"{tuple(wv.shape)} bv {tuple(bv.shape)} tail "
                          f"{tuple(tail.shape)} do not agree")
-    if not 1 <= k <= 8:
-        raise ValueError(f"fused_score_topk: k={k} outside [1, 8]")
+    if not supports(k):
+        raise ValueError(f"fused_score_topk: k={k} outside [1, {MAX_K}]")
     if h.device.type == "cpu":
         return reference_score_topk(h, wv, bv, tail, k)
     _build.require_cuda("fused_score_topk", h, wv, dtype=h.dtype)

@@ -180,6 +180,14 @@ def uses_tensor_cores(stacked: StackedDecoder, caches_k, K: int, num_heads: int)
     return mma_smem_bytes(D, H, F, LK // K) <= MAX_SMEM
 
 
+def supports(stacked: StackedDecoder, caches_k, K: int, num_heads: int) -> bool:
+    """Whether a CUDA call with these weights, caches and beam width is
+    accepted: the tensor-core route (``uses_tensor_cores``), or float32 /
+    bfloat16 of any width on the CUDA-core route, whose blocks take up to 8
+    hypotheses of an image each.  A call outside it raises."""
+    return caches_k.dtype in _SUFFIX and K >= 1
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -256,9 +264,9 @@ def fused_beam_decoder_step(stacked: StackedDecoder, x, ancestry, caches_k,
         return reference_decoder_step(stacked, x, ancestry, caches_k, caches_v,
                                       cross_k, cross_v, i, num_heads=H)
     dt = caches_k.dtype
-    tc = uses_tensor_cores(stacked, caches_k, K, H)
-    if dt not in _SUFFIX or not (tc or 1 <= K <= 8):
+    if not supports(stacked, caches_k, K, H):
         raise ValueError(f"fused_beam_decoder_step: dtype {dt}, K={K} unsupported")
+    tc = uses_tensor_cores(stacked, caches_k, K, H)
     if tc:
         if cross_heads is None:
             cross_heads = pad_cross_heads(

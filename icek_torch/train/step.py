@@ -198,7 +198,8 @@ def make_train_step(
 
     The batch carries precomputed image tokens (B, 196, D) under
     "image_tokens" (``encode_images=False``), "caption_ids" / "caption_mask"
-    (B, T), "lengths" (B,) and "entity_features"; numpy arrays or tensors,
+    (B, T), "lengths" (B,), "entity_features" and, for the knowledge and
+    news presets, "fact_features" (B, F, 3); numpy arrays or tensors,
     moved to `device` by the step.  `params` must already live there (see
     ``bridge.trainable``).
 
@@ -240,7 +241,8 @@ def make_train_step(
         scores = cap.captioner_forward(
             params, mcfg, vocab_size, pad_id, batch["caption_ids"],
             batch["caption_mask"], batch["image_tokens"].to(compute_dtype),
-            batch["entity_features"], gen=gen, deterministic=deterministic,
+            batch["entity_features"], batch.get("fact_features"), gen=gen,
+            deterministic=deterministic,
             compute_dtype=compute_dtype,
             # the (B, T, V+E) scores stay in the compute dtype through the
             # loss; _token_nll reads and writes them with f32 accumulation

@@ -110,3 +110,112 @@ def test_port_presets_match_jax(preset):
     assert {k: jdata[k] for k in tdata} == tdata
     assert t.model.has_facts == j.model.has_facts
     assert t.model.type_emb_dim == j.model.type_emb_dim
+
+
+# ---------------------------------------------------------------------------
+# the knowledge and news presets at small widths
+# ---------------------------------------------------------------------------
+
+FACT_PRESETS = {"knowledge": "k_georic", "news": "nytimes800k"}
+
+
+def fact_cfgs(variant, emb_dim=24, num_heads=2, ffn=32, layers=2, type_vocab=20,
+              num_predicates=12, max_len=8):
+    """(jax Config, port Config) for a small knowledge or news model."""
+    from icek_tpu.core import config as jcfg
+
+    kw = dict(emb_dim=emb_dim, num_heads=num_heads, decoder_ffn_dim=ffn,
+              encoder_ffn_dim=ffn, num_layers=layers, type_vocab=type_vocab,
+              num_predicates=num_predicates, dropout_dec=0.0, dropout_enc=0.0,
+              dropout_pos=0.0)
+    out = []
+    for mod in (jcfg, tcfg):
+        base = mod.get_config(FACT_PRESETS[variant])
+        out.append(base.replace(
+            model=dataclasses.replace(base.model, **kw),
+            decode=dataclasses.replace(base.decode, max_caption_len=max_len),
+        ))
+    return tuple(out)
+
+
+def fact_entity_rows(rng, variant, B, E, type_vocab, vocab):
+    """Packed entity rows: knowledge (B, E, 5) [row_idx, dist, az, size,
+    type]; news (B, E, 10) [row_idx, count, in_headline, in_first_par, type,
+    five name word ids]."""
+    if variant == "knowledge":
+        return entity_rows(rng, B, E, type_vocab)
+    ents = np.zeros((B, E, 10), np.float32)
+    ents[:, :, 0] = np.arange(E)
+    ents[:, :, 1] = rng.integers(0, 6, (B, E))
+    ents[:, :, 2:4] = rng.integers(0, 2, (B, E, 2))
+    ents[:, :, 4] = rng.integers(0, type_vocab, (B, E))
+    ents[:, :, 5:] = rng.integers(0, vocab, (B, E, 5))
+    return ents
+
+
+def fact_rows(rng, B, E, F, P):
+    """(B, F, 3) fact rows [row_idx, subject row, predicate]: subjects drawn
+    from the real entity rows (some repeat), the last two rows padding facts
+    on the <unk_ent> dummy row E - 1 with predicate 0, as prep stores them."""
+    facts = np.zeros((B, F, 3), np.float32)
+    facts[:, :, 0] = np.arange(F)
+    facts[:, :, 1] = rng.integers(0, E - 1, (B, F))
+    facts[:, :, 2] = rng.integers(0, P, (B, F))
+    facts[:, -2:, 1] = E - 1
+    facts[:, -2:, 2] = 0
+    return facts
+
+
+FACT_DECODE_CASES = {
+    # name: (variant, V, E, F, B, image tokens, max_len, entity-head gain)
+    "knowledge": ("knowledge", 40, 6, 5, 3, 8, 9, 6.0),
+    "news": ("news", 40, 6, 7, 3, 8, 9, 6.0),
+}
+
+
+def fact_decode_contexts(case, seed):
+    """The same decode inputs for both packages, with facts: configs, params,
+    prepared decode contexts and special ids of FACT_DECODE_CASES[case]."""
+    import jax.numpy as jnp
+    from icek_torch.decode import greedy as tgreedy
+    from icek_tpu.decode import greedy as jgreedy
+
+    variant, V, E, F, B, M, L, gain = FACT_DECODE_CASES[case]
+    jc, tc = fact_cfgs(variant, max_len=L)
+    tree = jax_params_numpy(jc.model, V, seed)
+    # stronger pointer heads, so entity and fact ids (>= V) get emitted, and
+    # a predicate-head bias, so the vocab logits are not all 0 before the
+    # first predicate is active (its init bias is 0)
+    tree["fc_entity"]["w"] = tree["fc_entity"]["w"] * gain
+    tree["fc_fact"]["w"] = tree["fc_fact"]["w"] * gain
+    brng = np.random.default_rng(seed + 100)
+    tree["fc_predicate"]["b"] = brng.standard_normal(jc.model.emb_dim).astype(np.float32)
+    tree["fc_fact"]["b"] = tree["fc_fact"]["b"] + 0.5
+    jp = jax.tree.map(jnp.asarray, tree)
+    tp = bridge.from_jax_params(tree, tc.model, V)
+    rng = np.random.default_rng(seed)
+    ents = fact_entity_rows(rng, variant, B, E, jc.model.type_vocab, V)
+    facts = fact_rows(rng, B, E, F, jc.model.num_predicates)
+    tokens = rng.standard_normal((B, M, jc.model.emb_dim)).astype(np.float32)
+    jctx = jgreedy.prepare_decode_context(jp, jc.model, jnp.asarray(tokens),
+                                          jnp.asarray(ents), jnp.asarray(facts))
+    tctx = tgreedy.prepare_decode_context(tp, tc.model, torch.as_tensor(tokens),
+                                          torch.as_tensor(ents), torch.as_tensor(facts))
+    ids = (V, E, V - 2, V - 1, 0)   # vocab, entity rows, start, end, pad
+    return jc, tc, jp, tp, jctx, tctx, ids, L
+
+
+def spy_kernel_calls(monkeypatch):
+    """Count the beam loop's calls of the two kernel wrappers (on the CPU
+    they run their plain versions and count no launch): a dict that the
+    wrapped wrappers update in place."""
+    from icek_torch.kernels import copy_scores, decoder_step
+
+    calls = {"fused_score_topk": 0, "fused_beam_decoder_step": 0}
+    for mod, name in ((copy_scores, "fused_score_topk"),
+                      (decoder_step, "fused_beam_decoder_step")):
+        def spy(*a, _fn=getattr(mod, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(mod, name, spy)
+    return calls

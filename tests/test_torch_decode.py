@@ -17,7 +17,7 @@ from icek_torch.decode import beam as tbeam
 from icek_torch.decode import topk as ttopk
 from icek_tpu.decode import beam as jbeam
 from icek_tpu.decode import topk as jtopk
-from test_torch_common import DECODE_CASES, decode_contexts
+from test_torch_common import DECODE_CASES, decode_contexts, spy_kernel_calls
 
 
 @pytest.mark.parametrize("k", [1, 3, 6])
@@ -64,11 +64,83 @@ def test_beam_kernel_paths_agree_in_port():
 
 
 def test_unported_cases_raise():
-    from icek_torch.core import config as tcfg
-    from icek_torch.models import captioner as tcap
+    import dataclasses
+
+    from icek_torch import eval_driver as tev
 
     _, tc, _, tp, _, tctx, ids, L = decode_contexts("tiny", seed=0)
     with pytest.raises(NotImplementedError):
         tbeam.beam_decode(tp, tc.model, *ids, tctx, L, kv_dtype="int8")
+    int8 = tc.replace(decode=dataclasses.replace(tc.decode, kv_dtype="int8"))
     with pytest.raises(NotImplementedError):
-        tcap.init_captioner_params(torch.Generator(), tcfg.k_georic().model, 10)
+        tev.Evaluator(int8, None, {}, {}, device="cpu")
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_beam_width_9_runs_through_the_kernels(case, monkeypatch):
+    """Beam 9 (wider than the CUDA-core decoder step's 8 rows a block) with
+    both kernel switches on: every step calls the score head and the decoder
+    step, and gives the tokens of the run with both off and of JAX."""
+    jc, tc, jp, tp, jctx, tctx, ids, L = decode_contexts(case, seed=4)
+    calls = spy_kernel_calls(monkeypatch)
+    got_t, got_s = tbeam.beam_decode(tp, tc.model, *ids, tctx, L, beam_size=9,
+                                     use_megakernel=True, use_fused_scores=True)
+    assert calls["fused_score_topk"] == calls["fused_beam_decoder_step"] > 0
+    off_t, off_s = tbeam.beam_decode(tp, tc.model, *ids, tctx, L, beam_size=9,
+                                     use_megakernel=False, use_fused_scores=False)
+    assert calls["fused_score_topk"] == calls["fused_beam_decoder_step"]
+    want_t, want_s = jbeam.beam_decode(jp, jc.model, *ids, jctx, L, beam_size=9)
+    np.testing.assert_array_equal(got_t.numpy(), off_t.numpy())
+    np.testing.assert_array_equal(got_t.numpy(), np.asarray(want_t))
+    np.testing.assert_allclose(got_s.numpy(), off_s.numpy(), atol=1e-5)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=1e-4)
+
+
+def test_beam_wider_than_the_score_head_raises():
+    """Beam 17 with the fused scores on raises before the first step; with
+    them off it decodes."""
+    _, tc, _, tp, _, tctx, ids, L = decode_contexts("tiny", seed=0)
+    with pytest.raises(ValueError, match="1 to 16, not 17"):
+        tbeam.beam_decode(tp, tc.model, *ids, tctx, L, beam_size=17, use_fused_scores=True)
+    tokens, _ = tbeam.beam_decode(tp, tc.model, *ids, tctx, L, beam_size=17,
+                                  use_megakernel=True, use_fused_scores=False)
+    assert tokens.shape == (tctx.entities_encoded.shape[0], L)
+
+
+def test_score_head_route_predicate():
+    """copy_scores.supports: widths 1 to 16; the kernel refuses any other k,
+    on the CPU too."""
+    from icek_torch.kernels import copy_scores as tcs
+
+    assert [tcs.supports(k) for k in (0, 1, 2, 5, 8, 9, 10, 16, 17)] == [
+        False] + [True] * 7 + [False]
+    args = (torch.zeros(4, 8), torch.zeros(8, 16), torch.zeros(16), torch.zeros(4, 3))
+    tcs.fused_score_topk(*args, k=16)
+    with pytest.raises(ValueError, match="k=17"):
+        tcs.fused_score_topk(*args, k=17)
+
+
+def test_decoder_step_route_predicate_on_widths():
+    """decoder_step.supports: the tensor-core route (bf16 with packed weights,
+    K <= 16) or the CUDA-core route (f32 or bf16, any K); no other dtype."""
+    from icek_torch.kernels import decoder_step as tds
+    from icek_torch.models import transformer as tfm
+
+    dec = tfm.init_decoder_stack(torch.Generator().manual_seed(0), 2, 40, 64)
+    f32, bf16 = (tds.stack_decoder_params(dec, dt) for dt in (torch.float32, torch.bfloat16))
+
+    def caches(dt, K):
+        return torch.zeros((2, 1, 4 * K, 40), dtype=dt)
+
+    def ok(st, dt, K, H=4):
+        return tds.supports(st, caches(dt, K), K, H)
+
+    assert [ok(f32, torch.float32, K) for K in (0, 1, 5, 8, 9, 10, 17)] == [False] + [True] * 6
+    assert [ok(bf16, torch.bfloat16, K) for K in (1, 9, 10, 16, 17)] == [True] * 5
+    wide = [tds.uses_tensor_cores(bf16, caches(torch.bfloat16, K), K, 4) for K in (10, 16, 17)]
+    assert wide == [True, True, False]                # K 17: the CUDA-core route
+    unpacked = bf16._replace(mma=None)
+    assert [ok(unpacked, torch.bfloat16, K) for K in (8, 9)] == [True, True]
+    assert not tds.uses_tensor_cores(bf16, caches(torch.bfloat16, 9), 9, 12)   # 12 heads
+    assert ok(bf16, torch.bfloat16, 9, H=12)          # ... take the CUDA-core route
+    assert not ok(f32, torch.float16, 5)

@@ -64,7 +64,10 @@ def test_flash_kernel_matches_plain(cuda, dtype, tol, causal, tq, tk, h, hd, kv_
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,v,t,k", [(16, 1000, 37, 2), (16, 1537, 37, 5),
-                                     (1280, 10000, 301, 5), (256, 10000, 301, 2)])
+                                     (1280, 10000, 301, 5), (256, 10000, 301, 2),
+                                     # knowledge and news: tails [E | F] of 352 and 402
+                                     (1280, 10000, 352, 5), (256, 10000, 352, 2),
+                                     (1280, 10000, 402, 5), (256, 10000, 402, 2)])
 def test_score_kernel_matches_plain(cuda, dtype, n, v, t, k):
     g = _gen(1)
     h = torch.randn((n, 300), generator=g).to(cuda, dtype)
@@ -123,7 +126,7 @@ def test_score_kernel_edges(cuda, dtype, n, v, t):
     torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("k", [1, 2, 5, 8])
+@pytest.mark.parametrize("k", [1, 2, 5, 8, 10, 16])
 def test_score_kernel_bf16_offset_h_takes_cuda_core_path(cuda, k):
     """A bf16 h that starts one element into its buffer cannot be staged 8
     bytes a copy: it runs the CUDA-core kernel and agrees with the aligned
@@ -139,6 +142,34 @@ def test_score_kernel_bf16_offset_h_takes_cuda_core_path(cuda, k):
         torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
         torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
         torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,t,k", [(1, 37, 9), (65, 301, 10), (320, 301, 10), (2560, 301, 10),
+                                   (2560, 402, 10), (77, 352, 13), (130, 301, 14),
+                                   (4096, 301, 16), (256, 1, 16)])
+def test_score_kernel_wide_k(cuda, dtype, n, t, k):
+    """Top-k of 9 to 16 (beams wider than 8): the tensor-core kernel's lists
+    at K 13 and 14 (where they outgrow its ring at the chunk's end) and 16,
+    the CUDA-core kernel's in f32; a tail of 1 and k > t.  Values and lse
+    within 1e-4 of the plain version; each returned index is distinct and
+    its plain score is its value within 1e-4, so where an index differs
+    from the plain version's, the two entries tie within 1e-4 (at 4096 rows
+    x 16 the kernel's and torch's summation orders swap such near-ties:
+    2 of 65536 entries on the card)."""
+    h, wv, bv, tail = _score_inputs(cuda, dtype, n, 10000, t, seed=k)
+    before = tcs.fused_score_topk.launches
+    vals, idx, lse = tcs.fused_score_topk(h, wv, bv, tail, k=k)
+    torch.cuda.synchronize()
+    assert tcs.fused_score_topk.launches == before + 1
+    want = tcs.reference_score_topk(h, wv, bv, tail, k=k)
+    torch.testing.assert_close(vals, want[0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(lse, want[2], rtol=0, atol=1e-4)
+    scores = torch.cat([h.float() @ wv.float() + bv, tail], dim=1)
+    torch.testing.assert_close(torch.gather(scores, 1, idx.long()), vals, rtol=0, atol=1e-4)
+    assert (idx.sort(dim=1).values.diff(dim=1) != 0).all()
+    differ = idx != want[1]
+    assert int(differ.sum()) <= 4 * n * k // 65536 + 2, int(differ.sum())
 
 
 def _decoder_inputs(cuda, dtype, B=4, K=5, L=8, M=37, D=60, H=6, F=48, i=5):
@@ -181,6 +212,24 @@ def _tree_to(tree, device, dtype):
 def test_decoder_step_kernel_matches_plain(cuda, dtype, tol, step):
     stacked, x, anc, ck, cv, xk, xv, _, H = _decoder_inputs(cuda, dtype, i=step)
     got = tds.fused_beam_decoder_step(stacked, x, anc, ck, cv, xk, xv, step, num_heads=H)
+    want = tds.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv, step, num_heads=H)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.15)])
+@pytest.mark.parametrize("K", [9, 10, 16, 17, 23])
+def test_decoder_step_cuda_cores_wide_beams(cuda, dtype, tol, K):
+    """The CUDA-core route at beams wider than its 8 rows a block: two or
+    three blocks an image (the last ragged), each with its own ancestry rows
+    into caches of the beam's full width; bf16 weights without the packed
+    copy take this route too."""
+    stacked, x, anc, ck, cv, xk, xv, step, H = _decoder_inputs(cuda, dtype, B=3, K=K, i=4)
+    stacked = stacked._replace(mma=None)
+    assert not tds.uses_tensor_cores(stacked, ck, K, H) and tds.supports(stacked, ck, K, H)
+    n = tds.fused_beam_decoder_step.routes["cuda_cores"].launches
+    got = tds.fused_beam_decoder_step(stacked, x, anc, ck, cv, xk, xv, step, num_heads=H)
+    assert tds.fused_beam_decoder_step.routes["cuda_cores"].launches == n + 1
     want = tds.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv, step, num_heads=H)
     for a, b in zip(got, want):
         torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=tol)
@@ -273,8 +322,8 @@ def test_decoder_step_route_predicate(cuda):
     """The wrapper's shared-memory layout is the kernel's; f32 takes the
     CUDA-core route; bf16 at the beam shape the tensor-core one; bf16 the
     tensor-core route refuses (weights without the packed copy, 12 heads)
-    takes the CUDA-core route, still within 0.15 of the plain version; K = 17
-    neither route holds raises."""
+    takes the CUDA-core route, still within 0.15 of the plain version, and
+    so does K = 17, wider than the tensor-core tile; float16 caches raise."""
     import ctypes
 
     from icek_torch.kernels import _build
@@ -313,8 +362,16 @@ def test_decoder_step_route_predicate(cuda):
     tds.fused_beam_decoder_step(st32, x, anc, *args, 3, num_heads=H)
     assert launches() == (n[0], n[1] + 1)
     big = _geo_step_inputs(cuda, 1, 17, 3, L=4)
+    assert not tds.uses_tensor_cores(big[0], big[3], 17, H)
+    n = launches()
+    got = tds.fused_beam_decoder_step(big[0], *big[1:7], 3, num_heads=H)
+    assert launches() == (n[0], n[1] + 1)
+    want = tds.reference_decoder_step(big[0], *big[1:7], 3, num_heads=H)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=0.15)
+    half = [t.half() for t in big[3:7]]
     with pytest.raises(ValueError):
-        tds.fused_beam_decoder_step(big[0], *big[1:7], 3, num_heads=H)
+        tds.fused_beam_decoder_step(big[0], *big[1:3], *half, 3, num_heads=H)
 
 
 def test_beam_decode_bf16_takes_the_tensor_core_route(cuda):
@@ -434,7 +491,8 @@ def test_keep_masks_rate_and_seed(cuda, rate):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("rate", [0.0, 0.2])
-@pytest.mark.parametrize("n,d", [(530, 36), (64, 300), (77, 511), (9, 1024)])
+@pytest.mark.parametrize("n,d", [(530, 36), (64, 300), (77, 511), (9, 1024),
+                                 (26112, 300), (13312, 300)])   # knowledge / news B x T
 def test_dropout_add_ln_kernel_matches_plain(cuda, dtype, tol, rate, n, d):
     """Forward and all four gradients against the plain version under the
     kernel's own mask.  f32: 1e-4 on values of order 1 (dscale / dbias: 1e-4
@@ -499,7 +557,8 @@ def test_dropout_add_ln_backward_is_bit_identical_between_launches(cuda, dtype, 
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,d", [(300, 512), (33, 37), (5, 2050)])
+@pytest.mark.parametrize("n,d", [(300, 512), (33, 37), (5, 2050), (26112, 512),
+                                 (13312, 512)])
 def test_hw_dropout_kernel_matches_plain(cuda, dtype, n, d):
     from icek_torch.kernels import fused_norm as tfn
 
@@ -528,7 +587,12 @@ def test_hw_dropout_kernel_matches_plain(cuda, dtype, n, d):
     (False, 1, 1, 2, 1, 30), (False, 15, 17, 3, 17, 30), (True, 16, 16, 2, 16, 30),
     (False, 65, 129, 3, 129, 30), (True, 65, 129, 3, 100, 30), (False, 301, 497, 2, 497, 30),
     (False, 33, 200, 2, 65, 30), (True, 129, 65, 2, 40, 30),
-    (False, 40, 70, 3, 70, 8), (True, 40, 70, 3, 50, 16), (False, 40, 70, 3, 70, 32)])
+    (False, 40, 70, 3, 70, 8), (True, 40, 70, 3, 50, 16), (False, 40, 70, 3, 70, 32),
+    # the knowledge / news sites: fact encoders (51 is less than one 64-row
+    # tile), entity encoder 101, decoder self 102 / 52 causal, cross 548 / 598
+    (False, 51, 51, 10, 51, 30), (False, 101, 101, 10, 101, 30),
+    (True, 102, 102, 10, 102, 30), (False, 102, 548, 10, 548, 30),
+    (True, 52, 52, 10, 52, 30), (False, 52, 598, 10, 598, 30)])
 def test_flash_backward_kernel_matches_plain(cuda, dtype, tol, rate, causal, tq, tk,
                                              h, kv_len, hd):
     """Forward with dropout and dq / dk / dv against the plain version under
@@ -723,3 +787,222 @@ def test_train_step_with_dropout_launches_every_kernel(cuda):
     assert [f.launches - b for f, b in zip(fns, before)] == [
         3 * L, 3 * L, 5 * L, 5 * L, 4 * L]
     assert torch.isfinite(evaluate(params, None, batch)[0])
+
+
+# ---------------------------------------------------------------------------
+# the knowledge and news presets, and beam widths above 8
+# ---------------------------------------------------------------------------
+
+def test_score_kernel_with_predicate_modulated_h(cuda):
+    """The fact presets' vocab input: h times a per-row projection of a sparse
+    0/1 predicate indicator (P 3000), tail 352, at the beam shape."""
+    g = _gen(12)
+    ind = (torch.rand((1280, 3000), generator=g) < 0.01).float()
+    proj = ind @ ((torch.rand((3000, 300), generator=g) * 2 - 1) * 0.1) + torch.randn(300,
+                                                                                    generator=g)
+    for dtype in (torch.float32, torch.bfloat16):
+        h, wv, bv, tail = _score_inputs(cuda, dtype, 1280, 10000, 352)
+        h = (h.float() * proj.to(cuda)).to(dtype)
+        got = tcs.fused_score_topk(h, wv, bv, tail, k=5)
+        want = tcs.reference_score_topk(h, wv, bv, tail, k=5)
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
+        torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-4)
+
+
+def test_decoder_step_tensor_cores_hold_40_steps(cuda):
+    """The fact presets decode 40 steps: the tensor-core block's shared memory
+    grows by 4 * 16 * L bytes and must stay within the card's at the preset
+    widths (D 300, H 10, F 512)."""
+    assert tds.mma_smem_bytes(300, 10, 512, 40) <= tds.MAX_SMEM
+    stacked, x, anc, ck, cv, xk, xv, H = _geo_step_inputs(cuda, 2, 5, 0, M=548, L=40)
+    assert tds.uses_tensor_cores(stacked, ck, 5, H) and tds.supports(stacked, ck, 5, H)
+
+
+@pytest.mark.parametrize("K", [8, 10])
+@pytest.mark.parametrize("M", [497, 548, 598])
+def test_decoder_step_cuda_cores_fit_large_memories(cuda, M, K):
+    """f32 at the presets' widths, L 40: at M 598 eight hypotheses of an image
+    outgrow a block's shared memory, so a block takes fewer (7) and an image
+    spreads over two blocks; against the plain version at 1e-4."""
+    stacked, x, anc, ck, cv, xk, xv, H = _geo_step_inputs(cuda, 2, K, 20, M=M, L=40)
+    f32 = lambda t: t.float().contiguous()
+    st32 = tds.stack_decoder_params({"layers": [_tree_to(lay, cuda, torch.float32)
+                                                for lay in stacked.layers]})
+    args = [f32(t) for t in (ck, cv, xk, xv)]
+    got = tds.fused_beam_decoder_step(st32, x, anc, *args, 20, num_heads=H)
+    want = tds.reference_decoder_step(st32, x, anc, *args, 20, num_heads=H)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("step", [0, 20, 39])
+@pytest.mark.parametrize("M", [548, 598])
+def test_decoder_step_at_fact_preset_shapes(cuda, M, step):
+    """L 40 with memories of 548 (knowledge) and 598 (news) rows, neither a
+    multiple of the 32-row cross tile: the tensor-core route at 0.15 and the
+    f32 CUDA-core route at 1e-4 against the plain version, ancestry rows of
+    40, first, middle and last step."""
+    stacked, x, anc, ck, cv, xk, xv, H = _geo_step_inputs(cuda, 3, 5, step, M=M, L=40)
+    assert tds.uses_tensor_cores(stacked, ck, 5, H)
+    got = tds.fused_beam_decoder_step(stacked, x, anc, ck, cv, xk, xv, step, num_heads=H)
+    want = tds.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv, step, num_heads=H)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=0.15)
+    f32 = lambda t: t.float().contiguous()
+    st32 = tds.stack_decoder_params({"layers": [_tree_to(lay, cuda, torch.float32)
+                                                for lay in stacked.layers]})
+    args = [f32(t) for t in (ck, cv, xk, xv)]
+    n = tds.fused_beam_decoder_step.routes["cuda_cores"].launches
+    got = tds.fused_beam_decoder_step(st32, x, anc, *args, step, num_heads=H)
+    assert tds.fused_beam_decoder_step.routes["cuda_cores"].launches == n + 1
+    want = tds.reference_decoder_step(st32, x, anc, *args, step, num_heads=H)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=1e-4)
+
+
+def _small_model(cuda, preset, seed, **model_kw):
+    """(cfg, params on the card, entity rows, fact rows or None, image
+    tokens) of a small model of `preset` (d 40, 4 heads, 2 layers, V 60,
+    E 9, F 7, P 12)."""
+    from icek_torch.core import config as cfgs
+    from icek_torch.models import captioner
+
+    base = cfgs.get_config(preset)
+    cfg = base.replace(model=dataclasses.replace(
+        base.model, emb_dim=40, num_heads=4, decoder_ffn_dim=64, encoder_ffn_dim=64,
+        num_layers=2, type_vocab=20, num_predicates=12 if base.model.has_facts else 0,
+        **model_kw))
+    V, E, F, B = 60, 9, 7, 3
+    g = _gen(seed)
+    params = captioner.init_captioner_params(g, cfg.model, V)
+    if cfg.model.has_facts:
+        params["fc_predicate"]["b"] = torch.randn(40, generator=g)
+    cols = 10 if preset == "nytimes800k" else 5
+    ents = torch.zeros((B, E, cols))
+    ents[:, :, 0] = torch.arange(E)
+    ents[:, :, 1:4] = torch.rand((B, E, 3), generator=g)
+    ents[:, :, 4] = torch.randint(0, 20, (B, E), generator=g)
+    if cols == 10:
+        ents[:, :, 5:] = torch.randint(0, V, (B, E, 5), generator=g)
+    facts = None
+    if cfg.model.has_facts:
+        facts = torch.zeros((B, F, 3))
+        facts[:, :, 0] = torch.arange(F)
+        facts[:, :, 1] = torch.randint(0, E - 1, (B, F), generator=g)
+        facts[:, :, 2] = torch.randint(0, 12, (B, F), generator=g)
+        facts[:, -2:, 1], facts[:, -2:, 2] = E - 1, 0
+        facts = facts.to(cuda)
+    tokens = torch.randn((B, 12, 40), generator=g).to(cuda)
+    return cfg, _tree_to(params, cuda, torch.float32), ents.to(cuda), facts, tokens
+
+
+@pytest.mark.parametrize("preset", ["k_georic", "nytimes800k"])
+def test_beam_decode_with_facts_kernels_match_stock_on_card(cuda, preset):
+    """Small f32 knowledge / news beam-5 and greedy decodes on the card: the
+    kernel paths (the [entity | fact] tail and the predicate-modulated vocab
+    input into the score head, the decoder step) give the stock path's
+    tokens, and every kernel launched."""
+    from icek_torch.decode import beam, greedy
+
+    cfg, params, ents, facts, tokens = _small_model(cuda, preset, 13)
+    V, E = 60, ents.shape[1]
+    counts = (tfa.flash_mha.launches, tcs.fused_score_topk.launches,
+              tds.fused_beam_decoder_step.launches)
+    ctx = greedy.prepare_decode_context(params, cfg.model, tokens, ents, facts)
+    args = (params, cfg.model, V, E, V - 2, V - 1, 0, ctx, 10)
+    got = beam.beam_decode(*args, beam_size=5)
+    want = beam.beam_decode(*args, beam_size=5, use_megakernel=False, use_fused_scores=False)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-4)
+    got = greedy.greedy_decode(*args)
+    want = greedy.greedy_decode(*args, use_fused_scores=False)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    after = (tfa.flash_mha.launches, tcs.fused_score_topk.launches,
+             tds.fused_beam_decoder_step.launches)
+    assert after[0] == counts[0] + 2 * cfg.model.num_layers   # entity and fact encoders
+    assert after[1] > counts[1] and after[2] > counts[2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_beam_width_10_against_the_plain_path_on_card(cuda, dtype):
+    """Beam 10 with the kernel switches on (the defaults) runs the kernels at
+    every step: the score head at k 10, the decoder step on its tensor-core
+    route in bf16 (K <= 16) and its CUDA-core route in f32 (two blocks an
+    image).  f32 tokens equal the plain path's; bf16 best-hypothesis scores
+    within 5e-2."""
+    from icek_torch.decode import beam, greedy
+
+    cfg, params, ents, _, tokens = _small_model(cuda, "georic", 14)
+    V, E, L = 60, ents.shape[1], 10
+    params["fc_vocab"]["b"][V - 1] = -1e4        # no <end>: every step runs
+    ctx = greedy.prepare_decode_context(params, cfg.model, tokens, ents, compute_dtype=dtype)
+    args = (params, cfg.model, V, E, V - 2, V - 1, 0, ctx, L)
+    routes = tds.fused_beam_decoder_step.routes
+    before = (routes["tensor_cores"].launches, routes["cuda_cores"].launches,
+              tcs.fused_score_topk.launches)
+    got = beam.beam_decode(*args, beam_size=10, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    tc = dtype == torch.bfloat16
+    assert routes["tensor_cores"].launches - before[0] == (L if tc else 0)
+    assert routes["cuda_cores"].launches - before[1] == (0 if tc else L)
+    assert tcs.fused_score_topk.launches - before[2] == L
+    want = beam.beam_decode(*args, beam_size=10, compute_dtype=dtype, use_megakernel=False,
+                            use_fused_scores=False)
+    if tc:
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=5e-2)
+    else:
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("preset", ["k_georic", "nytimes800k"])
+def test_train_step_with_facts_on_card_matches_cpu(cuda, preset):
+    """A small f32 knowledge / news step with dropout 0 on the card (every
+    kernel on) against the same step on the CPU: loss and Adam's first
+    moments within 1e-4 relative to the largest value; then one bf16 step
+    with dropout launches 3 + 3 encoder and 2 x 2 decoder attentions each
+    way."""
+    import copy
+
+    from icek_torch import bridge
+    from icek_torch.kernels import fused_norm as tfn
+    from icek_torch.train import step as tstep
+
+    cfg, params, ents, facts, tokens = _small_model(
+        cuda, preset, 15, dropout_enc=0.0, dropout_dec=0.0, dropout_pos=0.0)
+    V, E, F, T = 60, ents.shape[1], facts.shape[1], 7
+    g = _gen(16)
+    caps = torch.randint(1, V + E + F, (3, T), generator=g)
+    mask = torch.where(caps >= V + E, 2, (caps >= V).long())
+    batch = {"caption_ids": caps, "caption_mask": mask, "lengths": torch.tensor([7, 5, 3]),
+             "entity_features": ents.cpu(), "fact_features": facts.cpu(),
+             "image_tokens": tokens.cpu()}
+    res = {}
+    for dev in ("cpu", cuda):
+        p = bridge.trainable(copy.deepcopy(_tree_to(params, "cpu", torch.float32)), dev)
+        opt = tstep.make_optimizer(1e-3)
+        state = opt.init(p)
+        train, _ = tstep.make_train_step(cfg, V, 0, opt, encode_images=False, device=dev)
+        _, _, loss, count = train(p, state, None, batch, torch.Generator().manual_seed(0))
+        mu, _ = state.moments(p)
+        res[str(dev)] = (float(loss), int(count), [m.cpu() for m in tstep.tree_leaves(mu)])
+    (l0, n0, m0), (l1, n1, m1) = res["cpu"], res[str(cuda)]
+    assert n0 == n1 and abs(l0 - l1) <= 1e-4 * abs(l0)
+    for a, b in zip(m0, m1):
+        assert float((a - b).abs().max()) <= 1e-4 * max(float(a.abs().max()), 1e-3)
+
+    drop = cfg.replace(model=dataclasses.replace(cfg.model, dropout_enc=0.2, dropout_dec=0.2,
+                                                 dropout_pos=0.1))
+    p = bridge.trainable(copy.deepcopy(_tree_to(params, "cpu", torch.float32)), cuda)
+    opt = tstep.make_optimizer(1e-3)
+    train, _ = tstep.make_train_step(drop, V, 0, opt, torch.bfloat16, encode_images=False,
+                                     device=cuda)
+    fns = (tfa.flash_mha, tfa.flash_mha_bwd, tfn.dropout_add_ln, tfn.dropout_add_ln_bwd,
+           tfn.hw_dropout)
+    before = [f.launches for f in fns]
+    _, _, loss, _ = train(p, opt.init(p), None, batch, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    L = cfg.model.num_layers
+    assert [f.launches - b for f, b in zip(fns, before)] == [4 * L, 4 * L, 7 * L, 7 * L, 6 * L]
