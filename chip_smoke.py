@@ -23,8 +23,11 @@ Phases (any failure raises and exits non-zero):
               at the knowledge (k_georic) and news (nytimes800k) shapes:
               flash at their entity and fact encoders and decoder sites, the
               score head with the [entity | fact] tail, the decoder step at
-              40 steps over memories of 548 and 598 rows, the LayerNorm and
-              dropout kernels at the decoders' B x T rows;
+              40 steps over memories of 548 and 598 rows; the LayerNorm
+              forward and backward and the dropout kernel at every row count
+              the three presets' train steps give them (norm_rows: 8192 to
+              77056), each also timed on the host (the wrapper's own cost a
+              call while the device runs ahead);
   4. serve    each preset at full width (ResNet-101 at 256x256, d=300, 10
               heads, 3 layers (+ 3 fact-encoder layers), V=10000; geo E 301,
               knowledge E 301 / F 51 / P 3000, news E 101 / F 301 / P 3500
@@ -46,15 +49,17 @@ Phases (any failure raises and exits non-zero):
               the timed steps and held to the counts the code predicts; the
               deterministic eval loss must fall; then a 2-sample f32 step
               without dropout on the card against the same step on the CPU;
-  wide beam   the score head at k 10 and the decoder step at K 10 against
-              their plain versions, then geo beam 10 in bf16 and f32 through
-              Evaluator.decode_batch against the plain path: every step
-              through the kernels, each route's count held to the
+  wide beam   the score head at k 10 and 20 and the decoder step at K 10
+              and 20 against their plain versions, then geo beams 10 and 20
+              in bf16 and f32 through Evaluator.decode_batch against the
+              plain path: every step through the kernels (k 20: the score
+              head's lists in shared memory), each route's count held to the
               prediction, f32 tokens equal.
 After the phases one more train step and one more beam-5 batch of each
 preset run under torch.profiler, which logs the ten largest device operations and the
-device's idle share, and the profiler gives the score head's and the
-LayerNorm backward's device time per kernel on phase 3's inputs.  Before
+device's idle share, and the profiler gives the score head's device time
+per kernel, and the norm kernels' and their library chains' at every row
+count, on phase 3's inputs.  Before
 them 3 greedy batches are timed warm.  Nothing is timed after a profiler
 session; a profiler fault is logged and changes nothing.
 The last two lines are the card's nvidia-smi name/power limit and
@@ -63,7 +68,9 @@ The last two lines are the card's nvidia-smi name/power limit and
     python3 chip_smoke.py --paired <checkout root> <label>
 
 times the geo serving path (3 beam-5 batches after a warm-up), 6 geo train
-steps and 3 warm greedy batches of the port in another checkout (the parent
+steps, 3 news (nytimes800k) train steps, 3 warm greedy batches, the norm
+wrappers' host ms a call and the norm kernels' device ms at every
+train-step row count of the port in another checkout (the parent
 of a change, say) with this script's own timing code, and prints one line
 "PAIRED {...}": run it in turns (parent, change, change, parent) within one
 call to compare two trees on one card.
@@ -102,7 +109,10 @@ FACT_PRESETS = {
     "nytimes800k": dict(E=101, F=301, P=3500, L=40, T=52, gains=(2.5, 2.5)),
 }
 FACT_TRAIN_STEPS = 3
-WIDE_BEAM, WIDE_BATCH = 10, 32          # a beam wider than 8 (fault F1's width)
+NORM_KERNELS = ("dropout_add_ln", "dropout_add_ln_bwd", "hw_dropout")
+# beams wider than 8 (fault F1's width) and than the score head's register
+# lists (F1b's), at batch 32
+WIDE_BEAMS, WIDE_BATCH = (10, 20), 32
 
 
 def log(*a):
@@ -132,6 +142,24 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters=20, rounds=5, warmup=3) -> float:
+    """Host ms per call of `fn` while the device runs ahead: the wrapper's own
+    cost (checks, bindings, launch), with no synchronise inside a round; the
+    median of `rounds` rounds of `iters` calls (the host is shared, so one
+    round can catch another process's burst)."""
+    for _ in range(warmup):
+        fn()
+    per_call = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        per_call.append((time.perf_counter() - t0) * 1e3 / iters)
+    torch.cuda.synchronize()
+    return statistics.median(per_call)
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
@@ -370,16 +398,17 @@ def _score_inputs(dev, dtype, n, t=ENT_ROWS, predicates=0):
     return h.to(dtype), wv, bv, tail
 
 
-def device_splits(dev, kernels):
+def device_splits(dev, kernels, norm):
     """Add to phase 3's records the device time of each of the score head's
-    and the LayerNorm backward's two kernels (`parts_ms`) and of the
-    LayerNorm backward's library chain (`library_device_ms`), from
-    torch.profiler on phase 3's inputs.  Run after every timed phase, so
-    that no profiler session comes before a timed run."""
+    two kernels (`parts_ms`), and at every row count of `norm` (check_norm_rows's
+    results) that of the LayerNorm forward and the dropout kernel
+    (`device_ms`), of the LayerNorm backward's two kernels (`parts_ms`) and of
+    each one's library chain (`library_device_ms`: F.dropout; F.layer_norm(x +
+    F.dropout(h)) and its backward under autograd), from torch.profiler on
+    phase 3's inputs.  Run after every timed phase, so that no profiler
+    session comes before a timed run."""
     from icek_torch.kernels import copy_scores as cs
-    from icek_torch.kernels import fused_norm as fn
 
-    F = torch.nn.functional
     for dtype in (torch.float32, torch.bfloat16):
         for shape, n, k in SCORE_SHAPES:
             h, wv, bv, tail = _score_inputs(dev, dtype, n)
@@ -387,21 +416,50 @@ def device_splits(dev, kernels):
             rec = rec if shape == "beam" else rec["greedy"]
             rec["parts_ms"] = device_split(lambda: cs.fused_score_topk(h, wv, bv, tail, k=k),
                                            ("score_partial", "score_merge"))
-        x, h, gy, scale, bias, _ = _norm_inputs(dev, dtype)
-        s32 = scale.float().contiguous()
-        rec = kernels["dropout_add_ln_bwd"][dtype]
-        rec["parts_ms"] = device_split(
-            lambda: fn.dropout_add_ln_bwd(x, h, s32, gy, RATE, 55, 1e-5),
-            ("ln_bwd_kernel", "ln_bwd_reduce_kernel"))
-        leaves = [t.detach().requires_grad_(True)
-                  for t in (x, h, scale.to(dtype), bias.to(dtype))]
-        out = F.layer_norm(leaves[0] + F.dropout(leaves[1], RATE), (x.shape[1],),
-                           leaves[2], leaves[3])
-        rec["library_device_ms"] = device_split(
-            lambda: torch.autograd.grad(out, leaves, gy, retain_graph=True), ("",)).get("")
         log(f"device split {dtype}: score head {kernels['fused_score_topk'][dtype]['parts_ms']}"
-            f", greedy {kernels['fused_score_topk'][dtype]['greedy']['parts_ms']}; LayerNorm "
-            f"backward {rec['parts_ms']}, library chain {rec['library_device_ms']}")
+            f", greedy {kernels['fused_score_topk'][dtype]['greedy']['parts_ms']}")
+        for n, (ln_f, ln_b, drop) in norm.items():
+            norm_device_split(dev, dtype, n, ln_f[dtype], ln_b[dtype], drop[dtype])
+
+
+def norm_device_split(dev, dtype, N, ln_f, ln_b, drop):
+    """Device ms per call of the three norm kernels, their library chains
+    and a same-bytes element-wise kernel at N rows, each in a profiler
+    session of its own (so each loop re-reads its own inputs, from L2 where
+    they fit, as the others do)."""
+    from icek_torch.kernels import fused_norm as fn
+
+    F = torch.nn.functional
+    D, DF = 300, 512
+    x, h, gy, scale, bias, rnd = _norm_inputs(dev, dtype, N)
+    hf = rnd(N, DF).to(dtype)
+    s32 = scale.float().contiguous()
+
+    ln_f["device_ms"] = device_split(
+        lambda: fn.dropout_add_ln(x, h, scale, bias, rate=RATE, seed=55), ("ln_fwd",)).get("ln_fwd")
+    parts = device_split(lambda: fn.dropout_add_ln_bwd(x, h, s32, gy, RATE, 55, 1e-5),
+                         ("ln_bwd_kernel", "ln_bwd_reduce"))
+    ln_b["parts_ms"] = {k: parts.get(k) for k in ("ln_bwd_kernel", "ln_bwd_reduce")}
+    drop["device_ms"] = device_split(lambda: fn.hw_dropout(hf, rate=RATE, seed=56),
+                                     ("dropout",)).get("dropout")
+    ps, pb = scale.to(dtype), bias.to(dtype)
+    ln_f["library_device_ms"] = device_split(
+        lambda: F.layer_norm(x + F.dropout(h, RATE), (D,), ps, pb), ("",)).get("")
+    leaves = [t.detach().requires_grad_(True) for t in (x, h, ps, pb)]
+    out = F.layer_norm(leaves[0] + F.dropout(leaves[1], RATE), (D,), leaves[2], leaves[3])
+    ln_b["library_device_ms"] = device_split(
+        lambda: torch.autograd.grad(out, leaves, gy, retain_graph=True), ("",)).get("")
+    drop["library_device_ms"] = device_split(lambda: F.dropout(hf, RATE), ("",)).get("")
+    # what the card reaches on the same traffic: one element-wise PyTorch
+    # kernel that reads and writes the same bytes (x + h into y; h * 1.25)
+    y, out = torch.empty_like(x), torch.empty_like(hf)
+    ln_f["same_bytes_ms"] = device_split(lambda: torch.add(x, h, out=y), ("",)).get("")
+    drop["same_bytes_ms"] = device_split(lambda: torch.mul(hf, 1.25, out=out), ("",)).get("")
+    log(f"device split {dtype} N {N}: LayerNorm forward {ln_f['device_ms']} (library chain "
+        f"{ln_f['library_device_ms']}, x + h {ln_f['same_bytes_ms']}), backward "
+        f"{ln_b['parts_ms']} (library chain {ln_b['library_device_ms']}), dropout "
+        f"{drop['device_ms']} (F.dropout {drop['library_device_ms']}, h * 1.25 "
+        f"{drop['same_bytes_ms']})")
 
 
 def _score_record(dev, dtype, tol, n, k, t=ENT_ROWS, predicates=0):
@@ -410,12 +468,24 @@ def _score_record(dev, dtype, tol, n, k, t=ENT_ROWS, predicates=0):
     from icek_torch.kernels import copy_scores as cs
 
     h, wv, bv, tail = _score_inputs(dev, dtype, n, t, predicates)
-    require(cs.uses_tensor_cores(h, wv) == (dtype == torch.bfloat16),
-            f"score/top-k {dtype}: unexpected kernel family")
+    require(cs.uses_tensor_cores(h, wv, k) == (dtype == torch.bfloat16 and k <= cs.REGISTER_K),
+            f"score/top-k {dtype} k={k}: unexpected kernel family")
     got = cs.fused_score_topk(h, wv, bv, tail, k=k)
     want = cs.reference_score_topk(h, wv, bv, tail, k=k)
     torch.cuda.synchronize()
-    require(torch.equal(got[1], want[1]), f"score/top-k {dtype} n={n} t={t}: indices differ")
+    if k <= cs.REGISTER_K:
+        require(torch.equal(got[1], want[1]), f"score/top-k {dtype} n={n} t={t}: indices differ")
+    else:
+        # as tests/test_torch_gpu.py::test_score_kernel_wide_k: distinct
+        # indices whose plain scores are their values, so an index that
+        # differs from the plain version's ties it within tol
+        scores = torch.cat([h.float() @ wv.float() + bv, tail], dim=1)
+        ierr = max_err(torch.gather(scores, 1, got[1].long()), got[0])
+        distinct = bool((got[1].sort(dim=1).values.diff(dim=1) != 0).all())
+        differ = int((got[1] != want[1]).sum())
+        require(distinct and ierr <= tol and differ <= 4 * n * k // 65536 + 2,
+                f"score/top-k {dtype} n={n} k={k}: indices {differ} differ, "
+                f"distinct {distinct}, score err {ierr}")
     err = max_err((got[0], got[2]), (want[0], want[2]))
     require(err <= tol, f"score/top-k {dtype} n={n} t={t}: max abs err {err} > {tol}")
 
@@ -515,10 +585,10 @@ def _tree(tree, dev, dtype):
 def check_decoder_step(dev, L=MAX_LEN, M=IMG_TOKENS + ENT_ROWS, B=BATCH, K=BEAM):
     """The decoder step at the middle step of the beam shape (B 256, K 5,
     L steps, memory M; or B images of K hypotheses): bf16 on both routes (the
-    tensor-core one the beam loop takes, fed the head-padded cross K/V the
-    loop lays out once per batch, and the CUDA-core one, taken when the
-    weights come without their packed copy) and f32 on the CUDA-core route,
-    each against its plain version and the bound."""
+    tensor-core one the beam loop takes up to K 16, fed the head-padded cross
+    K/V the loop lays out once per batch, and the CUDA-core one, taken when
+    the weights come without their packed copy or K is wider) and f32 on the
+    CUDA-core route, each against its plain version and the bound."""
     from icek_torch.kernels import decoder_step as dsk
 
     res = {}
@@ -532,7 +602,7 @@ def check_decoder_step(dev, L=MAX_LEN, M=IMG_TOKENS + ENT_ROWS, B=BATCH, K=BEAM)
         plain_ms = cuda_ms(lambda: dsk.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv,
                                                                step, num_heads=H), iters=5)
         routes = {"cuda_cores": (stacked._replace(mma=None), (xk, xv), {})}
-        if dtype == torch.bfloat16:
+        if dsk.uses_tensor_cores(stacked, ck, K, H):
             nL, B, _, D = xk.shape
             heads = dsk.pad_cross_heads([{"k": xk[l].view(B, M, H, D // H),
                                           "v": xv[l].view(B, M, H, D // H)} for l in range(nL)],
@@ -553,7 +623,7 @@ def check_decoder_step(dev, L=MAX_LEN, M=IMG_TOKENS + ENT_ROWS, B=BATCH, K=BEAM)
             log(f"kernel decoder_step {dtype} {route} B {B} K {K} L {L} M {M} step {step}: "
                 f"{timed[route]}")
         res[dtype] = timed.get("tensor_cores", timed["cuda_cores"])
-        if dtype == torch.bfloat16:
+        if "tensor_cores" in timed:
             res[dtype]["cuda_cores"] = timed["cuda_cores"]
     return res
 
@@ -586,9 +656,11 @@ def _norm_inputs(dev, dtype, N=BATCH * ENT_ROWS):
 
 def check_norm(dev, N=BATCH * ENT_ROWS):
     """dropout_add_ln forward and backward at (N, 300) and hw_dropout at
-    (N, 512) (geo: the entity encoder's 77056 rows), rate 0.2 under the
-    kernels' own mask; returns (ln forward, ln backward, dropout) results by
-    dtype."""
+    (N, 512), rate 0.2 under the kernels' own mask, with each mask's keep
+    rate; timed with CUDA events (`ms`) and on the host (`host_ms`: the
+    wrapper's own cost per call while the device runs ahead, as the train
+    step calls it) beside the plain version, the library calls and the
+    bound.  Returns (ln forward, ln backward, dropout) results by dtype."""
     from icek_torch.kernels import fused_norm as fn
 
     F = torch.nn.functional
@@ -629,7 +701,12 @@ def check_norm(dev, N=BATCH * ENT_ROWS):
             ms=cuda_ms(lambda: fn.dropout_add_ln(x, h, scale, bias, rate=RATE, seed=55)),
             plain_ms=cuda_ms(lambda: fn.reference_dropout_add_ln(
                 x, h, scale, bias, rate=RATE, keep=keep)),
-            library_ms=cuda_ms(library), bound_ms=bms, bound_by=by)
+            library_ms=cuda_ms(library), bound_ms=bms, bound_by=by,
+            # as the train step calls it: leaves that require grad
+            host_ms=host_ms(lambda: fn.dropout_add_ln(*leaves, rate=RATE, seed=55)),
+            library_host_ms=host_ms(lambda: F.layer_norm(
+                lib_leaves[0] + F.dropout(lib_leaves[1], RATE), (D,), lib_leaves[2],
+                lib_leaves[3])))
         bms, by = bound_ms(5 * N * D * esz, 20 * N * D, dtype)
         # `ms` and `library_ms` both time a backward under autograd, which
         # passes through the engine's device thread (into a Python Function
@@ -643,7 +720,8 @@ def check_norm(dev, N=BATCH * ENT_ROWS):
             plain_ms=cuda_ms(lambda: torch.autograd.grad(ref, leaves, gy, retain_graph=True)),
             library_ms=cuda_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, gy,
                                                            retain_graph=True)),
-            bound_ms=bms, bound_by=by)
+            bound_ms=bms, bound_by=by,
+            host_ms=host_ms(lambda: fn.dropout_add_ln_bwd(x, h, s32, gy, RATE, 55, 1e-5)))
         log(f"kernel dropout_add_ln {dtype} N {N}: {ln_f[dtype]}")
         log(f"kernel dropout_add_ln_bwd {dtype} N {N}: {ln_b[dtype]}")
         del out, ref, got, want, lib_out, keep
@@ -658,29 +736,51 @@ def check_norm(dev, N=BATCH * ENT_ROWS):
                    max_err(dh, fn.reference_hw_dropout(gf, rate=RATE, keep=keep)))
         dtol = 1e-5 if dtype == torch.float32 else tol     # x * 1.25 against x / 0.8
         require(derr <= dtol, f"hw_dropout {dtype}: max abs err {derr} > {dtol}")
+        kept = float(keep.float().mean())
+        require(abs(kept - (1 - RATE)) <= 0.005, f"hw_dropout mask keep rate {kept}")
         hd = hf.detach()
         bms, by = bound_ms(2 * N * DF * esz, N * DF, dtype)
         drop[dtype] = dict(
-            max_abs_err=derr, tol=dtol,
+            max_abs_err=derr, tol=dtol, keep_rate=kept,
             ms=cuda_ms(lambda: fn.hw_dropout(hd, rate=RATE, seed=56)),
             plain_ms=cuda_ms(lambda: fn.reference_hw_dropout(hd, rate=RATE, keep=keep)),
-            library_ms=cuda_ms(lambda: F.dropout(hd, RATE)), bound_ms=bms, bound_by=by)
+            library_ms=cuda_ms(lambda: F.dropout(hd, RATE)), bound_ms=bms, bound_by=by,
+            host_ms=host_ms(lambda: fn.hw_dropout(hf, rate=RATE, seed=56)),
+            library_host_ms=host_ms(lambda: F.dropout(hf, RATE)))
         log(f"kernel hw_dropout {dtype} N {N}: {drop[dtype]}")
     return ln_f, ln_b, drop
 
 
 def _compact(bf, f32):
-    """A kernel record at one shape: the bf16 numbers, the f32 time and error."""
+    """A kernel record at one shape: the bf16 numbers, the f32 time and error
+    (and device, host and library times where the record has them)."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
-    return dict({k: bf[k] for k in keys}, f32_ms=f32["ms"], f32_max_abs_err=f32["max_abs_err"])
+    extra = ("device_ms", "parts_ms", "library_device_ms", "same_bytes_ms", "host_ms",
+             "library_host_ms", "wrapper_ms", "keep_rate")
+    out = dict({k: bf[k] for k in keys}, f32_ms=f32["ms"], f32_max_abs_err=f32["max_abs_err"])
+    out.update({k: bf[k] for k in extra if k in bf})
+    out.update({"f32_" + k: f32[k] for k in ("device_ms", "parts_ms", "library_device_ms")
+                if k in f32})
+    return out
+
+
+def check_norm_rows(dev):
+    """check_norm at every row count of norm_rows(): {rows: (ln forward, ln
+    backward, dropout) results by dtype}."""
+    out = {}
+    for n, sites in norm_rows().items():
+        log(f"norm kernels at {n} rows ({', '.join(sites)})")
+        out[n] = check_norm(dev, n)
+    return out
 
 
 def check_kernels_facts(dev, shape):
     """Phase 3 at a fact preset's shapes: flash at its four attention sites,
     the score head with its [E | F] tail, the decoder step at L 40 and
-    memory M = 196 + E + F (the tensor-core route must still hold it), and
-    the LayerNorm and dropout kernels at the decoder's B x T rows.  Returns
-    {kernel: {shape label: compact record}}."""
+    memory M = 196 + E + F (the tensor-core route must still hold it); the
+    LayerNorm and dropout kernels are checked at every row count of every
+    preset by check_norm_rows.  Returns {kernel: {shape label: compact
+    record}}."""
     bf, f32 = torch.bfloat16, torch.float32
     flash = check_flash_facts(dev, shape)
     out = {"flash_attention": {}, "flash_attention_bwd": {}}
@@ -700,11 +800,6 @@ def check_kernels_facts(dev, shape):
     label = f"L {shape['L']} M {M} step {shape['L'] // 2}"
     out["decoder_step"] = {label: _compact(step[bf], step[f32]),
                            label + " cuda cores": _compact(step[bf]["cuda_cores"], step[f32])}
-    N = BATCH * shape["T"]
-    ln_f, ln_b, drop = check_norm(dev, N)
-    for name, rec in (("dropout_add_ln", ln_f), ("dropout_add_ln_bwd", ln_b),
-                      ("hw_dropout", drop)):
-        out[name] = {f"rows {N}": _compact(rec[bf], rec[f32])}
     return out
 
 
@@ -841,19 +936,48 @@ def _zero_serving_counts():
         fn.launches = 0
 
 
-def train_counters(has_facts=False):
-    """Likewise for the train step, with the launches one step makes: one
-    attention per encoder layer and two per decoder layer, two residual
-    LayerNorms per encoder layer and three per decoder layer, and one FFN
-    dropout per layer each way through one entry point (geo: 3 encoder
-    layers; knowledge and news: 3 + 3)."""
+def norm_sites(preset="georic"):
+    """The train step's residual-dropout LayerNorm sites, by the stack they
+    sit in: {stack: (rows, layers, LayerNorms a layer)} at batch BATCH and
+    the preset's shapes.  The entity encoder runs over E rows an image, the
+    fact encoder (facts only) over F, the decoder over the T caption tokens;
+    an encoder layer has two residual LayerNorms and a decoder layer three,
+    and each layer one FFN dropout."""
+    from icek_torch.core import config as cfgs
+
+    s, layers = preset_shape(preset), cfgs.get_config(preset).model.num_layers
+    sites = {"entity_encoder": (BATCH * s["E"], layers, 2)}
+    if s["F"]:
+        sites["fact_encoder"] = (BATCH * s["F"], layers, 2)
+    sites["decoder"] = (BATCH * s["T"], layers, 3)
+    return sites
+
+
+def norm_rows():
+    """Every row count the three presets' train steps give the LayerNorm and
+    dropout kernels, with the (preset, stack) sites at each."""
+    rows = {}
+    for preset in ("georic", *FACT_PRESETS):
+        for stack, (n, _, _) in norm_sites(preset).items():
+            rows.setdefault(n, []).append(f"{preset} {stack}")
+    return dict(sorted(rows.items()))
+
+
+def train_counters(preset="georic"):
+    """Likewise for the train step, with the launches one step makes (from
+    norm_sites): one attention per encoder layer and two per decoder layer,
+    the residual LayerNorms forward and backward, and one FFN dropout per
+    layer each way through one entry point."""
     from icek_torch.kernels import flash_attention, fused_norm
 
-    enc, dec = (6 if has_facts else 3), 3
+    sites = norm_sites(preset)
+    enc = sum(layers for stack, (_, layers, _) in sites.items() if stack != "decoder")
+    dec = sites["decoder"][1]
+    ln = sum(layers * per for _, layers, per in sites.values())
     return {"flash_attention": (flash_attention.flash_mha, enc + 2 * dec),
             "flash_attention_bwd": (flash_attention.flash_mha_bwd, enc + 2 * dec),
-            "dropout_add_ln": (fused_norm.dropout_add_ln, 2 * enc + 3 * dec),
-            "dropout_add_ln_bwd": (fused_norm.dropout_add_ln_bwd, 2 * enc + 3 * dec),
+            "dropout_add_ln": (fused_norm.dropout_add_ln, ln),
+            "dropout_add_ln_bwd": (fused_norm.dropout_add_ln_bwd, ln),
             "hw_dropout": (fused_norm.hw_dropout, 2 * (enc + dec))}
 
 
@@ -1039,45 +1163,50 @@ def breakdown(ev, batch):
 
 
 def wide_beam(dev, model):
-    """A beam wider than 8: geo beam 10 through Evaluator.decode_batch, bf16 and f32,
-    kernels on (the defaults) against the plain path (both switches off).
-    The score head runs at k 10 in both; the decoder step on its tensor-core
-    route in bf16 (K <= 16) and on its CUDA-core route in f32 (two blocks an
-    image).  Each route's count is held to that; f32 tokens must equal the
-    plain path's, bf16 agreement is logged.  First the two kernels alone at
-    the wide shapes against their plain versions."""
+    """Beams wider than 8 (fault F1) and than 16 (F1b): geo beam 10 and beam 20
+    through Evaluator.decode_batch, bf16 and f32, kernels on (the defaults)
+    against the plain path (both switches off).  The score head runs at k 10
+    on its register lists and at k 20 on its wide first pass (lists in
+    shared memory) in both dtypes; the decoder step on its tensor-core route
+    in bf16 up to K 16 and on its CUDA-core route otherwise.  Each route's
+    count is held to that; f32 tokens must equal the plain path's, bf16
+    agreement is logged.  First the two kernels alone at each width's
+    shapes against their plain versions."""
     from icek_torch import eval_driver
 
     cfg, wm, params, enc = model
-    kernels = dict(fused_score_topk=check_scores(dev, (("wide", WIDE_BATCH * WIDE_BEAM,
-                                                         WIDE_BEAM),)),
-                   decoder_step=check_decoder_step(dev, B=WIDE_BATCH, K=WIDE_BEAM))
     batch = make_batch(np.random.default_rng(SEED + 11), WIDE_BATCH)
     plain_cfg = cfg.replace(decode=dataclasses.replace(
         cfg.decode, use_megakernel=False, use_fused_scores=False))
     L = cfg.decode.max_caption_len
     res = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        kw = dict(device=dev, beam_size=WIDE_BEAM, batch_size=WIDE_BATCH, compute_dtype=dtype)
-        _zero_serving_counts()
-        got = eval_driver.Evaluator(cfg, wm, params, enc, **kw).decode_batch(batch)
-        routes = _read_serving_counts()
-        want = eval_driver.Evaluator(plain_cfg, wm, params, enc, **kw).decode_batch(batch)
-        tc = dtype == torch.bfloat16
-        expect = dict(flash_attention=cfg.model.num_layers, fused_score_topk=L,
-                      decoder_step=L if tc else 0, decoder_step_cuda_cores=0 if tc else L)
-        log(f"wide beam: geo beam {WIDE_BEAM} {dtype}, {WIDE_BATCH} images, routes {routes} "
-            f"(expected {expect})")
-        require(routes == expect, f"wide beam {dtype}: routes {routes} != {expect}")
-        same = float((got == want).mean())
-        if dtype == torch.float32:
-            require(np.array_equal(got, want),
-                    "wide beam: f32 beam-10 tokens differ from the plain path")
-        res[str(dtype)] = dict(routes=routes, token_agreement=same)
-        log(f"wide beam: geo beam {WIDE_BEAM} {dtype}: token agreement with the plain path "
-            f"{same}")
-    res["kernels"] = {name: {str(dt): {k: rec[dt][k] for k in ("max_abs_err", "ms", "plain_ms")}
-                             for dt in rec} for name, rec in kernels.items()}
+    for K in WIDE_BEAMS:
+        kernels = dict(fused_score_topk=check_scores(dev, ((f"wide k {K}", WIDE_BATCH * K, K),)),
+                       decoder_step=check_decoder_step(dev, B=WIDE_BATCH, K=K))
+        out = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            kw = dict(device=dev, beam_size=K, batch_size=WIDE_BATCH, compute_dtype=dtype)
+            _zero_serving_counts()
+            got = eval_driver.Evaluator(cfg, wm, params, enc, **kw).decode_batch(batch)
+            routes = _read_serving_counts()
+            want = eval_driver.Evaluator(plain_cfg, wm, params, enc, **kw).decode_batch(batch)
+            tc = dtype == torch.bfloat16 and K <= 16
+            expect = dict(flash_attention=cfg.model.num_layers, fused_score_topk=L,
+                          decoder_step=L if tc else 0, decoder_step_cuda_cores=0 if tc else L)
+            log(f"wide beam: geo beam {K} {dtype}, {WIDE_BATCH} images, routes {routes} "
+                f"(expected {expect})")
+            require(routes == expect, f"wide beam {K} {dtype}: routes {routes} != {expect}")
+            same = float((got == want).mean())
+            if dtype == torch.float32:
+                require(np.array_equal(got, want),
+                        f"wide beam: f32 beam-{K} tokens differ from the plain path")
+            out[str(dtype)] = dict(routes=routes, token_agreement=same)
+            log(f"wide beam: geo beam {K} {dtype}: token agreement with the plain path {same}")
+        out["kernels"] = {name: {str(dt): {k: rec[dt][k] for k in
+                                           ("max_abs_err", "ms", "plain_ms", "library_ms",
+                                            "bound_ms")}
+                                 for dt in rec} for name, rec in kernels.items()}
+        res[f"beam {K}"] = out
     return res
 
 
@@ -1193,7 +1322,7 @@ def run_train_path(dev, model, preset="georic", steps=TRAIN_STEPS):
     batch = make_train_batch(np.random.default_rng(SEED + 5), BATCH, wm, preset)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     gen = torch.Generator().manual_seed(SEED)
-    counted = train_counters(m.has_facts)
+    counted = train_counters(preset)
 
     eval_before = float(eval_step(params, None, batch)[0])
     t0 = time.perf_counter()
@@ -1293,7 +1422,7 @@ def train_cross_check(dev, model, preset="georic"):
 # after the phases: one traced train step and one traced beam-5 batch
 # --------------------------------------------------------------------------
 
-PORT_KERNELS = ("flash_fwd", "flash_bwd", "ln_fwd_kernel", "ln_bwd", "dropout_kernel",
+PORT_KERNELS = ("flash_fwd", "flash_bwd", "ln_fwd", "ln_bwd", "dropout_",
                 "score_partial", "score_merge", "decoder_step_kernel", "decoder_step_mma_kernel")
 
 
@@ -1356,10 +1485,50 @@ def trace_serving(dev, model, batch, preset="georic"):
     trace_device(what, lambda: ev.decode_batch(batch))
 
 
+def norm_wrapper_host_ms(dev, N=13312) -> dict:
+    """Host ms a call of the three norm wrappers at N rows (bf16; the news
+    decoder's rows), called as the train step calls them, while the device
+    runs ahead."""
+    from icek_torch.kernels import fused_norm as fn
+
+    x, h, gy, scale, bias, rnd = _norm_inputs(dev, torch.bfloat16, N)
+    leaves = [t.detach().requires_grad_(True) for t in (x, h, scale, bias)]
+    hf = rnd(N, 512).to(torch.bfloat16).requires_grad_(True)
+    s32 = scale.float().contiguous()
+    return {"dropout_add_ln": host_ms(lambda: fn.dropout_add_ln(*leaves, rate=RATE, seed=55),
+                                      iters=50),
+            "dropout_add_ln_bwd": host_ms(
+                lambda: fn.dropout_add_ln_bwd(x, h, s32, gy, RATE, 55, 1e-5), iters=50),
+            "hw_dropout": host_ms(lambda: fn.hw_dropout(hf, rate=RATE, seed=56), iters=50)}
+
+
+def norm_kernels_device_ms(dev) -> dict:
+    """Device ms a call of the three norm kernels (forward, backward kernel
+    and reduction, dropout) at every train-step row count, bf16 and f32,
+    each in a profiler session of its own: one code for any tree."""
+    from icek_torch.kernels import fused_norm as fn
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for N in norm_rows():
+            x, h, gy, scale, bias, rnd = _norm_inputs(dev, dtype, N)
+            hf = rnd(N, 512).to(dtype)
+            s32 = scale.float().contiguous()
+            out[f"{str(dtype)[6:]} {N}"] = dict(
+                forward=device_split(lambda: fn.dropout_add_ln(x, h, scale, bias, rate=RATE,
+                                                               seed=55), ("ln_fwd",)).get("ln_fwd"),
+                backward=device_split(lambda: fn.dropout_add_ln_bwd(x, h, s32, gy, RATE, 55, 1e-5),
+                                      ("ln_bwd",)).get("ln_bwd"),
+                dropout=device_split(lambda: fn.hw_dropout(hf, rate=RATE, seed=56),
+                                     ("dropout",)).get("dropout"))
+    return out
+
+
 def paired(root, label) -> int:
-    """Geo serving, train-step and warm greedy times of the checkout at
-    `root`, through the public entry points alone (Evaluator.decode_batch,
-    train.step.make_train_step), so one timing code serves any two trees."""
+    """Geo serving, geo and news train-step and warm greedy times of the
+    checkout at `root`, through the public entry points alone
+    (Evaluator.decode_batch, train.step.make_train_step), so one timing code
+    serves any two trees."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1385,29 +1554,41 @@ def paired(root, label) -> int:
         ev.decode_batch(b)
         batch_ms.append((time.perf_counter() - t0) * 1e3)
 
-    tparams = bridge.trainable(copy.deepcopy(params), dev)
-    optimizer = step_lib.make_optimizer(cfg.train.decoder_lr, cfg.train.grad_clip)
-    opt_state = optimizer.init(tparams)
-    train_step, _ = step_lib.make_train_step(cfg, VOCAB, wm.pad_id, optimizer,
-                                             compute_dtype=torch.bfloat16,
-                                             encode_images=False, device=dev)
-    tb = make_train_batch(np.random.default_rng(SEED + 5), BATCH, wm)
-    tb = {k: torch.as_tensor(v, device=dev) for k, v in tb.items()}
-    gen = torch.Generator().manual_seed(SEED)
-    float(train_step(tparams, opt_state, None, tb, gen)[2])
-    step_ms = []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
+    def train_ms(model, preset, steps):
+        """Host ms of `steps` train steps after a warm-up, each to its loss."""
+        cfg_, wm_, params_, _ = model
+        tparams = bridge.trainable(copy.deepcopy(params_), dev)
+        optimizer = step_lib.make_optimizer(cfg_.train.decoder_lr, cfg_.train.grad_clip)
+        opt_state = optimizer.init(tparams)
+        train_step, _ = step_lib.make_train_step(cfg_, VOCAB, wm_.pad_id, optimizer,
+                                                 compute_dtype=torch.bfloat16,
+                                                 encode_images=False, device=dev)
+        tb = make_train_batch(np.random.default_rng(SEED + 5), BATCH, wm_, preset)
+        tb = {k: torch.as_tensor(v, device=dev) for k, v in tb.items()}
+        gen = torch.Generator().manual_seed(SEED)
         float(train_step(tparams, opt_state, None, tb, gen)[2])
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+        out = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            float(train_step(tparams, opt_state, None, tb, gen)[2])
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    step_ms = train_ms(model, "georic", TRAIN_STEPS)
+    news_ms = train_ms(full_width_model("nytimes800k", enc=enc), "nytimes800k",
+                       FACT_TRAIN_STEPS)
     greedy_ms = time_greedy_warm(dev, model)
+    norm_host = norm_wrapper_host_ms(dev)
+    norm_device = norm_kernels_device_ms(dev)       # the profiler after every timed run
     L = cfg.decode.max_caption_len
     out = {"label": label, "card": smi_name_power(), "batch_ms": batch_ms,
            "captions_per_s_median": BATCH / statistics.median(batch_ms) * 1e3,
            "host_ms_per_beam_step_median": statistics.median(batch_ms) / L,
            "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
            "samples_per_s_median": BATCH / statistics.median(step_ms) * 1e3,
-           "greedy_warm_ms": greedy_ms}
+           "news_step_ms": news_ms, "news_step_ms_median": statistics.median(news_ms),
+           "greedy_warm_ms": greedy_ms, "norm_wrapper_host_ms": norm_host,
+           "norm_device_ms": norm_device}
     print("PAIRED " + json.dumps(out), flush=True)
     return 0
 
@@ -1452,8 +1633,9 @@ def run_phases(dev, card) -> list:
     kernels = {"flash_attention": flash_fwd, "flash_attention_bwd": flash_bwd,
                "fused_score_topk": check_scores(dev),
                "decoder_step": check_decoder_step(dev)}
+    norm = check_norm_rows(dev)
     kernels["dropout_add_ln"], kernels["dropout_add_ln_bwd"], kernels["hw_dropout"] = \
-        check_norm(dev)
+        norm[BATCH * ENT_ROWS]
     fact_kernels = {preset: check_kernels_facts(dev, shape)
                     for preset, shape in FACT_PRESETS.items()}
 
@@ -1479,7 +1661,7 @@ def run_phases(dev, card) -> list:
     for p in FACT_PRESETS:
         trace_device(f"one {p} train step", trained[p][2])
         trace_serving(dev, models[p], served[p][2], p)
-    device_splits(dev, kernels)
+    device_splits(dev, kernels, norm)
 
     # name: (source, the TPU kernel it replaces)
     tpu = "icek_tpu/kernels/"
@@ -1492,7 +1674,7 @@ def run_phases(dev, card) -> list:
         "dropout_add_ln_bwd": ("fused_norm.cu", tpu + "fused_norm.py:176"),
         "hw_dropout": ("fused_norm.cu", tpu + "fused_norm.py:268"),
     }
-    rows = []
+    rows, sites = [], norm_rows()
     for name, by_dtype in kernels.items():
         bf, f32 = by_dtype[torch.bfloat16], by_dtype[torch.float32]
         row = {
@@ -1511,22 +1693,30 @@ def run_phases(dev, card) -> list:
         if name in launches and name in train_launches:
             row["launches_serving"] = launches[name]
         for extra in ("dropout", "self", "cross", "rate0_ms", "parts_ms", "greedy",
-                      "wrapper_ms", "library_device_ms", "cuda_cores"):
+                      "wrapper_ms", "library_device_ms", "cuda_cores", "device_ms", "host_ms",
+                      "library_host_ms", "keep_rate", "same_bytes_ms"):
             if extra in bf:
                 row[extra] = bf[extra]
         # the knowledge and news presets: launches on their paths, and the
         # kernel at their shapes (bf16, with the f32 time and error)
         row["presets"] = {p: dict(launches_serving=served[p][0].get(name),
                                   launches_train=trained[p][0].get(name),
-                                  shapes=fact_kernels[p][name])
+                                  shapes=fact_kernels[p].get(name))
                           for p in FACT_PRESETS}
+        if name in ("fused_score_topk", "decoder_step"):    # beams 10 and 20
+            row["wide_beams"] = {b: rec["kernels"][name] for b, rec in wide.items()}
+        if name in NORM_KERNELS:        # every row count of every preset
+            i = NORM_KERNELS.index(name)
+            row["rows"] = {str(n): dict(_compact(rec[i][torch.bfloat16],
+                                                 rec[i][torch.float32]), sites=sites[n])
+                           for n, rec in norm.items()}
         rows.append(row)
     log(f"card: {card}; train path: {json.dumps(train_summary)}")
     log(f"card: {card}; main path: {json.dumps(summary)}")
     for p in FACT_PRESETS:
         log(f"card: {card}; {p} serving: {json.dumps(served[p][1])}")
         log(f"card: {card}; {p} train path: {json.dumps(trained[p][1])}")
-    log(f"card: {card}; wide beam (geo beam {WIDE_BEAM}): {json.dumps(wide)}")
+    log(f"card: {card}; wide beams (geo beams {WIDE_BEAMS}): {json.dumps(wide)}")
     return rows
 
 

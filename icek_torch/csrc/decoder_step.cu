@@ -53,7 +53,7 @@
 //   On an H100 at step 15 of the beam shape it takes 0.37-0.38 ms against
 //   the 0.154 ms byte bound (PERF.md): the stream runs at ~2.9 TB/s, but
 //   the linears, bound by L2 (~5.5 TB/s of weight reads), and the stream
-//   take turns (python -m icek_torch.kernels._ablate).
+//   take turns (python -m icek_torch.kernels._variants decoder_step).
 // Route 2, the CUDA-core kernel (decoder_step_kernel): f32, and any shape
 // route 1 refuses.  A block owns R <= 8 hypotheses of one image (grid B x
 // ceil(K / R)): R = min(K, 8), lowered until the block's shared memory fits

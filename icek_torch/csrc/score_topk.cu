@@ -42,6 +42,16 @@
 //     (score_partial_kernel): an f32 tiled product from shared memory, each
 //     64-column tile merged into the rows' lists by k warp-wide arg-max
 //     rounds.  TF32 would break the f32 checks at 1e-4.
+//   * k above 16 (beams wider than 16), both dtypes, on the CUDA cores
+//     (score_partial_wide_kernel): the same product, with each row's list of
+//     kc = min(k, chunk columns) entries in dynamic shared memory, kept
+//     sorted; a tile's score enters only if it beats the list's last entry
+//     (a ballot), and then the row's warp shifts the worse entries up one
+//     slot, 32 at a time from the top.  A block takes 64, 32 or 16 rows, the
+//     most whose lists fit in shared memory.
+// The merge needs no list of its own: its round j takes the best candidate
+// that ranks after round j - 1's pick, so a chunk's entries and the tail
+// are scanned k times and nothing is marked taken.
 #include <type_traits>
 
 #include "common.cuh"
@@ -51,7 +61,7 @@ namespace {
 constexpr int BN = 64;     // rows per block
 constexpr int BV = 64;     // vocab columns per tile
 constexpr int BD = 32;     // depth per staged tile
-constexpr int KMAX = 16;   // largest k served (beam widths up to 16)
+constexpr int KMAX = 16;   // largest k of the register lists (beams up to 16)
 constexpr int THREADS = 256;
 
 struct Cand {
@@ -77,6 +87,83 @@ __device__ __forceinline__ Cand warp_best(Cand c) {
   return c;
 }
 
+// The (RB x BV) score tile at col0 of rows r0 .. r0 + RB - 1 into sc: h's
+// rows times Wv's columns in f32 from shared memory, plus the bias; columns
+// at or past c_end are -inf.  A thread holds RB / 16 rows of four columns.
+// Every thread of the block calls it; it begins with a barrier, so the
+// caller's last reads of sc are done before sc is written again.
+template <typename T, int RB>
+__device__ __forceinline__ void score_tile(const T* __restrict__ h, const T* __restrict__ wv,
+                                           const float* __restrict__ bv, int N, int D, int V,
+                                           int r0, int col0, int c_end, float (*hs)[BD + 1],
+                                           float (*ws)[BV], float (*sc)[BV + 1]) {
+  constexpr int RA = RB / 16;
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  float acc[RA][4];
+#pragma unroll
+  for (int a = 0; a < RA; ++a)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
+  for (int d0 = 0; d0 < D; d0 += BD) {
+    __syncthreads();
+    for (int e = tid; e < RB * BD; e += THREADS) {
+      const int r = e / BD, dd = e % BD;
+      const int gr = r0 + r, gd = d0 + dd;
+      hs[r][dd] = (gr < N && gd < D) ? to_f32(h[(long long)gr * D + gd]) : 0.f;
+    }
+    for (int e = tid; e < BD * BV; e += THREADS) {
+      const int dd = e / BV, c = e % BV;
+      const int gd = d0 + dd, gc = col0 + c;
+      ws[dd][c] = (gd < D && gc < V) ? to_f32(wv[(long long)gd * V + gc]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int dd = 0; dd < BD; ++dd) {
+      float a_[RA], b_[4];
+#pragma unroll
+      for (int a = 0; a < RA; ++a) a_[a] = hs[ty + 16 * a][dd];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) b_[c] = ws[dd][tx + 16 * c];
+#pragma unroll
+      for (int a = 0; a < RA; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(a_[a], b_[c], acc[a][c]);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < RA; ++a)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int gc = col0 + tx + 16 * c;
+      sc[ty + 16 * a][tx + 16 * c] = gc < c_end ? acc[a][c] + bv[gc] : -INFINITY;
+    }
+  __syncthreads();
+}
+
+// a row's two candidates of the tile at col0 for this lane (columns lane and
+// lane + 32); padding past c_end
+__device__ __forceinline__ void tile_cands(const float* row, int col0, int c_end, int lane,
+                                           Cand& c0, Cand& c1) {
+  c0 = col0 + lane < c_end ? Cand{row[lane], col0 + lane} : Cand{-INFINITY, INT_MAX};
+  c1 = col0 + lane + 32 < c_end ? Cand{row[lane + 32], col0 + lane + 32}
+                                : Cand{-INFINITY, INT_MAX};
+}
+
+// a row's online (max, sum exp) over the tile's two candidates a lane
+__device__ __forceinline__ void online_lse(const Cand& c0, const Cand& c1, int lane,
+                                           float& run_m, float& run_s) {
+  const float tmax = warp_max(fmaxf(c0.v, c1.v));
+  const float m_old = run_m;
+  const float m_new = fmaxf(m_old, tmax);
+  const float part = warp_sum(__expf(c0.v - m_new) + __expf(c1.v - m_new));
+  __syncwarp();
+  if (lane == 0) {
+    run_s = run_s * __expf(m_old - m_new) + part;
+    run_m = m_new;
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS) score_partial_kernel(
     const T* __restrict__ h, const T* __restrict__ wv,
@@ -93,7 +180,6 @@ __global__ void __launch_bounds__(THREADS) score_partial_kernel(
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int tx = tid & 15, ty = tid >> 4;
   const int r0 = blockIdx.y * BN;
   const int chunk = blockIdx.x;
   const int c_begin = chunk * chunk_cols;
@@ -109,59 +195,15 @@ __global__ void __launch_bounds__(THREADS) score_partial_kernel(
   }
 
   for (int col0 = c_begin; col0 < c_end; col0 += BV) {
-    float acc[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += BD) {
-      __syncthreads();
-      for (int e = tid; e < BN * BD; e += THREADS) {
-        const int r = e / BD, dd = e % BD;
-        const int gr = r0 + r, gd = d0 + dd;
-        hs[r][dd] = (gr < N && gd < D) ? to_f32(h[(long long)gr * D + gd]) : 0.f;
-      }
-      for (int e = tid; e < BD * BV; e += THREADS) {
-        const int dd = e / BV, c = e % BV;
-        const int gd = d0 + dd, gc = col0 + c;
-        ws[dd][c] = (gd < D && gc < V) ? to_f32(wv[(long long)gd * V + gc]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int dd = 0; dd < BD; ++dd) {
-        float a_[4], b_[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) a_[a] = hs[ty + 16 * a][dd];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) b_[c] = ws[dd][tx + 16 * c];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(a_[a], b_[c], acc[a][c]);
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int gc = col0 + tx + 16 * c;
-        sc[ty + 16 * a][tx + 16 * c] =
-            gc < c_end ? acc[a][c] + bv[gc] : -INFINITY;
-      }
-    __syncthreads();
+    score_tile<T, BN>(h, wv, bv, N, D, V, r0, col0, c_end, hs, ws, sc);
     // merge this tile into each row's running top-k and (max, sum exp)
     for (int r = warp; r < BN; r += THREADS / 32) {
       if (r0 + r >= N) continue;
-      Cand c0{sc[r][lane], col0 + lane};
-      Cand c1{sc[r][lane + 32], col0 + lane + 32};
-      if (col0 + lane >= c_end) c0 = {-INFINITY, INT_MAX};
-      if (col0 + lane + 32 >= c_end) c1 = {-INFINITY, INT_MAX};
+      Cand c0, c1;
+      tile_cands(sc[r], col0, c_end, lane, c0, c1);
       Cand c2{-INFINITY, INT_MAX};
       if (lane < k) c2 = {run_v[r][lane], run_i[r][lane]};
-      const float tmax = warp_max(fmaxf(c0.v, c1.v));
-      const float m_old = run_m[r];
-      const float m_new = fmaxf(m_old, tmax);
-      const float part = warp_sum(__expf(c0.v - m_new) + __expf(c1.v - m_new));
+      online_lse(c0, c1, lane, run_m[r], run_s[r]);
       float new_v = -INFINITY;
       int new_i = INT_MAX;
       for (int j = 0; j < k; ++j) {
@@ -181,10 +223,6 @@ __global__ void __launch_bounds__(THREADS) score_partial_kernel(
       if (lane < k) {
         run_v[r][lane] = new_v;
         run_i[r][lane] = new_i;
-      }
-      if (lane == 0) {
-        run_s[r] = run_s[r] * __expf(m_old - m_new) + part;
-        run_m[r] = m_new;
       }
       __syncwarp();
     }
@@ -206,15 +244,151 @@ __global__ void __launch_bounds__(THREADS) score_partial_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// k above KMAX: each row's list of kc entries in dynamic shared memory
+// ---------------------------------------------------------------------------
+
+// static shared memory of the wide first pass at RB rows a block
+__host__ __device__ constexpr size_t wide_static_bytes(int RB) {
+  return sizeof(float) * ((size_t)RB * (BD + 1) + BD * BV + (size_t)RB * (BV + 1) + 2 * RB);
+}
+
+constexpr size_t SMEM_MAX = 232448;   // a block's shared memory on sm_90
+
+// dynamic shared memory of the lists: (value, index) x RB rows x kc
+size_t wide_list_bytes(int RB, int kc) {
+  return (sizeof(float) + sizeof(int)) * (size_t)RB * kc;
+}
+
+// rows a block of the wide first pass: the most of 64, 32, 16 whose lists
+// fit beside the product's buffers; 0 if none does
+int wide_rows(int kc) {
+  for (int RB = BN; RB >= 16; RB /= 2)
+    if (wide_static_bytes(RB) + wide_list_bytes(RB, kc) <= SMEM_MAX) return RB;
+  return 0;
+}
+
+// insert c, which beats the list's last entry, into the sorted list
+// (lv, li) of kc entries: the entries that rank before it stay, the rest
+// move up one slot (32 at a time, the top segment first, so no entry is
+// overwritten before it has moved) and the last one drops out
+__device__ __forceinline__ void list_insert(float* lv, int* li, int kc, Cand c, int lane) {
+  int before = 0;
+  for (int j = lane; j < kc; j += 32) before += better(lv[j], li[j], c.v, c.i);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) before += __shfl_xor_sync(0xffffffffu, before, o);
+  const int p = before;                         // the list is sorted: c's slot
+  for (int s = (kc - 2) >> 5; s >= 0 && 32 * s + 31 >= p; --s) {
+    const int j = 32 * s + lane;
+    const bool move = j >= p && j <= kc - 2;
+    float v = 0.f;
+    int i = 0;
+    if (move) {
+      v = lv[j];
+      i = li[j];
+    }
+    __syncwarp();
+    if (move) {
+      lv[j + 1] = v;
+      li[j + 1] = i;
+    }
+    __syncwarp();
+  }
+  if (lane == 0) {
+    lv[p] = c.v;
+    li[p] = c.i;
+  }
+  __syncwarp();
+}
+
+template <typename T, int RB>
+__global__ void __launch_bounds__(THREADS) score_partial_wide_kernel(
+    const T* __restrict__ h, const T* __restrict__ wv,
+    const float* __restrict__ bv, int N, int D, int V, int kc, int chunk_cols,
+    int n_chunks, float* __restrict__ part_v, int* __restrict__ part_i,
+    float* __restrict__ part_m, float* __restrict__ part_s) {
+  __shared__ float hs[RB][BD + 1];
+  __shared__ float ws[BD][BV];
+  __shared__ float sc[RB][BV + 1];
+  __shared__ float run_m[RB];
+  __shared__ float run_s[RB];
+  extern __shared__ __align__(16) unsigned char lists[];
+  float* lvs = reinterpret_cast<float*>(lists);            // [RB][kc]
+  int* lis = reinterpret_cast<int*>(lvs + RB * kc);        // [RB][kc]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int r0 = blockIdx.y * RB;
+  const int chunk = blockIdx.x;
+  const int c_begin = chunk * chunk_cols;
+  const int c_end = min(V, c_begin + chunk_cols);
+
+  for (int e = tid; e < RB * kc; e += THREADS) {
+    lvs[e] = -INFINITY;
+    lis[e] = INT_MAX;
+  }
+  for (int e = tid; e < RB; e += THREADS) {
+    run_m[e] = -INFINITY;
+    run_s[e] = 0.f;
+  }
+
+  for (int col0 = c_begin; col0 < c_end; col0 += BV) {
+    score_tile<T, RB>(h, wv, bv, N, D, V, r0, col0, c_end, hs, ws, sc);
+    for (int r = warp; r < RB; r += THREADS / 32) {
+      if (r0 + r >= N) continue;
+      Cand c0, c1;
+      tile_cands(sc[r], col0, c_end, lane, c0, c1);
+      online_lse(c0, c1, lane, run_m[r], run_s[r]);
+      float* lv = lvs + r * kc;
+      int* li = lis + r * kc;
+      // candidates that beat the last entry, one at a time in lane order;
+      // each is checked again against the last entry, which only rises
+      unsigned q0 = __ballot_sync(0xffffffffu,
+                                  c0.i != INT_MAX && better(c0.v, c0.i, lv[kc - 1], li[kc - 1]));
+      unsigned q1 = __ballot_sync(0xffffffffu,
+                                  c1.i != INT_MAX && better(c1.v, c1.i, lv[kc - 1], li[kc - 1]));
+      while (q0 | q1) {
+        const bool first = q0 != 0u;
+        const int src = __ffs(first ? q0 : q1) - 1;
+        (first ? q0 : q1) &= ~(1u << src);
+        Cand c;
+        c.v = __shfl_sync(0xffffffffu, first ? c0.v : c1.v, src);
+        c.i = __shfl_sync(0xffffffffu, first ? c0.i : c1.i, src);
+        if (better(c.v, c.i, lv[kc - 1], li[kc - 1])) list_insert(lv, li, kc, c, lane);
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < RB * kc; e += THREADS) {
+    const int r = e / kc, j = e % kc;
+    if (r0 + r < N) {
+      const long long o = ((long long)(r0 + r) * n_chunks + chunk) * kc + j;
+      part_v[o] = lvs[e];
+      part_i[o] = lis[e];
+    }
+  }
+  for (int r = tid; r < RB; r += THREADS) {
+    if (r0 + r < N) {
+      part_m[(long long)(r0 + r) * n_chunks + chunk] = run_m[r];
+      part_s[(long long)(r0 + r) * n_chunks + chunk] = run_s[r];
+    }
+  }
+}
+
+// One warp a row: the lse from the chunks' (max, sum exp) pairs and the
+// tail; then k rounds over the chunks' lists (kc entries each) and the
+// tail, round j taking the best candidate that ranks after round j - 1's
+// pick (indices are distinct, so nothing else needs marking; list padding,
+// index INT_MAX, never counts).
 __global__ void __launch_bounds__(THREADS) score_merge_kernel(
     const float* __restrict__ part_v, const int* __restrict__ part_i,
     const float* __restrict__ part_m, const float* __restrict__ part_s,
-    const float* __restrict__ tail, int N, int V, int T, int k, int n_chunks,
+    const float* __restrict__ tail, int N, int V, int T, int k, int kc, int n_chunks,
     float* __restrict__ vals, int* __restrict__ idx, float* __restrict__ lse) {
   const int lane = threadIdx.x & 31;
   const int n = blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
   if (n >= N) return;
-  const int P = n_chunks * k;  // partial candidates, then T tail entries
+  const int P = n_chunks * kc;  // partial candidates, then T tail entries
   const float* pv = part_v + (long long)n * P;
   const int* pi = part_i + (long long)n * P;
   const float* tr = tail + (long long)n * T;
@@ -232,25 +406,19 @@ __global__ void __launch_bounds__(THREADS) score_merge_kernel(
   for (int t = lane; t < T; t += 32) s += __expf(tr[t] - m);
   s = warp_sum(s);
 
-  int taken[KMAX];
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j) taken[j] = -1;
+  Cand prev{INFINITY, -1};     // ranks before every candidate
   for (int j = 0; j < k; ++j) {
     Cand mine{-INFINITY, INT_MAX};
     for (int e = lane; e < P + T; e += 32) {
-      Cand c = e < P ? Cand{pv[e], pi[e]} : Cand{tr[e - P], V + (e - P)};
-      bool used = c.i == INT_MAX;
-#pragma unroll
-      for (int q = 0; q < KMAX; ++q) used |= (q < j) && (taken[q] == c.i);
-      if (!used && better(c.v, c.i, mine.v, mine.i)) mine = c;
+      const Cand c = e < P ? Cand{pv[e], pi[e]} : Cand{tr[e - P], V + (e - P)};
+      if (c.i != INT_MAX && better(prev.v, prev.i, c.v, c.i) &&
+          better(c.v, c.i, mine.v, mine.i))
+        mine = c;
     }
-    const Cand best = warp_best(mine);
-#pragma unroll
-    for (int q = 0; q < KMAX; ++q)
-      if (q == j) taken[q] = best.i;
+    prev = warp_best(mine);
     if (lane == 0) {
-      vals[(long long)n * k + j] = best.v;
-      idx[(long long)n * k + j] = best.i;
+      vals[(long long)n * k + j] = prev.v;
+      idx[(long long)n * k + j] = prev.i;
     }
   }
   if (lane == 0) lse[n] = m + logf(s);
@@ -577,18 +745,48 @@ int launch_mma(int k, dim3 grid, cudaStream_t s, const bf16* h, const bf16* wv,
   });
 }
 
-// TC: the bf16 tensor-core first pass, which needs D % 4 == 0, D <= 512,
-// V % 8 == 0, h on an 8-byte and wv on a 16-byte boundary
+// the wide first pass at RB rows a block as fn(kernel), its shared memory
+// opened to the lists' size first
+template <typename Scalar, typename Fn>
+int with_wide_kernel(int RB, int kc, Fn&& fn) {
+  auto call = [&](auto kernel) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(wide_list_bytes(RB, kc)));
+    return err != cudaSuccess ? static_cast<int>(err) : fn(kernel);
+  };
+  switch (RB) {
+    case 64: return call(score_partial_wide_kernel<Scalar, 64>);
+    case 32: return call(score_partial_wide_kernel<Scalar, 32>);
+    case 16: return call(score_partial_wide_kernel<Scalar, 16>);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// TC: the bf16 tensor-core first pass, which needs k <= KMAX, D % 4 == 0,
+// D <= 512, V % 8 == 0, h on an 8-byte and wv on a 16-byte boundary.  A
+// chunk's list holds kc = min(k, chunk_cols) entries (part_v / part_i are
+// (N, n_chunks, kc)); k above KMAX takes the wide first pass.
 template <typename Scalar, bool TC>
 int run(const void* h, const void* wv, const float* bv, const float* tail,
         float* part_v, int* part_i, float* part_m, float* part_s, float* vals,
         int* idx, float* lse, int N, int D, int V, int T, int k,
         int chunk_cols, int n_chunks, void* stream) {
-  if (k < 1 || k > KMAX || chunk_cols % BV != 0)
+  if (k < 1 || k > V + T || chunk_cols < BV || chunk_cols % BV != 0 || (TC && k > KMAX))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int kc = k < chunk_cols ? k : chunk_cols;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   dim3 grid1(n_chunks, (N + BN - 1) / BN);
-  if constexpr (TC) {
+  if (k > KMAX) {
+    const int RB = wide_rows(kc);
+    const int err = with_wide_kernel<Scalar>(RB, kc, [&](auto kernel) {
+      kernel<<<dim3(n_chunks, (N + RB - 1) / RB), THREADS, wide_list_bytes(RB, kc), s>>>(
+          static_cast<const Scalar*>(h), static_cast<const Scalar*>(wv), bv, N, D, V, kc,
+          chunk_cols, n_chunks, part_v, part_i, part_m, part_s);
+      return 0;
+    });
+    if (err) return err;
+  } else if constexpr (TC) {
     if (D % 4 || D > TC_MAXD || V % 8 || reinterpret_cast<uintptr_t>(h) % 8 ||
         reinterpret_cast<uintptr_t>(wv) % 16)
       return static_cast<int>(cudaErrorInvalidValue);
@@ -605,7 +803,7 @@ int run(const void* h, const void* wv, const float* bv, const float* tail,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows_per_block = THREADS / 32;
   score_merge_kernel<<<(N + rows_per_block - 1) / rows_per_block, THREADS, 0, s>>>(
-      part_v, part_i, part_m, part_s, tail, N, V, T, k, n_chunks, vals, idx, lse);
+      part_v, part_i, part_m, part_s, tail, N, V, T, k, kc, n_chunks, vals, idx, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -628,15 +826,25 @@ ICEK_EXPORT int score_topk_bf16_mma(SCORE_ARGS) {
   return run<__nv_bfloat16, true>(SCORE_PASS);
 }
 
-// blocks of the first pass that score_topk_<dtype>[_mma] launches for this k
-// and D, resident on the current device at once: the wrapper splits the
-// vocab so the first pass has about that many blocks
-ICEK_EXPORT int score_topk_grid(int bf16, int tc, int k, int D, int* blocks) {
-  if (k < 1 || k > KMAX || D < 1 || (tc && (!bf16 || D > TC_MAXD)))
+// The first pass that score_topk_<dtype>[_mma] launches for lists of kc
+// entries and width D: its blocks resident on the current device at once
+// (the wrapper splits the vocab so the first pass has about that many) and
+// its rows a block (64; fewer for wide lists)
+ICEK_EXPORT int score_topk_grid(int bf16, int tc, int kc, int D, int* blocks, int* rows) {
+  if (kc < 1 || D < 1 || (tc && (!bf16 || D > TC_MAXD || kc > KMAX)))
     return static_cast<int>(cudaErrorInvalidValue);
+  *rows = BN;
+  if (kc > KMAX) {
+    *rows = wide_rows(kc);
+    auto occupancy = [&](auto kernel) {
+      return resident_blocks(kernel, THREADS, wide_list_bytes(*rows, kc), blocks);
+    };
+    return bf16 ? with_wide_kernel<__nv_bfloat16>(*rows, kc, occupancy)
+                : with_wide_kernel<float>(*rows, kc, occupancy);
+  }
   if (tc)
-    return with_k(k, [&](auto kc) {
-      constexpr int K = decltype(kc)::value;
+    return with_k(kc, [&](auto kk) {
+      constexpr int K = decltype(kk)::value;
       const cudaError_t err = mma_opt_in<K>();
       if (err != cudaSuccess) return static_cast<int>(err);
       return resident_blocks(score_partial_mma_kernel<K>, TC_THREADS, tc_smem_bytes(D, K),

@@ -125,10 +125,12 @@ def beam_decode(params, cfg: ModelConfig, vocab_size: int, num_entity_rows: int,
     hypothesis of each image.
 
     A kernel whose switch is on runs every step, or the call raises before
-    the first one: the score head takes K <= 16 (``copy_scores.supports``),
-    the decoder step any K (``decoder_step.supports``: the tensor-core route
-    up to K = 16 in bf16, the CUDA-core route otherwise).  Nothing gives way
-    to the plain step or scores; those run only with the switch off.
+    the first one: the score head takes any K up to the width of the
+    extended vocabulary (``copy_scores.supports``: lists in registers up to
+    K = 16, in shared memory above), the decoder step any K
+    (``decoder_step.supports``: the tensor-core route up to K = 16 in bf16,
+    the CUDA-core route otherwise).  Nothing gives way to the plain step or
+    scores; those run only with the switch off.
     """
     if kv_dtype not in (None, "auto"):
         raise NotImplementedError(f"kv_dtype={kv_dtype!r} is not ported yet")
@@ -162,9 +164,9 @@ def beam_decode(params, cfg: ModelConfig, vocab_size: int, num_entity_rows: int,
     cache_shape = (cfg.num_layers, B, max_len * K, D)
     caches_k = torch.zeros(cache_shape, dtype=compute_dtype, device=dev)
     caches_v = torch.zeros(cache_shape, dtype=compute_dtype, device=dev)
-    if use_fused_scores and not cs.supports(K):
+    if use_fused_scores and not cs.supports(K, S):
         raise ValueError(f"beam_decode: the fused score head takes beams of 1 to "
-                         f"{cs.MAX_K}, not {K}")
+                         f"{S}, not {K}")
     if use_megakernel:
         stacked = dsk.stack_decoder_params(params["decoder"], compute_dtype)
         if not dsk.supports(stacked, caches_k, K, H):

@@ -20,6 +20,8 @@ import subprocess
 import threading
 from typing import Dict, List, Optional
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -29,6 +31,11 @@ SOURCES = ("flash_attention", "score_topk", "decoder_step", "fused_norm")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# (library, entry point) -> the bound function, read without the lock (a
+# dict lookup is atomic under the GIL): a wrapper's call costs one lookup
+_bound: Dict[tuple, "ctypes._CFuncPtr"] = {}
+# the current stream's handle without building a torch.cuda.Stream object
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 # nvcc's -Xptxas -v report per library (registers, shared memory, spills)
 ptxas_reports: Dict[str, str] = {}
 
@@ -114,12 +121,25 @@ def load(name: str) -> ctypes.CDLL:
 
 def bind(name: str, fn: str, argtypes) -> "ctypes._CFuncPtr":
     """C entry point ``fn`` of library ``name`` with its argtypes set
-    (pointers and the stream as c_void_p, so none is cut to 32 bits)."""
-    f = getattr(load(name), fn)
-    if f.argtypes is None:
+    (pointers and the stream as c_void_p, so none is cut to 32 bits),
+    resolved once and then taken from a cache."""
+    f = _bound.get((name, fn))
+    if f is None:
+        f = getattr(load(name), fn)
         f.argtypes = argtypes
         f.restype = ctypes.c_int
+        _bound[(name, fn)] = f
     return f
+
+
+def use_variant(name: str, path: str) -> None:
+    """Serve library ``name`` from the variant build at ``path`` for the rest
+    of this process.  One build of a source a process: with two loaded,
+    launches ran the last-loaded build's kernels whichever was asked."""
+    with _lock:
+        if name in _libs:
+            raise RuntimeError(f"{name} is already loaded in this process")
+        _libs[name] = ctypes.CDLL(path)
 
 
 def check(err: int, name: str, what: str) -> None:
@@ -132,17 +152,17 @@ def check(err: int, name: str, what: str) -> None:
 
 def stream_of(t) -> int:
     """The current CUDA stream of tensor ``t``'s device, as an int."""
-    import torch
-
+    if _raw_stream is not None:
+        return _raw_stream(t.get_device())
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def require_cuda(what: str, *tensors, dtype=None) -> None:
     """Checks shared by the wrappers: every tensor on one CUDA device, of
     ``dtype`` when given."""
-    dev = tensors[0].device
+    dev = tensors[0].get_device()        # -1 on the CPU
     for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
+        if not t.is_cuda or t.get_device() != dev:
             raise ValueError(f"{what}: all tensors must be on one CUDA device")
         if dtype is not None and t.dtype != dtype:
             raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")

@@ -5,13 +5,16 @@ logits (argmax + runner-up for greedy, top-K for beam) and the row
 logsumexp.  ``fused_score_topk`` runs ``csrc/score_topk.cu`` for CUDA
 tensors, which never writes the (N, V) scores to device memory, and its
 plain PyTorch version ``reference_score_topk`` for CPU tensors.  Which
-first pass a CUDA call runs is decided by dtype and alignment alone
-(``uses_tensor_cores``): bfloat16 operands that allow 8-byte copies of h's
-rows and 16-byte copies of Wv's run the tensor-core kernel; float32, and
-bfloat16 that misses the alignment, run the CUDA-core kernel of the same
-source.  Neither gives way to the other or to the plain version.  Ties go
-to the lower index of [V | tail] (the lax.top_k contract), so vocab
-entries win ties against the tail.
+first pass a CUDA call runs is decided by k, dtype and alignment alone
+(``uses_tensor_cores``): up to k 16, bfloat16 operands that allow 8-byte
+copies of h's rows and 16-byte copies of Wv's run the tensor-core kernel;
+float32, and bfloat16 that misses the alignment, run the CUDA-core kernel
+of the same source.  Above k 16 (beams wider than 16) both dtypes run the
+CUDA-core kernel with its lists in shared memory.  None gives way to
+another or to the plain version.  k runs from 1 to the width of
+[V | tail], as ``lax.top_k``'s does.  Ties go to the lower index of
+[V | tail] (the lax.top_k contract), so vocab entries win ties against
+the tail.
 """
 
 from __future__ import annotations
@@ -43,46 +46,52 @@ def reference_score_topk(h, wv, bv, tail, k: int = 5):
     return vals, idx.to(torch.int32), torch.logsumexp(scores, dim=1)
 
 
-MAX_K = 16          # widest top-k the kernels keep (their lists live in registers)
+REGISTER_K = 16     # widest top-k whose lists the kernels keep in registers
+_WIDE_TILES = 16    # most 64-column tiles a chunk of the wide first pass takes
 
 
-def supports(k: int) -> bool:
-    """Whether ``fused_score_topk`` takes a top-k of width `k`: 1 to
-    ``MAX_K``.  A call outside it raises, on the CPU too."""
-    return 1 <= k <= MAX_K
+def supports(k: int, width: int) -> bool:
+    """Whether ``fused_score_topk`` takes a top-k of width `k` over rows of
+    `width` = V + T extended-vocabulary entries: 1 to `width`.  A call
+    outside it raises, on the CPU too."""
+    return 1 <= k <= width
 
 
-def uses_tensor_cores(h, wv) -> bool:
-    """Whether contiguous (h, wv) go to the tensor-core kernel: bfloat16, D a
-    multiple of 4 and at most 512, V a multiple of 8, h on an 8-byte and wv
-    on a 16-byte boundary (the kernel stages h's rows 8 bytes and Wv's rows
-    16 bytes a copy)."""
+def uses_tensor_cores(h, wv, k: int = 1) -> bool:
+    """Whether contiguous (h, wv) go to the tensor-core kernel at top-k `k`:
+    k at most 16, bfloat16, D a multiple of 4 and at most 512, V a multiple
+    of 8, h on an 8-byte and wv on a 16-byte boundary (the kernel stages h's
+    rows 8 bytes and Wv's rows 16 bytes a copy)."""
     D, V = wv.shape
-    return (h.dtype == torch.bfloat16 and D % 4 == 0 and D <= _TC_MAX_D and V % 8 == 0
-            and h.data_ptr() % 8 == 0 and wv.data_ptr() % 16 == 0)
+    return (k <= REGISTER_K and h.dtype == torch.bfloat16 and D % 4 == 0 and D <= _TC_MAX_D
+            and V % 8 == 0 and h.data_ptr() % 8 == 0 and wv.data_ptr() % 16 == 0)
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_blocks(device_index: int, dtype, tc: bool, k: int, d: int) -> int:
-    """Blocks of the first pass resident on the card at once, for the kernel
-    a call with this dtype, dispatch, k and width runs.  Asked once per
-    (device, dtype, dispatch, k, width)."""
-    out = ctypes.c_int(0)
+def _first_pass_grid(device_index: int, dtype, tc: bool, kc: int, d: int):
+    """(blocks resident on the card at once, rows a block) of the first pass
+    a call with this dtype, dispatch, list length and width runs.  Asked
+    once per (device, dtype, dispatch, list length, width)."""
+    blocks, rows = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device_index):
         fn = _build.bind("score_topk", "score_topk_grid",
-                         [_I] * 4 + [ctypes.POINTER(ctypes.c_int)])
-        _build.check(fn(int(dtype == torch.bfloat16), int(tc), k, d, ctypes.byref(out)),
-                     "score_topk", "fused_score_topk grid")
-    return out.value
+                         [_I] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2)
+        _build.check(fn(int(dtype == torch.bfloat16), int(tc), kc, d, ctypes.byref(blocks),
+                        ctypes.byref(rows)), "score_topk", "fused_score_topk grid")
+    return blocks.value, rows.value
 
 
-def _chunking(n_rows: int, vocab: int, target: int):
-    """(chunk_cols, n_chunks): split the vocab so the first pass has about
-    `target` blocks, and no more, whatever the row count."""
+def _chunking(n_rows: int, vocab: int, target: int, rows: int = _ROWS,
+              max_tiles: int = None):
+    """(chunk_cols, n_chunks): split the vocab so the first pass (`rows` rows
+    a block) has about `target` blocks, and no more, whatever the row count;
+    a chunk takes at most `max_tiles` tiles when given."""
     n_tiles = -(-vocab // _TILE)
-    row_blocks = -(-n_rows // _ROWS)
+    row_blocks = -(-n_rows // rows)
     chunks = min(n_tiles, max(1, target // row_blocks))
     tiles_per_chunk = -(-n_tiles // chunks)
+    if max_tiles is not None:
+        tiles_per_chunk = min(tiles_per_chunk, max_tiles)
     return tiles_per_chunk * _TILE, -(-n_tiles // tiles_per_chunk)
 
 
@@ -98,8 +107,8 @@ def fused_score_topk(h, wv, bv, tail, k: int = 5):
         raise ValueError(f"fused_score_topk: h {tuple(h.shape)} wv "
                          f"{tuple(wv.shape)} bv {tuple(bv.shape)} tail "
                          f"{tuple(tail.shape)} do not agree")
-    if not supports(k):
-        raise ValueError(f"fused_score_topk: k={k} outside [1, {MAX_K}]")
+    if not supports(k, V + tail.shape[1]):
+        raise ValueError(f"fused_score_topk: k={k} outside [1, {V + tail.shape[1]}]")
     if h.device.type == "cpu":
         return reference_score_topk(h, wv, bv, tail, k)
     _build.require_cuda("fused_score_topk", h, wv, dtype=h.dtype)
@@ -110,12 +119,18 @@ def fused_score_topk(h, wv, bv, tail, k: int = 5):
     bv = bv.to(torch.float32).contiguous()
     tail = tail.to(torch.float32).contiguous()
     T = tail.shape[1]
-    tc = uses_tensor_cores(h, wv)
-    chunk_cols, n_chunks = _chunking(N, V, _resident_blocks(h.device.index, h.dtype, tc, k, D))
+    tc = uses_tensor_cores(h, wv, k)
+    wide = k > REGISTER_K
+    # a chunk's list: k entries, or all of a chunk narrower than k
+    max_tiles = _WIDE_TILES if wide else None
+    blocks, rows = _first_pass_grid(h.device.index, h.dtype, tc,
+                                    min(k, _WIDE_TILES * _TILE) if wide else k, D)
+    chunk_cols, n_chunks = _chunking(N, V, blocks, rows, max_tiles)
+    kc = min(k, chunk_cols)
     f32 = dict(dtype=torch.float32, device=h.device)
     i32 = dict(dtype=torch.int32, device=h.device)
-    part_v = torch.empty((N, n_chunks, k), **f32)
-    part_i = torch.empty((N, n_chunks, k), **i32)
+    part_v = torch.empty((N, n_chunks, kc), **f32)
+    part_i = torch.empty((N, n_chunks, kc), **i32)
     part_m = torch.empty((N, n_chunks), **f32)
     part_s = torch.empty((N, n_chunks), **f32)
     vals = torch.empty((N, k), **f32)

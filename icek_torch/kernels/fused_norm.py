@@ -32,6 +32,8 @@ from icek_torch.kernels.flash_attention import keep_threshold
 _P, _I, _LL, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float, ctypes.c_uint)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_FWD_ENTRY = {dt: "ln_fwd_" + sfx for dt, sfx in _SUFFIX.items()}
+_DROP_ENTRY = {dt: "dropout_" + sfx for dt, sfx in _SUFFIX.items()}
 MAX_D = 1024          # widest row the LayerNorm kernels hold in registers
 
 
@@ -65,7 +67,10 @@ def _rows(t):
 
 
 def _param(p):
-    """A LayerNorm parameter as the kernels read it: float32, 16-byte aligned."""
+    """A LayerNorm parameter as the kernels read it: float32, 16-byte aligned
+    (itself when it already is)."""
+    if p.dtype == torch.float32 and p.is_contiguous() and p.data_ptr() % 16 == 0:
+        return p
     p = p.detach().to(torch.float32).contiguous()
     return p if p.data_ptr() % 16 == 0 else p.clone()
 
@@ -78,30 +83,39 @@ def _check(what, x, *same):
         raise ValueError(f"{what}: empty input")
 
 
+@functools.lru_cache(maxsize=None)
+def _grid(entry: str, device_index: int, dtype, d: int) -> int:
+    """Blocks of a persistent kernel resident on the card at once (its grid;
+    for the backward also the rows of its partial sums), from the C entry
+    point `entry` (ln_fwd_grid, ln_bwd_grid: width and dtype; dropout_grid:
+    dtype).  Asked once per (entry, device, dtype, width)."""
+    out = ctypes.c_int(0)
+    bf16 = int(dtype == torch.bfloat16)
+    with torch.cuda.device(device_index):
+        if entry == "dropout_grid":
+            fn = _build.bind("fused_norm", entry, [_I, ctypes.POINTER(ctypes.c_int)])
+            err = fn(bf16, ctypes.byref(out))
+        else:
+            fn = _build.bind("fused_norm", entry, [_I, _I, ctypes.POINTER(ctypes.c_int)])
+            err = fn(d, bf16, ctypes.byref(out))
+        _build.check(err, "fused_norm", f"fused_norm {entry}")
+    return out.value
+
+
+_FWD_ARGS = [_P] * 5 + [_LL, _I, _F, _F, _U, _U, _I, _P]
+
+
 def _ln_forward(x2, h2, scale, bias, rate, seed, eps):
     y = torch.empty_like(x2)
-    fn = _build.bind("fused_norm", "ln_fwd_" + _SUFFIX[x2.dtype],
-                     [_P] * 5 + [_LL, _I, _F, _F, _U, _U, _P])
+    N, D = x2.shape
+    fn = _build.bind("fused_norm", _FWD_ENTRY[x2.dtype], _FWD_ARGS)
     err = fn(x2.data_ptr(), h2.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-             y.data_ptr(), x2.shape[0], x2.shape[1], eps, 1.0 / (1.0 - rate),
-             keep_threshold(rate), seed, _build.stream_of(x2))
-    _build.check(err, "fused_norm", "dropout_add_ln")
+             y.data_ptr(), N, D, eps, 1.0 / (1.0 - rate), keep_threshold(rate), seed,
+             _grid("ln_fwd_grid", x2.get_device(), x2.dtype, D), _build.stream_of(x2))
+    if err:
+        _build.check(err, "fused_norm", "dropout_add_ln")
     dropout_add_ln.launches += 1
     return y
-
-
-@functools.lru_cache(maxsize=None)
-def _bwd_blocks(device_index: int, dtype, d: int) -> int:
-    """Blocks of the backward kernel resident on the card at once: its
-    persistent grid and the rows of its partial sums.  Asked once per
-    (device, dtype, width)."""
-    out = ctypes.c_int(0)
-    with torch.cuda.device(device_index):
-        fn = _build.bind("fused_norm", "ln_bwd_grid",
-                         [_I, _I, ctypes.POINTER(ctypes.c_int)])
-        _build.check(fn(d, int(dtype == torch.bfloat16), ctypes.byref(out)), "fused_norm",
-                     "dropout_add_ln backward grid")
-    return out.value
 
 
 def dropout_add_ln_bwd(x2, h2, scale, g2, rate, seed, eps):
@@ -109,7 +123,7 @@ def dropout_add_ln_bwd(x2, h2, scale, g2, rate, seed, eps):
     dbias) with dx, dh in x's dtype and (D,) float32 parameter gradients."""
     N, D = x2.shape
     dx, dh = torch.empty_like(x2), torch.empty_like(x2)
-    nblocks = _bwd_blocks(x2.device.index, x2.dtype, D)
+    nblocks = _grid("ln_bwd_grid", x2.get_device(), x2.dtype, D)
     f32 = dict(dtype=torch.float32, device=x2.device)
     partial = torch.empty((nblocks, 2, D), **f32)
     dscale, dbias = torch.empty((D,), **f32), torch.empty((D,), **f32)
@@ -167,13 +181,17 @@ def dropout_add_ln(x, h, scale, bias, *, rate, seed=None, eps=1e-5):
     return _DropoutAddLN.apply(x, h, scale, bias, float(rate), seed, float(eps))
 
 
+_DROP_ARGS = [_P, _P, _LL, _I, _F, _U, _U, _I, _P]
+
+
 def _dropout_launch(h2, rate, seed):
     out = torch.empty_like(h2)
-    fn = _build.bind("fused_norm", "dropout_" + _SUFFIX[h2.dtype],
-                     [_P, _P, _LL, _I, _F, _U, _U, _P])
+    fn = _build.bind("fused_norm", _DROP_ENTRY[h2.dtype], _DROP_ARGS)
     err = fn(h2.data_ptr(), out.data_ptr(), h2.shape[0], h2.shape[1],
-             1.0 / (1.0 - rate), keep_threshold(rate), seed, _build.stream_of(h2))
-    _build.check(err, "fused_norm", "hw_dropout")
+             1.0 / (1.0 - rate), keep_threshold(rate), seed,
+             _grid("dropout_grid", h2.get_device(), h2.dtype, 0), _build.stream_of(h2))
+    if err:
+        _build.check(err, "fused_norm", "hw_dropout")
     hw_dropout.launches += 1
     return out
 

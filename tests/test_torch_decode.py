@@ -96,28 +96,47 @@ def test_beam_width_9_runs_through_the_kernels(case, monkeypatch):
     np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=1e-4)
 
 
-def test_beam_wider_than_the_score_head_raises():
-    """Beam 17 with the fused scores on raises before the first step; with
-    them off it decodes."""
-    _, tc, _, tp, _, tctx, ids, L = decode_contexts("tiny", seed=0)
-    with pytest.raises(ValueError, match="1 to 16, not 17"):
-        tbeam.beam_decode(tp, tc.model, *ids, tctx, L, beam_size=17, use_fused_scores=True)
-    tokens, _ = tbeam.beam_decode(tp, tc.model, *ids, tctx, L, beam_size=17,
-                                  use_megakernel=True, use_fused_scores=False)
-    assert tokens.shape == (tctx.entities_encoded.shape[0], L)
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_beam_width_17_runs_through_the_score_head(case, monkeypatch):
+    """Beam 17 (wider than the score head's register lists) with both kernel
+    switches on: every step calls the score head and the decoder step, and
+    gives the tokens of the run with both off and of JAX."""
+    jc, tc, jp, tp, jctx, tctx, ids, L = decode_contexts(case, seed=5)
+    calls = spy_kernel_calls(monkeypatch)
+    got_t, got_s = tbeam.beam_decode(tp, tc.model, *ids, tctx, L, beam_size=17,
+                                     use_megakernel=True, use_fused_scores=True)
+    assert calls["fused_score_topk"] == calls["fused_beam_decoder_step"] == L
+    off_t, off_s = tbeam.beam_decode(tp, tc.model, *ids, tctx, L, beam_size=17,
+                                     use_megakernel=False, use_fused_scores=False)
+    assert calls["fused_score_topk"] == calls["fused_beam_decoder_step"] == L
+    want_t, want_s = jbeam.beam_decode(jp, jc.model, *ids, jctx, L, beam_size=17)
+    np.testing.assert_array_equal(got_t.numpy(), off_t.numpy())
+    np.testing.assert_array_equal(got_t.numpy(), np.asarray(want_t))
+    np.testing.assert_allclose(got_s.numpy(), off_s.numpy(), atol=1e-4)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=1e-4)
 
 
 def test_score_head_route_predicate():
-    """copy_scores.supports: widths 1 to 16; the kernel refuses any other k,
-    on the CPU too."""
+    """copy_scores.supports: widths 1 to V + T (the extended vocabulary, as
+    lax.top_k takes); the wrapper refuses any other k, on the CPU too, and
+    so does beam_decode before its first step; the tensor-core first pass
+    takes k up to 16."""
     from icek_torch.kernels import copy_scores as tcs
 
-    assert [tcs.supports(k) for k in (0, 1, 2, 5, 8, 9, 10, 16, 17)] == [
-        False] + [True] * 7 + [False]
+    assert [tcs.supports(k, 19) for k in (0, 1, 2, 5, 16, 17, 19, 20)] == [
+        False] + [True] * 6 + [False]
     args = (torch.zeros(4, 8), torch.zeros(8, 16), torch.zeros(16), torch.zeros(4, 3))
-    tcs.fused_score_topk(*args, k=16)
-    with pytest.raises(ValueError, match="k=17"):
-        tcs.fused_score_topk(*args, k=17)
+    assert tcs.fused_score_topk(*args, k=17)[1].shape == (4, 17)
+    assert tcs.fused_score_topk(*args, k=19)[1].shape == (4, 19)
+    with pytest.raises(ValueError, match="k=20"):
+        tcs.fused_score_topk(*args, k=20)
+    h, wv = torch.zeros((4, 8), dtype=torch.bfloat16), torch.zeros((8, 16), dtype=torch.bfloat16)
+    assert [tcs.uses_tensor_cores(h, wv, k) for k in (1, 16, 17)] == [True, True, False]
+    _, tc, _, tp, _, tctx, ids, L = decode_contexts("tiny", seed=0)
+    S = ids[0] + ids[1]                           # V + E: geo's extended vocabulary
+    with pytest.raises(ValueError, match=f"1 to {S}, not {S + 1}"):
+        tbeam.beam_decode(tp, tc.model, *ids, tctx, L, beam_size=S + 1,
+                          use_fused_scores=True)
 
 
 def test_decoder_step_route_predicate_on_widths():

@@ -404,16 +404,19 @@ def test_ring_schedule_runs_on_across_layers():
 
 
 def test_ablation_variants_match_the_kernel_source():
-    """``python -m icek_torch.kernels._ablate`` (the card's breakdown of the
-    kernel's time) cuts parts out by text replacement: every replacement still
-    finds its text in csrc/decoder_step.cu and changes it."""
+    """``python -m icek_torch.kernels._variants decoder_step`` (the card's
+    breakdown of the kernel's time) cuts parts out by text replacement: every
+    replacement still finds its text in csrc/decoder_step.cu and changes it."""
     import os
 
-    from icek_torch.kernels import _ablate, _build
+    from icek_torch.kernels import _build, _variants
 
     with open(os.path.join(_build.CSRC, "decoder_step.cu")) as f:
         src = f.read()
-    for name, (pairs, G) in _ablate.VARIANTS.items():
-        out = _ablate._variant_source(src, pairs)
+    for name, pairs in _variants.VARIANTS["decoder_step"].items():
+        out = _variants.variant_source("decoder_step", name, src)
         assert (out != src) == bool(pairs), name
+        G = _variants.IMAGES.get(name)
         assert G is None or 1 <= G * 5 <= ROWS
+        assert bool(pairs) or G is not None or name == "base", name
+    assert _variants.CUTS["decoder_step"] <= set(_variants.VARIANTS["decoder_step"])

@@ -147,17 +147,23 @@ def test_score_kernel_bf16_offset_h_takes_cuda_core_path(cuda, k):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,t,k", [(1, 37, 9), (65, 301, 10), (320, 301, 10), (2560, 301, 10),
                                    (2560, 402, 10), (77, 352, 13), (130, 301, 14),
-                                   (4096, 301, 16), (256, 1, 16)])
+                                   (4096, 301, 16), (256, 1, 16),
+                                   # above 16: lists in shared memory, both dtypes
+                                   (640, 301, 17), (1, 37, 17), (320, 402, 32),
+                                   (130, 1, 64), (63, 301, 100), (640, 301, 20)])
 def test_score_kernel_wide_k(cuda, dtype, n, t, k):
-    """Top-k of 9 to 16 (beams wider than 8): the tensor-core kernel's lists
-    at K 13 and 14 (where they outgrow its ring at the chunk's end) and 16,
-    the CUDA-core kernel's in f32; a tail of 1 and k > t.  Values and lse
+    """Top-k of 9 to 100 (beams wider than 8): the tensor-core kernel's
+    lists at K 13 and 14 (where they outgrow its ring at the chunk's end)
+    and 16, the CUDA-core kernel's in f32; above 16 the wide first pass in
+    both dtypes (lists of 64 and 100 entries: one tile and more than one); a
+    tail of 1 and k > t.  Values and lse
     within 1e-4 of the plain version; each returned index is distinct and
     its plain score is its value within 1e-4, so where an index differs
     from the plain version's, the two entries tie within 1e-4 (at 4096 rows
     x 16 the kernel's and torch's summation orders swap such near-ties:
     2 of 65536 entries on the card)."""
     h, wv, bv, tail = _score_inputs(cuda, dtype, n, 10000, t, seed=k)
+    assert tcs.uses_tensor_cores(h, wv, k) == (dtype == torch.bfloat16 and k <= 16)
     before = tcs.fused_score_topk.launches
     vals, idx, lse = tcs.fused_score_topk(h, wv, bv, tail, k=k)
     torch.cuda.synchronize()
@@ -492,7 +498,10 @@ def test_keep_masks_rate_and_seed(cuda, rate):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("n,d", [(530, 36), (64, 300), (77, 511), (9, 1024),
-                                 (26112, 300), (13312, 300)])   # knowledge / news B x T
+                                 (26112, 300), (13312, 300),    # knowledge / news B x T
+                                 (8192, 300), (13056, 300),     # geo decoder, knowledge facts
+                                 (1031, 300), (130, 301), (13, 512),
+                                 (25857, 300)])                 # odd, on the span kernel
 def test_dropout_add_ln_kernel_matches_plain(cuda, dtype, tol, rate, n, d):
     """Forward and all four gradients against the plain version under the
     kernel's own mask.  f32: 1e-4 on values of order 1 (dscale / dbias: 1e-4
@@ -558,7 +567,8 @@ def test_dropout_add_ln_backward_is_bit_identical_between_launches(cuda, dtype, 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,d", [(300, 512), (33, 37), (5, 2050), (26112, 512),
-                                 (13312, 512)])
+                                 (13312, 512), (8192, 512), (13056, 512), (1031, 300),
+                                 (13, 300), (130, 301)])
 def test_hw_dropout_kernel_matches_plain(cuda, dtype, n, d):
     from icek_torch.kernels import fused_norm as tfn
 
@@ -576,6 +586,92 @@ def test_hw_dropout_kernel_matches_plain(cuda, dtype, n, d):
         h.detach(), rate=0.2, keep=keep).float(), rtol=1e-6, atol=tol)
     torch.testing.assert_close(dh.float(), tfn.reference_hw_dropout(
         gy, rate=0.2, keep=keep).float(), rtol=1e-6, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [8192, 13056, 13312, 13313, 25856, 25857])
+def test_norm_kernels_masks_at_train_step_rows(cuda, dtype, n):
+    """At the train steps' row counts (and odd ones; on the H100 bf16 takes
+    the row forward up to 13313 rows and the span forward from 25856): the LayerNorm
+    forward drops h exactly where its backward's dh is zero and where
+    keep_mask drops; the dropout's forward and backward zero exactly the
+    keep_mask's drops; each keep rate within 0.005 of 0.8."""
+    from icek_torch.kernels import fused_norm as tfn
+
+    g = _gen(31)
+    x, h, gy = (torch.randn((n, 300), generator=g).to(cuda, dtype) for _ in range(3))
+    x, h = (torch.where(t == 0, torch.ones_like(t), t) for t in (x, h))
+    scale = (1 + 0.1 * torch.randn(300, generator=g)).to(cuda)
+    bias = (0.1 * torch.randn(300, generator=g)).to(cuda)
+    keep = tfn.keep_mask(n, 300, rate=0.2, seed=41, device=cuda)
+    assert abs(float(keep.float().mean()) - 0.8) <= 0.005
+    leaves = [t.clone().requires_grad_(True) for t in (x, h, scale, bias)]
+    y = tfn.dropout_add_ln(*leaves, rate=0.2, seed=41)
+    dh = torch.autograd.grad(y, leaves[1], gy)[0]
+    # y with h's dropped entries set to anything is the same y
+    h2 = torch.where(keep, h, torch.full_like(h, 7.0))
+    y2 = tfn.dropout_add_ln(x, h2, scale, bias, rate=0.2, seed=41)
+    torch.cuda.synchronize()
+    assert torch.equal(y.detach(), y2)
+    assert torch.equal(dh != 0, keep)
+    # randn draws an exact 0 about once in 2^24 values: none here, so an
+    # output is 0 exactly where the mask drops
+    nonzero = lambda t: torch.where(t == 0, torch.ones_like(t), t)
+    hf = nonzero(torch.randn((n, 512), generator=g)).to(cuda, dtype).requires_grad_(True)
+    gf = nonzero(torch.randn((n, 512), generator=g)).to(cuda, dtype)
+    kf = tfn.keep_mask(n, 512, rate=0.2, seed=42, device=cuda)
+    out = tfn.hw_dropout(hf, rate=0.2, seed=42)
+    (dhf,) = torch.autograd.grad(out, hf, gf)
+    torch.cuda.synchronize()
+    assert torch.equal(out != 0, kf) and torch.equal(dhf != 0, kf)
+    assert abs(float(kf.float().mean()) - 0.8) <= 0.005
+
+
+def test_wrappers_launch_on_the_current_stream(cuda):
+    """_build.stream_of reads the current stream's handle, on the default
+    stream and inside a side stream, as torch.cuda.current_stream does; a
+    kernel launched there is ordered with that stream's work."""
+    from icek_torch.kernels import _build
+    from icek_torch.kernels import fused_norm as tfn
+
+    t = torch.zeros(4, device=cuda)
+    assert _build.stream_of(t) == torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream()
+    h = torch.randn((4096, 512), device=cuda)
+    with torch.cuda.stream(side):
+        assert _build.stream_of(t) == side.cuda_stream
+        h2 = h * 2                                   # queued on the side stream
+        out = tfn.hw_dropout(h2, rate=0.2, seed=5)
+    side.synchronize()
+    keep = tfn.keep_mask(4096, 512, rate=0.2, seed=5, device=cuda)
+    torch.testing.assert_close(out, tfn.reference_hw_dropout(h * 2, rate=0.2, keep=keep),
+                               rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_norm_kernels_take_misaligned_rows(cuda, dtype):
+    """x, h and the dropout's input as views one row of 300 values into their
+    buffers (bf16: 600 bytes, so 8- but not 16-byte aligned; they take the
+    row kernels): the same results as aligned copies, under one mask."""
+    from icek_torch.kernels import fused_norm as tfn
+
+    n, d = 4097, 300
+    g = _gen(32)
+    bufs = [torch.randn((n + 1, d), generator=g).to(cuda, dtype) for _ in range(2)]
+    x, h = (b[1:] for b in bufs)
+    assert x.data_ptr() % 16 == (8 if dtype == torch.bfloat16 else 0)
+    scale = (1 + 0.1 * torch.randn(d, generator=g)).to(cuda)
+    bias = (0.1 * torch.randn(d, generator=g)).to(cuda)
+    keep = tfn.keep_mask(n, d, rate=0.2, seed=43, device=cuda)
+    want = tfn.reference_dropout_add_ln(x, h, scale, bias, rate=0.2, keep=keep)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for a, b in ((x, h), (x.clone(), h.clone())):
+        got = tfn.dropout_add_ln(a, b, scale, bias, rate=0.2, seed=43)
+        torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    for hh in (h, h.clone()):
+        got = tfn.hw_dropout(hh, rate=0.2, seed=43)
+        torch.testing.assert_close(got.float(), tfn.reference_hw_dropout(
+            h, rate=0.2, keep=keep).float(), rtol=1e-6, atol=0 if tol == 1e-4 else 2e-2)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 4e-2)])
@@ -924,13 +1020,11 @@ def test_beam_decode_with_facts_kernels_match_stock_on_card(cuda, preset):
     assert after[1] > counts[1] and after[2] > counts[2]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_beam_width_10_against_the_plain_path_on_card(cuda, dtype):
-    """Beam 10 with the kernel switches on (the defaults) runs the kernels at
-    every step: the score head at k 10, the decoder step on its tensor-core
-    route in bf16 (K <= 16) and its CUDA-core route in f32 (two blocks an
-    image).  f32 tokens equal the plain path's; bf16 best-hypothesis scores
-    within 5e-2."""
+def _beam_against_plain(cuda, dtype, K):
+    """Beam K with the kernel switches on (the defaults) against both off: the
+    score head runs every step, the decoder step on its tensor-core route
+    in bf16 up to K 16 and its CUDA-core route otherwise.  f32 tokens equal
+    the plain path's; bf16 best-hypothesis scores within 5e-2."""
     from icek_torch.decode import beam, greedy
 
     cfg, params, ents, _, tokens = _small_model(cuda, "georic", 14)
@@ -941,19 +1035,34 @@ def test_beam_width_10_against_the_plain_path_on_card(cuda, dtype):
     routes = tds.fused_beam_decoder_step.routes
     before = (routes["tensor_cores"].launches, routes["cuda_cores"].launches,
               tcs.fused_score_topk.launches)
-    got = beam.beam_decode(*args, beam_size=10, compute_dtype=dtype)
+    got = beam.beam_decode(*args, beam_size=K, compute_dtype=dtype)
     torch.cuda.synchronize()
-    tc = dtype == torch.bfloat16
+    tc = dtype == torch.bfloat16 and K <= 16
     assert routes["tensor_cores"].launches - before[0] == (L if tc else 0)
     assert routes["cuda_cores"].launches - before[1] == (0 if tc else L)
     assert tcs.fused_score_topk.launches - before[2] == L
-    want = beam.beam_decode(*args, beam_size=10, compute_dtype=dtype, use_megakernel=False,
+    want = beam.beam_decode(*args, beam_size=K, compute_dtype=dtype, use_megakernel=False,
                             use_fused_scores=False)
-    if tc:
+    if dtype == torch.bfloat16:
         torch.testing.assert_close(got[1], want[1], rtol=0, atol=5e-2)
     else:
         torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
         torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_beam_width_10_against_the_plain_path_on_card(cuda, dtype):
+    """Beam 10: the score head at k 10, the decoder step on its tensor-core
+    route in bf16 (K <= 16) and its CUDA-core route in f32 (two blocks an
+    image), against the plain path."""
+    _beam_against_plain(cuda, dtype, 10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_beam_width_20_against_the_plain_path_on_card(cuda, dtype):
+    """Beam 20: the score head's wide first pass (lists in shared memory)
+    and the CUDA-core decoder step in both dtypes, against the plain path."""
+    _beam_against_plain(cuda, dtype, 20)
 
 
 @pytest.mark.parametrize("preset", ["k_georic", "nytimes800k"])

@@ -135,6 +135,19 @@ def test_score_topk_plain_exact_ties(rng, k):
     assert idx.numpy()[0].tolist() == [3, 400, v + 2, 0, 1][:k]
 
 
+@pytest.mark.parametrize("k", [17, 40, 100])
+def test_score_topk_plain_wide_k_matches_jax(rng, k):
+    """Beams wider than 16: the plain version at k 17, 40 and 100 against
+    JAX's reference_score_topk on tie-free inputs (continuous random
+    scores), through fused_score_topk's CPU path and at rows whose
+    extended vocabulary (V + T = 557) is wider than any k here."""
+    n, d, v, t = 12, 24, 520, 37
+    _check_scores(rng.standard_normal((n, d)).astype(np.float32),
+                  rng.standard_normal((d, v)).astype(np.float32) * 0.1,
+                  rng.standard_normal((v,)).astype(np.float32) * 0.01,
+                  rng.standard_normal((n, t)).astype(np.float32), k, pallas=False)
+
+
 # ---------------------------------------------------------------------------
 # decoder-step megakernel
 # ---------------------------------------------------------------------------

@@ -20,6 +20,14 @@ version and the JAX package:
   lists merged; the merge kernel then takes the chunks' lists and the tail
   row, and the lse from the chunks' pairs and the tail.
 
+Above k 16 the CUDA-core wide first pass keeps one sorted list of
+kc = min(k, chunk columns) entries per row in shared memory; a tile's
+scores that beat the list's last entry are inserted one at a time (lanes in
+order, columns lane then lane + 32), each shifting the worse entries up one
+slot, 32 at a time from the top (``wide_partials``).  The merge's round j
+takes the best candidate that ranks after round j - 1's pick
+(``threshold_merge``).
+
 Tolerances: values and lse atol 1e-4 with IDENTICAL indices, as
 tests/test_torch_kernels.py holds the plain version (f32 inputs; the
 emulation's scores come from one f32 product, so only the tiling differs).
@@ -194,6 +202,115 @@ def tiled_score_topk(h, wv, bv, tail, k):
     m = torch.maximum(pm.max(dim=1).values, tail.max(dim=1).values)
     s = (ps * torch.exp(pm - m[:, None])).sum(dim=1) + torch.exp(tail - m[:, None]).sum(dim=1)
     return vals, idx.to(torch.int32), m + torch.log(s)
+
+
+def _list_insert(lv, li, v, i):
+    """The kernel's list_insert on one row's list (Python lists of kc
+    entries): c's slot p is the count of entries that rank before it; the
+    segments of 32 slots from the top down move [p, kc - 2] up one."""
+    kc = len(lv)
+    p = sum(1 for j in range(kc) if (lv[j] > v) or (lv[j] == v and li[j] < i))
+    for seg in range((kc - 2) >> 5, -1, -1):
+        if 32 * seg + 31 < p:
+            break
+        moved = [(j, lv[j], li[j]) for j in range(32 * seg, 32 * seg + 32)
+                 if p <= j <= kc - 2]                  # every lane reads, then writes
+        for j, a, b in moved:
+            lv[j + 1], li[j + 1] = a, b
+    lv[p], li[p] = v, i
+
+
+def wide_partials(scores, k, chunk_cols):
+    """The wide first pass on (N, V) f32 scores: per (row, chunk) the list of
+    kc entries as the kernel writes it, walking the chunk's 64-column tiles
+    and each tile's candidates that beat the last entry at the tile's
+    start (lanes in order, column lane first), checked again before each
+    insertion; and the number of insertions."""
+    N, V = scores.shape
+    kc = min(k, chunk_cols)
+    n_chunks = -(-V // chunk_cols)
+    pv = torch.full((N, n_chunks, kc), -math.inf)
+    pi = torch.full((N, n_chunks, kc), INT_MAX, dtype=torch.int64)
+    inserts = 0
+    for n in range(N):
+        for c in range(n_chunks):
+            lv, li = [-math.inf] * kc, [INT_MAX] * kc
+            c_end = min(V, (c + 1) * chunk_cols)
+            for col0 in range(c * chunk_cols, c_end, TILE):
+                cands = [[(float(scores[n, col]), col) if col < c_end else None
+                          for col in (col0 + lane + 32 * half for lane in range(32))]
+                         for half in (0, 1)]
+                t_v, t_i = lv[-1], li[-1]
+                ballots = [[x for x in half if x is not None and (
+                    x[0] > t_v or (x[0] == t_v and x[1] < t_i))] for half in cands]
+                for v, i in ballots[0] + ballots[1]:
+                    if v > lv[-1] or (v == lv[-1] and i < li[-1]):
+                        _list_insert(lv, li, v, i)
+                        inserts += 1
+            pv[n, c], pi[n, c] = torch.tensor(lv), torch.tensor(li)
+    return pv, pi, inserts
+
+
+def threshold_merge(cand_v, cand_i, k):
+    """The merge kernel's rounds on (N, P + T) candidates: round j takes the
+    best candidate ranking after round j - 1's pick; padding never counts."""
+    N = cand_v.shape[0]
+    prev_v = torch.full((N,), math.inf)
+    prev_i = torch.full((N,), -1, dtype=torch.int64)
+    vals, idx = [], []
+    for _ in range(k):
+        live = (cand_i != INT_MAX) & _better(prev_v[:, None], prev_i[:, None], cand_v, cand_i)
+        v, i = _topk_sorted(torch.where(live, cand_v, -math.inf),
+                            torch.where(live, cand_i, INT_MAX), 1)
+        prev_v, prev_i = v[:, 0], i[:, 0]
+        vals.append(prev_v)
+        idx.append(prev_i)
+    return torch.stack(vals, dim=1), torch.stack(idx, dim=1)
+
+
+def wide_score_topk(h, wv, bv, tail, k, chunk_cols):
+    """Both passes of the k > 16 route at this chunk split."""
+    N, V = h.shape[0], wv.shape[1]
+    scores = h @ wv + bv
+    pv, pi, _ = wide_partials(scores, k, chunk_cols)
+    T = tail.shape[1]
+    cand_v = torch.cat([pv.reshape(N, -1), tail], dim=1)
+    cand_i = torch.cat([pi.reshape(N, -1), V + torch.arange(T).expand(N, T)], dim=1)
+    vals, idx = threshold_merge(cand_v, cand_i, k)
+    full = torch.cat([scores, tail], dim=1)
+    return vals, idx.to(torch.int32), torch.logsumexp(full, dim=1)
+
+
+@pytest.mark.parametrize("k,chunk_cols", [(17, 128), (40, 64), (64, 192), (100, 128),
+                                          (200, 128), (330, 64)])
+def test_wide_lists_match_plain_and_jax(k, chunk_cols):
+    """k 17 to 330 against the plain version and JAX: lists shorter than a
+    tile, of one tile, longer than a tile (k 100 over 128-column chunks) and
+    holding their whole chunk (k 200 over 128 columns: kc = 128); the ragged
+    last chunk of V = 300 pads its list; k 330 reaches into the tail."""
+    args = _inputs(k + chunk_cols, 3, 300, d=12, t=37)
+    got = wide_score_topk(*(torch.as_tensor(a) for a in args), k, chunk_cols)
+    _hold(got, args, k)
+
+
+def test_wide_lists_ties_and_insertions():
+    """Exact ties planted across tiles and chunks enter the list in index
+    order whatever the walk order; fewer than one score in eight takes the
+    insertion path."""
+    n, v, k, chunk_cols = 2, 640, 20, 320
+    bv = np.zeros(v, np.float32)
+    bv[[5, 70, 100, 319, 320, 639]] = 3.0
+    args = (np.zeros((n, 4), np.float32), np.zeros((4, v), np.float32), bv,
+            np.full((n, 5), 3.0, np.float32))
+    got = wide_score_topk(*(torch.as_tensor(a) for a in args), k, chunk_cols)
+    assert got[1][0, :8].tolist() == [5, 70, 100, 319, 320, 639, v, v + 1]
+    _hold(got, args, k)
+    rand = _inputs(5, 4, 2048, d=16, t=1)
+    scores = torch.as_tensor(rand[0]) @ torch.as_tensor(rand[1]) + torch.as_tensor(rand[2])
+    _, _, inserts = wide_partials(scores, 24, 1024)
+    # about k (1 + ln(n / k)) a row and chunk for n scores in random order
+    assert inserts < 1.25 * 4 * 2 * 24 * (1 + math.log(1024 / 24))
+    assert inserts < scores.numel() / 8
 
 
 def _inputs(seed, n, v, d=300, t=301):
