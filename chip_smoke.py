@@ -55,6 +55,22 @@ Phases (any failure raises and exits non-zero):
               plain path: every step through the kernels (k 20: the score
               head's lists in shared memory), each route's count held to the
               prediction, f32 tokens equal.
+  7. leave    a user's captions leave the system (captions_leave): at full
+              width, bf16, Evaluator.run over an in-memory 600-row split of
+              each preset (batches of 256, the last padded; geo with a
+              JSGeoMetric, knowledge with a predicate_to_objects table and
+              its random-fact CSV, news with the mask column): the CSV's
+              rows, geo's captions equal to the detok of decode_batch on the
+              same padded batches, geo's launches held to the prediction,
+              the run's captions/s beside decode_batch alone and its host
+              parts; the token cache (encoded, loaded, stale for a changed
+              encoder; cached captions equal to the image path's); the geo
+              ServingEngine (max batch 64, 3 ms) warmed on every bucket under
+              16 client threads and 512 requests (requests/s, p50 / p99,
+              fill, buckets; each group held to decode_batch on its padded
+              batch in bf16 and, on 64 more requests, in f32; one POST
+              /caption); kv_dtype int8 and int8_cross against float on news
+              and geo (no decoder-step launch, a score-head launch a step).
 After the phases one more train step and one more beam-5 batch of each
 preset run under torch.profiler, which logs the ten largest device operations and the
 device's idle share, and the profiler gives the score head's device time
@@ -1211,6 +1227,433 @@ def wide_beam(dev, model):
 
 
 # --------------------------------------------------------------------------
+# phase 7: a user's captions leave the system, offline and online
+# --------------------------------------------------------------------------
+
+EVAL_ROWS = 600                 # two full batches of 256 and one of 88, padded to 256
+ENGINE_CLIENTS, ENGINE_REQUESTS, ENGINE_MAX_BATCH, ENGINE_WAIT_MS = 16, 512, 64, 3.0
+ENGINE_F32_REQUESTS = 64
+
+
+def memory_split(rng, n, preset="georic"):
+    """A TEST split of `n` rows held in memory (the card's machine reads no
+    HDF5): the port's CaptionDataset with its arrays and image rows set
+    directly, so its own batch / raw_image_batch / cache_image_tokens serve
+    it.  Entity names as entity_names(); fact names are years and objects
+    ("1800".., "obj_<k>"), the last row the padding fact."""
+    from icek_torch.data import dataset as tdata
+
+    s = preset_shape(preset)
+    batch = make_batch(rng, n, preset)
+    a = tdata.CaptionArrays.__new__(tdata.CaptionArrays)
+    a.caption_ids = np.zeros((n, 2), np.int32)
+    a.lengths = np.ones((n,), np.int32)
+    a.caption_mask = np.zeros((n, 2), np.int32)
+    a.entity_features = batch["entity_features"]
+    a.entity_names = np.broadcast_to(entity_names(s["E"]), (n, s["E"], 52))
+    a.fact_features = batch.get("fact_features")
+    a.fact_names = None
+    if s["F"]:
+        objs = [str(1800 + f) if f % 3 == 0 else f"obj_{f}" for f in range(s["F"] - 1)]
+        rows = [[0, len(o)] + [ord(c) for c in o] + [124] * (50 - len(o))
+                for o in objs + ["<pad>"]]
+        a.fact_names = np.broadcast_to(np.array(rows, np.int32), (n, s["F"], 52))
+    a.size = n
+
+    class MemorySplit(tdata.CaptionDataset):
+        def __init__(self):
+            self.split, self.arrays, self._images = "TEST", a, batch["raw_images"]
+            self.image_tokens = None
+
+    return MemorySplit
+
+
+def _padded_batches(split, batch_size):
+    """The batches Evaluator.run decodes: row ids padded with the last row."""
+    from icek_torch import eval_driver
+
+    n = len(split)
+    return [eval_driver._pad_batch(np.arange(s, min(s + batch_size, n)), batch_size)
+            for s in range(0, n, batch_size)]
+
+
+def _csv_rows(path):
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+def _time_calls(obj, name, iterator=False):
+    """Shadow obj.<name> with a wrapper that appends each call's host seconds
+    to the returned list (with `iterator`, the seconds each next() of the
+    iterators it returns waits); the returned function puts it back."""
+    inner, times = getattr(obj, name), []
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = inner(*a, **k)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    def timed_iter(*a, **k):
+        it = iter(inner(*a, **k))
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            finally:
+                times.append(time.perf_counter() - t0)
+            yield item
+
+    setattr(obj, name, timed_iter if iterator else timed)
+
+    def undo():
+        if getattr(inner, "__self__", None) is obj:
+            delattr(obj, name)                  # a bound method: the class's again
+        else:
+            setattr(obj, name, inner)
+
+    return times, undo
+
+
+def eval_run(dev, models, workdir):
+    """Evaluator.run over a 600-row split of each preset at full width (bf16,
+    batch 256, beam 5): geo with a JSGeoMetric on synthetic bins, knowledge
+    with a predicate_to_objects table (the random-fact CSV), news (the mask
+    column).  The geo run's launches are held to the prediction (3 batches,
+    every step), its CSV to 600 rows equal to the detok of decode_batch on
+    the same padded batches; its captions/s (host clock: reads, upload,
+    decode, detok, metric and CSV) beside decode_batch alone on those
+    batches.  Returns (geo launches, summary, geo split class, geo
+    captions)."""
+    import random
+
+    from icek_torch import eval_driver
+    from icek_torch.decode import detok
+    from icek_torch.metrics.js_geo import JSGeoMetric
+
+    out, geo = {}, None
+    for preset, model in models.items():
+        cfg, wm, params, enc = model
+        split_cls = memory_split(np.random.default_rng(SEED + 21), EVAL_ROWS, preset)
+        data = split_cls()
+        ev = eval_driver.Evaluator(cfg, wm, params, enc, device=dev)
+        ev.decode_batch(data.batch(np.arange(BATCH), raw_images=True))          # warm-up
+        kw, lines = {}, []
+        if preset == "georic":
+            kw["js_metric"] = JSGeoMetric(
+                dict(wm.word_to_id), [(0.0, 0.25), (0.25, 0.5), (0.5, 1.01)],
+                [(-180.0, -90.0), (-90.0, 0.0), (0.0, 90.0), (90.0, 180.0)], 500,
+                print_metrics=False, rng=random.Random(SEED))
+        if preset == "k_georic":                   # the knowledge report's baseline
+            objs = [detok.name_from_row(r) for r in data.arrays.fact_names[0][:-1]]
+            kw["predicate_to_objects"] = {f"p{k}": objs[k::7] for k in range(7)}
+            kw["rng"] = random.Random(SEED)
+        path = os.path.join(workdir, f"{preset}_generated_captions.csv")
+        from icek_torch import eval_driver as evd
+
+        timers = {"decode_batch": _time_calls(ev, "decode_batch"),
+                  "detokenize": _time_calls(evd.detok, "detokenize"),
+                  "write_csv": _time_calls(ev, "_write_csv"),
+                  "random_fact_caption": _time_calls(evd, "_random_fact_caption"),
+                  "wait_for_batch": _time_calls(evd.ds, "prefetch", iterator=True)}
+        _zero_serving_counts()
+        t0 = time.perf_counter()
+        res = ev.run(data, output_csv=path, log=lines.append, **kw)
+        run_s = time.perf_counter() - t0
+        launches = _read_serving_counts()
+        for _, undo in timers.values():
+            undo()
+        decode_in_run = timers.pop("decode_batch")[0]
+        decode_in_run_s = sum(decode_in_run)
+        rows = _csv_rows(path)
+        require(len(rows) == EVAL_ROWS + 1 and len(res["captions"]) == EVAL_ROWS,
+                f"{preset} eval run: {len(rows) - 1} CSV rows, {len(res['captions'])} captions")
+        rec = dict(run_s=run_s, captions_per_s=EVAL_ROWS / run_s, launches=launches,
+                   decode_in_run_s=decode_in_run_s, decode_calls_ms=[t * 1e3 for t in decode_in_run],
+                   host_in_run_s=run_s - decode_in_run_s,
+                   host_parts_s={k: sum(times) for k, (times, _) in timers.items()},
+                   csv_header=rows[0], log_lines=lines)
+        if preset == "georic":
+            want = serving_prediction(cfg, 3, 0)
+            require(launches == want, f"eval run launches {launches} != predicted {want}")
+            caps, decode_s = [], 0.0
+            for idx in _padded_batches(data, ev.batch_size):
+                batch = data.batch(idx, raw_images=True)
+                t0 = time.perf_counter()
+                ids = ev.decode_batch(batch)
+                decode_s += time.perf_counter() - t0
+                caps += [detok.caption_text(ids[j], wm, data.arrays.entity_names[i])[0]
+                         for j, i in enumerate(idx[:min(len(idx), EVAL_ROWS - len(caps))])]
+            require(caps == res["captions"] and [r[0] for r in rows[1:]] == caps,
+                    "eval run: captions differ from decode_batch on the same padded batches")
+            rec.update(decode_batch_s=decode_s, decode_batch_captions_per_s=EVAL_ROWS / decode_s,
+                       js=res["js"][0])
+            geo = (launches, split_cls, res["captions"])
+        elif preset == "k_georic":
+            rand = _csv_rows(path.replace(".csv", "_random_facts.csv"))
+            require(len(rand) == EVAL_ROWS + 1, f"random-fact CSV: {len(rand) - 1} rows")
+            rec["random_fact_differs"] = float(np.mean(
+                [a != b for a, b in zip(res["random_baseline"], res["captions"])]))
+        else:
+            require(rows[0] == ["generated_caption", "generated_mask"],
+                    f"news CSV header {rows[0]}")
+            require(len(lines) == 3 and lines[0].startswith("Captions with entities"),
+                    f"news log lines {lines}")
+        log(f"eval run {preset}: {rec}")
+        out[preset] = rec
+        del ev, data
+    return geo[0], out, geo[1], geo[2]
+
+
+def token_cache(dev, model, split_cls, image_captions, workdir):
+    """Evaluator.cache_split_tokens on the geo split: "encoded", then
+    "loaded" from a fresh split, then "encoded" again for an encoder with one
+    weight changed; the run over the cached tokens gives the image path's
+    captions exactly (bf16 tokens round-trip through the f32 cache)."""
+    from icek_torch import eval_driver
+
+    cfg, wm, params, enc = model
+    ev = eval_driver.Evaluator(cfg, wm, params, enc, device=dev)
+    cache = os.path.join(workdir, "TEST_TOKENS_geo.npz")
+    first = split_cls()
+    t0 = time.perf_counter()
+    got = [ev.cache_split_tokens(first, cache, log=log)]
+    encode_s = time.perf_counter() - t0
+    second = split_cls()
+    t0 = time.perf_counter()
+    got.append(ev.cache_split_tokens(second, cache, log=log))
+    load_s = time.perf_counter() - t0
+    changed = {k: v for k, v in enc.items()}
+    changed["proj"] = {"w": enc["proj"]["w"].clone(), "b": enc["proj"]["b"]}
+    changed["proj"]["w"].view(-1)[0] += 1e-3
+    stale = eval_driver.Evaluator(cfg, wm, params, changed, device=dev)
+    got.append(stale.cache_split_tokens(split_cls(), cache, log=log))
+    del stale
+    require(got == ["encoded", "loaded", "encoded"], f"token cache: {got}")
+    # the cache encodes a partial chunk padded to the run's batch shape: the
+    # same rows encoded as a batch of their own (another cuDNN algorithm)
+    tail = first._images[(EVAL_ROWS // BATCH) * BATCH:]
+    with torch.inference_mode():
+        alone = ev._encode_tokens(torch.as_tensor(tail, device=dev), "raw").float().cpu()
+    partial_diff = float((alone - torch.as_tensor(first.image_tokens[-len(tail):])).abs().max())
+    require(np.array_equal(first.image_tokens, second.image_tokens), "token cache: reload differs")
+    _zero_serving_counts()
+    t0 = time.perf_counter()
+    res = ev.run(second, output_csv=os.path.join(workdir, "cached.csv"), log=log)
+    run_s = time.perf_counter() - t0
+    launches = _read_serving_counts()
+    require(res["captions"] == image_captions,
+            "token cache: captions from cached tokens differ from the image path's")
+    rec = dict(results=got, encode_s=encode_s, load_s=load_s, run_s=run_s,
+               captions_per_s=EVAL_ROWS / run_s, launches=launches,
+               cache_mb=os.path.getsize(cache) / 1e6,
+               partial_batch_alone_max_abs_diff=partial_diff)
+    log(f"token cache: {rec}")
+    return rec
+
+
+def _percentile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def serving_engine(dev, model, split_cls, batch_256_captions):
+    """The geo ServingEngine (max_batch 64, max_wait 3 ms, every bucket warmed)
+    under 16 client threads submitting 512 requests: every future resolves;
+    requests/s, p50 / p99 latency, mean fill and the bucket histogram.  Each
+    group the engine decoded is held to decode_batch on the same padded batch
+    (same bucket, same shapes: equal ids), in bf16 here and in f32 on 64 more
+    requests; the token agreement with the rows' offline batch-256 decode is
+    logged (another bucket is another GEMM shape).  One POST /caption round
+    trip through make_server on port 0."""
+    import threading
+    import urllib.request
+
+    from icek_torch import eval_driver
+    from icek_torch.serve.engine import ServingEngine
+    from icek_torch.serve.server import encode_request, make_server
+
+    cfg, wm, params, enc = model
+    data = split_cls()
+
+    def sample(i):
+        return {"raw_images": data._images[i],
+                "entity_features": data.arrays.entity_features[i],
+                "entity_names": data.arrays.entity_names[i]}
+
+    def drive(engine, n, clients):
+        lat, results = [None] * n, [None] * n
+
+        def client(c):
+            for i in range(c, n, clients):
+                t0 = time.perf_counter()
+                results[i] = engine.submit(sample(i % EVAL_ROWS)).result(timeout=600)
+                lat[i] = time.perf_counter() - t0
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return time.perf_counter() - t0, lat, results
+
+    def recorded(engine):
+        """Record every batch the engine decodes and the ids it got."""
+        groups, inner = [], engine._evaluator.decode_batch_async
+
+        def spy(batch):
+            ids = inner(batch)
+            groups.append((batch, ids))
+            return ids
+
+        engine._evaluator.decode_batch_async = spy
+        return groups
+
+    def hold_groups(groups, engine, limit):
+        """decode_batch on each recorded group's own padded batch (up to
+        `limit` groups a bucket), in the engine's compute dtype."""
+        dtype = engine._evaluator.compute_dtype
+        offline = eval_driver.Evaluator(cfg, wm, params, enc, device=dev, compute_dtype=dtype)
+        checked = {}
+        for batch, ids in groups:
+            b = len(batch["raw_images"])
+            if checked.get(b, 0) >= limit:
+                continue
+            require(np.array_equal(offline.decode_batch(batch), ids.cpu().numpy()),
+                    f"serving engine {dtype}: a bucket-{b} group differs from decode_batch")
+            checked[b] = checked.get(b, 0) + 1
+        return checked
+
+    rec = {}
+    with ServingEngine(cfg, wm, params, enc, max_batch=ENGINE_MAX_BATCH,
+                       max_wait_ms=ENGINE_WAIT_MS, device=dev) as engine:
+        t0 = time.perf_counter()
+        engine.warmup(sample(0))
+        rec["warmup_s"] = time.perf_counter() - t0
+        groups = recorded(engine)
+        _zero_serving_counts()
+        wall, lat, results = drive(engine, ENGINE_REQUESTS, ENGINE_CLIENTS)
+        launches = _read_serving_counts()
+        stats = engine.stats()
+        require(all(r is not None and isinstance(r["caption"], str) for r in results),
+                "serving engine: a future did not resolve")
+        require(stats.requests == ENGINE_REQUESTS and stats.errors == 0,
+                f"serving engine: {stats}")
+        require(launches["flash_attention"] == cfg.model.num_layers * stats.batches
+                and launches["fused_score_topk"] > 0 and launches["decoder_step"] > 0,
+                f"serving engine launches {launches} over {stats.batches} batches")
+        server = make_server(engine, "127.0.0.1", 0, request_timeout=600)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            host, port = server.server_address
+            req = urllib.request.Request(f"http://{host}:{port}/caption",
+                                         data=encode_request(sample(7)), method="POST")
+            with urllib.request.urlopen(req, timeout=600) as r:
+                http = json.load(r)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join()
+        require(http["caption"] == results[7]["caption"],
+                "serving engine: POST /caption differs from the engine's caption")
+    rec.update(requests=ENGINE_REQUESTS, clients=ENGINE_CLIENTS, wall_s=wall,
+               requests_per_s=ENGINE_REQUESTS / wall,
+               p50_ms=_percentile(lat, 0.5) * 1e3, p99_ms=_percentile(lat, 0.99) * 1e3,
+               batches=stats.batches, mean_fill=stats.mean_fill,
+               bucket_runs=dict(sorted(stats.bucket_runs.items())),
+               launches=launches,
+               launches_per_batch={k: v / stats.batches for k, v in launches.items()})
+    rec["groups_checked"] = hold_groups(groups, engine, 2)
+    # row independence across buckets, logged: each request's caption against
+    # its row's caption in the offline batch-256 decode of the eval run
+    same = [results[i]["caption"] == batch_256_captions[i] for i in range(BATCH)]
+    rec["caption_agreement_with_batch_256"] = float(np.mean(same))
+    with ServingEngine(cfg, wm, params, enc, max_batch=ENGINE_MAX_BATCH,
+                       max_wait_ms=ENGINE_WAIT_MS, compute_dtype=torch.float32,
+                       device=dev) as engine:
+        engine.warmup(sample(0), buckets=[8, 16])
+        groups = recorded(engine)
+        wall32, _, _ = drive(engine, ENGINE_F32_REQUESTS, ENGINE_CLIENTS)
+        rec["f32"] = dict(requests_per_s=ENGINE_F32_REQUESTS / wall32,
+                          bucket_runs=dict(sorted(engine.stats().bucket_runs.items())))
+    rec["f32"]["groups_checked"] = hold_groups(groups, engine, 2)
+    log(f"serving engine: {rec}")
+    return rec
+
+
+def int8_kv(dev, models):
+    """Beam 5 at full width with kv_dtype "int8" and "int8_cross" against
+    float, on one batch of news (and of geo), in turns (float, int8,
+    int8_cross, int8_cross, int8, float): per int8 batch no decoder-step
+    launch and one score-head launch a step; decoder-step True refused; the
+    token agreement with float logged, captions/s of each mode."""
+    from icek_torch import eval_driver
+
+    out = {}
+    for preset in ("nytimes800k", "georic"):
+        cfg, wm, params, enc = models[preset]
+        L = cfg.decode.max_caption_len
+        batch = make_batch(np.random.default_rng(SEED + 31), BATCH, preset)
+        evs = {kv: eval_driver.Evaluator(
+                   cfg.replace(decode=dataclasses.replace(cfg.decode, kv_dtype=kv)),
+                   wm, params, enc, device=dev) for kv in (None, "int8", "int8_cross")}
+        ids = {kv: ev.decode_batch(batch) for kv, ev in evs.items()}        # warm-ups
+        times = {kv: [] for kv in evs}
+        for kv in (None, "int8", "int8_cross", "int8_cross", "int8", None):
+            _zero_serving_counts()
+            t0 = time.perf_counter()
+            got = evs[kv].decode_batch(batch)
+            times[kv].append(time.perf_counter() - t0)
+            launches = _read_serving_counts()
+            require(np.array_equal(got, ids[kv]), f"int8 kv {preset} {kv}: not repeatable")
+            if kv is not None:
+                want = dict(flash_attention=cfg.model.num_layers * (2 if cfg.model.has_facts
+                                                                     else 1),
+                            fused_score_topk=L, decoder_step=0, decoder_step_cuda_cores=0)
+                require(launches == want, f"int8 kv {preset} {kv}: launches {launches} != {want}")
+        try:
+            bad = cfg.replace(decode=dataclasses.replace(cfg.decode, kv_dtype="int8",
+                                                         use_megakernel=True))
+            eval_driver.Evaluator(bad, wm, params, enc, device=dev).decode_batch(batch)
+            raise RuntimeError("int8 kv: use_megakernel=True was not refused")
+        except ValueError as e:
+            require("megakernel" in str(e), f"int8 kv: {e}")
+        rec = {}
+        for kv in evs:
+            name = kv or "float"
+            rec[name] = dict(batch_ms=[t * 1e3 for t in times[kv]],
+                             captions_per_s=BATCH / statistics.median(times[kv]))
+            if kv is not None:
+                same = ids[kv] == ids[None]
+                rec[name].update(token_agreement=float(same.mean()),
+                                 caption_agreement=float(same.all(axis=1).mean()),
+                                 launches_per_batch=want)
+        log(f"int8 kv {preset} (batch {BATCH}, beam {BEAM}, L {L}, bf16): {rec}")
+        out[preset] = rec
+        del evs
+    return out
+
+
+def captions_leave(dev, models):
+    """Phase 7 in a scratch directory of its own (TMPDIR): the eval run, the
+    token cache, the serving engine and the int8 KV options."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="icek_eval_") as workdir:
+        launches, runs, geo_split, captions = eval_run(dev, models, workdir)
+        cache = token_cache(dev, models["georic"], geo_split, captions, workdir)
+        engine = serving_engine(dev, models["georic"], geo_split, captions)
+    return dict(eval_run=runs, eval_run_launches=launches, token_cache=cache,
+                serving_engine=engine, int8_kv=int8_kv(dev, models))
+
+
+# --------------------------------------------------------------------------
 # phase 5: card vs CPU at f32
 # --------------------------------------------------------------------------
 
@@ -1654,6 +2097,7 @@ def run_phases(dev, card) -> list:
     greedy_warm = time_greedy_warm(dev, geo)
     summary.update(greedy_warm_ms=greedy_warm,
                    greedy_warm_median_ms=statistics.median(greedy_warm))
+    leave = captions_leave(dev, models)
     # after every timed run, so the profiler cannot disturb one
     trace_device("one train step", step_once)
     del step_once
@@ -1705,6 +2149,10 @@ def run_phases(dev, card) -> list:
                           for p in FACT_PRESETS}
         if name in ("fused_score_topk", "decoder_step"):    # beams 10 and 20
             row["wide_beams"] = {b: rec["kernels"][name] for b, rec in wide.items()}
+        if name in leave["eval_run_launches"]:      # phase 7's geo eval run and engine
+            row["launches_eval_run"] = leave["eval_run_launches"][name]
+            row["launches_per_engine_batch"] = \
+                leave["serving_engine"]["launches_per_batch"][name]
         if name in NORM_KERNELS:        # every row count of every preset
             i = NORM_KERNELS.index(name)
             row["rows"] = {str(n): dict(_compact(rec[i][torch.bfloat16],
@@ -1717,6 +2165,8 @@ def run_phases(dev, card) -> list:
         log(f"card: {card}; {p} serving: {json.dumps(served[p][1])}")
         log(f"card: {card}; {p} train path: {json.dumps(trained[p][1])}")
     log(f"card: {card}; wide beams (geo beams {WIDE_BEAMS}): {json.dumps(wide)}")
+    for what, rec in leave.items():
+        log(f"card: {card}; {what}: {json.dumps(rec)}")
     return rows
 
 

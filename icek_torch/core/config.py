@@ -111,7 +111,9 @@ class DecodeConfig:
     # selects the stock torch path.
     use_megakernel: Optional[bool] = None
     use_fused_scores: Optional[bool] = None
-    # Only the float KV path is ported; "int8"/"int8_cross" raise.
+    # None = float KV caches; "int8" quantizes the self caches and the cross
+    # K/V, "int8_cross" only the cross K/V (both run the plain decoder step);
+    # "auto" = None on every device (decode/beam.py::resolve_kv_dtype).
     kv_dtype: Optional[str] = None
 
 

@@ -1,13 +1,26 @@
-"""The codec pieces detokenization needs (port's copy of parts of
-``icek_tpu/data/codec.py``): the unknown-name markers, the fixed-width char
-decode of entity/fact names, and the wordmap."""
+"""The codec pieces detokenization and the eval metrics need (port's copy
+of parts of ``icek_tpu/data/codec.py``): the unknown-name markers, the
+fixed-width char codec of entity/fact names, the DBpedia-flavored name
+normalization and the wordmap."""
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+import re
+from typing import Dict, List, Sequence
+
+# ord('|') — never occurs in normalized names; strips cleanly on decode.
+PAD_CHAR = 124
+NAME_WIDTH = 50
 
 UNK_ENT = "<unk_ent>"
 UNK_FACT = "<unk_fact>"
+
+
+def encode_name(text: str, width: int = NAME_WIDTH) -> List[int]:
+    """Pack a string into `width` char codes, truncating / padding with PAD_CHAR."""
+    codes = [ord(c) for c in text[:width]]
+    codes.extend([PAD_CHAR] * (width - len(codes)))
+    return codes
 
 
 def decode_name(codes: Sequence[int], length: int) -> str:
@@ -19,6 +32,38 @@ def decode_name(codes: Sequence[int], length: int) -> str:
             break
         out.append(chr(int(code)))
     return "".join(out)
+
+
+_DATE_RE = re.compile(r"([0-9]{4})\-[0-9]{2}\-[0-9]{2}")
+_CIRCA_RE = re.compile(r"c\.?\s?([0-9]{4})(\-[0-9]{2}\-[0-9]{2})?")
+
+_GEO_REPLACEMENTS = (
+    ("*", ""), ("|", ""), ("''", ""), ('""', ""), ("``", ""), ('"', ""),
+    (" ", "_"), ("__", "_"), ("_&_", "_and_"),
+    ("railway_station", "station"), ("tube_station", "station"),
+    ("s'", "s"), ("'s", "s"), ("saint", "st"), ("st.", "st"),
+)
+
+
+def normalize_name_geo(name: str) -> str:
+    """DBpedia-flavored canonicalization (geo + knowledge presets)."""
+    name = name.lower()
+    for sep in ("/", "#"):
+        name = name.split(sep)[-1].strip()
+    for sep in ("_(", ",", "_of_england"):
+        name = name.split(sep)[0].strip()
+    for old, new in _GEO_REPLACEMENTS:
+        name = name.replace(old, new)
+    name = name.lstrip("(").rstrip(")").lstrip("_").rstrip("_")
+    if name.startswith("the_"):
+        name = name[len("the_"):]
+    dated = _DATE_RE.findall(name)
+    if dated:
+        name = dated[0]
+    circa = _CIRCA_RE.findall(name)
+    if circa:
+        name = circa[0][0]
+    return name
 
 
 class Wordmap:

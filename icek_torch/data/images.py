@@ -1,4 +1,5 @@
-"""Device-side image normalization (port of ``icek_tpu/data/images.py``).
+"""Image normalization (port of ``icek_tpu/data/images.py``): on the
+device, and on the host for loaders that hand the model normalized images.
 
 The stored rows are the reference's HDF5 float16 CHW images in [0, 1];
 loading divides by 255 AGAIN (a reference quirk kept for checkpoint
@@ -12,6 +13,14 @@ import torch
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
+
+
+def normalize_for_model(stored: np.ndarray) -> np.ndarray:
+    """Stored float16 CHW [0, 1] rows -> model-ready NHWC float32 on the host
+    (the double /255, then ImageNet mean/std)."""
+    x = stored.astype(np.float32) / 255.0
+    x = x.transpose(1, 2, 0) if x.ndim == 3 else x.transpose(0, 2, 3, 1)
+    return (x - IMAGENET_MEAN) / IMAGENET_STD
 
 
 def normalize_in_graph(stored: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Batched beam search over the extended [V | E | F] vocabulary (port of
-``icek_tpu/decode/beam.py``, float KV path).
+``icek_tpu/decode/beam.py``, with its int8 KV options).
 
 Design kept from the JAX package:
   * hypotheses live on an explicit beam axis K; per-hypothesis state is
@@ -17,6 +17,9 @@ Design kept from the JAX package:
 The caches are one (nL, B, L*K, D) tensor per K and V, written in place.
 Kernel switches: ``use_megakernel`` (kernels/decoder_step.py) and
 ``use_fused_scores`` (kernels/copy_scores.py); None = on for CUDA tensors.
+``kv_dtype`` "int8" keeps the self caches and the cross K/V as per-row int8
+with f32 scales, "int8_cross" only the cross K/V; both run the plain decoder
+step (the decoder-step kernel reads float K/V), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -79,6 +82,78 @@ def _beam_self_attention(mha, x, k_cache, v_cache, anc, i, num_heads,
     return tfm.linear(mha["out"], out, dt)
 
 
+def _quantize_rows(x, dim=-1):
+    """Symmetric int8 quantization along `dim`: (q int8, scale f32) with
+    x ~= q * scale.  ``torch.round`` rounds half to even, as ``jnp.round``."""
+    xf = x.to(torch.float32)
+    scale = xf.abs().amax(dim=dim, keepdim=True).clamp(min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_cross_kvs(cross_kvs):
+    """[{'k','v'}: (B, M, H, Hd)] -> int8 payloads and scales: K per row
+    (b, m, h), its scale laid out (B, 1, H, M) over the logits; V along the
+    memory axis (per (b, h, d)), its scale (B, 1, H, Hd) over the output."""
+    out = []
+    for c in cross_kvs:
+        kq, ks = _quantize_rows(c["k"])           # scale (B, M, H, 1)
+        vq, vs = _quantize_rows(c["v"], dim=1)    # scale (B, 1, H, Hd)
+        out.append({"kq": kq, "vq": vq, "ks": ks[..., 0].transpose(1, 2)[:, None],
+                    "vs": vs})
+    return out
+
+
+def _beam_self_attention_int8(mha, x, cache, anc, i, num_heads, compute_dtype):
+    """``_beam_self_attention`` over an int8 cache (kq, vq, ks, vs): this
+    step's K/V rows are quantized per row where they are written; the
+    history's int8 rows and their scales are gathered through the ancestry,
+    the K scales multiply the logits and the V scales the softmax weights
+    after the int8 contractions."""
+    kq_cache, vq_cache, ks_cache, vs_cache = cache
+    B, K, D = x.shape
+    H = num_heads
+    Hd = D // H
+    dt = compute_dtype
+    proj = x.to(dt) @ mha["qkv_w"].to(dt) + mha["qkv_b"].to(dt)
+    q, k_new, v_new = proj.split(D, dim=-1)
+    kq_new, ks_new = _quantize_rows(k_new)
+    vq_new, vs_new = _quantize_rows(v_new)
+    kq_cache[:, i * K:(i + 1) * K] = kq_new
+    vq_cache[:, i * K:(i + 1) * K] = vq_new
+    ks_cache[:, i * K:(i + 1) * K] = ks_new[..., 0]
+    vs_cache[:, i * K:(i + 1) * K] = vs_new[..., 0]
+    n = i + 1
+    rows = ((torch.arange(n, device=x.device) * K)[None, None, :] + anc[:, :, :n]
+            ).reshape(B, K * n)
+    wide = rows[:, :, None].expand(-1, -1, D)
+    kh = torch.gather(kq_cache, 1, wide).view(B, K, n, H, Hd).to(dt)
+    vh = torch.gather(vq_cache, 1, wide).view(B, K, n, H, Hd).to(dt)
+    ks = torch.gather(ks_cache, 1, rows).view(B, K, 1, n)
+    vs = torch.gather(vs_cache, 1, rows).view(B, K, 1, n)
+    logits = (torch.einsum("bkhd,bkthd->bkht", q.view(B, K, H, Hd), kh).to(torch.float32)
+              * ks / math.sqrt(Hd))
+    weights = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkht,bkthd->bkhd", (weights * vs).to(dt), vh).reshape(B, K, D)
+    return tfm.linear(mha["out"], out, dt)
+
+
+def _beam_cross_attention_int8(mha, x, cross, num_heads, compute_dtype):
+    """Cross-attention over the int8 shared K/V of ``quantize_cross_kvs``."""
+    B, K, D = x.shape
+    H = num_heads
+    Hd = D // H
+    dt = compute_dtype
+    w = mha["qkv_w"].to(dt)
+    b = mha["qkv_b"].to(dt)
+    q = (x.to(dt) @ w[:, :D] + b[:D]).view(B, K, H, Hd)
+    logits = (torch.einsum("bkhd,bmhd->bkhm", q, cross["kq"].to(dt)).to(torch.float32)
+              * cross["ks"] / math.sqrt(Hd))
+    weights = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkhm,bmhd->bkhd", weights.to(dt), cross["vq"].to(dt)) * cross["vs"]
+    return tfm.linear(mha["out"], out.to(dt).reshape(B, K, D), dt)
+
+
 def _beam_cross_attention(mha, x, cross_kv, num_heads, compute_dtype):
     """Cross-attention of (B, K, D) queries over shared (B, M, H, Hd) KV."""
     B, K, D = x.shape
@@ -94,16 +169,26 @@ def _beam_cross_attention(mha, x, cross_kv, num_heads, compute_dtype):
     return tfm.linear(mha["out"], out.reshape(B, K, D), dt)
 
 
-def _beam_decoder_step(layers, x, caches_k, caches_v, anc, i, cross_kvs,
-                       num_heads, compute_dtype):
-    """All decoder layers for one beam step; x: (B, K, D); caches
-    (nL, B, L*K, D) get this step's K/V rows in place.  Returns h."""
+def _beam_decoder_step(layers, x, caches, anc, i, cross_kvs, num_heads,
+                       compute_dtype, kv_int8=False, cross_int8=False):
+    """All decoder layers for one beam step; x: (B, K, D); `caches` is
+    (caches_k, caches_v) of (nL, B, L*K, D), or with `kv_int8` (kq, vq, ks,
+    vs) of ``beam_decode``'s int8 layout; each gets this step's rows in
+    place.  `cross_int8`: `cross_kvs` are ``quantize_cross_kvs``'s.
+    Returns h."""
     for l, layer in enumerate(layers):
-        attn = _beam_self_attention(layer["self_attn"], x, caches_k[l],
-                                    caches_v[l], anc, i, num_heads, compute_dtype)
+        if kv_int8:
+            attn = _beam_self_attention_int8(layer["self_attn"], x,
+                                             [c[l] for c in caches], anc, i,
+                                             num_heads, compute_dtype)
+        else:
+            attn = _beam_self_attention(layer["self_attn"], x, caches[0][l],
+                                        caches[1][l], anc, i, num_heads,
+                                        compute_dtype)
         x = tfm.layer_norm(layer["norm1"], x + attn)
-        cross = _beam_cross_attention(layer["cross_attn"], x, cross_kvs[l],
-                                      num_heads, compute_dtype)
+        cross_fn = _beam_cross_attention_int8 if cross_int8 else _beam_cross_attention
+        cross = cross_fn(layer["cross_attn"], x, cross_kvs[l], num_heads,
+                         compute_dtype)
         x = tfm.layer_norm(layer["norm2"], x + cross)
         ff = tfm.linear(
             layer["ffn"]["lin2"],
@@ -112,6 +197,14 @@ def _beam_decoder_step(layers, x, caches_k, caches_v, anc, i, cross_kvs,
         )
         x = tfm.layer_norm(layer["norm3"], x + ff)
     return x
+
+
+def resolve_kv_dtype(kv_dtype, cfg: ModelConfig):
+    """``kv_dtype="auto"`` resolves to None (the float caches) on every
+    device: the JAX package picks int8 only on a TPU backend, and no H100
+    measurement calls for it.  Explicit values pass through unchanged."""
+    del cfg
+    return None if kv_dtype == "auto" else kv_dtype
 
 
 def beam_decode(params, cfg: ModelConfig, vocab_size: int, num_entity_rows: int,
@@ -131,13 +224,24 @@ def beam_decode(params, cfg: ModelConfig, vocab_size: int, num_entity_rows: int,
     (``decoder_step.supports``: the tensor-core route up to K = 16 in bf16,
     the CUDA-core route otherwise).  Nothing gives way to the plain step or
     scores; those run only with the switch off.
+
+    ``kv_dtype`` "int8" / "int8_cross" (see the module's docstring) run the
+    plain decoder step: `use_megakernel` None resolves to off there, and an
+    explicit True raises, as in the JAX package.  The score head still runs
+    as its kernel.  "auto" resolves through ``resolve_kv_dtype``.
     """
-    if kv_dtype not in (None, "auto"):
-        raise NotImplementedError(f"kv_dtype={kv_dtype!r} is not ported yet")
+    kv_dtype = resolve_kv_dtype(kv_dtype, cfg)
+    if kv_dtype not in (None, "int8", "int8_cross"):
+        raise ValueError(
+            f"kv_dtype must be None/'auto'/'int8'/'int8_cross', got {kv_dtype!r}")
+    kv_int8 = kv_dtype == "int8"
+    cross_int8 = kv_dtype is not None
+    if cross_int8 and use_megakernel:
+        raise ValueError(f"kv_dtype={kv_dtype!r} is not supported with the megakernel")
     ents, facts = ctx.entities_encoded, ctx.facts_encoded
     dev = ents.device
     use_fused_scores = resolve_switch(use_fused_scores, dev)
-    use_megakernel = resolve_switch(use_megakernel, dev)
+    use_megakernel = resolve_switch(False if cross_int8 else use_megakernel, dev)
     params = _cast_float_params(params, compute_dtype)
     B = ents.shape[0]
     K = beam_size
@@ -162,8 +266,16 @@ def beam_decode(params, cfg: ModelConfig, vocab_size: int, num_entity_rows: int,
     log_probs = torch.where(torch.arange(K, device=dev)[None, :] == 0, 0.0,
                             NEG_INF).expand(B, K).to(torch.float32)
     cache_shape = (cfg.num_layers, B, max_len * K, D)
-    caches_k = torch.zeros(cache_shape, dtype=compute_dtype, device=dev)
-    caches_v = torch.zeros(cache_shape, dtype=compute_dtype, device=dev)
+    if kv_int8:
+        caches = (torch.zeros(cache_shape, dtype=torch.int8, device=dev),
+                  torch.zeros(cache_shape, dtype=torch.int8, device=dev),
+                  torch.zeros(cache_shape[:-1], **f32),
+                  torch.zeros(cache_shape[:-1], **f32))
+    else:
+        caches = (torch.zeros(cache_shape, dtype=compute_dtype, device=dev),
+                  torch.zeros(cache_shape, dtype=compute_dtype, device=dev))
+    caches_k, caches_v = caches[:2]
+    cross_for_step = quantize_cross_kvs(ctx.cross_kvs) if cross_int8 else ctx.cross_kvs
     if use_fused_scores and not cs.supports(K, S):
         raise ValueError(f"beam_decode: the fused score head takes beams of 1 to "
                          f"{S}, not {K}")
@@ -202,9 +314,9 @@ def beam_decode(params, cfg: ModelConfig, vocab_size: int, num_entity_rows: int,
             caches_k[:, :, i * K:(i + 1) * K] = k_new
             caches_v[:, :, i * K:(i + 1) * K] = v_new
         else:
-            h = _beam_decoder_step(params["decoder"]["layers"], x, caches_k,
-                                   caches_v, ancestry, i, ctx.cross_kvs, H,
-                                   compute_dtype)
+            h = _beam_decoder_step(params["decoder"]["layers"], x, caches,
+                                   ancestry, i, cross_for_step, H, compute_dtype,
+                                   kv_int8=kv_int8, cross_int8=cross_int8)
         fact_before = cap.facts_seen(seen, ctx.fact_features) if cfg.has_facts else None
         if use_fused_scores:
             # fused vocab product + per-hypothesis top-K + logsumexp; the

@@ -62,6 +62,15 @@ def trim_trailing_sentence(caption: str) -> str:
     return caption
 
 
+def trim_lockstep(leader: str, follower: str) -> str:
+    """Trim `follower`'s last sentence iff `leader` needs trimming: the
+    random-fact baseline caption follows the main caption's trim
+    (knowledge-aware/eval.py:169-172)."""
+    if not leader.endswith(".") and leader.count(".") > 1:
+        return ".".join(follower.split(".")[:-1]) + "."
+    return follower
+
+
 def caption_text(
     seq: Sequence[int],
     wordmap: Wordmap,

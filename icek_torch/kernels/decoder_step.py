@@ -213,7 +213,7 @@ def reference_decoder_step(stacked: StackedDecoder, x, ancestry, caches_k,
     ck, cv = caches_k.clone(), caches_v.clone()
     cross = [{"k": cross_k[l].view(B, M, num_heads, Hd),
               "v": cross_v[l].view(B, M, num_heads, Hd)} for l in range(nL)]
-    h = beam._beam_decoder_step(stacked.layers, x.to(dt), ck, cv, ancestry, i,
+    h = beam._beam_decoder_step(stacked.layers, x.to(dt), (ck, cv), ancestry, i,
                                 cross, num_heads, dt)
     rows = slice(i * K, (i + 1) * K)
     return h.to(torch.float32), ck[:, :, rows].contiguous(), cv[:, :, rows].contiguous()

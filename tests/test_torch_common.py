@@ -219,3 +219,329 @@ def spy_kernel_calls(monkeypatch):
             return _fn(*a, **kw)
         monkeypatch.setattr(mod, name, spy)
     return calls
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Torch on one thread for a module of many small ops: with the suite's
+    other workers on the same cores, torch's thread pool waits at every op
+    for threads that are not running (the token-cache file took 169 s under
+    the suite's load against 15 s on one thread alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# ---------------------------------------------------------------------------
+# whole splits for the eval run, the token cache and the serving engine:
+# datasets written by icek_tpu's InputFileWriter, read by both packages
+# ---------------------------------------------------------------------------
+
+def port_config(jax_cfg):
+    """The port's Config with every field the port has taken from a JAX
+    Config (the same preset, cut to the same small widths)."""
+    base = tcfg.get_config(jax_cfg.name)
+
+    def same(dst, src):
+        return dataclasses.replace(dst, **{f.name: getattr(src, f.name)
+                                           for f in dataclasses.fields(dst)
+                                           if hasattr(src, f.name)})
+
+    return base.replace(model=same(base.model, jax_cfg.model),
+                        data=same(base.data, jax_cfg.data),
+                        train=same(base.train, jax_cfg.train),
+                        decode=same(base.decode, jax_cfg.decode))
+
+
+_BN_STATS = {"scale": 1.0, "bias": 0.0, "mean": 0.0, "var": 1.0}
+
+
+def resnet_params_numpy(emb_dim, seed, proj_gain=3e-4):
+    """ResNet-101 params in the JAX layout (the tree of icek_tpu's
+    init_resnet101, taken by jax.eval_shape) from a numpy seed: Kaiming
+    convolutions, identity batch norms, and a projection scaled so that
+    32x32 images give tokens of order 1."""
+    from icek_tpu.models import resnet as jres
+
+    shapes = jax.eval_shape(lambda: jres.init_resnet101(jax.random.PRNGKey(0), emb_dim))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        keys = [getattr(k, "key", None) for k in path]
+        if keys[-1] in _BN_STATS and keys[-2] in ("bn1", "bn2", "bn3", "down_bn"):
+            return np.full(leaf.shape, _BN_STATS[keys[-1]], np.float32)
+        if keys[-1] == "b":
+            return np.zeros(leaf.shape, np.float32)
+        fan_in = int(np.prod(leaf.shape[:3]))
+        gain = proj_gain if keys[0] == "proj" else 1.0
+        return (rng.standard_normal(leaf.shape) * np.sqrt(2.0 / fan_in) * gain
+                ).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def _write_raw(tmp_path, images, entity_contexts, knowledge_contexts=None):
+    import json
+    import pickle
+
+    with open(tmp_path / "captions_split.json", "w") as f:
+        json.dump({"images": images}, f)
+    with open(tmp_path / "entity_context.pkl", "wb") as f:
+        pickle.dump(entity_contexts, f)
+    if knowledge_contexts is not None:
+        with open(tmp_path / "knowledge_context.pkl", "wb") as f:
+            pickle.dump(knowledge_contexts, f)
+
+
+def _raw_images(tmp_path, n, rng, size=40):
+    from PIL import Image
+
+    img_dir = tmp_path / "images"
+    img_dir.mkdir()
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 255, (size, size, 3), dtype=np.uint8)).save(
+            img_dir / f"img{i}.jpg")
+    return img_dir
+
+
+def _split(i):
+    return "train" if i < 6 else ("val" if i < 8 else "test")
+
+
+GEO_PLACES = ["Tower Bridge", "River Thames", "Old Town", "St Paul's Cathedral",
+              "Hyde Park", "Big Ben", "London Eye", "Covent Garden"]
+
+
+def make_raw_geo_split(tmp_path, n_images):
+    """A geo-preset raw dataset whose entity contexts fill the tiny preset's
+    8 rows, so that decoded entity ids name real places."""
+    pd = pytest.importorskip("pandas")
+    from test_train_e2e import WORDS
+
+    rng = np.random.default_rng(0)
+    _raw_images(tmp_path, n_images, rng)
+    images, entities = [], {}
+    for i in range(n_images):
+        url = f"http://example.com/{i}"
+        images.append({"tokens": list(rng.choice(WORDS, size=5)) + ["tower_bridge"],
+                       "mask": [0] * 5 + [1], "url": url, "id": f"img{i}",
+                       "split": _split(i)})
+        entities[url] = pd.DataFrame({
+            "name": GEO_PLACES, "distance": rng.uniform(0, 1, 8),
+            "azimuth": rng.uniform(-179, 179, 8), "size": rng.uniform(0, 0.1, 8),
+            "type_index": rng.integers(0, 50, 8)})
+    _write_raw(tmp_path, images, entities)
+
+
+def make_raw_knowledge_split(tmp_path, n_images):
+    """A knowledge-preset raw dataset whose knowledge contexts also carry the
+    `subject` and `predicate` columns the fact-accuracy metric reads."""
+    pd = pytest.importorskip("pandas")
+    rng = np.random.default_rng(0)
+    _raw_images(tmp_path, n_images, rng)
+    images, entities, knowledge = [], {}, {}
+    for i in range(n_images):
+        url = f"http://example.com/{i}"
+        images.append({"tokens": ["the", "tower_bridge", "built", "in", "1894"],
+                       "mask": [0, 1, 0, 0, 2], "url": url, "id": f"img{i}",
+                       "split": _split(i)})
+        entities[url] = pd.DataFrame({
+            "name": ["Tower Bridge", "River Thames", "Old Town"],
+            "distance": [0.1, 0.4, 0.7], "azimuth": [12.0, -45.0, 90.0],
+            "size": [0.02, 0.08, 0.05], "type_index": [3, 7, 1]})
+        knowledge[url] = pd.DataFrame({
+            "object": ["1894", "horace_jones", "1901", "river_thames"],
+            "subject": ["Tower Bridge", "Tower Bridge", "Old Town", "Tower Bridge"],
+            "predicate": ["built", "architect", "built", "crosses"],
+            "subject_idx_in_entity_context": [0, 0, 2, 0],
+            "predicate_idx": [2, 5, 2, 7]})
+    _write_raw(tmp_path, images, entities, knowledge)
+
+
+def make_raw_news_split(tmp_path, n_images):
+    """A news-preset raw dataset (contexts keyed by article, as in
+    NYTimes800k), after test_train_e2e.py::test_news_end_to_end."""
+    pd = pytest.importorskip("pandas")
+    rng = np.random.default_rng(1)
+    _raw_images(tmp_path, n_images, rng, size=36)
+    images, entities, knowledge = [], {}, {}
+    for i in range(n_images):
+        article = f"article{i}"
+        images.append({"tokens": ["the", "mayor", "of", "new_york", "in", "1999"],
+                       "mask": [0, 0, 0, 1, 0, 2], "url": f"http://news.example/{i}",
+                       "item": article, "id": f"img{i}", "split": _split(i)})
+        entities[article] = pd.DataFrame({
+            "name_processed": ["new_york", "city_hall"], "count": [4, 1],
+            "in_headline": [1, 0], "in_first_paragraph": [1, 1], "type": [2, 5]})
+        knowledge[article] = pd.DataFrame({
+            "object": ["1999", "giuliani"], "subject_idx_in_entity_context": [0, 0],
+            "predicate_idx": [1, 3]})
+    _write_raw(tmp_path, images, entities, knowledge)
+
+
+def tiny_news_cfg():
+    from icek_tpu.core import config as jcfg
+
+    base = jcfg.nytimes800k()
+    return base.replace(
+        model=dataclasses.replace(
+            base.model, emb_dim=20, decoder_ffn_dim=32, encoder_ffn_dim=32,
+            num_heads=2, num_layers=1, type_vocab=10, num_predicates=8,
+            encoded_image_size=4),
+        data=dataclasses.replace(
+            base.data, base_name="tiny_news", entity_context_size=5,
+            fact_context_size=4, max_caption_len=10, img_size=32, min_word_freq=0,
+            fact_random_ranges=((5, 5), (0, 0))))
+
+
+EVAL_SPLITS = ("geo", "knowledge", "news")
+
+
+def eval_split(tmp_path, variant, n_test=5, max_len=12, seed=7):
+    """One TEST split of `n_test` rows written by icek_tpu's InputFileWriter,
+    with seeded weights for both packages.  Returns a dict: jc / tc (configs,
+    decode length `max_len`), jwm / twm (wordmaps), out_dir, base, has_facts,
+    tree / enc (numpy params), jp / jenc (JAX), tp / tenc (port).  The pointer
+    heads are scaled so that entity (and fact) ids get emitted, and geo's
+    vocab bias favours "near" and "in"."""
+    import jax.numpy as jnp
+    from icek_tpu.data import input_files
+    from icek_torch.data import codec as tcodec
+    from test_train_e2e import tiny_cfg, tiny_knowledge_cfg
+
+    n_images = 8 + n_test
+    raw = tmp_path / "raw"
+    raw.mkdir()
+    kw = {}
+    if variant == "geo":
+        jc = tiny_cfg()
+        make_raw_geo_split(raw, n_images)
+    elif variant == "knowledge":
+        jc = tiny_knowledge_cfg()
+        make_raw_knowledge_split(raw, n_images)
+    else:
+        jc = tiny_news_cfg()
+        make_raw_news_split(raw, n_images)
+    if variant != "geo":
+        kw["knowledge_context_path"] = str(raw / "knowledge_context.pkl")
+    # prep draws the padding rows' type ids up to the preset's range (500 for
+    # geo and knowledge): the type table must hold them (JAX clamps an
+    # out-of-range gather, torch raises)
+    type_vocab = max(jc.model.type_vocab, int(jc.data.entity_random_ranges[3][1]) + 1)
+    jc = jc.replace(model=dataclasses.replace(jc.model, type_vocab=type_vocab),
+                    decode=dataclasses.replace(jc.decode, max_caption_len=max_len))
+    out_dir = tmp_path / "files"
+    jwm = input_files.InputFileWriter(
+        jc, str(raw / "captions_split.json"), str(raw / "entity_context.pkl"),
+        str(raw / "images"), str(out_dir), seed=0, **kw).run()
+    V = len(jwm)
+    tree = jax_params_numpy(jc.model, V, seed)
+    tree["fc_entity"]["w"] = tree["fc_entity"]["w"] * 6.0
+    if variant == "geo":        # spatial words before entities feed the JS metric
+        bias = tree["fc_vocab"]["b"].copy()
+        bias[[jwm.word_to_id["near"], jwm.word_to_id["in"]]] += 2.0
+        tree["fc_vocab"]["b"] = bias
+    if jc.model.has_facts:
+        tree["fc_fact"]["w"] = tree["fc_fact"]["w"] * 6.0
+        tree["fc_fact"]["b"] = tree["fc_fact"]["b"] + 0.5
+        tree["fc_predicate"]["b"] = np.random.default_rng(seed).standard_normal(
+            jc.model.emb_dim).astype(np.float32)
+    enc = resnet_params_numpy(jc.model.emb_dim, seed)
+    tc = port_config(jc)
+    return dict(
+        variant=variant, jc=jc, tc=tc, jwm=jwm, twm=tcodec.Wordmap(jwm.word_to_id),
+        out_dir=str(out_dir), base=jc.data.base_name, has_facts=jc.model.has_facts,
+        raw=raw, tree=tree, enc=enc,
+        jp=jax.tree.map(jnp.asarray, tree), jenc=jax.tree.map(jnp.asarray, enc),
+        tp=bridge.from_jax_params(tree, tc.model, V), tenc=bridge.from_jax_resnet(enc))
+
+
+def split_datasets(s, split="TEST"):
+    """(JAX CaptionDataset, port CaptionDataset) over the same files."""
+    from icek_torch.data import dataset as tds
+    from icek_tpu.data import dataset as jds
+
+    return (jds.CaptionDataset(s["out_dir"], s["base"], split, s["has_facts"]),
+            tds.CaptionDataset(s["out_dir"], s["base"], split, s["has_facts"]))
+
+
+# the eval run of both packages over one split, with the preset's metrics
+EVAL_BATCH, EVAL_BEAM = 2, 3        # 5 rows: two full batches and one padded to 2
+BINS_DISTANCE = [(0.0, 0.2), (0.2, 0.5), (0.5, 10.0)]
+BINS_AZIMUTH = [(-180.0, -90.0), (-90.0, 0.0), (0.0, 90.0), (90.0, 180.0)]
+OSM_TYPES = 60
+PREDICATE_TO_OBJECTS = {"built": ["1894", "1901"], "architect": ["horace_jones"],
+                        "crosses": ["river_thames"]}
+PREDICATE_PHRASES = {
+    "built": {"phrases": ["built in", "built"], "type": "temporal"},
+    "architect": {"phrases": ["designed by", ("tower_bridge", "horace_jones")],
+                  "type": "other", "synonymous_predicates": [], "entity_types": [],
+                  "blocklist": [], "object_position": "right"},
+    "crosses": {"phrases": ["crosses"], "type": "other", "synonymous_predicates": [],
+                "entity_types": [], "blocklist": [], "object_position": "right"},
+}
+
+
+def _train_distributions():
+    """Uniform train-set tables with every term and feature the JS metric reads."""
+    table = {}
+    for term in ("near", "along", "across", "in"):
+        table[term] = {"distance_probs": [1 / len(BINS_DISTANCE)] * len(BINS_DISTANCE)}
+        if term != "near":
+            table[term]["type_probs"] = [1 / OSM_TYPES] * OSM_TYPES
+    for term in ("north", "south", "east", "west"):
+        table[term] = {"azimuth_probs": [1 / len(BINS_AZIMUTH)] * len(BINS_AZIMUTH)}
+    return table
+
+
+def js_metric(mod, wm, seed=3):
+    """A JSGeoMetric of module `mod` (either package's) on synthetic bins."""
+    import random
+
+    return mod.JSGeoMetric(dict(wm.word_to_id), BINS_DISTANCE, BINS_AZIMUTH, OSM_TYPES,
+                           train_distributions=_train_distributions(),
+                           print_metrics=False, rng=random.Random(seed))
+
+
+def fact_metric(mod, raw):
+    """A FactAccuracyMetric of module `mod` over a raw knowledge dataset."""
+    import copy
+
+    return mod.FactAccuracyMetric(
+        str(raw / "captions_split.json"), str(raw / "entity_context.pkl"),
+        str(raw / "knowledge_context.pkl"), {"crosses": "crosses"},
+        {"bridge": ["crosses"]}, copy.deepcopy(PREDICATE_PHRASES))
+
+
+def eval_run(s, package, tmp_path):
+    """One package's Evaluator.run over the split of ``eval_split`` at
+    EVAL_BATCH / EVAL_BEAM, with the preset's metrics (JS for geo; fact
+    accuracy and the random-fact baseline with random.Random(0) for
+    knowledge).  Returns {"res", "lines" (logged), "files" (CSV bytes by
+    name), "js" (the metric)}."""
+    import random
+
+    if package == "jax":
+        from icek_tpu import eval_driver as ev_mod
+        from icek_tpu.metrics import fact_accuracy as fa, js_geo as js
+        ev = ev_mod.Evaluator(s["jc"], s["jwm"], s["jp"], s["jenc"], batch_size=EVAL_BATCH,
+                              beam_size=EVAL_BEAM)
+        data = split_datasets(s)[0]
+    else:
+        from icek_torch import eval_driver as ev_mod
+        from icek_torch.metrics import fact_accuracy as fa, js_geo as js
+        ev = ev_mod.Evaluator(s["tc"], s["twm"], s["tp"], s["tenc"], batch_size=EVAL_BATCH,
+                              beam_size=EVAL_BEAM, device="cpu")
+        data = split_datasets(s)[1]
+    kw, lines = {}, []
+    if s["variant"] == "geo":
+        kw["js_metric"] = js_metric(js, s["jwm"])
+    if s["variant"] == "knowledge":
+        kw.update(fact_metric=fact_metric(fa, s["raw"]),
+                  predicate_to_objects=PREDICATE_TO_OBJECTS, rng=random.Random(0))
+    res = ev.run(data, output_csv=str(tmp_path / f"{package}_generated_captions.csv"),
+                 log=lines.append, **kw)
+    files = {p.name.split("_", 1)[1]: p.read_bytes()
+             for p in tmp_path.glob(f"{package}_*.csv")}
+    return dict(res=res, lines=lines, files=files, js=kw.get("js_metric"))

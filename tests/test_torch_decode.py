@@ -64,16 +64,23 @@ def test_beam_kernel_paths_agree_in_port():
 
 
 def test_unported_cases_raise():
+    """What is still not ported raises: a mesh.  The int8 KV options are
+    ported (tests/test_torch_int8_kv.py); an unknown kv_dtype, and int8 with
+    the decoder-step kernel asked for, raise ValueError as in JAX."""
     import dataclasses
 
     from icek_torch import eval_driver as tev
 
     _, tc, _, tp, _, tctx, ids, L = decode_contexts("tiny", seed=0)
+    with pytest.raises(ValueError, match="kv_dtype"):
+        tbeam.beam_decode(tp, tc.model, *ids, tctx, L, kv_dtype="int4")
+    with pytest.raises(ValueError, match="megakernel"):
+        tbeam.beam_decode(tp, tc.model, *ids, tctx, L, kv_dtype="int8", use_megakernel=True)
+    int4 = tc.replace(decode=dataclasses.replace(tc.decode, kv_dtype="int4"))
+    with pytest.raises(ValueError, match="kv_dtype"):
+        tev.Evaluator(int4, None, {}, {}, device="cpu")
     with pytest.raises(NotImplementedError):
-        tbeam.beam_decode(tp, tc.model, *ids, tctx, L, kv_dtype="int8")
-    int8 = tc.replace(decode=dataclasses.replace(tc.decode, kv_dtype="int8"))
-    with pytest.raises(NotImplementedError):
-        tev.Evaluator(int8, None, {}, {}, device="cpu")
+        tev.Evaluator(tc, None, {}, {}, device="cpu", mesh=object())
 
 
 @pytest.mark.parametrize("case", sorted(DECODE_CASES))

@@ -91,8 +91,13 @@ def test_batch_size_and_dtype_defaults(setup):
                        bridge.from_jax_resnet(s["enc"]), device="cpu",
                        compute_dtype=torch.bfloat16)
     assert ev._encoder_folded is not None   # the BN-folded encoder serves bf16
-    with pytest.raises(NotImplementedError):
-        ev.decode_batch({"image_tokens": np.zeros((B, 196, 40), np.float32),
-                         "entity_features": s["batch"]["entity_features"]})
+    # cached image tokens skip the encoder: (B, L) ids of the extended vocab
+    tokens = np.random.default_rng(3).standard_normal((B, 196, 40)).astype(np.float32)
+    out = ev.decode_batch({"image_tokens": tokens,
+                           "entity_features": s["batch"]["entity_features"]})
+    assert out.shape == (B, L) and out.dtype == np.int64
+    assert 0 <= out.min() and out.max() < V + E
+    with pytest.raises(ValueError, match="no image input"):
+        ev.decode_batch({"entity_features": s["batch"]["entity_features"]})
     with pytest.raises(NotImplementedError):
         tev.Evaluator(s["tc"], s["twm"], {}, {}, device="cpu", mesh=object())

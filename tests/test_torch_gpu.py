@@ -1115,3 +1115,176 @@ def test_train_step_with_facts_on_card_matches_cpu(cuda, preset):
     assert torch.isfinite(loss)
     L = cfg.model.num_layers
     assert [f.launches - b for f, b in zip(fns, before)] == [4 * L, 4 * L, 7 * L, 7 * L, 6 * L]
+
+
+# ---------------------------------------------------------------------------
+# the eval run, the serving engine and the int8 KV options on the card
+# ---------------------------------------------------------------------------
+
+def _memory_split(images, ents, names):
+    """An in-memory TEST split for the port's eval run (the card's machine
+    reads no HDF5): a CaptionDataset subclass over numpy arrays."""
+    import numpy as np
+
+    from icek_torch.data import dataset as tdata
+
+    class Split(tdata.CaptionDataset):
+        def __init__(self):
+            n = len(images)
+            a = tdata.CaptionArrays.__new__(tdata.CaptionArrays)
+            a.caption_ids = np.zeros((n, 2), np.int32)
+            a.lengths = np.ones((n,), np.int32)
+            a.caption_mask = np.zeros((n, 2), np.int32)
+            a.entity_features, a.entity_names = ents, names
+            a.fact_features = a.fact_names = None
+            a.size = n
+            self.split, self.arrays, self._images, self.image_tokens = "TEST", a, images, None
+
+    return Split()
+
+
+def _small_eval(cuda, dtype, n=5, batch_size=2, seed=21, **decode_kw):
+    """A small geo Evaluator on the card (d 40, 4 heads, 2 layers, V 60,
+    E 9, ResNet-101 over 32x32 images into 16 tokens) and an n-row split."""
+    import numpy as np
+
+    from icek_torch import eval_driver as tev
+    from icek_torch.core import config as cfgs
+    from icek_torch.data.codec import Wordmap, encode_name
+    from icek_torch.models import captioner, resnet
+
+    base = cfgs.georic()
+    cfg = base.replace(
+        model=dataclasses.replace(base.model, emb_dim=40, num_heads=4, decoder_ffn_dim=64,
+                                  encoder_ffn_dim=64, num_layers=2, type_vocab=20,
+                                  encoded_image_size=4),
+        data=dataclasses.replace(base.data, img_size=32, entity_context_size=8),
+        decode=dataclasses.replace(base.decode, max_caption_len=10, **decode_kw))
+    wm = Wordmap.from_words([f"w{i}" for i in range(55)] + ["."])
+    g = _gen(seed)
+    params = captioner.init_captioner_params(g, cfg.model, len(wm))
+    params["fc_entity"]["w"] = params["fc_entity"]["w"] * 4.0
+    enc = resnet.init_resnet101(g, 40)
+    enc["proj"]["w"] = enc["proj"]["w"] * 3e-4
+    ev = tev.Evaluator(cfg, wm, params, enc, batch_size=batch_size, beam_size=5,
+                       compute_dtype=dtype, device=cuda)
+    rng = np.random.default_rng(seed)
+    E = 9
+    ents = np.zeros((n, E, 5), np.float32)
+    ents[:, :, 0] = np.arange(E)
+    ents[:, :, 1:4] = rng.random((n, E, 3))
+    ents[:, :, 4] = rng.integers(0, 20, (n, E))
+    names = np.array([[[0, len(f"p{e}")] + encode_name(f"p{e}") for e in range(E)]] * n,
+                     np.int32)
+    images = rng.random((n, 3, 32, 32), dtype=np.float32).astype(np.float16)
+    return ev, _memory_split(images, ents, names)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_engine_groups_equal_offline_decode_at_equal_buckets(cuda, dtype):
+    """A group the engine serves at bucket b gives the captions of
+    decode_batch on the same rows padded the engine's way (row 0 repeated)
+    to b: same shapes, so the same kernels and library calls."""
+    import numpy as np
+
+    from icek_torch.decode import detok
+    from icek_torch.serve.engine import ServingEngine
+
+    ev, data = _small_eval(cuda, dtype)
+
+    def sample(i):
+        return {"raw_images": data._images[i], "entity_features": data.arrays.entity_features[i],
+                "entity_names": data.arrays.entity_names[i]}
+
+    def offline(rows, bucket):
+        rows = list(rows) + [rows[0]] * (bucket - len(rows))
+        ids = ev.decode_batch({"raw_images": data._images[rows],
+                               "entity_features": data.arrays.entity_features[rows]})
+        return [detok.caption_text(ids[j], ev.wordmap, data.arrays.entity_names[r])[0]
+                for j, r in enumerate(rows)]
+
+    with ServingEngine(ev.cfg, ev.wordmap, ev.params, ev.encoder_params, beam_size=5,
+                       compute_dtype=dtype, max_batch=4, max_wait_ms=5000.0,
+                       device=cuda) as engine:
+        engine.warmup(sample(0))
+        futures = [engine.submit(sample(i)) for i in range(4)]     # one bucket-4 group
+        got = [f.result(timeout=300)["caption"] for f in futures]
+        stats = engine.stats()
+    assert stats.bucket_runs == {4: 1} and stats.errors == 0
+    assert got == offline([0, 1, 2, 3], 4)
+    with ServingEngine(ev.cfg, ev.wordmap, ev.params, ev.encoder_params, beam_size=5,
+                       compute_dtype=dtype, max_batch=4, max_wait_ms=0.0,
+                       device=cuda) as engine:
+        lone = engine.caption(sample(3), timeout=300)["caption"]   # bucket 1
+    assert lone == offline([3], 1)[0]
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "int8_cross"])
+def test_int8_kv_runs_the_plain_step_and_the_score_head(cuda, kv_dtype):
+    """int8 and int8_cross: no decoder-step launch, the score head on every
+    step, and decoder-step True refused; f32 tokens equal the plain path's."""
+    from icek_torch.decode import beam, greedy
+
+    cfg, params, ents, _, tokens = _small_model(cuda, "georic", 22)
+    V, E, L = 60, ents.shape[1], 10
+    params["fc_vocab"]["b"][V - 1] = -1e4        # no <end>: every step runs
+    for dtype in (torch.bfloat16, torch.float32):
+        ctx = greedy.prepare_decode_context(params, cfg.model, tokens, ents,
+                                            compute_dtype=dtype)
+        args = (params, cfg.model, V, E, V - 2, V - 1, 0, ctx, L)
+        before = (tds.fused_beam_decoder_step.launches, tcs.fused_score_topk.launches)
+        got = beam.beam_decode(*args, beam_size=5, compute_dtype=dtype, kv_dtype=kv_dtype)
+        torch.cuda.synchronize()
+        assert tds.fused_beam_decoder_step.launches == before[0]
+        assert tcs.fused_score_topk.launches - before[1] == L
+        with pytest.raises(ValueError, match="megakernel"):
+            beam.beam_decode(*args, beam_size=5, compute_dtype=dtype, kv_dtype=kv_dtype,
+                             use_megakernel=True)
+        if dtype == torch.float32:
+            want = beam.beam_decode(*args, beam_size=5, kv_dtype=kv_dtype,
+                                    use_fused_scores=False)
+            torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+
+
+def test_decode_batch_async_from_another_thread(cuda):
+    """decode_batch_async enters inference mode itself, so a worker thread
+    (the engine's batcher) gets the ids of decode_batch on the main thread."""
+    import threading
+
+    import numpy as np
+
+    ev, data = _small_eval(cuda, torch.bfloat16)
+    batch = data.batch(np.array([0, 1]), raw_images=True)
+    want = ev.decode_batch(batch)
+    out = {}
+    worker = threading.Thread(target=lambda: out.update(ids=ev.decode_batch_async(batch)))
+    worker.start()
+    worker.join()
+    assert out["ids"].device.type == "cuda"
+    np.testing.assert_array_equal(out["ids"].cpu().numpy(), want)
+
+
+def test_bf16_run_over_full_and_partial_batches(cuda, tmp_path):
+    """Evaluator.run in bf16 over 5 rows at batch 2 (two full batches and one
+    padded with its last row), the uploads staged on the prefetch thread's
+    stream: the CSV holds 5 captions, each the detok of decode_batch on the
+    same padded batch."""
+    import csv
+
+    import numpy as np
+
+    from icek_torch import eval_driver as tev
+    from icek_torch.decode import detok
+
+    ev, data = _small_eval(cuda, torch.bfloat16)
+    res = ev.run(data, output_csv=str(tmp_path / "gen.csv"), log=lambda line: None)
+    want = []
+    for start in (0, 2, 4):
+        idx = tev._pad_batch(np.arange(start, min(start + 2, 5)), 2)
+        ids = ev.decode_batch(data.batch(idx, raw_images=True))
+        want += [detok.caption_text(ids[j], ev.wordmap, data.arrays.entity_names[i])[0]
+                 for j, i in enumerate(idx[:min(2, 5 - start)])]
+    assert res["captions"] == want
+    with open(tmp_path / "gen.csv", newline="") as f:
+        rows = list(csv.reader(f))
+    assert rows[0] == ["generated_caption"] and [r[0] for r in rows[1:]] == want
