@@ -71,6 +71,22 @@ Phases (any failure raises and exits non-zero):
               batch in bf16 and, on 64 more requests, in f32; one POST
               /caption); kv_dtype int8 and int8_cross against float on news
               and geo (no decoder-step launch, a score-head launch a step).
+  8. train    the training run (train_run), geo at full width, bf16, over an
+              in-memory 1024 / 256 / 256-row TRAIN / VAL / TEST split put in
+              CaptionDataset's place: train.loop.train for 2 epochs at batch
+              256 (token cache, device token cache, launches held to the
+              prediction, samples/s of each epoch beside phase 6's step, the
+              cache's encode seconds, a checkpoint's size and save / load
+              seconds); the same run stopped by SIGTERM after batch 1 of
+              epoch 1 and resumed from its STEP file, its epoch-1 checkpoint
+              equal bit for bit; 3 steps at batch 32 with the ResNet inside,
+              fine-tuned (frozen leaves bit-unchanged, trainable ones moved)
+              and with bn_train_mode (running statistics moved, the stem's
+              and layer4's last bn1 held to torch's BatchNorm2d to 1e-5, a
+              margin that tells the unbiased running variance from the
+              biased one at layer4); icek_torch.apps run_train,
+              run_eval (captions equal to Evaluator.run's) and run_serve on
+              port 0 with one POST /caption.
 After the phases one more train step and one more beam-5 batch of each
 preset run under torch.profiler, which logs the ten largest device operations and the
 device's idle share, and the profiler gives the score head's device time
@@ -1654,6 +1670,447 @@ def captions_leave(dev, models):
 
 
 # --------------------------------------------------------------------------
+# phase 8: the training run end to end
+# --------------------------------------------------------------------------
+
+RUN_ROWS = {"TRAIN": 1024, "VAL": 256, "TEST": 256}
+RUN_EPOCHS, FT_BATCH, FT_STEPS = 2, 32, 3
+
+
+def run_split(rng, wm):
+    """The loop's and the CLIs' TRAIN / VAL / TEST splits of the geo preset
+    in memory, so that the phase needs no HDF5 reader: a CaptionDataset subclass
+    with CaptionDataset's signature, which the phase puts in its place while
+    it runs.  Each open builds a fresh split over the same arrays."""
+    from icek_torch.data import dataset as tdata
+
+    arrays = {}
+    for split, n in RUN_ROWS.items():
+        caps = train_captions(rng, n, wm)
+        arrays[split] = (caps, _entity_rows(rng, n),
+                         rng.random((n, 3, IMG, IMG), dtype=np.float32).astype(np.float16))
+
+    class RunSplit(tdata.CaptionDataset):
+        def __init__(self, data_dir, base_name, split, has_facts=False):
+            caps, ents, raw = arrays[split]
+            n = len(raw)
+            a = tdata.CaptionArrays.__new__(tdata.CaptionArrays)
+            a.caption_ids = caps["caption_ids"].astype(np.int32)
+            a.lengths = caps["lengths"].astype(np.int32)
+            a.caption_mask = caps["caption_mask"].astype(np.int32)
+            a.entity_features = ents
+            a.entity_names = np.broadcast_to(entity_names(ENT_ROWS), (n, ENT_ROWS, 52))
+            a.fact_features = a.fact_names = None
+            a.size = n
+            self.split, self.arrays, self._images, self.image_tokens = split, a, raw, None
+
+    return RunSplit
+
+
+class _SplitsInMemory:
+    """Put `split_cls` in CaptionDataset's place for the block (the loop and
+    the CLIs open their splits through it), and back afterwards."""
+
+    def __init__(self, split_cls):
+        from icek_torch.data import dataset as tdata
+
+        self.mod, self.split_cls = tdata, split_cls
+
+    def __enter__(self):
+        self.real = self.mod.CaptionDataset
+        self.mod.CaptionDataset = self.split_cls
+
+    def __exit__(self, *exc):
+        self.mod.CaptionDataset = self.real
+
+
+def _bn_input(enc, images, where):
+    """The bf16 input of the stem's batch norm (`where` None) or of block
+    (stage, index)'s bn1 in the encoder's train-mode forward on `images`."""
+    from icek_torch.models import resnet
+
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        x = resnet.conv(resnet._to_nchw(images), enc["conv1"], 2, bf16)
+        if where is None:
+            return x
+        x = resnet.max_pool_3x3_s2(torch.relu(resnet.batch_norm(enc["bn1"], x, True)[0]))
+        for stage in range(1, 5):
+            blocks = enc[f"layer{stage}"]
+            for b, block in enumerate(blocks):
+                if (stage, b) == (where[0], where[1] % len(blocks)):
+                    return resnet.conv(x, block["conv1"], 1, bf16)
+                x = resnet.bottleneck(block, x, resnet._stride(stage, b), bf16, True)
+    raise ValueError(f"no block {where}")
+
+
+def _leaves_with_paths(tree, path=()):
+    """(path, tensor) of every leaf of a nested dict / list tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves_with_paths(v, path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves_with_paths(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def _checkpoint_diff(a_path, b_path) -> list:
+    """The leaves (and meta) in which two checkpoints differ, with their
+    largest difference."""
+    a, b = (torch.load(p, weights_only=True) for p in (a_path, b_path))
+    diffs = [] if a["meta"] == b["meta"] else [("meta", a["meta"], b["meta"])]
+    if a["opt"]["step"] != b["opt"]["step"]:
+        diffs.append(("opt step", a["opt"]["step"], b["opt"]["step"]))
+    for group in (("params",), ("encoder_params",), ("opt", "mu"), ("opt", "nu")):
+        x, y = a, b
+        for k in group:
+            x, y = x[k], y[k]
+        for (path, u), (_, v) in zip(_leaves_with_paths(x), _leaves_with_paths(y)):
+            if not torch.equal(u, v):
+                diffs.append((group + path, float((u.float() - v.float()).abs().max())))
+    return diffs
+
+
+def train_loop_phase(dev, model, split_cls, workdir, step_summary):
+    """`loop`: train() over the 1024 / 256-row split, 2 epochs at batch 256,
+    print_freq 1, from the seeded geo encoder (``encoder_weights``, a .pt
+    encoder tree): the split's tokens cached, then lifted into the device
+    token cache; launches held to 2 epochs x (4 train steps + 1 validation
+    batch) of the code's prediction; samples/s of each epoch (host clock,
+    data path included) beside phase 6's step alone, the token cache's
+    encode seconds, a checkpoint's size and its save and load seconds.
+    `resume`: the same run stopped by SIGTERM after batch 1 of epoch 1 and
+    resumed from its STEP file ends in the uninterrupted run's epoch-1
+    checkpoint, bit for bit."""
+    import signal
+
+    from icek_torch.train import checkpoint as tckpt
+    from icek_torch.train import loop as tloop
+
+    cfg, wm, _, enc = model
+    enc_path = tckpt.save_encoder_tree(os.path.join(workdir, "encoder.pt"), enc,
+                                       {"emb_dim": cfg.model.emb_dim})
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=BATCH, print_freq=1,
+                                                epochs=RUN_EPOCHS))
+    base = cfg.data.base_name
+    counted = train_counters()
+    steps, val_batches = RUN_ROWS["TRAIN"] // BATCH, RUN_ROWS["VAL"] // BATCH
+    # a validation batch runs the deterministic forward: the flash forward at
+    # every attention site and no dropout kernel
+    per_val = {name: (per_step if name == "flash_attention" else 0)
+               for name, (_, per_step) in counted.items()}
+    want = {name: RUN_EPOCHS * (steps * per_step + val_batches * per_val[name])
+            for name, (_, per_step) in counted.items()}
+    log(f"train run launches predicted over {RUN_EPOCHS} epochs x ({steps} steps + "
+        f"{val_batches} validation batch): {want}")
+
+    def run(ckpt_dir, lines, **kw):
+        return tloop.train(cfg, workdir, VOCAB, wm.pad_id, checkpoint_dir=ckpt_dir,
+                           max_epochs=RUN_EPOCHS, log=lines.append, encoder_weights=enc_path,
+                           device=dev, **kw)
+
+    dir_a, dir_b = os.path.join(workdir, "run_a"), os.path.join(workdir, "run_b")
+    timers = {"epoch": _time_calls(tloop, "run_epoch"),
+              "validation": _time_calls(tloop, "run_validation"),
+              "encode": _time_calls(split_cls, "cache_image_tokens"),
+              "save": _time_calls(tckpt, "save_checkpoint")}
+    lines = []
+    with _SplitsInMemory(split_cls):
+        for fn, _ in counted.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        result = run(dir_a, lines)
+        loop_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, (fn, _) in counted.items()}
+    for _, undo in timers.values():
+        undo()
+    epoch_s, val_s = timers["epoch"][0], timers["validation"][0]
+    final = os.path.join(dir_a, f"checkpoint_{base}.pt")
+    t0 = time.perf_counter()
+    tckpt.load_checkpoint(final)
+    load_s = time.perf_counter() - t0
+    steps_logged = [s for s in lines if s.startswith("Epoch")]
+
+    def field(name):        # "<name> <value> (<average>)" of every step's line
+        return [float(s.split(name + " ", 1)[1].split()[0]) for s in steps_logged]
+
+    losses = field("Loss")
+    loop = dict(
+        loop_s=loop_s, epoch_s=epoch_s, validation_s=val_s,
+        samples_per_s_by_epoch=[RUN_ROWS["TRAIN"] / t for t in epoch_s],
+        step_alone_samples_per_s=step_summary["samples_per_s_median"],
+        token_cache_encode_s=timers["encode"][0], checkpoint_save_s=timers["save"][0],
+        checkpoint_bytes=os.path.getsize(final), checkpoint_load_s=load_s,
+        launches=launches, launches_predicted=want, best_loss=result.best_loss,
+        train_losses=losses, step_batch_s=field("Batch Time"),
+        step_data_wait_s=field("Data Load Time"),
+        log_lines=[s for s in lines if not s.startswith("Epoch")])
+    log(f"train run loop: {loop}")
+    require(any(s.startswith("device token cache:") for s in lines),
+            "the loop did not lift the split's tokens into the device token cache")
+    require(launches == want, f"train run launches {launches} != predicted {want}")
+    require(len(epoch_s) == RUN_EPOCHS and math.isfinite(result.best_loss)
+            and all(math.isfinite(x) for x in losses), f"train run: {result}, {losses}")
+
+    step_file = os.path.join(dir_b, f"checkpoint_STEP_{base}.pt")
+    fired = []
+
+    def killing_log(msg):
+        if msg.startswith("Epoch: [1][1/") and not fired:
+            fired.append(True)
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    with _SplitsInMemory(split_cls):
+        stopped = tloop.train(cfg, workdir, VOCAB, wm.pad_id, checkpoint_dir=dir_b,
+                              max_epochs=RUN_EPOCHS, log=killing_log,
+                              encoder_weights=enc_path, device=dev)
+        require(stopped.preempted and os.path.exists(step_file),
+                f"SIGTERM did not preempt the run: {stopped}")
+        step_meta = tckpt.read_meta(step_file)
+        picked = tckpt.latest_checkpoint(dir_b, base)
+        require(picked == step_file, f"latest_checkpoint picked {picked}, not {step_file}")
+        t0 = time.perf_counter()
+        resumed = run(dir_b, [], resume_from=step_file)
+        resume_s = time.perf_counter() - t0
+    diffs = _checkpoint_diff(final, os.path.join(dir_b, f"checkpoint_{base}.pt"))
+    resume = dict(step_meta=step_meta, resume_s=resume_s, preempted_again=resumed.preempted,
+                  step_file_removed=not os.path.exists(step_file), differing=diffs[:20],
+                  n_differing=len(diffs))
+    log(f"train run resume: {resume}")
+    require(not diffs, f"the resumed run's epoch-1 checkpoint differs from the "
+                       f"uninterrupted run's in {len(diffs)} places: {diffs[:20]}")
+    require(resume["step_file_removed"] and not resumed.preempted, f"resume: {resume}")
+    return loop, resume, enc_path
+
+
+def finetune_phase(dev, model):
+    """Geo, bf16, batch 32, 3 steps with the ResNet inside the step: with
+    fine-tuning, the stem, layer1 and every batch-norm statistic stay
+    bit-unchanged and every trainable leaf moves; with bn_train_mode, every
+    running statistic moves, the weights do not, and the running statistics
+    after the first step of the stem's batch norm and of layer4's last
+    block's bn1 match torch's BatchNorm2d (momentum 0.1, train mode) on the
+    same input to 1e-5 of their largest value.  At the stem (n = 401408 per
+    channel) the unbiased and the biased running variance differ by less than
+    that; at layer4 (n = 1568) by more, which the phase checks, so the check
+    tells the two conventions apart.  ms a step."""
+    from icek_torch import bridge
+    from icek_torch.data import images as image_ops
+    from icek_torch.models import resnet
+    from icek_torch.train import step as step_lib
+
+    cfg, wm, params, enc = model
+    rng = np.random.default_rng(SEED + 41)
+    batch = train_captions(rng, FT_BATCH, wm)
+    batch["entity_features"] = _entity_rows(rng, FT_BATCH)
+    batch["raw_images"] = rng.random((FT_BATCH, 3, IMG, IMG), dtype=np.float32).astype(np.float16)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    out = {}
+    for mode in ("fine_tune_encoder", "bn_train_mode"):
+        p = bridge.trainable(copy.deepcopy(params), dev)
+        e = bridge.to_device(copy.deepcopy(enc), dev)
+        start = {path: t.clone() for path, t in _leaves_with_paths(e)}
+        optimizer = step_lib.make_optimizer(cfg.train.decoder_lr, cfg.train.grad_clip)
+        opt_state = optimizer.init(p)
+        if mode == "fine_tune_encoder":
+            eopt = step_lib.make_encoder_optimizer(e, cfg.train.encoder_lr, cfg.train.grad_clip)
+            estate = eopt.init(e)
+            train_step, _ = step_lib.make_train_step(
+                cfg, VOCAB, wm.pad_id, optimizer, compute_dtype=torch.bfloat16,
+                encoder_optimizer=eopt, device=dev)
+            call = lambda gen: train_step(p, opt_state, e, estate, batch, gen)[4]  # noqa: E731
+        else:
+            # torch's BatchNorm2d on the inputs of the stem's batch norm and of
+            # layer4's last bn1, recomputed by the step's own forward
+            images = image_ops.normalize_in_graph(batch["raw_images"])
+            refs, gap = {}, None
+            for where, bn in ((None, e["bn1"]), ((4, -1), e["layer4"][-1]["bn1"])):
+                x = _bn_input(e, images, where).float()
+                ref = torch.nn.BatchNorm2d(x.shape[1], momentum=0.1).to(dev).train()
+                ref.running_mean.copy_(bn["mean"])
+                ref.running_var.copy_(bn["var"])
+                with torch.no_grad():
+                    ref(x)
+                refs[where] = ref
+                if where is not None:   # the biased convention's running variance
+                    biased = 0.9 * bn["var"] + 0.1 * torch.var(x, dim=(0, 2, 3),
+                                                               correction=0)
+                    gap = float((ref.running_var - biased).abs().max()
+                                / ref.running_var.abs().max())
+            train_step, _ = step_lib.make_train_step(
+                cfg, VOCAB, wm.pad_id, optimizer, compute_dtype=torch.bfloat16,
+                bn_train_mode=True, device=dev)
+            call = lambda gen: train_step(p, opt_state, e, batch, gen)[3]  # noqa: E731
+        times, losses = [], []
+        for s in range(FT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(call(torch.Generator().manual_seed(SEED + s))))
+            times.append((time.perf_counter() - t0) * 1e3)
+            if s == 0 and mode == "bn_train_mode":
+                bn_err = {where: max(float((bn[k] - getattr(refs[where], f"running_{k}"))
+                                           .abs().max())
+                                     / float(getattr(refs[where], f"running_{k}").abs().max())
+                                     for k in ("mean", "var"))
+                          for where, bn in ((None, e["bn1"]),
+                                            ((4, -1), e["layer4"][-1]["bn1"]))}
+        mask = dict(_leaves_with_paths(step_lib.encoder_trainable_mask(e)))
+        moved = {path: not torch.equal(t, start[path]) for path, t in _leaves_with_paths(e)}
+        stats = [path for path in moved if path[-1] in ("mean", "var")]
+        rec = dict(step_ms=times, step_ms_median_of_last=statistics.median(times[1:]),
+                   losses=losses, leaves=len(moved), moved=sum(moved.values()))
+        require(all(math.isfinite(x) for x in losses), f"{mode}: losses {losses}")
+        if mode == "fine_tune_encoder":
+            frozen = [path for path in moved if not mask[path]]
+            rec.update(trainable=sum(mask.values()), frozen=len(frozen))
+            require(not any(moved[path] for path in frozen),
+                    f"{mode}: frozen leaves moved: {[p for p in frozen if moved[p]][:5]}")
+            require(all(moved[path] for path in moved if mask[path]),
+                    f"{mode}: trainable leaves that did not move: "
+                    f"{[p for p in moved if mask[p] and not moved[p]][:5]}")
+        else:
+            rec.update(running_stats=len(stats), stem_stats_rel_err=bn_err[None],
+                       layer4_stats_rel_err=bn_err[(4, -1)], layer4_biased_var_gap=gap)
+            require(all(moved[path] for path in stats),
+                    f"{mode}: running statistics that did not move: "
+                    f"{[p for p in stats if not moved[p]][:5]}")
+            require(not any(moved[path] for path in moved if path not in stats),
+                    f"{mode}: encoder weights moved")
+            require(max(bn_err.values()) <= 1e-5,
+                    f"{mode}: running statistics {bn_err} from BatchNorm2d's")
+            require(gap > 1e-5, f"{mode}: layer4's biased and unbiased running "
+                                f"variances differ by only {gap}")
+        log(f"train run {mode} (geo, batch {FT_BATCH}, bf16): {rec}")
+        out[mode] = rec
+        del p, e, opt_state
+    return out
+
+
+def cli_phase(dev, model, split_cls, workdir, enc_path):
+    """In-process through icek_torch.apps on the in-memory split: run_train
+    georic for one epoch at batch 256 from the seeded encoder; run_eval from
+    its BEST_ checkpoint and from a checkpoint of the seeded (untrained)
+    model, each CSV with a row for every TEST row and the captions of
+    Evaluator.run on the same checkpoint (one epoch on random captions
+    teaches the model to end at once, so the BEST_ captions come out empty;
+    the seeded model's carry words); run_serve on port 0 with one POST
+    /caption round trip."""
+    import http.client
+    import threading
+
+    from icek_torch import apps, eval_driver
+    from icek_torch.core import config as cfgs
+    from icek_torch.serve import server as server_lib
+    from icek_torch.train import checkpoint as tckpt
+
+    cfg, wm, params, enc = model
+    base = cfg.data.base_name
+    data_dir, ckpt_dir = os.path.join(workdir, "files"), os.path.join(workdir, "cli")
+    os.makedirs(data_dir)
+    with open(os.path.join(data_dir, f"WORDMAP_{base}.json"), "w") as f:
+        json.dump(wm.word_to_id, f)
+    out = {}
+    with _SplitsInMemory(split_cls):
+        t0 = time.perf_counter()
+        apps.run_train("georic", ["--data-dir", data_dir, "--checkpoint-dir", ckpt_dir,
+                                  "--epochs", "1", "--batch-size", str(BATCH),
+                                  "--encoder-weights", enc_path])
+        out["train_s"] = time.perf_counter() - t0
+        best = os.path.join(ckpt_dir, f"BEST_checkpoint_0_{base}.pt")
+        require(os.path.exists(best), f"run_train wrote no {best}")
+        seeded = tckpt.save_checkpoint(os.path.join(workdir, "seeded"), base, 0, 0, 0.0,
+                                       params, None, enc)
+        test = split_cls(data_dir, base, "TEST")
+        for name, ckpt in (("best", best), ("seeded", seeded)):
+            csv_path = os.path.join(workdir, f"{name}_generated_captions.csv")
+            _zero_serving_counts()
+            t0 = time.perf_counter()
+            apps.run_eval("georic", ["--data-dir", data_dir, "--checkpoint", ckpt,
+                                     "--batch-size", str(BATCH), "--beam", str(BEAM),
+                                     "--output", csv_path,
+                                     "--metric-data", os.path.join(workdir, "absent")])
+            eval_s = time.perf_counter() - t0
+            launches = _read_serving_counts()
+            rows = _csv_rows(csv_path)
+            p, _, e, _ = tckpt.load_checkpoint(ckpt)
+            ev = eval_driver.Evaluator(cfgs.get_config("georic"), wm, p, e,
+                                       batch_size=BATCH, beam_size=BEAM, device=dev)
+            res = ev.run(test, output_csv=os.path.join(workdir, "want.csv"), log=lambda s: None)
+            require(len(rows) == RUN_ROWS["TEST"] + 1,
+                    f"run_eval CSV: {len(rows) - 1} rows for {RUN_ROWS['TEST']} TEST rows")
+            require([r[0] for r in rows[1:]] == res["captions"],
+                    f"run_eval's captions of the {name} checkpoint differ from "
+                    f"Evaluator.run's on the same checkpoint")
+            out[name] = dict(eval_s=eval_s, csv_rows=len(rows) - 1, launches=launches,
+                             nonempty=sum(bool(c) for c in res["captions"]),
+                             first_caption=res["captions"][0])
+            del ev
+        require(out["seeded"]["nonempty"] == RUN_ROWS["TEST"],
+                f"the seeded model's captions: {out['seeded']}")
+        # the seeded model's captions run every step (the BEST_ model's end
+        # early): one batch of the serving prediction
+        want = serving_prediction(cfgs.get_config("georic"), 1, 0)
+        require(out["seeded"]["launches"] == want,
+                f"run_eval launches {out['seeded']['launches']} != predicted {want}")
+
+        made = []
+        make = server_lib.make_server
+        server_lib.make_server = lambda *a, **k: made.append(make(*a, **k)) or made[-1]
+        thread = threading.Thread(target=apps.run_serve, daemon=True, args=("georic", [
+            "--data-dir", data_dir, "--checkpoint", seeded, "--port", "0",
+            "--max-batch", "8"]))
+        try:
+            thread.start()
+            for _ in range(1200):
+                if made or not thread.is_alive():
+                    break
+                thread.join(0.1)
+            require(bool(made), "run_serve started no server")
+            row = test.batch(np.array([0]), raw_images=True)
+            sample = {"raw_images": row["raw_images"][0],
+                      "entity_features": row["entity_features"][0],
+                      "entity_names": np.ascontiguousarray(test.arrays.entity_names[0])}
+            t0 = time.perf_counter()
+            conn = http.client.HTTPConnection(*made[0].server_address, timeout=300)
+            conn.request("POST", "/caption", body=server_lib.encode_request(sample))
+            resp = conn.getresponse()
+            status, reply = resp.status, json.loads(resp.read())
+            conn.close()
+            out["serve_round_trip_ms"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            server_lib.make_server = make
+            if made:
+                made[0].shutdown()
+            thread.join(60)
+    require(status == 200 and bool(reply.get("caption")),
+            f"POST /caption: {status} {reply}")
+    require(not thread.is_alive(), "run_serve did not return after shutdown")
+    # a batch of 1 against the offline batch of 256: equal in f32, mostly in
+    # bf16 (ROADMAP.md section 3, row independence); logged, not asserted
+    out.update(served_caption=reply["caption"],
+               served_equals_offline=reply["caption"] == out["seeded"]["first_caption"])
+    log(f"train run cli: {out}")
+    return out
+
+
+def train_run(dev, models, step_summary):
+    """Phase 8 in a scratch directory of its own, deleted at the end: the
+    loop, its preempted and resumed twin, the image-carrying steps and the
+    CLIs."""
+    import tempfile
+
+    model = models["georic"]
+    split_cls = run_split(np.random.default_rng(SEED + 31), model[1])
+    with tempfile.TemporaryDirectory(prefix="icek_train_") as workdir:
+        loop, resume, enc_path = train_loop_phase(dev, model, split_cls, workdir, step_summary)
+        finetune = finetune_phase(dev, model)
+        cli = cli_phase(dev, model, split_cls, workdir, enc_path)
+    return dict(loop=loop, resume=resume, finetune=finetune, cli=cli)
+
+
+# --------------------------------------------------------------------------
 # phase 5: card vs CPU at f32
 # --------------------------------------------------------------------------
 
@@ -1719,10 +2176,10 @@ def cross_check(dev, model, preset="georic"):
 # phase 6: train steps at full width
 # --------------------------------------------------------------------------
 
-def make_train_batch(rng, n, wm, preset="georic"):
+def train_captions(rng, n, wm, preset="georic"):
     """Captions of T tokens (<start>, words, a few entity ids >= V and, with
     facts, fact ids >= V + E, <end>, <pad> tail) with their kinds and
-    lengths, entity (and fact) rows and cached image tokens."""
+    lengths."""
     s = preset_shape(preset)
     T, E, F = s["T"], s["E"], s["F"]
     caps = rng.integers(5, VOCAB - 5, (n, T)).astype(np.int64)
@@ -1738,10 +2195,15 @@ def make_train_batch(rng, n, wm, preset="georic"):
         caps[b, lengths[b]:] = wm.pad_id
     kind = np.where(caps >= VOCAB + E, 2, (caps >= VOCAB).astype(np.int64)) if F \
         else (caps >= VOCAB).astype(np.int64)
-    batch = {"caption_ids": caps, "caption_mask": kind, "lengths": lengths.astype(np.int64),
-             "entity_features": _entity_rows(rng, n, preset),
-             "image_tokens": rng.standard_normal((n, IMG_TOKENS, 300), dtype=np.float32)}
-    if F:
+    return {"caption_ids": caps, "caption_mask": kind, "lengths": lengths.astype(np.int64)}
+
+
+def make_train_batch(rng, n, wm, preset="georic"):
+    """train_captions with entity (and fact) rows and cached image tokens."""
+    batch = train_captions(rng, n, wm, preset)
+    batch["entity_features"] = _entity_rows(rng, n, preset)
+    batch["image_tokens"] = rng.standard_normal((n, IMG_TOKENS, 300), dtype=np.float32)
+    if preset_shape(preset)["F"]:
         batch["fact_features"] = _fact_rows(rng, n, preset)
     return batch
 
@@ -2098,6 +2560,7 @@ def run_phases(dev, card) -> list:
     summary.update(greedy_warm_ms=greedy_warm,
                    greedy_warm_median_ms=statistics.median(greedy_warm))
     leave = captions_leave(dev, models)
+    run8 = train_run(dev, models, train_summary)
     # after every timed run, so the profiler cannot disturb one
     trace_device("one train step", step_once)
     del step_once
@@ -2153,6 +2616,8 @@ def run_phases(dev, card) -> list:
             row["launches_eval_run"] = leave["eval_run_launches"][name]
             row["launches_per_engine_batch"] = \
                 leave["serving_engine"]["launches_per_batch"][name]
+        if name in run8["loop"]["launches"]:        # phase 8's loop (2 epochs)
+            row["launches_train_run"] = run8["loop"]["launches"][name]
         if name in NORM_KERNELS:        # every row count of every preset
             i = NORM_KERNELS.index(name)
             row["rows"] = {str(n): dict(_compact(rec[i][torch.bfloat16],
@@ -2167,6 +2632,8 @@ def run_phases(dev, card) -> list:
     log(f"card: {card}; wide beams (geo beams {WIDE_BEAMS}): {json.dumps(wide)}")
     for what, rec in leave.items():
         log(f"card: {card}; {what}: {json.dumps(rec)}")
+    for what, rec in run8.items():
+        log(f"card: {card}; train run {what}: {json.dumps(rec, default=str)}")
     return rows
 
 

@@ -7,6 +7,8 @@ captioner tree keeps that layout as torch tensors.  The ResNet tree's
 convolution weights change from HWIO to torch's OIHW; batch-norm stats
 stay as they are (``resnet.fold_bn_params`` folds them in the port).
 ``to_numpy`` goes back, so a round trip is bit-exact.
+``from_jax_opt_leaves`` turns a JAX checkpoint's optax Adam state into the
+port's optimizer state.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ def _map(tree, fn, path=()):
 
 
 def _tensor(x, _path=()):
+    if torch.is_tensor(x):            # bfloat16 leaves of the msgpack reader
+        return x.detach().clone()
     return torch.from_numpy(np.array(x, copy=True))
 
 
@@ -106,6 +110,12 @@ def trainable(tree, device=None):
     return _map(tree, convert)
 
 
+def to_device(tree, device):
+    """The tree with every leaf on `device` (no copy for leaves already
+    there), autograd marks untouched."""
+    return _map(tree, lambda t, _path: t.to(device))
+
+
 def grads_to_numpy(tree):
     """The gradients of a param tree as a numpy tree of the same layout
     (zeros where a leaf has none), for comparing gradient trees leaf by leaf."""
@@ -114,3 +124,55 @@ def grads_to_numpy(tree):
         return np.ascontiguousarray(g.detach().cpu().numpy())
 
     return _map(tree, convert)
+
+
+def _jax_order(tree, path=()):
+    """(path, leaf) pairs in JAX's flattening order: dict keys sorted, lists
+    in order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _jax_order(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _jax_order(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def _set(tree, path, value):
+    for k in path[:-1]:
+        tree = tree[k]
+    tree[path[-1]] = value
+
+
+def from_jax_opt_leaves(opt_leaves, jax_params_tree):
+    """A JAX checkpoint's ``opt_leaves`` -> the port's optimizer state.
+
+    ``icek_tpu.train.step.make_optimizer``'s state flattens to [the injected
+    count, the learning rate, Adam's count, Adam's mu leaves, Adam's nu
+    leaves], the moments in the params' flattening order (sorted keys).
+    optax's count, mu and nu become torch Adam's step, exp_avg and
+    exp_avg_sq, the learning rate the group's lr.  Returns the dict
+    ``train.step.OptState.restore`` takes: {"step", "learning_rate", "mu",
+    "nu"}, the moments as trees of tensors shaped like `jax_params_tree`.
+    Any other leaf count, or a moment whose shape is not its param's,
+    raises ``ValueError``."""
+    paths = list(_jax_order(jax_params_tree))
+    n = len(paths)
+    if len(opt_leaves) != 3 + 2 * n:
+        raise ValueError(f"opt_leaves: {len(opt_leaves)} leaves, expected {3 + 2 * n} "
+                         f"(count, learning rate, Adam count, mu and nu of {n} params)")
+    scalars = [np.asarray(x) for x in opt_leaves[:3]]
+    if any(x.shape != () for x in scalars):
+        raise ValueError(f"opt_leaves: the first three leaves must be scalars, got "
+                         f"shapes {[x.shape for x in scalars]}")
+    mu, nu = _map(jax_params_tree, lambda x, _p: None), _map(jax_params_tree,
+                                                             lambda x, _p: None)
+    for (path, param), m, v in zip(paths, opt_leaves[3:3 + n], opt_leaves[3 + n:]):
+        for what, leaf in (("mu", m), ("nu", v)):
+            if tuple(np.shape(leaf)) != tuple(np.shape(param)):
+                raise ValueError(f"opt_leaves: {what} at {path} has shape "
+                                 f"{tuple(np.shape(leaf))}, its param {tuple(np.shape(param))}")
+        _set(mu, path, _tensor(m))
+        _set(nu, path, _tensor(v))
+    return {"step": int(scalars[2]), "learning_rate": float(scalars[1]), "mu": mu, "nu": nu}

@@ -92,12 +92,30 @@ class TrainConfig:
     lr_decay_every: int = 8
     lr_decay_factor: float = 0.8
     fine_tune_encoder: bool = False
+    # Opt-in reproduction of the reference's frozen-encoder side effect
+    # (geo-aware/train.py:245 calls encoder.train()): batch norm normalizes
+    # by batch statistics and updates the running buffers every step.
+    bn_train_mode: bool = False
     print_freq: int = 100
     seed: int = 0
+    # dtype of the model's matmuls in a training run on the card: "bfloat16"
+    # or "float32" (train/loop.py::train); the CPU always computes in float32
+    compute_dtype: str = "bfloat16"
     # Microbatches per step (gradients of the summed NLL accumulate, one
     # optimizer step).  "auto" resolves to 1 until an accumulation table has
     # been measured on the H100 (train/step.py::resolve_grad_accum).
     grad_accum_steps: object = "auto"
+    # Keep the train split's cached image tokens on the card when they fit
+    # this budget (GiB); batches then carry row ids and the step gathers
+    # the tokens on the device.  0 disables.  Frozen-encoder training only.
+    device_token_cache_gb: float = 4.0
+    # Also write the rolling mid-epoch STEP checkpoint every N train batches
+    # (0 = epoch boundaries only); resume re-enters the epoch at the next
+    # batch, bit-identical to an uninterrupted run.
+    checkpoint_every_steps: int = 0
+    # Catch SIGTERM during training (on the main thread): finish the step in
+    # flight, write the STEP checkpoint, return with `preempted`.
+    save_on_preempt: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,10 +229,57 @@ def nytimes800k() -> Config:
     )
 
 
+def geometry_of(cfg: Config) -> str:
+    return f"{cfg.model.emb_dim}x{cfg.model.num_heads}"
+
+
+def apply_geometry(cfg: Config, geometry: str) -> Config:
+    """Replace the transformer geometry ``"<emb_dim>x<num_heads>"`` for
+    from-scratch training.  The packed input files do not depend on it;
+    checkpoints record it and eval / serve re-apply it.  Not checkpoint
+    parity with the reference, which needs 300x10."""
+    try:
+        emb_dim, num_heads = (int(v) for v in geometry.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"geometry must be '<emb_dim>x<num_heads>', got {geometry!r}")
+    if emb_dim <= 0 or num_heads <= 0 or emb_dim % num_heads:
+        raise ValueError(f"geometry {geometry!r}: emb_dim must be a positive multiple "
+                         f"of num_heads")
+    if emb_dim <= cfg.model.num_entity_feature_dims:
+        raise ValueError(f"geometry {geometry!r}: emb_dim must exceed the "
+                         f"{cfg.model.num_entity_feature_dims} entity feature dims")
+    return cfg.replace(model=dataclasses.replace(cfg.model, emb_dim=emb_dim,
+                                                 num_heads=num_heads))
+
+
+def resolve_geometry(cfg: Config, meta: Optional[dict] = None,
+                     flag: Optional[str] = None, log=print) -> Config:
+    """An explicit ``--geometry`` flag wins (it must agree with the geometry a
+    checkpoint recorded); otherwise the checkpoint's recorded geometry is
+    re-applied."""
+    recorded = (meta or {}).get("geometry")
+    flag = flag.strip().lower() if flag else flag
+    if flag and recorded and flag != recorded:
+        raise ValueError(f"--geometry {flag} conflicts with the checkpoint's recorded "
+                         f"geometry {recorded}")
+    want = flag or recorded
+    if want and want != geometry_of(cfg):
+        log(f"geometry: {want} ({'flag' if flag else 'from checkpoint meta'})")
+        return apply_geometry(cfg, want)
+    return cfg
+
+
+def georic_fast() -> Config:
+    """georic at the 256x8 geometry, trained from scratch (cannot load
+    reference checkpoints); reads the same ``geo_aware_georic2`` files."""
+    return dataclasses.replace(apply_geometry(georic(), "256x8"), name="georic_fast")
+
+
 PRESETS = {
     "georic": georic,
     "k_georic": k_georic,
     "nytimes800k": nytimes800k,
+    "georic_fast": georic_fast,
 }
 
 

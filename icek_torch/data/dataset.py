@@ -1,17 +1,19 @@
-"""Data loading for evaluation: reference-protocol files -> static-shape
-numpy batches (port of ``icek_tpu/data/dataset.py``, the parts the eval run
-and the token cache use).
+"""Data loading: reference-protocol files -> static-shape numpy batches
+(port of ``icek_tpu/data/dataset.py``).
 
   * the HDF5 image store is opened read-only (``h5py`` is imported where a
     split is opened, so the module imports without it) and the caption /
     context sidecars are materialized as contiguous arrays once;
   * ``cache_image_tokens`` runs the frozen encoder over the split once, so
     later batches carry the 196-token image features instead of images;
+  * ``epoch_batches`` yields an epoch's (shuffled, seeded) batches, from any
+    batch on (mid-epoch resume);
   * ``prefetch`` stages the next batches on a background thread while the
-    current one runs on the device.
+    current one runs on the device (``stage_to`` / ``wait_staged``: pinned
+    uploads on a side stream).
 
-Not ported here: the train-side epoch iterators (``index_batches``,
-``epoch_batches``, ``process_local_slices``) and the streaming dataset.
+Not ported here: ``process_local_slices`` (the mesh) and the streaming
+dataset.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import threading
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch
 
 from icek_torch.data import images as image_ops
 
@@ -56,6 +59,10 @@ class CaptionArrays:
 
 class CaptionDataset:
     """One split: images (HDF5) + caption/context arrays."""
+
+    # set by the train loop when the split's tokens live on the device:
+    # batches then carry their row ids ("token_rows") instead of the tokens
+    use_token_rows = False
 
     def __init__(self, data_dir: str, base_name: str, split: str,
                  has_facts: bool = False):
@@ -97,6 +104,22 @@ class CaptionDataset:
             chunks.append(np.asarray(encode_fn(feed(idx))).astype(dtype))
         self.image_tokens = np.concatenate(chunks, axis=0)
 
+    def index_batches(self, batch_size: int, shuffle: bool, seed: int = 0,
+                      pad_partial: bool = True) -> Iterator[np.ndarray]:
+        """An epoch's row-id batches (uniform shuffle from `seed`)."""
+        return batch_indices(len(self), batch_size, shuffle, seed, pad_partial)
+
+    def epoch_batches(self, batch_size: int, shuffle: bool, seed: int = 0,
+                      pad_partial: bool = True, with_images: bool = True,
+                      raw_images: bool = False, start_batch: int = 0):
+        """Batch dicts of one epoch.  ``start_batch`` skips the first batches
+        of the seeded epoch without reading them (mid-epoch resume)."""
+        for j, idx in enumerate(self.index_batches(batch_size, shuffle, seed,
+                                                   pad_partial)):
+            if j < start_batch:
+                continue
+            yield self.batch(idx, with_images=with_images, raw_images=raw_images)
+
     def batch(self, idx: np.ndarray, with_images: bool = True,
               raw_images: bool = False) -> Dict[str, np.ndarray]:
         a = self.arrays
@@ -111,7 +134,9 @@ class CaptionDataset:
         if a.fact_features is not None:
             out["fact_features"] = a.fact_features[safe]
         if with_images:
-            if self.image_tokens is not None:
+            if self.use_token_rows:
+                out["token_rows"] = safe.astype(np.int32)
+            elif self.image_tokens is not None:
                 out["image_tokens"] = self.image_tokens[safe]
             elif raw_images:
                 out["raw_images"] = self.raw_image_batch(safe)
@@ -132,6 +157,38 @@ def batch_indices(n: int, batch_size: int, shuffle: bool, seed: int = 0,
                 return
             idx = np.concatenate([idx, np.full(batch_size - len(idx), -1)])
         yield idx
+
+
+def stage_to(device):
+    """The prefetch thread's upload of a batch dict: on a CUDA device, pinned
+    copies sent on a side stream, returned with the event the consumer waits
+    on (``wait_staged``); elsewhere the numpy batch as is, with no event."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return lambda batch: (batch, None)
+    stream = torch.cuda.Stream(device)
+
+    def stage(batch):
+        with torch.cuda.stream(stream):
+            out = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                   .to(device, non_blocking=True) for k, v in batch.items()}
+            ready = torch.cuda.Event()
+            ready.record(stream)
+        return out, ready
+
+    return stage
+
+
+def wait_staged(batch, ready):
+    """Make the current stream wait for a staged batch's upload and tell the
+    allocator its tensors are used there."""
+    if ready is None:
+        return batch
+    current = torch.cuda.current_stream(next(iter(batch.values())).device)
+    current.wait_event(ready)
+    for t in batch.values():
+        t.record_stream(current)
+    return batch
 
 
 def prefetch(iterator, put_fn, depth: int = 2):

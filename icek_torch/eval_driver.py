@@ -224,35 +224,15 @@ class Evaluator:
             return out
 
     def _stage(self):
-        """The prefetch thread's upload of a batch's decode inputs: on a CUDA
-        device, a pinned copy on a side stream, returned with the event the
-        consumer waits on (``_staged``); elsewhere the numpy batch as is."""
-        if self.device.type != "cuda":
-            return lambda item: (item[0], item[1], None)
-        stream = torch.cuda.Stream(self.device)
+        """The prefetch thread's upload of a (start, batch) item
+        (``dataset.stage_to``)."""
+        stage = ds.stage_to(self.device)
 
-        def stage(item):
-            start, batch = item
-            with torch.cuda.stream(stream):
-                out = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
-                       .to(self.device, non_blocking=True)
-                       for k, v in batch.items()}
-                ready = torch.cuda.Event()
-                ready.record(stream)
-            return start, out, ready
+        def item(it):
+            start, batch = it
+            return (start, *stage(batch))
 
-        return stage
-
-    def _staged(self, batch, ready):
-        """Make the current stream wait for a staged batch's upload and tell
-        the allocator its tensors are used there."""
-        if ready is None:
-            return batch
-        current = torch.cuda.current_stream(self.device)
-        current.wait_event(ready)
-        for t in batch.values():
-            t.record_stream(current)
-        return batch
+        return item
 
     def run(self, data: ds.CaptionDataset, js_metric=None, fact_metric=None,
             predicate_to_objects: Optional[Dict[str, List[str]]] = None,
@@ -281,7 +261,7 @@ class Evaluator:
         # the host reads and the upload of the next batches overlap the
         # device's decode of this one
         for start, batch, ready in ds.prefetch(batches(), self._stage()):
-            out = self.decode_batch(self._staged(batch, ready))
+            out = self.decode_batch(ds.wait_staged(batch, ready))
             count = min(self.batch_size, n - start)
             for b in range(count):
                 i = start + b

@@ -113,22 +113,35 @@ def encode_entities(params, cfg: ModelConfig, entity_features, fact_features=Non
 def encode_facts(params, fact_features, entities_encoded):
     """fact vector = encoded subject entity + predicate embedding
     (knowledge models.py:154-188); fact_features (B, F, 3) rows
-    [row_idx, subject row, predicate]."""
-    subj = fact_features[:, :, 1].long()
-    subj_enc = torch.gather(
-        entities_encoded, 1, subj[:, :, None].expand(-1, -1, entities_encoded.shape[-1]))
-    return subj_enc + params["predicate_embedding"][fact_features[:, :, 2].long()]
+    [row_idx, subject row, predicate]; subject rows are clamped into the
+    entity table, as JAX's gather clamps them."""
+    subj = fact_features[:, :, 1].long().clamp(0, entities_encoded.shape[1] - 1)
+    return (_take_rows(entities_encoded, subj)
+            + params["predicate_embedding"][fact_features[:, :, 2].long()])
 
 
 # --------------------------------------------------------------------------
 # caption embedding
 # --------------------------------------------------------------------------
 
+def _take_rows(table, ids):
+    """table (B, N, D) at row ids (B, T) in [0, N) -> (B, T, D).  A table
+    that takes a gradient is indexed, not gathered: on CUDA a gather's
+    backward adds the gradients of repeated ids with atomics, in no fixed
+    order, where indexing's backward sorts them, so a train step is
+    bit-reproducible (the loop's resume contract).  Without one (decoding,
+    validation) a single gather does it in fewer launches."""
+    if not table.requires_grad:
+        return torch.gather(table, 1, ids[..., None].expand(*ids.shape, table.shape[-1]))
+    B, N, D = table.shape
+    rows = torch.arange(B, device=ids.device).view(-1, *([1] * (ids.dim() - 1)))
+    return table.reshape(B * N, D)[ids + N * rows]
+
+
 def _rows(table, ids):
     """table (B, N, D) gathered at ids (B, T), ids outside [0, N) -> row N - 1."""
     N = table.shape[1]
-    ids = torch.where((ids < 0) | (ids >= N), N - 1, ids)
-    return torch.gather(table, 1, ids[..., None].expand(*ids.shape, table.shape[-1]))
+    return _take_rows(table, torch.where((ids < 0) | (ids >= N), N - 1, ids))
 
 
 def embed_captions(params, vocab_size: int, pad_id: int, caption_ids, caption_mask,

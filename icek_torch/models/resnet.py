@@ -4,8 +4,9 @@ ResNet-101 minus fc/avgpool, adaptive-average-pool to 14x14, then a 1x1
 conv 2048 -> emb_dim, yielding 196 image tokens per image (reference:
 geo-aware/models.py:9-60).  Built on ``torch.nn.functional``: the
 convolutions and the pool were XLA ops in the JAX package, outside any
-Pallas kernel.  Batch-norm runs in inference mode (running stats), the
-frozen-encoder serving case.
+Pallas kernel.  Batch norm runs in inference mode (running stats), the
+frozen-encoder case, or in train mode (batch statistics, momentum update
+of the running buffers: ``resnet_encode(train=True, return_stats=True)``).
 
 Layouts: conv weights are OIHW (``bridge.from_jax_resnet`` converts the
 JAX HWIO trees); activations run NCHW in channels-last memory.  The public
@@ -34,11 +35,28 @@ def conv(x, w, stride=1, compute_dtype=torch.float32, bias=None):
                     stride=stride, padding=pad)
 
 
-def batch_norm(params, x, eps: float = 1e-5):
-    """Inference-mode batch norm over NCHW activations."""
-    scale = params["scale"] * torch.rsqrt(params["var"] + eps)
-    bias = params["bias"] - params["mean"] * scale
-    return x * scale.to(x.dtype).view(1, -1, 1, 1) + bias.to(x.dtype).view(1, -1, 1, 1)
+def batch_norm(params, x, train: bool = False, momentum: float = 0.1,
+               eps: float = 1e-5):
+    """Batch norm over NCHW activations; returns (y, new running stats or
+    None).  In train mode it normalizes by the batch's mean and biased
+    variance (float32) and moves the running mean and the unbiased running
+    variance by `momentum`, as torch's BatchNorm2d does; the new stats carry
+    no gradient."""
+    if train:
+        var, mean = torch.var_mean(x.to(torch.float32), dim=(0, 2, 3), correction=0)
+        n = x.shape[0] * x.shape[2] * x.shape[3]
+        with torch.no_grad():
+            new_stats = {
+                "mean": (1 - momentum) * params["mean"] + momentum * mean,
+                "var": (1 - momentum) * params["var"]
+                + momentum * (var * n / max(n - 1, 1)),
+            }
+    else:
+        mean, var, new_stats = params["mean"], params["var"], None
+    scale = params["scale"] * torch.rsqrt(var + eps)
+    bias = params["bias"] - mean * scale
+    y = x * scale.to(x.dtype).view(1, -1, 1, 1) + bias.to(x.dtype).view(1, -1, 1, 1)
+    return y, new_stats
 
 
 def max_pool_3x3_s2(x):
@@ -77,6 +95,17 @@ def init_bottleneck(gen, cin, width, with_downsample):
     return block
 
 
+def init_proj(gen: torch.Generator, emb_dim: int):
+    """A fresh 1x1 projection 2048 -> emb_dim (the reference builds this
+    conv anew on top of the pretrained body, geo-aware/models.py:32)."""
+    fan_in = STAGE_WIDTHS[-1] * EXPANSION
+    bound = math.sqrt(1.0 / fan_in) * math.sqrt(3.0)
+    return {
+        "w": (torch.rand((emb_dim, fan_in, 1, 1), generator=gen) * 2 - 1) * bound,
+        "b": torch.zeros(emb_dim),
+    }
+
+
 def init_resnet101(gen: torch.Generator, emb_dim: int = 300):
     """Seeded random encoder params in the port's layout."""
     params = {"conv1": init_conv(gen, 7, 7, 3, 64), "bn1": init_bn(64)}
@@ -87,12 +116,7 @@ def init_resnet101(gen: torch.Generator, emb_dim: int = 300):
             blocks.append(init_bottleneck(gen, cin, width, b == 0))
             cin = width * EXPANSION
         params[f"layer{stage}"] = blocks
-    fan_in = STAGE_WIDTHS[-1] * EXPANSION
-    bound = math.sqrt(1.0 / fan_in) * math.sqrt(3.0)
-    params["proj"] = {
-        "w": (torch.rand((emb_dim, fan_in, 1, 1), generator=gen) * 2 - 1) * bound,
-        "b": torch.zeros(emb_dim),
-    }
+    params["proj"] = init_proj(gen, emb_dim)
     return params
 
 
@@ -100,13 +124,19 @@ def _stride(stage: int, b: int) -> int:
     return 2 if (stage > 1 and b == 0) else 1
 
 
-def bottleneck(block, x, stride=1, compute_dtype=torch.float32):
-    out = torch.relu(batch_norm(block["bn1"], conv(x, block["conv1"], 1, compute_dtype)))
-    out = torch.relu(batch_norm(block["bn2"], conv(out, block["conv2"], stride, compute_dtype)))
-    out = batch_norm(block["bn3"], conv(out, block["conv3"], 1, compute_dtype))
+def bottleneck(block, x, stride=1, compute_dtype=torch.float32, train=False,
+               stats_out=None):
+    def bn(name, y):
+        out, new = batch_norm(block[name], y, train)
+        if stats_out is not None and new is not None:
+            stats_out[name] = new
+        return out
+
+    out = torch.relu(bn("bn1", conv(x, block["conv1"], 1, compute_dtype)))
+    out = torch.relu(bn("bn2", conv(out, block["conv2"], stride, compute_dtype)))
+    out = bn("bn3", conv(out, block["conv3"], 1, compute_dtype))
     if "down_conv" in block:
-        shortcut = batch_norm(block["down_bn"],
-                              conv(x, block["down_conv"], stride, compute_dtype))
+        shortcut = bn("down_bn", conv(x, block["down_conv"], stride, compute_dtype))
     else:
         shortcut = x.to(out.dtype)
     return torch.relu(out + shortcut)
@@ -125,16 +155,54 @@ def _tokens(x):
 
 
 def resnet_encode(params, images, encoded_size: int = 14,
-                  compute_dtype=torch.float32):
-    """(B, H, W, 3) normalized NHWC images -> (B, encoded_size**2, emb_dim)."""
+                  compute_dtype=torch.float32, train: bool = False,
+                  return_stats: bool = False):
+    """(B, H, W, 3) normalized NHWC images -> (B, encoded_size**2, emb_dim).
+
+    With ``train=True`` batch norm normalizes by batch statistics (the
+    reference's encoder.train(), geo-aware/train.py:245); with
+    ``return_stats=True`` the encoder tree with the momentum-updated running
+    statistics merged in comes back beside the tokens."""
+    stats = {} if (return_stats and train) else None
     x = conv(_to_nchw(images), params["conv1"], 2, compute_dtype)
-    x = max_pool_3x3_s2(torch.relu(batch_norm(params["bn1"], x)))
+    x, new = batch_norm(params["bn1"], x, train)
+    if stats is not None:
+        stats["bn1"] = new
+    x = max_pool_3x3_s2(torch.relu(x))
     for stage in range(1, 5):
+        stage_stats = [] if stats is not None else None
         for b, block in enumerate(params[f"layer{stage}"]):
-            x = bottleneck(block, x, _stride(stage, b), compute_dtype)
+            block_stats = {} if stats is not None else None
+            x = bottleneck(block, x, _stride(stage, b), compute_dtype, train, block_stats)
+            if stage_stats is not None:
+                stage_stats.append(block_stats)
+        if stats is not None:
+            stats[f"layer{stage}"] = stage_stats
     x = adaptive_avg_pool(x, (encoded_size, encoded_size))
     x = conv(x, params["proj"]["w"], 1, compute_dtype, bias=params["proj"]["b"])
+    if return_stats:
+        return _tokens(x), merge_bn_stats(params, stats or {})
     return _tokens(x)
+
+
+def merge_bn_stats(params, stats):
+    """The encoder tree with the new running statistics of `stats` (from
+    ``resnet_encode``'s train mode) over the old ones; weights untouched."""
+    out = dict(params)
+    if "bn1" in stats:
+        out["bn1"] = {**params["bn1"], **stats["bn1"]}
+    for stage in range(1, 5):
+        name = f"layer{stage}"
+        if name not in stats:
+            continue
+        blocks = []
+        for block, block_stats in zip(params[name], stats[name]):
+            nb = dict(block)
+            for bn_name, new in block_stats.items():
+                nb[bn_name] = {**block[bn_name], **new}
+            blocks.append(nb)
+        out[name] = blocks
+    return out
 
 
 def fold_bn_params(params, eps: float = 1e-5):

@@ -6,12 +6,15 @@ position t predict caption token t+1, restricted to positions t < length-1
 (through <end>) and non-<pad> targets, averaged over all contributing
 tokens.  A mask replaces the reference's sort + pack_padded_sequence.
 
-Ported: the frozen-encoder step on cached image tokens
-(``encode_images=False``), with gradient accumulation.  Where JAX returns
-new trees, the port updates `params` and the optimizer state in place and
-returns the same objects; where JAX threads a PRNG key, the step takes a
-CPU ``torch.Generator``.  Loss and token count come back as 0-d tensors on
-the step's device (reading them is the caller's synchronisation).
+Steps on cached image tokens (from the batch or gathered from a device
+token cache), or with the ResNet inside the step: frozen, fine-tuned
+(masked Adam over layers 2-4 and the projection) or with train-mode batch
+norm; gradient accumulation.  Where JAX returns new trees, the port updates
+the trees and the optimizer states in place and returns the same objects;
+where JAX threads a PRNG key, the step takes a CPU ``torch.Generator``.
+Loss and token count come back as 0-d tensors on the step's device (reading
+them is the caller's synchronisation).  A row-sharded token cache
+(``token_cache_mesh``) waits for the mesh.
 """
 
 from __future__ import annotations
@@ -21,7 +24,9 @@ from typing import Dict
 import torch
 
 from icek_torch.core.config import Config
+from icek_torch.data import images as image_ops
 from icek_torch.models import captioner as cap
+from icek_torch.models import resnet
 
 
 # --------------------------------------------------------------------------
@@ -100,6 +105,14 @@ def tree_leaves(tree):
         yield tree
 
 
+def _map(tree, fn, path=()):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(v, fn, path + (i,)) for i, v in enumerate(tree)]
+    return fn(tree, path)
+
+
 class OptState:
     """Adam's state over one param tree: the ``torch.optim.Adam`` holding
     the moments, and the injected hyperparameters."""
@@ -109,37 +122,89 @@ class OptState:
         self.hyperparams = {"learning_rate": learning_rate}
 
     def moments(self, params):
-        """(mu, nu) trees shaped like `params` (zeros before the first step)."""
+        """(mu, nu) trees shaped like `params` (zeros before the first step,
+        and for leaves the optimizer does not train)."""
         def pick(key):
-            def leaf(p):
+            def leaf(p, _path):
                 st = self.adam.state.get(p)
                 return st[key] if st else torch.zeros_like(p)
             return _map(params, leaf)
         return pick("exp_avg"), pick("exp_avg_sq")
 
+    def step_count(self) -> int:
+        for st in self.adam.state.values():
+            return int(st["step"])
+        return 0
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(v, fn) for v in tree]
-    return fn(tree)
+    def export(self, params) -> Dict:
+        """The state as CPU tensors keyed by param path: {"step",
+        "learning_rate", "mu", "nu"}, the moment trees shaped like
+        `params` (what a checkpoint stores)."""
+        mu, nu = self.moments(params)
+        cpu = lambda t, _path: t.detach().to("cpu", copy=True)  # noqa: E731
+        return {"step": self.step_count(),
+                "learning_rate": float(self.hyperparams["learning_rate"]),
+                "mu": _map(mu, cpu), "nu": _map(nu, cpu)}
+
+    def restore(self, params, state: Dict) -> "OptState":
+        """Load an ``export`` dict (or ``bridge.from_jax_opt_leaves``'s) for
+        the trained leaves of `params`: the moments by path, every leaf at
+        the stored step count, the group's learning rate."""
+        trained = {id(p) for group in self.adam.param_groups for p in group["params"]}
+        lr = float(state["learning_rate"])
+        self.hyperparams["learning_rate"] = lr
+        for group in self.adam.param_groups:
+            group["lr"] = lr
+        if not state["step"]:
+            return self
+
+        def load(p, path):
+            if id(p) not in trained:
+                return
+            mu, nu = _get(state["mu"], path), _get(state["nu"], path)
+            if tuple(mu.shape) != tuple(p.shape) or tuple(nu.shape) != tuple(p.shape):
+                raise ValueError(f"optimizer state at {path}: moments {tuple(mu.shape)} / "
+                                 f"{tuple(nu.shape)} for a param of {tuple(p.shape)}")
+            self.adam.state[p] = {
+                "step": torch.tensor(float(state["step"]), dtype=torch.float32),
+                "exp_avg": mu.to(p.device, p.dtype, copy=True),
+                "exp_avg_sq": nu.to(p.device, p.dtype, copy=True)}
+
+        _map(params, load)
+        return self
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 class Optimizer:
     """clip-by-value then Adam: the reference's clamp_(-c, c) on every
     gradient element (geo-aware/utils.py:75-85) followed by Adam.step, with
-    b1 0.9, b2 0.999, eps 1e-8."""
+    b1 0.9, b2 0.999, eps 1e-8.  With `mask` (a tree of bools shaped like the
+    params) only the leaves it marks train; the others get no gradient and
+    never move."""
 
-    def __init__(self, learning_rate: float, grad_clip: float = 5.0):
+    def __init__(self, learning_rate: float, grad_clip: float = 5.0, mask=None):
         self.learning_rate = learning_rate
         self.grad_clip = grad_clip
+        self.mask = mask
 
     def init(self, params) -> OptState:
-        """State for `params`, whose floating leaves become autograd leaves
-        in place (no copy)."""
-        leaves = [p.requires_grad_(True) for p in tree_leaves(params)
-                  if p.is_floating_point()]
+        """State for `params`, whose trained floating leaves become autograd
+        leaves in place (no copy); leaves the mask freezes stop asking for
+        gradients."""
+        mask = list(tree_leaves(self.mask)) if self.mask is not None else None
+        leaves = []
+        for i, p in enumerate(tree_leaves(params)):
+            if not p.is_floating_point():
+                continue
+            if mask is None or mask[i]:
+                leaves.append(p.requires_grad_(True))
+            else:
+                p.requires_grad_(False)
         adam = torch.optim.Adam(leaves, lr=self.learning_rate, betas=(0.9, 0.999),
                                 eps=1e-8)
         return OptState(adam, self.learning_rate)
@@ -158,6 +223,27 @@ def make_optimizer(learning_rate: float, grad_clip: float = 5.0) -> Optimizer:
     return Optimizer(learning_rate, grad_clip)
 
 
+_BN_STATS = ("mean", "var")
+
+
+def encoder_trainable_mask(encoder_params):
+    """The reference's fine-tune policy (geo models.py:49-60, train.py:92-100):
+    ResNet blocks 2-4 and the 1x1 projection train; the stem, layer1 and
+    every batch-norm running statistic stay frozen."""
+    def stage(name, sub):
+        trainable = name in ("layer2", "layer3", "layer4", "proj")
+        return _map(sub, lambda _t, path: trainable and not any(
+            k in _BN_STATS for k in path))
+    return {name: stage(name, sub) for name, sub in encoder_params.items()}
+
+
+def make_encoder_optimizer(encoder_params, learning_rate: float,
+                           grad_clip: float = 5.0) -> Optimizer:
+    """Clip + Adam over the fine-tunable encoder subset; frozen leaves never
+    move."""
+    return Optimizer(learning_rate, grad_clip, mask=encoder_trainable_mask(encoder_params))
+
+
 def decay_learning_rate(opt_state: OptState, factor: float) -> OptState:
     lr = opt_state.hyperparams["learning_rate"] * factor
     opt_state.hyperparams["learning_rate"] = lr
@@ -170,7 +256,7 @@ def decay_learning_rate(opt_state: OptState, factor: float) -> OptState:
 # steps
 # --------------------------------------------------------------------------
 
-_INDEX_KEYS = ("caption_ids", "caption_mask", "lengths")
+_INDEX_KEYS = ("caption_ids", "caption_mask", "lengths", "token_rows")
 
 
 def _to_device(batch: Dict, device) -> Dict:
@@ -179,6 +265,24 @@ def _to_device(batch: Dict, device) -> Dict:
         t = torch.as_tensor(v, device=device)
         out[k] = t.long() if k in _INDEX_KEYS else t
     return out
+
+
+def _batch_images(batch):
+    """Model-ready NHWC images from either batch form: "raw_images" (stored
+    f16 CHW rows, normalized on the device) or "images" (host-normalized)."""
+    if "raw_images" in batch:
+        return image_ops.normalize_in_graph(batch["raw_images"])
+    return batch["images"]
+
+
+def _merge_stats(encoder_params, new_enc) -> None:
+    """Copy the train-mode running statistics of `new_enc` into the batch-norm
+    mean / var leaves of `encoder_params`, in place."""
+    def leaf(t, path):
+        if path[-1] in _BN_STATS:
+            with torch.no_grad():
+                t.copy_(_get(new_enc, path))
+    _map(encoder_params, leaf)
 
 
 def make_train_step(
@@ -194,62 +298,93 @@ def make_train_step(
     token_cache_mesh=None,
     device="cuda",
 ):
-    """Build (train_step, eval_step) for the frozen-encoder token path.
+    """Build (train_step, eval_step).
 
-    The batch carries precomputed image tokens (B, 196, D) under
-    "image_tokens" (``encode_images=False``), "caption_ids" / "caption_mask"
-    (B, T), "lengths" (B,), "entity_features" and, for the knowledge and
-    news presets, "fact_features" (B, F, 3); numpy arrays or tensors,
-    moved to `device` by the step.  `params` must already live there (see
-    ``bridge.trainable``).
+    The batch carries "caption_ids" / "caption_mask" (B, T), "lengths" (B,),
+    "entity_features" and, for the knowledge and news presets,
+    "fact_features" (B, F, 3); numpy arrays or tensors, moved to `device` by
+    the step.  Its image input: with ``encode_images=False`` precomputed
+    tokens (B, 196, D) under "image_tokens", or "token_rows" (B,) into
+    `token_cache`, one device tensor of the split's tokens; otherwise
+    "raw_images" (stored f16 CHW rows) or "images" (normalized NHWC), and the
+    ResNet runs inside the step with no gradient into it, unless
+    `encoder_optimizer` (``make_encoder_optimizer``) fine-tunes it.
+    `params` (and, to fine-tune, `encoder_params`) must already live on
+    `device` (see ``bridge.trainable``).
 
         params, opt_state, loss, count = train_step(
+            params, opt_state, encoder_params, batch, gen)
+        # fine-tuning
+        params, opt_state, encoder_params, enc_opt_state, loss, count = \
+            train_step(params, opt_state, encoder_params, enc_opt_state, batch, gen)
+        # bn_train_mode (frozen encoder)
+        params, opt_state, encoder_params, loss, count = train_step(
             params, opt_state, encoder_params, batch, gen)
         loss, count = eval_step(params, encoder_params, batch)
 
     `gen` is a CPU ``torch.Generator`` feeding every dropout site.  With
+    `bn_train_mode` the encoder's batch norms run in train mode and their
+    running statistics in `encoder_params` move (in place); validation
+    always reads the running statistics.  With
     ``cfg.train.grad_accum_steps`` = N > 1 the batch is zero-padded to a
     multiple of N and split into N microbatches; gradients of the summed
     NLL add across them and are scaled once by 1 / total_tokens, which
     equals the full-batch mean-loss gradient up to float associativity
     while peak activation memory is one microbatch's.
-
-    Running the ResNet inside the step (``encode_images=True``), encoder
-    fine-tuning, train-mode batch norm and the device token cache are not
-    ported yet.
     """
-    unported = {
-        "encode_images=True": encode_images,
-        "encoder_optimizer (fine-tuning)": encoder_optimizer is not None,
-        "bn_train_mode": bn_train_mode,
-        "token_cache": token_cache is not None,
-        "token_cache_mesh": token_cache_mesh is not None,
-    }
-    for what, asked in unported.items():
-        if asked:
-            raise NotImplementedError(f"make_train_step: {what} is not ported yet")
+    if token_cache_mesh is not None:
+        raise NotImplementedError("make_train_step: token_cache_mesh (a row-sharded "
+                                  "token cache) waits for the mesh")
+    if bn_train_mode and not encode_images:
+        raise ValueError("bn_train_mode requires encode_images=True")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("make_train_step: device 'cuda' requested but no CUDA "
                            "device is available; pass device='cpu' to run there")
     mcfg = cfg.model
-    accum = resolve_grad_accum(getattr(cfg.train, "grad_accum_steps", 1),
-                               mcfg.variant, cfg.train.batch_size)
+    fine_tune = encoder_optimizer is not None
+    accum_steps = getattr(cfg.train, "grad_accum_steps", 1)
+    if bn_train_mode and accum_steps == "auto":
+        accum_steps = 1     # batch statistics are defined over the full batch
+    accum = resolve_grad_accum(accum_steps, mcfg.variant, cfg.train.batch_size)
+    if accum > 1 and bn_train_mode:
+        raise ValueError("grad_accum_steps > 1 is incompatible with bn_train_mode: "
+                         "batch-norm batch statistics are defined over the full batch")
 
-    def forward_total(params, batch, gen, deterministic):
-        """(summed NLL, token count) for one batch or microbatch."""
+    def image_tokens(encoder_params, batch, train):
+        """(tokens in the compute dtype, the encoder tree with train-mode
+        statistics or None).  ``train=False`` (validation) reads the running
+        statistics whatever bn_train_mode says (the reference's validate()
+        calls encoder.eval()) and takes no gradient."""
+        if not encode_images:
+            if token_cache is not None and "token_rows" in batch:
+                toks = token_cache.index_select(0, batch["token_rows"])
+            else:
+                toks = batch["image_tokens"]
+            return toks.to(compute_dtype), None
+        bn_train = train and bn_train_mode
+        with torch.enable_grad() if train and fine_tune else torch.no_grad():
+            out = resnet.resnet_encode(
+                encoder_params, _batch_images(batch), mcfg.encoded_image_size,
+                compute_dtype=compute_dtype, train=bn_train, return_stats=bn_train)
+        return out if bn_train else (out, None)
+
+    def forward_total(params, encoder_params, batch, gen, deterministic, train=True):
+        """(summed NLL, token count, the encoder tree with train-mode
+        statistics or None) for one batch or microbatch."""
+        tokens, new_enc = image_tokens(encoder_params, batch, train)
         scores = cap.captioner_forward(
             params, mcfg, vocab_size, pad_id, batch["caption_ids"],
-            batch["caption_mask"], batch["image_tokens"].to(compute_dtype),
-            batch["entity_features"], batch.get("fact_features"), gen=gen,
-            deterministic=deterministic,
+            batch["caption_mask"], tokens, batch["entity_features"],
+            batch.get("fact_features"), gen=gen, deterministic=deterministic,
             compute_dtype=compute_dtype,
             # the (B, T, V+E) scores stay in the compute dtype through the
             # loss; _token_nll reads and writes them with f32 accumulation
             score_dtype=compute_dtype,
         )
-        return caption_loss_total(scores, batch["caption_ids"], batch["lengths"],
-                                  pad_id)
+        total, count = caption_loss_total(scores, batch["caption_ids"],
+                                          batch["lengths"], pad_id)
+        return total, count, new_enc
 
     def microbatches(batch):
         B = next(iter(batch.values())).shape[0]
@@ -263,31 +398,56 @@ def make_train_step(
                 micro[k] = v[i * size:(i + 1) * size]
             yield micro
 
-    def train_step(params, opt_state, encoder_params, batch, gen):
-        batch = _to_device(batch, device)
+    def grads(params, encoder_params, batch, gen):
+        """Gradients into .grad; returns (loss, count, new_enc)."""
         if accum == 1:
-            total, count = forward_total(params, batch, gen, False)
+            total, count, new_enc = forward_total(params, encoder_params, batch, gen,
+                                                  False)
             loss = total / count.clamp(min=1)
             loss.backward()
-        else:
-            total = torch.zeros((), dtype=torch.float32, device=device)
-            count = torch.zeros((), dtype=torch.int64, device=device)
-            for micro in microbatches(batch):
-                tot, cnt = forward_total(params, micro, gen, False)
-                tot.backward()                     # .grad sums the microbatches
-                total += tot.detach()
-                count += cnt
-            inv = 1.0 / count.clamp(min=1).to(torch.float32)
-            for p in tree_leaves(params):
+            return loss.detach(), count, new_enc
+        total = torch.zeros((), dtype=torch.float32, device=device)
+        count = torch.zeros((), dtype=torch.int64, device=device)
+        for micro in microbatches(batch):
+            tot, cnt, _ = forward_total(params, encoder_params, micro, gen, False)
+            tot.backward()                     # .grad sums the microbatches
+            total += tot.detach()
+            count += cnt
+        inv = 1.0 / count.clamp(min=1).to(torch.float32)
+        trees = (params, encoder_params) if fine_tune else (params,)
+        for tree in trees:
+            for p in tree_leaves(tree):
                 if p.grad is not None:
                     p.grad.mul_(inv.to(p.grad.dtype))
-            loss = total * inv
-        optimizer.update(opt_state)
-        return params, opt_state, loss.detach(), count
+        return total * inv, count, None
+
+    if fine_tune:
+        def train_step(params, opt_state, encoder_params, enc_opt_state, batch, gen):
+            loss, count, new_enc = grads(params, encoder_params,
+                                         _to_device(batch, device), gen)
+            optimizer.update(opt_state)
+            encoder_optimizer.update(enc_opt_state)
+            if new_enc is not None:
+                _merge_stats(encoder_params, new_enc)
+            return params, opt_state, encoder_params, enc_opt_state, loss, count
+    elif bn_train_mode:
+        def train_step(params, opt_state, encoder_params, batch, gen):
+            loss, count, new_enc = grads(params, encoder_params,
+                                         _to_device(batch, device), gen)
+            optimizer.update(opt_state)
+            _merge_stats(encoder_params, new_enc)
+            return params, opt_state, encoder_params, loss, count
+    else:
+        def train_step(params, opt_state, encoder_params, batch, gen):
+            loss, count, _ = grads(params, encoder_params, _to_device(batch, device), gen)
+            optimizer.update(opt_state)
+            return params, opt_state, loss, count
 
     def eval_step(params, encoder_params, batch):
         with torch.no_grad():
-            total, count = forward_total(params, _to_device(batch, device), None, True)
-            return total / count.clamp(min=1), count
+            total, count, _ = forward_total(params, encoder_params,
+                                            _to_device(batch, device), None, True,
+                                            train=False)
+        return total / count.clamp(min=1), count
 
     return train_step, eval_step

@@ -94,7 +94,11 @@ def test_port_imports_nothing_of_jax():
             "icek_torch/kernels/fused_norm.py", "icek_torch/serve/engine.py",
             "icek_torch/serve/server.py", "icek_torch/serve/router.py",
             "icek_torch/metrics/js_geo.py", "icek_torch/metrics/fact_accuracy.py",
-            "icek_torch/utils/fingerprint.py", "icek_torch/data/dataset.py"} <= names
+            "icek_torch/utils/fingerprint.py", "icek_torch/data/dataset.py",
+            "icek_torch/train/loop.py", "icek_torch/train/checkpoint.py",
+            "icek_torch/train/msgpack.py", "icek_torch/train/port.py",
+            "icek_torch/train/embeddings.py", "icek_torch/apps/__init__.py",
+            "icek_torch/apps/__main__.py", "icek_torch/utils/profiling.py"} <= names
 
 
 def test_port_import_loads_no_jax_subprocess():
@@ -105,9 +109,11 @@ def test_port_import_loads_no_jax_subprocess():
         "icek_torch.train.step, icek_torch.serve, icek_torch.serve.server, "
         "icek_torch.serve.router, icek_torch.metrics.js_geo, "
         "icek_torch.metrics.fact_accuracy, icek_torch.utils.fingerprint, "
-        "icek_torch.data.dataset; "
+        "icek_torch.data.dataset, icek_torch.train.loop, icek_torch.train.checkpoint, "
+        "icek_torch.train.msgpack, icek_torch.train.port, icek_torch.train.embeddings, "
+        "icek_torch.apps, icek_torch.utils.profiling; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        f"{sorted(FORBIDDEN)!r}]; "
+        f"{sorted(FORBIDDEN | {'msgpack', 'h5py'})!r}]; "
         "assert not bad, bad"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -199,6 +205,10 @@ def test_train_step_imports_without_cuda_nvcc_or_triton():
 
 
 def test_make_train_step_refuses_missing_card_and_unported_options():
+    """The missing card raises; a row-sharded token cache waits for the mesh;
+    bn_train_mode without encode_images is JAX's ValueError.  The options
+    ported since (the ResNet in the step, fine-tuning, train-mode batch norm,
+    the device token cache) build."""
     from icek_torch.train import step as tstep
 
     _, tc = small_cfgs()
@@ -206,12 +216,17 @@ def test_make_train_step_refuses_missing_card_and_unported_options():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA"):
             tstep.make_train_step(tc, 30, 0, opt, encode_images=False)
-    for kw in (dict(), dict(encode_images=False, encoder_optimizer=object()),
-               dict(encode_images=False, token_cache=object()),
-               dict(encode_images=False, token_cache_mesh=object()),
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tstep.make_train_step(tc, 30, 0, opt, encode_images=False,
+                              token_cache_mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="requires encode_images"):
+        tstep.make_train_step(tc, 30, 0, opt, encode_images=False, bn_train_mode=True,
+                              device="cpu")
+    for kw in (dict(), dict(encoder_optimizer=tstep.make_optimizer(1e-4)),
+               dict(encode_images=False, token_cache=torch.zeros(3, 4, 16)),
                dict(bn_train_mode=True)):
-        with pytest.raises(NotImplementedError):
-            tstep.make_train_step(tc, 30, 0, opt, device="cpu", **kw)
+        train_step, eval_step = tstep.make_train_step(tc, 30, 0, opt, device="cpu", **kw)
+        assert callable(train_step) and callable(eval_step)
 
 
 def test_trainable_marks_leaves_without_copy():

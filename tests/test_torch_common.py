@@ -8,6 +8,7 @@ inputs to the JAX function and its port.
 """
 
 import dataclasses
+import shutil
 
 import numpy as np
 import pytest
@@ -545,3 +546,50 @@ def eval_run(s, package, tmp_path):
     files = {p.name.split("_", 1)[1]: p.read_bytes()
              for p in tmp_path.glob(f"{package}_*.csv")}
     return dict(res=res, lines=lines, files=files, js=kw.get("js_metric"))
+
+
+# ---------------------------------------------------------------------------
+# the train loop, the checkpoints and the CLIs: the tiny geo preset of
+# tests/test_train_e2e.py, its TRAIN / VAL / TEST files written by icek_tpu
+# ---------------------------------------------------------------------------
+
+def train_split(tmp_path, batch_size=2, dropout=True, **train_kw):
+    """(JAX Config, port Config, files dir, JAX Wordmap) of the tiny geo
+    preset over test_train_e2e.py's 6 / 2 / 2-row dataset.  The type table
+    holds prep's padding type ids (up to 500); without `dropout` every rate
+    is 0."""
+    from icek_tpu.data import input_files
+    from test_train_e2e import make_raw_dataset, tiny_cfg
+
+    jc = tiny_cfg()
+    model_kw = dict(type_vocab=int(jc.data.entity_random_ranges[3][1]) + 1)
+    if not dropout:
+        model_kw.update(dropout_dec=0.0, dropout_enc=0.0, dropout_pos=0.0)
+    jc = jc.replace(model=dataclasses.replace(jc.model, **model_kw),
+                    train=dataclasses.replace(jc.train, batch_size=batch_size, **train_kw))
+    raw = tmp_path / "raw"
+    raw.mkdir()
+    make_raw_dataset(raw)
+    out_dir = tmp_path / "files"
+    wm = input_files.InputFileWriter(
+        jc, str(raw / "captions_split.json"), str(raw / "entity_context.pkl"),
+        str(raw / "images"), str(out_dir), seed=0).run()
+    return jc, port_config(jc), str(out_dir), wm
+
+
+@pytest.fixture
+def tmp_dir(tmp_path):
+    """tmp_path, removed when the test ends: a checkpoint of even the tiny
+    presets carries a full ResNet-101 (170 MB)."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+def removed_after(tmp_path_factory, name):
+    """A module-scoped fixture's directory and its removal, for
+    ``yield from``."""
+    tmp = tmp_path_factory.mktemp(name)
+    try:
+        yield tmp
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)

@@ -1288,3 +1288,280 @@ def test_bf16_run_over_full_and_partial_batches(cuda, tmp_path):
     with open(tmp_path / "gen.csv", newline="") as f:
         rows = list(csv.reader(f))
     assert rows[0] == ["generated_caption"] and [r[0] for r in rows[1:]] == want
+
+
+# ---------------------------------------------------------------------------
+# the training run: the epoch loop with a mid-epoch resume, the
+# image-carrying steps, the device token cache
+# ---------------------------------------------------------------------------
+
+def _small_train_cfg(**train_kw):
+    from icek_torch.core import config as cfgs
+
+    base = cfgs.georic()
+    return base.replace(
+        model=dataclasses.replace(base.model, emb_dim=40, num_heads=4, decoder_ffn_dim=64,
+                                  encoder_ffn_dim=64, num_layers=2, type_vocab=20,
+                                  encoded_image_size=4),
+        data=dataclasses.replace(base.data, img_size=32, entity_context_size=8),
+        train=dataclasses.replace(base.train, print_freq=1, **train_kw))
+
+
+def _train_split_opener(V, E=9, T=8, rows=(12, 4), size=32, seed=31):
+    """CaptionDataset's stand-in for the loop: in-memory TRAIN and VAL splits
+    (no HDF5 reader needed), built afresh on every open from the
+    same seeded arrays."""
+    import numpy as np
+
+    from icek_torch.data import dataset as tdata
+
+    rng = np.random.default_rng(seed)
+    arrays = {}
+    for split, n in zip(("TRAIN", "VAL"), rows):
+        caps = rng.integers(1, V - 2, (n, T)).astype(np.int32)
+        ent = rng.random((n, T)) < 0.15
+        caps[ent] = V + rng.integers(0, E, int(ent.sum()))
+        caps[:, 0] = V - 2
+        lengths = rng.integers(3, T + 1, (n,)).astype(np.int32)
+        for b in range(n):
+            caps[b, lengths[b] - 1] = V - 1
+            caps[b, lengths[b]:] = 0
+        ents = np.zeros((n, E, 5), np.float32)
+        ents[:, :, 0] = np.arange(E)
+        ents[:, :, 1:4] = rng.random((n, E, 3))
+        ents[:, :, 4] = rng.integers(0, 20, (n, E))
+        arrays[split] = (caps, lengths, (caps >= V).astype(np.int32), ents,
+                         rng.random((n, 3, size, size), dtype=np.float32).astype(np.float16))
+
+    class Split(tdata.CaptionDataset):
+        def __init__(self, data_dir, base_name, split, has_facts=False):
+            caps, lengths, mask, ents, images = arrays[split]
+            a = tdata.CaptionArrays.__new__(tdata.CaptionArrays)
+            a.caption_ids, a.lengths, a.caption_mask = caps, lengths, mask
+            a.entity_features = ents
+            a.entity_names = np.zeros((len(caps), E, 52), np.int32)
+            a.fact_features = a.fact_names = None
+            a.size = len(caps)
+            self.split, self.arrays, self._images, self.image_tokens = split, a, images, None
+
+    return Split
+
+
+def test_loop_resumes_mid_epoch_bit_identical_on_card(cuda, tmp_path, monkeypatch):
+    """Two epochs at small width on the card (bf16, dropout on, the split's
+    tokens in the device token cache), once straight through and once
+    stopped by SIGTERM after batch 0 of epoch 1 and resumed from its STEP
+    file: the epoch-1 checkpoints are equal bit for bit (params, encoder,
+    Adam's step and moments, meta)."""
+    import os
+    import signal
+
+    from icek_torch.data import dataset as tdata
+    from icek_torch.train import checkpoint as tckpt
+    from icek_torch.train import loop as tloop
+
+    V = 60
+    cfg = _small_train_cfg(batch_size=4)
+    monkeypatch.setattr(tdata, "CaptionDataset", _train_split_opener(V))
+    base = cfg.data.base_name
+    lines = []
+    tloop.train(cfg, "in-memory", V, 0, checkpoint_dir=str(tmp_path / "a"), max_epochs=2,
+                log=lines.append)
+    assert any(s.startswith("device token cache:") for s in lines)
+    fired = []
+
+    def killing_log(msg):
+        if msg.startswith("Epoch: [1][0/") and not fired:
+            fired.append(True)
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    result = tloop.train(cfg, "in-memory", V, 0, checkpoint_dir=str(tmp_path / "b"),
+                         max_epochs=2, log=killing_log)
+    step_file = tmp_path / "b" / f"checkpoint_STEP_{base}.pt"
+    assert result.preempted and step_file.exists()
+    assert tckpt.read_meta(str(step_file))["epoch"] == 1
+    tloop.train(cfg, "in-memory", V, 0, checkpoint_dir=str(tmp_path / "b"), max_epochs=2,
+                resume_from=str(step_file), log=lambda s: None)
+    assert not step_file.exists()
+    a = torch.load(tmp_path / "a" / f"checkpoint_{base}.pt", weights_only=True)
+    b = torch.load(tmp_path / "b" / f"checkpoint_{base}.pt", weights_only=True)
+    assert a["meta"] == b["meta"] and '"epoch": 1' in a["meta"]
+    assert a["opt"]["step"] == b["opt"]["step"] == 6
+    pairs = [(a[g], b[g]) for g in ("params", "encoder_params")]
+    pairs += [(a["opt"][k], b["opt"][k]) for k in ("mu", "nu")]
+    from icek_torch.train.step import tree_leaves
+
+    for x, y in pairs:
+        for u, v in zip(tree_leaves(x), tree_leaves(y), strict=True):
+            assert torch.equal(u, v)
+
+
+def _conditioned_encoder(g, emb):
+    """A seeded ResNet-101 whose batch norms are not the identity and whose
+    blocks end in small gains (0.1-0.3, as trained ResNets' do), so that the
+    101 layers do not amplify float32 rounding between devices."""
+    from icek_torch.models import resnet
+
+    enc = resnet.init_resnet101(g, emb)
+    enc["proj"]["w"] = enc["proj"]["w"] * 1e-2
+
+    def bn(tree, last):
+        c = tree["mean"].shape[0]
+        tree["mean"] = torch.randn(c, generator=g) * 0.1
+        tree["var"] = torch.rand(c, generator=g) * 1.5 + 0.5
+        lo, hi = (0.1, 0.3) if last else (0.5, 1.5)
+        tree["scale"] = torch.rand(c, generator=g) * (hi - lo) + lo
+
+    bn(enc["bn1"], False)
+    for stage in range(1, 5):
+        for block in enc[f"layer{stage}"]:
+            for name in ("bn1", "bn2", "bn3", "down_bn"):
+                if name in block:
+                    bn(block[name], name == "bn3")
+    return enc
+
+
+def _running_stats(tree):
+    """The batch norms' running mean and var leaves of an encoder tree."""
+    if isinstance(tree, dict):
+        return [t for k, v in tree.items()
+                for t in ([v] if k in ("mean", "var") else _running_stats(v))]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _running_stats(v)]
+    return []
+
+
+def _leaf_close(a, b, floor=0.0):
+    """a (CPU) against b (card): within 1e-4 of the leaf's largest value (or
+    `floor`, whichever is larger)."""
+    b = b.cpu()
+    tol = max(1e-4 * float(a.abs().max()), floor)
+    assert float((a - b).abs().max()) <= tol, (float((a - b).abs().max()), tol)
+
+
+@pytest.mark.parametrize("mode", ["finetune", "bn"])
+def test_image_steps_on_card_match_cpu(cuda, mode):
+    """Two f32 steps with the ResNet inside (fine-tuning, or train-mode batch
+    norm), dropout 0, on the card against the same steps on the CPU: the
+    loss 1e-4 relative; Adam's first moments and the running statistics
+    within 1e-4 of each leaf's largest value (the encoder's moments at least
+    1e-5: the noise floor of a gradient through 100 float32 convolution
+    layers, tests/test_torch_train_options.py)."""
+    import copy
+
+    import numpy as np
+
+    from icek_torch import bridge
+    from icek_torch.models import captioner
+    from icek_torch.train import step as tstep
+
+    base = _small_train_cfg(grad_accum_steps=1)
+    cfg = base.replace(model=dataclasses.replace(
+        base.model, encoded_image_size=2, dropout_enc=0.0, dropout_dec=0.0, dropout_pos=0.0))
+    V, E, B, T = 60, 9, 2, 7
+    g = _gen(41)
+    params = captioner.init_captioner_params(g, cfg.model, V)
+    enc = _conditioned_encoder(g, 40)
+    ents = torch.zeros((B, E, 5))
+    ents[:, :, 0] = torch.arange(E)
+    ents[:, :, 1:4] = torch.rand((B, E, 3), generator=g)
+    ents[:, :, 4] = torch.randint(0, 20, (B, E), generator=g)
+    caps = torch.randint(1, V + E, (B, T), generator=g)
+    batch = {"caption_ids": caps, "caption_mask": (caps >= V).long(),
+             "lengths": torch.tensor([7, 5]), "entity_features": ents,
+             "images": torch.randn((B, 64, 64, 3), generator=g)}
+    res = {}
+    for dev in ("cpu", cuda):
+        p = bridge.trainable(copy.deepcopy(params), dev)
+        e = bridge.to_device(copy.deepcopy(enc), dev)
+        opt = tstep.make_optimizer(1e-3)
+        state = opt.init(p)
+        if mode == "finetune":
+            eopt = tstep.make_encoder_optimizer(e, 1e-4)
+            estate = eopt.init(e)
+            train, _ = tstep.make_train_step(cfg, V, 0, opt, encoder_optimizer=eopt,
+                                             device=dev)
+            losses = [float(train(p, state, e, estate, batch, _gen(s))[4]) for s in (0, 1)]
+            enc_part = list(tstep.tree_leaves(estate.moments(e)[0]))
+        else:
+            train, _ = tstep.make_train_step(cfg, V, 0, opt, bn_train_mode=True, device=dev)
+            losses = [float(train(p, state, e, batch, _gen(s))[3]) for s in (0, 1)]
+            enc_part = _running_stats(e)
+        res[str(dev)] = (losses, list(tstep.tree_leaves(state.moments(p)[0])), enc_part,
+                         list(tstep.tree_leaves(e)))
+    (l0, m0, e0, t0), (l1, m1, e1, t1) = res["cpu"], res[str(cuda)]
+    np.testing.assert_allclose(l1, l0, rtol=1e-4)
+    for a, b in zip(m0, m1, strict=True):
+        _leaf_close(a, b)
+    for a, b in zip(e0, e1, strict=True):
+        _leaf_close(a, b, floor=1e-5 if mode == "finetune" else 0.0)
+    moved = sum(not torch.equal(a, b.cpu()) for a, b in zip(tstep.tree_leaves(enc), t1))
+    assert moved > 0
+
+
+def test_device_token_cache_step_equals_image_token_step_on_card(cuda):
+    """bf16, dropout on: batches of row ids into the device token cache (the
+    split's f16 tokens lifted to bf16) train bit for bit as batches carrying
+    the f16 tokens."""
+    import copy
+
+    from icek_torch import bridge
+    from icek_torch.models import captioner
+    from icek_torch.train import step as tstep
+
+    cfg = _small_train_cfg(grad_accum_steps=1)
+    V, E, B, T = 60, 9, 4, 7
+    g = _gen(43)
+    params = captioner.init_captioner_params(g, cfg.model, V)
+    tokens = torch.randn((10, 16, 40), generator=g).half()
+    rows = torch.tensor([7, 1, 3, 3])
+    ents = torch.zeros((B, E, 5))
+    ents[:, :, 0] = torch.arange(E)
+    ents[:, :, 1:4] = torch.rand((B, E, 3), generator=g)
+    caps = torch.randint(1, V + E, (B, T), generator=g)
+    base = {"caption_ids": caps, "caption_mask": (caps >= V).long(),
+            "lengths": torch.tensor([7, 5, 3, 6]), "entity_features": ents}
+    out = []
+    for use_cache in (False, True):
+        p = bridge.trainable(copy.deepcopy(params), cuda)
+        opt = tstep.make_optimizer(1e-3)
+        state = opt.init(p)
+        cache = tokens.to(cuda).to(torch.bfloat16) if use_cache else None
+        train, _ = tstep.make_train_step(cfg, V, 0, opt, compute_dtype=torch.bfloat16,
+                                         encode_images=False, token_cache=cache, device=cuda)
+        batch = dict(base, **({"token_rows": rows} if use_cache
+                              else {"image_tokens": tokens[rows]}))
+        losses = [float(train(p, state, None, batch, _gen(s))[2]) for s in (5, 6)]
+        out.append((losses, [t.detach().cpu() for t in tstep.tree_leaves(p)]))
+    assert out[0][0] == out[1][0]
+    for a, b in zip(out[0][1], out[1][1], strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name,dtype", [("float32", torch.float32),
+                                        ("bfloat16", torch.bfloat16)])
+def test_loop_on_card_trains_in_the_configured_compute_dtype(cuda, tmp_path, monkeypatch,
+                                                             name, dtype):
+    """cfg.train.compute_dtype reaches the card: the loop's train step and its
+    device token cache take that dtype, and one epoch gives a finite loss."""
+    import math
+
+    from icek_torch.data import dataset as tdata
+    from icek_torch.train import loop as tloop
+
+    V = 60
+    cfg = _small_train_cfg(batch_size=4, compute_dtype=name)
+    monkeypatch.setattr(tdata, "CaptionDataset", _train_split_opener(V))
+    seen = {}
+    make = tloop.step_lib.make_train_step
+
+    def capture(*args, **kw):
+        seen.update(kw)
+        return make(*args, **kw)
+
+    monkeypatch.setattr(tloop.step_lib, "make_train_step", capture)
+    result = tloop.train(cfg, "in-memory", V, 0, checkpoint_dir=str(tmp_path), max_epochs=1,
+                         log=lambda s: None)
+    assert seen["compute_dtype"] == dtype
+    assert seen["token_cache"] is not None and seen["token_cache"].dtype == dtype
+    assert math.isfinite(result.best_loss)
