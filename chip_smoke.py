@@ -87,6 +87,28 @@ Phases (any failure raises and exits non-zero):
               biased one at layer4); icek_torch.apps run_train,
               run_eval (captions equal to Evaluator.run's) and run_serve on
               port 0 with one POST /caption.
+  9. int8     the int8 encoder (int8_encoder), geo at full width: (a) the
+              int8 site kernel of csrc/int8_conv.cu against its plain
+              version (float64 convolution, float32 epilogue) at the five
+              site kinds at batch 256 (the 1x1 / 1 sites with each of their
+              three epilogues), the int32 accumulators and the codes
+              bit-equal, each timed beside the plain version, torch._int_mm
+              plus an epilogue of torch ops (1x1 / 1), cuDNN's bf16
+              convolution of the site and the bound (int8 bytes at 3.35 TB/s
+              or operations at 1979 TOPS); every distinct site of an encode
+              timed alone (the sum of the 104 launches); the int8 max pool;
+              F.conv2d's and F.max_pool2d's answers on int8 CUDA tensors
+              logged; (b) calibration on 2 batches and the cosine of the int8
+              tokens against the folded bf16 encoder's (logged); (c)
+              Evaluator.decode_batch with the tree in turns with the float
+              encoder (captions/s, encode ms, token and caption agreement),
+              104 site launches and one pool launch a decode held; (d) eval
+              --encoder-int8 2, quantize, eval --encoder-qtree and serve
+              --encoder-qtree with one POST /caption over an in-memory split;
+              (e) the metrics verb over phase 7's geo and news CSVs; (f) the
+              g++ builds of the native matcher and resizer against their
+              Python paths.  Which of h5py, PIL and scipy the machine lacks
+              is logged first.
 After the phases one more train step and one more beam-5 batch of each
 preset run under torch.profiler, which logs the ten largest device operations and the
 device's idle share, and the profiler gives the score head's device time
@@ -1656,13 +1678,18 @@ def int8_kv(dev, models):
     return out
 
 
-def captions_leave(dev, models):
+def captions_leave(dev, models, keep_csvs=None):
     """Phase 7 in a scratch directory of its own (TMPDIR): the eval run, the
-    token cache, the serving engine and the int8 KV options."""
+    token cache, the serving engine and the int8 KV options.  With
+    `keep_csvs` (a directory), the geo and news CSVs are copied there."""
+    import shutil
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="icek_eval_") as workdir:
         launches, runs, geo_split, captions = eval_run(dev, models, workdir)
+        for preset in ("georic", "nytimes800k") if keep_csvs else ():
+            name = f"{preset}_generated_captions.csv"
+            shutil.copy(os.path.join(workdir, name), os.path.join(keep_csvs, name))
         cache = token_cache(dev, models["georic"], geo_split, captions, workdir)
         engine = serving_engine(dev, models["georic"], geo_split, captions)
     return dict(eval_run=runs, eval_run_launches=launches, token_cache=cache,
@@ -1677,15 +1704,16 @@ RUN_ROWS = {"TRAIN": 1024, "VAL": 256, "TEST": 256}
 RUN_EPOCHS, FT_BATCH, FT_STEPS = 2, 32, 3
 
 
-def run_split(rng, wm):
+def run_split(rng, wm, rows=RUN_ROWS):
     """The loop's and the CLIs' TRAIN / VAL / TEST splits of the geo preset
-    in memory, so that the phase needs no HDF5 reader: a CaptionDataset subclass
-    with CaptionDataset's signature, which the phase puts in its place while
-    it runs.  Each open builds a fresh split over the same arrays."""
+    in memory (`rows` of each), so that the phase needs no HDF5 reader: a
+    CaptionDataset subclass with CaptionDataset's signature, which the phase
+    puts in its place while it runs.  Each open builds a fresh split over the
+    same arrays."""
     from icek_torch.data import dataset as tdata
 
     arrays = {}
-    for split, n in RUN_ROWS.items():
+    for split, n in rows.items():
         caps = train_captions(rng, n, wm)
         arrays[split] = (caps, _entity_rows(rng, n),
                          rng.random((n, 3, IMG, IMG), dtype=np.float32).astype(np.float16))
@@ -2108,6 +2136,469 @@ def train_run(dev, models, step_summary):
         finetune = finetune_phase(dev, model)
         cli = cli_phase(dev, model, split_cls, workdir, enc_path)
     return dict(loop=loop, resume=resume, finetune=finetune, cli=cli)
+
+
+# --------------------------------------------------------------------------
+# phase 9: the int8 encoder (csrc/int8_conv.cu), its CLIs, metrics, native
+# --------------------------------------------------------------------------
+
+INT8_TOPS = 1979e12                       # H100 SXM dense int8
+INT8_CALIB_BATCHES = 2
+# (name, input side, Cin, Cout, kernel, stride, epilogue) at batch 256 of
+# 256x256 images: the five site kinds of ResNet-101, 1x1 / 1 with each of
+# its three epilogues; "1x1_s1" (layer3's conv1, 23 launches an encode) is
+# the kernels line's headline
+INT8_SITES = (
+    ("stem_7x7_s2", IMG, 3, 64, 7, 2, "q8"),
+    ("1x1_s1", 16, 1024, 256, 1, 1, "q8"),
+    ("1x1_s1_int8_shortcut", 16, 256, 1024, 1, 1, "q8_q8sc"),
+    ("1x1_s1_f32_shortcut", 32, 128, 512, 1, 1, "q8_f32sc"),
+    ("down_1x1_s2", 64, 256, 512, 1, 2, "f32"),
+    ("3x3_s1", 16, 256, 256, 3, 1, "q8"),
+    ("3x3_s2", 64, 128, 128, 3, 2, "q8"),
+)
+
+
+def encode_sites():
+    """{(side, Cin, Cout, kernel, stride, epilogue): launches} of one int8
+    encode of 256x256 images: 1 + 33 x 3 + 4 = 104."""
+    from icek_torch.kernels import int8_conv as k8
+
+    sites = {(IMG, 3, 64, 7, 2, "q8"): 1}
+
+    def add(key):
+        sites[key] = sites.get(key, 0) + 1
+
+    side, cin = 64, 64
+    for stage, (count, width) in enumerate(zip((3, 4, 23, 3), (64, 128, 256, 512)), 1):
+        for b in range(count):
+            s = 2 if stage > 1 and b == 0 else 1
+            out = k8.out_hw(side, 3, s)
+            add((side, cin, width, 1, 1, "q8"))
+            add((side, width, width, 3, s, "q8"))
+            if b == 0:
+                add((side, cin, 4 * width, 1, s, "f32"))
+                add((out, width, 4 * width, 1, 1, "q8_f32sc"))
+            else:
+                add((out, width, 4 * width, 1, 1, "q8_q8sc"))
+            side, cin = out, 4 * width
+    require(sum(sites.values()) == 104, f"encode sites {sum(sites.values())} != 104")
+    return sites
+
+
+def _int8_site_inputs(dev, g, side, cin, cout, k, stride, mode):
+    from icek_torch.kernels import int8_conv as k8
+
+    lo = -127 if cin == 3 else 0
+    x = torch.randint(lo, 128, (BATCH, side, side, cin), generator=g, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (cout, k, k, cin), generator=g, device=dev, dtype=torch.int8)
+    K = k * k * cin
+    site = {"wq": w,
+            "es": (torch.rand(cout, generator=g, device=dev) + 0.5) / (127.0 * 64 * K ** 0.5),
+            "b": torch.randn(cout, generator=g, device=dev) * 0.1}
+    ho = k8.out_hw(side, k, stride)
+    shortcut = None
+    if mode == "q8_f32sc":
+        shortcut = torch.randn((BATCH, ho, ho, cout), generator=g, device=dev)
+    elif mode == "q8_q8sc":
+        shortcut = torch.randint(0, 128, (BATCH, ho, ho, cout), generator=g, device=dev,
+                                 dtype=torch.int8)
+    kw = dict(inv=None if mode == "f32" else torch.tensor(127 / 3.0), shortcut=shortcut,
+              a_x=torch.tensor(1 / 127.0) if mode == "q8_q8sc" else None)
+    return x, site, kw, ho
+
+
+def _int8_site_work(side, cin, cout, k, stride, mode):
+    """(bytes, operations) of one site: int8 x and weight read once, the
+    shortcut read once, es / b, the output written once."""
+    from icek_torch.kernels import int8_conv as k8
+
+    ho = k8.out_hw(side, k, stride)
+    m = BATCH * ho * ho
+    out_b = {"f32": 4}.get(mode, 1)
+    sc_b = {"q8_f32sc": 4, "q8_q8sc": 1}.get(mode, 0)
+    nbytes = BATCH * side * side * cin + cout * k * k * cin + 8 * cout + m * cout * (out_b + sc_b)
+    return nbytes, 2.0 * m * cout * k * k * cin
+
+
+def check_int8_sites(dev):
+    """(a) the int8 site kernel against its plain version at each site kind
+    (the int32 accumulators and the epilogue's codes bit-equal), timed beside
+    the plain version, cuBLASLt's int8 GEMM (torch._int_mm) plus an
+    epilogue of torch ops at the 1x1 / 1 sites, cuDNN's bf16 convolution of
+    the same site, and the bound; then every distinct site of an encode
+    timed alone (the per-encode sum of the 104 launches); the int8 max pool
+    against its plain version.  F.conv2d and F.max_pool2d are tried on int8
+    CUDA tensors and their refusals logged."""
+    import torch.nn.functional as F
+
+    from icek_torch.kernels import int8_conv as k8
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    refusals = {}
+    probe = torch.zeros((2, 8, 8, 64), dtype=torch.int8, device=dev).permute(0, 3, 1, 2)
+    for name, fn in (("F.conv2d", lambda: F.conv2d(probe, torch.zeros(
+            (64, 64, 3, 3), dtype=torch.int8, device=dev))),
+            ("F.max_pool2d", lambda: F.max_pool2d(probe, 3, 2, 1))):
+        try:
+            fn()
+            refusals[name] = "ran"
+        except (RuntimeError, NotImplementedError) as e:
+            refusals[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    log(f"int8 on CUDA in the library: {refusals}")
+    rows = {}
+    for name, side, cin, cout, k, stride, mode in INT8_SITES:
+        x, site, kw, ho = _int8_site_inputs(dev, g, side, cin, cout, k, stride, mode)
+        acc = k8.qconv(x, site["wq"], stride)
+        got = k8.conv_site(x, site, stride, **kw)
+        torch.cuda.synchronize()
+        want_acc = k8.reference_qconv(x, site["wq"], stride)
+        want = k8.reference_site(x, site, stride, **kw)
+        require(torch.equal(acc, want_acc), f"int8 site {name}: int32 accumulators differ")
+        diff = int((got != want).sum())
+        require(got.dtype == want.dtype and diff == 0,
+                f"int8 site {name}: {diff} outputs differ from the plain version")
+        ms = cuda_ms(lambda: k8.conv_site(x, site, stride, **kw))
+        plain_ms = cuda_ms(lambda: k8.reference_site(x, site, stride, **kw), iters=2, warmup=1)
+        nbytes, ops = _int8_site_work(side, cin, cout, k, stride, mode)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_TOPS * 1e3
+        library_ms = None
+        if k == 1 and stride == 1:
+            a2 = x.reshape(-1, cin)
+            b2 = site["wq"].reshape(cout, cin).t()
+
+            def library():
+                y = torch._int_mm(a2, b2).to(torch.float32) * site["es"] + site["b"]
+                if kw["inv"] is None:
+                    return y
+                if kw["shortcut"] is not None:
+                    sc = kw["shortcut"].reshape(-1, cout)
+                    y = y + (sc if sc.dtype == torch.float32 else sc.to(torch.float32) * kw["a_x"])
+                return k8.requant_relu(y, kw["inv"])
+            try:
+                lib = library().reshape(got.shape)
+            except RuntimeError as e:           # the yardstick only: logged
+                log(f"int8 site {name}: torch._int_mm refused: {e}")
+            else:
+                require(torch.equal(lib, want), f"int8 site {name}: _int_mm + epilogue differs")
+                library_ms = cuda_ms(library)
+        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        wb = site["wq"].permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        cudnn_ms = cuda_ms(lambda: F.conv2d(xb, wb, stride=stride, padding=(k - 1) // 2))
+        rows[name] = dict(site=(BATCH, side, side, cin, cout, k, stride, mode), ms=ms,
+                          plain_ms=plain_ms, library_ms=library_ms, cudnn_bf16_ms=cudnn_ms,
+                          bound_ms=max(t_bytes, t_ops),
+                          bound_by="bytes" if t_bytes >= t_ops else "operations",
+                          tops=ops / ms / 1e9, max_abs_err=0.0,
+                          acc_max=int(want_acc.abs().max()))
+        log(f"int8 site {name}: {rows[name]}")
+        del x, site, kw, acc, got, want, want_acc, xb, wb
+    per_encode = dict(ms=0.0, bound_ms=0.0, sites={})
+    for key, count in sorted(encode_sites().items()):
+        side, cin, cout, k, stride, mode = key
+        x, site, kw, _ = _int8_site_inputs(dev, g, side, cin, cout, k, stride, mode)
+        ms = cuda_ms(lambda: k8.conv_site(x, site, stride, **kw), iters=10)
+        nbytes, ops = _int8_site_work(*key)
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / INT8_TOPS) * 1e3
+        per_encode["ms"] += count * ms
+        per_encode["bound_ms"] += count * bound
+        per_encode["sites"]["x".join(map(str, key))] = dict(launches=count, ms=ms, bound_ms=bound)
+        del x, site, kw
+    log(f"int8 encode's 104 sites timed alone (batch {BATCH}): {per_encode}")
+    x = torch.randint(-128, 128, (BATCH, IMG // 2, IMG // 2, 64), generator=g, device=dev,
+                      dtype=torch.int8)
+    got = k8.max_pool(x)
+    torch.cuda.synchronize()
+    require(torch.equal(got, k8.reference_max_pool(x)), "int8 max pool differs")
+    nbytes = x.numel() + got.numel()
+    pool = dict(ms=cuda_ms(lambda: k8.max_pool(x)),
+                plain_ms=cuda_ms(lambda: k8.reference_max_pool(x), iters=5),
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
+                max_abs_err=0.0)
+    log(f"int8 max pool ({tuple(x.shape)}): {pool}")
+    return rows, per_encode, pool, refusals
+
+
+def _int8_counts():
+    from icek_torch.kernels import int8_conv as k8
+
+    return k8.conv_site.launches, k8.max_pool.launches
+
+
+def _zero_int8_counts():
+    from icek_torch.kernels import int8_conv as k8
+
+    k8.conv_site.launches = k8.max_pool.launches = 0
+
+
+def int8_serving(dev, model):
+    """(b) calibrate on 2 batches and quantize, the cosine of the int8
+    tokens against the folded bf16 encoder's on a third batch (logged, not
+    asserted); (c) Evaluator.decode_batch with the tree in turns with the
+    float encoder (float, int8, int8, float): captions/s, encode ms, 104
+    site launches and one pool launch a decode, the other kernels' counts
+    held to the serving prediction, token and caption agreement logged."""
+    from icek_torch import bridge, eval_driver
+    from icek_torch.data import images as image_ops
+    from icek_torch.models import resnet, resnet_int8
+
+    cfg, wm, params, enc = model
+    rng = np.random.default_rng(SEED + 41)
+    batches = [make_batch(rng, BATCH) for _ in range(INT8_CALIB_BATCHES + 1)]
+    enc_dev = bridge.to_device(enc, dev)
+    folded = resnet.fold_bn_params(enc_dev)
+    size = cfg.model.encoded_image_size
+
+    def images(b):
+        return image_ops.normalize_in_graph(torch.as_tensor(b["raw_images"], device=dev))
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        qtree = resnet_int8.calibrate_and_quantize(
+            folded, (images(b) for b in batches[:INT8_CALIB_BATCHES]), torch.bfloat16,
+            source_params=enc_dev)
+    calib_s = time.perf_counter() - t0
+    qdev = resnet_int8.to_device(qtree, dev)
+    with torch.inference_mode():
+        held = images(batches[-1])
+        want = resnet.resnet_encode_folded(folded, held, size, torch.bfloat16).float()
+        got = resnet_int8.resnet_encode_int8(qdev, held, size, torch.bfloat16).float()
+    require(got.shape == want.shape == (BATCH, IMG_TOKENS, cfg.model.emb_dim)
+            and bool(torch.isfinite(got).all()), "int8 tokens: shape or non-finite")
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    quality = dict(calibrate_s=calib_s, token_cosine_mean=float(cos.mean()),
+                   token_cosine_min=float(cos.min()),
+                   tensor_cosine=float(torch.nn.functional.cosine_similarity(
+                       got.flatten(), want.flatten(), dim=0)))
+    log(f"int8 encoder quality (bf16 folded encoder as reference, not asserted): {quality}")
+    del held, want, got
+
+    evs = {"float": eval_driver.Evaluator(cfg, wm, params, enc, device=dev),
+           "int8": eval_driver.Evaluator(cfg, wm, params, enc, device=dev,
+                                         encoder_qtree=qtree)}
+    batch = batches[-1]
+    ids = {k: ev.decode_batch(batch) for k, ev in evs.items()}          # warm-ups
+    raw = torch.as_tensor(batch["raw_images"], device=dev)
+    times = {k: [] for k in evs}
+    enc_ms = {k: [] for k in evs}
+    for kind in ("float", "int8", "int8", "float"):
+        ev = evs[kind]
+        _zero_serving_counts()
+        _zero_int8_counts()
+        t0 = time.perf_counter()
+        out = ev.decode_batch(batch)
+        times[kind].append(time.perf_counter() - t0)
+        convs, pools = _int8_counts()
+        launches = _read_serving_counts()
+        want = serving_prediction(cfg, 1, 0)
+        require(launches == want, f"int8 serving {kind}: launches {launches} != {want}")
+        require((convs, pools) == ((104, 1) if kind == "int8" else (0, 0)),
+                f"int8 serving {kind}: {convs} site and {pools} pool launches")
+        require(np.array_equal(out, ids[kind]), f"int8 serving {kind}: not repeatable")
+        with torch.inference_mode():
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ev._encode_tokens(raw, "raw")
+                torch.cuda.synchronize()
+                enc_ms[kind].append((time.perf_counter() - t0) * 1e3)
+    same = ids["int8"] == ids["float"]
+    rec = {k: dict(batch_ms=[t * 1e3 for t in times[k]],
+                   captions_per_s=BATCH / statistics.median(times[k]),
+                   encode_ms=enc_ms[k], encode_ms_median=statistics.median(enc_ms[k]))
+           for k in evs}
+    rec.update(token_agreement=float(same.mean()),
+               caption_agreement=float(same.all(axis=1).mean()),
+               launches_per_batch=dict(int8_conv=104, int8_maxpool=1, **want))
+    log(f"int8 encoder serving (geo, batch {BATCH}, beam {BEAM}, bf16 tail): {rec}")
+    del evs
+    return qtree, quality, rec
+
+
+def int8_cli(dev, model, workdir):
+    """(d) in-process through icek_torch.apps over an in-memory split (VAL
+    512 rows, TEST 256): eval --encoder-int8 2 (calibrated on two VAL
+    batches, 104 site launches for the TEST batch, a CSV row for every TEST
+    row), quantize of the same two batches, eval --encoder-qtree with its
+    file (the same CSV), and serve --encoder-qtree on port 0 with one POST
+    /caption."""
+    import http.client
+    import threading
+
+    from icek_torch import apps
+    from icek_torch.models import resnet_int8
+    from icek_torch.serve import server as server_lib
+    from icek_torch.train import checkpoint as tckpt
+
+    cfg, wm, params, enc = model
+    base = cfg.data.base_name
+    split_cls = run_split(np.random.default_rng(SEED + 51), wm,
+                          rows={"TRAIN": 8, "VAL": 2 * BATCH, "TEST": BATCH})
+    data_dir = os.path.join(workdir, "files")
+    os.makedirs(data_dir)
+    with open(os.path.join(data_dir, f"WORDMAP_{base}.json"), "w") as f:
+        json.dump(wm.word_to_id, f)
+    seeded = tckpt.save_checkpoint(os.path.join(workdir, "seeded"), base, 0, 0, 0.0,
+                                   params, None, enc)
+    common = ["--data-dir", data_dir, "--checkpoint", seeded, "--batch-size", str(BATCH),
+              "--beam", str(BEAM), "--metric-data", os.path.join(workdir, "absent")]
+    out = {}
+    with _SplitsInMemory(split_cls):
+        csv_int8 = os.path.join(workdir, "int8.csv")
+        _zero_int8_counts()
+        t0 = time.perf_counter()
+        apps.run_eval("georic", common + ["--encoder-int8", str(INT8_CALIB_BATCHES),
+                                          "--output", csv_int8])
+        out["eval_int8_s"] = time.perf_counter() - t0
+        out["eval_int8_launches"] = _int8_counts()
+        rows = _csv_rows(csv_int8)
+        require(len(rows) == BATCH + 1, f"eval --encoder-int8: {len(rows) - 1} CSV rows")
+        require(out["eval_int8_launches"] == (104, 1),
+                f"eval --encoder-int8 launches {out['eval_int8_launches']}")
+        tree = os.path.join(workdir, "encoder_int8.pt")
+        t0 = time.perf_counter()
+        apps.run_quantize("georic", ["--data-dir", data_dir, "--checkpoint", seeded,
+                                     "--batches", str(INT8_CALIB_BATCHES),
+                                     "--batch-size", str(BATCH), "--output", tree])
+        out["quantize_s"] = time.perf_counter() - t0
+        out["qtree_mb"] = os.path.getsize(tree) / 1e6
+        resnet_int8.verify_qtree(resnet_int8.load_qtree(tree), enc)
+        csv_tree = os.path.join(workdir, "qtree.csv")
+        apps.run_eval("georic", common + ["--encoder-qtree", tree, "--output", csv_tree])
+        out["qtree_csv_equals_int8_csv"] = _csv_rows(csv_tree) == rows
+        made = []
+        make = server_lib.make_server
+        server_lib.make_server = lambda *a, **k: made.append(make(*a, **k)) or made[-1]
+        thread = threading.Thread(target=apps.run_serve, daemon=True, args=("georic", [
+            "--data-dir", data_dir, "--checkpoint", seeded, "--port", "0",
+            "--max-batch", "8", "--encoder-qtree", tree]))
+        try:
+            _zero_int8_counts()
+            thread.start()
+            for _ in range(1200):
+                if made or not thread.is_alive():
+                    break
+                thread.join(0.1)
+            require(bool(made), "run_serve --encoder-qtree started no server")
+            test = split_cls(data_dir, base, "TEST")
+            row = test.batch(np.array([0]), raw_images=True)
+            sample = {"raw_images": row["raw_images"][0],
+                      "entity_features": row["entity_features"][0],
+                      "entity_names": np.ascontiguousarray(test.arrays.entity_names[0])}
+            conn = http.client.HTTPConnection(*made[0].server_address, timeout=300)
+            conn.request("POST", "/caption", body=server_lib.encode_request(sample))
+            resp = conn.getresponse()
+            status, reply = resp.status, json.loads(resp.read())
+            conn.close()
+            out["serve_launches"] = _int8_counts()
+        finally:
+            server_lib.make_server = make
+            if made:
+                made[0].shutdown()
+            thread.join(60)
+    require(status == 200 and "caption" in reply, f"POST /caption: {status} {reply}")
+    require(out["serve_launches"] == (104, 1),
+            f"serve --encoder-qtree launches {out['serve_launches']}")
+    out["served_caption"] = reply.get("caption")
+    log(f"int8 encoder CLIs: {out}")
+    return out
+
+
+def metrics_verb(csv_paths):
+    """(e) python -m icek_torch.apps metrics over phase 7's geo and news CSVs
+    against a synthetic captions_split.json of as many TEST images (tokens
+    of the wordmap's words): the seven scores and the seconds."""
+    import tempfile
+
+    from icek_torch import apps
+
+    out = {}
+    rng = np.random.default_rng(SEED + 61)
+    words = [f"w{i}" for i in range(50)] + ["place_1", "new_york", "1999"]
+    with tempfile.TemporaryDirectory(prefix="icek_metrics_") as workdir:
+        for preset, path in csv_paths.items():
+            n = len(_csv_rows(path)) - 1
+            images = [{"tokens": list(rng.choice(words, size=int(rng.integers(3, 12)))),
+                       "split": "test", "id": f"img{i}"} for i in range(n)]
+            splits = os.path.join(workdir, f"{preset}_split.json")
+            with open(splits, "w") as f:
+                json.dump({"images": images}, f)
+            t0 = time.perf_counter()
+            scores = apps.run_metrics(preset, ["--captions", path, "--splits", splits,
+                                               "--output", os.path.join(workdir, "m.csv")])
+            seconds = time.perf_counter() - t0
+            rows = _csv_rows(os.path.join(workdir, "m.csv"))
+            require(len(rows) == n + 1 and len(scores) == 7 and
+                    all(math.isfinite(v) for v in scores.values()),
+                    f"metrics {preset}: {len(rows) - 1} rows, {scores}")
+            out[preset] = dict(scores=scores, seconds=seconds, captions=n)
+    log(f"metrics verb: {out}")
+    return out
+
+
+def native_helpers():
+    """(f) the g++ builds of icek_torch/native's fuzzy matcher and resizer,
+    held against their Python paths on random names and images."""
+    import random
+
+    from icek_torch import native
+    from icek_torch.data import codec, context, images
+
+    t0 = time.perf_counter()
+    require(native.available() and native.resize_available(), "native: g++ build failed")
+    build_s = time.perf_counter() - t0
+    rng = random.Random(SEED)
+    names = ["".join(rng.choice("abcdefgh_") for _ in range(rng.randint(1, 20)))
+             for _ in range(60)]
+    index = context.entity_name_index([[i, len(n)] + codec.encode_name(n)
+                                       for i, n in enumerate(names)])
+    queries = names + ["".join(rng.choice("abcdefgh_") for _ in range(rng.randint(1, 25)))
+                       for _ in range(120)]
+    fast = [context.fuzzy_lookup_entity(q, index) for q in queries]
+    real = native.available
+    native.available = lambda: False
+    try:
+        slow = [context.fuzzy_lookup_entity(q, index) for q in queries]
+    finally:
+        native.available = real
+    require(fast == slow, "native fuzzy matcher differs from the Python path")
+    nrng = np.random.default_rng(SEED)
+    ulps = []
+    for hw in ((1066, 800), (300, 120), (120, 300), (100, 90)):
+        img = nrng.integers(0, 256, size=(*hw, 3), dtype=np.uint8)
+        a = native.resize_chw_f16(img, IMG, IMG).view(np.uint16).astype(np.int64)
+        b = images.resize_like_reference(img, IMG, IMG).transpose(2, 0, 1).astype(
+            np.float16).view(np.uint16)
+        ulps.append(int(np.abs(a - b).max()))
+        require(ulps[-1] <= 1, f"native resize {hw}: {ulps[-1]} float16 ulps from scipy")
+    out = dict(build_s=build_s, fuzzy_queries=len(queries),
+               fuzzy_hits=sum(x is not None for x in fast), resize_max_ulps=ulps)
+    log(f"native helpers: {out}")
+    return out
+
+
+def int8_encoder(dev, models, csv_paths):
+    """Phase 9: (a) the int8 site kernel and pool against their plain
+    versions, (b, c) the int8 encoder serving beside float, (d) its CLIs,
+    (e) the metrics verb, (f) the native helpers; the packages that prep's
+    writer and the streaming loader need are looked for first, and what the
+    machine lacks is named (the CPU tests hold those parts)."""
+    import importlib.util
+    import tempfile
+
+    lacks = [m for m in ("h5py", "PIL", "scipy") if importlib.util.find_spec(m) is None]
+    log(f"phase 9: this machine lacks {lacks or 'nothing'} "
+        f"(h5py: prep's writer and the streaming loader; PIL: prep's image reads)")
+    sites, per_encode, pool, refusals = check_int8_sites(dev)
+    qtree, quality, serving = int8_serving(dev, models["georic"])
+    del qtree
+    with tempfile.TemporaryDirectory(prefix="icek_int8_") as workdir:
+        cli = int8_cli(dev, models["georic"], workdir)
+    return dict(sites=sites, per_encode=per_encode, pool=pool, library_refusals=refusals,
+                quality=quality, serving=serving, cli=cli, metrics=metrics_verb(csv_paths),
+                native=native_helpers(), lacks=lacks)
 
 
 # --------------------------------------------------------------------------
@@ -2559,8 +3050,13 @@ def run_phases(dev, card) -> list:
     greedy_warm = time_greedy_warm(dev, geo)
     summary.update(greedy_warm_ms=greedy_warm,
                    greedy_warm_median_ms=statistics.median(greedy_warm))
-    leave = captions_leave(dev, models)
-    run8 = train_run(dev, models, train_summary)
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="icek_csvs_") as csv_dir:
+        leave = captions_leave(dev, models, keep_csvs=csv_dir)
+        run8 = train_run(dev, models, train_summary)
+        int8 = int8_encoder(dev, models, {p: os.path.join(csv_dir, f"{p}_generated_captions.csv")
+                                          for p in ("georic", "nytimes800k")})
     # after every timed run, so the profiler cannot disturb one
     trace_device("one train step", step_once)
     del step_once
@@ -2624,6 +3120,26 @@ def run_phases(dev, card) -> list:
                                                  rec[i][torch.float32]), sites=sites[n])
                            for n, rec in norm.items()}
         rows.append(row)
+    head = int8["sites"]["1x1_s1"]
+    rows.append({
+        "name": "int8_conv", "route": "cuda", "source": "icek_torch/csrc/int8_conv.cu",
+        "replaces": "icek_tpu/models/resnet_int8.py:73",
+        "launches": int8["serving"]["launches_per_batch"]["int8_conv"],
+        "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"], "site": head["site"], "tol": 0,
+        "sites": {k: {f: v[f] for f in ("ms", "plain_ms", "library_ms", "cudnn_bf16_ms",
+                                         "bound_ms", "bound_by", "tops")}
+                  for k, v in int8["sites"].items()},
+        "per_encode": {k: int8["per_encode"][k] for k in ("ms", "bound_ms")},
+        "launches_eval_cli": int8["cli"]["eval_int8_launches"][0]})
+    pool = int8["pool"]
+    rows.append({
+        "name": "int8_maxpool", "route": "cuda", "source": "icek_torch/csrc/int8_conv.cu",
+        "replaces": "icek_tpu/models/resnet_int8.py:353",
+        "launches": int8["serving"]["launches_per_batch"]["int8_maxpool"],
+        **{k: pool[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")}, "tol": 0})
     log(f"card: {card}; train path: {json.dumps(train_summary)}")
     log(f"card: {card}; main path: {json.dumps(summary)}")
     for p in FACT_PRESETS:
@@ -2634,6 +3150,8 @@ def run_phases(dev, card) -> list:
         log(f"card: {card}; {what}: {json.dumps(rec)}")
     for what, rec in run8.items():
         log(f"card: {card}; train run {what}: {json.dumps(rec, default=str)}")
+    for what in ("quality", "serving", "cli", "metrics", "native", "library_refusals"):
+        log(f"card: {card}; int8 encoder {what}: {json.dumps(int8[what], default=str)}")
     return rows
 
 

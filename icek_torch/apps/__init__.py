@@ -1,16 +1,23 @@
 """Command-line entry points of the port (copies of ``apps/common.py``'s
-``run_train``, ``run_eval`` and ``run_serve`` over ``icek_torch``):
+runners and of the host tools under ``tools/``, over ``icek_torch``):
 
-    python -m icek_torch.apps train|eval|serve \\
+    python -m icek_torch.apps train|eval|serve|prep|metrics|quantize \\
         georic|k_georic|nytimes800k|georic_fast [flags]
+    python -m icek_torch.apps validate DATA_DIR [--preset P] [flags]
+    python -m icek_torch.apps port-encoder WEIGHTS.pth OUT.pt [flags]
 
-Every flag of the JAX CLIs is accepted.  ``--device`` (default ``cuda``)
-is the one flag they lack: it is how a caller asks for the CPU.  Flags
-whose path is not ported yet exit non-zero through ``parser.error`` and
-name the slice they wait for: ``--streaming`` (the HDF5 sidecar, with
-prep), ``--distributed`` and ``--mesh`` (the mesh), ``--encoder-int8`` and
-``--encoder-qtree`` (the int8 encoder).  Checkpoints: the port's ``.pt``,
-JAX's ``.msgpack`` and the reference's ``.pth.tar``.
+``prep`` writes the input files from a raw split (``create_input_files``),
+``metrics`` scores a captions CSV (``compute_eval_metrics``), ``quantize``
+calibrates and writes an int8 encoder tree (``tools/quantize_encoder.py``),
+``validate`` lints prepared files (``tools/validate_dataset.py``) and
+``port-encoder`` turns torchvision ResNet-101 weights into an encoder tree
+(``tools/port_torchvision_encoder.py``).  Every flag of the JAX CLIs is
+accepted.  ``--device`` (default ``cuda``) is the one flag they lack: it is
+how a caller asks for the CPU.  ``--distributed`` and ``--mesh`` are not
+ported yet: they exit non-zero through ``parser.error`` and name the slice
+they wait for.  Checkpoints: the port's ``.pt``, JAX's ``.msgpack`` and the
+reference's ``.pth.tar``; int8 trees: the port's ``.pt`` and JAX's
+``.msgpack``.
 """
 
 from __future__ import annotations
@@ -24,14 +31,16 @@ import sys
 from icek_torch.core import config as config_lib
 from icek_torch.data.codec import Wordmap
 
-VERBS = ("train", "eval", "serve")
+# verbs that run the model on --device, the host-only verbs of a preset, and
+# the host tools, which take their own arguments
+VERBS = ("train", "eval", "serve", "quantize")
+HOST_VERBS = ("prep", "metrics")
+PRESET_VERBS = VERBS + HOST_VERBS
+TOOL_VERBS = ("validate", "port-encoder")
 # flag -> the slice its path waits for
 UNPORTED = {
-    "streaming": "the streaming loader (HDF5 sidecar), with prep",
     "distributed": "the mesh slice",
     "mesh": "the mesh slice",
-    "encoder_int8": "the int8 encoder",
-    "encoder_qtree": "the int8 encoder",
 }
 
 
@@ -102,7 +111,8 @@ def run_train(preset: str, argv=None):
                         "or checkpoint (.pt or JAX .msgpack); the 1x1 projection is "
                         "freshly initialized when the file carries none")
     p.add_argument("--streaming", action="store_true",
-                   help="stream batches from the HDF5 sidecar store (not ported yet)")
+                   help="stream batches from the HDF5 sidecar store "
+                        "(data/streaming.py; built on first use)")
     p.add_argument("--batch-size", type=int, default=None, metavar="B",
                    help="training batch size (default: the reference's per-preset "
                         "value)")
@@ -141,6 +151,8 @@ def run_train(preset: str, argv=None):
     from icek_torch.train import loop as train_loop
     from icek_torch.train.embeddings import load_glove_embeddings
 
+    if args.streaming:
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, streaming=True))
     if args.batch_size:
         cfg = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=args.batch_size))
     if args.grad_accum is not None:
@@ -182,12 +194,16 @@ def run_eval(preset: str, argv=None):
     p.add_argument("--knowledge", default="img_caption_data/knowledge_context.pkl")
     p.add_argument("--output", default="generated_captions.csv")
     p.add_argument("--streaming", action="store_true",
-                   help="read the TEST split via the streaming loader (not ported yet)")
+                   help="read the TEST split via the streaming loader")
     p.add_argument("--encoder-int8", type=int, default=0, metavar="N",
-                   help="quantize the frozen ResNet encoder to int8, calibrating on N "
-                        "VAL batches (not ported yet)")
+                   help="quantize the frozen ResNet encoder to int8 (PTQ, "
+                        "models/resnet_int8.py), calibrating activation scales on "
+                        "the first N VAL batches (TEST, with a warning, only where "
+                        "there is no VAL split); CHANGES ARITHMETIC: captions may "
+                        "differ slightly from the bf16 pipeline")
     p.add_argument("--encoder-qtree", default=None, metavar="FILE",
-                   help="use an already calibrated int8 encoder tree (not ported yet)")
+                   help="use an already calibrated int8 encoder tree (the quantize "
+                        "verb's .pt, or a JAX .msgpack); overrides --encoder-int8")
     p.add_argument("--geometry", default=None, metavar="DxH",
                    help="transformer geometry of the checkpoint (normally read from "
                         "its meta)")
@@ -224,12 +240,48 @@ def run_eval(preset: str, argv=None):
             sys.modules["torchvision"] = stub
         sys.path.insert(0, args.reference_dir)
     cfg, params, encoder_params = _load_model(cfg, args)
-    data = ds.CaptionDataset(args.data_dir, cfg.data.base_name, "TEST", cfg.model.has_facts)
+    if args.streaming:
+        from icek_torch.data import streaming
+
+        data = streaming.StreamingCaptionDataset(args.data_dir, cfg.data.base_name, "TEST",
+                                                 cfg.model.has_facts)
+    else:
+        data = ds.CaptionDataset(args.data_dir, cfg.data.base_name, "TEST",
+                                 cfg.model.has_facts)
+    encoder_qtree = None
+    if args.encoder_qtree:
+        from icek_torch.models import resnet_int8
+
+        encoder_qtree = resnet_int8.load_qtree(args.encoder_qtree)
+    elif args.encoder_int8:
+        bs = eval_driver.resolve_eval_batch_size(args.batch_size, cfg, args.device)
+        # calibrate on VAL, never on the TEST split whose metrics the run
+        # reports; TEST only, with a warning, where no VAL files exist
+        try:
+            calib_data = ds.CaptionDataset(args.data_dir, cfg.data.base_name, "VAL",
+                                           cfg.model.has_facts)
+            calib_split = "VAL"
+        except OSError:
+            calib_data, calib_split = data, "TEST"
+            print("[encoder-int8] WARNING: no VAL split found — calibrating "
+                  "on TEST, the split being reported (train/test leak; "
+                  "prefer the quantize verb with --split VAL)")
+        print(f"[encoder-int8] calibrating on {args.encoder_int8} {calib_split} "
+              f"batches of {bs} (PTQ — arithmetic differs from bf16)")
+        encoder_qtree = calibrate_qtree(encoder_params, calib_data, args.encoder_int8, bs,
+                                        args.device)
     evaluator = eval_driver.Evaluator(cfg, wm, params, encoder_params,
                                       batch_size=args.batch_size, beam_size=args.beam,
-                                      device=args.device)
+                                      device=args.device, encoder_qtree=encoder_qtree)
     if args.cache_tokens:
-        default_path = os.path.join(args.data_dir, f"TEST_TOKENS_{cfg.data.base_name}.npz")
+        if args.streaming:
+            from icek_torch.data import streaming
+
+            default_path = streaming.token_cache_path(args.data_dir, cfg.data.base_name,
+                                                      "TEST")
+        else:
+            default_path = os.path.join(args.data_dir,
+                                        f"TEST_TOKENS_{cfg.data.base_name}.npz")
         evaluator.cache_split_tokens(
             data, default_path if args.cache_tokens == "auto" else args.cache_tokens)
 
@@ -251,6 +303,33 @@ def run_eval(preset: str, argv=None):
                          predicate_to_objects=predicate_to_objects,
                          output_csv=args.output)
 
+
+def calibrate_qtree(encoder_params, data, n_batches: int, batch_size: int, device,
+                    mode: str = "max", percentile: float = 99.5):
+    """An int8 encoder tree calibrated on the first `n_batches` batches of
+    `data` (host-normalized images), bound to `encoder_params` by
+    fingerprint.  The folded float encoder observes on `device`, in bf16 on
+    CUDA and f32 on the CPU."""
+    import numpy as np
+    import torch
+
+    from icek_torch import bridge
+    from icek_torch.models import resnet, resnet_int8
+
+    device = torch.device(device)
+    dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
+    folded = resnet.fold_bn_params(bridge.to_device(encoder_params, device))
+
+    def batches():
+        for b in range(n_batches):
+            idx = np.arange(b * batch_size, min((b + 1) * batch_size, len(data)))
+            if len(idx) == 0:
+                return
+            yield torch.as_tensor(data.batch(idx)["images"], device=device)
+
+    return resnet_int8.calibrate_and_quantize(folded, batches(), dtype,
+                                              source_params=encoder_params,
+                                              mode=mode, percentile=percentile)
 
 def _strip_flag(argv, name, has_value=True):
     """Remove ``name [value]`` / ``name=value`` occurrences from argv."""
@@ -327,8 +406,9 @@ def run_serve(preset: str, argv=None):
                    help="run every bucket once on a TEST-split sample before "
                         "accepting traffic")
     p.add_argument("--encoder-qtree", default=None, metavar="FILE",
-                   help="serve with the int8 encoder from a calibrated tree (not "
-                        "ported yet)")
+                   help="serve with the int8 PTQ encoder from a calibrated tree (the "
+                        "quantize verb's .pt, or a JAX .msgpack); changes arithmetic "
+                        "against the bf16 pipeline")
     p.add_argument("--replicas", type=int, default=1,
                    help="run N replica engines (one process per card, "
                         "CUDA_VISIBLE_DEVICES=i) behind a round-robin router on --port")
@@ -351,9 +431,14 @@ def run_serve(preset: str, argv=None):
 
     wm = load_wordmap(args.data_dir, cfg.data.base_name)
     cfg, params, encoder_params = _load_model(cfg, args)
+    encoder_qtree = None
+    if args.encoder_qtree:
+        from icek_torch.models import resnet_int8
+
+        encoder_qtree = resnet_int8.load_qtree(args.encoder_qtree)
     engine = ServingEngine(cfg, wm, params, encoder_params, beam_size=args.beam,
                            max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
-                           device=args.device)
+                           device=args.device, encoder_qtree=encoder_qtree)
     if args.warmup:
         import numpy as np
 
@@ -382,17 +467,200 @@ def run_serve(preset: str, argv=None):
         engine.close()
 
 
-RUNNERS = {"train": run_train, "eval": run_eval, "serve": run_serve}
+def run_prep(preset: str, argv=None):
+    """Input files from a raw split (``apps/common.py``'s
+    ``run_create_input_files``); ``--streaming`` also writes the HDF5
+    sidecar stores."""
+    cfg = config_lib.get_config(preset)
+    p = argparse.ArgumentParser(prog=f"python -m icek_torch.apps prep {preset}",
+                                description=f"Create input files for the {preset} preset")
+    p.add_argument("--splits", default="img_caption_data/captions_split.json")
+    p.add_argument("--entities", default="img_caption_data/entity_context.pkl")
+    p.add_argument("--knowledge", default="img_caption_data/knowledge_context.pkl")
+    p.add_argument("--images", default="img_caption_data/images/")
+    p.add_argument("--output", default="img_caption_data/input_dataset_files/")
+    p.add_argument("--wordmap", default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--streaming", action="store_true",
+                   help="additionally build the HDF5 sidecar stores for the "
+                        "constant-memory streaming loader")
+    p.add_argument("--image-workers", type=int, default=None,
+                   help="workers for the image read+resize pipeline (default "
+                        "min(8, cpus); 1 = serial); output is bit-identical regardless")
+    p.add_argument("--image-pool", choices=["process", "thread"], default="process",
+                   help="worker kind (process default: the resize stack holds the "
+                        "GIL, threads cap out ~1.2x)")
+    args = p.parse_args(argv)
+    from icek_torch.data.input_files import InputFileWriter
+
+    writer = InputFileWriter(
+        cfg, args.splits, args.entities, args.images, args.output,
+        knowledge_context_path=args.knowledge if cfg.model.has_facts else None,
+        wordmap_file_path=args.wordmap, seed=args.seed,
+        image_workers=args.image_workers,
+        image_processes=args.image_pool == "process",
+    )
+    writer.run()
+    if args.streaming:
+        from icek_torch.data import streaming
+
+        for split in ("TRAIN", "VAL", "TEST"):
+            streaming.write_sidecar_store(args.output, cfg.data.base_name, split,
+                                          cfg.model.has_facts)
+
+
+# pandas' default missing-value strings: read_csv(...).fillna("") makes them ""
+_NA_STRINGS = frozenset((
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan", "1.#IND",
+    "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a", "nan", "null"))
+
+
+def read_caption_column(path: str, column: str = "generated_caption"):
+    """One column of a captions CSV as ``pd.read_csv(path)[column]
+    .fillna("")`` reads it, with the stdlib ``csv`` module."""
+    import csv
+
+    with open(path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    return ["" if r[column] in _NA_STRINGS else r[column] for r in rows]
+
+
+def run_metrics(preset: str, argv=None):
+    """Score a captions CSV against the split's ground truth
+    (``apps/common.py``'s ``run_compute_eval_metrics``)."""
+    cfg = config_lib.get_config(preset)
+    p = argparse.ArgumentParser(prog=f"python -m icek_torch.apps metrics {preset}",
+                                description=f"Score generated captions for the {preset} preset")
+    p.add_argument("--captions", default="generated_captions.csv")
+    p.add_argument("--splits", default="img_caption_data/captions_split.json")
+    p.add_argument("--output", default="metric_scores_for_generated_captions.csv")
+    args = p.parse_args(argv)
+    from icek_torch.metrics.scores import score_captions
+
+    generated_raw = read_caption_column(args.captions)
+    with open(args.splits) as f:
+        data = json.load(f)
+    # news filters test images by the prep max_len (news compute_eval_
+    # metrics.py:27-30); geo/knowledge take every test image and pad missing
+    # generated rows with "" (geo compute_eval_metrics.py:15-30)
+    if cfg.model.variant == "news":
+        test_imgs = [img for img in data["images"]
+                     if img["split"] == "test"
+                     and len(img["tokens"]) <= cfg.data.max_caption_len]
+    else:
+        test_imgs = [img for img in data["images"] if img["split"] == "test"]
+    # underscores become spaces in both columns for every preset
+    true_captions = [" ".join(img["tokens"]).replace("_", " ") for img in test_imgs]
+    generated = [(generated_raw[i] if i < len(generated_raw) else "").replace("_", " ")
+                 for i in range(len(test_imgs))]
+    ids = [img["id"] for img in test_imgs]
+    if cfg.model.variant == "news":
+        from icek_torch.metrics.ne_pr import NamedEntityPR
+
+        NamedEntityPR().compute(generated, true_captions)
+    return score_captions(true_captions, generated, ids, output_csv=args.output)
+
+
+def run_quantize(preset: str, argv=None):
+    """Calibrate and write an int8 encoder tree (``tools/quantize_encoder.py``):
+    the folded float encoder observes N batches of a prepared split, the
+    tree is quantized and saved with ``torch.save`` for ``eval`` / ``serve
+    --encoder-qtree``."""
+    cfg = config_lib.get_config(preset)
+    p = base_parser("quantize", preset,
+                    f"Calibrate and persist an int8 PTQ tree for the {preset} encoder")
+    p.add_argument("--checkpoint", required=True,
+                   help=".pt or JAX .msgpack checkpoint, or an encoder tree file")
+    p.add_argument("--split", default="VAL", choices=["TRAIN", "VAL", "TEST"],
+                   help="split to draw calibration batches from (default VAL — "
+                        "never calibrate on TEST when TEST is what you report)")
+    p.add_argument("--batches", type=int, default=8)
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--calib-mode", default="max", choices=["max", "percentile"],
+                   help="activation-scale statistic: 'max' (running max) or "
+                        "'percentile' (percentile over per-image maxima)")
+    p.add_argument("--percentile", type=float, default=99.5,
+                   help="percentile for --calib-mode percentile")
+    p.add_argument("--output", required=True, help="output .pt path")
+    args = p.parse_args(argv)
+
+    from icek_torch.data import dataset as ds
+    from icek_torch.models import resnet_int8
+    from icek_torch.train import checkpoint as ckpt_lib
+
+    encoder_params, _ = ckpt_lib.load_encoder_tree(args.checkpoint)
+    data = ds.CaptionDataset(args.data_dir, cfg.data.base_name, args.split,
+                             cfg.model.has_facts)
+    print(f"calibrating on up to {args.batches} x {args.batch_size} {args.split} "
+          f"images ({len(data)} available)", flush=True)
+    qtree = calibrate_qtree(encoder_params, data, args.batches, args.batch_size,
+                            args.device, mode=args.calib_mode, percentile=args.percentile)
+    resnet_int8.save_qtree(qtree, args.output)
+    size_mb = os.path.getsize(args.output) / 1e6
+    print(f"wrote {args.output} ({size_mb:.1f} MB int8 tree)")
+    return qtree
+
+
+def run_port_encoder(argv=None):
+    """torchvision ResNet-101 weights -> an encoder tree file for ``train
+    --encoder-weights`` (``tools/port_torchvision_encoder.py``)."""
+    p = argparse.ArgumentParser(
+        prog="python -m icek_torch.apps port-encoder",
+        description="Convert torchvision resnet101 weights into an encoder tree")
+    p.add_argument("weights", help="torch file: state_dict .pth, {'state_dict': ...} "
+                                   "wrapper, or module")
+    p.add_argument("output", help="output encoder tree (.pt)")
+    p.add_argument("--emb-dim", type=int, default=300,
+                   help="projection width (the model's d_model; 300 for every "
+                        "reference preset)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="rng seed for the fresh 1x1 projection")
+    args = p.parse_args(argv)
+
+    from icek_torch.train import checkpoint as ckpt
+    from icek_torch.train import port
+
+    from icek_torch import bridge
+
+    tree = port.load_torchvision_encoder(args.weights, args.emb_dim, args.seed)
+    leaves = []
+    bridge._map(tree, lambda t, _path: leaves.append(t))
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    ckpt.save_encoder_tree(args.output, tree,
+                           meta={"source": os.path.basename(args.weights),
+                                 "emb_dim": args.emb_dim, "proj_seed": args.seed})
+    print(f"wrote {args.output}: {len(leaves)} arrays, {nbytes / 2**20:.1f} MiB "
+          f"(emb_dim={args.emb_dim})")
+    return tree
+
+
+RUNNERS = {"train": run_train, "eval": run_eval, "serve": run_serve, "prep": run_prep,
+           "metrics": run_metrics, "quantize": run_quantize}
+
+
+def run_validate(argv=None) -> int:
+    from icek_torch.apps import validate
+
+    return validate.main(argv)
+
+
+TOOLS = {"validate": run_validate, "port-encoder": run_port_encoder}
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] in TOOLS:
+        rc = TOOLS[argv[0]](argv[1:])
+        return rc if isinstance(rc, int) else 0
     p = argparse.ArgumentParser(
         prog="python -m icek_torch.apps",
-        description="Train, evaluate or serve a captioner with the PyTorch port.")
-    p.add_argument("verb", choices=VERBS)
+        description="Prepare data for, train, evaluate, score, quantize or serve a "
+                    "captioner with the PyTorch port.",
+        epilog=f"host tools: {', '.join(TOOL_VERBS)} (python -m icek_torch.apps "
+               "<tool> --help)")
+    p.add_argument("verb", choices=PRESET_VERBS)
     p.add_argument("preset", choices=sorted(config_lib.PRESETS))
-    if len(argv) < 2 or argv[0] not in VERBS or argv[1] not in config_lib.PRESETS:
+    if len(argv) < 2 or argv[0] not in PRESET_VERBS or argv[1] not in config_lib.PRESETS:
         p.parse_args(argv[:2])         # usage, or an argparse error (exit 2)
         return 2
     RUNNERS[argv[0]](argv[1], argv[2:])

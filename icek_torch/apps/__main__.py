@@ -1,4 +1,5 @@
-"""``python -m icek_torch.apps {train,eval,serve} <preset> [flags]``."""
+"""``python -m icek_torch.apps {train,eval,serve,prep,metrics,quantize} <preset>
+[flags]`` and ``python -m icek_torch.apps {validate,port-encoder} [args]``."""
 
 import sys
 

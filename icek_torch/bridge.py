@@ -7,7 +7,9 @@ captioner tree keeps that layout as torch tensors.  The ResNet tree's
 convolution weights change from HWIO to torch's OIHW; batch-norm stats
 stay as they are (``resnet.fold_bn_params`` folds them in the port).
 ``to_numpy`` goes back, so a round trip is bit-exact.
-``from_jax_opt_leaves`` turns a JAX checkpoint's optax Adam state into the
+``from_jax_qtree`` turns an int8 encoder tree of ``icek_tpu``'s layout
+(HWIO int8 ``wq``) into the port's (OHWI ``wq``, OIHW ``proj``), and
+``to_jax_qtree`` goes back.  ``from_jax_opt_leaves`` turns a JAX checkpoint's optax Adam state into the
 port's optimizer state.
 """
 
@@ -86,6 +88,37 @@ def from_jax_resnet(tree):
     return _map(tree, convert)
 
 
+def from_jax_qtree(tree):
+    """An int8 encoder tree in JAX's layout (numpy or tensors: HWIO int8
+    ``wq``, float32 ``es`` / ``b``, the ``inv_*`` / ``a_*`` scalars, float
+    ``proj``, uint8 ``_fingerprint``) -> the port's: ``wq`` int8 OHWI,
+    ``proj["w"]`` OIHW, scalars as 0-dim float32 tensors."""
+    def convert(x, path):
+        t = _tensor(x)
+        if path[-1] == "wq":
+            return t.permute(3, 0, 1, 2).contiguous()
+        if path[-2:] == ("proj", "w"):
+            return t.permute(3, 2, 0, 1).contiguous()
+        if t.dim() == 0:
+            return t.to(torch.float32)
+        return t
+
+    return _map(tree, convert)
+
+
+def to_jax_qtree(tree):
+    """The inverse of ``from_jax_qtree``, as a numpy tree."""
+    def convert(t, path):
+        x = torch.as_tensor(t).detach().cpu()
+        if path[-1] == "wq":
+            x = x.permute(1, 2, 3, 0)
+        elif path[-2:] == ("proj", "w"):
+            x = x.permute(2, 3, 1, 0)
+        return x.contiguous().numpy().copy()
+
+    return _map(tree, convert)
+
+
 def to_numpy(tree, resnet: bool = False):
     """The inverse of ``from_jax_params`` (or ``from_jax_resnet`` when
     `resnet`): torch tensors -> a numpy tree in the JAX layout."""
@@ -93,7 +126,7 @@ def to_numpy(tree, resnet: bool = False):
         x = t.detach().cpu()
         if resnet and _is_conv(path):
             x = x.permute(2, 3, 1, 0)
-        return np.ascontiguousarray(x.numpy())
+        return x.contiguous().numpy().copy()      # 0-dim leaves stay 0-dim
 
     return _map(tree, convert)
 

@@ -69,6 +69,10 @@ class DataConfig:
     max_name_part_count: int = 5
     split_tokens_on_underscore: bool = False
     fold_entity_names_into_wordmap: bool = False
+    # stream batches from the HDF5 sidecar store instead of loading the
+    # JSON/pkl sidecars into host RAM (data/streaming.py); image tokens
+    # cache to disk
+    streaming: bool = False
 
     @property
     def num_entity_rows(self) -> int:

@@ -12,8 +12,7 @@
     current one runs on the device (``stage_to`` / ``wait_staged``: pinned
     uploads on a side stream).
 
-Not ported here: ``process_local_slices`` (the mesh) and the streaming
-dataset.
+``data/streaming.py`` holds the disk-backed split of the same interface.
 """
 
 from __future__ import annotations
@@ -157,6 +156,28 @@ def batch_indices(n: int, batch_size: int, shuffle: bool, seed: int = 0,
                 return
             idx = np.concatenate([idx, np.full(batch_size - len(idx), -1)])
         yield idx
+
+
+def process_local_slices(batches: Iterator[np.ndarray], process_index: int,
+                         process_count: int) -> Iterator[np.ndarray]:
+    """This process's rows of each global index batch.
+
+    All processes iterate the identical (identically-seeded) global stream;
+    process p keeps rows [p*B/P, (p+1)*B/P) of every batch.  Union over p ==
+    the global stream, and the slices concatenate back in process order."""
+    if process_count == 1:
+        yield from batches
+        return
+    if not 0 <= process_index < process_count:
+        raise ValueError(f"process_index {process_index} not in [0, {process_count})")
+    for idx in batches:
+        if len(idx) % process_count:
+            raise ValueError(
+                f"global batch size {len(idx)} is not divisible by "
+                f"process count {process_count}"
+            )
+        local = len(idx) // process_count
+        yield idx[process_index * local : (process_index + 1) * local]
 
 
 def stage_to(device):

@@ -4,7 +4,8 @@
 Images are encoded and decoded in large static batches on the device
 (greedy or beam); detokenization, the CSV and the metrics stay on the host.
 One batch runs the slice's whole path: normalize the raw f16 CHW rows,
-ResNet-101 (BN folded when the compute dtype is not f32), the entity (and,
+ResNet-101 (BN folded when the compute dtype is not f32, or the int8
+encoder when an ``encoder_qtree`` is given), the entity (and,
 for the knowledge and news presets, fact) context encoders, the
 precomputed cross K/V, then beam or greedy decode.  Cached image tokens
 (``cache_split_tokens``) skip the encoder.
@@ -17,7 +18,7 @@ Output contract of ``Evaluator.run``, per preset:
     random-fact-object baseline) and logs both fact-accuracy reports;
   * geo feeds the Jensen-Shannon metric online.
 
-One process, one device: meshes and the int8 encoder are not ported.
+One process, one device: meshes are not ported.
 """
 
 from __future__ import annotations
@@ -75,11 +76,13 @@ class Evaluator:
     def __init__(self, cfg: Config, wordmap: Wordmap, params, encoder_params,
                  batch_size: Optional[int] = None,
                  beam_size: Optional[int] = None, compute_dtype=None,
-                 device="cuda", mesh=None):
+                 device="cuda", mesh=None, encoder_qtree=None):
         """`params` / `encoder_params` are the port's param trees (see
         ``bridge.py``); they are moved to `device` ("cuda" unless the caller
         asks for the CPU).  Compute dtype defaults to bf16 on CUDA and f32
-        on CPU."""
+        on CPU.  ``encoder_qtree`` (``models/resnet_int8.py``, opt-in: it
+        changes arithmetic) runs the int8 encoder; it is verified against
+        `encoder_params` by fingerprint when both are given."""
         if mesh is not None:
             raise NotImplementedError("meshes are not ported yet")
         kv = beam_lib.resolve_kv_dtype(cfg.decode.kv_dtype, cfg.model)
@@ -104,6 +107,15 @@ class Evaluator:
             if self.encoder_params is not None and compute_dtype != torch.float32
             else None
         )
+        if encoder_qtree is not None:
+            from icek_torch.models import resnet_int8
+
+            if encoder_params is not None:
+                # a qtree bakes the weights in: reject one quantized from
+                # another checkpoint before it serves wrong encodings
+                resnet_int8.verify_qtree(encoder_qtree, self.encoder_params)
+            encoder_qtree = resnet_int8.to_device(encoder_qtree, self.device)
+        self._encoder_qtree = encoder_qtree
 
     def _encode_tokens(self, images, mode: str):
         """Raw f16 CHW rows ("raw") or host-normalized NHWC images
@@ -114,6 +126,11 @@ class Evaluator:
         if mode == "raw":
             images = image_ops.normalize_in_graph(images)
         size = self.cfg.model.encoded_image_size
+        if self._encoder_qtree is not None:
+            from icek_torch.models import resnet_int8
+
+            return resnet_int8.resnet_encode_int8(self._encoder_qtree, images, size,
+                                                  compute_dtype=self.compute_dtype)
         if self._encoder_folded is not None:
             return resnet.resnet_encode_folded(self._encoder_folded, images, size,
                                                compute_dtype=self.compute_dtype)
@@ -126,11 +143,14 @@ class Evaluator:
         size): the key that binds cached tokens to their encoder."""
         from icek_torch.utils.fingerprint import tree_fingerprint
 
-        folded = self._encoder_folded is not None
-        tree = self._encoder_folded if folded else self.encoder_params
+        if self._encoder_qtree is not None:
+            tree, kind = self._encoder_qtree, "qtree"
+        elif self._encoder_folded is not None:
+            tree, kind = self._encoder_folded, "folded"
+        else:
+            tree, kind = self.encoder_params, "exact"
         return tree_fingerprint(tree, extra=(
-            "folded" if folded else "exact", str(self.compute_dtype),
-            self.cfg.model.encoded_image_size))
+            kind, str(self.compute_dtype), self.cfg.model.encoded_image_size))
 
     def cache_split_tokens(self, data: ds.CaptionDataset, cache_path: str,
                            log: Callable[[str], None] = print) -> str:
@@ -142,19 +162,17 @@ class Evaluator:
         the run's padded batches, so cached-token captions equal the image
         path's.  Returns "loaded" or "encoded".
 
-        A dataset with a disk-backed token cache of its own (the streaming
-        layout, ``open_token_cache``) is not ported and raises."""
-        if hasattr(data, "open_token_cache"):
-            raise NotImplementedError("the streaming dataset's token cache is not ported yet")
+        A streaming dataset (``data/streaming.py``) caches to a disk-backed
+        HDF5 file in its sidecar layout instead of an in-RAM .npz, with the
+        same fingerprint stored as a root attribute."""
+        from icek_torch.data import streaming as streaming_lib
+
         fp = self.encoder_fingerprint()
-        if os.path.exists(cache_path):
-            with np.load(cache_path) as z:
-                if str(z["fingerprint"]) == fp and len(z["tokens"]) == len(data):
-                    data.image_tokens = z["tokens"]
-                    log(f"token cache: loaded {cache_path} "
-                        f"({len(data)} rows, encoder {fp[:12]})")
-                    return "loaded"
-            log("token cache: stale (different encoder/length) — re-encoding")
+
+        def loaded():
+            log(f"token cache: loaded {cache_path} "
+                f"({len(data)} rows, encoder {fp[:12]})")
+            return "loaded"
 
         def encode(raw):
             # a partial chunk is padded with its last row to the run's batch
@@ -166,14 +184,33 @@ class Evaluator:
                 tokens = self._encode_tokens(torch.as_tensor(full, device=self.device), "raw")
                 return tokens[:n].to(torch.float32).cpu().numpy()
 
-        data.cache_image_tokens(encode, batch_size=self.batch_size, dtype=np.float32,
-                                raw=True)
-        log(f"token cache: encoded + saved {cache_path} "
-            f"({len(data)} rows, encoder {fp[:12]})")
+        def encode_split(**cache_kwargs):
+            # one encode feed for both cache layouts
+            data.cache_image_tokens(encode, batch_size=self.batch_size, dtype=np.float32,
+                                    raw=True, **cache_kwargs)
+            log(f"token cache: encoded + saved {cache_path} "
+                f"({len(data)} rows, encoder {fp[:12]})")
+            return "encoded"
+
+        if isinstance(data, streaming_lib.StreamingCaptionDataset):
+            if (data.open_token_cache(cache_path)
+                    and data.token_cache_attrs.get("fingerprint") == fp
+                    and len(data.image_tokens) == len(data)):
+                return loaded()
+            if data.image_tokens is not None:
+                log("token cache: stale (different encoder/length) — re-encoding")
+            return encode_split(path=cache_path, attrs={"fingerprint": fp})
+        if os.path.exists(cache_path):
+            with np.load(cache_path) as z:
+                if str(z["fingerprint"]) == fp and len(z["tokens"]) == len(data):
+                    data.image_tokens = z["tokens"]
+                    return loaded()
+            log("token cache: stale (different encoder/length) — re-encoding")
+        result = encode_split()
         tmp = cache_path + ".tmp.npz"  # .npz suffix: savez appends it otherwise
         np.savez(tmp, tokens=data.image_tokens, fingerprint=fp)
         os.replace(tmp, cache_path)
-        return "encoded"
+        return result
 
     def decode_batch(self, batch: Dict[str, np.ndarray]) -> np.ndarray:
         """One static-shape batch -> (B, max_len) extended-vocab ids.  The

@@ -27,7 +27,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("flash_attention", "score_topk", "decoder_step", "fused_norm")
+SOURCES = ("flash_attention", "score_topk", "decoder_step", "fused_norm", "int8_conv")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -118,6 +118,7 @@ class ServingEngine:
         max_wait_ms: float = 3.0,
         buckets: Optional[List[int]] = None,
         device="cuda",
+        encoder_qtree=None,
     ):
         self.cfg = cfg
         self.wordmap = wordmap
@@ -129,7 +130,7 @@ class ServingEngine:
         self._evaluator = Evaluator(
             cfg, wordmap, params, encoder_params,
             batch_size=self.max_batch, beam_size=beam_size,
-            compute_dtype=compute_dtype, device=device,
+            compute_dtype=compute_dtype, device=device, encoder_qtree=encoder_qtree,
         )
         self._queue: "queue.Queue" = queue.Queue()
         self._stats = ServeStats()

@@ -85,7 +85,7 @@ def run_epoch(
     batch_size: int, seed: int, epoch: int, print_freq: int = 100,
     log: Callable[[str], None] = print, enc_opt_state=None,
     bn_train_mode: bool = False, raw_images: bool = False,
-    start_batch: int = 0, step_callback=None, device="cpu",
+    start_batch: int = 0, step_callback=None, device="cuda",
 ):
     """One epoch from batch ``start_batch`` on.  On CUDA the losses stay on
     the device and are read at print boundaries and at the end; on the CPU
@@ -147,7 +147,7 @@ def run_epoch(
 def run_validation(
     eval_step, params, encoder_params, data: ds.CaptionDataset,
     batch_size: int, print_freq: int = 100, log: Callable[[str], None] = print,
-    raw_images: bool = False, device="cpu",
+    raw_images: bool = False, device="cuda",
 ):
     losses = Meter()
     n_batches = -(-len(data) // batch_size)
@@ -226,8 +226,16 @@ def train(
     compute_dtype = (torch.float32 if device.type == "cpu"
                      else _COMPUTE_DTYPES[tc.compute_dtype])
     has_facts = cfg.model.has_facts
-    train_data = ds.CaptionDataset(data_dir, cfg.data.base_name, "TRAIN", has_facts)
-    val_data = ds.CaptionDataset(data_dir, cfg.data.base_name, "VAL", has_facts)
+    if cfg.data.streaming:
+        # disk-backed splits: sidecars from the HDF5 store, token caches on
+        # disk (data/streaming.py)
+        from icek_torch.data import streaming
+
+        split_cls = streaming.StreamingCaptionDataset
+    else:
+        split_cls = ds.CaptionDataset
+    train_data = split_cls(data_dir, cfg.data.base_name, "TRAIN", has_facts)
+    val_data = split_cls(data_dir, cfg.data.base_name, "VAL", has_facts)
 
     gen = torch.Generator().manual_seed(tc.seed)
     params = captioner.init_captioner_params(gen, cfg.model, vocab_size)
@@ -323,7 +331,8 @@ def train(
         placement = resolve_token_cache_placement(
             n_rows, row_bytes, tc.device_token_cache_gb, 1)
         if placement == "replicated":
-            token_cache = torch.from_numpy(tokens).to(device).to(compute_dtype)
+            # np.asarray(tokens[:]) reads a streaming split's disk cache whole
+            token_cache = torch.from_numpy(np.asarray(tokens[:])).to(device).to(compute_dtype)
             train_data.use_token_rows = True
             log(f"device token cache: {nbytes / 2**20:.0f} MiB in HBM; "
                 "batches carry row ids only")

@@ -3,14 +3,16 @@
 
 Binds derived artifacts to the exact weights that produced them: the eval
 token cache (``eval_driver.Evaluator.cache_split_tokens``) stores the
-encoder's fingerprint with the cached tokens, so a cache built under one
-checkpoint, encoder variant or compute dtype is never served under another.
+encoder's fingerprint with the cached tokens, and an int8 encoder tree
+(``models/resnet_int8.py``) records the raw encoder's fingerprint, which
+its loader verifies.
 
-The hash is sha256 over the tree's structure (dict keys walked in sorted
-order) and each leaf's dtype, shape and raw bytes, plus caller-supplied
-context strings.  A bfloat16 leaf hashes its raw bytes through an int16
-view (numpy has no bf16).  The caches of the two packages are not shared,
-so the hash need not equal the JAX package's.
+The hash is JAX's: sha256 over the caller's context strings, the tree's
+structure as ``repr`` of JAX's ``PyTreeDef`` (dict keys sorted), then each
+leaf's numpy dtype name, shape and raw bytes in JAX's flattening order.  A
+bfloat16 leaf hashes as JAX's does: dtype "bfloat16" and its raw bytes.  So
+one tree of numpy arrays in JAX's layout hashes to the same string in both
+packages, which the int8 tree's fingerprint needs.
 """
 
 from __future__ import annotations
@@ -21,26 +23,39 @@ import numpy as np
 import torch
 
 
-def _walk(tree, h):
+def _structure(tree) -> str:
+    """``repr`` of the tree's ``jax.tree_util`` treedef, without the
+    ``PyTreeDef(...)`` around it."""
     if isinstance(tree, dict):
-        h.update(b"{")
+        return "{" + ", ".join(f"{k!r}: {_structure(tree[k])}" for k in sorted(tree)) + "}"
+    if isinstance(tree, list):
+        return "[" + ", ".join(_structure(v) for v in tree) + "]"
+    if isinstance(tree, tuple):
+        inner = ", ".join(_structure(v) for v in tree)
+        return "(" + inner + ("," if len(tree) == 1 else "") + ")"
+    return "None" if tree is None else "*"
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
         for k in sorted(tree):
-            h.update(repr(k).encode() + b":")
-            _walk(tree[k], h)
-        h.update(b"}")
+            yield from _leaves(tree[k])
     elif isinstance(tree, (list, tuple)):
-        h.update(b"[%d" % len(tree))
         for v in tree:
-            _walk(v, h)
-        h.update(b"]")
-    else:
-        t = tree.detach() if torch.is_tensor(tree) else torch.as_tensor(np.asarray(tree))
-        h.update(str(t.dtype).encode())
-        h.update(repr(tuple(t.shape)).encode())
-        t = t.contiguous().cpu()
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+def _dtype_shape_bytes(leaf):
+    if torch.is_tensor(leaf):
+        t = leaf.detach().contiguous().cpu()
+        name = str(t.dtype).replace("torch.", "")
         if t.dtype == torch.bfloat16:
             t = t.view(torch.int16)
-        h.update(t.numpy().tobytes())
+        return name, tuple(t.shape), t.numpy().tobytes()
+    arr = np.asarray(leaf)
+    return str(arr.dtype), arr.shape, arr.tobytes()
 
 
 def tree_fingerprint(tree, extra=()) -> str:
@@ -49,5 +64,10 @@ def tree_fingerprint(tree, extra=()) -> str:
     for item in extra:
         h.update(repr(item).encode())
         h.update(b"\x00")
-    _walk(tree, h)
+    h.update(f"PyTreeDef({_structure(tree)})".encode())
+    for leaf in _leaves(tree):
+        name, shape, data = _dtype_shape_bytes(leaf)
+        h.update(name.encode())
+        h.update(repr(shape).encode())
+        h.update(data)
     return h.hexdigest()

@@ -26,7 +26,12 @@ torch = pytest.importorskip("torch")
 from icek_torch import apps
 from icek_torch.core import config as tconfig
 from conftest import REPO_ROOT as ROOT_DIR
-from test_torch_common import removed_after, tmp_dir, train_split  # noqa: F401
+from test_torch_common import (one_torch_thread, removed_after, tmp_dir,  # noqa: F401
+                               train_split)
+
+# one torch thread: the int8 encoder's float64 convolutions took 99 s under
+# the suite's six workers with torch's thread pool, 3 s alone
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 BASE = "tiny_geo"
 
@@ -205,13 +210,21 @@ def test_train_cli_resume_applies_recorded_geometry(tiny_preset, monkeypatch, tm
     ("serve", ["--encoder-qtree", "q.pt"]),
 ])
 def test_unported_flags_exit_non_zero(verb, flag, capsys):
+    """--distributed and --mesh still wait for the mesh slice: exit 2 naming
+    it.  --streaming, --encoder-int8 and --encoder-qtree are ported: they
+    pass the parser and the run fails on the absent files instead."""
     argv = ["--data-dir", "absent", "--device", "cpu"] + flag
     if verb != "train":
         argv += ["--checkpoint", "absent.pt"]
-    with pytest.raises(SystemExit) as exc:
-        apps.RUNNERS[verb]("georic", argv)
-    assert exc.value.code != 0
-    assert "not ported yet" in capsys.readouterr().err
+    if flag[0][2:].replace("-", "_") in apps.UNPORTED:
+        with pytest.raises(SystemExit) as exc:
+            apps.RUNNERS[verb]("georic", argv)
+        assert exc.value.code != 0
+        assert "not ported yet" in capsys.readouterr().err
+    else:
+        with pytest.raises(FileNotFoundError):
+            apps.RUNNERS[verb]("georic", argv)
+        assert "not ported yet" not in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("verb", apps.VERBS)
@@ -229,6 +242,16 @@ def test_main_rejects_unknown_verbs_and_presets():
         with pytest.raises(SystemExit) as exc:
             apps.main(argv)
         assert exc.value.code == 2
+
+
+@pytest.mark.parametrize("verb", apps.HOST_VERBS + apps.TOOL_VERBS)
+def test_help_for_each_host_verb(verb):
+    argv = [verb] + (["georic"] if verb in apps.HOST_VERBS else []) + ["--help"]
+    out = subprocess.run([sys.executable, "-m", "icek_torch.apps", *argv],
+                         cwd=ROOT_DIR, capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT_DIR)))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith(f"usage: python -m icek_torch.apps {' '.join(argv[:-1])}")
 
 
 def test_replicas_launch_this_serve_command(monkeypatch):
@@ -289,3 +312,99 @@ def test_eval_takes_a_reference_pth_tar(tiny_preset, tmp_dir):
     eval_driver.Evaluator(tc, wm, params, enc, batch_size=2, beam_size=3, device="cpu").run(
         tds.CaptionDataset(out, BASE, "TEST"), output_csv=str(want_path), log=lambda s: None)
     assert csv_path.read_bytes() == want_path.read_bytes()
+
+
+# ---------------------------------------------------------------------------
+# the int8 encoder, the streaming loader and the dataset linter through the CLIs
+
+
+def test_eval_encoder_int8_calibrates_on_val(tiny_preset, tmp_dir):
+    """eval --encoder-int8 1 writes the CSV of an Evaluator whose int8 tree
+    was calibrated on one VAL batch; quantize writes that tree, and eval
+    --encoder-qtree with it writes the same CSV."""
+    from icek_torch import eval_driver
+    from icek_torch.data import dataset as tds
+    from icek_torch.data.codec import Wordmap
+    from icek_torch.models import resnet_int8
+    from icek_torch.train import checkpoint as tckpt
+
+    tc, out, ckpt_dir = tiny_preset
+    best = str(ckpt_dir / f"BEST_checkpoint_0_{BASE}.pt")
+    common = ["--data-dir", out, "--checkpoint", best, "--batch-size", "2", "--beam", "3",
+              "--metric-data", str(tmp_dir / "absent"), "--device", "cpu"]
+    apps.run_eval("georic", common + ["--encoder-int8", "1", "--output",
+                                      str(tmp_dir / "int8.csv")])
+    params, _, enc, _ = tckpt.load_checkpoint(best)
+    qtree = apps.calibrate_qtree(enc, tds.CaptionDataset(out, BASE, "VAL"), 1, 2, "cpu")
+    with open(os.path.join(out, f"WORDMAP_{BASE}.json")) as f:
+        wm = Wordmap(json.load(f))
+    ev = eval_driver.Evaluator(tc, wm, params, enc, batch_size=2, beam_size=3, device="cpu",
+                               encoder_qtree=qtree)
+    ev.run(tds.CaptionDataset(out, BASE, "TEST"), output_csv=str(tmp_dir / "want.csv"),
+           log=lambda s: None)
+    assert (tmp_dir / "int8.csv").read_bytes() == (tmp_dir / "want.csv").read_bytes()
+    tree_path = str(tmp_dir / "enc_int8.pt")
+    apps.run_quantize("georic", ["--data-dir", out, "--checkpoint", best, "--batches", "1",
+                                 "--batch-size", "2", "--output", tree_path,
+                                 "--device", "cpu"])
+    resnet_int8.verify_qtree(resnet_int8.load_qtree(tree_path), enc)
+    apps.run_eval("georic", common + ["--encoder-qtree", tree_path, "--output",
+                                      str(tmp_dir / "qtree.csv")])
+    assert (tmp_dir / "qtree.csv").read_bytes() == (tmp_dir / "want.csv").read_bytes()
+
+
+def test_serve_and_train_plumb_the_new_flags(tiny_preset, monkeypatch, tmp_dir):
+    from icek_torch.models import resnet_int8
+    from icek_torch.serve import engine as engine_lib
+    from icek_torch.serve import server as server_lib
+    from icek_torch.train import loop as tloop
+
+    _, out, ckpt_dir = tiny_preset
+    best = str(ckpt_dir / f"BEST_checkpoint_0_{BASE}.pt")
+    tree_path = str(tmp_dir / "enc_int8.pt")
+    resnet_int8.save_qtree({"inv_img": torch.tensor(2.0)}, tree_path)
+    captured = {}
+
+    class SpyEngine:
+        def __init__(self, *a, **kw):
+            captured.update(kw)
+
+    monkeypatch.setattr(engine_lib, "ServingEngine", SpyEngine)
+    monkeypatch.setattr(server_lib, "make_server",
+                        lambda *a, **k: (_ for _ in ()).throw(RuntimeError("stop")))
+    with pytest.raises(RuntimeError, match="stop"):
+        apps.run_serve("georic", ["--data-dir", out, "--checkpoint", best,
+                                  "--encoder-qtree", tree_path, "--device", "cpu"])
+    assert float(captured["encoder_qtree"]["inv_img"]) == 2.0
+    monkeypatch.setattr(tloop, "train", lambda cfg, *a, **kw: captured.update(cfg=cfg))
+    apps.run_train("georic", ["--data-dir", out, "--streaming"])
+    assert captured["cfg"].data.streaming
+    apps.run_train("georic", ["--data-dir", out])
+    assert not captured["cfg"].data.streaming
+
+
+def test_eval_streaming_writes_the_in_memory_csv(tiny_preset, tmp_dir):
+    _, out, ckpt_dir = tiny_preset
+    best = str(ckpt_dir / f"BEST_checkpoint_0_{BASE}.pt")
+    common = ["--data-dir", out, "--checkpoint", best, "--batch-size", "2", "--beam", "3",
+              "--metric-data", str(tmp_dir / "absent"), "--device", "cpu"]
+    apps.run_eval("georic", common + ["--output", str(tmp_dir / "mem.csv")])
+    apps.run_eval("georic", common + ["--streaming", "--cache-tokens", "--output",
+                                      str(tmp_dir / "stream.csv")])
+    assert os.path.exists(os.path.join(out, f"TEST_TOKENS_{BASE}.h5"))
+    assert (tmp_dir / "stream.csv").read_bytes() == (tmp_dir / "mem.csv").read_bytes()
+
+
+def test_validate_verb_passes_prepared_files_and_flags_a_broken_one(tiny_preset, tmp_dir,
+                                                                     capsys):
+    import shutil
+
+    _, out, _ = tiny_preset
+    assert apps.main(["validate", out, "--base-name", BASE, "--img-size", "32"]) == 0
+    assert "0 error(s)" in capsys.readouterr().out
+    broken = tmp_dir / "broken"
+    shutil.copytree(out, broken)
+    with open(broken / f"TEST_CAPLENS_{BASE}.json", "w") as f:
+        json.dump([2], f)                       # one row where the split has two
+    assert apps.main(["validate", str(broken), "--base-name", BASE, "--img-size", "32"]) == 1
+    assert "TEST: CAPLENS has 1 rows" in capsys.readouterr().out

@@ -282,6 +282,34 @@ def resnet_params_numpy(emb_dim, seed, proj_gain=3e-4):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
+def int8_nets(emb_dim, seed=3):
+    """Raw and folded ResNet-101 trees of both packages for the int8 tests,
+    from a numpy seed; the port's folded tree is JAX's, converted (the
+    fold's float arithmetic is the float encoder's business, not the
+    quantizer's)."""
+    import jax.numpy as jnp
+    from icek_tpu.models import resnet as jres
+
+    raw_np = resnet_params_numpy(emb_dim, seed, proj_gain=1.0)
+    raw = jax.tree.map(jnp.asarray, raw_np)
+    folded = jax.jit(jres.fold_bn_params)(raw)
+    return dict(raw_np=raw_np, jraw=raw, jfolded=folded,
+                traw=bridge.from_jax_resnet(raw_np),
+                tfolded=bridge.from_jax_resnet(jax.tree.map(np.asarray, folded)))
+
+
+def tree_leaves_with_paths(tree, path=()):
+    """(path, numpy leaf) pairs of a nested dict / list tree, keys sorted."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves_with_paths(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves_with_paths(v, path + (i,))
+    else:
+        yield path, np.asarray(tree)
+
+
 def _write_raw(tmp_path, images, entity_contexts, knowledge_contexts=None):
     import json
     import pickle

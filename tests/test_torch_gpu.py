@@ -1565,3 +1565,78 @@ def test_loop_on_card_trains_in_the_configured_compute_dtype(cuda, tmp_path, mon
     assert seen["compute_dtype"] == dtype
     assert seen["token_cache"] is not None and seen["token_cache"].dtype == dtype
     assert math.isfinite(result.best_loss)
+
+
+# ---------------------------------------------------------------------------
+# the int8 convolution (csrc/int8_conv.cu): int32 accumulators and int8 codes
+# bit-equal to the plain version (float64 convolution, float32 epilogue)
+
+
+@pytest.mark.parametrize("k,cin,cout,stride,side,mode", [
+    (7, 3, 64, 2, 37, "q8"), (1, 64, 64, 1, 9, "q8"), (1, 128, 256, 2, 9, "f32"),
+    (3, 64, 64, 1, 7, "q8"), (3, 128, 128, 2, 9, "q8"), (1, 64, 256, 1, 5, "q8_q8sc"),
+    (1, 128, 512, 1, 5, "q8_f32sc"), (3, 192, 72, 1, 5, "q8"), (5, 4, 8, 1, 6, "q8")])
+def test_int8_conv_kernel_matches_plain(cuda, k, cin, cout, stride, side, mode):
+    from icek_torch.kernels import int8_conv as k8
+
+    g = _gen(k * 100 + cin)
+    lo = -127 if cin < 64 else 0
+    x = torch.randint(lo, 128, (3, side, side, cin), generator=g, dtype=torch.int8).to(cuda)
+    w = torch.randint(-127, 128, (cout, k, k, cin), generator=g, dtype=torch.int8).to(cuda)
+    K = k * k * cin
+    site = {"wq": w, "es": ((torch.rand(cout, generator=g) + 0.5) / (127.0 * 64 * K ** 0.5)
+                            ).to(cuda),
+            "b": (torch.randn(cout, generator=g) * 0.1).to(cuda)}
+    ho = k8.out_hw(side, k, stride)
+    shortcut = None
+    if mode == "q8_f32sc":
+        shortcut = torch.randn((3, ho, ho, cout), generator=g).to(cuda)
+    elif mode == "q8_q8sc":
+        shortcut = torch.randint(0, 128, (3, ho, ho, cout), generator=g,
+                                 dtype=torch.int8).to(cuda)
+    kw = dict(inv=None if mode == "f32" else torch.tensor(127 / 3.0), shortcut=shortcut,
+              a_x=torch.tensor(1 / 127.0) if mode == "q8_q8sc" else None)
+    before = k8.conv_site.launches
+    acc = k8.qconv(x, w, stride)
+    got = k8.conv_site(x, site, stride, **kw)
+    torch.cuda.synchronize()
+    assert k8.conv_site.launches == before + 2
+    assert torch.equal(acc, k8.reference_qconv(x, w, stride))
+    want = k8.reference_site(x, site, stride, **kw)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_int8_max_pool_kernel_matches_plain(cuda):
+    from icek_torch.kernels import int8_conv as k8
+
+    for side in (8, 9, 128):
+        x = torch.randint(-128, 128, (2, side, side, 64), generator=_gen(side),
+                          dtype=torch.int8).to(cuda)
+        before = k8.max_pool.launches
+        got = k8.max_pool(x)
+        torch.cuda.synchronize()
+        assert k8.max_pool.launches == before + 1
+        assert torch.equal(got, k8.reference_max_pool(x))
+
+
+def test_int8_encode_on_card_runs_104_sites_and_matches_plain(cuda):
+    """The whole int8 encode at 64x64: 104 launches of the site kernel and
+    one of the pool; every code (hence the tokens in f32) equals the CPU's
+    plain version."""
+    import numpy as np
+
+    from icek_torch.kernels import int8_conv as k8
+    from icek_torch.models import resnet, resnet_int8
+
+    g = torch.Generator().manual_seed(0)
+    folded = resnet.fold_bn_params(resnet.init_resnet101(g, 24))
+    images = torch.randn((2, 64, 64, 3), generator=g)
+    qtree = resnet_int8.calibrate_and_quantize(folded, [images], torch.float32)
+    want = resnet_int8.resnet_encode_int8(qtree, images, 2, torch.float32)
+    before = (k8.conv_site.launches, k8.max_pool.launches)
+    got = resnet_int8.resnet_encode_int8(resnet_int8.to_device(qtree, cuda),
+                                         images.to(cuda), 2, torch.float32)
+    torch.cuda.synchronize()
+    assert (k8.conv_site.launches - before[0], k8.max_pool.launches - before[1]) == (104, 1)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-5 * float(want.abs().max()))

@@ -213,3 +213,35 @@ def test_glove_loader_matches_jax(tmp_path):
     np.testing.assert_array_equal(got[mapping["tower"]], np.full(4, 0.5, np.float32))
     bound = np.sqrt(3.0 / 4)
     assert np.abs(got[mapping["unseen"]]).max() <= bound
+
+
+def test_port_encoder_verb_writes_the_tools_tree(pth, tmp_dir):
+    """``python -m icek_torch.apps port-encoder`` writes the encoder tree of
+    ``load_torchvision_encoder``, equal to what tools/port_torchvision_encoder.py
+    writes (read back through the port's .msgpack reader)."""
+    import os
+    import sys
+
+    from conftest import REPO_ROOT
+    from icek_torch import apps
+
+    out = str(tmp_dir / "enc.pt")
+    assert apps.main(["port-encoder", pth, out, "--emb-dim", str(EMB), "--seed", "3"]) == 0
+    got, meta = tckpt.load_encoder_tree(out)
+    assert meta == {"source": os.path.basename(pth), "emb_dim": EMB, "proj_seed": 3}
+    want = tport.load_torchvision_encoder(pth, EMB, 3)
+    exp = dict(tree_paths(want))
+    assert dict(tree_paths(got)).keys() == exp.keys()
+    for path, w in tree_paths(got):
+        assert torch.equal(w, exp[path]), path
+    if str(REPO_ROOT) not in sys.path:
+        sys.path.insert(0, str(REPO_ROOT))
+    from tools import port_torchvision_encoder as jtool
+
+    jax_out = str(tmp_dir / "enc.msgpack")
+    jtool.main([pth, jax_out, "--emb-dim", str(EMB), "--seed", "3"])
+    body, _ = tckpt.load_encoder_tree(jax_out)
+    jexp = dict(tree_paths(body))
+    for path, w in tree_paths(got):
+        if path[0] != "proj":           # JAX draws its fresh projection from its own key
+            assert torch.equal(w, jexp[path]), path

@@ -116,13 +116,25 @@ def test_fingerprint_properties(split):
 
 
 def test_streaming_dataset_raises(split, tmp_path):
-    from icek_tpu.data import streaming
+    """The port's streaming split caches its tokens (this raised before the
+    streaming loader was ported): an HDF5 file bound by fingerprint, with
+    the in-memory cache's tokens; a second call loads it
+    (tests/test_torch_streaming.py holds the rest)."""
+    from icek_torch.data import streaming
 
     s = split
+    ev = _evaluator(s)
     stream = streaming.StreamingCaptionDataset(s["out_dir"], s["base"], "TEST")
-    with pytest.raises(NotImplementedError, match="streaming"):
-        _evaluator(s).cache_split_tokens(stream, str(tmp_path / "s.h5"),
-                                         log=lambda line: None)
+    path = str(tmp_path / "s.h5")
+    assert ev.cache_split_tokens(stream, path, log=lambda line: None) == "encoded"
+    assert stream.token_cache_attrs["fingerprint"] == ev.encoder_fingerprint()
+    mem = _data(s)
+    ev.cache_split_tokens(mem, str(tmp_path / "m.npz"), log=lambda line: None)
+    np.testing.assert_array_equal(stream.image_tokens[()], mem.image_tokens)
+    stream.close()
+    again = streaming.StreamingCaptionDataset(s["out_dir"], s["base"], "TEST")
+    assert ev.cache_split_tokens(again, path, log=lambda line: None) == "loaded"
+    again.close()
 
 
 def test_dataset_batches_match_jax(split):
