@@ -109,13 +109,34 @@ Phases (any failure raises and exits non-zero):
               g++ builds of the native matcher and resizer against their
               Python paths.  Which of h5py, PIL and scipy the machine lacks
               is logged first.
+ 10. mesh     the mesh on torch.distributed (mesh_phase), a (1, 1) mesh of
+              one NCCL rank on the card, geo at full width: (a) 4 train
+              steps through make_train_step(mesh=...) (batch 256, cached
+              tokens, bf16, dropout on) bit-equal to the same steps without
+              a mesh in params, losses and Adam state, the training
+              kernels' launches equal; (a') the dropout kernels keyed by
+              global batch row (a data shard's half of a batch of 256 gets
+              the whole batch's rows, outputs and gradients); (b) train.loop.train(mesh=...) for
+              one epoch over an in-memory 512 / 256-row split, its
+              checkpoint bit-equal to the run without a mesh; (c)
+              Evaluator(mesh=...).run over 256 rows, the CSV equal and the
+              serving kernels' launches equal; (d) a row-sharded token
+              cache read by sharded_row_gather, bit-equal to a plain index;
+              (e) icek_torch/utils/roofline.py turns phase 6's geo step and
+              phase 4's beam-5 batch medians into MFU and HBM utilization,
+              and icek_torch/tools/profile_train_step summarizes one geo
+              step by op class (with the traces below): the card's time,
+              above 0, with every training kernel of the port in its
+              class, or the run fails.  The bf16 and HBM
+              peaks every bound uses come from the roofline's table.
 After the phases one more train step and one more beam-5 batch of each
 preset run under torch.profiler, which logs the ten largest device operations and the
 device's idle share, and the profiler gives the score head's device time
 per kernel, and the norm kernels' and their library chains' at every row
 count, on phase 3's inputs.  Before
 them 3 greedy batches are timed warm.  Nothing is timed after a profiler
-session; a profiler fault is logged and changes nothing.
+session; a fault of those traces is logged and changes nothing (phase
+10 (e)'s summary is checked).
 The last two lines are the card's nvidia-smi name/power limit and
 {"ok": true, "device": {...}}; the kernels' JSON line comes before them.
 
@@ -128,6 +149,15 @@ train-step row count of the port in another checkout (the parent
 of a change, say) with this script's own timing code, and prints one line
 "PAIRED {...}": run it in turns (parent, change, change, parent) within one
 call to compare two trees on one card.
+
+    python -m torch.distributed.run --nproc-per-node 4 chip_smoke.py --mesh-world
+
+runs the mesh across four cards of one host, one NCCL rank a card
+(mesh_world): the geo f32 train step on (4, 1), (2, 2) and (1, 4) against
+card 0 alone at the CPU tests' tolerances, the step from a row-sharded
+token cache bit for bit, the row-sharded gather, the bf16 step at batch 256
+a card beside one card's, and a beam-5 eval run across the world; rank 0
+prints one "MESH4 {...}" line.
 """
 
 from __future__ import annotations
@@ -145,23 +175,17 @@ import time
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12                      # H100 SXM
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the card's bf16 and HBM peaks come from icek_torch/utils/roofline.py's
+# table (set_peaks); its f32 peak, which that table lacks, is the H100 SXM's
+HBM_BYTES_PER_S = None
+PEAK_FLOPS = {torch.bfloat16: None, torch.float32: 67e12}
 SEED = 0
 BATCH, BEAM, MAX_LEN, VOCAB, ENT_ROWS, IMG = 256, 5, 30, 10000, 301, 256
 CAP_LEN, TRAIN_STEPS, RATE = 32, 6, 0.2
 IMG_TOKENS = 196
-# the knowledge and news presets at full width: stored entity and fact rows
-# (E + 1, F + 1 of core/config.py), predicates, decode length
-# (DecodeConfig.max_caption_len), the training caption length of
-# benchmarks/train_throughput.py's PRESET_SHAPES, and the gains on the
-# random entity and fact pointer heads that make the seeded model emit
-# entity and fact ids (at 1 it emits words only, so the seen / predicate
-# state would never change); 3 timed train steps each
-FACT_PRESETS = {
-    "k_georic": dict(E=301, F=51, P=3000, L=40, T=102, gains=(1.6, 4.0)),
-    "nytimes800k": dict(E=101, F=301, P=3500, L=40, T=52, gains=(2.5, 2.5)),
-}
+# the knowledge and news presets at full width (icek_torch/tools/_synthetic.py
+# builds their seeded models and batches); 3 timed train steps each
+FACT_PRESETS = ("k_georic", "nytimes800k")
 FACT_TRAIN_STEPS = 3
 NORM_KERNELS = ("dropout_add_ln", "dropout_add_ln_bwd", "hw_dropout")
 # beams wider than 8 (fault F1's width) and than the score head's register
@@ -214,6 +238,17 @@ def host_ms(fn, iters=20, rounds=5, warmup=3) -> float:
         per_call.append((time.perf_counter() - t0) * 1e3 / iters)
     torch.cuda.synchronize()
     return statistics.median(per_call)
+
+
+def set_peaks():
+    """HBM_BYTES_PER_S and the bf16 peak from the roofline's table for this
+    card."""
+    global HBM_BYTES_PER_S
+    from icek_torch.utils import roofline
+
+    peaks = roofline.chip_peaks()
+    require(peaks is not None, f"the roofline has no peaks for {roofline.device_name()}")
+    PEAK_FLOPS[torch.bfloat16], HBM_BYTES_PER_S = peaks
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
@@ -862,88 +897,28 @@ def check_kernels_facts(dev, shape):
 # --------------------------------------------------------------------------
 
 def preset_shape(preset):
-    """E, F, P, L (decode steps) and T (training caption) of a preset."""
-    if preset == "georic":
-        return dict(E=ENT_ROWS, F=0, P=0, L=MAX_LEN, T=CAP_LEN)
-    return FACT_PRESETS[preset]
+    """E, F, P, L (decode steps), T (training caption) and D of a preset."""
+    from icek_torch.tools import _synthetic
+
+    return _synthetic.shape(preset)
 
 
 def full_width_model(preset="georic", enc=None):
     """A preset at full width with seeded random weights (V 10000, beam 5,
-    batch 256).  The random batch-norm statistics (mean 0, var 1) let
-    ResNet-101's activations grow through the residual sums; the 1x1
-    projection is scaled so the image tokens come out at order 1, as a
-    trained encoder's do.  `enc` shares one encoder between presets.  The
-    predicate head's bias is drawn N(0, 1) (its init is 0, which would leave
-    the fact presets' vocab logits all 0 until a predicate is active), and
-    their pointer heads are scaled by the preset's gains."""
-    from icek_torch.core import config as cfgs
-    from icek_torch.data.codec import Wordmap
-    from icek_torch.models import captioner, resnet
+    batch 256), as icek_torch/tools/_synthetic.py builds it; `enc` shares
+    one encoder between presets."""
+    from icek_torch.tools import _synthetic
 
-    cfg = cfgs.get_config(preset)
-    cfg = cfg.replace(decode=dataclasses.replace(
-        cfg.decode, max_caption_len=preset_shape(preset)["L"], beam_size=BEAM,
-        batch_size=BATCH))
-    wm = Wordmap.from_words([f"w{i}" for i in range(VOCAB - 5)] + ["."])
-    require(len(wm) == VOCAB, "wordmap size")
-    g = torch.Generator().manual_seed(SEED)
-    params = captioner.init_captioner_params(g, cfg.model, VOCAB)
-    if cfg.model.has_facts:
-        params["fc_predicate"]["b"] = torch.randn(cfg.model.emb_dim, generator=g)
-        for head, gain in zip(("fc_entity", "fc_fact"), FACT_PRESETS[preset]["gains"]):
-            params[head]["w"] = params[head]["w"] * gain
-    if enc is None:
-        enc = resnet.init_resnet101(g, cfg.model.emb_dim)
-        enc["proj"]["w"] = enc["proj"]["w"] * 3e-6
-    return cfg, wm, params, enc
-
-
-def _entity_rows(rng, n, preset="georic"):
-    """Packed entity rows: geo and knowledge (n, E, 5) [row_idx, dist, az,
-    size, type]; news (n, E, 10) [row_idx, count, in_headline,
-    in_first_paragraph, type, five name word ids]."""
-    E = preset_shape(preset)["E"]
-    if preset == "nytimes800k":
-        ents = np.zeros((n, E, 10), np.float32)
-        ents[:, :, 1] = rng.integers(0, 10, (n, E))
-        ents[:, :, 2:4] = rng.integers(0, 2, (n, E, 2))
-        ents[:, :, 4] = rng.integers(0, 20, (n, E))
-        ents[:, :, 5:] = rng.integers(5, VOCAB, (n, E, 5))
-    else:
-        ents = np.zeros((n, E, 5), np.float32)
-        ents[:, :, 1] = rng.uniform(0, 1, (n, E))
-        ents[:, :, 2] = rng.uniform(-179, 179, (n, E))
-        ents[:, :, 3] = rng.uniform(0, 0.1, (n, E))
-        ents[:, :, 4] = rng.integers(0, 500, (n, E))
-    ents[:, :, 0] = np.arange(E)
-    return ents
-
-
-def _fact_rows(rng, n, preset):
-    """(n, F, 3) fact rows [row_idx, subject row, predicate]: a quarter to all
-    of the rows are real facts on the real entity rows, the rest padding
-    facts on the <unk_ent> dummy row E - 1 with predicate 0."""
-    s = preset_shape(preset)
-    E, F = s["E"], s["F"]
-    facts = np.zeros((n, F, 3), np.float32)
-    facts[:, :, 0] = np.arange(F)
-    facts[:, :, 1] = rng.integers(0, E - 1, (n, F))
-    facts[:, :, 2] = rng.integers(0, s["P"], (n, F))
-    real = rng.integers(F // 4, F, (n,))
-    pad = np.arange(F)[None, :] >= real[:, None]
-    facts[:, :, 1][pad] = E - 1
-    facts[:, :, 2][pad] = 0
-    return facts
+    model = _synthetic.model(preset, SEED, BEAM, BATCH, enc)
+    require(len(model[1]) == VOCAB, "wordmap size")
+    return model
 
 
 def make_batch(rng, n, preset="georic"):
-    ents = _entity_rows(rng, n, preset)
-    raw = rng.random((n, 3, IMG, IMG), dtype=np.float32).astype(np.float16)
-    batch = {"raw_images": raw, "entity_features": ents}
-    if preset != "georic":
-        batch["fact_features"] = _fact_rows(rng, n, preset)
-    return batch
+    """n decode rows of IMG x IMG stored images with entity (and fact) rows."""
+    from icek_torch.tools import _synthetic
+
+    return _synthetic.decode_batch(rng, n, preset, IMG)
 
 
 def entity_names(n):
@@ -1711,11 +1686,12 @@ def run_split(rng, wm, rows=RUN_ROWS):
     puts in its place while it runs.  Each open builds a fresh split over the
     same arrays."""
     from icek_torch.data import dataset as tdata
+    from icek_torch.tools import _synthetic
 
     arrays = {}
     for split, n in rows.items():
         caps = train_captions(rng, n, wm)
-        arrays[split] = (caps, _entity_rows(rng, n),
+        arrays[split] = (caps, _synthetic.entity_rows(rng, n),
                          rng.random((n, 3, IMG, IMG), dtype=np.float32).astype(np.float16))
 
     class RunSplit(tdata.CaptionDataset):
@@ -1927,12 +1903,13 @@ def finetune_phase(dev, model):
     from icek_torch import bridge
     from icek_torch.data import images as image_ops
     from icek_torch.models import resnet
+    from icek_torch.tools import _synthetic
     from icek_torch.train import step as step_lib
 
     cfg, wm, params, enc = model
     rng = np.random.default_rng(SEED + 41)
     batch = train_captions(rng, FT_BATCH, wm)
-    batch["entity_features"] = _entity_rows(rng, FT_BATCH)
+    batch["entity_features"] = _synthetic.entity_rows(rng, FT_BATCH)
     batch["raw_images"] = rng.random((FT_BATCH, 3, IMG, IMG), dtype=np.float32).astype(np.float16)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     out = {}
@@ -2602,6 +2579,509 @@ def int8_encoder(dev, models, csv_paths):
 
 
 # --------------------------------------------------------------------------
+# phase 10: the mesh on torch.distributed, a world of one on the card
+# --------------------------------------------------------------------------
+
+MESH_STEPS = 4
+MESH_RUN_ROWS = {"TRAIN": 512, "VAL": 256, "TEST": 256}
+MESH_CACHE_ROWS = 1024
+
+
+def _opt_state_equal(a_state, a_params, b_state, b_params) -> list:
+    """The Adam leaves (step count, moments) in which two states differ."""
+    diffs = [] if a_state.step_count() == b_state.step_count() else ["step"]
+    for i, (x, y) in enumerate(zip(a_state.moments(a_params), b_state.moments(b_params))):
+        for (path, u), (_, v) in zip(_leaves_with_paths(x), _leaves_with_paths(y)):
+            if not torch.equal(u, v):
+                diffs.append((("mu", "nu")[i],) + path)
+    return diffs
+
+
+def mesh_step(dev, model, mesh):
+    """(a) MESH_STEPS geo train steps at full width (batch 256, cached tokens,
+    bf16, dropout on) through make_train_step(mesh=...) against the same
+    steps without a mesh: params, losses and Adam state bit-equal, the
+    training kernels' launches equal (each path's counts zeroed just before
+    it and read just after).  Returns the launches and the mesh step's
+    host ms."""
+    from icek_torch import bridge
+    from icek_torch.parallel import mesh as mesh_lib
+    from icek_torch.train import step as step_lib
+
+    cfg, wm, params, _ = model
+    batch = make_train_batch(np.random.default_rng(SEED + 5), BATCH, wm)
+    counted = train_counters()
+    runs = {}
+    for name in ("plain", "mesh"):
+        p = copy.deepcopy(params)
+        if name == "mesh":
+            p, specs = mesh_lib.shard_params(p, mesh)
+            rows = mesh_lib.shard_batch(batch, mesh)
+        else:
+            rows = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        p = bridge.trainable(p, dev)
+        optimizer = step_lib.make_optimizer(cfg.train.decoder_lr, cfg.train.grad_clip)
+        state = optimizer.init(p)
+        train_step, _ = step_lib.make_train_step(
+            cfg, VOCAB, wm.pad_id, optimizer, compute_dtype=torch.bfloat16,
+            encode_images=False, device=dev, **({"mesh": mesh, "param_specs": specs}
+                                                if name == "mesh" else {}))
+        gen = torch.Generator().manual_seed(SEED)
+        torch.cuda.synchronize()
+        for fn, _ in counted.values():
+            fn.launches = 0
+        losses, times = [], []
+        for _ in range(MESH_STEPS):
+            t0 = time.perf_counter()
+            _, _, loss, count = train_step(p, state, None, rows, gen)
+            losses.append(float(loss))
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: fn.launches for k, (fn, _) in counted.items()}
+        runs[name] = dict(params=p, state=state, losses=losses, count=int(count),
+                          launches=launches, step_ms=times)
+    a, b = runs["plain"], runs["mesh"]
+    diffs = [path for (path, u), (_, v) in zip(_leaves_with_paths(a["params"]),
+                                               _leaves_with_paths(b["params"]))
+             if not torch.equal(u, v)]
+    diffs += _opt_state_equal(a["state"], a["params"], b["state"], b["params"])
+    rec = dict(losses=b["losses"], plain_losses=a["losses"], count=b["count"],
+               launches=b["launches"], plain_launches=a["launches"], step_ms=b["step_ms"],
+               plain_step_ms=a["step_ms"], differing=diffs[:20],
+               # the first mesh step starts the NCCL communicators
+               step_ms_median=statistics.median(b["step_ms"][1:]),
+               plain_step_ms_median=statistics.median(a["step_ms"][1:]))
+    log(f"mesh (a) train steps, (1, 1) NCCL mesh against no mesh: {rec}")
+    require(not diffs and a["losses"] == b["losses"] and a["count"] == b["count"],
+            f"mesh train steps differ from the steps without a mesh: {diffs[:20]}, "
+            f"losses {b['losses']} vs {a['losses']}")
+    require(b["launches"] == a["launches"]
+            and all(v == per * MESH_STEPS for v, (_, per) in
+                    zip(b["launches"].values(), counted.values())),
+            f"mesh train launches {b['launches']} != {a['launches']}")
+    return rec
+
+
+def mesh_rows(dev):
+    """(a') The dropout kernels keyed by global batch row, as a data shard of
+    a wider mesh calls them: at the geo decoder's sites in bf16 (captions of
+    32, d 300, FFN 512, 10 heads), rows 128.. of a batch of 256 under
+    rows=(128, 256) give the whole batch's outputs and gradients for those
+    rows, bit for bit."""
+    from icek_torch.kernels import flash_attention as fa
+    from icek_torch.kernels import fused_norm as fn
+
+    g = torch.Generator().manual_seed(SEED + 45)
+    B, b0, T, D, F, H = BATCH, BATCH // 2, CAP_LEN, 300, 512, 10
+    b, bf16 = B - b0, torch.bfloat16
+    x, h = (torch.randn((B, T, D), generator=g).to(dev, bf16) for _ in range(2))
+    f = torch.randn((B, T, F), generator=g).to(dev, bf16)
+    q, k, v = (torch.randn((B, T, H, D // H), generator=g).to(dev, bf16) for _ in range(3))
+    scale, bias = torch.ones(D, device=dev), torch.zeros(D, device=dev)
+    sites = {
+        "dropout_add_ln": (lambda t, r: fn.dropout_add_ln(t[0], t[1], scale, bias, rate=RATE,
+                                                          seed=61, rows=r), (x, h)),
+        "hw_dropout": (lambda t, r: fn.hw_dropout(t[0], rate=RATE, seed=62, rows=r), (f,)),
+        "flash_attention": (lambda t, r: fa.flash_mha(t[0], t[1], t[2], causal=True,
+                                                      dropout_rate=RATE, seed=63, rows=r),
+                            (q, k, v)),
+    }
+    out = {}
+    for name, (call, inputs) in sites.items():
+        whole = [t.clone().requires_grad_(True) for t in inputs]
+        part = [t[b0:].clone().requires_grad_(True) for t in inputs]
+        y_whole, y_part = call(whole, None), call(part, (b0, B))
+        gy = torch.randn(y_whole.shape, generator=g).to(dev, bf16)
+        y_whole.backward(gy)
+        y_part.backward(gy[b0:])
+        out[name] = bool(torch.equal(y_part, y_whole[b0:])) and all(
+            torch.equal(p.grad, w.grad[b0:]) for p, w in zip(part, whole))
+        # and not the masks of rows 0..: the offset changes what is dropped
+        out[name + "_differs_from_rows_0"] = not torch.equal(
+            call([t[b0:] for t in inputs], None), y_part)
+    log(f"mesh (a') dropout kernels keyed by global row (rows {b0}.. of {B}, {b} rows): {out}")
+    require(all(out.values()), f"the kernels' global-row masks differ: {out}")
+    return out
+
+
+def mesh_loop(dev, model, mesh, workdir):
+    """(b) train.loop.train(mesh=...) for one epoch over an in-memory
+    512 / 256-row split against the same run without a mesh: the epoch
+    checkpoints bit-equal."""
+    from icek_torch.train import loop as tloop
+
+    cfg, wm, _, enc = model
+    from icek_torch.train import checkpoint as tckpt
+
+    enc_path = tckpt.save_encoder_tree(os.path.join(workdir, "encoder.pt"), enc,
+                                       {"emb_dim": cfg.model.emb_dim})
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=BATCH, epochs=1))
+    split_cls = run_split(np.random.default_rng(SEED + 41), wm, MESH_RUN_ROWS)
+    base = cfg.data.base_name
+    out = {}
+    with _SplitsInMemory(split_cls):
+        for name in ("plain", "mesh"):
+            lines = []
+            t0 = time.perf_counter()
+            res = tloop.train(cfg, workdir, VOCAB, wm.pad_id,
+                              checkpoint_dir=os.path.join(workdir, name), max_epochs=1,
+                              log=lines.append, encoder_weights=enc_path, device=dev,
+                              mesh=mesh if name == "mesh" else None)
+            out[name] = dict(best_loss=res.best_loss, run_s=time.perf_counter() - t0,
+                             cache=[s for s in lines if s.startswith("device token cache")])
+    ckpt = f"checkpoint_0_{base}.pt"
+    diffs = _checkpoint_diff(os.path.join(workdir, "plain", ckpt),
+                             os.path.join(workdir, "mesh", ckpt))
+    out["differing"] = diffs[:20]
+    log(f"mesh (b) train loop, 1 epoch: {out}")
+    require(not diffs, f"the mesh run's checkpoint differs in {len(diffs)} places: "
+                       f"{diffs[:20]}")
+    return out
+
+
+def mesh_eval(dev, model, mesh, workdir):
+    """(c) Evaluator(mesh=...).run over 256 geo rows against the run without
+    a mesh: the CSVs equal, the serving kernels' launches equal."""
+    from icek_torch import eval_driver
+
+    cfg, wm, params, enc = model
+    split_cls = memory_split(np.random.default_rng(SEED + 43), BATCH)
+    out = {}
+    for name in ("plain", "mesh"):
+        ev = eval_driver.Evaluator(cfg, wm, params, enc, device=dev,
+                                   mesh=mesh if name == "mesh" else None)
+        path = os.path.join(workdir, f"{name}.csv")
+        _zero_serving_counts()
+        t0 = time.perf_counter()
+        ev.run(split_cls(), output_csv=path, log=lambda *_: None)
+        out[name] = dict(run_s=time.perf_counter() - t0, launches=_read_serving_counts(),
+                         rows=len(_csv_rows(path)) - 1)
+        del ev
+    same = open(os.path.join(workdir, "plain.csv"), "rb").read() == \
+        open(os.path.join(workdir, "mesh.csv"), "rb").read()
+    out["csv_equal"] = same
+    log(f"mesh (c) eval run, 256 rows: {out}")
+    require(same and out["mesh"]["rows"] == BATCH, "the mesh eval CSV differs")
+    require(out["mesh"]["launches"] == out["plain"]["launches"]
+            == serving_prediction(cfg, 1, 0),
+            f"mesh eval launches {out['mesh']['launches']} != {out['plain']['launches']}")
+    return out
+
+
+def mesh_gather(dev, mesh):
+    """(d) A token cache of MESH_CACHE_ROWS geo rows row-sharded over the data
+    axis (shard_rows, bf16) read by sharded_row_gather against a plain index
+    of the cache, bit for bit."""
+    from icek_torch.parallel import mesh as mesh_lib
+
+    rng = np.random.default_rng(SEED + 47)
+    tokens = rng.standard_normal((MESH_CACHE_ROWS, IMG_TOKENS, 300),
+                                 dtype=np.float32).astype(np.float16)
+    block = mesh_lib.shard_rows(tokens, mesh, torch.bfloat16)
+    rows = torch.as_tensor(rng.integers(0, MESH_CACHE_ROWS, (BATCH,)), device=dev)
+    got = mesh_lib.sharded_row_gather(block, rows, mesh)
+    want = torch.as_tensor(tokens).to(dev).to(torch.bfloat16)[rows]
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh_lib.sharded_row_gather(block, rows, mesh)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    rec = dict(equal=bool(torch.equal(got, want)), shape=list(got.shape),
+               gather_ms=times, gather_ms_median=statistics.median(times))
+    log(f"mesh (d) row-sharded token cache gather: {rec}")
+    require(rec["equal"] and got.dtype == torch.bfloat16,
+            "sharded_row_gather differs from a plain index of the cache")
+    return rec
+
+
+def utilization(model, train_summary, serving_summary, card) -> dict:
+    """(e) The roofline (icek_torch/utils/roofline.py) over the geo train
+    step's and the beam-5 batch's measured medians: the step's model FLOPs
+    (train_step_flops, batch 256, T 32); the decode's FLOPs and floor bytes
+    (decode_step_flops / decode_step_bytes over the 30 steps, beam 5) over
+    the whole batch's time, and the whole pipeline's (eval_pipeline_costs,
+    ResNet included)."""
+    from icek_torch.utils import roofline
+
+    cfg = model[0]
+    m, s = cfg.model, preset_shape("georic")
+    E, F, T, L = s["E"], s["F"], s["T"], s["L"]
+    step_s = train_summary["step_ms_median"] / 1e3
+    batch_s = statistics.median(serving_summary["batch_ms"]) / 1e3
+    train_flops = BATCH * roofline.train_step_flops(m, VOCAB, E, F, T)
+    dec_flops = BATCH * BEAM * sum(roofline.decode_step_flops(m, VOCAB, E, F, t)
+                                   for t in range(1, L + 1))
+    dec_bytes = BATCH * sum(roofline.decode_step_bytes(m, E, F, t, beam=BEAM)
+                            for t in range(1, L + 1))
+    pipe_flops, pipe_bytes = roofline.eval_pipeline_costs(m, VOCAB, E, F, BEAM, L)
+    out = dict(
+        peaks=roofline.chip_peaks(),
+        train_step=dict(step_ms=step_s * 1e3, flops=train_flops,
+                        **roofline.utilization(train_flops, step_s)),
+        beam_decode=dict(batch_ms=batch_s * 1e3, flops=dec_flops, hbm_bytes=dec_bytes,
+                         **roofline.utilization(dec_flops, batch_s, dec_bytes)),
+        eval_pipeline=dict(flops=BATCH * pipe_flops, hbm_bytes=BATCH * pipe_bytes,
+                           **roofline.utilization(BATCH * pipe_flops, batch_s,
+                                                  BATCH * pipe_bytes)))
+    log(f"card: {card}; mesh (e) utilization (roofline over the geo train step and "
+        f"beam-5 batch medians): {json.dumps(out)}")
+    require(out["train_step"].get("mfu_pct", 0) > 0 and
+            out["beam_decode"].get("hbm_util_pct", 0) > 0,
+            f"the roofline knows no peaks for {card}")
+    return out
+
+
+def mesh_phase(dev, models, train_summary, serving_summary, card) -> dict:
+    """Phase 10: a (1, 1) mesh (a single-rank NCCL group on the card): (a)
+    the geo train step, (b) the loop, (c) the eval run, (d) the row-sharded
+    token cache's gather, each against the path without a mesh; (e) the
+    roofline's utilization of the geo step and beam batch.  The group is
+    destroyed at the end."""
+    import tempfile
+
+    from icek_torch.parallel import distributed
+    from icek_torch.parallel import mesh as mesh_lib
+
+    model = models["georic"]
+    mesh = mesh_lib.make_mesh(1, 1, device=dev.type)
+    try:
+        log(f"phase 10: mesh {mesh}, backend {torch.distributed.get_backend()}")
+        step = mesh_step(dev, model, mesh)
+        rows = mesh_rows(dev)
+        with tempfile.TemporaryDirectory(prefix="icek_mesh_") as workdir:
+            loop = mesh_loop(dev, model, mesh, workdir)
+            ev = mesh_eval(dev, model, mesh, workdir)
+        gather = mesh_gather(dev, mesh)
+    finally:
+        distributed.shutdown()
+    util = utilization(model, train_summary, serving_summary, card)
+    return dict(step=step, rows=rows, loop=loop, eval=ev, gather=gather, utilization=util)
+
+
+# --------------------------------------------------------------------------
+# --mesh-world: the mesh across the cards of one host (torchrun, NCCL)
+# --------------------------------------------------------------------------
+
+WORLD_SHAPES = ((4, 1), (2, 2), (1, 4))
+WORLD_BATCH, WORLD_STEPS, WORLD_LR = 64, 2, 1e-3
+
+
+def _world_step(dev, model, mesh, batch, steps, dtype, cache=False):
+    """`steps` geo train steps on `mesh` (None: this card alone) over the
+    global `batch` (cached tokens; from a row-sharded cache with `cache`);
+    returns every rank's view of the full params and Adam moments, the
+    losses and the step times."""
+    from icek_torch import bridge
+    from icek_torch.parallel import mesh as mesh_lib
+    from icek_torch.train import step as step_lib
+
+    cfg, wm, params, _ = model
+    p = copy.deepcopy(params)
+    specs, kw = None, {}
+    if mesh is None:
+        rows = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    else:
+        p, specs = mesh_lib.shard_params(p, mesh)
+        rows = mesh_lib.shard_batch(batch, mesh)
+        if cache:
+            r0, b = mesh_lib.data_rows(mesh, len(batch["lengths"]))
+            rows.pop("image_tokens")
+            rows["token_rows"] = torch.arange(r0, r0 + b, device=dev)
+            kw = dict(token_cache=mesh_lib.shard_rows(batch["image_tokens"], mesh, dtype),
+                      token_cache_mesh=mesh)
+    p = bridge.trainable(p, dev)
+    optimizer = step_lib.make_optimizer(WORLD_LR, cfg.train.grad_clip)
+    state = optimizer.init(p)
+    train_step, _ = step_lib.make_train_step(
+        cfg, VOCAB, wm.pad_id, optimizer, compute_dtype=dtype, encode_images=False,
+        device=dev, mesh=mesh, param_specs=specs, **kw)
+    gen = torch.Generator().manual_seed(SEED)
+    losses, times = [], []
+    full = (lambda t: t) if mesh is None else (  # noqa: E731
+        lambda t: mesh_lib.gather_for_host(t, mesh, specs))
+    cpu = lambda t: [x.detach().float().cpu().clone()  # noqa: E731
+                     for _, x in _leaves_with_paths(full(t))]
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(train_step(p, state, None, rows, gen)[2]))
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            mu1 = cpu(state.moments(p)[0])
+    mu, nu = state.moments(p)
+    return dict(params=cpu(p), mu=cpu(mu), nu=cpu(nu), mu1=mu1, losses=losses,
+                step_ms=times)
+
+
+def _world_held(got, want, init) -> dict:
+    """A mesh's steps against one card's, at tests/test_torch_mesh.py's
+    tolerances: loss 1e-5 relative, Adam's first moment atol 1e-6, second
+    1e-8; params 0.02 x lr where the first step's clipped gradient exceeds
+    1e-6 (as tests/test_torch_train.py holds them) and the last first
+    moment 50 x its tolerance (as tests/test_torch_loop.py does): Adam
+    divides a moment by its root second moment, so a gradient near 0 or
+    near eps in either step lets summation noise move the param by a
+    fraction of lr; Adam's bound of steps x lr everywhere."""
+    out = dict(loss_rel=max(abs(a - b) / abs(b) for a, b in zip(got["losses"], want["losses"])),
+               mu=max(float((a - b).abs().max()) for a, b in zip(got["mu"], want["mu"])),
+               nu=max(float((a - b).abs().max()) for a, b in zip(got["nu"], want["nu"])))
+    solid = [(m1.abs() > 1e-7) & (m.abs() > 50 * 1e-6)
+             for m1, m in zip(want["mu1"], want["mu"])]
+    out["params_solid"] = max(float((a - b)[s].abs().max()) if s.any() else 0.0
+                              for a, b, s in zip(got["params"], want["params"], solid))
+    out["params_moved"] = max(float((a - p0).abs().max())
+                              for a, p0 in zip(got["params"], init))
+    out["ok"] = (out["loss_rel"] <= 1e-5 and out["mu"] <= 1e-6 and out["nu"] <= 1e-8
+                 and out["params_solid"] <= 0.02 * WORLD_LR
+                 and out["params_moved"] <= WORLD_STEPS * WORLD_LR * 1.02)
+    return out
+
+
+def mesh_world(kind="cuda") -> int:
+    """``python -m torch.distributed.run --nproc-per-node 4 chip_smoke.py
+    --mesh-world``: the mesh over four cards of one host, one NCCL rank a
+    card.  Rank 0 builds the kernels, the others load them.  On each mesh of
+    WORLD_SHAPES: two geo f32 train steps at full width (global batch 64,
+    cached tokens, dropout on, its masks keyed by global row) against the
+    same steps on card 0 alone, at the CPU tests' tolerances; (4, 1) again
+    with the tokens from a cache row-sharded over the four data shards, bit
+    for bit; the row-sharded gather of 256 rows against a plain index; the
+    bf16 step of the main path at batch 256 a card over (4, 1) beside one
+    card's batch-256 step (samples/s, losses logged); a beam-5 eval run over
+    the world against card 0's (captions agreement logged).  Rank 0 prints
+    one ``MESH4 {...}`` line; a failed check exits 1."""
+    import torch.distributed as dist
+
+    from icek_torch.kernels import _build
+    from icek_torch.parallel import distributed
+    from icek_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = distributed.maybe_initialize(force=True, device=kind)
+    primary = info.is_primary
+    if kind == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+        if primary:
+            _build.build_all()
+        dist.barrier()
+        _build.build_all()
+        set_peaks()
+    else:                                       # a rehearsal on gloo
+        dev = torch.device("cpu")
+    card = smi_name_power() if primary and kind == "cuda" else kind
+    model = full_width_model()
+    out, failed = {"world": info.count, "card": card}, []
+    batch = make_train_batch(np.random.default_rng(SEED + 7), WORLD_BATCH, model[1])
+    init = [t.detach().float().cpu() for _, t in _leaves_with_paths(model[2])]
+    single = _world_step(dev, model, None, batch, WORLD_STEPS, torch.float32)
+    for shape in WORLD_SHAPES:
+        mesh = mesh_lib.make_mesh(*shape, device=kind)
+        got = _world_step(dev, model, mesh, batch, WORLD_STEPS, torch.float32)
+        held = _world_held(got, single, init)
+        out[f"f32 {shape}"] = dict(held, losses=got["losses"], single=single["losses"])
+        if not held["ok"]:
+            failed.append(f"f32 mesh {shape}")
+        if shape == (4, 1):
+            cached = _world_step(dev, model, mesh, batch, WORLD_STEPS, torch.float32,
+                                 cache=True)
+            same = cached["losses"] == got["losses"] and all(
+                torch.equal(a, b) for a, b in zip(cached["params"], got["params"]))
+            out["row_sharded_cache_step_bit_equal"] = same
+            if not same:
+                failed.append("cached step")
+            tokens = np.random.default_rng(SEED + 47).standard_normal(
+                (1000, IMG_TOKENS, 300), dtype=np.float32).astype(np.float16)
+            block = mesh_lib.shard_rows(tokens, mesh, torch.bfloat16)
+            ids = np.random.default_rng(SEED + 48).integers(0, 1000, (BATCH,))
+            r0, b = mesh_lib.data_rows(mesh, BATCH)
+            local = torch.as_tensor(ids[r0:r0 + b], device=dev)
+            gathered = mesh_lib.sharded_row_gather(block, local, mesh)
+            want = torch.as_tensor(tokens[ids[r0:r0 + b]]).to(dev).to(torch.bfloat16)
+            ok = torch.tensor(int(torch.equal(gathered, want)), device=dev)
+            dist.all_reduce(ok)
+            out["row_gather_bit_equal_ranks"] = int(ok)
+            if int(ok) != info.count:
+                failed.append("row gather")
+            # the main path's step: bf16, batch 256 a card
+            big = make_train_batch(np.random.default_rng(SEED + 5), BATCH * 4, model[1])
+            world = _world_step(dev, model, mesh, big, 4, torch.bfloat16)
+            alone = _world_step(dev, model, None, {k: v[:BATCH] for k, v in big.items()},
+                                4, torch.bfloat16)
+            w_ms = statistics.median(world["step_ms"][1:])
+            a_ms = statistics.median(alone["step_ms"][1:])
+            out["bf16 (4, 1) step"] = dict(
+                step_ms=world["step_ms"], samples_per_s=4 * BATCH / w_ms * 1e3,
+                one_card_step_ms=alone["step_ms"], one_card_samples_per_s=BATCH / a_ms * 1e3,
+                scaling=(4 * BATCH / w_ms) / (BATCH / a_ms), losses=world["losses"])
+            out["eval"] = _world_eval(dev, model, mesh, primary)
+    if primary:
+        log(f"card: {card}; mesh world: {json.dumps(out, default=str)}")
+        print("MESH4 " + json.dumps({"ok": not failed, "failed": failed,
+                                     "world": info.count}))
+    distributed.shutdown()
+    return 1 if failed else 0
+
+
+def _world_eval(dev, model, mesh, primary) -> dict:
+    """Evaluator.run over 256 geo rows across the world (64 rows a card)
+    against card 0 alone: the share of equal captions (bf16 encodes and
+    decodes batches of 64 and 256 with other algorithms, so equality is
+    logged, not held)."""
+    import tempfile
+
+    from icek_torch import eval_driver
+
+    cfg, wm, params, enc = model
+    split_cls = memory_split(np.random.default_rng(SEED + 43), BATCH)
+    with tempfile.TemporaryDirectory(prefix="icek_world_") as d:
+        ev = eval_driver.Evaluator(cfg, wm, params, enc, device=dev, mesh=mesh)
+        t0 = time.perf_counter()
+        res = ev.run(split_cls(), output_csv=os.path.join(d, "world.csv"),
+                     log=lambda *_: None)
+        world_s = time.perf_counter() - t0
+        if not primary:
+            return {}
+        alone = eval_driver.Evaluator(cfg, wm, params, enc, device=dev)
+        t0 = time.perf_counter()
+        ref = alone.run(split_cls(), output_csv=os.path.join(d, "one.csv"),
+                        log=lambda *_: None)
+        one_s = time.perf_counter() - t0
+    agree = float(np.mean([a == b for a, b in zip(res["captions"], ref["captions"])]))
+    return dict(world_run_s=world_s, one_card_run_s=one_s, caption_agreement=agree,
+                rows=len(res["captions"]))
+
+
+# the op classes of profile_train_step that one geo train step must show
+PROFILED_CLASSES = ("flash_fwd", "flash_bwd", "ln_fwd", "ln_bwd", "dropout")
+
+
+def profile_summary(dev, step_once, card):
+    """(e) The profiling tool's summary (icek_torch/tools/profile_train_step)
+    of one geo train step, by op class: read from the card's kernels, with
+    a total above 0 and every training kernel of the port in its class."""
+    import tempfile
+
+    from icek_torch.tools import profile_train_step as pts
+
+    lines = []
+    with tempfile.TemporaryDirectory(prefix="icek_profile_") as d:
+        path = pts.trace(step_once, d, 1)
+        source = pts.trace_ops(path)[0]
+        total, rows = pts.summarize(path, 1, out=lines.append)
+    for line in lines:
+        log(f"card: {card}; profile_train_step, one geo step: {line}")
+    classes = {name: count for name, (_, count) in rows}
+    want = "device" if dev.type == "cuda" else "host"
+    require(source == want and total > 0,
+            f"profile_train_step read {source} time ({total} ms), not the {want}'s")
+    missing = [c for c in PROFILED_CLASSES if not classes.get(c)]
+    require(not missing, f"profile_train_step found no {missing} in one geo step: "
+            f"{sorted(classes)}")
+
+
+# --------------------------------------------------------------------------
 # phase 5: card vs CPU at f32
 # --------------------------------------------------------------------------
 
@@ -2668,35 +3148,16 @@ def cross_check(dev, model, preset="georic"):
 # --------------------------------------------------------------------------
 
 def train_captions(rng, n, wm, preset="georic"):
-    """Captions of T tokens (<start>, words, a few entity ids >= V and, with
-    facts, fact ids >= V + E, <end>, <pad> tail) with their kinds and
-    lengths."""
-    s = preset_shape(preset)
-    T, E, F = s["T"], s["E"], s["F"]
-    caps = rng.integers(5, VOCAB - 5, (n, T)).astype(np.int64)
-    ent = rng.random((n, T)) < 0.08
-    caps[ent] = VOCAB + rng.integers(0, E, int(ent.sum()))
-    if F:
-        fact = rng.random((n, T)) < 0.04
-        caps[fact] = VOCAB + E + rng.integers(0, F, int(fact.sum()))
-    lengths = rng.integers(8, T + 1, (n,))
-    caps[:, 0] = wm.start_id
-    for b in range(n):
-        caps[b, lengths[b] - 1] = wm.end_id
-        caps[b, lengths[b]:] = wm.pad_id
-    kind = np.where(caps >= VOCAB + E, 2, (caps >= VOCAB).astype(np.int64)) if F \
-        else (caps >= VOCAB).astype(np.int64)
-    return {"caption_ids": caps, "caption_mask": kind, "lengths": lengths.astype(np.int64)}
+    from icek_torch.tools import _synthetic
+
+    return _synthetic.train_captions(rng, n, wm, preset)
 
 
 def make_train_batch(rng, n, wm, preset="georic"):
-    """train_captions with entity (and fact) rows and cached image tokens."""
-    batch = train_captions(rng, n, wm, preset)
-    batch["entity_features"] = _entity_rows(rng, n, preset)
-    batch["image_tokens"] = rng.standard_normal((n, IMG_TOKENS, 300), dtype=np.float32)
-    if preset_shape(preset)["F"]:
-        batch["fact_features"] = _fact_rows(rng, n, preset)
-    return batch
+    """Training rows with entity (and fact) rows and cached image tokens."""
+    from icek_torch.tools import _synthetic
+
+    return _synthetic.train_batch(rng, n, wm, preset)
 
 
 def run_train_path(dev, model, preset="georic", steps=TRAIN_STEPS):
@@ -2992,6 +3453,8 @@ def paired(root, label) -> int:
 def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--paired":
         return paired(sys.argv[2], sys.argv[3])
+    if len(sys.argv) == 2 and sys.argv[1] == "--mesh-world":
+        return mesh_world()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card",
               file=sys.stderr)
@@ -3001,6 +3464,7 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    set_peaks()
     card = smi_name_power()
     log(f"device: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"count {torch.cuda.device_count()}")
@@ -3032,8 +3496,8 @@ def run_phases(dev, card) -> list:
     norm = check_norm_rows(dev)
     kernels["dropout_add_ln"], kernels["dropout_add_ln_bwd"], kernels["hw_dropout"] = \
         norm[BATCH * ENT_ROWS]
-    fact_kernels = {preset: check_kernels_facts(dev, shape)
-                    for preset, shape in FACT_PRESETS.items()}
+    fact_kernels = {preset: check_kernels_facts(dev, preset_shape(preset))
+                    for preset in FACT_PRESETS}
 
     geo = full_width_model()
     models = {"georic": geo}
@@ -3057,8 +3521,10 @@ def run_phases(dev, card) -> list:
         run8 = train_run(dev, models, train_summary)
         int8 = int8_encoder(dev, models, {p: os.path.join(csv_dir, f"{p}_generated_captions.csv")
                                           for p in ("georic", "nytimes800k")})
+    mesh = mesh_phase(dev, models, train_summary, summary, card)
     # after every timed run, so the profiler cannot disturb one
     trace_device("one train step", step_once)
+    profile_summary(dev, step_once, card)
     del step_once
     trace_serving(dev, geo, serve_batch)
     for p in FACT_PRESETS:
@@ -3114,6 +3580,10 @@ def run_phases(dev, card) -> list:
                 leave["serving_engine"]["launches_per_batch"][name]
         if name in run8["loop"]["launches"]:        # phase 8's loop (2 epochs)
             row["launches_train_run"] = run8["loop"]["launches"][name]
+        # phase 10 under a (1, 1) mesh: MESH_STEPS train steps, or the
+        # 256-row eval run
+        row["launches_mesh"] = mesh["step"]["launches"].get(
+            name, mesh["eval"]["mesh"]["launches"].get(name))
         if name in NORM_KERNELS:        # every row count of every preset
             i = NORM_KERNELS.index(name)
             row["rows"] = {str(n): dict(_compact(rec[i][torch.bfloat16],
@@ -3152,6 +3622,8 @@ def run_phases(dev, card) -> list:
         log(f"card: {card}; train run {what}: {json.dumps(rec, default=str)}")
     for what in ("quality", "serving", "cli", "metrics", "native", "library_refusals"):
         log(f"card: {card}; int8 encoder {what}: {json.dumps(int8[what], default=str)}")
+    for what, rec in mesh.items():
+        log(f"card: {card}; mesh {what}: {json.dumps(rec, default=str)}")
     return rows
 
 

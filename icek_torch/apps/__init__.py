@@ -13,11 +13,12 @@ calibrates and writes an int8 encoder tree (``tools/quantize_encoder.py``),
 ``port-encoder`` turns torchvision ResNet-101 weights into an encoder tree
 (``tools/port_torchvision_encoder.py``).  Every flag of the JAX CLIs is
 accepted.  ``--device`` (default ``cuda``) is the one flag they lack: it is
-how a caller asks for the CPU.  ``--distributed`` and ``--mesh`` are not
-ported yet: they exit non-zero through ``parser.error`` and name the slice
-they wait for.  Checkpoints: the port's ``.pt``, JAX's ``.msgpack`` and the
-reference's ``.pth.tar``; int8 trees: the port's ``.pt`` and JAX's
-``.msgpack``.
+how a caller asks for the CPU.  ``train`` and ``eval`` take
+``--distributed`` and ``--mesh DATA,MODEL|auto``: one process per card
+(``torchrun`` or the ``ICEK_*`` variables, ``parallel/distributed.py``), NCCL
+on CUDA and gloo with ``--device cpu``.  Checkpoints: the port's ``.pt``,
+JAX's ``.msgpack`` and the reference's ``.pth.tar``; int8 trees: the port's
+``.pt`` and JAX's ``.msgpack``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import dataclasses
 import json
 import os
 import sys
+from typing import Optional
 
 from icek_torch.core import config as config_lib
 from icek_torch.data.codec import Wordmap
@@ -37,11 +39,6 @@ VERBS = ("train", "eval", "serve", "quantize")
 HOST_VERBS = ("prep", "metrics")
 PRESET_VERBS = VERBS + HOST_VERBS
 TOOL_VERBS = ("validate", "port-encoder")
-# flag -> the slice its path waits for
-UNPORTED = {
-    "distributed": "the mesh slice",
-    "mesh": "the mesh slice",
-}
 
 
 def load_wordmap(data_dir: str, base_name: str) -> Wordmap:
@@ -61,16 +58,63 @@ def base_parser(verb: str, preset: str, description: str) -> argparse.ArgumentPa
 
 def add_parallel_args(p: argparse.ArgumentParser, verb: str):
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process runtime (not ported yet: the mesh slice)")
+                   help="start the multi-process runtime (one process per card) "
+                        "before anything touches the card; topology from "
+                        "ICEK_COORDINATOR/ICEK_NUM_PROCESSES/ICEK_PROCESS_ID or "
+                        "the torchrun environment (RANK, WORLD_SIZE, MASTER_ADDR, "
+                        "MASTER_PORT, LOCAL_RANK)")
     p.add_argument("--mesh", default=None, metavar="DATA,MODEL",
-                   help=f"{verb} over a (data, model) device mesh (not ported yet: "
-                        "the mesh slice)")
+                   help=f"{verb} over a (data, model) mesh of DATA x MODEL processes, "
+                        "e.g. '4,2'; 'auto' = every process on the data axis. Implied "
+                        "(auto) by --distributed")
 
 
-def _refuse_unported(p: argparse.ArgumentParser, args) -> None:
-    for name, slice_ in UNPORTED.items():
-        if getattr(args, name, None):
-            p.error(f"--{name.replace('_', '-')} is not ported yet (waits for {slice_})")
+def resolve_parallel(args):
+    """Start the process group and build the mesh, if asked for (``None``
+    otherwise).  Must run before anything else touches the card.  A world of
+    one process (``--mesh 1,1`` without a launcher) runs a single-rank
+    group."""
+    if not (args.distributed or args.mesh):
+        return None
+    from icek_torch.parallel import distributed
+    from icek_torch.parallel import mesh as mesh_lib
+
+    # force: --distributed with no topology must fail, not run N independent
+    # unsharded replicas
+    info = distributed.maybe_initialize(force=args.distributed, device=args.device)
+    if args.distributed:
+        print(f"distributed: process {info.index}/{info.count}")
+    shape = {}
+    if args.mesh and args.mesh != "auto":
+        data_ax, model_ax = (int(x) for x in args.mesh.split(","))
+        shape = dict(data=data_ax, model=model_ax)
+    try:
+        return mesh_lib.make_mesh(device=args.device, **shape)
+    except BaseException:
+        distributed.shutdown()
+        raise
+
+
+def _with_mesh(run, mesh):
+    """run(), then the process group of `mesh` destroyed (when there is one)."""
+    try:
+        return run()
+    finally:
+        if mesh is not None:
+            from icek_torch.parallel import distributed
+
+            distributed.shutdown()
+
+
+def serve_device(device: str, replica: Optional[str] = None, n_cards: int = 0) -> str:
+    """The device a serving process runs on: `device` (``--device``) as
+    given, except that a bare "cuda" in replica `replica` of ``--replicas``
+    (``ICEK_SERVE_DEVICE``) becomes ``cuda:{replica % n_cards}`` (JAX's
+    ``devices[i % n]``), its own card among the `n_cards` it sees whatever
+    ``CUDA_VISIBLE_DEVICES`` the operator set."""
+    if replica is None or device != "cuda" or n_cards < 1:
+        return device
+    return f"cuda:{int(replica) % n_cards}"
 
 
 def _load_model(cfg, args):
@@ -130,7 +174,6 @@ def run_train(preset: str, argv=None):
                         "Incompatible with --glove (GloVe vectors are 300-d).")
     add_parallel_args(p, "train")
     args = p.parse_args(argv)
-    _refuse_unported(p, args)
 
     from icek_torch.train import checkpoint as ckpt_lib
 
@@ -147,7 +190,11 @@ def run_train(preset: str, argv=None):
     if args.glove and cfg.model.emb_dim != 300:
         raise SystemExit("--glove requires emb_dim=300 (GloVe 42B vectors); "
                          f"geometry {config_lib.geometry_of(cfg)} is incompatible")
+    mesh = resolve_parallel(args)
+    return _with_mesh(lambda: _run_train(cfg, args, resume, mesh), mesh)
 
+
+def _run_train(cfg, args, resume, mesh):
     from icek_torch.train import loop as train_loop
     from icek_torch.train.embeddings import load_glove_embeddings
 
@@ -170,6 +217,7 @@ def run_train(preset: str, argv=None):
         resume_from=resume,
         max_epochs=args.epochs,
         reset_epochs_since_improvement=args.reset_stale,
+        mesh=mesh,
         encoder_weights=args.encoder_weights,
         device=args.device,
     )
@@ -220,11 +268,17 @@ def run_eval(preset: str, argv=None):
                         "encoder weights by fingerprint")
     add_parallel_args(p, "decode")
     args = p.parse_args(argv)
-    _refuse_unported(p, args)
+    if args.cache_tokens and (args.distributed or args.mesh):
+        raise SystemExit("--cache-tokens requires a single-process run "
+                         "(no --distributed)")
 
     if args.kv_dtype:
         cfg = cfg.replace(decode=dataclasses.replace(cfg.decode, kv_dtype=args.kv_dtype))
+    mesh = resolve_parallel(args)
+    return _with_mesh(lambda: _run_eval(cfg, args, mesh), mesh)
 
+
+def _run_eval(cfg, args, mesh):
     from icek_torch import eval_driver
     from icek_torch.data import dataset as ds
 
@@ -272,7 +326,8 @@ def run_eval(preset: str, argv=None):
                                         args.device)
     evaluator = eval_driver.Evaluator(cfg, wm, params, encoder_params,
                                       batch_size=args.batch_size, beam_size=args.beam,
-                                      device=args.device, encoder_qtree=encoder_qtree)
+                                      device=args.device, mesh=mesh,
+                                      encoder_qtree=encoder_qtree)
     if args.cache_tokens:
         if args.streaming:
             from icek_torch.data import streaming
@@ -419,15 +474,20 @@ def run_serve(preset: str, argv=None):
                    help="transformer geometry of the checkpoint, for checkpoints "
                         "that do not record it")
     args = p.parse_args(argv)
-    _refuse_unported(p, args)
 
     if args.kv_dtype:
         cfg = cfg.replace(decode=dataclasses.replace(cfg.decode, kv_dtype=args.kv_dtype))
     if args.replicas > 1:
         return _run_serve_router(preset, argv, args)
 
+    import torch
+
     from icek_torch.serve.engine import ServingEngine
     from icek_torch.serve.server import make_server
+
+    # a --replicas replica runs on its own card (ICEK_SERVE_DEVICE=i)
+    device = serve_device(args.device, os.environ.get("ICEK_SERVE_DEVICE"),
+                          torch.cuda.device_count())
 
     wm = load_wordmap(args.data_dir, cfg.data.base_name)
     cfg, params, encoder_params = _load_model(cfg, args)
@@ -438,7 +498,7 @@ def run_serve(preset: str, argv=None):
         encoder_qtree = resnet_int8.load_qtree(args.encoder_qtree)
     engine = ServingEngine(cfg, wm, params, encoder_params, beam_size=args.beam,
                            max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
-                           device=args.device, encoder_qtree=encoder_qtree)
+                           device=device, encoder_qtree=encoder_qtree)
     if args.warmup:
         import numpy as np
 

@@ -93,7 +93,10 @@
 // to a multiple of 4: the element's absolute position, so every kernel
 // can regenerate the forward's mask under its own tiling (the CUDA-core
 // backward and keep_mask_kernel do), and four adjacent keys of a row share
-// one Philox block.
+// one Philox block.  `block0` (4 * block0 added to every index) places a
+// call's batch rows inside a larger batch: a data-parallel rank holding rows
+// b0.. of a global batch passes block0 = b0 * H * Tq * Tk4 / 4 and draws the
+// global batch's mask.
 #include "common.cuh"
 
 namespace {
@@ -106,12 +109,13 @@ struct Shape {
   float scale;                                    // 1 / sqrt(Hd)
   float inv;                                      // 1 / (1 - rate)
   uint32_t thresh, seed;                          // dropout: see keep_bits
+  unsigned long long block0;                      // Philox block of score (0, 0, 0, 0)
 };
 
 // Philox block of key 0 of score row (b, h, row); key k adds k / 4
 __device__ __forceinline__ unsigned long long mask_row_block(const Shape& a, int b,
                                                              int h, int row) {
-  return ((unsigned long long)(b * a.H + h) * a.Tq + row) * ((a.Tk + 3) >> 2);
+  return a.block0 + ((unsigned long long)(b * a.H + h) * a.Tq + row) * ((a.Tk + 3) >> 2);
 }
 
 // stage rows [k0, k0 + BK) of head h of k and v into shared memory as f32
@@ -341,7 +345,8 @@ __global__ void __launch_bounds__(BKT) flash_bwd_dkv_kernel(
       if (drop) {
         const bool keep = keep_bits(
             random_bits(a.seed, STREAM_FLASH,
-                        (unsigned long long)(srow0 + qi) * Tk4 + t), a.thresh);
+                        4ull * a.block0 + (unsigned long long)(srow0 + qi) * Tk4 + t),
+            a.thresh);
         pd = keep ? p * a.inv : 0.f;
         dp = keep ? dp * a.inv : 0.f;
       }
@@ -369,14 +374,14 @@ __global__ void __launch_bounds__(BKT) flash_bwd_dkv_kernel(
 // thread per group of four adjacent keys of a score row
 __global__ void __launch_bounds__(256) keep_mask_kernel(
     uint8_t* __restrict__ out, long long rows, int Tk, uint32_t thresh,
-    uint32_t seed) {
+    uint32_t seed, unsigned long long block0) {
   const int G = (Tk + 3) >> 2;
   const long long total = rows * G;
   for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < total;
        t += (long long)gridDim.x * blockDim.x) {
     const long long row = t / G;
     const int g = static_cast<int>(t - row * G);
-    const uint4 r = philox4x32_10(seed, STREAM_FLASH, (unsigned long long)t);
+    const uint4 r = philox4x32_10(seed, STREAM_FLASH, block0 + (unsigned long long)t);
 #pragma unroll
     for (int c = 0; c < 4; ++c)
       if (4 * g + c < Tk)
@@ -1022,9 +1027,9 @@ int backward(const void* q, const void* k, const void* v, const void* o,
 Shape make_shape(int Tq, int Tk, int H, int Hd, long long q_sb, long long q_st,
                  long long k_sb, long long k_st, long long v_sb, long long v_st,
                  int kv_len, int causal, float scale, float inv, unsigned thresh,
-                 unsigned seed) {
+                 unsigned seed, unsigned long long block0) {
   return Shape{Tq, Tk, H, Hd, q_sb, q_st, k_sb, k_st, v_sb, v_st,
-               kv_len, causal, scale, inv, thresh, seed};
+               kv_len, causal, scale, inv, thresh, seed, block0};
 }
 
 }  // namespace
@@ -1033,10 +1038,10 @@ Shape make_shape(int Tq, int Tk, int H, int Hd, long long q_sb, long long q_st,
   int B, int Tq, int Tk, int H, int Hd, long long q_sb, long long q_st,        \
       long long k_sb, long long k_st, long long v_sb, long long v_st,          \
       int kv_len, int causal, float scale, float inv, unsigned thresh,         \
-      unsigned seed, void *stream
+      unsigned seed, unsigned long long block0, void *stream
 #define ICEK_SHAPE_ARGS                                                        \
   make_shape(Tq, Tk, H, Hd, q_sb, q_st, k_sb, k_st, v_sb, v_st, kv_len,        \
-             causal, scale, inv, thresh, seed)
+             causal, scale, inv, thresh, seed, block0)
 
 // Every forward and backward entry point takes `keep_words`, where the
 // tensor-core forward leaves its dropout mask for its backward; the CUDA-core
@@ -1100,12 +1105,13 @@ ICEK_EXPORT int flash_bwd_bf16_mma(const void* q, const void* k, const void* v,
 }
 
 ICEK_EXPORT int flash_keep_mask(void* out, int B, int H, int Tq, int Tk,
-                                unsigned thresh, unsigned seed, void* stream) {
+                                unsigned thresh, unsigned seed,
+                                unsigned long long block0, void* stream) {
   const long long rows = (long long)B * H * Tq;
   if (rows < 1 || Tk < 1) return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (rows * ((Tk + 3) / 4) + 255) / 256;
   keep_mask_kernel<<<static_cast<unsigned>(blocks > 132 * 16 ? 132 * 16 : blocks),
                      256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint8_t*>(out), rows, Tk, thresh, seed);
+      static_cast<uint8_t*>(out), rows, Tk, thresh, seed, block0);
   return static_cast<int>(cudaGetLastError());
 }

@@ -51,6 +51,9 @@
 // so the four columns of a group share one Philox block whatever D is.
 // When D % 4 == 0 the group at element offset e of the (N, D) tensor is
 // Philox block e / 4, which is how the flat and span kernels number it.
+// Every kernel adds `block0` to the block: a data-parallel rank holding rows
+// r0.. of a global (N, D) tensor passes block0 = r0 * D4 / 4 and draws the
+// global tensor's mask.
 #include "common.cuh"
 
 namespace {
@@ -128,9 +131,10 @@ __device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* row, int co
 
 // keep flags of the group's four columns as the low bits of the result
 __device__ __forceinline__ uint32_t keep4(uint32_t seed, uint32_t thresh,
+                                          unsigned long long block0,
                                           unsigned long long block) {
   if (thresh >= KEEP_ALL) return 0xFu;
-  const uint4 r = philox4x32_10(seed, STREAM_NORM, block);
+  const uint4 r = philox4x32_10(seed, STREAM_NORM, block0 + block);
   return (keep_bits(r.x, thresh) ? 1u : 0u) | (keep_bits(r.y, thresh) ? 2u : 0u) |
          (keep_bits(r.z, thresh) ? 4u : 0u) | (keep_bits(r.w, thresh) ? 8u : 0u);
 }
@@ -140,7 +144,8 @@ __device__ __forceinline__ uint32_t keep4(uint32_t seed, uint32_t thresh,
 template <typename T, int NG>
 __device__ __forceinline__ float load_row(const T* xr, const T* hr, long long row,
                                           int D, int G, bool vec, int lane,
-                                          uint32_t seed, uint32_t thresh, float inv,
+                                          uint32_t seed, unsigned long long block0,
+                                          uint32_t thresh, float inv,
                                           float z[NG][4], uint32_t& keeps) {
   float sum = 0.f;
   keeps = 0u;
@@ -153,7 +158,7 @@ __device__ __forceinline__ float load_row(const T* xr, const T* hr, long long ro
       float xv[4], hv[4];
       load4<T>(xr, 4 * g, D, vec, xv);
       load4<T>(hr, 4 * g, D, vec, hv);
-      const uint32_t k = keep4(seed, thresh, (unsigned long long)row * G + g);
+      const uint32_t k = keep4(seed, thresh, block0, (unsigned long long)row * G + g);
       keeps |= k << (4 * i);
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -189,7 +194,7 @@ __global__ void __launch_bounds__(32 * WARPS) ln_fwd_kernel(
     const T* __restrict__ x, const T* __restrict__ h,
     const float* __restrict__ scale, const float* __restrict__ bias,
     T* __restrict__ y, long long N, int D, float eps, float inv,
-    uint32_t thresh, uint32_t seed, int vec) {
+    uint32_t thresh, uint32_t seed, int vec, unsigned long long block0) {
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (row >= N) return;
@@ -197,7 +202,7 @@ __global__ void __launch_bounds__(32 * WARPS) ln_fwd_kernel(
   float z[NG][4];
   uint32_t keeps;
   const float sum = load_row<T, NG>(x + row * D, h + row * D, row, D, G, vec != 0,
-                                lane, seed, thresh, inv, z, keeps);
+                                lane, seed, block0, thresh, inv, z, keeps);
   const float rstd = normalise<NG>(z, sum, D, G, lane, eps);
   const bool vec_par = D % 4 == 0;   // scale / bias are float32 and 16-byte aligned
 #pragma unroll
@@ -337,7 +342,7 @@ __global__ void __launch_bounds__(FWD_THREADS) ln_fwd_span_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ h,
     const float* __restrict__ scale, const float* __restrict__ bias,
     __nv_bfloat16* __restrict__ y, long long N, int D, float eps, float inv,
-    uint32_t thresh, uint32_t seed) {
+    uint32_t thresh, uint32_t seed, unsigned long long block0) {
   using T = __nv_bfloat16;
   constexpr int CE = 8;                        // elements a chunk
   constexpr int TEAMS = 32 / LPR;              // spans a warp takes at once
@@ -405,7 +410,7 @@ __global__ void __launch_bounds__(FWD_THREADS) ln_fwd_span_kernel(
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int q = 2 * c + j;
-          const uint32_t k = keep4(seed, thresh, (unsigned long long)(base >> 2) + q);
+          const uint32_t k = keep4(seed, thresh, block0, (unsigned long long)(base >> 2) + q);
           float part = 0.f;
 #pragma unroll
           for (int v = 0; v < 4; ++v) {
@@ -530,7 +535,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 4) ln_bwd_kernel(
     const float* __restrict__ scale, const T* __restrict__ gy,
     T* __restrict__ dx, T* __restrict__ dh, float* __restrict__ partial,
     long long N, int D, float eps, float inv, uint32_t thresh, uint32_t seed,
-    int vec) {
+    int vec, unsigned long long block0) {
   using R = typename Raw4<T>::type;
   constexpr int TEAMS = BWD_THREADS / LPR;
   // the next row's raw inputs take 3 NG sizeof(T) registers; wider rows
@@ -599,7 +604,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 4) ln_bwd_kernel(
         float xv[4], hv[4];
         unpack4(cx[i], xv);
         unpack4(ch[i], hv);
-        const uint32_t k = keep4(seed, thresh, (unsigned long long)row * G + g);
+        const uint32_t k = keep4(seed, thresh, block0, (unsigned long long)row * G + g);
         keeps |= k << (4 * i);
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
@@ -754,7 +759,7 @@ __global__ void __launch_bounds__(32 * RED_WARPS) ln_bwd_reduce_kernel(
 template <typename T>
 __global__ void __launch_bounds__(256) dropout_kernel(
     const T* __restrict__ in, T* __restrict__ out, long long N, int D, float inv,
-    uint32_t thresh, uint32_t seed, int vec) {
+    uint32_t thresh, uint32_t seed, int vec, unsigned long long block0) {
   const int G = (D + 3) >> 2;
   const long long total = N * G;
   for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < total;
@@ -763,7 +768,7 @@ __global__ void __launch_bounds__(256) dropout_kernel(
     const int g = static_cast<int>(t - row * G);
     float v[4];
     load4<T>(in + row * D, 4 * g, D, vec != 0, v);
-    const uint32_t k = keep4(seed, thresh, (unsigned long long)t);
+    const uint32_t k = keep4(seed, thresh, block0, (unsigned long long)t);
 #pragma unroll
     for (int c = 0; c < 4; ++c) v[c] = (k >> c) & 1u ? v[c] * inv : 0.f;
     store4<T>(out + row * D, 4 * g, D, vec != 0, v);
@@ -783,7 +788,7 @@ constexpr int DROP_UNROLL = 2;   // chunks a thread has in flight
 template <typename T>
 __global__ void __launch_bounds__(DROP_THREADS) dropout_flat_kernel(
     const T* __restrict__ in, T* __restrict__ out, long long total, float inv,
-    uint32_t thresh, uint32_t seed) {
+    uint32_t thresh, uint32_t seed, unsigned long long block0) {
   using R = typename Chunk<T>::type;
   constexpr int CE = 16 / sizeof(T), CG = CE / 4;
   const long long chunks = (total + CE - 1) / CE;
@@ -804,7 +809,7 @@ __global__ void __launch_bounds__(DROP_THREADS) dropout_flat_kernel(
         unpack_chunk(v[u], f);
 #pragma unroll
         for (int j = 0; j < CG; ++j) {
-          const uint32_t k = keep4(seed, thresh, (unsigned long long)c * CG + j);
+          const uint32_t k = keep4(seed, thresh, block0, (unsigned long long)c * CG + j);
 #pragma unroll
           for (int e = 0; e < 4; ++e) f[4 * j + e] = (k >> e) & 1u ? f[4 * j + e] * inv : 0.f;
         }
@@ -815,14 +820,15 @@ __global__ void __launch_bounds__(DROP_THREADS) dropout_flat_kernel(
 }
 
 __global__ void __launch_bounds__(256) keep_mask_kernel(
-    uint8_t* __restrict__ out, long long N, int D, uint32_t thresh, uint32_t seed) {
+    uint8_t* __restrict__ out, long long N, int D, uint32_t thresh, uint32_t seed,
+    unsigned long long block0) {
   const int G = (D + 3) >> 2;
   const long long total = N * G;
   for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < total;
        t += (long long)gridDim.x * blockDim.x) {
     const long long row = t / G;
     const int g = static_cast<int>(t - row * G);
-    const uint32_t k = keep4(seed, thresh, (unsigned long long)t);
+    const uint32_t k = keep4(seed, thresh, block0, (unsigned long long)t);
 #pragma unroll
     for (int c = 0; c < 4; ++c)
       if (4 * g + c < D) out[row * D + 4 * g + c] = (k >> c) & 1u;
@@ -848,7 +854,7 @@ int flat_grid(long long work, int threads) {
 // NC chunks a lane, LPR NC >= D / 4 (the chunks of a span)
 using LnFwdFn = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, const float*,
                          const float*, __nv_bfloat16*, long long, int, float, float,
-                         uint32_t, uint32_t);
+                         uint32_t, uint32_t, unsigned long long);
 
 LnFwdFn ln_fwd_pick(int D) {
   const int G = D / 4;
@@ -875,7 +881,7 @@ int ln_fwd_smem_opt_in(int D) {
 template <typename T>
 int ln_fwd(const void* x, const void* h, const void* scale, const void* bias,
            void* y, long long N, int D, float eps, float inv, unsigned thresh,
-           unsigned seed, int nblocks, void* stream) {
+           unsigned seed, unsigned long long block0, int nblocks, void* stream) {
   if (D < 1 || D > MAXD || N < 1 || nblocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -889,7 +895,7 @@ int ln_fwd(const void* x, const void* h, const void* scale, const void* bias,
       ln_fwd_pick(D)<<<static_cast<unsigned>(nblocks), FWD_THREADS, fwd_smem_bytes(D), s>>>(
           static_cast<const T*>(x), static_cast<const T*>(h),
           static_cast<const float*>(scale), static_cast<const float*>(bias),
-          static_cast<T*>(y), N, D, eps, inv, thresh, seed);
+          static_cast<T*>(y), N, D, eps, inv, thresh, seed, block0);
       return static_cast<int>(cudaGetLastError());
     }
   }
@@ -900,7 +906,7 @@ int ln_fwd(const void* x, const void* h, const void* scale, const void* bias,
   kernel<<<static_cast<unsigned>(blocks), 32 * WARPS, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(h),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<T*>(y), N, D, eps, inv, thresh, seed, vec);
+      static_cast<T*>(y), N, D, eps, inv, thresh, seed, vec, block0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -908,7 +914,8 @@ int ln_fwd(const void* x, const void* h, const void* scale, const void* bias,
 // LPR * NG >= G; bf16 rows of up to 320 columns take half warps
 template <typename T>
 using LnBwdFn = void (*)(const T*, const T*, const float*, const T*, T*, T*, float*,
-                         long long, int, float, float, uint32_t, uint32_t, int);
+                         long long, int, float, float, uint32_t, uint32_t, int,
+                         unsigned long long);
 
 template <typename T>
 LnBwdFn<T> ln_bwd_pick(int D) {
@@ -932,7 +939,7 @@ template <typename T>
 int ln_bwd(const void* x, const void* h, const void* scale, const void* gy,
            void* dx, void* dh, void* partial, void* dscale, void* dbias,
            long long N, int D, float eps, float inv, unsigned thresh,
-           unsigned seed, int nblocks, void* stream) {
+           unsigned seed, unsigned long long block0, int nblocks, void* stream) {
   if (D < 1 || D > MAXD || N < 1 || nblocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int vec = D % 4 == 0 && aligned(x, 4 * sizeof(T)) &&
@@ -946,7 +953,7 @@ int ln_bwd(const void* x, const void* h, const void* scale, const void* gy,
       static_cast<const T*>(x), static_cast<const T*>(h),
       static_cast<const float*>(scale), static_cast<const T*>(gy),
       static_cast<T*>(dx), static_cast<T*>(dh), static_cast<float*>(partial), N,
-      D, eps, inv, thresh, seed, vec);
+      D, eps, inv, thresh, seed, vec, block0);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   ln_bwd_reduce_kernel<<<(2 * D + 31) / 32, 32 * RED_WARPS, 0, s>>>(
@@ -959,7 +966,8 @@ int ln_bwd(const void* x, const void* h, const void* scale, const void* gy,
 // run when there are fewer chunks); other shapes run dropout_kernel
 template <typename T>
 int dropout(const void* in, void* out, long long N, int D, float inv,
-            unsigned thresh, unsigned seed, int nblocks, void* stream) {
+            unsigned thresh, unsigned seed, unsigned long long block0, int nblocks,
+            void* stream) {
   if (D < 1 || N < 1 || nblocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D % 4 == 0 && aligned(in, 16) && aligned(out, 16)) {
@@ -969,14 +977,15 @@ int dropout(const void* in, void* out, long long N, int D, float inv,
     const long long need = (chunks + per_block - 1) / per_block;
     dropout_flat_kernel<T><<<static_cast<unsigned>(need < nblocks ? need : nblocks),
                              DROP_THREADS, 0, s>>>(
-        static_cast<const T*>(in), static_cast<T*>(out), N * D, inv, thresh, seed);
+        static_cast<const T*>(in), static_cast<T*>(out), N * D, inv, thresh, seed, block0);
     return static_cast<int>(cudaGetLastError());
   }
   const int vec = D % 4 == 0 && aligned(in, 4 * sizeof(T)) &&
                   aligned(out, 4 * sizeof(T));
   const long long groups = N * ((D + 3) / 4);
   dropout_kernel<T><<<flat_grid(groups, 256), 256, 0, s>>>(
-      static_cast<const T*>(in), static_cast<T*>(out), N, D, inv, thresh, seed, vec);
+      static_cast<const T*>(in), static_cast<T*>(out), N, D, inv, thresh, seed, vec,
+      block0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -985,17 +994,17 @@ int dropout(const void* in, void* out, long long N, int D, float inv,
 ICEK_EXPORT int ln_fwd_f32(const void* x, const void* h, const void* scale,
                            const void* bias, void* y, long long N, int D,
                            float eps, float inv, unsigned thresh, unsigned seed,
-                           int nblocks, void* stream) {
-  return ln_fwd<float>(x, h, scale, bias, y, N, D, eps, inv, thresh, seed, nblocks,
-                       stream);
+                           unsigned long long block0, int nblocks, void* stream) {
+  return ln_fwd<float>(x, h, scale, bias, y, N, D, eps, inv, thresh, seed, block0,
+                       nblocks, stream);
 }
 
 ICEK_EXPORT int ln_fwd_bf16(const void* x, const void* h, const void* scale,
                             const void* bias, void* y, long long N, int D,
                             float eps, float inv, unsigned thresh, unsigned seed,
-                            int nblocks, void* stream) {
+                            unsigned long long block0, int nblocks, void* stream) {
   return ln_fwd<__nv_bfloat16>(x, h, scale, bias, y, N, D, eps, inv, thresh, seed,
-                               nblocks, stream);
+                               block0, nblocks, stream);
 }
 
 // blocks of the forward's bf16 span kernel for rows of D resident on the
@@ -1016,18 +1025,18 @@ ICEK_EXPORT int ln_bwd_f32(const void* x, const void* h, const void* scale,
                            const void* gy, void* dx, void* dh, void* partial,
                            void* dscale, void* dbias, long long N, int D,
                            float eps, float inv, unsigned thresh, unsigned seed,
-                           int nblocks, void* stream) {
+                           unsigned long long block0, int nblocks, void* stream) {
   return ln_bwd<float>(x, h, scale, gy, dx, dh, partial, dscale, dbias, N, D, eps,
-                       inv, thresh, seed, nblocks, stream);
+                       inv, thresh, seed, block0, nblocks, stream);
 }
 
 ICEK_EXPORT int ln_bwd_bf16(const void* x, const void* h, const void* scale,
                             const void* gy, void* dx, void* dh, void* partial,
                             void* dscale, void* dbias, long long N, int D,
                             float eps, float inv, unsigned thresh, unsigned seed,
-                            int nblocks, void* stream) {
+                            unsigned long long block0, int nblocks, void* stream) {
   return ln_bwd<__nv_bfloat16>(x, h, scale, gy, dx, dh, partial, dscale, dbias, N,
-                               D, eps, inv, thresh, seed, nblocks, stream);
+                               D, eps, inv, thresh, seed, block0, nblocks, stream);
 }
 
 // blocks of the backward resident on the current device at once: its
@@ -1039,15 +1048,16 @@ ICEK_EXPORT int ln_bwd_grid(int D, int bf16, int* blocks) {
 }
 
 ICEK_EXPORT int dropout_f32(const void* in, void* out, long long N, int D,
-                            float inv, unsigned thresh, unsigned seed, int nblocks,
-                            void* stream) {
-  return dropout<float>(in, out, N, D, inv, thresh, seed, nblocks, stream);
+                            float inv, unsigned thresh, unsigned seed,
+                            unsigned long long block0, int nblocks, void* stream) {
+  return dropout<float>(in, out, N, D, inv, thresh, seed, block0, nblocks, stream);
 }
 
 ICEK_EXPORT int dropout_bf16(const void* in, void* out, long long N, int D,
-                             float inv, unsigned thresh, unsigned seed, int nblocks,
-                             void* stream) {
-  return dropout<__nv_bfloat16>(in, out, N, D, inv, thresh, seed, nblocks, stream);
+                             float inv, unsigned thresh, unsigned seed,
+                             unsigned long long block0, int nblocks, void* stream) {
+  return dropout<__nv_bfloat16>(in, out, N, D, inv, thresh, seed, block0, nblocks,
+                                stream);
 }
 
 // blocks of the flat dropout kernel resident on the current device at once:
@@ -1059,11 +1069,11 @@ ICEK_EXPORT int dropout_grid(int bf16, int* blocks) {
 
 // the mask the kernels above use, as (N, D) bytes of 0 / 1
 ICEK_EXPORT int norm_keep_mask(void* out, long long N, int D, unsigned thresh,
-                               unsigned seed, void* stream) {
+                               unsigned seed, unsigned long long block0, void* stream) {
   if (D < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
   keep_mask_kernel<<<flat_grid(N * ((D + 3) / 4), 256), 256, 0,
                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint8_t*>(out), N, D, thresh, seed);
+      static_cast<uint8_t*>(out), N, D, thresh, seed, block0);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -104,17 +104,26 @@ class CaptionDataset:
         self.image_tokens = np.concatenate(chunks, axis=0)
 
     def index_batches(self, batch_size: int, shuffle: bool, seed: int = 0,
-                      pad_partial: bool = True) -> Iterator[np.ndarray]:
-        """An epoch's row-id batches (uniform shuffle from `seed`)."""
-        return batch_indices(len(self), batch_size, shuffle, seed, pad_partial)
+                      pad_partial: bool = True, process_index: int = 0,
+                      process_count: int = 1) -> Iterator[np.ndarray]:
+        """An epoch's row-id batches (uniform shuffle from `seed`).  With
+        ``process_count > 1`` every process generates the same global stream
+        and yields its ``batch_size // process_count``-row slice of each
+        batch (``process_local_slices``)."""
+        batches = batch_indices(len(self), batch_size, shuffle, seed, pad_partial)
+        return process_local_slices(batches, process_index, process_count)
 
     def epoch_batches(self, batch_size: int, shuffle: bool, seed: int = 0,
                       pad_partial: bool = True, with_images: bool = True,
-                      raw_images: bool = False, start_batch: int = 0):
-        """Batch dicts of one epoch.  ``start_batch`` skips the first batches
-        of the seeded epoch without reading them (mid-epoch resume)."""
+                      raw_images: bool = False, process_index: int = 0,
+                      process_count: int = 1, start_batch: int = 0):
+        """Batch dicts of one epoch.  ``batch_size`` is the GLOBAL batch
+        size: with ``process_count > 1`` each dict holds this process's rows
+        of it.  ``start_batch`` skips the first batches of the seeded epoch
+        without reading them (mid-epoch resume)."""
         for j, idx in enumerate(self.index_batches(batch_size, shuffle, seed,
-                                                   pad_partial)):
+                                                   pad_partial, process_index,
+                                                   process_count)):
             if j < start_batch:
                 continue
             yield self.batch(idx, with_images=with_images, raw_images=raw_images)

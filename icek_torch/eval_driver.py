@@ -18,7 +18,10 @@ Output contract of ``Evaluator.run``, per preset:
     random-fact-object baseline) and logs both fact-accuracy reports;
   * geo feeds the Jensen-Shannon metric online.
 
-One process, one device: meshes are not ported.
+Under a mesh (``parallel/mesh.py``) the run is data-parallel over every
+process: params replicate, each process reads and decodes its rows of every
+batch, the ids are all-gathered, and only the primary detokenizes, scores
+and writes.
 """
 
 from __future__ import annotations
@@ -82,9 +85,20 @@ class Evaluator:
         asks for the CPU).  Compute dtype defaults to bf16 on CUDA and f32
         on CPU.  ``encoder_qtree`` (``models/resnet_int8.py``, opt-in: it
         changes arithmetic) runs the int8 encoder; it is verified against
-        `encoder_params` by fingerprint when both are given."""
+        `encoder_params` by fingerprint when both are given.
+
+        With ``mesh`` (a ``DeviceMesh`` of ``parallel/mesh.py::make_mesh``)
+        every process of the world calls :meth:`run` in lockstep; the run is
+        on the mesh's device and ``batch_size`` must divide by the process
+        count."""
         if mesh is not None:
-            raise NotImplementedError("meshes are not ported yet")
+            from icek_torch.parallel import mesh as mesh_lib
+
+            if not mesh_lib.is_mesh(mesh):
+                raise TypeError("Evaluator: mesh must be a (data, model) DeviceMesh "
+                                f"(parallel/mesh.py::make_mesh), got {type(mesh)}")
+            device = mesh_lib.mesh_device(mesh)
+        self.mesh = mesh
         kv = beam_lib.resolve_kv_dtype(cfg.decode.kv_dtype, cfg.model)
         if kv not in (None, "int8", "int8_cross"):
             raise ValueError(
@@ -95,6 +109,17 @@ class Evaluator:
         self.params = _to_device(params, self.device)
         self.encoder_params = _to_device(encoder_params, self.device)
         self.batch_size = resolve_eval_batch_size(batch_size, cfg, self.device)
+        if mesh is not None:
+            import torch.distributed as dist
+
+            self._rank, self._world = dist.get_rank(), dist.get_world_size()
+            if self.batch_size % self._world:
+                raise ValueError(
+                    f"eval batch size {self.batch_size} is not divisible by "
+                    f"process count {self._world}"
+                )
+        else:
+            self._rank, self._world = 0, 1
         self.beam_size = beam_size if beam_size is not None else cfg.decode.beam_size
         if compute_dtype is None:
             compute_dtype = (torch.float32 if self.device.type == "cpu"
@@ -279,7 +304,10 @@ class Evaluator:
         """Decode the whole split in batches of ``batch_size`` (the last one
         padded with its last row), detokenize, feed the metrics and write the
         CSV(s).  Returns {"captions", "masks"} and, where asked for,
-        "random_baseline", "js", "fact_accuracy", "fact_accuracy_random"."""
+        "random_baseline", "js", "fact_accuracy", "fact_accuracy_random".
+        Under a mesh every process runs this in lockstep; the others than
+        the primary return {"captions": None, "masks": None, "primary":
+        False}."""
         cfg = self.cfg
         rng = rng or _random
         n = len(data)
@@ -288,18 +316,35 @@ class Evaluator:
         random_baseline: List[str] = []
         num_entities = num_facts = caps_with_entities = caps_with_facts = 0
 
+        rank, world = self._rank, self._world
+        primary = rank == 0
+
         def batches():
             for start in range(0, n, self.batch_size):
                 idx = _pad_batch(np.arange(start, min(start + self.batch_size, n)),
                                  self.batch_size)
+                if world > 1:
+                    # each process reads only its rows; run all-gathers the ids
+                    local = self.batch_size // world
+                    idx = idx[rank * local:(rank + 1) * local]
                 batch = data.batch(idx, raw_images=True)
                 yield start, {k: v for k, v in batch.items() if k in _INPUT_KEYS}
 
         # the host reads and the upload of the next batches overlap the
         # device's decode of this one
         for start, batch, ready in ds.prefetch(batches(), self._stage()):
-            out = self.decode_batch(ds.wait_staged(batch, ready))
+            batch = ds.wait_staged(batch, ready)
+            if self.mesh is None:
+                out = self.decode_batch(batch)
+            else:
+                from icek_torch.parallel import mesh as mesh_lib
+
+                out = mesh_lib.all_gather(self.decode_batch_async(batch)).cpu().numpy()
             count = min(self.batch_size, n - start)
+            if not primary:
+                # the others only drive the collective decode; detok, the
+                # metrics and the CSV are the primary's
+                continue
             for b in range(count):
                 i = start + b
                 ent_names = data.arrays.entity_names[i]
@@ -327,6 +372,8 @@ class Evaluator:
                         _random_fact_caption(tokens, kinds, fact_names,
                                              predicate_to_objects, rng)))
 
+        if not primary:
+            return {"captions": None, "masks": None, "primary": False}
         self._write_csv(output_csv, captions, masks)
         results: Dict[str, object] = {"captions": captions, "masks": masks}
         if random_baseline:

@@ -41,9 +41,9 @@ import torch
 from icek_torch.kernels import _build
 
 NEG = -1e30
-_P, _I, _LL, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_float, ctypes.c_uint)
-_SHAPE = [_I] * 5 + [_LL] * 6 + [_I, _I, _F, _F, _U, _U, _P]
+_P, _I, _LL, _F, _U, _ULL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                             ctypes.c_float, ctypes.c_uint, ctypes.c_ulonglong)
+_SHAPE = [_I] * 5 + [_LL] * 6 + [_I, _I, _F, _F, _U, _U, _ULL, _P]
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -96,15 +96,22 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _shape_args(q, k, v, kv_len, causal, rate, seed):
+def block0(first: int, H: int, Tq: int, Tk: int) -> int:
+    """The Philox block of score (first, 0, 0, 0) of a (B, H, Tq, Tk) mask:
+    what the kernels add for a call whose batch rows start at row `first`
+    of a larger batch."""
+    return first * H * Tq * ((Tk + 3) // 4)
+
+
+def _shape_args(q, k, v, kv_len, causal, rate, seed, blk0):
     B, Tq, H, Hd = q.shape
     return (B, Tq, k.shape[1], H, Hd, q.stride(0), q.stride(1), k.stride(0),
             k.stride(1), v.stride(0), v.stride(1), kv_len, int(causal),
             1.0 / math.sqrt(Hd), 1.0 / (1.0 - rate), keep_threshold(rate),
-            seed, _build.stream_of(q))
+            seed, blk0, _build.stream_of(q))
 
 
-def _forward(q, k, v, kv_len, causal, rate, seed):
+def _forward(q, k, v, kv_len, causal, rate, seed, blk0=0):
     """Launch the forward kernel; returns (out, lse (B, H, Tq) f32,
     keep_words).  `keep_words` is the tensor-core forward's dropout mask for
     its backward, one bit a score in cells of 16 rows x 64 keys of 32 words
@@ -121,17 +128,19 @@ def _forward(q, k, v, kv_len, causal, rate, seed):
                      [_P] * 6 + _SHAPE)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), _ptr(keep_words),
-             *_shape_args(q, k, v, kv_len, causal, rate, seed))
+             *_shape_args(q, k, v, kv_len, causal, rate, seed, blk0))
     _build.check(err, "flash_attention", "flash_mha")
     flash_mha.launches += 1
     return out, lse, keep_words
 
 
-def flash_mha_bwd(q, k, v, out, lse, keep_words, d_out, kv_len, causal, rate, seed):
+def flash_mha_bwd(q, k, v, out, lse, keep_words, d_out, kv_len, causal, rate, seed,
+                  blk0=0):
     """Launch the backward kernels (dQ, then dK/dV) on the forward's saved
     tensors; returns contiguous (dq, dk, dv) in the inputs' dtype.  `d_out`
     is made contiguous first (autograd may hand over a strided view).
-    `keep_words` is what the forward returned with these inputs."""
+    `keep_words` is what the forward returned with these inputs, `blk0` the
+    forward's Philox block offset."""
     if q.shape[-1] > 32:
         raise ValueError(f"flash_mha backward: head dim {q.shape[-1]} > 32 "
                          "is unsupported")
@@ -147,7 +156,7 @@ def flash_mha_bwd(q, k, v, out, lse, keep_words, d_out, kv_len, causal, rate, se
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              d_out.data_ptr(), lse.data_ptr(), _ptr(keep_words), delta.data_ptr(),
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             *_shape_args(q, k, v, kv_len, causal, rate, seed))
+             *_shape_args(q, k, v, kv_len, causal, rate, seed, blk0))
     _build.check(err, "flash_attention", "flash_mha backward")
     flash_mha_bwd.launches += 1
     return dq, dk, dv
@@ -155,22 +164,25 @@ def flash_mha_bwd(q, k, v, out, lse, keep_words, d_out, kv_len, causal, rate, se
 
 class _FlashMHA(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, kv_len, causal, rate, seed):
-        out, lse, keep_words = _forward(q, k, v, kv_len, causal, rate, seed)
+    def forward(ctx, q, k, v, kv_len, causal, rate, seed, blk0):
+        out, lse, keep_words = _forward(q, k, v, kv_len, causal, rate, seed, blk0)
         ctx.save_for_backward(q, k, v, out, lse, keep_words)
-        ctx.static = (kv_len, causal, rate, seed)
+        ctx.static = (kv_len, causal, rate, seed, blk0)
         return out
 
     @staticmethod
     def backward(ctx, d_out):
         dq, dk, dv = flash_mha_bwd(*ctx.saved_tensors, d_out, *ctx.static)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
-def flash_mha(q, k, v, *, kv_len=None, causal=False, dropout_rate=0.0, seed=None):
+def flash_mha(q, k, v, *, kv_len=None, causal=False, dropout_rate=0.0, seed=None,
+              rows=None):
     """Fused attention; returns a contiguous (B, Tq, H, Hd) tensor in q's
     dtype.  Key columns at or beyond `kv_len` are masked.  `seed` (an int in
-    [0, 2**31)) is required when `dropout_rate` > 0."""
+    [0, 2**31)) is required when `dropout_rate` > 0.  `rows` (first, total):
+    the batch holds rows ``first ..`` of a batch of `total` rows, whose
+    dropout mask is then drawn (a data-parallel rank's share)."""
     B, Tq, H, Hd = q.shape
     Tk = k.shape[1]
     kv_len = Tk if kv_len is None else int(kv_len)
@@ -186,8 +198,13 @@ def flash_mha(q, k, v, *, kv_len=None, causal=False, dropout_rate=0.0, seed=None
     seed = 0 if seed is None else int(seed)
     if q.device.type == "cpu":
         gen = torch.Generator().manual_seed(seed) if dropout_rate > 0.0 else None
+        keep = None
+        if rows is not None and dropout_rate > 0.0:
+            first, total = rows
+            full = torch.rand((total, H, Tq, Tk), generator=gen)
+            keep = full[first:first + B] < 1.0 - dropout_rate
         return reference_mha(q, k, v, kv_len=kv_len, causal=causal,
-                             dropout_rate=dropout_rate, gen=gen)
+                             dropout_rate=dropout_rate, keep=keep, gen=gen)
     _build.require_cuda("flash_mha", q, k, v, dtype=q.dtype)
     if q.dtype not in _SUFFIX:
         raise TypeError(f"flash_mha: unsupported dtype {q.dtype}")
@@ -198,19 +215,20 @@ def flash_mha(q, k, v, *, kv_len=None, causal=False, dropout_rate=0.0, seed=None
         if t.stride(3) != 1 or t.stride(2) != Hd:
             raise ValueError(f"flash_mha: {name} needs a contiguous (H, Hd) "
                              f"tail, got strides {t.stride()}")
-    return _FlashMHA.apply(q, k, v, kv_len, causal, float(dropout_rate), seed)
+    blk0 = block0(rows[0], H, Tq, Tk) if rows is not None else 0
+    return _FlashMHA.apply(q, k, v, kv_len, causal, float(dropout_rate), seed, blk0)
 
 
-def keep_mask(B, H, Tq, Tk, *, rate, seed, device):
+def keep_mask(B, H, Tq, Tk, *, rate, seed, device, first=0):
     """The (B, H, Tq, Tk) bool mask the kernels use for (rate, seed), written
     by the same device function; for holding a kernel against its plain
-    version."""
+    version.  `first` gives batch rows ``first ..`` of a larger batch's mask."""
     out = torch.empty((B, H, Tq, Tk), dtype=torch.bool, device=device)
     _build.require_cuda("flash keep_mask", out)
     fn = _build.bind("flash_attention", "flash_keep_mask",
-                     [_P, _I, _I, _I, _I, _U, _U, _P])
+                     [_P, _I, _I, _I, _I, _U, _U, _ULL, _P])
     err = fn(out.data_ptr(), B, H, Tq, Tk, keep_threshold(rate), int(seed),
-             _build.stream_of(out))
+             block0(first, H, Tq, Tk), _build.stream_of(out))
     _build.check(err, "flash_attention", "flash keep_mask")
     return out
 

@@ -16,6 +16,8 @@ h-major order.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -35,6 +37,21 @@ def conv(x, w, stride=1, compute_dtype=torch.float32, bias=None):
                     stride=stride, padding=pad)
 
 
+# the data-axis group whose global batch the train-mode statistics cover
+_SYNC_GROUP: contextvars.ContextVar = contextvars.ContextVar("bn_sync", default=None)
+
+
+@contextlib.contextmanager
+def sync_batch_stats(group):
+    """Train-mode batch norm in the block takes its statistics over the
+    global batch of the ranks of `group` (a data-parallel mesh axis)."""
+    token = _SYNC_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _SYNC_GROUP.reset(token)
+
+
 def batch_norm(params, x, train: bool = False, momentum: float = 0.1,
                eps: float = 1e-5):
     """Batch norm over NCHW activations; returns (y, new running stats or
@@ -42,9 +59,21 @@ def batch_norm(params, x, train: bool = False, momentum: float = 0.1,
     variance (float32) and moves the running mean and the unbiased running
     variance by `momentum`, as torch's BatchNorm2d does; the new stats carry
     no gradient."""
-    if train:
+    group = _SYNC_GROUP.get()
+    if train and group is not None:
+        # statistics of the global batch, in two all-reduces over the data
+        # axis: the mean, then the squared deviations from it
+        import torch.distributed.nn.functional as dist_nn
+
+        xf = x.to(torch.float32)
+        n = x.shape[0] * x.shape[2] * x.shape[3] * torch.distributed.get_world_size(group)
+        mean = dist_nn.all_reduce(xf.sum(dim=(0, 2, 3)), group=group) / n
+        dev = xf - mean.view(1, -1, 1, 1)
+        var = dist_nn.all_reduce(dev.square().sum(dim=(0, 2, 3)), group=group) / n
+    elif train:
         var, mean = torch.var_mean(x.to(torch.float32), dim=(0, 2, 3), correction=0)
         n = x.shape[0] * x.shape[2] * x.shape[3]
+    if train:
         with torch.no_grad():
             new_stats = {
                 "mean": (1 - momentum) * params["mean"] + momentum * mean,

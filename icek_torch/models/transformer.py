@@ -14,6 +14,10 @@ weights, the residual + LayerNorm chains and the FFN-internal dropout run
 through the kernels (``kernels/flash_attention.py``,
 ``kernels/fused_norm.py``), each seeded with an integer drawn from `gen`;
 otherwise the stock dropout below runs.
+Inside ``batch_rows(first, total)`` (a data-parallel rank's share of a
+global batch, ``train/step.py`` under a mesh) every site draws the mask the
+global batch's rows get and keeps its own rows, so a sharded step drops
+what the single-device step drops.
 The self-attention KV cache of the single-step decode path is updated in
 place (the JAX version returns a new buffer); the returned cache is the
 same dict.
@@ -21,6 +25,8 @@ same dict.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Optional
 
@@ -75,6 +81,21 @@ def init_mha(gen: torch.Generator, d_model):
     }
 
 
+# (first row, rows) of the global batch this process's activations hold
+_BATCH_ROWS: contextvars.ContextVar = contextvars.ContextVar("batch_rows", default=None)
+
+
+@contextlib.contextmanager
+def batch_rows(first: int, total: int):
+    """Key every dropout mask drawn in the block by global batch row: the
+    activations' leading dim holds rows ``first ..`` of a batch of `total`."""
+    token = _BATCH_ROWS.set((int(first), int(total)))
+    try:
+        yield
+    finally:
+        _BATCH_ROWS.reset(token)
+
+
 def _kernel_seed(gen: torch.Generator) -> int:
     """A fresh seed in [0, 2**31) for one dropout kernel launch, drawn on
     the host (`gen` is a CPU generator, so nothing waits for the device)."""
@@ -95,7 +116,11 @@ def dropout(x, rate, gen, deterministic):
         mask_gen = gen
     else:
         mask_gen = torch.Generator(device=x.device).manual_seed(_kernel_seed(gen))
-    keep = torch.rand(x.shape, generator=mask_gen, device=x.device) < 1.0 - rate
+    rows = _BATCH_ROWS.get()
+    if rows is None:
+        keep = torch.rand(x.shape, generator=mask_gen, device=x.device) < 1.0 - rate
+    else:
+        keep = fused_norm.global_keep(x.shape, rate, mask_gen, rows, x.device)
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
@@ -114,7 +139,7 @@ def residual_norm(norm, x, h, rate, gen, deterministic, fused=False,
     if fused and _active(rate, deterministic):
         return fused_norm.dropout_add_ln(
             x.to(compute_dtype), h.to(compute_dtype), norm["scale"], norm["bias"],
-            rate=rate, seed=_kernel_seed(gen))
+            rate=rate, seed=_kernel_seed(gen), rows=_BATCH_ROWS.get())
     return layer_norm(norm, x + dropout(h, rate, gen, deterministic))
 
 
@@ -170,7 +195,7 @@ def multi_head_attention(
         out = fa.flash_mha(
             q.view(B, Tq, H, Hd), k.view(B, Tk, H, Hd), v.view(B, Tk, H, Hd),
             causal=causal, dropout_rate=rate,
-            seed=_kernel_seed(gen) if rate > 0.0 else None,
+            seed=_kernel_seed(gen) if rate > 0.0 else None, rows=_BATCH_ROWS.get(),
         )
         return linear(params["out"], out.reshape(B, Tq, D), dt), None
 
@@ -233,7 +258,8 @@ def init_encoder_layer(gen, d_model, ffn_dim):
 def _ffn(params, x, rate, gen, deterministic, compute_dtype, fused=False):
     h = torch.relu(linear(params["lin1"], x, compute_dtype))
     if fused and _active(rate, deterministic):
-        h = fused_norm.hw_dropout(h, rate=rate, seed=_kernel_seed(gen))
+        h = fused_norm.hw_dropout(h, rate=rate, seed=_kernel_seed(gen),
+                                  rows=_BATCH_ROWS.get())
     else:
         h = dropout(h, rate, gen, deterministic)
     return linear(params["lin2"], h, compute_dtype)

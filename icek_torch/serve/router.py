@@ -242,7 +242,10 @@ def _replica_env(i: int, base_env, env_extra) -> dict:
     """Per-replica environment: ``ICEK_SERVE_DEVICE=i`` plus, when neither
     the operator's environment nor `env_extra` already sets
     ``CUDA_VISIBLE_DEVICES``, ``CUDA_VISIBLE_DEVICES=i``: replica i then
-    sees card i only (as its device 0) and cannot allocate on the others."""
+    sees card i only (as its device 0) and cannot allocate on the others.
+    Where the operator set it, the replica's ``serve`` picks card
+    ``i % (cards it sees)`` from ``ICEK_SERVE_DEVICE``
+    (``apps.serve_device``)."""
     env = dict(base_env, ICEK_SERVE_DEVICE=str(i), **(env_extra or {}))
     env.setdefault("CUDA_VISIBLE_DEVICES", str(i))
     return env

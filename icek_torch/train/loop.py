@@ -1,6 +1,5 @@
 """The training run: the epoch loop with the reference's plateau decay and
-early stop (geo-aware/train.py:57-220); port of ``icek_tpu/train/loop.py``
-for one process and one device.
+early stop (geo-aware/train.py:57-220); port of ``icek_tpu/train/loop.py``.
 
 As in the JAX package:
   * the frozen image encoder runs once per split (the token cache), and on
@@ -12,7 +11,12 @@ As in the JAX package:
     on SIGTERM) resume bit-identically: the loader skips the epoch's prefix
     and every step's dropout generator is seeded from (seed, epoch, global
     batch index) (``step_generator``), the port's counterpart of
-    ``fold_in(fold_in(k_train, epoch), i)``.
+    ``fold_in(fold_in(k_train, epoch), i)``;
+  * under a (data, model) mesh (``parallel/mesh.py``, one process per card)
+    the params shard, each process loads its data index's rows of every
+    global batch, and every process gathers the sharded tables before a
+    checkpoint that only the primary writes, in the single-process format
+    (a run saved on one world size resumes on another).
 The log lines are the JAX package's, word for word.
 """
 
@@ -80,24 +84,38 @@ def step_generator(seed: int, epoch: int, i: int) -> torch.Generator:
     return torch.Generator().manual_seed((int(words[0]) << 31) ^ int(words[1]))
 
 
+def _data_slice(mesh) -> dict:
+    """The loader's process arguments: this rank's data index and the data
+    axis's size under a mesh (ranks of one data index load the same rows)."""
+    if mesh is None:
+        return {}
+    from icek_torch.parallel import mesh as mesh_lib
+
+    return {"process_index": mesh_lib.axis_index(mesh, mesh_lib.DATA_AXIS),
+            "process_count": mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS)}
+
+
 def run_epoch(
     train_step, params, opt_state, encoder_params, data: ds.CaptionDataset,
     batch_size: int, seed: int, epoch: int, print_freq: int = 100,
     log: Callable[[str], None] = print, enc_opt_state=None,
     bn_train_mode: bool = False, raw_images: bool = False,
-    start_batch: int = 0, step_callback=None, device="cuda",
+    start_batch: int = 0, step_callback=None, device="cuda", mesh=None, timer=None,
 ):
     """One epoch from batch ``start_batch`` on.  On CUDA the losses stay on
     the device and are read at print boundaries and at the end; on the CPU
     every step.  ``step_callback(i, params, opt_state, encoder_params,
     enc_opt_state)`` runs after every step (the fault-tolerance hook; may
-    raise :class:`Preempted` after saving)."""
+    raise :class:`Preempted` after saving).  Under `mesh` `batch_size` is
+    the global batch and this process loads its rows of it.  `timer` (a
+    ``profiling.StepTimer``) splits each iteration into data and step time."""
     batch_time, data_time, losses = Meter(), Meter(), Meter()
+    timer = timer if timer is not None else profiling.StepTimer()
     start = time.time()
     n_batches = -(-len(data) // batch_size)
     batches = ds.prefetch(
         data.epoch_batches(batch_size, shuffle=True, seed=epoch, raw_images=raw_images,
-                           start_batch=start_batch),
+                           start_batch=start_batch, **_data_slice(mesh)),
         ds.stage_to(device),
     )
     fine_tune = enc_opt_state is not None
@@ -112,6 +130,7 @@ def run_epoch(
     for i, (batch, ready) in enumerate(batches, start=start_batch):
         data_time.update(time.time() - start)
         batch = ds.wait_staged(batch, ready)
+        timer.data_ready()
         gen = step_generator(seed, epoch, i)
         if fine_tune:
             (params, opt_state, encoder_params, enc_opt_state, loss,
@@ -131,6 +150,7 @@ def run_epoch(
             losses.update(float(loss), int(count))
         if step_callback is not None:
             step_callback(i, params, opt_state, encoder_params, enc_opt_state)
+        timer.step_done()
         batch_time.update(time.time() - start)
         start = time.time()
         if i % print_freq == 0:
@@ -147,12 +167,13 @@ def run_epoch(
 def run_validation(
     eval_step, params, encoder_params, data: ds.CaptionDataset,
     batch_size: int, print_freq: int = 100, log: Callable[[str], None] = print,
-    raw_images: bool = False, device="cuda",
+    raw_images: bool = False, device="cuda", mesh=None,
 ):
     losses = Meter()
     n_batches = -(-len(data) // batch_size)
     batches = ds.prefetch(
-        data.epoch_batches(batch_size, shuffle=False, raw_images=raw_images),
+        data.epoch_batches(batch_size, shuffle=False, raw_images=raw_images,
+                           **_data_slice(mesh)),
         ds.stage_to(device),
     )
     staged = torch.device(device).type == "cuda"
@@ -194,6 +215,21 @@ def resolve_token_cache_placement(
     return None
 
 
+class _GatheredOptState:
+    """An ``OptState`` as a checkpoint sees it under a mesh: ``export``
+    gives the moments all-gathered to full size (built on every process,
+    the collective, before the primary writes)."""
+
+    def __init__(self, opt_state, params, mesh, specs):
+        from icek_torch.parallel import mesh as mesh_lib
+
+        self.state = opt_state.export(
+            params, gather=lambda tree: mesh_lib.gather_for_host(tree, mesh, specs))
+
+    def export(self, _params):
+        return self.state
+
+
 def train(
     cfg: Config,
     data_dir: str,
@@ -211,9 +247,17 @@ def train(
 ) -> TrainResult:
     """Full training run for one preset on `device` ("cuda" unless the
     caller asks for the CPU); returns the best params.  `resume_from` takes
-    the port's ``.pt`` checkpoints and JAX ``.msgpack`` ones."""
+    the port's ``.pt`` checkpoints and JAX ``.msgpack`` ones.
+
+    With `mesh` (``parallel/mesh.py::make_mesh``) every process of the mesh
+    calls this: ``tc.batch_size`` is the GLOBAL batch, the run is on the
+    mesh's device, and the returned params are this rank's shards."""
+    mesh_lib = None
     if mesh is not None:
-        raise NotImplementedError("train: a mesh is not ported yet (the mesh slice)")
+        from icek_torch.parallel import distributed
+        from icek_torch.parallel import mesh as mesh_lib
+
+        device = mesh_lib.mesh_device(mesh)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train: device 'cuda' requested but no CUDA device is "
@@ -284,6 +328,17 @@ def train(
             + (" (stale counter reset)" if reset_epochs_since_improvement else "")
         )
 
+    specs = None
+    primary = True
+    if mesh is not None:
+        params, specs = mesh_lib.shard_params(params, mesh)
+        primary = distributed.process_info().is_primary
+        if restored_opt is not None:
+            # checkpoints hold full-size moments: keep this rank's blocks
+            local = lambda t, spec: mesh_lib.local_slice(t, spec, mesh)  # noqa: E731
+            restored_opt = dict(restored_opt,
+                                mu=mesh_lib.map_specs(restored_opt["mu"], specs, local),
+                                nu=mesh_lib.map_specs(restored_opt["nu"], specs, local))
     params = bridge.trainable(params, device)
     encoder_params = bridge.to_device(encoder_params, device)
     optimizer = step_lib.make_optimizer(tc.decoder_lr, tc.grad_clip)
@@ -320,7 +375,10 @@ def train(
 
     # the train split's tokens in device memory when they fit the budget:
     # batches carry row ids and the step gathers the tokens on the device
-    token_cache = None
+    # Under a mesh a cache within one card's budget is replicated; one that
+    # exceeds it but whose data shard fits is row-sharded over the data axis
+    # (mesh.shard_rows) and read with mesh.sharded_row_gather.
+    token_cache = token_cache_mesh = None
     if (not encode_images and device.type != "cpu" and tc.device_token_cache_gb > 0
             and train_data.image_tokens is not None):
         tokens = train_data.image_tokens
@@ -328,14 +386,23 @@ def train(
         # stored in the compute dtype on the card
         row_bytes = int(np.prod(tokens.shape[1:])) * compute_dtype.itemsize
         nbytes = n_rows * row_bytes
+        dp = mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS) if mesh is not None else 1
         placement = resolve_token_cache_placement(
-            n_rows, row_bytes, tc.device_token_cache_gb, 1)
+            n_rows, row_bytes, tc.device_token_cache_gb, dp)
         if placement == "replicated":
             # np.asarray(tokens[:]) reads a streaming split's disk cache whole
             token_cache = torch.from_numpy(np.asarray(tokens[:])).to(device).to(compute_dtype)
             train_data.use_token_rows = True
-            log(f"device token cache: {nbytes / 2**20:.0f} MiB in HBM; "
+            log(f"device token cache: {nbytes / 2**20:.0f} MiB in HBM"
+                f"{' (replicated over mesh)' if mesh is not None else ''}; "
                 "batches carry row ids only")
+        elif placement == "sharded":
+            token_cache = mesh_lib.shard_rows(tokens, mesh, compute_dtype)
+            token_cache_mesh = mesh
+            train_data.use_token_rows = True
+            log(f"device token cache: {nbytes / 2**20:.0f} MiB row-sharded over {dp} "
+                f"data shards ({nbytes / dp / 2**20:.0f} MiB/card); batches carry "
+                "row ids only")
 
     train_step, eval_step = step_lib.make_train_step(
         cfg, vocab_size, pad_id, optimizer,
@@ -344,18 +411,35 @@ def train(
         encoder_optimizer=encoder_optimizer,
         bn_train_mode=tc.bn_train_mode,
         token_cache=token_cache,
+        token_cache_mesh=token_cache_mesh,
         device=device,
+        mesh=mesh,
+        param_specs=specs,
     )
 
-    metric_log = profiling.MetricLogger(os.environ.get("ICEK_METRICS_LOG") or None)
+    # one writer of the metric log under a mesh
+    metric_log = profiling.MetricLogger(
+        (os.environ.get("ICEK_METRICS_LOG") or None) if primary else None)
     profile_dir = profiling.profile_dir_from_env()
 
     # fault tolerance: a SIGTERM sets the flag; the step callback then writes
-    # the rolling STEP checkpoint and unwinds through Preempted
+    # the rolling STEP checkpoint and unwinds through Preempted.  Interval
+    # saves are deterministic across processes, so they stay on under a
+    # mesh; the signal path is single-process only.
     preempt_flag = threading.Event()
     prev_handler = None
     catch_signals = (tc.save_on_preempt
+                     and (mesh is None or distributed.process_info().count == 1)
                      and threading.current_thread() is threading.main_thread())
+
+    def host_state(p, o, e):
+        """(params, optimizer state, encoder params) full-size for a
+        checkpoint: under a mesh the sharded tables and their moments
+        all-gathered (a collective every process joins)."""
+        if mesh is None:
+            return p, o, e
+        return (mesh_lib.gather_for_host(p, mesh, specs),
+                _GatheredOptState(o, p, mesh, specs), e)
     if catch_signals:
         prev_handler = signal.signal(signal.SIGTERM, lambda *_: preempt_flag.set())
 
@@ -368,11 +452,15 @@ def train(
             preempt = preempt_flag.is_set()
             if not preempt and not (every and (i + 1) % every == 0):
                 return
-            path = ckpt.save_checkpoint(
-                checkpoint_dir, cfg.data.base_name, epoch, stale, best_loss, p, o, e,
-                step=i + 1, extra_meta={"geometry": config_lib.geometry_of(cfg)})
+            save_p, save_o, save_e = host_state(p, o, e)
+            if primary:
+                path = ckpt.save_checkpoint(
+                    checkpoint_dir, cfg.data.base_name, epoch, stale, best_loss,
+                    save_p, save_o, save_e, step=i + 1,
+                    extra_meta={"geometry": config_lib.geometry_of(cfg)})
+                if preempt:
+                    log(f"PREEMPTED: saved {path} at epoch {epoch} batch {i + 1}")
             if preempt:
-                log(f"PREEMPTED: saved {path} at epoch {epoch} batch {i + 1}")
                 raise Preempted
         return step_cb
 
@@ -390,6 +478,7 @@ def train(
                         enc_opt_state, tc.lr_decay_factor)
                 log("DECAYING learning rate to "
                     f"{float(opt_state.hyperparams['learning_rate']):.6f}")
+            timer = profiling.StepTimer()
             try:
                 with profiling.trace(profile_dir if epoch == start_epoch else None):
                     (params, opt_state, train_loss, encoder_params,
@@ -401,30 +490,34 @@ def train(
                         raw_images=raw_image_batches,
                         start_batch=resume_step if epoch == start_epoch else 0,
                         step_callback=make_step_callback(epoch, stale, best_loss),
-                        device=device,
+                        device=device, mesh=mesh, timer=timer,
                     )
             except Preempted:
                 preempted = True
                 break
             val_loss = run_validation(
                 eval_step, params, encoder_params, val_data, tc.batch_size,
-                tc.print_freq, log, raw_images=raw_image_batches, device=device)
+                tc.print_freq, log, raw_images=raw_image_batches, device=device,
+                mesh=mesh)
             metric_log.log("epoch", epoch=epoch, train_loss=train_loss, val_loss=val_loss,
-                           lr=float(opt_state.hyperparams["learning_rate"]))
+                           lr=float(opt_state.hyperparams["learning_rate"]),
+                           **timer.summary())
             is_best = val_loss < best_loss
             best_loss = min(val_loss, best_loss)
             stale = 0 if is_best else stale + 1
             if not is_best:
                 log(f"Epochs since last improvement: {stale}")
-            ckpt.save_checkpoint(
-                checkpoint_dir, cfg.data.base_name, epoch, stale, val_loss,
-                params, opt_state, encoder_params, is_best,
-                extra_meta={"geometry": config_lib.geometry_of(cfg)})
-            # the completed epoch outranks any STEP file from its interior
-            step_file = os.path.join(checkpoint_dir,
-                                     f"checkpoint_STEP_{cfg.data.base_name}.pt")
-            if os.path.exists(step_file):
-                os.remove(step_file)
+            save_p, save_o, save_e = host_state(params, opt_state, encoder_params)
+            if primary:
+                ckpt.save_checkpoint(
+                    checkpoint_dir, cfg.data.base_name, epoch, stale, val_loss,
+                    save_p, save_o, save_e, is_best,
+                    extra_meta={"geometry": config_lib.geometry_of(cfg)})
+                # the completed epoch outranks any STEP file from its interior
+                step_file = os.path.join(checkpoint_dir,
+                                         f"checkpoint_STEP_{cfg.data.base_name}.pt")
+                if os.path.exists(step_file):
+                    os.remove(step_file)
     finally:
         if catch_signals:
             signal.signal(signal.SIGTERM, prev_handler)

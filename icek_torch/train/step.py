@@ -13,20 +13,31 @@ norm; gradient accumulation.  Where JAX returns new trees, the port updates
 the trees and the optimizer states in place and returns the same objects;
 where JAX threads a PRNG key, the step takes a CPU ``torch.Generator``.
 Loss and token count come back as 0-d tensors on the step's device (reading
-them is the caller's synchronisation).  A row-sharded token cache
-(``token_cache_mesh``) waits for the mesh.
+them is the caller's synchronisation).
+
+Under a (data, model) mesh (``parallel/mesh.py``) every rank steps on its
+local rows: the model-sharded tables are all-gathered for the forward, the
+token count and the gradients of the summed NLL are all-reduced over the
+data axis, and each rank keeps its slice of the tables' gradients, so
+Adam's moments of the tables live sharded.  Dropout masks are keyed by
+global batch row (``transformer.batch_rows``), as JAX's are under its mesh.
+A row-sharded token cache (``token_cache_mesh``) is read with
+``mesh.sharded_row_gather``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import torch
+import torch.distributed as dist
 
 from icek_torch.core.config import Config
 from icek_torch.data import images as image_ops
 from icek_torch.models import captioner as cap
 from icek_torch.models import resnet
+from icek_torch.models import transformer as tfm
 
 
 # --------------------------------------------------------------------------
@@ -136,11 +147,14 @@ class OptState:
             return int(st["step"])
         return 0
 
-    def export(self, params) -> Dict:
+    def export(self, params, gather=None) -> Dict:
         """The state as CPU tensors keyed by param path: {"step",
         "learning_rate", "mu", "nu"}, the moment trees shaped like
-        `params` (what a checkpoint stores)."""
+        `params` (what a checkpoint stores).  `gather` maps each moment tree
+        first (under a mesh: to full size, ``mesh.gather_for_host``)."""
         mu, nu = self.moments(params)
+        if gather is not None:
+            mu, nu = gather(mu), gather(nu)
         cpu = lambda t, _path: t.detach().to("cpu", copy=True)  # noqa: E731
         return {"step": self.step_count(),
                 "learning_rate": float(self.hyperparams["learning_rate"]),
@@ -297,6 +311,8 @@ def make_train_step(
     token_cache=None,
     token_cache_mesh=None,
     device="cuda",
+    mesh=None,
+    param_specs=None,
 ):
     """Build (train_step, eval_step).
 
@@ -305,7 +321,8 @@ def make_train_step(
     "fact_features" (B, F, 3); numpy arrays or tensors, moved to `device` by
     the step.  Its image input: with ``encode_images=False`` precomputed
     tokens (B, 196, D) under "image_tokens", or "token_rows" (B,) into
-    `token_cache`, one device tensor of the split's tokens; otherwise
+    `token_cache`, one device tensor of the split's tokens (this rank's block
+    of a row-sharded cache when `token_cache_mesh` is given); otherwise
     "raw_images" (stored f16 CHW rows) or "images" (normalized NHWC), and the
     ResNet runs inside the step with no gradient into it, unless
     `encoder_optimizer` (``make_encoder_optimizer``) fine-tunes it.
@@ -331,13 +348,29 @@ def make_train_step(
     NLL add across them and are scaled once by 1 / total_tokens, which
     equals the full-batch mean-loss gradient up to float associativity
     while peak activation memory is one microbatch's.
+
+    With `mesh` (``parallel/mesh.py::make_mesh``) the batch holds this
+    rank's rows of the global batch (``mesh.shard_batch``, or the loaders'
+    process slice), `params` are this rank's and `param_specs` their specs
+    (both from ``mesh.shard_params``), `gen` is seeded alike on every rank,
+    and the step runs on the mesh's device.  An axis of size 1 calls no
+    collective.  Loss and token count are the
+    global batch's.  Under ``grad_accum_steps`` > 1 each rank splits its own
+    rows, so with dropout on the masks follow the mesh's microbatches, not
+    the single-device ones.
     """
-    if token_cache_mesh is not None:
-        raise NotImplementedError("make_train_step: token_cache_mesh (a row-sharded "
-                                  "token cache) waits for the mesh")
+    from icek_torch.parallel import mesh as mesh_lib
+
+    for name, m in (("mesh", mesh), ("token_cache_mesh", token_cache_mesh)):
+        if m is not None and not mesh_lib.is_mesh(m):
+            raise TypeError(f"make_train_step: {name} must be a (data, model) "
+                            f"DeviceMesh (parallel/mesh.py::make_mesh), got {type(m)}")
+    if token_cache_mesh is not None and token_cache is None:
+        raise ValueError("make_train_step: token_cache_mesh without a token_cache")
+    mesh = mesh if mesh is not None else token_cache_mesh
     if bn_train_mode and not encode_images:
         raise ValueError("bn_train_mode requires encode_images=True")
-    device = torch.device(device)
+    device = torch.device(device) if mesh is None else mesh_lib.mesh_device(mesh)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("make_train_step: device 'cuda' requested but no CUDA "
                            "device is available; pass device='cpu' to run there")
@@ -350,6 +383,32 @@ def make_train_step(
     if accum > 1 and bn_train_mode:
         raise ValueError("grad_accum_steps > 1 is incompatible with bn_train_mode: "
                          "batch-norm batch statistics are defined over the full batch")
+    S = M = 1
+    if mesh is not None:
+        S = mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS)
+        M = mesh_lib.axis_size(mesh, mesh_lib.MODEL_AXIS)
+        d_index = mesh_lib.axis_index(mesh, mesh_lib.DATA_AXIS)
+        data_group = mesh_lib.axis_group(mesh, mesh_lib.DATA_AXIS)
+        if M > 1 and param_specs is None:
+            raise ValueError("make_train_step: a mesh with a model axis needs the "
+                             "param_specs that mesh.shard_params returned")
+
+    def all_sum(t):
+        """`t` summed over the data axis (itself on one data shard)."""
+        if S > 1:
+            dist.all_reduce(t, group=data_group)
+        return t
+
+    def rows(b_local):
+        """Dropout masks keyed by global batch row, BN statistics over the
+        global batch (a mesh with more than one data shard)."""
+        if mesh is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(tfm.batch_rows(d_index * b_local, S * b_local))
+        if bn_train_mode and S > 1:
+            stack.enter_context(resnet.sync_batch_stats(data_group))
+        return stack
 
     def image_tokens(encoder_params, batch, train):
         """(tokens in the compute dtype, the encoder tree with train-mode
@@ -358,7 +417,11 @@ def make_train_step(
         calls encoder.eval()) and takes no gradient."""
         if not encode_images:
             if token_cache is not None and "token_rows" in batch:
-                toks = token_cache.index_select(0, batch["token_rows"])
+                if token_cache_mesh is not None:
+                    toks = mesh_lib.sharded_row_gather(token_cache, batch["token_rows"],
+                                                       token_cache_mesh)
+                else:
+                    toks = token_cache.index_select(0, batch["token_rows"])
             else:
                 toks = batch["image_tokens"]
             return toks.to(compute_dtype), None
@@ -372,16 +435,17 @@ def make_train_step(
     def forward_total(params, encoder_params, batch, gen, deterministic, train=True):
         """(summed NLL, token count, the encoder tree with train-mode
         statistics or None) for one batch or microbatch."""
-        tokens, new_enc = image_tokens(encoder_params, batch, train)
-        scores = cap.captioner_forward(
-            params, mcfg, vocab_size, pad_id, batch["caption_ids"],
-            batch["caption_mask"], tokens, batch["entity_features"],
-            batch.get("fact_features"), gen=gen, deterministic=deterministic,
-            compute_dtype=compute_dtype,
-            # the (B, T, V+E) scores stay in the compute dtype through the
-            # loss; _token_nll reads and writes them with f32 accumulation
-            score_dtype=compute_dtype,
-        )
+        with rows(batch["caption_ids"].shape[0]):
+            tokens, new_enc = image_tokens(encoder_params, batch, train)
+            scores = cap.captioner_forward(
+                params, mcfg, vocab_size, pad_id, batch["caption_ids"],
+                batch["caption_mask"], tokens, batch["entity_features"],
+                batch.get("fact_features"), gen=gen, deterministic=deterministic,
+                compute_dtype=compute_dtype,
+                # the (B, T, V+E) scores stay in the compute dtype through the
+                # loss; _token_nll reads and writes them with f32 accumulation
+                score_dtype=compute_dtype,
+            )
         total, count = caption_loss_total(scores, batch["caption_ids"],
                                           batch["lengths"], pad_id)
         return total, count, new_enc
@@ -390,6 +454,9 @@ def make_train_step(
         B = next(iter(batch.values())).shape[0]
         pad = (-B) % accum
         size = (B + pad) // accum
+        if token_cache_mesh is not None:
+            # the single-device step's microbatch over the global batch
+            mesh_lib.check_gather_rows(-(-B * S // accum), token_cache_mesh)
         for i in range(accum):
             micro = {}
             for k, v in batch.items():
@@ -398,23 +465,68 @@ def make_train_step(
                 micro[k] = v[i * size:(i + 1) * size]
             yield micro
 
+    # (local leaf, the all-gathered leaf its forward reads) of the sharded tables
+    gathered = []
+
+    def forward_params(params):
+        """The param tree the forward reads: the model-sharded tables
+        all-gathered to full size, as new autograd leaves (on a model axis
+        of size 1 the params themselves)."""
+        gathered.clear()
+        if M == 1:
+            return params
+
+        def leaf(p, spec):
+            if mesh_lib.sharded_dim(spec) is None:
+                return p
+            full = mesh_lib.gather_table(p, spec, mesh).requires_grad_(p.requires_grad)
+            gathered.append((p, full, spec))
+            return full
+
+        return mesh_lib.map_specs(params, param_specs, leaf)
+
+    def reduce_grads(trees):
+        """Every gradient summed over the data axis in one flat all-reduce a
+        dtype (none on one data shard), then each gathered table keeps its
+        slice."""
+        if S > 1:
+            held = {id(p) for p, _, _ in gathered}
+            grads = [full.grad for _, full, _ in gathered if full.grad is not None]
+            grads += [p.grad for tree in trees for p in tree_leaves(tree)
+                      if id(p) not in held and p.grad is not None]
+            for dtype in sorted({g.dtype for g in grads}, key=str):
+                group = [g for g in grads if g.dtype == dtype]
+                flat = torch._utils._flatten_dense_tensors(group)
+                dist.all_reduce(flat, group=data_group)
+                for g, r in zip(group, torch._utils._unflatten_dense_tensors(flat, group)):
+                    g.copy_(r)
+        for p, full, spec in gathered:
+            if full.grad is not None:
+                p.grad = mesh_lib.local_slice(full.grad, spec, mesh).contiguous()
+
     def grads(params, encoder_params, batch, gen):
         """Gradients into .grad; returns (loss, count, new_enc)."""
+        trees = (params, encoder_params) if fine_tune else (params,)
+        fwd = forward_params(params)
         if accum == 1:
-            total, count, new_enc = forward_total(params, encoder_params, batch, gen,
+            total, count, new_enc = forward_total(fwd, encoder_params, batch, gen,
                                                   False)
-            loss = total / count.clamp(min=1)
+            # under a mesh the global token count scales every rank's backward
+            loss = total / all_sum(count).clamp(min=1)
             loss.backward()
-            return loss.detach(), count, new_enc
+            reduce_grads(trees)
+            return all_sum(loss.detach()), count, new_enc
         total = torch.zeros((), dtype=torch.float32, device=device)
         count = torch.zeros((), dtype=torch.int64, device=device)
         for micro in microbatches(batch):
-            tot, cnt, _ = forward_total(params, encoder_params, micro, gen, False)
+            tot, cnt, _ = forward_total(fwd, encoder_params, micro, gen, False)
             tot.backward()                     # .grad sums the microbatches
             total += tot.detach()
             count += cnt
+        reduce_grads(trees)
+        all_sum(total)
+        all_sum(count)
         inv = 1.0 / count.clamp(min=1).to(torch.float32)
-        trees = (params, encoder_params) if fine_tune else (params,)
         for tree in trees:
             for p in tree_leaves(tree):
                 if p.grad is not None:
@@ -445,9 +557,11 @@ def make_train_step(
 
     def eval_step(params, encoder_params, batch):
         with torch.no_grad():
-            total, count, _ = forward_total(params, encoder_params,
+            total, count, _ = forward_total(forward_params(params), encoder_params,
                                             _to_device(batch, device), None, True,
                                             train=False)
+            if S > 1:
+                total, count = all_sum(total.clone()), all_sum(count.clone())
         return total / count.clamp(min=1), count
 
     return train_step, eval_step

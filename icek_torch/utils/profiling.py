@@ -1,9 +1,11 @@
-"""Tracing and structured logging (port of ``icek_tpu/utils/profiling.py``,
-the parts the train loop uses).
+"""Tracing, step timing and structured logging (port of
+``icek_tpu/utils/profiling.py``).
 
   * ``trace(logdir)``: a ``torch.profiler`` session over the block that
     writes a Chrome trace (``trace.json``) into `logdir`; with no directory
     it does nothing (enable in training with ``ICEK_PROFILE_DIR=/path``);
+  * ``StepTimer``: the data-load / step split of each iteration (the train
+    loop's epoch record carries its summary);
   * ``MetricLogger``: line-JSON records next to the human-readable prints.
 """
 
@@ -13,7 +15,7 @@ import contextlib
 import json
 import os
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 
 @contextlib.contextmanager
@@ -33,6 +35,35 @@ def trace(logdir: Optional[str] = None):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+class StepTimer:
+    """Tracks data-load time vs step (compute) time per iteration."""
+
+    def __init__(self):
+        self.data_s = 0.0
+        self.step_s = 0.0
+        self.steps = 0
+        self._mark = time.perf_counter()
+
+    def data_ready(self):
+        now = time.perf_counter()
+        self.data_s += now - self._mark
+        self._mark = now
+
+    def step_done(self):
+        now = time.perf_counter()
+        self.step_s += now - self._mark
+        self._mark = now
+        self.steps += 1
+
+    def summary(self) -> Dict[str, float]:
+        n = max(self.steps, 1)
+        return {
+            "steps": self.steps,
+            "avg_data_ms": 1000.0 * self.data_s / n,
+            "avg_step_ms": 1000.0 * self.step_s / n,
+        }
 
 
 class MetricLogger:

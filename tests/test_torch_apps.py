@@ -210,21 +210,27 @@ def test_train_cli_resume_applies_recorded_geometry(tiny_preset, monkeypatch, tm
     ("serve", ["--encoder-qtree", "q.pt"]),
 ])
 def test_unported_flags_exit_non_zero(verb, flag, capsys):
-    """--distributed and --mesh still wait for the mesh slice: exit 2 naming
-    it.  --streaming, --encoder-int8 and --encoder-qtree are ported: they
-    pass the parser and the run fails on the absent files instead."""
+    """Every flag is ported: each passes the parser and the run fails where
+    the arguments are wrong.  --distributed without a topology raises JAX's
+    RuntimeError; --mesh 4,1 in a world of one process raises; --mesh auto
+    runs a single-rank gloo group, which the run destroys when it fails on
+    the absent files, as --streaming, --encoder-int8 and --encoder-qtree do."""
+    import torch.distributed as dist
+
     argv = ["--data-dir", "absent", "--device", "cpu"] + flag
     if verb != "train":
         argv += ["--checkpoint", "absent.pt"]
-    if flag[0][2:].replace("-", "_") in apps.UNPORTED:
-        with pytest.raises(SystemExit) as exc:
+    if flag == ["--distributed"]:
+        with pytest.raises(RuntimeError, match="no multi-process topology"):
             apps.RUNNERS[verb]("georic", argv)
-        assert exc.value.code != 0
-        assert "not ported yet" in capsys.readouterr().err
+    elif flag == ["--mesh", "4,1"]:
+        with pytest.raises(ValueError, match="needs 4 processes"):
+            apps.RUNNERS[verb]("georic", argv)
     else:
         with pytest.raises(FileNotFoundError):
             apps.RUNNERS[verb]("georic", argv)
-        assert "not ported yet" not in capsys.readouterr().err
+    assert "not ported yet" not in capsys.readouterr().err
+    assert not dist.is_initialized()
 
 
 @pytest.mark.parametrize("verb", apps.VERBS)

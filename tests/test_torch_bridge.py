@@ -105,7 +105,10 @@ def test_port_imports_nothing_of_jax():
             "icek_torch/native/__init__.py", "icek_torch/metrics/bleu.py",
             "icek_torch/metrics/cider.py", "icek_torch/metrics/meteor.py",
             "icek_torch/metrics/rouge.py", "icek_torch/metrics/scores.py",
-            "icek_torch/metrics/ne_pr.py", "icek_torch/apps/validate.py"} <= names
+            "icek_torch/metrics/ne_pr.py", "icek_torch/apps/validate.py",
+            "icek_torch/parallel/mesh.py", "icek_torch/parallel/distributed.py",
+            "icek_torch/utils/roofline.py", "icek_torch/tools/profile_train_step.py",
+            "icek_torch/tools/profile_eval.py", "icek_torch/tools/_synthetic.py"} <= names
 
 
 def test_port_import_loads_no_jax_subprocess():
@@ -121,7 +124,10 @@ def test_port_import_loads_no_jax_subprocess():
         "icek_torch.apps, icek_torch.utils.profiling, icek_torch.models.resnet_int8, "
         "icek_torch.kernels.int8_conv, icek_torch.data.context, "
         "icek_torch.data.input_files, icek_torch.data.streaming, icek_torch.native, "
-        "icek_torch.metrics.scores, icek_torch.metrics.ne_pr, icek_torch.apps.validate; "
+        "icek_torch.metrics.scores, icek_torch.metrics.ne_pr, icek_torch.apps.validate, "
+        "icek_torch.parallel.mesh, icek_torch.parallel.distributed, "
+        "icek_torch.utils.roofline, icek_torch.tools.profile_train_step, "
+        "icek_torch.tools.profile_eval, icek_torch.tools._synthetic; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN | {'msgpack', 'h5py'})!r}]; "
         "assert not bad, bad"
@@ -215,10 +221,10 @@ def test_train_step_imports_without_cuda_nvcc_or_triton():
 
 
 def test_make_train_step_refuses_missing_card_and_unported_options():
-    """The missing card raises; a row-sharded token cache waits for the mesh;
-    bn_train_mode without encode_images is JAX's ValueError.  The options
-    ported since (the ResNet in the step, fine-tuning, train-mode batch norm,
-    the device token cache) build."""
+    """The missing card raises; a row-sharded token cache needs a mesh (a
+    DeviceMesh, and the cache itself); bn_train_mode without encode_images
+    is JAX's ValueError.  The options ported since (the ResNet in the step,
+    fine-tuning, train-mode batch norm, the device token cache) build."""
     from icek_torch.train import step as tstep
 
     _, tc = small_cfgs()
@@ -226,7 +232,7 @@ def test_make_train_step_refuses_missing_card_and_unported_options():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA"):
             tstep.make_train_step(tc, 30, 0, opt, encode_images=False)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="token_cache_mesh must be a"):
         tstep.make_train_step(tc, 30, 0, opt, encode_images=False,
                               token_cache_mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="requires encode_images"):

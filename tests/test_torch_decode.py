@@ -64,9 +64,10 @@ def test_beam_kernel_paths_agree_in_port():
 
 
 def test_unported_cases_raise():
-    """What is still not ported raises: a mesh.  The int8 KV options are
-    ported (tests/test_torch_int8_kv.py); an unknown kv_dtype, and int8 with
-    the decoder-step kernel asked for, raise ValueError as in JAX."""
+    """What is not a mesh is refused as one (the mesh is ported:
+    tests/test_torch_distributed.py).  The int8 KV options are ported
+    (tests/test_torch_int8_kv.py); an unknown kv_dtype, and int8 with the
+    decoder-step kernel asked for, raise ValueError as in JAX."""
     import dataclasses
 
     from icek_torch import eval_driver as tev
@@ -79,7 +80,7 @@ def test_unported_cases_raise():
     int4 = tc.replace(decode=dataclasses.replace(tc.decode, kv_dtype="int4"))
     with pytest.raises(ValueError, match="kv_dtype"):
         tev.Evaluator(int4, None, {}, {}, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="mesh must be a"):
         tev.Evaluator(tc, None, {}, {}, device="cpu", mesh=object())
 
 

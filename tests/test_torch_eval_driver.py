@@ -99,5 +99,5 @@ def test_batch_size_and_dtype_defaults(setup):
     assert 0 <= out.min() and out.max() < V + E
     with pytest.raises(ValueError, match="no image input"):
         ev.decode_batch({"entity_features": s["batch"]["entity_features"]})
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="mesh must be a"):
         tev.Evaluator(s["tc"], s["twm"], {}, {}, device="cpu", mesh=object())

@@ -1640,3 +1640,40 @@ def test_int8_encode_on_card_runs_104_sites_and_matches_plain(cuda):
     assert (k8.conv_site.launches - before[0], k8.max_pool.launches - before[1]) == (104, 1)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
                                atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_kernels_key_masks_by_global_row(cuda, dtype):
+    """A data-parallel rank's call on rows b0.. of a batch of B (rows=(b0, B))
+    draws those rows of the whole batch's masks: forward and backward of the
+    LayerNorm and FFN dropouts and of flash attention equal the whole call's
+    rows bit for bit, and both keep_masks give the rows of the whole mask."""
+    from icek_torch.kernels import fused_norm as tfn
+
+    g = _gen(7)
+    B, b0, b, T, D, F, H, Hd = 12, 5, 4, 7, 300, 512, 10, 30
+    assert torch.equal(tfn.keep_mask(b * T, D, rate=0.2, seed=9, device=cuda, first_row=b0 * T),
+                       tfn.keep_mask(B * T, D, rate=0.2, seed=9, device=cuda)[b0 * T:(b0 + b) * T])
+    assert torch.equal(tfa.keep_mask(b, H, T, 33, rate=0.2, seed=9, device=cuda, first=b0),
+                       tfa.keep_mask(B, H, T, 33, rate=0.2, seed=9, device=cuda)[b0:b0 + b])
+    x, h = (torch.randn((B, T, D), generator=g).to(cuda, dtype) for _ in range(2))
+    f = torch.randn((B, T, F), generator=g).to(cuda, dtype)
+    q, k, v = (torch.randn((B, T, H, Hd), generator=g).to(cuda, dtype) for _ in range(3))
+    scale, bias = torch.ones(D, device=cuda), torch.zeros(D, device=cuda)
+    sites = (
+        (lambda t, r: tfn.dropout_add_ln(t[0], t[1], scale, bias, rate=0.2, seed=3, rows=r),
+         (x, h)),
+        (lambda t, r: tfn.hw_dropout(t[0], rate=0.2, seed=4, rows=r), (f,)),
+        (lambda t, r: tfa.flash_mha(t[0], t[1], t[2], causal=True, dropout_rate=0.2,
+                                    seed=5, rows=r), (q, k, v)),
+    )
+    for fn, inputs in sites:
+        whole = [t.clone().requires_grad_(True) for t in inputs]
+        part = [t[b0:b0 + b].clone().requires_grad_(True) for t in inputs]
+        out_whole, out_part = fn(whole, None), fn(part, (b0, B))
+        gy = torch.randn(out_whole.shape, generator=g).to(cuda, dtype)
+        out_whole.backward(gy)
+        out_part.backward(gy[b0:b0 + b])
+        assert torch.equal(out_part, out_whole[b0:b0 + b])
+        for p, w in zip(part, whole):
+            assert torch.equal(p.grad, w.grad[b0:b0 + b])

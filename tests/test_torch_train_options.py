@@ -290,6 +290,6 @@ def test_refusals_match_jax():
             step_mod.make_train_step(accum, V, PAD, opt, bn_train_mode=True, **kw)
         auto = cfg.replace(train=dataclasses.replace(cfg.train, grad_accum_steps="auto"))
         step_mod.make_train_step(auto, V, PAD, opt, bn_train_mode=True, **kw)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh must be a"):
         tstep.make_train_step(tc, V, PAD, tstep.make_optimizer(LR), encode_images=False,
                               token_cache_mesh=object(), device="cpu")
