@@ -27,7 +27,10 @@ Phases (any failure raises and exits non-zero):
               forward and backward and the dropout kernel at every row count
               the three presets' train steps give them (norm_rows: 8192 to
               77056), each also timed on the host (the wrapper's own cost a
-              call while the device runs ahead);
+              call while the device runs ahead); the score head's wide first
+              pass at N 640 (geo beam 20) at k 17, 20, 32 and 64, each call's
+              first pass held to its route; the flash backward at rate 0 at
+              every site too (held, and timed as `rate0_ms`, SDPA's work);
   4. serve    each preset at full width (ResNet-101 at 256x256, d=300, 10
               heads, 3 layers (+ 3 fact-encoder layers), V=10000; geo E 301,
               knowledge E 301 / F 51 / P 3000, news E 101 / F 301 / P 3500
@@ -47,14 +50,22 @@ Phases (any failure raises and exits non-zero):
               bf16 with the preset's dropout, one warm-up and 6 (geo) or 3
               timed steps, the training kernels' launch counts read around
               the timed steps and held to the counts the code predicts; the
-              deterministic eval loss must fall; then a 2-sample f32 step
-              without dropout on the card against the same step on the CPU;
+              deterministic eval loss must fall; the geo step again in
+              float32 (the flash backward's TF32 kernels; 3 timed steps, the
+              launches held, the loss falling, beside the bf16 step's
+              samples/s) and, at dropout 0, one f32 step at batch 256 held
+              to the plain path on the card (loss 1e-4, gradients 1e-3 in
+              relative L2 over the tree); then a 2-sample f32
+              step without dropout on the card against the same step on the
+              CPU;
   wide beam   the score head at k 10 and 20 and the decoder step at K 10
               and 20 against their plain versions, then geo beams 10 and 20
               in bf16 and f32 through Evaluator.decode_batch against the
               plain path: every step through the kernels (k 20: the score
-              head's lists in shared memory), each route's count held to the
-              prediction, f32 tokens equal.
+              head's wide first pass, its lists in shared memory), each
+              route's count (the score head's first pass by route too) held
+              to the prediction, f32 tokens equal, captions/s of 3 warm
+              batches.
   7. leave    a user's captions leave the system (captions_leave): at full
               width, bf16, Evaluator.run over an in-memory 600-row split of
               each preset (batches of 256, the last padded; geo with a
@@ -143,7 +154,8 @@ The last two lines are the card's nvidia-smi name/power limit and
     python3 chip_smoke.py --paired <checkout root> <label>
 
 times the geo serving path (3 beam-5 batches after a warm-up), 6 geo train
-steps, 3 news (nytimes800k) train steps, 3 warm greedy batches, the norm
+steps (and 3 in float32), 3 news (nytimes800k) train steps, 3 geo beam-20
+batches of 32 images in bf16 and in f32, 3 warm greedy batches, the norm
 wrappers' host ms a call and the norm kernels' device ms at every
 train-step row count of the port in another checkout (the parent
 of a change, say) with this script's own timing code, and prints one line
@@ -316,12 +328,13 @@ def _flash_one_site(dev, dtype, tol, btol, name, Tq, Tk, causal, serving, relati
     largest expected value where that exceeds 1 (sites whose rows put a few
     keys' worth of v into an output: a bf16 ulp there exceeds the tolerance),
     else absolutely.  Returns (serving record or None, forward record,
-    backward record; the backward's `rate0_ms` when `serving`)."""
+    backward record; the backward's `rate0_ms` at rate 0, SDPA's own work)."""
     from icek_torch.kernels import flash_attention as fa
 
     B, H = BATCH, 10
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q, k, v, d_out = _flash_site(dev, dtype, Tq, Tk)
+    # bf16: the tensor-core kernels; f32: the CUDA-core forward, the TF32 backward
     require(fa.uses_tensor_cores(q, k, v) == (dtype == torch.bfloat16),
             f"flash {name} {dtype}: unexpected kernel family")
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -382,12 +395,14 @@ def _flash_one_site(dev, dtype, tol, btol, name, Tq, Tk, causal, serving, relati
     bound, by = _flash_bounds(dtype, Tq, Tk, causal, True)
     bwd = dict(max_abs_err=err, rel_err=rel, tol=btol, mask_identity=ident, ms=bms_,
                plain_ms=bplain, library_ms=blib, bound_ms=bound, bound_by=by)
-    if serving:                 # the backward at SDPA's own work, rate 0
-        out0 = fa.flash_mha(*leaves)
-        bwd["rate0_ms"] = cuda_ms(
-            lambda: torch.autograd.grad(out0, leaves, d_out, retain_graph=True))
-        del out0
-    del out, lib_out, lib_in
+    # the backward at SDPA's own work, rate 0, held to the plain version too
+    out0, ref0 = fa.flash_mha(*leaves, causal=causal), fa.reference_mha(*leaves, causal=causal)
+    rel0 = _rel_err(torch.autograd.grad(out0, leaves, d_out, retain_graph=True),
+                    torch.autograd.grad(ref0, leaves, d_out))
+    require(rel0 <= btol, f"flash backward {name} {dtype} rate 0: err {rel0} > {btol}")
+    bwd.update(rate0_rel_err=rel0, rate0_ms=cuda_ms(
+        lambda: torch.autograd.grad(out0, leaves, d_out, retain_graph=True)))
+    del out, out0, ref0, lib_out, lib_in
     return res, fwd, bwd
 
 
@@ -397,7 +412,7 @@ def check_flash(dev):
     the kernel's own mask, and at the encoder site at rate 0 (the serving
     shape, and the work SDPA's backward does); returns (forward results,
     backward results) by dtype.  bf16 runs the tensor-core kernels, f32 the
-    CUDA-core ones."""
+    CUDA-core forward and the TF32 backward (three TF32 products a product)."""
     fwd, bwd = {}, {}
     for dtype, tol, btol in FLASH_TOLS:
         f, b = {}, {}
@@ -487,9 +502,9 @@ def _score_inputs(dev, dtype, n, t=ENT_ROWS, predicates=0):
     return h.to(dtype), wv, bv, tail
 
 
-def device_splits(dev, kernels, norm):
+def device_splits(dev, kernels, norm, wide_k):
     """Add to phase 3's records the device time of each of the score head's
-    two kernels (`parts_ms`), and at every row count of `norm` (check_norm_rows's
+    two kernels (`parts_ms`; also at wide k 20, `wide_k`), and at every row count of `norm` (check_norm_rows's
     results) that of the LayerNorm forward and the dropout kernel
     (`device_ms`), of the LayerNorm backward's two kernels (`parts_ms`) and of
     each one's library chain (`library_device_ms`: F.dropout; F.layer_norm(x +
@@ -505,8 +520,12 @@ def device_splits(dev, kernels, norm):
             rec = rec if shape == "beam" else rec["greedy"]
             rec["parts_ms"] = device_split(lambda: cs.fused_score_topk(h, wv, bv, tail, k=k),
                                            ("score_partial", "score_merge"))
+        h, wv, bv, tail = _score_inputs(dev, dtype, WIDE_BATCH * 20)
+        wide_k[dtype][20]["parts_ms"] = device_split(
+            lambda: cs.fused_score_topk(h, wv, bv, tail, k=20), ("score_partial", "score_merge"))
         log(f"device split {dtype}: score head {kernels['fused_score_topk'][dtype]['parts_ms']}"
-            f", greedy {kernels['fused_score_topk'][dtype]['greedy']['parts_ms']}")
+            f", greedy {kernels['fused_score_topk'][dtype]['greedy']['parts_ms']}"
+            f", wide k 20 {wide_k[dtype][20]['parts_ms']}")
         for n, (ln_f, ln_b, drop) in norm.items():
             norm_device_split(dev, dtype, n, ln_f[dtype], ln_b[dtype], drop[dtype])
 
@@ -557,11 +576,15 @@ def _score_record(dev, dtype, tol, n, k, t=ENT_ROWS, predicates=0):
     from icek_torch.kernels import copy_scores as cs
 
     h, wv, bv, tail = _score_inputs(dev, dtype, n, t, predicates)
-    require(cs.uses_tensor_cores(h, wv, k) == (dtype == torch.bfloat16 and k <= cs.REGISTER_K),
+    require(cs.uses_tensor_cores(h, wv) == (dtype == torch.bfloat16),
             f"score/top-k {dtype} k={k}: unexpected kernel family")
+    before = dict(cs.fused_score_topk.routes)
     got = cs.fused_score_topk(h, wv, bv, tail, k=k)
     want = cs.reference_score_topk(h, wv, bv, tail, k=k)
     torch.cuda.synchronize()
+    taken = [r for r, n in cs.fused_score_topk.routes.items() if n != before[r]]
+    require(taken == [cs.route(dtype == torch.bfloat16, k)],
+            f"score/top-k {dtype} k={k}: first pass {taken}")
     if k <= cs.REGISTER_K:
         require(torch.equal(got[1], want[1]), f"score/top-k {dtype} n={n} t={t}: indices differ")
     else:
@@ -593,8 +616,8 @@ def _score_record(dev, dtype, tol, n, k, t=ENT_ROWS, predicates=0):
 
 def check_scores(dev, shapes=SCORE_SHAPES):
     """The score head at the beam (1280 rows, k 5) and greedy (256, k 2)
-    shapes, or at `shapes`; bf16 runs the tensor-core first pass, f32 the
-    CUDA-core one."""
+    shapes, or at `shapes`; bf16 runs a tensor-core first pass, f32 a
+    CUDA-core one (above k 16 the wide ones, lists in shared memory)."""
     res = {}
     for shape, n, k in shapes:
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-4)):
@@ -604,6 +627,22 @@ def check_scores(dev, shapes=SCORE_SHAPES):
                 res[dtype]["greedy"] = timed
             else:
                 res[dtype] = timed
+    return res
+
+
+WIDE_KS = (17, 20, 32, 64)        # the wide first pass at geo beam 20's rows
+
+
+def check_scores_wide(dev):
+    """The score head's wide first pass (k above 16) at N = 640 rows (geo
+    beam 20 at WIDE_BATCH images) at k 17, 20, 32 and 64, both dtypes;
+    {dtype: {k: record}}."""
+    res = {}
+    for k in WIDE_KS:
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-4)):
+            timed = _score_record(dev, dtype, tol, WIDE_BATCH * 20, k)
+            log(f"kernel fused_score_topk {dtype} wide n={WIDE_BATCH * 20} k={k}: {timed}")
+            res.setdefault(dtype, {})[k] = timed
     return res
 
 
@@ -1191,17 +1230,29 @@ def breakdown(ev, batch):
     return stages
 
 
+def time_decode(ev, batch, reps=3) -> list:
+    """Host ms of `reps` Evaluator.decode_batch calls on `batch` (warm)."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        ev.decode_batch(batch)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
 def wide_beam(dev, model):
     """Beams wider than 8 (fault F1) and than 16 (F1b): geo beam 10 and beam 20
     through Evaluator.decode_batch, bf16 and f32, kernels on (the defaults)
     against the plain path (both switches off).  The score head runs at k 10
     on its register lists and at k 20 on its wide first pass (lists in
-    shared memory) in both dtypes; the decoder step on its tensor-core route
-    in bf16 up to K 16 and on its CUDA-core route otherwise.  Each route's
-    count is held to that; f32 tokens must equal the plain path's, bf16
-    agreement is logged.  First the two kernels alone at each width's
-    shapes against their plain versions."""
+    shared memory), bf16 on the tensor cores and f32 on the CUDA cores; the
+    decoder step on its tensor-core route in bf16 up to K 16 and on its
+    CUDA-core route otherwise.  Each route's count is held to that; f32 tokens must equal the plain path's, bf16
+    agreement is logged, and each width's captions/s (3 warm batches).  First
+    the two kernels alone at each width's shapes against their plain
+    versions."""
     from icek_torch import eval_driver
+    from icek_torch.kernels import copy_scores as cs
 
     cfg, wm, params, enc = model
     batch = make_batch(np.random.default_rng(SEED + 11), WIDE_BATCH)
@@ -1215,13 +1266,19 @@ def wide_beam(dev, model):
         out = {}
         for dtype in (torch.bfloat16, torch.float32):
             kw = dict(device=dev, beam_size=K, batch_size=WIDE_BATCH, compute_dtype=dtype)
+            ev = eval_driver.Evaluator(cfg, wm, params, enc, **kw)
             _zero_serving_counts()
-            got = eval_driver.Evaluator(cfg, wm, params, enc, **kw).decode_batch(batch)
+            score_routes = cs.fused_score_topk.routes
+            score_routes.update(dict.fromkeys(score_routes, 0))
+            got = ev.decode_batch(batch)
             routes = _read_serving_counts()
+            routes.update({f"score_{r}": n for r, n in score_routes.items() if n})
+            batch_ms = time_decode(ev, batch)
             want = eval_driver.Evaluator(plain_cfg, wm, params, enc, **kw).decode_batch(batch)
             tc = dtype == torch.bfloat16 and K <= 16
             expect = dict(flash_attention=cfg.model.num_layers, fused_score_topk=L,
                           decoder_step=L if tc else 0, decoder_step_cuda_cores=0 if tc else L)
+            expect[f"score_{cs.route(dtype == torch.bfloat16, K)}"] = L
             log(f"wide beam: geo beam {K} {dtype}, {WIDE_BATCH} images, routes {routes} "
                 f"(expected {expect})")
             require(routes == expect, f"wide beam {K} {dtype}: routes {routes} != {expect}")
@@ -1229,8 +1286,10 @@ def wide_beam(dev, model):
             if dtype == torch.float32:
                 require(np.array_equal(got, want),
                         f"wide beam: f32 beam-{K} tokens differ from the plain path")
-            out[str(dtype)] = dict(routes=routes, token_agreement=same)
-            log(f"wide beam: geo beam {K} {dtype}: token agreement with the plain path {same}")
+            out[str(dtype)] = dict(routes=routes, token_agreement=same, batch_ms=batch_ms,
+                                   captions_per_s=WIDE_BATCH / statistics.median(batch_ms) * 1e3)
+            log(f"wide beam: geo beam {K} {dtype}: token agreement with the plain path {same}, "
+                f"{out[str(dtype)]['captions_per_s']:.1f} captions/s")
         out["kernels"] = {name: {str(dt): {k: rec[dt][k] for k in
                                            ("max_abs_err", "ms", "plain_ms", "library_ms",
                                             "bound_ms")}
@@ -3241,6 +3300,97 @@ def run_train_path(dev, model, preset="georic", steps=TRAIN_STEPS):
     return launches, summary, lambda: float(train_step(params, opt_state, None, batch, gen)[2])
 
 
+F32_STEPS = 3
+
+
+def f32_train_path(dev, model, bf16_summary):
+    """Phase 6's f32 geo train step: batch 256, cached tokens, captions of 32,
+    the preset's dropout, compute dtype float32 (the flash backward's TF32
+    kernels at every attention site), one warm-up and F32_STEPS timed steps
+    beside the bf16 step's samples/s; launches held to the prediction (9
+    flash backward launches a step) and the eval loss must fall.  The plain
+    path draws its masks from its own generator, so the same step at dropout
+    0 is held to it instead: one step each from the same parameters, the
+    loss within 1e-4 and Adam's first moments (0.1 x the clipped gradients)
+    within 1e-3 over the whole tree (relative L2), each leaf's worst element
+    logged."""
+    from icek_torch import bridge
+    from icek_torch.train import step as step_lib
+
+    cfg, wm, params, _ = model
+    batch = make_train_batch(np.random.default_rng(SEED + 5), BATCH, wm)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+    def make(c):
+        p = bridge.trainable(copy.deepcopy(params), dev)
+        optimizer = step_lib.make_optimizer(c.train.decoder_lr, c.train.grad_clip)
+        state = optimizer.init(p)
+        return (p, state) + step_lib.make_train_step(
+            c, VOCAB, wm.pad_id, optimizer, compute_dtype=torch.float32,
+            encode_images=False, device=dev)
+
+    p, state, train_step, eval_step = make(cfg)
+    gen = torch.Generator().manual_seed(SEED)
+    counted = train_counters()
+    eval_before = float(eval_step(p, None, batch)[0])
+    losses = [float(train_step(p, state, None, batch, gen)[2])]        # warm-up
+    for fn, _ in counted.values():
+        fn.launches = 0
+    times = []
+    for _ in range(F32_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(train_step(p, state, None, batch, gen)[2]))
+        times.append(time.perf_counter() - t0)
+    launches = {name: fn.launches for name, (fn, _) in counted.items()}
+    eval_after = float(eval_step(p, None, batch)[0])
+    for name, (_, per_step) in counted.items():
+        require(launches[name] == per_step * F32_STEPS,
+                f"f32 train step kernel {name}: {launches[name]} launches, expected "
+                f"{per_step} x {F32_STEPS}")
+    require(all(math.isfinite(l) for l in losses) and eval_after < eval_before,
+            f"f32 train step: losses {losses}, eval loss {eval_before} -> {eval_after}")
+    del p, state, train_step, eval_step
+
+    cfg0 = cfg.replace(model=dataclasses.replace(
+        cfg.model, dropout_enc=0.0, dropout_dec=0.0, dropout_pos=0.0))
+    plain0 = cfg0.replace(model=dataclasses.replace(cfg0.model, use_flash_attention=False))
+    res = {}
+    for name, c in (("kernels", cfg0), ("plain", plain0)):
+        p, state, train_step, _ = make(c)
+        flash_before = counted["flash_attention_bwd"][0].launches
+        loss = float(train_step(p, state, None, batch, torch.Generator().manual_seed(0))[2])
+        flash_bwd = counted["flash_attention_bwd"][0].launches - flash_before
+        mu, _ = state.moments(p)
+        res[name] = (loss, [t.float() for t in step_lib.tree_leaves(mu)], flash_bwd)
+        del p, state, train_step
+    (l_k, g_k, n_k), (l_p, g_p, n_p) = res["kernels"], res["plain"]
+    require((n_k, n_p) == (counted["flash_attention_bwd"][1], 0),
+            f"f32 dropout-0 steps: flash backward launches {n_k} / {n_p}")
+    loss_rel = abs(l_k - l_p) / abs(l_p)
+    tree_rel = math.sqrt(sum(float(((a - b) ** 2).sum()) for a, b in zip(g_k, g_p))
+                         / sum(float((b ** 2).sum()) for b in g_p))
+    # logged, not held: train_cross_check's per-leaf measure; a ReLU unit whose
+    # input lies within the two forwards' rounding of 0 passes its gradient in
+    # one path and not the other, which puts percent-level differences into
+    # a few elements (the CUDA-core backward this route replaced gave the
+    # same ones)
+    top = max(float(g.abs().max()) for g in g_p)
+    grad_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 0.01 * top)
+                   for a, b in zip(g_k, g_p))
+    require(loss_rel <= 1e-4 and tree_rel <= 1e-3,
+            f"f32 dropout-0 step: loss rel {loss_rel} (tol 1e-4), gradient tree rel L2 "
+            f"{tree_rel} (tol 1e-3)")
+    summary = dict(step_ms=[t * 1e3 for t in times],
+                   step_ms_median=statistics.median(times) * 1e3,
+                   samples_per_s_median=BATCH / statistics.median(times),
+                   bf16_samples_per_s_median=bf16_summary["samples_per_s_median"],
+                   launches=launches, losses=losses, eval_loss_before=eval_before,
+                   eval_loss_after=eval_after, dropout0_loss_rel=loss_rel,
+                   dropout0_grad_tree_rel=tree_rel, dropout0_worst_leaf_rel=grad_rel)
+    log(f"f32 geo train path (batch {BATCH}, T {CAP_LEN}, float32, dropout on): {summary}")
+    return summary
+
+
 def train_cross_check(dev, model, preset="georic"):
     """A 2-sample f32 step without dropout on the card against the same step
     on the CPU: loss, and Adam's first moments (0.1 x the clipped gradients)
@@ -3382,8 +3532,9 @@ def norm_kernels_device_ms(dev) -> dict:
 
 
 def paired(root, label) -> int:
-    """Geo serving, geo and news train-step and warm greedy times of the
-    checkout at `root`, through the public entry points alone
+    """Geo serving, geo (bf16 and f32) and news train-step, geo beam-20
+    (bf16 and f32) and warm greedy times of the checkout at `root`, through
+    the public entry points alone
     (Evaluator.decode_batch, train.step.make_train_step), so one timing code
     serves any two trees."""
     if not torch.cuda.is_available():
@@ -3411,14 +3562,14 @@ def paired(root, label) -> int:
         ev.decode_batch(b)
         batch_ms.append((time.perf_counter() - t0) * 1e3)
 
-    def train_ms(model, preset, steps):
+    def train_ms(model, preset, steps, dtype=torch.bfloat16):
         """Host ms of `steps` train steps after a warm-up, each to its loss."""
         cfg_, wm_, params_, _ = model
         tparams = bridge.trainable(copy.deepcopy(params_), dev)
         optimizer = step_lib.make_optimizer(cfg_.train.decoder_lr, cfg_.train.grad_clip)
         opt_state = optimizer.init(tparams)
         train_step, _ = step_lib.make_train_step(cfg_, VOCAB, wm_.pad_id, optimizer,
-                                                 compute_dtype=torch.bfloat16,
+                                                 compute_dtype=dtype,
                                                  encode_images=False, device=dev)
         tb = make_train_batch(np.random.default_rng(SEED + 5), BATCH, wm_, preset)
         tb = {k: torch.as_tensor(v, device=dev) for k, v in tb.items()}
@@ -3432,8 +3583,16 @@ def paired(root, label) -> int:
         return out
 
     step_ms = train_ms(model, "georic", TRAIN_STEPS)
+    f32_ms = train_ms(model, "georic", F32_STEPS, torch.float32)
     news_ms = train_ms(full_width_model("nytimes800k", enc=enc), "nytimes800k",
                        FACT_TRAIN_STEPS)
+    wide = {}
+    for dtype in (torch.bfloat16, torch.float32):      # geo beam 20, the wide score pass
+        wev = eval_driver.Evaluator(cfg, wm, params, enc, device=dev, beam_size=20,
+                                    batch_size=WIDE_BATCH, compute_dtype=dtype)
+        wb = make_batch(np.random.default_rng(SEED + 11), WIDE_BATCH)
+        wev.decode_batch(wb)
+        wide[str(dtype)] = WIDE_BATCH / statistics.median(time_decode(wev, wb)) * 1e3
     greedy_ms = time_greedy_warm(dev, model)
     norm_host = norm_wrapper_host_ms(dev)
     norm_device = norm_kernels_device_ms(dev)       # the profiler after every timed run
@@ -3443,6 +3602,8 @@ def paired(root, label) -> int:
            "host_ms_per_beam_step_median": statistics.median(batch_ms) / L,
            "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
            "samples_per_s_median": BATCH / statistics.median(step_ms) * 1e3,
+           "f32_step_ms": f32_ms, "f32_samples_per_s_median": BATCH / statistics.median(f32_ms) * 1e3,
+           "beam20_captions_per_s": wide,
            "news_step_ms": news_ms, "news_step_ms_median": statistics.median(news_ms),
            "greedy_warm_ms": greedy_ms, "norm_wrapper_host_ms": norm_host,
            "norm_device_ms": norm_device}
@@ -3493,6 +3654,7 @@ def run_phases(dev, card) -> list:
     kernels = {"flash_attention": flash_fwd, "flash_attention_bwd": flash_bwd,
                "fused_score_topk": check_scores(dev),
                "decoder_step": check_decoder_step(dev)}
+    wide_k = check_scores_wide(dev)
     norm = check_norm_rows(dev)
     kernels["dropout_add_ln"], kernels["dropout_add_ln_bwd"], kernels["hw_dropout"] = \
         norm[BATCH * ENT_ROWS]
@@ -3507,6 +3669,7 @@ def run_phases(dev, card) -> list:
     for preset, model in models.items():
         cross_check(dev, model, preset)
     train_launches, train_summary, step_once = run_train_path(dev, geo)
+    f32_train = f32_train_path(dev, geo, train_summary)
     trained = {p: run_train_path(dev, models[p], p, FACT_TRAIN_STEPS) for p in FACT_PRESETS}
     for preset, model in models.items():
         train_cross_check(dev, model, preset)
@@ -3530,7 +3693,7 @@ def run_phases(dev, card) -> list:
     for p in FACT_PRESETS:
         trace_device(f"one {p} train step", trained[p][2])
         trace_serving(dev, models[p], served[p][2], p)
-    device_splits(dev, kernels, norm)
+    device_splits(dev, kernels, norm, wide_k)
 
     # name: (source, the TPU kernel it replaces)
     tpu = "icek_tpu/kernels/"
@@ -3557,7 +3720,7 @@ def run_phases(dev, card) -> list:
             "bound_by": bf["bound_by"], "library_ms": bf["library_ms"],
             "dtype": "bfloat16", "tol": bf["tol"],
             "f32": {k: f32[k] for k in ("max_abs_err", "tol", "ms", "plain_ms",
-                                        "library_ms", "bound_ms")},
+                                        "library_ms", "bound_ms", "rate0_ms") if k in f32},
         }
         if name in launches and name in train_launches:
             row["launches_serving"] = launches[name]
@@ -3574,6 +3737,15 @@ def run_phases(dev, card) -> list:
                           for p in FACT_PRESETS}
         if name in ("fused_score_topk", "decoder_step"):    # beams 10 and 20
             row["wide_beams"] = {b: rec["kernels"][name] for b, rec in wide.items()}
+        if name == "fused_score_topk":              # the wide first pass at N 640
+            row["wide_k"] = {str(dt): {k: {f: r[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                                             "library_ms", "bound_ms", "parts_ms")
+                                           if f in r} for k, r in recs.items()}
+                             for dt, recs in wide_k.items()}
+        if name == "flash_attention_bwd":           # phase 6's f32 geo step
+            row["f32_train_step"] = {k: f32_train[k] for k in (
+                "launches", "samples_per_s_median", "bf16_samples_per_s_median",
+                "dropout0_loss_rel", "dropout0_grad_tree_rel", "dropout0_worst_leaf_rel")}
         if name in leave["eval_run_launches"]:      # phase 7's geo eval run and engine
             row["launches_eval_run"] = leave["eval_run_launches"][name]
             row["launches_per_engine_batch"] = \
@@ -3611,6 +3783,7 @@ def run_phases(dev, card) -> list:
         **{k: pool[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms")}, "tol": 0})
     log(f"card: {card}; train path: {json.dumps(train_summary)}")
+    log(f"card: {card}; f32 train path: {json.dumps(f32_train)}")
     log(f"card: {card}; main path: {json.dumps(summary)}")
     for p in FACT_PRESETS:
         log(f"card: {card}; {p} serving: {json.dumps(served[p][1])}")

@@ -30,7 +30,7 @@
 // instructions a tile takes (the softmax, the staging and, with dropout,
 // Philox), not the matrix unit.
 //
-// Two families of kernels live here.
+// Three families of kernels live here.
 //
 // 1. The tensor-core kernels (flash_*_mma_kernel): bf16 with an even Hd <=
 //    32 and 4-byte aligned head rows, which is every attention of the
@@ -80,23 +80,80 @@
 //      dQ and dK/dV kernels read them back.  Rate 0 is a template parameter
 //      of all three kernels: those instantiations carry no mask code.
 //
-// 2. The CUDA-core kernels (flash_fwd_kernel, flash_bwd_dq_kernel,
-//    flash_bwd_dkv_kernel): f32 at any supported head dim (the tensor cores
-//    take f32 only as TF32, about three decimal digits), bf16 with Hd in
-//    (32, 128] (forward, rate 0) and bf16 inputs that miss the alignment
-//    above.  One thread owns a query row (or key row) with its operands in
+// 2. The TF32 backward (flash_bwd_dq_tf32_kernel, flash_bwd_dkv_tf32_kernel):
+//    f32 at any Hd <= 32, and bf16 inputs that miss the alignment above.
+//    The work is the bf16 backward's five products (seven with S and dP
+//    computed in both kernels) in f32: at the geo encoder site 13.9 GFLOP
+//    each, 69 GFLOP in all, 1.04 ms at the 67 TF/s of the f32 CUDA cores,
+//    against 0.19 ms of bytes.  So the products go on the tensor cores,
+//    which take f32 only as TF32 (a 10-bit mantissa, about three decimal
+//    digits: one pass breaks the 1e-4 checks).  Each f32 operand is split
+//    into a TF32 high part (cvt.rna) and the TF32 of the residual, and a
+//    product is three m16n8k8 TF32 mma.sync (lo hi + hi lo + hi hi; lo lo
+//    is below the pieces' own rounding) with f32 accumulation: a relative
+//    error of about 2^-21 a term ("3xTF32").  bf16 values, and P and dS
+//    rounded to bf16, are exact in TF32: for bf16 inputs one pass is exact.
+//    Three such passes
+//    at 495 TF/s (the dense TF32 peak) take 0.6 ms of the seven products'
+//    work; what the kernels are bound by in the end is again instructions:
+//    each B operand read from shared memory is split per warp (three
+//    instructions an element), and a head row of f32 in a fused-QKV view
+//    (120 bytes, at a stride of 3600) is 8-byte aligned at best, so tiles
+//    are staged by 4-byte cp.async, a warp a row of 32 elements.
+//    * The structure is the bf16 backward's: a warp owns 16 rows with its
+//      A operands (Q and dO; K and V) split in registers, the other operand
+//      is staged in shared memory as f32 (64 rows a tile, a 36-float pitch:
+//      the eight rows of a fragment load fall on distinct banks), double
+//      buffered, and walked 8 keys (queries) at a time; dK/dV works on the
+//      transposed scores; no atomics, so launches agree bit for bit.
+//    * P and dS reach their second product without a shuffle: the m16n8k8
+//      accumulator holds columns 2 t and 2 t + 1 where the A fragment
+//      wants t and t + 4, so the accumulator is taken as A with its k order
+//      permuted (column 2 t as k index t, 2 t + 1 as t + 4; acc_as_a), and
+//      the B operand of that product reads its rows in the same order.
+//    * Consistency.  A decoder's first self-attention sees logits in the
+//      hundreds at init, where softmax is one-hot
+//      and dS = P (dP - delta) is all cancellation: the exact dS of the
+//      winning key is 0.  With the forward's lse and delta = rowsum(dO O),
+//      both rounded along another path than this kernel's S and dP, that
+//      cancellation left 2^-22 of |dP| (dQ and dK off by 1.1e-4 of a weight
+//      gradient against the plain path, the old CUDA-core kernels 1.9e-5,
+//      whose S and dP repeated the forward's arithmetic; three TF32 pieces
+//      for every product did not help).  So the dQ kernel walks its keys
+//      twice: pass 0 takes each row's lse2 = log2 sum 2^x (x = S scale log2
+//      e, one rounding) and delta = sum 2^(x - lse2) dP' from its own S and
+//      dP', pass 1 uses them, and the dK/dV kernel reads them and forms S^T
+//      and dP^T bit for bit as dQ's S and dP (first_products): a one-hot
+//      row's P is then exactly 1 and its dS exactly 0, as in the plain
+//      version.
+//    * Rounding.  dQ, dK and dV each sum one product per 8 keys (queries):
+//      a step's product is formed apart and added by an f32 add (mma_add),
+//      since the tensor cores' accumulation is not round to nearest (summed
+//      in the mma it put twice the error into dQ, dK and dV at the geo
+//      encoder site).
+//    * Dropout: the f32 forward saves no keep bits, so both kernels draw the
+//      forward's mask anew, one Philox block per four scores, shared by the
+//      lanes that hold its four keys: in dQ the two lanes of a row pair
+//      (keep4_rows), in dK/dV the four lanes g = 4 u .. 4 u + 3 of one t
+//      (keep4_cols).
+//
+// 3. The CUDA-core forward (flash_fwd_kernel): f32 at any supported head
+//    dim, bf16 with Hd in (32, 128] (rate 0) and bf16 inputs that miss the
+//    alignment above.  One thread owns a query row with its operands in
 //    registers and the dot products run in f32, one shared-memory operand
 //    per FMA; Hd is padded to a compile-time bound (32 / 64 / 128).
 //
 // Dropout mask: score (b, h, q, k) keeps iff keep_bits(random_bits(seed,
 // STREAM_FLASH, ((b * H + h) * Tq + q) * Tk4 + k)) with Tk4 = Tk rounded up
 // to a multiple of 4: the element's absolute position, so every kernel
-// can regenerate the forward's mask under its own tiling (the CUDA-core
+// can regenerate the forward's mask under its own tiling (the TF32
 // backward and keep_mask_kernel do), and four adjacent keys of a row share
 // one Philox block.  `block0` (4 * block0 added to every index) places a
 // call's batch rows inside a larger batch: a data-parallel rank holding rows
 // b0.. of a global batch passes block0 = b0 * H * Tq * Tk4 / 4 and draws the
 // global batch's mask.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -207,166 +264,6 @@ __global__ void __launch_bounds__(BQ) flash_fwd_kernel(
     for (int d = 0; d < HD; ++d)
       if (d < a.Hd) op[d] = from_f32<T>(acc[d] * inv);
     lse[((long long)b * a.H + h) * a.Tq + row] = m + logf(l);
-  }
-}
-
-// dQ, and delta = rowsum(dO * O) for the dK/dV kernel.  Same shape as the
-// forward: a thread owns one query row.
-template <typename T, int HD, int BQ, int BK>
-__global__ void __launch_bounds__(BQ) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ o, const T* __restrict__ d_o,
-    const float* __restrict__ lse, float* __restrict__ delta, T* __restrict__ dq,
-    const Shape a) {
-  __shared__ float ks[BK][HD];
-  __shared__ float vs[BK][HD];
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int row = blockIdx.x * BQ + threadIdx.x;
-  const bool active = row < a.Tq;
-  const bool drop = a.thresh < KEEP_ALL;
-
-  float qr[HD], dor[HD], acc[HD];
-  const T* qp = q + b * a.q_sb + (long long)row * a.q_st + (long long)h * a.Hd;
-  const long long orow = (((long long)b * a.Tq + row) * a.H + h) * a.Hd;
-  const long long srow = ((long long)b * a.H + h) * a.Tq + row;
-  float dl = 0.f;
-#pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    const bool in = active && d < a.Hd;
-    qr[d] = in ? to_f32(qp[d]) * a.scale : 0.f;
-    dor[d] = in ? to_f32(d_o[orow + d]) : 0.f;
-    dl = fmaf(dor[d], in ? to_f32(o[orow + d]) : 0.f, dl);
-    acc[d] = 0.f;
-  }
-  const float L = active ? lse[srow] : 0.f;
-  if (active) delta[srow] = dl;
-  const int row_end = a.causal ? min(a.kv_len, row + 1) : a.kv_len;
-  const int blk_end = a.causal ? min(a.kv_len, (int)(blockIdx.x + 1) * BQ) : a.kv_len;
-  const unsigned long long mrow = mask_row_block(a, b, h, row);
-
-  for (int k0 = 0; k0 < blk_end; k0 += BK) {
-    __syncthreads();
-    stage_kv<T, HD, BK, BQ>(k, v, a, b, h, k0, ks, vs);
-    __syncthreads();
-    if (!active || k0 >= row_end) continue;
-#pragma unroll
-    for (int j4 = 0; j4 < BK; j4 += 4) {
-      uint4 r = make_uint4(0u, 0u, 0u, 0u);
-      if (drop) r = philox4x32_10(a.seed, STREAM_FLASH, mrow + ((k0 + j4) >> 2));
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = j4 + c;
-        if (k0 + j >= row_end) continue;
-        float s = 0.f, dp = 0.f;
-#pragma unroll
-        for (int d = 0; d < HD; ++d) {
-          s = fmaf(qr[d], ks[j][d], s);
-          dp = fmaf(dor[d], vs[j][d], dp);
-        }
-        const float p = __expf(s - L);
-        if (drop) dp = keep_bits(word_of(r, c), a.thresh) ? dp * a.inv : 0.f;
-        const float ds = round_to<T>(p * (dp - dl));
-#pragma unroll
-        for (int d = 0; d < HD; ++d) acc[d] = fmaf(ds, ks[j][d], acc[d]);
-      }
-    }
-  }
-  if (active) {
-#pragma unroll
-    for (int d = 0; d < HD; ++d)
-      if (d < a.Hd) dq[orow + d] = from_f32<T>(acc[d] * a.scale);
-  }
-}
-
-// dK and dV.  A block owns BKT keys of one (batch, head), a thread one key
-// row; query tiles of BQT rows (q pre-scaled, dO, lse, delta) pass through
-// shared memory.  Keys at or beyond kv_len and causally hidden pairs add
-// exactly zero.
-template <typename T, int HD, int BKT, int BQT>
-__global__ void __launch_bounds__(BKT) flash_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ d_o, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    const Shape a) {
-  static_assert(BKT % BQT == 0, "a causal block starts on a query-tile boundary");
-  __shared__ float qs[BQT][HD];
-  __shared__ float dos[BQT][HD];
-  __shared__ float ls[BQT];
-  __shared__ float dls[BQT];
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int t = blockIdx.x * BKT + threadIdx.x;
-  const bool key_active = t < a.kv_len;
-  const bool drop = a.thresh < KEEP_ALL;
-  const int Tk4 = (a.Tk + 3) & ~3;
-
-  float kr[HD], vr[HD], dkr[HD], dvr[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    const bool in = t < a.Tk && d < a.Hd;
-    kr[d] = in ? to_f32(k[b * a.k_sb + (long long)t * a.k_st + (long long)h * a.Hd + d]) : 0.f;
-    vr[d] = in ? to_f32(v[b * a.v_sb + (long long)t * a.v_st + (long long)h * a.Hd + d]) : 0.f;
-    dkr[d] = dvr[d] = 0.f;
-  }
-  const long long srow0 = ((long long)b * a.H + h) * a.Tq;
-
-  for (int q0 = a.causal ? blockIdx.x * BKT : 0; q0 < a.Tq; q0 += BQT) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < BQT * HD; e += BKT) {
-      const int i = e / HD, d = e % HD, qi = q0 + i;
-      float qv = 0.f, gv = 0.f;
-      if (qi < a.Tq && d < a.Hd) {
-        qv = to_f32(q[b * a.q_sb + (long long)qi * a.q_st + (long long)h * a.Hd + d]) * a.scale;
-        gv = to_f32(d_o[(((long long)b * a.Tq + qi) * a.H + h) * a.Hd + d]);
-      }
-      qs[i][d] = qv;
-      dos[i][d] = gv;
-    }
-    for (int i = threadIdx.x; i < BQT; i += BKT) {
-      const bool in = q0 + i < a.Tq;
-      ls[i] = in ? lse[srow0 + q0 + i] : 0.f;
-      dls[i] = in ? delta[srow0 + q0 + i] : 0.f;
-    }
-    __syncthreads();
-    if (!key_active) continue;
-    const int n = min(BQT, a.Tq - q0);
-    for (int i = 0; i < n; ++i) {
-      const int qi = q0 + i;
-      if (a.causal && t > qi) continue;
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        s = fmaf(kr[d], qs[i][d], s);
-        dp = fmaf(vr[d], dos[i][d], dp);
-      }
-      const float p = __expf(s - ls[i]);
-      float pd = p;
-      if (drop) {
-        const bool keep = keep_bits(
-            random_bits(a.seed, STREAM_FLASH,
-                        4ull * a.block0 + (unsigned long long)(srow0 + qi) * Tk4 + t),
-            a.thresh);
-        pd = keep ? p * a.inv : 0.f;
-        dp = keep ? dp * a.inv : 0.f;
-      }
-      pd = round_to<T>(pd);
-      const float ds = round_to<T>(p * (dp - dls[i]));
-#pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        dvr[d] = fmaf(pd, dos[i][d], dvr[d]);
-        dkr[d] = fmaf(ds, qs[i][d], dkr[d]);
-      }
-    }
-  }
-  if (t < a.Tk) {
-    const long long krow = (((long long)b * a.Tk + t) * a.H + h) * a.Hd;
-#pragma unroll
-    for (int d = 0; d < HD; ++d)
-      if (d < a.Hd) {
-        dk[krow + d] = from_f32<T>(dkr[d]);
-        dv[krow + d] = from_f32<T>(dvr[d]);
-      }
   }
 }
 
@@ -921,6 +818,494 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_mma_kernel(
   }
 }
 
+// ===========================================================================
+// The TF32 backward: f32 (three TF32 products a product, "3xTF32") and bf16
+// inputs that miss the 4-byte alignment (one TF32 pass: bf16 values are exact
+// in TF32), any Hd <= 32.
+// ===========================================================================
+
+constexpr int FP = 36;      // row pitch in floats of an f32 tile: 32 + 4, see the header
+
+// x rounded to TF32 (to nearest, ties away from zero), as a b32 register
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x as P TF32 pieces, largest first (each the TF32 rounding of what the
+// ones before it left): P = 2 (hi + lo) gives x to 2^-22 of |x|; P = 1 keeps
+// x, which must then be exact in TF32 (bf16)
+template <int P>
+__device__ __forceinline__ void split_tf32(float x, uint32_t (&p)[P]) {
+  if constexpr (P == 1) {
+    p[0] = __float_as_uint(x);
+  } else {
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      p[k] = tf32_rna(x);
+      x -= __uint_as_float(p[k]);
+    }
+  }
+}
+
+// D += A B for one m16n8k8 tile: A row-major TF32, B column-major TF32
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An A fragment as P TF32 pieces: piece k of register i is p[k][i]
+template <int P>
+struct FragA {
+  uint32_t p[P][4];
+};
+
+// c += a b over the pieces whose ranks sum to less than P (P = 2: lo hi + hi
+// lo + hi hi, the lo lo term below the pieces' own rounding), smallest
+// first; the B fragment (b0, b1) is split here
+template <int P>
+__device__ __forceinline__ void mma_pieces(float (&c)[4], const FragA<P>& a, float b0,
+                                           float b1) {
+  uint32_t x[P], y[P];
+  split_tf32<P>(b0, x);
+  split_tf32<P>(b1, y);
+#pragma unroll
+  for (int r = P - 1; r >= 0; --r)
+#pragma unroll
+    for (int i = 0; i <= r; ++i) mma_tf32(c, a.p[i], x[r - i], y[r - i]);
+}
+
+// c += a b as mma_pieces, with the product formed apart and added to c by
+// f32 adds (round to nearest): dQ, dK and dV sum one such product per 8 keys
+// (queries), hundreds of them, and the tensor cores' own accumulation is
+// not round to nearest (see the header)
+template <int P>
+__device__ __forceinline__ void mma_add(float (&c)[4], const FragA<P>& a, float b0, float b1) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_pieces<P>(t, a, b0, b1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += t[i];
+}
+
+// One 16-row x 8-column step's first products, S = A1 B1^T and dP = A2 B2^T
+// over Hd (padded to 32 with zeros): A1, A2 the warp's split rows, B1, B2
+// their row g of a staged tile (element 8 ds + t and + 4 of d-step ds).  Each
+// product sums its hi hi, lo hi and hi lo terms in three chains over the
+// d-steps and adds them at the end, hi hi + (lo hi + hi lo): symmetric in
+// its operands, so the dQ kernel's S = Q K^T and the dK/dV kernel's S^T = K
+// Q^T (and dP, dP^T) come out bit for bit alike (an mma's sum of its eight
+// products does not depend on which operand is A).
+template <int P>
+__device__ __forceinline__ void first_products(float (&s)[4], float (&dp)[4],
+                                               const FragA<P> (&a1)[4], const FragA<P> (&a2)[4],
+                                               const float* b1, const float* b2) {
+  static_assert(P == 1 || P == 2, "one piece (bf16) or two (f32)");
+  float c[2][3][4];            // [S, dP][hi hi, lo hi, hi lo]
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int w = 0; w < 3; ++w)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[u][w][i] = 0.f;
+#pragma unroll
+  for (int ds = 0; ds < 4; ++ds) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const FragA<P>& a = u ? a2[ds] : a1[ds];
+      const float* bp = u ? b2 : b1;
+      uint32_t x[P], y[P];
+      split_tf32<P>(bp[8 * ds], x);
+      split_tf32<P>(bp[8 * ds + 4], y);
+      mma_tf32(c[u][0], a.p[0], x[0], y[0]);
+      if constexpr (P == 2) {
+        mma_tf32(c[u][1], a.p[1], x[0], y[0]);
+        mma_tf32(c[u][2], a.p[0], x[1], y[1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    s[i] = c[0][0][i] + (c[0][1][i] + c[0][2][i]);
+    dp[i] = c[1][0][i] + (c[1][1][i] + c[1][2][i]);
+  }
+}
+
+// The four d-steps of an m16n8k8 A operand of rows [r0, r0 + 16) of one head
+// (Hd <= 32, padded with zeros), straight from global memory as f32: with g =
+// lane / 4, t = lane % 4, register i of step s is (row g + 8 (i % 2), d 8 s +
+// t + 4 (i / 2)).
+template <typename T>
+__device__ __forceinline__ void load_rows_f32(float (&f)[4][4], const T* src, long long st,
+                                              int r0, int limit, int Hd, int g, int t) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r0 + g + 8 * (i & 1), d = 8 * s + t + 4 * (i >> 1);
+      f[s][i] = row < limit && d < Hd ? to_f32(src[(long long)row * st + d]) : 0.f;
+    }
+}
+
+template <int P>
+__device__ __forceinline__ void split_frags(FragA<P> (&a)[4], const float (&f)[4][4]) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t x[P];
+      split_tf32<P>(f[s][i], x);
+#pragma unroll
+      for (int k = 0; k < P; ++k) a[s].p[k][i] = x[k];
+    }
+}
+
+// An m16n8 accumulator tile as the A operand of the next product, without a
+// shuffle: accumulator registers 0..3 hold (row g, column 2 t), (g, 2 t + 1),
+// (g + 8, 2 t), (g + 8, 2 t + 1); as A they take k index t for column 2 t and
+// t + 4 for column 2 t + 1, so the B operand of that product reads its rows
+// in the same order (row 2 t as k index t, 2 t + 1 as t + 4)
+template <int P>
+__device__ __forceinline__ void acc_as_a(FragA<P>& a, const float (&c)[4]) {
+  const float order[4] = {c[0], c[2], c[1], c[3]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t x[P];
+    split_tf32<P>(order[i], x);
+#pragma unroll
+    for (int k = 0; k < P; ++k) a.p[k][i] = x[k];
+  }
+}
+
+// Stage rows [r0, r0 + TILE) of one head into a shared f32 tile: 32 lanes
+// take the 32 elements of a row, a block NT / 32 rows a pass; rows >= limit
+// and elements >= Hd are zeros.  f32 by 4-byte cp.async (a head row of a
+// fused-QKV view is 8-byte aligned at best); bf16 by loads and stores.
+template <typename T, int NT>
+__device__ __forceinline__ void stage_rows_f32(float (*dst)[FP], const T* src, long long st,
+                                               int r0, int limit, int Hd) {
+  constexpr int STEP = NT / 32;
+  const int w = threadIdx.x & 31, r = threadIdx.x >> 5;
+  const bool lane_ok = w < Hd;
+  const int left = limit - r0 - r;
+  const T* p = src + (long long)(r0 + r) * st + (lane_ok ? w : 0);
+  const long long step = STEP * st;
+#pragma unroll 4
+  for (int i = 0; i < TILE; i += STEP) {
+    const bool ok = lane_ok && i < left;
+    if constexpr (std::is_same<T, float>::value) {
+      cp_async4(smem_u32(&dst[r + i][w]), p, ok);
+    } else {
+      float x = 0.f;
+      if (ok) x = to_f32(*p);
+      dst[r + i][w] = x;
+    }
+    p += step;
+  }
+}
+
+// Keep flags (bit i for accumulator register i) of one 16-key x 8-query tile
+// of the transposed scores: register i of lane (g, t) is (query 2 t + i % 2,
+// key g + 8 (i / 2)).  The four keys of a Philox block sit in the lanes g = 4
+// u .. 4 u + 3 of one t; lane c = g % 4 draws the block of query 2 t + c % 2
+// and keys + 8 (c / 2) (`query`, `kblk`: the block of key 0 of the warp's
+// keys plus u plus 2 (c / 2)), and in round x sends word c ^ x of it to lane
+// c ^ x, which keeps it as register c ^ x: one Philox block per four scores.
+__device__ __forceinline__ uint32_t keep4_cols(const Shape& a, int b, int h, int query,
+                                               unsigned long long kblk, int c) {
+  const uint4 r = philox4x32_10(a.seed, STREAM_FLASH, mask_row_block(a, b, h, query) + kblk);
+  uint32_t keep = 0u;
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    uint32_t w = word_of(r, c ^ x);
+    if (x) w = __shfl_xor_sync(FULL, w, x << 2);
+    keep |= (keep_bits(w, a.thresh) ? 1u : 0u) << (c ^ x);
+  }
+  return keep;
+}
+
+// dQ in TF32, and each row's delta and log2-domain logsumexp of the kernel's
+// own scores.  The tensor-core dQ kernel's shape: a warp owns 16 query rows (Q
+// and dO as split A fragments in registers) and walks the staged key tiles 8
+// keys at a time, S and dP in the accumulators (first_products).  It walks
+// them twice: pass 0 takes each row's online (max, sum 2^x) of x = S scale
+// log2 e and the sum of 2^x dP' (dP' = dP with the dropout applied), so that
+// delta = rowsum(P dP') and lse2 = log2 sum 2^x come from the same P and dP'
+// the gradient uses (see the header); pass 1 forms P = 2^(x - lse2) and dS =
+// P (dP' - delta), and dS as the A operand of dQ += dS K with K's rows read in
+// acc_as_a's order.  delta and lse2 go to `rows` (2 x B H Tq) for dK/dV.
+template <typename T, int NW, bool DROP>
+__global__ void __launch_bounds__(NW * 32) flash_bwd_dq_tf32_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ d_o, float* __restrict__ rows, T* __restrict__ dq, const Shape a) {
+  constexpr int P = std::is_same<T, float>::value ? 2 : 1;   // bf16 is exact in one piece
+  constexpr int BQ = NW * 16, NT = NW * 32;
+  __shared__ __align__(16) float ks[2][TILE][FP];
+  __shared__ __align__(16) float vs[2][TILE][FP];
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.x * BQ + warp * 16;
+  const T* kp = k + b * a.k_sb + (long long)h * a.Hd;
+  const T* vp = v + b * a.v_sb + (long long)h * a.Hd;
+  const int blk_end = a.causal ? min(a.kv_len, (int)(blockIdx.x + 1) * BQ) : a.kv_len;
+  const int warp_end = a.causal ? min(a.kv_len, row0 + 16) : a.kv_len;
+  const int ntiles = (blk_end + TILE - 1) / TILE;
+  auto stage = [&](int it) {
+    stage_rows_f32<T, NT>(ks[it & 1], kp, a.k_st, it * TILE, blk_end, a.Hd);
+    stage_rows_f32<T, NT>(vs[it & 1], vp, a.v_st, it * TILE, blk_end, a.Hd);
+  };
+
+  // dO, dq: contiguous (B, Tq, H, Hd)
+  const long long obase = ((long long)b * a.Tq * a.H + h) * a.Hd;
+  const long long ost = (long long)a.H * a.Hd;
+  const long long srow0 = ((long long)b * a.H + h) * a.Tq;
+  FragA<P> qa[4], ga[4];
+  {
+    float qx[4][4], gx[4][4];
+    load_rows_f32(qx, q + b * a.q_sb + (long long)h * a.Hd, a.q_st, row0, a.Tq, a.Hd, g, t);
+    load_rows_f32(gx, d_o + obase, ost, row0, a.Tq, a.Hd, g, t);
+    split_frags<P>(qa, qx);
+    split_frags<P>(ga, gx);
+  }
+  float acc[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  const float c = a.scale * LOG2E;
+  // this lane's Philox block for keys 0..3 of its 8-key column (keep4_rows)
+  const unsigned long long mblk =
+      DROP ? mask_row_block(a, b, h, row0 + g + ((t & 1) ? 8 : 0)) + (t >> 1) : 0ull;
+  // rows g and g + 8: this lane's online max, sum 2^(x - max) and sum
+  // 2^(x - max) dP' (pass 0), then the quad's delta and lse2 (pass 1)
+  float mx[2] = {-INFINITY, -INFINITY}, sl[2] = {0.f, 0.f}, sw[2] = {0.f, 0.f};
+  float dl[2] = {0.f, 0.f}, l2[2] = {0.f, 0.f};
+
+  for (int pass = 0; pass < 2; ++pass) {
+    stage(0);
+    cp_async_commit();
+    for (int it = 0; it < ntiles; ++it) {
+      if (it + 1 < ntiles) stage(it + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      const float(*kt)[FP] = ks[it & 1];
+      const float(*vt)[FP] = vs[it & 1];
+#pragma unroll 2
+      for (int j = 0; j < TILE / 8; ++j) {
+        const int kb = it * TILE + 8 * j;     // first key of this step
+        if (kb >= warp_end) break;
+        float x[4], d[4];
+        first_products<P>(x, d, qa, ga, &kt[8 * j + g][t], &vt[8 * j + g][t]);
+        const bool full = kb + 8 <= a.kv_len && (!a.causal || kb + 8 <= row0 + 1);
+        const uint32_t keep = DROP ? keep4_rows(a, mblk + (kb >> 2), t) : 0xfu;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          x[i] = __fmul_rn(x[i], c);            // the same rounding in both passes and dK/dV
+          if (!full) {
+            const int key = kb + 2 * t + (i & 1), row = row0 + g + 8 * (i >> 1);
+            const int end = a.causal ? min(a.kv_len, row + 1) : a.kv_len;
+            if (key >= end) x[i] = -INFINITY;
+          }
+          if (DROP) d[i] = ((keep >> i) & 1u) ? d[i] * a.inv : 0.f;
+        }
+        if (pass == 0) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float m_new = fmaxf(mx[r], fmaxf(x[2 * r], x[2 * r + 1]));
+            if (m_new == -INFINITY) continue;
+            const float f = fast_exp2(mx[r] - m_new);
+            const float e0 = fast_exp2(x[2 * r] - m_new), e1 = fast_exp2(x[2 * r + 1] - m_new);
+            sl[r] = fmaf(sl[r], f, e0 + e1);
+            sw[r] = fmaf(sw[r], f, fmaf(e0, d[2 * r], e1 * d[2 * r + 1]));
+            mx[r] = m_new;
+          }
+          continue;
+        }
+        float ds_[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          ds_[i] = round_to<T>(fast_exp2(x[i] - l2[i >> 1]) * (d[i] - dl[i >> 1]));
+        FragA<P> dsa;
+        acc_as_a<P>(dsa, ds_);
+        // dQ += dS K: keys 2 t and 2 t + 1 of the step as k indices t and t + 4
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const float* kr = &kt[8 * j + 2 * t][8 * n + g];
+          mma_add<P>(acc[n], dsa, kr[0], kr[FP]);
+        }
+      }
+      __syncthreads();
+    }
+    if (pass == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + g + 8 * r;
+        const float m = quad_max(mx[r]);
+        const float f = mx[r] == -INFINITY ? 0.f : fast_exp2(mx[r] - m);
+        const float l = quad_sum(sl[r] * f), w = quad_sum(sw[r] * f);
+        dl[r] = l > 0.f ? w / l : 0.f;
+        l2[r] = l > 0.f ? m + log2f(l) : 0.f;
+        if (t == 0 && row < a.Tq) {
+          rows[srow0 + row] = dl[r];
+          rows[(long long)gridDim.z * a.H * a.Tq + srow0 + row] = l2[r];
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= a.Tq) continue;
+    T* out = dq + obase + (long long)row * ost;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 8 * n + 2 * t + e;
+        if (d < a.Hd) out[d] = from_f32<T>(acc[n][2 * r + e] * a.scale);
+      }
+  }
+}
+
+// dK and dV in TF32.  The tensor-core dK/dV kernel's shape: a warp owns 16
+// keys (K and V as split A fragments in registers) and walks the staged query
+// tiles 8 queries at a time: S^T = K Q^T and dP^T = V dO^T, then P^T and dS^T
+// as A operands of dV += P^T dO and dK += dS^T Q.  Keys at or beyond kv_len
+// and causally hidden pairs add exactly zero.
+template <typename T, int NW, bool DROP>
+__global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_tf32_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ d_o, const float* __restrict__ rows, T* __restrict__ dk,
+    T* __restrict__ dv, const Shape a) {
+  constexpr int P = std::is_same<T, float>::value ? 2 : 1;   // bf16 is exact in one piece
+  constexpr int BKT = NW * 16, NT = NW * 32;
+  __shared__ __align__(16) float qs[2][TILE][FP];
+  __shared__ __align__(16) float gs[2][TILE][FP];
+  __shared__ __align__(8) float ls[2][TILE];
+  __shared__ __align__(8) float dls[2][TILE];
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int blk_key0 = blockIdx.x * BKT, key0 = blk_key0 + warp * 16;
+  const long long obase = ((long long)b * a.Tq * a.H + h) * a.Hd;   // of d_o
+  const long long ost = (long long)a.H * a.Hd;
+  const long long srow0 = ((long long)b * a.H + h) * a.Tq;
+  const T* qp = q + b * a.q_sb + (long long)h * a.Hd;
+  const T* gp = d_o + obase;
+  const float* lse2 = rows + (long long)gridDim.z * a.H * a.Tq;   // the dQ kernel's rows
+  const int first = a.causal ? blk_key0 / TILE : 0;
+  const int last = blk_key0 < a.kv_len ? (a.Tq + TILE - 1) / TILE : first;
+  auto stage = [&](int it) {
+    const int buf = (it - first) & 1;
+    stage_rows_f32<T, NT>(qs[buf], qp, a.q_st, it * TILE, a.Tq, a.Hd);
+    stage_rows_f32<T, NT>(gs[buf], gp, ost, it * TILE, a.Tq, a.Hd);
+    for (int i = threadIdx.x; i < TILE; i += NT) {
+      const bool ok = it * TILE + i < a.Tq;
+      const long long at = srow0 + (ok ? it * TILE + i : 0);
+      cp_async4(smem_u32(&ls[buf][i]), lse2 + at, ok);
+      cp_async4(smem_u32(&dls[buf][i]), rows + at, ok);
+    }
+  };
+  if (first < last) stage(first);
+  cp_async_commit();
+
+  FragA<P> ka[4], va[4];
+  {
+    float kx[4][4], vx[4][4];
+    load_rows_f32(kx, k + b * a.k_sb + (long long)h * a.Hd, a.k_st, key0, a.kv_len, a.Hd, g, t);
+    load_rows_f32(vx, v + b * a.v_sb + (long long)h * a.Hd, a.v_st, key0, a.kv_len, a.Hd, g, t);
+    split_frags<P>(ka, kx);
+    split_frags<P>(va, vx);
+  }
+  float dka[4][4], dva[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dka[n][i] = dva[n][i] = 0.f;
+  const float c = a.scale * LOG2E;
+  const int cq = g & 3;
+  // keep4_cols: the Philox block of key key0 + 8 (cq / 2) + 4 (g / 4), as an
+  // offset from a query row's first block
+  const unsigned long long kblk = (unsigned long long)((key0 + 8 * (cq >> 1)) >> 2) + (g >> 2);
+
+  for (int it = first; it < last; ++it) {
+    if (it + 1 < last) stage(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int buf = (it - first) & 1;
+    const float(*qt)[FP] = qs[buf];
+    const float(*gt)[FP] = gs[buf];
+#pragma unroll 2
+    for (int j = 0; j < TILE / 8; ++j) {
+      const int qb = it * TILE + 8 * j;     // first query of this step
+      if (qb >= a.Tq) break;
+      if (a.causal && qb + 7 < key0) continue;
+      float st[4], dpt[4];
+      first_products<P>(st, dpt, ka, va, &qt[8 * j + g][t], &gt[8 * j + g][t]);
+      const bool full = qb + 8 <= a.Tq && key0 + 16 <= a.kv_len &&
+                        (!a.causal || key0 + 15 <= qb);
+      const int qi = 8 * j + 2 * t;         // in the tile; + (i & 1)
+      const float2 L = *reinterpret_cast<const float2*>(&ls[buf][qi]);
+      const float2 D = *reinterpret_cast<const float2*>(&dls[buf][qi]);
+      const uint32_t keep =
+          DROP ? keep4_cols(a, b, h, it * TILE + qi + (cq & 1), kblk, cq) : 0xfu;
+      float pd[4], ds_[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // the dQ kernel's P: x rounded alike, its lse2
+        float p = fast_exp2(__fmul_rn(st[i], c) - ((i & 1) ? L.y : L.x));
+        if (!full) {
+          const int query = it * TILE + qi + (i & 1), key = key0 + g + 8 * (i >> 1);
+          if (query >= a.Tq || key >= a.kv_len || (a.causal && key > query)) p = 0.f;
+        }
+        float d = dpt[i];
+        pd[i] = p;
+        if (DROP) {
+          const bool kept = (keep >> i) & 1u;
+          pd[i] = kept ? p * a.inv : 0.f;
+          d = kept ? d * a.inv : 0.f;
+        }
+        pd[i] = round_to<T>(pd[i]);
+        ds_[i] = round_to<T>(p * (d - ((i & 1) ? D.y : D.x)));
+      }
+      FragA<P> pa, dsa;
+      acc_as_a<P>(pa, pd);
+      acc_as_a<P>(dsa, ds_);
+      // dV += P^T dO, dK += dS^T Q: queries 2 t and 2 t + 1 as k indices t, t + 4
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const float* gr = &gt[qi][8 * n + g];
+        const float* qr = &qt[qi][8 * n + g];
+        mma_add<P>(dva[n], pa, gr[0], gr[FP]);
+        mma_add<P>(dka[n], dsa, qr[0], qr[FP]);
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + g + 8 * r;
+    if (key >= a.Tk) continue;
+    const long long krow = (((long long)b * a.Tk + key) * a.H + h) * a.Hd;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 8 * n + 2 * t + e;
+        if (d < a.Hd) {
+          dk[krow + d] = from_f32<T>(dka[n][2 * r + e] * a.scale);
+          dv[krow + d] = from_f32<T>(dva[n][2 * r + e]);
+        }
+      }
+  }
+}
+
 // The tensor-core kernels take an even Hd <= 32; the wrapper has checked the
 // 4-byte alignment of the pointers and strides.  Two warps a block where
 // there are at most 32 rows to own, four otherwise.
@@ -998,30 +1383,46 @@ int forward(const void* q, const void* k, const void* v, void* o, void* lse,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Head dims above 32 are not built for the backward: a key row's k, v, dk
-// and dv would not fit a thread's registers.
-template <typename T>
-int backward(const void* q, const void* k, const void* v, const void* o,
-             const void* d_o, const void* lse, void* delta, void* dq, void* dk,
-             void* dv, int B, const Shape& a, void* stream) {
-  constexpr int HD = 32, BQ = 64, BK = 32, BKT = 64, BQT = 32;
-  if (a.Hd > HD) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  flash_bwd_dq_kernel<T, HD, BQ, BK>
-      <<<dim3((a.Tq + BQ - 1) / BQ, a.H, B), BQ, 0, s>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<const T*>(o),
-          static_cast<const T*>(d_o), static_cast<const float*>(lse),
-          static_cast<float*>(delta), static_cast<T*>(dq), a);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  flash_bwd_dkv_kernel<T, HD, BKT, BQT>
-      <<<dim3((a.Tk + BKT - 1) / BKT, a.H, B), BKT, 0, s>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<const T*>(d_o),
-          static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<T*>(dk), static_cast<T*>(dv), a);
+// The TF32 backward (f32, and bf16 that misses the tensor-core alignment):
+// dQ, then dK/dV.  Two warps a block where there are at most 32 rows to own,
+// four otherwise.  Head dims above 32 are not built: a warp's A fragments of
+// K and V, split, fill 64 registers already.
+template <typename T, int NW>
+int launch_bwd_tf32_dq(const void* q, const void* k, const void* v, const void* d_o, void* rows,
+                       void* dq, int B, const Shape& a, cudaStream_t s) {
+  auto kernel = flash_bwd_dq_tf32_kernel<T, NW, false>;
+  if (a.thresh < KEEP_ALL) kernel = flash_bwd_dq_tf32_kernel<T, NW, true>;
+  kernel<<<dim3((a.Tq + NW * 16 - 1) / (NW * 16), a.H, B), NW * 32, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(d_o), static_cast<float*>(rows), static_cast<T*>(dq), a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int NW>
+int launch_bwd_tf32_dkv(const void* q, const void* k, const void* v, const void* d_o,
+                        const void* rows, void* dk, void* dv, int B, const Shape& a,
+                        cudaStream_t s) {
+  auto kernel = flash_bwd_dkv_tf32_kernel<T, NW, false>;
+  if (a.thresh < KEEP_ALL) kernel = flash_bwd_dkv_tf32_kernel<T, NW, true>;
+  kernel<<<dim3((a.Tk + NW * 16 - 1) / (NW * 16), a.H, B), NW * 32, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(d_o), static_cast<const float*>(rows), static_cast<T*>(dk),
+      static_cast<T*>(dv), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `rows` (the wrapper's `delta`) holds 2 x B H Tq floats here: each row's
+// delta, then its lse2, both written by the dQ kernel
+template <typename T>
+int backward(const void* q, const void* k, const void* v, const void* d_o, void* rows,
+             void* dq, void* dk, void* dv, int B, const Shape& a, void* stream) {
+  if (a.Hd > 32) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = a.Tq > 32 ? launch_bwd_tf32_dq<T, 4>(q, k, v, d_o, rows, dq, B, a, s)
+                            : launch_bwd_tf32_dq<T, 2>(q, k, v, d_o, rows, dq, B, a, s);
+  if (err) return err;
+  return a.Tk > 32 ? launch_bwd_tf32_dkv<T, 4>(q, k, v, d_o, rows, dk, dv, B, a, s)
+                   : launch_bwd_tf32_dkv<T, 2>(q, k, v, d_o, rows, dk, dv, B, a, s);
 }
 
 Shape make_shape(int Tq, int Tk, int H, int Hd, long long q_sb, long long q_st,
@@ -1045,7 +1446,7 @@ Shape make_shape(int Tq, int Tk, int H, int Hd, long long q_sb, long long q_st,
 
 // Every forward and backward entry point takes `keep_words`, where the
 // tensor-core forward leaves its dropout mask for its backward; the CUDA-core
-// kernels regenerate the mask and ignore it.
+// forward and the TF32 backward regenerate the mask and ignore it.
 ICEK_EXPORT int flash_fwd_f32(const void* q, const void* k, const void* v,
                               void* o, void* lse, void*, ICEK_SHAPE_PARAMS) {
   return forward<float>(q, k, v, o, lse, B, ICEK_SHAPE_ARGS, stream);
@@ -1056,20 +1457,17 @@ ICEK_EXPORT int flash_fwd_bf16(const void* q, const void* k, const void* v,
   return forward<__nv_bfloat16>(q, k, v, o, lse, B, ICEK_SHAPE_ARGS, stream);
 }
 
-ICEK_EXPORT int flash_bwd_f32(const void* q, const void* k, const void* v,
-                              const void* o, const void* d_o, const void* lse,
-                              const void*, void* delta, void* dq, void* dk, void* dv,
-                              ICEK_SHAPE_PARAMS) {
-  return backward<float>(q, k, v, o, d_o, lse, delta, dq, dk, dv, B,
-                         ICEK_SHAPE_ARGS, stream);
+ICEK_EXPORT int flash_bwd_f32(const void* q, const void* k, const void* v, const void*,
+                              const void* d_o, const void*, const void*, void* delta,
+                              void* dq, void* dk, void* dv, ICEK_SHAPE_PARAMS) {
+  return backward<float>(q, k, v, d_o, delta, dq, dk, dv, B, ICEK_SHAPE_ARGS, stream);
 }
 
-ICEK_EXPORT int flash_bwd_bf16(const void* q, const void* k, const void* v,
-                               const void* o, const void* d_o, const void* lse,
-                               const void*, void* delta, void* dq, void* dk, void* dv,
-                               ICEK_SHAPE_PARAMS) {
-  return backward<__nv_bfloat16>(q, k, v, o, d_o, lse, delta, dq, dk, dv, B,
-                                 ICEK_SHAPE_ARGS, stream);
+ICEK_EXPORT int flash_bwd_bf16(const void* q, const void* k, const void* v, const void*,
+                               const void* d_o, const void*, const void*, void* delta,
+                               void* dq, void* dk, void* dv, ICEK_SHAPE_PARAMS) {
+  return backward<__nv_bfloat16>(q, k, v, d_o, delta, dq, dk, dv, B, ICEK_SHAPE_ARGS,
+                                 stream);
 }
 
 // bf16 on the tensor cores (even Hd <= 32, 4-byte aligned rows).  With

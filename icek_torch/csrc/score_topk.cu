@@ -42,16 +42,37 @@
 //     (score_partial_kernel): an f32 tiled product from shared memory, each
 //     64-column tile merged into the rows' lists by k warp-wide arg-max
 //     rounds.  TF32 would break the f32 checks at 1e-4.
-//   * k above 16 (beams wider than 16), both dtypes, on the CUDA cores
-//     (score_partial_wide_kernel): the same product, with each row's list of
-//     kc = min(k, chunk columns) entries in dynamic shared memory, kept
-//     sorted; a tile's score enters only if it beats the list's last entry
-//     (a ballot), and then the row's warp shifts the worse entries up one
-//     slot, 32 at a time from the top.  A block takes 64, 32 or 16 rows, the
-//     most whose lists fit in shared memory.
+//   * k above 16 (beams wider than 16): the lists no longer fit registers,
+//     so each row keeps one sorted list of kc = min(k, chunk columns)
+//     entries (at most LIST_MAX) in shared memory.  The product is the
+//     tensor-core one above for aligned bf16 (score_partial_wide_mma_kernel,
+//     which shares mma_chunk with score_partial_mma_kernel), and for f32 (and
+//     bf16 that misses the alignment) an FMA product whose thread holds an
+//     8 x 4 register tile, read from shared memory as float4s: three loads
+//     for 32 FMAs (score_partial_wide_kernel).  Either way a warp owns 16
+//     rows of the 64-row block, keeps each row's (max, sum 2^x) per lane in
+//     registers, and writes a finished tile's scores to its own rows of a
+//     shared score tile.  Then, row by row (list_tile): the scores of the tile
+//     that beat the row's threshold (its list's last entry, read once a
+//     tile) are compacted by ballot and popc into a per-warp buffer, sorted
+//     by a bitonic network in registers (32 lanes, or 64 as two a lane), and
+//     merged into the list in one parallel step: an entry's new slot is its
+//     rank in the list plus its rank among the survivors, both found by
+//     binary search, in the lax.top_k order.  A tile costs one sort and one
+//     merge a row however many of its scores enter; on random scores about
+//     64 + k (1 + ln(tiles - 1)) of a chunk's scores do, 64 of them in its
+//     first tile and k / (t - 1) in its tile t, so most tiles have a few:
+//     up to FEW survivors are merged by counting instead (few_merge: a
+//     shuffle and a ballot a survivor, none waiting on another, where the
+//     network's stages and the searches' loads each wait on the last).
+//     (Counting for every tile took the list work from 0.17 to 0.32 ms at
+//     geo beam 20: a first tile's 64 rounds cost more than the network.)
+//     No block barrier separates a warp's list work from another warp's
+//     product.
 // The merge needs no list of its own: its round j takes the best candidate
 // that ranks after round j - 1's pick, so a chunk's entries and the tail
-// are scanned k times and nothing is marked taken.
+// are scanned k times (from shared memory, where the row's candidates are
+// copied first) and nothing is marked taken.
 #include <type_traits>
 
 #include "common.cuh"
@@ -245,153 +266,430 @@ __global__ void __launch_bounds__(THREADS) score_partial_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// k above KMAX: each row's list of kc entries in dynamic shared memory
+// k above KMAX: each row's sorted list of kc entries in shared memory
 // ---------------------------------------------------------------------------
 
-// static shared memory of the wide first pass at RB rows a block
-__host__ __device__ constexpr size_t wide_static_bytes(int RB) {
-  return sizeof(float) * ((size_t)RB * (BD + 1) + BD * BV + (size_t)RB * (BV + 1) + 2 * RB);
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int LIST_MAX = 128;        // longest list a row keeps (the wrapper's chunks keep to it)
+constexpr int SC_PITCH = BV + 8;     // row pitch of a shared score tile: a quad's float2s miss
+constexpr float LOG2E = 1.4426950408889634f;
+
+// c takes its partner's candidate (lane ^ stride) where the partner's is the
+// better one and c's slot is to hold the better of the two, or the worse one
+// and c's slot the worse
+__device__ __forceinline__ void exchange(Cand& c, int stride, bool keep_better) {
+  const float ov = __shfl_xor_sync(FULL, c.v, stride);
+  const int oi = __shfl_xor_sync(FULL, c.i, stride);
+  if (keep_better ? better(ov, oi, c.v, c.i) : better(c.v, c.i, ov, oi)) c = Cand{ov, oi};
 }
 
-constexpr size_t SMEM_MAX = 232448;   // a block's shared memory on sm_90
-
-// dynamic shared memory of the lists: (value, index) x RB rows x kc
-size_t wide_list_bytes(int RB, int kc) {
-  return (sizeof(float) + sizeof(int)) * (size_t)RB * kc;
-}
-
-// rows a block of the wide first pass: the most of 64, 32, 16 whose lists
-// fit beside the product's buffers; 0 if none does
-int wide_rows(int kc) {
-  for (int RB = BN; RB >= 16; RB /= 2)
-    if (wide_static_bytes(RB) + wide_list_bytes(RB, kc) <= SMEM_MAX) return RB;
-  return 0;
-}
-
-// insert c, which beats the list's last entry, into the sorted list
-// (lv, li) of kc entries: the entries that rank before it stay, the rest
-// move up one slot (32 at a time, the top segment first, so no entry is
-// overwritten before it has moved) and the last one drops out
-__device__ __forceinline__ void list_insert(float* lv, int* li, int kc, Cand c, int lane) {
-  int before = 0;
-  for (int j = lane; j < kc; j += 32) before += better(lv[j], li[j], c.v, c.i);
+// bitonic sort of 32 candidates, one a lane, best first (lax.top_k order)
+__device__ __forceinline__ void sort32(Cand& c, int lane) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) before += __shfl_xor_sync(0xffffffffu, before, o);
-  const int p = before;                         // the list is sorted: c's slot
-  for (int s = (kc - 2) >> 5; s >= 0 && 32 * s + 31 >= p; --s) {
-    const int j = 32 * s + lane;
-    const bool move = j >= p && j <= kc - 2;
-    float v = 0.f;
-    int i = 0;
-    if (move) {
-      v = lv[j];
-      i = li[j];
+  for (int size = 2; size <= 32; size <<= 1)
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1)
+      exchange(c, stride, ((lane & size) == 0) == ((lane & stride) == 0));
+}
+
+// bitonic sort of 64 candidates, element e in lane e % 32 (a for e < 32, b
+// above), best first
+__device__ __forceinline__ void sort64(Cand& a, Cand& b, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 64; size <<= 1)
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride == 32) {              // e and e + 32 in one lane; size 64 sorts best first
+        if (better(b.v, b.i, a.v, a.i)) {
+          const Cand x = a;
+          a = b;
+          b = x;
+        }
+      } else {
+        const bool lower = (lane & stride) == 0;
+        exchange(a, stride, ((lane & size) == 0) == lower);
+        exchange(b, stride, (((lane + 32) & size) == 0) == lower);
+      }
     }
-    __syncwarp();
-    if (move) {
-      lv[j + 1] = v;
-      li[j + 1] = i;
-    }
-    __syncwarp();
+}
+
+// entries of the sorted (v, i)[0, n) that rank before c
+__device__ __forceinline__ int rank_in(const float* v, const int* i, int n, const Cand& c) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (better(v[mid], i[mid], c.v, c.i)) lo = mid + 1;
+    else hi = mid;
   }
-  if (lane == 0) {
-    lv[p] = c.v;
-    li[p] = c.i;
+  return lo;
+}
+
+constexpr int FEW = 8;   // survivors merged by counting, without a sort
+
+// The merge of at most FEW survivors (s in lanes 0 .. cnt - 1) into the
+// sorted list (lv, li) of kc <= LIST_MAX entries, without a sort: lane j
+// holds entries j + 32 m; for each survivor x (a shuffle from lane x), every
+// entry counts whether x ranks before it (how far it moves up) and a ballot
+// counts the entries that rank before x (its slot, with the survivors before
+// it).  The rounds depend on nothing but their shuffles, where the sort's
+// stages each wait on the last.
+__device__ __forceinline__ void few_merge(const Cand& s, int cnt, float* lv, int* li, int kc,
+                                          int lane) {
+  constexpr int M = LIST_MAX / 32;
+  Cand e[M];
+  int up[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int j = 32 * m + lane;
+    e[m] = j < kc ? Cand{lv[j], li[j]} : Cand{-INFINITY, INT_MAX};
+    up[m] = 0;
+  }
+  int q = 0;                   // lane x < cnt: the slot of survivor x
+#pragma unroll
+  for (int x = 0; x < FEW; ++x) {
+    if (x < cnt) {
+      const Cand c{__shfl_sync(FULL, s.v, x), __shfl_sync(FULL, s.i, x)};
+      q += better(c.v, c.i, s.v, s.i);
+      int before = 0;
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        up[m] += better(c.v, c.i, e[m].v, e[m].i);
+        if (32 * m < kc) before += __popc(__ballot_sync(FULL, better(e[m].v, e[m].i, c.v, c.i)));
+      }
+      if (lane == x) q += before;
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int to = 32 * m + lane + up[m];
+    if (up[m] && to < kc) {
+      lv[to] = e[m].v;
+      li[to] = e[m].i;
+    }
+  }
+  if (lane < cnt && q < kc) {
+    lv[q] = s.v;
+    li[q] = s.i;
   }
   __syncwarp();
 }
 
-template <typename T, int RB>
-__global__ void __launch_bounds__(THREADS) score_partial_wide_kernel(
+// One row's 64-column tile of scores (sc: columns col0 .., -inf past c_end)
+// into its sorted list (lv, li) of kc entries, by the row's warp.  The
+// scores that beat the list's last entry are compacted (ballot, popc) into
+// the warp's buffer (bv_, bi_: 64 entries) and sorted; every list entry at or
+// after the best survivor's slot moves up by the number of survivors that
+// rank before it (top segment of 32 first, so nothing is overwritten before
+// it has moved), and survivor s goes to s plus the number of list entries
+// that rank before it.  Slots past kc drop out.
+__device__ __forceinline__ void list_tile(const float* sc, int col0, int c_end, float* lv,
+                                          int* li, int kc, float* bv_, int* bi_, int lane) {
+  const float tv = lv[kc - 1];
+  const int ti = li[kc - 1];
+  Cand c0{-INFINITY, INT_MAX}, c1{-INFINITY, INT_MAX};
+  if (col0 + lane < c_end) c0 = Cand{sc[lane], col0 + lane};
+  if (col0 + lane + 32 < c_end) c1 = Cand{sc[lane + 32], col0 + lane + 32};
+  const bool p0 = c0.i != INT_MAX && better(c0.v, c0.i, tv, ti);
+  const bool p1 = c1.i != INT_MAX && better(c1.v, c1.i, tv, ti);
+  const unsigned b0 = __ballot_sync(FULL, p0), b1 = __ballot_sync(FULL, p1);
+  const int n0 = __popc(b0), cnt = n0 + __popc(b1);
+  if (cnt == 0) return;
+  const unsigned below = (1u << lane) - 1u;
+  if (p0) {
+    bv_[__popc(b0 & below)] = c0.v;
+    bi_[__popc(b0 & below)] = c0.i;
+  }
+  if (p1) {
+    bv_[n0 + __popc(b1 & below)] = c1.v;
+    bi_[n0 + __popc(b1 & below)] = c1.i;
+  }
+  __syncwarp();
+  Cand s0{-INFINITY, INT_MAX}, s1{-INFINITY, INT_MAX};
+  if (lane < cnt) s0 = Cand{bv_[lane], bi_[lane]};
+  if (lane + 32 < cnt) s1 = Cand{bv_[lane + 32], bi_[lane + 32]};
+  if (cnt <= FEW) {
+    few_merge(s0, cnt, lv, li, kc, lane);
+    return;
+  }
+  if (cnt > 32) sort64(s0, s1, lane);
+  else if (cnt > 1) sort32(s0, lane);
+  __syncwarp();
+  if (lane < cnt) {
+    bv_[lane] = s0.v;
+    bi_[lane] = s0.i;
+  }
+  if (lane + 32 < cnt) {
+    bv_[lane + 32] = s1.v;
+    bi_[lane + 32] = s1.i;
+  }
+  __syncwarp();
+  // survivors' slots, from the list as it stands
+  const int q0 = lane < cnt ? lane + rank_in(lv, li, kc, s0) : kc;
+  const int q1 = lane + 32 < cnt ? lane + 32 + rank_in(lv, li, kc, s1) : kc;
+  const int first = __shfl_sync(FULL, q0, 0);     // entries before it stay
+  for (int s = (kc - 1) >> 5; s >= (first >> 5); --s) {
+    const int j = 32 * s + lane;
+    Cand e{0.f, 0};
+    int to = kc;
+    if (j >= first && j < kc) {
+      e = Cand{lv[j], li[j]};
+      to = j + rank_in(bv_, bi_, cnt, e);
+    }
+    __syncwarp();
+    if (to < kc) {
+      lv[to] = e.v;
+      li[to] = e.i;
+    }
+    __syncwarp();
+  }
+  if (q0 < kc) {
+    lv[q0] = s0.v;
+    li[q0] = s0.i;
+  }
+  if (q1 < kc) {
+    lv[q1] = s1.v;
+    li[q1] = s1.i;
+  }
+  __syncwarp();
+}
+
+// a row's online (max, sum 2^x) over n more scores (-inf: masked), in the
+// log2 domain as the tensor-core kernel keeps it
+template <int NV>
+__device__ __forceinline__ void lse_update(float& m_run, float& s_run, const float (&x)[NV]) {
+  float tmax = -INFINITY;
+#pragma unroll
+  for (int e = 0; e < NV; ++e) tmax = fmaxf(tmax, x[e]);
+  const float m_new = fmaxf(m_run, tmax);
+  if (m_new != -INFINITY) {
+    const float mL = m_new * LOG2E;
+    float sum = s_run * fast_exp2(fmaf(m_run, LOG2E, -mL));
+#pragma unroll
+    for (int e = 0; e < NV; ++e) sum += fast_exp2(fmaf(x[e], LOG2E, -mL));
+    s_run = sum;
+    m_run = m_new;
+  }
+}
+
+// a lane's (max, sum 2^x) of one row combined with those of the lanes
+// lane ^ o for o < WIDTH, as (max, sum exp(x - max))
+template <int WIDTH>
+__device__ __forceinline__ void lse_combine(float m_run, float s_run, float& m, float& s) {
+  m = m_run;
+#pragma unroll
+  for (int o = 1; o < WIDTH; o <<= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
+  s = m_run == -INFINITY ? 0.f : s_run * fast_exp2((m_run - m) * LOG2E);
+#pragma unroll
+  for (int o = 1; o < WIDTH; o <<= 1) s += __shfl_xor_sync(FULL, s, o);
+}
+
+// the wide first passes' dynamic shared memory after their own buffers: the
+// score tile (BN x SC_PITCH f32), the lists ((value, index) x BN x kc) and
+// the four warps' survivor buffers ((value, index) x 64)
+size_t wide_tail_bytes(int kc) {
+  return sizeof(float) * (size_t)BN * SC_PITCH + (sizeof(float) + sizeof(int)) * (BN * (size_t)kc + 4 * BV);
+}
+
+// The lists' part of that memory, set to empty: (value, index) arrays and
+// the survivor buffers after them
+struct WideLists {
+  float* sc;
+  float* lv;
+  int* li;
+  float* bv;
+  int* bi;
+  __device__ WideLists(unsigned char* p, int kc) {
+    sc = reinterpret_cast<float*>(p);
+    lv = sc + BN * SC_PITCH;
+    li = reinterpret_cast<int*>(lv + BN * kc);
+    bv = reinterpret_cast<float*>(li + BN * kc);
+    bi = reinterpret_cast<int*>(bv + 4 * BV);
+    for (int e = threadIdx.x; e < BN * kc; e += blockDim.x) {
+      lv[e] = -INFINITY;
+      li[e] = INT_MAX;
+    }
+  }
+  // warp w's list work on its 16 rows of the tile at col0 (their scores are in sc)
+  __device__ __forceinline__ void tile(int warp, int lane, int r0, int N, int col0, int c_end,
+                                       int kc) {
+    __syncwarp();
+    for (int r = warp * 16; r < warp * 16 + 16 && r0 + r < N; ++r)
+      list_tile(sc + r * SC_PITCH, col0, c_end, lv + r * kc, li + r * kc, kc, bv + warp * BV,
+                bi + warp * BV, lane);
+  }
+  // after a block barrier: every row's list to (N, n_chunks, kc)
+  __device__ void store(int r0, int N, int chunk, int n_chunks, int kc, float* part_v,
+                        int* part_i) {
+    for (int e = threadIdx.x; e < BN * kc; e += blockDim.x) {
+      const int r = e / kc, j = e - r * kc;
+      if (r0 + r < N) {
+        const long long o = ((long long)(r0 + r) * n_chunks + chunk) * kc + j;
+        part_v[o] = lv[e];
+        part_i[o] = li[e];
+      }
+    }
+  }
+};
+
+constexpr int WIDE_THREADS = 128;    // four warps of 16 rows: BN rows a block
+
+// A thread's share of the wide CUDA-core pass's depth slice [d0, d0 + BD) of
+// rows r0 .. of h and of columns col0 .. of Wv, as f32: element i is h row 16
+// (i / 4) + 4 warp + lane / 8 at depth 8 (i % 4) + lane % 8 (a warp reads four
+// 8-element pieces of rows, and its transposed stores fall on 32 banks), and
+// Wv depth 4 (i / 2) + warp at column lane + 32 (i % 2).  Zeros past N, D, V.
+template <typename T>
+__device__ __forceinline__ void wide_load(float (&hr)[16], float (&wr)[16],
+                                          const T* __restrict__ h, const T* __restrict__ wv,
+                                          int N, int D, int V, int r0, int d0, int col0,
+                                          int warp, int lane) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int r = r0 + 16 * (i >> 2) + 4 * warp + (lane >> 3), d = d0 + 8 * (i & 3) + (lane & 7);
+    hr[i] = r < N && d < D ? to_f32(h[(long long)r * D + d]) : 0.f;
+    const int dw = d0 + 4 * (i >> 1) + warp, c = col0 + lane + 32 * (i & 1);
+    wr[i] = dw < D && c < V ? to_f32(wv[(long long)dw * V + c]) : 0.f;
+  }
+}
+
+// ... into shared memory: h transposed ([depth][row]), Wv as it lies
+__device__ __forceinline__ void wide_store(const float (&hr)[16], const float (&wr)[16],
+                                           float (*hs)[BN + 4], float (*ws)[BV + 4], int warp,
+                                           int lane) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    hs[8 * (i & 3) + (lane & 7)][16 * (i >> 2) + 4 * warp + (lane >> 3)] = hr[i];
+    ws[4 * (i >> 1) + warp][lane + 32 * (i & 1)] = wr[i];
+  }
+}
+
+// The CUDA-core wide first pass (f32, and bf16 that misses the tensor-core
+// alignment).  Thread (ty, tx) = (tid / 16, tid % 16) holds rows 8 ty .. 8 ty
+// + 7 and columns 4 tx .. 4 tx + 3 of a 64 x 64 tile: warp w's rows are 16 w
+// .. 16 w + 15.  Depth slices of BD pass through shared memory as f32, h
+// transposed, the next slice loaded into registers while this one is used.
+template <typename T>
+__global__ void __launch_bounds__(WIDE_THREADS) score_partial_wide_kernel(
     const T* __restrict__ h, const T* __restrict__ wv,
     const float* __restrict__ bv, int N, int D, int V, int kc, int chunk_cols,
     int n_chunks, float* __restrict__ part_v, int* __restrict__ part_i,
     float* __restrict__ part_m, float* __restrict__ part_s) {
-  __shared__ float hs[RB][BD + 1];
-  __shared__ float ws[BD][BV];
-  __shared__ float sc[RB][BV + 1];
-  __shared__ float run_m[RB];
-  __shared__ float run_s[RB];
-  extern __shared__ __align__(16) unsigned char lists[];
-  float* lvs = reinterpret_cast<float*>(lists);            // [RB][kc]
-  int* lis = reinterpret_cast<int*>(lvs + RB * kc);        // [RB][kc]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int r0 = blockIdx.y * RB;
+  __shared__ __align__(16) float hs[BD][BN + 4];   // [depth][row]
+  __shared__ __align__(16) float ws[BD][BV + 4];   // [depth][column]
+  extern __shared__ __align__(16) unsigned char dyn[];
+  WideLists lists(dyn, kc);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int r0 = blockIdx.y * BN;
   const int chunk = blockIdx.x;
   const int c_begin = chunk * chunk_cols;
   const int c_end = min(V, c_begin + chunk_cols);
+  const int slices = (D + BD - 1) / BD;
+  const int total = (c_end - c_begin + BV - 1) / BV * slices;
 
-  for (int e = tid; e < RB * kc; e += THREADS) {
-    lvs[e] = -INFINITY;
-    lis[e] = INT_MAX;
+  float acc[8][4], m_run[8], s_run[8];
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    m_run[a] = -INFINITY;
+    s_run[a] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
   }
-  for (int e = tid; e < RB; e += THREADS) {
-    run_m[e] = -INFINITY;
-    run_s[e] = 0.f;
-  }
+  float hr[16], wr[16];
+  wide_load(hr, wr, h, wv, N, D, V, r0, 0, c_begin, warp, lane);
+  int ks = 0, col0 = c_begin;
+  for (int s = 0; s < total; ++s) {
+    __syncthreads();                 // the last slice's reads are done
+    wide_store(hr, wr, hs, ws, warp, lane);
+    __syncthreads();
+    if (s + 1 < total) {
+      const int tile = (s + 1) / slices;
+      wide_load(hr, wr, h, wv, N, D, V, r0, (s + 1 - tile * slices) * BD, c_begin + tile * BV,
+                warp, lane);
+    }
+#pragma unroll
+    for (int dd = 0; dd < BD; ++dd) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&hs[dd][8 * ty]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&hs[dd][8 * ty + 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&ws[dd][4 * tx]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bw[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int a = 0; a < 8; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(av[a], bw[c], acc[a][c]);
+    }
+    if (++ks < slices) continue;
 
-  for (int col0 = c_begin; col0 < c_end; col0 += BV) {
-    score_tile<T, RB>(h, wv, bv, N, D, V, r0, col0, c_end, hs, ws, sc);
-    for (int r = warp; r < RB; r += THREADS / 32) {
-      if (r0 + r >= N) continue;
-      Cand c0, c1;
-      tile_cands(sc[r], col0, c_end, lane, c0, c1);
-      online_lse(c0, c1, lane, run_m[r], run_s[r]);
-      float* lv = lvs + r * kc;
-      int* li = lis + r * kc;
-      // candidates that beat the last entry, one at a time in lane order;
-      // each is checked again against the last entry, which only rises
-      unsigned q0 = __ballot_sync(0xffffffffu,
-                                  c0.i != INT_MAX && better(c0.v, c0.i, lv[kc - 1], li[kc - 1]));
-      unsigned q1 = __ballot_sync(0xffffffffu,
-                                  c1.i != INT_MAX && better(c1.v, c1.i, lv[kc - 1], li[kc - 1]));
-      while (q0 | q1) {
-        const bool first = q0 != 0u;
-        const int src = __ffs(first ? q0 : q1) - 1;
-        (first ? q0 : q1) &= ~(1u << src);
-        Cand c;
-        c.v = __shfl_sync(0xffffffffu, first ? c0.v : c1.v, src);
-        c.i = __shfl_sync(0xffffffffu, first ? c0.i : c1.i, src);
-        if (better(c.v, c.i, lv[kc - 1], li[kc - 1])) list_insert(lv, li, kc, c, lane);
+    // the tile at col0 is done: bias, mask, each row's (max, sum), the rows'
+    // scores to the warp's rows of the score tile, then their lists
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      float x[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = col0 + 4 * tx + c;
+        x[c] = col < c_end ? acc[a][c] + bv[col] : -INFINITY;
+        acc[a][c] = 0.f;
       }
+      lse_update<4>(m_run[a], s_run[a], x);
+      *reinterpret_cast<float4*>(lists.sc + (8 * ty + a) * SC_PITCH + 4 * tx) =
+          make_float4(x[0], x[1], x[2], x[3]);
+    }
+    lists.tile(warp, lane, r0, N, col0, c_end, kc);
+    ks = 0;
+    col0 += BV;
+  }
+
+  // a row's 16 threads (one half-warp) combine their (max, sum)
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    float m, sum;
+    lse_combine<16>(m_run[a], s_run[a], m, sum);
+    const int row = r0 + 8 * ty + a;
+    if (tx == 0 && row < N) {
+      part_m[(long long)row * n_chunks + chunk] = m;
+      part_s[(long long)row * n_chunks + chunk] = sum;
     }
   }
   __syncthreads();
-  for (int e = tid; e < RB * kc; e += THREADS) {
-    const int r = e / kc, j = e % kc;
-    if (r0 + r < N) {
-      const long long o = ((long long)(r0 + r) * n_chunks + chunk) * kc + j;
-      part_v[o] = lvs[e];
-      part_i[o] = lis[e];
-    }
-  }
-  for (int r = tid; r < RB; r += THREADS) {
-    if (r0 + r < N) {
-      part_m[(long long)(r0 + r) * n_chunks + chunk] = run_m[r];
-      part_s[(long long)(r0 + r) * n_chunks + chunk] = run_s[r];
-    }
-  }
+  lists.store(r0, N, chunk, n_chunks, kc, part_v, part_i);
 }
 
-// One warp a row: the lse from the chunks' (max, sum exp) pairs and the
-// tail; then k rounds over the chunks' lists (kc entries each) and the
-// tail, round j taking the best candidate that ranks after round j - 1's
-// pick (indices are distinct, so nothing else needs marking; list padding,
-// index INT_MAX, never counts).
-__global__ void __launch_bounds__(THREADS) score_merge_kernel(
+// One warp a row, a block a warp: the lse from the chunks' (max, sum exp)
+// pairs and the tail; then k rounds over the chunks' lists (kc entries each)
+// and the tail, round j taking the best candidate that ranks after round j -
+// 1's pick (indices are distinct, so nothing else needs marking; list
+// padding, index INT_MAX, never counts).  When they fit (`staged`), the row's
+// candidates are first copied to shared memory, so the rounds read it and
+// not L2 (each round's loads wait on nothing but the address).
+__global__ void __launch_bounds__(32) score_merge_kernel(
     const float* __restrict__ part_v, const int* __restrict__ part_i,
     const float* __restrict__ part_m, const float* __restrict__ part_s,
     const float* __restrict__ tail, int N, int V, int T, int k, int kc, int n_chunks,
-    float* __restrict__ vals, int* __restrict__ idx, float* __restrict__ lse) {
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
-  if (n >= N) return;
+    int staged, float* __restrict__ vals, int* __restrict__ idx, float* __restrict__ lse) {
+  extern __shared__ __align__(16) unsigned char cand[];
+  const int lane = threadIdx.x;
+  const int n = blockIdx.x;
   const int P = n_chunks * kc;  // partial candidates, then T tail entries
   const float* pv = part_v + (long long)n * P;
   const int* pi = part_i + (long long)n * P;
   const float* tr = tail + (long long)n * T;
+  float* sv = reinterpret_cast<float*>(cand);
+  int* si = reinterpret_cast<int*>(sv + P + T);
+  if (staged) {
+    for (int e = lane; e < P; e += 32) {
+      sv[e] = pv[e];
+      si[e] = pi[e];
+    }
+    for (int t = lane; t < T; t += 32) {
+      sv[P + t] = tr[t];
+      si[P + t] = V + t;
+    }
+    __syncwarp();
+    tr = sv + P;
+  }
 
   // logsumexp over [V | tail] from the chunks' (max, sum exp) pairs
   float m = -INFINITY;
@@ -410,7 +708,8 @@ __global__ void __launch_bounds__(THREADS) score_merge_kernel(
   for (int j = 0; j < k; ++j) {
     Cand mine{-INFINITY, INT_MAX};
     for (int e = lane; e < P + T; e += 32) {
-      const Cand c = e < P ? Cand{pv[e], pi[e]} : Cand{tr[e - P], V + (e - P)};
+      const Cand c = staged ? Cand{sv[e], si[e]}
+                            : e < P ? Cand{pv[e], pi[e]} : Cand{tr[e - P], V + (e - P)};
       if (c.i != INT_MAX && better(prev.v, prev.i, c.v, c.i) &&
           better(c.v, c.i, mine.v, mine.i))
         mine = c;
@@ -424,6 +723,30 @@ __global__ void __launch_bounds__(THREADS) score_merge_kernel(
   if (lane == 0) lse[n] = m + logf(s);
 }
 
+constexpr size_t MERGE_SMEM_MAX = 227 * 1024;   // a block's shared memory on sm_90
+
+// the merge's launch: its candidates staged when (value, index) x (P + T)
+// fit a block's shared memory (opened to that once per device)
+int launch_merge(cudaStream_t s, const float* part_v, const int* part_i, const float* part_m,
+                 const float* part_s, const float* tail, int N, int V, int T, int k, int kc,
+                 int n_chunks, float* vals, int* idx, float* lse) {
+  static bool opted[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev >= 64 || !opted[dev])) {
+    err = cudaFuncSetAttribute(score_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(MERGE_SMEM_MAX));
+    if (err == cudaSuccess && dev < 64) opted[dev] = true;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t bytes = (sizeof(float) + sizeof(int)) * ((size_t)n_chunks * kc + T);
+  const bool staged = bytes <= MERGE_SMEM_MAX;
+  score_merge_kernel<<<N, 32, staged ? bytes : 0, s>>>(part_v, part_i, part_m, part_s, tail, N,
+                                                        V, T, k, kc, n_chunks, staged, vals,
+                                                        idx, lse);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---------------------------------------------------------------------------
 // bf16 first pass on the tensor cores
 // ---------------------------------------------------------------------------
@@ -435,7 +758,6 @@ constexpr int TC_BK = 64;            // depth of a ring stage
 constexpr int TC_STAGES = 3;
 constexpr int TC_WPITCH = BV + 8;    // a stage's row pitch in bf16: 144 bytes
 constexpr int TC_MAXD = 512;
-constexpr float LOG2E = 1.4426950408889634f;
 
 // h's rows in shared memory: D padded to 16, plus 8 so that the eight rows of
 // an ldmatrix phase fall on distinct banks
@@ -443,10 +765,16 @@ __host__ __device__ constexpr int tc_hpitch(int D) { return ((D + 15) & ~15) + 8
 
 // h's rows, then the ring; at the chunk's end the ring holds the four lanes'
 // lists of each row ((value, index) x BN x 4 x K), which outgrow it above K 13
+constexpr size_t TC_RING_BYTES = sizeof(bf16) * (size_t)TC_STAGES * TC_BK * TC_WPITCH;
+
 size_t tc_smem_bytes(int D, int K) {
-  const size_t ring = sizeof(bf16) * (size_t)TC_STAGES * TC_BK * TC_WPITCH;
   const size_t lists = (sizeof(float) + sizeof(int)) * (size_t)BN * 4 * K;
-  return sizeof(bf16) * (size_t)BN * tc_hpitch(D) + (ring > lists ? ring : lists);
+  return sizeof(bf16) * (size_t)BN * tc_hpitch(D) + (TC_RING_BYTES > lists ? TC_RING_BYTES : lists);
+}
+
+// the wide tensor-core first pass: h's rows, the ring, then wide_tail_bytes
+size_t tc_wide_smem_bytes(int D, int kc) {
+  return sizeof(bf16) * (size_t)BN * tc_hpitch(D) + TC_RING_BYTES + wide_tail_bytes(kc);
 }
 
 // insert (v, i), which beats the list's last entry, into the sorted list
@@ -516,22 +844,24 @@ __device__ __forceinline__ void quad_best(float& v, int& i) {
   }
 }
 
-template <int K>
-__global__ void __launch_bounds__(TC_THREADS) score_partial_mma_kernel(
-    const bf16* __restrict__ h, const bf16* __restrict__ wv,
-    const float* __restrict__ bv, int N, int D, int V, int chunk_cols,
-    int n_chunks, float* __restrict__ part_v, int* __restrict__ part_i,
-    float* __restrict__ part_m, float* __restrict__ part_s) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// The tensor-core product of one chunk.  A block of four warps holds rows
+// [r0, r0 + BN) of h in shared memory (hs; D padded to a multiple of 16 by
+// zero-filling copies) and streams Wv through a three-stage cp.async ring of
+// 64 x 64 tiles; each warp multiplies its 16 rows with mma.sync m16n8k16
+// (ldmatrix for h, ldmatrix.trans for Wv) into f32 accumulators.  When a
+// 64-column tile is done, epi(acc, col0) gets it with the bias added and the
+// columns at or past c_end at -inf: lane (g, t) holds columns col0 + 8 n + 2 t
+// + {0, 1} of rows g (acc[n][0..1]) and g + 8 (acc[n][2..3]) of its warp's
+// rows.  Returns after every copy has landed and a block barrier, so the ring
+// may be reused.
+template <typename Epi>
+__device__ __forceinline__ void mma_chunk(const bf16* __restrict__ h, const bf16* __restrict__ wv,
+                                          const float* __restrict__ bv, int N, int D, int V,
+                                          int r0, int c_begin, int c_end, bf16* hs, bf16* ring,
+                                          Epi&& epi) {
   const int hp = tc_hpitch(D), dpad = hp - 8;
-  bf16* hs = reinterpret_cast<bf16*>(smem);
-  bf16* ring = hs + BN * hp;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.y * BN;
-  const int chunk = blockIdx.x;
-  const int c_begin = chunk * chunk_cols;
-  const int c_end = min(V, c_begin + chunk_cols);
+  const int t = lane & 3;
   const int kstages = (dpad + TC_BK - 1) / TC_BK;
   const int total = (c_end - c_begin + BV - 1) / BV * kstages;
 
@@ -571,19 +901,6 @@ __global__ void __launch_bounds__(TC_THREADS) score_partial_mma_kernel(
   const int b_off = (lane & 15) * TC_WPITCH + (lane >> 4) * 8;
 
   float acc[8][4];
-  float lv0[K], lv1[K], m_run[2], s_run[2], tv[2];
-  int li0[K], li1[K], ti[2];
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    lv0[j] = lv1[j] = -INFINITY;
-    li0[j] = li1[j] = INT_MAX;
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    m_run[r] = tv[r] = -INFINITY;
-    s_run[r] = 0.f;
-    ti[r] = INT_MAX;
-  }
 #pragma unroll
   for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -613,8 +930,7 @@ __global__ void __launch_bounds__(TC_THREADS) score_partial_mma_kernel(
     }
     if (++ks < kstages) continue;
 
-    // the tile at col0 is done: lane holds columns col0 + 8 n + 2 t + {0, 1}
-    // of rows g and g + 8; bias, mask, then each row's (max, sum) and list
+    // the tile at col0 is done: bias and mask, then the caller's epilogue
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -625,10 +941,7 @@ __global__ void __launch_bounds__(TC_THREADS) score_partial_mma_kernel(
         acc[n][e] = ok ? acc[n][e] + b : -INFINITY;
         acc[n][2 + e] = ok ? acc[n][2 + e] + b : -INFINITY;
       }
-    row_epilogue<0, K>(acc, col0, t, m_run[0], s_run[0], lv0, li0, tv[0], ti[0]);
-    row_epilogue<1, K>(acc, col0, t, m_run[1], s_run[1], lv1, li1, tv[1], ti[1]);
-    quad_best(tv[0], ti[0]);
-    quad_best(tv[1], ti[1]);
+    epi(acc, col0);
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -636,12 +949,52 @@ __global__ void __launch_bounds__(TC_THREADS) score_partial_mma_kernel(
     ks = 0;
     col0 += BV;
   }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+template <int K>
+__global__ void __launch_bounds__(TC_THREADS) score_partial_mma_kernel(
+    const bf16* __restrict__ h, const bf16* __restrict__ wv,
+    const float* __restrict__ bv, int N, int D, int V, int chunk_cols,
+    int n_chunks, float* __restrict__ part_v, int* __restrict__ part_i,
+    float* __restrict__ part_m, float* __restrict__ part_s) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* hs = reinterpret_cast<bf16*>(smem);
+  bf16* ring = hs + BN * tc_hpitch(D);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.y * BN;
+  const int chunk = blockIdx.x;
+  const int c_begin = chunk * chunk_cols;
+  const int c_end = min(V, c_begin + chunk_cols);
+
+  float lv0[K], lv1[K], m_run[2], s_run[2], tv[2];
+  int li0[K], li1[K], ti[2];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    lv0[j] = lv1[j] = -INFINITY;
+    li0[j] = li1[j] = INT_MAX;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m_run[r] = tv[r] = -INFINITY;
+    s_run[r] = 0.f;
+    ti[r] = INT_MAX;
+  }
+
+  // each tile: each row's (max, sum) and list
+  mma_chunk(h, wv, bv, N, D, V, r0, c_begin, c_end, hs, ring,
+            [&](const float (&acc)[8][4], int col0) {
+              row_epilogue<0, K>(acc, col0, t, m_run[0], s_run[0], lv0, li0, tv[0], ti[0]);
+              row_epilogue<1, K>(acc, col0, t, m_run[1], s_run[1], lv1, li1, tv[1], ti[1]);
+              quad_best(tv[0], ti[0]);
+              quad_best(tv[1], ti[1]);
+            });
 
   // the four lanes of a row: (max, sum) by shuffles, lists through shared
   // memory (the ring, which tc_smem_bytes sizes for them, is free once every
-  // warp is past its last stage)
-  cp_async_wait<0>();
-  __syncthreads();
+  // warp is past its last stage, as mma_chunk leaves it)
   float* mv = reinterpret_cast<float*>(ring);              // [BN][4][K]
   int* mi = reinterpret_cast<int*>(mv + BN * 4 * K);       // [BN][4][K]
 #pragma unroll
@@ -688,6 +1041,60 @@ __global__ void __launch_bounds__(TC_THREADS) score_partial_mma_kernel(
       part_i[o] = bi;
     }
   }
+}
+
+// The wide first pass on the tensor cores (k above KMAX, aligned bf16): the
+// product of mma_chunk; after each tile every lane folds its 16 scores of
+// rows g and g + 8 into their (max, sum 2^x) and writes them to its warp's
+// rows of the score tile, and the warp merges its 16 rows into their lists
+// (WideLists::tile).  At the chunk's end the quad's (max, sum) pairs are
+// combined by shuffles.
+__global__ void __launch_bounds__(TC_THREADS) score_partial_wide_mma_kernel(
+    const bf16* __restrict__ h, const bf16* __restrict__ wv,
+    const float* __restrict__ bv, int N, int D, int V, int kc, int chunk_cols,
+    int n_chunks, float* __restrict__ part_v, int* __restrict__ part_i,
+    float* __restrict__ part_m, float* __restrict__ part_s) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* hs = reinterpret_cast<bf16*>(smem);
+  bf16* ring = hs + BN * tc_hpitch(D);
+  WideLists lists(reinterpret_cast<unsigned char*>(ring) + TC_RING_BYTES, kc);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.y * BN;
+  const int chunk = blockIdx.x;
+  const int c_begin = chunk * chunk_cols;
+  const int c_end = min(V, c_begin + chunk_cols);
+
+  float m_run[2] = {-INFINITY, -INFINITY}, s_run[2] = {0.f, 0.f};
+  mma_chunk(h, wv, bv, N, D, V, r0, c_begin, c_end, hs, ring,
+            [&](const float (&acc)[8][4], int col0) {
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                float x[16];
+#pragma unroll
+                for (int n = 0; n < 8; ++n) {
+                  x[2 * n] = acc[n][2 * r];
+                  x[2 * n + 1] = acc[n][2 * r + 1];
+                  *reinterpret_cast<float2*>(lists.sc + (warp * 16 + g + 8 * r) * SC_PITCH +
+                                             8 * n + 2 * t) =
+                      make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+                }
+                lse_update<16>(m_run[r], s_run[r], x);
+              }
+              lists.tile(warp, lane, r0, N, col0, c_end, kc);
+            });
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float m, sum;
+    lse_combine<4>(m_run[r], s_run[r], m, sum);
+    const int row = r0 + warp * 16 + g + 8 * r;
+    if (t == 0 && row < N) {
+      part_m[(long long)row * n_chunks + chunk] = m;
+      part_s[(long long)row * n_chunks + chunk] = sum;
+    }
+  }
+  lists.store(r0, N, chunk, n_chunks, kc, part_v, part_i);
 }
 
 // the tensor-core kernel takes more than 48 KB of shared memory only after
@@ -745,51 +1152,60 @@ int launch_mma(int k, dim3 grid, cudaStream_t s, const bf16* h, const bf16* wv,
   });
 }
 
-// the wide first pass at RB rows a block as fn(kernel), its shared memory
-// opened to the lists' size first
-template <typename Scalar, typename Fn>
-int with_wide_kernel(int RB, int kc, Fn&& fn) {
-  auto call = [&](auto kernel) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(wide_list_bytes(RB, kc)));
-    return err != cudaSuccess ? static_cast<int>(err) : fn(kernel);
+// the wide first pass of this dispatch as fn(kernel, threads, dynamic shared
+// memory), its shared memory opened to the longest list first (once per
+// device and kernel)
+template <typename Scalar, bool TC, typename Fn>
+int with_wide_kernel(int D, int kc, Fn&& fn) {
+  static bool opted[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  auto call = [&](auto kernel, int threads, size_t smem, size_t most) {
+    if (err == cudaSuccess && (dev >= 64 || !opted[dev])) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(most));
+      if (err == cudaSuccess && dev < 64) opted[dev] = true;
+    }
+    return err != cudaSuccess ? static_cast<int>(err) : fn(kernel, threads, smem);
   };
-  switch (RB) {
-    case 64: return call(score_partial_wide_kernel<Scalar, 64>);
-    case 32: return call(score_partial_wide_kernel<Scalar, 32>);
-    case 16: return call(score_partial_wide_kernel<Scalar, 16>);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (TC)
+    return call(score_partial_wide_mma_kernel, TC_THREADS, tc_wide_smem_bytes(D, kc),
+                tc_wide_smem_bytes(TC_MAXD, LIST_MAX));
+  else
+    return call(score_partial_wide_kernel<Scalar>, WIDE_THREADS, wide_tail_bytes(kc),
+                wide_tail_bytes(LIST_MAX));
 }
 
-// TC: the bf16 tensor-core first pass, which needs k <= KMAX, D % 4 == 0,
-// D <= 512, V % 8 == 0, h on an 8-byte and wv on a 16-byte boundary.  A
-// chunk's list holds kc = min(k, chunk_cols) entries (part_v / part_i are
-// (N, n_chunks, kc)); k above KMAX takes the wide first pass.
+// TC: the bf16 tensor-core first passes, which need D % 4 == 0, D <= 512, V %
+// 8 == 0, h on an 8-byte and wv on a 16-byte boundary.  A chunk's list holds
+// kc = min(k, chunk_cols) entries (part_v / part_i are (N, n_chunks, kc));
+// k above KMAX takes a wide first pass, whose lists hold at most LIST_MAX.
 template <typename Scalar, bool TC>
 int run(const void* h, const void* wv, const float* bv, const float* tail,
         float* part_v, int* part_i, float* part_m, float* part_s, float* vals,
         int* idx, float* lse, int N, int D, int V, int T, int k,
         int chunk_cols, int n_chunks, void* stream) {
-  if (k < 1 || k > V + T || chunk_cols < BV || chunk_cols % BV != 0 || (TC && k > KMAX))
-    return static_cast<int>(cudaErrorInvalidValue);
   const int kc = k < chunk_cols ? k : chunk_cols;
+  if (k < 1 || k > V + T || chunk_cols < BV || chunk_cols % BV != 0 ||
+      (k > KMAX && kc > LIST_MAX))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (TC) {
+    if (D % 4 || D > TC_MAXD || V % 8 || reinterpret_cast<uintptr_t>(h) % 8 ||
+        reinterpret_cast<uintptr_t>(wv) % 16)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   dim3 grid1(n_chunks, (N + BN - 1) / BN);
   if (k > KMAX) {
-    const int RB = wide_rows(kc);
-    const int err = with_wide_kernel<Scalar>(RB, kc, [&](auto kernel) {
-      kernel<<<dim3(n_chunks, (N + RB - 1) / RB), THREADS, wide_list_bytes(RB, kc), s>>>(
+    const int err = with_wide_kernel<Scalar, TC>(D, kc, [&](auto kernel, int threads,
+                                                             size_t smem) {
+      kernel<<<grid1, threads, smem, s>>>(
           static_cast<const Scalar*>(h), static_cast<const Scalar*>(wv), bv, N, D, V, kc,
           chunk_cols, n_chunks, part_v, part_i, part_m, part_s);
       return 0;
     });
     if (err) return err;
   } else if constexpr (TC) {
-    if (D % 4 || D > TC_MAXD || V % 8 || reinterpret_cast<uintptr_t>(h) % 8 ||
-        reinterpret_cast<uintptr_t>(wv) % 16)
-      return static_cast<int>(cudaErrorInvalidValue);
     const int err = launch_mma(k, grid1, s, static_cast<const bf16*>(h),
                                static_cast<const bf16*>(wv), bv, N, D, V, chunk_cols,
                                n_chunks, part_v, part_i, part_m, part_s);
@@ -799,12 +1215,10 @@ int run(const void* h, const void* wv, const float* bv, const float* tail,
         static_cast<const Scalar*>(h), static_cast<const Scalar*>(wv), bv, N, D, V, k,
         chunk_cols, n_chunks, part_v, part_i, part_m, part_s);
   }
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows_per_block = THREADS / 32;
-  score_merge_kernel<<<(N + rows_per_block - 1) / rows_per_block, THREADS, 0, s>>>(
-      part_v, part_i, part_m, part_s, tail, N, V, T, k, kc, n_chunks, vals, idx, lse);
-  return static_cast<int>(cudaGetLastError());
+  return launch_merge(s, part_v, part_i, part_m, part_s, tail, N, V, T, k, kc, n_chunks, vals,
+                      idx, lse);
 }
 
 }  // namespace
@@ -827,20 +1241,20 @@ ICEK_EXPORT int score_topk_bf16_mma(SCORE_ARGS) {
 }
 
 // The first pass that score_topk_<dtype>[_mma] launches for lists of kc
-// entries and width D: its blocks resident on the current device at once
-// (the wrapper splits the vocab so the first pass has about that many) and
-// its rows a block (64; fewer for wide lists)
+// entries (at most LIST_MAX above KMAX) and width D: its blocks resident on
+// the current device at once (the wrapper splits the vocab so the first pass
+// has about that many) and its rows a block (64)
 ICEK_EXPORT int score_topk_grid(int bf16, int tc, int kc, int D, int* blocks, int* rows) {
-  if (kc < 1 || D < 1 || (tc && (!bf16 || D > TC_MAXD || kc > KMAX)))
+  if (kc < 1 || D < 1 || (kc > KMAX && kc > LIST_MAX) || (tc && (!bf16 || D > TC_MAXD)))
     return static_cast<int>(cudaErrorInvalidValue);
   *rows = BN;
   if (kc > KMAX) {
-    *rows = wide_rows(kc);
-    auto occupancy = [&](auto kernel) {
-      return resident_blocks(kernel, THREADS, wide_list_bytes(*rows, kc), blocks);
+    auto occupancy = [&](auto kernel, int threads, size_t smem) {
+      return resident_blocks(kernel, threads, smem, blocks);
     };
-    return bf16 ? with_wide_kernel<__nv_bfloat16>(*rows, kc, occupancy)
-                : with_wide_kernel<float>(*rows, kc, occupancy);
+    if (tc) return with_wide_kernel<__nv_bfloat16, true>(D, kc, occupancy);
+    return bf16 ? with_wide_kernel<__nv_bfloat16, false>(D, kc, occupancy)
+                : with_wide_kernel<float, false>(D, kc, occupancy);
   }
   if (tc)
     return with_k(kc, [&](auto kk) {

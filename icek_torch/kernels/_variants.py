@@ -2,6 +2,9 @@
 
     python -m icek_torch.kernels._variants fused_norm base,nophilox,copyonly [ROWS] [RATE]
     python -m icek_torch.kernels._variants decoder_step base,g1,nolinears [STEP ...]
+    python -m icek_torch.kernels._variants score_topk base,nolist,nolse [K,K,...]
+    python -m icek_torch.kernels._variants flash_attention base,nophilox [RATE,RATE,...]
+    python -m icek_torch.kernels._variants --parent ROOT <source> base,... [args]
 
 builds each named variant of ``csrc/<source>.cu`` (the source with the
 variant's text replacements, ``VARIANTS``) with the wrappers' flags, all
@@ -15,7 +18,22 @@ order given and then backwards, so a drift shows:
 * ``decoder_step``: ``fused_beam_decoder_step`` in bf16 at the beam shape
   (B 256, K 5, the geo decoder's widths, seeded random inputs, the cross
   K/V laid out by ``pad_cross_heads`` beforehand as the beam loop does) at
-  each STEP (default 15), with CUDA events.
+  each STEP (default 15), with CUDA events;
+* ``score_topk``: ``fused_score_topk`` at the geo beam-20 shape (N 640 rows,
+  D 300, V 10000, tail 301, seeded random inputs) at each K (default 20), in
+  bf16 and f32, with CUDA events, and the first pass and the merge apart
+  (torch.profiler);
+* ``flash_attention``: the float32 backward (dQ, then dK/dV) at the geo
+  encoder site (B 256, T 301, H 10, Hd 30, q, k, v strided views of one
+  fused QKV projection) at each RATE (default 0 and 0.2), with CUDA events,
+  and its two kernels apart (torch.profiler).
+
+The base build's ptxas report (registers, shared memory, spills of every
+kernel) is printed first.  With ``--parent ROOT`` (a checkout of another
+tree, such as the parent commit unpacked by ``git archive`` into a
+git-ignored directory) that tree's source and package are timed too, as
+``parent``, by this module's timer, before and after the variants: a
+before-and-after in one call on one card.
 
 Each variant is held against its kernel's plain version, except those in
 ``CUTS``, which cut work out and so compute wrong results: only their time
@@ -110,9 +128,37 @@ VARIANTS = {
         "noself": [("for (int task = tid >> 1; task < R * H; task += MT / 2)",
                     "for (int task = tid >> 1; task < 0; task += MT / 2)")],
     },
+    "score_topk": {
+        "base": [],
+        # the wide first passes: no row's list takes a tile
+        "nolist": [("    for (int r = warp * 16; r < warp * 16 + 16 && r0 + r < N; ++r)\n",
+                    "    for (int r = warp * 16; r < 0; ++r)\n")],
+        # the wide first passes: no online logsumexp
+        "nolse": [("                lse_update<16>(m_run[r], s_run[r], x);\n", ""),
+                  ("      lse_update<4>(m_run[a], s_run[a], x);\n", "")],
+    },
+    "flash_attention": {
+        "base": [],
+        # the TF32 dK/dV kernel's keep words from its counters, not Philox
+        "nophilox": [("  const uint4 r = philox4x32_10(a.seed, STREAM_FLASH, "
+                      "mask_row_block(a, b, h, query) + kblk);",
+                      "  const uint4 r = make_uint4(query * 0x9E3779B9u, "
+                      "static_cast<uint32_t>(kblk) * 0x85EBCA6Bu, 0x7fffffffu, 0xc0000000u);")],
+        # the TF32 kernels' dQ, dK and dV summed by the tensor cores, not f32 adds
+        # the TF32 kernels' dQ, dK and dV summed by the tensor cores, not f32 adds
+        "tcacc": [("        mma_add<P>(acc[n], dsa, kr[0], kr[FP]);",
+                   "        mma_pieces<P>(acc[n], dsa, kr[0], kr[FP]);"),
+                  ("        mma_add<P>(dva[n], pa, gr[0], gr[FP]);\n"
+                   "        mma_add<P>(dka[n], dsa, qr[0], qr[FP]);",
+                   "        mma_pieces<P>(dva[n], pa, gr[0], gr[FP]);\n"
+                   "        mma_pieces<P>(dka[n], dsa, qr[0], qr[FP]);")],
+        # the dQ kernel's pass 0 skipped: delta and lse2 left unwritten (cut)
+        "onepass": [("  for (int pass = 0; pass < 2; ++pass) {", "  for (int pass = 1; pass < 2; ++pass) {")],
+    },
 }
 CUTS = {"fused_norm": {"noshfl", "copyonly", "computeonly"},
-        "decoder_step": {"nolinears", "nocrossmath", "nocross", "noself"}}
+        "decoder_step": {"nolinears", "nocrossmath", "nocross", "noself"},
+        "score_topk": {"nolist", "nolse"}, "flash_attention": {"nophilox", "onepass"}}
 IMAGES = {"g1": 1, "g3": 3}          # decoder_step: images a block instead of the wrapper's choice
 
 
@@ -132,8 +178,8 @@ def variant_source(source: str, name: str, src: str) -> str:
     return src
 
 
-def _device_ms(fn, part: str, reps: int = 20) -> float:
-    """Device ms a call of the kernels whose names hold `part`."""
+def _device_split(fn, parts, reps: int = 20) -> dict:
+    """Device ms a call of the kernels whose names hold each of `parts`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -143,8 +189,14 @@ def _device_ms(fn, part: str, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum((e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
-               if e.device_type == DeviceType.CUDA and part in e.name) / reps
+    spans = [(e.name, (e.time_range.end - e.time_range.start) / 1e3) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return {part: sum(ms for name, ms in spans if part in name) / reps for part in parts}
+
+
+def _device_ms(fn, part: str, reps: int = 20) -> float:
+    """Device ms a call of the kernels whose names hold `part`."""
+    return _device_split(fn, (part,), reps)[part]
 
 
 def _event_ms(fn, iters: int = 20) -> float:
@@ -237,10 +289,75 @@ def time_decoder_step(name: str, args) -> None:
               f"({_held('decoder_step', name, 'step', err, 0.15)})", flush=True)
 
 
-TIMERS = {"fused_norm": time_fused_norm, "decoder_step": time_decoder_step}
+def score_inputs(dtype, n: int = 640, t: int = 301, seed: int = 1):
+    """h (n, 300), Wv (300, 10000), bv and an (n, t) tail on the card, as
+    chip_smoke.py's score records draw them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.randn((n, 300), generator=g, device="cuda")
+    wv = ((torch.rand((300, 10000), generator=g, device="cuda") * 2 - 1) * 0.1).to(dtype)
+    bv = torch.randn((10000,), generator=g, device="cuda") * 0.01
+    tail = torch.randn((n, t), generator=g, device="cuda")
+    return h.to(dtype), wv, bv, tail
 
 
-def main(source: str, names, args) -> None:
+def time_score_topk(name: str, args) -> None:
+    from icek_torch.kernels import copy_scores as cs
+
+    for k in [int(a) for a in (args[0] if args else "20").split(",")]:
+        for dtype in (torch.bfloat16, torch.float32):
+            h, wv, bv, tail = score_inputs(dtype)
+            run = lambda: cs.fused_score_topk(h, wv, bv, tail, k=k)
+            got, want = run(), cs.reference_score_topk(h, wv, bv, tail, k=k)
+            err = max(float((a - b).abs().max()) for a, b in ((got[0], want[0]), (got[2], want[2])))
+            parts = _device_split(run, ("score_partial", "score_merge"))
+            print(f"{name} {str(dtype)[6:]} N {h.shape[0]} k {k}: {_event_ms(run):.4f} ms, "
+                  f"first pass {parts['score_partial']:.4f} ms, merge "
+                  f"{parts['score_merge']:.4f} ms "
+                  f"({_held('score_topk', name, 'values / lse', err, 1e-4)})", flush=True)
+
+
+def flash_inputs(dtype=torch.float32, B: int = 256, T: int = 301, H: int = 10, Hd: int = 30):
+    """q, k, v (autograd leaves, strided views of one fused QKV projection)
+    and a d_out at the geo encoder site."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    qkv = torch.randn((B, T, 3 * H * Hd), generator=g, device="cuda").to(dtype)
+    leaves = [t.view(B, T, H, Hd).detach().requires_grad_(True)
+              for t in qkv.split(H * Hd, dim=-1)]
+    return leaves, torch.randn((B, T, H, Hd), generator=g, device="cuda").to(dtype)
+
+
+def time_flash_attention(name: str, args) -> None:
+    from icek_torch.kernels import flash_attention as fa
+
+    leaves, d_out = flash_inputs()
+    B, T, H, _ = d_out.shape
+    for rate in [float(a) for a in (args[0] if args else "0,0.2").split(",")]:
+        out = fa.flash_mha(*leaves, dropout_rate=rate, seed=77)
+        bwd = lambda: torch.autograd.grad(out, leaves, d_out, retain_graph=True)
+        keep = fa.keep_mask(B, H, T, T, rate=rate, seed=77, device="cuda") if rate else None
+        ref = fa.reference_mha(*leaves, dropout_rate=rate, keep=keep)
+        want = torch.autograd.grad(ref, leaves, d_out)
+        err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                  for a, b in zip(bwd(), want))
+        del ref, want, keep
+        parts = _device_split(bwd, ("bwd_dq", "bwd_dkv"))
+        print(f"{name} f32 geo encoder rate {rate}: backward {_event_ms(bwd):.4f} ms, dQ "
+              f"{parts['bwd_dq']:.4f} ms, dK/dV {parts['bwd_dkv']:.4f} ms "
+              f"({_held('flash_attention', name, 'backward', err, 1e-4)})", flush=True)
+        del out
+
+
+TIMERS = {"fused_norm": time_fused_norm, "decoder_step": time_decoder_step,
+          "score_topk": time_score_topk, "flash_attention": time_flash_attention}
+
+
+def _nvcc(src_path: str, include: str, out: str):
+    return subprocess.Popen(
+        [_build.nvcc_path(), *_build.ARCH_FLAGS, *_build.FLAGS, "-I", include, "-o", out, src_path],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def main(source: str, names, args, parent: str = None) -> None:
     out_dir = os.path.join(_build.BUILD_DIR, "variants", source)
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(_build.CSRC, source + ".cu")) as f:
@@ -250,26 +367,42 @@ def main(source: str, names, args) -> None:
         path = os.path.join(out_dir, f"{name}.cu")
         with open(path, "w") as f:
             f.write(variant_source(source, name, src))
-        procs[name] = subprocess.Popen(
-            [_build.nvcc_path(), *_build.ARCH_FLAGS, *_build.FLAGS, "-I", _build.CSRC,
-             "-o", path[:-3] + ".so", path],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        procs[name] = _nvcc(path, _build.CSRC, path[:-3] + ".so")
+    if parent:
+        parent_csrc = os.path.join(os.path.abspath(parent), "icek_torch", "csrc")
+        procs["parent"] = _nvcc(os.path.join(parent_csrc, source + ".cu"), parent_csrc,
+                                os.path.join(out_dir, "parent.so"))
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {source} variant {name!r}:\n{log}")
-    print(f"{torch.cuda.get_device_name(0)}; variants {', '.join(names)} of {source}.cu",
-          flush=True)
-    for name in list(names) + list(names)[::-1]:
-        subprocess.run([sys.executable, "-m", "icek_torch.kernels._variants", "--one", source,
-                        name, os.path.join(out_dir, name + ".so"), *args], check=True)
+        if name == names[0]:
+            for line in log.splitlines():
+                if "Compiling entry" in line or "registers" in line or "spill" in line:
+                    print(f"ptxas {source} {name}: {line.strip()}", flush=True)
+    print(f"{torch.cuda.get_device_name(0)}; variants {', '.join(names)} of {source}.cu"
+          + (f", and {parent}'s as parent" if parent else ""), flush=True)
+    order = list(names) + list(names)[::-1]
+    for name in (["parent"] + order + ["parent"]) if parent else order:
+        so = os.path.join(out_dir, name + ".so")
+        if name == "parent":        # this timer against the other tree's package
+            subprocess.run([sys.executable, os.path.abspath(__file__), "--one", source, name, so,
+                            *args], check=True, cwd=parent,
+                           env=dict(os.environ, PYTHONPATH=os.path.abspath(parent)))
+        else:
+            subprocess.run([sys.executable, "-m", "icek_torch.kernels._variants", "--one", source,
+                            name, so, *args], check=True)
 
 
 if __name__ == "__main__":
-    if len(sys.argv) >= 5 and sys.argv[1] == "--one":
-        _build.use_variant(sys.argv[2], sys.argv[4])
-        TIMERS[sys.argv[2]](sys.argv[3], sys.argv[5:])
-    elif len(sys.argv) >= 3 and sys.argv[1] in VARIANTS:
-        main(sys.argv[1], sys.argv[2].split(","), sys.argv[3:])
+    argv = sys.argv[1:]
+    root = None
+    if len(argv) >= 2 and argv[0] == "--parent":
+        root, argv = argv[1], argv[2:]
+    if len(argv) >= 4 and argv[0] == "--one":
+        _build.use_variant(argv[1], argv[3])
+        TIMERS[argv[1]](argv[2], argv[4:])
+    elif len(argv) >= 2 and argv[0] in VARIANTS:
+        main(argv[0], argv[1].split(","), argv[2:], root)
     else:
         sys.exit(__doc__)

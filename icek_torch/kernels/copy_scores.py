@@ -5,13 +5,15 @@ logits (argmax + runner-up for greedy, top-K for beam) and the row
 logsumexp.  ``fused_score_topk`` runs ``csrc/score_topk.cu`` for CUDA
 tensors, which never writes the (N, V) scores to device memory, and its
 plain PyTorch version ``reference_score_topk`` for CPU tensors.  Which
-first pass a CUDA call runs is decided by k, dtype and alignment alone
-(``uses_tensor_cores``): up to k 16, bfloat16 operands that allow 8-byte
-copies of h's rows and 16-byte copies of Wv's run the tensor-core kernel;
-float32, and bfloat16 that misses the alignment, run the CUDA-core kernel
-of the same source.  Above k 16 (beams wider than 16) both dtypes run the
-CUDA-core kernel with its lists in shared memory.  None gives way to
-another or to the plain version.  k runs from 1 to the width of
+first pass a CUDA call runs is decided by dtype, shape and alignment
+(``uses_tensor_cores``) and k: bfloat16 operands that allow 8-byte copies
+of h's rows and 16-byte copies of Wv's run a tensor-core product; float32,
+and bfloat16 that misses the alignment, run a CUDA-core product of the same
+source.  Up to k 16 each row's top-k lists live in registers; above k 16
+(beams wider than 16) each row keeps one sorted list in shared memory,
+into which a tile's scores that beat its last entry are sorted and merged
+at once.  ``fused_score_topk.routes`` counts the launches of each.  None
+gives way to another or to the plain version.  k runs from 1 to the width of
 [V | tail], as ``lax.top_k``'s does.  Ties go to the lower index of
 [V | tail] (the lax.top_k contract), so vocab entries win ties against
 the tail.
@@ -47,7 +49,7 @@ def reference_score_topk(h, wv, bv, tail, k: int = 5):
 
 
 REGISTER_K = 16     # widest top-k whose lists the kernels keep in registers
-_WIDE_TILES = 16    # most 64-column tiles a chunk of the wide first pass takes
+LIST_MAX = 128      # longest list of a row in the wide first pass (chunks keep to it)
 
 
 def supports(k: int, width: int) -> bool:
@@ -57,13 +59,13 @@ def supports(k: int, width: int) -> bool:
     return 1 <= k <= width
 
 
-def uses_tensor_cores(h, wv, k: int = 1) -> bool:
-    """Whether contiguous (h, wv) go to the tensor-core kernel at top-k `k`:
-    k at most 16, bfloat16, D a multiple of 4 and at most 512, V a multiple
-    of 8, h on an 8-byte and wv on a 16-byte boundary (the kernel stages h's
-    rows 8 bytes and Wv's rows 16 bytes a copy)."""
+def uses_tensor_cores(h, wv) -> bool:
+    """Whether contiguous (h, wv) go to a tensor-core first pass (at any k):
+    bfloat16, D a multiple of 4 and at most 512, V a multiple of 8, h on an
+    8-byte and wv on a 16-byte boundary (the kernels stage h's rows 8 bytes
+    and Wv's rows 16 bytes a copy)."""
     D, V = wv.shape
-    return (k <= REGISTER_K and h.dtype == torch.bfloat16 and D % 4 == 0 and D <= _TC_MAX_D
+    return (h.dtype == torch.bfloat16 and D % 4 == 0 and D <= _TC_MAX_D
             and V % 8 == 0 and h.data_ptr() % 8 == 0 and wv.data_ptr() % 16 == 0)
 
 
@@ -95,6 +97,15 @@ def _chunking(n_rows: int, vocab: int, target: int, rows: int = _ROWS,
     return tiles_per_chunk * _TILE, -(-n_tiles // tiles_per_chunk)
 
 
+def _max_tiles(k: int):
+    """The most tiles a chunk takes at top-k `k`: a chunk's list holds min(k,
+    chunk columns) entries, so above LIST_MAX the chunk shrinks to LIST_MAX
+    columns.  Below it the wide first pass splits the vocab as the others
+    do, about one block for each the card holds at once (longer chunks,
+    with fewer first tiles to merge, were tried and were no faster)."""
+    return LIST_MAX // _TILE if k > LIST_MAX else None
+
+
 def fused_score_topk(h, wv, bv, tail, k: int = 5):
     """h: (N, D); wv: (D, V); bv: (V,); tail: (N, T) pointer logits.
 
@@ -119,13 +130,10 @@ def fused_score_topk(h, wv, bv, tail, k: int = 5):
     bv = bv.to(torch.float32).contiguous()
     tail = tail.to(torch.float32).contiguous()
     T = tail.shape[1]
-    tc = uses_tensor_cores(h, wv, k)
-    wide = k > REGISTER_K
-    # a chunk's list: k entries, or all of a chunk narrower than k
-    max_tiles = _WIDE_TILES if wide else None
+    tc = uses_tensor_cores(h, wv)
     blocks, rows = _first_pass_grid(h.device.index, h.dtype, tc,
-                                    min(k, _WIDE_TILES * _TILE) if wide else k, D)
-    chunk_cols, n_chunks = _chunking(N, V, blocks, rows, max_tiles)
+                                    min(k, LIST_MAX) if k > REGISTER_K else k, D)
+    chunk_cols, n_chunks = _chunking(N, V, blocks, rows, _max_tiles(k))
     kc = min(k, chunk_cols)
     f32 = dict(dtype=torch.float32, device=h.device)
     i32 = dict(dtype=torch.int32, device=h.device)
@@ -144,7 +152,15 @@ def fused_score_topk(h, wv, bv, tail, k: int = 5):
              N, D, V, T, k, chunk_cols, n_chunks, _build.stream_of(h))
     _build.check(err, "score_topk", "fused_score_topk")
     fused_score_topk.launches += 1
+    fused_score_topk.routes[route(tc, k)] += 1
     return vals, idx, lse
 
 
+def route(tc: bool, k: int) -> str:
+    """The first pass a call takes: (wide_)tensor_cores or (wide_)cuda_cores."""
+    return ("wide_" if k > REGISTER_K else "") + ("tensor_cores" if tc else "cuda_cores")
+
+
 fused_score_topk.launches = 0
+# launches by first pass (route)
+fused_score_topk.routes = {route(tc, k): 0 for tc in (True, False) for k in (1, REGISTER_K + 1)}

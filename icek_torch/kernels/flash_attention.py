@@ -8,20 +8,25 @@ with a float32 softmax and attention-weight dropout.  It is differentiable:
 on CUDA tensors the backward is the kernel pair of the same source (dQ,
 then dK/dV), which reads the forward's per-row logsumexp and takes the
 forward's dropout mask either from the bits the tensor-core forward saved
-(one a score) or, in the CUDA-core kernels, anew from the seed; on CPU tensors autograd
-differentiates the plain version.  Q/K/V come in the (B, T, H, Hd) layout
-with the head dim contiguous; the TPU head-slot packing is not part of the
-port.
+(one a score) or, in the TF32 backward, anew from the seed; on CPU tensors
+autograd differentiates the plain version.  Q/K/V come in the (B, T, H, Hd)
+layout with the head dim contiguous; the TPU head-slot packing is not part
+of the port.
 
 Which kernels a CUDA call runs is decided by dtype and shape alone
 (``uses_tensor_cores``): bfloat16 with an even head dim of at most 32 and
 4-byte aligned head rows (even strides, a ``data_ptr()`` that is a
 multiple of 4: every view of a fused projection with an even head dim)
-runs the tensor-core kernels, forward and backward.  float32 at any
-supported head dim, bfloat16 with a head dim in (32, 128] (forward, rate 0)
-and bfloat16 inputs that miss the alignment run the CUDA-core kernels of
-the same source.  Neither gives way to the other or to the plain version:
-a kernel that fails to build or launch raises.
+runs the bf16 tensor-core kernels, forward and backward.  The rest runs
+the CUDA-core forward, and for the backward (head dims up to 32) the TF32
+kernels: float32 as three TF32 tensor-core products a product (each
+operand split into a TF32 high part and the TF32 of its residual: about
+2^-21 of relative error a term, where one TF32 pass gives 2^-11 and breaks
+the 1e-4 checks), bfloat16 that misses the alignment as one (bf16 values
+are exact in TF32).  The products are bounded by the tensor cores' TF32
+rate and, in the end, by the instructions that split operands and stage
+f32 rows 4 bytes a copy.  No route gives way to another or to the plain
+version: a kernel that fails to build or launch raises.
 
 Dropout: an element keeps iff the top 24 of its random bits lie below
 ``int((1 - rate) * 2**24)``.  The kernels draw the bits from a Philox
@@ -150,7 +155,8 @@ def flash_mha_bwd(q, k, v, out, lse, keep_words, d_out, kv_len, causal, rate, se
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
-    delta = torch.empty_like(lse)
+    # each row's delta (and, for the TF32 kernels, its log2-domain logsumexp)
+    delta = torch.empty((2,) + tuple(lse.shape), dtype=torch.float32, device=q.device)
     fn = _build.bind("flash_attention", "flash_bwd_" + _entry(q, k, v),
                      [_P] * 11 + _SHAPE)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

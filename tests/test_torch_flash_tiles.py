@@ -328,3 +328,22 @@ def test_sass_report_counts_loops():
     assert lines[0] == "_Z3fwdILi4EE: 6 instructions"
     assert lines[1:] == ["  loop 0x10..0x30: 3 instructions (HMMA 1, MUFU 1, BRA 1)"]
     assert _sass.report(dump, "no_such_kernel") == []
+
+
+def test_timing_variants_match_the_kernel_source():
+    """``python -m icek_torch.kernels._variants flash_attention`` (the card's
+    breakdown of the f32 backward) edits csrc/flash_attention.cu by text
+    replacement: every variant's replacements still find their text and
+    change it, and the braces of the result still balance."""
+    import os
+
+    from icek_torch.kernels import _build, _variants
+
+    with open(os.path.join(_build.CSRC, "flash_attention.cu")) as f:
+        src = f.read()
+    variants = _variants.VARIANTS["flash_attention"]
+    assert _variants.CUTS["flash_attention"] <= set(variants)
+    for name in variants:
+        out = _variants.variant_source("flash_attention", name, src)
+        assert (out != src) == (name != "base"), name
+        assert out.count("{") - out.count("}") == src.count("{") - src.count("}"), name

@@ -126,11 +126,28 @@ def test_score_kernel_edges(cuda, dtype, n, v, t):
     torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("k", [1, 2, 5, 8, 10, 16])
+def _hold_wide(got, want, h, wv, bv, tail, n, k):
+    """The k > 16 contract: values and lse within 1e-4 of the plain version;
+    each returned index distinct and its plain score its value within 1e-4,
+    so where an index differs from the plain version's the two entries tie
+    within 1e-4 (the kernel's and torch's summation orders may swap such
+    near-ties: a few in 65536 entries)."""
+    vals, idx, lse = got
+    torch.testing.assert_close(vals, want[0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(lse, want[2], rtol=0, atol=1e-4)
+    scores = torch.cat([h.float() @ wv.float() + bv, tail], dim=1)
+    torch.testing.assert_close(torch.gather(scores, 1, idx.long()), vals, rtol=0, atol=1e-4)
+    assert (idx.sort(dim=1).values.diff(dim=1) != 0).all()
+    differ = idx != want[1]
+    assert int(differ.sum()) <= 4 * n * k // 65536 + 2, int(differ.sum())
+
+
+@pytest.mark.parametrize("k", [1, 2, 5, 8, 10, 16, 17, 20, 64])
 def test_score_kernel_bf16_offset_h_takes_cuda_core_path(cuda, k):
     """A bf16 h that starts one element into its buffer cannot be staged 8
-    bytes a copy: it runs the CUDA-core kernel and agrees with the aligned
-    call's tensor-core kernel and with the plain version."""
+    bytes a copy: it runs a CUDA-core first pass (above k 16 the wide one)
+    and agrees with the aligned call's tensor-core first pass and with the
+    plain version: indices identical up to k 16, the wide contract above."""
     h, wv, bv, tail = _score_inputs(cuda, torch.bfloat16, 1280, 10000, 301)
     buf = torch.empty(h.numel() + 1, dtype=h.dtype, device=cuda)
     buf[1:].copy_(h.reshape(-1))
@@ -139,6 +156,9 @@ def test_score_kernel_bf16_offset_h_takes_cuda_core_path(cuda, k):
     want = tcs.reference_score_topk(h, wv, bv, tail, k=k)
     for hh in (h, shifted):
         got = tcs.fused_score_topk(hh, wv, bv, tail, k=k)
+        if k > tcs.REGISTER_K:
+            _hold_wide(got, want, h, wv, bv, tail, 1280, k)
+            continue
         torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
         torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
         torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-4)
@@ -163,19 +183,39 @@ def test_score_kernel_wide_k(cuda, dtype, n, t, k):
     x 16 the kernel's and torch's summation orders swap such near-ties:
     2 of 65536 entries on the card)."""
     h, wv, bv, tail = _score_inputs(cuda, dtype, n, 10000, t, seed=k)
-    assert tcs.uses_tensor_cores(h, wv, k) == (dtype == torch.bfloat16 and k <= 16)
+    assert tcs.uses_tensor_cores(h, wv) == (dtype == torch.bfloat16)
     before = tcs.fused_score_topk.launches
-    vals, idx, lse = tcs.fused_score_topk(h, wv, bv, tail, k=k)
+    got = tcs.fused_score_topk(h, wv, bv, tail, k=k)
     torch.cuda.synchronize()
     assert tcs.fused_score_topk.launches == before + 1
+    _hold_wide(got, tcs.reference_score_topk(h, wv, bv, tail, k=k), h, wv, bv, tail, n, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v,t,k", [(10000, 301, 17), (10000, 301, 20), (10000, 301, 32),
+                                   (10000, 301, 64), (10000, 301, 100), (10000, 301, 129),
+                                   (520, 37, 557), (1000, 301, 1301)])
+def test_score_kernel_wide_k_exact_ties(cuda, dtype, v, t, k):
+    """The wide first passes on exact ties: every Wv column duplicated once
+    further on (columns c and c + V / 2 score the same), and each tail entry
+    equal to a vocab score of its row.  Values, indices and lse held exactly
+    to the plain version's order: the lower index first, so vocab before
+    the tail; k from 17 up to all of [V | tail] (V + T)."""
+    n = 70
+    g = _gen(k)
+    h = (torch.randint(-4, 5, (n, 300), generator=g) / 8).to(cuda, dtype)
+    half = (torch.randint(-4, 5, (300, v // 2), generator=g) / 64).to(cuda, dtype)
+    wv = torch.cat([half, half], dim=1)
+    bv = torch.zeros(v, device=cuda)
+    scores = h.float() @ wv.float()
+    tail = scores[:, torch.randint(0, v, (t,), generator=g).to(cuda)].contiguous()
+    assert tcs.uses_tensor_cores(h, wv) == (dtype == torch.bfloat16)
+    vals, idx, lse = tcs.fused_score_topk(h, wv, bv, tail, k=k)
     want = tcs.reference_score_topk(h, wv, bv, tail, k=k)
-    torch.testing.assert_close(vals, want[0], rtol=0, atol=1e-4)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, want[1])
+    assert torch.equal(vals, want[0])
     torch.testing.assert_close(lse, want[2], rtol=0, atol=1e-4)
-    scores = torch.cat([h.float() @ wv.float() + bv, tail], dim=1)
-    torch.testing.assert_close(torch.gather(scores, 1, idx.long()), vals, rtol=0, atol=1e-4)
-    assert (idx.sort(dim=1).values.diff(dim=1) != 0).all()
-    differ = idx != want[1]
-    assert int(differ.sum()) <= 4 * n * k // 65536 + 2, int(differ.sum())
 
 
 def _decoder_inputs(cuda, dtype, B=4, K=5, L=8, M=37, D=60, H=6, F=48, i=5):
@@ -722,6 +762,40 @@ def test_flash_backward_kernel_matches_plain(cuda, dtype, tol, rate, causal, tq,
     assert not dkv[:, kv_len:, 1:].any() and not dkv[:, :, 0].any()
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hd", [8, 16, 30, 32])
+def test_flash_f32_backward_tf32_route(cuda, hd, causal, rate):
+    """The f32 backward's 3xTF32 kernels at every head dim they take a step
+    of 8 of (8, 16, 30 with its pad, 32), causal or not, keys past kv_len,
+    rate 0 and 0.2, on strided views of one fused QKV projection: dq, dk, dv
+    within 1e-4 of the plain version under the kernel's own mask (one TF32
+    pass is off by 3e-4 to 8e-4 at such sites), padded keys exactly 0."""
+    B, tq, tk, h, kv_len = 2, 70, 129, 3, 100
+    g = _gen(hd)
+    qkv = torch.randn((B, tk, 3 * h * hd), generator=g).to(cuda).requires_grad_(True)
+    q0 = torch.randn((B, tq, h * hd), generator=g).to(cuda).requires_grad_(True)
+    d_out = torch.randn((B, tq, h, hd), generator=g).to(cuda)
+
+    def run(fn, **kw):
+        k = qkv[..., h * hd:2 * h * hd].view(B, tk, h, hd)
+        v = qkv[..., 2 * h * hd:].view(B, tk, h, hd)
+        out = fn(q0.view(B, tq, h, hd), k, v, kv_len=kv_len, causal=causal, dropout_rate=rate,
+                 **kw)
+        return torch.autograd.grad(out, (q0, qkv), d_out)
+
+    before = tfa.flash_mha_bwd.launches
+    got = run(tfa.flash_mha, seed=3)
+    torch.cuda.synchronize()
+    assert tfa.flash_mha_bwd.launches == before + 1
+    want = run(tfa.reference_mha, keep=tfa.keep_mask(B, h, tq, tk, rate=rate, seed=3,
+                                                     device=cuda))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * max(1.0, float(b.abs().max())))
+    dkv = got[1].view(B, tk, 3, h * hd)
+    assert not dkv[:, kv_len:, 1:].any()
+
+
 def _odd_offset_view(t):
     """The same values in a buffer that starts one element later."""
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
@@ -732,9 +806,10 @@ def _odd_offset_view(t):
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 def test_flash_bf16_odd_offset_takes_cuda_core_path(cuda, rate):
     """bf16 inputs whose head rows start mid-word cannot be moved as 32-bit
-    words: they run the CUDA-core kernels and agree with the aligned call's
-    tensor-core kernels (forward 3e-2, backward 4e-2 of the largest value)
-    under the same mask."""
+    words: they run the CUDA-core forward and the TF32 backward (one pass:
+    bf16 is exact in TF32) and agree with the aligned call's tensor-core
+    kernels (forward 3e-2, backward 4e-2 of the largest value) under the
+    same mask."""
     B, Tq, Tk, H, Hd = 2, 40, 70, 3, 30
     g = _gen(11)
     q, k, v, gy = (torch.randn((B, t, H, Hd), generator=g).to(cuda, torch.bfloat16)

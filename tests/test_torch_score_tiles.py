@@ -20,11 +20,15 @@ version and the JAX package:
   lists merged; the merge kernel then takes the chunks' lists and the tail
   row, and the lse from the chunks' pairs and the tail.
 
-Above k 16 the CUDA-core wide first pass keeps one sorted list of
-kc = min(k, chunk columns) entries per row in shared memory; a tile's
-scores that beat the list's last entry are inserted one at a time (lanes in
-order, columns lane then lane + 32), each shifting the worse entries up one
-slot, 32 at a time from the top (``wide_partials``).  The merge's round j
+Above k 16 the wide first passes (tensor-core and CUDA-core) keep one
+sorted list of kc = min(k, chunk columns) entries per row in shared
+memory; a tile's scores that beat the list's last entry at the tile's start
+are compacted in lane order (columns lane, then lane + 32), sorted by the
+kernel's bitonic network (32 lanes, or 64 as two a lane) and merged into
+the list in one step: an entry's new slot is its rank in the list plus its
+rank among the survivors, found by the kernel's binary searches, and
+entries move top segment first; up to FEW survivors are ranked by counting
+instead (``wide_partials``).  The merge's round j
 takes the best candidate that ranks after round j - 1's pick
 (``threshold_merge``).
 
@@ -47,6 +51,7 @@ from icek_torch.kernels import copy_scores as tcs
 from icek_tpu.kernels import copy_scores as jcs
 
 ROWS, TILE, KMAX = 64, 64, 8
+FEW = 8                 # the wide pass merges at most this many survivors by counting
 LOG2E = 1.4426950408889634
 INT_MAX = 2 ** 31 - 1
 
@@ -204,51 +209,134 @@ def tiled_score_topk(h, wv, bv, tail, k):
     return vals, idx.to(torch.int32), m + torch.log(s)
 
 
-def _list_insert(lv, li, v, i):
-    """The kernel's list_insert on one row's list (Python lists of kc
-    entries): c's slot p is the count of entries that rank before it; the
-    segments of 32 slots from the top down move [p, kc - 2] up one."""
-    kc = len(lv)
-    p = sum(1 for j in range(kc) if (lv[j] > v) or (lv[j] == v and li[j] < i))
-    for seg in range((kc - 2) >> 5, -1, -1):
-        if 32 * seg + 31 < p:
-            break
-        moved = [(j, lv[j], li[j]) for j in range(32 * seg, 32 * seg + 32)
-                 if p <= j <= kc - 2]                  # every lane reads, then writes
-        for j, a, b in moved:
-            lv[j + 1], li[j + 1] = a, b
-    lv[p], li[p] = v, i
+PAD = (-math.inf, INT_MAX)
+
+
+def _exchange(cs, stride, keeps_better):
+    """The kernel's exchange on 32 lanes' candidates: lane l takes lane l ^
+    stride's where that is the better one and l keeps the better, or the
+    worse one and l keeps the worse."""
+    out = list(cs)
+    for lane, c in enumerate(cs):
+        o = cs[lane ^ stride]
+        if _better(*o, *c) if keeps_better(lane) else _better(*c, *o):
+            out[lane] = o
+    return out
+
+
+def _sort32(cs):
+    """sort32: the bitonic network over 32 lanes, best first."""
+    for size in (2, 4, 8, 16, 32):
+        stride = size >> 1
+        while stride:
+            cs = _exchange(cs, stride, lambda l, z=size, d=stride: ((l & z) == 0) == ((l & d) == 0))
+            stride >>= 1
+    return cs
+
+
+def _sort64(a, b):
+    """sort64: element e in lane e % 32 (a below 32, b above), best first."""
+    for size in (2, 4, 8, 16, 32, 64):
+        stride = size >> 1
+        while stride:
+            if stride == 32:
+                for lane in range(32):
+                    if _better(*b[lane], *a[lane]):
+                        a[lane], b[lane] = b[lane], a[lane]
+            else:
+                a = _exchange(a, stride, lambda l, z=size, d=stride: ((l & z) == 0) == ((l & d) == 0))
+                b = _exchange(b, stride,
+                              lambda l, z=size, d=stride: (((l + 32) & z) == 0) == ((l & d) == 0))
+            stride >>= 1
+    return a, b
+
+
+def _rank_in(entries, c):
+    """rank_in: the entries of a sorted list that rank before c (binary search)."""
+    lo, hi = 0, len(entries)
+    while lo < hi:
+        mid = (lo + hi) >> 1
+        if _better(*entries[mid], *c):
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def _list_tile(lst, tile):
+    """The kernel's list_tile on one row: `lst` the sorted list of kc
+    (value, index) entries, `tile` the 64 columns' candidates (None past
+    c_end).  Returns the number of survivors."""
+    kc = len(lst)
+    tv = lst[-1]
+    live = [[c for c in half if c is not None and _better(*c, *tv)]
+            for half in (tile[:32], tile[32:])]             # ballot, popc: lane order
+    surv = live[0] + live[1]
+    cnt = len(surv)
+    if not cnt:
+        return 0
+    if cnt <= FEW:                      # few_merge: counted, not sorted
+        slots, up = [0] * cnt, [0] * kc
+        for x, c in enumerate(surv):
+            for s, other in enumerate(surv):
+                slots[s] += _better(*c, *other)
+            for j, e in enumerate(lst):
+                up[j] += _better(*c, *e)
+            slots[x] += sum(_better(*e, *c) for e in lst)     # the ballot
+        old = list(lst)                                     # every lane reads, then writes
+        for j, e in enumerate(old):
+            if up[j] and j + up[j] < kc:
+                lst[j + up[j]] = e
+        for to, c in zip(slots, surv):
+            if to < kc:
+                lst[to] = c
+        return cnt
+    s0 = [surv[lane] if lane < cnt else PAD for lane in range(32)]
+    s1 = [surv[lane + 32] if lane + 32 < cnt else PAD for lane in range(32)]
+    if cnt > 32:
+        s0, s1 = _sort64(s0, s1)
+    elif cnt > 1:
+        s0 = _sort32(s0)
+    buf = (s0 + s1)[:cnt]
+    slots = [s + _rank_in(lst, c) for s, c in enumerate(buf)]   # from the list as it stands
+    first = slots[0]
+    for seg in range((kc - 1) >> 5, (first >> 5) - 1, -1):      # top segment first
+        moved = [(j + _rank_in(buf, lst[j]), lst[j]) for j in range(32 * seg, 32 * seg + 32)
+                 if first <= j < kc]                            # every lane reads, then writes
+        for to, e in moved:
+            if to < kc:
+                lst[to] = e
+    for to, c in zip(slots, buf):
+        if to < kc:
+            lst[to] = c
+    return cnt
 
 
 def wide_partials(scores, k, chunk_cols):
     """The wide first pass on (N, V) f32 scores: per (row, chunk) the list of
     kc entries as the kernel writes it, walking the chunk's 64-column tiles
-    and each tile's candidates that beat the last entry at the tile's
-    start (lanes in order, column lane first), checked again before each
-    insertion; and the number of insertions."""
+    through list_tile; and the number of survivors (scores that beat the
+    list's last entry at their tile's start) and of tiles that had any."""
     N, V = scores.shape
     kc = min(k, chunk_cols)
     n_chunks = -(-V // chunk_cols)
     pv = torch.full((N, n_chunks, kc), -math.inf)
     pi = torch.full((N, n_chunks, kc), INT_MAX, dtype=torch.int64)
-    inserts = 0
+    survivors = merges = 0
     for n in range(N):
+        row = scores[n].tolist()
         for c in range(n_chunks):
-            lv, li = [-math.inf] * kc, [INT_MAX] * kc
+            lst = [PAD] * kc
             c_end = min(V, (c + 1) * chunk_cols)
             for col0 in range(c * chunk_cols, c_end, TILE):
-                cands = [[(float(scores[n, col]), col) if col < c_end else None
-                          for col in (col0 + lane + 32 * half for lane in range(32))]
-                         for half in (0, 1)]
-                t_v, t_i = lv[-1], li[-1]
-                ballots = [[x for x in half if x is not None and (
-                    x[0] > t_v or (x[0] == t_v and x[1] < t_i))] for half in cands]
-                for v, i in ballots[0] + ballots[1]:
-                    if v > lv[-1] or (v == lv[-1] and i < li[-1]):
-                        _list_insert(lv, li, v, i)
-                        inserts += 1
-            pv[n, c], pi[n, c] = torch.tensor(lv), torch.tensor(li)
-    return pv, pi, inserts
+                tile = [(row[col], col) if col < c_end else None
+                        for col in range(col0, col0 + TILE)]
+                got = _list_tile(lst, tile)
+                survivors += got
+                merges += got > 0
+            pv[n, c] = torch.tensor([v for v, _ in lst])
+            pi[n, c] = torch.tensor([i for _, i in lst])
+    return pv, pi, (survivors, merges)
 
 
 def threshold_merge(cand_v, cand_i, k):
@@ -295,8 +383,10 @@ def test_wide_lists_match_plain_and_jax(k, chunk_cols):
 
 def test_wide_lists_ties_and_insertions():
     """Exact ties planted across tiles and chunks enter the list in index
-    order whatever the walk order; fewer than one score in eight takes the
-    insertion path."""
+    order whatever the walk order; a row merges once a tile at most, and
+    about 64 + k (1 + ln(tiles - 1)) of a chunk's scores enter its merges
+    (its first tile's 64 and about k / (t - 1) of tile t's), a seventh of
+    them here."""
     n, v, k, chunk_cols = 2, 640, 20, 320
     bv = np.zeros(v, np.float32)
     bv[[5, 70, 100, 319, 320, 639]] = 3.0
@@ -307,10 +397,11 @@ def test_wide_lists_ties_and_insertions():
     _hold(got, args, k)
     rand = _inputs(5, 4, 2048, d=16, t=1)
     scores = torch.as_tensor(rand[0]) @ torch.as_tensor(rand[1]) + torch.as_tensor(rand[2])
-    _, _, inserts = wide_partials(scores, 24, 1024)
-    # about k (1 + ln(n / k)) a row and chunk for n scores in random order
-    assert inserts < 1.25 * 4 * 2 * 24 * (1 + math.log(1024 / 24))
-    assert inserts < scores.numel() / 8
+    _, _, (survivors, merges) = wide_partials(scores, 24, 1024)
+    tiles = 1024 // TILE
+    assert merges <= 4 * 2 * tiles
+    assert survivors < 1.25 * 4 * 2 * (TILE + 24 * (1 + math.log(tiles - 1)))
+    assert survivors < scores.numel() / 6
 
 
 def _inputs(seed, n, v, d=300, t=301):
@@ -414,3 +505,22 @@ def test_tensor_core_dispatch():
     assert not tcs.uses_tensor_cores(buf[1:].view(4, 300), wv)
     assert not tcs.uses_tensor_cores(torch.zeros((4, 600), dtype=torch.bfloat16),
                                      torch.zeros((600, 64), dtype=torch.bfloat16))
+
+
+def test_timing_variants_match_the_kernel_source():
+    """``python -m icek_torch.kernels._variants score_topk`` (the card's
+    breakdown of the wide first pass) edits csrc/score_topk.cu by text
+    replacement: every variant's replacements still find their text and
+    change it, and the braces of the result still balance."""
+    import os
+
+    from icek_torch.kernels import _build, _variants
+
+    with open(os.path.join(_build.CSRC, "score_topk.cu")) as f:
+        src = f.read()
+    variants = _variants.VARIANTS["score_topk"]
+    assert _variants.CUTS["score_topk"] <= set(variants)
+    for name in variants:
+        out = _variants.variant_source("score_topk", name, src)
+        assert (out != src) == (name != "base"), name
+        assert out.count("{") - out.count("}") == src.count("{") - src.count("}"), name
