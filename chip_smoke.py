@@ -15,7 +15,8 @@ Phases (any failure raises and exits non-zero):
               sites of a train step; the dropout kernels at rate 0.2 under the
               mask the kernel itself exports, with the mask's keep rate and
               the forward / backward mask identity; the decoder step on
-              both its routes in bf16, tensor cores and CUDA cores), and
+              both its routes in bf16 and in f32, tensor cores (f32: three
+              TF32 products a product) and CUDA cores), and
               timed with CUDA events beside its plain version, a one-call
               PyTorch yardstick where one exists, and the card's bound for
               the same work; the loops' instruction counts of the
@@ -44,6 +45,8 @@ Phases (any failure raises and exits non-zero):
               plain bf16 and plain f32 decodes beside it;
   5. check    the same f32 Evaluators on the card and on the CPU for two
               images: image tokens, memory and first-step scores agree;
+              the card's f32 beam-5 decode runs the decoder step's f32
+              tensor-core route every step;
   6. train    each preset takes train steps through
               train.step.make_train_step: batch 256, captions of 32 (geo),
               102 (knowledge) and 52 (news) tokens, cached image tokens,
@@ -59,7 +62,8 @@ Phases (any failure raises and exits non-zero):
               step without dropout on the card against the same step on the
               CPU;
   wide beam   the score head at k 10 and 20 and the decoder step at K 10
-              and 20 against their plain versions, then geo beams 10 and 20
+              and 20 (both routes, each dtype; K 20: parts of an image a
+              tensor-core block) against their plain versions, then geo beams 10 and 20
               in bf16 and f32 through Evaluator.decode_batch against the
               plain path: every step through the kernels (k 20: the score
               head's wide first pass, its lists in shared memory), each
@@ -712,11 +716,13 @@ def _tree(tree, dev, dtype):
 
 def check_decoder_step(dev, L=MAX_LEN, M=IMG_TOKENS + ENT_ROWS, B=BATCH, K=BEAM):
     """The decoder step at the middle step of the beam shape (B 256, K 5,
-    L steps, memory M; or B images of K hypotheses): bf16 on both routes (the
-    tensor-core one the beam loop takes up to K 16, fed the head-padded cross
-    K/V the loop lays out once per batch, and the CUDA-core one, taken when
-    the weights come without their packed copy or K is wider) and f32 on the
-    CUDA-core route, each against its plain version and the bound."""
+    L steps, memory M; or B images of K hypotheses), bf16 and f32, each on
+    both routes: the tensor-core one the beam loop takes (bf16 products or
+    three TF32 products; G images a block up to K 16, parts of an image
+    above), fed the head-padded cross K/V the loop lays out once per batch,
+    and the CUDA-core one, taken when the weights come without their packed
+    copy (its time is the tensor-core route's "was"); each against its plain
+    version and the bound."""
     from icek_torch.kernels import decoder_step as dsk
 
     res = {}
@@ -729,30 +735,34 @@ def check_decoder_step(dev, L=MAX_LEN, M=IMG_TOKENS + ENT_ROWS, B=BATCH, K=BEAM)
         want = dsk.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv, step, num_heads=H)
         plain_ms = cuda_ms(lambda: dsk.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv,
                                                                step, num_heads=H), iters=5)
-        routes = {"cuda_cores": (stacked._replace(mma=None), (xk, xv), {})}
-        if dsk.uses_tensor_cores(stacked, ck, K, H):
-            nL, B, _, D = xk.shape
-            heads = dsk.pad_cross_heads([{"k": xk[l].view(B, M, H, D // H),
-                                          "v": xv[l].view(B, M, H, D // H)} for l in range(nL)],
-                                        dtype)
-            routes["tensor_cores"] = (stacked, (None, None), {"cross_heads": heads})
+        require(dsk.uses_tensor_cores(stacked, ck, K, H),
+                f"decoder step {dtype} B {B} K {K} L {L}: not the tensor-core route")
+        nL, B, _, D = xk.shape
+        heads = dsk.pad_cross_heads([{"k": xk[l].view(B, M, H, D // H),
+                                      "v": xv[l].view(B, M, H, D // H)} for l in range(nL)], dtype)
+        routes = {dsk.route(dtype, K, True): (stacked, (None, None), {"cross_heads": heads}),
+                  "cuda_cores": (stacked._replace(mma=None), (xk, xv), {})}
         timed = {}
         for route, (st, cross, kw) in routes.items():
-            require(dsk.uses_tensor_cores(st, ck, x.shape[1], H) == (route == "tensor_cores"),
-                    f"decoder step {dtype} L {L}: {route} is not the route the predicate picks")
+            counts = {r: c.launches for r, c in dsk.fused_beam_decoder_step.routes.items()}
             run = lambda: dsk.fused_beam_decoder_step(st, x, anc, ck, cv, *cross, step,
                                                       num_heads=H, **kw)
             got = run()
             torch.cuda.synchronize()
+            ran = [r for r, c in dsk.fused_beam_decoder_step.routes.items()
+                   if c.launches != counts[r]]
+            require(ran == [route], f"decoder step {dtype} K {K}: ran {ran}, not {route}")
             err = max_err(got, want)
             require(err <= tol, f"decoder step {dtype} {route} M {M}: max abs err {err} > {tol}")
-            timed[route] = dict(max_abs_err=err, tol=tol, ms=cuda_ms(run), plain_ms=plain_ms,
-                                library_ms=None, bound_ms=bms, bound_by=by)
+            again = run()
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    f"decoder step {dtype} {route}: two launches differ")
+            timed[route] = dict(route=route, max_abs_err=err, tol=tol, ms=cuda_ms(run),
+                                plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by)
             log(f"kernel decoder_step {dtype} {route} B {B} K {K} L {L} M {M} step {step}: "
                 f"{timed[route]}")
-        res[dtype] = timed.get("tensor_cores", timed["cuda_cores"])
-        if "tensor_cores" in timed:
-            res[dtype]["cuda_cores"] = timed["cuda_cores"]
+        res[dtype] = timed[dsk.route(dtype, K, True)]
+        res[dtype]["cuda_cores"] = timed["cuda_cores"]
     return res
 
 
@@ -927,7 +937,8 @@ def check_kernels_facts(dev, shape):
     step = check_decoder_step(dev, shape["L"], M)
     label = f"L {shape['L']} M {M} step {shape['L'] // 2}"
     out["decoder_step"] = {label: _compact(step[bf], step[f32]),
-                           label + " cuda cores": _compact(step[bf]["cuda_cores"], step[f32])}
+                           label + " cuda cores": _compact(step[bf]["cuda_cores"],
+                                                           step[f32]["cuda_cores"])}
     return out
 
 
@@ -969,6 +980,28 @@ def entity_names(n):
     return np.array(rows, np.int64)
 
 
+# the decoder step's launch counters by route (kernels/decoder_step.py::route):
+# bf16 at K <= 16 (the main path), f32 at K <= 16, beams wider than 16 in
+# bf16 and f32, and the CUDA-core kernel
+DECODER_ROUTES = {"decoder_step": "tensor_cores", "decoder_step_f32": "tensor_cores_f32",
+                  "decoder_step_wide": "wide_tensor_cores",
+                  "decoder_step_wide_f32": "wide_tensor_cores_f32",
+                  "decoder_step_cuda_cores": "cuda_cores"}
+
+
+def decoder_launches(**counts):
+    """Every decoder-step route's count: `counts`, the others 0."""
+    return {name: counts.get(name, 0) for name in DECODER_ROUTES}
+
+
+def decoder_counter(dtype, K):
+    """The counter name of the route the beam loop takes at (dtype, K)."""
+    from icek_torch.kernels import decoder_step
+
+    route = decoder_step.route(dtype, K, True)
+    return next(name for name, r in DECODER_ROUTES.items() if r == route)
+
+
 def counters():
     """The launch counts of the serving path's kernels (the decoder step by
     route: bf16 at the beam shape takes the tensor-core one)."""
@@ -977,22 +1010,20 @@ def counters():
     routes = decoder_step.fused_beam_decoder_step.routes
     return {"flash_attention": flash_attention.flash_mha,
             "fused_score_topk": copy_scores.fused_score_topk,
-            "decoder_step": routes["tensor_cores"],
-            "decoder_step_cuda_cores": routes["cuda_cores"]}
+            **{name: routes[r] for name, r in DECODER_ROUTES.items()}}
 
 
 def serving_prediction(cfg, beam_batches, greedy_batches):
     """The serving launches the code predicts, every batch running all L
     steps (random weights never end all of a batch's hypotheses): the context
     encoders' layers once a batch (entity, and fact with facts), the score head
-    once a step of every batch, the decoder step's tensor-core route once a
-    step of a beam batch (greedy runs the plain decoder), its CUDA-core route
+    once a step of every batch, the decoder step's bf16 tensor-core route once
+    a step of a beam batch (greedy runs the plain decoder), its other routes
     never."""
     m, L = cfg.model, cfg.decode.max_caption_len
     batches = beam_batches + greedy_batches
     return {"flash_attention": m.num_layers * (2 if m.has_facts else 1) * batches,
-            "fused_score_topk": L * batches, "decoder_step": L * beam_batches,
-            "decoder_step_cuda_cores": 0}
+            "fused_score_topk": L * batches, **decoder_launches(decoder_step=L * beam_batches)}
 
 
 def _read_serving_counts():
@@ -1246,8 +1277,9 @@ def wide_beam(dev, model):
     against the plain path (both switches off).  The score head runs at k 10
     on its register lists and at k 20 on its wide first pass (lists in
     shared memory), bf16 on the tensor cores and f32 on the CUDA cores; the
-    decoder step on its tensor-core route in bf16 up to K 16 and on its
-    CUDA-core route otherwise.  Each route's count is held to that; f32 tokens must equal the plain path's, bf16
+    decoder step on its tensor-core routes in both dtypes (K 10: G images a
+    block; K 20: parts of an image a block), never on the CUDA-core kernel.  Each
+    route's count is held to that; f32 tokens must equal the plain path's, bf16
     agreement is logged, and each width's captions/s (3 warm batches).  First
     the two kernels alone at each width's shapes against their plain
     versions."""
@@ -1275,9 +1307,8 @@ def wide_beam(dev, model):
             routes.update({f"score_{r}": n for r, n in score_routes.items() if n})
             batch_ms = time_decode(ev, batch)
             want = eval_driver.Evaluator(plain_cfg, wm, params, enc, **kw).decode_batch(batch)
-            tc = dtype == torch.bfloat16 and K <= 16
             expect = dict(flash_attention=cfg.model.num_layers, fused_score_topk=L,
-                          decoder_step=L if tc else 0, decoder_step_cuda_cores=0 if tc else L)
+                          **decoder_launches(**{decoder_counter(dtype, K): L}))
             expect[f"score_{cs.route(dtype == torch.bfloat16, K)}"] = L
             log(f"wide beam: geo beam {K} {dtype}, {WIDE_BATCH} images, routes {routes} "
                 f"(expected {expect})")
@@ -1292,8 +1323,10 @@ def wide_beam(dev, model):
                 f"{out[str(dtype)]['captions_per_s']:.1f} captions/s")
         out["kernels"] = {name: {str(dt): {k: rec[dt][k] for k in
                                            ("max_abs_err", "ms", "plain_ms", "library_ms",
-                                            "bound_ms")}
+                                            "bound_ms", "bound_by", "route") if k in rec[dt]}
                                  for dt in rec} for name, rec in kernels.items()}
+        for dt, rec in kernels["decoder_step"].items():       # the CUDA-core kernel's "was"
+            out["kernels"]["decoder_step"][str(dt)]["cuda_cores_ms"] = rec["cuda_cores"]["ms"]
         res[f"beam {K}"] = out
     return res
 
@@ -1651,8 +1684,13 @@ def serving_engine(dev, model, split_cls, batch_256_captions):
                        device=dev) as engine:
         engine.warmup(sample(0), buckets=[8, 16])
         groups = recorded(engine)
+        _zero_serving_counts()
         wall32, _, _ = drive(engine, ENGINE_F32_REQUESTS, ENGINE_CLIENTS)
-        rec["f32"] = dict(requests_per_s=ENGINE_F32_REQUESTS / wall32,
+        launches32 = _read_serving_counts()
+        require(launches32["decoder_step_f32"] > 0
+                and launches32["decoder_step"] == launches32["decoder_step_cuda_cores"] == 0,
+                f"serving engine f32: decoder-step launches {launches32}")
+        rec["f32"] = dict(requests_per_s=ENGINE_F32_REQUESTS / wall32, launches=launches32,
                           bucket_runs=dict(sorted(engine.stats().bucket_runs.items())))
     rec["f32"]["groups_checked"] = hold_groups(groups, engine, 2)
     log(f"serving engine: {rec}")
@@ -1687,7 +1725,7 @@ def int8_kv(dev, models):
             if kv is not None:
                 want = dict(flash_attention=cfg.model.num_layers * (2 if cfg.model.has_facts
                                                                      else 1),
-                            fused_score_topk=L, decoder_step=0, decoder_step_cuda_cores=0)
+                            fused_score_topk=L, **decoder_launches())
                 require(launches == want, f"int8 kv {preset} {kv}: launches {launches} != {want}")
         try:
             bad = cfg.replace(decode=dataclasses.replace(cfg.decode, kv_dtype="int8",
@@ -3187,7 +3225,13 @@ def cross_check(dev, model, preset="georic"):
                            predicate_indicator=torch.zeros((2, K, m.num_predicates),
                                                            device=ev.device))
             scores = captioner.copy_scores(ev.params, m, h, ents_enc, facts_enc, **ind)
+        _zero_serving_counts()
         ids = ev.decode_batch(batch)
+        if where is dev:        # the f32 beam-5 decode on the f32 tensor-core route
+            launches = {k: v for k, v in _read_serving_counts().items() if k in DECODER_ROUTES}
+            want = decoder_launches(decoder_step_f32=L)
+            require(launches == want, f"{preset} f32 decode: decoder-step launches {launches} "
+                                      f"!= {want}")
         got[where] = [t.cpu() for t in (tokens, memory, scores)] + [ids]
     names = ("image tokens", "memory", "first-step scores")
     errs = {}
@@ -3532,8 +3576,9 @@ def norm_kernels_device_ms(dev) -> dict:
 
 
 def paired(root, label) -> int:
-    """Geo serving, geo (bf16 and f32) and news train-step, geo beam-20
-    (bf16 and f32) and warm greedy times of the checkout at `root`, through
+    """Geo serving (bf16, and f32 at beam 5 and batch 256), geo (bf16 and f32)
+    and news train-step, geo beam-20 (bf16 and f32) and warm greedy times of
+    the checkout at `root`, through
     the public entry points alone
     (Evaluator.decode_batch, train.step.make_train_step), so one timing code
     serves any two trees."""
@@ -3561,6 +3606,14 @@ def paired(root, label) -> int:
         t0 = time.perf_counter()
         ev.decode_batch(b)
         batch_ms.append((time.perf_counter() - t0) * 1e3)
+    ev32 = eval_driver.Evaluator(cfg, wm, params, enc, device=dev, compute_dtype=torch.float32)
+    ev32.decode_batch(batches[0])
+    f32_batch_ms = []
+    for b in batches[1:]:
+        t0 = time.perf_counter()
+        ev32.decode_batch(b)
+        f32_batch_ms.append((time.perf_counter() - t0) * 1e3)
+    del ev32
 
     def train_ms(model, preset, steps, dtype=torch.bfloat16):
         """Host ms of `steps` train steps after a warm-up, each to its loss."""
@@ -3600,6 +3653,8 @@ def paired(root, label) -> int:
     out = {"label": label, "card": smi_name_power(), "batch_ms": batch_ms,
            "captions_per_s_median": BATCH / statistics.median(batch_ms) * 1e3,
            "host_ms_per_beam_step_median": statistics.median(batch_ms) / L,
+           "f32_batch_ms": f32_batch_ms,
+           "f32_captions_per_s_median": BATCH / statistics.median(f32_batch_ms) * 1e3,
            "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
            "samples_per_s_median": BATCH / statistics.median(step_ms) * 1e3,
            "f32_step_ms": f32_ms, "f32_samples_per_s_median": BATCH / statistics.median(f32_ms) * 1e3,
@@ -3737,6 +3792,10 @@ def run_phases(dev, card) -> list:
                           for p in FACT_PRESETS}
         if name in ("fused_score_topk", "decoder_step"):    # beams 10 and 20
             row["wide_beams"] = {b: rec["kernels"][name] for b, rec in wide.items()}
+        if name == "decoder_step":      # the CUDA-core kernel in f32; the f32 route's launches
+            row["f32_cuda_cores"] = f32["cuda_cores"]
+            row["launches_f32_beam10"] = wide["beam 10"]["torch.float32"]["routes"][
+                "decoder_step_f32"]
         if name == "fused_score_topk":              # the wide first pass at N 640
             row["wide_k"] = {str(dt): {k: {f: r[f] for f in ("max_abs_err", "ms", "plain_ms",
                                                              "library_ms", "bound_ms", "parts_ms")
@@ -3762,6 +3821,19 @@ def run_phases(dev, card) -> list:
                                                  rec[i][torch.float32]), sites=sites[n])
                            for n, rec in norm.items()}
         rows.append(row)
+    # the decoder step's wide route (geo beam 20, 32 images: three blocks an
+    # image), launches from beam 20's bf16 decode
+    wide20 = wide["beam 20"]
+    bf, f32 = (wide20["kernels"]["decoder_step"][str(dt)] for dt in (torch.bfloat16, torch.float32))
+    rows.append({
+        "name": "decoder_step_wide", "route": "cuda", "source": "icek_torch/csrc/decoder_step.cu",
+        "replaces": meta["decoder_step"][1],
+        "launches": wide20[str(torch.bfloat16)]["routes"]["decoder_step_wide"],
+        **{k: bf[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "cuda_cores_ms")},
+        "dtype": "bfloat16", "tol": 0.15, "shape": f"B {WIDE_BATCH} K 20 step {MAX_LEN // 2}",
+        "f32": dict(f32, launches=wide20[str(torch.float32)]["routes"]["decoder_step_wide_f32"],
+                    tol=1e-3)})
     head = int8["sites"]["1x1_s1"]
     rows.append({
         "name": "int8_conv", "route": "cuda", "source": "icek_torch/csrc/int8_conv.cu",

@@ -17,52 +17,66 @@
 // the kernel returns).  Layer norms, softmax and all accumulation are f32.
 //
 // What bounds it: per step the cross K/V of every layer (3 x 256 x 497 x
-// 300 x 2 values, ~460 MB in bf16) plus the live cache prefix must be read
-// from device memory: ~0.15 ms at 3.35 TB/s.  The weights (~2.5 M
-// parameters, ~5 MB in bf16) do not fit shared memory (unlike the TPU's
-// VMEM); they come from the 50 MB L2 to every block, so the fewer blocks
-// read them the better.
+// 300 x 2 values, ~460 MB in bf16, ~920 MB in f32) plus the live cache
+// prefix must be read from device memory: ~0.15 ms (f32 ~0.31) at 3.35
+// TB/s.  The weights (~2.5 M parameters, ~5 MB in bf16, ~10 MB in f32) do
+// not fit shared memory (unlike the TPU's VMEM); they come from the 50 MB L2
+// to every block, so the fewer blocks read them the better.
 //
-// Route 1, bf16 on the tensor cores (decoder_step_mma_kernel; the wrapper's
-// predicate kernels/decoder_step.py::uses_tensor_cores):
-//   * a block owns the G*K hypothesis rows of G images (G*K <= 16, one
-//     m16 tile; the wrapper picks G so the grid is about one wave: G = 2,
-//     128 blocks at the beam shape), the last group ragged;
-//   * the six linears run mma.sync m16n8k16 (bf16 in, f32 out) with the
-//     activations rounded to bf16 in shared memory as the plain bf16 path
-//     rounds them.  The weights are packed once per decode batch in the
-//     order of the B fragments (kernels/decoder_step.py::pack_mma), so a
-//     lane loads two k-steps of an n8 tile with one 16-byte load straight
-//     from L2 into registers, two k-pairs ahead; each weight is read once
-//     per block for all its rows (half the L2 traffic of one image a
-//     block at G = 2) and kept in L2 (evict_last) against the stream;
+// Route 1, the tensor cores (decoder_step_mma_kernel<T>, bf16 and f32; the
+// wrapper's predicate kernels/decoder_step.py::uses_tensor_cores):
+//   * a block owns up to 16 hypothesis rows (one m16 tile): the G * K rows
+//     of G images for K <= 16 (the wrapper picks G so the grid is about one
+//     wave: G = 2, 128 blocks at the beam shape), the last group ragged; or,
+//     for wider beams, one of S = ceil(K / 16) parts of an image's K rows
+//     (B S blocks, each streaming its image's memory);
+//   * the six linears run on the tensor cores.  bf16: mma.sync m16n8k16
+//     with the activations rounded to bf16 in shared memory as the plain
+//     bf16 path rounds them.  f32: three TF32 products of m16n8k8 (3xTF32,
+//     lo hi + hi lo + hi hi, every operand split into TF32 hi and lo in
+//     registers, each k-step's product added to the sums by f32 adds), so
+//     the route stays within rounding of f32 (one TF32 pass would be off by
+//     about 1e-3).  The weights are packed once per decode batch in the
+//     order of the B fragments (kernels/decoder_step.py::pack_mma, or
+//     pack_tf32: one f32 copy, split in registers, which reads half the L2
+//     bytes of packed hi and lo copies), so a lane loads two k-steps of an
+//     n8 tile with one 16-byte load straight from L2 into registers, two
+//     k-pairs ahead; each weight is read once per block for all its rows and
+//     kept in L2 (evict_last) against the stream;
 //   * the cross K/V arrive head-major with Hd padded to 32 (laid out once
 //     per decode batch, kernels/decoder_step.py::pad_cross_heads): 16-byte
-//     aligned 640-byte rows that stream, 32 memory rows of one image a
-//     stage, through a three-stage cp.async ring (evict_first in L2: each
-//     byte is used once) that runs on across the layers, so the first
-//     tiles of layer l + 1 load while layer l's FFN and layer l + 1's
-//     self-attention and projections run.  Warp h takes head h: S = Q K^T
-//     and O += P V on the tensor cores (ldmatrix / ldmatrix.trans from the
-//     ring), online softmax in f32, flash style;
+//     aligned rows that stream, 32 memory rows of one image a stage (bf16;
+//     16 in f32, whose rows are twice as long), through a three-stage
+//     cp.async ring (evict_first in L2: each byte is used once) that runs on
+//     across the layers, so the first tiles of layer l + 1 load while layer
+//     l's FFN and layer l + 1's self-attention and projections run.  Warp h
+//     takes head h: S = Q K^T and O += P V on the tensor cores, online
+//     softmax in f32, flash style (f32: P split like any A operand and taken
+//     in a permuted k order, cross_tile_f32);
 //   * self-attention: two threads a (row, head), each half of the head's
 //     dims, an online softmax over the ancestry-gathered cache rows (4-byte
-//     loads, the next row's in flight) and the current step's own K/V;
+//     bf16 or 8-byte f32 loads, the next row's in flight) and the current
+//     step's own K/V, on the CUDA cores in f32;
 //   * biases, residual adds, LayerNorm and softmax statistics in f32 in
 //     shared memory and registers.
-//   On an H100 at step 15 of the beam shape it takes 0.37-0.38 ms against
+//   On an H100 at step 15 of the beam shape bf16 takes 0.37-0.38 ms against
 //   the 0.154 ms byte bound (PERF.md): the stream runs at ~2.9 TB/s, but
 //   the linears, bound by L2 (~5.5 TB/s of weight reads), and the stream
-//   take turns (python -m icek_torch.kernels._variants decoder_step).
-// Route 2, the CUDA-core kernel (decoder_step_kernel): f32, and any shape
-// route 1 refuses.  A block owns R <= 8 hypotheses of one image (grid B x
+//   take turns (python -m icek_torch.kernels._variants decoder_step).  f32
+//   takes 0.93-0.94 ms against 0.308: its linears issue ~7 instructions an
+//   mma (each block splits every weight), the cross attention's chains are
+//   latency-bound at 10 warps; packed hi / lo weights (twice the L2 bytes)
+//   were slower, 1.235 ms (PERF.md).
+// Route 2, the CUDA-core kernel (decoder_step_kernel): the shapes route 1
+// refuses (more than 10 heads, a head dim above 32 or odd, or route 1's
+// shared memory past the card's), and bf16 or f32 weights stacked without
+// their packed copy.  A block owns R <= 8 hypotheses of one image (grid B x
 // ceil(K / R)): R = min(K, 8), lowered until the block's shared memory fits
 // the card, so beams of any width run (two or more blocks an image above 8,
 // each reading the image's memory once).  Activations (R x D, R x 3D, R x F)
 // and the (R*H) x max(M, L) attention weights live in shared memory; each
 // memory / cache row a block reads is used by all its R hypotheses and all
-// heads; products in f32 on the CUDA cores (TF32 would break the f32
-// checks at 1e-4).
+// heads; products in f32 on the CUDA cores.
 #include "common.cuh"
 
 namespace {
@@ -364,45 +378,71 @@ int entry(const void* x, const int* anc, const void* ck, const void* cv,
 
 
 // ---------------------------------------------------------------------------
-// Route 1: bf16 on the tensor cores
+// Route 1: the tensor cores, bf16 and f32 (decoder_step_mma_kernel<T>)
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
 constexpr int MW = 10;            // warps of a block: one a head (H <= MW)
 constexpr int MT = MW * 32;
 constexpr int ROWS = 16;          // hypothesis rows of a block: one m16 tile
-constexpr int XT = 32;            // memory rows of a cross stage
 constexpr int XSTAGES = 3;        // depth of the cross ring
 constexpr int HDP = 32;           // head dim of the padded cross layout
 constexpr int NTW = 4;            // n8 tiles a warp takes per pass of a linear
 constexpr int MMA_MAX_SMEM = 232448;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// layout of the tensor-core kernel's shared memory (bytes), for (D, H, F, L)
-struct MmaSmem {
-  int pa, pq, pf, pb;                       // row pitches in bf16
-  int xs, xa, ab, big, anc, ring, total;    // offsets, then the size
+// What differs between the element types.  bf16: mma.sync m16n8k16, a lane's
+// 16-byte weight load holds two k16 steps (a k-pair 32 deep), 32 memory rows
+// a cross stage.  f32: three TF32 products of m16n8k8 (3xTF32: hi hi + hi lo
+// + lo hi, each operand split in registers), a lane's 16-byte weight load
+// holds two k8 steps (16 deep), 16 memory rows a stage (a stage of 32 f32
+// rows would not leave three stages room).  Row pitches are padded by 16
+// bytes past a whole k-pair, which puts the eight rows of an ldmatrix (and
+// the f32 fragments' eight rows g at word t) on distinct banks.
+template <typename T> struct Tc;
+template <> struct Tc<bf16> {
+  static constexpr int XT = 32;   // memory rows of a cross stage
+  static constexpr int KP = 32;   // depth of a k-pair
+  using Word = uint32_t;          // two elements
 };
+template <> struct Tc<float> {
+  static constexpr int XT = 16;
+  static constexpr int KP = 16;
+  using Word = float2;
+};
+template <typename T> constexpr int PAD = 16 / sizeof(T);   // 16 bytes of pitch pad
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-// a bf16 A operand of depth n: n padded to the 32-deep k-pairs, plus 8 so
-// ldmatrix's eight rows fall in distinct banks
-__host__ __device__ inline int a_pitch(int n) { return round_up(n, 32) + 8; }
+// the pitch of an A operand of depth n: n padded to whole k-pairs, plus 16 bytes
+template <typename T> __host__ __device__ inline int a_pitch(int n) {
+  return round_up(n, Tc<T>::KP) + PAD<T>;
+}
 
+// layout of the tensor-core kernel's shared memory (bytes), for (D, H, F, L)
+struct MmaSmem {
+  int pa, pq, pf, pb, px;                   // row pitches in elements (px: x's, f32)
+  int xs, xa, ab, big, anc, ring, total;    // offsets, then the size
+};
+
+template <typename T>
 __host__ __device__ inline MmaSmem mma_smem(int D, int H, int F, int L) {
+  constexpr int E = sizeof(T);
   MmaSmem s;
-  s.pa = a_pitch(D);
-  s.pq = H * HDP + 8;
-  s.pf = a_pitch(F);
+  s.pa = a_pitch<T>(D);
+  s.pq = H * HDP + PAD<T>;
+  s.pf = a_pitch<T>(F);
   s.pb = max(max(round_up(3 * D, 8), s.pq), s.pf);
-  s.xs = 0;                                           // f32 (ROWS, D): x
-  s.xa = round_up(4 * ROWS * D, 16);                  // bf16 (ROWS, pa): x rounded
-  s.ab = s.xa + 2 * ROWS * s.pa;                      // bf16 (ROWS, pa): attention out
-  s.big = s.ab + 2 * ROWS * s.pa;                     // bf16 (ROWS, pb): qkv | q | hidden
-  s.anc = s.big + 2 * ROWS * s.pb;                    // int (ROWS, L)
-  s.ring = round_up(s.anc + 4 * ROWS * L, 16);        // bf16 XSTAGES x (K, V) x (XT, pq)
-  s.total = s.ring + 2 * XSTAGES * 2 * XT * s.pq;
+  // f32: x is its own A operand (pitch pa, zeros in the pad); bf16: x in f32
+  // (ROWS, D) and rounded to bf16 in xa
+  s.px = E == 4 ? s.pa : D;
+  s.xs = 0;
+  s.xa = E == 4 ? 0 : round_up(4 * ROWS * D, 16);
+  s.ab = s.xa + E * ROWS * s.pa;                      // T (ROWS, pa): attention out
+  s.big = s.ab + E * ROWS * s.pa;                     // T (ROWS, pb): qkv | q | hidden
+  s.anc = s.big + E * ROWS * s.pb;                    // int (ROWS, L)
+  s.ring = round_up(s.anc + 4 * ROWS * L, 16);        // T XSTAGES x (K, V) x (XT, pq)
+  s.total = s.ring + E * XSTAGES * 2 * Tc<T>::XT * s.pq;
   return s;
 }
 
@@ -415,21 +455,34 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t w) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
 }
 
+// two elements as one word and back
+__device__ __forceinline__ uint32_t pack_word(bf16*, float a, float b) { return pack_bf16(a, b); }
+__device__ __forceinline__ float2 pack_word(float*, float a, float b) { return make_float2(a, b); }
+__device__ __forceinline__ float2 unpack(uint32_t w) { return unpack_bf16(w); }
+__device__ __forceinline__ float2 unpack(float2 w) { return w; }
+
+// p[0], p[1] = a, b (p 4-byte aligned for bf16, 8-byte for f32)
+template <typename T> __device__ __forceinline__ void store_pair(T* p, float a, float b) {
+  *reinterpret_cast<typename Tc<T>::Word*>(p) = pack_word(p, a, b);
+}
+
+template <typename T>
 struct MmaArgs {
-  const bf16* x;        // (B, K, D)
+  const T* x;           // (B, K, D)
   const int* anc;       // (B, K, L)
-  const bf16* ck;       // (nL, B, L*K, D)
-  const bf16* cv;
-  const bf16* xk;       // (nL, B, M, H, 32): head-major, Hd padded with zeros
-  const bf16* xv;
-  const uint4* w[6];    // qkv, so, cq, co, f1, f2 packed: (nL, n/8, din/32, 32 lanes)
+  const T* ck;          // (nL, B, L*K, D)
+  const T* cv;
+  const T* xk;          // (nL, B, M, H, 32): head-major, Hd padded with zeros
+  const T* xv;
+  const uint4* w[6];    // qkv, so, cq, co, f1, f2 packed: (nL, n/8, din/KP, 32 lanes, 16 bytes)
   const float* b[6];    // their biases (nL, dout)
   const float* ln_s;    // (nL, 3, D)
   const float* ln_b;
   float* h;             // (B, K, D)
-  bf16* k_new;          // (nL, B, K, D)
-  bf16* v_new;
-  int B, K, L, D, H, F, nL, M, step, G;
+  T* k_new;             // (nL, B, K, D)
+  T* v_new;
+  int B, K, L, D, H, F, nL, M, step;
+  int G, S;             // G images a block (S = 1), or S blocks an image (G = 1)
   float eps;
 };
 
@@ -466,18 +519,51 @@ __device__ __forceinline__ uint4 ldg16_hint(const uint4* p, uint64_t pol) {
   return r;
 }
 
-// y = A W for the block's 16 rows: A bf16 in shared memory (pitch pa, zero
-// past its depth), W packed in B-fragment order (kpairs k-pairs of 32 for
-// each of ntiles n8 tiles).  Warp w takes n8 tiles [NTW w, NTW w + NTW), then
-// the same plus NTW * MW, ...; a lane loads its two k-steps of a tile as one
-// 16-byte word, two k-pairs ahead of the products.  epi(row, col, y0, y1)
-// gets the f32 sums of columns col, col + 1 (col even) of every row.
-template <typename Epi>
-__device__ __forceinline__ void mma_linear(const bf16* A, int pa, int kpairs,
+// An f32 A fragment of m16n8k8 as it comes from ldmatrix, split into TF32 hi
+// and lo pieces
+__device__ __forceinline__ FragA<2> split_frag(const uint32_t (&r)[4]) {
+  FragA<2> f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t p[2];
+    split_tf32_bits(__uint_as_float(r[i]), p);
+    f.p[0][i] = p[0];
+    f.p[1][i] = p[1];
+  }
+  return f;
+}
+
+// c += a b in three TF32 products, hi lo + lo hi + hi hi (the smaller first),
+// summed by the tensor cores; the B fragment (b0, b1) is split here.  The
+// callers keep the tensor cores' sums short (one k-pair of a linear, one
+// tile of P V) and add them to their long sums by f32 adds, which round to
+// nearest where the mma's accumulation does not
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA<2>& a, float b0, float b1) {
+  uint32_t x[2], y[2];
+  split_tf32_bits(b0, x);
+  split_tf32_bits(b1, y);
+  mma_tf32(c, a.p[0], x[1], y[1]);
+  mma_tf32(c, a.p[1], x[0], y[0]);
+  mma_tf32(c, a.p[0], x[0], y[0]);
+}
+
+// y = A W for the block's 16 rows: A in shared memory (pitch pa, zero past
+// its depth), W packed in B-fragment order (kpairs k-pairs for each of
+// ntiles n8 tiles).  Warp w takes n8 tiles [NTW w, NTW w + NTW), then the
+// same plus NTW * MW, ...; a lane loads its two k-steps of a tile as one
+// 16-byte word, two k-pairs ahead of the products.  A k-step's A fragment
+// comes from one ldmatrix x4: bf16 the four 8x8 matrices of rows 0-7 / 8-15
+// by k 0-7 / 8-15, f32 (as b16 pairs) rows 0-7 / 8-15 by k 0-3 / 4-7.  f32
+// products are three TF32 products each (mma3), a k-pair's formed apart and
+// added to the sums in f32.  epi(row, col, y0, y1) gets the f32 sums of
+// columns col, col + 1 (col even) of every row.
+template <typename T, typename Epi>
+__device__ __forceinline__ void mma_linear(const T* A, int pa, int kpairs,
                                            const uint4* __restrict__ W, int ntiles, Epi epi) {
+  constexpr int KP = Tc<T>::KP;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const bf16* a_src = A + (lane & 15) * pa + (lane >> 4) * 8;
+  const T* a_src = A + (lane & 15) * pa + (lane >> 4) * PAD<T>;
   const uint64_t keep = l2_policy_evict_last();
   for (int n0 = warp * NTW; n0 < ntiles; n0 += MW * NTW) {
     float acc[NTW][4];
@@ -499,12 +585,24 @@ __device__ __forceinline__ void mma_linear(const bf16* A, int pa, int kpairs,
     };
     auto step = [&](const uint4 (&b)[NTW], int kp) {
       uint32_t a0[4], a1[4];
-      ldsm_x4(a0, a_src + 32 * kp);
-      ldsm_x4(a1, a_src + 32 * kp + 16);
+      ldsm_x4(a0, a_src + KP * kp);
+      ldsm_x4(a1, a_src + KP * kp + KP / 2);
+      if constexpr (sizeof(T) == 2) {
 #pragma unroll
-      for (int j = 0; j < NTW; ++j) {
-        mma_bf16(acc[j], a0, b[j].x, b[j].y);
-        mma_bf16(acc[j], a1, b[j].z, b[j].w);
+        for (int j = 0; j < NTW; ++j) {
+          mma_bf16(acc[j], a0, b[j].x, b[j].y);
+          mma_bf16(acc[j], a1, b[j].z, b[j].w);
+        }
+      } else {
+        const FragA<2> f0 = split_frag(a0), f1 = split_frag(a1);
+#pragma unroll
+        for (int j = 0; j < NTW; ++j) {
+          float s[4] = {0.f, 0.f, 0.f, 0.f};
+          mma3(s, f0, __uint_as_float(b[j].x), __uint_as_float(b[j].y));
+          mma3(s, f1, __uint_as_float(b[j].z), __uint_as_float(b[j].w));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] += s[e];
+        }
       }
     };
     fetch(b0, 0);
@@ -528,13 +626,14 @@ __device__ __forceinline__ void mma_linear(const bf16* A, int pa, int kpairs,
 }
 
 // x = LayerNorm(x) over the block's R real rows (the residual is already in
-// x), f32, two-pass variance as the stock path; also x rounded to bf16 for
-// the next product
-__device__ __forceinline__ void norm_rows(float* xs, bf16* xa, int pa, const float* scale,
+// x, pitch px), f32, two-pass variance as the stock path; bf16 also rounds x
+// into xa for the next product (f32's x is its own A operand)
+template <typename T>
+__device__ __forceinline__ void norm_rows(float* xs, int px, T* xa, int pa, const float* scale,
                                           const float* bias, int R, int D, float eps) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int r = warp; r < R; r += MW) {
-    float* xr = xs + r * D;
+    float* xr = xs + r * px;
     float s = 0.f;
     for (int d = lane; d < D; d += 32) s += xr[d];
     const float mu = warp_sum(s) / D;
@@ -547,59 +646,140 @@ __device__ __forceinline__ void norm_rows(float* xs, bf16* xa, int pa, const flo
     for (int d = lane; d < D; d += 32) {
       const float y = (xr[d] - mu) * rstd * scale[d] + bias[d];
       xr[d] = y;
-      xa[r * pa + d] = __float2bfloat16(y);
+      if constexpr (sizeof(T) == 2) xa[r * pa + d] = __float2bfloat16(y);
     }
   }
 }
 
-__global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs a) {
+// One memory tile of the cross attention for warp hh's head, flash style, in
+// f32: S = Q K^T and O += P V in 3xTF32 (mma3; a tile's P V formed apart and
+// added to O in f32).  Q's fragments (4 k8 steps over the padded head dim)
+// were split once for the image.  P reaches its product
+// without a shuffle: the accumulator holds keys 2 t, 2 t + 1 where the A
+// fragment wants k = t, t + 4, so P is taken as A with its k order permuted
+// (key 2 t as k t, 2 t + 1 as t + 4) and V's rows are read in that order.
+__device__ __forceinline__ void cross_tile_f32(const float* kt, const float* vt, int PQ,
+                                               const FragA<2> (&qf)[4], float (&acc)[4][4],
+                                               float (&mrow)[2], float (&lrow)[2], int m0, int M,
+                                               float c) {
+  constexpr int XT = Tc<float>::XT;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float sv[XT / 8][4];
+#pragma unroll
+  for (int j = 0; j < XT / 8; ++j) {
+    uint32_t kb[2][4];                  // K rows 8 j + g, dims 4 q + t (matrix q = lane / 8)
+    const float* kr = kt + (8 * j + (lane & 7)) * PQ + 4 * (lane >> 3);
+    ldsm_x4(kb[0], kr);
+    ldsm_x4(kb[1], kr + 16);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sv[j][e] = 0.f;
+#pragma unroll
+    for (int ds = 0; ds < 4; ++ds)
+      mma3(sv[j], qf[ds], __uint_as_float(kb[ds >> 1][2 * (ds & 1)]),
+           __uint_as_float(kb[ds >> 1][2 * (ds & 1) + 1]));
+  }
+  if (m0 + XT > M) {                    // the ragged last tile
+#pragma unroll
+    for (int j = 0; j < XT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (m0 + 8 * j + 2 * t + (e & 1) >= M) sv[j][e] = -INFINITY;
+  }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < XT / 8; ++j) mx = fmaxf(mx, fmaxf(sv[j][2 * r], sv[j][2 * r + 1]));
+    const float m_new = fmaxf(mrow[r], quad_max(mx) * c);   // finite: row 0 of a tile is live
+    alpha[r] = fast_exp2(mrow[r] - m_new);
+    mrow[r] = m_new;
+    lrow[r] *= alpha[r];
+  }
+  float pv[4][4] = {};
+#pragma unroll
+  for (int j = 0; j < XT / 8; ++j) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[e] = fast_exp2(fmaf(sv[j][e], c, -mrow[e >> 1]));   // masked: 2^-inf = 0
+      lrow[e >> 1] += p[e];
+    }
+    const uint32_t pa[4] = {__float_as_uint(p[0]), __float_as_uint(p[2]), __float_as_uint(p[1]),
+                            __float_as_uint(p[3])};
+    const FragA<2> pf = split_frag(pa);
+    const float* v0 = vt + (8 * j + 2 * t) * PQ + g;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) mma3(pv[n], pf, v0[8 * n], v0[PQ + 8 * n]);
+  }
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = fmaf(acc[n][e], alpha[e >> 1], pv[n][e]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int XT = Tc<T>::XT, KP = Tc<T>::KP;
+  using Word = typename Tc<T>::Word;
   extern __shared__ __align__(16) unsigned char smem[];
   const int K = a.K, D = a.D, H = a.H, F = a.F, L = a.L, M = a.M, i = a.step;
   const int Hd = D / H, HP = H * HDP;
-  const MmaSmem sm = mma_smem(D, H, F, L);
-  const int PA = sm.pa, PQ = sm.pq, PF = sm.pf, PB = sm.pb;
+  const MmaSmem sm = mma_smem<T>(D, H, F, L);
+  const int PA = sm.pa, PQ = sm.pq, PF = sm.pf, PB = sm.pb, PX = sm.px;
   float* xs = reinterpret_cast<float*>(smem + sm.xs);
-  bf16* xa = reinterpret_cast<bf16*>(smem + sm.xa);
-  bf16* ab = reinterpret_cast<bf16*>(smem + sm.ab);
-  bf16* big = reinterpret_cast<bf16*>(smem + sm.big);   // proj (pitch PB), qc (PQ), hid (PF)
+  T* xa = reinterpret_cast<T*>(smem + sm.xa);     // f32: xs itself
+  T* ab = reinterpret_cast<T*>(smem + sm.ab);
+  T* big = reinterpret_cast<T*>(smem + sm.big);   // proj (pitch PB), qc (PQ), hid (PF)
   int* anc = reinterpret_cast<int*>(smem + sm.anc);
-  bf16* ring = reinterpret_cast<bf16*>(smem + sm.ring);
+  T* ring = reinterpret_cast<T*>(smem + sm.ring);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int b0 = blockIdx.x * a.G;
-  const int nimg = min(a.G, a.B - b0);
-  const int R = nimg * K;                       // real rows; the rest stay zero
+  // the block's rows [row0, row0 + R) of the (B K) hypotheses: G whole
+  // images, the last group ragged (S = 1), or part of one image's (S > 1)
+  int row0, R;
+  if (a.S == 1) {
+    const int b0 = blockIdx.x * a.G;
+    row0 = b0 * K;
+    R = min(a.G, a.B - b0) * K;
+  } else {
+    const int per = (K + a.S - 1) / a.S, k0 = (blockIdx.x % a.S) * per;
+    row0 = (blockIdx.x / a.S) * K + k0;
+    R = min(per, K - k0);
+  }
+  const int img0 = row0 / K, nimg = (row0 + R - 1) / K - img0 + 1;
   const uint64_t stream = l2_policy_evict_first();
 
-  // zeros in every pad of the bf16 operands (and finite values in `big`)
+  // zeros in every pad of the operands (and finite values in `big`)
   for (int e = tid; e < (sm.anc - sm.xa) / 16; e += MT)
     reinterpret_cast<uint4*>(smem + sm.xa)[e] = make_uint4(0u, 0u, 0u, 0u);
   __syncthreads();
   for (int e = tid; e < R * D; e += MT) {
-    const bf16 v = a.x[(long long)b0 * K * D + e];
-    xs[e] = __bfloat162float(v);
-    xa[(e / D) * PA + e % D] = v;
+    const T v = a.x[(long long)row0 * D + e];
+    xs[(e / D) * PX + e % D] = to_f32(v);
+    if constexpr (!F32) xa[(e / D) * PA + e % D] = v;
   }
-  for (int e = tid; e < R * L; e += MT) anc[e] = a.anc[(long long)b0 * K * L + e];
+  for (int e = tid; e < R * L; e += MT) anc[e] = a.anc[(long long)row0 * L + e];
 
   // the cross ring: stage s is memory tile s % nT of image (s / nT) % nimg
   // of layer s / (nimg nT), K then V, 16 bytes a copy, zeros past M
   const int nT = (M + XT - 1) / XT;
   const int per_layer = nimg * nT, total = a.nL * per_layer;
-  const int chunks = HP / 8;
+  const int chunks = HP / PAD<T>;
   auto load_stage = [&](int s) {
     if (s < total) {
       const int l = s / per_layer, rem = s - l * per_layer;
       const int gi = rem / nT, m0 = (rem - gi * nT) * XT;
-      const long long base = (((long long)l * a.B + b0 + gi) * M + m0) * HP;
-      bf16* kd = ring + (s % XSTAGES) * 2 * XT * PQ;
-      bf16* vd = kd + XT * PQ;
+      const long long base = (((long long)l * a.B + img0 + gi) * M + m0) * HP;
+      T* kd = ring + (s % XSTAGES) * 2 * XT * PQ;
+      T* vd = kd + XT * PQ;
       for (int e = tid; e < XT * chunks; e += MT) {
         const int r = e / chunks, c = e - r * chunks;
         const bool ok = m0 + r < M;
-        const long long src = ok ? base + (long long)r * HP + 8 * c : 0;
-        cp_async16_hint(smem_u32(kd + r * PQ + 8 * c), a.xk + src, ok, stream);
-        cp_async16_hint(smem_u32(vd + r * PQ + 8 * c), a.xv + src, ok, stream);
+        const long long src = ok ? base + (long long)r * HP + PAD<T> * c : 0;
+        cp_async16_hint(smem_u32(kd + r * PQ + PAD<T> * c), a.xk + src, ok, stream);
+        cp_async16_hint(smem_u32(vd + r * PQ + PAD<T> * c), a.xv + src, ok, stream);
       }
     }
     cp_async_commit();
@@ -609,20 +789,20 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs a) {
   __syncthreads();
 
   const float sc = rsqrtf((float)Hd);
-  const int kp_d = round_up(D, 32) / 32, kp_f = round_up(F, 32) / 32;
+  const int kp_d = round_up(D, KP) / KP, kp_f = round_up(F, KP) / KP;
   const int nt_d = round_up(D, 8) / 8;
   for (int l = 0; l < a.nL; ++l) {
     const float* lns = a.ln_s + (long long)l * 3 * D;
     const float* lnb = a.ln_b + (long long)l * 3 * D;
     auto wl = [&](int j, int din, int dout) {
-      return a.w[j] + (long long)l * (round_up(dout, 8) / 8) * (round_up(din, 32) / 32) * 32;
+      return a.w[j] + (long long)l * (round_up(dout, 8) / 8) * (round_up(din, KP) / KP) * 32;
     };
     // residual sums: x += y + bias over the real rows
     auto residual = [&](const float* bias) {
       return [=](int row, int col, float y0, float y1) {
         if (row < R && col < D) {
-          xs[row * D + col] += y0 + bias[col];
-          xs[row * D + col + 1] += y1 + bias[col + 1];
+          xs[row * PX + col] += y0 + bias[col];
+          xs[row * PX + col + 1] += y1 + bias[col + 1];
         }
       };
     };
@@ -630,15 +810,15 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs a) {
     // ---- QKV projection; this step's K/V rows out ----
     {
       const float* bias = a.b[0] + (long long)l * 3 * D;
-      const long long out0 = ((long long)l * a.B + b0) * K * D;
+      const long long out0 = ((long long)l * a.B * K + row0) * D;
       mma_linear(xa, PA, kp_d, wl(0, D, 3 * D), round_up(3 * D, 8) / 8,
                  [&](int row, int col, float y0, float y1) {
                    if (col >= 3 * D) return;
-                   const uint32_t p = pack_bf16(y0 + bias[col], y1 + bias[col + 1]);
-                   *reinterpret_cast<uint32_t*>(big + row * PB + col) = p;
+                   const Word p = pack_word(big, y0 + bias[col], y1 + bias[col + 1]);
+                   *reinterpret_cast<Word*>(big + row * PB + col) = p;
                    if (row < R && col >= D) {
-                     bf16* dst = col < 2 * D ? a.k_new + col - D : a.v_new + col - 2 * D;
-                     *reinterpret_cast<uint32_t*>(dst + out0 + (long long)row * D) = p;
+                     T* dst = col < 2 * D ? a.k_new + col - D : a.v_new + col - 2 * D;
+                     *reinterpret_cast<Word*>(dst + out0 + (long long)row * D) = p;
                    }
                  });
     }
@@ -652,50 +832,51 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs a) {
       for (int task = tid >> 1; task < R * H; task += MT / 2) {
         const int r = task / H, hh = task - r * H;
         const int col = hh * Hd + 2 * w0;
-        const uint32_t* qs = reinterpret_cast<const uint32_t*>(big + r * PB + col);
-        const uint32_t* ks_ = reinterpret_cast<const uint32_t*>(big + r * PB + D + col);
-        const uint32_t* vs_ = reinterpret_cast<const uint32_t*>(big + r * PB + 2 * D + col);
-        const long long base = ((long long)l * a.B + b0 + r / K) * img + col;
-        const bf16* kb = a.ck + base;
-        const bf16* vb = a.cv + base;
+        const Word* qs = reinterpret_cast<const Word*>(big + r * PB + col);
+        const Word* ks_ = reinterpret_cast<const Word*>(big + r * PB + D + col);
+        const Word* vs_ = reinterpret_cast<const Word*>(big + r * PB + 2 * D + col);
+        const long long base = ((long long)l * a.B + (row0 + r) / K) * img + col;
+        const T* kb = a.ck + base;
+        const T* vb = a.cv + base;
         const int* ar = anc + r * L;
         float q[16], o[16];
 #pragma unroll
         for (int w = 0; w < 8; ++w) {
-          const float2 f = w < nw ? unpack_bf16(qs[w]) : make_float2(0.f, 0.f);
+          const float2 f = w < nw ? unpack(qs[w]) : make_float2(0.f, 0.f);
           q[2 * w] = f.x;
           q[2 * w + 1] = f.y;
           o[2 * w] = o[2 * w + 1] = 0.f;
         }
-        uint32_t kw[8], vw[8];
+        Word kw[8], vw[8];
+        const Word zero{};
         // history row tt < i through the ancestry, or this step's own K/V
-        auto fetch = [&](int tt, uint32_t (&kq)[8], uint32_t (&vq)[8]) {
+        auto fetch = [&](int tt, Word (&kq)[8], Word (&vq)[8]) {
           if (tt < i) {
             const long long off = (long long)(tt * K + ar[tt]) * D;
-            const uint32_t* kp = reinterpret_cast<const uint32_t*>(kb + off);
-            const uint32_t* vp = reinterpret_cast<const uint32_t*>(vb + off);
+            const Word* kp = reinterpret_cast<const Word*>(kb + off);
+            const Word* vp = reinterpret_cast<const Word*>(vb + off);
 #pragma unroll
             for (int w = 0; w < 8; ++w) {
-              kq[w] = w < nw ? __ldg(kp + w) : 0u;
-              vq[w] = w < nw ? __ldg(vp + w) : 0u;
+              kq[w] = w < nw ? __ldg(kp + w) : zero;
+              vq[w] = w < nw ? __ldg(vp + w) : zero;
             }
           } else {
 #pragma unroll
             for (int w = 0; w < 8; ++w) {
-              kq[w] = w < nw ? ks_[w] : 0u;
-              vq[w] = w < nw ? vs_[w] : 0u;
+              kq[w] = w < nw ? ks_[w] : zero;
+              vq[w] = w < nw ? vs_[w] : zero;
             }
           }
         };
         fetch(0, kw, vw);
         float m = -INFINITY, s = 0.f;
         for (int tt = 0; tt <= i; ++tt) {
-          uint32_t kn[8], vn[8];
+          Word kn[8], vn[8];
           if (tt < i) fetch(tt + 1, kn, vn);
           float dot = 0.f;
 #pragma unroll
           for (int w = 0; w < 8; ++w) {
-            const float2 k2 = unpack_bf16(kw[w]);
+            const float2 k2 = unpack(kw[w]);
             dot = fmaf(q[2 * w], k2.x, fmaf(q[2 * w + 1], k2.y, dot));
           }
           dot += __shfl_xor_sync(pair, dot, 1);
@@ -705,7 +886,7 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs a) {
           s = s * alpha + p;
 #pragma unroll
           for (int w = 0; w < 8; ++w) {
-            const float2 v2 = unpack_bf16(vw[w]);
+            const float2 v2 = unpack(vw[w]);
             o[2 * w] = fmaf(p, v2.x, o[2 * w] * alpha);
             o[2 * w + 1] = fmaf(p, v2.y, o[2 * w + 1] * alpha);
           }
@@ -719,20 +900,20 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs a) {
           }
         }
         const float inv = 1.f / s;
-        uint32_t* dst = reinterpret_cast<uint32_t*>(ab + r * PA + col);
+        Word* dst = reinterpret_cast<Word*>(ab + r * PA + col);
 #pragma unroll
         for (int w = 0; w < 8; ++w)
-          if (w < nw) dst[w] = pack_bf16(o[2 * w] * inv, o[2 * w + 1] * inv);
+          if (w < nw) dst[w] = pack_word(ab, o[2 * w] * inv, o[2 * w + 1] * inv);
       }
     }
     __syncthreads();
 
     // ---- self-attention out projection (+ residual); q's buffer zeroed ----
-    for (int e = tid; e < ROWS * PQ / 8; e += MT)
+    for (int e = tid; e < ROWS * PQ / PAD<T>; e += MT)
       reinterpret_cast<uint4*>(big)[e] = make_uint4(0u, 0u, 0u, 0u);
     mma_linear(ab, PA, kp_d, wl(1, D, D), nt_d, residual(a.b[1] + (long long)l * D));
     __syncthreads();
-    norm_rows(xs, xa, PA, lns, lnb, R, D, a.eps);
+    norm_rows(xs, PX, xa, PA, lns, lnb, R, D, a.eps);
     __syncthreads();
 
     // ---- cross-attention query, head-major with Hd padded to 32 ----
@@ -741,8 +922,7 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs a) {
       mma_linear(xa, PA, kp_d, wl(2, D, D), nt_d, [&](int row, int col, float y0, float y1) {
         if (col >= D) return;
         const int hh = col / Hd;
-        *reinterpret_cast<uint32_t*>(big + row * PQ + hh * HDP + col - hh * Hd) =
-            pack_bf16(y0 + bias[col], y1 + bias[col + 1]);
+        store_pair(big + row * PQ + hh * HDP + col - hh * Hd, y0 + bias[col], y1 + bias[col + 1]);
       });
     }
     __syncthreads();
@@ -751,7 +931,8 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs a) {
     {
       const int hh = warp;
       const float c = sc * LOG2E;
-      uint32_t qf[2][4];
+      uint32_t qf[2][4];                      // bf16: Q's A fragments (2 k16 steps)
+      FragA<2> qs[F32 ? 4 : 1];               // f32: split (4 k8 steps)
       float acc[4][4], mrow[2], lrow[2];
       const int s0 = l * per_layer;
       for (int s = s0; s < s0 + per_layer; ++s) {
@@ -760,12 +941,21 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs a) {
         load_stage(s + XSTAGES - 1);
         if (hh >= H) continue;
         const int rem = s - s0, gi = rem / nT, mt = rem - gi * nT, m0 = mt * XT;
-        const bf16* kt = ring + (s % XSTAGES) * 2 * XT * PQ + hh * HDP;
-        const bf16* vt = kt + XT * PQ;
+        const T* kt = ring + (s % XSTAGES) * 2 * XT * PQ + hh * HDP;
+        const T* vt = kt + XT * PQ;
         if (mt == 0) {                        // an image's first tile: fresh state
-          const bf16* qsrc = big + (lane & 15) * PQ + hh * HDP + (lane >> 4) * 8;
-          ldsm_x4(qf[0], qsrc);
-          ldsm_x4(qf[1], qsrc + 16);
+          const T* qsrc = big + (lane & 15) * PQ + hh * HDP + (lane >> 4) * PAD<T>;
+          if constexpr (F32) {
+#pragma unroll
+            for (int ds = 0; ds < 4; ++ds) {
+              uint32_t r4[4];
+              ldsm_x4(r4, qsrc + 8 * ds);
+              qs[ds] = split_frag(r4);
+            }
+          } else {
+            ldsm_x4(qf[0], qsrc);
+            ldsm_x4(qf[1], qsrc + 16);
+          }
 #pragma unroll
           for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -773,71 +963,76 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs a) {
           mrow[0] = mrow[1] = -INFINITY;
           lrow[0] = lrow[1] = 0.f;
         }
-        float sv[4][4];
+        if constexpr (F32) {
+          cross_tile_f32(kt, vt, PQ, qs, acc, mrow, lrow, m0, M, c);
+        } else {
+          float sv[4][4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          uint32_t kb[4];
-          ldsm_x4(kb, kt + (8 * j + (lane & 7)) * PQ + 8 * (lane >> 3));
+          for (int j = 0; j < 4; ++j) {
+            uint32_t kb[4];
+            ldsm_x4(kb, kt + (8 * j + (lane & 7)) * PQ + 8 * (lane >> 3));
 #pragma unroll
-          for (int e = 0; e < 4; ++e) sv[j][e] = 0.f;
-          mma_bf16(sv[j], qf[0], kb[0], kb[1]);
-          mma_bf16(sv[j], qf[1], kb[2], kb[3]);
-        }
-        if (m0 + XT > M) {                    // the ragged last tile
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              if (m0 + 8 * j + 2 * t + (e & 1) >= M) sv[j][e] = -INFINITY;
-        }
-        float alpha[2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float mx = -INFINITY;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) mx = fmaxf(mx, fmaxf(sv[j][2 * r], sv[j][2 * r + 1]));
-          const float m_new = fmaxf(mrow[r], quad_max(mx) * c);   // finite: row 0 of a tile is live
-          alpha[r] = fast_exp2(mrow[r] - m_new);
-          mrow[r] = m_new;
-          lrow[r] *= alpha[r];
-        }
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
-        uint32_t pf[2][4];                    // P as A fragments, keys 16 kk .. 16 kk + 15
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float p[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            p[e] = fast_exp2(fmaf(sv[j][e], c, -mrow[e >> 1]));   // masked: 2^-inf = 0
-            lrow[e >> 1] += p[e];
+            for (int e = 0; e < 4; ++e) sv[j][e] = 0.f;
+            mma_bf16(sv[j], qf[0], kb[0], kb[1]);
+            mma_bf16(sv[j], qf[1], kb[2], kb[3]);
           }
-          pf[j >> 1][2 * (j & 1)] = pack_bf16(p[0], p[1]);
-          pf[j >> 1][2 * (j & 1) + 1] = pack_bf16(p[2], p[3]);
-        }
+          if (m0 + XT > M) {                  // the ragged last tile
 #pragma unroll
-        for (int kk = 0; kk < 2; ++kk)
+            for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int np = 0; np < 2; ++np) {
-            uint32_t vb[4];
-            ldsm_x4_trans(vb, vt + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * PQ +
-                                  16 * np + 8 * (lane >> 4));
-            mma_bf16(acc[2 * np], pf[kk], vb[0], vb[1]);
-            mma_bf16(acc[2 * np + 1], pf[kk], vb[2], vb[3]);
+              for (int e = 0; e < 4; ++e)
+                if (m0 + 8 * j + 2 * t + (e & 1) >= M) sv[j][e] = -INFINITY;
           }
+          float alpha[2];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float mx = -INFINITY;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mx = fmaxf(mx, fmaxf(sv[j][2 * r], sv[j][2 * r + 1]));
+            const float m_new = fmaxf(mrow[r], quad_max(mx) * c);   // finite: row 0 of a tile is live
+            alpha[r] = fast_exp2(mrow[r] - m_new);
+            mrow[r] = m_new;
+            lrow[r] *= alpha[r];
+          }
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+          uint32_t pf[2][4];                  // P as A fragments, keys 16 kk .. 16 kk + 15
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float p[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              p[e] = fast_exp2(fmaf(sv[j][e], c, -mrow[e >> 1]));   // masked: 2^-inf = 0
+              lrow[e >> 1] += p[e];
+            }
+            pf[j >> 1][2 * (j & 1)] = pack_bf16(p[0], p[1]);
+            pf[j >> 1][2 * (j & 1) + 1] = pack_bf16(p[2], p[3]);
+          }
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+            for (int np = 0; np < 2; ++np) {
+              uint32_t vb[4];
+              ldsm_x4_trans(vb, vt + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * PQ +
+                                    16 * np + 8 * (lane >> 4));
+              mma_bf16(acc[2 * np], pf[kk], vb[0], vb[1]);
+              mma_bf16(acc[2 * np + 1], pf[kk], vb[2], vb[3]);
+            }
+        }
         if (mt == nT - 1) {                   // the image's last tile: its rows out
+          const int lo = (img0 + gi) * K - row0;
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
             const int row = g + 8 * r;
             const float inv = 1.f / quad_sum(lrow[r]);
-            if (row < gi * K || row >= gi * K + K) continue;
-            uint32_t* dst = reinterpret_cast<uint32_t*>(ab + row * PA + hh * Hd);
+            if (row < lo || row >= lo + K || row >= R) continue;
+            T* dst = ab + row * PA + hh * Hd;
 #pragma unroll
             for (int n = 0; n < 4; ++n)
               if (8 * n + 2 * t < Hd)
-                dst[4 * n + t] = pack_bf16(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+                store_pair(dst + 8 * n + 2 * t, acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
           }
         }
       }
@@ -845,7 +1040,7 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs a) {
     __syncthreads();
     mma_linear(ab, PA, kp_d, wl(3, D, D), nt_d, residual(a.b[3] + (long long)l * D));
     __syncthreads();
-    norm_rows(xs, xa, PA, lns + D, lnb + D, R, D, a.eps);
+    norm_rows(xs, PX, xa, PA, lns + D, lnb + D, R, D, a.eps);
     __syncthreads();
 
     // ---- ReLU FFN ----
@@ -854,34 +1049,57 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs a) {
       mma_linear(xa, PA, kp_d, wl(4, D, F), round_up(F, 8) / 8,
                  [&](int row, int col, float y0, float y1) {
                    const bool ok = col < F;   // F is even: a pair is in or out
-                   *reinterpret_cast<uint32_t*>(big + row * PF + col) =
-                       pack_bf16(ok ? fmaxf(y0 + bias[col], 0.f) : 0.f,
-                                 ok ? fmaxf(y1 + bias[col + 1], 0.f) : 0.f);
+                   store_pair(big + row * PF + col, ok ? fmaxf(y0 + bias[col], 0.f) : 0.f,
+                              ok ? fmaxf(y1 + bias[col + 1], 0.f) : 0.f);
                  });
     }
     __syncthreads();
     mma_linear(big, PF, kp_f, wl(5, F, D), nt_d, residual(a.b[5] + (long long)l * D));
     __syncthreads();
-    norm_rows(xs, xa, PA, lns + 2 * D, lnb + 2 * D, R, D, a.eps);
+    norm_rows(xs, PX, xa, PA, lns + 2 * D, lnb + 2 * D, R, D, a.eps);
     __syncthreads();
   }
   cp_async_wait<0>();
-  for (int e = tid; e < R * D; e += MT) a.h[(long long)b0 * K * D + e] = xs[e];
+  for (int e = tid; e < R * D; e += MT) a.h[(long long)row0 * D + e] = xs[(e / D) * PX + e % D];
 }
 
-int run_mma(const MmaArgs& a, void* stream) {
+template <typename T>
+int run_mma(const MmaArgs<T>& a, void* stream) {
   const int Hd = a.H > 0 ? a.D / a.H : 0;
-  if (a.K < 1 || a.G < 1 || a.G * a.K > ROWS || a.H < 1 || a.H > MW || a.D % a.H != 0 ||
-      Hd % 2 != 0 || Hd > HDP || a.F % 2 != 0 || a.step < 0 || a.step >= a.L || a.M < 1)
+  const bool rows_ok = a.S == 1 ? a.G >= 1 && a.G * a.K <= ROWS
+                                : a.G == 1 && a.S > 1 && a.S <= a.K &&
+                                      (a.K + a.S - 1) / a.S <= ROWS;
+  if (a.K < 1 || !rows_ok || a.H < 1 || a.H > MW || a.D % a.H != 0 || Hd % 2 != 0 ||
+      Hd > HDP || a.F % 2 != 0 || a.step < 0 || a.step >= a.L || a.M < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const MmaSmem sm = mma_smem(a.D, a.H, a.F, a.L);
+  const MmaSmem sm = mma_smem<T>(a.D, a.H, a.F, a.L);
   if (sm.total > MMA_MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      decoder_step_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm.total);
+      decoder_step_mma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, sm.total);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (a.B + a.G - 1) / a.G;
-  decoder_step_mma_kernel<<<blocks, MT, sm.total, static_cast<cudaStream_t>(stream)>>>(a);
+  const int blocks = a.S == 1 ? (a.B + a.G - 1) / a.G : a.B * a.S;
+  decoder_step_mma_kernel<T><<<blocks, MT, sm.total, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int entry_mma(const void* x, const int* anc, const void* ck, const void* cv, const void* xk,
+              const void* xv, const void* qkv_w, const float* qkv_b, const void* so_w,
+              const float* so_b, const void* cq_w, const float* cq_b, const void* co_w,
+              const float* co_b, const void* f1_w, const float* f1_b, const void* f2_w,
+              const float* f2_b, const float* ln_s, const float* ln_b, float* h, void* k_new,
+              void* v_new, int B, int K, int L, int D, int H, int F, int nL, int M, int step,
+              int G, int S, float eps, void* stream) {
+  MmaArgs<T> a{static_cast<const T*>(x), anc, static_cast<const T*>(ck),
+               static_cast<const T*>(cv), static_cast<const T*>(xk),
+               static_cast<const T*>(xv),
+               {static_cast<const uint4*>(qkv_w), static_cast<const uint4*>(so_w),
+                static_cast<const uint4*>(cq_w), static_cast<const uint4*>(co_w),
+                static_cast<const uint4*>(f1_w), static_cast<const uint4*>(f2_w)},
+               {qkv_b, so_b, cq_b, co_b, f1_b, f2_b}, ln_s, ln_b, h,
+               static_cast<T*>(k_new), static_cast<T*>(v_new),
+               B, K, L, D, H, F, nL, M, step, G, S, eps};
+  return run_mma<T>(a, stream);
 }
 
 }  // namespace
@@ -894,38 +1112,30 @@ int run_mma(const MmaArgs& a, void* stream) {
       const void *f1_w, const float *f1_b, const void *f2_w,                   \
       const float *f2_b, const float *ln_s, const float *ln_b, float *h,       \
       void *k_new, void *v_new, int B, int K, int L, int D, int H, int F,      \
-      int nL, int M, int step, float eps, void *stream
+      int nL, int M, int step
 #define STEP_PASS                                                              \
   x, anc, ck, cv, xk, xv, qkv_w, qkv_b, so_w, so_b, cq_w, cq_b, co_w, co_b,    \
       f1_w, f1_b, f2_w, f2_b, ln_s, ln_b, h, k_new, v_new, B, K, L, D, H, F,   \
-      nL, M, step, eps, stream
+      nL, M, step
 
-ICEK_EXPORT int decoder_step_f32(STEP_ARGS) { return entry<float>(STEP_PASS); }
-ICEK_EXPORT int decoder_step_bf16(STEP_ARGS) { return entry<__nv_bfloat16>(STEP_PASS); }
-
-// the tensor-core route; weights packed by kernels/decoder_step.py::pack_mma,
-// cross K/V by pad_cross_heads; G images a block
-ICEK_EXPORT int decoder_step_bf16_mma(
-    const void* x, const int* anc, const void* ck, const void* cv, const void* xk,
-    const void* xv, const void* qkv_w, const float* qkv_b, const void* so_w,
-    const float* so_b, const void* cq_w, const float* cq_b, const void* co_w,
-    const float* co_b, const void* f1_w, const float* f1_b, const void* f2_w,
-    const float* f2_b, const float* ln_s, const float* ln_b, float* h, void* k_new,
-    void* v_new, int B, int K, int L, int D, int H, int F, int nL, int M, int step, int G,
-    float eps, void* stream) {
-  MmaArgs a{static_cast<const bf16*>(x), anc, static_cast<const bf16*>(ck),
-            static_cast<const bf16*>(cv), static_cast<const bf16*>(xk),
-            static_cast<const bf16*>(xv),
-            {static_cast<const uint4*>(qkv_w), static_cast<const uint4*>(so_w),
-             static_cast<const uint4*>(cq_w), static_cast<const uint4*>(co_w),
-             static_cast<const uint4*>(f1_w), static_cast<const uint4*>(f2_w)},
-            {qkv_b, so_b, cq_b, co_b, f1_b, f2_b}, ln_s, ln_b, h,
-            static_cast<bf16*>(k_new), static_cast<bf16*>(v_new),
-            B, K, L, D, H, F, nL, M, step, G, eps};
-  return run_mma(a, stream);
+ICEK_EXPORT int decoder_step_f32(STEP_ARGS, float eps, void* stream) {
+  return entry<float>(STEP_PASS, eps, stream);
+}
+ICEK_EXPORT int decoder_step_bf16(STEP_ARGS, float eps, void* stream) {
+  return entry<__nv_bfloat16>(STEP_PASS, eps, stream);
 }
 
-// shared memory of the tensor-core route for (D, H, F, L), in bytes
-ICEK_EXPORT int decoder_step_mma_smem(int D, int H, int F, int L) {
-  return mma_smem(D, H, F, L).total;
+// the tensor-core route; weights packed by kernels/decoder_step.py::pack_mma
+// (bf16) or pack_tf32 (f32), cross K/V by pad_cross_heads; G images a block,
+// or S blocks an image
+ICEK_EXPORT int decoder_step_bf16_mma(STEP_ARGS, int G, int S, float eps, void* stream) {
+  return entry_mma<bf16>(STEP_PASS, G, S, eps, stream);
+}
+ICEK_EXPORT int decoder_step_f32_mma(STEP_ARGS, int G, int S, float eps, void* stream) {
+  return entry_mma<float>(STEP_PASS, G, S, eps, stream);
+}
+
+// shared memory of the tensor-core route for (D, H, F, L), in bytes (f32 != 0: the f32 route's)
+ICEK_EXPORT int decoder_step_mma_smem(int D, int H, int F, int L, int f32) {
+  return f32 ? mma_smem<float>(D, H, F, L).total : mma_smem<bf16>(D, H, F, L).total;
 }

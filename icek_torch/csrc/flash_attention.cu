@@ -826,71 +826,6 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_mma_kernel(
 
 constexpr int FP = 36;      // row pitch in floats of an f32 tile: 32 + 4, see the header
 
-// x rounded to TF32 (to nearest, ties away from zero), as a b32 register
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x as P TF32 pieces, largest first (each the TF32 rounding of what the
-// ones before it left): P = 2 (hi + lo) gives x to 2^-22 of |x|; P = 1 keeps
-// x, which must then be exact in TF32 (bf16)
-template <int P>
-__device__ __forceinline__ void split_tf32(float x, uint32_t (&p)[P]) {
-  if constexpr (P == 1) {
-    p[0] = __float_as_uint(x);
-  } else {
-#pragma unroll
-    for (int k = 0; k < P; ++k) {
-      p[k] = tf32_rna(x);
-      x -= __uint_as_float(p[k]);
-    }
-  }
-}
-
-// D += A B for one m16n8k8 tile: A row-major TF32, B column-major TF32
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// An A fragment as P TF32 pieces: piece k of register i is p[k][i]
-template <int P>
-struct FragA {
-  uint32_t p[P][4];
-};
-
-// c += a b over the pieces whose ranks sum to less than P (P = 2: lo hi + hi
-// lo + hi hi, the lo lo term below the pieces' own rounding), smallest
-// first; the B fragment (b0, b1) is split here
-template <int P>
-__device__ __forceinline__ void mma_pieces(float (&c)[4], const FragA<P>& a, float b0,
-                                           float b1) {
-  uint32_t x[P], y[P];
-  split_tf32<P>(b0, x);
-  split_tf32<P>(b1, y);
-#pragma unroll
-  for (int r = P - 1; r >= 0; --r)
-#pragma unroll
-    for (int i = 0; i <= r; ++i) mma_tf32(c, a.p[i], x[r - i], y[r - i]);
-}
-
-// c += a b as mma_pieces, with the product formed apart and added to c by
-// f32 adds (round to nearest): dQ, dK and dV sum one such product per 8 keys
-// (queries), hundreds of them, and the tensor cores' own accumulation is
-// not round to nearest (see the header)
-template <int P>
-__device__ __forceinline__ void mma_add(float (&c)[4], const FragA<P>& a, float b0, float b1) {
-  float t[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_pieces<P>(t, a, b0, b1);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) c[i] += t[i];
-}
-
 // One 16-row x 8-column step's first products, S = A1 B1^T and dP = A2 B2^T
 // over Hd (padded to 32 with zeros): A1, A2 the warp's split rows, B1, B2
 // their row g of a staged tile (element 8 ds + t and + 4 of d-step ds).  Each

@@ -221,8 +221,9 @@ def beam_decode(params, cfg: ModelConfig, vocab_size: int, num_entity_rows: int,
     the first one: the score head takes any K up to the width of the
     extended vocabulary (``copy_scores.supports``: lists in registers up to
     K = 16, in shared memory above), the decoder step any K
-    (``decoder_step.supports``: the tensor-core route up to K = 16 in bf16,
-    the CUDA-core route otherwise).  Nothing gives way to the plain step or
+    (``decoder_step.supports``: the tensor-core route in bf16 and f32, G
+    images a block up to K = 16 and parts of an image above; the CUDA-core
+    route for the widths it refuses).  Nothing gives way to the plain step or
     scores; those run only with the switch off.
 
     ``kv_dtype`` "int8" / "int8_cross" (see the module's docstring) run the

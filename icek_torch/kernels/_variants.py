@@ -1,7 +1,7 @@
 """Where a kernel's time goes, on the card: variants of its source, one process each.
 
     python -m icek_torch.kernels._variants fused_norm base,nophilox,copyonly [ROWS] [RATE]
-    python -m icek_torch.kernels._variants decoder_step base,g1,nolinears [STEP ...]
+    python -m icek_torch.kernels._variants decoder_step base,g1,nolinears [STEP ...] [bf16] [f32] [BxK ...]
     python -m icek_torch.kernels._variants score_topk base,nolist,nolse [K,K,...]
     python -m icek_torch.kernels._variants flash_attention base,nophilox [RATE,RATE,...]
     python -m icek_torch.kernels._variants --parent ROOT <source> base,... [args]
@@ -15,10 +15,14 @@ order given and then backwards, so a drift shows:
   (``dropout``) with torch.profiler, each kernel in a profiler session of
   its own, at ROWS (comma-separated row counts; default the train steps'
   8192, 13312, 26112 and 77056) and RATE (default 0.2), in bf16 and f32;
-* ``decoder_step``: ``fused_beam_decoder_step`` in bf16 at the beam shape
-  (B 256, K 5, the geo decoder's widths, seeded random inputs, the cross
-  K/V laid out by ``pad_cross_heads`` beforehand as the beam loop does) at
-  each STEP (default 15), with CUDA events;
+* ``decoder_step``: ``fused_beam_decoder_step`` at the geo decoder's widths
+  (seeded random inputs, the cross K/V laid out by ``pad_cross_heads``
+  beforehand as the beam loop does) in each dtype named (bf16, f32;
+  default bf16), at each shape BxK (default 256x5, the beam shape) and each
+  STEP (default 15), with CUDA events.  Names in ``TWEAKS`` change the
+  wrapper's choices instead of the source (``cores``: the CUDA-core
+  kernel).  Each run saves its outputs, and with ``--parent`` the parent's
+  are compared with the first variant's bit for bit;
 * ``score_topk``: ``fused_score_topk`` at the geo beam-20 shape (N 640 rows,
   D 300, V 10000, tail 301, seeded random inputs) at each K (default 20), in
   bf16 and f32, with CUDA events, and the first pass and the merge apart
@@ -67,13 +71,12 @@ _PERSIST = "ln_fwd_pick(D)<<<static_cast<unsigned>(nblocks),"
 _MIN_SETS = "constexpr long long FWD_SPAN_MIN_SETS = 2;"
 _HINTS_OFF = [
     ("ldg16_hint(wp[j] + kp * 32, keep)", "__ldg(wp[j] + kp * 32)"),
-    ("cp_async16_hint(smem_u32(kd + r * PQ + 8 * c), a.xk + src, ok, stream);",
-     "cp_async16(smem_u32(kd + r * PQ + 8 * c), a.xk + src, ok);"),
-    ("cp_async16_hint(smem_u32(vd + r * PQ + 8 * c), a.xv + src, ok, stream);",
-     "cp_async16(smem_u32(vd + r * PQ + 8 * c), a.xv + src, ok);"),
+    ("cp_async16_hint(smem_u32(kd + r * PQ + PAD<T> * c), a.xk + src, ok, stream);",
+     "cp_async16(smem_u32(kd + r * PQ + PAD<T> * c), a.xk + src, ok);"),
+    ("cp_async16_hint(smem_u32(vd + r * PQ + PAD<T> * c), a.xv + src, ok, stream);",
+     "cp_async16(smem_u32(vd + r * PQ + PAD<T> * c), a.xv + src, ok);"),
 ]
 _NO_CROSS_MATH = [("        if (hh >= H) continue;\n", "        continue;\n")]
-
 # source -> name -> [(text, replacement)] or, for a replacement of everything
 # between two marks, [((begin, end), replacement)]
 VARIANTS = {
@@ -117,8 +120,11 @@ VARIANTS = {
     },
     "decoder_step": {
         "base": [],
-        "g1": [],                                   # one image a block (IMAGES)
+        "g1": [],                                   # one image a block (TWEAKS)
         "g3": [],                                   # three images a block
+        "w8": [],                                   # wide beams: 8 rows a block
+        "w16": [],                                  # wide beams: 16 rows a block
+        "cores": [],                                # the CUDA-core kernel
         "nohints": _HINTS_OFF,                      # no L2 eviction hints
         "nolinears": [("  const uint64_t keep = l2_policy_evict_last();\n",
                        "  const uint64_t keep = l2_policy_evict_last();\n"
@@ -127,6 +133,63 @@ VARIANTS = {
         "nocross": _NO_CROSS_MATH + [("    if (s < total) {\n", "    if (false) {\n")],
         "noself": [("for (int task = tid >> 1; task < R * H; task += MT / 2)",
                     "for (int task = tid >> 1; task < 0; task += MT / 2)")],
+        # f32 weights packed as TF32 hi and lo (pack_hilo), not split in
+        # registers: twice the L2 bytes, no split of B (f32 only)
+        "hilo": [("""    uint4 b0[NTW], b1[NTW];
+    auto fetch = [&](uint4 (&b)[NTW], int kp) {
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+        b[j] = (ok[j] && kp < kpairs) ? ldg16_hint(wp[j] + kp * 32, keep)
+                                      : make_uint4(0u, 0u, 0u, 0u);
+    };
+    auto step = [&](const uint4 (&b)[NTW], int kp) {""", """    uint4 b0[2 * NTW], b1[2 * NTW];
+    auto fetch = [&](uint4 (&b)[2 * NTW], int kp) {
+#pragma unroll
+      for (int j = 0; j < 2 * NTW; ++j)
+        b[j] = (ok[j / 2] && kp < kpairs) ? ldg16_hint(wp[j / 2] + kp * 64 + (j & 1), keep)
+                                          : make_uint4(0u, 0u, 0u, 0u);
+    };
+    auto step = [&](const uint4 (&b)[2 * NTW], int kp) {"""),
+                 ("      wp[j] = W + ((long long)(ok[j] ? n0 + j : 0) * kpairs) * 32 + lane;",
+                  "      wp[j] = W + (((long long)(ok[j] ? n0 + j : 0) * kpairs) * 32 + lane) * 2;"),
+                 ("""          float s[4] = {0.f, 0.f, 0.f, 0.f};
+          mma3(s, f0, __uint_as_float(b[j].x), __uint_as_float(b[j].y));
+          mma3(s, f1, __uint_as_float(b[j].z), __uint_as_float(b[j].w));""",
+                  """          float s[4] = {0.f, 0.f, 0.f, 0.f};
+          const uint4 h0 = b[2 * j], h1 = b[2 * j + 1];
+          mma_tf32(s, f0.p[0], h0.z, h0.w);
+          mma_tf32(s, f0.p[1], h0.x, h0.y);
+          mma_tf32(s, f0.p[0], h0.x, h0.y);
+          mma_tf32(s, f1.p[0], h1.z, h1.w);
+          mma_tf32(s, f1.p[1], h1.x, h1.y);
+          mma_tf32(s, f1.p[0], h1.x, h1.y);"""),
+                 ("(round_up(din, KP) / KP) * 32;", "(round_up(din, KP) / KP) * 64;")],
+        # the linears' weight loads three k-pairs ahead of the products, not two
+        "ahead3": [("""    fetch(b0, 0);
+    fetch(b1, 1);
+    for (int kp = 0; kp < kpairs; kp += 2) {
+      step(b0, kp);
+      fetch(b0, kp + 2);
+      if (kp + 1 < kpairs) {
+        step(b1, kp + 1);
+        fetch(b1, kp + 3);
+      }
+    }""", """    uint4 b2[NTW];
+    fetch(b0, 0);
+    fetch(b1, 1);
+    fetch(b2, 2);
+    for (int kp = 0; kp < kpairs; kp += 3) {
+      step(b0, kp);
+      fetch(b0, kp + 3);
+      if (kp + 1 < kpairs) {
+        step(b1, kp + 1);
+        fetch(b1, kp + 4);
+      }
+      if (kp + 2 < kpairs) {
+        step(b2, kp + 2);
+        fetch(b2, kp + 5);
+      }
+    }""")],
     },
     "score_topk": {
         "base": [],
@@ -159,7 +222,10 @@ VARIANTS = {
 CUTS = {"fused_norm": {"noshfl", "copyonly", "computeonly"},
         "decoder_step": {"nolinears", "nocrossmath", "nocross", "noself"},
         "score_topk": {"nolist", "nolse"}, "flash_attention": {"nophilox", "onepass"}}
-IMAGES = {"g1": 1, "g3": 3}          # decoder_step: images a block instead of the wrapper's choice
+# decoder_step: the wrapper's choices changed (images a block, rows a block of
+# a wide beam's image, the CUDA-core kernel for every call)
+TWEAKS = {"g1": dict(images=1), "g3": dict(images=3), "w8": dict(wide_rows=8),
+          "w16": dict(wide_rows=16), "cores": dict(cores=True), "hilo": dict(hilo=True)}
 
 
 def variant_source(source: str, name: str, src: str) -> str:
@@ -245,48 +311,95 @@ def time_fused_norm(name: str, args) -> None:
                   f"({_held('fused_norm', name, 'dropout', derr, tol)})", flush=True)
 
 
-def beam_inputs(step: int, B: int = 256, K: int = 5, L: int = 30, M: int = 497, seed: int = 0):
-    """The geo decoder (3 layers, D 300, H 10, F 512) in bf16 at step `step`."""
+def beam_inputs(step: int, B: int = 256, K: int = 5, L: int = 30, M: int = 497, seed: int = 0,
+                dtype=torch.bfloat16):
+    """The geo decoder (3 layers, D 300, H 10, F 512) in `dtype` at step `step`."""
     from icek_torch.kernels import decoder_step as dsk
     from icek_torch.models import transformer as tfm
 
     nL, D, H, F = 3, 300, 10, 512
     g = torch.Generator().manual_seed(seed)
     layers = tfm.init_decoder_stack(g, nL, D, F)
-    layers = {"layers": [{k: _to(v) for k, v in lay.items()} for lay in layers["layers"]]}
-    stacked = dsk.stack_decoder_params(layers, torch.bfloat16)
-    rnd = lambda *s: torch.randn(s, generator=g).to("cuda", torch.bfloat16)
+    layers = {"layers": [{k: _to(v, dtype) for k, v in lay.items()} for lay in layers["layers"]]}
+    stacked = dsk.stack_decoder_params(layers, dtype)
+    rnd = lambda *s: torch.randn(s, generator=g).to("cuda", dtype)
     x = rnd(B, K, D)
-    caches = torch.zeros((2, nL, B, L * K, D), dtype=torch.bfloat16, device="cuda")
+    caches = torch.zeros((2, nL, B, L * K, D), dtype=dtype, device="cuda")
     caches[:, :, :, :step * K] = rnd(2, nL, B, step * K, D)
     ck, cv = caches[0].contiguous(), caches[1].contiguous()
     xk, xv = rnd(nL, B, M, D), rnd(nL, B, M, D)
     anc = torch.randint(0, K, (B, K, L), generator=g, dtype=torch.int32)
     anc[:, :, step:] = torch.arange(K, dtype=torch.int32)[None, :, None]
     heads = dsk.pad_cross_heads([{"k": xk[l].view(B, M, H, D // H), "v": xv[l].view(B, M, H, D // H)}
-                                 for l in range(nL)], torch.bfloat16)
+                                 for l in range(nL)], dtype)
     return stacked, x, anc.cuda(), ck, cv, xk, xv, heads, H
 
 
-def _to(tree):
+def _to(tree, dtype):
     if isinstance(tree, dict):
-        return {k: _to(v) for k, v in tree.items()}
-    return tree.to("cuda", torch.bfloat16)
+        return {k: _to(v, dtype) for k, v in tree.items()}
+    return tree.to("cuda", dtype)
 
 
-def time_decoder_step(name: str, args) -> None:
+_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def pack_hilo(w):
+    """(nL, din, dout) f32 -> (nL, dout/8, din/16, 32, 2, 4): pack_tf32's order
+    with each k8 step's (b0, b1) as TF32 hi then lo (hi = the rna rounding,
+    lo = w - hi), a 16-byte word a k8 step (the ``hilo`` variant)."""
     from icek_torch.kernels import decoder_step as dsk
 
-    if name in IMAGES:
-        dsk.images_per_block = lambda B, K, sms, G=IMAGES[name]: G
-    for step in [int(a) for a in args] or [15]:
-        stacked, x, anc, ck, cv, xk, xv, heads, H = beam_inputs(step)
-        want = dsk.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv, step, num_heads=H)
-        run = lambda: dsk.fused_beam_decoder_step(stacked, x, anc, ck, cv, None, None, step,
-                                                  num_heads=H, cross_heads=heads)
-        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(run(), want))
-        print(f"{name} step {step}: {_event_ms(run):.4f} ms "
-              f"({_held('decoder_step', name, 'step', err, 0.15)})", flush=True)
+    p = dsk.pack_tf32(w)                                    # (..., 32, 4): step 0 b0 b1, step 1
+    bits = p.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    lo = p - hi
+    v = torch.stack([hi.view(*p.shape[:-1], 2, 2), lo.view(*p.shape[:-1], 2, 2)], dim=-2)
+    return v.reshape(*p.shape[:-1], 2, 4).contiguous()     # per step: hi b0 b1, lo b0 b1
+
+
+def decoder_step_cases(args):
+    """(dtype names, (B, K) shapes, steps) of the decoder_step timer's args."""
+    dtypes = [a for a in args if a in _DTYPES] or ["bf16"]
+    shapes = [tuple(int(v) for v in a.split("x")) for a in args if "x" in a] or [(256, 5)]
+    steps = [int(a) for a in args if a.isdigit()] or [15]
+    return dtypes, shapes, steps
+
+
+def time_decoder_step(name: str, args, save: str = None) -> None:
+    from icek_torch.kernels import decoder_step as dsk
+
+    tweak = TWEAKS.get(name, {})
+    if "images" in tweak:
+        dsk.images_per_block = lambda B, K, sms, G=tweak["images"]: G
+    if "wide_rows" in tweak:
+        n = tweak["wide_rows"]
+        dsk.image_parts = lambda B, K, sms: 1 if K <= dsk.ROWS else -(-K // n)
+    dtypes, shapes, steps = decoder_step_cases(args)
+    outputs = {}
+    for dt in dtypes:
+        for B, K in shapes:
+            for step in steps:
+                stacked, x, anc, ck, cv, xk, xv, heads, H = beam_inputs(step, B, K,
+                                                                        dtype=_DTYPES[dt])
+                if tweak.get("cores"):
+                    stacked = stacked._replace(mma=None)
+                if tweak.get("hilo"):
+                    stacked = stacked._replace(mma=dsk.PackedLinears(*(pack_hilo(w) for w in (
+                        stacked.qkv_w, stacked.so_w, stacked.cq_w, stacked.co_w, stacked.f1_w,
+                        stacked.f2_w))))
+                want = dsk.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv, step,
+                                                  num_heads=H)
+                run = lambda: dsk.fused_beam_decoder_step(stacked, x, anc, ck, cv, None, None,
+                                                          step, num_heads=H, cross_heads=heads)
+                got = run()
+                outputs[f"{dt} {B}x{K} step {step}"] = [t.cpu() for t in got]
+                err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+                tol = 0.15 if dt == "bf16" else 1e-3
+                print(f"{name} {dt} B {B} K {K} step {step}: {_event_ms(run):.4f} ms "
+                      f"({_held('decoder_step', name, 'step', err, tol)})", flush=True)
+    if save:
+        torch.save(outputs, save)
 
 
 def score_inputs(dtype, n: int = 640, t: int = 301, seed: int = 1):
@@ -392,6 +505,19 @@ def main(source: str, names, args, parent: str = None) -> None:
         else:
             subprocess.run([sys.executable, "-m", "icek_torch.kernels._variants", "--one", source,
                             name, so, *args], check=True)
+    if parent and source == "decoder_step":
+        same_bits(os.path.join(out_dir, "parent.pt"), os.path.join(out_dir, names[0] + ".pt"))
+
+
+def same_bits(parent_pt: str, base_pt: str) -> None:
+    """Print, case by case, whether the parent's outputs and the first
+    variant's are the same bits."""
+    want, got = torch.load(parent_pt), torch.load(base_pt)
+    for case, outs in got.items():
+        diff = max(float((a.float() - b.float()).abs().max()) for a, b in zip(outs, want[case]))
+        same = all(torch.equal(a, b) for a, b in zip(outs, want[case]))
+        print(f"parent vs {os.path.basename(base_pt)[:-3]} {case}: "
+              f"{'bit-equal' if same else f'differ, max abs {diff:.3g}'}", flush=True)
 
 
 if __name__ == "__main__":
@@ -401,7 +527,10 @@ if __name__ == "__main__":
         root, argv = argv[1], argv[2:]
     if len(argv) >= 4 and argv[0] == "--one":
         _build.use_variant(argv[1], argv[3])
-        TIMERS[argv[1]](argv[2], argv[4:])
+        if argv[1] == "decoder_step":
+            time_decoder_step(argv[2], argv[4:], save=argv[3][:-3] + ".pt")
+        else:
+            TIMERS[argv[1]](argv[2], argv[4:])
     elif len(argv) >= 2 and argv[0] in VARIANTS:
         main(argv[0], argv[1].split(","), argv[2:], root)
     else:

@@ -15,14 +15,17 @@ padding), or head-major with the head dim padded to 32
 (``pad_cross_heads``, laid out once per decode batch).
 
 A CUDA call takes one of two kernels, by ``uses_tensor_cores`` alone:
-bfloat16 at widths the tensor-core kernel holds (up to 16 hypotheses an
-image, 10 heads of at most 32 dims, shared memory within the card's) runs
-``decoder_step_mma_kernel`` (G images a block, the linears and the cross
-attention on the tensor cores, the weights packed by ``pack_mma``); float32
-and the rest run the CUDA-core ``decoder_step_kernel``.  Neither gives way
-to the other or to the plain version.  Each route counts its launches in
-``fused_beam_decoder_step.routes``; ``fused_beam_decoder_step.launches``
-counts both.
+bfloat16 and float32 at widths the tensor-core kernel holds (10 heads of at
+most 32 dims, shared memory within the card's, weights stacked with their
+packed copy) run ``decoder_step_mma_kernel`` (the linears and the cross
+attention on the tensor cores: bf16 products, or three TF32 products each
+in f32; the weights packed by ``pack_mma`` / ``pack_tf32``), G images a
+block up to 16 hypotheses an image and ``image_parts`` blocks an image
+above; the rest run the CUDA-core ``decoder_step_kernel``.  Neither gives
+way to the other or to the plain version.  Each route counts its launches
+in ``fused_beam_decoder_step.routes`` (``route``: tensor_cores,
+tensor_cores_f32, wide_tensor_cores, wide_tensor_cores_f32, cuda_cores);
+``fused_beam_decoder_step.launches`` counts them all.
 """
 
 from __future__ import annotations
@@ -38,19 +41,23 @@ from icek_torch.kernels import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 23 + [_I] * 9 + [_F, _P]
-_MMA_ARGTYPES = [_P] * 23 + [_I] * 10 + [_F, _P]
+_MMA_ARGTYPES = [_P] * 23 + [_I] * 11 + [_F, _P]
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # the tensor-core kernel (csrc/decoder_step.cu, route 1)
 ROWS = 16           # hypothesis rows of a block (one m16 tile)
 WARPS = 10          # warps of a block; warp h takes head h of the cross attention
 HEAD_PAD = 32       # head dim of the padded cross layout
-CROSS_TILE = 32     # memory rows of a cross ring stage
+CROSS_TILE = {torch.bfloat16: 32, torch.float32: 16}   # memory rows of a cross ring stage
+KPAIR = {torch.bfloat16: 32, torch.float32: 16}        # depth of a lane's 16-byte weight load
 CROSS_STAGES = 3
 MAX_SMEM = 232448   # shared memory a block may use on sm_90
+ROUTES = ("tensor_cores", "tensor_cores_f32", "wide_tensor_cores", "wide_tensor_cores_f32",
+          "cuda_cores")
 
 
 class PackedLinears(NamedTuple):
-    """The six linears of every layer in B-fragment order (``pack_mma``)."""
+    """The six linears of every layer in B-fragment order (``pack_mma`` for
+    bf16, ``pack_tf32`` for f32)."""
     qkv: torch.Tensor
     so: torch.Tensor
     cq: torch.Tensor
@@ -78,7 +85,7 @@ class StackedDecoder(NamedTuple):
     ln_s: torch.Tensor    # (nL, 3, D)
     ln_b: torch.Tensor
     layers: List[dict]
-    mma: Optional[PackedLinears] = None   # bfloat16 only: the tensor-core route's weights
+    mma: Optional[PackedLinears] = None   # the tensor-core route's weights
 
 
 def _round_up(x: int, m: int) -> int:
@@ -99,6 +106,23 @@ def pack_mma(w):
     # k = 32 kp + 16 s + 8 h + 2 t + e, n = 8 nt + g
     v = wp.view(nL, dk // 32, 2, 2, 4, 2, dn // 8, 8)        # l kp s h t e nt g
     return v.permute(0, 6, 1, 7, 4, 2, 3, 5).reshape(nL, dn // 8, dk // 32, 32, 8).contiguous()
+
+
+def pack_tf32(w):
+    """(nL, din, dout) f32 weights -> (nL, dout/8, din/16, 32, 4): for each n8
+    tile and each pair of k8 steps, lane l = 4 g + t's B fragments of
+    mma.sync m16n8k8 (b0 = B[t][g], b1 = B[t + 4][g] of the even step, then
+    of the odd one), so a lane loads both steps with one 16-byte load; the
+    kernel splits each value into TF32 hi and lo.  Register j = 2 s + h of a
+    lane holds w[16 kp + 8 s + 4 h + t][8 nt + g].  din is zero-padded to a
+    multiple of 16, dout of 8."""
+    nL, din, dout = w.shape
+    dk, dn = _round_up(din, 16), _round_up(dout, 8)
+    wp = torch.zeros((nL, dk, dn), dtype=w.dtype, device=w.device)
+    wp[:, :din, :dout] = w
+    # k = 16 kp + 8 s + 4 h + t, n = 8 nt + g
+    v = wp.view(nL, dk // 16, 2, 2, 4, dn // 8, 8)           # l kp s h t nt g
+    return v.permute(0, 5, 1, 6, 4, 2, 3).reshape(nL, dn // 8, dk // 16, 32, 4).contiguous()
 
 
 def stack_decoder_params(decoder_params, dtype=torch.float32) -> StackedDecoder:
@@ -130,9 +154,10 @@ def stack_decoder_params(decoder_params, dtype=torch.float32) -> StackedDecoder:
         ln_b=stack_b(lambda l: torch.stack([l[f"norm{n}"]["bias"] for n in (1, 2, 3)])),
         layers=layers,
     )
-    if dtype != torch.bfloat16:
+    pack = {torch.bfloat16: pack_mma, torch.float32: pack_tf32}.get(dtype)
+    if pack is None:
         return st
-    return st._replace(mma=PackedLinears(*(pack_mma(w) for w in (
+    return st._replace(mma=PackedLinears(*(pack(w) for w in (
         st.qkv_w, st.so_w, st.cq_w, st.co_w, st.f1_w, st.f2_w))))
 
 
@@ -158,33 +183,47 @@ def pad_cross_heads(cross_kvs, dtype):
     return stack("k"), stack("v")
 
 
-def mma_smem_bytes(D: int, H: int, F: int, L: int) -> int:
-    """Shared memory of a tensor-core block (csrc/decoder_step.cu::mma_smem)."""
-    pa, pq, pf = _round_up(D, 32) + 8, H * HEAD_PAD + 8, _round_up(F, 32) + 8
+def mma_smem_bytes(D: int, H: int, F: int, L: int, dtype=torch.bfloat16) -> int:
+    """Shared memory of a tensor-core block (csrc/decoder_step.cu::mma_smem):
+    row pitches padded by 16 bytes past whole k-pairs; bf16 keeps x in f32
+    beside its bf16 copy, f32's x is its own A operand."""
+    e, kp = dtype.itemsize, KPAIR[dtype]
+    pad = 16 // e
+    pa, pq, pf = _round_up(D, kp) + pad, H * HEAD_PAD + pad, _round_up(F, kp) + pad
     pb = max(_round_up(3 * D, 8), pq, pf)
-    ring = _round_up(_round_up(4 * ROWS * D, 16) + 2 * ROWS * (2 * pa + pb) + 4 * ROWS * L, 16)
-    return ring + 2 * CROSS_STAGES * 2 * CROSS_TILE * pq
+    xa = _round_up(4 * ROWS * D, 16) if e == 2 else 0
+    ring = _round_up(xa + e * ROWS * (2 * pa + pb) + 4 * ROWS * L, 16)
+    return ring + e * CROSS_STAGES * 2 * CROSS_TILE[dtype] * pq
 
 
 def uses_tensor_cores(stacked: StackedDecoder, caches_k, K: int, num_heads: int) -> bool:
     """Whether a CUDA call with these weights, caches and beam width takes the
-    tensor-core kernel: bfloat16 with packed weights, K <= 16 hypotheses an
-    image, at most 10 heads of an even head dim <= 32, an even FFN width, and
-    a block's shared memory within the card's."""
+    tensor-core kernel: bfloat16 or float32 with packed weights, any K >= 1
+    (G images a block up to 16, ``image_parts`` blocks an image above), at
+    most 10 heads of an even head dim <= 32, an even FFN width, and a
+    block's shared memory within the card's."""
     nL, B, LK, D = caches_k.shape
     H, F = num_heads, stacked.f1_w.shape[-1]
-    if caches_k.dtype != torch.bfloat16 or stacked.mma is None or not 1 <= K <= ROWS:
+    if caches_k.dtype not in CROSS_TILE or stacked.mma is None or K < 1:
         return False
     if H > WARPS or D % H or (D // H) % 2 or D // H > HEAD_PAD or F % 2:
         return False
-    return mma_smem_bytes(D, H, F, LK // K) <= MAX_SMEM
+    return mma_smem_bytes(D, H, F, LK // K, caches_k.dtype) <= MAX_SMEM
+
+
+def route(dtype, K: int, tensor_cores: bool) -> str:
+    """The name a call counts its launch under in ``fused_beam_decoder_step.routes``."""
+    if not tensor_cores:
+        return "cuda_cores"
+    return ("wide_" if K > ROWS else "") + "tensor_cores" + ("_f32" if dtype == torch.float32 else "")
 
 
 def supports(stacked: StackedDecoder, caches_k, K: int, num_heads: int) -> bool:
     """Whether a CUDA call with these weights, caches and beam width is
     accepted: the tensor-core route (``uses_tensor_cores``), or float32 /
-    bfloat16 of any width on the CUDA-core route, whose blocks take up to 8
-    hypotheses of an image each.  A call outside it raises."""
+    bfloat16 of any width on the CUDA-core route (the shapes the tensor-core
+    kernel refuses), whose blocks take up to 8 hypotheses of an image each.
+    A call outside it raises."""
     return caches_k.dtype in _SUFFIX and K >= 1
 
 
@@ -198,6 +237,17 @@ def images_per_block(B: int, K: int, sms: int) -> int:
     hold, but no more than a wave of `sms` blocks needs (G = 2 at B = 256,
     K = 5 on 132 SMs: 128 blocks)."""
     return max(1, min(ROWS // K, -(-B // sms)))
+
+
+def image_parts(B: int, K: int, sms: int) -> int:
+    """S of the tensor-core kernel: the blocks an image's K hypotheses are
+    split over, each block streaming the image's memory.  1 up to ROWS;
+    above, as few as 16 rows a block allow, but parts of down to 8 rows
+    while the grid is short of a wave of `sms` blocks (geo beam 20 at 32
+    images on 132 SMs: 3 blocks of 7, 7, 6 rows; at 256 images: 2 of 10)."""
+    if K <= ROWS:
+        return 1
+    return max(-(-K // ROWS), min(-(-K // 8), -(-sms // B)))
 
 
 def reference_decoder_step(stacked: StackedDecoder, x, ancestry, caches_k,
@@ -302,18 +352,19 @@ def fused_beam_decoder_step(stacked: StackedDecoder, x, ancestry, caches_k,
             b[6].data_ptr(), b[7].data_ptr(), h.data_ptr(), k_new.data_ptr(),
             v_new.data_ptr(), B, K, L, D, H, F, nL, M, i]
     if tc:
-        G = images_per_block(B, K, _sm_count(x.device.index))
-        fn = _build.bind("decoder_step", "decoder_step_bf16_mma", _MMA_ARGTYPES)
-        err = fn(*ptrs, G, eps, _build.stream_of(x))
+        sms = _sm_count(x.device.index)
+        S = image_parts(B, K, sms)
+        G = images_per_block(B, K, sms) if S == 1 else 1
+        fn = _build.bind("decoder_step", f"decoder_step_{_SUFFIX[dt]}_mma", _MMA_ARGTYPES)
+        err = fn(*ptrs, G, S, eps, _build.stream_of(x))
     else:
         fn = _build.bind("decoder_step", "decoder_step_" + _SUFFIX[dt], _ARGTYPES)
         err = fn(*ptrs, eps, _build.stream_of(x))
     _build.check(err, "decoder_step", "fused_beam_decoder_step")
-    fused_beam_decoder_step.routes["tensor_cores" if tc else "cuda_cores"].launches += 1
+    fused_beam_decoder_step.routes[route(dt, K, tc)].launches += 1
     fused_beam_decoder_step.launches += 1
     return h, k_new, v_new
 
 
 fused_beam_decoder_step.launches = 0
-fused_beam_decoder_step.routes = {"tensor_cores": types.SimpleNamespace(launches=0),
-                                  "cuda_cores": types.SimpleNamespace(launches=0)}
+fused_beam_decoder_step.routes = {r: types.SimpleNamespace(launches=0) for r in ROUTES}

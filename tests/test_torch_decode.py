@@ -150,8 +150,10 @@ def test_score_head_route_predicate():
 
 
 def test_decoder_step_route_predicate_on_widths():
-    """decoder_step.supports: the tensor-core route (bf16 with packed weights,
-    K <= 16) or the CUDA-core route (f32 or bf16, any K); no other dtype."""
+    """decoder_step.supports: the tensor-core route (bf16 or f32 with packed
+    weights, any K: up to 16 G images a block, above in parts of an image)
+    or the CUDA-core route (what it refuses: 12 heads, unpacked weights);
+    no other dtype."""
     from icek_torch.kernels import decoder_step as tds
     from icek_torch.models import transformer as tfm
 
@@ -167,9 +169,18 @@ def test_decoder_step_route_predicate_on_widths():
     assert [ok(f32, torch.float32, K) for K in (0, 1, 5, 8, 9, 10, 17)] == [False] + [True] * 6
     assert [ok(bf16, torch.bfloat16, K) for K in (1, 9, 10, 16, 17)] == [True] * 5
     wide = [tds.uses_tensor_cores(bf16, caches(torch.bfloat16, K), K, 4) for K in (10, 16, 17)]
-    assert wide == [True, True, False]                # K 17: the CUDA-core route
+    assert wide == [True, True, True]                 # K 17: parts of an image
+    assert [tds.uses_tensor_cores(f32, caches(torch.float32, K), K, 4) for K in (5, 20)] == [
+        True, True]
+    assert [tds.route(torch.bfloat16, K, True) for K in (16, 17)] == [
+        "tensor_cores", "wide_tensor_cores"]
+    assert [tds.route(torch.float32, K, True) for K in (5, 20)] == [
+        "tensor_cores_f32", "wide_tensor_cores_f32"]
+    assert [tds.image_parts(256, K, 132) for K in (16, 17, 20, 32, 33)] == [1, 2, 2, 2, 3]
+    assert [tds.image_parts(32, K, 132) for K in (16, 17, 20, 32)] == [1, 3, 3, 4]
     unpacked = bf16._replace(mma=None)
     assert [ok(unpacked, torch.bfloat16, K) for K in (8, 9)] == [True, True]
     assert not tds.uses_tensor_cores(bf16, caches(torch.bfloat16, 9), 9, 12)   # 12 heads
     assert ok(bf16, torch.bfloat16, 9, H=12)          # ... take the CUDA-core route
+    assert tds.route(torch.bfloat16, 9, False) == "cuda_cores"
     assert not ok(f32, torch.float16, 5)

@@ -3,10 +3,12 @@
 
 The CUDA kernel runs only on the card (tests/test_torch_gpu.py); what it does
 block by block is written out here and held against the plain version and
-the JAX package:
+the JAX package (its f32 route, three TF32 products a product, in
+tests/test_torch_decoder_tf32.py, on this file's ``emulate``):
 
 * a block takes the G * K hypothesis rows of G images (the last group
-  ragged), padded with zero rows to one 16-row tile;
+  ragged), or one part of a wider image's rows (``block_spans``), padded
+  with zero rows to one 16-row tile;
 * the six linears multiply the rows, rounded to bf16, by weights read in
   ``pack_mma``'s B-fragment order (each lane's two k-steps of an n8 tile);
   biases, residual sums and LayerNorm stay in f32;
@@ -39,7 +41,8 @@ from icek_torch.kernels import decoder_step as tds
 from icek_tpu.decode import beam as jbeam
 from icek_tpu.kernels import decoder_step as jds
 
-ROWS, XT, XSTAGES, HDP = tds.ROWS, tds.CROSS_TILE, tds.CROSS_STAGES, tds.HEAD_PAD
+ROWS, XSTAGES, HDP = tds.ROWS, tds.CROSS_STAGES, tds.HEAD_PAD
+XT = tds.CROSS_TILE[torch.bfloat16]
 LOG2E = 1.4426950408889634
 
 
@@ -72,9 +75,9 @@ def unpack_fragments(packed, din, dout):
     return w[:, :din, :dout]
 
 
-def ring_schedule(nL, nimg, M):
+def ring_schedule(nL, nimg, M, XT=XT):
     """(layer, image, first memory row) of each cross stage, in the order the
-    kernel's load_stage(s) loads them."""
+    kernel's load_stage(s) loads them (XT memory rows a stage)."""
     nT = -(-M // XT)
     per_layer = nimg * nT
     out = []
@@ -85,19 +88,91 @@ def ring_schedule(nL, nimg, M):
     return out
 
 
-def emulate(stacked, x, anc, ck, cv, cross_heads, i, H, G, rounding, eps=1e-5):
-    """The tensor-core kernel's arithmetic on f32 tensors: (h, k_new, v_new)."""
-    r = _bf16 if rounding else (lambda t: t)
+def block_spans(B, K, G, S=1):
+    """(first row, rows) of each block of the kernel over the B K hypothesis
+    rows: G whole images a block (S = 1, the last group ragged), or S parts
+    of ceil(K / S) rows an image, the last ragged."""
+    if S == 1:
+        return [(b0 * K, min(G, B - b0) * K) for b0 in range(0, B, G)]
+    per = -(-K // S)
+    return [(b * K + p * per, min(per, K - p * per)) for b in range(B) for p in range(S)]
+
+
+def tf32_rna(x):
+    """x (float32) rounded to TF32, to nearest, ties away from zero: the
+    bits of cvt.rna.tf32.f32, by bit arithmetic."""
+    bits = x.contiguous().view(torch.int32)
+    sign = bits & torch.tensor(-0x80000000, dtype=torch.int32)
+    mag = (bits & 0x7FFFFFFF) + 0x1000
+    return (sign | (mag & ~0x1FFF)).view(torch.float32)
+
+
+def split_tf32(x):
+    """hi, lo as the f32 route's mma3 reads them (common.cuh::split_tf32_bits):
+    hi = rna(x), lo = x - hi with its low 13 bits ignored by the tensor
+    cores (truncated)."""
+    hi = tf32_rna(x)
+    lo = (x - hi).contiguous().view(torch.int32) & ~0x1FFF
+    return hi, lo.view(torch.float32)
+
+
+def tf32_dot(eq, a, b, k_axis_a, k_axis_b, terms=3, step=16):
+    """torch.einsum(eq, a, b) as the f32 route takes it: the contraction in
+    steps of `step` (a linear's k-pair of 16, S's whole head dim, a P V
+    tile's keys), each step's hi lo + lo hi + hi hi (hi hi alone with terms
+    1) summed exactly (float64: the tensor cores' short sums), rounded to
+    f32 and added to the sum in f32, step by step."""
+    (ah, al), (bh, bl) = split_tf32(a.float()), split_tf32(b.float())
+    out = None
+    for k0 in range(0, a.shape[k_axis_a], step):
+        sa = lambda t: t.narrow(k_axis_a, k0, min(step, a.shape[k_axis_a] - k0)).double()
+        sb = lambda t: t.narrow(k_axis_b, k0, min(step, b.shape[k_axis_b] - k0)).double()
+        part = torch.einsum(eq, sa(ah), sb(bh))
+        if terms == 3:
+            part = torch.einsum(eq, sa(al), sb(bh)) + torch.einsum(eq, sa(ah), sb(bl)) + part
+        out = part.float() if out is None else out + part.float()
+    return out
+
+
+def unpack_tf32(packed, din, dout):
+    """The (din, dout) f32 weights the kernel's lanes see in ``pack_tf32``'s
+    order: register 2 s + h of lane 4 g + t of (n8 tile nt, k-pair kp) is
+    B[16 kp + 8 s + 4 h + t][8 nt + g] (b0 / b1 of the pair's even k8
+    step, then of its odd one)."""
+    nL, nt, kp = packed.shape[:3]
+    w = torch.zeros((nL, 16 * kp, 8 * nt), dtype=packed.dtype)
+    n_i, k_i, lane, el = torch.meshgrid(torch.arange(nt), torch.arange(kp),
+                                        torch.arange(32), torch.arange(4), indexing="ij")
+    g, t = lane // 4, lane % 4
+    s, h = el // 2, el % 2
+    w[:, 16 * k_i + 8 * s + 4 * h + t, 8 * n_i + g] = packed[:, n_i, k_i, lane, el]
+    return w[:, :din, :dout]
+
+
+def emulate(stacked, x, anc, ck, cv, cross_heads, i, H, G, rounding, eps=1e-5, S=1):
+    """The tensor-core kernel's arithmetic on f32 tensors: (h, k_new, v_new).
+    `rounding`: False (f32 throughout, the bf16 route's tiling) or True (the
+    bf16 route), "tf32" (the f32 route: three TF32 products a product, 16
+    memory rows a cross stage) or "tf32x1" (one TF32 product, hi hi)."""
+    tc = rounding in ("tf32", "tf32x1")
+    r = _bf16 if rounding is True else (lambda t: t)
+    XT = tds.CROSS_TILE[torch.float32 if tc else torch.bfloat16]
+    terms = 1 if rounding == "tf32x1" else 3
     nL, B, LK, D = ck.shape
     K = x.shape[1]
     L = LK // K
     M = cross_heads[0].shape[2]
     Hd = D // H
     F = stacked.f1_w.shape[-1]
-    mma = tds.PackedLinears(*(tds.pack_mma(w.float()) for w in (
+    pack, unpack = (tds.pack_tf32, unpack_tf32) if tc else (tds.pack_mma, unpack_fragments)
+    mma = tds.PackedLinears(*(pack(w.float()) for w in (
         stacked.qkv_w, stacked.so_w, stacked.cq_w, stacked.co_w, stacked.f1_w, stacked.f2_w)))
     dims = [(D, 3 * D), (D, D), (D, D), (D, D), (D, F), (F, D)]
-    W = [r(unpack_fragments(p, *dd)) for p, dd in zip(mma, dims)]
+    W = [r(unpack(p, *dd)) for p, dd in zip(mma, dims)]
+    if tc:
+        prod = lambda a, w: tf32_dot("rk,kn->rn", a, w, 1, 0, terms)
+    else:
+        prod = lambda a, w: r(a) @ w
     bias = [stacked.qkv_b, stacked.so_b, stacked.cq_b, stacked.co_b, stacked.f1_b, stacked.f2_b]
     xk = cross_heads[0].float().view(nL, B, M, H, HDP)
     xv = cross_heads[1].float().view(nL, B, M, H, HDP)
@@ -111,22 +186,23 @@ def emulate(stacked, x, anc, ck, cv, cross_heads, i, H, G, rounding, eps=1e-5):
         var = (xs[:R] - mu).square().mean(dim=1, keepdim=True)
         xs[:R] = (xs[:R] - mu) * torch.rsqrt(var + eps) * stacked.ln_s[l, n] + stacked.ln_b[l, n]
 
-    for b0 in range(0, B, G):
-        nimg = min(G, B - b0)
-        R = nimg * K
+    for row0, R in block_spans(B, K, G, S):
+        rows = slice(row0, row0 + R)
+        img0 = row0 // K
+        nimg = (row0 + R - 1) // K - img0 + 1
         xs = torch.zeros((ROWS, D))
-        xs[:R] = r(x[b0:b0 + nimg].reshape(R, D).float())
-        rows_anc = anc[b0:b0 + nimg].reshape(R, L).long()
-        schedule = iter(ring_schedule(nL, nimg, M))
+        xs[:R] = r(x.reshape(B * K, D)[rows].float())
+        rows_anc = anc.reshape(B * K, L)[rows].long()
+        schedule = iter(ring_schedule(nL, nimg, M, XT))
         for l in range(nL):
-            lin = lambda j, a: r(a) @ W[j][l]
+            lin = lambda j, a: prod(a, W[j][l])
             proj = r(lin(0, xs) + bias[0][l])                      # (16, 3D), bf16 in smem
             q, kc, vc = proj[:, :D], proj[:, D:2 * D], proj[:, 2 * D:]
-            k_new[l, b0:b0 + nimg] = kc[:R].view(nimg, K, D)
-            v_new[l, b0:b0 + nimg] = vc[:R].view(nimg, K, D)
+            k_new[l].view(B * K, D)[rows] = kc[:R]
+            v_new[l].view(B * K, D)[rows] = vc[:R]
 
             # self-attention, (row, head) pairs vectorised, t walked in order
-            img = torch.arange(R) // K
+            img = (row0 + torch.arange(R)) // K
             qh = q[:R].view(R, H, Hd)
             m = torch.full((R, H), -math.inf)
             s = torch.zeros((R, H))
@@ -134,8 +210,8 @@ def emulate(stacked, x, anc, ck, cv, cross_heads, i, H, G, rounding, eps=1e-5):
             for t in range(i + 1):
                 if t < i:
                     row = t * K + rows_anc[:, t]
-                    kt = ck[l, b0 + img, row].float().view(R, H, Hd)
-                    vt = cv[l, b0 + img, row].float().view(R, H, Hd)
+                    kt = ck[l, img, row].float().view(R, H, Hd)
+                    vt = cv[l, img, row].float().view(R, H, Hd)
                 else:
                     kt, vt = kc[:R].view(R, H, Hd), vc[:R].view(R, H, Hd)
                 sv = (qh * kt).sum(dim=-1) * scale
@@ -164,19 +240,27 @@ def emulate(stacked, x, anc, ck, cv, cross_heads, i, H, G, rounding, eps=1e-5):
                 kt = torch.zeros((XT, H, HDP))
                 vt = torch.zeros((XT, H, HDP))
                 live = min(XT, M - m0)
-                kt[:live] = xk[l, b0 + gi, m0:m0 + live]
-                vt[:live] = xv[l, b0 + gi, m0:m0 + live]
-                sc = torch.einsum("rhd,mhd->rhm", qp, kt)
+                kt[:live] = xk[l, img0 + gi, m0:m0 + live]
+                vt[:live] = xv[l, img0 + gi, m0:m0 + live]
+                if tc:      # the padded head dim in one tensor-core sum
+                    sc = tf32_dot("rhd,mhd->rhm", qp, kt, 2, 2, terms, step=HDP)
+                else:
+                    sc = torch.einsum("rhd,mhd->rhm", qp, kt)
                 sc[..., live:] = -math.inf
                 m_new = torch.maximum(mrow, sc.amax(dim=-1) * c)
                 alpha = torch.exp2(mrow - m_new)
                 p = torch.exp2(sc * c - m_new[..., None])
                 lrow = lrow * alpha + p.sum(dim=-1)
-                acc = acc * alpha[..., None] + torch.einsum("rhm,mhd->rhd", r(p), vt)
+                if tc:      # the tile's keys in one tensor-core sum, added to the rescaled O
+                    acc = acc * alpha[..., None] + tf32_dot("rhm,mhd->rhd", p, vt, 2, 0, terms,
+                                                            step=XT)
+                else:
+                    acc = acc * alpha[..., None] + torch.einsum("rhm,mhd->rhd", r(p), vt)
                 mrow = m_new
                 if m0 + XT >= M:                                    # the image's rows out
-                    rows = slice(gi * K, gi * K + K)
-                    ab[rows] = r((acc[rows, :, :Hd] / lrow[rows, :, None]).reshape(K, D))
+                    lo = (img0 + gi) * K - row0
+                    out = slice(max(lo, 0), min(lo + K, R))
+                    ab[out] = r((acc[out, :, :Hd] / lrow[out, :, None]).reshape(-1, D))
             xs[:R] += lin(3, ab)[:R] + bias[3][l]
             norm(xs, l, 1, R)
 
@@ -184,7 +268,7 @@ def emulate(stacked, x, anc, ck, cv, cross_heads, i, H, G, rounding, eps=1e-5):
             xs[:R] += lin(5, hid)[:R] + bias[5][l]
             norm(xs, l, 2, R)
         assert next(schedule, None) is None
-        h_out[b0:b0 + nimg] = xs[:R].view(nimg, K, D)
+        h_out.view(B * K, D)[rows] = xs[:R]
     return h_out, k_new, v_new
 
 
@@ -213,14 +297,14 @@ def _inputs(seed, B, K, L, M, D, H, F, i, nL=2):
     return layers, x, ck, cv, xk, xv, anc
 
 
-def _emulated(layers, x, ck, cv, xk, xv, anc, i, H, G, rounding):
+def _emulated(layers, x, ck, cv, xk, xv, anc, i, H, G, rounding, S=1):
     nL, B, M, D = xk.shape
     stacked = tds.stack_decoder_params(bridge.to_torch(layers))
     cross = [{"k": torch.as_tensor(xk[l]).view(B, M, H, D // H),
               "v": torch.as_tensor(xv[l]).view(B, M, H, D // H)} for l in range(nL)]
     heads = tds.pad_cross_heads(cross, torch.float32)
     t = torch.as_tensor
-    return stacked, emulate(stacked, t(x), t(anc), t(ck), t(cv), heads, i, H, G, rounding)
+    return stacked, emulate(stacked, t(x), t(anc), t(ck), t(cv), heads, i, H, G, rounding, S=S)
 
 
 def _plain(stacked, x, ck, cv, xk, xv, anc, i, H):
@@ -353,11 +437,14 @@ def test_padded_cross_through_the_wrapper_on_cpu():
 
 
 def test_route_predicate_and_groups():
-    """bf16 at the geo beam shape takes the tensor-core route, which fits the
-    card's shared memory; f32, K > 16, more heads than warps, an odd head dim
-    and unpacked weights do not.  G images a block: one wave on 132 SMs."""
+    """bf16 and f32 at the geo beam shape take the tensor-core route, which
+    fits the card's shared memory in both, and so do beams wider than 16;
+    more heads than warps, an odd head dim, a head dim above 32 and unpacked
+    weights do not (they take the CUDA-core kernel).  G images a block: one
+    wave on 132 SMs."""
     geo = dict(D=300, H=10, F=512, L=30)
     assert tds.mma_smem_bytes(**geo) == 196992 <= tds.MAX_SMEM
+    assert tds.mma_smem_bytes(**geo, dtype=torch.float32) == 223616 <= tds.MAX_SMEM
 
     def case(K=5, D=300, H=10, F=512, L=30, dtype=torch.bfloat16, packed=True):
         layer = {"self_attn": {"qkv_w": torch.zeros((D, 3 * D)), "qkv_b": torch.zeros(3 * D),
@@ -375,12 +462,14 @@ def test_route_predicate_and_groups():
 
     assert case()
     assert case(K=1) and case(K=8) and case(K=16)
-    assert not case(dtype=torch.float32)
-    assert not case(K=17)
+    assert case(dtype=torch.float32) and case(K=20, dtype=torch.float32)
+    assert case(K=17) and case(K=32)
     assert not case(D=360, H=12)               # more heads than warps
+    assert not case(D=360, H=12, dtype=torch.float32)
     assert not case(D=330, H=10)               # head dim 33
     assert not case(D=400, H=10)               # head dim 40 > 32
     assert not case(packed=False)
+    assert not case(packed=False, dtype=torch.float32)
     assert tds.images_per_block(256, 5, 132) == 2
     assert tds.images_per_block(257, 5, 132) == 2      # 129 blocks, the last one image
     assert tds.images_per_block(3, 5, 132) == 1
@@ -416,7 +505,7 @@ def test_ablation_variants_match_the_kernel_source():
     for name, pairs in _variants.VARIANTS["decoder_step"].items():
         out = _variants.variant_source("decoder_step", name, src)
         assert (out != src) == bool(pairs), name
-        G = _variants.IMAGES.get(name)
+        G = _variants.TWEAKS.get(name, {}).get("images")
         assert G is None or 1 <= G * 5 <= ROWS
-        assert bool(pairs) or G is not None or name == "base", name
+        assert bool(pairs) or name in _variants.TWEAKS or name == "base", name
     assert _variants.CUTS["decoder_step"] <= set(_variants.VARIANTS["decoder_step"])

@@ -263,26 +263,72 @@ def test_decoder_step_kernel_matches_plain(cuda, dtype, tol, step):
         torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=tol)
 
 
+def _route_launches():
+    return {r: c.launches for r, c in tds.fused_beam_decoder_step.routes.items()}
+
+
+def _ran(before):
+    """The routes that launched since `before` (_route_launches), with counts."""
+    return {r: n - before[r] for r, n in _route_launches().items() if n != before[r]}
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.15)])
 @pytest.mark.parametrize("K", [9, 10, 16, 17, 23])
-def test_decoder_step_cuda_cores_wide_beams(cuda, dtype, tol, K):
-    """The CUDA-core route at beams wider than its 8 rows a block: two or
-    three blocks an image (the last ragged), each with its own ancestry rows
-    into caches of the beam's full width; bf16 weights without the packed
-    copy take this route too."""
+def test_decoder_step_wide_beams(cuda, dtype, tol, K):
+    """Beams up to 16 in G-image blocks, wider ones on the wide tensor-core
+    route: three blocks an image at B 3 (K 17: 6 + 6 + 5 rows, K 23: 8 + 8 +
+    7), each with its own ancestry rows into caches of the beam's full
+    width; and the same beams through the CUDA-core kernel (weights without
+    the packed copy: two or three blocks of up to 8 rows an image)."""
     stacked, x, anc, ck, cv, xk, xv, step, H = _decoder_inputs(cuda, dtype, B=3, K=K, i=4)
-    stacked = stacked._replace(mma=None)
-    assert not tds.uses_tensor_cores(stacked, ck, K, H) and tds.supports(stacked, ck, K, H)
-    n = tds.fused_beam_decoder_step.routes["cuda_cores"].launches
-    got = tds.fused_beam_decoder_step(stacked, x, anc, ck, cv, xk, xv, step, num_heads=H)
-    assert tds.fused_beam_decoder_step.routes["cuda_cores"].launches == n + 1
     want = tds.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv, step, num_heads=H)
+    for st in (stacked, stacked._replace(mma=None)):
+        tc = st.mma is not None
+        assert tds.uses_tensor_cores(st, ck, K, H) == tc and tds.supports(st, ck, K, H)
+        before = _route_launches()
+        got = tds.fused_beam_decoder_step(st, x, anc, ck, cv, xk, xv, step, num_heads=H)
+        torch.cuda.synchronize()
+        assert _ran(before) == {tds.route(dtype, K, tc): 1}
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.bfloat16, 0.15)])
+@pytest.mark.parametrize("M", [1, 16, 17, 497])
+@pytest.mark.parametrize("B,K", [(257, 5), (3, 5), (3, 17), (5, 20), (2, 32)])
+def test_decoder_step_f32_and_wide_routes_match_plain(cuda, dtype, tol, B, K, M):
+    """The f32 route (three TF32 products a product, 16 memory rows a stage)
+    and the wide route (K > 16: parts of an image) at the geo widths,
+    step 15: G-image blocks with a ragged last group (B 257), beams of 5,
+    17, 20, 32, memories of one row, one f32 stage, one row past it and the
+    geo 497; against the plain version at the card's tolerances (f32 1e-3,
+    bf16 0.15), the route's counter held, two launches bit-identical."""
+    stacked, x, anc, ck, cv, xk, xv, H = _geo_step_inputs(cuda, B, K, 15, M=M, dtype=dtype)
+    before = _route_launches()
+    runs = [tds.fused_beam_decoder_step(stacked, x, anc, ck, cv, None, None, 15, num_heads=H,
+                                        cross_heads=_padded(xk, xv, H)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert _ran(before) == {tds.route(dtype, K, True): 2}
+    want = tds.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv, 15, num_heads=H)
+    for a, b, c in zip(*runs, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), c.float(), rtol=0, atol=tol)
+
+
+def test_decoder_step_f32_route_holds_1e4_at_geo_widths(cuda):
+    """At the geo beam shape's widths (B 8, K 5, M 497, step 15) the f32
+    route stays within 1e-4 of the plain f32 version, as the CUDA-core
+    kernel did (one TF32 pass would miss by about 2e-3:
+    tests/test_torch_decoder_tf32.py)."""
+    stacked, x, anc, ck, cv, xk, xv, H = _geo_step_inputs(cuda, 8, 5, 15, dtype=torch.float32)
+    got = tds.fused_beam_decoder_step(stacked, x, anc, ck, cv, xk, xv, 15, num_heads=H)
+    want = tds.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv, 15, num_heads=H)
     for a, b in zip(got, want):
-        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=tol)
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
 
 
-def _geo_step_inputs(cuda, B, K, step, M=497, L=30, seed=4):
-    """The geo decoder's widths (3 layers, D 300, H 10, F 512) in bf16."""
+def _geo_step_inputs(cuda, B, K, step, M=497, L=30, seed=4, dtype=torch.bfloat16):
+    """The geo decoder's widths (3 layers, D 300, H 10, F 512) in `dtype`."""
     from icek_torch.models import transformer as tfm
 
     D, H, F = 300, 10, 512
@@ -294,13 +340,13 @@ def _geo_step_inputs(cuda, B, K, step, M=497, L=30, seed=4):
         for n in (1, 2, 3):
             lay[f"norm{n}"]["scale"] = 1 + 0.1 * torch.randn(D, generator=g)
             lay[f"norm{n}"]["bias"] = 0.1 * torch.randn(D, generator=g)
-    layers = {"layers": [_tree_to(lay, cuda, torch.bfloat16) for lay in layers["layers"]]}
-    stacked = tds.stack_decoder_params(layers, torch.bfloat16)
+    layers = {"layers": [_tree_to(lay, cuda, dtype) for lay in layers["layers"]]}
+    stacked = tds.stack_decoder_params(layers, dtype)
     x = torch.randn((B, K, D), generator=g).to(cuda)
     caches = torch.zeros((2, 3, B, L * K, D))
     caches[:, :, :, :step * K] = torch.randn((2, 3, B, step * K, D), generator=g)
-    ck, cv = (c.to(cuda, torch.bfloat16).contiguous() for c in caches)
-    xk, xv = (torch.randn((3, B, M, D), generator=g).to(cuda, torch.bfloat16) for _ in range(2))
+    ck, cv = (c.to(cuda, dtype).contiguous() for c in caches)
+    xk, xv = (torch.randn((3, B, M, D), generator=g).to(cuda, dtype) for _ in range(2))
     anc = torch.randint(0, K, (B, K, L), generator=g, dtype=torch.int32)
     anc[:, :, step:] = torch.arange(K, dtype=torch.int32)[None, :, None]
     return stacked, x, anc.to(cuda), ck, cv, xk, xv, H
@@ -365,18 +411,20 @@ def test_decoder_step_is_bit_identical_between_launches(cuda, dtype):
 
 
 def test_decoder_step_route_predicate(cuda):
-    """The wrapper's shared-memory layout is the kernel's; f32 takes the
-    CUDA-core route; bf16 at the beam shape the tensor-core one; bf16 the
-    tensor-core route refuses (weights without the packed copy, 12 heads)
-    takes the CUDA-core route, still within 0.15 of the plain version, and
-    so does K = 17, wider than the tensor-core tile; float16 caches raise."""
+    """The wrapper's shared-memory layout is the kernel's, in both dtypes;
+    bf16 at the beam shape takes the tensor-core route, f32 its f32 twin;
+    bf16 the tensor-core route refuses (weights without the packed copy, 12
+    heads) takes the CUDA-core route, still within 0.15 of the plain
+    version; K = 17, wider than the tensor-core tile, the wide route;
+    float16 caches raise."""
     import ctypes
 
     from icek_torch.kernels import _build
 
-    smem = _build.bind("decoder_step", "decoder_step_mma_smem", [ctypes.c_int] * 4)
-    for dims in ((300, 10, 512, 30), (60, 6, 48, 8), (40, 4, 64, 6)):
-        assert smem(*dims) == tds.mma_smem_bytes(*dims)   # the predicate's copy of the layout
+    smem = _build.bind("decoder_step", "decoder_step_mma_smem", [ctypes.c_int] * 5)
+    for dims in ((300, 10, 512, 30), (300, 10, 512, 40), (60, 6, 48, 8), (40, 4, 64, 6)):
+        for f32, dt in ((0, torch.bfloat16), (1, torch.float32)):
+            assert smem(*dims, f32) == tds.mma_smem_bytes(*dims, dt)   # the predicate's copy
     routes = tds.fused_beam_decoder_step.routes
 
     def launches():
@@ -404,14 +452,14 @@ def test_decoder_step_route_predicate(cuda):
     f32 = [_tree_to(lay, cuda, torch.float32) for lay in stacked.layers]
     st32 = tds.stack_decoder_params({"layers": f32})
     args = [t.float().contiguous() for t in (ck, cv, xk, xv)]
-    n = launches()
+    before = _route_launches()
     tds.fused_beam_decoder_step(st32, x, anc, *args, 3, num_heads=H)
-    assert launches() == (n[0], n[1] + 1)
+    assert _ran(before) == {"tensor_cores_f32": 1}
     big = _geo_step_inputs(cuda, 1, 17, 3, L=4)
-    assert not tds.uses_tensor_cores(big[0], big[3], 17, H)
-    n = launches()
+    assert tds.uses_tensor_cores(big[0], big[3], 17, H)
+    before = _route_launches()
     got = tds.fused_beam_decoder_step(big[0], *big[1:7], 3, num_heads=H)
-    assert launches() == (n[0], n[1] + 1)
+    assert _ran(before) == {"wide_tensor_cores": 1}
     want = tds.reference_decoder_step(big[0], *big[1:7], 3, num_heads=H)
     for a, b in zip(got, want):
         torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=0.15)
@@ -993,13 +1041,14 @@ def test_decoder_step_tensor_cores_hold_40_steps(cuda):
 @pytest.mark.parametrize("K", [8, 10])
 @pytest.mark.parametrize("M", [497, 548, 598])
 def test_decoder_step_cuda_cores_fit_large_memories(cuda, M, K):
-    """f32 at the presets' widths, L 40: at M 598 eight hypotheses of an image
-    outgrow a block's shared memory, so a block takes fewer (7) and an image
-    spreads over two blocks; against the plain version at 1e-4."""
+    """The CUDA-core kernel in f32 (weights without the packed copy) at the
+    presets' widths, L 40: at M 598 eight hypotheses of an image outgrow a
+    block's shared memory, so a block takes fewer (7) and an image spreads
+    over two blocks; against the plain version at 1e-4."""
     stacked, x, anc, ck, cv, xk, xv, H = _geo_step_inputs(cuda, 2, K, 20, M=M, L=40)
     f32 = lambda t: t.float().contiguous()
     st32 = tds.stack_decoder_params({"layers": [_tree_to(lay, cuda, torch.float32)
-                                                for lay in stacked.layers]})
+                                                for lay in stacked.layers]})._replace(mma=None)
     args = [f32(t) for t in (ck, cv, xk, xv)]
     got = tds.fused_beam_decoder_step(st32, x, anc, *args, 20, num_heads=H)
     want = tds.reference_decoder_step(st32, x, anc, *args, 20, num_heads=H)
@@ -1011,9 +1060,9 @@ def test_decoder_step_cuda_cores_fit_large_memories(cuda, M, K):
 @pytest.mark.parametrize("M", [548, 598])
 def test_decoder_step_at_fact_preset_shapes(cuda, M, step):
     """L 40 with memories of 548 (knowledge) and 598 (news) rows, neither a
-    multiple of the 32-row cross tile: the tensor-core route at 0.15 and the
-    f32 CUDA-core route at 1e-4 against the plain version, ancestry rows of
-    40, first, middle and last step."""
+    multiple of the 32-row (bf16) or 16-row (f32) cross tile: the bf16
+    tensor-core route at 0.15 and the f32 one at 1e-4 against the plain
+    version, ancestry rows of 40, first, middle and last step."""
     stacked, x, anc, ck, cv, xk, xv, H = _geo_step_inputs(cuda, 3, 5, step, M=M, L=40)
     assert tds.uses_tensor_cores(stacked, ck, 5, H)
     got = tds.fused_beam_decoder_step(stacked, x, anc, ck, cv, xk, xv, step, num_heads=H)
@@ -1024,9 +1073,9 @@ def test_decoder_step_at_fact_preset_shapes(cuda, M, step):
     st32 = tds.stack_decoder_params({"layers": [_tree_to(lay, cuda, torch.float32)
                                                 for lay in stacked.layers]})
     args = [f32(t) for t in (ck, cv, xk, xv)]
-    n = tds.fused_beam_decoder_step.routes["cuda_cores"].launches
+    before = _route_launches()
     got = tds.fused_beam_decoder_step(st32, x, anc, *args, step, num_heads=H)
-    assert tds.fused_beam_decoder_step.routes["cuda_cores"].launches == n + 1
+    assert _ran(before) == {"tensor_cores_f32": 1}
     want = tds.reference_decoder_step(st32, x, anc, *args, step, num_heads=H)
     for a, b in zip(got, want):
         torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=1e-4)
@@ -1098,8 +1147,9 @@ def test_beam_decode_with_facts_kernels_match_stock_on_card(cuda, preset):
 def _beam_against_plain(cuda, dtype, K):
     """Beam K with the kernel switches on (the defaults) against both off: the
     score head runs every step, the decoder step on its tensor-core route
-    in bf16 up to K 16 and its CUDA-core route otherwise.  f32 tokens equal
-    the plain path's; bf16 best-hypothesis scores within 5e-2."""
+    for the dtype and K (f32 or bf16; wide above K 16), never the CUDA-core
+    kernel.  f32 tokens equal the plain path's; bf16 best-hypothesis scores
+    within 5e-2."""
     from icek_torch.decode import beam, greedy
 
     cfg, params, ents, _, tokens = _small_model(cuda, "georic", 14)
@@ -1107,15 +1157,11 @@ def _beam_against_plain(cuda, dtype, K):
     params["fc_vocab"]["b"][V - 1] = -1e4        # no <end>: every step runs
     ctx = greedy.prepare_decode_context(params, cfg.model, tokens, ents, compute_dtype=dtype)
     args = (params, cfg.model, V, E, V - 2, V - 1, 0, ctx, L)
-    routes = tds.fused_beam_decoder_step.routes
-    before = (routes["tensor_cores"].launches, routes["cuda_cores"].launches,
-              tcs.fused_score_topk.launches)
+    before, scores = _route_launches(), tcs.fused_score_topk.launches
     got = beam.beam_decode(*args, beam_size=K, compute_dtype=dtype)
     torch.cuda.synchronize()
-    tc = dtype == torch.bfloat16 and K <= 16
-    assert routes["tensor_cores"].launches - before[0] == (L if tc else 0)
-    assert routes["cuda_cores"].launches - before[1] == (0 if tc else L)
-    assert tcs.fused_score_topk.launches - before[2] == L
+    assert _ran(before) == {tds.route(dtype, K, True): L}
+    assert tcs.fused_score_topk.launches - scores == L
     want = beam.beam_decode(*args, beam_size=K, compute_dtype=dtype, use_megakernel=False,
                             use_fused_scores=False)
     if dtype == torch.bfloat16:
@@ -1128,15 +1174,15 @@ def _beam_against_plain(cuda, dtype, K):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_beam_width_10_against_the_plain_path_on_card(cuda, dtype):
     """Beam 10: the score head at k 10, the decoder step on its tensor-core
-    route in bf16 (K <= 16) and its CUDA-core route in f32 (two blocks an
-    image), against the plain path."""
+    routes (bf16, f32; G images a block), against the plain path."""
     _beam_against_plain(cuda, dtype, 10)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_beam_width_20_against_the_plain_path_on_card(cuda, dtype):
     """Beam 20: the score head's wide first pass (lists in shared memory)
-    and the CUDA-core decoder step in both dtypes, against the plain path."""
+    and the decoder step's wide tensor-core route (parts of an image) in
+    both dtypes, against the plain path."""
     _beam_against_plain(cuda, dtype, 20)
 
 
