@@ -103,21 +103,26 @@ Phases (any failure raises and exits non-zero):
               run_eval (captions equal to Evaluator.run's) and run_serve on
               port 0 with one POST /caption.
   9. int8     the int8 encoder (int8_encoder), geo at full width: (a) the
-              int8 site kernel of csrc/int8_conv.cu against its plain
-              version (float64 convolution, float32 epilogue) at the five
+              int8 site kernels of csrc/int8_conv.cu against their plain
+              versions (float64 convolution, float32 epilogue) at the five
               site kinds at batch 256 (the 1x1 / 1 sites with each of their
-              three epilogues), the int32 accumulators and the codes
-              bit-equal, each timed beside the plain version, torch._int_mm
-              plus an epilogue of torch ops (1x1 / 1), cuDNN's bf16
-              convolution of the site and the bound (int8 bytes at 3.35 TB/s
-              or operations at 1979 TOPS); every distinct site of an encode
-              timed alone (the sum of the 104 launches); the int8 max pool;
-              F.conv2d's and F.max_pool2d's answers on int8 CUDA tensors
-              logged; (b) calibration on 2 batches and the cosine of the int8
-              tokens against the folded bf16 encoder's (logged); (c)
-              Evaluator.decode_batch with the tree in turns with the float
-              encoder (captions/s, encode ms, token and caption agreement),
-              104 site launches and one pool launch a decode held; (d) eval
+              three epilogues), at the four fused conv3 + down sites and the
+              stem from the float images, the int32 accumulators and the
+              codes bit-equal, each on its route, timed beside the plain
+              version, torch._int_mm plus an epilogue of torch ops (1x1 /
+              1), cuDNN's bf16 convolution of the site and the bound (int8
+              bytes at 3.35 TB/s or operations at 1979 TOPS), with the
+              wrapper's host us a call; every distinct site of an encode
+              timed alone (the sum of its 100 launches, the bound over them
+              and over the same encode's 104 launches without the fused
+              entries); the int8 max pool; F.conv2d's and F.max_pool2d's
+              answers on int8 CUDA tensors logged; (b) calibration on 2
+              batches and the cosine of the int8 tokens against the folded
+              bf16 encoder's (logged);
+              (c) Evaluator.decode_batch with the tree in turns with the
+              float encoder (captions/s, encode ms, token and caption
+              agreement), each route's site launches a decode held to
+              resnet_int8.site_routes (100) and one pool launch; (d) eval
               --encoder-int8 2, quantize, eval --encoder-qtree and serve
               --encoder-qtree with one POST /caption over an in-memory split;
               (e) the metrics verb over phase 7's geo and news CSVs; (f) the
@@ -157,7 +162,9 @@ The last two lines are the card's nvidia-smi name/power limit and
 
     python3 chip_smoke.py --paired <checkout root> <label>
 
-times the geo serving path (3 beam-5 batches after a warm-up), 6 geo train
+times the geo serving path (3 beam-5 batches after a warm-up), int8 geo
+beam-5 serving (a tree calibrated on one batch: 3 batches' captions/s and 3
+encodes' ms), 6 geo train
 steps (and 3 in float32), 3 news (nytimes800k) train steps, 3 geo beam-20
 batches of 32 images in bf16 and in f32, 3 warm greedy batches, the norm
 wrappers' host ms a call and the norm kernels' device ms at every
@@ -2220,8 +2227,9 @@ INT8_TOPS = 1979e12                       # H100 SXM dense int8
 INT8_CALIB_BATCHES = 2
 # (name, input side, Cin, Cout, kernel, stride, epilogue) at batch 256 of
 # 256x256 images: the five site kinds of ResNet-101, 1x1 / 1 with each of
-# its three epilogues; "1x1_s1" (layer3's conv1, 23 launches an encode) is
-# the kernels line's headline
+# its three epilogues; "1x1_s1" (layer3's conv1, 22 launches an encode) is
+# the kernels line's headline.  The stem here is its launch on int8 codes
+# (the mma.sync kernel: C = 3); the encode's stem is "stem_float" below.
 INT8_SITES = (
     ("stem_7x7_s2", IMG, 3, 64, 7, 2, "q8"),
     ("1x1_s1", 16, 1024, 256, 1, 1, "q8"),
@@ -2234,30 +2242,21 @@ INT8_SITES = (
 
 
 def encode_sites():
-    """{(side, Cin, Cout, kernel, stride, epilogue): launches} of one int8
-    encode of 256x256 images: 1 + 33 x 3 + 4 = 104."""
-    from icek_torch.kernels import int8_conv as k8
+    """{site key: launches} of one int8 encode of IMG x IMG images
+    (resnet_int8.encode_sites: 24 distinct sites, 100 launches)."""
+    from icek_torch.models import resnet_int8
 
-    sites = {(IMG, 3, 64, 7, 2, "q8"): 1}
-
-    def add(key):
-        sites[key] = sites.get(key, 0) + 1
-
-    side, cin = 64, 64
-    for stage, (count, width) in enumerate(zip((3, 4, 23, 3), (64, 128, 256, 512)), 1):
-        for b in range(count):
-            s = 2 if stage > 1 and b == 0 else 1
-            out = k8.out_hw(side, 3, s)
-            add((side, cin, width, 1, 1, "q8"))
-            add((side, width, width, 3, s, "q8"))
-            if b == 0:
-                add((side, cin, 4 * width, 1, s, "f32"))
-                add((out, width, 4 * width, 1, 1, "q8_f32sc"))
-            else:
-                add((out, width, 4 * width, 1, 1, "q8_q8sc"))
-            side, cin = out, 4 * width
-    require(sum(sites.values()) == 104, f"encode sites {sum(sites.values())} != 104")
+    sites = resnet_int8.encode_sites(IMG)
+    require(len(sites) == 24, f"encode sites: {len(sites)} distinct")
     return sites
+
+
+def _int8_site(dev, g, cin, cout, k):
+    K = k * k * cin
+    return {"wq": torch.randint(-127, 128, (cout, k, k, cin), generator=g, device=dev,
+                                dtype=torch.int8),
+            "es": (torch.rand(cout, generator=g, device=dev) + 0.5) / (127.0 * 64 * K ** 0.5),
+            "b": torch.randn(cout, generator=g, device=dev) * 0.1}
 
 
 def _int8_site_inputs(dev, g, side, cin, cout, k, stride, mode):
@@ -2266,11 +2265,7 @@ def _int8_site_inputs(dev, g, side, cin, cout, k, stride, mode):
     lo = -127 if cin == 3 else 0
     x = torch.randint(lo, 128, (BATCH, side, side, cin), generator=g, device=dev,
                       dtype=torch.int8)
-    w = torch.randint(-127, 128, (cout, k, k, cin), generator=g, device=dev, dtype=torch.int8)
-    K = k * k * cin
-    site = {"wq": w,
-            "es": (torch.rand(cout, generator=g, device=dev) + 0.5) / (127.0 * 64 * K ** 0.5),
-            "b": torch.randn(cout, generator=g, device=dev) * 0.1}
+    site = _int8_site(dev, g, cin, cout, k)
     ho = k8.out_hw(side, k, stride)
     shortcut = None
     if mode == "q8_f32sc":
@@ -2281,6 +2276,39 @@ def _int8_site_inputs(dev, g, side, cin, cout, k, stride, mode):
     kw = dict(inv=None if mode == "f32" else torch.tensor(127 / 3.0), shortcut=shortcut,
               a_x=torch.tensor(1 / 127.0) if mode == "q8_q8sc" else None)
     return x, site, kw, ho
+
+
+def _int8_unit(dev, g, key):
+    """(run, plain, acc, acc_plain) of an encode site key at BATCH: the
+    launch, its plain version, and the int32 sums where the site has them
+    alone (qconv, the stem's acc; None for the fused site)."""
+    from icek_torch.kernels import int8_conv as k8
+
+    inv = torch.tensor(127 / 3.0)
+    if key[0] == "stem":
+        images = torch.randn((BATCH, 3, key[1], key[1]), generator=g, device=dev
+                             ).permute(0, 2, 3, 1)
+        site, inv_img = _int8_site(dev, g, 3, 64, 7), torch.tensor(127 / 4.0)
+        return ((lambda: k8.stem_site(images, site, inv_img, inv)),
+                (lambda: k8.reference_stem_site(images, site, inv_img, inv)),
+                (lambda: k8.stem_site(images, site, inv_img, acc=True)),
+                (lambda: k8.reference_stem_site(images, site, inv_img, acc=True)))
+    if key[0] == "fused":
+        _, side, cin, cmid, cout, s = key
+        ho = k8.out_hw(side, 1, s)
+        xq = torch.randint(0, 128, (BATCH, side, side, cin), generator=g, device=dev,
+                           dtype=torch.int8)
+        out = torch.randint(0, 128, (BATCH, ho, ho, cmid), generator=g, device=dev,
+                            dtype=torch.int8)
+        c3, dn = _int8_site(dev, g, cmid, cout, 1), _int8_site(dev, g, cin, cout, 1)
+        return ((lambda: k8.fused_site(out, xq, c3, dn, s, inv)),
+                (lambda: k8.reference_fused_site(out, xq, c3, dn, s, inv)), None, None)
+    _, side, cin, cout, k, s, mode = key
+    x, site, kw, _ = _int8_site_inputs(dev, g, side, cin, cout, k, s, mode)
+    return ((lambda: k8.conv_site(x, site, s, **kw)),
+            (lambda: k8.reference_site(x, site, s, **kw)),
+            (lambda: k8.qconv(x, site["wq"], s)),
+            (lambda: k8.reference_qconv(x, site["wq"], s)))
 
 
 def _int8_site_work(side, cin, cout, k, stride, mode):
@@ -2296,15 +2324,57 @@ def _int8_site_work(side, cin, cout, k, stride, mode):
     return nbytes, 2.0 * m * cout * k * k * cin
 
 
+def _unit_work(key):
+    """(bytes, operations) of an encode site key's launch: a conv site as
+    _int8_site_work; the fused site reads both activations and both weights
+    and writes the codes; the stem reads the float32 images."""
+    from icek_torch.kernels import int8_conv as k8
+
+    if key[0] == "conv":
+        return _int8_site_work(*key[1:])
+    if key[0] == "fused":
+        _, side, cin, cmid, cout, s = key
+        ho = k8.out_hw(side, 1, s)
+        m = BATCH * ho * ho
+        nbytes = BATCH * side * side * cin + m * cmid + cout * (cin + cmid) + 16 * cout + m * cout
+        return nbytes, 2.0 * m * cout * (cin + cmid)
+    _, side, cin, cout, k, s = key
+    ho = k8.out_hw(side, k, s)
+    m = BATCH * ho * ho
+    return (4 * BATCH * side * side * cin + cout * k * k * cin + 8 * cout + m * cout,
+            2.0 * m * cout * k * k * cin)
+
+
+def _unfused_units(key):
+    """The launches of a site key without the fused entries: the fused site
+    as the down site (float32 out) and conv3 with the float32 shortcut; the
+    stem as its launch on int8 codes."""
+    from icek_torch.kernels import int8_conv as k8
+
+    if key[0] == "fused":
+        _, side, cin, cmid, cout, s = key
+        return [(side, cin, cout, 1, s, "f32"), (k8.out_hw(side, 1, s), cmid, cout, 1, 1, "q8_f32sc")]
+    if key[0] == "stem":
+        return [(key[1], 3, 64, 7, 2, "q8")]
+    return [key[1:]]
+
+
+def _bound_ms(nbytes, ops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_TOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def check_int8_sites(dev):
-    """(a) the int8 site kernel against its plain version at each site kind
-    (the int32 accumulators and the epilogue's codes bit-equal), timed beside
-    the plain version, cuBLASLt's int8 GEMM (torch._int_mm) plus an
+    """(a) the int8 site kernels against their plain versions at each site
+    kind (the int32 accumulators and the epilogue's codes bit-equal), timed
+    beside the plain version, cuBLASLt's int8 GEMM (torch._int_mm) plus an
     epilogue of torch ops at the 1x1 / 1 sites, cuDNN's bf16 convolution of
-    the same site, and the bound; then every distinct site of an encode
-    timed alone (the per-encode sum of the 104 launches); the int8 max pool
-    against its plain version.  F.conv2d and F.max_pool2d are tried on int8
-    CUDA tensors and their refusals logged."""
+    the same site, and the bound, each with its route and the wrapper's host
+    us a call; the same for the four fused sites and the stem from float
+    images; then every distinct site of an encode timed alone (the
+    per-encode sum of its 100 launches); the int8 max pool against its
+    plain version.  F.conv2d and F.max_pool2d are tried on int8 CUDA
+    tensors and their refusals logged."""
     import torch.nn.functional as F
 
     from icek_torch.kernels import int8_conv as k8
@@ -2321,22 +2391,37 @@ def check_int8_sites(dev):
         except (RuntimeError, NotImplementedError) as e:
             refusals[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
     log(f"int8 on CUDA in the library: {refusals}")
+
+    def routes():
+        return {r: n.launches for r, n in k8.conv_site.routes.items()}
+
+    def on_route(fn, name):
+        """fn's result and the route its single launch took."""
+        before = routes()
+        out = fn()
+        torch.cuda.synchronize()
+        ran = [r for r, n in routes().items() if n != before[r]]
+        require(len(ran) == 1 and routes()[ran[0]] == before[ran[0]] + 1,
+                f"int8 site {name}: launches {ran}")
+        return out, ran[0] if ran else None
+
     rows = {}
     for name, side, cin, cout, k, stride, mode in INT8_SITES:
         x, site, kw, ho = _int8_site_inputs(dev, g, side, cin, cout, k, stride, mode)
-        acc = k8.qconv(x, site["wq"], stride)
-        got = k8.conv_site(x, site, stride, **kw)
-        torch.cuda.synchronize()
+        acc, _ = on_route(lambda: k8.qconv(x, site["wq"], stride), name)
+        got, route = on_route(lambda: k8.conv_site(x, site, stride, **kw), name)
         want_acc = k8.reference_qconv(x, site["wq"], stride)
         want = k8.reference_site(x, site, stride, **kw)
+        require(route == k8.route(cin, cout, k, stride, side, side),
+                f"int8 site {name}: route {route}")
         require(torch.equal(acc, want_acc), f"int8 site {name}: int32 accumulators differ")
         diff = int((got != want).sum())
         require(got.dtype == want.dtype and diff == 0,
                 f"int8 site {name}: {diff} outputs differ from the plain version")
         ms = cuda_ms(lambda: k8.conv_site(x, site, stride, **kw))
         plain_ms = cuda_ms(lambda: k8.reference_site(x, site, stride, **kw), iters=2, warmup=1)
-        nbytes, ops = _int8_site_work(side, cin, cout, k, stride, mode)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_TOPS * 1e3
+        bound, bound_by = _bound_ms(*_int8_site_work(side, cin, cout, k, stride, mode))
+        _, ops = _int8_site_work(side, cin, cout, k, stride, mode)
         library_ms = None
         if k == 1 and stride == 1:
             a2 = x.reshape(-1, cin)
@@ -2361,26 +2446,64 @@ def check_int8_sites(dev):
         wb = site["wq"].permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
             memory_format=torch.channels_last)
         cudnn_ms = cuda_ms(lambda: F.conv2d(xb, wb, stride=stride, padding=(k - 1) // 2))
-        rows[name] = dict(site=(BATCH, side, side, cin, cout, k, stride, mode), ms=ms,
-                          plain_ms=plain_ms, library_ms=library_ms, cudnn_bf16_ms=cudnn_ms,
-                          bound_ms=max(t_bytes, t_ops),
-                          bound_by="bytes" if t_bytes >= t_ops else "operations",
-                          tops=ops / ms / 1e9, max_abs_err=0.0,
-                          acc_max=int(want_acc.abs().max()))
+        rows[name] = dict(site=(BATCH, side, side, cin, cout, k, stride, mode), route=route,
+                          ms=ms, plain_ms=plain_ms, library_ms=library_ms, cudnn_bf16_ms=cudnn_ms,
+                          bound_ms=bound, bound_by=bound_by, tops=ops / ms / 1e9,
+                          max_abs_err=0.0, acc_max=int(want_acc.abs().max()),
+                          host_us=host_ms(lambda: k8.conv_site(x, site, stride, **kw),
+                                          iters=50) * 1e3)
         log(f"int8 site {name}: {rows[name]}")
         del x, site, kw, acc, got, want, want_acc, xb, wb
-    per_encode = dict(ms=0.0, bound_ms=0.0, sites={})
-    for key, count in sorted(encode_sites().items()):
-        side, cin, cout, k, stride, mode = key
-        x, site, kw, _ = _int8_site_inputs(dev, g, side, cin, cout, k, stride, mode)
-        ms = cuda_ms(lambda: k8.conv_site(x, site, stride, **kw), iters=10)
-        nbytes, ops = _int8_site_work(*key)
-        bound = max(nbytes / HBM_BYTES_PER_S, ops / INT8_TOPS) * 1e3
+    # the encode's own entries: the fused conv3 + down sites and the stem
+    # from float images, each against its plain version
+    for key in sorted(k for k in encode_sites() if k[0] != "conv"):
+        name = f"{key[0]}_{'x'.join(map(str, key[1:]))}" if key[0] == "fused" else "stem_float"
+        run, plain, acc_fn, acc_plain = _int8_unit(dev, g, key)
+        got, route = on_route(run, name)
+        require(route == key[0], f"int8 site {name}: route {route}")
+        if acc_fn is not None:
+            acc, _ = on_route(acc_fn, name)
+            require(torch.equal(acc, acc_plain()), f"int8 site {name}: int32 sums differ")
+        diff = int((got != plain()).sum())
+        require(diff == 0, f"int8 site {name}: {diff} codes differ from the plain version")
+        ms = cuda_ms(run)
+        nbytes, ops = _unit_work(key)
+        bound, bound_by = _bound_ms(nbytes, ops)
+        if key[0] == "fused":       # the two bf16 convolutions of the same site
+            _, side, cin, cmid, cout, s = key
+            ho = k8.out_hw(side, 1, s)
+            xb, yb = (torch.randn((BATCH, c, h, h), generator=g, device=dev).to(torch.bfloat16)
+                      .contiguous(memory_format=torch.channels_last)
+                      for c, h in ((cin, side), (cmid, ho)))
+            wd, w3 = (torch.randn((cout, c, 1, 1), generator=g, device=dev).to(torch.bfloat16)
+                      .contiguous(memory_format=torch.channels_last) for c in (cin, cmid))
+            cudnn = lambda: F.conv2d(yb, w3) + F.conv2d(xb, wd, stride=s)
+        else:
+            xb = torch.randn((BATCH, 3, key[1], key[1]), generator=g, device=dev).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            wb = torch.randn((64, 3, 7, 7), generator=g, device=dev).to(torch.bfloat16)
+            cudnn = lambda: F.conv2d(xb, wb, stride=2, padding=3)
+        rows[name] = dict(site=(BATCH,) + key[1:], route=route, ms=ms,
+                          plain_ms=cuda_ms(plain, iters=2, warmup=1), library_ms=None,
+                          cudnn_bf16_ms=cuda_ms(cudnn), bound_ms=bound, bound_by=bound_by,
+                          tops=ops / ms / 1e9, max_abs_err=0.0,
+                          host_us=host_ms(run, iters=50) * 1e3)
+        log(f"int8 site {name}: {rows[name]}")
+        del run, plain, acc_fn, acc_plain, got, cudnn
+    per_encode = dict(ms=0.0, bound_ms=0.0, bound_unfused_ms=0.0, launches=0, sites={})
+    for key, count in sorted(encode_sites().items(), key=str):
+        run = _int8_unit(dev, g, key)[0]
+        ms = cuda_ms(run, iters=10)
+        bound, _ = _bound_ms(*_unit_work(key))
+        unfused = sum(_bound_ms(*_int8_site_work(*u))[0] for u in _unfused_units(key))
         per_encode["ms"] += count * ms
         per_encode["bound_ms"] += count * bound
+        per_encode["bound_unfused_ms"] += count * unfused
+        per_encode["launches"] += count
         per_encode["sites"]["x".join(map(str, key))] = dict(launches=count, ms=ms, bound_ms=bound)
-        del x, site, kw
-    log(f"int8 encode's 104 sites timed alone (batch {BATCH}): {per_encode}")
+        del run
+    log(f"int8 encode's {per_encode['launches']} site launches timed alone (batch {BATCH}): "
+        f"{per_encode}")
     x = torch.randint(-128, 128, (BATCH, IMG // 2, IMG // 2, 64), generator=g, device=dev,
                       dtype=torch.int8)
     got = k8.max_pool(x)
@@ -2401,19 +2524,28 @@ def _int8_counts():
     return k8.conv_site.launches, k8.max_pool.launches
 
 
+def _int8_routes():
+    from icek_torch.kernels import int8_conv as k8
+
+    return {r: n.launches for r, n in k8.conv_site.routes.items()}
+
+
 def _zero_int8_counts():
     from icek_torch.kernels import int8_conv as k8
 
     k8.conv_site.launches = k8.max_pool.launches = 0
+    for n in k8.conv_site.routes.values():
+        n.launches = 0
 
 
 def int8_serving(dev, model):
     """(b) calibrate on 2 batches and quantize, the cosine of the int8
     tokens against the folded bf16 encoder's on a third batch (logged, not
     asserted); (c) Evaluator.decode_batch with the tree in turns with the
-    float encoder (float, int8, int8, float): captions/s, encode ms, 104
-    site launches and one pool launch a decode, the other kernels' counts
-    held to the serving prediction, token and caption agreement logged."""
+    float encoder (float, int8, int8, float): captions/s, encode ms, each
+    route's site launches a decode held to site_routes (100) and one pool
+    launch, the other kernels' counts held to the serving prediction, token
+    and caption agreement logged."""
     from icek_torch import bridge, eval_driver
     from icek_torch.data import images as image_ops
     from icek_torch.models import resnet, resnet_int8
@@ -2449,6 +2581,10 @@ def int8_serving(dev, model):
     log(f"int8 encoder quality (bf16 folded encoder as reference, not asserted): {quality}")
     del held, want, got
 
+    want_routes = resnet_int8.site_routes(qtree, IMG)
+    n_sites = sum(want_routes.values())
+    require(n_sites == sum(encode_sites().values()) and want_routes["mma_sync"] == 0,
+            f"int8 serving: the tree's site routes {want_routes}")
     evs = {"float": eval_driver.Evaluator(cfg, wm, params, enc, device=dev),
            "int8": eval_driver.Evaluator(cfg, wm, params, enc, device=dev,
                                          encoder_qtree=qtree)}
@@ -2465,11 +2601,14 @@ def int8_serving(dev, model):
         out = ev.decode_batch(batch)
         times[kind].append(time.perf_counter() - t0)
         convs, pools = _int8_counts()
+        routes = _int8_routes()
         launches = _read_serving_counts()
         want = serving_prediction(cfg, 1, 0)
         require(launches == want, f"int8 serving {kind}: launches {launches} != {want}")
-        require((convs, pools) == ((104, 1) if kind == "int8" else (0, 0)),
+        require((convs, pools) == ((n_sites, 1) if kind == "int8" else (0, 0)),
                 f"int8 serving {kind}: {convs} site and {pools} pool launches")
+        require(routes == (want_routes if kind == "int8" else dict.fromkeys(routes, 0)),
+                f"int8 serving {kind}: site routes {routes}, predicted {want_routes}")
         require(np.array_equal(out, ids[kind]), f"int8 serving {kind}: not repeatable")
         with torch.inference_mode():
             for _ in range(3):
@@ -2485,7 +2624,8 @@ def int8_serving(dev, model):
            for k in evs}
     rec.update(token_agreement=float(same.mean()),
                caption_agreement=float(same.all(axis=1).mean()),
-               launches_per_batch=dict(int8_conv=104, int8_maxpool=1, **want))
+               launches_per_batch=dict(int8_conv=n_sites, int8_maxpool=1, **want),
+               routes_per_batch=want_routes)
     log(f"int8 encoder serving (geo, batch {BATCH}, beam {BEAM}, bf16 tail): {rec}")
     del evs
     return qtree, quality, rec
@@ -2494,10 +2634,10 @@ def int8_serving(dev, model):
 def int8_cli(dev, model, workdir):
     """(d) in-process through icek_torch.apps over an in-memory split (VAL
     512 rows, TEST 256): eval --encoder-int8 2 (calibrated on two VAL
-    batches, 104 site launches for the TEST batch, a CSV row for every TEST
-    row), quantize of the same two batches, eval --encoder-qtree with its
-    file (the same CSV), and serve --encoder-qtree on port 0 with one POST
-    /caption."""
+    batches, an encode's site launches (100, encode_sites) for the
+    TEST batch, a CSV row for every TEST row), quantize of the same two
+    batches, eval --encoder-qtree with its file (the same CSV), and serve
+    --encoder-qtree on port 0 with one POST /caption."""
     import http.client
     import threading
 
@@ -2508,6 +2648,7 @@ def int8_cli(dev, model, workdir):
 
     cfg, wm, params, enc = model
     base = cfg.data.base_name
+    n_sites = sum(encode_sites().values())
     split_cls = run_split(np.random.default_rng(SEED + 51), wm,
                           rows={"TRAIN": 8, "VAL": 2 * BATCH, "TEST": BATCH})
     data_dir = os.path.join(workdir, "files")
@@ -2529,7 +2670,7 @@ def int8_cli(dev, model, workdir):
         out["eval_int8_launches"] = _int8_counts()
         rows = _csv_rows(csv_int8)
         require(len(rows) == BATCH + 1, f"eval --encoder-int8: {len(rows) - 1} CSV rows")
-        require(out["eval_int8_launches"] == (104, 1),
+        require(out["eval_int8_launches"] == (n_sites, 1),
                 f"eval --encoder-int8 launches {out['eval_int8_launches']}")
         tree = os.path.join(workdir, "encoder_int8.pt")
         t0 = time.perf_counter()
@@ -2573,7 +2714,7 @@ def int8_cli(dev, model, workdir):
                 made[0].shutdown()
             thread.join(60)
     require(status == 200 and "caption" in reply, f"POST /caption: {status} {reply}")
-    require(out["serve_launches"] == (104, 1),
+    require(out["serve_launches"] == (n_sites, 1),
             f"serve --encoder-qtree launches {out['serve_launches']}")
     out["served_caption"] = reply.get("caption")
     log(f"int8 encoder CLIs: {out}")
@@ -3575,6 +3716,47 @@ def norm_kernels_device_ms(dev) -> dict:
     return out
 
 
+def paired_int8_serving(dev, model, batches):
+    """int8 geo beam-5 serving at BATCH through the public entry points: a
+    tree calibrated on batches[0] (bf16), a warm-up decode, then 3 batches'
+    ms and 3 encodes' ms (Evaluator._encode_tokens, synchronized), and a
+    hash of the first timed batch's ids (equal trees' int8 decodes equal)."""
+    import hashlib
+
+    from icek_torch import bridge, eval_driver
+    from icek_torch.data import images as image_ops
+    from icek_torch.models import resnet, resnet_int8
+
+    cfg, wm, params, enc = model
+    with torch.inference_mode():
+        enc_dev = bridge.to_device(enc, dev)
+        folded = resnet.fold_bn_params(enc_dev)
+        raw = image_ops.normalize_in_graph(torch.as_tensor(batches[0]["raw_images"], device=dev))
+        qtree = resnet_int8.calibrate_and_quantize(folded, [raw], torch.bfloat16,
+                                                   source_params=enc_dev)
+    ev = eval_driver.Evaluator(cfg, wm, params, enc, device=dev, encoder_qtree=qtree)
+    ev.decode_batch(batches[0])
+    batch_ms, ids = [], None
+    for b in batches[1:]:
+        t0 = time.perf_counter()
+        out = ev.decode_batch(b)
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+        ids = out if ids is None else ids
+    raw_images = torch.as_tensor(batches[1]["raw_images"], device=dev)
+    encode_ms = []
+    with torch.inference_mode():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev._encode_tokens(raw_images, "raw")
+            torch.cuda.synchronize()
+            encode_ms.append((time.perf_counter() - t0) * 1e3)
+    del ev
+    return dict(batch_ms=batch_ms, captions_per_s_median=BATCH / statistics.median(batch_ms) * 1e3,
+                encode_ms=encode_ms, encode_ms_median=statistics.median(encode_ms),
+                ids_sha=hashlib.sha256(np.ascontiguousarray(ids).tobytes()).hexdigest()[:16])
+
+
 def paired(root, label) -> int:
     """Geo serving (bf16, and f32 at beam 5 and batch 256), geo (bf16 and f32)
     and news train-step, geo beam-20 (bf16 and f32) and warm greedy times of
@@ -3614,6 +3796,7 @@ def paired(root, label) -> int:
         ev32.decode_batch(b)
         f32_batch_ms.append((time.perf_counter() - t0) * 1e3)
     del ev32
+    int8 = paired_int8_serving(dev, model, batches)
 
     def train_ms(model, preset, steps, dtype=torch.bfloat16):
         """Host ms of `steps` train steps after a warm-up, each to its loss."""
@@ -3655,6 +3838,7 @@ def paired(root, label) -> int:
            "host_ms_per_beam_step_median": statistics.median(batch_ms) / L,
            "f32_batch_ms": f32_batch_ms,
            "f32_captions_per_s_median": BATCH / statistics.median(f32_batch_ms) * 1e3,
+           "int8": int8,
            "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
            "samples_per_s_median": BATCH / statistics.median(step_ms) * 1e3,
            "f32_step_ms": f32_ms, "f32_samples_per_s_median": BATCH / statistics.median(f32_ms) * 1e3,
@@ -3842,10 +4026,12 @@ def run_phases(dev, card) -> list:
         "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "site": head["site"], "tol": 0,
-        "sites": {k: {f: v[f] for f in ("ms", "plain_ms", "library_ms", "cudnn_bf16_ms",
-                                         "bound_ms", "bound_by", "tops")}
+        "sites": {k: {f: v[f] for f in ("route", "ms", "plain_ms", "library_ms", "cudnn_bf16_ms",
+                                         "bound_ms", "bound_by", "tops", "host_us")}
                   for k, v in int8["sites"].items()},
-        "per_encode": {k: int8["per_encode"][k] for k in ("ms", "bound_ms")},
+        "per_encode": {k: int8["per_encode"][k] for k in ("ms", "bound_ms",
+                                                          "bound_unfused_ms", "launches")},
+        "routes_per_encode": int8["serving"]["routes_per_batch"],
         "launches_eval_cli": int8["cli"]["eval_int8_launches"][0]})
     pool = int8["pool"]
     rows.append({

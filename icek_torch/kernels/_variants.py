@@ -4,6 +4,7 @@
     python -m icek_torch.kernels._variants decoder_step base,g1,nolinears [STEP ...] [bf16] [f32] [BxK ...]
     python -m icek_torch.kernels._variants score_topk base,nolist,nolse [K,K,...]
     python -m icek_torch.kernels._variants flash_attention base,nophilox [RATE,RATE,...]
+    python -m icek_torch.kernels._variants int8_conv base,gather,epfirst,ep1,nostore,noepi,nomma [BATCH] [KINDS]
     python -m icek_torch.kernels._variants --parent ROOT <source> base,... [args]
 
 builds each named variant of ``csrc/<source>.cu`` (the source with the
@@ -30,7 +31,19 @@ order given and then backwards, so a drift shows:
 * ``flash_attention``: the float32 backward (dQ, then dK/dV) at the geo
   encoder site (B 256, T 301, H 10, Hd 30, q, k, v strided views of one
   fused QKV projection) at each RATE (default 0 and 0.2), with CUDA events,
-  and its two kernels apart (torch.profiler).
+  and its two kernels apart (torch.profiler);
+* ``int8_conv``: every distinct site of an int8 encode of 256x256 images
+  at BATCH (default 256; ``resnet_int8.encode_sites``, computed by this
+  process and handed to each run, so a parent tree is timed on the same
+  list) and the seven site shapes of ``chip_smoke.py``'s ``INT8_SITES``,
+  seeded int8 inputs, CUDA events: the site ms, each held bit for bit to
+  the plain version, and the per-encode sum (launches x ms).  A tree
+  without ``fused_site`` / ``stem_site`` runs a fused site as its down
+  and conv3 launches and the stem as the encode ran it (torch's
+  quantization, then the site); ``stem_int8`` is the stem's launch on int8
+  codes in both.  KINDS (comma-separated: conv, fused, stem, stem_int8)
+  times only those sites.  With ``--parent`` the outputs are compared bit
+  for bit.
 
 The base build's ptxas report (registers, shared memory, spills of every
 kernel) is printed first.  With ``--parent ROOT`` (a checkout of another
@@ -200,6 +213,44 @@ VARIANTS = {
         "nolse": [("                lse_update<16>(m_run[r], s_run[r], x);\n", ""),
                   ("      lse_update<4>(m_run[a], s_run[a], x);\n", "")],
     },
+    "int8_conv": {
+        "base": [],
+        # a tile's es / b and shortcut fetched before its k-stages, not behind
+        "epfirst": [("        const int b0 = m0 / hw, oh0 = (m0 - b0 * hw) / a.Wo;   // a box tile's origin\n",
+                     "        const int b0 = m0 / hw, oh0 = (m0 - b0 * hw) / a.Wo;   // a box tile's origin\n"
+                     "        fetch_epilogue(m0, n0);\n"),
+                    ("        }\n        fetch_epilogue(m0, n0);\n      }\n", "        }\n      }\n")],
+        # every 3x3 and strided site gathered by the producer (cp.async), none
+        # by TMA boxes: the two loaders timed in one call
+        "gather": [("  if (box_tile(Ho, Wo, &bh, &bb) && stride * Wo <= 256 && stride * bh <= 256) return A_BOX;",
+                    "  if (box_tile(Ho, Wo, &bh, &bb) && stride * Wo < 0) return A_BOX;")],
+        # the int8 epilogue's global stores cut
+        "nostore": [("          if (rt + r < mlim && gc < a.N)\n"
+                     "            *reinterpret_cast<int4*>(static_cast<int8_t*>(a.out) +",
+                     "          if (rt + r < mlim && gc < 0)\n"
+                     "            *reinterpret_cast<int4*>(static_cast<int8_t*>(a.out) +")],
+        # the int8 epilogue's arithmetic cut (stores of the staging rows stay)
+        "noepi": [("#pragma unroll\n          for (int j = 0; j < BN / 8; ++j) {",
+                   "#pragma unroll\n          for (int j = 0; j < 0; ++j) {")],
+        # the products cut (the ring still turns)
+        "nomma": [("            Wgmma<BN>::run(acc[gi], smem_desc<BK>(at + 32 * k), smem_desc<BK>(bt + 32 * k),\n"
+                   "                           kt > 0 || k > 0);\n", "")],
+        # the stem's producer without its quantization, its raw fetch (16-byte
+        # path) or its A-row stores (cuts)
+        "stemnoquant": [("        for (int i = pt; i < 21 * (2 * RAW_BOX / 4); i += 128) {",
+                         "        for (int i = pt; i < 0; i += 128) {")],
+        "stemnoraw": [("        if (a.raw_tma) {\n          if (pt == 0) {",
+                       "        if (a.raw_tma) {\n          if (pt == 0) mbar_arrive(raw_full(buf));\n"
+                       "          if (pt < 0) {")],
+        "stemnorows": [('              asm volatile("st.shared.v4.u32',
+                        '              if (a.M < 0) asm volatile("st.shared.v4.u32')],
+        # one epilogue buffer: the next tile's es / b and shortcut wait for
+        # this tile's epilogue
+        "ep1": [("      const int j = tcount & 1;\n      mbar_wait(ep_empty(j), ((tcount >> 1) & 1) ^ 1);",
+                 "      const int j = 0;\n      mbar_wait(ep_empty(j), (tcount & 1) ^ 1);"),
+                ("      const int ej = tcount & 1;\n      mbar_wait(ep_full(ej), (tcount >> 1) & 1);",
+                 "      const int ej = 0;\n      mbar_wait(ep_full(ej), tcount & 1);")],
+    },
     "flash_attention": {
         "base": [],
         # the TF32 dK/dV kernel's keep words from its counters, not Philox
@@ -221,7 +272,8 @@ VARIANTS = {
 }
 CUTS = {"fused_norm": {"noshfl", "copyonly", "computeonly"},
         "decoder_step": {"nolinears", "nocrossmath", "nocross", "noself"},
-        "score_topk": {"nolist", "nolse"}, "flash_attention": {"nophilox", "onepass"}}
+        "score_topk": {"nolist", "nolse"}, "flash_attention": {"nophilox", "onepass"},
+        "int8_conv": {"nostore", "noepi", "nomma", "stemnoquant", "stemnoraw", "stemnorows"}}
 # decoder_step: the wrapper's choices changed (images a block, rows a block of
 # a wide beam's image, the CUDA-core kernel for every call)
 TWEAKS = {"g1": dict(images=1), "g3": dict(images=3), "w8": dict(wide_rows=8),
@@ -460,8 +512,143 @@ def time_flash_attention(name: str, args) -> None:
         del out
 
 
+# chip_smoke.py's INT8_SITES at 256x256 images: the five site kinds, 1x1 / 1
+# with each of its epilogues (timed, not in the per-encode sum)
+INT8_SITES = (("stem_int8", 256, 3, 64, 7, 2, "q8"), ("conv", 16, 1024, 256, 1, 1, "q8"),
+              ("conv", 16, 256, 1024, 1, 1, "q8_q8sc"), ("conv", 32, 128, 512, 1, 1, "q8_f32sc"),
+              ("conv", 64, 256, 512, 1, 2, "f32"), ("conv", 16, 256, 256, 3, 1, "q8"),
+              ("conv", 64, 128, 128, 3, 2, "q8"))
+
+
+def int8_units():
+    """[(site key, launches an encode)]: the encode's distinct sites, the
+    stem's int8 launch (counted in a parent's 104-launch sum) and
+    ``INT8_SITES`` (0)."""
+    from icek_torch.models import resnet_int8
+
+    units = sorted(resnet_int8.encode_sites(256).items(), key=str)
+    return [list(k) for k, _ in units], [n for _, n in units]
+
+
+def _int8_inputs(key, batch: int):
+    """Seeded inputs of site `key` (the same in every process) and its run
+    and plain version, through whatever entry points this tree's package has."""
+    import zlib
+
+    from icek_torch.kernels import int8_conv as k8
+
+    g = torch.Generator(device="cuda").manual_seed(zlib.crc32(repr(key).encode()))
+    dev = torch.device("cuda")
+    i8 = lambda lo, *shape: torch.randint(lo, 128, shape, generator=g, device=dev,
+                                          dtype=torch.int8)
+
+    def site(cin, cout, k):
+        K = k * k * cin
+        return {"wq": i8(-127, cout, k, k, cin),
+                "es": (torch.rand(cout, generator=g, device=dev) + 0.5) / (127.0 * 64 * K ** 0.5),
+                "b": torch.randn(cout, generator=g, device=dev) * 0.1}
+
+    inv = torch.tensor(127 / 3.0)
+    kind = key[0]
+    if kind in ("stem", "stem_int8"):
+        side = key[1]
+        images = torch.randn((batch, 3, side, side), generator=g, device=dev).permute(0, 2, 3, 1)
+        st, inv_img = site(3, 64, 7), torch.tensor(127 / 4.0)
+        if kind == "stem_int8":
+            xq = k8.quantize_images(images, inv_img) if hasattr(k8, "quantize_images") else \
+                torch.clamp(torch.round(images * inv_img), -127, 127).to(torch.int8)
+            return (lambda: k8.conv_site(xq, st, 2, inv=inv)), \
+                (lambda: k8.reference_site(xq, st, 2, inv=inv)), 1
+        if hasattr(k8, "stem_site"):
+            run = lambda: k8.stem_site(images, st, inv_img, inv)
+        else:
+            run = lambda: k8.conv_site(torch.clamp(torch.round(images.to(torch.float32) * inv_img),
+                                                   -127, 127).to(torch.int8).contiguous(),
+                                       st, 2, inv=inv)
+        plain = lambda: k8.reference_site(torch.clamp(torch.round(images * inv_img), -127, 127)
+                                          .to(torch.int8), st, 2, inv=inv)
+        return run, plain, 1
+    if kind == "fused":
+        _, side, cin, cmid, cout, s = key
+        ho = k8.out_hw(side, 1, s)
+        xq, out = i8(0, batch, side, side, cin), i8(0, batch, ho, ho, cmid)
+        c3, dn = site(cmid, cout, 1), site(cin, cout, 1)
+        if hasattr(k8, "fused_site"):
+            run, launches = (lambda: k8.fused_site(out, xq, c3, dn, s, inv)), 1
+        else:
+            run, launches = (lambda: k8.conv_site(out, c3, 1, inv=inv,
+                                                  shortcut=k8.conv_site(xq, dn, s))), 2
+        plain = lambda: k8.reference_site(out, c3, 1, inv, shortcut=k8.reference_site(xq, dn, s))
+        return run, plain, launches
+    _, side, cin, cout, k, s, mode = key
+    x, st = i8(0, batch, side, side, cin), site(cin, cout, k)
+    ho = k8.out_hw(side, k, s)
+    kw = dict(inv=None if mode == "f32" else inv)
+    if mode == "q8_q8sc":
+        kw.update(shortcut=i8(0, batch, ho, ho, cout), a_x=torch.tensor(1 / 127.0))
+    elif mode == "q8_f32sc":
+        kw.update(shortcut=torch.randn((batch, ho, ho, cout), generator=g, device=dev))
+    return (lambda: k8.conv_site(x, st, s, **kw)), (lambda: k8.reference_site(x, st, s, **kw)), 1
+
+
+def time_int8_conv(name: str, args, save: str = None) -> None:
+    import json
+
+    from icek_torch.kernels import int8_conv as k8
+
+    batch = int(args[0]) if args and args[0].isdigit() else 256
+    keys, counts = json.loads(args[1]) if len(args) > 1 else int8_units()
+    keys = [tuple(k) for k in keys] + [tuple(k) for k in INT8_SITES]
+    counts = list(counts) + [0] * len(INT8_SITES)
+    if len(args) > 2:                   # only the sites of these kinds
+        kinds = args[2].split(",")
+        keys, counts = zip(*[(k, n) for k, n in zip(keys, counts) if k[0] in kinds])
+    outputs, unit_ms, total, launches = {}, {}, 0.0, 0
+    for key, count in zip(keys, counts):
+        run, plain, n = _int8_inputs(key, batch)
+        got = run()
+        torch.cuda.synchronize()
+        diff = int((got != plain()).sum())
+        if diff and name not in CUTS["int8_conv"]:
+            raise RuntimeError(f"int8_conv variant {name!r} {key}: {diff} outputs differ from "
+                               f"the plain version")
+        outputs[repr(key)] = got.cpu()
+        unit_ms[key[0]] = ms = _event_ms(run, iters=10)
+        held = f"{diff} outputs differ (a cut)" if diff else "bit-equal to the plain version"
+        print(f"{name} {key} batch {batch}: {ms:.4f} ms, {n} launch(es), host "
+              f"{_host_us(run):.1f} us a call, x {count} an encode, {held}", flush=True)
+        total += count * ms
+        launches += count * n
+        del run, plain, got
+    # the site launches alone: a tree without stem_site quantized with torch ops first
+    kernels = total if hasattr(k8, "stem_site") else \
+        total - unit_ms["stem"] + unit_ms["stem_int8"]
+    print(f"{name} per-encode sum: {total:.4f} ms as the encode runs its sites, "
+          f"{kernels:.4f} ms over its {launches} site launches alone (batch {batch})",
+          flush=True)
+    if save:
+        torch.save(outputs, save)
+
+
+def _host_us(run, reps: int = 50) -> float:
+    """The wrapper's host cost a call (us) while the device runs ahead."""
+    import time
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 TIMERS = {"fused_norm": time_fused_norm, "decoder_step": time_decoder_step,
-          "score_topk": time_score_topk, "flash_attention": time_flash_attention}
+          "score_topk": time_score_topk, "flash_attention": time_flash_attention,
+          "int8_conv": time_int8_conv}
+# timers that save their outputs, compared with the parent's bit for bit
+SAVES = {"decoder_step": time_decoder_step, "int8_conv": time_int8_conv}
 
 
 def _nvcc(src_path: str, include: str, out: str):
@@ -495,6 +682,10 @@ def main(source: str, names, args, parent: str = None) -> None:
                     print(f"ptxas {source} {name}: {line.strip()}", flush=True)
     print(f"{torch.cuda.get_device_name(0)}; variants {', '.join(names)} of {source}.cu"
           + (f", and {parent}'s as parent" if parent else ""), flush=True)
+    if source == "int8_conv":         # one list of sites for this tree and the parent
+        import json
+
+        args = [args[0] if args else "256", json.dumps(int8_units())] + list(args[1:])
     order = list(names) + list(names)[::-1]
     for name in (["parent"] + order + ["parent"]) if parent else order:
         so = os.path.join(out_dir, name + ".so")
@@ -505,7 +696,7 @@ def main(source: str, names, args, parent: str = None) -> None:
         else:
             subprocess.run([sys.executable, "-m", "icek_torch.kernels._variants", "--one", source,
                             name, so, *args], check=True)
-    if parent and source == "decoder_step":
+    if parent and source in SAVES:
         same_bits(os.path.join(out_dir, "parent.pt"), os.path.join(out_dir, names[0] + ".pt"))
 
 
@@ -514,8 +705,9 @@ def same_bits(parent_pt: str, base_pt: str) -> None:
     variant's are the same bits."""
     want, got = torch.load(parent_pt), torch.load(base_pt)
     for case, outs in got.items():
-        diff = max(float((a.float() - b.float()).abs().max()) for a, b in zip(outs, want[case]))
-        same = all(torch.equal(a, b) for a, b in zip(outs, want[case]))
+        outs, ref = (outs, want[case]) if isinstance(outs, list) else ([outs], [want[case]])
+        diff = max(float((a.float() - b.float()).abs().max()) for a, b in zip(outs, ref))
+        same = all(torch.equal(a, b) for a, b in zip(outs, ref))
         print(f"parent vs {os.path.basename(base_pt)[:-3]} {case}: "
               f"{'bit-equal' if same else f'differ, max abs {diff:.3g}'}", flush=True)
 
@@ -527,8 +719,8 @@ if __name__ == "__main__":
         root, argv = argv[1], argv[2:]
     if len(argv) >= 4 and argv[0] == "--one":
         _build.use_variant(argv[1], argv[3])
-        if argv[1] == "decoder_step":
-            time_decoder_step(argv[2], argv[4:], save=argv[3][:-3] + ".pt")
+        if argv[1] in SAVES:
+            SAVES[argv[1]](argv[2], argv[4:], save=argv[3][:-3] + ".pt")
         else:
             TIMERS[argv[1]](argv[2], argv[4:])
     elif len(argv) >= 2 and argv[0] in VARIANTS:

@@ -9,11 +9,13 @@ Scheme (standard symmetric PTQ, as in JAX):
   (:func:`calibrate`, running max or a percentile of per-image maxima) at
   every requantization point.  Post-ReLU tensors live in [0, 127]; the
   network input uses the symmetric [-127, 127].
-- Each site is one launch of ``kernels/int8_conv.py::conv_site`` on the
-  card: int8 x int8 -> int32 and its epilogue (``acc * es + b``, the
-  residual add, ReLU, requantize) in the same kernel, so activations
-  between sites are int8.  An encode makes 104 of them (the stem, 33
-  bottlenecks of three sites, 4 down convolutions) and one int8 max pool.
+- Each site is one launch of ``kernels/int8_conv.py`` on the card: int8 x
+  int8 -> int32 and its epilogue (``acc * es + b``, the residual add, ReLU,
+  requantize) in the same kernel, so activations between sites are int8.
+  The stem quantizes the float images itself (``stem_site``), and a
+  bottleneck's block 0 runs conv3 and the down convolution in one launch
+  (``fused_site``): an encode makes 100 site launches (the stem, 33
+  bottlenecks of three, ``site_routes``) and one int8 max pool.
 - The adaptive-average-pool and 1x1 projection tail runs in
   ``compute_dtype`` on the library's kernels, as in JAX.
 
@@ -295,15 +297,59 @@ def to_device(qtree: Dict, device) -> Dict:
 # Forward
 # --------------------------------------------------------------------------
 
+def site_routes(qtree, img: int) -> Dict[str, int]:
+    """{route: launches} of one ``resnet_encode_int8`` of img x img images
+    on CUDA, from the tree's shapes (``int8_conv.route``): its sum is the
+    encode's site launches (``conv_site.launches``)."""
+    routes = dict.fromkeys(int8_conv.ROUTES, 0)
+    routes["stem"] = 1
+    side = int8_conv.out_hw(int8_conv.out_hw(img, 7, 2), 3, 2)
+    for stage in range(1, 5):
+        for b, qb in enumerate(qtree[f"layer{stage}"]):
+            stride = resnet._stride(stage, b)
+            out = int8_conv.out_hw(side, 3, stride)
+            for name, s, h in (("conv1", 1, side), ("conv2", stride, side)) + (
+                    () if "down_conv" in qb else (("conv3", 1, out),)):
+                N, KH, _, C = qb[name]["wq"].shape
+                routes[int8_conv.route(C, N, KH, s, h, h)] += 1
+            routes["fused"] += "down_conv" in qb
+            side = out
+    return routes
+
+
+def encode_sites(img: int = 256) -> Dict[tuple, int]:
+    """{site: launches} of one ``resnet_encode_int8`` of img x img images,
+    by distinct shape: ("stem", side, 3, 64, 7, 2), ("conv", side, Cin,
+    Cout, kernel, stride, epilogue) and ("fused", side, Cin, Cmid, Cout,
+    stride), side the site's input side.  The launches sum to
+    ``site_routes``'."""
+    sites: Dict[tuple, int] = {("stem", img, 3, 64, 7, 2): 1}
+
+    def add(key):
+        sites[key] = sites.get(key, 0) + 1
+
+    side, cin = int8_conv.out_hw(int8_conv.out_hw(img, 7, 2), 3, 2), 64
+    for stage, (count, width) in enumerate(zip((3, 4, 23, 3), (64, 128, 256, 512)), 1):
+        for b in range(count):
+            s = resnet._stride(stage, b)
+            out = int8_conv.out_hw(side, 3, s)
+            add(("conv", side, cin, width, 1, 1, "q8"))
+            add(("conv", side, width, width, 3, s, "q8"))
+            if b == 0:
+                add(("fused", side, cin, width, 4 * width, s))
+            else:
+                add(("conv", out, width, 4 * width, 1, 1, "q8_q8sc"))
+            side, cin = out, 4 * width
+    return sites
+
+
 def resnet_encode_int8(qtree, images, encoded_size: int = 14,
                        compute_dtype=torch.bfloat16):
     """int8 ``resnet_encode_folded``: (B, H, W, 3) normalized NHWC images ->
-    (B, encoded_size**2, D) tokens, h-major.  On CUDA every site is the
-    int8 kernel (104 launches) and the pool its int8 kernel; either raises
-    if it cannot build or launch."""
-    xq = torch.clamp(torch.round(images.to(torch.float32) * qtree["inv_img"]),
-                     -127, 127).to(torch.int8).contiguous()
-    xq = int8_conv.conv_site(xq, qtree["conv1"], 2, inv=qtree["inv_stem"])
+    (B, encoded_size**2, D) tokens, h-major.  On CUDA every site is an int8
+    kernel (``site_routes``: 100 launches) and the pool its int8 kernel;
+    either raises if it cannot build or launch."""
+    xq = int8_conv.stem_site(images, qtree["conv1"], qtree["inv_img"], qtree["inv_stem"])
     # requantization is monotonic, so pooling the codes equals quantizing
     # the pooled tensor; the pool's identity is -128
     xq = int8_conv.max_pool(xq)
@@ -313,9 +359,8 @@ def resnet_encode_int8(qtree, images, encoded_size: int = 14,
             out = int8_conv.conv_site(xq, qb["conv1"], 1, inv=qb["inv_a1"])
             out = int8_conv.conv_site(out, qb["conv2"], stride, inv=qb["inv_a2"])
             if "down_conv" in qb:
-                shortcut = int8_conv.conv_site(xq, qb["down_conv"], stride)
-                xq = int8_conv.conv_site(out, qb["conv3"], 1, inv=qb["inv_out"],
-                                         shortcut=shortcut)
+                xq = int8_conv.fused_site(out, xq, qb["conv3"], qb["down_conv"], stride,
+                                          qb["inv_out"])
             else:
                 xq = int8_conv.conv_site(out, qb["conv3"], 1, inv=qb["inv_out"],
                                          shortcut=xq, a_x=qb["a_x"])

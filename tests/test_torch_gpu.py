@@ -1718,10 +1718,14 @@ def test_int8_conv_kernel_matches_plain(cuda, k, cin, cout, stride, side, mode):
     kw = dict(inv=None if mode == "f32" else torch.tensor(127 / 3.0), shortcut=shortcut,
               a_x=torch.tensor(1 / 127.0) if mode == "q8_q8sc" else None)
     before = k8.conv_site.launches
+    route = k8.route(cin, cout, k, stride, side, side)
+    on_route = _int8_routes()[route]
     acc = k8.qconv(x, w, stride)
     got = k8.conv_site(x, site, stride, **kw)
     torch.cuda.synchronize()
     assert k8.conv_site.launches == before + 2
+    assert _int8_routes()[route] == on_route + 2
+    assert _native_route(cin, cout, k, stride, side, side) == route
     assert torch.equal(acc, k8.reference_qconv(x, w, stride))
     want = k8.reference_site(x, site, stride, **kw)
     assert got.dtype == want.dtype and torch.equal(got, want)
@@ -1740,10 +1744,155 @@ def test_int8_max_pool_kernel_matches_plain(cuda):
         assert torch.equal(got, k8.reference_max_pool(x))
 
 
-def test_int8_encode_on_card_runs_104_sites_and_matches_plain(cuda):
-    """The whole int8 encode at 64x64: 104 launches of the site kernel and
-    one of the pool; every code (hence the tokens in f32) equals the CPU's
-    plain version."""
+def _int8_routes():
+    from icek_torch.kernels import int8_conv as k8
+
+    return {r: n.launches for r, n in k8.conv_site.routes.items()}
+
+
+def _native_route(C, N, KH, stride, H, W):
+    """The route the built library's ``int8_conv_route`` names, which
+    ``int8_conv.route`` must predict."""
+    import ctypes
+
+    from icek_torch.kernels import _build
+
+    fn = _build.bind("int8_conv", "int8_conv_route", [ctypes.c_int] * 7)
+    return {0: "mma_sync", 1: "tma", 2: "gather", 3: "tma_box"}[fn(C, N, KH, KH, stride, H, W)]
+
+
+def _int8_site(g, cuda, cin, cout, k):
+    K = k * k * cin
+    return {"wq": torch.randint(-127, 128, (cout, k, k, cin), generator=g,
+                                dtype=torch.int8).to(cuda),
+            "es": ((torch.rand(cout, generator=g) + 0.5) / (127.0 * 64 * K ** 0.5)).to(cuda),
+            "b": (torch.randn(cout, generator=g) * 0.1).to(cuda)}
+
+
+def _encode_site_keys():
+    from icek_torch.models import resnet_int8
+
+    return sorted(resnet_int8.encode_sites(256), key=str)
+
+
+@pytest.mark.parametrize("key", _encode_site_keys(), ids=str)
+def test_int8_encode_site_shapes_on_their_routes(cuda, key):
+    """Every distinct site of an encode of 256x256 images at batch 3 (M
+    ragged at 8x8): int32 sums (qconv, the stem's acc) and codes bit-equal to
+    the plain versions, one launch on the route the code predicts."""
+    from icek_torch.kernels import int8_conv as k8
+
+    import zlib
+
+    g = _gen(zlib.crc32(repr(key).encode()))
+    inv, a_x = torch.tensor(127 / 3.0), torch.tensor(1 / 127.0)
+    before = _int8_routes()
+    if key[0] == "stem":
+        images = torch.randn((3, 3, key[1], key[1]), generator=g).to(cuda).permute(0, 2, 3, 1)
+        site, inv_img = _int8_site(g, cuda, 3, 64, 7), torch.tensor(127 / 4.0)
+        got = k8.stem_site(images, site, inv_img, inv)
+        acc = k8.stem_site(images, site, inv_img, acc=True)
+        torch.cuda.synchronize()
+        assert torch.equal(acc, k8.reference_stem_site(images, site, inv_img, acc=True))
+        assert torch.equal(got, k8.reference_stem_site(images, site, inv_img, inv))
+        want = {"stem": 2}
+    elif key[0] == "fused":
+        _, side, cin, cmid, cout, s = key
+        ho = k8.out_hw(side, 1, s)
+        xq = torch.randint(0, 128, (3, side, side, cin), generator=g, dtype=torch.int8).to(cuda)
+        out = torch.randint(0, 128, (3, ho, ho, cmid), generator=g, dtype=torch.int8).to(cuda)
+        c3, dn = _int8_site(g, cuda, cmid, cout, 1), _int8_site(g, cuda, cin, cout, 1)
+        got = k8.fused_site(out, xq, c3, dn, s, inv)
+        torch.cuda.synchronize()
+        assert torch.equal(got, k8.reference_fused_site(out, xq, c3, dn, s, inv))
+        want = {"fused": 1}
+    else:
+        _, side, cin, cout, k, s, mode = key
+        ho = k8.out_hw(side, k, s)
+        x = torch.randint(0, 128, (3, side, side, cin), generator=g, dtype=torch.int8).to(cuda)
+        site = _int8_site(g, cuda, cin, cout, k)
+        kw = dict(inv=inv)
+        if mode == "q8_q8sc":
+            kw.update(shortcut=torch.randint(0, 128, (3, ho, ho, cout), generator=g,
+                                             dtype=torch.int8).to(cuda), a_x=a_x)
+        acc = k8.qconv(x, site["wq"], s)
+        got = k8.conv_site(x, site, s, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(acc, k8.reference_qconv(x, site["wq"], s))
+        assert torch.equal(got, k8.reference_site(x, site, s, **kw))
+        route = k8.route(cin, cout, k, s, side, side)
+        assert route == _native_route(cin, cout, k, s, side, side) != "mma_sync"
+        want = {route: 2}
+    ran = {r: n - before[r] for r, n in _int8_routes().items() if n != before[r]}
+    assert ran == want
+
+
+@pytest.mark.parametrize("B,H,W,layout", [(3, 37, 37, "planar"), (2, 20, 262, "planar"),
+                                          (2, 64, 64, "nhwc"), (1, 9, 300, "nhwc")])
+def test_int8_stem_reads_float_images_bit_equal(cuda, B, H, W, layout):
+    """The stem from the float images through their strides (the planar
+    view of normalize_in_graph, or NHWC), widths of one, two and three
+    column blocks: sums and codes equal the plain version's."""
+    from icek_torch.kernels import int8_conv as k8
+
+    g = _gen(H * W)
+    nchw = (torch.randn((B, 3, H, W), generator=g) * 2).to(cuda)
+    images = nchw.permute(0, 2, 3, 1)
+    if layout == "nhwc":
+        images = images.contiguous()
+    site, inv_img, inv = _int8_site(g, cuda, 3, 64, 7), torch.tensor(127 / 5.0), torch.tensor(9.0)
+    assert torch.equal(k8.stem_site(images, site, inv_img, acc=True),
+                       k8.reference_stem_site(images, site, inv_img, acc=True))
+    assert torch.equal(k8.stem_site(images, site, inv_img, inv),
+                       k8.reference_stem_site(images, site, inv_img, inv))
+
+
+@pytest.mark.parametrize("side,cin,cmid,cout,stride", [
+    (9, 64, 64, 256, 1), (10, 256, 128, 512, 2), (16, 256, 128, 512, 2), (5, 1024, 512, 2048, 2),
+    (8, 128, 64, 192, 1)])
+def test_int8_fused_site_bit_equal(cuda, side, cin, cmid, cout, stride):
+    """conv3 and the down convolution in one launch (the down one's A tiles
+    by TMA rows, TMA boxes or gathered; Cout not a multiple of 128) equal
+    the two plain sites in turn, code for code."""
+    from icek_torch.kernels import int8_conv as k8
+
+    g = _gen(side * cin + cout)
+    ho = k8.out_hw(side, 1, stride)
+    xq = torch.randint(0, 128, (3, side, side, cin), generator=g, dtype=torch.int8).to(cuda)
+    out = torch.randint(0, 128, (3, ho, ho, cmid), generator=g, dtype=torch.int8).to(cuda)
+    c3, dn = _int8_site(g, cuda, cmid, cout, 1), _int8_site(g, cuda, cin, cout, 1)
+    inv = torch.tensor(127 / 3.0)
+    before = _int8_routes()["fused"]
+    got = k8.fused_site(out, xq, c3, dn, stride, inv)
+    torch.cuda.synchronize()
+    assert _int8_routes()["fused"] == before + 1
+    assert torch.equal(got, k8.reference_fused_site(out, xq, c3, dn, stride, inv))
+    assert torch.equal(got, k8.conv_site(out, c3, 1, inv=inv, shortcut=k8.conv_site(xq, dn, stride)))
+
+
+def test_int8_routes_agree_with_the_library():
+    """``route`` (Python) and ``int8_conv_route`` (the source) name the same
+    route over a grid of shapes, the ones only the mma.sync kernel takes
+    included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from icek_torch.kernels import int8_conv as k8
+
+    for C in (3, 4, 64, 128, 192, 256):
+        for N in (8, 64, 72, 128, 256):
+            for k in (1, 3, 5, 7):
+                for stride in (1, 2):
+                    for side in (5, 8, 9, 16, 37, 64, 256):
+                        assert _native_route(C, N, k, stride, side, side) == \
+                            k8.route(C, N, k, stride, side, side)
+    assert k8.route(3, 64, 7, 2, 256, 256) == k8.route(4, 8, 5, 1, 6, 6) == \
+        k8.route(192, 72, 3, 1, 5, 5) == "mma_sync"
+
+
+def test_int8_encode_on_card_runs_its_site_routes_and_matches_plain(cuda):
+    """The whole int8 encode at 64x64: as many launches on each route as
+    ``site_routes`` derives from the tree (100 sites) and one of the pool;
+    every code (hence the tokens in f32) equals the CPU's plain version."""
     import numpy as np
 
     from icek_torch.kernels import int8_conv as k8
@@ -1755,10 +1904,15 @@ def test_int8_encode_on_card_runs_104_sites_and_matches_plain(cuda):
     qtree = resnet_int8.calibrate_and_quantize(folded, [images], torch.float32)
     want = resnet_int8.resnet_encode_int8(qtree, images, 2, torch.float32)
     before = (k8.conv_site.launches, k8.max_pool.launches)
+    routes = _int8_routes()
     got = resnet_int8.resnet_encode_int8(resnet_int8.to_device(qtree, cuda),
                                          images.to(cuda), 2, torch.float32)
     torch.cuda.synchronize()
-    assert (k8.conv_site.launches - before[0], k8.max_pool.launches - before[1]) == (104, 1)
+    want_routes = resnet_int8.site_routes(qtree, 64)
+    assert {r: n - routes[r] for r, n in _int8_routes().items()} == want_routes
+    assert (k8.conv_site.launches - before[0], k8.max_pool.launches - before[1]) == \
+        (sum(want_routes.values()), 1)
+    assert sum(want_routes.values()) == sum(resnet_int8.encode_sites(64).values()) == 100
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
                                atol=1e-5 * float(want.abs().max()))
 

@@ -121,7 +121,10 @@ def _jax_sites():
 
 def test_encode_codes_match_jax_at_every_site(qtrees, images):
     """Both encodes walked site by site from the same input: every int8
-    code equal (0 of them differ), then the tokens of the whole encode."""
+    code equal (0 of them differ), then the tokens of the whole encode.
+    The encode's own entries are checked beside them: the stem from the
+    float images (``stem_site``) and each block 0's fused conv3 + down
+    site (``fused_site``)."""
     jqt, _ = qtrees
     qt = bridge.from_jax_qtree(jax.tree.map(np.asarray, jqt))
     site, requant = _jax_sites()
@@ -129,17 +132,19 @@ def test_encode_codes_match_jax_at_every_site(qtrees, images):
     xj = jnp.clip(jnp.round(jnp.asarray(img) * jqt["inv_img"]), -127, 127).astype(jnp.int8)
     xt = torch.clamp(torch.round(torch.from_numpy(img) * qt["inv_img"]), -127, 127
                      ).to(torch.int8)
-    checked = []
+    checked, extra = [], []
 
-    def same(name, a, b):
+    def same(name, a, b, into=checked):
         a = np.asarray(a)
         assert int(np.sum(a != b.numpy())) == 0, f"{name}: int8 codes differ"
-        checked.append(name)
+        into.append(name)
 
     same("input", xj, xt)
     xj = requant(site(jqt["conv1"], xj, 2), jqt["inv_stem"])
     xt = k8.conv_site(xt, qt["conv1"], 2, inv=qt["inv_stem"])
     same("stem", xj, xt)
+    same("stem_site", xj, k8.stem_site(torch.from_numpy(img), qt["conv1"], qt["inv_img"],
+                                       qt["inv_stem"]), extra)
     xj = jax.lax.reduce_window(xj, jnp.int8(-128), jax.lax.max, (1, 3, 3, 1), (1, 2, 2, 1),
                                [(0, 0), (1, 1), (1, 1), (0, 0)])
     xt = k8.max_pool(xt)
@@ -159,13 +164,16 @@ def test_encode_codes_match_jax_at_every_site(qtrees, images):
                 sct = k8.conv_site(xt, qp["down_conv"], s)
                 np.testing.assert_array_equal(sct.numpy(), np.asarray(scj))
                 xj = requant(yj + scj, qj["inv_out"])
+                fused = k8.fused_site(ot, xt, qp["conv3"], qp["down_conv"], s, qp["inv_out"])
                 xt = k8.conv_site(ot, qp["conv3"], 1, inv=qp["inv_out"], shortcut=sct)
+                same(f"layer{stage}.{b}.fused", xj, fused, extra)
             else:
                 xj = requant(yj + xj.astype(jnp.float32) * qj["a_x"], qj["inv_out"])
                 xt = k8.conv_site(ot, qp["conv3"], 1, inv=qp["inv_out"], shortcut=xt,
                                   a_x=qp["a_x"])
             same(f"layer{stage}.{b}.out", xj, xt)
     assert len(checked) == 3 + 33 * 3
+    assert len(extra) == 1 + 4
     # JAX's encode as its sites run one by one: under one jit of the whole
     # encode XLA:CPU's fused int8 convolutions are not exact integer sums
     # (on these inputs 3803 of the 16384 final codes moved, by up to 6)
