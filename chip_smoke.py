@@ -12,7 +12,12 @@ Phases (any failure raises and exits non-zero):
   3. kernels  each kernel at the shapes the geo serving and training paths
               give it, held against its plain PyTorch version on the card
               in f32 and bf16 (flash attention at all three attention
-              sites of a train step; the dropout kernels at rate 0.2 under the
+              sites of a train step, f32 on the TF32 forward timed beside
+              the CUDA-core forward it replaced, and bf16 whose rows start
+              mid-word on the TF32 forward too; the score head in f32 on its
+              3xTF32 tensor-core pass at k 1, 2, 5, 10 and 16, beside the
+              CUDA-core pass it replaced, every f32 3xTF32 route with its
+              TF32 bound beside the 67 TF/s one; the dropout kernels at rate 0.2 under the
               mask the kernel itself exports, with the mask's keep rate and
               the forward / backward mask identity; the decoder step on
               both its routes in bf16 and in f32, tensor cores (f32: three
@@ -39,14 +44,18 @@ Phases (any failure raises and exits non-zero):
               from a seed) answers requests through Evaluator.decode_batch:
               a warm-up, 3 timed beam-5 batches of 256 raw f16 CHW images and
               one greedy batch, with every kernel's launches held to the
-              counts the code predicts; then the share of beam-5 tokens the
+              counts the code predicts (the flash forward and the score
+              head's first pass by route too); then the share of beam-5 tokens the
               decoder-step kernel and the stock step agree on is logged (not
               asserted), and for the fact presets the same share between the
               plain bf16 and plain f32 decodes beside it;
   5. check    the same f32 Evaluators on the card and on the CPU for two
-              images: image tokens, memory and first-step scores agree;
-              the card's f32 beam-5 decode runs the decoder step's f32
-              tensor-core route every step;
+              images: image tokens, memory and first-step scores agree,
+              beam-5 tokens equal; the card's f32 beam-5 decode runs the
+              decoder step's f32 tensor-core route every step, the TF32
+              flash forward in every encoder layer and the score head's
+              f32 tensor-core pass every step, and so does an f32 greedy
+              decode;
   6. train    each preset takes train steps through
               train.step.make_train_step: batch 256, captions of 32 (geo),
               102 (knowledge) and 52 (news) tokens, cached image tokens,
@@ -54,8 +63,9 @@ Phases (any failure raises and exits non-zero):
               timed steps, the training kernels' launch counts read around
               the timed steps and held to the counts the code predicts; the
               deterministic eval loss must fall; the geo step again in
-              float32 (the flash backward's TF32 kernels; 3 timed steps, the
-              launches held, the loss falling, beside the bf16 step's
+              float32 (the flash forward's and backward's TF32 kernels, no
+              CUDA-core forward; 3 timed steps, the launches held by route,
+              the loss falling, beside the bf16 step's
               samples/s) and, at dropout 0, one f32 step at batch 256 held
               to the plain path on the card (loss 1e-4, gradients 1e-3 in
               relative L2 over the tree); then a 2-sample f32
@@ -202,6 +212,10 @@ import torch
 # table (set_peaks); its f32 peak, which that table lacks, is the H100 SXM's
 HBM_BYTES_PER_S = None
 PEAK_FLOPS = {torch.bfloat16: None, torch.float32: 67e12}
+# the H100 SXM's dense TF32 rate (NVIDIA's data sheet: half the bf16 rate);
+# an f32 route that runs three TF32 products a product (3xTF32) is bounded
+# by 3 x its operations at this rate (bound_tf32_ms)
+TF32_FLOPS = 494.7e12
 SEED = 0
 BATCH, BEAM, MAX_LEN, VOCAB, ENT_ROWS, IMG = 256, 5, 30, 10000, 301, 256
 CAP_LEN, TRAIN_STEPS, RATE = 32, 6, 0.2
@@ -280,6 +294,16 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def bound_tf32_ms(nbytes: float, flops: float) -> tuple:
+    """The least time for f32 work done as three TF32 products a product:
+    its bytes at the HBM rate, or 3 x its operations at the TF32 rate.  Where
+    this is below bound_ms(.., float32) (the f32 CUDA cores' 67 TF/s), it is
+    the card's least time for the work."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * flops / TF32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def max_err(a, b) -> float:
     if isinstance(a, (tuple, list)):
         return max(max_err(x, y) for x, y in zip(a, b))
@@ -316,16 +340,29 @@ FLASH_SITES = (("encoder", ENT_ROWS, ENT_ROWS, False), ("self", CAP_LEN, CAP_LEN
                ("cross", CAP_LEN, 14 * 14 + ENT_ROWS, False))
 
 
-def _flash_bounds(dtype, Tq, Tk, causal, backward):
-    """The card's least time for one attention: q, k, v, o (forward) or q, dO,
+def _flash_work(dtype, Tq, Tk, causal, backward):
+    """(bytes, operations) of one attention: q, k, v, o (forward) or q, dO,
     dq, k, v, dk, dv (backward) moved once; two (forward) or five (backward)
     products over the visible (query, key) pairs."""
     B, H, Hd = BATCH, 10, 30
     esz = torch.finfo(dtype).bits // 8
     pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk
     rows = 3 * Tq + 4 * Tk if backward else 2 * Tq + 2 * Tk
-    return bound_ms(esz * B * H * Hd * rows, (5 if backward else 2) * 2 * B * H * pairs * Hd,
-                    dtype)
+    return esz * B * H * Hd * rows, (5 if backward else 2) * 2 * B * H * pairs * Hd
+
+
+def _flash_bounds(dtype, Tq, Tk, causal, backward):
+    """The card's least time for one attention (_flash_work) at the dtype's
+    peak: bf16 tensor cores, or the f32 CUDA cores' 67 TF/s."""
+    return bound_ms(*_flash_work(dtype, Tq, Tk, causal, backward), dtype)
+
+
+def _tf32_bound(dtype, work) -> dict:
+    """An f32 record's 3xTF32 bound beside its 67 TF/s one; {} for bf16."""
+    if dtype != torch.float32:
+        return {}
+    bms, by = bound_tf32_ms(*work)
+    return dict(bound_tf32_ms=bms, bound_tf32_by=by)
 
 
 FLASH_TOLS = ((torch.float32, 1e-4, 1e-4), (torch.bfloat16, 3e-2, 4e-2))
@@ -345,9 +382,12 @@ def _flash_one_site(dev, dtype, tol, btol, name, Tq, Tk, causal, serving, relati
     B, H = BATCH, 10
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q, k, v, d_out = _flash_site(dev, dtype, Tq, Tk)
-    # bf16: the tensor-core kernels; f32: the CUDA-core forward, the TF32 backward
-    require(fa.uses_tensor_cores(q, k, v) == (dtype == torch.bfloat16),
-            f"flash {name} {dtype}: unexpected kernel family")
+    f32 = dtype == torch.float32
+    # bf16: the tensor-core kernels; f32: the TF32 forward and backward
+    require(fa.route(q, k, v) == ("tf32" if f32 else "mma"),
+            f"flash {name} {dtype}: unexpected kernel family {fa.route(q, k, v)}")
+    # the CUDA-core forward the TF32 one replaced, reached through its entry
+    cores = lambda rate=0.0: fa._forward(q, k, v, Tk, causal, rate, 77, via="cuda_cores")[0]
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     res = None
     if serving:                 # rate 0: the serving launch
@@ -360,7 +400,12 @@ def _flash_one_site(dev, dtype, tol, btol, name, Tq, Tk, causal, serving, relati
         res = dict(max_abs_err=err, tol=tol, ms=cuda_ms(lambda: fa.flash_mha(q, k, v)),
                    plain_ms=cuda_ms(lambda: fa.reference_mha(q, k, v)),
                    library_ms=cuda_ms(lambda: sdpa(qh, kh, vh)),
-                   bound_ms=bms, bound_by=by)
+                   bound_ms=bms, bound_by=by,
+                   **_tf32_bound(dtype, _flash_work(dtype, Tq, Tk, causal, False)))
+        if f32:
+            cerr = max_err(cores(), want)
+            require(cerr <= tol, f"flash {name} CUDA-core forward: max abs err {cerr} > {tol}")
+            res.update(cuda_cores_ms=cuda_ms(cores), cuda_cores_err=cerr)
         del got, want
 
     # rate 0.2 under the kernel's own mask; keep rate; one mask both ways
@@ -386,8 +431,14 @@ def _flash_one_site(dev, dtype, tol, btol, name, Tq, Tk, causal, serving, relati
     ident = abs(lhs - rhs) / max(abs(lhs), 1.0)
     require(ident <= (1e-3 if dtype == torch.float32 else 3e-2),
             f"flash backward {name} {dtype}: mask identity off by {ident}")
+    extra = {}
     with torch.no_grad():
         fms, fplain = cuda_ms(run), cuda_ms(plain, iters=5)
+        if f32:                 # the CUDA-core forward under the same mask
+            cerr = _rel_err(cores(RATE), ref.detach()) if relative else \
+                max_err(cores(RATE), ref.detach())
+            require(cerr <= tol, f"flash dropout {name} CUDA-core forward: err {cerr} > {tol}")
+            extra = dict(cuda_cores_ms=cuda_ms(lambda: cores(RATE)), cuda_cores_err=cerr)
     bms_ = cuda_ms(lambda: torch.autograd.grad(out, leaves, d_out, retain_graph=True))
     bplain = cuda_ms(lambda: torch.autograd.grad(ref, leaves, d_out, retain_graph=True),
                      iters=5)
@@ -402,10 +453,12 @@ def _flash_one_site(dev, dtype, tol, btol, name, Tq, Tk, causal, serving, relati
     blib = cuda_ms(lambda: torch.autograd.grad(lib_out, lib_in, lib_g, retain_graph=True))
     bound, by = _flash_bounds(dtype, Tq, Tk, causal, False)
     fwd = dict(rate=RATE, max_abs_err=derr, keep_rate=kept, ms=fms, plain_ms=fplain,
-               library_ms=flib, bound_ms=bound, bound_by=by)
+               library_ms=flib, bound_ms=bound, bound_by=by, **extra,
+               **_tf32_bound(dtype, _flash_work(dtype, Tq, Tk, causal, False)))
     bound, by = _flash_bounds(dtype, Tq, Tk, causal, True)
     bwd = dict(max_abs_err=err, rel_err=rel, tol=btol, mask_identity=ident, ms=bms_,
-               plain_ms=bplain, library_ms=blib, bound_ms=bound, bound_by=by)
+               plain_ms=bplain, library_ms=blib, bound_ms=bound, bound_by=by,
+               **_tf32_bound(dtype, _flash_work(dtype, Tq, Tk, causal, True)))
     # the backward at SDPA's own work, rate 0, held to the plain version too
     out0, ref0 = fa.flash_mha(*leaves, causal=causal), fa.reference_mha(*leaves, causal=causal)
     rel0 = _rel_err(torch.autograd.grad(out0, leaves, d_out, retain_graph=True),
@@ -423,7 +476,9 @@ def check_flash(dev):
     the kernel's own mask, and at the encoder site at rate 0 (the serving
     shape, and the work SDPA's backward does); returns (forward results,
     backward results) by dtype.  bf16 runs the tensor-core kernels, f32 the
-    CUDA-core forward and the TF32 backward (three TF32 products a product)."""
+    TF32 forward and backward (three TF32 products a product), timed beside
+    the CUDA-core forward the TF32 one replaced (`cuda_cores_ms`) and its
+    3xTF32 bound (`bound_tf32_ms`) beside the 67 TF/s one."""
     fwd, bwd = {}, {}
     for dtype, tol, btol in FLASH_TOLS:
         f, b = {}, {}
@@ -439,6 +494,47 @@ def check_flash(dev):
         log(f"kernel flash_attention {dtype}: {fwd[dtype]}")
         log(f"kernel flash_attention_bwd {dtype}: {bwd[dtype]}")
     return fwd, bwd
+
+
+def _odd_offset(t):
+    """The same values in a buffer that starts one element later."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t.reshape(-1))
+    return buf[1:].view(t.shape)
+
+
+def check_flash_bf16_tf32(dev):
+    """bf16 whose head rows start mid-word (the TF32 forward as one exact
+    pass) at the three geo sites, rate 0 and 0.2 under the kernel's own mask,
+    within the bf16 tolerance (3e-2 of the largest value, at least 1) of the
+    plain version; timed beside the aligned call's tensor-core forward and
+    the CUDA-core forward on the same inputs.  {site: record}."""
+    from icek_torch.kernels import flash_attention as fa
+
+    B, H, tol = BATCH, 10, FLASH_TOLS[1][1]
+    out = {}
+    for name, Tq, Tk, causal in FLASH_SITES:
+        q, k, v, _ = _flash_site(dev, torch.bfloat16, Tq, Tk)
+        mq, mk, mv = (_odd_offset(t) for t in (q, k, v))
+        require(fa.route(mq, mk, mv) == "tf32" and fa.route(q, k, v) == "mma",
+                f"flash bf16 {name}: routes {fa.route(mq, mk, mv)} / {fa.route(q, k, v)}")
+        rec = {}
+        for rate in (0.0, RATE):
+            keep = fa.keep_mask(B, H, Tq, Tk, rate=rate, seed=78, device=dev) if rate else None
+            run = lambda: fa.flash_mha(mq, mk, mv, causal=causal, dropout_rate=rate, seed=78)
+            want = fa.reference_mha(q, k, v, causal=causal, dropout_rate=rate, keep=keep)
+            err = _rel_err(run(), want)
+            require(err <= tol, f"flash bf16 TF32 {name} rate {rate}: err {err} > {tol}")
+            cores = lambda: fa._forward(mq, mk, mv, Tk, causal, rate, 78, via="cuda_cores")[0]
+            rec[f"rate {rate}"] = dict(
+                rel_err=err, tol=tol, ms=cuda_ms(run),
+                mma_ms=cuda_ms(lambda: fa.flash_mha(q, k, v, causal=causal, dropout_rate=rate,
+                                                    seed=78)),
+                cuda_cores_ms=cuda_ms(cores), cuda_cores_rel_err=_rel_err(cores(), want))
+            del want, keep
+        out[name] = rec
+        log(f"kernel flash_attention bf16 misaligned (TF32 route) {name} {Tq}x{Tk}: {rec}")
+    return out
 
 
 def fact_flash_sites(shape):
@@ -584,19 +680,42 @@ def norm_device_split(dev, dtype, N, ln_f, ln_b, drop):
 def _score_record(dev, dtype, tol, n, k, t=ENT_ROWS, predicates=0):
     """The score head at (n rows, top k, tail t) against its plain version,
     timed beside its bound and the library chain."""
+    from icek_torch.decode import topk
     from icek_torch.kernels import copy_scores as cs
 
     h, wv, bv, tail = _score_inputs(dev, dtype, n, t, predicates)
-    require(cs.uses_tensor_cores(h, wv) == (dtype == torch.bfloat16),
+    # bf16: a tensor-core pass at every k; f32: up to k 16 (3xTF32), the
+    # wide CUDA-core pass above
+    expect = cs.route(dtype, k)
+    require(cs.route(dtype, k, cs.aligned(h, wv)) == expect,
             f"score/top-k {dtype} k={k}: unexpected kernel family")
     before = dict(cs.fused_score_topk.routes)
     got = cs.fused_score_topk(h, wv, bv, tail, k=k)
     want = cs.reference_score_topk(h, wv, bv, tail, k=k)
     torch.cuda.synchronize()
     taken = [r for r, n in cs.fused_score_topk.routes.items() if n != before[r]]
-    require(taken == [cs.route(dtype == torch.bfloat16, k)],
-            f"score/top-k {dtype} k={k}: first pass {taken}")
-    if k <= cs.REGISTER_K:
+    require(taken == [expect], f"score/top-k {dtype} k={k}: first pass {taken}")
+    f32_ties = None
+    if dtype == torch.float32 and expect == "tensor_cores":
+        # three TF32 products rank as exact arithmetic does where the plain
+        # f32 product cannot: its own sums lie up to 4e-6 from float64's and
+        # swap pairs that close (a pair 1.3e-7 apart at k 10 and 16 here).
+        # So the indices are held to the plain version in float64, and each
+        # place where the f32 plain version ranks otherwise is logged with
+        # its exact gap.
+        scores64 = torch.cat([h.double() @ wv.double() + bv.double(), tail.double()], dim=1)
+        exact = topk.top_k(scores64, k)[1]
+        require(torch.equal(got[1].long(), exact),
+                f"score/top-k f32 n={n} t={t} k={k}: indices differ from the float64 ranking")
+        f32_ties = [(r, c, int(got[1][r, c]), int(want[1][r, c]),
+                     float(scores64[r, got[1][r, c]] - scores64[r, want[1][r, c]]))
+                    for r, c in (got[1] != want[1]).nonzero().tolist()]
+        if f32_ties:
+            log(f"score/top-k f32 n={n} t={t} k={k}: the plain f32 version ranks "
+                f"{len(f32_ties)} entries otherwise (row, rank, kernel's index, plain index, "
+                f"float64 gap): {f32_ties}")
+        del scores64
+    elif k <= cs.REGISTER_K:
         require(torch.equal(got[1], want[1]), f"score/top-k {dtype} n={n} t={t}: indices differ")
     else:
         # as tests/test_torch_gpu.py::test_score_kernel_wide_k: distinct
@@ -620,15 +739,31 @@ def _score_record(dev, dtype, tol, n, k, t=ENT_ROWS, predicates=0):
     nbytes = (h.numel() * h.element_size() + wv.numel() * wv.element_size()
               + 4 * VOCAB + 4 * tail.numel() + n * (8 * k + 4))
     bms, by = bound_ms(nbytes, 2 * n * 300 * VOCAB, dtype)
-    return dict(max_abs_err=err, tol=tol, ms=cuda_ms(run),
-                plain_ms=cuda_ms(lambda: cs.reference_score_topk(h, wv, bv, tail, k=k)),
-                library_ms=cuda_ms(library), bound_ms=bms, bound_by=by)
+    rec = dict(max_abs_err=err, tol=tol, route=expect, plain_f32_ties=f32_ties,
+               ms=cuda_ms(run),
+               plain_ms=cuda_ms(lambda: cs.reference_score_topk(h, wv, bv, tail, k=k)),
+               library_ms=cuda_ms(library), bound_ms=bms, bound_by=by)
+    if dtype == torch.float32 and expect == "tensor_cores":
+        # the CUDA-core pass it replaced: the same values, h 4 bytes into its
+        # buffer (no 16-byte copies), held to the plain version too
+        hc = _odd_offset(h)
+        require(cs.route(dtype, k, cs.aligned(hc, wv)) == "cuda_cores", "shifted h's route")
+        cores = lambda: cs.fused_score_topk(hc, wv, bv, tail, k=k)
+        cgot = cores()
+        require(torch.equal(cgot[1], want[1]) and max_err((cgot[0], cgot[2]),
+                                                          (want[0], want[2])) <= tol,
+                f"score/top-k f32 n={n} k={k}: the CUDA-core pass disagrees")
+        rec.update(cuda_cores_ms=cuda_ms(cores),
+                   **_tf32_bound(dtype, (nbytes, 2 * n * 300 * VOCAB)))
+    return rec
 
 
 def check_scores(dev, shapes=SCORE_SHAPES):
     """The score head at the beam (1280 rows, k 5) and greedy (256, k 2)
-    shapes, or at `shapes`; bf16 runs a tensor-core first pass, f32 a
-    CUDA-core one (above k 16 the wide ones, lists in shared memory)."""
+    shapes, or at `shapes`; both dtypes run a tensor-core first pass up to
+    k 16 (f32 as three TF32 products, timed beside the CUDA-core pass it
+    replaced), above k 16 the wide ones (lists in shared memory; f32 on the
+    CUDA cores)."""
     res = {}
     for shape, n, k in shapes:
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-4)):
@@ -638,6 +773,19 @@ def check_scores(dev, shapes=SCORE_SHAPES):
                 res[dtype]["greedy"] = timed
             else:
                 res[dtype] = timed
+    return res
+
+
+F32_KS = (1, 10, 16)      # the f32 tensor-core pass's other list lengths, at the beam rows
+
+
+def check_scores_f32_ks(dev):
+    """The f32 tensor-core first pass at N 1280 and k 1, 10 and 16 (beside
+    the CUDA-core pass it replaced); {k: record}."""
+    res = {}
+    for k in F32_KS:
+        res[k] = _score_record(dev, torch.float32, 1e-4, BATCH * BEAM, k)
+        log(f"kernel fused_score_topk float32 n={BATCH * BEAM} k={k}: {res[k]}")
     return res
 
 
@@ -766,6 +914,8 @@ def check_decoder_step(dev, L=MAX_LEN, M=IMG_TOKENS + ENT_ROWS, B=BATCH, K=BEAM)
                     f"decoder step {dtype} {route}: two launches differ")
             timed[route] = dict(route=route, max_abs_err=err, tol=tol, ms=cuda_ms(run),
                                 plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by)
+            if route != "cuda_cores":   # f32: three TF32 products a product
+                timed[route].update(_tf32_bound(dtype, (nbytes, flops)))
             log(f"kernel decoder_step {dtype} {route} B {B} K {K} L {L} M {M} step {step}: "
                 f"{timed[route]}")
         res[dtype] = timed[dsk.route(dtype, K, True)]
@@ -1033,6 +1183,28 @@ def serving_prediction(cfg, beam_batches, greedy_batches):
             "fused_score_topk": L * batches, **decoder_launches(decoder_step=L * beam_batches)}
 
 
+def route_counts():
+    """The forward flash launches and the score head's first passes by
+    route (flash_mha.routes, fused_score_topk.routes), as flash_<route> and
+    score_<route>."""
+    from icek_torch.kernels import copy_scores, flash_attention
+
+    return {**{f"flash_{r}": n for r, n in flash_attention.flash_mha.routes.items()},
+            **{f"score_{r}": n for r, n in copy_scores.fused_score_topk.routes.items()}}
+
+
+def zero_route_counts():
+    from icek_torch.kernels import copy_scores, flash_attention
+
+    for counts in (flash_attention.flash_mha.routes, copy_scores.fused_score_topk.routes):
+        counts.update(dict.fromkeys(counts, 0))
+
+
+def route_prediction(**counts):
+    """Every route's count: `counts`, the others 0."""
+    return {name: counts.get(name, 0) for name in route_counts()}
+
+
 def _read_serving_counts():
     return {name: fn.launches for name, fn in counters().items()}
 
@@ -1107,6 +1279,7 @@ def serve(dev, model, preset="georic"):
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     _zero_serving_counts()
+    zero_route_counts()
     times, outs = [], []
     for b in batches[1:]:
         t0 = time.perf_counter()
@@ -1118,11 +1291,15 @@ def serve(dev, model, preset="georic"):
     g_out = greedy.decode_batch(batches[0])
     greedy_s = time.perf_counter() - t0
     launches = _read_serving_counts()
+    routes = route_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = serving_prediction(cfg, len(times), 1)
-    log(f"{preset} serving launches (3 beam-5 batches + 1 greedy batch): {launches}; "
-        f"predicted {want}")
+    want_routes = route_prediction(flash_mma=want["flash_attention"],
+                                   score_tensor_cores=want["fused_score_topk"])
+    log(f"{preset} serving launches (3 beam-5 batches + 1 greedy batch): {launches}, by "
+        f"route {routes}; predicted {want}, {want_routes}")
     require(launches == want, f"{preset}: serving launches {launches} != predicted {want}")
+    require(routes == want_routes, f"{preset}: serving routes {routes} != {want_routes}")
     for out in outs + [g_out]:
         require(out.shape == (BATCH, L), f"output shape {out.shape}")
         require(out.min() >= 0 and out.max() < S, "token ids out of range")
@@ -1282,8 +1459,10 @@ def wide_beam(dev, model):
     """Beams wider than 8 (fault F1) and than 16 (F1b): geo beam 10 and beam 20
     through Evaluator.decode_batch, bf16 and f32, kernels on (the defaults)
     against the plain path (both switches off).  The score head runs at k 10
-    on its register lists and at k 20 on its wide first pass (lists in
-    shared memory), bf16 on the tensor cores and f32 on the CUDA cores; the
+    on its register lists (tensor cores; f32 as three TF32 products) and at
+    k 20 on its wide first pass (lists in shared memory), bf16 on the tensor
+    cores and f32 on the CUDA cores; the context encoder's flash forward on
+    the bf16 tensor-core kernel or the TF32 one; the
     decoder step on its tensor-core routes in both dtypes (K 10: G images a
     block; K 20: parts of an image a block), never on the CUDA-core kernel.  Each
     route's count is held to that; f32 tokens must equal the plain path's, bf16
@@ -1307,16 +1486,17 @@ def wide_beam(dev, model):
             kw = dict(device=dev, beam_size=K, batch_size=WIDE_BATCH, compute_dtype=dtype)
             ev = eval_driver.Evaluator(cfg, wm, params, enc, **kw)
             _zero_serving_counts()
-            score_routes = cs.fused_score_topk.routes
-            score_routes.update(dict.fromkeys(score_routes, 0))
+            zero_route_counts()
             got = ev.decode_batch(batch)
             routes = _read_serving_counts()
-            routes.update({f"score_{r}": n for r, n in score_routes.items() if n})
+            routes.update({r: n for r, n in route_counts().items() if n})
             batch_ms = time_decode(ev, batch)
             want = eval_driver.Evaluator(plain_cfg, wm, params, enc, **kw).decode_batch(batch)
             expect = dict(flash_attention=cfg.model.num_layers, fused_score_topk=L,
                           **decoder_launches(**{decoder_counter(dtype, K): L}))
-            expect[f"score_{cs.route(dtype == torch.bfloat16, K)}"] = L
+            expect[f"score_{cs.route(dtype, K)}"] = L
+            expect["flash_mma" if dtype == torch.bfloat16 else "flash_tf32"] = \
+                cfg.model.num_layers
             log(f"wide beam: geo beam {K} {dtype}, {WIDE_BATCH} images, routes {routes} "
                 f"(expected {expect})")
             require(routes == expect, f"wide beam {K} {dtype}: routes {routes} != {expect}")
@@ -1330,7 +1510,8 @@ def wide_beam(dev, model):
                 f"{out[str(dtype)]['captions_per_s']:.1f} captions/s")
         out["kernels"] = {name: {str(dt): {k: rec[dt][k] for k in
                                            ("max_abs_err", "ms", "plain_ms", "library_ms",
-                                            "bound_ms", "bound_by", "route") if k in rec[dt]}
+                                            "bound_ms", "bound_by", "route", "cuda_cores_ms",
+                                            "bound_tf32_ms") if k in rec[dt]}
                                  for dt in rec} for name, rec in kernels.items()}
         for dt, rec in kernels["decoder_step"].items():       # the CUDA-core kernel's "was"
             out["kernels"]["decoder_step"][str(dt)]["cuda_cores_ms"] = rec["cuda_cores"]["ms"]
@@ -3334,7 +3515,7 @@ def cross_check(dev, model, preset="georic"):
     m = cfg.model
     batch = make_batch(np.random.default_rng(SEED + 9), 2, preset)
     L = preset_shape(preset)["L"]
-    got = {}
+    got, routes = {}, {}
     for where in (dev, "cpu"):
         ev = eval_driver.Evaluator(cfg, wm, params, enc, device=where,
                                    compute_dtype=torch.float32)
@@ -3367,12 +3548,25 @@ def cross_check(dev, model, preset="georic"):
                                                            device=ev.device))
             scores = captioner.copy_scores(ev.params, m, h, ents_enc, facts_enc, **ind)
         _zero_serving_counts()
+        zero_route_counts()
         ids = ev.decode_batch(batch)
-        if where is dev:        # the f32 beam-5 decode on the f32 tensor-core route
+        if where is dev:        # the f32 beam-5 decode on the f32 tensor-core routes
             launches = {k: v for k, v in _read_serving_counts().items() if k in DECODER_ROUTES}
             want = decoder_launches(decoder_step_f32=L)
             require(launches == want, f"{preset} f32 decode: decoder-step launches {launches} "
                                       f"!= {want}")
+            layers = m.num_layers * (2 if m.has_facts else 1)
+            routes["beam"] = route_counts()
+            want = route_prediction(flash_tf32=layers, score_tensor_cores=L)
+            require(routes["beam"] == want, f"{preset} f32 beam-5 decode: routes "
+                                            f"{routes['beam']} != {want}")
+            # greedy in f32: the score head's f32 tensor-core pass each step
+            zero_route_counts()
+            eval_driver.Evaluator(cfg, wm, params, enc, device=dev, compute_dtype=torch.float32,
+                                  beam_size=1).decode_batch(batch)
+            routes["greedy"] = route_counts()
+            require(routes["greedy"] == want, f"{preset} f32 greedy decode: routes "
+                                              f"{routes['greedy']} != {want}")
         got[where] = [t.cpu() for t in (tokens, memory, scores)] + [ids]
     names = ("image tokens", "memory", "first-step scores")
     errs = {}
@@ -3383,8 +3577,10 @@ def cross_check(dev, model, preset="georic"):
         require(errs[name] <= 1e-4, f"{preset} card vs CPU {name}: rel err {errs[name]} > 1e-4")
     agree = float((got[dev][3] == got["cpu"][3]).mean())
     log(f"{preset} card vs CPU at f32 (max abs err / max |cpu|, tol 1e-4): {errs}; "
-        f"beam-5 token agreement {agree:.3f}")
-    return errs, agree
+        f"beam-5 token agreement {agree:.3f}; routes {routes}")
+    require(agree == 1.0, f"{preset}: the card's f32 beam-5 tokens differ from the CPU's "
+                          f"(agreement {agree})")
+    return errs, agree, routes
 
 
 # --------------------------------------------------------------------------
@@ -3490,10 +3686,11 @@ F32_STEPS = 3
 
 def f32_train_path(dev, model, bf16_summary):
     """Phase 6's f32 geo train step: batch 256, cached tokens, captions of 32,
-    the preset's dropout, compute dtype float32 (the flash backward's TF32
-    kernels at every attention site), one warm-up and F32_STEPS timed steps
-    beside the bf16 step's samples/s; launches held to the prediction (9
-    flash backward launches a step) and the eval loss must fall.  The plain
+    the preset's dropout, compute dtype float32 (the flash forward's and
+    backward's TF32 kernels at every attention site), one warm-up and
+    F32_STEPS timed steps beside the bf16 step's samples/s; launches held to
+    the prediction (9 flash forward launches a step, all on the TF32 route,
+    and 9 backward launches) and the eval loss must fall.  The plain
     path draws its masks from its own generator, so the same step at dropout
     0 is held to it instead: one step each from the same parameters, the
     loss within 1e-4 and Adam's first moments (0.1 x the clipped gradients)
@@ -3521,12 +3718,17 @@ def f32_train_path(dev, model, bf16_summary):
     losses = [float(train_step(p, state, None, batch, gen)[2])]        # warm-up
     for fn, _ in counted.values():
         fn.launches = 0
+    zero_route_counts()
     times = []
     for _ in range(F32_STEPS):
         t0 = time.perf_counter()
         losses.append(float(train_step(p, state, None, batch, gen)[2]))
         times.append(time.perf_counter() - t0)
     launches = {name: fn.launches for name, (fn, _) in counted.items()}
+    routes = route_counts()
+    # every forward on the TF32 kernel, none on the CUDA-core one it replaced
+    want = route_prediction(flash_tf32=counted["flash_attention"][1] * F32_STEPS)
+    require(routes == want, f"f32 train step: routes {routes} != {want}")
     eval_after = float(eval_step(p, None, batch)[0])
     for name, (_, per_step) in counted.items():
         require(launches[name] == per_step * F32_STEPS,
@@ -3569,8 +3771,9 @@ def f32_train_path(dev, model, bf16_summary):
                    step_ms_median=statistics.median(times) * 1e3,
                    samples_per_s_median=BATCH / statistics.median(times),
                    bf16_samples_per_s_median=bf16_summary["samples_per_s_median"],
-                   launches=launches, losses=losses, eval_loss_before=eval_before,
-                   eval_loss_after=eval_after, dropout0_loss_rel=loss_rel,
+                   launches=launches, routes=routes, losses=losses,
+                   eval_loss_before=eval_before, eval_loss_after=eval_after,
+                   dropout0_loss_rel=loss_rel,
                    dropout0_grad_tree_rel=tree_rel, dropout0_worst_leaf_rel=grad_rel)
     log(f"f32 geo train path (batch {BATCH}, T {CAP_LEN}, float32, dropout on): {summary}")
     return summary
@@ -3890,9 +4093,11 @@ def run_phases(dev, card) -> list:
     """Phases 3 to 6, the wide beam, the traces and the device splits on `dev`; returns
     the kernels' JSON rows."""
     flash_fwd, flash_bwd = check_flash(dev)
+    flash_bf16_tf32 = check_flash_bf16_tf32(dev)
     kernels = {"flash_attention": flash_fwd, "flash_attention_bwd": flash_bwd,
                "fused_score_topk": check_scores(dev),
                "decoder_step": check_decoder_step(dev)}
+    score_f32_ks = check_scores_f32_ks(dev)
     wide_k = check_scores_wide(dev)
     norm = check_norm_rows(dev)
     kernels["dropout_add_ln"], kernels["dropout_add_ln_bwd"], kernels["hw_dropout"] = \
@@ -3905,8 +4110,7 @@ def run_phases(dev, card) -> list:
     models.update({p: full_width_model(p, enc=geo[3]) for p in FACT_PRESETS})
     launches, summary, serve_batch = serve(dev, geo)
     served = {p: serve(dev, models[p], p) for p in FACT_PRESETS}
-    for preset, model in models.items():
-        cross_check(dev, model, preset)
+    checked = {preset: cross_check(dev, model, preset) for preset, model in models.items()}
     train_launches, train_summary, step_once = run_train_path(dev, geo)
     f32_train = f32_train_path(dev, geo, train_summary)
     trained = {p: run_train_path(dev, models[p], p, FACT_TRAIN_STEPS) for p in FACT_PRESETS}
@@ -3959,7 +4163,8 @@ def run_phases(dev, card) -> list:
             "bound_by": bf["bound_by"], "library_ms": bf["library_ms"],
             "dtype": "bfloat16", "tol": bf["tol"],
             "f32": {k: f32[k] for k in ("max_abs_err", "tol", "ms", "plain_ms",
-                                        "library_ms", "bound_ms", "rate0_ms") if k in f32},
+                                        "library_ms", "bound_ms", "rate0_ms", "bound_tf32_ms",
+                                        "cuda_cores_ms") if k in f32},
         }
         if name in launches and name in train_launches:
             row["launches_serving"] = launches[name]
@@ -3987,7 +4192,7 @@ def run_phases(dev, card) -> list:
                              for dt, recs in wide_k.items()}
         if name == "flash_attention_bwd":           # phase 6's f32 geo step
             row["f32_train_step"] = {k: f32_train[k] for k in (
-                "launches", "samples_per_s_median", "bf16_samples_per_s_median",
+                "launches", "routes", "samples_per_s_median", "bf16_samples_per_s_median",
                 "dropout0_loss_rel", "dropout0_grad_tree_rel", "dropout0_worst_leaf_rel")}
         if name in leave["eval_run_launches"]:      # phase 7's geo eval run and engine
             row["launches_eval_run"] = leave["eval_run_launches"][name]
@@ -4018,6 +4223,40 @@ def run_phases(dev, card) -> list:
         "dtype": "bfloat16", "tol": 0.15, "shape": f"B {WIDE_BATCH} K 20 step {MAX_LEN // 2}",
         "f32": dict(f32, launches=wide20[str(torch.float32)]["routes"]["decoder_step_wide_f32"],
                     tol=1e-3)})
+    # the f32 routes on three TF32 products a product: the flash
+    # forward at the geo encoder, rate 0, with its launches on the f32 geo
+    # train step (phase 6), and the score head's first pass at geo beam 5,
+    # with its launches in the f32 geo beam-5 decode (phase 5); each beside
+    # the CUDA-core kernel it replaced, timed in this run.  bound_ms is the
+    # least of the two bounds (3 TF32 products at 494.7 TF/s, or the f32
+    # CUDA cores' 67 TF/s), both given.
+    for name, rec, launches_f32, extra in (
+            ("flash_attention_tf32", flash_fwd[torch.float32],
+             f32_train["routes"]["flash_tf32"],
+             dict(site=f"geo encoder B {BATCH} T {ENT_ROWS} rate 0",
+                  dropout={k: flash_fwd[torch.float32]["dropout"][k] for k in (
+                      "max_abs_err", "ms", "plain_ms", "library_ms", "cuda_cores_ms",
+                      "bound_ms", "bound_tf32_ms")},
+                  self=flash_fwd[torch.float32]["self"], cross=flash_fwd[torch.float32]["cross"],
+                  bf16_misaligned=flash_bf16_tf32,
+                  presets={p: fact_kernels[p]["flash_attention"] for p in FACT_PRESETS})),
+            ("fused_score_topk_tf32", kernels["fused_score_topk"][torch.float32],
+             checked["georic"][2]["beam"]["score_tensor_cores"],
+             dict(site=f"geo beam N {BATCH * BEAM} k {BEAM}",
+                  greedy=kernels["fused_score_topk"][torch.float32]["greedy"],
+                  ks={str(k): r for k, r in score_f32_ks.items()},
+                  launches_f32_greedy=checked["georic"][2]["greedy"]["score_tensor_cores"],
+                  presets={p: fact_kernels[p]["fused_score_topk"] for p in FACT_PRESETS}))):
+        least = min(rec["bound_ms"], rec["bound_tf32_ms"])
+        rows.append({
+            "name": name, "route": "cuda", "source": "icek_torch/csrc/" + meta[name[:-5]][0],
+            "replaces": meta[name[:-5]][1], "launches": launches_f32,
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": least,
+            "bound_by": rec["bound_tf32_by"] if least == rec["bound_tf32_ms"] else rec["bound_by"],
+            "library_ms": rec["library_ms"], "dtype": "float32", "tol": rec["tol"],
+            "cuda_cores_ms": rec["cuda_cores_ms"], "bound_tf32_ms": rec["bound_tf32_ms"],
+            "bound_f32_cores_ms": rec["bound_ms"], **extra})
     head = int8["sites"]["1x1_s1"]
     rows.append({
         "name": "int8_conv", "route": "cuda", "source": "icek_torch/csrc/int8_conv.cu",

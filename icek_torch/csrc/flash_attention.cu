@@ -80,32 +80,41 @@
 //      dQ and dK/dV kernels read them back.  Rate 0 is a template parameter
 //      of all three kernels: those instantiations carry no mask code.
 //
-// 2. The TF32 backward (flash_bwd_dq_tf32_kernel, flash_bwd_dkv_tf32_kernel):
-//    f32 at any Hd <= 32, and bf16 inputs that miss the alignment above.
-//    The work is the bf16 backward's five products (seven with S and dP
-//    computed in both kernels) in f32: at the geo encoder site 13.9 GFLOP
-//    each, 69 GFLOP in all, 1.04 ms at the 67 TF/s of the f32 CUDA cores,
-//    against 0.19 ms of bytes.  So the products go on the tensor cores,
-//    which take f32 only as TF32 (a 10-bit mantissa, about three decimal
-//    digits: one pass breaks the 1e-4 checks).  Each f32 operand is split
-//    into a TF32 high part (cvt.rna) and the TF32 of the residual, and a
-//    product is three m16n8k8 TF32 mma.sync (lo hi + hi lo + hi hi; lo lo
-//    is below the pieces' own rounding) with f32 accumulation: a relative
-//    error of about 2^-21 a term ("3xTF32").  bf16 values, and P and dS
-//    rounded to bf16, are exact in TF32: for bf16 inputs one pass is exact.
-//    Three such passes
-//    at 495 TF/s (the dense TF32 peak) take 0.6 ms of the seven products'
-//    work; what the kernels are bound by in the end is again instructions:
-//    each B operand read from shared memory is split per warp (three
-//    instructions an element), and a head row of f32 in a fused-QKV view
-//    (120 bytes, at a stride of 3600) is 8-byte aligned at best, so tiles
-//    are staged by 4-byte cp.async, a warp a row of 32 elements.
-//    * The structure is the bf16 backward's: a warp owns 16 rows with its
-//      A operands (Q and dO; K and V) split in registers, the other operand
-//      is staged in shared memory as f32 (64 rows a tile, a 36-float pitch:
-//      the eight rows of a fragment load fall on distinct banks), double
-//      buffered, and walked 8 keys (queries) at a time; dK/dV works on the
-//      transposed scores; no atomics, so launches agree bit for bit.
+// 2. The TF32 kernels (flash_fwd_tf32_kernel, flash_bwd_dq_tf32_kernel,
+//    flash_bwd_dkv_tf32_kernel): f32 at any Hd <= 32, and bf16 inputs that
+//    miss the alignment above, forward and backward, so both directions of
+//    one call run one family.  The work is the bf16 kernels' products in
+//    f32: at the geo encoder site 13.9 GFLOP each, 29.7 GFLOP the forward
+//    (0.44 ms at the 67 TF/s of the f32 CUDA cores) and 69 GFLOP the
+//    backward's seven (1.04 ms), against 0.19 ms of backward bytes.  So the
+//    products go on the tensor cores, which take f32 only as TF32 (a 10-bit
+//    mantissa, about three decimal digits: one pass breaks the 1e-4 checks).
+//    Each f32 operand is split into a TF32 high part (cvt.rna) and the TF32
+//    of the residual, and a product is three m16n8k8 TF32 mma.sync (lo hi +
+//    hi lo + hi hi; lo lo is below the pieces' own rounding) with f32
+//    accumulation: a relative error of about 2^-21 a term ("3xTF32").  bf16
+//    values, and P and dS rounded to bf16, are exact in TF32: for bf16
+//    inputs one pass is exact.  Three such passes at 495 TF/s (the dense
+//    TF32 peak) take 0.18 ms of the forward's work and 0.6 ms of the
+//    backward's; what the kernels are bound by in the end is again
+//    instructions: each B operand read from shared memory is split per warp
+//    (three instructions an element), and a head row of f32 in a fused-QKV
+//    view (120 bytes, at a stride of 3600) is 8-byte aligned at best, so
+//    tiles are staged by 4-byte cp.async, a warp a row of 32 elements.
+//    * The forward is the tensor-core forward's walk (a warp owns 16 query
+//      rows, Q split in registers, online softmax in the log2 domain once a
+//      tile) over f32 tiles, 8 keys a step; its scores are the backward's
+//      to the bit (first_product, then one rounded scale), so a one-hot
+//      row's P is the same 1 in both directions.  In P V, V is split by
+//      integer rounding (mma_add_bits), the cheaper split; splitting K or V
+//      once a tile by the block instead of per warp cost a barrier and a
+//      pass more than it saved.
+//    * The backward's structure is the bf16 backward's: a warp owns 16 rows
+//      with its A operands (Q and dO; K and V) split in registers, the other
+//      operand is staged in shared memory as f32 (64 rows a tile, a 36-float
+//      pitch: the eight rows of a fragment load fall on distinct banks),
+//      double buffered, and walked 8 keys (queries) at a time; dK/dV works
+//      on the transposed scores; no atomics, so launches agree bit for bit.
 //    * P and dS reach their second product without a shuffle: the m16n8k8
 //      accumulator holds columns 2 t and 2 t + 1 where the A fragment
 //      wants t and t + 4, so the accumulator is taken as A with its k order
@@ -126,22 +135,24 @@
 //      and dP^T bit for bit as dQ's S and dP (first_products): a one-hot
 //      row's P is then exactly 1 and its dS exactly 0, as in the plain
 //      version.
-//    * Rounding.  dQ, dK and dV each sum one product per 8 keys (queries):
-//      a step's product is formed apart and added by an f32 add (mma_add),
-//      since the tensor cores' accumulation is not round to nearest (summed
-//      in the mma it put twice the error into dQ, dK and dV at the geo
-//      encoder site).
-//    * Dropout: the f32 forward saves no keep bits, so both kernels draw the
-//      forward's mask anew, one Philox block per four scores, shared by the
-//      lanes that hold its four keys: in dQ the two lanes of a row pair
-//      (keep4_rows), in dK/dV the four lanes g = 4 u .. 4 u + 3 of one t
-//      (keep4_cols).
+//    * Rounding.  O, dQ, dK and dV each sum one product per 8 keys
+//      (queries): a step's product is formed apart and added by an f32 add
+//      (mma_add), since the tensor cores' accumulation is not round to
+//      nearest (summed in the mma it put twice the error into dQ, dK and dV
+//      at the geo encoder site).
+//    * Dropout: the TF32 forward saves no keep bits, so the three kernels
+//      each draw the mask, one Philox block per four scores, shared by the
+//      lanes that hold its four keys: in the forward and dQ the two lanes of
+//      a row pair (keep4_rows), in dK/dV the four lanes g = 4 u .. 4 u + 3 of
+//      one t (keep4_cols).
 //
-// 3. The CUDA-core forward (flash_fwd_kernel): f32 at any supported head
-//    dim, bf16 with Hd in (32, 128] (rate 0) and bf16 inputs that miss the
-//    alignment above.  One thread owns a query row with its operands in
-//    registers and the dot products run in f32, one shared-memory operand
-//    per FMA; Hd is padded to a compile-time bound (32 / 64 / 128).
+// 3. The CUDA-core forward (flash_fwd_kernel): head dims in (32, 128], at
+//    rate 0 (the entries flash_fwd_f32 / flash_fwd_bf16 take any Hd <= 128,
+//    and dropout at Hd <= 32, so the kernel can be timed beside the TF32
+//    forward that replaced it there).  One thread owns a query row with its
+//    operands in registers and the dot products run in f32, one
+//    shared-memory operand per FMA; Hd is padded to a compile-time bound
+//    (32 / 64 / 128).
 //
 // Dropout mask: score (b, h, q, k) keeps iff keep_bits(random_bits(seed,
 // STREAM_FLASH, ((b * H + h) * Tq + q) * Tk4 + k)) with Tk4 = Tk rounded up
@@ -826,47 +837,45 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_mma_kernel(
 
 constexpr int FP = 36;      // row pitch in floats of an f32 tile: 32 + 4, see the header
 
-// One 16-row x 8-column step's first products, S = A1 B1^T and dP = A2 B2^T
-// over Hd (padded to 32 with zeros): A1, A2 the warp's split rows, B1, B2
-// their row g of a staged tile (element 8 ds + t and + 4 of d-step ds).  Each
-// product sums its hi hi, lo hi and hi lo terms in three chains over the
-// d-steps and adds them at the end, hi hi + (lo hi + hi lo): symmetric in
-// its operands, so the dQ kernel's S = Q K^T and the dK/dV kernel's S^T = K
-// Q^T (and dP, dP^T) come out bit for bit alike (an mma's sum of its eight
-// products does not depend on which operand is A).
+// One 16-row x 8-column step's S = A B^T over Hd (padded to 32 with zeros):
+// A the warp's split rows, B their row g of a staged tile (element 8 ds + t
+// and + 4 of d-step ds).  The hi hi, lo hi and hi lo terms are summed in three
+// chains over the d-steps and added at the end, hi hi + (lo hi + hi lo):
+// symmetric in its operands, so the forward's and the dQ kernel's S = Q K^T
+// and the dK/dV kernel's S^T = K Q^T (and dP, dP^T) come out bit for bit
+// alike (an mma's sum of its eight products does not depend on which operand
+// is A).
+template <int P>
+__device__ __forceinline__ void first_product(float (&s)[4], const FragA<P> (&a)[4],
+                                              const float* bp) {
+  static_assert(P == 1 || P == 2, "one piece (bf16) or two (f32)");
+  float c[3][4];               // [hi hi, lo hi, hi lo]
+#pragma unroll
+  for (int w = 0; w < 3; ++w)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[w][i] = 0.f;
+#pragma unroll
+  for (int ds = 0; ds < 4; ++ds) {
+    uint32_t x[P], y[P];
+    split_tf32<P>(bp[8 * ds], x);
+    split_tf32<P>(bp[8 * ds + 4], y);
+    mma_tf32(c[0], a[ds].p[0], x[0], y[0]);
+    if constexpr (P == 2) {
+      mma_tf32(c[1], a[ds].p[1], x[0], y[0]);
+      mma_tf32(c[2], a[ds].p[0], x[1], y[1]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s[i] = c[0][i] + (c[1][i] + c[2][i]);
+}
+
+// The backward's two first products of a step, S = A1 B1^T and dP = A2 B2^T
 template <int P>
 __device__ __forceinline__ void first_products(float (&s)[4], float (&dp)[4],
                                                const FragA<P> (&a1)[4], const FragA<P> (&a2)[4],
                                                const float* b1, const float* b2) {
-  static_assert(P == 1 || P == 2, "one piece (bf16) or two (f32)");
-  float c[2][3][4];            // [S, dP][hi hi, lo hi, hi lo]
-#pragma unroll
-  for (int u = 0; u < 2; ++u)
-#pragma unroll
-    for (int w = 0; w < 3; ++w)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) c[u][w][i] = 0.f;
-#pragma unroll
-  for (int ds = 0; ds < 4; ++ds) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const FragA<P>& a = u ? a2[ds] : a1[ds];
-      const float* bp = u ? b2 : b1;
-      uint32_t x[P], y[P];
-      split_tf32<P>(bp[8 * ds], x);
-      split_tf32<P>(bp[8 * ds + 4], y);
-      mma_tf32(c[u][0], a.p[0], x[0], y[0]);
-      if constexpr (P == 2) {
-        mma_tf32(c[u][1], a.p[1], x[0], y[0]);
-        mma_tf32(c[u][2], a.p[0], x[1], y[1]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    s[i] = c[0][0][i] + (c[0][1][i] + c[0][2][i]);
-    dp[i] = c[1][0][i] + (c[1][1][i] + c[1][2][i]);
-  }
+  first_product<P>(s, a1, b1);
+  first_product<P>(dp, a2, b2);
 }
 
 // The four d-steps of an m16n8k8 A operand of rows [r0, r0 + 16) of one head
@@ -915,6 +924,30 @@ __device__ __forceinline__ void acc_as_a(FragA<P>& a, const float (&c)[4]) {
   }
 }
 
+// c += a b as mma_add forms it, with the B fragment (b0, b1) split by
+// split_tf32_bits (hi by integer rounding, lo left for the tensor cores to
+// truncate): three instructions an element, where split_tf32<2>'s cvt.rna
+// pair expands into compare-and-select code (the forward's P V took 0.885
+// against 1.019 ms that way at the geo encoder site on an H100).  The
+// forward's S keeps split_tf32: its scores are the backward's to the bit.
+template <int P>
+__device__ __forceinline__ void mma_add_bits(float (&c)[4], const FragA<P>& a, float b0,
+                                             float b1) {
+  if constexpr (P == 1) {
+    mma_add<1>(c, a, b0, b1);
+  } else {
+    uint32_t x[2], y[2];
+    split_tf32_bits(b0, x);
+    split_tf32_bits(b1, y);
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_tf32(t, a.p[0], x[1], y[1]);
+    mma_tf32(t, a.p[1], x[0], y[0]);
+    mma_tf32(t, a.p[0], x[0], y[0]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[i] += t[i];
+  }
+}
+
 // Stage rows [r0, r0 + TILE) of one head into a shared f32 tile: 32 lanes
 // take the 32 elements of a row, a block NT / 32 rows a pass; rows >= limit
 // and elements >= Hd are zeros.  f32 by 4-byte cp.async (a head row of a
@@ -960,6 +993,147 @@ __device__ __forceinline__ uint32_t keep4_cols(const Shape& a, int b, int h, int
     keep |= (keep_bits(w, a.thresh) ? 1u : 0u) << (c ^ x);
   }
   return keep;
+}
+
+// Forward in TF32: the dQ kernel's passes 0 and 1 folded into one online
+// pass.  A block of NW warps owns NW * 16 query rows of one (batch, head); a
+// warp keeps its rows' Q as split A fragments, its output accumulator and
+// its softmax state in registers and walks the staged key tiles (whole tiles
+// beyond kv_len or above the causal diagonal skipped, the straddling tile
+// masked by element).  A tile's scores come 8 keys at a time from
+// first_product and are scaled as the dQ kernel scales them, x = S scale
+// log2 e rounded once (__fmul_rn): the forward's x is the backward's to the
+// bit.  The online softmax takes a tile at once, in the log2 domain over the
+// quad; P = 2^(x - max), rounded to the working dtype, is the A operand of O
+// += P V (acc_as_a), V's rows read in its order and split by integer
+// rounding, each step's product added by f32 adds (mma_add_bits).  Dropout
+// draws keep_mask_kernel's mask (keep4_rows),
+// which the TF32 backward draws again.
+template <typename T, int NW, bool DROP>
+__global__ void __launch_bounds__(NW * 32) flash_fwd_tf32_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, float* __restrict__ lse, const Shape a) {
+  constexpr int P = std::is_same<T, float>::value ? 2 : 1;   // bf16 is exact in one piece
+  constexpr int BQ = NW * 16, NT = NW * 32;
+  __shared__ __align__(16) float ks[2][TILE][FP];
+  __shared__ __align__(16) float vs[2][TILE][FP];
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.x * BQ + warp * 16;
+  const T* kp = k + b * a.k_sb + (long long)h * a.Hd;
+  const T* vp = v + b * a.v_sb + (long long)h * a.Hd;
+  const int blk_end = a.causal ? min(a.kv_len, (int)(blockIdx.x + 1) * BQ) : a.kv_len;
+  const int warp_end = a.causal ? min(a.kv_len, row0 + 16) : a.kv_len;
+  const int ntiles = (blk_end + TILE - 1) / TILE;
+  auto stage = [&](int it) {
+    stage_rows_f32<T, NT>(ks[it & 1], kp, a.k_st, it * TILE, blk_end, a.Hd);
+    stage_rows_f32<T, NT>(vs[it & 1], vp, a.v_st, it * TILE, blk_end, a.Hd);
+  };
+  stage(0);
+  cp_async_commit();
+
+  FragA<P> qa[4];
+  {
+    float qx[4][4];
+    load_rows_f32(qx, q + b * a.q_sb + (long long)h * a.Hd, a.q_st, row0, a.Tq, a.Hd, g, t);
+    split_frags<P>(qa, qx);
+  }
+  float acc[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  // rows g (index 0) and g + 8 (index 1): running max of x and this lane's
+  // share of the running sum of 2^(x - max)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const float c = a.scale * LOG2E;
+  // this lane's Philox block for keys 0..3 of its 8-key column (keep4_rows)
+  const unsigned long long mblk =
+      DROP ? mask_row_block(a, b, h, row0 + g + ((t & 1) ? 8 : 0)) + (t >> 1) : 0ull;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * TILE;
+    if (it + 1 < ntiles) stage(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (k0 < warp_end) {
+      const float(*kt)[FP] = ks[it & 1];
+      const float(*vt)[FP] = vs[it & 1];
+      float x[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        first_product<P>(x[j], qa, &kt[8 * j + g][t]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[j][i] = __fmul_rn(x[j][i], c);   // as the dQ kernel's
+      }
+      // the tile that straddles kv_len or the diagonal is masked by element
+      if (k0 + TILE > a.kv_len || (a.causal && k0 + TILE > row0 + 1)) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int key = k0 + 8 * j + 2 * t + (i & 1), row = row0 + g + 8 * (i >> 1);
+            const int end = a.causal ? min(a.kv_len, row + 1) : a.kv_len;
+            if (key >= end) x[j][i] = -INFINITY;
+          }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(x[j][2 * r], x[j][2 * r + 1]));
+        // finite from the first tile on: key k0 is visible to every row of the warp
+        const float m_new = fmaxf(m[r], quad_max(mx));
+        const float alpha = fast_exp2(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          acc[n][2 * r] *= alpha;
+          acc[n][2 * r + 1] *= alpha;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const uint32_t keep = DROP ? keep4_rows(a, mblk + ((k0 + 8 * j) >> 2), t) : 0xfu;
+        float p[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          p[i] = fast_exp2(x[j][i] - m[i >> 1]);   // masked: 2^-inf = 0
+          l[i >> 1] += p[i];                       // the sum takes every key
+          if (DROP && !((keep >> i) & 1u)) p[i] = 0.f;
+          p[i] = round_to<T>(p[i]);
+        }
+        FragA<P> pa;
+        acc_as_a<P>(pa, p);
+        // O += P V: keys 2 t and 2 t + 1 of the step as k indices t and t + 4
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const float* vr = &vt[8 * j + 2 * t][8 * n + g];
+          mma_add_bits<P>(acc[n], pa, vr[0], vr[FP]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    const float lsum = quad_sum(l[r]);
+    if (row >= a.Tq) continue;
+    const float inv = a.inv / lsum;
+    T* out = o + (((long long)b * a.Tq + row) * a.H + h) * a.Hd;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 8 * n + 2 * t + e;
+        if (d < a.Hd) out[d] = from_f32<T>(acc[n][2 * r + e] * inv);
+      }
+    if (t == 0) lse[((long long)b * a.H + h) * a.Tq + row] = (m[r] + log2f(lsum)) * LN2;
+  }
 }
 
 // dQ in TF32, and each row's delta and log2-domain logsumexp of the kernel's
@@ -1346,6 +1520,29 @@ int launch_bwd_tf32_dkv(const void* q, const void* k, const void* v, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
+// The TF32 forward (f32, and bf16 that misses the tensor-core alignment),
+// Hd <= 32: two warps a block where there are at most 32 rows to own, four
+// otherwise.
+template <typename T, int NW>
+int launch_fwd_tf32(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                    const Shape& a, cudaStream_t s) {
+  auto kernel = flash_fwd_tf32_kernel<T, NW, false>;
+  if (a.thresh < KEEP_ALL) kernel = flash_fwd_tf32_kernel<T, NW, true>;
+  kernel<<<dim3((a.Tq + NW * 16 - 1) / (NW * 16), a.H, B), NW * 32, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), static_cast<float*>(lse), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int forward_tf32(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                 const Shape& a, void* stream) {
+  if (a.Hd > 32) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return a.Tq > 32 ? launch_fwd_tf32<T, 4>(q, k, v, o, lse, B, a, s)
+                   : launch_fwd_tf32<T, 2>(q, k, v, o, lse, B, a, s);
+}
+
 // `rows` (the wrapper's `delta`) holds 2 x B H Tq floats here: each row's
 // delta, then its lse2, both written by the dQ kernel
 template <typename T>
@@ -1380,8 +1577,9 @@ Shape make_shape(int Tq, int Tk, int H, int Hd, long long q_sb, long long q_st,
              causal, scale, inv, thresh, seed, block0)
 
 // Every forward and backward entry point takes `keep_words`, where the
-// tensor-core forward leaves its dropout mask for its backward; the CUDA-core
-// forward and the TF32 backward regenerate the mask and ignore it.
+// tensor-core forward leaves its dropout mask for its backward; the TF32 and
+// CUDA-core kernels draw the mask anew and ignore it.  flash_fwd_<dtype> is
+// the CUDA-core forward, flash_fwd_<dtype>_tf32 the TF32 one (Hd <= 32).
 ICEK_EXPORT int flash_fwd_f32(const void* q, const void* k, const void* v,
                               void* o, void* lse, void*, ICEK_SHAPE_PARAMS) {
   return forward<float>(q, k, v, o, lse, B, ICEK_SHAPE_ARGS, stream);
@@ -1390,6 +1588,16 @@ ICEK_EXPORT int flash_fwd_f32(const void* q, const void* k, const void* v,
 ICEK_EXPORT int flash_fwd_bf16(const void* q, const void* k, const void* v,
                                void* o, void* lse, void*, ICEK_SHAPE_PARAMS) {
   return forward<__nv_bfloat16>(q, k, v, o, lse, B, ICEK_SHAPE_ARGS, stream);
+}
+
+ICEK_EXPORT int flash_fwd_f32_tf32(const void* q, const void* k, const void* v,
+                                   void* o, void* lse, void*, ICEK_SHAPE_PARAMS) {
+  return forward_tf32<float>(q, k, v, o, lse, B, ICEK_SHAPE_ARGS, stream);
+}
+
+ICEK_EXPORT int flash_fwd_bf16_tf32(const void* q, const void* k, const void* v,
+                                    void* o, void* lse, void*, ICEK_SHAPE_PARAMS) {
+  return forward_tf32<__nv_bfloat16>(q, k, v, o, lse, B, ICEK_SHAPE_ARGS, stream);
 }
 
 ICEK_EXPORT int flash_bwd_f32(const void* q, const void* k, const void* v, const void*,

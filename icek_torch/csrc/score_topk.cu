@@ -20,16 +20,24 @@
 //
 // What bounds it: at the beam-5 geo shapes (N=1280, D=300, V=10000,
 // tail 301) the product is ~7.7 GFLOP against ~6 MB of bf16 weights, so
-// the card's bound is operations (~8 us on bf16 tensor cores).  Two first
-// passes live here:
-//   * bf16 on the tensor cores (score_partial_mma_kernel), taken when the
-//     operands allow 8- and 16-byte copies (kernels/copy_scores.py::
-//     uses_tensor_cores).  A block of four warps holds its 64 rows of h in
-//     shared memory, D padded to a multiple of 16 by zero-filling copies,
-//     and streams Wv through a three-stage cp.async ring of 64 x 64 tiles;
-//     each warp multiplies its 16 rows with mma.sync m16n8k16 (ldmatrix for
-//     h, ldmatrix.trans for Wv) into f32 accumulators.  The epilogue stays
-//     in registers: bias, the ragged last tile masked, a per-lane online
+// the card's bound is operations (~8 us on bf16 tensor cores; in f32 0.115
+// ms at the CUDA cores' 67 TF/s, 0.047 ms as three TF32 products at 495
+// TF/s).  The first passes for k <= 16:
+//   * on the tensor cores (score_partial_mma_kernel<T, K>), taken when the
+//     operands allow copies of 4 elements of h's rows and 16 bytes of Wv's
+//     (kernels/copy_scores.py::route).  A block of four warps holds its 64
+//     rows of h in shared memory, D padded by zero-filling copies, and
+//     streams Wv through a three-stage cp.async ring of 64-column tiles;
+//     each warp multiplies its 16 rows into f32 accumulators: bf16 with
+//     mma.sync m16n8k16 (ldmatrix for h, ldmatrix.trans for Wv), f32 as
+//     three TF32 m16n8k8 products a product (lo hi + hi lo + hi hi, each
+//     operand split into a TF32 high part and its residual, which the
+//     tensor cores truncate to TF32: about 2^-21 of relative error a term;
+//     one TF32 pass would break the f32 checks at 1e-4, three do not), h
+//     split once a k-step in registers, Wv's fragment read by plain shared
+//     loads and split per warp (stage_products; splitting each stage once
+//     by the block and storing both pieces is the other way).  The
+//     epilogue stays in registers: bias, the ragged last tile masked, a per-lane online
 //     (max, sum 2^x) and a per-lane top-k list (k a template parameter, so
 //     the list and its insertion network are registers) that a score
 //     enters only if it beats the row's threshold, the best k-th entry of
@@ -38,10 +46,10 @@
 //     k warp-wide arg-max rounds on every tile.  At the chunk's end the
 //     four lanes of a row combine their (max, sum) by shuffles and their
 //     lists through shared memory.
-//   * f32 (and bf16 that misses the alignment) on the CUDA cores
-//     (score_partial_kernel): an f32 tiled product from shared memory, each
+//   * on the CUDA cores (score_partial_kernel), for f32 and bf16 that miss
+//     the alignment: an f32 tiled product from shared memory, each
 //     64-column tile merged into the rows' lists by k warp-wide arg-max
-//     rounds.  TF32 would break the f32 checks at 1e-4.
+//     rounds.
 //   * k above 16 (beams wider than 16): the lists no longer fit registers,
 //     so each row keeps one sorted list of kc = min(k, chunk columns)
 //     entries (at most LIST_MAX) in shared memory.  The product is the
@@ -748,33 +756,54 @@ int launch_merge(cudaStream_t s, const float* part_v, const int* part_i, const f
 }
 
 // ---------------------------------------------------------------------------
-// bf16 first pass on the tensor cores
+// First passes on the tensor cores: bf16 (mma.sync m16n8k16), f32 (three
+// TF32 m16n8k8 products a product)
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
 
 constexpr int TC_THREADS = 128;      // four warps of 16 rows: BN rows a block
-constexpr int TC_BK = 64;            // depth of a ring stage
 constexpr int TC_STAGES = 3;
-constexpr int TC_WPITCH = BV + 8;    // a stage's row pitch in bf16: 144 bytes
 constexpr int TC_MAXD = 512;
 
-// h's rows in shared memory: D padded to 16, plus 8 so that the eight rows of
-// an ldmatrix phase fall on distinct banks
-__host__ __device__ constexpr int tc_hpitch(int D) { return ((D + 15) & ~15) + 8; }
+// The tensor-core first pass's layout by element type: KS the depth of one
+// mma, BK the depth of a ring stage, WP a stage's row pitch and HP h's row
+// pad (elements).  bf16: 64-deep stages of 144-byte rows.  f32: 32-deep
+// stages of 288-byte rows, so the ring keeps the bf16 ring's 27 KB and two
+// blocks (64 rows of f32 h each, 77 KB at D 300) share an SM.
+template <typename T> struct Tc;
+template <> struct Tc<bf16> {
+  static constexpr int KS = 16, BK = 64, WP = BV + 8, HP = 8;
+};
+template <> struct Tc<float> {
+  static constexpr int KS = 8, BK = 32, WP = BV + 8, HP = 4;
+};
+
+// h's rows in shared memory: D padded to KS, plus HP so that the eight rows
+// of an ldmatrix phase fall on distinct banks (an odd multiple of 16 bytes)
+template <typename T>
+__host__ __device__ constexpr int tc_hpitch(int D) {
+  return (D + Tc<T>::KS - 1) / Tc<T>::KS * Tc<T>::KS + Tc<T>::HP;
+}
 
 // h's rows, then the ring; at the chunk's end the ring holds the four lanes'
 // lists of each row ((value, index) x BN x 4 x K), which outgrow it above K 13
-constexpr size_t TC_RING_BYTES = sizeof(bf16) * (size_t)TC_STAGES * TC_BK * TC_WPITCH;
-
-size_t tc_smem_bytes(int D, int K) {
-  const size_t lists = (sizeof(float) + sizeof(int)) * (size_t)BN * 4 * K;
-  return sizeof(bf16) * (size_t)BN * tc_hpitch(D) + (TC_RING_BYTES > lists ? TC_RING_BYTES : lists);
+template <typename T>
+__host__ __device__ constexpr size_t tc_ring_bytes() {
+  return sizeof(T) * (size_t)TC_STAGES * Tc<T>::BK * Tc<T>::WP;
 }
 
-// the wide tensor-core first pass: h's rows, the ring, then wide_tail_bytes
+template <typename T>
+size_t tc_smem_bytes(int D, int K) {
+  const size_t lists = (sizeof(float) + sizeof(int)) * (size_t)BN * 4 * K;
+  const size_t ring = tc_ring_bytes<T>();
+  return sizeof(T) * (size_t)BN * tc_hpitch<T>(D) + (ring > lists ? ring : lists);
+}
+
+// the wide tensor-core first pass (bf16): h's rows, the ring, then wide_tail_bytes
 size_t tc_wide_smem_bytes(int D, int kc) {
-  return sizeof(bf16) * (size_t)BN * tc_hpitch(D) + TC_RING_BYTES + wide_tail_bytes(kc);
+  return sizeof(bf16) * (size_t)BN * tc_hpitch<bf16>(D) + tc_ring_bytes<bf16>() +
+         wide_tail_bytes(kc);
 }
 
 // insert (v, i), which beats the list's last entry, into the sorted list
@@ -844,50 +873,138 @@ __device__ __forceinline__ void quad_best(float& v, int& i) {
   }
 }
 
+// One ring stage's products of a warp's 16 rows, bf16: mma.sync m16n8k16,
+// ldmatrix for h (a_src: row warp * 16 + lane % 16, depth 8 (lane / 16)),
+// ldmatrix.trans for the stage (w: depth lane % 16, column 8 (lane / 16)),
+// summed in the accumulators
+__device__ __forceinline__ void stage_products(float (&acc)[8][4], const bf16* a_src,
+                                               const bf16* w, int d0, int steps) {
+  constexpr int WP = Tc<bf16>::WP;
+#pragma unroll
+  for (int q = 0; q < Tc<bf16>::BK / 16; ++q) {
+    if (q < steps) {
+      uint32_t a[4];
+      ldsm_x4(a, a_src + d0 + 16 * q);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, w + 16 * q * WP + 16 * np);
+        mma_bf16(acc[2 * np], a, b[0], b[1]);
+        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// ... f32: three TF32 m16n8k8 products a product (lo hi + hi lo + hi hi, the
+// smallest first), each operand split by integer rounding (split_tf32_bits:
+// three instructions an element, where cvt.rna expands into
+// compare-and-select code; 0.27 against 0.31 ms at geo beam 5 on an H100).
+// h's A fragment comes by ldmatrix, whose 8 x 8 b16 matrices are 8 x 4 f32
+// ones as the m16n8k8 TF32 A operand wants them (a_src: row warp * 16 +
+// lane % 8 + 8 ((lane / 8) % 2), depth 4 (lane / 16)), and is split once a
+// k-step in registers.  The B fragment, depth t and t + 4 of column g, is a
+// transposition that ldmatrix (16-bit) cannot do on 32-bit elements, so it
+// is read by plain shared loads (w: depth t, column g), conflict-free at the
+// 72-float pitch (8 t + g covers the 32 banks), and split per warp.  The
+// stage's products are summed by the tensor cores (4 k-steps) and added to
+// the accumulators by f32 adds: the tensor cores' accumulation is not round
+// to nearest (summed there across stages, the values' error against
+// float64 grew from 1.7e-6 to 1.4e-5 at geo beam 5).
+__device__ __forceinline__ void stage_products(float (&acc)[8][4], const float* a_src,
+                                               const float* w, int d0, int steps) {
+  constexpr int WP = Tc<float>::WP;
+  float part[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+#pragma unroll
+  for (int q = 0; q < Tc<float>::BK / 8; ++q) {
+    if (q < steps) {
+      uint32_t a[4];
+      ldsm_x4(a, a_src + d0 + 8 * q);
+      FragA<2> x;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        uint32_t p[2];
+        split_tf32_bits(__uint_as_float(a[i]), p);
+        x.p[0][i] = p[0];
+        x.p[1][i] = p[1];
+      }
+      const float* wq = w + 8 * q * WP;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        uint32_t b0[2], b1[2];
+        split_tf32_bits(wq[8 * n], b0);
+        split_tf32_bits(wq[4 * WP + 8 * n], b1);
+        mma_tf32(part[n], x.p[0], b0[1], b1[1]);
+        mma_tf32(part[n], x.p[1], b0[0], b1[0]);
+        mma_tf32(part[n], x.p[0], b0[0], b1[0]);
+      }
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+}
+
+// 4 elements global -> shared: 8 bytes of bf16, 16 of f32
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const bf16* src, bool ok) {
+  cp_async8(dst, src, ok);
+}
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const float* src, bool ok) {
+  cp_async16(dst, src, ok);
+}
+
 // The tensor-core product of one chunk.  A block of four warps holds rows
-// [r0, r0 + BN) of h in shared memory (hs; D padded to a multiple of 16 by
-// zero-filling copies) and streams Wv through a three-stage cp.async ring of
-// 64 x 64 tiles; each warp multiplies its 16 rows with mma.sync m16n8k16
-// (ldmatrix for h, ldmatrix.trans for Wv) into f32 accumulators.  When a
+// [r0, r0 + BN) of h in shared memory (hs; D padded to a multiple of KS by
+// zero-filling copies, 4 elements a copy) and streams Wv through a
+// three-stage cp.async ring of BK x 64 tiles (16 bytes a copy); each warp
+// multiplies its 16 rows into f32 accumulators (stage_products).  When a
 // 64-column tile is done, epi(acc, col0) gets it with the bias added and the
 // columns at or past c_end at -inf: lane (g, t) holds columns col0 + 8 n + 2 t
 // + {0, 1} of rows g (acc[n][0..1]) and g + 8 (acc[n][2..3]) of its warp's
 // rows.  Returns after every copy has landed and a block barrier, so the ring
 // may be reused.
-template <typename Epi>
-__device__ __forceinline__ void mma_chunk(const bf16* __restrict__ h, const bf16* __restrict__ wv,
+template <typename T, typename Epi>
+__device__ __forceinline__ void mma_chunk(const T* __restrict__ h, const T* __restrict__ wv,
                                           const float* __restrict__ bv, int N, int D, int V,
-                                          int r0, int c_begin, int c_end, bf16* hs, bf16* ring,
+                                          int r0, int c_begin, int c_end, T* hs, T* ring,
                                           Epi&& epi) {
-  const int hp = tc_hpitch(D), dpad = hp - 8;
+  constexpr int BK = Tc<T>::BK, WP = Tc<T>::WP, KS = Tc<T>::KS;
+  constexpr int CPR = BV * (int)sizeof(T) / 16;   // 16-byte copies a stage row
+  constexpr int RPP = TC_THREADS / CPR;           // stage rows a pass of the block
+  const int hp = tc_hpitch<T>(D), dpad = hp - Tc<T>::HP;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int t = lane & 3;
-  const int kstages = (dpad + TC_BK - 1) / TC_BK;
+  const int kstages = (dpad + BK - 1) / BK;
   const int total = (c_end - c_begin + BV - 1) / BV * kstages;
 
-  // rows [r0, r0 + BN) of h, 8 bytes a copy, zeros past N and past D
+  // rows [r0, r0 + BN) of h, 4 elements a copy, zeros past N and past D
   for (int r = warp; r < BN; r += TC_THREADS / 32) {
     const bool row_ok = r0 + r < N;
-    const bf16* src = h + (long long)(row_ok ? r0 + r : 0) * D;
+    const T* src = h + (long long)(row_ok ? r0 + r : 0) * D;
     for (int c = lane; 4 * c < dpad; c += 32)
-      cp_async8(smem_u32(hs + r * hp + 4 * c), src + 4 * c, row_ok && 4 * c < D);
+      cp_async_4(smem_u32(hs + r * hp + 4 * c), src + 4 * c, row_ok && 4 * c < D);
   }
-  // stage s: depth rows [64 (s % kstages), + 64) of tile s / kstages, 16
-  // bytes a copy; a thread copies column chunk tid % 8 of rows tid / 8 + 16 i
-  const int cc = 8 * (tid & 7), rr = tid >> 3;
+  // stage s: depth rows [BK (s % kstages), + BK) of tile s / kstages, 16
+  // bytes a copy; a thread copies column chunk tid % CPR of rows tid / CPR +
+  // RPP i
+  const int cc = (16 / (int)sizeof(T)) * (tid % CPR), rr = tid / CPR;
   auto issue = [&](int s) {
     if (s < total) {
       const int tile = s / kstages;
-      const int d0 = (s - tile * kstages) * TC_BK;
+      const int d0 = (s - tile * kstages) * BK;
       const int col = c_begin + tile * BV + cc;
-      const uint32_t dst =
-          smem_u32(ring + (s % TC_STAGES) * TC_BK * TC_WPITCH + rr * TC_WPITCH + cc);
+      const uint32_t dst = smem_u32(ring + (s % TC_STAGES) * BK * WP + rr * WP + cc);
 #pragma unroll
-      for (int i = 0; i < TC_BK / 16; ++i) {
-        const int d = d0 + rr + 16 * i;
+      for (int i = 0; i < BK / RPP; ++i) {
+        const int d = d0 + rr + RPP * i;
         const bool ok = col < V && d < D;
-        cp_async16(dst + i * 16 * TC_WPITCH * 2,
-                   ok ? wv + (long long)d * V + col : wv, ok);
+        cp_async16(dst + i * RPP * WP * (int)sizeof(T), ok ? wv + (long long)d * V + col : wv,
+                   ok);
       }
     }
     cp_async_commit();
@@ -895,10 +1012,15 @@ __device__ __forceinline__ void mma_chunk(const bf16* __restrict__ h, const bf16
   issue(0);          // with h's copies
   issue(1);
 
-  // ldmatrix addresses: A (h) rows warp * 16 + lane % 16, depth 8 (lane / 16);
-  // B (a Wv stage) depth lane % 16, columns 8 (lane / 16)
-  const bf16* a_src = hs + (warp * 16 + (lane & 15)) * hp + (lane >> 4) * 8;
-  const int b_off = (lane & 15) * TC_WPITCH + (lane >> 4) * 8;
+  const T* a_src;
+  int b_off;
+  if constexpr (KS == 16) {
+    a_src = hs + (warp * 16 + (lane & 15)) * hp + (lane >> 4) * 8;
+    b_off = (lane & 15) * WP + (lane >> 4) * 8;
+  } else {
+    a_src = hs + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * hp + 4 * (lane >> 4);
+    b_off = t * WP + (lane >> 2);
+  }
 
   float acc[8][4];
 #pragma unroll
@@ -911,23 +1033,9 @@ __device__ __forceinline__ void mma_chunk(const bf16* __restrict__ h, const bf16
     cp_async_wait<TC_STAGES - 2>();
     __syncthreads();                 // stage s is in; stage s - 1's buffer is free
     issue(s + TC_STAGES - 1);
-    const bf16* w = ring + (s % TC_STAGES) * TC_BK * TC_WPITCH + b_off;
-    const int d0 = ks * TC_BK;
-    const int steps = min(TC_BK, dpad - d0) / 16;
-#pragma unroll
-    for (int q = 0; q < TC_BK / 16; ++q) {
-      if (q < steps) {
-        uint32_t a[4];
-        ldsm_x4(a, a_src + d0 + 16 * q);
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t b[4];
-          ldsm_x4_trans(b, w + 16 * q * TC_WPITCH + 16 * np);
-          mma_bf16(acc[2 * np], a, b[0], b[1]);
-          mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-        }
-      }
-    }
+    const int d0 = ks * BK;
+    stage_products(acc, a_src, ring + (s % TC_STAGES) * BK * WP + b_off, d0,
+                   min(BK, dpad - d0) / KS);
     if (++ks < kstages) continue;
 
     // the tile at col0 is done: bias and mask, then the caller's epilogue
@@ -953,15 +1061,15 @@ __device__ __forceinline__ void mma_chunk(const bf16* __restrict__ h, const bf16
   __syncthreads();
 }
 
-template <int K>
+template <typename T, int K>
 __global__ void __launch_bounds__(TC_THREADS) score_partial_mma_kernel(
-    const bf16* __restrict__ h, const bf16* __restrict__ wv,
+    const T* __restrict__ h, const T* __restrict__ wv,
     const float* __restrict__ bv, int N, int D, int V, int chunk_cols,
     int n_chunks, float* __restrict__ part_v, int* __restrict__ part_i,
     float* __restrict__ part_m, float* __restrict__ part_s) {
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* hs = reinterpret_cast<bf16*>(smem);
-  bf16* ring = hs + BN * tc_hpitch(D);
+  T* hs = reinterpret_cast<T*>(smem);
+  T* ring = hs + BN * tc_hpitch<T>(D);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = blockIdx.y * BN;
@@ -1056,8 +1164,8 @@ __global__ void __launch_bounds__(TC_THREADS) score_partial_wide_mma_kernel(
     float* __restrict__ part_m, float* __restrict__ part_s) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* hs = reinterpret_cast<bf16*>(smem);
-  bf16* ring = hs + BN * tc_hpitch(D);
-  WideLists lists(reinterpret_cast<unsigned char*>(ring) + TC_RING_BYTES, kc);
+  bf16* ring = hs + BN * tc_hpitch<bf16>(D);
+  WideLists lists(reinterpret_cast<unsigned char*>(ring) + tc_ring_bytes<bf16>(), kc);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = blockIdx.y * BN;
@@ -1099,15 +1207,15 @@ __global__ void __launch_bounds__(TC_THREADS) score_partial_wide_mma_kernel(
 
 // the tensor-core kernel takes more than 48 KB of shared memory only after
 // opting in, once per device
-template <int K>
+template <typename T, int K>
 cudaError_t mma_opt_in() {
   static bool opted[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess && (dev >= 64 || !opted[dev])) {
-    err = cudaFuncSetAttribute(score_partial_mma_kernel<K>,
+    err = cudaFuncSetAttribute(score_partial_mma_kernel<T, K>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(tc_smem_bytes(TC_MAXD, K)));
+                               static_cast<int>(tc_smem_bytes<T>(TC_MAXD, K)));
     if (err == cudaSuccess && dev < 64) opted[dev] = true;
   }
   return err;
@@ -1139,14 +1247,15 @@ int with_k(int k, Fn&& fn) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int launch_mma(int k, dim3 grid, cudaStream_t s, const bf16* h, const bf16* wv,
+template <typename T>
+int launch_mma(int k, dim3 grid, cudaStream_t s, const T* h, const T* wv,
                const float* bv, int N, int D, int V, int chunk_cols, int n_chunks,
                float* part_v, int* part_i, float* part_m, float* part_s) {
   return with_k(k, [&](auto kc) {
     constexpr int K = decltype(kc)::value;
-    const cudaError_t err = mma_opt_in<K>();
+    const cudaError_t err = mma_opt_in<T, K>();
     if (err != cudaSuccess) return static_cast<int>(err);
-    score_partial_mma_kernel<K><<<grid, TC_THREADS, tc_smem_bytes(D, K), s>>>(
+    score_partial_mma_kernel<T, K><<<grid, TC_THREADS, tc_smem_bytes<T>(D, K), s>>>(
         h, wv, bv, N, D, V, chunk_cols, n_chunks, part_v, part_i, part_m, part_s);
     return 0;
   });
@@ -1176,10 +1285,12 @@ int with_wide_kernel(int D, int kc, Fn&& fn) {
                 wide_tail_bytes(LIST_MAX));
 }
 
-// TC: the bf16 tensor-core first passes, which need D % 4 == 0, D <= 512, V %
-// 8 == 0, h on an 8-byte and wv on a 16-byte boundary.  A chunk's list holds
-// kc = min(k, chunk_cols) entries (part_v / part_i are (N, n_chunks, kc));
-// k above KMAX takes a wide first pass, whose lists hold at most LIST_MAX.
+// TC: the tensor-core first passes, which need D % 4 == 0, D <= 512, Wv's
+// rows in 16-byte copies (V % 8 == 0 in bf16, V % 4 in f32), h on a boundary
+// of 4 elements (8 bytes, 16) and wv on a 16-byte one; above KMAX bf16 only.
+// A chunk's list holds kc = min(k, chunk_cols) entries (part_v / part_i are
+// (N, n_chunks, kc)); k above KMAX takes a wide first pass, whose lists hold
+// at most LIST_MAX.
 template <typename Scalar, bool TC>
 int run(const void* h, const void* wv, const float* bv, const float* tail,
         float* part_v, int* part_i, float* part_m, float* part_s, float* vals,
@@ -1190,15 +1301,18 @@ int run(const void* h, const void* wv, const float* bv, const float* tail,
       (k > KMAX && kc > LIST_MAX))
     return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (TC) {
-    if (D % 4 || D > TC_MAXD || V % 8 || reinterpret_cast<uintptr_t>(h) % 8 ||
-        reinterpret_cast<uintptr_t>(wv) % 16)
+    if (D % 4 || D > TC_MAXD || V % (16 / sizeof(Scalar)) ||
+        reinterpret_cast<uintptr_t>(h) % (4 * sizeof(Scalar)) ||
+        reinterpret_cast<uintptr_t>(wv) % 16 ||
+        (k > KMAX && !std::is_same<Scalar, bf16>::value))
       return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   dim3 grid1(n_chunks, (N + BN - 1) / BN);
   if (k > KMAX) {
-    const int err = with_wide_kernel<Scalar, TC>(D, kc, [&](auto kernel, int threads,
-                                                             size_t smem) {
+    constexpr bool WIDE_TC = TC && std::is_same<Scalar, bf16>::value;
+    const int err = with_wide_kernel<Scalar, WIDE_TC>(D, kc, [&](auto kernel, int threads,
+                                                                  size_t smem) {
       kernel<<<grid1, threads, smem, s>>>(
           static_cast<const Scalar*>(h), static_cast<const Scalar*>(wv), bv, N, D, V, kc,
           chunk_cols, n_chunks, part_v, part_i, part_m, part_s);
@@ -1206,9 +1320,9 @@ int run(const void* h, const void* wv, const float* bv, const float* tail,
     });
     if (err) return err;
   } else if constexpr (TC) {
-    const int err = launch_mma(k, grid1, s, static_cast<const bf16*>(h),
-                               static_cast<const bf16*>(wv), bv, N, D, V, chunk_cols,
-                               n_chunks, part_v, part_i, part_m, part_s);
+    const int err = launch_mma<Scalar>(k, grid1, s, static_cast<const Scalar*>(h),
+                                       static_cast<const Scalar*>(wv), bv, N, D, V, chunk_cols,
+                                       n_chunks, part_v, part_i, part_m, part_s);
     if (err) return err;
   } else {
     score_partial_kernel<Scalar><<<grid1, THREADS, 0, s>>>(
@@ -1233,6 +1347,7 @@ int run(const void* h, const void* wv, const float* bv, const float* tail,
       k, chunk_cols, n_chunks, stream
 
 ICEK_EXPORT int score_topk_f32(SCORE_ARGS) { return run<float, false>(SCORE_PASS); }
+ICEK_EXPORT int score_topk_f32_mma(SCORE_ARGS) { return run<float, true>(SCORE_PASS); }
 ICEK_EXPORT int score_topk_bf16(SCORE_ARGS) {
   return run<__nv_bfloat16, false>(SCORE_PASS);
 }
@@ -1245,7 +1360,8 @@ ICEK_EXPORT int score_topk_bf16_mma(SCORE_ARGS) {
 // the current device at once (the wrapper splits the vocab so the first pass
 // has about that many) and its rows a block (64)
 ICEK_EXPORT int score_topk_grid(int bf16, int tc, int kc, int D, int* blocks, int* rows) {
-  if (kc < 1 || D < 1 || (kc > KMAX && kc > LIST_MAX) || (tc && (!bf16 || D > TC_MAXD)))
+  if (kc < 1 || D < 1 || (kc > KMAX && kc > LIST_MAX) ||
+      (tc && (D > TC_MAXD || (!bf16 && kc > KMAX))))
     return static_cast<int>(cudaErrorInvalidValue);
   *rows = BN;
   if (kc > KMAX) {
@@ -1259,10 +1375,14 @@ ICEK_EXPORT int score_topk_grid(int bf16, int tc, int kc, int D, int* blocks, in
   if (tc)
     return with_k(kc, [&](auto kk) {
       constexpr int K = decltype(kk)::value;
-      const cudaError_t err = mma_opt_in<K>();
-      if (err != cudaSuccess) return static_cast<int>(err);
-      return resident_blocks(score_partial_mma_kernel<K>, TC_THREADS, tc_smem_bytes(D, K),
-                             blocks);
+      auto occupancy = [&](auto scalar) {
+        using T = decltype(scalar);
+        const cudaError_t err = mma_opt_in<T, K>();
+        if (err != cudaSuccess) return static_cast<int>(err);
+        return resident_blocks(score_partial_mma_kernel<T, K>, TC_THREADS,
+                               tc_smem_bytes<T>(D, K), blocks);
+      };
+      return bf16 ? occupancy(__nv_bfloat16{}) : occupancy(float{});
     });
   return bf16 ? resident_blocks(score_partial_kernel<__nv_bfloat16>, THREADS, 0, blocks)
               : resident_blocks(score_partial_kernel<float>, THREADS, 0, blocks);

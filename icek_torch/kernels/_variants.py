@@ -2,7 +2,7 @@
 
     python -m icek_torch.kernels._variants fused_norm base,nophilox,copyonly [ROWS] [RATE]
     python -m icek_torch.kernels._variants decoder_step base,g1,nolinears [STEP ...] [bf16] [f32] [BxK ...]
-    python -m icek_torch.kernels._variants score_topk base,nolist,nolse [K,K,...]
+    python -m icek_torch.kernels._variants score_topk base,nolist,nolse [K,K,...] [N]
     python -m icek_torch.kernels._variants flash_attention base,nophilox [RATE,RATE,...]
     python -m icek_torch.kernels._variants int8_conv base,gather,epfirst,ep1,nostore,noepi,nomma [BATCH] [KINDS]
     python -m icek_torch.kernels._variants --parent ROOT <source> base,... [args]
@@ -24,14 +24,17 @@ order given and then backwards, so a drift shows:
   wrapper's choices instead of the source (``cores``: the CUDA-core
   kernel).  Each run saves its outputs, and with ``--parent`` the parent's
   are compared with the first variant's bit for bit;
-* ``score_topk``: ``fused_score_topk`` at the geo beam-20 shape (N 640 rows,
-  D 300, V 10000, tail 301, seeded random inputs) at each K (default 20), in
-  bf16 and f32, with CUDA events, and the first pass and the merge apart
-  (torch.profiler);
-* ``flash_attention``: the float32 backward (dQ, then dK/dV) at the geo
-  encoder site (B 256, T 301, H 10, Hd 30, q, k, v strided views of one
-  fused QKV projection) at each RATE (default 0 and 0.2), with CUDA events,
-  and its two kernels apart (torch.profiler);
+* ``score_topk``: ``fused_score_topk`` at N rows (default 640, geo beam
+  20's; 1280 is geo beam 5's, 256 greedy's), D 300, V 10000, tail 301,
+  seeded random inputs, at each K (default 20), in bf16 and f32, with CUDA
+  events, and the first pass and the merge apart (torch.profiler); where f32
+  takes the tensor-core pass (K <= 16) also the CUDA-core pass it replaced
+  (the same h 4 bytes into its buffer);
+* ``flash_attention``: at the geo encoder site (B 256, T 301, H 10, Hd 30,
+  q, k, v strided views of one fused QKV projection) at each RATE (default
+  0 and 0.2), float32, with CUDA events: the forward (the TF32 kernel, and
+  beside it the CUDA-core forward it replaced, through its entry), then the
+  backward (dQ, then dK/dV) and its two kernels apart (torch.profiler);
 * ``int8_conv``: every distinct site of an int8 encode of 256x256 images
   at BATCH (default 256; ``resnet_int8.encode_sites``, computed by this
   process and handed to each run, so a parent tree is timed on the same
@@ -92,6 +95,133 @@ _HINTS_OFF = [
 _NO_CROSS_MATH = [("        if (hh >= H) continue;\n", "        continue;\n")]
 # source -> name -> [(text, replacement)] or, for a replacement of everything
 # between two marks, [((begin, end), replacement)]
+# the TF32 flash forward's P V: V split by split_tf32_bits (the kernel), or
+# by split_tf32<2>'s cvt.rna pair (its first build)
+_FWD_PV = "          mma_add_bits<P>(acc[n], pa, vr[0], vr[FP]);\n"
+_FWD_PV_RNA = "          mma_add<P>(acc[n], pa, vr[0], vr[FP]);\n"
+# the TF32 flash forward with K or V split once a tile by the block (hi in
+# place, lo in a tile of its own), so the warps load the pieces: the same
+# pieces as the per-warp split, so the same bits
+_FWD_HEAD = ("    T* __restrict__ o, float* __restrict__ lse, const Shape a) {\n"
+             "  constexpr int P = std::is_same<T, float>::value ? 2 : 1;   "
+             "// bf16 is exact in one piece\n")
+_FWD_WAIT = ("    cp_async_wait<1>();\n    __syncthreads();\n    if (k0 < warp_end) {\n"
+             "      const float(*kt)[FP] = ks[it & 1];\n")
+
+
+def _fwd_presplit(which):
+    """The replacements that split `which` ("ks" or "vs") once a tile."""
+    lo = "klo" if which == "ks" else "vlo"
+    convert = f"""    cp_async_wait<1>();
+    __syncthreads();
+    if constexpr (P == 2) {{
+      float(*cur)[FP] = {which}[it & 1];
+      for (int e = threadIdx.x; e < TILE * 32; e += NT) {{
+        uint32_t x[2];
+        split_tf32<2>(cur[e >> 5][e & 31], x);
+        cur[e >> 5][e & 31] = __uint_as_float(x[0]);
+        {lo}[e >> 5][e & 31] = __uint_as_float(x[1]);
+      }}
+      __syncthreads();
+    }}
+    if (k0 < warp_end) {{
+      const float(*kt)[FP] = ks[it & 1];
+"""
+    reps = [(_FWD_HEAD, _FWD_HEAD + f"  __shared__ __align__(16) float {lo}[TILE][FP];\n"),
+            (_FWD_WAIT, convert)]
+    if which == "vs":
+        reps.append((_FWD_PV, """          if constexpr (P == 2) {
+            const float* vl = &vlo[8 * j + 2 * t][8 * n + g];
+            const uint32_t h0 = __float_as_uint(vr[0]), h1 = __float_as_uint(vr[FP]);
+            const uint32_t l0 = __float_as_uint(vl[0]), l1 = __float_as_uint(vl[FP]);
+            float s3[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_tf32(s3, pa.p[0], l0, l1);
+            mma_tf32(s3, pa.p[1], h0, h1);
+            mma_tf32(s3, pa.p[0], h0, h1);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[n][i] += s3[i];
+          } else {
+            mma_add<P>(acc[n], pa, vr[0], vr[FP]);
+          }
+"""))
+    else:
+        reps.append(("        first_product<P>(x[j], qa, &kt[8 * j + g][t]);\n", """        if constexpr (P == 2) {
+          const float* bh = &kt[8 * j + g][t];
+          const float* bl = &klo[8 * j + g][t];
+          float c3[3][4];
+#pragma unroll
+          for (int w = 0; w < 3; ++w)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) c3[w][i] = 0.f;
+#pragma unroll
+          for (int ds = 0; ds < 4; ++ds) {
+            const uint32_t x0 = __float_as_uint(bh[8 * ds]), y0 = __float_as_uint(bh[8 * ds + 4]);
+            const uint32_t x1 = __float_as_uint(bl[8 * ds]), y1 = __float_as_uint(bl[8 * ds + 4]);
+            mma_tf32(c3[0], qa[ds].p[0], x0, y0);
+            mma_tf32(c3[1], qa[ds].p[1], x0, y0);
+            mma_tf32(c3[2], qa[ds].p[0], x1, y1);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) x[j][i] = c3[0][i] + (c3[1][i] + c3[2][i]);
+        } else {
+          first_product<P>(x[j], qa, &kt[8 * j + g][t]);
+        }
+"""))
+    return reps
+
+
+# the f32 score pass's stage: h and Wv split by integer rounding (the
+# kernel), each k-step's three products summed in the stage's sum
+_SCORE_A = "        split_tf32_bits(__uint_as_float(a[i]), p);\n"
+_SCORE_B = """        mma_tf32(part[n], x.p[0], b0[1], b1[1]);
+        mma_tf32(part[n], x.p[1], b0[0], b1[0]);
+        mma_tf32(part[n], x.p[0], b0[0], b1[0]);
+"""
+_SCORE_SPLIT_B = """        split_tf32_bits(wq[8 * n], b0);
+        split_tf32_bits(wq[4 * WP + 8 * n], b1);
+"""
+# ... the ring split once a stage by the block (hi in place, lo in a stage of
+# its own after the ring), so the warps load the pieces
+_SCORE_PRESPLIT = [
+    ("  const size_t ring = tc_ring_bytes<T>();\n",
+     "  const size_t ring = tc_ring_bytes<T>() + (sizeof(T) == 4 ? sizeof(float) * Tc<float>::BK * "
+     "Tc<float>::WP : 0);\n"),
+    ("    issue(s + TC_STAGES - 1);\n",
+     """    issue(s + TC_STAGES - 1);
+    if constexpr (KS == 8) {
+      auto* st = ring + (s % TC_STAGES) * BK * WP;
+      auto* lo = ring + TC_STAGES * BK * WP;
+      for (int e = tid; e < BK * BV; e += TC_THREADS) {
+        const int r = e / BV, c = e - r * BV;
+        uint32_t x[2];
+        split_tf32_bits(st[r * WP + c], x);
+        st[r * WP + c] = __uint_as_float(x[0]);
+        lo[r * WP + c] = __uint_as_float(x[1]);
+      }
+      __syncthreads();
+    }
+"""),
+    ("    stage_products(acc, a_src, ring + (s % TC_STAGES) * BK * WP + b_off, d0,\n"
+     "                   min(BK, dpad - d0) / KS);\n",
+     """    if constexpr (KS == 8)
+      stage_products(acc, a_src, ring + (s % TC_STAGES) * BK * WP + b_off, d0,
+                     min(BK, dpad - d0) / KS, ring + TC_STAGES * BK * WP + b_off);
+    else
+      stage_products(acc, a_src, ring + (s % TC_STAGES) * BK * WP + b_off, d0,
+                     min(BK, dpad - d0) / KS);
+"""),
+    ("__device__ __forceinline__ void stage_products(float (&acc)[8][4], const float* a_src,\n"
+     "                                               const float* w, int d0, int steps) {\n",
+     "__device__ __forceinline__ void stage_products(float (&acc)[8][4], const float* a_src,\n"
+     "                                               const float* w, int d0, int steps,\n"
+     "                                               const float* wl) {\n"),
+    (_SCORE_SPLIT_B, """        const float* wlq = wl + 8 * q * WP;
+        b0[0] = __float_as_uint(wq[8 * n]);
+        b1[0] = __float_as_uint(wq[4 * WP + 8 * n]);
+        b0[1] = __float_as_uint(wlq[8 * n]);
+        b1[1] = __float_as_uint(wlq[4 * WP + 8 * n]);
+""")]
+
 VARIANTS = {
     "fused_norm": {
         "base": [],
@@ -212,6 +342,28 @@ VARIANTS = {
         # the wide first passes: no online logsumexp
         "nolse": [("                lse_update<16>(m_run[r], s_run[r], x);\n", ""),
                   ("      lse_update<4>(m_run[a], s_run[a], x);\n", "")],
+        # the f32 tensor-core pass: 64-deep ring stages (one block an SM at D 300)
+        "bk64": [("  static constexpr int KS = 8, BK = 32, WP = BV + 8, HP = 4;",
+                  "  static constexpr int KS = 8, BK = 64, WP = BV + 8, HP = 4;")],
+        # ... its stage summed with the running sum in the tensor cores
+        "tcacc": [(_SCORE_B, _SCORE_B.replace("part[n]", "acc[n]"))],
+        # ... each k-step's three products summed apart and added in f32
+        "kstep": [(_SCORE_B, """        float t3[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(t3, x.p[0], b0[1], b1[1]);
+        mma_tf32(t3, x.p[1], b0[0], b1[0]);
+        mma_tf32(t3, x.p[0], b0[0], b1[0]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[n][e] += t3[e];
+""")],
+        # ... h and Wv split by split_tf32<2>'s cvt.rna pair (its first build)
+        "rna": [(_SCORE_A, "        split_tf32<2>(__uint_as_float(a[i]), p);\n"),
+                (_SCORE_SPLIT_B, "        split_tf32<2>(wq[8 * n], b0);\n"
+                                 "        split_tf32<2>(wq[4 * WP + 8 * n], b1);\n")],
+        # ... the ring split once a stage by the block
+        "presplit": _SCORE_PRESPLIT,
+        # ... its products cut (the ring still turns, the epilogue runs)
+        "nommaf32": [("    if (q < steps) {\n      uint32_t a[4];\n      ldsm_x4(a, a_src + d0 + 8 * q);",
+                      "    if (q < 0) {\n      uint32_t a[4];\n      ldsm_x4(a, a_src + d0 + 8 * q);")],
     },
     "int8_conv": {
         "base": [],
@@ -268,11 +420,22 @@ VARIANTS = {
                    "        mma_pieces<P>(dka[n], dsa, qr[0], qr[FP]);")],
         # the dQ kernel's pass 0 skipped: delta and lse2 left unwritten (cut)
         "onepass": [("  for (int pass = 0; pass < 2; ++pass) {", "  for (int pass = 1; pass < 2; ++pass) {")],
+        # the TF32 forward's P V with V split by cvt.rna (its first build)
+        "fwdrna": [(_FWD_PV, _FWD_PV_RNA)],
+        # the TF32 forward with K, or V, split once a tile by the block
+        "presplitk": _fwd_presplit("ks"),
+        "presplitv": _fwd_presplit("vs"),
+        # the TF32 forward's P V products cut (cut)
+        "fwdnopv": [(_FWD_PV, "")],
+        # the TF32 forward's S products cut: x from one shared load (cut)
+        "fwdnos": [("        first_product<P>(x[j], qa, &kt[8 * j + g][t]);\n",
+                    "        x[j][0] = x[j][1] = x[j][2] = x[j][3] = kt[8 * j + g][t];\n")],
     },
 }
 CUTS = {"fused_norm": {"noshfl", "copyonly", "computeonly"},
         "decoder_step": {"nolinears", "nocrossmath", "nocross", "noself"},
-        "score_topk": {"nolist", "nolse"}, "flash_attention": {"nophilox", "onepass"},
+        "score_topk": {"nolist", "nolse", "nommaf32"},
+        "flash_attention": {"nophilox", "onepass", "fwdnopv", "fwdnos"},
         "int8_conv": {"nostore", "noepi", "nomma", "stemnoquant", "stemnoraw", "stemnorows"}}
 # decoder_step: the wrapper's choices changed (images a block, rows a block of
 # a wide beam's image, the CUDA-core kernel for every call)
@@ -454,6 +617,13 @@ def time_decoder_step(name: str, args, save: str = None) -> None:
         torch.save(outputs, save)
 
 
+def _shifted(h):
+    """h's values 4 bytes into a buffer of their own (no 16-byte copies)."""
+    buf = torch.empty(h.numel() + 1, dtype=h.dtype, device=h.device)
+    buf[1:].copy_(h.reshape(-1))
+    return buf[1:].view(h.shape)
+
+
 def score_inputs(dtype, n: int = 640, t: int = 301, seed: int = 1):
     """h (n, 300), Wv (300, 10000), bv and an (n, t) tail on the card, as
     chip_smoke.py's score records draw them."""
@@ -468,16 +638,28 @@ def score_inputs(dtype, n: int = 640, t: int = 301, seed: int = 1):
 def time_score_topk(name: str, args) -> None:
     from icek_torch.kernels import copy_scores as cs
 
+    n = int(args[1]) if len(args) > 1 else 640
     for k in [int(a) for a in (args[0] if args else "20").split(",")]:
         for dtype in (torch.bfloat16, torch.float32):
-            h, wv, bv, tail = score_inputs(dtype)
+            h, wv, bv, tail = score_inputs(dtype, n)
             run = lambda: cs.fused_score_topk(h, wv, bv, tail, k=k)
             got, want = run(), cs.reference_score_topk(h, wv, bv, tail, k=k)
             err = max(float((a - b).abs().max()) for a, b in ((got[0], want[0]), (got[2], want[2])))
+            differ = int((got[1] != want[1]).sum())
+            # against the exact (float64) values: the arithmetic's own error
+            exact = torch.cat([h.double() @ wv.double() + bv.double(), tail.double()], dim=1)
+            f64 = float((got[0].double() - exact.topk(k, dim=1).values).abs().max())
+            del exact
             parts = _device_split(run, ("score_partial", "score_merge"))
-            print(f"{name} {str(dtype)[6:]} N {h.shape[0]} k {k}: {_event_ms(run):.4f} ms, "
+            cores = ""
+            if dtype == torch.float32 and k <= 16 and hasattr(cs, "aligned"):
+                hc = _shifted(h)
+                cores_run = lambda: cs.fused_score_topk(hc, wv, bv, tail, k=k)
+                cores = f", CUDA-core pass {_event_ms(cores_run):.4f} ms"
+            print(f"{name} {str(dtype)[6:]} N {n} k {k}: {_event_ms(run):.4f} ms, "
                   f"first pass {parts['score_partial']:.4f} ms, merge "
-                  f"{parts['score_merge']:.4f} ms "
+                  f"{parts['score_merge']:.4f} ms{cores}, {differ} indices differ from the "
+                  f"plain version's, values {f64:.3g} from float64 "
                   f"({_held('score_topk', name, 'values / lse', err, 1e-4)})", flush=True)
 
 
@@ -496,7 +678,19 @@ def time_flash_attention(name: str, args) -> None:
 
     leaves, d_out = flash_inputs()
     B, T, H, _ = d_out.shape
+    q, k, v = (t.detach() for t in leaves)
     for rate in [float(a) for a in (args[0] if args else "0,0.2").split(",")]:
+        keep = fa.keep_mask(B, H, T, T, rate=rate, seed=77, device="cuda") if rate else None
+        fwd = lambda: fa.flash_mha(q, k, v, dropout_rate=rate, seed=77)
+        ref = fa.reference_mha(q, k, v, dropout_rate=rate, keep=keep)
+        err = float((fwd() - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+        cores = ""
+        if hasattr(fa, "route"):        # a tree whose f32 forward is no longer the CUDA-core one
+            cores_run = lambda: fa._forward(q, k, v, T, False, rate, 77, via="cuda_cores")[0]
+            cores = f", CUDA-core forward {_event_ms(cores_run):.4f} ms"
+        print(f"{name} f32 geo encoder rate {rate}: forward {_event_ms(fwd):.4f} ms{cores} "
+              f"({_held('flash_attention', name, 'forward', err, 1e-4)})", flush=True)
+        del ref, keep
         out = fa.flash_mha(*leaves, dropout_rate=rate, seed=77)
         bwd = lambda: torch.autograd.grad(out, leaves, d_out, retain_graph=True)
         keep = fa.keep_mask(B, H, T, T, rate=rate, seed=77, device="cuda") if rate else None

@@ -5,15 +5,27 @@ logits (argmax + runner-up for greedy, top-K for beam) and the row
 logsumexp.  ``fused_score_topk`` runs ``csrc/score_topk.cu`` for CUDA
 tensors, which never writes the (N, V) scores to device memory, and its
 plain PyTorch version ``reference_score_topk`` for CPU tensors.  Which
-first pass a CUDA call runs is decided by dtype, shape and alignment
-(``uses_tensor_cores``) and k: bfloat16 operands that allow 8-byte copies
-of h's rows and 16-byte copies of Wv's run a tensor-core product; float32,
-and bfloat16 that misses the alignment, run a CUDA-core product of the same
-source.  Up to k 16 each row's top-k lists live in registers; above k 16
-(beams wider than 16) each row keeps one sorted list in shared memory,
-into which a tile's scores that beat its last entry are sorted and merged
-at once.  ``fused_score_topk.routes`` counts the launches of each.  None
-gives way to another or to the plain version.  k runs from 1 to the width of
+first pass a CUDA call runs is decided by dtype, k and alignment
+(``route``; ``aligned`` says whether h's rows allow copies of 4 elements
+and Wv's of 16 bytes):
+
+* ``tensor_cores``: k <= 16, aligned bfloat16 (mma.sync m16n8k16) or float32
+  (three TF32 m16n8k8 products a product, each operand split into a TF32
+  high part and its residual, which the tensor cores truncate to TF32:
+  about 2^-21 of relative error a term, where one TF32 pass would break the
+  1e-4 checks; it ranks near-ties as float64 does where the plain f32
+  product cannot);
+* ``cuda_cores``: k <= 16, either dtype when it misses the alignment (an
+  f32 FMA product);
+* ``wide_tensor_cores``: k > 16, aligned bfloat16;
+* ``wide_cuda_cores``: k > 16, float32, and bfloat16 that misses the
+  alignment (a register-tiled FMA product).
+
+Up to k 16 each row's top-k lists live in registers; above k 16 (beams
+wider than 16) each row keeps one sorted list in shared memory, into which
+a tile's scores that beat its last entry are sorted and merged at once.
+``fused_score_topk.routes`` counts the launches of each route.  None gives
+way to another or to the plain version.  k runs from 1 to the width of
 [V | tail], as ``lax.top_k``'s does.  Ties go to the lower index of
 [V | tail] (the lax.top_k contract), so vocab entries win ties against
 the tail.
@@ -59,14 +71,31 @@ def supports(k: int, width: int) -> bool:
     return 1 <= k <= width
 
 
-def uses_tensor_cores(h, wv) -> bool:
-    """Whether contiguous (h, wv) go to a tensor-core first pass (at any k):
-    bfloat16, D a multiple of 4 and at most 512, V a multiple of 8, h on an
-    8-byte and wv on a 16-byte boundary (the kernels stage h's rows 8 bytes
-    and Wv's rows 16 bytes a copy)."""
+def aligned(h, wv) -> bool:
+    """Whether contiguous (h, wv) allow the tensor-core first passes' copies:
+    D a multiple of 4 and at most 512, h on a boundary of 4 elements (the
+    kernels stage h's rows 4 elements a copy: 8 bytes of bfloat16, 16 of
+    float32), Wv's rows in 16-byte copies (V a multiple of 8 in bfloat16, of
+    4 in float32) and wv on a 16-byte boundary."""
     D, V = wv.shape
-    return (h.dtype == torch.bfloat16 and D % 4 == 0 and D <= _TC_MAX_D
-            and V % 8 == 0 and h.data_ptr() % 8 == 0 and wv.data_ptr() % 16 == 0)
+    size = h.element_size()
+    return (D % 4 == 0 and D <= _TC_MAX_D and V % (16 // size) == 0
+            and h.data_ptr() % (4 * size) == 0 and wv.data_ptr() % 16 == 0)
+
+
+def route(dtype, k: int, is_aligned: bool = True) -> str:
+    """The first pass a call takes: tensor_cores / cuda_cores up to k 16,
+    wide_tensor_cores / wide_cuda_cores above (the wide tensor-core pass is
+    bfloat16's only)."""
+    if k > REGISTER_K:
+        wide_tc = is_aligned and dtype == torch.bfloat16
+        return "wide_tensor_cores" if wide_tc else "wide_cuda_cores"
+    return "tensor_cores" if is_aligned else "cuda_cores"
+
+
+def uses_tensor_cores(h, wv, k: int = 1) -> bool:
+    """Whether contiguous (h, wv) go to a tensor-core first pass at top-k `k`."""
+    return route(h.dtype, k, aligned(h, wv)).endswith("tensor_cores")
 
 
 @functools.lru_cache(maxsize=None)
@@ -130,7 +159,8 @@ def fused_score_topk(h, wv, bv, tail, k: int = 5):
     bv = bv.to(torch.float32).contiguous()
     tail = tail.to(torch.float32).contiguous()
     T = tail.shape[1]
-    tc = uses_tensor_cores(h, wv)
+    name = route(h.dtype, k, aligned(h, wv))
+    tc = name.endswith("tensor_cores")
     blocks, rows = _first_pass_grid(h.device.index, h.dtype, tc,
                                     min(k, LIST_MAX) if k > REGISTER_K else k, D)
     chunk_cols, n_chunks = _chunking(N, V, blocks, rows, _max_tiles(k))
@@ -152,15 +182,10 @@ def fused_score_topk(h, wv, bv, tail, k: int = 5):
              N, D, V, T, k, chunk_cols, n_chunks, _build.stream_of(h))
     _build.check(err, "score_topk", "fused_score_topk")
     fused_score_topk.launches += 1
-    fused_score_topk.routes[route(tc, k)] += 1
+    fused_score_topk.routes[name] += 1
     return vals, idx, lse
 
 
-def route(tc: bool, k: int) -> str:
-    """The first pass a call takes: (wide_)tensor_cores or (wide_)cuda_cores."""
-    return ("wide_" if k > REGISTER_K else "") + ("tensor_cores" if tc else "cuda_cores")
-
-
+ROUTES = ("tensor_cores", "cuda_cores", "wide_tensor_cores", "wide_cuda_cores")
 fused_score_topk.launches = 0
-# launches by first pass (route)
-fused_score_topk.routes = {route(tc, k): 0 for tc in (True, False) for k in (1, REGISTER_K + 1)}
+fused_score_topk.routes = dict.fromkeys(ROUTES, 0)    # launches by first pass (route)

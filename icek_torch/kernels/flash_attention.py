@@ -13,20 +13,28 @@ autograd differentiates the plain version.  Q/K/V come in the (B, T, H, Hd)
 layout with the head dim contiguous; the TPU head-slot packing is not part
 of the port.
 
-Which kernels a CUDA call runs is decided by dtype and shape alone
-(``uses_tensor_cores``): bfloat16 with an even head dim of at most 32 and
-4-byte aligned head rows (even strides, a ``data_ptr()`` that is a
-multiple of 4: every view of a fused projection with an even head dim)
-runs the bf16 tensor-core kernels, forward and backward.  The rest runs
-the CUDA-core forward, and for the backward (head dims up to 32) the TF32
-kernels: float32 as three TF32 tensor-core products a product (each
-operand split into a TF32 high part and the TF32 of its residual: about
-2^-21 of relative error a term, where one TF32 pass gives 2^-11 and breaks
-the 1e-4 checks), bfloat16 that misses the alignment as one (bf16 values
-are exact in TF32).  The products are bounded by the tensor cores' TF32
-rate and, in the end, by the instructions that split operands and stage
-f32 rows 4 bytes a copy.  No route gives way to another or to the plain
-version: a kernel that fails to build or launch raises.
+Which kernels a CUDA call runs is decided by dtype, shape and alignment
+alone (``route``), and the forward and the backward of one call run one
+family:
+
+* ``mma``: bfloat16 with an even head dim of at most 32 and 4-byte aligned
+  head rows (even strides, a ``data_ptr()`` that is a multiple of 4: every
+  view of a fused projection with an even head dim; ``uses_tensor_cores``)
+  runs the bf16 tensor-core kernels;
+* ``tf32``: any other head dim up to 32, float32 and bfloat16 that misses
+  the alignment, runs the TF32 tensor-core kernels: float32 as three TF32
+  products a product (each operand split into a TF32 high part and the
+  TF32 of its residual: about 2^-21 of relative error a term, where one
+  TF32 pass gives 2^-11 and breaks the 1e-4 checks), bfloat16 as one (bf16
+  values are exact in TF32).  Its products are bounded by the tensor cores'
+  TF32 rate and, in the end, by the instructions that split operands and
+  stage f32 rows 4 bytes a copy;
+* ``cuda_cores``: head dims in (32, 128], the forward only, at rate 0: one
+  thread a query row, f32 FMAs.
+
+``flash_mha.routes`` counts the forward's launches by route.  No route
+gives way to another or to the plain version: a kernel that fails to
+build or launch raises.
 
 Dropout: an element keeps iff the top 24 of its random bits lie below
 ``int((1 - rate) * 2**24)``.  The kernels draw the bits from a Philox
@@ -93,8 +101,15 @@ def uses_tensor_cores(q, k, v) -> bool:
                for t in (q, k, v))
 
 
-def _entry(q, k, v) -> str:
-    return _SUFFIX[q.dtype] + ("_mma" if uses_tensor_cores(q, k, v) else "")
+ROUTES = ("mma", "tf32", "cuda_cores")
+_FWD_ENTRY = {"mma": "_mma", "tf32": "_tf32", "cuda_cores": ""}
+
+
+def route(q, k, v) -> str:
+    """The kernel family (q, k, v) go to: mma, tf32 or cuda_cores."""
+    if uses_tensor_cores(q, k, v):
+        return "mma"
+    return "tf32" if q.shape[-1] <= 32 else "cuda_cores"
 
 
 def _ptr(t):
@@ -116,26 +131,30 @@ def _shape_args(q, k, v, kv_len, causal, rate, seed, blk0):
             seed, blk0, _build.stream_of(q))
 
 
-def _forward(q, k, v, kv_len, causal, rate, seed, blk0=0):
-    """Launch the forward kernel; returns (out, lse (B, H, Tq) f32,
-    keep_words).  `keep_words` is the tensor-core forward's dropout mask for
-    its backward, one bit a score in cells of 16 rows x 64 keys of 32 words
-    each (``keep_cell`` in the source), and None at rate 0 and in the
-    CUDA-core kernels."""
+def _forward(q, k, v, kv_len, causal, rate, seed, blk0=0, via=None):
+    """Launch the forward kernel of route `via` (default: ``route``'s);
+    returns (out, lse (B, H, Tq) f32, keep_words).  `keep_words` is the
+    bf16 tensor-core forward's dropout mask for its backward, one bit a
+    score in cells of 16 rows x 64 keys of 32 words each (``keep_cell`` in
+    the source), and None at rate 0 and on the other routes.  `via`
+    "cuda_cores" reaches the CUDA-core kernel at any head dim up to 128 (up
+    to 32 with dropout), for timing it beside the kernel that replaced it."""
     B, Tq, H, Hd = q.shape
+    via = via or route(q, k, v)
     out = torch.empty((B, Tq, H, Hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     keep_words = None
-    if rate > 0.0 and uses_tensor_cores(q, k, v):
+    if rate > 0.0 and via == "mma":
         keep_words = torch.empty((B, H, 4 * (-(-Tq // 64)), -(-k.shape[1] // 64), 32),
                                  dtype=torch.int32, device=q.device)
-    fn = _build.bind("flash_attention", "flash_fwd_" + _entry(q, k, v),
+    fn = _build.bind("flash_attention", "flash_fwd_" + _SUFFIX[q.dtype] + _FWD_ENTRY[via],
                      [_P] * 6 + _SHAPE)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), _ptr(keep_words),
              *_shape_args(q, k, v, kv_len, causal, rate, seed, blk0))
     _build.check(err, "flash_attention", "flash_mha")
     flash_mha.launches += 1
+    flash_mha.routes[via] += 1
     return out, lse, keep_words
 
 
@@ -157,8 +176,8 @@ def flash_mha_bwd(q, k, v, out, lse, keep_words, d_out, kv_len, causal, rate, se
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     # each row's delta (and, for the TF32 kernels, its log2-domain logsumexp)
     delta = torch.empty((2,) + tuple(lse.shape), dtype=torch.float32, device=q.device)
-    fn = _build.bind("flash_attention", "flash_bwd_" + _entry(q, k, v),
-                     [_P] * 11 + _SHAPE)
+    fn = _build.bind("flash_attention", "flash_bwd_" + _SUFFIX[q.dtype]
+                     + ("_mma" if route(q, k, v) == "mma" else ""), [_P] * 11 + _SHAPE)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              d_out.data_ptr(), lse.data_ptr(), _ptr(keep_words), delta.data_ptr(),
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -240,4 +259,5 @@ def keep_mask(B, H, Tq, Tk, *, rate, seed, device, first=0):
 
 
 flash_mha.launches = 0
+flash_mha.routes = dict.fromkeys(ROUTES, 0)      # the forward's launches by route
 flash_mha_bwd.launches = 0

@@ -129,7 +129,8 @@ def test_score_head_route_predicate():
     lax.top_k takes); the wrapper refuses any other k, on the CPU too, and
     so does beam_decode before its first step; the tensor-core first pass
     takes aligned bf16 at every k (its lists in registers up to 16, in shared
-    memory above), f32 never."""
+    memory above) and aligned f32 up to k 16 (three TF32 products a
+    product); f32 above 16 takes the wide CUDA-core pass."""
     from icek_torch.kernels import copy_scores as tcs
 
     assert [tcs.supports(k, 19) for k in (0, 1, 2, 5, 16, 17, 19, 20)] == [
@@ -140,7 +141,9 @@ def test_score_head_route_predicate():
     with pytest.raises(ValueError, match="k=20"):
         tcs.fused_score_topk(*args, k=20)
     h, wv = torch.zeros((4, 8), dtype=torch.bfloat16), torch.zeros((8, 16), dtype=torch.bfloat16)
-    assert tcs.uses_tensor_cores(h, wv) and not tcs.uses_tensor_cores(h.float(), wv.float())
+    assert tcs.uses_tensor_cores(h, wv) and tcs.uses_tensor_cores(h.float(), wv.float())
+    assert tcs.uses_tensor_cores(h, wv, k=17) and not tcs.uses_tensor_cores(h.float(), wv.float(),
+                                                                          k=17)
     assert [tcs._max_tiles(k) for k in (1, 16, 17, 128, 129)] == [None] * 4 + [2]
     _, tc, _, tp, _, tctx, ids, L = decode_contexts("tiny", seed=0)
     S = ids[0] + ids[1]                           # V + E: geo's extended vocabulary

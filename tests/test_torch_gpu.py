@@ -53,11 +53,16 @@ def test_flash_kernel_matches_plain(cuda, dtype, tol, causal, tq, tk, h, hd, kv_
     q = torch.randn((2, tq, h, hd), generator=g).to(cuda, dtype)
     k = qkv[..., h * hd:2 * h * hd].view(2, tk, h, hd)   # strided views
     v = qkv[..., 2 * h * hd:].view(2, tk, h, hd)
-    assert tfa.uses_tensor_cores(q, k, v) == (dtype == torch.bfloat16 and hd <= 32)
-    before = tfa.flash_mha.launches
+    # bf16 on its tensor-core kernels, f32 up to Hd 32 on the TF32 ones, the
+    # CUDA-core forward above
+    want_route = "mma" if dtype == torch.bfloat16 and hd <= 32 else "tf32" if hd <= 32 \
+        else "cuda_cores"
+    assert tfa.route(q, k, v) == want_route
+    before, routes = tfa.flash_mha.launches, dict(tfa.flash_mha.routes)
     got = tfa.flash_mha(q, k, v, kv_len=kv_len, causal=causal)
     torch.cuda.synchronize()
     assert tfa.flash_mha.launches == before + 1
+    assert tfa.flash_mha.routes[want_route] == routes[want_route] + 1
     want = tfa.reference_mha(q, k, v, kv_len=kv_len, causal=causal)
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
 
@@ -113,9 +118,11 @@ def _score_inputs(cuda, dtype, n, v, t, seed=9):
 def test_score_kernel_edges(cuda, dtype, n, v, t):
     """Rows on both sides of the 64-row tile, a vocab of one tile, a ragged
     last tile, one that misses the tensor-core alignment (V = 10001), and
-    tails of 1 and 301: indices identical, values and lse within 1e-4."""
+    tails of 1 and 301: indices identical, values and lse within 1e-4.  Both
+    dtypes take the tensor cores where V allows 16-byte copies of Wv's rows
+    (bf16 V % 8, f32 V % 4: every V here but 10001)."""
     h, wv, bv, tail = _score_inputs(cuda, dtype, n, v, t)
-    assert tcs.uses_tensor_cores(h, wv) == (dtype == torch.bfloat16 and v % 8 == 0)
+    assert tcs.uses_tensor_cores(h, wv) == (v % (8 if dtype == torch.bfloat16 else 4) == 0)
     before = tcs.fused_score_topk.launches
     got = tcs.fused_score_topk(h, wv, bv, tail, k=5)
     torch.cuda.synchronize()
@@ -174,8 +181,9 @@ def test_score_kernel_bf16_offset_h_takes_cuda_core_path(cuda, k):
 def test_score_kernel_wide_k(cuda, dtype, n, t, k):
     """Top-k of 9 to 100 (beams wider than 8): the tensor-core kernel's
     lists at K 13 and 14 (where they outgrow its ring at the chunk's end)
-    and 16, the CUDA-core kernel's in f32; above 16 the wide first pass in
-    both dtypes (lists of 64 and 100 entries: one tile and more than one); a
+    and 16, in both dtypes (f32: three TF32 products a product); above 16
+    the wide first pass in both dtypes (bf16 on the tensor cores, f32 on the
+    CUDA cores; lists of 64 and 100 entries: one tile and more than one); a
     tail of 1 and k > t.  Values and lse
     within 1e-4 of the plain version; each returned index is distinct and
     its plain score is its value within 1e-4, so where an index differs
@@ -183,7 +191,7 @@ def test_score_kernel_wide_k(cuda, dtype, n, t, k):
     x 16 the kernel's and torch's summation orders swap such near-ties:
     2 of 65536 entries on the card)."""
     h, wv, bv, tail = _score_inputs(cuda, dtype, n, 10000, t, seed=k)
-    assert tcs.uses_tensor_cores(h, wv) == (dtype == torch.bfloat16)
+    assert tcs.uses_tensor_cores(h, wv, k) == (dtype == torch.bfloat16 or k <= tcs.REGISTER_K)
     before = tcs.fused_score_topk.launches
     got = tcs.fused_score_topk(h, wv, bv, tail, k=k)
     torch.cuda.synchronize()
@@ -209,7 +217,8 @@ def test_score_kernel_wide_k_exact_ties(cuda, dtype, v, t, k):
     bv = torch.zeros(v, device=cuda)
     scores = h.float() @ wv.float()
     tail = scores[:, torch.randint(0, v, (t,), generator=g).to(cuda)].contiguous()
-    assert tcs.uses_tensor_cores(h, wv) == (dtype == torch.bfloat16)
+    # above k 16: bf16's wide tensor-core pass, f32's wide CUDA-core pass
+    assert tcs.uses_tensor_cores(h, wv, k) == (dtype == torch.bfloat16)
     vals, idx, lse = tcs.fused_score_topk(h, wv, bv, tail, k=k)
     want = tcs.reference_score_topk(h, wv, bv, tail, k=k)
     torch.cuda.synchronize()
@@ -844,6 +853,150 @@ def test_flash_f32_backward_tf32_route(cuda, hd, causal, rate):
     assert not dkv[:, kv_len:, 1:].any()
 
 
+# the attention sites of the geo, knowledge and news paths: (Tq, Tk, causal)
+FLASH_PATH_SITES = [(301, 301, False), (32, 32, True), (32, 497, False),       # geo
+                    (51, 51, False), (102, 102, True), (102, 548, False),      # knowledge
+                    (101, 101, False), (52, 52, True), (52, 598, False)]       # news
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("tq,tk,causal", FLASH_PATH_SITES)
+def test_flash_f32_forward_tf32_route(cuda, tq, tk, causal, rate):
+    """The TF32 forward at every attention site of the three presets (B 4,
+    10 heads of 30, q, k, v strided views of fused projections): within 1e-4
+    of the plain version (of the largest value where that exceeds 1) at
+    rate 0 and at rate 0.2 under the mask keep_mask exports, on the tf32
+    route; the CUDA-core forward it replaced (reached through its entry)
+    agrees too."""
+    B, H, Hd = 4, 10, 30
+    g = _gen(tq + tk)
+    if tq == tk:
+        q, k, v = (t.view(B, tk, H, Hd) for t in
+                   torch.randn((B, tk, 3 * H * Hd), generator=g).to(cuda).split(H * Hd, dim=-1))
+    else:
+        q = torch.randn((B, tq, H, Hd), generator=g).to(cuda)
+        k, v = (t.view(B, tk, H, Hd) for t in
+                torch.randn((B, tk, 2 * H * Hd), generator=g).to(cuda).split(H * Hd, dim=-1))
+    assert tfa.route(q, k, v) == "tf32"
+    keep = tfa.keep_mask(B, H, tq, tk, rate=rate, seed=9, device=cuda) if rate else None
+    want = tfa.reference_mha(q, k, v, causal=causal, dropout_rate=rate, keep=keep)
+    before = tfa.flash_mha.routes["tf32"]
+    got = tfa.flash_mha(q, k, v, causal=causal, dropout_rate=rate, seed=9)
+    cores = tfa._forward(q, k, v, tk, causal, rate, 9, via="cuda_cores")[0]
+    torch.cuda.synchronize()
+    assert tfa.flash_mha.routes["tf32"] == before + 1
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    torch.testing.assert_close(cores, want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("tq,tk,hd", [(17, 17, 30), (65, 129, 30), (301, 301, 30), (40, 70, 31),
+                                      (33, 200, 8)])
+def test_flash_bf16_tf32_forward_matches_plain(cuda, causal, tq, tk, hd):
+    """Misaligned (or odd-Hd) bf16 on the TF32 forward: one exact TF32 pass,
+    within the bf16 tolerance (3e-2) of the plain version."""
+    g = _gen(tq * tk + hd)
+    q, k, v = (_odd_offset_view(torch.randn((2, t, 3, hd), generator=g).to(cuda, torch.bfloat16))
+               for t in (tq, tk, tk))
+    assert tfa.route(q, k, v) == "tf32"
+    got = tfa.flash_mha(q, k, v, causal=causal)
+    want = tfa.reference_mha(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=3e-2)
+
+
+def test_flash_tf32_one_hot_rows(cuda):
+    """Logits in the hundreds (a decoder's first self-attention at init):
+    softmax is one-hot, the TF32 forward returns the winning key's V row to
+    2^-21 and the backward's dQ of those rows is 0 to the plain version's
+    1e-4 (its P, from the same scores, is the forward's)."""
+    B, T, H, Hd = 2, 64, 2, 30
+    g = _gen(77)
+    q = (torch.randn((B, T, H, Hd), generator=g) * 20).to(cuda).requires_grad_(True)
+    k = (torch.randn((B, T, H, Hd), generator=g) * 20).to(cuda).requires_grad_(True)
+    v = torch.randn((B, T, H, Hd), generator=g).to(cuda).requires_grad_(True)
+    gy = torch.randn((B, T, H, Hd), generator=g).to(cuda)
+    outs = []
+    for fn in (tfa.flash_mha, tfa.reference_mha):
+        out = fn(q, k, v)
+        outs.append((out,) + torch.autograd.grad(out, (q, k, v), gy))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * max(1.0, float(b.abs().max())))
+
+
+@pytest.mark.parametrize("k", [1, 2, 5, 10, 16])
+@pytest.mark.parametrize("n,t,p", [(1280, 301, 0), (256, 301, 0), (1280, 352, 3000),
+                                   (256, 402, 3500)])
+def test_score_kernel_f32_tensor_core_route(cuda, n, t, p, k):
+    """The f32 tensor-core first pass (three TF32 products a product) at the
+    geo beam and greedy shapes and the fact presets' tails (h modulated by
+    the predicate projection), k 1 to 16, on the tensor_cores route; an h
+    that starts 4 bytes into its buffer misses the 16-byte alignment and
+    takes the CUDA-core pass.  Values and lse within 1e-4 of the plain
+    version; indices identical to it except where two entries tie closer
+    than f32 arithmetic can order them: there the two entries' exact
+    (float64) scores agree within 1e-5.  On an H100 the plain version's
+    values lie up to 4e-6 from float64's and the 3xTF32 pass's up to 2e-6,
+    so pairs closer than about 6e-6 may come out in either order.  Seed
+    1285 plants one: row 871's best two, columns 7071 and 3862, 1.18e-6
+    apart, which the plain version (and the CUDA-core pass, whose sums
+    are the plain version's) ranks the wrong way round and the 3xTF32 pass
+    the right way; seed 1290 another, 3.8e-6 apart."""
+    h, wv, bv, tail = _score_inputs(cuda, torch.float32, n, 10000, t, seed=n + k)
+    if p:
+        g = _gen(p)
+        ind = (torch.rand((n, p), generator=g) < 0.01).float()
+        w = (torch.rand((p, 300), generator=g) * 2 - 1) * 0.1
+        h = h * (ind @ w + torch.randn((300,), generator=g)).to(cuda)
+    want = tcs.reference_score_topk(h, wv, bv, tail, k=k)
+    exact = _exact_scores(h, wv, bv, tail)
+    for hh, route in ((h, "tensor_cores"), (_odd_offset_view(h), "cuda_cores")):
+        assert tcs.route(hh.dtype, k, tcs.aligned(hh, wv)) == route
+        before = tcs.fused_score_topk.routes[route]
+        got = tcs.fused_score_topk(hh, wv, bv, tail, k=k)
+        torch.cuda.synchronize()
+        assert tcs.fused_score_topk.routes[route] == before + 1
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
+        torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-4)
+        _hold_near_ties(got[1], want[1], exact)
+
+
+def _exact_scores(h, wv, bv, tail):
+    """[h Wv + bv | tail] in float64."""
+    return torch.cat([h.double() @ wv.double() + bv.double(), tail.double()], dim=1)
+
+
+def _hold_near_ties(idx, want_idx, exact, tie=1e-5):
+    """Indices equal, or where they differ, their exact scores within `tie`
+    of each other (rank by rank), each row's indices distinct."""
+    differ = idx != want_idx
+    gap = (exact.gather(1, idx.long()) - exact.gather(1, want_idx.long())).abs()
+    assert float(gap.max()) <= tie, [(r, c, int(idx[r, c]), int(want_idx[r, c]), float(gap[r, c]))
+                                     for r, c in differ.nonzero().tolist()]
+    assert (idx.sort(dim=1).values.diff(dim=1) != 0).all()
+    assert int(differ.sum()) <= 2 + idx.numel() // 2000, int(differ.sum())
+
+
+def test_score_kernel_f32_tensor_core_exact_ties(cuda):
+    """Exact ties through the f32 tensor-core pass (values exact in TF32, so
+    three TF32 products are exact): the lower index first, vocab before the
+    tail, at k 16."""
+    n, v, t, k = 70, 10000, 301, 16
+    g = _gen(5)
+    h = (torch.randint(-4, 5, (n, 300), generator=g) / 8).to(cuda)
+    half = (torch.randint(-4, 5, (300, v // 2), generator=g) / 64).to(cuda)
+    wv = torch.cat([half, half], dim=1)
+    bv = torch.zeros(v, device=cuda)
+    scores = h @ wv
+    tail = scores[:, torch.randint(0, v, (t,), generator=g).to(cuda)].contiguous()
+    assert tcs.uses_tensor_cores(h, wv, k)
+    vals, idx, lse = tcs.fused_score_topk(h, wv, bv, tail, k=k)
+    want = tcs.reference_score_topk(h, wv, bv, tail, k=k)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, want[1]) and torch.equal(vals, want[0])
+    torch.testing.assert_close(lse, want[2], rtol=0, atol=1e-4)
+
+
 def _odd_offset_view(t):
     """The same values in a buffer that starts one element later."""
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
@@ -854,10 +1007,9 @@ def _odd_offset_view(t):
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 def test_flash_bf16_odd_offset_takes_cuda_core_path(cuda, rate):
     """bf16 inputs whose head rows start mid-word cannot be moved as 32-bit
-    words: they run the CUDA-core forward and the TF32 backward (one pass:
-    bf16 is exact in TF32) and agree with the aligned call's tensor-core
-    kernels (forward 3e-2, backward 4e-2 of the largest value) under the
-    same mask."""
+    words: they run the TF32 forward and backward (one pass: bf16 is exact
+    in TF32) and agree with the aligned call's tensor-core kernels (forward
+    3e-2, backward 4e-2 of the largest value) under the same mask."""
     B, Tq, Tk, H, Hd = 2, 40, 70, 3, 30
     g = _gen(11)
     q, k, v, gy = (torch.randn((B, t, H, Hd), generator=g).to(cuda, torch.bfloat16)
@@ -866,7 +1018,7 @@ def test_flash_bf16_odd_offset_takes_cuda_core_path(cuda, rate):
     for shift in (False, True):
         leaves = [(_odd_offset_view(t) if shift else t.clone()).requires_grad_(True)
                   for t in (q, k, v)]
-        assert tfa.uses_tensor_cores(*leaves) == (not shift)
+        assert tfa.route(*leaves) == ("tf32" if shift else "mma")
         assert (leaves[0].data_ptr() % 4 == 2) == shift
         out = tfa.flash_mha(*leaves, dropout_rate=rate, seed=5)
         res.append((out,) + torch.autograd.grad(out, leaves, gy))

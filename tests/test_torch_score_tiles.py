@@ -32,9 +32,18 @@ instead (``wide_partials``).  The merge's round j
 takes the best candidate that ranks after round j - 1's pick
 (``threshold_merge``).
 
+The f32 tensor-core first pass (``score_partial_mma_kernel<float, K>``)
+walks the same tiles over three TF32 products a product: each 32-deep ring
+stage's hi lo + lo hi + hi hi (each operand split into hi = rna(x) and lo =
+x - hi, truncated to TF32 by the tensor cores) summed by the tensor cores,
+exactly here, then added to the running sum in f32
+(``tf32_stage_product``); two blocks an SM share the card, so the vocab
+splits into other chunks.
+
 Tolerances: values and lse atol 1e-4 with IDENTICAL indices, as
 tests/test_torch_kernels.py holds the plain version (f32 inputs; the
-emulation's scores come from one f32 product, so only the tiling differs).
+emulation's scores come from one f32 product, so only the tiling differs,
+or from the 3xTF32 stage walk).
 """
 
 import math
@@ -49,8 +58,10 @@ from jax.experimental.pallas import tpu as pltpu
 
 from icek_torch.kernels import copy_scores as tcs
 from icek_tpu.kernels import copy_scores as jcs
+from test_torch_decoder_tiles import split_tf32
+from test_torch_tf32_split import split
 
-ROWS, TILE, KMAX = 64, 64, 8
+ROWS, TILE, KMAX = 64, 64, 16
 FEW = 8                 # the wide pass merges at most this many survivors by counting
 LOG2E = 1.4426950408889634
 INT_MAX = 2 ** 31 - 1
@@ -94,33 +105,53 @@ def _topk_sorted(v, i, k):
 
 
 # the tensor-core first pass's resident blocks on an H100 at D = 300: three
-# blocks of 66 KB of shared memory on each of 132 SMs (the wrapper asks the
-# card's occupancy API for this number)
+# blocks of 66 KB of shared memory on each of 132 SMs in bf16, two of 104
+# KB in f32 (the wrapper asks the card's occupancy API for this number)
 RESIDENT = 3 * 132
+RESIDENT_F32 = 2 * 132
+STAGE_F32 = 32          # depth of an f32 ring stage
 
 
-def _chunks(n, v):
-    return tcs._chunking(n, v, RESIDENT)
+def _chunks(n, v, resident=RESIDENT):
+    return tcs._chunking(n, v, resident)
 
 
-def padded_depth(d):
-    return -(-d // 16) * 16
+def padded_depth(d, step=16):
+    """D padded to the mma's depth: 16 in bf16, 8 in f32."""
+    return -(-d // step) * step
 
 
-def tiled_partials(h, wv, bv, k):
+def tf32_stage_product(hp, wp):
+    """hp wp as the f32 tensor-core first pass forms it: each operand split
+    by integer rounding (hi = rna(x), lo = x - hi truncated to TF32 by the
+    tensor cores), each ring stage's (32 deep) three TF32 terms, hi lo + lo
+    hi + hi hi, summed by the tensor cores (exactly here), then added to the
+    running sum by an f32 add."""
+    acc = torch.zeros((hp.shape[0], wp.shape[1]))
+    for d0 in range(0, hp.shape[1], STAGE_F32):
+        (ah, al), (bh, bl) = (split_tf32(hp[:, d0:d0 + STAGE_F32]),
+                              split_tf32(wp[d0:d0 + STAGE_F32]))
+        ah, al, bh, bl = (x.double() for x in (ah, al, bh, bl))
+        acc = acc + (ah @ bl + al @ bh + ah @ bh).float()
+    return acc
+
+
+def tiled_partials(h, wv, bv, k, tf32=False):
     """The first pass: per (row, chunk) the chunk's top-k (value, index) and
     its (max, sum exp), as the kernel writes them; also the number of list
-    insertions per (row, chunk, lane)."""
+    insertions per (row, chunk, lane).  `tf32`: the f32 kernel's products
+    (tf32_stage_product) and chunks, else one f32 product."""
     N, D = h.shape
     V = wv.shape[1]
-    dpad = padded_depth(D)
-    chunk_cols, n_chunks = _chunks(N, V)
+    dpad = padded_depth(D, 8 if tf32 else 16)
+    chunk_cols, n_chunks = _chunks(N, V, RESIDENT_F32 if tf32 else RESIDENT)
     n_pad = -(-N // ROWS) * ROWS
     hp = torch.zeros((n_pad, dpad))
     hp[:N, :D] = h
     wp = torch.zeros((dpad, n_chunks * chunk_cols))
     wp[:D, :V] = wv
-    scores = hp @ wp + torch.nn.functional.pad(bv, (0, n_chunks * chunk_cols - V))
+    product = tf32_stage_product(hp, wp) if tf32 else hp @ wp
+    scores = product + torch.nn.functional.pad(bv, (0, n_chunks * chunk_cols - V))
     col = torch.arange(n_chunks * chunk_cols)
     chunk_of = col // chunk_cols
     c_end = torch.clamp((chunk_of + 1) * chunk_cols, max=V)
@@ -194,10 +225,10 @@ def tiled_partials(h, wv, bv, k):
             inserts.view(N, n_chunks, 4))
 
 
-def tiled_score_topk(h, wv, bv, tail, k):
+def tiled_score_topk(h, wv, bv, tail, k, tf32=False):
     """Both passes: (vals (N, k) f32, idx (N, k) int32, lse (N,) f32)."""
     N, V = h.shape[0], wv.shape[1]
-    pv, pi, pm, ps, _ = tiled_partials(h, wv, bv, k)
+    pv, pi, pm, ps, _ = tiled_partials(h, wv, bv, k, tf32)
     T = tail.shape[1]
     cand_v = torch.cat([pv.reshape(N, -1), tail], dim=1)
     cand_i = torch.cat([pi.reshape(N, -1), V + torch.arange(T).expand(N, T)], dim=1)
@@ -450,15 +481,9 @@ def test_tiled_scores_match_pallas_interpret():
     np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), atol=1e-4)
 
 
-@pytest.mark.parametrize("k", [2, 5, 8])
-@pytest.mark.parametrize("v", [10000, 10001])
-def test_tiled_scores_ties_across_tiles_chunks_and_tail(k, v):
-    """Exact ties planted on both sides of a tile boundary, a chunk boundary,
-    the ragged last tile and the tail: the lower index wins, vocab beats the
-    tail, and equal scores seen in one lane, in two lanes of a quad or in
-    two chunks all come out in index order."""
+def _ties(k, v, tf32=False):
     n, d, t = 700, 8, 16
-    chunk_cols, n_chunks = _chunks(n, v)
+    chunk_cols, n_chunks = _chunks(n, v, RESIDENT_F32 if tf32 else RESIDENT)
     assert n_chunks > 3 and chunk_cols > TILE and chunk_cols % TILE == 0
     bv = np.zeros(v, np.float32)
     planted = [63, 64, 3 * chunk_cols - 1, 3 * chunk_cols, v - 2, v - 1]
@@ -467,10 +492,63 @@ def test_tiled_scores_ties_across_tiles_chunks_and_tail(k, v):
     tail = np.zeros((n, t), np.float32)
     tail[:, 4] = 3.0
     args = (np.zeros((n, d), np.float32), np.zeros((d, v), np.float32), bv, tail)
-    got = tiled_score_topk(*(torch.as_tensor(a) for a in args), k)
-    want = (planted + [v + 4, 10, 11, 3 * chunk_cols + 1])[:k]
-    assert got[1].numpy()[0].tolist() == want
+    got = tiled_score_topk(*(torch.as_tensor(a) for a in args), k, tf32)
+    want = planted + [v + 4, 10, 11, 3 * chunk_cols + 1]
+    assert got[1].numpy()[0].tolist()[:len(want)] == want[:k]
     _hold(got, args, k)
+
+
+@pytest.mark.parametrize("k", [2, 5, 8])
+@pytest.mark.parametrize("v", [10000, 10001])
+def test_tiled_scores_ties_across_tiles_chunks_and_tail(k, v):
+    """Exact ties planted on both sides of a tile boundary, a chunk boundary,
+    the ragged last tile and the tail: the lower index wins, vocab beats the
+    tail, and equal scores seen in one lane, in two lanes of a quad or in
+    two chunks all come out in index order."""
+    _ties(k, v)
+
+
+@pytest.mark.parametrize("k", [1, 2, 5, 16])
+def test_tiled_tf32_scores_ties_across_tiles_chunks_and_tail(k):
+    """The same planted ties through the f32 tensor-core pass's 3xTF32
+    products and its chunks (two blocks an SM): the lower index wins."""
+    _ties(k, 10000, tf32=True)
+
+
+@pytest.mark.parametrize("n,v,k", [(256, 10000, 2), (320, 10000, 5), (65, 10000, 1),
+                                   (130, 2000, 16), (1, 520, 8)])
+def test_tiled_tf32_scores_match_plain_and_jax(n, v, k):
+    """The f32 tensor-core first pass (three TF32 products a product, each
+    stage's sum added in f32) at the greedy and beam shapes and k 1 to 16:
+    indices identical to the plain version's and the JAX package's, values
+    and lse within 1e-4."""
+    args = _inputs(2 * n + v + k, n, v)
+    _hold(tiled_score_topk(*(torch.as_tensor(a) for a in args), k, tf32=True), args, k)
+
+
+def test_tiled_tf32_scores_match_pallas_interpret():
+    """The f32 tensor-core pass's tile walk against the JAX package's Pallas
+    kernel in interpret mode."""
+    args = _inputs(8, 16, 1000, d=32, t=37)
+    got = tiled_score_topk(*(torch.as_tensor(a) for a in args), 5, tf32=True)
+    with pltpu.force_tpu_interpret_mode():
+        want = jcs.fused_score_topk(*(jnp.asarray(a) for a in args), k=5)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), atol=1e-4)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), atol=1e-4)
+
+
+def test_one_tf32_pass_would_miss_the_f32_tolerance():
+    """Why three terms: the beam shape's scores through one TF32 pass (hi hi)
+    are off by more than 1e-4 (the card's f32 tolerance on values and lse),
+    through the stage walk's three within 1e-5 of float64."""
+    h, wv, _, _ = (torch.as_tensor(a) for a in _inputs(9, 128, 2000))
+    want = h.double() @ wv.double()
+    one = (split(h)[0].double() @ split(wv)[0].double())
+    three = tf32_stage_product(torch.nn.functional.pad(h, (0, 4)),
+                               torch.nn.functional.pad(wv, (0, 0, 0, 4)))
+    assert float((one - want).abs().max()) > 1e-4
+    assert float((three.double() - want).abs().max()) < 1e-5
 
 
 def test_tiled_first_pass_pads_and_inserts():
@@ -494,17 +572,34 @@ def test_tiled_first_pass_pads_and_inserts():
 
 
 def test_tensor_core_dispatch():
-    """bf16 with D % 4 == 0, V % 8 == 0 and aligned operands takes the
-    tensor-core kernel; f32, V = 10001 and an h that starts mid-word do not."""
+    """The first pass by (dtype, k, alignment), case by case: bf16 with D %
+    4 == 0, V % 8 == 0 and aligned operands takes the tensor-core kernel at
+    every k; f32 with V % 4 == 0 and h on a 16-byte boundary takes it up to
+    k 16 and the wide CUDA-core pass above; V = 10001, an h that starts
+    mid-word and D above 512 take the CUDA-core passes."""
     h = torch.zeros((4, 300), dtype=torch.bfloat16)
     wv = torch.zeros((300, 10000), dtype=torch.bfloat16)
     assert tcs.uses_tensor_cores(h, wv)
-    assert not tcs.uses_tensor_cores(h.float(), wv.float())
+    assert tcs.uses_tensor_cores(h.float(), wv.float())
+    assert not tcs.uses_tensor_cores(h.float(), wv.float(), k=17)
+    assert tcs.uses_tensor_cores(h, wv, k=17)
     assert not tcs.uses_tensor_cores(h, torch.zeros((300, 10001), dtype=torch.bfloat16))
     buf = torch.zeros(4 * 300 + 1, dtype=torch.bfloat16)
     assert not tcs.uses_tensor_cores(buf[1:].view(4, 300), wv)
     assert not tcs.uses_tensor_cores(torch.zeros((4, 600), dtype=torch.bfloat16),
                                      torch.zeros((600, 64), dtype=torch.bfloat16))
+    # f32: V a multiple of 4 suffices, h needs 16 bytes
+    assert tcs.aligned(h.float(), torch.zeros((300, 10004)))
+    assert not tcs.aligned(h, torch.zeros((300, 10004), dtype=torch.bfloat16))
+    buf32 = torch.zeros(4 * 300 + 2)
+    assert not tcs.aligned(buf32[2:].view(4, 300), wv.float())     # 8-byte aligned only
+    cases = [(torch.bfloat16, 5, True, "tensor_cores"), (torch.bfloat16, 20, True, "wide_tensor_cores"),
+             (torch.float32, 5, True, "tensor_cores"), (torch.float32, 16, True, "tensor_cores"),
+             (torch.float32, 17, True, "wide_cuda_cores"), (torch.float32, 5, False, "cuda_cores"),
+             (torch.bfloat16, 5, False, "cuda_cores"), (torch.bfloat16, 20, False, "wide_cuda_cores")]
+    for dtype, k, is_aligned, want in cases:
+        assert tcs.route(dtype, k, is_aligned) == want, (dtype, k, is_aligned)
+    assert set(tcs.fused_score_topk.routes) == set(tcs.ROUTES)
 
 
 def test_timing_variants_match_the_kernel_source():
