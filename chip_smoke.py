@@ -37,6 +37,12 @@ Phases (any failure raises and exits non-zero):
               pass at N 640 (geo beam 20) at k 17, 20, 32 and 64, each call's
               first pass held to its route; the flash backward at rate 0 at
               every site too (held, and timed as `rate0_ms`, SDPA's work);
+              flash at head dims 40, 64, 75 and 128 (check_flash_wide: f32
+              and odd-Hd or misaligned bf16 on the TF32 kernels, aligned
+              bf16 on the tensor-core ones, forward and backward at rate 0
+              and 0.2, causal and not, beside the CUDA-core forward, SDPA
+              and the bound; 64 x 8 heads, the --geometry 512x8 model's, at
+              all three train-step sites);
   4. serve    each preset at full width (ResNet-101 at 256x256, d=300, 10
               heads, 3 layers (+ 3 fact-encoder layers), V=10000; geo E 301,
               knowledge E 301 / F 51 / P 3000, news E 101 / F 301 / P 3500
@@ -71,6 +77,14 @@ Phases (any failure raises and exits non-zero):
               relative L2 over the tree); then a 2-sample f32
               step without dropout on the card against the same step on the
               CPU;
+  6b. 512x8   the geo model at --geometry 512x8 (D 512, 8 heads of 64;
+              geometry_path): beam-5 serving of batches of 256 (flash on
+              the tensor-core kernels, the decoder step on its CUDA-core
+              route, launches by route held), f32 beam tokens equal to the
+              CPU's, bf16 train steps at batch 256 with the preset's
+              dropout and f32 ones (forwards on mma / tf32, a backward
+              launch each), the f32 step at dropout 0 held to the CPU's
+              over the gradient tree, the decoder step at this width;
   wide beam   the score head at k 10 and 20 and the decoder step at K 10
               and 20 (both routes, each dtype; K 20: parts of an image a
               tensor-core block) against their plain versions, then geo beams 10 and 20
@@ -111,7 +125,8 @@ Phases (any failure raises and exits non-zero):
               margin that tells the unbiased running variance from the
               biased one at layer4); icek_torch.apps run_train,
               run_eval (captions equal to Evaluator.run's) and run_serve on
-              port 0 with one POST /caption.
+              port 0 with one POST /caption; run_train --geometry 512x8 for
+              an epoch and run_eval from its checkpoint (geometry_cli).
   9. int8     the int8 encoder (int8_encoder), geo at full width: (a) the
               int8 site kernels of csrc/int8_conv.cu against their plain
               versions (float64 convolution, float32 epilogue) at the five
@@ -125,7 +140,11 @@ Phases (any failure raises and exits non-zero):
               wrapper's host us a call; every distinct site of an encode
               timed alone (the sum of its 100 launches, the bound over them
               and over the same encode's 104 launches without the fused
-              entries); the int8 max pool; F.conv2d's and F.max_pool2d's
+              entries); the int8 max pool (the strip kernel bit-equal at
+              the encode's shape, odd ones and rows staged as segments of
+              columns; its first design is timed beside it by
+              `python -m icek_torch.kernels._variants --parent ROOT
+              int8_conv base 256 pool`); F.conv2d's and F.max_pool2d's
               answers on int8 CUDA tensors logged; (b) calibration on 2
               batches and the cosine of the int8 tokens against the folded
               bf16 encoder's (logged);
@@ -259,6 +278,14 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def median_ms(fn, rounds=3, iters=20) -> float:
+    """The median of `rounds` cuda_ms readings: a flash kernel's and SDPA's
+    times at a site, where one round of 20 calls once read 38% high on an
+    H100 (the bf16 Hd-64 backward: 1.2134 ms, 0.8829-0.9011 in four other
+    runs of this script)."""
+    return statistics.median(cuda_ms(fn, iters) for _ in range(rounds))
+
+
 def host_ms(fn, iters=20, rounds=5, warmup=3) -> float:
     """Host ms per call of `fn` while the device runs ahead: the wrapper's own
     cost (checks, bindings, launch), with no synchronise inside a round; the
@@ -321,10 +348,10 @@ def _rel_err(got, want) -> float:
     return max_err(got, want) / max(1.0, float(want.float().abs().max()))
 
 
-def _flash_site(dev, dtype, Tq, Tk):
+def _flash_site(dev, dtype, Tq, Tk, H=10, Hd=30):
     """q, k, v as strided views of fused projections (self-attention: one
     QKV projection; cross: a Q and a KV projection), and a d_out."""
-    B, H, Hd = BATCH, 10, 30
+    B = BATCH
     g = torch.Generator(device=dev).manual_seed(SEED)
     rnd = lambda *shape: torch.randn(shape, generator=g, device=dev).to(dtype)
     if Tq == Tk:
@@ -340,21 +367,21 @@ FLASH_SITES = (("encoder", ENT_ROWS, ENT_ROWS, False), ("self", CAP_LEN, CAP_LEN
                ("cross", CAP_LEN, 14 * 14 + ENT_ROWS, False))
 
 
-def _flash_work(dtype, Tq, Tk, causal, backward):
+def _flash_work(dtype, Tq, Tk, causal, backward, H=10, Hd=30):
     """(bytes, operations) of one attention: q, k, v, o (forward) or q, dO,
     dq, k, v, dk, dv (backward) moved once; two (forward) or five (backward)
-    products over the visible (query, key) pairs."""
-    B, H, Hd = BATCH, 10, 30
+    products over the visible (query, key) pairs, at the true head dim."""
+    B = BATCH
     esz = torch.finfo(dtype).bits // 8
     pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk
     rows = 3 * Tq + 4 * Tk if backward else 2 * Tq + 2 * Tk
     return esz * B * H * Hd * rows, (5 if backward else 2) * 2 * B * H * pairs * Hd
 
 
-def _flash_bounds(dtype, Tq, Tk, causal, backward):
+def _flash_bounds(dtype, Tq, Tk, causal, backward, H=10, Hd=30):
     """The card's least time for one attention (_flash_work) at the dtype's
     peak: bf16 tensor cores, or the f32 CUDA cores' 67 TF/s."""
-    return bound_ms(*_flash_work(dtype, Tq, Tk, causal, backward), dtype)
+    return bound_ms(*_flash_work(dtype, Tq, Tk, causal, backward, H, Hd), dtype)
 
 
 def _tf32_bound(dtype, work) -> dict:
@@ -368,7 +395,8 @@ def _tf32_bound(dtype, work) -> dict:
 FLASH_TOLS = ((torch.float32, 1e-4, 1e-4), (torch.bfloat16, 3e-2, 4e-2))
 
 
-def _flash_one_site(dev, dtype, tol, btol, name, Tq, Tk, causal, serving, relative):
+def _flash_one_site(dev, dtype, tol, btol, name, Tq, Tk, causal, serving, relative, H=10,
+                    Hd=30, shift=False):
     """One attention site: at rate 0 when `serving` (the context encoder's
     serving launch, against SDPA), and at rate 0.2 under the kernel's own mask
     forward and backward, with the mask's keep rate and the forward /
@@ -376,16 +404,26 @@ def _flash_one_site(dev, dtype, tol, btol, name, Tq, Tk, causal, serving, relati
     largest expected value where that exceeds 1 (sites whose rows put a few
     keys' worth of v into an output: a bf16 ulp there exceeds the tolerance),
     else absolutely.  Returns (serving record or None, forward record,
-    backward record; the backward's `rate0_ms` at rate 0, SDPA's own work)."""
+    backward record; the backward's `rate0_ms` at rate 0, SDPA's own work).
+    The kernels' and SDPA's times are medians of three rounds (median_ms).
+    (H, Hd) give the heads; `shift` moves q, k, v one element into their
+    buffers (bf16 rows that start mid-word: the TF32 kernels).  The CUDA-core
+    forward is timed beside f32, and beside bf16 above Hd 32, the calls it
+    once served."""
     from icek_torch.kernels import flash_attention as fa
 
-    B, H = BATCH, 10
+    B = BATCH
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    q, k, v, d_out = _flash_site(dev, dtype, Tq, Tk)
+    q, k, v, d_out = _flash_site(dev, dtype, Tq, Tk, H, Hd)
+    if shift:
+        q, k, v = (_odd_offset(t) for t in (q, k, v))
     f32 = dtype == torch.float32
-    # bf16: the tensor-core kernels; f32: the TF32 forward and backward
-    require(fa.route(q, k, v) == ("tf32" if f32 else "mma"),
-            f"flash {name} {dtype}: unexpected kernel family {fa.route(q, k, v)}")
+    # aligned bf16 of an even head dim: the tensor-core kernels; the rest the
+    # TF32 forward and backward
+    family = "mma" if not f32 and Hd % 2 == 0 and not shift else "tf32"
+    require(fa.route(q, k, v) == family,
+            f"flash {name} {dtype} Hd {Hd}: unexpected kernel family {fa.route(q, k, v)}")
+    cores_too = f32 or Hd > 32
     # the CUDA-core forward the TF32 one replaced, reached through its entry
     cores = lambda rate=0.0: fa._forward(q, k, v, Tk, causal, rate, 77, via="cuda_cores")[0]
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -396,13 +434,13 @@ def _flash_one_site(dev, dtype, tol, btol, name, Tq, Tk, causal, serving, relati
         torch.cuda.synchronize()
         err = max_err(got, want)
         require(err <= tol, f"flash {name} {dtype}: max abs err {err} > {tol}")
-        bms, by = _flash_bounds(dtype, Tq, Tk, causal, False)
-        res = dict(max_abs_err=err, tol=tol, ms=cuda_ms(lambda: fa.flash_mha(q, k, v)),
+        bms, by = _flash_bounds(dtype, Tq, Tk, causal, False, H, Hd)
+        res = dict(max_abs_err=err, tol=tol, ms=median_ms(lambda: fa.flash_mha(q, k, v)),
                    plain_ms=cuda_ms(lambda: fa.reference_mha(q, k, v)),
-                   library_ms=cuda_ms(lambda: sdpa(qh, kh, vh)),
-                   bound_ms=bms, bound_by=by,
-                   **_tf32_bound(dtype, _flash_work(dtype, Tq, Tk, causal, False)))
-        if f32:
+                   library_ms=median_ms(lambda: sdpa(qh, kh, vh)),
+                   bound_ms=bms, bound_by=by, route=family,
+                   **_tf32_bound(dtype, _flash_work(dtype, Tq, Tk, causal, False, H, Hd)))
+        if cores_too:
             cerr = max_err(cores(), want)
             require(cerr <= tol, f"flash {name} CUDA-core forward: max abs err {cerr} > {tol}")
             res.update(cuda_cores_ms=cuda_ms(cores), cuda_cores_err=cerr)
@@ -433,13 +471,13 @@ def _flash_one_site(dev, dtype, tol, btol, name, Tq, Tk, causal, serving, relati
             f"flash backward {name} {dtype}: mask identity off by {ident}")
     extra = {}
     with torch.no_grad():
-        fms, fplain = cuda_ms(run), cuda_ms(plain, iters=5)
-        if f32:                 # the CUDA-core forward under the same mask
+        fms, fplain = median_ms(run), cuda_ms(plain, iters=5)
+        if cores_too and Hd <= 32:      # the CUDA-core forward under the same mask
             cerr = _rel_err(cores(RATE), ref.detach()) if relative else \
                 max_err(cores(RATE), ref.detach())
             require(cerr <= tol, f"flash dropout {name} CUDA-core forward: err {cerr} > {tol}")
             extra = dict(cuda_cores_ms=cuda_ms(lambda: cores(RATE)), cuda_cores_err=cerr)
-    bms_ = cuda_ms(lambda: torch.autograd.grad(out, leaves, d_out, retain_graph=True))
+    bms_ = median_ms(lambda: torch.autograd.grad(out, leaves, d_out, retain_graph=True))
     bplain = cuda_ms(lambda: torch.autograd.grad(ref, leaves, d_out, retain_graph=True),
                      iters=5)
     del ref, want, keep, got
@@ -449,22 +487,22 @@ def _flash_one_site(dev, dtype, tol, btol, name, Tq, Tk, causal, serving, relati
     lib_out = sdpa(*lib_in, is_causal=causal)
     lib_g = d_out.transpose(1, 2).contiguous()
     with torch.no_grad():
-        flib = cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=causal))
-    blib = cuda_ms(lambda: torch.autograd.grad(lib_out, lib_in, lib_g, retain_graph=True))
-    bound, by = _flash_bounds(dtype, Tq, Tk, causal, False)
+        flib = median_ms(lambda: sdpa(qh, kh, vh, is_causal=causal))
+    blib = median_ms(lambda: torch.autograd.grad(lib_out, lib_in, lib_g, retain_graph=True))
+    bound, by = _flash_bounds(dtype, Tq, Tk, causal, False, H, Hd)
     fwd = dict(rate=RATE, max_abs_err=derr, keep_rate=kept, ms=fms, plain_ms=fplain,
                library_ms=flib, bound_ms=bound, bound_by=by, **extra,
-               **_tf32_bound(dtype, _flash_work(dtype, Tq, Tk, causal, False)))
-    bound, by = _flash_bounds(dtype, Tq, Tk, causal, True)
+               **_tf32_bound(dtype, _flash_work(dtype, Tq, Tk, causal, False, H, Hd)))
+    bound, by = _flash_bounds(dtype, Tq, Tk, causal, True, H, Hd)
     bwd = dict(max_abs_err=err, rel_err=rel, tol=btol, mask_identity=ident, ms=bms_,
                plain_ms=bplain, library_ms=blib, bound_ms=bound, bound_by=by,
-               **_tf32_bound(dtype, _flash_work(dtype, Tq, Tk, causal, True)))
+               **_tf32_bound(dtype, _flash_work(dtype, Tq, Tk, causal, True, H, Hd)))
     # the backward at SDPA's own work, rate 0, held to the plain version too
     out0, ref0 = fa.flash_mha(*leaves, causal=causal), fa.reference_mha(*leaves, causal=causal)
     rel0 = _rel_err(torch.autograd.grad(out0, leaves, d_out, retain_graph=True),
                     torch.autograd.grad(ref0, leaves, d_out))
     require(rel0 <= btol, f"flash backward {name} {dtype} rate 0: err {rel0} > {btol}")
-    bwd.update(rate0_rel_err=rel0, rate0_ms=cuda_ms(
+    bwd.update(rate0_rel_err=rel0, rate0_ms=median_ms(
         lambda: torch.autograd.grad(out0, leaves, d_out, retain_graph=True)))
     del out, out0, ref0, lib_out, lib_in
     return res, fwd, bwd
@@ -494,6 +532,41 @@ def check_flash(dev):
         log(f"kernel flash_attention {dtype}: {fwd[dtype]}")
         log(f"kernel flash_attention_bwd {dtype}: {bwd[dtype]}")
     return fwd, bwd
+
+
+# head dims above 32 (fault F4): (Hd, heads) with D near the geo widths; 64 x 8
+# is the --geometry 512x8 model (the slice's path), at all three train-step
+# sites; the others at the encoder and the causal decoder self site
+WIDE_HEADS = ((64, 8), (40, 8), (75, 4), (128, 4))
+
+
+def check_flash_wide(dev):
+    """Flash forward and backward at head dims 40, 64, 75 and 128 (padded to
+    64 or 128): f32 on the TF32 kernels, aligned bf16 on the tensor-core
+    kernels (odd Hd 75 and, at Hd 64, rows that start mid-word on the TF32
+    ones), each at rate 0 (the serving launch, against SDPA, beside the
+    CUDA-core forward) and at rate 0.2 under the kernel's own mask, forward
+    and backward, at the tolerances of FLASH_TOLS; {Hd: {dtype label: {site:
+    record}}}."""
+    out = {}
+    for Hd, H in WIDE_HEADS:
+        sites = FLASH_SITES if Hd == 64 else FLASH_SITES[:2]
+        cases = [(dt, tol, btol, False) for dt, tol, btol in FLASH_TOLS]
+        if Hd == 64:
+            cases.append((torch.bfloat16, FLASH_TOLS[1][1], FLASH_TOLS[1][2], True))
+        rec = {}
+        for dtype, tol, btol, shift in cases:
+            label = str(dtype).replace("torch.", "") + (" misaligned" if shift else "")
+            rec[label] = {}
+            for name, Tq, Tk, causal in sites:
+                serve, f, b = _flash_one_site(dev, dtype, tol, btol, name, Tq, Tk, causal,
+                                              name == "encoder", name != "encoder", H=H,
+                                              Hd=Hd, shift=shift)
+                rec[label][name] = dict(serving=serve, dropout=f, backward=b)
+                log(f"kernel flash_attention Hd {Hd} x {H} heads {label} {name} {Tq}x{Tk}: "
+                    f"serving {serve}; rate {RATE} {f}; backward {b}")
+        out[Hd] = rec
+    return out
 
 
 def _odd_offset(t):
@@ -819,12 +892,14 @@ def check_scores_facts(dev, shape):
 
 
 def _decoder_step_inputs(dev, dtype, step, L=MAX_LEN, M=IMG_TOKENS + ENT_ROWS, B=BATCH,
-                         K=BEAM):
+                         K=BEAM, geometry=None):
     from icek_torch.core import config as cfgs
     from icek_torch.kernels import decoder_step as dsk
     from icek_torch.models import transformer as tfm
 
     m = cfgs.georic().model
+    if geometry:
+        m = cfgs.apply_geometry(cfgs.georic(), geometry).model
     g = torch.Generator().manual_seed(SEED + 2)
     layers = tfm.init_decoder_stack(g, m.num_layers, m.emb_dim, m.decoder_ffn_dim)
     layers = {"layers": [_tree(l, dev, dtype) for l in layers["layers"]]}
@@ -920,6 +995,53 @@ def check_decoder_step(dev, L=MAX_LEN, M=IMG_TOKENS + ENT_ROWS, B=BATCH, K=BEAM)
                 f"{timed[route]}")
         res[dtype] = timed[dsk.route(dtype, K, True)]
         res[dtype]["cuda_cores"] = timed["cuda_cores"]
+    return res
+
+
+def check_decoder_step_geometry(dev, geometry, L=MAX_LEN, M=IMG_TOKENS + ENT_ROWS, B=BATCH,
+                                K=BEAM):
+    """The decoder step of a --geometry model at the middle step of the beam
+    shape, bf16 and f32, on the route the beam loop takes there (the
+    CUDA-core kernel where the heads are wider than the tensor-core
+    kernel's 32), against its plain version and the bound; {"bfloat16" /
+    "float32": record}."""
+    from icek_torch.kernels import decoder_step as dsk
+
+    res = {}
+    step = L // 2
+    for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 0.15)):
+        stacked, x, anc, ck, cv, xk, xv, m = _decoder_step_inputs(dev, dtype, step, L, M, B, K,
+                                                                  geometry)
+        H = m.num_heads
+        tc = dsk.uses_tensor_cores(stacked, ck, K, H)
+        route = dsk.route(dtype, K, tc)
+        nbytes, flops = _decoder_step_work(anc, step, m, dtype, M)
+        bms, by = bound_ms(nbytes, flops, dtype)
+        want = dsk.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv, step, num_heads=H)
+        plain_ms = cuda_ms(lambda: dsk.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv,
+                                                               step, num_heads=H), iters=5)
+        nL, B, _, D = xk.shape
+        if tc:
+            heads = dsk.pad_cross_heads([{"k": xk[l].view(B, M, H, D // H),
+                                          "v": xv[l].view(B, M, H, D // H)}
+                                         for l in range(nL)], dtype)
+            run = lambda: dsk.fused_beam_decoder_step(stacked, x, anc, ck, cv, None, None, step,
+                                                      num_heads=H, cross_heads=heads)
+        else:
+            run = lambda: dsk.fused_beam_decoder_step(stacked, x, anc, ck, cv, xk, xv, step,
+                                                      num_heads=H)
+        before = dsk.fused_beam_decoder_step.routes[route].launches
+        got = run()
+        torch.cuda.synchronize()
+        require(dsk.fused_beam_decoder_step.routes[route].launches == before + 1,
+                f"decoder step {geometry} {dtype}: not on {route}")
+        err = max_err(got, want)
+        require(err <= tol, f"decoder step {geometry} {dtype} {route}: max abs err {err} > {tol}")
+        key = str(dtype).replace("torch.", "")
+        res[key] = dict(route=route, max_abs_err=err, tol=tol, ms=cuda_ms(run),
+                        plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by,
+                        shape=f"{geometry} B {B} K {K} L {L} M {M} step {step}")
+        log(f"kernel decoder_step {geometry} {dtype}: {res[key]}")
     return res
 
 
@@ -1110,13 +1232,13 @@ def preset_shape(preset):
     return _synthetic.shape(preset)
 
 
-def full_width_model(preset="georic", enc=None):
+def full_width_model(preset="georic", enc=None, geometry=None):
     """A preset at full width with seeded random weights (V 10000, beam 5,
     batch 256), as icek_torch/tools/_synthetic.py builds it; `enc` shares
-    one encoder between presets."""
+    one encoder between presets; `geometry` as --geometry."""
     from icek_torch.tools import _synthetic
 
-    model = _synthetic.model(preset, SEED, BEAM, BATCH, enc)
+    model = _synthetic.model(preset, SEED, BEAM, BATCH, enc, geometry=geometry)
     require(len(model[1]) == VOCAB, "wordmap size")
     return model
 
@@ -1170,17 +1292,18 @@ def counters():
             **{name: routes[r] for name, r in DECODER_ROUTES.items()}}
 
 
-def serving_prediction(cfg, beam_batches, greedy_batches):
+def serving_prediction(cfg, beam_batches, greedy_batches, decoder="decoder_step"):
     """The serving launches the code predicts, every batch running all L
     steps (random weights never end all of a batch's hypotheses): the context
     encoders' layers once a batch (entity, and fact with facts), the score head
     once a step of every batch, the decoder step's bf16 tensor-core route once
     a step of a beam batch (greedy runs the plain decoder), its other routes
-    never."""
+    never; `decoder` names the route a beam step takes (the CUDA-core one
+    above 10 heads or a head dim of 32)."""
     m, L = cfg.model, cfg.decode.max_caption_len
     batches = beam_batches + greedy_batches
     return {"flash_attention": m.num_layers * (2 if m.has_facts else 1) * batches,
-            "fused_score_topk": L * batches, **decoder_launches(decoder_step=L * beam_batches)}
+            "fused_score_topk": L * batches, **decoder_launches(**{decoder: L * beam_batches})}
 
 
 def route_counts():
@@ -1259,10 +1382,11 @@ def train_counters(preset="georic"):
             "hw_dropout": (fused_norm.hw_dropout, 2 * (enc + dec))}
 
 
-def serve(dev, model, preset="georic"):
+def serve(dev, model, preset="georic", decoder="decoder_step", label=None):
     """A warm-up, 3 timed beam-5 batches of 256 raw f16 images and one greedy
     batch through Evaluator.decode_batch, with every kernel's launches held
-    to the code's prediction."""
+    to the code's prediction (`decoder`: the decoder step's route counter a
+    beam step takes).  `label` names the model in the log."""
     from icek_torch import eval_driver
     from icek_torch.decode import detok
 
@@ -1293,9 +1417,10 @@ def serve(dev, model, preset="georic"):
     launches = _read_serving_counts()
     routes = route_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = serving_prediction(cfg, len(times), 1)
+    want = serving_prediction(cfg, len(times), 1, decoder)
     want_routes = route_prediction(flash_mma=want["flash_attention"],
                                    score_tensor_cores=want["fused_score_topk"])
+    preset = label or preset
     log(f"{preset} serving launches (3 beam-5 batches + 1 greedy batch): {launches}, by "
         f"route {routes}; predicted {want}, {want_routes}")
     require(launches == want, f"{preset}: serving launches {launches} != predicted {want}")
@@ -1317,13 +1442,13 @@ def serve(dev, model, preset="georic"):
         greedy_batch_ms=greedy_s * 1e3, peak_mem_gb=peak_gb,
         pointer_token_share=pointer_share, fact_token_share=fact_share)
     log(f"{preset} serving (batch {BATCH}, beam {BEAM}, L {L}, bf16): {summary}")
-    require(preset == "georic" or pointer_share > 0,
+    require(cfg.model.variant == "geo" or pointer_share > 0,
             f"{preset}: no entity id emitted, so the seen / predicate state was never driven")
     log(f"{preset} serving breakdown: {breakdown(ev, batches[1])}")
     log(f"{preset} serving, beam-5 tokens with the decoder-step kernel against the stock "
         f"step (bf16, not asserted: near-tie picks follow the summation order): "
         f"{megakernel_agreement(ev, batches[1])}")
-    if preset != "georic":
+    if cfg.model.variant != "geo":
         log(f"{preset} serving, beam-5 token agreement between precisions and routes "
             f"(not asserted): {precision_agreement(ev, batches[1])}")
     return launches, summary, batches[1]
@@ -2385,10 +2510,57 @@ def cli_phase(dev, model, split_cls, workdir, enc_path):
     return out
 
 
+def geometry_cli(dev, model, split_cls, workdir):
+    """The CLIs at --geometry 512x8 on phase 8's in-memory split (its data
+    directory from cli_phase): run_train georic --geometry 512x8 for one
+    epoch at batch 256 from the 512x8 model's seeded encoder, every flash
+    forward on the bf16 tensor-core kernels; run_eval from its BEST_
+    checkpoint, which records the geometry and re-applies it, every flash
+    forward on them again and a CSV row for every TEST row."""
+    from icek_torch import apps
+    from icek_torch.train import checkpoint as tckpt
+
+    cfg, _, _, enc = model
+    base = cfg.data.base_name
+    data_dir, ckpt_dir = os.path.join(workdir, "files"), os.path.join(workdir, "cli_geometry")
+    enc_path = tckpt.save_encoder_tree(os.path.join(workdir, "encoder_geometry.pt"), enc,
+                                       {"emb_dim": cfg.model.emb_dim})
+    out = {}
+    with _SplitsInMemory(split_cls):
+        zero_route_counts()
+        t0 = time.perf_counter()
+        apps.run_train("georic", ["--data-dir", data_dir, "--checkpoint-dir", ckpt_dir,
+                                  "--epochs", "1", "--batch-size", str(BATCH),
+                                  "--geometry", GEOMETRY, "--encoder-weights", enc_path])
+        out.update(train_s=time.perf_counter() - t0, train_routes=route_counts())
+        best = os.path.join(ckpt_dir, f"BEST_checkpoint_0_{base}.pt")
+        require(os.path.exists(best), f"run_train --geometry {GEOMETRY} wrote no {best}")
+        out["recorded_geometry"] = tckpt.read_meta(best).get("geometry")
+        csv_path = os.path.join(workdir, "geometry_generated_captions.csv")
+        zero_route_counts()
+        t0 = time.perf_counter()
+        apps.run_eval("georic", ["--data-dir", data_dir, "--checkpoint", best,
+                                 "--batch-size", str(BATCH), "--beam", str(BEAM),
+                                 "--output", csv_path,
+                                 "--metric-data", os.path.join(workdir, "absent")])
+        out.update(eval_s=time.perf_counter() - t0, eval_routes=route_counts(),
+                   csv_rows=len(_csv_rows(csv_path)) - 1)
+    require(out["recorded_geometry"] == GEOMETRY,
+            f"the checkpoint records geometry {out['recorded_geometry']}")
+    require(out["csv_rows"] == RUN_ROWS["TEST"],
+            f"run_eval --geometry CSV: {out['csv_rows']} rows for {RUN_ROWS['TEST']} TEST rows")
+    for what in ("train_routes", "eval_routes"):
+        r = out[what]
+        require(r["flash_mma"] > 0 and r["flash_tf32"] == r["flash_cuda_cores"] == 0,
+                f"--geometry {GEOMETRY} CLI {what}: flash routes {r}")
+    log(f"train run cli at --geometry {GEOMETRY}: {out}")
+    return out
+
+
 def train_run(dev, models, step_summary):
     """Phase 8 in a scratch directory of its own, deleted at the end: the
     loop, its preempted and resumed twin, the image-carrying steps and the
-    CLIs."""
+    CLIs, also at --geometry 512x8."""
     import tempfile
 
     model = models["georic"]
@@ -2397,7 +2569,10 @@ def train_run(dev, models, step_summary):
         loop, resume, enc_path = train_loop_phase(dev, model, split_cls, workdir, step_summary)
         finetune = finetune_phase(dev, model)
         cli = cli_phase(dev, model, split_cls, workdir, enc_path)
-    return dict(loop=loop, resume=resume, finetune=finetune, cli=cli)
+        cli_geometry = geometry_cli(dev, full_width_model(geometry=GEOMETRY), split_cls,
+                                    workdir)
+    return dict(loop=loop, resume=resume, finetune=finetune, cli=cli,
+                cli_geometry=cli_geometry)
 
 
 # --------------------------------------------------------------------------
@@ -2690,11 +2865,21 @@ def check_int8_sites(dev):
     got = k8.max_pool(x)
     torch.cuda.synchronize()
     require(torch.equal(got, k8.reference_max_pool(x)), "int8 max pool differs")
+    # the strip kernel at odd heights and widths, 16- and 4-byte pieces, rows
+    # wide enough for one-row strips and rows staged as segments of columns,
+    # bit-equal to the plain version
+    odd = {}
+    for shape in ((BATCH, 67, 67, 64), (3, 17, 13, 64), (2, 9, 31, 16), (2, 7, 5, 12),
+                  (1, 1, 1, 64), (2, 5, 400, 64), (2, 5, 1600, 64)):
+        xo = torch.randint(-128, 128, shape, generator=g, device=dev, dtype=torch.int8)
+        ok = torch.equal(k8.max_pool(xo), k8.reference_max_pool(xo))
+        require(ok, f"int8 max pool differs at {shape}")
+        odd["x".join(map(str, shape))] = ok
     nbytes = x.numel() + got.numel()
     pool = dict(ms=cuda_ms(lambda: k8.max_pool(x)),
                 plain_ms=cuda_ms(lambda: k8.reference_max_pool(x), iters=5),
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
-                max_abs_err=0.0)
+                max_abs_err=0.0, bit_equal_shapes=odd)
     log(f"int8 max pool ({tuple(x.shape)}): {pool}")
     return rows, per_encode, pool, refusals
 
@@ -3504,7 +3689,7 @@ def profile_summary(dev, step_once, card):
 # phase 5: card vs CPU at f32
 # --------------------------------------------------------------------------
 
-def cross_check(dev, model, preset="georic"):
+def cross_check(dev, model, preset="georic", decoder="decoder_step_f32"):
     from icek_torch import eval_driver
     from icek_torch.decode import greedy as greedy_lib
     from icek_torch.kernels import decoder_step as dsk
@@ -3552,7 +3737,7 @@ def cross_check(dev, model, preset="georic"):
         ids = ev.decode_batch(batch)
         if where is dev:        # the f32 beam-5 decode on the f32 tensor-core routes
             launches = {k: v for k, v in _read_serving_counts().items() if k in DECODER_ROUTES}
-            want = decoder_launches(decoder_step_f32=L)
+            want = decoder_launches(**{decoder: L})
             require(launches == want, f"{preset} f32 decode: decoder-step launches {launches} "
                                       f"!= {want}")
             layers = m.num_layers * (2 if m.has_facts else 1)
@@ -3593,11 +3778,12 @@ def train_captions(rng, n, wm, preset="georic"):
     return _synthetic.train_captions(rng, n, wm, preset)
 
 
-def make_train_batch(rng, n, wm, preset="georic"):
-    """Training rows with entity (and fact) rows and cached image tokens."""
+def make_train_batch(rng, n, wm, preset="georic", D=None):
+    """Training rows with entity (and fact) rows and cached image tokens
+    (of width D: the preset's by default)."""
     from icek_torch.tools import _synthetic
 
-    return _synthetic.train_batch(rng, n, wm, preset)
+    return _synthetic.train_batch(rng, n, wm, preset, D)
 
 
 def run_train_path(dev, model, preset="georic", steps=TRAIN_STEPS):
@@ -3616,7 +3802,7 @@ def run_train_path(dev, model, preset="georic", steps=TRAIN_STEPS):
     train_step, eval_step = step_lib.make_train_step(
         cfg, VOCAB, wm.pad_id, optimizer, compute_dtype=torch.bfloat16,
         encode_images=False, device=dev)
-    batch = make_train_batch(np.random.default_rng(SEED + 5), BATCH, wm, preset)
+    batch = make_train_batch(np.random.default_rng(SEED + 5), BATCH, wm, preset, m.emb_dim)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     gen = torch.Generator().manual_seed(SEED)
     counted = train_counters(preset)
@@ -3629,6 +3815,7 @@ def run_train_path(dev, model, preset="georic", steps=TRAIN_STEPS):
     torch.cuda.reset_peak_memory_stats()
     for fn, _ in counted.values():
         fn.launches = 0
+    zero_route_counts()
     times = []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -3636,6 +3823,10 @@ def run_train_path(dev, model, preset="georic", steps=TRAIN_STEPS):
         losses.append(float(loss))            # reading the loss waits for the step
         times.append(time.perf_counter() - t0)
     launches = {name: fn.launches for name, (fn, _) in counted.items()}
+    # every forward on the bf16 tensor-core kernels, at any head dim
+    routes = route_counts()
+    want_routes = route_prediction(flash_mma=counted["flash_attention"][1] * steps)
+    require(routes == want_routes, f"{preset} bf16 train step: routes {routes} != {want_routes}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     eval_after = float(eval_step(params, None, batch)[0])
     log(f"{preset} train path launches over {steps} steps: {launches}")
@@ -3676,7 +3867,7 @@ def run_train_path(dev, model, preset="georic", steps=TRAIN_STEPS):
         step_ms_median=statistics.median(times) * 1e3,
         samples_per_s_median=BATCH / statistics.median(times),
         tokens_per_step=int(count), losses=losses, eval_loss_before=eval_before,
-        eval_loss_after=eval_after, peak_mem_gb=peak_gb, **stages)
+        eval_loss_after=eval_after, peak_mem_gb=peak_gb, routes=routes, **stages)
     log(f"{preset} train path (batch {BATCH}, T {T}, bf16, dropout on): {summary}")
     return launches, summary, lambda: float(train_step(params, opt_state, None, batch, gen)[2])
 
@@ -3684,7 +3875,11 @@ def run_train_path(dev, model, preset="georic", steps=TRAIN_STEPS):
 F32_STEPS = 3
 
 
-def f32_train_path(dev, model, bf16_summary):
+# the batch of the dropout-0 step held to the CPU's (f32_train_path, oracle "cpu")
+CPU_ORACLE_BATCH = 64
+
+
+def f32_train_path(dev, model, bf16_summary, oracle="plain"):
     """Phase 6's f32 geo train step: batch 256, cached tokens, captions of 32,
     the preset's dropout, compute dtype float32 (the flash forward's and
     backward's TF32 kernels at every attention site), one warm-up and
@@ -3695,21 +3890,25 @@ def f32_train_path(dev, model, bf16_summary):
     0 is held to it instead: one step each from the same parameters, the
     loss within 1e-4 and Adam's first moments (0.1 x the clipped gradients)
     within 1e-3 over the whole tree (relative L2), each leaf's worst element
-    logged."""
+    logged.  With `oracle` "cpu" that step is held to the plain path on the
+    CPU instead, both at CPU_ORACLE_BATCH rows: at --geometry 512x8 the
+    card's plain path is the one off (on an H100: 4.96e-3 from the CPU in
+    the tree, 99.8% of it in decoder layer 0's self-attention weights,
+    where the kernels are 2.80e-4 from the CPU)."""
     from icek_torch import bridge
     from icek_torch.train import step as step_lib
 
     cfg, wm, params, _ = model
-    batch = make_train_batch(np.random.default_rng(SEED + 5), BATCH, wm)
-    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    rows = make_train_batch(np.random.default_rng(SEED + 5), BATCH, wm, D=cfg.model.emb_dim)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in rows.items()}
 
-    def make(c):
-        p = bridge.trainable(copy.deepcopy(params), dev)
+    def make(c, where=dev):
+        p = bridge.trainable(copy.deepcopy(params), where)
         optimizer = step_lib.make_optimizer(c.train.decoder_lr, c.train.grad_clip)
         state = optimizer.init(p)
         return (p, state) + step_lib.make_train_step(
             c, VOCAB, wm.pad_id, optimizer, compute_dtype=torch.float32,
-            encode_images=False, device=dev)
+            encode_images=False, device=where)
 
     p, state, train_step, eval_step = make(cfg)
     gen = torch.Generator().manual_seed(SEED)
@@ -3741,14 +3940,17 @@ def f32_train_path(dev, model, bf16_summary):
     cfg0 = cfg.replace(model=dataclasses.replace(
         cfg.model, dropout_enc=0.0, dropout_dec=0.0, dropout_pos=0.0))
     plain0 = cfg0.replace(model=dataclasses.replace(cfg0.model, use_flash_attention=False))
+    n0 = BATCH if oracle == "plain" else CPU_ORACLE_BATCH
     res = {}
-    for name, c in (("kernels", cfg0), ("plain", plain0)):
-        p, state, train_step, _ = make(c)
+    for name, c, where in (("kernels", cfg0, dev),
+                           ("plain", plain0, dev if oracle == "plain" else "cpu")):
+        p, state, train_step, _ = make(c, where)
+        b = {k: torch.as_tensor(v[:n0], device=where) for k, v in rows.items()}
         flash_before = counted["flash_attention_bwd"][0].launches
-        loss = float(train_step(p, state, None, batch, torch.Generator().manual_seed(0))[2])
+        loss = float(train_step(p, state, None, b, torch.Generator().manual_seed(0))[2])
         flash_bwd = counted["flash_attention_bwd"][0].launches - flash_before
         mu, _ = state.moments(p)
-        res[name] = (loss, [t.float() for t in step_lib.tree_leaves(mu)], flash_bwd)
+        res[name] = (loss, [t.float().cpu() for t in step_lib.tree_leaves(mu)], flash_bwd)
         del p, state, train_step
     (l_k, g_k, n_k), (l_p, g_p, n_p) = res["kernels"], res["plain"]
     require((n_k, n_p) == (counted["flash_attention_bwd"][1], 0),
@@ -3773,7 +3975,7 @@ def f32_train_path(dev, model, bf16_summary):
                    bf16_samples_per_s_median=bf16_summary["samples_per_s_median"],
                    launches=launches, routes=routes, losses=losses,
                    eval_loss_before=eval_before, eval_loss_after=eval_after,
-                   dropout0_loss_rel=loss_rel,
+                   dropout0_loss_rel=loss_rel, dropout0_oracle=f"{oracle} at batch {n0}",
                    dropout0_grad_tree_rel=tree_rel, dropout0_worst_leaf_rel=grad_rel)
     log(f"f32 geo train path (batch {BATCH}, T {CAP_LEN}, float32, dropout on): {summary}")
     return summary
@@ -3790,7 +3992,7 @@ def train_cross_check(dev, model, preset="georic"):
     cfg, wm, params, _ = model
     cfg = cfg.replace(model=dataclasses.replace(
         cfg.model, dropout_enc=0.0, dropout_dec=0.0, dropout_pos=0.0))
-    batch = make_train_batch(np.random.default_rng(SEED + 6), 2, wm, preset)
+    batch = make_train_batch(np.random.default_rng(SEED + 6), 2, wm, preset, cfg.model.emb_dim)
     res = {}
     for where in ("cpu", dev):
         p = bridge.trainable(copy.deepcopy(params), where)
@@ -3811,6 +4013,49 @@ def train_cross_check(dev, model, preset="georic"):
         f"{l_cpu} (rel {loss_rel}); worst leaf gradient rel err {grad_rel} (tol 1e-4)")
     require(loss_rel <= 1e-4 and grad_rel <= 1e-4, f"{preset}: card vs CPU train step disagrees")
     return loss_rel, grad_rel
+
+
+# --------------------------------------------------------------------------
+# phase 6b: the geo model at --geometry 512x8 (heads of 64), train and serve
+# --------------------------------------------------------------------------
+
+GEOMETRY = "512x8"      # the Transformer-base width: D 512, 8 heads of 64
+GEOMETRY_TRAIN_STEPS = 3
+
+
+def geometry_path(dev):
+    """The geo preset at --geometry 512x8 (D 512, 8 heads of 64, 3 layers,
+    FFN 512, seeded weights, its own ResNet-101 projecting to 512) through
+    the entry points, with the kernel routes held: beam-5 serving of batches
+    of 256 through Evaluator.decode_batch (serve: every flash forward on the
+    bf16 tensor-core kernels, the score head's tensor-core pass, the decoder
+    step on its CUDA-core route, whose tensor-core kernel takes heads of at
+    most 32; bf16 token agreement with the stock step logged); the f32
+    Evaluators on the card and on the CPU (cross_check: f32 beam tokens
+    equal, the flash forwards on the TF32 kernels); bf16 train steps at
+    batch 256 with the preset's dropout (run_train_path: forwards on mma,
+    one backward launch each); the f32 step (f32_train_path: TF32 forwards
+    and backwards, at dropout 0 held to the CPU's step over the gradient
+    tree); and the decoder step at this width on its route.  Returns its
+    records."""
+    model = full_width_model(geometry=GEOMETRY)
+    m = model[0].model
+    require((m.emb_dim, m.num_heads, m.num_layers) == (512, 8, 3),
+            f"--geometry {GEOMETRY}: D {m.emb_dim}, {m.num_heads} heads, {m.num_layers} layers")
+    label = f"geo {GEOMETRY}"
+    decoder = "decoder_step_cuda_cores"   # heads of 64: the tensor-core step takes at most 32
+    launches, serving, _ = serve(dev, model, decoder=decoder, label=label)
+    checked = cross_check(dev, model, decoder=decoder)
+    train_launches, train, _ = run_train_path(dev, model, steps=GEOMETRY_TRAIN_STEPS)
+    f32 = f32_train_path(dev, model, train, oracle="cpu")
+    step = check_decoder_step_geometry(dev, GEOMETRY)
+    del model
+    rec = dict(serving=serving, serving_launches=launches, f32_check=checked,
+               train=train, train_launches=train_launches, f32_train=f32,
+               decoder_step=step)
+    log(f"{label} path: captions/s {serving['captions_per_s_median']}, bf16 samples/s "
+        f"{train['samples_per_s_median']}, f32 samples/s {f32['samples_per_s_median']}")
+    return rec
 
 
 # --------------------------------------------------------------------------
@@ -4094,6 +4339,7 @@ def run_phases(dev, card) -> list:
     the kernels' JSON rows."""
     flash_fwd, flash_bwd = check_flash(dev)
     flash_bf16_tf32 = check_flash_bf16_tf32(dev)
+    flash_wide = check_flash_wide(dev)
     kernels = {"flash_attention": flash_fwd, "flash_attention_bwd": flash_bwd,
                "fused_score_topk": check_scores(dev),
                "decoder_step": check_decoder_step(dev)}
@@ -4113,6 +4359,7 @@ def run_phases(dev, card) -> list:
     checked = {preset: cross_check(dev, model, preset) for preset, model in models.items()}
     train_launches, train_summary, step_once = run_train_path(dev, geo)
     f32_train = f32_train_path(dev, geo, train_summary)
+    wide_geo = geometry_path(dev)
     trained = {p: run_train_path(dev, models[p], p, FACT_TRAIN_STEPS) for p in FACT_PRESETS}
     for preset, model in models.items():
         train_cross_check(dev, model, preset)
@@ -4257,6 +4504,48 @@ def run_phases(dev, card) -> list:
             "library_ms": rec["library_ms"], "dtype": "float32", "tol": rec["tol"],
             "cuda_cores_ms": rec["cuda_cores_ms"], "bound_tf32_ms": rec["bound_tf32_ms"],
             "bound_f32_cores_ms": rec["bound_ms"], **extra})
+    # head dims above 32 (F4): the --geometry 512x8 model's Hd 64 at the
+    # encoder site (B 256, T 301, 8 heads), on each family's route, forward
+    # at rate 0 and backward at rate 0.2, with the path's launches; the
+    # other head dims and sites nested
+    for fam, dtype, key in (("mma", torch.bfloat16, "bfloat16"), ("tf32", torch.float32,
+                                                                    "float32")):
+        site = flash_wide[64][key]["encoder"]
+        run = wide_geo["train"] if fam == "mma" else wide_geo["f32_train"]
+        for kind, rec, launches_n in (
+                ("", site["serving"], wide_geo["train_launches"]["flash_attention"]
+                 if fam == "mma" else run["routes"]["flash_tf32"]),
+                ("_bwd", site["backward"], wide_geo["train_launches"]["flash_attention_bwd"]
+                 if fam == "mma" else run["launches"]["flash_attention_bwd"])):
+            least, by = rec["bound_ms"], rec["bound_by"]
+            if "bound_tf32_ms" in rec and rec["bound_tf32_ms"] < least:
+                least, by = rec["bound_tf32_ms"], rec["bound_tf32_by"]
+            name = f"flash_attention{kind}_{fam}_hd64"
+            rows.append({
+                "name": name, "route": "cuda", "source": "icek_torch/csrc/flash_attention.cu",
+                "replaces": meta["flash_attention" + kind][1], "launches": launches_n,
+                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": least, "bound_by": by,
+                "library_ms": rec["library_ms"], "dtype": key, "tol": rec["tol"],
+                "site": f"--geometry {GEOMETRY} encoder B {BATCH} T {ENT_ROWS} H 8 Hd 64, "
+                        + ("rate 0" if kind == "" else f"rate {RATE}"),
+                **{k: rec[k] for k in ("cuda_cores_ms", "rate0_ms", "bound_tf32_ms")
+                   if k in rec},
+                "launches_serving": (wide_geo["serving_launches"]["flash_attention"]
+                                     if fam == "mma" and kind == "" else None),
+                "sites": {n: flash_wide[64][key][n] for n in ("self", "cross")},
+                "head_dims": {str(hd): flash_wide[hd] for hd in flash_wide if hd != 64},
+                **({"misaligned_bf16": flash_wide[64]["bfloat16 misaligned"]}
+                   if fam == "tf32" else {})})
+    step = wide_geo["decoder_step"]
+    bf, f32 = step["bfloat16"], step["float32"]
+    rows.append({
+        "name": "decoder_step_512x8", "route": "cuda", "source": "icek_torch/csrc/decoder_step.cu",
+        "replaces": meta["decoder_step"][1],
+        "launches": wide_geo["serving_launches"]["decoder_step_cuda_cores"],
+        **{k: bf[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "shape", "tol")},
+        "decoder_route": bf["route"], "dtype": "bfloat16", "f32": f32})
     head = int8["sites"]["1x1_s1"]
     rows.append({
         "name": "int8_conv", "route": "cuda", "source": "icek_torch/csrc/int8_conv.cu",
@@ -4278,9 +4567,11 @@ def run_phases(dev, card) -> list:
         "replaces": "icek_tpu/models/resnet_int8.py:353",
         "launches": int8["serving"]["launches_per_batch"]["int8_maxpool"],
         **{k: pool[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                "library_ms")}, "tol": 0})
+                                "library_ms", "bit_equal_shapes")},
+        "tol": 0})
     log(f"card: {card}; train path: {json.dumps(train_summary)}")
     log(f"card: {card}; f32 train path: {json.dumps(f32_train)}")
+    log(f"card: {card}; --geometry {GEOMETRY} path: {json.dumps(wide_geo, default=str)}")
     log(f"card: {card}; main path: {json.dumps(summary)}")
     for p in FACT_PRESETS:
         log(f"card: {card}; {p} serving: {json.dumps(served[p][1])}")

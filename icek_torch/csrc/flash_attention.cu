@@ -32,9 +32,18 @@
 //
 // Three families of kernels live here.
 //
+// Every kernel of families 1 and 2 is templated on the padded head dim HDP
+// (32, 64 or 128: hd_pad); the pad is zeros in shared memory and registers
+// only.  What the head dim changes is said where it matters: the tiles'
+// pitch, how many 32-bit (or 16-byte) copies stage a row, the registers a
+// warp's fragments and accumulators take (the dK/dV kernel's K and V at HDP
+// 128, the TF32 kernels' split A operands above 32), and the shared memory
+// (dynamic, allowed above 48 KB per launch).
+//
 // 1. The tensor-core kernels (flash_*_mma_kernel): bf16 with an even Hd <=
-//    32 and 4-byte aligned head rows, which is every attention of the
-//    presets (10 heads of Hd 30).
+//    128 and 4-byte aligned head rows, which is every attention of the
+//    presets (10 heads of Hd 30) and of a --geometry whose head dim is even
+//    (512x8: 8 heads of 64).
 //    * Alignment.  A head's row is 30 bf16 = 60 bytes at h * 60 bytes
 //      inside a row of 600 bytes; a fused-QKV view has a row stride of 1800
 //      bytes and starts 600 or 1200 bytes into its buffer.  Global
@@ -44,13 +53,16 @@
 //      (a bf16 pair), 15 per head row, lanes on neighbouring words; tiles
 //      are staged with 4-byte cp.async, whose zero-fill form also writes
 //      the pad word (Hd 30 -> 32) and the rows past the end, so the pad
-//      lanes exist in shared memory and registers only.
-//    * Products.  mma.sync.m16n8k16 (bf16 in, f32 out), Hd padded to 32 =
-//      two k-steps.  A warp owns 16 rows; their operand fragments come
-//      straight from global memory into 8 registers.  The other operand is
-//      staged in shared memory as bf16, 64 rows a tile with an 80-byte row
-//      pitch (20 words: the eight rows of an ldmatrix phase fall on
-//      distinct banks), double-buffered so the next tile loads under this
+//      lanes exist in shared memory and registers only.  A head row of 64
+//      bf16 is 128 bytes: in a D-512 fused projection every view is 16-byte
+//      aligned, and tiles are then staged 16 bytes a copy (Shape::vec, set by
+//      the entry points from the pointers and strides).
+//    * Products.  mma.sync.m16n8k16 (bf16 in, f32 out), Hd padded to HDP =
+//      HDP / 16 k-steps.  A warp owns 16 rows; their operand fragments come
+//      straight from global memory into HDP / 4 registers.  The other operand
+//      is staged in shared memory as bf16, 64 rows a tile with a row pitch of
+//      HDP + 8 (80, 144 or 272 bytes: the eight rows of an ldmatrix phase
+//      fall on distinct banks), double-buffered so the next tile loads under this
 //      tile's products.  K as stored is already the B operand of S = Q K^T
 //      and V of dP = dO V^T (plain ldmatrix); V in O = P V and K in dQ =
 //      dS K are read through ldmatrix.trans.  Two neighbouring accumulator
@@ -66,7 +78,12 @@
 //      reduces over the four lanes of a quad.
 //    * dK/dV: a warp owns 16 keys and computes the transposed scores S^T =
 //      K Q^T and dP^T = V dO^T over staged query tiles, so P^T and dS^T are
-//      again A fragments for dV += P^T dO and dK += dS^T Q.
+//      again A fragments for dV += P^T dO and dK += dS^T Q.  At HDP 128 the
+//      dK and dV accumulators take 128 registers a lane, so K and V are
+//      staged once a block and read back by ldmatrix instead of held.
+//    * Above HDP 32 a block has four warps whatever Tq is: each extra
+//      instantiation lengthens the build, and the two-warp block is what
+//      the narrow decoder sites of the presets needed.
 //    * The scale 1/sqrt(Hd) multiplies S in the f32 accumulator (folded
 //      with log2 e into the exponent's FFMA), not the bf16 Q fragment: no
 //      extra rounding, and no extra instruction either.
@@ -80,10 +97,11 @@
 //      dQ and dK/dV kernels read them back.  Rate 0 is a template parameter
 //      of all three kernels: those instantiations carry no mask code.
 //
-// 2. The TF32 kernels (flash_fwd_tf32_kernel, flash_bwd_dq_tf32_kernel,
-//    flash_bwd_dkv_tf32_kernel): f32 at any Hd <= 32, and bf16 inputs that
-//    miss the alignment above, forward and backward, so both directions of
-//    one call run one family.  The work is the bf16 kernels' products in
+// 2. The TF32 kernels (flash_fwd_tf32_kernel, at HDP 32
+//    flash_fwd_tf32_hd32_kernel, flash_bwd_dq_tf32_kernel,
+//    flash_bwd_dkv_tf32_kernel): f32 at any Hd <= 128, and bf16 inputs that
+//    miss the alignment above or have an odd head dim, forward and
+//    backward, so both directions of one call run one family.  The work is the bf16 kernels' products in
 //    f32: at the geo encoder site 13.9 GFLOP each, 29.7 GFLOP the forward
 //    (0.44 ms at the 67 TF/s of the f32 CUDA cores) and 69 GFLOP the
 //    backward's seven (1.04 ms), against 0.19 ms of backward bytes.  So the
@@ -110,11 +128,20 @@
 //      once a tile by the block instead of per warp cost a barrier and a
 //      pass more than it saved.
 //    * The backward's structure is the bf16 backward's: a warp owns 16 rows
-//      with its A operands (Q and dO; K and V) split in registers, the other
-//      operand is staged in shared memory as f32 (64 rows a tile, a 36-float
-//      pitch: the eight rows of a fragment load fall on distinct banks),
-//      double buffered, and walked 8 keys (queries) at a time; dK/dV works
-//      on the transposed scores; no atomics, so launches agree bit for bit.
+//      with its A operands (Q and dO; K and V) split, the other operand is
+//      staged in shared memory as f32 (64 or 32 rows a tile, ftile_of; a
+//      pitch of HDP + 4 floats: the eight rows of a fragment load fall on
+//      distinct banks), double buffered, and walked 8 keys (queries) at a
+//      time; dK/dV works on the transposed scores; no atomics, so launches
+//      agree bit for bit.
+//    * Where the split A operands live (SplitRows, split_smem): in
+//      registers, or in the warp's own region of shared memory, lane-major,
+//      each lane reading back the fragments it wrote (two 16-byte loads a
+//      d-step), which leaves the registers to the accumulators (dK and dV at
+//      HDP 128: 128 a lane).  The backward keeps them in registers up to HDP
+//      64 (Q and dO, or K and V, split: 128 registers at 64), the forward up
+//      to 32.  The scores are summed over the d-steps in the same order
+//      whatever holds the operand, so S stays the backward's to the bit.
 //    * P and dS reach their second product without a shuffle: the m16n8k8
 //      accumulator holds columns 2 t and 2 t + 1 where the A fragment
 //      wants t and t + 4, so the accumulator is taken as A with its k order
@@ -146,10 +173,11 @@
 //      a row pair (keep4_rows), in dK/dV the four lanes g = 4 u .. 4 u + 3 of
 //      one t (keep4_cols).
 //
-// 3. The CUDA-core forward (flash_fwd_kernel): head dims in (32, 128], at
-//    rate 0 (the entries flash_fwd_f32 / flash_fwd_bf16 take any Hd <= 128,
-//    and dropout at Hd <= 32, so the kernel can be timed beside the TF32
-//    forward that replaced it there).  One thread owns a query row with its
+// 3. The CUDA-core forward (flash_fwd_kernel): the first design, on no
+//    route since the tensor-core families take every Hd <= 128 (the entries
+//    flash_fwd_f32 / flash_fwd_bf16 take any Hd <= 128, and dropout at Hd <=
+//    32, so the kernel can be timed beside the kernels that replaced it).
+//    One thread owns a query row with its
 //    operands in registers and the dot products run in f32, one
 //    shared-memory operand per FMA; Hd is padded to a compile-time bound
 //    (32 / 64 / 128).
@@ -163,6 +191,8 @@
 // call's batch rows inside a larger batch: a data-parallel rank holding rows
 // b0.. of a global batch passes block0 = b0 * H * Tq * Tk4 / 4 and draws the
 // global batch's mask.
+#include <cstdint>
+#include <initializer_list>
 #include <type_traits>
 
 #include "common.cuh"
@@ -178,6 +208,7 @@ struct Shape {
   float inv;                                      // 1 / (1 - rate)
   uint32_t thresh, seed;                          // dropout: see keep_bits
   unsigned long long block0;                      // Philox block of score (0, 0, 0, 0)
+  int vec;                                        // tiles may be staged 16 bytes a copy
 };
 
 // Philox block of key 0 of score row (b, h, row); key k adds k / 4
@@ -298,16 +329,23 @@ __global__ void __launch_bounds__(256) keep_mask_kernel(
 }
 
 // ===========================================================================
-// Tensor-core kernels: bf16, even Hd <= 32, 4-byte aligned head rows.
+// Tensor-core kernels: bf16, even Hd <= 128 and 4-byte aligned head rows.
+// The head dim is padded to HDP (32, 64 or 128) with zeros.
 // ===========================================================================
 
 using bf16 = __nv_bfloat16;
 
 constexpr int TILE = 64;    // rows of a staged tile
-constexpr int PITCH = 40;   // its row pitch in bf16: 32 + 8, see the header
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
+
+// the row pitch in bf16 of a staged tile of head dim HDP: HDP + 8, so the
+// eight rows of an ldmatrix phase fall on distinct banks (see the header)
+template <int HDP> __host__ __device__ constexpr int pitch_of() { return HDP + 8; }
+
+// the padded head dim of a call: 32, 64 or 128
+__host__ __device__ constexpr int hd_pad(int Hd) { return Hd <= 32 ? 32 : Hd <= 64 ? 64 : 128; }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -319,39 +357,62 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t w) {
 }
 
 // Stage rows [r0, r0 + TILE) of one head into a shared tile.  `src` points at
-// (row 0, d 0) of the head and `st` is its row stride in elements; 16 lanes
-// take the 16 words of a row and a block takes NT / 16 rows a pass.  Rows >=
+// (row 0, d 0) of the head and `st` is its row stride in elements; rows >=
 // limit and words >= hw (= Hd / 2) are written as zero (their source address
-// is formed but not read).  The loop is unrolled with the addresses advanced
-// by constants: forming each address anew (a 64-bit multiply, selects and a
+// is formed but not read).  With `vec` above HDP 32 (Hd % 8 == 0 and every
+// address and stride 16-byte aligned: a Hd-64 view of a fused projection) a
+// copy moves 16 bytes, HDP / 8 lanes a row; else 4 bytes (a bf16 pair), min(HDP / 2, 32)
+// lanes a row.  The loops are unrolled with the addresses advanced by
+// constants: forming each address anew (a 64-bit multiply, selects and a
 // compare per copy) cost more instructions than the tile's arithmetic.
-template <int NT>
-__device__ __forceinline__ void stage_rows(bf16 (*dst)[PITCH], const bf16* src,
-                                           long long st, int r0, int limit, int hw) {
-  constexpr int STEP = NT / 16;
+template <int NT, int HDP>
+__device__ __forceinline__ void stage_rows(bf16 (*dst)[pitch_of<HDP>()], const bf16* src,
+                                           long long st, int r0, int limit, int hw, bool vec) {
+  constexpr int PT = pitch_of<HDP>();
+  // compiled out at HDP 32, where no call of the presets is aligned and the
+  // branch cost the HDP-32 forward 3-5% on an H100 (`_variants` vec32)
+  if (HDP > 32 && vec) {
+    constexpr int LPR = HDP / 8, STEP = NT / LPR;   // 16-byte chunks a row
+    static_assert(TILE % STEP == 0, "a block stages whole passes");
+    const int c = threadIdx.x % LPR, r = threadIdx.x / LPR;
+    const bool lane_ok = 4 * c < hw;
+    const int left = limit - r0 - r;
+    const uint32_t d = smem_u32(&dst[r][8 * c]);
+    const bf16* p = src + (long long)(r0 + r) * st + (lane_ok ? 8 * c : 0);
+    const long long step = STEP * st;
+#pragma unroll 8
+    for (int i = 0; i < TILE; i += STEP) {
+      cp_async16(d + i * PT * 2, p, lane_ok && i < left);
+      p += step;
+    }
+    return;
+  }
+  constexpr int HW = HDP / 2, LPR = HW < 32 ? HW : 32, WPL = HW / LPR, STEP = NT / LPR;
   static_assert(TILE % STEP == 0, "a block stages whole passes");
-  const int w = threadIdx.x & 15, r = threadIdx.x >> 4;
-  const bool lane_ok = w < hw;
-  const int left = limit - r0 - r;           // row r + i is live iff i < left
+  const int w = threadIdx.x % LPR, r = threadIdx.x / LPR;
+  const int left = limit - r0 - r;
   const uint32_t d = smem_u32(&dst[r][2 * w]);
-  const bf16* p = src + (long long)(r0 + r) * st + (lane_ok ? 2 * w : 0);
+  const bf16* p = src + (long long)(r0 + r) * st + (w < hw ? 2 * w : 0);
   const long long step = STEP * st;
 #pragma unroll 8   // 16 passes in one piece (64 threads) make ptxas spill
   for (int i = 0; i < TILE; i += STEP) {
-    cp_async4(d + i * PITCH * 2, p, lane_ok && i < left);
+#pragma unroll
+    for (int e = 0; e < WPL; ++e)   // word w + 32 e: an immediate offset from p
+      cp_async4(d + i * PT * 2 + e * LPR * 4, p + 2 * e * LPR, w + e * LPR < hw && i < left);
     p += step;
   }
 }
 
-// The A fragments (two k-steps of m16n8k16) of rows [r0, r0 + 16) of one
-// head, straight from global memory; `src`, `st`, `limit`, `hw` as above.
+// The A fragments (HDP / 16 k-steps of m16n8k16) of rows [r0, r0 + 16) of
+// one head, straight from global memory; `src`, `st`, `limit`, `hw` as above.
 // With g = lane / 4, t = lane % 4, register i of k-step s is the bf16 pair at
 // row g + 8 (i % 2), word 8 s + 4 (i / 2) + t.
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[2][4], const bf16* src,
+template <int KS>
+__device__ __forceinline__ void load_a_frags(uint32_t (&f)[KS][4], const bf16* src,
                                              long long st, int r0, int limit, int hw,
                                              int g, int t) {
 #pragma unroll
-  for (int s = 0; s < 2; ++s)
+  for (int s = 0; s < KS; ++s)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = r0 + g + 8 * (i & 1), w = 8 * s + 4 * (i >> 1) + t;
@@ -359,6 +420,15 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&f)[2][4], const bf16* sr
                     ? __ldg(reinterpret_cast<const uint32_t*>(src + (long long)row * st) + w)
                     : 0u;
     }
+}
+
+// The same A fragments of k-step s from a staged tile (rows r0 .. r0 + 15 of
+// it), by ldmatrix: lanes 0-15 give rows 0-15 at column 16 s, lanes 16-31 the
+// same rows at 16 s + 8, which is load_a_frags' register order.
+template <int PT>
+__device__ __forceinline__ void ldsm_a(uint32_t (&f)[4], const bf16 (*tile)[PT], int r0,
+                                       int s, int lane) {
+  ldsm_x4(f, &tile[r0 + (lane & 15)][16 * s + 8 * (lane >> 4)]);
 }
 
 // Keep flags (bit i for accumulator register i) of one 16 x 8 score tile in
@@ -384,7 +454,8 @@ __device__ __forceinline__ uint32_t keep4_rows(const Shape& a, unsigned long lon
 // x a staged tile); a cell is 32 words, lane l's word holding the flags of
 // the 32 scores lane l owns in the forward's fragment layout: bit 4 j + i is
 // accumulator register i of the 8-key tile j (keep4_rows).  The forward
-// stores and the dQ kernel loads one coalesced 128-byte line per cell.
+// stores and the dQ kernel loads one coalesced 128-byte line per cell.  The
+// layout does not depend on the head dim.
 __device__ __forceinline__ long long keep_cell(const Shape& a, int b, int h, int rows16,
                                                int tile) {
   const int cells_q = ((a.Tq + TILE - 1) / TILE) * (TILE / 16);
@@ -392,17 +463,28 @@ __device__ __forceinline__ long long keep_cell(const Shape& a, int b, int h, int
   return ((((long long)b * a.H + h) * cells_q + rows16) * cells_k + tile) * 32;
 }
 
+// shared memory of the bf16 tensor-core kernels: two double-buffered tiles
+// (K and V, or Q and dO), and for dK/dV the per-row lse and delta and, at HDP
+// 128, the block's own K and V rows
+template <int HDP>
+__host__ __device__ constexpr int mma_tiles_bytes() { return 2 * 2 * TILE * pitch_of<HDP>() * 2; }
+template <int HDP>
+__host__ __device__ constexpr int dkv_mma_bytes() {
+  return mma_tiles_bytes<HDP>() + 2 * 2 * TILE * 4 + (HDP > 64 ? 2 * TILE * pitch_of<HDP>() * 2 : 0);
+}
+
 // Forward.  A block of NW warps owns NW * 16 query rows of one (batch, head);
 // a warp keeps its rows' Q fragments, output accumulator and softmax state in
 // registers and walks the key tiles.
-template <int NW, bool DROP>
+template <int HDP, int NW, bool DROP>
 __global__ void __launch_bounds__(NW * 32) flash_fwd_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ o, float* __restrict__ lse, uint32_t* __restrict__ keep_words,
     const Shape a) {
-  constexpr int BQ = NW * 16, NT = NW * 32;
-  __shared__ __align__(16) bf16 ks[2][TILE][PITCH];
-  __shared__ __align__(16) bf16 vs[2][TILE][PITCH];
+  constexpr int BQ = NW * 16, NT = NW * 32, PT = pitch_of<HDP>(), KS = HDP / 16, NO = HDP / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16(*ks)[TILE][PT] = reinterpret_cast<bf16(*)[TILE][PT]>(smem);
+  bf16(*vs)[TILE][PT] = ks + 2;
   const int h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int hw = a.Hd >> 1;
@@ -414,17 +496,17 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_mma_kernel(
   const int warp_end = a.causal ? min(a.kv_len, row0 + 16) : a.kv_len;
   const int ntiles = (blk_end + TILE - 1) / TILE;
   auto stage = [&](int it) {
-    stage_rows<NT>(ks[it & 1], kp, a.k_st, it * TILE, blk_end, hw);
-    stage_rows<NT>(vs[it & 1], vp, a.v_st, it * TILE, blk_end, hw);
+    stage_rows<NT, HDP>(ks[it & 1], kp, a.k_st, it * TILE, blk_end, hw, a.vec);
+    stage_rows<NT, HDP>(vs[it & 1], vp, a.v_st, it * TILE, blk_end, hw, a.vec);
   };
   stage(0);
   cp_async_commit();
 
-  uint32_t qf[2][4];
-  load_a_frags(qf, q + b * a.q_sb + (long long)h * a.Hd, a.q_st, row0, a.Tq, hw, g, t);
-  float acc[4][4];
+  uint32_t qf[KS][4];
+  load_a_frags<KS>(qf, q + b * a.q_sb + (long long)h * a.Hd, a.q_st, row0, a.Tq, hw, g, t);
+  float acc[NO][4];
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
   // rows g (index 0) and g + 8 (index 1): running max and this lane's share
@@ -442,17 +524,20 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_mma_kernel(
     cp_async_wait<1>();
     __syncthreads();
     if (k0 < warp_end) {
-      const bf16(*kt)[PITCH] = ks[it & 1];
-      const bf16(*vt)[PITCH] = vs[it & 1];
+      const bf16(*kt)[PT] = ks[it & 1];
+      const bf16(*vt)[PT] = vs[it & 1];
       float s[8][4];
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        uint32_t kb[4];
-        ldsm_x4(kb, &kt[8 * j + (lane & 7)][8 * (lane >> 3)]);
 #pragma unroll
         for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
-        mma_bf16(s[j], qf[0], kb[0], kb[1]);
-        mma_bf16(s[j], qf[1], kb[2], kb[3]);
+#pragma unroll
+        for (int d = 0; d < HDP / 32; ++d) {
+          uint32_t kb[4];
+          ldsm_x4(kb, &kt[8 * j + (lane & 7)][32 * d + 8 * (lane >> 3)]);
+          mma_bf16(s[j], qf[2 * d], kb[0], kb[1]);
+          mma_bf16(s[j], qf[2 * d + 1], kb[2], kb[3]);
+        }
       }
       // the tile that straddles kv_len or the diagonal is masked by element
       if (k0 + TILE > a.kv_len || (a.causal && k0 + TILE > row0 + 1)) {
@@ -478,7 +563,7 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_mma_kernel(
         l[r] *= alpha[r];
       }
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+      for (int n = 0; n < NO; ++n)
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[n][i] *= alpha[i >> 1];
       uint32_t pf[4][4];   // P as A fragments: k-step kk holds keys 16 kk .. 16 kk + 15
@@ -504,7 +589,7 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_mma_kernel(
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-        for (int np = 0; np < 2; ++np) {
+        for (int np = 0; np < HDP / 16; ++np) {
           uint32_t vb[4];
           ldsm_x4_trans(vb, &vt[16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)]
                                [16 * np + 8 * (lane >> 4)]);
@@ -524,7 +609,7 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_mma_kernel(
     uint32_t* op = reinterpret_cast<uint32_t*>(
         o + (((long long)b * a.Tq + row) * a.H + h) * a.Hd);
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < NO; ++n)
       if (4 * n + t < hw)
         op[4 * n + t] = pack_bf16(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
     if (t == 0) lse[((long long)b * a.H + h) * a.Tq + row] = (m[r] + log2f(lsum)) * LN2;
@@ -535,15 +620,16 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_mma_kernel(
 // a warp owns 16 query rows (Q and dO fragments in registers) and walks the
 // key tiles, 32 keys at a time: S and dP from the same K and V tiles, dS
 // packed into A fragments, dQ += dS K.
-template <int NW, bool DROP>
+template <int HDP, int NW, bool DROP>
 __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ o, const bf16* __restrict__ d_o,
     const float* __restrict__ lse, const uint32_t* __restrict__ keep_words,
     float* __restrict__ delta, bf16* __restrict__ dq, const Shape a) {
-  constexpr int BQ = NW * 16, NT = NW * 32;
-  __shared__ __align__(16) bf16 ks[2][TILE][PITCH];
-  __shared__ __align__(16) bf16 vs[2][TILE][PITCH];
+  constexpr int BQ = NW * 16, NT = NW * 32, PT = pitch_of<HDP>(), KS = HDP / 16, NO = HDP / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16(*ks)[TILE][PT] = reinterpret_cast<bf16(*)[TILE][PT]>(smem);
+  bf16(*vs)[TILE][PT] = ks + 2;
   const int h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int hw = a.Hd >> 1;
@@ -554,8 +640,8 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_mma_kernel(
   const int warp_end = a.causal ? min(a.kv_len, row0 + 16) : a.kv_len;
   const int ntiles = (blk_end + TILE - 1) / TILE;
   auto stage = [&](int it) {
-    stage_rows<NT>(ks[it & 1], kp, a.k_st, it * TILE, blk_end, hw);
-    stage_rows<NT>(vs[it & 1], vp, a.v_st, it * TILE, blk_end, hw);
+    stage_rows<NT, HDP>(ks[it & 1], kp, a.k_st, it * TILE, blk_end, hw, a.vec);
+    stage_rows<NT, HDP>(vs[it & 1], vp, a.v_st, it * TILE, blk_end, hw, a.vec);
   };
   stage(0);
   cp_async_commit();
@@ -564,15 +650,15 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_mma_kernel(
   const long long obase = ((long long)b * a.Tq * a.H + h) * a.Hd;
   const long long ost = (long long)a.H * a.Hd;
   const long long srow0 = ((long long)b * a.H + h) * a.Tq;
-  uint32_t qf[2][4], gf[2][4];
-  load_a_frags(qf, q + b * a.q_sb + (long long)h * a.Hd, a.q_st, row0, a.Tq, hw, g, t);
-  load_a_frags(gf, d_o + obase, ost, row0, a.Tq, hw, g, t);
+  uint32_t qf[KS][4], gf[KS][4];
+  load_a_frags<KS>(qf, q + b * a.q_sb + (long long)h * a.Hd, a.q_st, row0, a.Tq, hw, g, t);
+  load_a_frags<KS>(gf, d_o + obase, ost, row0, a.Tq, hw, g, t);
   float dl[2] = {0.f, 0.f}, L2[2];
   {
-    uint32_t of[2][4];
-    load_a_frags(of, o + obase, ost, row0, a.Tq, hw, g, t);
+    uint32_t of[KS][4];
+    load_a_frags<KS>(of, o + obase, ost, row0, a.Tq, hw, g, t);
 #pragma unroll
-    for (int s = 0; s < 2; ++s)
+    for (int s = 0; s < KS; ++s)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float2 x = unpack_bf16(of[s][i]), y = unpack_bf16(gf[s][i]);
@@ -586,9 +672,9 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_mma_kernel(
     L2[r] = row < a.Tq ? lse[srow0 + row] * LOG2E : 0.f;
     if (t == 0 && row < a.Tq) delta[srow0 + row] = dl[r];
   }
-  float acc[4][4];
+  float acc[NO][4];
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
   const float c = a.scale * LOG2E;
@@ -601,8 +687,8 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_mma_kernel(
                                : 0u;
     cp_async_wait<1>();
     __syncthreads();
-    const bf16(*kt)[PITCH] = ks[it & 1];
-    const bf16(*vt)[PITCH] = vs[it & 1];
+    const bf16(*kt)[PT] = ks[it & 1];
+    const bf16(*vt)[PT] = vs[it & 1];
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int kc = it * TILE + 32 * half;   // first key of this chunk
@@ -610,16 +696,19 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_mma_kernel(
       float s[4][4], dp[4][4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        uint32_t kb[4], vb[4];
-        const int r = 32 * half + 8 * j + (lane & 7), col = 8 * (lane >> 3);
-        ldsm_x4(kb, &kt[r][col]);
-        ldsm_x4(vb, &vt[r][col]);
 #pragma unroll
         for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
-        mma_bf16(s[j], qf[0], kb[0], kb[1]);
-        mma_bf16(s[j], qf[1], kb[2], kb[3]);
-        mma_bf16(dp[j], gf[0], vb[0], vb[1]);
-        mma_bf16(dp[j], gf[1], vb[2], vb[3]);
+#pragma unroll
+        for (int d = 0; d < HDP / 32; ++d) {
+          uint32_t kb[4], vb[4];
+          const int r = 32 * half + 8 * j + (lane & 7), col = 32 * d + 8 * (lane >> 3);
+          ldsm_x4(kb, &kt[r][col]);
+          ldsm_x4(vb, &vt[r][col]);
+          mma_bf16(s[j], qf[2 * d], kb[0], kb[1]);
+          mma_bf16(s[j], qf[2 * d + 1], kb[2], kb[3]);
+          mma_bf16(dp[j], gf[2 * d], vb[0], vb[1]);
+          mma_bf16(dp[j], gf[2 * d + 1], vb[2], vb[3]);
+        }
       }
       const bool full = kc + 32 <= a.kv_len && (!a.causal || kc + 32 <= row0 + 1);
       uint32_t dsf[2][4];   // dS as A fragments: k-step kk holds keys 16 kk .. 16 kk + 15
@@ -645,7 +734,7 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_mma_kernel(
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
-        for (int np = 0; np < 2; ++np) {
+        for (int np = 0; np < HDP / 16; ++np) {
           uint32_t kb[4];
           ldsm_x4_trans(kb, &kt[32 * half + 16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)]
                                [16 * np + 8 * (lane >> 4)]);
@@ -662,29 +751,36 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_mma_kernel(
     if (row >= a.Tq) continue;
     uint32_t* dp32 = reinterpret_cast<uint32_t*>(dq + obase + (long long)row * ost);
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < NO; ++n)
       if (4 * n + t < hw)
         dp32[4 * n + t] = pack_bf16(acc[n][2 * r] * a.scale, acc[n][2 * r + 1] * a.scale);
   }
 }
 
 // dK and dV.  A block of NW warps owns NW * 16 keys of one (batch, head), a
-// warp 16 of them with their K and V fragments in registers; query tiles (q,
-// dO, lse, delta) pass through shared memory, 32 queries at a time.  The
-// scores are computed transposed (S^T = K Q^T, dP^T = V dO^T), so P^T and
-// dS^T come out as A fragments for dV += P^T dO and dK += dS^T Q.  Keys at or
-// beyond kv_len and causally hidden pairs add exactly zero.
-template <int NW, bool DROP>
+// warp 16 of them; query tiles (q, dO, lse, delta) pass through shared
+// memory, 32 queries at a time.  The scores are computed transposed (S^T = K
+// Q^T, dP^T = V dO^T), so P^T and dS^T come out as A fragments for dV += P^T
+// dO and dK += dS^T Q.  Keys at or beyond kv_len and causally hidden pairs
+// add exactly zero.  The warp's K and V fragments stay in registers up to
+// HDP 64; at 128 the dK and dV accumulators alone take 128 registers a lane,
+// so the block stages its K and V rows once and reads the fragments with
+// ldmatrix where they are used.
+template <int HDP, int NW, bool DROP>
 __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ d_o, const float* __restrict__ lse,
     const float* __restrict__ delta, const uint32_t* __restrict__ keep_words,
     bf16* __restrict__ dk, bf16* __restrict__ dv, const Shape a) {
-  constexpr int BKT = NW * 16, NT = NW * 32;
-  __shared__ __align__(16) bf16 qs[2][TILE][PITCH];
-  __shared__ __align__(16) bf16 gs[2][TILE][PITCH];
-  __shared__ __align__(8) float ls[2][TILE];
-  __shared__ __align__(8) float dls[2][TILE];
+  constexpr int BKT = NW * 16, NT = NW * 32, PT = pitch_of<HDP>(), KS = HDP / 16, NO = HDP / 8;
+  constexpr bool KV_SMEM = HDP > 64;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16(*qs)[TILE][PT] = reinterpret_cast<bf16(*)[TILE][PT]>(smem);
+  bf16(*gs)[TILE][PT] = qs + 2;
+  float(*ls)[TILE] = reinterpret_cast<float(*)[TILE]>(smem + mma_tiles_bytes<HDP>());
+  float(*dls)[TILE] = ls + 2;
+  bf16(*kvs)[TILE][PT] =
+      reinterpret_cast<bf16(*)[TILE][PT]>(smem + mma_tiles_bytes<HDP>() + 2 * 2 * TILE * 4);
   const int h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int hw = a.Hd >> 1;
@@ -700,8 +796,8 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_mma_kernel(
   const int last = blk_key0 < a.kv_len ? (a.Tq + TILE - 1) / TILE : first;
   auto stage = [&](int it) {
     const int buf = (it - first) & 1;
-    stage_rows<NT>(qs[buf], qp, a.q_st, it * TILE, a.Tq, hw);
-    stage_rows<NT>(gs[buf], gp, ost, it * TILE, a.Tq, hw);
+    stage_rows<NT, HDP>(qs[buf], qp, a.q_st, it * TILE, a.Tq, hw, a.vec);
+    stage_rows<NT, HDP>(gs[buf], gp, ost, it * TILE, a.Tq, hw, a.vec);
     for (int i = threadIdx.x; i < TILE; i += NT) {
       const bool ok = it * TILE + i < a.Tq;
       const long long at = srow0 + (ok ? it * TILE + i : 0);
@@ -709,15 +805,25 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_mma_kernel(
       cp_async4(smem_u32(&dls[buf][i]), delta + at, ok);
     }
   };
+  const bf16* kbase = k + b * a.k_sb + (long long)h * a.Hd;
+  const bf16* vbase = v + b * a.v_sb + (long long)h * a.Hd;
+  if constexpr (KV_SMEM) {   // the block's keys, rows blk_key0 .. of kvs[0] (K) and kvs[1] (V)
+    stage_rows<NT, HDP>(kvs[0], kbase + (long long)blk_key0 * a.k_st, a.k_st, 0,
+                        a.kv_len - blk_key0, hw, a.vec);
+    stage_rows<NT, HDP>(kvs[1], vbase + (long long)blk_key0 * a.v_st, a.v_st, 0,
+                        a.kv_len - blk_key0, hw, a.vec);
+  }
   if (first < last) stage(first);
   cp_async_commit();
 
-  uint32_t kf[2][4], vf[2][4];
-  load_a_frags(kf, k + b * a.k_sb + (long long)h * a.Hd, a.k_st, key0, a.kv_len, hw, g, t);
-  load_a_frags(vf, v + b * a.v_sb + (long long)h * a.Hd, a.v_st, key0, a.kv_len, hw, g, t);
-  float dka[4][4], dva[4][4];
+  uint32_t kf[KV_SMEM ? 1 : KS][4], vf[KV_SMEM ? 1 : KS][4];
+  if constexpr (!KV_SMEM) {
+    load_a_frags<KS>(kf, kbase, a.k_st, key0, a.kv_len, hw, g, t);
+    load_a_frags<KS>(vf, vbase, a.v_st, key0, a.kv_len, hw, g, t);
+  }
+  float dka[NO][4], dva[NO][4];
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) dka[n][i] = dva[n][i] = 0.f;
   const float c = a.scale * LOG2E;
@@ -734,8 +840,8 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_mma_kernel(
     cp_async_wait<1>();
     __syncthreads();
     const int buf = (it - first) & 1;
-    const bf16(*qt)[PITCH] = qs[buf];
-    const bf16(*gt)[PITCH] = gs[buf];
+    const bf16(*qt)[PT] = qs[buf];
+    const bf16(*gt)[PT] = gs[buf];
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int qc = it * TILE + 32 * half;   // first query of this chunk
@@ -751,17 +857,37 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_mma_kernel(
       }
       float st[4][4], dpt[4][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t qb[4], gb[4];
-        const int r = 32 * half + 8 * j + (lane & 7), col = 8 * (lane >> 3);
-        ldsm_x4(qb, &qt[r][col]);
-        ldsm_x4(gb, &gt[r][col]);
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int i = 0; i < 4; ++i) st[j][i] = dpt[j][i] = 0.f;
-        mma_bf16(st[j], kf[0], qb[0], qb[1]);
-        mma_bf16(st[j], kf[1], qb[2], qb[3]);
-        mma_bf16(dpt[j], vf[0], gb[0], gb[1]);
-        mma_bf16(dpt[j], vf[1], gb[2], gb[3]);
+      // 32 head dims a step, each query tile's k-steps in order
+#pragma unroll
+      for (int d = 0; d < HDP / 32; ++d) {
+        uint32_t ka[2][4], va[2][4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if constexpr (KV_SMEM) {
+            ldsm_a<PT>(ka[e], kvs[0], 16 * warp, 2 * d + e, lane);
+            ldsm_a<PT>(va[e], kvs[1], 16 * warp, 2 * d + e, lane);
+          } else {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              ka[e][i] = kf[2 * d + e][i];
+              va[e][i] = vf[2 * d + e][i];
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t qb[4], gb[4];
+          const int r = 32 * half + 8 * j + (lane & 7), col = 32 * d + 8 * (lane >> 3);
+          ldsm_x4(qb, &qt[r][col]);
+          ldsm_x4(gb, &gt[r][col]);
+          mma_bf16(st[j], ka[0], qb[0], qb[1]);
+          mma_bf16(st[j], ka[1], qb[2], qb[3]);
+          mma_bf16(dpt[j], va[0], gb[0], gb[1]);
+          mma_bf16(dpt[j], va[1], gb[2], gb[3]);
+        }
       }
       const bool full = qc + 32 <= a.Tq && key0 + 16 <= a.kv_len &&
                         (!a.causal || key0 + 15 <= qc);
@@ -798,7 +924,7 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_mma_kernel(
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
-        for (int np = 0; np < 2; ++np) {
+        for (int np = 0; np < HDP / 16; ++np) {
           uint32_t gb[4], qb[4];
           const int r = 32 * half + 16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1);
           const int col = 16 * np + 8 * (lane >> 4);
@@ -821,7 +947,7 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_mma_kernel(
     uint32_t* dk32 = reinterpret_cast<uint32_t*>(dk + krow);
     uint32_t* dv32 = reinterpret_cast<uint32_t*>(dv + krow);
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < NO; ++n)
       if (4 * n + t < hw) {
         dk32[4 * n + t] = pack_bf16(dka[n][2 * r] * a.scale, dka[n][2 * r + 1] * a.scale);
         dv32[4 * n + t] = pack_bf16(dva[n][2 * r], dva[n][2 * r + 1]);
@@ -830,24 +956,83 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_mma_kernel(
 }
 
 // ===========================================================================
-// The TF32 backward: f32 (three TF32 products a product, "3xTF32") and bf16
-// inputs that miss the 4-byte alignment (one TF32 pass: bf16 values are exact
-// in TF32), any Hd <= 32.
+// The TF32 kernels: f32 (three TF32 products a product, "3xTF32") and bf16
+// inputs that miss the 4-byte alignment or have an odd head dim (one TF32
+// pass: bf16 values are exact in TF32), any Hd <= 128, padded to HDP.
 // ===========================================================================
 
-constexpr int FP = 36;      // row pitch in floats of an f32 tile: 32 + 4, see the header
+// the row pitch in floats of an f32 tile: HDP + 4, see the header
+template <int HDP> __host__ __device__ constexpr int fpitch_of() { return HDP + 4; }
+// Rows of a staged f32 tile, and whether a warp's split A operands live in
+// shared memory (SplitRows), by kernel.  The forward walks 32-row tiles
+// above HDP 32 and keeps Q's pieces in shared memory; the backward walks
+// 64-row tiles up to HDP 64 and keeps its two operands' pieces in registers
+// there (the fastest of four layouts timed at 8 heads of 64 on an H100:
+// `_variants flash_attention base,bwdtk32,hdp64first,fwdregs`).  At HDP 128
+// both take 32-row tiles (two double-buffered tiles of 64
+// rows of 132 floats would take 135 KB) and shared memory (16 d-steps of
+// pieces would take 128 registers a lane).
+template <int HDP, bool BWD>
+__host__ __device__ constexpr int ftile_of() { return HDP > (BWD ? 64 : 32) ? 32 : 64; }
+template <int HDP, bool BWD>
+__host__ __device__ constexpr bool split_smem() { return HDP > (BWD ? 64 : 32); }
 
-// One 16-row x 8-column step's S = A B^T over Hd (padded to 32 with zeros):
-// A the warp's split rows, B their row g of a staged tile (element 8 ds + t
-// and + 4 of d-step ds).  The hi hi, lo hi and hi lo terms are summed in three
-// chains over the d-steps and added at the end, hi hi + (lo hi + hi lo):
-// symmetric in its operands, so the forward's and the dQ kernel's S = Q K^T
-// and the dK/dV kernel's S^T = K Q^T (and dP, dP^T) come out bit for bit
-// alike (an mma's sum of its eight products does not depend on which operand
-// is A).
-template <int P>
-__device__ __forceinline__ void first_product(float (&s)[4], const FragA<P> (&a)[4],
-                                              const float* bp) {
+// A warp's A operand of 16 rows x HDP (Hd padded with zeros) split into P
+// TF32 pieces: HDP / 8 d-steps of FragA<P>, in registers (4 P registers a
+// d-step and lane) or, with SMEM, in the warp's own region of shared memory
+// (split_smem), lane-major (piece k of d-step s at [s][k][lane], 16 bytes a
+// lane: conflict-free 16-byte loads).  Each lane writes and reads only its
+// own fragments, so no barrier guards them.
+template <int P, int HDP, bool SMEM_>
+struct SplitRows {
+  static constexpr int DS = HDP / 8;
+  static constexpr bool SMEM = SMEM_;
+  FragA<P> r[SMEM ? 1 : DS];
+  uint4* s;   // this warp's region: DS * P * 32 uint4 (SMEM only)
+  int lane;
+
+  __device__ __forceinline__ FragA<P> operator()(int ds) const {
+    if constexpr (SMEM) {
+      FragA<P> f;
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        const uint4 w = s[(ds * P + k) * 32 + lane];
+        f.p[k][0] = w.x;
+        f.p[k][1] = w.y;
+        f.p[k][2] = w.z;
+        f.p[k][3] = w.w;
+      }
+      return f;
+    } else {
+      return r[ds];
+    }
+  }
+
+  __device__ __forceinline__ void set(int ds, const FragA<P>& f) {
+    if constexpr (SMEM) {
+#pragma unroll
+      for (int k = 0; k < P; ++k)
+        s[(ds * P + k) * 32 + lane] = make_uint4(f.p[k][0], f.p[k][1], f.p[k][2], f.p[k][3]);
+    } else {
+      r[ds] = f;
+    }
+  }
+};
+
+// bytes of one warp's SplitRows region (0 where it lives in registers)
+template <int P, int HDP, bool SMEM>
+__host__ __device__ constexpr int split_rows_bytes() { return SMEM ? (HDP / 8) * P * 32 * 16 : 0; }
+
+// One 16-row x 8-column step's S = A B^T over HDP: A the warp's split rows
+// (SplitRows), B their row g of a staged tile (element 8 ds + t and + 4 of
+// d-step ds).  The hi hi, lo hi and hi lo terms are summed in three chains
+// over the d-steps and added at the end, hi hi + (lo hi + hi lo): symmetric
+// in its operands, so the forward's and the dQ kernel's S = Q K^T and the
+// dK/dV kernel's S^T = K Q^T (and dP, dP^T) come out bit for bit alike (an
+// mma's sum of its eight products does not depend on which operand is A),
+// at every head dim.
+template <int P, typename Rows>
+__device__ __forceinline__ void first_product(float (&s)[4], const Rows& a, const float* bp) {
   static_assert(P == 1 || P == 2, "one piece (bf16) or two (f32)");
   float c[3][4];               // [hi hi, lo hi, hi lo]
 #pragma unroll
@@ -855,14 +1040,15 @@ __device__ __forceinline__ void first_product(float (&s)[4], const FragA<P> (&a)
 #pragma unroll
     for (int i = 0; i < 4; ++i) c[w][i] = 0.f;
 #pragma unroll
-  for (int ds = 0; ds < 4; ++ds) {
+  for (int ds = 0; ds < Rows::DS; ++ds) {
+    const FragA<P> f = a(ds);
     uint32_t x[P], y[P];
     split_tf32<P>(bp[8 * ds], x);
     split_tf32<P>(bp[8 * ds + 4], y);
-    mma_tf32(c[0], a[ds].p[0], x[0], y[0]);
+    mma_tf32(c[0], f.p[0], x[0], y[0]);
     if constexpr (P == 2) {
-      mma_tf32(c[1], a[ds].p[1], x[0], y[0]);
-      mma_tf32(c[2], a[ds].p[0], x[1], y[1]);
+      mma_tf32(c[1], f.p[1], x[0], y[0]);
+      mma_tf32(c[2], f.p[0], x[1], y[1]);
     }
   }
 #pragma unroll
@@ -870,41 +1056,35 @@ __device__ __forceinline__ void first_product(float (&s)[4], const FragA<P> (&a)
 }
 
 // The backward's two first products of a step, S = A1 B1^T and dP = A2 B2^T
-template <int P>
+template <int P, typename Rows>
 __device__ __forceinline__ void first_products(float (&s)[4], float (&dp)[4],
-                                               const FragA<P> (&a1)[4], const FragA<P> (&a2)[4],
+                                               const Rows& a1, const Rows& a2,
                                                const float* b1, const float* b2) {
   first_product<P>(s, a1, b1);
   first_product<P>(dp, a2, b2);
 }
 
-// The four d-steps of an m16n8k8 A operand of rows [r0, r0 + 16) of one head
-// (Hd <= 32, padded with zeros), straight from global memory as f32: with g =
-// lane / 4, t = lane % 4, register i of step s is (row g + 8 (i % 2), d 8 s +
-// t + 4 (i / 2)).
-template <typename T>
-__device__ __forceinline__ void load_rows_f32(float (&f)[4][4], const T* src, long long st,
-                                              int r0, int limit, int Hd, int g, int t) {
+// The d-steps of an m16n8k8 A operand of rows [r0, r0 + 16) of one head
+// (padded with zeros to HDP), straight from global memory as f32 and split
+// into `rows`: with g = lane / 4, t = lane % 4, register i of step s is (row
+// g + 8 (i % 2), d 8 s + t + 4 (i / 2)).
+template <int P, typename T, typename Rows>
+__device__ __forceinline__ void load_split_rows(Rows& rows, const T* src, long long st, int r0,
+                                                int limit, int Hd, int g, int t) {
 #pragma unroll
-  for (int s = 0; s < 4; ++s)
+  for (int s = 0; s < Rows::DS; ++s) {
+    FragA<P> f;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = r0 + g + 8 * (i & 1), d = 8 * s + t + 4 * (i >> 1);
-      f[s][i] = row < limit && d < Hd ? to_f32(src[(long long)row * st + d]) : 0.f;
+      const float x = row < limit && d < Hd ? to_f32(src[(long long)row * st + d]) : 0.f;
+      uint32_t pc[P];
+      split_tf32<P>(x, pc);
+#pragma unroll
+      for (int k = 0; k < P; ++k) f.p[k][i] = pc[k];
     }
-}
-
-template <int P>
-__device__ __forceinline__ void split_frags(FragA<P> (&a)[4], const float (&f)[4][4]) {
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      uint32_t x[P];
-      split_tf32<P>(f[s][i], x);
-#pragma unroll
-      for (int k = 0; k < P; ++k) a[s].p[k][i] = x[k];
-    }
+    rows.set(s, f);
+  }
 }
 
 // An m16n8 accumulator tile as the A operand of the next product, without a
@@ -948,28 +1128,53 @@ __device__ __forceinline__ void mma_add_bits(float (&c)[4], const FragA<P>& a, f
   }
 }
 
-// Stage rows [r0, r0 + TILE) of one head into a shared f32 tile: 32 lanes
-// take the 32 elements of a row, a block NT / 32 rows a pass; rows >= limit
-// and elements >= Hd are zeros.  f32 by 4-byte cp.async (a head row of a
-// fused-QKV view is 8-byte aligned at best); bf16 by loads and stores.
-template <typename T, int NT>
-__device__ __forceinline__ void stage_rows_f32(float (*dst)[FP], const T* src, long long st,
-                                               int r0, int limit, int Hd) {
-  constexpr int STEP = NT / 32;
+// Stage rows [r0, r0 + TK) of one head into a shared f32 tile of head dim
+// HDP; rows >= limit and elements >= Hd are zeros.  f32 with `vec` above HDP
+// 32 (Hd % 4 == 0 and every address and stride 16-byte aligned: a Hd-64 view
+// of a fused projection) by 16-byte cp.async, min(HDP / 4, 32) lanes a row; f32
+// otherwise by 4-byte cp.async (a Hd-30 head row of a fused-QKV view is
+// 8-byte aligned at best), 32 lanes a row; bf16 by loads and stores.
+template <typename T, int NT, int HDP, int TK>
+__device__ __forceinline__ void stage_rows_f32(float (*dst)[fpitch_of<HDP>()], const T* src,
+                                               long long st, int r0, int limit, int Hd,
+                                               bool vec) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (HDP > 32 && vec) {   // as in stage_rows
+      constexpr int CH = HDP / 4, LPR = CH < 32 ? CH : 32, CPL = CH / LPR, STEP = NT / LPR;
+      const int c = threadIdx.x % LPR, r = threadIdx.x / LPR;
+      const int left = limit - r0 - r;
+      const T* p = src + (long long)(r0 + r) * st;
+      const long long step = STEP * st;
+#pragma unroll 4
+      for (int i = 0; i < TK; i += STEP) {
+#pragma unroll
+        for (int e = 0; e < CPL; ++e) {
+          const int d = 4 * (c + e * LPR);
+          cp_async16(smem_u32(&dst[r + i][d]), p + d, d < Hd && i < left);
+        }
+        p += step;
+      }
+      return;
+    }
+  }
+  constexpr int STEP = NT / 32, EPL = HDP / 32;
   const int w = threadIdx.x & 31, r = threadIdx.x >> 5;
-  const bool lane_ok = w < Hd;
   const int left = limit - r0 - r;
-  const T* p = src + (long long)(r0 + r) * st + (lane_ok ? w : 0);
+  // element w + 32 e of a row: an immediate offset from p
+  const T* p = src + (long long)(r0 + r) * st + (w < Hd ? w : 0);
   const long long step = STEP * st;
 #pragma unroll 4
-  for (int i = 0; i < TILE; i += STEP) {
-    const bool ok = lane_ok && i < left;
-    if constexpr (std::is_same<T, float>::value) {
-      cp_async4(smem_u32(&dst[r + i][w]), p, ok);
-    } else {
-      float x = 0.f;
-      if (ok) x = to_f32(*p);
-      dst[r + i][w] = x;
+  for (int i = 0; i < TK; i += STEP) {
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) {
+      const bool ok = w + 32 * e < Hd && i < left;
+      if constexpr (std::is_same<T, float>::value) {
+        cp_async4(smem_u32(&dst[r + i][w + 32 * e]), p + 32 * e, ok);
+      } else {
+        float x = 0.f;
+        if (ok) x = to_f32(p[32 * e]);
+        dst[r + i][w + 32 * e] = x;
+      }
     }
     p += step;
   }
@@ -995,28 +1200,41 @@ __device__ __forceinline__ uint32_t keep4_cols(const Shape& a, int b, int h, int
   return keep;
 }
 
+// shared memory of a TF32 kernel (the forward, or with BWD a backward one):
+// two double-buffered f32 tiles, (dK/dV) the per-row lse2 and delta, and
+// NOPS SplitRows regions a warp
+template <int P, int HDP, int NW, int NOPS, bool ROWS, bool BWD>
+__host__ __device__ constexpr int tf32_bytes() {
+  constexpr int TK = ftile_of<HDP, BWD>();
+  return 2 * 2 * TK * fpitch_of<HDP>() * 4 + (ROWS ? 2 * 2 * TK * 4 : 0) +
+         NW * NOPS * split_rows_bytes<P, HDP, split_smem<HDP, BWD>()>();
+}
+
 // Forward in TF32: the dQ kernel's passes 0 and 1 folded into one online
 // pass.  A block of NW warps owns NW * 16 query rows of one (batch, head); a
-// warp keeps its rows' Q as split A fragments, its output accumulator and
-// its softmax state in registers and walks the staged key tiles (whole tiles
-// beyond kv_len or above the causal diagonal skipped, the straddling tile
-// masked by element).  A tile's scores come 8 keys at a time from
-// first_product and are scaled as the dQ kernel scales them, x = S scale
-// log2 e rounded once (__fmul_rn): the forward's x is the backward's to the
-// bit.  The online softmax takes a tile at once, in the log2 domain over the
-// quad; P = 2^(x - max), rounded to the working dtype, is the A operand of O
-// += P V (acc_as_a), V's rows read in its order and split by integer
+// warp keeps its rows' Q as split A fragments (SplitRows), its output
+// accumulator and its softmax state in registers and walks the staged key
+// tiles (whole tiles beyond kv_len or above the causal diagonal skipped, the
+// straddling tile masked by element).  A tile's scores come 8 keys at a time
+// from first_product and are scaled as the dQ kernel scales them, x = S
+// scale log2 e rounded once (__fmul_rn): the forward's x is the backward's to
+// the bit.  The online softmax takes a tile at once, in the log2 domain over
+// the quad; P = 2^(x - max), rounded to the working dtype, is the A operand
+// of O += P V (acc_as_a), V's rows read in its order and split by integer
 // rounding, each step's product added by f32 adds (mma_add_bits).  Dropout
 // draws keep_mask_kernel's mask (keep4_rows),
-// which the TF32 backward draws again.
-template <typename T, int NW, bool DROP>
-__global__ void __launch_bounds__(NW * 32) flash_fwd_tf32_kernel(
+// which the TF32 backward draws again.  The body of the kernels below.
+template <typename T, int HDP, int NW, bool DROP>
+__device__ __forceinline__ void flash_fwd_tf32_body(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, float* __restrict__ lse, const Shape a) {
+    T* __restrict__ o, float* __restrict__ lse, const Shape& a) {
   constexpr int P = std::is_same<T, float>::value ? 2 : 1;   // bf16 is exact in one piece
-  constexpr int BQ = NW * 16, NT = NW * 32;
-  __shared__ __align__(16) float ks[2][TILE][FP];
-  __shared__ __align__(16) float vs[2][TILE][FP];
+  constexpr int BQ = NW * 16, NT = NW * 32, FP = fpitch_of<HDP>(), TK = ftile_of<HDP, false>();
+  constexpr int DS = HDP / 8;
+  constexpr bool SS = split_smem<HDP, false>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  float(*ks)[TK][FP] = reinterpret_cast<float(*)[TK][FP]>(smem);
+  float(*vs)[TK][FP] = ks + 2;
   const int h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int row0 = blockIdx.x * BQ + warp * 16;
@@ -1024,23 +1242,21 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_tf32_kernel(
   const T* vp = v + b * a.v_sb + (long long)h * a.Hd;
   const int blk_end = a.causal ? min(a.kv_len, (int)(blockIdx.x + 1) * BQ) : a.kv_len;
   const int warp_end = a.causal ? min(a.kv_len, row0 + 16) : a.kv_len;
-  const int ntiles = (blk_end + TILE - 1) / TILE;
+  const int ntiles = (blk_end + TK - 1) / TK;
   auto stage = [&](int it) {
-    stage_rows_f32<T, NT>(ks[it & 1], kp, a.k_st, it * TILE, blk_end, a.Hd);
-    stage_rows_f32<T, NT>(vs[it & 1], vp, a.v_st, it * TILE, blk_end, a.Hd);
+    stage_rows_f32<T, NT, HDP, TK>(ks[it & 1], kp, a.k_st, it * TK, blk_end, a.Hd, a.vec);
+    stage_rows_f32<T, NT, HDP, TK>(vs[it & 1], vp, a.v_st, it * TK, blk_end, a.Hd, a.vec);
   };
   stage(0);
   cp_async_commit();
 
-  FragA<P> qa[4];
-  {
-    float qx[4][4];
-    load_rows_f32(qx, q + b * a.q_sb + (long long)h * a.Hd, a.q_st, row0, a.Tq, a.Hd, g, t);
-    split_frags<P>(qa, qx);
-  }
-  float acc[4][4];
+  SplitRows<P, HDP, SS> qa;
+  qa.lane = lane;
+  qa.s = reinterpret_cast<uint4*>(smem + 2 * 2 * TK * FP * 4 + warp * split_rows_bytes<P, HDP, SS>());
+  load_split_rows<P>(qa, q + b * a.q_sb + (long long)h * a.Hd, a.q_st, row0, a.Tq, a.Hd, g, t);
+  float acc[DS][4];
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
+  for (int n = 0; n < DS; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
   // rows g (index 0) and g + 8 (index 1): running max of x and this lane's
@@ -1052,7 +1268,7 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_tf32_kernel(
       DROP ? mask_row_block(a, b, h, row0 + g + ((t & 1) ? 8 : 0)) + (t >> 1) : 0ull;
 
   for (int it = 0; it < ntiles; ++it) {
-    const int k0 = it * TILE;
+    const int k0 = it * TK;
     if (it + 1 < ntiles) stage(it + 1);
     cp_async_commit();
     cp_async_wait<1>();
@@ -1060,17 +1276,17 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_tf32_kernel(
     if (k0 < warp_end) {
       const float(*kt)[FP] = ks[it & 1];
       const float(*vt)[FP] = vs[it & 1];
-      float x[8][4];
+      float x[TK / 8][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < TK / 8; ++j) {
         first_product<P>(x[j], qa, &kt[8 * j + g][t]);
 #pragma unroll
         for (int i = 0; i < 4; ++i) x[j][i] = __fmul_rn(x[j][i], c);   // as the dQ kernel's
       }
       // the tile that straddles kv_len or the diagonal is masked by element
-      if (k0 + TILE > a.kv_len || (a.causal && k0 + TILE > row0 + 1)) {
+      if (k0 + TK > a.kv_len || (a.causal && k0 + TK > row0 + 1)) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < TK / 8; ++j)
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int key = k0 + 8 * j + 2 * t + (i & 1), row = row0 + g + 8 * (i >> 1);
@@ -1082,20 +1298,20 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_tf32_kernel(
       for (int r = 0; r < 2; ++r) {
         float mx = -INFINITY;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(x[j][2 * r], x[j][2 * r + 1]));
+        for (int j = 0; j < TK / 8; ++j) mx = fmaxf(mx, fmaxf(x[j][2 * r], x[j][2 * r + 1]));
         // finite from the first tile on: key k0 is visible to every row of the warp
         const float m_new = fmaxf(m[r], quad_max(mx));
         const float alpha = fast_exp2(m[r] - m_new);
         m[r] = m_new;
         l[r] *= alpha;
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
+        for (int n = 0; n < DS; ++n) {
           acc[n][2 * r] *= alpha;
           acc[n][2 * r + 1] *= alpha;
         }
       }
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < TK / 8; ++j) {
         const uint32_t keep = DROP ? keep4_rows(a, mblk + ((k0 + 8 * j) >> 2), t) : 0xfu;
         float p[4];
 #pragma unroll
@@ -1109,7 +1325,7 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_tf32_kernel(
         acc_as_a<P>(pa, p);
         // O += P V: keys 2 t and 2 t + 1 of the step as k indices t and t + 4
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
+        for (int n = 0; n < DS; ++n) {
           const float* vr = &vt[8 * j + 2 * t][8 * n + g];
           mma_add_bits<P>(acc[n], pa, vr[0], vr[FP]);
         }
@@ -1126,7 +1342,7 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_tf32_kernel(
     const float inv = a.inv / lsum;
     T* out = o + (((long long)b * a.Tq + row) * a.H + h) * a.Hd;
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < DS; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int d = 8 * n + 2 * t + e;
@@ -1136,9 +1352,38 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_tf32_kernel(
   }
 }
 
+// The TF32 forward's kernels.  At HDP 32 it is held to 128 registers, four
+// blocks of four warps an SM: left free, ptxas took 153 without dropout
+// (three blocks), and that forward ran 5.5% slower on an H100
+// (`_variants flash_attention base,nolb 0,0.2 10x30 f32`).  Above HDP 32
+// ptxas chooses: a bound of one block moved the HDP-64 forward 4.5% either
+// way (slower at rate 0, faster at 0.2).
+template <typename T, int HDP, int NW, bool DROP>
+__global__ void __launch_bounds__(NW * 32) flash_fwd_tf32_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, float* __restrict__ lse, const Shape a) {
+  flash_fwd_tf32_body<T, HDP, NW, DROP>(q, k, v, o, lse, a);
+}
+
+template <typename T, int NW, bool DROP>
+__global__ void __launch_bounds__(NW * 32, 16 / NW) flash_fwd_tf32_hd32_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, float* __restrict__ lse, const Shape a) {
+  flash_fwd_tf32_body<T, 32, NW, DROP>(q, k, v, o, lse, a);
+}
+
+template <typename T, int HDP, int NW, bool DROP>
+auto fwd_tf32_kernel() {
+  if constexpr (HDP == 32) {
+    return &flash_fwd_tf32_hd32_kernel<T, NW, DROP>;
+  } else {
+    return &flash_fwd_tf32_kernel<T, HDP, NW, DROP>;
+  }
+}
+
 // dQ in TF32, and each row's delta and log2-domain logsumexp of the kernel's
 // own scores.  The tensor-core dQ kernel's shape: a warp owns 16 query rows (Q
-// and dO as split A fragments in registers) and walks the staged key tiles 8
+// and dO as split A fragments, SplitRows) and walks the staged key tiles 8
 // keys at a time, S and dP in the accumulators (first_products).  It walks
 // them twice: pass 0 takes each row's online (max, sum 2^x) of x = S scale
 // log2 e and the sum of 2^x dP' (dP' = dP with the dropout applied), so that
@@ -1146,14 +1391,17 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_tf32_kernel(
 // the gradient uses (see the header); pass 1 forms P = 2^(x - lse2) and dS =
 // P (dP' - delta), and dS as the A operand of dQ += dS K with K's rows read in
 // acc_as_a's order.  delta and lse2 go to `rows` (2 x B H Tq) for dK/dV.
-template <typename T, int NW, bool DROP>
+template <typename T, int HDP, int NW, bool DROP>
 __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_tf32_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ d_o, float* __restrict__ rows, T* __restrict__ dq, const Shape a) {
   constexpr int P = std::is_same<T, float>::value ? 2 : 1;   // bf16 is exact in one piece
-  constexpr int BQ = NW * 16, NT = NW * 32;
-  __shared__ __align__(16) float ks[2][TILE][FP];
-  __shared__ __align__(16) float vs[2][TILE][FP];
+  constexpr int BQ = NW * 16, NT = NW * 32, FP = fpitch_of<HDP>(), TK = ftile_of<HDP, true>();
+  constexpr int DS = HDP / 8;
+  constexpr bool SS = split_smem<HDP, true>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  float(*ks)[TK][FP] = reinterpret_cast<float(*)[TK][FP]>(smem);
+  float(*vs)[TK][FP] = ks + 2;
   const int h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int row0 = blockIdx.x * BQ + warp * 16;
@@ -1161,27 +1409,26 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_tf32_kernel(
   const T* vp = v + b * a.v_sb + (long long)h * a.Hd;
   const int blk_end = a.causal ? min(a.kv_len, (int)(blockIdx.x + 1) * BQ) : a.kv_len;
   const int warp_end = a.causal ? min(a.kv_len, row0 + 16) : a.kv_len;
-  const int ntiles = (blk_end + TILE - 1) / TILE;
+  const int ntiles = (blk_end + TK - 1) / TK;
   auto stage = [&](int it) {
-    stage_rows_f32<T, NT>(ks[it & 1], kp, a.k_st, it * TILE, blk_end, a.Hd);
-    stage_rows_f32<T, NT>(vs[it & 1], vp, a.v_st, it * TILE, blk_end, a.Hd);
+    stage_rows_f32<T, NT, HDP, TK>(ks[it & 1], kp, a.k_st, it * TK, blk_end, a.Hd, a.vec);
+    stage_rows_f32<T, NT, HDP, TK>(vs[it & 1], vp, a.v_st, it * TK, blk_end, a.Hd, a.vec);
   };
 
   // dO, dq: contiguous (B, Tq, H, Hd)
   const long long obase = ((long long)b * a.Tq * a.H + h) * a.Hd;
   const long long ost = (long long)a.H * a.Hd;
   const long long srow0 = ((long long)b * a.H + h) * a.Tq;
-  FragA<P> qa[4], ga[4];
-  {
-    float qx[4][4], gx[4][4];
-    load_rows_f32(qx, q + b * a.q_sb + (long long)h * a.Hd, a.q_st, row0, a.Tq, a.Hd, g, t);
-    load_rows_f32(gx, d_o + obase, ost, row0, a.Tq, a.Hd, g, t);
-    split_frags<P>(qa, qx);
-    split_frags<P>(ga, gx);
-  }
-  float acc[4][4];
+  SplitRows<P, HDP, SS> qa, ga;
+  qa.lane = ga.lane = lane;
+  unsigned char* own = smem + 2 * 2 * TK * FP * 4 + 2 * warp * split_rows_bytes<P, HDP, SS>();
+  qa.s = reinterpret_cast<uint4*>(own);
+  ga.s = reinterpret_cast<uint4*>(own + split_rows_bytes<P, HDP, SS>());
+  load_split_rows<P>(qa, q + b * a.q_sb + (long long)h * a.Hd, a.q_st, row0, a.Tq, a.Hd, g, t);
+  load_split_rows<P>(ga, d_o + obase, ost, row0, a.Tq, a.Hd, g, t);
+  float acc[DS][4];
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
+  for (int n = 0; n < DS; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
   const float c = a.scale * LOG2E;
@@ -1204,8 +1451,8 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_tf32_kernel(
       const float(*kt)[FP] = ks[it & 1];
       const float(*vt)[FP] = vs[it & 1];
 #pragma unroll 2
-      for (int j = 0; j < TILE / 8; ++j) {
-        const int kb = it * TILE + 8 * j;     // first key of this step
+      for (int j = 0; j < TK / 8; ++j) {
+        const int kb = it * TK + 8 * j;     // first key of this step
         if (kb >= warp_end) break;
         float x[4], d[4];
         first_products<P>(x, d, qa, ga, &kt[8 * j + g][t], &vt[8 * j + g][t]);
@@ -1242,7 +1489,7 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_tf32_kernel(
         acc_as_a<P>(dsa, ds_);
         // dQ += dS K: keys 2 t and 2 t + 1 of the step as k indices t and t + 4
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
+        for (int n = 0; n < DS; ++n) {
           const float* kr = &kt[8 * j + 2 * t][8 * n + g];
           mma_add<P>(acc[n], dsa, kr[0], kr[FP]);
         }
@@ -1272,7 +1519,7 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_tf32_kernel(
     if (row >= a.Tq) continue;
     T* out = dq + obase + (long long)row * ost;
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < DS; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int d = 8 * n + 2 * t + e;
@@ -1282,21 +1529,24 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_tf32_kernel(
 }
 
 // dK and dV in TF32.  The tensor-core dK/dV kernel's shape: a warp owns 16
-// keys (K and V as split A fragments in registers) and walks the staged query
+// keys (K and V as split A fragments, SplitRows) and walks the staged query
 // tiles 8 queries at a time: S^T = K Q^T and dP^T = V dO^T, then P^T and dS^T
 // as A operands of dV += P^T dO and dK += dS^T Q.  Keys at or beyond kv_len
 // and causally hidden pairs add exactly zero.
-template <typename T, int NW, bool DROP>
+template <typename T, int HDP, int NW, bool DROP>
 __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_tf32_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ d_o, const float* __restrict__ rows, T* __restrict__ dk,
     T* __restrict__ dv, const Shape a) {
   constexpr int P = std::is_same<T, float>::value ? 2 : 1;   // bf16 is exact in one piece
-  constexpr int BKT = NW * 16, NT = NW * 32;
-  __shared__ __align__(16) float qs[2][TILE][FP];
-  __shared__ __align__(16) float gs[2][TILE][FP];
-  __shared__ __align__(8) float ls[2][TILE];
-  __shared__ __align__(8) float dls[2][TILE];
+  constexpr int BKT = NW * 16, NT = NW * 32, FP = fpitch_of<HDP>(), TK = ftile_of<HDP, true>();
+  constexpr int DS = HDP / 8;
+  constexpr bool SS = split_smem<HDP, true>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  float(*qs)[TK][FP] = reinterpret_cast<float(*)[TK][FP]>(smem);
+  float(*gs)[TK][FP] = qs + 2;
+  float(*ls)[TK] = reinterpret_cast<float(*)[TK]>(smem + 2 * 2 * TK * FP * 4);
+  float(*dls)[TK] = ls + 2;
   const int h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int blk_key0 = blockIdx.x * BKT, key0 = blk_key0 + warp * 16;
@@ -1306,15 +1556,15 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_tf32_kernel(
   const T* qp = q + b * a.q_sb + (long long)h * a.Hd;
   const T* gp = d_o + obase;
   const float* lse2 = rows + (long long)gridDim.z * a.H * a.Tq;   // the dQ kernel's rows
-  const int first = a.causal ? blk_key0 / TILE : 0;
-  const int last = blk_key0 < a.kv_len ? (a.Tq + TILE - 1) / TILE : first;
+  const int first = a.causal ? blk_key0 / TK : 0;
+  const int last = blk_key0 < a.kv_len ? (a.Tq + TK - 1) / TK : first;
   auto stage = [&](int it) {
     const int buf = (it - first) & 1;
-    stage_rows_f32<T, NT>(qs[buf], qp, a.q_st, it * TILE, a.Tq, a.Hd);
-    stage_rows_f32<T, NT>(gs[buf], gp, ost, it * TILE, a.Tq, a.Hd);
-    for (int i = threadIdx.x; i < TILE; i += NT) {
-      const bool ok = it * TILE + i < a.Tq;
-      const long long at = srow0 + (ok ? it * TILE + i : 0);
+    stage_rows_f32<T, NT, HDP, TK>(qs[buf], qp, a.q_st, it * TK, a.Tq, a.Hd, a.vec);
+    stage_rows_f32<T, NT, HDP, TK>(gs[buf], gp, ost, it * TK, a.Tq, a.Hd, a.vec);
+    for (int i = threadIdx.x; i < TK; i += NT) {
+      const bool ok = it * TK + i < a.Tq;
+      const long long at = srow0 + (ok ? it * TK + i : 0);
       cp_async4(smem_u32(&ls[buf][i]), lse2 + at, ok);
       cp_async4(smem_u32(&dls[buf][i]), rows + at, ok);
     }
@@ -1322,17 +1572,17 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_tf32_kernel(
   if (first < last) stage(first);
   cp_async_commit();
 
-  FragA<P> ka[4], va[4];
-  {
-    float kx[4][4], vx[4][4];
-    load_rows_f32(kx, k + b * a.k_sb + (long long)h * a.Hd, a.k_st, key0, a.kv_len, a.Hd, g, t);
-    load_rows_f32(vx, v + b * a.v_sb + (long long)h * a.Hd, a.v_st, key0, a.kv_len, a.Hd, g, t);
-    split_frags<P>(ka, kx);
-    split_frags<P>(va, vx);
-  }
-  float dka[4][4], dva[4][4];
+  SplitRows<P, HDP, SS> ka, va;
+  ka.lane = va.lane = lane;
+  unsigned char* own =
+      smem + 2 * 2 * TK * FP * 4 + 2 * 2 * TK * 4 + 2 * warp * split_rows_bytes<P, HDP, SS>();
+  ka.s = reinterpret_cast<uint4*>(own);
+  va.s = reinterpret_cast<uint4*>(own + split_rows_bytes<P, HDP, SS>());
+  load_split_rows<P>(ka, k + b * a.k_sb + (long long)h * a.Hd, a.k_st, key0, a.kv_len, a.Hd, g, t);
+  load_split_rows<P>(va, v + b * a.v_sb + (long long)h * a.Hd, a.v_st, key0, a.kv_len, a.Hd, g, t);
+  float dka[DS][4], dva[DS][4];
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
+  for (int n = 0; n < DS; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) dka[n][i] = dva[n][i] = 0.f;
   const float c = a.scale * LOG2E;
@@ -1350,8 +1600,8 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_tf32_kernel(
     const float(*qt)[FP] = qs[buf];
     const float(*gt)[FP] = gs[buf];
 #pragma unroll 2
-    for (int j = 0; j < TILE / 8; ++j) {
-      const int qb = it * TILE + 8 * j;     // first query of this step
+    for (int j = 0; j < TK / 8; ++j) {
+      const int qb = it * TK + 8 * j;     // first query of this step
       if (qb >= a.Tq) break;
       if (a.causal && qb + 7 < key0) continue;
       float st[4], dpt[4];
@@ -1362,14 +1612,14 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_tf32_kernel(
       const float2 L = *reinterpret_cast<const float2*>(&ls[buf][qi]);
       const float2 D = *reinterpret_cast<const float2*>(&dls[buf][qi]);
       const uint32_t keep =
-          DROP ? keep4_cols(a, b, h, it * TILE + qi + (cq & 1), kblk, cq) : 0xfu;
+          DROP ? keep4_cols(a, b, h, it * TK + qi + (cq & 1), kblk, cq) : 0xfu;
       float pd[4], ds_[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         // the dQ kernel's P: x rounded alike, its lse2
         float p = fast_exp2(__fmul_rn(st[i], c) - ((i & 1) ? L.y : L.x));
         if (!full) {
-          const int query = it * TILE + qi + (i & 1), key = key0 + g + 8 * (i >> 1);
+          const int query = it * TK + qi + (i & 1), key = key0 + g + 8 * (i >> 1);
           if (query >= a.Tq || key >= a.kv_len || (a.causal && key > query)) p = 0.f;
         }
         float d = dpt[i];
@@ -1387,7 +1637,7 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_tf32_kernel(
       acc_as_a<P>(dsa, ds_);
       // dV += P^T dO, dK += dS^T Q: queries 2 t and 2 t + 1 as k indices t, t + 4
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
+      for (int n = 0; n < DS; ++n) {
         const float* gr = &gt[qi][8 * n + g];
         const float* qr = &qt[qi][8 * n + g];
         mma_add<P>(dva[n], pa, gr[0], gr[FP]);
@@ -1403,7 +1653,7 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_tf32_kernel(
     if (key >= a.Tk) continue;
     const long long krow = (((long long)b * a.Tk + key) * a.H + h) * a.Hd;
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < DS; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int d = 8 * n + 2 * t + e;
@@ -1415,30 +1665,57 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_tf32_kernel(
   }
 }
 
-// The tensor-core kernels take an even Hd <= 32; the wrapper has checked the
-// 4-byte alignment of the pointers and strides.  Two warps a block where
-// there are at most 32 rows to own, four otherwise.
-bool mma_shape_ok(const Shape& a) { return a.Hd <= 32 && (a.Hd & 1) == 0; }
+// The tensor-core kernels take an even Hd <= 128; the wrapper has checked the
+// 4-byte alignment of the pointers and strides.
+bool mma_shape_ok(const Shape& a) { return a.Hd <= 128 && (a.Hd & 1) == 0; }
 
-template <int NW>
+// Whether every tile a call stages may move 16 bytes a copy: Hd a multiple of
+// a 16-byte chunk, every batch / time stride too, every base 16-byte aligned.
+bool vec_ok(int esz, int Hd, std::initializer_list<long long> strides,
+            std::initializer_list<const void*> ptrs) {
+  const long long u = 16 / esz;
+  if (Hd % u) return false;
+  for (long long s : strides)
+    if (s % u) return false;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
+}
+
+// A launch's dynamic shared memory above the default 48 KB must be allowed
+// for its kernel first.
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
+// Two warps a block at HDP 32 where there are at most 32 rows to own, four
+// otherwise (and at every wider head dim).
+template <int HDP, int NW>
 int launch_fwd_mma(const void* q, const void* k, const void* v, void* o, void* lse,
                    void* keep_words, int B, const Shape& a, cudaStream_t s) {
-  auto kernel = flash_fwd_mma_kernel<NW, false>;
-  if (a.thresh < KEEP_ALL) kernel = flash_fwd_mma_kernel<NW, true>;
-  kernel<<<dim3((a.Tq + NW * 16 - 1) / (NW * 16), a.H, B), NW * 32, 0, s>>>(
+  auto kernel = flash_fwd_mma_kernel<HDP, NW, false>;
+  if (a.thresh < KEEP_ALL) kernel = flash_fwd_mma_kernel<HDP, NW, true>;
+  constexpr int smem = mma_tiles_bytes<HDP>();
+  if (const int err = allow_smem(kernel, smem)) return err;
+  kernel<<<dim3((a.Tq + NW * 16 - 1) / (NW * 16), a.H, B), NW * 32, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(lse),
       static_cast<uint32_t*>(keep_words), a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NW>
+template <int HDP, int NW>
 int launch_dq_mma(const void* q, const void* k, const void* v, const void* o,
                   const void* d_o, const void* lse, const void* keep_words, void* delta,
                   void* dq, int B, const Shape& a, cudaStream_t s) {
-  auto kernel = flash_bwd_dq_mma_kernel<NW, false>;
-  if (a.thresh < KEEP_ALL) kernel = flash_bwd_dq_mma_kernel<NW, true>;
-  kernel<<<dim3((a.Tq + NW * 16 - 1) / (NW * 16), a.H, B), NW * 32, 0, s>>>(
+  auto kernel = flash_bwd_dq_mma_kernel<HDP, NW, false>;
+  if (a.thresh < KEEP_ALL) kernel = flash_bwd_dq_mma_kernel<HDP, NW, true>;
+  constexpr int smem = mma_tiles_bytes<HDP>();
+  if (const int err = allow_smem(kernel, smem)) return err;
+  kernel<<<dim3((a.Tq + NW * 16 - 1) / (NW * 16), a.H, B), NW * 32, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(o),
       static_cast<const bf16*>(d_o), static_cast<const float*>(lse),
@@ -1447,13 +1724,15 @@ int launch_dq_mma(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NW>
+template <int HDP, int NW>
 int launch_dkv_mma(const void* q, const void* k, const void* v, const void* d_o,
                    const void* lse, const void* delta, const void* keep_words, void* dk,
                    void* dv, int B, const Shape& a, cudaStream_t s) {
-  auto kernel = flash_bwd_dkv_mma_kernel<NW, false>;
-  if (a.thresh < KEEP_ALL) kernel = flash_bwd_dkv_mma_kernel<NW, true>;
-  kernel<<<dim3((a.Tk + NW * 16 - 1) / (NW * 16), a.H, B), NW * 32, 0, s>>>(
+  auto kernel = flash_bwd_dkv_mma_kernel<HDP, NW, false>;
+  if (a.thresh < KEEP_ALL) kernel = flash_bwd_dkv_mma_kernel<HDP, NW, true>;
+  constexpr int smem = dkv_mma_bytes<HDP>();
+  if (const int err = allow_smem(kernel, smem)) return err;
+  kernel<<<dim3((a.Tk + NW * 16 - 1) / (NW * 16), a.H, B), NW * 32, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(d_o),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1466,8 +1745,8 @@ template <typename T, int HD, int BQ, int BK>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                int B, const Shape& a, cudaStream_t stream) {
   dim3 grid((a.Tq + BQ - 1) / BQ, a.H, B);
-  // Dropout is built for head dims up to 32 only, as the backward is: the
-  // wider variants' dropout forward would have no backward to train with.
+  // Dropout is built for head dims up to 32 only: the CUDA-core forward runs
+  // on no path, and is kept to be timed beside the kernels that replaced it.
   auto kernel = flash_fwd_kernel<T, HD, BQ, BK, false>;
   if (a.thresh < KEEP_ALL) {
     if constexpr (HD == 32) {
@@ -1492,43 +1771,48 @@ int forward(const void* q, const void* k, const void* v, void* o, void* lse,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The TF32 backward (f32, and bf16 that misses the tensor-core alignment):
-// dQ, then dK/dV.  Two warps a block where there are at most 32 rows to own,
-// four otherwise.  Head dims above 32 are not built: a warp's A fragments of
-// K and V, split, fill 64 registers already.
-template <typename T, int NW>
+// The TF32 kernels (f32, and bf16 that misses the tensor-core alignment):
+// the forward, and the backward as dQ, then dK/dV; their blocks as the
+// tensor-core kernels'.
+template <typename T, int HDP, int NW>
 int launch_bwd_tf32_dq(const void* q, const void* k, const void* v, const void* d_o, void* rows,
                        void* dq, int B, const Shape& a, cudaStream_t s) {
-  auto kernel = flash_bwd_dq_tf32_kernel<T, NW, false>;
-  if (a.thresh < KEEP_ALL) kernel = flash_bwd_dq_tf32_kernel<T, NW, true>;
-  kernel<<<dim3((a.Tq + NW * 16 - 1) / (NW * 16), a.H, B), NW * 32, 0, s>>>(
+  auto kernel = flash_bwd_dq_tf32_kernel<T, HDP, NW, false>;
+  if (a.thresh < KEEP_ALL) kernel = flash_bwd_dq_tf32_kernel<T, HDP, NW, true>;
+  constexpr int P = std::is_same<T, float>::value ? 2 : 1;
+  constexpr int smem = tf32_bytes<P, HDP, NW, 2, false, true>();
+  if (const int err = allow_smem(kernel, smem)) return err;
+  kernel<<<dim3((a.Tq + NW * 16 - 1) / (NW * 16), a.H, B), NW * 32, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(d_o), static_cast<float*>(rows), static_cast<T*>(dq), a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int NW>
+template <typename T, int HDP, int NW>
 int launch_bwd_tf32_dkv(const void* q, const void* k, const void* v, const void* d_o,
                         const void* rows, void* dk, void* dv, int B, const Shape& a,
                         cudaStream_t s) {
-  auto kernel = flash_bwd_dkv_tf32_kernel<T, NW, false>;
-  if (a.thresh < KEEP_ALL) kernel = flash_bwd_dkv_tf32_kernel<T, NW, true>;
-  kernel<<<dim3((a.Tk + NW * 16 - 1) / (NW * 16), a.H, B), NW * 32, 0, s>>>(
+  auto kernel = flash_bwd_dkv_tf32_kernel<T, HDP, NW, false>;
+  if (a.thresh < KEEP_ALL) kernel = flash_bwd_dkv_tf32_kernel<T, HDP, NW, true>;
+  constexpr int P = std::is_same<T, float>::value ? 2 : 1;
+  constexpr int smem = tf32_bytes<P, HDP, NW, 2, true, true>();
+  if (const int err = allow_smem(kernel, smem)) return err;
+  kernel<<<dim3((a.Tk + NW * 16 - 1) / (NW * 16), a.H, B), NW * 32, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(d_o), static_cast<const float*>(rows), static_cast<T*>(dk),
       static_cast<T*>(dv), a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The TF32 forward (f32, and bf16 that misses the tensor-core alignment),
-// Hd <= 32: two warps a block where there are at most 32 rows to own, four
-// otherwise.
-template <typename T, int NW>
+template <typename T, int HDP, int NW>
 int launch_fwd_tf32(const void* q, const void* k, const void* v, void* o, void* lse, int B,
                     const Shape& a, cudaStream_t s) {
-  auto kernel = flash_fwd_tf32_kernel<T, NW, false>;
-  if (a.thresh < KEEP_ALL) kernel = flash_fwd_tf32_kernel<T, NW, true>;
-  kernel<<<dim3((a.Tq + NW * 16 - 1) / (NW * 16), a.H, B), NW * 32, 0, s>>>(
+  auto kernel = fwd_tf32_kernel<T, HDP, NW, false>();
+  if (a.thresh < KEEP_ALL) kernel = fwd_tf32_kernel<T, HDP, NW, true>();
+  constexpr int P = std::is_same<T, float>::value ? 2 : 1;
+  constexpr int smem = tf32_bytes<P, HDP, NW, 1, false, false>();
+  if (const int err = allow_smem(kernel, smem)) return err;
+  kernel<<<dim3((a.Tq + NW * 16 - 1) / (NW * 16), a.H, B), NW * 32, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), static_cast<float*>(lse), a);
   return static_cast<int>(cudaGetLastError());
@@ -1537,24 +1821,43 @@ int launch_fwd_tf32(const void* q, const void* k, const void* v, void* o, void* 
 template <typename T>
 int forward_tf32(const void* q, const void* k, const void* v, void* o, void* lse, int B,
                  const Shape& a, void* stream) {
-  if (a.Hd > 32) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return a.Tq > 32 ? launch_fwd_tf32<T, 4>(q, k, v, o, lse, B, a, s)
-                   : launch_fwd_tf32<T, 2>(q, k, v, o, lse, B, a, s);
+  switch (a.Hd > 128 ? 0 : hd_pad(a.Hd)) {
+    case 32:
+      return a.Tq > 32 ? launch_fwd_tf32<T, 32, 4>(q, k, v, o, lse, B, a, s)
+                       : launch_fwd_tf32<T, 32, 2>(q, k, v, o, lse, B, a, s);
+    case 64: return launch_fwd_tf32<T, 64, 4>(q, k, v, o, lse, B, a, s);
+    case 128: return launch_fwd_tf32<T, 128, 4>(q, k, v, o, lse, B, a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // `rows` (the wrapper's `delta`) holds 2 x B H Tq floats here: each row's
 // delta, then its lse2, both written by the dQ kernel
+template <typename T, int HDP, int NW>
+int backward_tf32(const void* q, const void* k, const void* v, const void* d_o, void* rows,
+                  void* dq, void* dk, void* dv, int B, const Shape& a, cudaStream_t s) {
+  const int err = launch_bwd_tf32_dq<T, HDP, NW>(q, k, v, d_o, rows, dq, B, a, s);
+  if (err) return err;
+  return launch_bwd_tf32_dkv<T, HDP, NW>(q, k, v, d_o, rows, dk, dv, B, a, s);
+}
+
 template <typename T>
 int backward(const void* q, const void* k, const void* v, const void* d_o, void* rows,
              void* dq, void* dk, void* dv, int B, const Shape& a, void* stream) {
-  if (a.Hd > 32) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = a.Tq > 32 ? launch_bwd_tf32_dq<T, 4>(q, k, v, d_o, rows, dq, B, a, s)
-                            : launch_bwd_tf32_dq<T, 2>(q, k, v, d_o, rows, dq, B, a, s);
-  if (err) return err;
-  return a.Tk > 32 ? launch_bwd_tf32_dkv<T, 4>(q, k, v, d_o, rows, dk, dv, B, a, s)
-                   : launch_bwd_tf32_dkv<T, 2>(q, k, v, d_o, rows, dk, dv, B, a, s);
+  switch (a.Hd > 128 ? 0 : hd_pad(a.Hd)) {
+    case 32: {
+      const int err = a.Tq > 32 ? launch_bwd_tf32_dq<T, 32, 4>(q, k, v, d_o, rows, dq, B, a, s)
+                                : launch_bwd_tf32_dq<T, 32, 2>(q, k, v, d_o, rows, dq, B, a, s);
+      if (err) return err;
+      return a.Tk > 32 ? launch_bwd_tf32_dkv<T, 32, 4>(q, k, v, d_o, rows, dk, dv, B, a, s)
+                       : launch_bwd_tf32_dkv<T, 32, 2>(q, k, v, d_o, rows, dk, dv, B, a, s);
+    }
+    case 64: return backward_tf32<T, 64, 4>(q, k, v, d_o, rows, dq, dk, dv, B, a, s);
+    case 128: return backward_tf32<T, 128, 4>(q, k, v, d_o, rows, dq, dk, dv, B, a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 Shape make_shape(int Tq, int Tk, int H, int Hd, long long q_sb, long long q_st,
@@ -1562,7 +1865,7 @@ Shape make_shape(int Tq, int Tk, int H, int Hd, long long q_sb, long long q_st,
                  int kv_len, int causal, float scale, float inv, unsigned thresh,
                  unsigned seed, unsigned long long block0) {
   return Shape{Tq, Tk, H, Hd, q_sb, q_st, k_sb, k_st, v_sb, v_st,
-               kv_len, causal, scale, inv, thresh, seed, block0};
+               kv_len, causal, scale, inv, thresh, seed, block0, 0};
 }
 
 }  // namespace
@@ -1575,11 +1878,12 @@ Shape make_shape(int Tq, int Tk, int H, int Hd, long long q_sb, long long q_st,
 #define ICEK_SHAPE_ARGS                                                        \
   make_shape(Tq, Tk, H, Hd, q_sb, q_st, k_sb, k_st, v_sb, v_st, kv_len,        \
              causal, scale, inv, thresh, seed, block0)
+#define ICEK_STRIDES {q_sb, q_st, k_sb, k_st, v_sb, v_st}
 
 // Every forward and backward entry point takes `keep_words`, where the
 // tensor-core forward leaves its dropout mask for its backward; the TF32 and
 // CUDA-core kernels draw the mask anew and ignore it.  flash_fwd_<dtype> is
-// the CUDA-core forward, flash_fwd_<dtype>_tf32 the TF32 one (Hd <= 32).
+// the CUDA-core forward, flash_fwd_<dtype>_tf32 the TF32 one (Hd <= 128).
 ICEK_EXPORT int flash_fwd_f32(const void* q, const void* k, const void* v,
                               void* o, void* lse, void*, ICEK_SHAPE_PARAMS) {
   return forward<float>(q, k, v, o, lse, B, ICEK_SHAPE_ARGS, stream);
@@ -1592,7 +1896,9 @@ ICEK_EXPORT int flash_fwd_bf16(const void* q, const void* k, const void* v,
 
 ICEK_EXPORT int flash_fwd_f32_tf32(const void* q, const void* k, const void* v,
                                    void* o, void* lse, void*, ICEK_SHAPE_PARAMS) {
-  return forward_tf32<float>(q, k, v, o, lse, B, ICEK_SHAPE_ARGS, stream);
+  Shape a = ICEK_SHAPE_ARGS;
+  a.vec = vec_ok(4, Hd, ICEK_STRIDES, {q, k, v});
+  return forward_tf32<float>(q, k, v, o, lse, B, a, stream);
 }
 
 ICEK_EXPORT int flash_fwd_bf16_tf32(const void* q, const void* k, const void* v,
@@ -1603,7 +1909,9 @@ ICEK_EXPORT int flash_fwd_bf16_tf32(const void* q, const void* k, const void* v,
 ICEK_EXPORT int flash_bwd_f32(const void* q, const void* k, const void* v, const void*,
                               const void* d_o, const void*, const void*, void* delta,
                               void* dq, void* dk, void* dv, ICEK_SHAPE_PARAMS) {
-  return backward<float>(q, k, v, d_o, delta, dq, dk, dv, B, ICEK_SHAPE_ARGS, stream);
+  Shape a = ICEK_SHAPE_ARGS;
+  a.vec = vec_ok(4, Hd, ICEK_STRIDES, {q, k, v, d_o});
+  return backward<float>(q, k, v, d_o, delta, dq, dk, dv, B, a, stream);
 }
 
 ICEK_EXPORT int flash_bwd_bf16(const void* q, const void* k, const void* v, const void*,
@@ -1613,36 +1921,60 @@ ICEK_EXPORT int flash_bwd_bf16(const void* q, const void* k, const void* v, cons
                                  stream);
 }
 
-// bf16 on the tensor cores (even Hd <= 32, 4-byte aligned rows).  With
+// bf16 on the tensor cores (even Hd <= 128, 4-byte aligned rows).  With
 // dropout, `keep_words` (32-bit words, keep_cell's layout: B * H * 4 ceil(Tq /
 // 64) * ceil(Tk / 64) * 32 of them) takes the forward's keep flags to the
 // backward; it may be null at rate 0.
 ICEK_EXPORT int flash_fwd_bf16_mma(const void* q, const void* k, const void* v,
                                    void* o, void* lse, void* keep_words,
                                    ICEK_SHAPE_PARAMS) {
-  const Shape a = ICEK_SHAPE_ARGS;
+  Shape a = ICEK_SHAPE_ARGS;
   if (!mma_shape_ok(a) || (a.thresh < KEEP_ALL && !keep_words))
     return static_cast<int>(cudaErrorInvalidValue);
+  a.vec = vec_ok(2, Hd, ICEK_STRIDES, {k, v});
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return a.Tq > 32 ? launch_fwd_mma<4>(q, k, v, o, lse, keep_words, B, a, s)
-                   : launch_fwd_mma<2>(q, k, v, o, lse, keep_words, B, a, s);
+  switch (hd_pad(a.Hd)) {
+    case 32:
+      return a.Tq > 32 ? launch_fwd_mma<32, 4>(q, k, v, o, lse, keep_words, B, a, s)
+                       : launch_fwd_mma<32, 2>(q, k, v, o, lse, keep_words, B, a, s);
+    case 64: return launch_fwd_mma<64, 4>(q, k, v, o, lse, keep_words, B, a, s);
+    default: return launch_fwd_mma<128, 4>(q, k, v, o, lse, keep_words, B, a, s);
+  }
+}
+
+template <int HDP>
+int backward_mma(const void* q, const void* k, const void* v, const void* o, const void* d_o,
+                 const void* lse, const void* kw, void* delta, void* dq, void* dk, void* dv,
+                 int B, const Shape& a, cudaStream_t s) {
+  int err;
+  if constexpr (HDP == 32) {
+    err = a.Tq > 32 ? launch_dq_mma<32, 4>(q, k, v, o, d_o, lse, kw, delta, dq, B, a, s)
+                    : launch_dq_mma<32, 2>(q, k, v, o, d_o, lse, kw, delta, dq, B, a, s);
+    if (err) return err;
+    return a.Tk > 32 ? launch_dkv_mma<32, 4>(q, k, v, d_o, lse, delta, kw, dk, dv, B, a, s)
+                     : launch_dkv_mma<32, 2>(q, k, v, d_o, lse, delta, kw, dk, dv, B, a, s);
+  } else {
+    err = launch_dq_mma<HDP, 4>(q, k, v, o, d_o, lse, kw, delta, dq, B, a, s);
+    if (err) return err;
+    return launch_dkv_mma<HDP, 4>(q, k, v, d_o, lse, delta, kw, dk, dv, B, a, s);
+  }
 }
 
 ICEK_EXPORT int flash_bwd_bf16_mma(const void* q, const void* k, const void* v,
                                    const void* o, const void* d_o, const void* lse,
                                    const void* keep_words, void* delta, void* dq,
                                    void* dk, void* dv, ICEK_SHAPE_PARAMS) {
-  const Shape a = ICEK_SHAPE_ARGS;
+  Shape a = ICEK_SHAPE_ARGS;
   if (!mma_shape_ok(a) || (a.thresh < KEEP_ALL && !keep_words))
     return static_cast<int>(cudaErrorInvalidValue);
+  a.vec = vec_ok(2, Hd, ICEK_STRIDES, {q, k, v, d_o});
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const void* kw = keep_words;
-  const int err =
-      a.Tq > 32 ? launch_dq_mma<4>(q, k, v, o, d_o, lse, kw, delta, dq, B, a, s)
-                : launch_dq_mma<2>(q, k, v, o, d_o, lse, kw, delta, dq, B, a, s);
-  if (err) return err;
-  return a.Tk > 32 ? launch_dkv_mma<4>(q, k, v, d_o, lse, delta, kw, dk, dv, B, a, s)
-                   : launch_dkv_mma<2>(q, k, v, d_o, lse, delta, kw, dk, dv, B, a, s);
+  switch (hd_pad(a.Hd)) {
+    case 32: return backward_mma<32>(q, k, v, o, d_o, lse, keep_words, delta, dq, dk, dv, B, a, s);
+    case 64: return backward_mma<64>(q, k, v, o, d_o, lse, keep_words, delta, dq, dk, dv, B, a, s);
+    default:
+      return backward_mma<128>(q, k, v, o, d_o, lse, keep_words, delta, dq, dk, dv, B, a, s);
+  }
 }
 
 ICEK_EXPORT int flash_keep_mask(void* out, int B, int H, int Tq, int Tk,

@@ -1143,34 +1143,89 @@ bool params_aligned(const void* es, const void* bias) {
 
 }  // namespace hop
 
-// 3x3 / 2 max pool, padding 1, -128 outside the image; 4 channels a thread
-__global__ void maxpool_kernel(const char4* __restrict__ x, char4* __restrict__ out,
-                               int B, int H, int W, int C4, int Ho, int Wo) {
-  const long long total = (long long)B * Ho * Wo * C4;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int c = static_cast<int>(i % C4);
-    long long r = i / C4;
-    const int ow = static_cast<int>(r % Wo);
-    r /= Wo;
-    const int oh = static_cast<int>(r % Ho);
-    const int b = static_cast<int>(r / Ho);
-    int m0 = -128, m1 = -128, m2 = -128, m3 = -128;
+// 3x3 / 2 max pool, padding 1, -128 outside the image (the port of the
+// reduce_window at icek_tpu/models/resnet_int8.py:353).
+//
+// What bounds it: at the encode's (256, 128, 128, 64) it reads 268 MB and
+// writes 67 MB, 0.100 ms at 3.35 TB/s; the comparisons (9 a byte, four bytes
+// an instruction with __vmaxs4) are far below any compute limit.  So the
+// design reads HBM once and spends few instructions a byte:
+// * a block takes a strip of R output rows and WC output columns of one
+//   image and stages the strip's 2 R + 1 input rows, each a segment of the
+//   2 WC + 1 input columns those outputs see (whole rows of W * C bytes, 8
+//   KB, at the encode, where WC is the image's width), in shared memory by
+//   VB-byte cp.async; neighbouring strips share one row, so HBM (or L2) is
+//   read (2 R + 1) / 2 R times;
+// * a thread takes VB bytes (16: 16 channels; 4 where C % 16 != 0) of one
+//   output pixel: nine VB-byte shared loads, __vmaxs4 on each 32-bit word,
+//   one VB-byte store;
+// * padding rows and columns are skipped, not staged: the running maximum
+//   starts at -128, the int8 identity of JAX's reduce_window.
+// A staged segment starts at input column 2 ow0 - 1 (ow0 the block's first
+// output column; column -1 is padding and its slot is never written).
+template <int VB>
+__global__ void __launch_bounds__(256) maxpool_strip_kernel(
+    const int8_t* __restrict__ x, int8_t* __restrict__ out, int H, int W, int C, int Ho,
+    int Wo, int R, int WC) {
+  extern __shared__ __align__(16) unsigned char rows_s[];
+  const int b = blockIdx.y, oh0 = blockIdx.x * R, ow0 = blockIdx.z * WC;
+  const int nr = min(R, Ho - oh0), nc = min(WC, Wo - ow0);
+  const int ih0 = 2 * oh0 - 1, iw0 = 2 * ow0 - 1;   // the first staged row, column
+  const int segb = (2 * WC + 1) * C;                // a staged row's pitch in bytes
+  // the columns read from the image, [cw0, cw1], and their place in a segment
+  const int cw0 = max(iw0, 0), cw1 = min(2 * (ow0 + nc) - 1, W - 1);
+  const int cpr = (cw1 - cw0 + 1) * C / VB, off = (cw0 - iw0) * C;
+  const int8_t* img = x + ((long long)b * H * W + cw0) * C;
+  for (int e = threadIdx.x; e < (2 * nr + 1) * cpr; e += blockDim.x) {
+    const int r = e / cpr, ih = ih0 + r;
+    if (ih < 0 || ih >= H) continue;
+    const int piece = VB * (e - r * cpr);
+    const uint32_t dst = smem_u32(rows_s + r * segb + off + piece);
+    const int8_t* src = img + (long long)ih * W * C + piece;
+    if constexpr (VB == 16) {
+      cp_async16(dst, src, true);
+    } else {
+      cp_async4(dst, src, true);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  constexpr int WORDS = VB / 4;
+  const int cpp = C / VB;                       // VB-byte pieces a pixel
+  for (int e = threadIdx.x; e < nr * nc * cpp; e += blockDim.x) {
+    const int pix = e / cpp, c = e - pix * cpp;
+    const int r = pix / nc, owl = pix - r * nc, ow = ow0 + owl;
+    uint32_t m[WORDS];
+#pragma unroll
+    for (int i = 0; i < WORDS; ++i) m[i] = 0x80808080u;
+#pragma unroll
     for (int dh = 0; dh < 3; ++dh) {
-      const int ih = oh * 2 - 1 + dh;
+      const int ih = ih0 + 2 * r + dh;
       if (ih < 0 || ih >= H) continue;
+      const unsigned char* row = rows_s + (2 * r + dh) * segb + c * VB;
+#pragma unroll
       for (int dw = 0; dw < 3; ++dw) {
-        const int iw = ow * 2 - 1 + dw;
+        const int iw = 2 * ow - 1 + dw;
         if (iw < 0 || iw >= W) continue;
-        const char4 v = x[(((long long)b * H + ih) * W + iw) * C4 + c];
-        m0 = max(m0, (int)v.x);
-        m1 = max(m1, (int)v.y);
-        m2 = max(m2, (int)v.z);
-        m3 = max(m3, (int)v.w);
+        const unsigned char* p = row + (2 * owl + dw) * C;
+        if constexpr (VB == 16) {
+          const uint4 v = *reinterpret_cast<const uint4*>(p);
+          m[0] = __vmaxs4(m[0], v.x);
+          m[1] = __vmaxs4(m[1], v.y);
+          m[2] = __vmaxs4(m[2], v.z);
+          m[3] = __vmaxs4(m[3], v.w);
+        } else {
+          m[0] = __vmaxs4(m[0], *reinterpret_cast<const uint32_t*>(p));
+        }
       }
     }
-    out[i] = make_char4(static_cast<signed char>(m0), static_cast<signed char>(m1),
-                        static_cast<signed char>(m2), static_cast<signed char>(m3));
+    int8_t* o = out + (((long long)b * Ho + oh0 + r) * Wo + ow) * C + c * VB;
+    if constexpr (VB == 16) {
+      *reinterpret_cast<uint4*>(o) = make_uint4(m[0], m[1], m[2], m[3]);
+    } else {
+      *reinterpret_cast<uint32_t*>(o) = m[0];
+    }
   }
 }
 
@@ -1369,15 +1424,35 @@ ICEK_EXPORT int int8_stem(const void* img, long long sb, long long sh, long long
 }
 
 // x (B, H, W, C) int8 -> out (B, Ho, Wo, C) int8, Ho = (H - 1) / 2 + 1;
-// C % 4 == 0, both pointers 4-byte aligned
+// C % 4 == 0 and C <= POOL_MAX_C, both pointers 16-byte aligned (torch's
+// allocations are); the strip kernel (16 bytes a copy and a thread where C %
+// 16 == 0, else 4)
+constexpr int POOL_SMEM = 96 * 1024;   // a strip's rows: two blocks an SM at the encode
+constexpr int POOL_MAX_C = (POOL_SMEM / 3 / 3) / 4 * 4;   // three rows of one output pixel
+
 ICEK_EXPORT int int8_maxpool(const void* x, void* out, int B, int H, int W, int C,
                              void* stream) {
-  if (B < 1 || H < 1 || W < 1 || C < 4 || C % 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (B < 1 || H < 1 || W < 1 || C < 4 || C % 4 || C > POOL_MAX_C || B > 65535 ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(out) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
-  const long long total = (long long)B * Ho * Wo * (C / 4);
-  long long blocks = (total + 255) / 256;
-  if (blocks > 65536) blocks = 65536;
-  maxpool_kernel<<<static_cast<unsigned>(blocks), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const char4*>(x), static_cast<char4*>(out), B, H, W, C / 4, Ho, Wo);
+  // whole rows where three fit, else the widest segments that do
+  int WC = Wo;
+  if (3LL * (2LL * Wo + 1) * C > POOL_SMEM) WC = (POOL_SMEM / (3 * C) - 1) / 2;
+  const int chunks = (Wo + WC - 1) / WC;
+  if (chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int segb = (2 * WC + 1) * C;
+  int R = 8;
+  while (R > 1 && (2 * R + 1) * segb > POOL_SMEM) --R;
+  if (R > Ho) R = Ho;
+  const int smem = (2 * R + 1) * segb;
+  auto kernel = C % 16 ? &maxpool_strip_kernel<4> : &maxpool_strip_kernel<16>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<dim3((Ho + R - 1) / R, B, chunks), 256, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), static_cast<int8_t*>(out), H, W, C, Ho, Wo, R, WC);
   return static_cast<int>(cudaGetLastError());
 }

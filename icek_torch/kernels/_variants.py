@@ -3,7 +3,7 @@
     python -m icek_torch.kernels._variants fused_norm base,nophilox,copyonly [ROWS] [RATE]
     python -m icek_torch.kernels._variants decoder_step base,g1,nolinears [STEP ...] [bf16] [f32] [BxK ...]
     python -m icek_torch.kernels._variants score_topk base,nolist,nolse [K,K,...] [N]
-    python -m icek_torch.kernels._variants flash_attention base,nophilox [RATE,RATE,...]
+    python -m icek_torch.kernels._variants flash_attention base,nophilox [RATE,RATE,...] [HxHd] [f32,bf16]
     python -m icek_torch.kernels._variants int8_conv base,gather,epfirst,ep1,nostore,noepi,nomma [BATCH] [KINDS]
     python -m icek_torch.kernels._variants --parent ROOT <source> base,... [args]
 
@@ -31,20 +31,23 @@ order given and then backwards, so a drift shows:
   takes the tensor-core pass (K <= 16) also the CUDA-core pass it replaced
   (the same h 4 bytes into its buffer);
 * ``flash_attention``: at the geo encoder site (B 256, T 301, H 10, Hd 30,
-  q, k, v strided views of one fused QKV projection) at each RATE (default
-  0 and 0.2), float32, with CUDA events: the forward (the TF32 kernel, and
+  or the heads HxHd, such as 8x64 for --geometry 512x8; q, k, v strided
+  views of one fused QKV projection) at each RATE (default 0 and 0.2), in
+  each dtype named (default f32), with CUDA events: the forward (and
   beside it the CUDA-core forward it replaced, through its entry), then the
   backward (dQ, then dK/dV) and its two kernels apart (torch.profiler);
 * ``int8_conv``: every distinct site of an int8 encode of 256x256 images
   at BATCH (default 256; ``resnet_int8.encode_sites``, computed by this
   process and handed to each run, so a parent tree is timed on the same
-  list) and the seven site shapes of ``chip_smoke.py``'s ``INT8_SITES``,
-  seeded int8 inputs, CUDA events: the site ms, each held bit for bit to
-  the plain version, and the per-encode sum (launches x ms).  A tree
+  list), the seven site shapes of ``chip_smoke.py``'s ``INT8_SITES`` and
+  the max pool (``POOL_SITES``, kind ``pool``: with ``--parent`` the tree a
+  pool design replaced is timed beside it), seeded int8 inputs, CUDA
+  events: the site ms, each held bit for bit to the plain version, and the
+  per-encode sum (launches x ms; the pool not in it).  A tree
   without ``fused_site`` / ``stem_site`` runs a fused site as its down
   and conv3 launches and the stem as the encode ran it (torch's
   quantization, then the site); ``stem_int8`` is the stem's launch on int8
-  codes in both.  KINDS (comma-separated: conv, fused, stem, stem_int8)
+  codes in both.  KINDS (comma-separated: conv, fused, stem, stem_int8, pool)
   times only those sites.  With ``--parent`` the outputs are compared bit
   for bit.
 
@@ -102,7 +105,7 @@ _FWD_PV_RNA = "          mma_add<P>(acc[n], pa, vr[0], vr[FP]);\n"
 # the TF32 flash forward with K or V split once a tile by the block (hi in
 # place, lo in a tile of its own), so the warps load the pieces: the same
 # pieces as the per-warp split, so the same bits
-_FWD_HEAD = ("    T* __restrict__ o, float* __restrict__ lse, const Shape a) {\n"
+_FWD_HEAD = ("    T* __restrict__ o, float* __restrict__ lse, const Shape& a) {\n"
              "  constexpr int P = std::is_same<T, float>::value ? 2 : 1;   "
              "// bf16 is exact in one piece\n")
 _FWD_WAIT = ("    cp_async_wait<1>();\n    __syncthreads();\n    if (k0 < warp_end) {\n"
@@ -430,6 +433,35 @@ VARIANTS = {
         # the TF32 forward's S products cut: x from one shared load (cut)
         "fwdnos": [("        first_product<P>(x[j], qa, &kt[8 * j + g][t]);\n",
                     "        x[j][0] = x[j][1] = x[j][2] = x[j][3] = kt[8 * j + g][t];\n")],
+        # the TF32 backward at HDP 64 on 32-row tiles (the forward's)
+        "bwdtk32": [("__host__ __device__ constexpr int ftile_of() "
+                     "{ return HDP > (BWD ? 64 : 32) ? 32 : 64; }",
+                     "__host__ __device__ constexpr int ftile_of() { return HDP > 32 ? 32 : 64; }")],
+        # the first build at HDP 64: 64-row tiles and the split operands in
+        # shared memory in both directions
+        "hdp64first": [("__host__ __device__ constexpr int ftile_of() "
+                        "{ return HDP > (BWD ? 64 : 32) ? 32 : 64; }",
+                        "__host__ __device__ constexpr int ftile_of() { return HDP > 64 ? 32 : 64; }"),
+                       ("__host__ __device__ constexpr bool split_smem() "
+                        "{ return HDP > (BWD ? 64 : 32); }",
+                        "__host__ __device__ constexpr bool split_smem() { return HDP > 32; }")],
+        # 16-byte staging at HDP 32 as well (the branch in the first build)
+        "vec32": [("  if (HDP > 32 && vec) {\n    constexpr int LPR = HDP / 8",
+                   "  if (vec) {\n    constexpr int LPR = HDP / 8"),
+                  ("    if (HDP > 32 && vec) {   // as in stage_rows",
+                   "    if (vec) {   // as in stage_rows")],
+        # no 16-byte staging at any head dim (compiled out, as at HDP 32)
+        "novec": [("  if (HDP > 32 && vec) {\n    constexpr int LPR = HDP / 8",
+                   "  if (false && vec) {\n    constexpr int LPR = HDP / 8"),
+                  ("    if (HDP > 32 && vec) {   // as in stage_rows",
+                   "    if (false && vec) {   // as in stage_rows")],
+        # the TF32 forward with no register bound at HDP 32 (ptxas's own choice)
+        "nolb": [("__global__ void __launch_bounds__(NW * 32, 16 / NW) flash_fwd_tf32_hd32_kernel(",
+                  "__global__ void __launch_bounds__(NW * 32) flash_fwd_tf32_hd32_kernel(")],
+        # the forward's split Q in registers at HDP 64 as well
+        "fwdregs": [("__host__ __device__ constexpr bool split_smem() "
+                     "{ return HDP > (BWD ? 64 : 32); }",
+                     "__host__ __device__ constexpr bool split_smem() { return HDP > 64; }")],
     },
 }
 CUTS = {"fused_norm": {"noshfl", "copyonly", "computeonly"},
@@ -674,35 +706,44 @@ def flash_inputs(dtype=torch.float32, B: int = 256, T: int = 301, H: int = 10, H
 
 
 def time_flash_attention(name: str, args) -> None:
+    H, Hd = (int(x) for x in (args[1] if len(args) > 1 else "10x30").split("x"))
+    for dt in (args[2] if len(args) > 2 else "f32").split(","):
+        _time_flash(name, args, {"f32": torch.float32, "bf16": torch.bfloat16}[dt], H, Hd)
+
+
+def _time_flash(name, args, dtype, H, Hd) -> None:
     from icek_torch.kernels import flash_attention as fa
 
-    leaves, d_out = flash_inputs()
+    leaves, d_out = flash_inputs(dtype, H=H, Hd=Hd)
     B, T, H, _ = d_out.shape
     q, k, v = (t.detach() for t in leaves)
+    label = f"{str(dtype)[6:]} {H}x{Hd} geo encoder"
+    ftol, btol = (1e-4, 1e-4) if dtype == torch.float32 else (3e-2, 4e-2)
     for rate in [float(a) for a in (args[0] if args else "0,0.2").split(",")]:
         keep = fa.keep_mask(B, H, T, T, rate=rate, seed=77, device="cuda") if rate else None
         fwd = lambda: fa.flash_mha(q, k, v, dropout_rate=rate, seed=77)
         ref = fa.reference_mha(q, k, v, dropout_rate=rate, keep=keep)
-        err = float((fwd() - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+        err = float((fwd().float() - ref.float()).abs().max()) / max(1.0, float(ref.abs().max()))
         cores = ""
-        if hasattr(fa, "route"):        # a tree whose f32 forward is no longer the CUDA-core one
+        # a tree with routes, and the CUDA-core forward's dropout (Hd <= 32)
+        if hasattr(fa, "route") and (rate == 0 or Hd <= 32):
             cores_run = lambda: fa._forward(q, k, v, T, False, rate, 77, via="cuda_cores")[0]
             cores = f", CUDA-core forward {_event_ms(cores_run):.4f} ms"
-        print(f"{name} f32 geo encoder rate {rate}: forward {_event_ms(fwd):.4f} ms{cores} "
-              f"({_held('flash_attention', name, 'forward', err, 1e-4)})", flush=True)
+        print(f"{name} {label} rate {rate}: forward {_event_ms(fwd):.4f} ms{cores} "
+              f"({_held('flash_attention', name, 'forward', err, ftol)})", flush=True)
         del ref, keep
         out = fa.flash_mha(*leaves, dropout_rate=rate, seed=77)
         bwd = lambda: torch.autograd.grad(out, leaves, d_out, retain_graph=True)
         keep = fa.keep_mask(B, H, T, T, rate=rate, seed=77, device="cuda") if rate else None
         ref = fa.reference_mha(*leaves, dropout_rate=rate, keep=keep)
         want = torch.autograd.grad(ref, leaves, d_out)
-        err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+        err = max(float((a.float() - b.float()).abs().max()) / max(1.0, float(b.abs().max()))
                   for a, b in zip(bwd(), want))
         del ref, want, keep
         parts = _device_split(bwd, ("bwd_dq", "bwd_dkv"))
-        print(f"{name} f32 geo encoder rate {rate}: backward {_event_ms(bwd):.4f} ms, dQ "
+        print(f"{name} {label} rate {rate}: backward {_event_ms(bwd):.4f} ms, dQ "
               f"{parts['bwd_dq']:.4f} ms, dK/dV {parts['bwd_dkv']:.4f} ms "
-              f"({_held('flash_attention', name, 'backward', err, 1e-4)})", flush=True)
+              f"({_held('flash_attention', name, 'backward', err, btol)})", flush=True)
         del out
 
 
@@ -712,6 +753,9 @@ INT8_SITES = (("stem_int8", 256, 3, 64, 7, 2, "q8"), ("conv", 16, 1024, 256, 1, 
               ("conv", 16, 256, 1024, 1, 1, "q8_q8sc"), ("conv", 32, 128, 512, 1, 1, "q8_f32sc"),
               ("conv", 64, 256, 512, 1, 2, "f32"), ("conv", 16, 256, 256, 3, 1, "q8"),
               ("conv", 64, 128, 128, 3, 2, "q8"))
+# the int8 max pool at the encode's stem output (64 x 64 images' is 128 x 128
+# at 256 x 256) and at odd sides: (kind, H, W, C)
+POOL_SITES = (("pool", 128, 128, 64), ("pool", 67, 67, 64))
 
 
 def int8_units():
@@ -744,6 +788,9 @@ def _int8_inputs(key, batch: int):
 
     inv = torch.tensor(127 / 3.0)
     kind = key[0]
+    if kind == "pool":
+        xq = i8(-128, batch, *key[1:])
+        return (lambda: k8.max_pool(xq)), (lambda: k8.reference_max_pool(xq)), 1
     if kind in ("stem", "stem_int8"):
         side = key[1]
         images = torch.randn((batch, 3, side, side), generator=g, device=dev).permute(0, 2, 3, 1)
@@ -792,8 +839,8 @@ def time_int8_conv(name: str, args, save: str = None) -> None:
 
     batch = int(args[0]) if args and args[0].isdigit() else 256
     keys, counts = json.loads(args[1]) if len(args) > 1 else int8_units()
-    keys = [tuple(k) for k in keys] + [tuple(k) for k in INT8_SITES]
-    counts = list(counts) + [0] * len(INT8_SITES)
+    keys = [tuple(k) for k in keys] + [tuple(k) for k in INT8_SITES + POOL_SITES]
+    counts = list(counts) + [0] * len(INT8_SITES + POOL_SITES)
     if len(args) > 2:                   # only the sites of these kinds
         kinds = args[2].split(",")
         keys, counts = zip(*[(k, n) for k, n in zip(keys, counts) if k[0] in kinds])
@@ -815,7 +862,7 @@ def time_int8_conv(name: str, args, save: str = None) -> None:
         launches += count * n
         del run, plain, got
     # the site launches alone: a tree without stem_site quantized with torch ops first
-    kernels = total if hasattr(k8, "stem_site") else \
+    kernels = total if hasattr(k8, "stem_site") or "stem" not in unit_ms else \
         total - unit_ms["stem"] + unit_ms["stem_int8"]
     print(f"{name} per-encode sum: {total:.4f} ms as the encode runs its sites, "
           f"{kernels:.4f} ms over its {launches} site launches alone (batch {batch})",
@@ -870,7 +917,7 @@ def main(source: str, names, args, parent: str = None) -> None:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {source} variant {name!r}:\n{log}")
-        if name == names[0]:
+        if name in (names[0], "parent"):
             for line in log.splitlines():
                 if "Compiling entry" in line or "registers" in line or "spill" in line:
                     print(f"ptxas {source} {name}: {line.strip()}", flush=True)

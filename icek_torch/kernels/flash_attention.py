@@ -17,24 +17,26 @@ Which kernels a CUDA call runs is decided by dtype, shape and alignment
 alone (``route``), and the forward and the backward of one call run one
 family:
 
-* ``mma``: bfloat16 with an even head dim of at most 32 and 4-byte aligned
+* ``mma``: bfloat16 with an even head dim of at most 128 and 4-byte aligned
   head rows (even strides, a ``data_ptr()`` that is a multiple of 4: every
   view of a fused projection with an even head dim; ``uses_tensor_cores``)
   runs the bf16 tensor-core kernels;
-* ``tf32``: any other head dim up to 32, float32 and bfloat16 that misses
-  the alignment, runs the TF32 tensor-core kernels: float32 as three TF32
-  products a product (each operand split into a TF32 high part and the
-  TF32 of its residual: about 2^-21 of relative error a term, where one
-  TF32 pass gives 2^-11 and breaks the 1e-4 checks), bfloat16 as one (bf16
-  values are exact in TF32).  Its products are bounded by the tensor cores'
-  TF32 rate and, in the end, by the instructions that split operands and
-  stage f32 rows 4 bytes a copy;
-* ``cuda_cores``: head dims in (32, 128], the forward only, at rate 0: one
-  thread a query row, f32 FMAs.
+* ``tf32``: every other head dim up to 128, float32 and bfloat16 that
+  misses the alignment or has an odd head dim, runs the TF32 tensor-core
+  kernels: float32 as three TF32 products a product (each operand split
+  into a TF32 high part and the TF32 of its residual: about 2^-21 of
+  relative error a term, where one TF32 pass gives 2^-11 and breaks the
+  1e-4 checks), bfloat16 as one (bf16 values are exact in TF32).  Its
+  products are bounded by the tensor cores' TF32 rate and, in the end, by
+  the instructions that split operands and stage f32 rows;
+* ``cuda_cores``: the first design's forward (one thread a query row, f32
+  FMAs), which no call is routed to; ``_forward(..., via="cuda_cores")``
+  reaches it to be timed beside the kernels that replaced it.
 
-``flash_mha.routes`` counts the forward's launches by route.  No route
-gives way to another or to the plain version: a kernel that fails to
-build or launch raises.
+Both families pad the head dim to 32, 64 or 128; a head dim above 128
+raises, as the JAX package's ``head_slot`` does.  ``flash_mha.routes``
+counts the forward's launches by route.  No route gives way to another or
+to the plain version: a kernel that fails to build or launch raises.
 
 Dropout: an element keeps iff the top 24 of its random bits lie below
 ``int((1 - rate) * 2**24)``.  The kernels draw the bits from a Philox
@@ -90,12 +92,15 @@ def reference_mha(q, k, v, *, kv_len=None, causal=False, dropout_rate=0.0,
     return torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype), v)
 
 
+MAX_HEAD_DIM = 128
+
+
 def uses_tensor_cores(q, k, v) -> bool:
-    """Whether (q, k, v) go to the tensor-core kernels: bfloat16, an even
-    head dim <= 32, and every head row on a 4-byte boundary (the kernels
-    move bf16 pairs as 32-bit words)."""
+    """Whether (q, k, v) go to the bf16 tensor-core kernels: bfloat16, an
+    even head dim <= 128, and every head row on a 4-byte boundary (the
+    kernels move bf16 pairs as 32-bit words)."""
     Hd = q.shape[-1]
-    if q.dtype != torch.bfloat16 or Hd > 32 or Hd % 2:
+    if q.dtype != torch.bfloat16 or Hd > MAX_HEAD_DIM or Hd % 2:
         return False
     return all(t.data_ptr() % 4 == 0 and t.stride(0) % 2 == 0 and t.stride(1) % 2 == 0
                for t in (q, k, v))
@@ -106,10 +111,12 @@ _FWD_ENTRY = {"mma": "_mma", "tf32": "_tf32", "cuda_cores": ""}
 
 
 def route(q, k, v) -> str:
-    """The kernel family (q, k, v) go to: mma, tf32 or cuda_cores."""
-    if uses_tensor_cores(q, k, v):
-        return "mma"
-    return "tf32" if q.shape[-1] <= 32 else "cuda_cores"
+    """The kernel family (q, k, v) go to: mma or tf32; a head dim above
+    128 raises."""
+    if q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"flash_mha: head dim {q.shape[-1]} > {MAX_HEAD_DIM} "
+                         "is unsupported")
+    return "mma" if uses_tensor_cores(q, k, v) else "tf32"
 
 
 def _ptr(t):
@@ -165,9 +172,6 @@ def flash_mha_bwd(q, k, v, out, lse, keep_words, d_out, kv_len, causal, rate, se
     is made contiguous first (autograd may hand over a strided view).
     `keep_words` is what the forward returned with these inputs, `blk0` the
     forward's Philox block offset."""
-    if q.shape[-1] > 32:
-        raise ValueError(f"flash_mha backward: head dim {q.shape[-1]} > 32 "
-                         "is unsupported")
     d_out = d_out.contiguous()
     if d_out.data_ptr() % 4:        # a contiguous view that starts mid-word
         d_out = d_out.clone()
@@ -233,9 +237,8 @@ def flash_mha(q, k, v, *, kv_len=None, causal=False, dropout_rate=0.0, seed=None
     _build.require_cuda("flash_mha", q, k, v, dtype=q.dtype)
     if q.dtype not in _SUFFIX:
         raise TypeError(f"flash_mha: unsupported dtype {q.dtype}")
-    if Hd > 128 or (dropout_rate > 0.0 and Hd > 32):
-        raise ValueError(f"flash_mha: head dim {Hd} is unsupported (at most 128, "
-                         "and at most 32 with dropout or for the backward)")
+    if Hd > MAX_HEAD_DIM:
+        raise ValueError(f"flash_mha: head dim {Hd} > {MAX_HEAD_DIM} is unsupported")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1 or t.stride(2) != Hd:
             raise ValueError(f"flash_mha: {name} needs a contiguous (H, Hd) "

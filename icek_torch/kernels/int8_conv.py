@@ -349,18 +349,30 @@ def qconv(xq, wq, stride: int = 1):
     return conv_site(xq, {"wq": wq, "es": dummy, "b": dummy}, stride, acc=True)
 
 
+# the most channels the strip kernel takes: three input pixels of one output
+# pixel fill its shared memory (POOL_MAX_C in csrc/int8_conv.cu)
+POOL_MAX_C = 10920
+
+
 def max_pool(xq):
     """3x3 / 2 max pool, padding 1, of int8 NHWC (B, H, W, C) -> (B, Ho,
-    Wo, C), -128 outside the image."""
+    Wo, C), -128 outside the image.  On CUDA the strip kernel
+    (``maxpool_strip_kernel``: a block stages the input rows of a strip of
+    output rows in shared memory, whole rows where three fit in its 96 KB,
+    else segments of columns), any H and W, C a multiple of 4 up to
+    ``POOL_MAX_C``, B up to 65535."""
     if xq.dtype != torch.int8 or xq.dim() != 4:
         raise TypeError(f"max_pool: int8 NHWC expected, got {xq.dtype} {tuple(xq.shape)}")
     if xq.device.type == "cpu":
         return reference_max_pool(xq)
     _build.require_cuda("max_pool", xq)
     B, H, W, C = xq.shape
-    if C % 4:
-        raise ValueError(f"max_pool: {C} channels (a multiple of 4)")
+    if C % 4 or C > POOL_MAX_C or B > 65535:
+        raise ValueError(f"max_pool: {C} channels (a multiple of 4, at most {POOL_MAX_C}) "
+                         f"and batch {B} (at most 65535)")
     xq = xq.contiguous()
+    if xq.data_ptr() % 16:          # the strip kernel stages 16-byte aligned rows
+        xq = xq.clone()
     out = torch.empty((B, out_hw(H, 3, 2), out_hw(W, 3, 2), C), dtype=torch.int8,
                       device=xq.device)
     fn = _build.bind("int8_conv", "int8_maxpool", _POOL_ARGTYPES)

@@ -32,7 +32,7 @@ def shape(preset: str) -> dict:
 
 
 def model(preset: str = "georic", seed: int = 0, beam: int = 5, batch: int = 256,
-          enc=None):
+          enc=None, geometry=None):
     """(cfg, wordmap, params, encoder params) of `preset` at full width with
     seeded random weights (V 10000).  The random batch-norm statistics
     (mean 0, var 1) let ResNet-101's activations grow through the residual
@@ -40,12 +40,16 @@ def model(preset: str = "georic", seed: int = 0, beam: int = 5, batch: int = 256
     order 1, as a trained encoder's do.  `enc` shares one encoder between
     presets.  A fact preset's predicate-head bias is drawn N(0, 1) (its init
     is 0, which would leave the vocab logits all 0 until a predicate is
-    active), and its pointer heads are scaled by POINTER_GAINS."""
+    active), and its pointer heads are scaled by POINTER_GAINS.  `geometry`
+    ("<emb_dim>x<num_heads>", as --geometry) replaces the transformer's
+    width and heads (the encoder's projection follows the width)."""
     from icek_torch.core import config as cfgs
     from icek_torch.data.codec import Wordmap
     from icek_torch.models import captioner, resnet
 
     cfg = cfgs.get_config(preset)
+    if geometry:
+        cfg = cfgs.apply_geometry(cfg, geometry)
     cfg = cfg.replace(decode=dataclasses.replace(cfg.decode, beam_size=beam,
                                                  batch_size=batch))
     wm = Wordmap.from_words([f"w{i}" for i in range(VOCAB - 5)] + ["."])
@@ -131,11 +135,12 @@ def train_captions(rng, n, wm, preset="georic"):
     return {"caption_ids": caps, "caption_mask": kind, "lengths": lengths.astype(np.int64)}
 
 
-def train_batch(rng, n, wm, preset="georic"):
-    """train_captions with entity (and fact) rows and cached image tokens."""
+def train_batch(rng, n, wm, preset="georic", D=None):
+    """train_captions with entity (and fact) rows and cached image tokens
+    of width `D` (default: the preset's)."""
     batch = train_captions(rng, n, wm, preset)
     batch["entity_features"] = entity_rows(rng, n, preset)
-    batch["image_tokens"] = rng.standard_normal((n, IMG_TOKENS, shape(preset)["D"]),
+    batch["image_tokens"] = rng.standard_normal((n, IMG_TOKENS, D or shape(preset)["D"]),
                                                 dtype=np.float32)
     if shape(preset)["F"]:
         batch["fact_features"] = fact_rows(rng, n, preset)

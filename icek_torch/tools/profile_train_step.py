@@ -37,7 +37,7 @@ OP_CLASSES: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
     ("ln_fwd", ("ln_fwd",)),
     ("ln_bwd", ("ln_bwd",)),
     ("dropout", ("dropout_kernel", "dropout_flat_kernel")),
-    ("int8_conv", ("int8_conv", "maxpool_kernel")),
+    ("int8_conv", ("int8_conv", "maxpool_strip_kernel")),
     ("indexing_backward", ("indexing_backward", "index_put", "embedding_dense_backward",
                            "embedding_backward", "index_add", "scatter_add")),
     ("attention", ("fmha", "flash_attn", "attention", "softmax")),

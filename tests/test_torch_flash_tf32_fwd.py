@@ -108,15 +108,18 @@ def _row_end(rows, kv_len, causal):
     return torch.clamp(rows + 1, max=kv_len) if causal else torch.full_like(rows, kv_len)
 
 
-def tf32_forward(q, k, v, *, kv_len, causal, rate=0.0, keep=None, scores=None):
+def tf32_forward(q, k, v, *, kv_len, causal, rate=0.0, keep=None, scores=None, tile=TILE,
+                 block=None):
     """(out (B, Tq, H, Hd) in q's dtype, lse (B, H, Tq) f32) of the TF32
     forward's walk; `scores`, a dict, collects each visited tile's x by
-    (row0, k0)."""
+    (row0, k0).  `tile` is the key tile (``ftile_of``: 64, and 32 at a
+    padded head dim of 128), `block` the query rows of a block (default:
+    64, 32 when Tq <= 32, as at head dims up to 32)."""
     B, Tq, H, Hd = q.shape
     Tk = k.shape[1]
     pieces = 2 if q.dtype == torch.float32 else 1
     qf, kf, vf = map(_heads_first, (q, k, v))
-    block = WARP * (4 if Tq > 32 else 2)
+    block = block or WARP * (4 if Tq > 32 else 2)
     out = torch.zeros((B, H, Tq, Hd))
     lse = torch.zeros((B, H, Tq))
     inv = _f32(1.0 / (1.0 - rate))
@@ -128,14 +131,14 @@ def tf32_forward(q, k, v, *, kv_len, causal, rate=0.0, keep=None, scores=None):
             m = torch.full((B, H, len(rows)), -math.inf)
             l = torch.zeros((B, H, len(rows)))
             acc = torch.zeros((B, H, len(rows), Hd))
-            for k0 in range(0, blk_end, TILE):
+            for k0 in range(0, blk_end, tile):
                 if k0 >= warp_end:
                     continue
-                keys = torch.arange(k0, min(k0 + TILE, Tk))
+                keys = torch.arange(k0, min(k0 + tile, Tk))
                 x = scaled_scores(qf[:, :, rows], kf[:, :, keys], pieces, Hd)
                 if scores is not None:
                     scores[row0, k0] = x.clone()
-                if k0 + TILE > kv_len or (causal and k0 + TILE > row0 + 1):
+                if k0 + tile > kv_len or (causal and k0 + tile > row0 + 1):
                     hidden = keys[None, :] >= _row_end(rows, kv_len, causal)[:, None]
                     x = x.masked_fill(hidden, -math.inf)
                 m_new = torch.maximum(m, x.amax(-1))
@@ -313,7 +316,7 @@ def test_kernels_form_x_through_first_product():
     alike."""
     with open(os.path.join(_build.CSRC, "flash_attention.cu")) as f:
         src = f.read()
-    fwd = src[src.index("flash_fwd_tf32_kernel("):src.index("// dQ in TF32")]
+    fwd = src[src.index("flash_fwd_tf32_body("):src.index("// The TF32 forward's kernels.")]
     assert "first_product<P>(x[j], qa, &kt[8 * j + g][t]);" in fwd
     assert "x[j][i] = __fmul_rn(x[j][i], c);" in fwd
     assert "const float c = a.scale * LOG2E;" in fwd
@@ -370,9 +373,10 @@ def test_forward_lanes_draw_keep_mask_s_blocks():
 
 def test_flash_route_rule():
     """flash_attention.route, case by case: aligned bf16 with an even head
-    dim <= 32 takes the bf16 tensor-core kernels (mma); float32, and bf16
-    that misses the alignment or has an odd head dim, up to 32 the TF32
-    kernels (tf32); above 32 the CUDA-core forward (cuda_cores)."""
+    dim <= 128 takes the bf16 tensor-core kernels (mma); float32, and bf16
+    that misses the alignment or has an odd head dim, up to 128 the TF32
+    kernels (tf32); no head dim goes to the CUDA-core forward any more, and
+    a head dim above 128 raises, as the JAX package's head_slot does."""
     def qkv(dtype, hd, shift=0):
         buf = torch.zeros(2 * 5 * 3 * hd + shift, dtype=dtype)
         q = buf[shift:].view(2, 5, 3, hd)
@@ -383,6 +387,13 @@ def test_flash_route_rule():
     assert tfa.route(*qkv(torch.bfloat16, 30, shift=1)) == "tf32"     # mid-word rows
     assert tfa.route(*qkv(torch.bfloat16, 31)) == "tf32"
     assert tfa.route(*qkv(torch.float32, 8)) == "tf32"
-    assert tfa.route(*qkv(torch.float32, 64)) == "cuda_cores"
-    assert tfa.route(*qkv(torch.bfloat16, 64)) == "cuda_cores"
+    assert tfa.route(*qkv(torch.float32, 64)) == "tf32"
+    assert tfa.route(*qkv(torch.bfloat16, 64)) == "mma"
+    assert tfa.route(*qkv(torch.bfloat16, 64, shift=1)) == "tf32"
+    assert tfa.route(*qkv(torch.bfloat16, 75)) == "tf32"
+    assert tfa.route(*qkv(torch.bfloat16, 128)) == "mma"
+    assert tfa.route(*qkv(torch.float32, 128)) == "tf32"
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="head dim 129"):
+            tfa.route(*qkv(dtype, 129))
     assert set(tfa.flash_mha.routes) == set(tfa.ROUTES) == {"mma", "tf32", "cuda_cores"}

@@ -53,10 +53,9 @@ def test_flash_kernel_matches_plain(cuda, dtype, tol, causal, tq, tk, h, hd, kv_
     q = torch.randn((2, tq, h, hd), generator=g).to(cuda, dtype)
     k = qkv[..., h * hd:2 * h * hd].view(2, tk, h, hd)   # strided views
     v = qkv[..., 2 * h * hd:].view(2, tk, h, hd)
-    # bf16 on its tensor-core kernels, f32 up to Hd 32 on the TF32 ones, the
-    # CUDA-core forward above
-    want_route = "mma" if dtype == torch.bfloat16 and hd <= 32 else "tf32" if hd <= 32 \
-        else "cuda_cores"
+    # bf16 (even head dims, aligned rows) on its tensor-core kernels, f32 on
+    # the TF32 ones, at every head dim up to 128
+    want_route = "mma" if dtype == torch.bfloat16 and hd % 2 == 0 else "tf32"
     assert tfa.route(q, k, v) == want_route
     before, routes = tfa.flash_mha.launches, dict(tfa.flash_mha.routes)
     got = tfa.flash_mha(q, k, v, kv_len=kv_len, causal=causal)
@@ -1069,11 +1068,153 @@ def test_flash_dropout_forward_and_backward_see_one_mask(cuda):
 
 
 def test_flash_refuses_wide_heads_with_dropout_or_backward(cuda):
+    """Head dims up to 128 run forward and backward with dropout (fault
+    F4: 64 used to raise with dropout and in the backward); above 128, as
+    the JAX package's head_slot, it raises."""
     q = torch.randn((1, 8, 2, 64), device=cuda, requires_grad=True)
-    with pytest.raises(ValueError, match="head dim"):
-        tfa.flash_mha(q, q, q, dropout_rate=0.1, seed=1)
-    with pytest.raises(ValueError, match="head dim"):
-        tfa.flash_mha(q, q, q).sum().backward()
+    out = tfa.flash_mha(q, q, q, dropout_rate=0.1, seed=1)
+    (dq,) = torch.autograd.grad(out.sum(), q)
+    assert torch.isfinite(dq).all()
+    wide = torch.randn((1, 8, 2, 129), device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="head dim 129"):
+        tfa.flash_mha(wide, wide, wide, dropout_rate=0.1, seed=1)
+    with pytest.raises(ValueError, match="head dim 129"):
+        tfa.flash_mha(wide, wide, wide)
+
+
+# fault F4: head dims in (32, 128] used to raise on the card with dropout and
+# in the backward; (Hd, dtype, misaligned rows) -> route
+WIDE_HD_CASES = [(hd, dt, shift) for hd in (40, 64, 75, 96, 128)
+                 for dt, shift in ((torch.float32, False), (torch.bfloat16, False),
+                                   (torch.bfloat16, True))]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hd,dtype,shift", WIDE_HD_CASES)
+def test_flash_wide_heads_forward_backward_with_dropout(cuda, hd, dtype, shift, causal, rate):
+    """Head dims 40, 64, 75, 96 and 128 (padded to 64 or 128), forward and
+    backward at rate 0 and 0.2 under the kernel's own mask, on strided views
+    of fused projections, keys past kv_len: f32 within 1e-4, bf16 3e-2
+    forward and 4e-2 backward of the largest expected value; even-Hd aligned
+    bf16 on the mma route, the rest (f32, odd Hd, rows that start mid-word)
+    on tf32; padded keys' gradients exactly 0."""
+    B, tq, tk, h, kv_len = 2, 70, 129, 3, 100
+    g = _gen(hd + 7 * shift)
+    qkv = torch.randn((B, tk, 3 * h * hd), generator=g).to(cuda, dtype)
+    q0 = torch.randn((B, tq, h * hd), generator=g).to(cuda, dtype)
+    if shift:
+        qkv, q0 = _odd_offset_view(qkv), _odd_offset_view(q0)
+    qkv.requires_grad_(True)
+    q0.requires_grad_(True)
+    d_out = torch.randn((B, tq, h, hd), generator=g).to(cuda, dtype)
+
+    def run(fn, **kw):
+        k = qkv[..., h * hd:2 * h * hd].view(B, tk, h, hd)
+        v = qkv[..., 2 * h * hd:].view(B, tk, h, hd)
+        out = fn(q0.view(B, tq, h, hd), k, v, kv_len=kv_len, causal=causal, dropout_rate=rate,
+                 **kw)
+        return (out,) + torch.autograd.grad(out, (q0, qkv), d_out)
+
+    want_route = "mma" if dtype == torch.bfloat16 and hd % 2 == 0 and not shift else "tf32"
+    assert tfa.route(q0.view(B, tq, h, hd), qkv[..., :h * hd].view(B, tk, h, hd),
+                     qkv[..., :h * hd].view(B, tk, h, hd)) == want_route
+    before = (dict(tfa.flash_mha.routes), tfa.flash_mha_bwd.launches)
+    got = run(tfa.flash_mha, seed=17)
+    torch.cuda.synchronize()
+    assert tfa.flash_mha.routes[want_route] == before[0][want_route] + 1
+    assert tfa.flash_mha.routes["cuda_cores"] == before[0]["cuda_cores"]
+    assert tfa.flash_mha_bwd.launches == before[1] + 1
+    want = run(tfa.reference_mha, keep=tfa.keep_mask(B, h, tq, tk, rate=rate, seed=17,
+                                                     device=cuda))
+    for i, (a, b) in enumerate(zip(got, want)):
+        tol = 1e-4 if dtype == torch.float32 else (3e-2 if i == 0 else 4e-2)
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=tol * max(1.0, float(b.detach().float().abs().max())))
+    dkv = got[2].view(B, tk, 3, h * hd)
+    assert not dkv[:, kv_len:, 1:].any()
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_tf32_one_hot_rows_wide_heads(cuda, hd):
+    """The one-hot rows at head dims 64 and 128: the TF32 forward's P and
+    its backward's P come from bit-equal scores (first_product over the
+    d-steps of SplitRows), so dQ of the one-hot rows is 0 and the output is
+    the winning V row, within 1e-4 of the plain version in float64.  (The
+    plain version in f32 is itself 1.1e-4 off at one element here at Hd 64:
+    its softmax backward's row sum is rounded along another path than its
+    dP.)"""
+    B, T, H = 2, 64, 2
+    g = _gen(78 + hd)
+    q = (torch.randn((B, T, H, hd), generator=g) * 20).to(cuda).requires_grad_(True)
+    k = (torch.randn((B, T, H, hd), generator=g) * 20).to(cuda).requires_grad_(True)
+    v = torch.randn((B, T, H, hd), generator=g).to(cuda).requires_grad_(True)
+    gy = torch.randn((B, T, H, hd), generator=g).to(cuda)
+    out = tfa.flash_mha(q, k, v)
+    got = (out,) + torch.autograd.grad(out, (q, k, v), gy)
+    leaves = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
+    ref = tfa.reference_mha(*leaves)
+    want = (ref,) + torch.autograd.grad(ref, leaves, gy.double())
+    for a, b in zip(got, want):
+        b = b.detach().float()
+        torch.testing.assert_close(a.detach(), b, rtol=0,
+                                   atol=1e-4 * max(1.0, float(b.abs().max())))
+
+
+def test_geometry_512x8_train_step_on_card(cuda):
+    """One geo train step at --geometry 512x8 (head dim 64) on the card, f32
+    at dropout 0 against the same step on the CPU (loss 1e-4, Adam's first
+    moments 1e-4 of the largest value), then a bf16 step with the preset's
+    dropout: finite loss, every flash forward on the mma route and one
+    backward launch for each."""
+    import copy
+
+    from icek_torch import bridge
+    from icek_torch.core import config as cfgs
+    from icek_torch.models import captioner
+    from icek_torch.train import step as tstep
+
+    geo = cfgs.apply_geometry(cfgs.georic(), "512x8")
+    V, E, B, T, L = 60, 9, 4, 7, 2
+    g = _gen(64)
+    ents = torch.zeros((B, E, 5))
+    ents[:, :, 0] = torch.arange(E)
+    ents[:, :, 1:4] = torch.rand((B, E, 3), generator=g)
+    ents[:, :, 4] = torch.randint(0, 20, (B, E), generator=g)
+    caps = torch.randint(1, V + E, (B, T), generator=g)
+    batch = {"caption_ids": caps, "caption_mask": (caps >= V).long(),
+             "lengths": torch.tensor([7, 5, 3, 6]), "entity_features": ents,
+             "image_tokens": torch.randn((B, 12, 512), generator=g)}
+    quiet = geo.replace(model=dataclasses.replace(
+        geo.model, num_layers=L, type_vocab=20, dropout_enc=0.0, dropout_dec=0.0,
+        dropout_pos=0.0))
+    params = captioner.init_captioner_params(g, quiet.model, V)
+    res = {}
+    for dev in ("cpu", cuda):
+        p = bridge.trainable(copy.deepcopy(params), dev)
+        opt = tstep.make_optimizer(1e-3)
+        state = opt.init(p)
+        train, _ = tstep.make_train_step(quiet, V, 0, opt, encode_images=False, device=dev)
+        _, _, loss, _ = train(p, state, None, batch, torch.Generator().manual_seed(0))
+        mu, _ = state.moments(p)
+        res[str(dev)] = (float(loss), [m.cpu() for m in tstep.tree_leaves(mu)])
+    (l0, m0), (l1, m1) = res["cpu"], res[str(cuda)]
+    assert abs(l0 - l1) <= 1e-4 * abs(l0)
+    for a, b in zip(m0, m1):
+        assert float((a - b).abs().max()) <= 1e-4 * max(float(a.abs().max()), 1e-3)
+    cfg = geo.replace(model=dataclasses.replace(geo.model, num_layers=L, type_vocab=20))
+    p = bridge.trainable(copy.deepcopy(params), cuda)
+    opt = tstep.make_optimizer(1e-3)
+    state = opt.init(p)
+    train, _ = tstep.make_train_step(cfg, V, 0, opt, encode_images=False, device=cuda,
+                                     compute_dtype=torch.bfloat16)
+    before = (dict(tfa.flash_mha.routes), tfa.flash_mha_bwd.launches)
+    _, _, loss, _ = train(p, state, None, batch, torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    fwd = tfa.flash_mha.routes["mma"] - before[0]["mma"]
+    assert torch.isfinite(torch.as_tensor(float(loss)))
+    assert fwd == 3 * L and tfa.flash_mha_bwd.launches - before[1] == fwd
+    assert tfa.flash_mha.routes["cuda_cores"] == before[0]["cuda_cores"]
 
 
 def test_train_step_on_card_matches_cpu(cuda):
@@ -1894,6 +2035,38 @@ def test_int8_max_pool_kernel_matches_plain(cuda):
         torch.cuda.synchronize()
         assert k8.max_pool.launches == before + 1
         assert torch.equal(got, k8.reference_max_pool(x))
+
+
+@pytest.mark.parametrize("shape", [(256, 128, 128, 64), (3, 17, 13, 64), (2, 9, 31, 16),
+                                   (2, 7, 5, 12), (1, 1, 1, 64), (2, 3, 400, 64),
+                                   (2, 3, 600, 64), (2, 5, 1600, 64), (1, 6, 9000, 12),
+                                   (1, 5, 7, 10920), (5, 2, 2, 4)])
+def test_int8_max_pool_strip_kernel_shapes(cuda, shape):
+    """The strip kernel (16-byte pieces where C % 16 == 0, else 4),
+    bit-equal to the plain version at the encode's shape, odd heights and
+    widths, rows too wide for more than a one-row strip, rows too wide for
+    three in shared memory (segments of columns), the most channels it
+    takes and single pixels; one launch a call."""
+    from icek_torch.kernels import int8_conv as k8
+
+    x = torch.randint(-128, 128, shape, generator=_gen(sum(shape)), dtype=torch.int8).to(cuda)
+    before = k8.max_pool.launches
+    got = k8.max_pool(x)
+    torch.cuda.synchronize()
+    assert k8.max_pool.launches == before + 1
+    assert torch.equal(got, k8.reference_max_pool(x))
+
+
+def test_int8_max_pool_refuses_too_many_channels(cuda):
+    """Above POOL_MAX_C channels three input pixels overflow the strip
+    kernel's shared memory: the wrapper raises before a launch."""
+    from icek_torch.kernels import int8_conv as k8
+
+    x = torch.zeros((1, 3, 3, k8.POOL_MAX_C + 4), dtype=torch.int8, device=cuda)
+    before = k8.max_pool.launches
+    with pytest.raises(ValueError, match="channels"):
+        k8.max_pool(x)
+    assert k8.max_pool.launches == before
 
 
 def _int8_routes():
