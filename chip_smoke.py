@@ -42,7 +42,9 @@ Phases (any failure raises and exits non-zero):
               bf16 on the tensor-core ones, forward and backward at rate 0
               and 0.2, causal and not, beside the CUDA-core forward, SDPA
               and the bound; 64 x 8 heads, the --geometry 512x8 model's, at
-              all three train-step sites);
+              all three train-step sites, where the backward at HDP 64 runs
+              the wgmma pair in bf16 and the TF32 pair split by integer
+              rounding in f32, its rate-0 time beside SDPA's);
   4. serve    each preset at full width (ResNet-101 at 256x256, d=300, 10
               heads, 3 layers (+ 3 fact-encoder layers), V=10000; geo E 301,
               knowledge E 301 / F 51 / P 3000, news E 101 / F 301 / P 3500
@@ -83,7 +85,8 @@ Phases (any failure raises and exits non-zero):
               route, launches by route held), f32 beam tokens equal to the
               CPU's, bf16 train steps at batch 256 with the preset's
               dropout and f32 ones (forwards on mma / tf32, a backward
-              launch each), the f32 step at dropout 0 held to the CPU's
+              launch each on the same route, flash_mha_bwd.routes held),
+              the f32 step at dropout 0 held to the CPU's
               over the gradient tree, the decoder step at this width;
   wide beam   the score head at k 10 and 20 and the decoder step at K 10
               and 20 (both routes, each dtype; K 20: parts of an image a
@@ -533,6 +536,11 @@ def check_flash(dev):
         log(f"kernel flash_attention_bwd {dtype}: {bwd[dtype]}")
     return fwd, bwd
 
+
+# the backward's kernels at padded head dim 64, by route (the 512x8 path)
+HD64_BWD_KERNELS = {"mma": ["flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"],
+                    "tf32": ["flash_bwd_dq_tf32_kernel<float, 64, 4, *>",
+                             "flash_bwd_dkv_tf32_kernel<float, 64, 4, *>"]}
 
 # head dims above 32 (fault F4): (Hd, heads) with D near the geo widths; 64 x 8
 # is the --geometry 512x8 model (the slice's path), at all three train-step
@@ -1319,8 +1327,17 @@ def route_counts():
 def zero_route_counts():
     from icek_torch.kernels import copy_scores, flash_attention
 
-    for counts in (flash_attention.flash_mha.routes, copy_scores.fused_score_topk.routes):
+    for counts in (flash_attention.flash_mha.routes, copy_scores.fused_score_topk.routes,
+                   flash_attention.flash_mha_bwd.routes):
         counts.update(dict.fromkeys(counts, 0))
+
+
+def bwd_route_counts():
+    """The flash backward's launches by route (flash_mha_bwd.routes): mma
+    (bf16; at head dim 64 the wgmma pair) and tf32."""
+    from icek_torch.kernels import flash_attention
+
+    return dict(flash_attention.flash_mha_bwd.routes)
 
 
 def route_prediction(**counts):
@@ -3827,6 +3844,11 @@ def run_train_path(dev, model, preset="georic", steps=TRAIN_STEPS):
     routes = route_counts()
     want_routes = route_prediction(flash_mma=counted["flash_attention"][1] * steps)
     require(routes == want_routes, f"{preset} bf16 train step: routes {routes} != {want_routes}")
+    # and every backward on the bf16 tensor-core pair
+    bwd_routes = bwd_route_counts()
+    want_bwd = {"mma": counted["flash_attention_bwd"][1] * steps, "tf32": 0}
+    require(bwd_routes == want_bwd,
+            f"{preset} bf16 train step: backward routes {bwd_routes} != {want_bwd}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     eval_after = float(eval_step(params, None, batch)[0])
     log(f"{preset} train path launches over {steps} steps: {launches}")
@@ -3867,7 +3889,8 @@ def run_train_path(dev, model, preset="georic", steps=TRAIN_STEPS):
         step_ms_median=statistics.median(times) * 1e3,
         samples_per_s_median=BATCH / statistics.median(times),
         tokens_per_step=int(count), losses=losses, eval_loss_before=eval_before,
-        eval_loss_after=eval_after, peak_mem_gb=peak_gb, routes=routes, **stages)
+        eval_loss_after=eval_after, peak_mem_gb=peak_gb, routes=routes,
+        bwd_routes=bwd_routes, **stages)
     log(f"{preset} train path (batch {BATCH}, T {T}, bf16, dropout on): {summary}")
     return launches, summary, lambda: float(train_step(params, opt_state, None, batch, gen)[2])
 
@@ -3928,6 +3951,9 @@ def f32_train_path(dev, model, bf16_summary, oracle="plain"):
     # every forward on the TF32 kernel, none on the CUDA-core one it replaced
     want = route_prediction(flash_tf32=counted["flash_attention"][1] * F32_STEPS)
     require(routes == want, f"f32 train step: routes {routes} != {want}")
+    bwd_routes = bwd_route_counts()
+    want_bwd = {"mma": 0, "tf32": counted["flash_attention_bwd"][1] * F32_STEPS}
+    require(bwd_routes == want_bwd, f"f32 train step: backward routes {bwd_routes} != {want_bwd}")
     eval_after = float(eval_step(p, None, batch)[0])
     for name, (_, per_step) in counted.items():
         require(launches[name] == per_step * F32_STEPS,
@@ -3973,7 +3999,7 @@ def f32_train_path(dev, model, bf16_summary, oracle="plain"):
                    step_ms_median=statistics.median(times) * 1e3,
                    samples_per_s_median=BATCH / statistics.median(times),
                    bf16_samples_per_s_median=bf16_summary["samples_per_s_median"],
-                   launches=launches, routes=routes, losses=losses,
+                   launches=launches, routes=routes, bwd_routes=bwd_routes, losses=losses,
                    eval_loss_before=eval_before, eval_loss_after=eval_after,
                    dropout0_loss_rel=loss_rel, dropout0_oracle=f"{oracle} at batch {n0}",
                    dropout0_grad_tree_rel=tree_rel, dropout0_worst_leaf_rel=grad_rel)
@@ -4533,6 +4559,9 @@ def run_phases(dev, card) -> list:
                    if k in rec},
                 "launches_serving": (wide_geo["serving_launches"]["flash_attention"]
                                      if fam == "mma" and kind == "" else None),
+                **({"bwd_routes": run["bwd_routes"], "kernels": HD64_BWD_KERNELS[fam],
+                    "rate0_over_library": rec["rate0_ms"] / rec["library_ms"]}
+                   if kind == "_bwd" else {}),
                 "sites": {n: flash_wide[64][key][n] for n in ("self", "cross")},
                 "head_dims": {str(hd): flash_wide[hd] for hd in flash_wide if hd != 64},
                 **({"misaligned_bf16": flash_wide[64]["bfloat16 misaligned"]}

@@ -68,9 +68,12 @@
 //      dS K are read through ldmatrix.trans.  Two neighbouring accumulator
 //      tiles rounded to bf16 are one A fragment, so P and dS go from the
 //      softmax into their second product without touching shared memory.
-//      wgmma was not taken: it wants 64-row tiles and swizzled operands,
-//      two of the three sites have 32 query rows, and the kernels are not
-//      bound by the matrix unit.
+//      wgmma was not taken for these: it wants 64-row tiles and swizzled
+//      operands, two of the three sites of the presets have 32 query rows,
+//      and at HDP 32 the kernels are not bound by the matrix unit.  At HDP
+//      64 the backward is a wgmma pair (flash_bwd_{dq,dkv}_wgmma_kernel,
+//      described where they are defined): there the mma.sync kernels were
+//      bound by the ldmatrix reads of the staged operands and their issue.
 //    * Forward and dQ: a block of four warps (two when Tq <= 32) walks the
 //      key tiles; whole tiles beyond kv_len or above the causal diagonal
 //      are skipped, the straddling tile is masked element-wise.  The online
@@ -134,6 +137,13 @@
 //      distinct banks), double buffered, and walked 8 keys (queries) at a
 //      time; dK/dV works on the transposed scores; no atomics, so launches
 //      agree bit for bit.
+//    * At HDP 64 every operand is split by integer rounding (split_as,
+//      tf32_bits: three instructions an element, where the cvt.rna pair
+//      expands into compare-and-select code), in the forward and both
+//      backward kernels alike, so S stays the same bits in all three (the
+//      f32 backward at the 512x8 encoder site went from 5.9 to 4.9 ms on an
+//      H100 that way, the forward from 1.14 to 1.00); HDP 32 and 128 keep
+//      cvt.rna and their bits.
 //    * Where the split A operands live (SplitRows, split_smem): in
 //      registers, or in the warp's own region of shared memory, lane-major,
 //      each lane reading back the fragments it wrote (two 16-byte loads a
@@ -955,6 +965,429 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_mma_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The HDP-64 backward on wgmma (bf16).  At HDP 64 the mma.sync kernels above
+// read every staged operand fragment by ldmatrix for one m16 tile, two
+// mma.sync per ldmatrix.x4, four warps each reading the whole tile: the
+// shared-memory reads and their issue, not the matrix unit, held them at
+// 5.4x their bound at the 512x8 encoder site.  Here a block is one
+// warpgroup (four warps, 128 threads) that owns 64 rows (dQ: queries; dK/dV:
+// keys), and every product is one wgmma.mma_async m64n64k16 a k-step, whose
+// B operand the tensor cores read from shared memory themselves:
+//   * the staged tiles are 64 rows of 128 bytes (HDP 64 bf16) in the 128-byte
+//     swizzle (16-byte chunk j of row r at chunk j ^ (r % 8); sw128_chunk), on
+//     1024-byte boundaries; one descriptor form (sw128_desc) reads such a tile
+//     K-major as the B of S = Q K^T (K's rows: d is the reduction) and, with
+//     the transpose bit, MN-major as the B of dQ += dS K (keys are the
+//     reduction, d the columns), 16 rows (2048 bytes) a k-step;
+//   * the A operands come from registers (the .rs form), in mma.sync's A
+//     fragment layout, warp w holding rows 16 w .. 16 w + 15: the warp's Q
+//     and dO (K and V) fragments straight from global memory, and P, dS (P^T,
+//     dS^T) packed from the accumulators, which the m64n64 accumulator holds
+//     in mma.sync's C layout, eight n8 tiles a warp;
+//   * the first k-step of S and dP writes its accumulator (scale-d 0, an
+//     output-only operand), so no zeroing and no register stays live across
+//     tiles for it;
+//   * a tile's S and dP are one group and its second products another;
+//     each is waited for (wait_group 0) before its accumulators are read
+//     and before the registers that fed its A may be reused (reg_fence),
+//     and the tile buffers are turned over behind a block barrier.  Two
+//     blocks an SM overlap each other's groups: splitting a tile's work
+//     into more groups, so that its own element-wise work overlapped its
+//     wgmma, measured slower on an H100 (more registers live).
+// The element-wise work (the masks, P, dS, the keep flags of keep_cell) is
+// the mma.sync kernels' per score.
+// ---------------------------------------------------------------------------
+
+constexpr int SW_TILE = TILE * 128;   // bytes of a staged 64-row, 128-byte-row tile
+
+// the generic proxy's writes to shared memory (cp.async) made visible to the
+// async proxy (wgmma)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are pending
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Registers the compiler must treat as written here: after wgmma_wait, an
+// accumulator is not read earlier, and an A fragment's registers are not
+// reused before the group that reads them has completed.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N, int M>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// 16-byte chunk j of row r of a 128-byte-row tile, where the swizzle puts it
+__device__ __forceinline__ int sw128_chunk(int r, int j) { return j ^ (r & 7); }
+
+// shared-memory matrix descriptor of a tile of 128-byte rows in the 128-byte
+// swizzle, 8-row groups 1024 bytes apart: K-major (the leading offset
+// unused), or MN-major with one 64-column swizzle span (the leading offset
+// unused again, the 1024 bytes the stride between 8-row k groups)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+#define ICEK_WG_D32                                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define ICEK_WG_OUT(c)                                                                    \
+  c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]), c(d[8]),         \
+      c(d[9]), c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]), c(d[15]), c(d[16]),       \
+      c(d[17]), c(d[18]), c(d[19]), c(d[20]), c(d[21]), c(d[22]), c(d[23]), c(d[24]),      \
+      c(d[25]), c(d[26]), c(d[27]), c(d[28]), c(d[29]), c(d[30]), c(d[31])
+
+// d (64 x 64 f32 over the warpgroup) = a b (ACC false) or d += a b: a the
+// warp's 16 x 16 bf16 A fragment, b (16 x 64) by descriptor, K-major or, with
+// TB, MN-major
+template <bool ACC, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (ACC) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ICEK_WG_D32
+                 ", {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
+                 : ICEK_WG_OUT("+f")
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(TB), "r"(1));
+  } else {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ICEK_WG_D32
+                 ", {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
+                 : ICEK_WG_OUT("=f")
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(TB), "r"(0));
+  }
+}
+
+// Stage rows [r0, r0 + TILE) of one head into a swizzled tile at `dst` (a
+// 1024-aligned shared address); rows >= limit and words >= hw are zeros.
+// With `vec` 16 bytes a copy (8 lanes a row), else 4 (32 lanes a row).
+template <int NT>
+__device__ __forceinline__ void stage_sw128(uint32_t dst, const bf16* src, long long st, int r0,
+                                            int limit, int hw, bool vec) {
+  if (vec) {
+    constexpr int STEP = NT / 8;
+    const int c = threadIdx.x & 7, r = threadIdx.x >> 3;
+    const bool lane_ok = 4 * c < hw;
+    const int left = limit - r0 - r;
+    const bf16* p = src + (long long)(r0 + r) * st + (lane_ok ? 8 * c : 0);
+    const long long step = STEP * st;
+#pragma unroll
+    for (int i = 0; i < TILE; i += STEP) {
+      cp_async16(dst + (r + i) * 128 + (sw128_chunk(r + i, c) << 4), p, lane_ok && i < left);
+      p += step;
+    }
+    return;
+  }
+  constexpr int STEP = NT / 32;
+  const int w = threadIdx.x & 31, r = threadIdx.x >> 5;
+  const int left = limit - r0 - r;
+  const bf16* p = src + (long long)(r0 + r) * st + (w < hw ? 2 * w : 0);
+  const long long step = STEP * st;
+#pragma unroll 8
+  for (int i = 0; i < TILE; i += STEP) {
+    cp_async4(dst + (r + i) * 128 + (sw128_chunk(r + i, w >> 2) << 4) + 4 * (w & 3), p,
+              w < hw && i < left);
+    p += step;
+  }
+}
+
+// shared memory of the wgmma kernels: four swizzled tiles (two buffers of K
+// and V, or Q and dO), for dK/dV the per-row lse and delta, and 1024 bytes to
+// align the tiles
+constexpr int WG_DQ_BYTES = 4 * SW_TILE + 1024;
+constexpr int WG_DKV_BYTES = 4 * SW_TILE + 2 * 2 * TILE * 4 + 1024;
+
+// dQ (and delta) at HDP 64: a block owns 64 query rows, warp w rows 16 w ..;
+// per 64-key tile S = Q K^T and dP = dO V^T (four k-steps each), dS, then dQ
+// += dS K (four k-steps of 16 keys, K's tile read MN-major).
+template <bool DROP>
+__global__ void __launch_bounds__(128) flash_bwd_dq_wgmma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ o, const bf16* __restrict__ d_o,
+    const float* __restrict__ lse, const uint32_t* __restrict__ keep_words,
+    float* __restrict__ delta, bf16* __restrict__ dq, const Shape a) {
+  constexpr int NT = 128, KS = 4;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  auto ktile = [&](int buf) { return base + buf * SW_TILE; };
+  auto vtile = [&](int buf) { return base + (2 + buf) * SW_TILE; };
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int hw = a.Hd >> 1;
+  const int row0 = blockIdx.x * TILE + warp * 16;
+  const bf16* kp = k + b * a.k_sb + (long long)h * a.Hd;
+  const bf16* vp = v + b * a.v_sb + (long long)h * a.Hd;
+  const int blk_end = a.causal ? min(a.kv_len, (int)(blockIdx.x + 1) * TILE) : a.kv_len;
+  const int ntiles = (blk_end + TILE - 1) / TILE;
+  auto stage = [&](int it) {
+    stage_sw128<NT>(ktile(it & 1), kp, a.k_st, it * TILE, blk_end, hw, a.vec);
+    stage_sw128<NT>(vtile(it & 1), vp, a.v_st, it * TILE, blk_end, hw, a.vec);
+  };
+  stage(0);
+  cp_async_commit();
+
+  const long long obase = ((long long)b * a.Tq * a.H + h) * a.Hd;
+  const long long ost = (long long)a.H * a.Hd;
+  const long long srow0 = ((long long)b * a.H + h) * a.Tq;
+  uint32_t qf[KS][4], gf[KS][4];
+  load_a_frags<KS>(qf, q + b * a.q_sb + (long long)h * a.Hd, a.q_st, row0, a.Tq, hw, g, t);
+  load_a_frags<KS>(gf, d_o + obase, ost, row0, a.Tq, hw, g, t);
+  float dl[2] = {0.f, 0.f}, L2[2];
+  {
+    uint32_t of[KS][4];
+    load_a_frags<KS>(of, o + obase, ost, row0, a.Tq, hw, g, t);
+#pragma unroll
+    for (int s = 0; s < KS; ++s)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 x = unpack_bf16(of[s][i]), y = unpack_bf16(gf[s][i]);
+        dl[i & 1] = fmaf(x.x, y.x, fmaf(x.y, y.y, dl[i & 1]));
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    dl[r] = quad_sum(dl[r]);
+    L2[r] = row < a.Tq ? lse[srow0 + row] * LOG2E : 0.f;
+    if (t == 0 && row < a.Tq) delta[srow0 + row] = dl[r];
+  }
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  const float c = a.scale * LOG2E;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * TILE;
+    if (it + 1 < ntiles) stage(it + 1);
+    cp_async_commit();
+    const uint32_t word = DROP ? __ldg(keep_words + keep_cell(a, b, h, row0 >> 4, it) + lane)
+                               : 0u;
+    cp_async_wait<1>();
+    fence_async_shared();
+    __syncthreads();
+    const uint32_t kt = ktile(it & 1), vt = vtile(it & 1);
+    float s[32], dp[32];
+    wgmma_fence();
+    wgmma_rs<false, 0>(s, qf[0], sw128_desc(kt));
+#pragma unroll
+    for (int ks = 1; ks < KS; ++ks) wgmma_rs<true, 0>(s, qf[ks], sw128_desc(kt + 32 * ks));
+    wgmma_rs<false, 0>(dp, gf[0], sw128_desc(vt));
+#pragma unroll
+    for (int ks = 1; ks < KS; ++ks) wgmma_rs<true, 0>(dp, gf[ks], sw128_desc(vt + 32 * ks));
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+    const bool full = k0 + TILE <= a.kv_len && (!a.causal || k0 + TILE <= row0 + 1);
+    uint32_t dsf[4][4];   // dS as A fragments: k-step kk holds keys 16 kk .. 16 kk + 15
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float p = fast_exp2(fmaf(s[4 * j + i], c, -L2[i >> 1]));
+        if (!full) {
+          const int key = k0 + 8 * j + 2 * t + (i & 1), row = row0 + g + 8 * (i >> 1);
+          const int end = a.causal ? min(a.kv_len, row + 1) : a.kv_len;
+          if (key >= end) p = 0.f;
+        }
+        float d = dp[4 * j + i];
+        if (DROP) d = ((word >> (4 * j + i)) & 1u) ? d * a.inv : 0.f;
+        ds[i] = p * (d - dl[i >> 1]);
+      }
+      dsf[j >> 1][2 * (j & 1)] = pack_bf16(ds[0], ds[1]);
+      dsf[j >> 1][2 * (j & 1) + 1] = pack_bf16(ds[2], ds[3]);
+    }
+    // k-steps whose 16 keys all lie past the block's end add zeros: skipped
+    const int nk = min(4, (blk_end - k0 + 15) / 16);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      if (kk < nk) wgmma_rs<true, 1>(acc, dsf[kk], sw128_desc(kt + 2048 * kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(acc);
+    reg_fence(dsf);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= a.Tq) continue;
+    uint32_t* dp32 = reinterpret_cast<uint32_t*>(dq + obase + (long long)row * ost);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      if (4 * n + t < hw)
+        dp32[4 * n + t] = pack_bf16(acc[4 * n + 2 * r] * a.scale, acc[4 * n + 2 * r + 1] * a.scale);
+  }
+}
+
+// dK and dV at HDP 64: a block owns 64 keys, warp w keys 16 w .. (K and V
+// fragments in registers); per 64-query tile S^T = K Q^T and dP^T = V dO^T,
+// P^T and dS^T, then dV += P^T dO and dK += dS^T Q (four k-steps of 16
+// queries, the dO and Q tiles read MN-major).  The keep flags are the
+// mma.sync dK/dV kernel's, from four 16-row cells a tile.
+template <bool DROP>
+__global__ void __launch_bounds__(128) flash_bwd_dkv_wgmma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ d_o, const float* __restrict__ lse,
+    const float* __restrict__ delta, const uint32_t* __restrict__ keep_words,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, const Shape a) {
+  constexpr int NT = 128, KS = 4;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  auto qtile = [&](int buf) { return base + buf * SW_TILE; };
+  auto gtile = [&](int buf) { return base + (2 + buf) * SW_TILE; };
+  float(*ls)[TILE] = reinterpret_cast<float(*)[TILE]>(smem_raw + (base - smem_u32(smem_raw)) +
+                                                      4 * SW_TILE);
+  float(*dls)[TILE] = ls + 2;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int hw = a.Hd >> 1;
+  const int blk_key0 = blockIdx.x * TILE, key0 = blk_key0 + warp * 16;
+  const long long obase = ((long long)b * a.Tq * a.H + h) * a.Hd;   // of d_o
+  const long long ost = (long long)a.H * a.Hd;
+  const long long srow0 = ((long long)b * a.H + h) * a.Tq;
+  const bf16* qp = q + b * a.q_sb + (long long)h * a.Hd;
+  const bf16* gp = d_o + obase;
+  const int first = a.causal ? blk_key0 / TILE : 0;
+  const int last = blk_key0 < a.kv_len ? (a.Tq + TILE - 1) / TILE : first;
+  auto stage = [&](int it) {
+    const int buf = (it - first) & 1;
+    stage_sw128<NT>(qtile(buf), qp, a.q_st, it * TILE, a.Tq, hw, a.vec);
+    stage_sw128<NT>(gtile(buf), gp, ost, it * TILE, a.Tq, hw, a.vec);
+    for (int i = threadIdx.x; i < TILE; i += NT) {
+      const bool ok = it * TILE + i < a.Tq;
+      const long long at = srow0 + (ok ? it * TILE + i : 0);
+      cp_async4(smem_u32(&ls[buf][i]), lse + at, ok);
+      cp_async4(smem_u32(&dls[buf][i]), delta + at, ok);
+    }
+  };
+  if (first < last) stage(first);
+  cp_async_commit();
+
+  uint32_t kf[KS][4], vf[KS][4];
+  load_a_frags<KS>(kf, k + b * a.k_sb + (long long)h * a.Hd, a.k_st, key0, a.kv_len, hw, g, t);
+  load_a_frags<KS>(vf, v + b * a.v_sb + (long long)h * a.Hd, a.v_st, key0, a.kv_len, hw, g, t);
+  float dka[32], dva[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
+  const float c = a.scale * LOG2E;
+  // the forward's keep flags, as in flash_bwd_dkv_mma_kernel: query tile j's
+  // register i is in the cell of rows 16 (j / 2) .. of the tile, lane
+  // keep_lane + 4 (i % 2), bit keep_bit + 4 (i / 2) + 2 (j % 2)
+  const int keep_lane = 8 * t + (g >> 1), keep_bit = 4 * ((key0 & (TILE - 1)) >> 3) + (g & 1);
+
+  for (int it = first; it < last; ++it) {
+    if (it + 1 < last) stage(it + 1);
+    cp_async_commit();
+    uint32_t kw[4][2] = {{0u, 0u}, {0u, 0u}, {0u, 0u}, {0u, 0u}};   // [rows 16 rs ..][query parity]
+    if (DROP) {
+#pragma unroll
+      for (int rs = 0; rs < 4; ++rs)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          kw[rs][e] = __ldg(keep_words + keep_cell(a, b, h, 4 * it + rs, blockIdx.x) + keep_lane +
+                            4 * e);
+    }
+    cp_async_wait<1>();
+    fence_async_shared();
+    __syncthreads();
+    const int buf = (it - first) & 1;
+    const int q0 = it * TILE;
+    const uint32_t qt = qtile(buf), gt = gtile(buf);
+    float st[32], dpt[32];
+    wgmma_fence();
+    wgmma_rs<false, 0>(st, kf[0], sw128_desc(qt));
+#pragma unroll
+    for (int ks = 1; ks < KS; ++ks) wgmma_rs<true, 0>(st, kf[ks], sw128_desc(qt + 32 * ks));
+    wgmma_rs<false, 0>(dpt, vf[0], sw128_desc(gt));
+#pragma unroll
+    for (int ks = 1; ks < KS; ++ks) wgmma_rs<true, 0>(dpt, vf[ks], sw128_desc(gt + 32 * ks));
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(st);
+    reg_fence(dpt);
+    const bool full = q0 + TILE <= a.Tq && key0 + 16 <= a.kv_len && (!a.causal || key0 + 15 <= q0);
+    // P^T and dS^T as A fragments: k-step kk holds queries 16 kk .. 16 kk + 15
+    uint32_t pf[4][4], dsf[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int qi = 8 * j + 2 * t;   // in the tile; + (i & 1)
+      const float2 L = *reinterpret_cast<const float2*>(&ls[buf][qi]);
+      const float2 D = *reinterpret_cast<const float2*>(&dls[buf][qi]);
+      float pd[4], ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float p = fast_exp2(fmaf(st[4 * j + i], c, -LOG2E * ((i & 1) ? L.y : L.x)));
+        if (!full) {
+          const int query = q0 + qi + (i & 1), key = key0 + g + 8 * (i >> 1);
+          if (query >= a.Tq || key >= a.kv_len || (a.causal && key > query)) p = 0.f;
+        }
+        float d = dpt[4 * j + i];
+        pd[i] = p;
+        if (DROP) {
+          const bool kept = (kw[j >> 1][i & 1] >> (keep_bit + 4 * (i >> 1) + 2 * (j & 1))) & 1u;
+          pd[i] = kept ? p * a.inv : 0.f;
+          d = kept ? d * a.inv : 0.f;
+        }
+        ds[i] = p * (d - ((i & 1) ? D.y : D.x));
+      }
+      pf[j >> 1][2 * (j & 1)] = pack_bf16(pd[0], pd[1]);
+      pf[j >> 1][2 * (j & 1) + 1] = pack_bf16(pd[2], pd[3]);
+      dsf[j >> 1][2 * (j & 1)] = pack_bf16(ds[0], ds[1]);
+      dsf[j >> 1][2 * (j & 1) + 1] = pack_bf16(ds[2], ds[3]);
+    }
+    // k-steps whose 16 queries all lie past Tq add zeros: skipped
+    const int nk = min(4, (a.Tq - q0 + 15) / 16);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      if (kk < nk) wgmma_rs<true, 1>(dva, pf[kk], sw128_desc(gt + 2048 * kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      if (kk < nk) wgmma_rs<true, 1>(dka, dsf[kk], sw128_desc(qt + 2048 * kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(dka);
+    reg_fence(dva);
+    reg_fence(pf);
+    reg_fence(dsf);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + g + 8 * r;
+    if (key >= a.Tk) continue;
+    const long long krow = (((long long)b * a.Tk + key) * a.H + h) * a.Hd;
+    uint32_t* dk32 = reinterpret_cast<uint32_t*>(dk + krow);
+    uint32_t* dv32 = reinterpret_cast<uint32_t*>(dv + krow);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      if (4 * n + t < hw) {
+        dk32[4 * n + t] = pack_bf16(dka[4 * n + 2 * r] * a.scale, dka[4 * n + 2 * r + 1] * a.scale);
+        dv32[4 * n + t] = pack_bf16(dva[4 * n + 2 * r], dva[4 * n + 2 * r + 1]);
+      }
+  }
+}
+
 // ===========================================================================
 // The TF32 kernels: f32 (three TF32 products a product, "3xTF32") and bf16
 // inputs that miss the 4-byte alignment or have an odd head dim (one TF32
@@ -1023,6 +1456,25 @@ struct SplitRows {
 template <int P, int HDP, bool SMEM>
 __host__ __device__ constexpr int split_rows_bytes() { return SMEM ? (HDP / 8) * P * 32 * 16 : 0; }
 
+// x as P TF32 pieces: split_tf32<P> (cvt.rna), or with BITS (P = 2) by
+// integer rounding, split_tf32_bits (hi rounded to nearest, lo left for the
+// tensor cores to truncate): three instructions where the cvt.rna pair
+// expands into compare-and-select code.  Every operand of a product (A rows
+// and B columns alike) is split one way, so S = Q K^T and S^T = K Q^T stay
+// alike to the bit.  The HDP-64 kernels take BITS (tf32_bits), the others
+// keep cvt.rna, and with it their bits.
+template <int P, bool BITS>
+__device__ __forceinline__ void split_as(float x, uint32_t (&p)[P]) {
+  if constexpr (BITS && P == 2) {
+    split_tf32_bits(x, p);
+  } else {
+    split_tf32<P>(x, p);
+  }
+}
+
+// whether the TF32 kernels of padded head dim HDP split by integer rounding
+template <int HDP> __host__ __device__ constexpr bool tf32_bits() { return HDP == 64; }
+
 // One 16-row x 8-column step's S = A B^T over HDP: A the warp's split rows
 // (SplitRows), B their row g of a staged tile (element 8 ds + t and + 4 of
 // d-step ds).  The hi hi, lo hi and hi lo terms are summed in three chains
@@ -1031,7 +1483,7 @@ __host__ __device__ constexpr int split_rows_bytes() { return SMEM ? (HDP / 8) *
 // dK/dV kernel's S^T = K Q^T (and dP, dP^T) come out bit for bit alike (an
 // mma's sum of its eight products does not depend on which operand is A),
 // at every head dim.
-template <int P, typename Rows>
+template <int P, bool BITS = false, typename Rows>
 __device__ __forceinline__ void first_product(float (&s)[4], const Rows& a, const float* bp) {
   static_assert(P == 1 || P == 2, "one piece (bf16) or two (f32)");
   float c[3][4];               // [hi hi, lo hi, hi lo]
@@ -1043,8 +1495,8 @@ __device__ __forceinline__ void first_product(float (&s)[4], const Rows& a, cons
   for (int ds = 0; ds < Rows::DS; ++ds) {
     const FragA<P> f = a(ds);
     uint32_t x[P], y[P];
-    split_tf32<P>(bp[8 * ds], x);
-    split_tf32<P>(bp[8 * ds + 4], y);
+    split_as<P, BITS>(bp[8 * ds], x);
+    split_as<P, BITS>(bp[8 * ds + 4], y);
     mma_tf32(c[0], f.p[0], x[0], y[0]);
     if constexpr (P == 2) {
       mma_tf32(c[1], f.p[1], x[0], y[0]);
@@ -1056,19 +1508,19 @@ __device__ __forceinline__ void first_product(float (&s)[4], const Rows& a, cons
 }
 
 // The backward's two first products of a step, S = A1 B1^T and dP = A2 B2^T
-template <int P, typename Rows>
+template <int P, bool BITS = false, typename Rows>
 __device__ __forceinline__ void first_products(float (&s)[4], float (&dp)[4],
                                                const Rows& a1, const Rows& a2,
                                                const float* b1, const float* b2) {
-  first_product<P>(s, a1, b1);
-  first_product<P>(dp, a2, b2);
+  first_product<P, BITS>(s, a1, b1);
+  first_product<P, BITS>(dp, a2, b2);
 }
 
 // The d-steps of an m16n8k8 A operand of rows [r0, r0 + 16) of one head
 // (padded with zeros to HDP), straight from global memory as f32 and split
 // into `rows`: with g = lane / 4, t = lane % 4, register i of step s is (row
 // g + 8 (i % 2), d 8 s + t + 4 (i / 2)).
-template <int P, typename T, typename Rows>
+template <int P, bool BITS = false, typename T, typename Rows>
 __device__ __forceinline__ void load_split_rows(Rows& rows, const T* src, long long st, int r0,
                                                 int limit, int Hd, int g, int t) {
 #pragma unroll
@@ -1079,7 +1531,7 @@ __device__ __forceinline__ void load_split_rows(Rows& rows, const T* src, long l
       const int row = r0 + g + 8 * (i & 1), d = 8 * s + t + 4 * (i >> 1);
       const float x = row < limit && d < Hd ? to_f32(src[(long long)row * st + d]) : 0.f;
       uint32_t pc[P];
-      split_tf32<P>(x, pc);
+      split_as<P, BITS>(x, pc);
 #pragma unroll
       for (int k = 0; k < P; ++k) f.p[k][i] = pc[k];
     }
@@ -1092,13 +1544,13 @@ __device__ __forceinline__ void load_split_rows(Rows& rows, const T* src, long l
 // (g + 8, 2 t), (g + 8, 2 t + 1); as A they take k index t for column 2 t and
 // t + 4 for column 2 t + 1, so the B operand of that product reads its rows
 // in the same order (row 2 t as k index t, 2 t + 1 as t + 4)
-template <int P>
+template <int P, bool BITS = false>
 __device__ __forceinline__ void acc_as_a(FragA<P>& a, const float (&c)[4]) {
   const float order[4] = {c[0], c[2], c[1], c[3]};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     uint32_t x[P];
-    split_tf32<P>(order[i], x);
+    split_as<P, BITS>(order[i], x);
 #pragma unroll
     for (int k = 0; k < P; ++k) a.p[k][i] = x[k];
   }
@@ -1125,6 +1577,17 @@ __device__ __forceinline__ void mma_add_bits(float (&c)[4], const FragA<P>& a, f
     mma_tf32(t, a.p[0], x[0], y[0]);
 #pragma unroll
     for (int i = 0; i < 4; ++i) c[i] += t[i];
+  }
+}
+
+// a second product (O, dQ, dK, dV), its B split as split_as splits
+template <int P, bool BITS>
+__device__ __forceinline__ void mma_add_as(float (&c)[4], const FragA<P>& a, float b0,
+                                           float b1) {
+  if constexpr (BITS) {
+    mma_add_bits<P>(c, a, b0, b1);
+  } else {
+    mma_add<P>(c, a, b0, b1);
   }
 }
 
@@ -1231,7 +1694,7 @@ __device__ __forceinline__ void flash_fwd_tf32_body(
   constexpr int P = std::is_same<T, float>::value ? 2 : 1;   // bf16 is exact in one piece
   constexpr int BQ = NW * 16, NT = NW * 32, FP = fpitch_of<HDP>(), TK = ftile_of<HDP, false>();
   constexpr int DS = HDP / 8;
-  constexpr bool SS = split_smem<HDP, false>();
+  constexpr bool SS = split_smem<HDP, false>(), BITS = tf32_bits<HDP>();
   extern __shared__ __align__(16) unsigned char smem[];
   float(*ks)[TK][FP] = reinterpret_cast<float(*)[TK][FP]>(smem);
   float(*vs)[TK][FP] = ks + 2;
@@ -1253,7 +1716,8 @@ __device__ __forceinline__ void flash_fwd_tf32_body(
   SplitRows<P, HDP, SS> qa;
   qa.lane = lane;
   qa.s = reinterpret_cast<uint4*>(smem + 2 * 2 * TK * FP * 4 + warp * split_rows_bytes<P, HDP, SS>());
-  load_split_rows<P>(qa, q + b * a.q_sb + (long long)h * a.Hd, a.q_st, row0, a.Tq, a.Hd, g, t);
+  load_split_rows<P, BITS>(qa, q + b * a.q_sb + (long long)h * a.Hd, a.q_st, row0, a.Tq, a.Hd,
+                           g, t);
   float acc[DS][4];
 #pragma unroll
   for (int n = 0; n < DS; ++n)
@@ -1279,7 +1743,7 @@ __device__ __forceinline__ void flash_fwd_tf32_body(
       float x[TK / 8][4];
 #pragma unroll
       for (int j = 0; j < TK / 8; ++j) {
-        first_product<P>(x[j], qa, &kt[8 * j + g][t]);
+        first_product<P, BITS>(x[j], qa, &kt[8 * j + g][t]);
 #pragma unroll
         for (int i = 0; i < 4; ++i) x[j][i] = __fmul_rn(x[j][i], c);   // as the dQ kernel's
       }
@@ -1322,7 +1786,7 @@ __device__ __forceinline__ void flash_fwd_tf32_body(
           p[i] = round_to<T>(p[i]);
         }
         FragA<P> pa;
-        acc_as_a<P>(pa, p);
+        acc_as_a<P, BITS>(pa, p);
         // O += P V: keys 2 t and 2 t + 1 of the step as k indices t and t + 4
 #pragma unroll
         for (int n = 0; n < DS; ++n) {
@@ -1398,7 +1862,7 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_tf32_kernel(
   constexpr int P = std::is_same<T, float>::value ? 2 : 1;   // bf16 is exact in one piece
   constexpr int BQ = NW * 16, NT = NW * 32, FP = fpitch_of<HDP>(), TK = ftile_of<HDP, true>();
   constexpr int DS = HDP / 8;
-  constexpr bool SS = split_smem<HDP, true>();
+  constexpr bool SS = split_smem<HDP, true>(), BITS = tf32_bits<HDP>();
   extern __shared__ __align__(16) unsigned char smem[];
   float(*ks)[TK][FP] = reinterpret_cast<float(*)[TK][FP]>(smem);
   float(*vs)[TK][FP] = ks + 2;
@@ -1424,8 +1888,9 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_tf32_kernel(
   unsigned char* own = smem + 2 * 2 * TK * FP * 4 + 2 * warp * split_rows_bytes<P, HDP, SS>();
   qa.s = reinterpret_cast<uint4*>(own);
   ga.s = reinterpret_cast<uint4*>(own + split_rows_bytes<P, HDP, SS>());
-  load_split_rows<P>(qa, q + b * a.q_sb + (long long)h * a.Hd, a.q_st, row0, a.Tq, a.Hd, g, t);
-  load_split_rows<P>(ga, d_o + obase, ost, row0, a.Tq, a.Hd, g, t);
+  load_split_rows<P, BITS>(qa, q + b * a.q_sb + (long long)h * a.Hd, a.q_st, row0, a.Tq, a.Hd,
+                           g, t);
+  load_split_rows<P, BITS>(ga, d_o + obase, ost, row0, a.Tq, a.Hd, g, t);
   float acc[DS][4];
 #pragma unroll
   for (int n = 0; n < DS; ++n)
@@ -1455,7 +1920,7 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_tf32_kernel(
         const int kb = it * TK + 8 * j;     // first key of this step
         if (kb >= warp_end) break;
         float x[4], d[4];
-        first_products<P>(x, d, qa, ga, &kt[8 * j + g][t], &vt[8 * j + g][t]);
+        first_products<P, BITS>(x, d, qa, ga, &kt[8 * j + g][t], &vt[8 * j + g][t]);
         const bool full = kb + 8 <= a.kv_len && (!a.causal || kb + 8 <= row0 + 1);
         const uint32_t keep = DROP ? keep4_rows(a, mblk + (kb >> 2), t) : 0xfu;
 #pragma unroll
@@ -1486,12 +1951,12 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_tf32_kernel(
         for (int i = 0; i < 4; ++i)
           ds_[i] = round_to<T>(fast_exp2(x[i] - l2[i >> 1]) * (d[i] - dl[i >> 1]));
         FragA<P> dsa;
-        acc_as_a<P>(dsa, ds_);
+        acc_as_a<P, BITS>(dsa, ds_);
         // dQ += dS K: keys 2 t and 2 t + 1 of the step as k indices t and t + 4
 #pragma unroll
         for (int n = 0; n < DS; ++n) {
           const float* kr = &kt[8 * j + 2 * t][8 * n + g];
-          mma_add<P>(acc[n], dsa, kr[0], kr[FP]);
+          mma_add_as<P, BITS>(acc[n], dsa, kr[0], kr[FP]);
         }
       }
       __syncthreads();
@@ -1541,7 +2006,7 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_tf32_kernel(
   constexpr int P = std::is_same<T, float>::value ? 2 : 1;   // bf16 is exact in one piece
   constexpr int BKT = NW * 16, NT = NW * 32, FP = fpitch_of<HDP>(), TK = ftile_of<HDP, true>();
   constexpr int DS = HDP / 8;
-  constexpr bool SS = split_smem<HDP, true>();
+  constexpr bool SS = split_smem<HDP, true>(), BITS = tf32_bits<HDP>();
   extern __shared__ __align__(16) unsigned char smem[];
   float(*qs)[TK][FP] = reinterpret_cast<float(*)[TK][FP]>(smem);
   float(*gs)[TK][FP] = qs + 2;
@@ -1578,8 +2043,10 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_tf32_kernel(
       smem + 2 * 2 * TK * FP * 4 + 2 * 2 * TK * 4 + 2 * warp * split_rows_bytes<P, HDP, SS>();
   ka.s = reinterpret_cast<uint4*>(own);
   va.s = reinterpret_cast<uint4*>(own + split_rows_bytes<P, HDP, SS>());
-  load_split_rows<P>(ka, k + b * a.k_sb + (long long)h * a.Hd, a.k_st, key0, a.kv_len, a.Hd, g, t);
-  load_split_rows<P>(va, v + b * a.v_sb + (long long)h * a.Hd, a.v_st, key0, a.kv_len, a.Hd, g, t);
+  load_split_rows<P, BITS>(ka, k + b * a.k_sb + (long long)h * a.Hd, a.k_st, key0, a.kv_len,
+                           a.Hd, g, t);
+  load_split_rows<P, BITS>(va, v + b * a.v_sb + (long long)h * a.Hd, a.v_st, key0, a.kv_len,
+                           a.Hd, g, t);
   float dka[DS][4], dva[DS][4];
 #pragma unroll
   for (int n = 0; n < DS; ++n)
@@ -1605,7 +2072,7 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_tf32_kernel(
       if (qb >= a.Tq) break;
       if (a.causal && qb + 7 < key0) continue;
       float st[4], dpt[4];
-      first_products<P>(st, dpt, ka, va, &qt[8 * j + g][t], &gt[8 * j + g][t]);
+      first_products<P, BITS>(st, dpt, ka, va, &qt[8 * j + g][t], &gt[8 * j + g][t]);
       const bool full = qb + 8 <= a.Tq && key0 + 16 <= a.kv_len &&
                         (!a.causal || key0 + 15 <= qb);
       const int qi = 8 * j + 2 * t;         // in the tile; + (i & 1)
@@ -1633,15 +2100,15 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_tf32_kernel(
         ds_[i] = round_to<T>(p * (d - ((i & 1) ? D.y : D.x)));
       }
       FragA<P> pa, dsa;
-      acc_as_a<P>(pa, pd);
-      acc_as_a<P>(dsa, ds_);
+      acc_as_a<P, BITS>(pa, pd);
+      acc_as_a<P, BITS>(dsa, ds_);
       // dV += P^T dO, dK += dS^T Q: queries 2 t and 2 t + 1 as k indices t, t + 4
 #pragma unroll
       for (int n = 0; n < DS; ++n) {
         const float* gr = &gt[qi][8 * n + g];
         const float* qr = &qt[qi][8 * n + g];
-        mma_add<P>(dva[n], pa, gr[0], gr[FP]);
-        mma_add<P>(dka[n], dsa, qr[0], qr[FP]);
+        mma_add_as<P, BITS>(dva[n], pa, gr[0], gr[FP]);
+        mma_add_as<P, BITS>(dka[n], dsa, qr[0], qr[FP]);
       }
     }
     __syncthreads();
@@ -1733,6 +2200,37 @@ int launch_dkv_mma(const void* q, const void* k, const void* v, const void* d_o,
   constexpr int smem = dkv_mma_bytes<HDP>();
   if (const int err = allow_smem(kernel, smem)) return err;
   kernel<<<dim3((a.Tk + NW * 16 - 1) / (NW * 16), a.H, B), NW * 32, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(d_o),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const uint32_t*>(keep_words), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the HDP-64 bf16 backward on wgmma: one warpgroup a block, 64 rows
+int launch_dq_wgmma(const void* q, const void* k, const void* v, const void* o,
+                    const void* d_o, const void* lse, const void* keep_words, void* delta,
+                    void* dq, int B, const Shape& a, cudaStream_t s) {
+  auto kernel = flash_bwd_dq_wgmma_kernel<false>;
+  if (a.thresh < KEEP_ALL) kernel = flash_bwd_dq_wgmma_kernel<true>;
+  if (const int err = allow_smem(kernel, WG_DQ_BYTES)) return err;
+  kernel<<<dim3((a.Tq + TILE - 1) / TILE, a.H, B), 128, WG_DQ_BYTES, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(o),
+      static_cast<const bf16*>(d_o), static_cast<const float*>(lse),
+      static_cast<const uint32_t*>(keep_words), static_cast<float*>(delta),
+      static_cast<bf16*>(dq), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* d_o,
+                     const void* lse, const void* delta, const void* keep_words, void* dk,
+                     void* dv, int B, const Shape& a, cudaStream_t s) {
+  auto kernel = flash_bwd_dkv_wgmma_kernel<false>;
+  if (a.thresh < KEEP_ALL) kernel = flash_bwd_dkv_wgmma_kernel<true>;
+  if (const int err = allow_smem(kernel, WG_DKV_BYTES)) return err;
+  kernel<<<dim3((a.Tk + TILE - 1) / TILE, a.H, B), 128, WG_DKV_BYTES, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(d_o),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1953,6 +2451,10 @@ int backward_mma(const void* q, const void* k, const void* v, const void* o, con
     if (err) return err;
     return a.Tk > 32 ? launch_dkv_mma<32, 4>(q, k, v, d_o, lse, delta, kw, dk, dv, B, a, s)
                      : launch_dkv_mma<32, 2>(q, k, v, d_o, lse, delta, kw, dk, dv, B, a, s);
+  } else if constexpr (HDP == 64) {   // the wgmma pair
+    err = launch_dq_wgmma(q, k, v, o, d_o, lse, kw, delta, dq, B, a, s);
+    if (err) return err;
+    return launch_dkv_wgmma(q, k, v, d_o, lse, delta, kw, dk, dv, B, a, s);
   } else {
     err = launch_dq_mma<HDP, 4>(q, k, v, o, d_o, lse, kw, delta, dq, B, a, s);
     if (err) return err;

@@ -3,7 +3,7 @@
     python -m icek_torch.kernels._variants fused_norm base,nophilox,copyonly [ROWS] [RATE]
     python -m icek_torch.kernels._variants decoder_step base,g1,nolinears [STEP ...] [bf16] [f32] [BxK ...]
     python -m icek_torch.kernels._variants score_topk base,nolist,nolse [K,K,...] [N]
-    python -m icek_torch.kernels._variants flash_attention base,nophilox [RATE,RATE,...] [HxHd] [f32,bf16]
+    python -m icek_torch.kernels._variants flash_attention base,nophilox [RATE,RATE,...] [HxHd] [f32,bf16] [TqxTk[c],...]
     python -m icek_torch.kernels._variants int8_conv base,gather,epfirst,ep1,nostore,noepi,nomma [BATCH] [KINDS]
     python -m icek_torch.kernels._variants --parent ROOT <source> base,... [args]
 
@@ -32,10 +32,14 @@ order given and then backwards, so a drift shows:
   (the same h 4 bytes into its buffer);
 * ``flash_attention``: at the geo encoder site (B 256, T 301, H 10, Hd 30,
   or the heads HxHd, such as 8x64 for --geometry 512x8; q, k, v strided
-  views of one fused QKV projection) at each RATE (default 0 and 0.2), in
+  views of one fused QKV projection), or at the sites named (a fourth
+  argument such as ``32x32c,32x497``: Tq x Tk, ``c`` causal; a cross
+  site's q from its own projection), at each RATE (default 0 and 0.2), in
   each dtype named (default f32), with CUDA events: the forward (and
   beside it the CUDA-core forward it replaced, through its entry), then the
   backward (dQ, then dK/dV) and its two kernels apart (torch.profiler);
+  each run saves its outputs, and with ``--parent`` the parent's are
+  compared with the first variant's bit for bit;
 * ``int8_conv``: every distinct site of an int8 encode of 256x256 images
   at BATCH (default 256; ``resnet_int8.encode_sites``, computed by this
   process and handed to each run, so a parent tree is timed on the same
@@ -148,7 +152,7 @@ def _fwd_presplit(which):
           }
 """))
     else:
-        reps.append(("        first_product<P>(x[j], qa, &kt[8 * j + g][t]);\n", """        if constexpr (P == 2) {
+        reps.append(("        first_product<P, BITS>(x[j], qa, &kt[8 * j + g][t]);\n", """        if constexpr (P == 2) {
           const float* bh = &kt[8 * j + g][t];
           const float* bl = &klo[8 * j + g][t];
           float c3[3][4];
@@ -167,12 +171,126 @@ def _fwd_presplit(which):
 #pragma unroll
           for (int i = 0; i < 4; ++i) x[j][i] = c3[0][i] + (c3[1][i] + c3[2][i]);
         } else {
-          first_product<P>(x[j], qa, &kt[8 * j + g][t]);
+          first_product<P, BITS>(x[j], qa, &kt[8 * j + g][t]);
         }
 """))
     return reps
 
 
+# the bf16 backward's dispatch at HDP 64, and the TF32 kernels' split there
+_WG64 = "  } else if constexpr (HDP == 64) {   // the wgmma pair"
+_BITS64 = "template <int HDP> __host__ __device__ constexpr bool tf32_bits() { return HDP == 64; }"
+_DQ_STEP = "#pragma unroll 2\n      for (int j = 0; j < TK / 8; ++j) {\n        const int kb"
+_DKV_STEP = "#pragma unroll 2\n    for (int j = 0; j < TK / 8; ++j) {\n      const int qb"
+# the TF32 backward at HDP 64 with the B operands of its first and second
+# products split once a tile by the block (hi in place, lo in a tile of its
+# own, the integer split: the same pieces, so the same bits) instead of by
+# each warp
+_PRE_HELPERS = """template <typename Rows>
+__device__ __forceinline__ void first_product_pre(float (&s)[4], const Rows& a, const float* bh,
+                                                  const float* bl) {
+  float c[3][4];
+#pragma unroll
+  for (int w = 0; w < 3; ++w)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[w][i] = 0.f;
+#pragma unroll
+  for (int ds = 0; ds < Rows::DS; ++ds) {
+    const FragA<2> f = a(ds);
+    const uint32_t x0 = __float_as_uint(bh[8 * ds]), y0 = __float_as_uint(bh[8 * ds + 4]);
+    const uint32_t x1 = __float_as_uint(bl[8 * ds]), y1 = __float_as_uint(bl[8 * ds + 4]);
+    mma_tf32(c[0], f.p[0], x0, y0);
+    mma_tf32(c[1], f.p[1], x0, y0);
+    mma_tf32(c[2], f.p[0], x1, y1);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s[i] = c[0][i] + (c[1][i] + c[2][i]);
+}
+
+__device__ __forceinline__ void mma_add_pre(float (&c)[4], const FragA<2>& a, const float* bh,
+                                            const float* bl, int FP) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, a.p[0], __float_as_uint(bl[0]), __float_as_uint(bl[FP]));
+  mma_tf32(t, a.p[1], __float_as_uint(bh[0]), __float_as_uint(bh[FP]));
+  mma_tf32(t, a.p[0], __float_as_uint(bh[0]), __float_as_uint(bh[FP]));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += t[i];
+}
+
+"""
+
+
+def _pre_pass(hi, lo, cur):
+    return f"""    if constexpr (P == 2 && BITS) {{
+      float(*ch)[FP] = {hi}[{cur}];
+      float(*cl)[FP] = {lo[0]}, (*cm)[FP] = {lo[1]};
+      float(*ch2)[FP] = {hi.replace('ks', 'vs').replace('qs', 'gs')}[{cur}];
+      for (int e = threadIdx.x; e < TK * HDP; e += NT) {{
+        const int r = e / HDP, d = e % HDP;
+        uint32_t x[2];
+        split_tf32_bits(ch[r][d], x);
+        ch[r][d] = __uint_as_float(x[0]);
+        cl[r][d] = __uint_as_float(x[1]);
+        split_tf32_bits(ch2[r][d], x);
+        ch2[r][d] = __uint_as_float(x[0]);
+        cm[r][d] = __uint_as_float(x[1]);
+      }}
+      __syncthreads();
+    }}
+"""
+
+
+_PRESPLIT64 = [
+    ("// The backward's two first products of a step",
+     _PRE_HELPERS + "// The backward's two first products of a step"),
+    ("  // dO, dq: contiguous (B, Tq, H, Hd)\n",
+     "  __shared__ __align__(16) float klo[TK][FP], vlo[TK][FP];\n"
+     "  // dO, dq: contiguous (B, Tq, H, Hd)\n"),
+    ("      cp_async_wait<1>();\n      __syncthreads();\n"
+     "      const float(*kt)[FP] = ks[it & 1];\n",
+     "      cp_async_wait<1>();\n      __syncthreads();\n"
+     + _pre_pass("ks", ("klo", "vlo"), "it & 1")
+     + "      const float(*kt)[FP] = ks[it & 1];\n"),
+    ("        first_products<P, BITS>(x, d, qa, ga, &kt[8 * j + g][t], &vt[8 * j + g][t]);\n",
+     """        if constexpr (P == 2 && BITS) {
+          first_product_pre(x, qa, &kt[8 * j + g][t], &klo[8 * j + g][t]);
+          first_product_pre(d, ga, &vt[8 * j + g][t], &vlo[8 * j + g][t]);
+        } else {
+          first_products<P, BITS>(x, d, qa, ga, &kt[8 * j + g][t], &vt[8 * j + g][t]);
+        }
+"""),
+    ("          mma_add_as<P, BITS>(acc[n], dsa, kr[0], kr[FP]);\n",
+     """          if constexpr (P == 2 && BITS)
+            mma_add_pre(acc[n], dsa, kr, &klo[8 * j + 2 * t][8 * n + g], FP);
+          else
+            mma_add_as<P, BITS>(acc[n], dsa, kr[0], kr[FP]);
+"""),
+    ("  const int cq = g & 3;\n",
+     "  __shared__ __align__(16) float qlo[TK][FP], glo[TK][FP];\n"
+     "  const int cq = g & 3;\n"),
+    ("    const int buf = (it - first) & 1;\n    const float(*qt)[FP] = qs[buf];\n",
+     "    const int buf = (it - first) & 1;\n"
+     + _pre_pass("qs", ("qlo", "glo"), "buf")
+     + "    const float(*qt)[FP] = qs[buf];\n"),
+    ("      first_products<P, BITS>(st, dpt, ka, va, &qt[8 * j + g][t], &gt[8 * j + g][t]);\n",
+     """      if constexpr (P == 2 && BITS) {
+        first_product_pre(st, ka, &qt[8 * j + g][t], &qlo[8 * j + g][t]);
+        first_product_pre(dpt, va, &gt[8 * j + g][t], &glo[8 * j + g][t]);
+      } else {
+        first_products<P, BITS>(st, dpt, ka, va, &qt[8 * j + g][t], &gt[8 * j + g][t]);
+      }
+"""),
+    ("        mma_add_as<P, BITS>(dva[n], pa, gr[0], gr[FP]);\n"
+     "        mma_add_as<P, BITS>(dka[n], dsa, qr[0], qr[FP]);\n",
+     """        if constexpr (P == 2 && BITS) {
+          mma_add_pre(dva[n], pa, gr, &glo[qi][8 * n + g], FP);
+          mma_add_pre(dka[n], dsa, qr, &qlo[qi][8 * n + g], FP);
+        } else {
+          mma_add_as<P, BITS>(dva[n], pa, gr[0], gr[FP]);
+          mma_add_as<P, BITS>(dka[n], dsa, qr[0], qr[FP]);
+        }
+"""),
+]
 # the f32 score pass's stage: h and Wv split by integer rounding (the
 # kernel), each k-step's three products summed in the stage's sum
 _SCORE_A = "        split_tf32_bits(__uint_as_float(a[i]), p);\n"
@@ -415,12 +533,32 @@ VARIANTS = {
                       "static_cast<uint32_t>(kblk) * 0x85EBCA6Bu, 0x7fffffffu, 0xc0000000u);")],
         # the TF32 kernels' dQ, dK and dV summed by the tensor cores, not f32 adds
         # the TF32 kernels' dQ, dK and dV summed by the tensor cores, not f32 adds
-        "tcacc": [("        mma_add<P>(acc[n], dsa, kr[0], kr[FP]);",
+        "tcacc": [("        mma_add_as<P, BITS>(acc[n], dsa, kr[0], kr[FP]);",
                    "        mma_pieces<P>(acc[n], dsa, kr[0], kr[FP]);"),
-                  ("        mma_add<P>(dva[n], pa, gr[0], gr[FP]);\n"
-                   "        mma_add<P>(dka[n], dsa, qr[0], qr[FP]);",
+                  ("        mma_add_as<P, BITS>(dva[n], pa, gr[0], gr[FP]);\n"
+                   "        mma_add_as<P, BITS>(dka[n], dsa, qr[0], qr[FP]);",
                    "        mma_pieces<P>(dva[n], pa, gr[0], gr[FP]);\n"
                    "        mma_pieces<P>(dka[n], dsa, qr[0], qr[FP]);")],
+        # the bf16 backward at HDP 64 on the mma.sync pair (its first design)
+        # instead of the wgmma pair
+        "mma64": [(_WG64, _WG64.replace("HDP == 64", "HDP == -64"))],
+        # the TF32 backward's 8-key (query) steps unrolled once or four times, not twice
+        "unroll1": [(_DQ_STEP, _DQ_STEP.replace("unroll 2", "unroll 1")),
+                    (_DKV_STEP, _DKV_STEP.replace("unroll 2", "unroll 1"))],
+        "unroll4": [(_DQ_STEP, _DQ_STEP.replace("unroll 2", "unroll 4")),
+                    (_DKV_STEP, _DKV_STEP.replace("unroll 2", "unroll 4"))],
+        "presplit64": _PRESPLIT64,
+        # the wgmma dK/dV kernel held to 168 registers (three blocks an SM)
+        "wg3": [("__global__ void __launch_bounds__(128) flash_bwd_dkv_wgmma_kernel(",
+                 "__global__ void __launch_bounds__(128, 3) flash_bwd_dkv_wgmma_kernel(")],
+        # the TF32 kernels at HDP 64 split by cvt.rna (their first design),
+        # not by integer rounding
+        "rna64": [(_BITS64, _BITS64.replace("HDP == 64", "false"))],
+        # ... with only the backward's second products split by integer
+        # rounding (at every head dim)
+        "bits2nd": [(_BITS64, _BITS64.replace("HDP == 64", "false")),
+                    ("  if constexpr (BITS) {\n    mma_add_bits<P>(c, a, b0, b1);",
+                     "  if constexpr (P == 2) {\n    mma_add_bits<P>(c, a, b0, b1);")],
         # the dQ kernel's pass 0 skipped: delta and lse2 left unwritten (cut)
         "onepass": [("  for (int pass = 0; pass < 2; ++pass) {", "  for (int pass = 1; pass < 2; ++pass) {")],
         # the TF32 forward's P V with V split by cvt.rna (its first build)
@@ -431,7 +569,7 @@ VARIANTS = {
         # the TF32 forward's P V products cut (cut)
         "fwdnopv": [(_FWD_PV, "")],
         # the TF32 forward's S products cut: x from one shared load (cut)
-        "fwdnos": [("        first_product<P>(x[j], qa, &kt[8 * j + g][t]);\n",
+        "fwdnos": [("        first_product<P, BITS>(x[j], qa, &kt[8 * j + g][t]);\n",
                     "        x[j][0] = x[j][1] = x[j][2] = x[j][3] = kt[8 * j + g][t];\n")],
         # the TF32 backward at HDP 64 on 32-row tiles (the forward's)
         "bwdtk32": [("__host__ __device__ constexpr int ftile_of() "
@@ -695,50 +833,69 @@ def time_score_topk(name: str, args) -> None:
                   f"({_held('score_topk', name, 'values / lse', err, 1e-4)})", flush=True)
 
 
-def flash_inputs(dtype=torch.float32, B: int = 256, T: int = 301, H: int = 10, Hd: int = 30):
-    """q, k, v (autograd leaves, strided views of one fused QKV projection)
-    and a d_out at the geo encoder site."""
+def flash_inputs(dtype=torch.float32, B: int = 256, T: int = 301, H: int = 10, Hd: int = 30,
+                 Tk: int = None):
+    """q, k, v (autograd leaves, strided views of one fused QKV projection,
+    or with Tk a Q and a fused KV projection) and a d_out at the geo
+    encoder site (T 301) or another site of T queries and Tk keys."""
     g = torch.Generator(device="cuda").manual_seed(0)
-    qkv = torch.randn((B, T, 3 * H * Hd), generator=g, device="cuda").to(dtype)
-    leaves = [t.view(B, T, H, Hd).detach().requires_grad_(True)
-              for t in qkv.split(H * Hd, dim=-1)]
+    if Tk is None or Tk == T:
+        qkv = torch.randn((B, T, 3 * H * Hd), generator=g, device="cuda").to(dtype)
+        views = [t.view(B, T, H, Hd) for t in qkv.split(H * Hd, dim=-1)]
+    else:
+        q = torch.randn((B, T, H * Hd), generator=g, device="cuda").to(dtype)
+        kv = torch.randn((B, Tk, 2 * H * Hd), generator=g, device="cuda").to(dtype)
+        views = [q.view(B, T, H, Hd)] + [t.view(B, Tk, H, Hd) for t in kv.split(H * Hd, dim=-1)]
+    leaves = [t.detach().requires_grad_(True) for t in views]
     return leaves, torch.randn((B, T, H, Hd), generator=g, device="cuda").to(dtype)
 
 
-def time_flash_attention(name: str, args) -> None:
+def time_flash_attention(name: str, args, save: str = None) -> None:
     H, Hd = (int(x) for x in (args[1] if len(args) > 1 else "10x30").split("x"))
-    for dt in (args[2] if len(args) > 2 else "f32").split(","):
-        _time_flash(name, args, {"f32": torch.float32, "bf16": torch.bfloat16}[dt], H, Hd)
+    outs = {}
+    for site in (args[3] if len(args) > 3 else "301x301").split(","):
+        tq, tk = (int(x) for x in site.rstrip("c").split("x"))
+        for dt in (args[2] if len(args) > 2 else "f32").split(","):
+            _time_flash(name, args, {"f32": torch.float32, "bf16": torch.bfloat16}[dt], H, Hd,
+                        outs, tq, tk, site.endswith("c"))
+    if save:
+        torch.save(outs, save)
 
 
-def _time_flash(name, args, dtype, H, Hd) -> None:
+def _time_flash(name, args, dtype, H, Hd, outs, tq=301, tk=301, causal=False) -> None:
     from icek_torch.kernels import flash_attention as fa
 
-    leaves, d_out = flash_inputs(dtype, H=H, Hd=Hd)
+    leaves, d_out = flash_inputs(dtype, T=tq, H=H, Hd=Hd, Tk=tk)
     B, T, H, _ = d_out.shape
+    Tk = leaves[1].shape[1]
     q, k, v = (t.detach() for t in leaves)
-    label = f"{str(dtype)[6:]} {H}x{Hd} geo encoder"
+    label = (f"{str(dtype)[6:]} {H}x{Hd} geo encoder" if (tq, tk, causal) == (301, 301, False)
+             else f"{str(dtype)[6:]} {H}x{Hd} {tq}x{tk}{' causal' if causal else ''}")
     ftol, btol = (1e-4, 1e-4) if dtype == torch.float32 else (3e-2, 4e-2)
     for rate in [float(a) for a in (args[0] if args else "0,0.2").split(",")]:
-        keep = fa.keep_mask(B, H, T, T, rate=rate, seed=77, device="cuda") if rate else None
-        fwd = lambda: fa.flash_mha(q, k, v, dropout_rate=rate, seed=77)
-        ref = fa.reference_mha(q, k, v, dropout_rate=rate, keep=keep)
-        err = float((fwd().float() - ref.float()).abs().max()) / max(1.0, float(ref.abs().max()))
+        keep = fa.keep_mask(B, H, T, Tk, rate=rate, seed=77, device="cuda") if rate else None
+        fwd = lambda: fa.flash_mha(q, k, v, causal=causal, dropout_rate=rate, seed=77)
+        ref = fa.reference_mha(q, k, v, causal=causal, dropout_rate=rate, keep=keep)
+        got = fwd()
+        outs[f"{label} rate {rate} forward"] = got.cpu()
+        err = float((got.float() - ref.float()).abs().max()) / max(1.0, float(ref.abs().max()))
         cores = ""
         # a tree with routes, and the CUDA-core forward's dropout (Hd <= 32)
         if hasattr(fa, "route") and (rate == 0 or Hd <= 32):
-            cores_run = lambda: fa._forward(q, k, v, T, False, rate, 77, via="cuda_cores")[0]
+            cores_run = lambda: fa._forward(q, k, v, Tk, causal, rate, 77, via="cuda_cores")[0]
             cores = f", CUDA-core forward {_event_ms(cores_run):.4f} ms"
         print(f"{name} {label} rate {rate}: forward {_event_ms(fwd):.4f} ms{cores} "
               f"({_held('flash_attention', name, 'forward', err, ftol)})", flush=True)
         del ref, keep
-        out = fa.flash_mha(*leaves, dropout_rate=rate, seed=77)
+        out = fa.flash_mha(*leaves, causal=causal, dropout_rate=rate, seed=77)
         bwd = lambda: torch.autograd.grad(out, leaves, d_out, retain_graph=True)
-        keep = fa.keep_mask(B, H, T, T, rate=rate, seed=77, device="cuda") if rate else None
-        ref = fa.reference_mha(*leaves, dropout_rate=rate, keep=keep)
+        keep = fa.keep_mask(B, H, T, Tk, rate=rate, seed=77, device="cuda") if rate else None
+        ref = fa.reference_mha(*leaves, causal=causal, dropout_rate=rate, keep=keep)
         want = torch.autograd.grad(ref, leaves, d_out)
+        got = bwd()
+        outs[f"{label} rate {rate} backward"] = [x.cpu() for x in got]
         err = max(float((a.float() - b.float()).abs().max()) / max(1.0, float(b.abs().max()))
-                  for a, b in zip(bwd(), want))
+                  for a, b in zip(got, want))
         del ref, want, keep
         parts = _device_split(bwd, ("bwd_dq", "bwd_dkv"))
         print(f"{name} {label} rate {rate}: backward {_event_ms(bwd):.4f} ms, dQ "
@@ -889,7 +1046,8 @@ TIMERS = {"fused_norm": time_fused_norm, "decoder_step": time_decoder_step,
           "score_topk": time_score_topk, "flash_attention": time_flash_attention,
           "int8_conv": time_int8_conv}
 # timers that save their outputs, compared with the parent's bit for bit
-SAVES = {"decoder_step": time_decoder_step, "int8_conv": time_int8_conv}
+SAVES = {"decoder_step": time_decoder_step, "int8_conv": time_int8_conv,
+         "flash_attention": time_flash_attention}
 
 
 def _nvcc(src_path: str, include: str, out: str):

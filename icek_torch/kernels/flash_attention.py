@@ -34,8 +34,11 @@ family:
   reaches it to be timed beside the kernels that replaced it.
 
 Both families pad the head dim to 32, 64 or 128; a head dim above 128
-raises, as the JAX package's ``head_slot`` does.  ``flash_mha.routes``
-counts the forward's launches by route.  No route gives way to another or
+raises, as the JAX package's ``head_slot`` does.  At 64 the ``mma``
+backward runs on wgmma (one warpgroup a block of 64 rows) and the ``tf32``
+kernels split every operand by integer rounding (see the source).
+``flash_mha.routes`` counts the forward's launches by route,
+``flash_mha_bwd.routes`` the backward's.  No route gives way to another or
 to the plain version: a kernel that fails to build or launch raises.
 
 Dropout: an element keeps iff the top 24 of its random bits lie below
@@ -180,14 +183,16 @@ def flash_mha_bwd(q, k, v, out, lse, keep_words, d_out, kv_len, causal, rate, se
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     # each row's delta (and, for the TF32 kernels, its log2-domain logsumexp)
     delta = torch.empty((2,) + tuple(lse.shape), dtype=torch.float32, device=q.device)
+    via = route(q, k, v)
     fn = _build.bind("flash_attention", "flash_bwd_" + _SUFFIX[q.dtype]
-                     + ("_mma" if route(q, k, v) == "mma" else ""), [_P] * 11 + _SHAPE)
+                     + ("_mma" if via == "mma" else ""), [_P] * 11 + _SHAPE)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              d_out.data_ptr(), lse.data_ptr(), _ptr(keep_words), delta.data_ptr(),
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              *_shape_args(q, k, v, kv_len, causal, rate, seed, blk0))
     _build.check(err, "flash_attention", "flash_mha backward")
     flash_mha_bwd.launches += 1
+    flash_mha_bwd.routes[via] += 1
     return dq, dk, dv
 
 
@@ -264,3 +269,4 @@ def keep_mask(B, H, Tq, Tk, *, rate, seed, device, first=0):
 flash_mha.launches = 0
 flash_mha.routes = dict.fromkeys(ROUTES, 0)      # the forward's launches by route
 flash_mha_bwd.launches = 0
+flash_mha_bwd.routes = dict.fromkeys(ROUTES[:2], 0)   # the backward's launches by route

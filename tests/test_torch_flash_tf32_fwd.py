@@ -66,23 +66,36 @@ def _exact(a, b):
     return (a.double() @ b.double()).float()
 
 
-def first_product(a, b, pieces):
+def hd_pad(hd):
+    """The kernels' padded head dim (``hd_pad`` in the source)."""
+    return 32 if hd <= 32 else 64 if hd <= 64 else 128
+
+
+def split_of(hdp):
+    """How the kernels of padded head dim `hdp` split an operand
+    (``split_as`` / ``tf32_bits``): by integer rounding at HDP 64 (lo's low
+    13 bits truncated by the tensor cores), by cvt.rna elsewhere."""
+    return split_bits if hdp == 64 else split
+
+
+def first_product(a, b, pieces, hdp=32):
     """S = a b^T as first_product forms it: hi hi + (lo hi + hi lo) in f32,
-    each term's sum exact; one exact term for bf16 values (P = 1)."""
+    each term's sum exact; one exact term for bf16 values (P = 1).  At HDP
+    64 both operands are split by integer rounding (``split_of``)."""
     if pieces == 1:
         return _exact(a, b.transpose(-1, -2))
-    (ah, al), (bh, bl) = split(a), split(b)
+    (ah, al), (bh, bl) = split_of(hdp)(a), split_of(hdp)(b)
     bt = lambda t: t.transpose(-1, -2)
     return _exact(ah, bt(bh)) + (_exact(al, bt(bh)) + _exact(ah, bt(bl)))
 
 
-def pv_step(p, v, pieces):
+def pv_step(p, v, pieces, hdp=32):
     """One 8-key step's P V as mma_add_bits forms it into a zeroed
     accumulator (P split as acc_as_a splits it, V by integer rounding): hi
     lo, then lo hi, then hi hi, each added in f32."""
     if pieces == 1:
         return _exact(p, v)
-    (ph, pl), (vh, vl) = split(p), split_bits(v)
+    (ph, pl), (vh, vl) = split_of(hdp)(p), split_bits(v)
     t = torch.zeros(p.shape[:-1] + v.shape[-1:])
     for a, b in ((ph, vl), (pl, vh), (ph, vh)):
         t = t + _exact(a, b)
@@ -97,7 +110,7 @@ def scale_c(hd):
 
 def scaled_scores(a, b, pieces, hd):
     """x = S c rounded once (__fmul_rn), the kernels' log2-domain scores."""
-    return first_product(a, b, pieces) * _f32(scale_c(hd))
+    return first_product(a, b, pieces, hd_pad(hd)) * _f32(scale_c(hd))
 
 
 def _heads_first(t):
@@ -152,7 +165,8 @@ def tf32_forward(q, k, v, *, kv_len, causal, rate=0.0, keep=None, scores=None, t
                     p = torch.where(keep[:, :, rows][..., keys], p, 0.0)
                 p = p.to(q.dtype).to(torch.float32)
                 for j in range(0, len(keys), STEP):
-                    acc = acc + pv_step(p[..., j:j + STEP], vf[:, :, keys[j:j + STEP]], pieces)
+                    acc = acc + pv_step(p[..., j:j + STEP], vf[:, :, keys[j:j + STEP]], pieces,
+                                        hd_pad(Hd))
                 m = m_new
             out[:, :, rows] = acc * (inv / l)[..., None]
             lse[:, :, rows] = (m + torch.log2(l)) * LN2
@@ -317,10 +331,12 @@ def test_kernels_form_x_through_first_product():
     with open(os.path.join(_build.CSRC, "flash_attention.cu")) as f:
         src = f.read()
     fwd = src[src.index("flash_fwd_tf32_body("):src.index("// The TF32 forward's kernels.")]
-    assert "first_product<P>(x[j], qa, &kt[8 * j + g][t]);" in fwd
+    assert "first_product<P, BITS>(x[j], qa, &kt[8 * j + g][t]);" in fwd
     assert "x[j][i] = __fmul_rn(x[j][i], c);" in fwd
     assert "const float c = a.scale * LOG2E;" in fwd
-    assert "first_product<P>(s, a1, b1);\n  first_product<P>(dp, a2, b2);" in src
+    assert "first_product<P, BITS>(s, a1, b1);\n  first_product<P, BITS>(dp, a2, b2);" in src
+    # the forward and both backward kernels take one split a head dim
+    assert src.count("BITS = tf32_bits<HDP>();") == 3
     assert "x[i] = __fmul_rn(x[i], c);" in src
     assert "fast_exp2(__fmul_rn(st[i], c) - ((i & 1) ? L.y : L.x))" in src
 

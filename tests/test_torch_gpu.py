@@ -784,7 +784,11 @@ def test_norm_kernels_take_misaligned_rows(cuda, dtype):
     # tile), entity encoder 101, decoder self 102 / 52 causal, cross 548 / 598
     (False, 51, 51, 10, 51, 30), (False, 101, 101, 10, 101, 30),
     (True, 102, 102, 10, 102, 30), (False, 102, 548, 10, 548, 30),
-    (True, 52, 52, 10, 52, 30), (False, 52, 598, 10, 598, 30)])
+    (True, 52, 52, 10, 52, 30), (False, 52, 598, 10, 598, 30),
+    # padded head dim 64 (bf16 on the wgmma pair): its tile edges, and head
+    # dims whose rows are staged 4 bytes a copy (34, 62: not 16-byte rows)
+    (False, 1, 1, 2, 1, 64), (True, 129, 65, 2, 40, 64), (False, 65, 129, 3, 129, 34),
+    (True, 70, 70, 2, 70, 62), (False, 301, 497, 2, 497, 48)])
 def test_flash_backward_kernel_matches_plain(cuda, dtype, tol, rate, causal, tq, tk,
                                              h, kv_len, hd):
     """Forward with dropout and dq / dk / dv against the plain version under
@@ -1028,12 +1032,15 @@ def test_flash_bf16_odd_offset_takes_cuda_core_path(cuda, rate):
         torch.testing.assert_close(a, b, rtol=0, atol=tol)
 
 
+@pytest.mark.parametrize("hd,H", [(30, 10), (40, 8), (64, 8)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,tq,tk", [(False, 301, 301), (True, 32, 32), (False, 32, 497)])
-def test_flash_backward_is_bit_identical_between_launches(cuda, dtype, causal, tq, tk):
+def test_flash_backward_is_bit_identical_between_launches(cuda, dtype, causal, tq, tk, hd, H):
     """No atomics: two backward launches on the same inputs give the same
-    bits in dq, dk and dv, and so do two forward launches in the output."""
-    B, H, Hd = 4, 10, 30
+    bits in dq, dk and dv, and so do two forward launches in the output; at
+    head dims 40 and 64 too (HDP 64: the wgmma pair in bf16, the TF32 pair
+    split by integer rounding in f32)."""
+    B, Hd = 4, hd
     g = _gen(12)
     q, k, v, gy = (torch.randn((B, t, H, Hd), generator=g).to(cuda, dtype)
                    for t in (tq, tk, tk, tq))
@@ -1083,23 +1090,29 @@ def test_flash_refuses_wide_heads_with_dropout_or_backward(cuda):
 
 
 # fault F4: head dims in (32, 128] used to raise on the card with dropout and
-# in the backward; (Hd, dtype, misaligned rows) -> route
-WIDE_HD_CASES = [(hd, dt, shift) for hd in (40, 64, 75, 96, 128)
-                 for dt, shift in ((torch.float32, False), (torch.bfloat16, False),
-                                   (torch.bfloat16, True))]
+# in the backward; (Hd, dtype, misaligned rows, Tq, Tk) -> route; at head
+# dims 40 and 64 (HDP 64's redesigned backward) also the 512x8 model's three
+# sites, T 301, 32 and 32 x 497
+_WIDE_DTYPES = ((torch.float32, False), (torch.bfloat16, False), (torch.bfloat16, True))
+WIDE_HD_CASES = ([(hd, dt, shift, 70, 129) for hd in (40, 64, 75, 96, 128)
+                  for dt, shift in _WIDE_DTYPES]
+                 + [(hd, dt, shift, tq, tk) for hd in (40, 64) for dt, shift in _WIDE_DTYPES
+                    for tq, tk in ((301, 301), (32, 32), (32, 497))])
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("hd,dtype,shift", WIDE_HD_CASES)
-def test_flash_wide_heads_forward_backward_with_dropout(cuda, hd, dtype, shift, causal, rate):
+@pytest.mark.parametrize("hd,dtype,shift,tq,tk", WIDE_HD_CASES)
+def test_flash_wide_heads_forward_backward_with_dropout(cuda, hd, dtype, shift, tq, tk, causal,
+                                                        rate):
     """Head dims 40, 64, 75, 96 and 128 (padded to 64 or 128), forward and
     backward at rate 0 and 0.2 under the kernel's own mask, on strided views
-    of fused projections, keys past kv_len: f32 within 1e-4, bf16 3e-2
-    forward and 4e-2 backward of the largest expected value; even-Hd aligned
-    bf16 on the mma route, the rest (f32, odd Hd, rows that start mid-word)
+    of fused projections, keys past kv_len (where Tk exceeds 100): f32
+    within 1e-4, bf16 3e-2 forward and 4e-2 backward of the largest
+    expected value; even-Hd aligned bf16 on the mma route (the wgmma
+    backward at HDP 64), the rest (f32, odd Hd, rows that start mid-word)
     on tf32; padded keys' gradients exactly 0."""
-    B, tq, tk, h, kv_len = 2, 70, 129, 3, 100
+    B, h, kv_len = 2, 3, min(tk, 100)
     g = _gen(hd + 7 * shift)
     qkv = torch.randn((B, tk, 3 * h * hd), generator=g).to(cuda, dtype)
     q0 = torch.randn((B, tq, h * hd), generator=g).to(cuda, dtype)
@@ -1135,9 +1148,9 @@ def test_flash_wide_heads_forward_backward_with_dropout(cuda, hd, dtype, shift, 
     assert not dkv[:, kv_len:, 1:].any()
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [40, 64, 128])
 def test_flash_tf32_one_hot_rows_wide_heads(cuda, hd):
-    """The one-hot rows at head dims 64 and 128: the TF32 forward's P and
+    """The one-hot rows at head dims 40, 64 and 128: the TF32 forward's P and
     its backward's P come from bit-equal scores (first_product over the
     d-steps of SplitRows), so dQ of the one-hot rows is 0 and the output is
     the winning V row, within 1e-4 of the plain version in float64.  (The
@@ -1159,6 +1172,43 @@ def test_flash_tf32_one_hot_rows_wide_heads(cuda, hd):
         b = b.detach().float()
         torch.testing.assert_close(a.detach(), b, rtol=0,
                                    atol=1e-4 * max(1.0, float(b.abs().max())))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernels_by_head_dim(cuda, dtype):
+    """The backward's kernels, by name in a profiler trace: at head dim 30
+    (HDP 32, the presets' path) the unchanged instantiations (bf16: the
+    mma.sync pair at <32, ...>; f32: the TF32 pair at <float, 32, ...>), at
+    head dim 64 the redesign (bf16: the wgmma pair; f32: the TF32 pair at
+    <float, 64, ...>), at 96 the mma.sync pair at <128, ...>."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {}
+    for hd in (30, 64, 96):
+        g = _gen(hd)
+        q, k, v, gy = (torch.randn((2, 70, 2, hd), generator=g).to(cuda, dtype) for _ in range(4))
+        leaves = [t.requires_grad_(True) for t in (q, k, v)]
+        out = tfa.flash_mha(*leaves, dropout_rate=0.2, seed=3)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.autograd.grad(out, leaves, gy)
+            torch.cuda.synchronize()
+        names[hd] = {e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and "flash_bwd" in e.name}
+    pad = {30: "32", 64: "64", 96: "128"}
+    for hd, got in names.items():
+        assert len(got) == 2, (hd, got)
+        for part in ("dq", "dkv"):
+            if dtype == torch.float32:
+                want = rf"flash_bwd_{part}_tf32_kernel<float, {pad[hd]}, 4, true>"
+            elif hd == 64:
+                want = rf"flash_bwd_{part}_wgmma_kernel<true>"
+            else:
+                want = rf"flash_bwd_{part}_mma_kernel<{pad[hd]}, [24], true>"
+            assert any(re.search(want, n) for n in got), (hd, part, got)
 
 
 def test_geometry_512x8_train_step_on_card(cuda):
