@@ -44,7 +44,10 @@ Phases (any failure raises and exits non-zero):
               and the bound; 64 x 8 heads, the --geometry 512x8 model's, at
               all three train-step sites, where the backward at HDP 64 runs
               the wgmma pair in bf16 and the TF32 pair split by integer
-              rounding in f32, its rate-0 time beside SDPA's);
+              rounding in f32, its rate-0 time beside SDPA's; the bf16
+              forward at HDP 64 and 128 on wgmma at every site, timed
+              beside the mma.sync forward it replaced, both designs' keep
+              words held equal at rate 0.2);
   4. serve    each preset at full width (ResNet-101 at 256x256, d=300, 10
               heads, 3 layers (+ 3 fact-encoder layers), V=10000; geo E 301,
               knowledge E 301 / F 51 / P 3000, news E 101 / F 301 / P 3500
@@ -81,13 +84,16 @@ Phases (any failure raises and exits non-zero):
               CPU;
   6b. 512x8   the geo model at --geometry 512x8 (D 512, 8 heads of 64;
               geometry_path): beam-5 serving of batches of 256 (flash on
-              the tensor-core kernels, the decoder step on its CUDA-core
-              route, launches by route held), f32 beam tokens equal to the
-              CPU's, bf16 train steps at batch 256 with the preset's
-              dropout and f32 ones (forwards on mma / tf32, a backward
-              launch each on the same route, flash_mha_bwd.routes held),
-              the f32 step at dropout 0 held to the CPU's
-              over the gradient tree, the decoder step at this width;
+              the wgmma forward, the bf16 decoder step on its tensor-core
+              route with the cross heads padded to 64: 30 a batch, none on
+              the CUDA-core kernel; launches by route held), f32 beam tokens
+              equal to the CPU's (the f32 step on its CUDA-core route,
+              counted), bf16 train steps at batch 256 with the preset's
+              dropout and f32 ones (forwards on mma / tf32, the encoder's on
+              wgmma, a backward launch each on the same route,
+              flash_mha_bwd.routes held), the f32 step at dropout 0 held to
+              the CPU's over the gradient tree, the decoder step at this
+              width beside the CUDA-core kernel;
   wide beam   the score head at k 10 and 20 and the decoder step at K 10
               and 20 (both routes, each dtype; K 20: parts of an image a
               tensor-core block) against their plain versions, then geo beams 10 and 20
@@ -412,7 +418,10 @@ def _flash_one_site(dev, dtype, tol, btol, name, Tq, Tk, causal, serving, relati
     (H, Hd) give the heads; `shift` moves q, k, v one element into their
     buffers (bf16 rows that start mid-word: the TF32 kernels).  The CUDA-core
     forward is timed beside f32, and beside bf16 above Hd 32, the calls it
-    once served."""
+    once served; where the bf16 forward runs on wgmma (Hd above 32), the
+    mma.sync forward it replaced too (`mma_sync_ms`,
+    through its entry), and at rate 0.2 both designs' keep words are held
+    equal on every cell the backward reads."""
     from icek_torch.kernels import flash_attention as fa
 
     B = BATCH
@@ -429,6 +438,9 @@ def _flash_one_site(dev, dtype, tol, btol, name, Tq, Tk, causal, serving, relati
     cores_too = f32 or Hd > 32
     # the CUDA-core forward the TF32 one replaced, reached through its entry
     cores = lambda rate=0.0: fa._forward(q, k, v, Tk, causal, rate, 77, via="cuda_cores")[0]
+    wgmma = fa.uses_wgmma_forward(q, k, v)
+    # the mma.sync forward the wgmma one replaced (above Hd 32), through its entry
+    mma_sync = lambda rate=0.0: fa._forward(q, k, v, Tk, causal, rate, 77, via="mma_sync")
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     res = None
     if serving:                 # rate 0: the serving launch
@@ -447,6 +459,14 @@ def _flash_one_site(dev, dtype, tol, btol, name, Tq, Tk, causal, serving, relati
             cerr = max_err(cores(), want)
             require(cerr <= tol, f"flash {name} CUDA-core forward: max abs err {cerr} > {tol}")
             res.update(cuda_cores_ms=cuda_ms(cores), cuda_cores_err=cerr)
+        if wgmma:
+            before = fa.flash_mha.wgmma
+            fa.flash_mha(q, k, v)
+            require(fa.flash_mha.wgmma == before + 1, f"flash {name} Hd {Hd}: not on wgmma")
+            merr = max_err(mma_sync()[0], want)
+            require(merr <= tol, f"flash {name} mma.sync forward: max abs err {merr} > {tol}")
+            res.update(mma_sync_ms=median_ms(lambda: mma_sync()[0]), mma_sync_err=merr,
+                       kernel=f"flash_fwd_wgmma_kernel<{64 if Hd <= 64 else 128}, false>")
         del got, want
 
     # rate 0.2 under the kernel's own mask; keep rate; one mask both ways
@@ -473,6 +493,14 @@ def _flash_one_site(dev, dtype, tol, btol, name, Tq, Tk, causal, serving, relati
     require(ident <= (1e-3 if dtype == torch.float32 else 3e-2),
             f"flash backward {name} {dtype}: mask identity off by {ident}")
     extra = {}
+    if wgmma:       # one keep word per lane and cell, from both designs
+        words = fa._forward(q, k, v, Tk, causal, RATE, 77)[2]
+        parent = mma_sync(RATE)[2]
+        cells = fa.keep_cells_written(Tq, Tk, Tk, causal).to(dev)[None, None, :, :, None]
+        same = bool(torch.equal(torch.where(cells, words, 0), torch.where(cells, parent, 0)))
+        require(same, f"flash {name} Hd {Hd}: the wgmma forward's keep words differ from the "
+                      "mma.sync forward's")
+        extra.update(keep_words_equal=same, mma_sync_ms=median_ms(lambda: mma_sync(RATE)[0]))
     with torch.no_grad():
         fms, fplain = median_ms(run), cuda_ms(plain, iters=5)
         if cores_too and Hd <= 32:      # the CUDA-core forward under the same mask
@@ -1007,11 +1035,14 @@ def check_decoder_step(dev, L=MAX_LEN, M=IMG_TOKENS + ENT_ROWS, B=BATCH, K=BEAM)
 
 
 def check_decoder_step_geometry(dev, geometry, L=MAX_LEN, M=IMG_TOKENS + ENT_ROWS, B=BATCH,
-                                K=BEAM):
+                                K=BEAM, want_routes=None):
     """The decoder step of a --geometry model at the middle step of the beam
-    shape, bf16 and f32, on the route the beam loop takes there (the
-    CUDA-core kernel where the heads are wider than the tensor-core
-    kernel's 32), against its plain version and the bound; {"bfloat16" /
+    shape, bf16 and f32, on the route the beam loop takes there (at heads
+    of 33 to 64 dims bf16 on the tensor cores with the cross heads padded to
+    64, f32 on the CUDA-core kernel), held to `want_routes` ({dtype: route})
+    when given, against its plain version and the bound, two launches
+    bit-identical, and timed beside the CUDA-core kernel on the same inputs
+    (`cuda_cores_ms`: the tensor-core route's "was"); {"bfloat16" /
     "float32": record}."""
     from icek_torch.kernels import decoder_step as dsk
 
@@ -1023,6 +1054,9 @@ def check_decoder_step_geometry(dev, geometry, L=MAX_LEN, M=IMG_TOKENS + ENT_ROW
         H = m.num_heads
         tc = dsk.uses_tensor_cores(stacked, ck, K, H)
         route = dsk.route(dtype, K, tc)
+        if want_routes:
+            require(route == want_routes[dtype],
+                    f"decoder step {geometry} {dtype}: route {route}, not {want_routes[dtype]}")
         nbytes, flops = _decoder_step_work(anc, step, m, dtype, M)
         bms, by = bound_ms(nbytes, flops, dtype)
         want = dsk.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv, step, num_heads=H)
@@ -1045,10 +1079,24 @@ def check_decoder_step_geometry(dev, geometry, L=MAX_LEN, M=IMG_TOKENS + ENT_ROW
                 f"decoder step {geometry} {dtype}: not on {route}")
         err = max_err(got, want)
         require(err <= tol, f"decoder step {geometry} {dtype} {route}: max abs err {err} > {tol}")
+        again = run()
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"decoder step {geometry} {dtype} {route}: two launches differ")
         key = str(dtype).replace("torch.", "")
         res[key] = dict(route=route, max_abs_err=err, tol=tol, ms=cuda_ms(run),
                         plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by,
                         shape=f"{geometry} B {B} K {K} L {L} M {M} step {step}")
+        if tc:      # the CUDA-core kernel on unpadded K/V, as the route ran before
+            cores = stacked._replace(mma=None)
+            run_cores = lambda: dsk.fused_beam_decoder_step(cores, x, anc, ck, cv, xk, xv, step,
+                                                            num_heads=H)
+            cerr = max_err(run_cores(), want)
+            require(cerr <= tol, f"decoder step {geometry} {dtype} cuda_cores: max abs err "
+                                 f"{cerr} > {tol}")
+            tname = "bf16" if dtype == torch.bfloat16 else "float"
+            res[key].update(cuda_cores_ms=cuda_ms(run_cores, iters=5), cuda_cores_err=cerr,
+                            kernel=f"decoder_step_mma_kernel<{tname}, "
+                                   f"{dsk.head_pad(m.emb_dim // H)}>")
         log(f"kernel decoder_step {geometry} {dtype}: {res[key]}")
     return res
 
@@ -1317,10 +1365,12 @@ def serving_prediction(cfg, beam_batches, greedy_batches, decoder="decoder_step"
 def route_counts():
     """The forward flash launches and the score head's first passes by
     route (flash_mha.routes, fused_score_topk.routes), as flash_<route> and
-    score_<route>."""
+    score_<route>, and flash_wgmma: the mma route's launches of the wgmma
+    forward (heads wider than 32)."""
     from icek_torch.kernels import copy_scores, flash_attention
 
     return {**{f"flash_{r}": n for r, n in flash_attention.flash_mha.routes.items()},
+            "flash_wgmma": flash_attention.flash_mha.wgmma,
             **{f"score_{r}": n for r, n in copy_scores.fused_score_topk.routes.items()}}
 
 
@@ -1330,6 +1380,14 @@ def zero_route_counts():
     for counts in (flash_attention.flash_mha.routes, copy_scores.fused_score_topk.routes,
                    flash_attention.flash_mha_bwd.routes):
         counts.update(dict.fromkeys(counts, 0))
+    flash_attention.flash_mha.wgmma = 0
+
+
+def wide_heads(m) -> bool:
+    """Whether a model's heads are wider than 32 dims: its bf16 flash
+    forwards run on wgmma, and its bf16 decoder step pads the cross heads
+    to 64."""
+    return m.emb_dim // m.num_heads > 32
 
 
 def bwd_route_counts():
@@ -1435,8 +1493,10 @@ def serve(dev, model, preset="georic", decoder="decoder_step", label=None):
     routes = route_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = serving_prediction(cfg, len(times), 1, decoder)
-    want_routes = route_prediction(flash_mma=want["flash_attention"],
-                                   score_tensor_cores=want["fused_score_topk"])
+    # every serving forward is a context encoder's
+    want_routes = route_prediction(
+        flash_mma=want["flash_attention"], score_tensor_cores=want["fused_score_topk"],
+        flash_wgmma=want["flash_attention"] if wide_heads(cfg.model) else 0)
     preset = label or preset
     log(f"{preset} serving launches (3 beam-5 batches + 1 greedy batch): {launches}, by "
         f"route {routes}; predicted {want}, {want_routes}")
@@ -1456,7 +1516,7 @@ def serve(dev, model, preset="georic", decoder="decoder_step", label=None):
         warmup_s=warm_s, batch_ms=[t * 1e3 for t in times],
         captions_per_s_median=statistics.median(caps),
         captions_per_s_all=BATCH * len(times) / sum(times),
-        greedy_batch_ms=greedy_s * 1e3, peak_mem_gb=peak_gb,
+        greedy_batch_ms=greedy_s * 1e3, peak_mem_gb=peak_gb, routes=routes,
         pointer_token_share=pointer_share, fact_token_share=fact_share)
     log(f"{preset} serving (batch {BATCH}, beam {BEAM}, L {L}, bf16): {summary}")
     require(cfg.model.variant == "geo" or pointer_share > 0,
@@ -2531,7 +2591,7 @@ def geometry_cli(dev, model, split_cls, workdir):
     """The CLIs at --geometry 512x8 on phase 8's in-memory split (its data
     directory from cli_phase): run_train georic --geometry 512x8 for one
     epoch at batch 256 from the 512x8 model's seeded encoder, every flash
-    forward on the bf16 tensor-core kernels; run_eval from its BEST_
+    forward on the bf16 tensor-core kernels (the encoders' on wgmma); run_eval from its BEST_
     checkpoint, which records the geometry and re-applies it, every flash
     forward on them again and a CSV row for every TEST row."""
     from icek_torch import apps
@@ -2568,7 +2628,8 @@ def geometry_cli(dev, model, split_cls, workdir):
             f"run_eval --geometry CSV: {out['csv_rows']} rows for {RUN_ROWS['TEST']} TEST rows")
     for what in ("train_routes", "eval_routes"):
         r = out[what]
-        require(r["flash_mma"] > 0 and r["flash_tf32"] == r["flash_cuda_cores"] == 0,
+        require(r["flash_mma"] > 0 and r["flash_tf32"] == r["flash_cuda_cores"] == 0
+                and r["flash_wgmma"] == r["flash_mma"] > 0,
                 f"--geometry {GEOMETRY} CLI {what}: flash routes {r}")
     log(f"train run cli at --geometry {GEOMETRY}: {out}")
     return out
@@ -3757,6 +3818,7 @@ def cross_check(dev, model, preset="georic", decoder="decoder_step_f32"):
             want = decoder_launches(**{decoder: L})
             require(launches == want, f"{preset} f32 decode: decoder-step launches {launches} "
                                       f"!= {want}")
+            routes["decoder"] = launches
             layers = m.num_layers * (2 if m.has_facts else 1)
             routes["beam"] = route_counts()
             want = route_prediction(flash_tf32=layers, score_tensor_cores=L)
@@ -3840,9 +3902,12 @@ def run_train_path(dev, model, preset="georic", steps=TRAIN_STEPS):
         losses.append(float(loss))            # reading the loss waits for the step
         times.append(time.perf_counter() - t0)
     launches = {name: fn.launches for name, (fn, _) in counted.items()}
-    # every forward on the bf16 tensor-core kernels, at any head dim
+    # every forward on the bf16 tensor-core kernels, at any head dim (on
+    # wgmma above 32 dims)
     routes = route_counts()
-    want_routes = route_prediction(flash_mma=counted["flash_attention"][1] * steps)
+    flash_n = counted["flash_attention"][1] * steps
+    want_routes = route_prediction(flash_mma=flash_n,
+                                   flash_wgmma=flash_n if wide_heads(m) else 0)
     require(routes == want_routes, f"{preset} bf16 train step: routes {routes} != {want_routes}")
     # and every backward on the bf16 tensor-core pair
     bwd_routes = bwd_route_counts()
@@ -4054,27 +4119,31 @@ def geometry_path(dev):
     FFN 512, seeded weights, its own ResNet-101 projecting to 512) through
     the entry points, with the kernel routes held: beam-5 serving of batches
     of 256 through Evaluator.decode_batch (serve: every flash forward on the
-    bf16 tensor-core kernels, the score head's tensor-core pass, the decoder
-    step on its CUDA-core route, whose tensor-core kernel takes heads of at
-    most 32; bf16 token agreement with the stock step logged); the f32
-    Evaluators on the card and on the CPU (cross_check: f32 beam tokens
-    equal, the flash forwards on the TF32 kernels); bf16 train steps at
-    batch 256 with the preset's dropout (run_train_path: forwards on mma,
-    one backward launch each); the f32 step (f32_train_path: TF32 forwards
-    and backwards, at dropout 0 held to the CPU's step over the gradient
-    tree); and the decoder step at this width on its route.  Returns its
-    records."""
+    bf16 wgmma forward, the score head's tensor-core pass, the decoder step
+    on its tensor-core route with the cross heads padded to 64, 30 a batch
+    and none on the CUDA-core kernel; bf16 token agreement with the stock
+    step logged); the f32 Evaluators on the card and on the CPU
+    (cross_check: f32 beam tokens equal, the flash forwards on the TF32
+    kernels, the decoder step on its CUDA-core route: the f32 tensor-core
+    block at heads of 64 would not fit the card's shared memory); bf16 train
+    steps at batch 256 with the preset's dropout (run_train_path: forwards
+    on mma, the encoder's on wgmma, one backward launch each, the wgmma
+    backward pair reading the wgmma forward's lse and keep bits); the f32 step
+    (f32_train_path: TF32 forwards and backwards, at dropout 0 held to the
+    CPU's step over the gradient tree); and the decoder step at this width
+    on each dtype's route.  Returns its records."""
     model = full_width_model(geometry=GEOMETRY)
     m = model[0].model
     require((m.emb_dim, m.num_heads, m.num_layers) == (512, 8, 3),
             f"--geometry {GEOMETRY}: D {m.emb_dim}, {m.num_heads} heads, {m.num_layers} layers")
     label = f"geo {GEOMETRY}"
-    decoder = "decoder_step_cuda_cores"   # heads of 64: the tensor-core step takes at most 32
-    launches, serving, _ = serve(dev, model, decoder=decoder, label=label)
-    checked = cross_check(dev, model, decoder=decoder)
+    # heads of 64: bf16 on the tensor cores (pad 64), f32 on the CUDA cores
+    launches, serving, _ = serve(dev, model, decoder="decoder_step", label=label)
+    checked = cross_check(dev, model, decoder="decoder_step_cuda_cores")
     train_launches, train, _ = run_train_path(dev, model, steps=GEOMETRY_TRAIN_STEPS)
     f32 = f32_train_path(dev, model, train, oracle="cpu")
-    step = check_decoder_step_geometry(dev, GEOMETRY)
+    step = check_decoder_step_geometry(
+        dev, GEOMETRY, want_routes={torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"})
     del model
     rec = dict(serving=serving, serving_launches=launches, f32_check=checked,
                train=train, train_launches=train_launches, f32_train=f32,
@@ -4532,14 +4601,15 @@ def run_phases(dev, card) -> list:
             "bound_f32_cores_ms": rec["bound_ms"], **extra})
     # head dims above 32 (F4): the --geometry 512x8 model's Hd 64 at the
     # encoder site (B 256, T 301, 8 heads), on each family's route, forward
-    # at rate 0 and backward at rate 0.2, with the path's launches; the
-    # other head dims and sites nested
+    # at rate 0 and backward at rate 0.2, with the path's launches (the bf16
+    # forward's: the wgmma kernel's, which takes every site); the other head
+    # dims and sites nested
     for fam, dtype, key in (("mma", torch.bfloat16, "bfloat16"), ("tf32", torch.float32,
                                                                     "float32")):
         site = flash_wide[64][key]["encoder"]
         run = wide_geo["train"] if fam == "mma" else wide_geo["f32_train"]
         for kind, rec, launches_n in (
-                ("", site["serving"], wide_geo["train_launches"]["flash_attention"]
+                ("", site["serving"], run["routes"]["flash_wgmma"]
                  if fam == "mma" else run["routes"]["flash_tf32"]),
                 ("_bwd", site["backward"], wide_geo["train_launches"]["flash_attention_bwd"]
                  if fam == "mma" else run["launches"]["flash_attention_bwd"])):
@@ -4557,8 +4627,11 @@ def run_phases(dev, card) -> list:
                         + ("rate 0" if kind == "" else f"rate {RATE}"),
                 **{k: rec[k] for k in ("cuda_cores_ms", "rate0_ms", "bound_tf32_ms")
                    if k in rec},
-                "launches_serving": (wide_geo["serving_launches"]["flash_attention"]
+                "launches_serving": (wide_geo["serving"]["routes"]["flash_wgmma"]
                                      if fam == "mma" and kind == "" else None),
+                **({"kernel": rec["kernel"], "mma_sync_ms": rec["mma_sync_ms"],
+                    "over_library": rec["ms"] / rec["library_ms"]}
+                   if fam == "mma" and kind == "" else {}),
                 **({"bwd_routes": run["bwd_routes"], "kernels": HD64_BWD_KERNELS[fam],
                     "rate0_over_library": rec["rate0_ms"] / rec["library_ms"]}
                    if kind == "_bwd" else {}),
@@ -4571,10 +4644,12 @@ def run_phases(dev, card) -> list:
     rows.append({
         "name": "decoder_step_512x8", "route": "cuda", "source": "icek_torch/csrc/decoder_step.cu",
         "replaces": meta["decoder_step"][1],
-        "launches": wide_geo["serving_launches"]["decoder_step_cuda_cores"],
+        "launches": wide_geo["serving_launches"]["decoder_step"],
         **{k: bf[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                              "library_ms", "shape", "tol")},
-        "decoder_route": bf["route"], "dtype": "bfloat16", "f32": f32})
+                              "library_ms", "shape", "tol", "kernel", "cuda_cores_ms")},
+        "launches_cuda_cores": wide_geo["serving_launches"]["decoder_step_cuda_cores"],
+        "decoder_route": bf["route"], "dtype": "bfloat16", "f32": f32,
+        "launches_f32": wide_geo["f32_check"][2]["decoder"]})
     head = int8["sites"]["1x1_s1"]
     rows.append({
         "name": "int8_conv", "route": "cuda", "source": "icek_torch/csrc/int8_conv.cu",

@@ -23,7 +23,7 @@
 // not fit shared memory (unlike the TPU's VMEM); they come from the 50 MB L2
 // to every block, so the fewer blocks read them the better.
 //
-// Route 1, the tensor cores (decoder_step_mma_kernel<T>, bf16 and f32; the
+// Route 1, the tensor cores (decoder_step_mma_kernel<T, HP>, bf16 and f32; the
 // wrapper's predicate kernels/decoder_step.py::uses_tensor_cores):
 //   * a block owns up to 16 hypothesis rows (one m16 tile): the G * K rows
 //     of G images for K <= 16 (the wrapper picks G so the grid is about one
@@ -43,7 +43,7 @@
 //     n8 tile with one 16-byte load straight from L2 into registers, two
 //     k-pairs ahead; each weight is read once per block for all its rows and
 //     kept in L2 (evict_last) against the stream;
-//   * the cross K/V arrive head-major with Hd padded to 32 (laid out once
+//   * the cross K/V arrive head-major with Hd padded to HP (laid out once
 //     per decode batch, kernels/decoder_step.py::pad_cross_heads): 16-byte
 //     aligned rows that stream, 32 memory rows of one image a stage (bf16;
 //     16 in f32, whose rows are twice as long), through a three-stage
@@ -53,10 +53,20 @@
 //     takes head h: S = Q K^T and O += P V on the tensor cores, online
 //     softmax in f32, flash style (f32: P split like any A operand and taken
 //     in a permuted k order, cross_tile_f32);
+//   * HP, the head pad, is a template parameter: 32 for heads of at most 32
+//     dims (the presets' 10 heads of 30), 64 for bf16 heads of 33 to 64
+//     (--geometry 512x8's 8 heads of 64).  At 64 warp h's S takes four k16
+//     steps and its O is 16 x 64, and a stage holds 16 memory rows: with
+//     32-row stages D 512's block would need 316,800 bytes (117,120 of
+//     activations beside a 199,680-byte ring), with 16 it needs 216,960.
+//     f32 keeps HP 32: at 512x8 its activations alone take 166,272 bytes
+//     and a 16-row ring 198,144 more (only an 8-row, two-stage ring would
+//     fit), so f32 heads above 32 dims run route 2;
 //   * self-attention: two threads a (row, head), each half of the head's
-//     dims, an online softmax over the ancestry-gathered cache rows (4-byte
-//     bf16 or 8-byte f32 loads, the next row's in flight) and the current
-//     step's own K/V, on the CUDA cores in f32;
+//     dims (16 at HP 32, 32 at HP 64), an online softmax over the
+//     ancestry-gathered cache rows (4-byte bf16 or 8-byte f32 loads, the
+//     next row's in flight) and the current step's own K/V, on the CUDA
+//     cores in f32;
 //   * biases, residual adds, LayerNorm and softmax statistics in f32 in
 //     shared memory and registers.
 //   On an H100 at step 15 of the beam shape bf16 takes 0.37-0.38 ms against
@@ -66,11 +76,14 @@
 //   takes 0.93-0.94 ms against 0.308: its linears issue ~7 instructions an
 //   mma (each block splits every weight), the cross attention's chains are
 //   latency-bound at 10 warps; packed hi / lo weights (twice the L2 bytes)
-//   were slower, 1.235 ms (PERF.md).
+//   were slower, 1.235 ms (PERF.md).  At 512x8 (HP 64, G = 2: 128 blocks)
+//   bf16 takes about 0.89 ms against a 0.264 ms byte bound, where the
+//   CUDA-core kernel took 7.1 (G = 3, 86 blocks reading the 12.6 MB of
+//   weights from L2 a third fewer times, measured slower: PERF.md).
 // Route 2, the CUDA-core kernel (decoder_step_kernel): the shapes route 1
-// refuses (more than 10 heads, a head dim above 32 or odd, or route 1's
-// shared memory past the card's), and bf16 or f32 weights stacked without
-// their packed copy.  A block owns R <= 8 hypotheses of one image (grid B x
+// refuses (more than 10 heads, a head dim above 64 or odd, an f32 head dim
+// above 32, or route 1's shared memory past the card's), and bf16 or f32
+// weights stacked without their packed copy.  A block owns R <= 8 hypotheses of one image (grid B x
 // ceil(K / R)): R = min(K, 8), lowered until the block's shared memory fits
 // the card, so beams of any width run (two or more blocks an image above 8,
 // each reading the image's memory once).  Activations (R x D, R x 3D, R x F)
@@ -378,7 +391,7 @@ int entry(const void* x, const int* anc, const void* ck, const void* cv,
 
 
 // ---------------------------------------------------------------------------
-// Route 1: the tensor cores, bf16 and f32 (decoder_step_mma_kernel<T>)
+// Route 1: the tensor cores, bf16 and f32 (decoder_step_mma_kernel<T, HP>)
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -386,7 +399,6 @@ constexpr int MW = 10;            // warps of a block: one a head (H <= MW)
 constexpr int MT = MW * 32;
 constexpr int ROWS = 16;          // hypothesis rows of a block: one m16 tile
 constexpr int XSTAGES = 3;        // depth of the cross ring
-constexpr int HDP = 32;           // head dim of the padded cross layout
 constexpr int NTW = 4;            // n8 tiles a warp takes per pass of a linear
 constexpr int MMA_MAX_SMEM = 232448;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -412,6 +424,15 @@ template <> struct Tc<float> {
 };
 template <typename T> constexpr int PAD = 16 / sizeof(T);   // 16 bytes of pitch pad
 
+// The head dim of the padded cross layout, HP: 32 for heads of at most 32
+// dims, 64 above (bf16 only).  A cross stage holds XT memory rows: Tc<T>::XT
+// at HP 32; 16 at HP 64, whose rows are twice as long, so that three stages
+// fit beside the activations of D 512 (216,960 bytes at 512x8).
+__host__ __device__ constexpr int head_pad(int Hd) { return Hd <= 32 ? 32 : 64; }
+template <typename T, int HP> __host__ __device__ constexpr int xt_of() {
+  return HP == 32 ? Tc<T>::XT : 16;
+}
+
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 // the pitch of an A operand of depth n: n padded to whole k-pairs, plus 16 bytes
@@ -420,17 +441,18 @@ template <typename T> __host__ __device__ inline int a_pitch(int n) {
 }
 
 // layout of the tensor-core kernel's shared memory (bytes), for (D, H, F, L)
+// and the cross layout's head pad HP
 struct MmaSmem {
   int pa, pq, pf, pb, px;                   // row pitches in elements (px: x's, f32)
   int xs, xa, ab, big, anc, ring, total;    // offsets, then the size
 };
 
-template <typename T>
+template <typename T, int HP>
 __host__ __device__ inline MmaSmem mma_smem(int D, int H, int F, int L) {
   constexpr int E = sizeof(T);
   MmaSmem s;
   s.pa = a_pitch<T>(D);
-  s.pq = H * HDP + PAD<T>;
+  s.pq = H * HP + PAD<T>;
   s.pf = a_pitch<T>(F);
   s.pb = max(max(round_up(3 * D, 8), s.pq), s.pf);
   // f32: x is its own A operand (pitch pa, zeros in the pad); bf16: x in f32
@@ -442,7 +464,7 @@ __host__ __device__ inline MmaSmem mma_smem(int D, int H, int F, int L) {
   s.big = s.ab + E * ROWS * s.pa;                     // T (ROWS, pb): qkv | q | hidden
   s.anc = s.big + E * ROWS * s.pb;                    // int (ROWS, L)
   s.ring = round_up(s.anc + 4 * ROWS * L, 16);        // T XSTAGES x (K, V) x (XT, pq)
-  s.total = s.ring + E * XSTAGES * 2 * Tc<T>::XT * s.pq;
+  s.total = s.ring + E * XSTAGES * 2 * xt_of<T, HP>() * s.pq;
   return s;
 }
 
@@ -472,7 +494,7 @@ struct MmaArgs {
   const int* anc;       // (B, K, L)
   const T* ck;          // (nL, B, L*K, D)
   const T* cv;
-  const T* xk;          // (nL, B, M, H, 32): head-major, Hd padded with zeros
+  const T* xk;          // (nL, B, M, H, HP): head-major, Hd padded with zeros
   const T* xv;
   const uint4* w[6];    // qkv, so, cq, co, f1, f2 packed: (nL, n/8, din/KP, 32 lanes, 16 bytes)
   const float* b[6];    // their biases (nL, dout)
@@ -718,15 +740,17 @@ __device__ __forceinline__ void cross_tile_f32(const float* kt, const float* vt,
     for (int e = 0; e < 4; ++e) acc[n][e] = fmaf(acc[n][e], alpha[e >> 1], pv[n][e]);
 }
 
-template <typename T>
+template <typename T, int HP>
 __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
   constexpr bool F32 = sizeof(T) == 4;
-  constexpr int XT = Tc<T>::XT, KP = Tc<T>::KP;
+  static_assert(HP == 32 || (HP == 64 && !F32), "f32 takes heads of at most 32 dims");
+  constexpr int XT = xt_of<T, HP>(), KP = Tc<T>::KP;
+  constexpr int SW = HP / 4;        // words (element pairs) of a self-attention thread
   using Word = typename Tc<T>::Word;
   extern __shared__ __align__(16) unsigned char smem[];
   const int K = a.K, D = a.D, H = a.H, F = a.F, L = a.L, M = a.M, i = a.step;
-  const int Hd = D / H, HP = H * HDP;
-  const MmaSmem sm = mma_smem<T>(D, H, F, L);
+  const int Hd = D / H, HPT = H * HP;
+  const MmaSmem sm = mma_smem<T, HP>(D, H, F, L);
   const int PA = sm.pa, PQ = sm.pq, PF = sm.pf, PB = sm.pb, PX = sm.px;
   float* xs = reinterpret_cast<float*>(smem + sm.xs);
   T* xa = reinterpret_cast<T*>(smem + sm.xa);     // f32: xs itself
@@ -766,18 +790,18 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
   // of layer s / (nimg nT), K then V, 16 bytes a copy, zeros past M
   const int nT = (M + XT - 1) / XT;
   const int per_layer = nimg * nT, total = a.nL * per_layer;
-  const int chunks = HP / PAD<T>;
+  const int chunks = HPT / PAD<T>;
   auto load_stage = [&](int s) {
     if (s < total) {
       const int l = s / per_layer, rem = s - l * per_layer;
       const int gi = rem / nT, m0 = (rem - gi * nT) * XT;
-      const long long base = (((long long)l * a.B + img0 + gi) * M + m0) * HP;
+      const long long base = (((long long)l * a.B + img0 + gi) * M + m0) * HPT;
       T* kd = ring + (s % XSTAGES) * 2 * XT * PQ;
       T* vd = kd + XT * PQ;
       for (int e = tid; e < XT * chunks; e += MT) {
         const int r = e / chunks, c = e - r * chunks;
         const bool ok = m0 + r < M;
-        const long long src = ok ? base + (long long)r * HP + PAD<T> * c : 0;
+        const long long src = ok ? base + (long long)r * HPT + PAD<T> * c : 0;
         cp_async16_hint(smem_u32(kd + r * PQ + PAD<T> * c), a.xk + src, ok, stream);
         cp_async16_hint(smem_u32(vd + r * PQ + PAD<T> * c), a.xv + src, ok, stream);
       }
@@ -826,7 +850,7 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
 
     // ---- self-attention: two threads a (row, head), half the dims each ----
     {
-      const int half = tid & 1, w0 = 8 * half, nw = min(8, Hd / 2 - w0);
+      const int half = tid & 1, w0 = SW * half, nw = min(SW, Hd / 2 - w0);
       const unsigned pair = 3u << (lane & 30);
       const long long img = (long long)L * K * D;
       for (int task = tid >> 1; task < R * H; task += MT / 2) {
@@ -839,30 +863,30 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
         const T* kb = a.ck + base;
         const T* vb = a.cv + base;
         const int* ar = anc + r * L;
-        float q[16], o[16];
+        float q[2 * SW], o[2 * SW];
 #pragma unroll
-        for (int w = 0; w < 8; ++w) {
+        for (int w = 0; w < SW; ++w) {
           const float2 f = w < nw ? unpack(qs[w]) : make_float2(0.f, 0.f);
           q[2 * w] = f.x;
           q[2 * w + 1] = f.y;
           o[2 * w] = o[2 * w + 1] = 0.f;
         }
-        Word kw[8], vw[8];
+        Word kw[SW], vw[SW];
         const Word zero{};
         // history row tt < i through the ancestry, or this step's own K/V
-        auto fetch = [&](int tt, Word (&kq)[8], Word (&vq)[8]) {
+        auto fetch = [&](int tt, Word (&kq)[SW], Word (&vq)[SW]) {
           if (tt < i) {
             const long long off = (long long)(tt * K + ar[tt]) * D;
             const Word* kp = reinterpret_cast<const Word*>(kb + off);
             const Word* vp = reinterpret_cast<const Word*>(vb + off);
 #pragma unroll
-            for (int w = 0; w < 8; ++w) {
+            for (int w = 0; w < SW; ++w) {
               kq[w] = w < nw ? __ldg(kp + w) : zero;
               vq[w] = w < nw ? __ldg(vp + w) : zero;
             }
           } else {
 #pragma unroll
-            for (int w = 0; w < 8; ++w) {
+            for (int w = 0; w < SW; ++w) {
               kq[w] = w < nw ? ks_[w] : zero;
               vq[w] = w < nw ? vs_[w] : zero;
             }
@@ -871,11 +895,11 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
         fetch(0, kw, vw);
         float m = -INFINITY, s = 0.f;
         for (int tt = 0; tt <= i; ++tt) {
-          Word kn[8], vn[8];
+          Word kn[SW], vn[SW];
           if (tt < i) fetch(tt + 1, kn, vn);
           float dot = 0.f;
 #pragma unroll
-          for (int w = 0; w < 8; ++w) {
+          for (int w = 0; w < SW; ++w) {
             const float2 k2 = unpack(kw[w]);
             dot = fmaf(q[2 * w], k2.x, fmaf(q[2 * w + 1], k2.y, dot));
           }
@@ -885,7 +909,7 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
           const float alpha = __expf(m - m_new), p = __expf(sv - m_new);
           s = s * alpha + p;
 #pragma unroll
-          for (int w = 0; w < 8; ++w) {
+          for (int w = 0; w < SW; ++w) {
             const float2 v2 = unpack(vw[w]);
             o[2 * w] = fmaf(p, v2.x, o[2 * w] * alpha);
             o[2 * w + 1] = fmaf(p, v2.y, o[2 * w + 1] * alpha);
@@ -893,7 +917,7 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
           m = m_new;
           if (tt < i) {
 #pragma unroll
-            for (int w = 0; w < 8; ++w) {
+            for (int w = 0; w < SW; ++w) {
               kw[w] = kn[w];
               vw[w] = vn[w];
             }
@@ -902,7 +926,7 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
         const float inv = 1.f / s;
         Word* dst = reinterpret_cast<Word*>(ab + r * PA + col);
 #pragma unroll
-        for (int w = 0; w < 8; ++w)
+        for (int w = 0; w < SW; ++w)
           if (w < nw) dst[w] = pack_word(ab, o[2 * w] * inv, o[2 * w + 1] * inv);
       }
     }
@@ -916,13 +940,13 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
     norm_rows(xs, PX, xa, PA, lns, lnb, R, D, a.eps);
     __syncthreads();
 
-    // ---- cross-attention query, head-major with Hd padded to 32 ----
+    // ---- cross-attention query, head-major with Hd padded to HP ----
     {
       const float* bias = a.b[2] + (long long)l * D;
       mma_linear(xa, PA, kp_d, wl(2, D, D), nt_d, [&](int row, int col, float y0, float y1) {
         if (col >= D) return;
         const int hh = col / Hd;
-        store_pair(big + row * PQ + hh * HDP + col - hh * Hd, y0 + bias[col], y1 + bias[col + 1]);
+        store_pair(big + row * PQ + hh * HP + col - hh * Hd, y0 + bias[col], y1 + bias[col + 1]);
       });
     }
     __syncthreads();
@@ -931,9 +955,9 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
     {
       const int hh = warp;
       const float c = sc * LOG2E;
-      uint32_t qf[2][4];                      // bf16: Q's A fragments (2 k16 steps)
+      uint32_t qf[HP / 16][4];                // bf16: Q's A fragments (HP / 16 k16 steps)
       FragA<2> qs[F32 ? 4 : 1];               // f32: split (4 k8 steps)
-      float acc[4][4], mrow[2], lrow[2];
+      float acc[HP / 8][4], mrow[2], lrow[2];
       const int s0 = l * per_layer;
       for (int s = s0; s < s0 + per_layer; ++s) {
         cp_async_wait<XSTAGES - 2>();
@@ -941,10 +965,10 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
         load_stage(s + XSTAGES - 1);
         if (hh >= H) continue;
         const int rem = s - s0, gi = rem / nT, mt = rem - gi * nT, m0 = mt * XT;
-        const T* kt = ring + (s % XSTAGES) * 2 * XT * PQ + hh * HDP;
+        const T* kt = ring + (s % XSTAGES) * 2 * XT * PQ + hh * HP;
         const T* vt = kt + XT * PQ;
         if (mt == 0) {                        // an image's first tile: fresh state
-          const T* qsrc = big + (lane & 15) * PQ + hh * HDP + (lane >> 4) * PAD<T>;
+          const T* qsrc = big + (lane & 15) * PQ + hh * HP + (lane >> 4) * PAD<T>;
           if constexpr (F32) {
 #pragma unroll
             for (int ds = 0; ds < 4; ++ds) {
@@ -953,11 +977,11 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
               qs[ds] = split_frag(r4);
             }
           } else {
-            ldsm_x4(qf[0], qsrc);
-            ldsm_x4(qf[1], qsrc + 16);
+#pragma unroll
+            for (int ks = 0; ks < HP / 16; ++ks) ldsm_x4(qf[ks], qsrc + 16 * ks);
           }
 #pragma unroll
-          for (int n = 0; n < 4; ++n)
+          for (int n = 0; n < HP / 8; ++n)
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
           mrow[0] = mrow[1] = -INFINITY;
@@ -966,19 +990,24 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
         if constexpr (F32) {
           cross_tile_f32(kt, vt, PQ, qs, acc, mrow, lrow, m0, M, c);
         } else {
-          float sv[4][4];
+          // S: XT / 8 n8 tiles of keys, each HP / 16 k-steps (an ldmatrix.x4
+          // gives two); O: HP / 8 n8 tiles of dims, XT / 16 k-steps of keys
+          float sv[XT / 8][4];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            uint32_t kb[4];
-            ldsm_x4(kb, kt + (8 * j + (lane & 7)) * PQ + 8 * (lane >> 3));
+          for (int j = 0; j < XT / 8; ++j) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) sv[j][e] = 0.f;
-            mma_bf16(sv[j], qf[0], kb[0], kb[1]);
-            mma_bf16(sv[j], qf[1], kb[2], kb[3]);
+#pragma unroll
+            for (int d = 0; d < HP / 32; ++d) {
+              uint32_t kb[4];
+              ldsm_x4(kb, kt + (8 * j + (lane & 7)) * PQ + 32 * d + 8 * (lane >> 3));
+              mma_bf16(sv[j], qf[2 * d], kb[0], kb[1]);
+              mma_bf16(sv[j], qf[2 * d + 1], kb[2], kb[3]);
+            }
           }
           if (m0 + XT > M) {                  // the ragged last tile
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
+            for (int j = 0; j < XT / 8; ++j)
 #pragma unroll
               for (int e = 0; e < 4; ++e)
                 if (m0 + 8 * j + 2 * t + (e & 1) >= M) sv[j][e] = -INFINITY;
@@ -988,19 +1017,19 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
           for (int r = 0; r < 2; ++r) {
             float mx = -INFINITY;
 #pragma unroll
-            for (int j = 0; j < 4; ++j) mx = fmaxf(mx, fmaxf(sv[j][2 * r], sv[j][2 * r + 1]));
+            for (int j = 0; j < XT / 8; ++j) mx = fmaxf(mx, fmaxf(sv[j][2 * r], sv[j][2 * r + 1]));
             const float m_new = fmaxf(mrow[r], quad_max(mx) * c);   // finite: row 0 of a tile is live
             alpha[r] = fast_exp2(mrow[r] - m_new);
             mrow[r] = m_new;
             lrow[r] *= alpha[r];
           }
 #pragma unroll
-          for (int n = 0; n < 4; ++n)
+          for (int n = 0; n < HP / 8; ++n)
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
-          uint32_t pf[2][4];                  // P as A fragments, keys 16 kk .. 16 kk + 15
+          uint32_t pf[XT / 16][4];            // P as A fragments, keys 16 kk .. 16 kk + 15
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < XT / 8; ++j) {
             float p[4];
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
@@ -1011,9 +1040,9 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
             pf[j >> 1][2 * (j & 1) + 1] = pack_bf16(p[2], p[3]);
           }
 #pragma unroll
-          for (int kk = 0; kk < 2; ++kk)
+          for (int kk = 0; kk < XT / 16; ++kk)
 #pragma unroll
-            for (int np = 0; np < 2; ++np) {
+            for (int np = 0; np < HP / 16; ++np) {
               uint32_t vb[4];
               ldsm_x4_trans(vb, vt + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * PQ +
                                     16 * np + 8 * (lane >> 4));
@@ -1030,7 +1059,7 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
             if (row < lo || row >= lo + K || row >= R) continue;
             T* dst = ab + row * PA + hh * Hd;
 #pragma unroll
-            for (int n = 0; n < 4; ++n)
+            for (int n = 0; n < HP / 8; ++n)
               if (8 * n + 2 * t < Hd)
                 store_pair(dst + 8 * n + 2 * t, acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
           }
@@ -1063,23 +1092,33 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
   for (int e = tid; e < R * D; e += MT) a.h[(long long)row0 * D + e] = xs[(e / D) * PX + e % D];
 }
 
+template <typename T, int HP>
+int launch_mma(const MmaArgs<T>& a, void* stream) {
+  const MmaSmem sm = mma_smem<T, HP>(a.D, a.H, a.F, a.L);
+  if (sm.total > MMA_MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      decoder_step_mma_kernel<T, HP>, cudaFuncAttributeMaxDynamicSharedMemorySize, sm.total);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = a.S == 1 ? (a.B + a.G - 1) / a.G : a.B * a.S;
+  decoder_step_mma_kernel<T, HP><<<blocks, MT, sm.total, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// heads of at most 32 dims at pad 32 (bf16 and f32); 33-64 at pad 64 (bf16)
 template <typename T>
 int run_mma(const MmaArgs<T>& a, void* stream) {
   const int Hd = a.H > 0 ? a.D / a.H : 0;
   const bool rows_ok = a.S == 1 ? a.G >= 1 && a.G * a.K <= ROWS
                                 : a.G == 1 && a.S > 1 && a.S <= a.K &&
                                       (a.K + a.S - 1) / a.S <= ROWS;
+  const int hd_max = sizeof(T) == 4 ? 32 : 64;
   if (a.K < 1 || !rows_ok || a.H < 1 || a.H > MW || a.D % a.H != 0 || Hd % 2 != 0 ||
-      Hd > HDP || a.F % 2 != 0 || a.step < 0 || a.step >= a.L || a.M < 1)
+      Hd > hd_max || a.F % 2 != 0 || a.step < 0 || a.step >= a.L || a.M < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const MmaSmem sm = mma_smem<T>(a.D, a.H, a.F, a.L);
-  if (sm.total > MMA_MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      decoder_step_mma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, sm.total);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = a.S == 1 ? (a.B + a.G - 1) / a.G : a.B * a.S;
-  decoder_step_mma_kernel<T><<<blocks, MT, sm.total, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (sizeof(T) == 2) {
+    if (head_pad(Hd) == 64) return launch_mma<T, 64>(a, stream);
+  }
+  return launch_mma<T, 32>(a, stream);
 }
 
 template <typename T>
@@ -1135,7 +1174,11 @@ ICEK_EXPORT int decoder_step_f32_mma(STEP_ARGS, int G, int S, float eps, void* s
   return entry_mma<float>(STEP_PASS, G, S, eps, stream);
 }
 
-// shared memory of the tensor-core route for (D, H, F, L), in bytes (f32 != 0: the f32 route's)
+// shared memory of the tensor-core route for (D, H, F, L), in bytes (f32 != 0: the f32
+// route's), at the head pad of D / H
 ICEK_EXPORT int decoder_step_mma_smem(int D, int H, int F, int L, int f32) {
-  return f32 ? mma_smem<float>(D, H, F, L).total : mma_smem<bf16>(D, H, F, L).total;
+  if (H < 1 || D % H) return -1;
+  if (head_pad(D / H) == 64)
+    return f32 ? mma_smem<float, 64>(D, H, F, L).total : mma_smem<bf16, 64>(D, H, F, L).total;
+  return f32 ? mma_smem<float, 32>(D, H, F, L).total : mma_smem<bf16, 32>(D, H, F, L).total;
 }

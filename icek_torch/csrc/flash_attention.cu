@@ -71,9 +71,13 @@
 //      wgmma was not taken for these: it wants 64-row tiles and swizzled
 //      operands, two of the three sites of the presets have 32 query rows,
 //      and at HDP 32 the kernels are not bound by the matrix unit.  At HDP
-//      64 the backward is a wgmma pair (flash_bwd_{dq,dkv}_wgmma_kernel,
-//      described where they are defined): there the mma.sync kernels were
+//      64 the backward is a wgmma pair (flash_bwd_{dq,dkv}_wgmma_kernel),
+//      and at HDP 64 and 128 the forward is flash_fwd_wgmma_kernel (each
+//      described where it is defined): there the mma.sync kernels were
 //      bound by the ldmatrix reads of the staged operands and their issue.
+//      The forward takes wgmma at 32-row sites too (the 512x8 decoder's
+//      self and cross attention): its half-empty 64-row tiles measured
+//      faster than the mma.sync forward's 16-row warps there (PERF.md).
 //    * Forward and dQ: a block of four warps (two when Tq <= 32) walks the
 //      key tiles; whole tiles beyond kv_len or above the causal diagonal
 //      are skipped, the straddling tile is masked element-wise.  The online
@@ -1388,6 +1392,187 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_wgmma_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 forward on wgmma at HDP 64 and 128 (flash_fwd_wgmma_kernel), the
+// backward pair's pattern with one product fewer.  The mma.sync forward
+// above had four warps each read every staged K and V fragment by ldmatrix
+// for its own m16 tile, two mma.sync per ldmatrix.x4: at HDP 64 it took
+// 2.9x its byte bound at the 512x8 encoder site and lost to SDPA.  Here a
+// block is one warpgroup that owns 64 query rows (warp w rows 16 w ..) and
+// walks 64-key tiles:
+//   * S = Q K^T: HDP / 16 wgmma m64n64k16, Q as A from registers (the warp's
+//     fragments straight from global memory, as before), K's tile of the
+//     128-byte swizzle K-major by descriptor; at HDP 128 a tile is two
+//     64-dim halves, each 64 rows of 128 bytes, k-steps 0-3 in the first;
+//   * the online softmax in the log2 domain on the accumulator, which holds
+//     mma.sync's m16n8 C layout eight times a warp, so the masks, the keep
+//     flags (keep4_rows, keep_cell: the words the backward reads) and the
+//     packing of P into A fragments are the mma.sync forward's per score;
+//   * O += P V: four k-steps of 16 keys, V's tile read MN-major through the
+//     transpose bit (one m64n64k16 a k-step and 64-dim half); k-steps whose
+//     keys all lie past the block's end are skipped (their P is 0);
+//   * each product group is waited for (wait_group 0) before its
+//     accumulators are read and before the registers that fed its A are
+//     reused (reg_fence); the next tile is staged by cp.async under this
+//     tile's work, double-buffered, and turned over behind a block barrier.
+// Two warpgroups a block sharing the staged tiles, and the next tile's S
+// issued before this tile's softmax over three buffers, measured slower on
+// an H100 (PERF.md).  So did the mma.sync forward at calls of at most 32
+// query rows (the 512x8 decoder's self and cross sites), where this
+// kernel's 64-row tiles are half empty.
+// ---------------------------------------------------------------------------
+
+// shared memory of the wgmma forward: two buffers of K and V, HDP / 64
+// swizzled tiles each, and 1024 bytes to align them
+template <int HDP> __host__ __device__ constexpr int wg_fwd_bytes() {
+  return 4 * (HDP / 64) * SW_TILE + 1024;
+}
+
+template <int HDP, bool DROP>
+__global__ void __launch_bounds__(128) flash_fwd_wgmma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ o, float* __restrict__ lse, uint32_t* __restrict__ keep_words,
+    const Shape a) {
+  constexpr int NT = 128, KS = HDP / 16, NH = HDP / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  auto ktile = [&](int buf, int x) { return base + (buf * NH + x) * SW_TILE; };
+  auto vtile = [&](int buf, int x) { return base + ((2 + buf) * NH + x) * SW_TILE; };
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int hw = a.Hd >> 1;
+  const int row0 = blockIdx.x * TILE + warp * 16;   // this warp's first query row
+  const bf16* kp = k + b * a.k_sb + (long long)h * a.Hd;
+  const bf16* vp = v + b * a.v_sb + (long long)h * a.Hd;
+  // keys the block may see: [0, blk_end)
+  const int blk_end = a.causal ? min(a.kv_len, (int)(blockIdx.x + 1) * TILE) : a.kv_len;
+  const int ntiles = (blk_end + TILE - 1) / TILE;
+  auto stage = [&](int it) {
+#pragma unroll
+    for (int x = 0; x < NH; ++x) {
+      stage_sw128<NT>(ktile(it & 1, x), kp + 64 * x, a.k_st, it * TILE, blk_end, hw - 32 * x,
+                      a.vec);
+      stage_sw128<NT>(vtile(it & 1, x), vp + 64 * x, a.v_st, it * TILE, blk_end, hw - 32 * x,
+                      a.vec);
+    }
+  };
+  stage(0);
+  cp_async_commit();
+
+  uint32_t qf[KS][4];
+  load_a_frags<KS>(qf, q + b * a.q_sb + (long long)h * a.Hd, a.q_st, row0, a.Tq, hw, g, t);
+  float acc[NH][32];
+#pragma unroll
+  for (int x = 0; x < NH; ++x)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[x][i] = 0.f;
+  // rows g (index 0) and g + 8 (index 1): running max and this lane's share
+  // of the running sum, both of 2^(s * c)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const float c = a.scale * LOG2E;
+  const unsigned long long mblk =
+      DROP ? mask_row_block(a, b, h, row0 + g + ((t & 1) ? 8 : 0)) + (t >> 1) : 0ull;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * TILE, buf = it & 1;
+    if (it + 1 < ntiles) stage(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_async_shared();
+    __syncthreads();
+    float s[32];
+    wgmma_fence();
+    wgmma_rs<false, 0>(s, qf[0], sw128_desc(ktile(buf, 0)));
+#pragma unroll
+    for (int ks = 1; ks < KS; ++ks)
+      wgmma_rs<true, 0>(s, qf[ks], sw128_desc(ktile(buf, ks >> 2) + 32 * (ks & 3)));
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    // the tile that straddles kv_len or the diagonal is masked by element
+    if (k0 + TILE > a.kv_len || (a.causal && k0 + TILE > row0 + 1)) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = k0 + 8 * j + 2 * t + (i & 1), row = row0 + g + 8 * (i >> 1);
+          const int end = a.causal ? min(a.kv_len, row + 1) : a.kv_len;
+          if (key >= end) s[4 * j + i] = -INFINITY;
+        }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+      // finite from the first tile on: key 0 is visible to every row
+      const float m_new = fmaxf(m[r], quad_max(mx) * c);
+      alpha[r] = fast_exp2(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int x = 0; x < NH; ++x)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[x][i] *= alpha[(i >> 1) & 1];
+    uint32_t pf[4][4];   // P as A fragments: k-step kk holds keys 16 kk .. 16 kk + 15
+    uint32_t word = 0u;  // this lane's keep flags of the tile, for the backward
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t keep = 0xfu;
+      if (DROP) {
+        keep = keep4_rows(a, mblk + ((k0 + 8 * j) >> 2), t);
+        word |= keep << (4 * j);
+      }
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        p[i] = fast_exp2(fmaf(s[4 * j + i], c, -m[i >> 1]));   // masked: 2^-inf = 0
+        l[i >> 1] += p[i];                                    // the sum takes every key
+        if (DROP && !((keep >> i) & 1u)) p[i] = 0.f;
+      }
+      pf[j >> 1][2 * (j & 1)] = pack_bf16(p[0], p[1]);
+      pf[j >> 1][2 * (j & 1) + 1] = pack_bf16(p[2], p[3]);
+    }
+    if (DROP) keep_words[keep_cell(a, b, h, row0 >> 4, it) + lane] = word;
+    // k-steps whose 16 keys all lie past the block's end add zeros: skipped
+    const int nk = min(4, (blk_end - k0 + 15) / 16);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      if (kk < nk) {
+#pragma unroll
+        for (int x = 0; x < NH; ++x)
+          wgmma_rs<true, 1>(acc[x], pf[kk], sw128_desc(vtile(buf, x) + 2048 * kk));
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int x = 0; x < NH; ++x) reg_fence(acc[x]);
+    reg_fence(pf);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    const float lsum = quad_sum(l[r]);
+    if (row >= a.Tq) continue;
+    const float inv = a.inv / lsum;
+    uint32_t* op = reinterpret_cast<uint32_t*>(
+        o + (((long long)b * a.Tq + row) * a.H + h) * a.Hd);
+#pragma unroll
+    for (int x = 0; x < NH; ++x)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        if (32 * x + 4 * n + t < hw)
+          op[32 * x + 4 * n + t] =
+              pack_bf16(acc[x][4 * n + 2 * r] * inv, acc[x][4 * n + 2 * r + 1] * inv);
+    if (t == 0) lse[((long long)b * a.H + h) * a.Tq + row] = (m[r] + log2f(lsum)) * LN2;
+  }
+}
+
 // ===========================================================================
 // The TF32 kernels: f32 (three TF32 products a product, "3xTF32") and bf16
 // inputs that miss the 4-byte alignment or have an odd head dim (one TF32
@@ -2208,6 +2393,21 @@ int launch_dkv_mma(const void* q, const void* k, const void* v, const void* d_o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the bf16 forward on wgmma at HDP 64 / 128: one warpgroup a block, 64 rows
+template <int HDP>
+int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, void* lse,
+                     void* keep_words, int B, const Shape& a, cudaStream_t s) {
+  auto kernel = flash_fwd_wgmma_kernel<HDP, false>;
+  if (a.thresh < KEEP_ALL) kernel = flash_fwd_wgmma_kernel<HDP, true>;
+  constexpr int smem = wg_fwd_bytes<HDP>();
+  if (const int err = allow_smem(kernel, smem)) return err;
+  kernel<<<dim3((a.Tq + TILE - 1) / TILE, a.H, B), 128, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(lse),
+      static_cast<uint32_t*>(keep_words), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // the HDP-64 bf16 backward on wgmma: one warpgroup a block, 64 rows
 int launch_dq_wgmma(const void* q, const void* k, const void* v, const void* o,
                     const void* d_o, const void* lse, const void* keep_words, void* delta,
@@ -2419,17 +2619,26 @@ ICEK_EXPORT int flash_bwd_bf16(const void* q, const void* k, const void* v, cons
                                  stream);
 }
 
-// bf16 on the tensor cores (even Hd <= 128, 4-byte aligned rows).  With
-// dropout, `keep_words` (32-bit words, keep_cell's layout: B * H * 4 ceil(Tq /
-// 64) * ceil(Tk / 64) * 32 of them) takes the forward's keep flags to the
-// backward; it may be null at rate 0.
+// bf16 on the tensor cores (even Hd <= 128, 4-byte aligned rows), two
+// designs, one entry each: flash_fwd_bf16_mma runs the mma.sync forward at
+// every head dim, flash_fwd_bf16_wgmma the wgmma forward at HDP 64 and 128
+// (and refuses HDP 32).  The wrapper picks one by shape (uses_wgmma_forward
+// in kernels/flash_attention.py) and counts what it launched.  With dropout,
+// `keep_words` (32-bit words, keep_cell's layout: B * H * 4 ceil(Tq / 64) *
+// ceil(Tk / 64) * 32 of them, the same from both designs) takes the
+// forward's keep flags to the backward; it may be null at rate 0.
+static int mma_fwd_shape(Shape& a, const void* k, const void* v, const void* keep_words) {
+  if (!mma_shape_ok(a) || (a.thresh < KEEP_ALL && !keep_words))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.vec = vec_ok(2, a.Hd, {a.q_sb, a.q_st, a.k_sb, a.k_st, a.v_sb, a.v_st}, {k, v});
+  return 0;
+}
+
 ICEK_EXPORT int flash_fwd_bf16_mma(const void* q, const void* k, const void* v,
                                    void* o, void* lse, void* keep_words,
                                    ICEK_SHAPE_PARAMS) {
   Shape a = ICEK_SHAPE_ARGS;
-  if (!mma_shape_ok(a) || (a.thresh < KEEP_ALL && !keep_words))
-    return static_cast<int>(cudaErrorInvalidValue);
-  a.vec = vec_ok(2, Hd, ICEK_STRIDES, {k, v});
+  if (int err = mma_fwd_shape(a, k, v, keep_words)) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd_pad(a.Hd)) {
     case 32:
@@ -2437,6 +2646,19 @@ ICEK_EXPORT int flash_fwd_bf16_mma(const void* q, const void* k, const void* v,
                        : launch_fwd_mma<32, 2>(q, k, v, o, lse, keep_words, B, a, s);
     case 64: return launch_fwd_mma<64, 4>(q, k, v, o, lse, keep_words, B, a, s);
     default: return launch_fwd_mma<128, 4>(q, k, v, o, lse, keep_words, B, a, s);
+  }
+}
+
+ICEK_EXPORT int flash_fwd_bf16_wgmma(const void* q, const void* k, const void* v,
+                                     void* o, void* lse, void* keep_words,
+                                     ICEK_SHAPE_PARAMS) {
+  Shape a = ICEK_SHAPE_ARGS;
+  if (int err = mma_fwd_shape(a, k, v, keep_words)) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd_pad(a.Hd)) {
+    case 64: return launch_fwd_wgmma<64>(q, k, v, o, lse, keep_words, B, a, s);
+    case 128: return launch_fwd_wgmma<128>(q, k, v, o, lse, keep_words, B, a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

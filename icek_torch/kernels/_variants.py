@@ -1,7 +1,7 @@
 """Where a kernel's time goes, on the card: variants of its source, one process each.
 
     python -m icek_torch.kernels._variants fused_norm base,nophilox,copyonly [ROWS] [RATE]
-    python -m icek_torch.kernels._variants decoder_step base,g1,nolinears [STEP ...] [bf16] [f32] [BxK ...]
+    python -m icek_torch.kernels._variants decoder_step base,g1,nolinears [STEP ...] [bf16] [f32] [BxK ...] [wDxH ...]
     python -m icek_torch.kernels._variants score_topk base,nolist,nolse [K,K,...] [N]
     python -m icek_torch.kernels._variants flash_attention base,nophilox [RATE,RATE,...] [HxHd] [f32,bf16] [TqxTk[c],...]
     python -m icek_torch.kernels._variants int8_conv base,gather,epfirst,ep1,nostore,noepi,nomma [BATCH] [KINDS]
@@ -16,11 +16,13 @@ order given and then backwards, so a drift shows:
   (``dropout``) with torch.profiler, each kernel in a profiler session of
   its own, at ROWS (comma-separated row counts; default the train steps'
   8192, 13312, 26112 and 77056) and RATE (default 0.2), in bf16 and f32;
-* ``decoder_step``: ``fused_beam_decoder_step`` at the geo decoder's widths
-  (seeded random inputs, the cross K/V laid out by ``pad_cross_heads``
-  beforehand as the beam loop does) in each dtype named (bf16, f32;
-  default bf16), at each shape BxK (default 256x5, the beam shape) and each
-  STEP (default 15), with CUDA events.  Names in ``TWEAKS`` change the
+* ``decoder_step``: ``fused_beam_decoder_step`` at the geo decoder's widths,
+  or at each width w<D>x<H> named (w512x8: --geometry 512x8's 8 heads of
+  64) (seeded random inputs, the cross K/V laid out by ``pad_cross_heads``
+  beforehand as the beam loop does where the tensor-core route takes
+  them) in each dtype named (bf16, f32; default bf16), at each shape BxK
+  (default 256x5, the beam shape) and each STEP (default 15), with CUDA
+  events.  Names in ``TWEAKS`` change the
   wrapper's choices instead of the source (``cores``: the CUDA-core
   kernel).  Each run saves its outputs, and with ``--parent`` the parent's
   are compared with the first variant's bit for bit;
@@ -31,12 +33,15 @@ order given and then backwards, so a drift shows:
   takes the tensor-core pass (K <= 16) also the CUDA-core pass it replaced
   (the same h 4 bytes into its buffer);
 * ``flash_attention``: at the geo encoder site (B 256, T 301, H 10, Hd 30,
-  or the heads HxHd, such as 8x64 for --geometry 512x8; q, k, v strided
+  or the heads HxHd, such as 8x64 for --geometry 512x8, or several
+  comma-separated; q, k, v strided
   views of one fused QKV projection), or at the sites named (a fourth
   argument such as ``32x32c,32x497``: Tq x Tk, ``c`` causal; a cross
   site's q from its own projection), at each RATE (default 0 and 0.2), in
   each dtype named (default f32), with CUDA events: the forward (and
-  beside it the CUDA-core forward it replaced, through its entry), then the
+  beside it the CUDA-core forward it replaced, through its entry; in bf16
+  above head dim 32 also the device times of the routed forward and of the
+  mma.sync forward, torch.profiler in alternating rounds), then the
   backward (dQ, then dK/dV) and its two kernels apart (torch.profiler);
   each run saves its outputs, and with ``--parent`` the parent's are
   compared with the first variant's bit for bit;
@@ -697,12 +702,13 @@ def time_fused_norm(name: str, args) -> None:
 
 
 def beam_inputs(step: int, B: int = 256, K: int = 5, L: int = 30, M: int = 497, seed: int = 0,
-                dtype=torch.bfloat16):
-    """The geo decoder (3 layers, D 300, H 10, F 512) in `dtype` at step `step`."""
+                dtype=torch.bfloat16, D: int = 300, H: int = 10, F: int = 512):
+    """The geo decoder (3 layers, D 300, H 10, F 512; or the widths given,
+    such as --geometry 512x8's D 512, H 8) in `dtype` at step `step`."""
     from icek_torch.kernels import decoder_step as dsk
     from icek_torch.models import transformer as tfm
 
-    nL, D, H, F = 3, 300, 10, 512
+    nL = 3
     g = torch.Generator().manual_seed(seed)
     layers = tfm.init_decoder_stack(g, nL, D, F)
     layers = {"layers": [{k: _to(v, dtype) for k, v in lay.items()} for lay in layers["layers"]]}
@@ -715,8 +721,10 @@ def beam_inputs(step: int, B: int = 256, K: int = 5, L: int = 30, M: int = 497, 
     xk, xv = rnd(nL, B, M, D), rnd(nL, B, M, D)
     anc = torch.randint(0, K, (B, K, L), generator=g, dtype=torch.int32)
     anc[:, :, step:] = torch.arange(K, dtype=torch.int32)[None, :, None]
-    heads = dsk.pad_cross_heads([{"k": xk[l].view(B, M, H, D // H), "v": xv[l].view(B, M, H, D // H)}
-                                 for l in range(nL)], dtype)
+    heads = None
+    if D // H <= 32 or dsk.uses_tensor_cores(stacked, ck, K, H):
+        heads = dsk.pad_cross_heads([{"k": xk[l].view(B, M, H, D // H),
+                                      "v": xv[l].view(B, M, H, D // H)} for l in range(nL)], dtype)
     return stacked, x, anc.cuda(), ck, cv, xk, xv, heads, H
 
 
@@ -744,11 +752,15 @@ def pack_hilo(w):
 
 
 def decoder_step_cases(args):
-    """(dtype names, (B, K) shapes, steps) of the decoder_step timer's args."""
+    """(dtype names, (B, K) shapes, steps, (D, H) widths) of the decoder_step
+    timer's args; a width is written w<D>x<H> (w512x8), default the geo
+    decoder's 300x10."""
     dtypes = [a for a in args if a in _DTYPES] or ["bf16"]
-    shapes = [tuple(int(v) for v in a.split("x")) for a in args if "x" in a] or [(256, 5)]
+    shapes = [tuple(int(v) for v in a.split("x")) for a in args
+              if "x" in a and not a.startswith("w")] or [(256, 5)]
     steps = [int(a) for a in args if a.isdigit()] or [15]
-    return dtypes, shapes, steps
+    widths = [tuple(int(v) for v in a[1:].split("x")) for a in args if a.startswith("w")]
+    return dtypes, shapes, steps, widths or [(300, 10)]
 
 
 def time_decoder_step(name: str, args, save: str = None) -> None:
@@ -760,29 +772,36 @@ def time_decoder_step(name: str, args, save: str = None) -> None:
     if "wide_rows" in tweak:
         n = tweak["wide_rows"]
         dsk.image_parts = lambda B, K, sms: 1 if K <= dsk.ROWS else -(-K // n)
-    dtypes, shapes, steps = decoder_step_cases(args)
+    dtypes, shapes, steps, widths = decoder_step_cases(args)
     outputs = {}
-    for dt in dtypes:
-        for B, K in shapes:
-            for step in steps:
-                stacked, x, anc, ck, cv, xk, xv, heads, H = beam_inputs(step, B, K,
-                                                                        dtype=_DTYPES[dt])
-                if tweak.get("cores"):
-                    stacked = stacked._replace(mma=None)
-                if tweak.get("hilo"):
-                    stacked = stacked._replace(mma=dsk.PackedLinears(*(pack_hilo(w) for w in (
-                        stacked.qkv_w, stacked.so_w, stacked.cq_w, stacked.co_w, stacked.f1_w,
-                        stacked.f2_w))))
-                want = dsk.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv, step,
-                                                  num_heads=H)
-                run = lambda: dsk.fused_beam_decoder_step(stacked, x, anc, ck, cv, None, None,
-                                                          step, num_heads=H, cross_heads=heads)
-                got = run()
-                outputs[f"{dt} {B}x{K} step {step}"] = [t.cpu() for t in got]
-                err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
-                tol = 0.15 if dt == "bf16" else 1e-3
-                print(f"{name} {dt} B {B} K {K} step {step}: {_event_ms(run):.4f} ms "
-                      f"({_held('decoder_step', name, 'step', err, tol)})", flush=True)
+    for (D, H), dt, (B, K), step in ((w, d, s, t) for w in widths for d in dtypes
+                                     for s in shapes for t in steps):
+        stacked, x, anc, ck, cv, xk, xv, heads, H = beam_inputs(
+            step, B, K, dtype=_DTYPES[dt], D=D, H=H)
+        if tweak.get("cores"):
+            stacked = stacked._replace(mma=None)
+        if tweak.get("hilo"):
+            stacked = stacked._replace(mma=dsk.PackedLinears(*(pack_hilo(w) for w in (
+                stacked.qkv_w, stacked.so_w, stacked.cq_w, stacked.co_w, stacked.f1_w,
+                stacked.f2_w))))
+        want = dsk.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv, step,
+                                          num_heads=H)
+        if D // H > 32 and not dsk.uses_tensor_cores(stacked, ck, K, H):
+            # the CUDA-core kernel on unpadded K/V (a tree without the
+            # pad-64 layout pads no head wider than 32)
+            run = lambda: dsk.fused_beam_decoder_step(stacked, x, anc, ck, cv, xk, xv,
+                                                      step, num_heads=H)
+        else:
+            run = lambda: dsk.fused_beam_decoder_step(
+                stacked, x, anc, ck, cv, None, None, step, num_heads=H,
+                cross_heads=heads)
+        got = run()
+        label = "" if (D, H) == (300, 10) else f"{D}x{H} "
+        outputs[f"{label}{dt} {B}x{K} step {step}"] = [t.cpu() for t in got]
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+        tol = 0.15 if dt == "bf16" else 1e-3
+        print(f"{name} {label}{dt} B {B} K {K} step {step}: {_event_ms(run):.4f} ms "
+              f"({_held('decoder_step', name, 'step', err, tol)})", flush=True)
     if save:
         torch.save(outputs, save)
 
@@ -851,13 +870,14 @@ def flash_inputs(dtype=torch.float32, B: int = 256, T: int = 301, H: int = 10, H
 
 
 def time_flash_attention(name: str, args, save: str = None) -> None:
-    H, Hd = (int(x) for x in (args[1] if len(args) > 1 else "10x30").split("x"))
     outs = {}
-    for site in (args[3] if len(args) > 3 else "301x301").split(","):
-        tq, tk = (int(x) for x in site.rstrip("c").split("x"))
-        for dt in (args[2] if len(args) > 2 else "f32").split(","):
-            _time_flash(name, args, {"f32": torch.float32, "bf16": torch.bfloat16}[dt], H, Hd,
-                        outs, tq, tk, site.endswith("c"))
+    for heads in (args[1] if len(args) > 1 else "10x30").split(","):
+        H, Hd = (int(x) for x in heads.split("x"))
+        for site in (args[3] if len(args) > 3 else "301x301").split(","):
+            tq, tk = (int(x) for x in site.rstrip("c").split("x"))
+            for dt in (args[2] if len(args) > 2 else "f32").split(","):
+                _time_flash(name, args, {"f32": torch.float32, "bf16": torch.bfloat16}[dt], H,
+                            Hd, outs, tq, tk, site.endswith("c"))
     if save:
         torch.save(outs, save)
 
@@ -884,6 +904,15 @@ def _time_flash(name, args, dtype, H, Hd, outs, tq=301, tk=301, causal=False) ->
         if hasattr(fa, "route") and (rate == 0 or Hd <= 32):
             cores_run = lambda: fa._forward(q, k, v, Tk, causal, rate, 77, via="cuda_cores")[0]
             cores = f", CUDA-core forward {_event_ms(cores_run):.4f} ms"
+        if dtype == torch.bfloat16 and Hd > 32 and hasattr(fa, "uses_wgmma_forward"):
+            # device ms (torch.profiler, 100 calls a session) of the routed
+            # forward and of the mma.sync forward, in three alternating rounds
+            sync = lambda: fa._forward(q, k, v, Tk, causal, rate, 77, via="mma_sync")[0]
+            rounds = [(_device_ms(fwd, "flash_fwd", 100), _device_ms(sync, "flash_fwd", 100))
+                      for _ in range(3)]
+            cores += (", device " + " / ".join(f"{a:.4f}" for a, _ in rounds)
+                      + " ms, mma.sync forward device " + " / ".join(f"{b:.4f}" for _, b in rounds)
+                      + " ms")
         print(f"{name} {label} rate {rate}: forward {_event_ms(fwd):.4f} ms{cores} "
               f"({_held('flash_attention', name, 'forward', err, ftol)})", flush=True)
         del ref, keep

@@ -11,17 +11,21 @@ attends to the current step's K/V directly and returns them; the caller
 writes them at cache rows ``i*K .. i*K+K-1``.  The ancestry goes in as
 int32 (B, K, L) indices (the JAX kernel takes a one-hot selector), and
 the cross K/V as (nL, B, M, D) with M the true memory length (no lane
-padding), or head-major with the head dim padded to 32
-(``pad_cross_heads``, laid out once per decode batch).
+padding), or head-major with the head dim padded to 32, or to 64 for
+heads of 33 to 64 dims (``pad_cross_heads``, laid out once per decode
+batch).
 
 A CUDA call takes one of two kernels, by ``uses_tensor_cores`` alone:
 bfloat16 and float32 at widths the tensor-core kernel holds (10 heads of at
-most 32 dims, shared memory within the card's, weights stacked with their
-packed copy) run ``decoder_step_mma_kernel`` (the linears and the cross
+most 32 dims, bf16 also of 33 to 64 such as ``--geometry 512x8``'s 8 heads
+of 64; shared memory within the card's, weights stacked with their packed
+copy) run ``decoder_step_mma_kernel<T, HP>`` (the linears and the cross
 attention on the tensor cores: bf16 products, or three TF32 products each
-in f32; the weights packed by ``pack_mma`` / ``pack_tf32``), G images a
-block up to 16 hypotheses an image and ``image_parts`` blocks an image
-above; the rest run the CUDA-core ``decoder_step_kernel``.  Neither gives
+in f32; the weights packed by ``pack_mma`` / ``pack_tf32``; HP the head
+pad, whose cross ring stages 16 memory rows at 64), G images a block up to
+16 hypotheses an image and ``image_parts`` blocks an image above; the rest
+(f32 heads wider than 32 among them: at 512x8 its block would not fit the
+card's shared memory) run the CUDA-core ``decoder_step_kernel``.  Neither gives
 way to the other or to the plain version.  Each route counts its launches
 in ``fused_beam_decoder_step.routes`` (``route``: tensor_cores,
 tensor_cores_f32, wide_tensor_cores, wide_tensor_cores_f32, cuda_cores);
@@ -46,8 +50,10 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # the tensor-core kernel (csrc/decoder_step.cu, route 1)
 ROWS = 16           # hypothesis rows of a block (one m16 tile)
 WARPS = 10          # warps of a block; warp h takes head h of the cross attention
-HEAD_PAD = 32       # head dim of the padded cross layout
+HEAD_PAD = 32       # head dim of the padded cross layout, heads of at most 32 dims
+WIDE_HEAD_PAD = 64  # ... heads of 33 to 64 dims (bf16 only)
 CROSS_TILE = {torch.bfloat16: 32, torch.float32: 16}   # memory rows of a cross ring stage
+WIDE_CROSS_TILE = 16                                   # ... at the wide head pad
 KPAIR = {torch.bfloat16: 32, torch.float32: 16}        # depth of a lane's 16-byte weight load
 CROSS_STAGES = 3
 MAX_SMEM = 232448   # shared memory a block may use on sm_90
@@ -171,12 +177,27 @@ def stack_cross_kv(cross_kvs, dtype):
     return stack("k"), stack("v")
 
 
+def head_pad(head_dim: int) -> int:
+    """The head dim of the padded cross layout (csrc/decoder_step.cu::head_pad):
+    32 for heads of at most 32 dims, 64 above."""
+    return HEAD_PAD if head_dim <= HEAD_PAD else WIDE_HEAD_PAD
+
+
+def cross_tile(dtype, head_dim: int) -> int:
+    """Memory rows of a cross ring stage (csrc/decoder_step.cu::xt_of): 32
+    bf16 or 16 f32 rows at pad 32, 16 at pad 64."""
+    return CROSS_TILE[dtype] if head_pad(head_dim) == HEAD_PAD else WIDE_CROSS_TILE
+
+
 def pad_cross_heads(cross_kvs, dtype):
-    """[{'k','v'} of (B, M, H, Hd)] per layer -> (nL, B, M, H * 32) K and V,
-    head-major with each head's dims zero-padded to 32: the tensor-core
-    route's layout (16-byte aligned rows and heads)."""
+    """[{'k','v'} of (B, M, H, Hd)] per layer -> (nL, B, M, H * P) K and V,
+    head-major with each head's dims zero-padded to P = ``head_pad(Hd)`` (32,
+    or 64 above 32 dims): the tensor-core route's layout (16-byte aligned
+    rows and heads)."""
+    pad = head_pad(cross_kvs[0]["k"].shape[-1])
+
     def stack(key):
-        return torch.stack([torch.nn.functional.pad(c[key], (0, HEAD_PAD - c[key].shape[-1]))
+        return torch.stack([torch.nn.functional.pad(c[key], (0, pad - c[key].shape[-1]))
                             .reshape(c[key].shape[0], c[key].shape[1], -1)
                             for c in cross_kvs]).to(dtype).contiguous()
 
@@ -184,31 +205,37 @@ def pad_cross_heads(cross_kvs, dtype):
 
 
 def mma_smem_bytes(D: int, H: int, F: int, L: int, dtype=torch.bfloat16) -> int:
-    """Shared memory of a tensor-core block (csrc/decoder_step.cu::mma_smem):
-    row pitches padded by 16 bytes past whole k-pairs; bf16 keeps x in f32
-    beside its bf16 copy, f32's x is its own A operand."""
+    """Shared memory of a tensor-core block (csrc/decoder_step.cu::mma_smem)
+    at the head pad of D / H: row pitches padded by 16 bytes past whole
+    k-pairs; bf16 keeps x in f32 beside its bf16 copy, f32's x is its own A
+    operand; a three-stage ring of ``cross_tile`` memory rows."""
     e, kp = dtype.itemsize, KPAIR[dtype]
     pad = 16 // e
-    pa, pq, pf = _round_up(D, kp) + pad, H * HEAD_PAD + pad, _round_up(F, kp) + pad
+    pa, pf = _round_up(D, kp) + pad, _round_up(F, kp) + pad
+    pq = H * head_pad(D // H) + pad
     pb = max(_round_up(3 * D, 8), pq, pf)
     xa = _round_up(4 * ROWS * D, 16) if e == 2 else 0
     ring = _round_up(xa + e * ROWS * (2 * pa + pb) + 4 * ROWS * L, 16)
-    return ring + e * CROSS_STAGES * 2 * CROSS_TILE[dtype] * pq
+    return ring + e * CROSS_STAGES * 2 * cross_tile(dtype, D // H) * pq
 
 
 def uses_tensor_cores(stacked: StackedDecoder, caches_k, K: int, num_heads: int) -> bool:
     """Whether a CUDA call with these weights, caches and beam width takes the
     tensor-core kernel: bfloat16 or float32 with packed weights, any K >= 1
     (G images a block up to 16, ``image_parts`` blocks an image above), at
-    most 10 heads of an even head dim <= 32, an even FFN width, and a
-    block's shared memory within the card's."""
+    most 10 heads of an even head dim, <= 32 (f32) or <= 64 (bf16: pad 64
+    from 33 dims on), an even FFN width, and a block's shared memory within
+    the card's.  (f32 at pad 64 would not fit: 166,272 bytes of activations
+    at D 512 beside a ring of 198,144.)"""
     nL, B, LK, D = caches_k.shape
     H, F = num_heads, stacked.f1_w.shape[-1]
-    if caches_k.dtype not in CROSS_TILE or stacked.mma is None or K < 1:
+    dt = caches_k.dtype
+    if dt not in CROSS_TILE or stacked.mma is None or K < 1:
         return False
-    if H > WARPS or D % H or (D // H) % 2 or D // H > HEAD_PAD or F % 2:
+    widest = WIDE_HEAD_PAD if dt == torch.bfloat16 else HEAD_PAD
+    if H > WARPS or D % H or (D // H) % 2 or D // H > widest or F % 2:
         return False
-    return mma_smem_bytes(D, H, F, LK // K, caches_k.dtype) <= MAX_SMEM
+    return mma_smem_bytes(D, H, F, LK // K, dt) <= MAX_SMEM
 
 
 def route(dtype, K: int, tensor_cores: bool) -> str:
@@ -276,8 +303,8 @@ def fused_beam_decoder_step(stacked: StackedDecoder, x, ancestry, caches_k,
 
     x (B, K, D); ancestry int32 (B, K, L); caches (nL, B, L*K, D); cross
     K/V (nL, B, M, D), or None when ``cross_heads`` holds them as
-    ``pad_cross_heads`` lays them out ((nL, B, M, H * 32) K and V, which
-    the tensor-core kernel reads; the other routes undo the padding); i
+    ``pad_cross_heads`` lays them out ((nL, B, M, H * head_pad(Hd)) K and V,
+    which the tensor-core kernel reads; the other routes undo the padding); i
     the step index.  Returns (h (B, K, D) f32, k_new, v_new (nL, B, K, D)
     in the caches' dtype).
     """
@@ -291,8 +318,9 @@ def fused_beam_decoder_step(stacked: StackedDecoder, x, ancestry, caches_k,
         M = cross_heads[0].shape[2]
     else:
         M = cross_k.shape[2]
+    pad = head_pad(D // H) if H > 0 and D % H == 0 else 0
     heads_ok = cross_heads is None or all(
-        c.shape == (nL, B, M, H * HEAD_PAD) for c in cross_heads)
+        c.shape == (nL, B, M, H * pad) for c in cross_heads)
     if (x.shape != (B, K, D) or ancestry.shape != (B, K, L)
             or caches_v.shape != caches_k.shape or D % H or not heads_ok
             or (cross_k is not None and (cross_k.shape != (nL, B, M, D)
@@ -305,7 +333,7 @@ def fused_beam_decoder_step(stacked: StackedDecoder, x, ancestry, caches_k,
             f"heads {H} do not agree")
 
     def unpadded():   # pad_cross_heads undone
-        return [c.view(nL, B, M, H, HEAD_PAD)[..., :D // H].reshape(nL, B, M, D)
+        return [c.view(nL, B, M, H, pad)[..., :D // H].reshape(nL, B, M, D)
                 for c in cross_heads]
 
     if x.device.type == "cpu":

@@ -34,10 +34,12 @@ family:
   reaches it to be timed beside the kernels that replaced it.
 
 Both families pad the head dim to 32, 64 or 128; a head dim above 128
-raises, as the JAX package's ``head_slot`` does.  At 64 the ``mma``
-backward runs on wgmma (one warpgroup a block of 64 rows) and the ``tf32``
-kernels split every operand by integer rounding (see the source).
-``flash_mha.routes`` counts the forward's launches by route,
+raises, as the JAX package's ``head_slot`` does.  At 64 and 128 the ``mma``
+forward runs on wgmma (``flash_fwd_wgmma_kernel``: one warpgroup a block of
+64 query rows, ``uses_wgmma_forward``), at 64 the ``mma`` backward too (the
+wgmma pair), and the ``tf32`` kernels split every operand by integer
+rounding (see the source).  ``flash_mha.routes`` counts the forward's launches by route (and
+``flash_mha.wgmma`` those of the wgmma forward among ``mma``'s),
 ``flash_mha_bwd.routes`` the backward's.  No route gives way to another or
 to the plain version: a kernel that fails to build or launch raises.
 
@@ -110,7 +112,7 @@ def uses_tensor_cores(q, k, v) -> bool:
 
 
 ROUTES = ("mma", "tf32", "cuda_cores")
-_FWD_ENTRY = {"mma": "_mma", "tf32": "_tf32", "cuda_cores": ""}
+_FWD_ENTRY = {"mma": "_mma", "tf32": "_tf32", "cuda_cores": "", "mma_sync": "_mma"}
 
 
 def route(q, k, v) -> str:
@@ -120,6 +122,13 @@ def route(q, k, v) -> str:
         raise ValueError(f"flash_mha: head dim {q.shape[-1]} > {MAX_HEAD_DIM} "
                          "is unsupported")
     return "mma" if uses_tensor_cores(q, k, v) else "tf32"
+
+
+def uses_wgmma_forward(q, k, v) -> bool:
+    """Whether the mma route's forward of (q, k, v) runs on wgmma: a head
+    dim above 32 (padded to 64 or 128), at any number of query rows; at 32
+    the mma.sync forward."""
+    return route(q, k, v) == "mma" and q.shape[-1] > 32
 
 
 def _ptr(t):
@@ -148,23 +157,30 @@ def _forward(q, k, v, kv_len, causal, rate, seed, blk0=0, via=None):
     score in cells of 16 rows x 64 keys of 32 words each (``keep_cell`` in
     the source), and None at rate 0 and on the other routes.  `via`
     "cuda_cores" reaches the CUDA-core kernel at any head dim up to 128 (up
-    to 32 with dropout), for timing it beside the kernel that replaced it."""
+    to 32 with dropout), for timing it beside the kernel that replaced it;
+    "mma_sync" the bf16 mma.sync forward at every head dim (the design the
+    wgmma forward replaced at 64 and 128: its keep words are the same)."""
     B, Tq, H, Hd = q.shape
     via = via or route(q, k, v)
     out = torch.empty((B, Tq, H, Hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     keep_words = None
-    if rate > 0.0 and via == "mma":
+    if rate > 0.0 and via in ("mma", "mma_sync"):
         keep_words = torch.empty((B, H, 4 * (-(-Tq // 64)), -(-k.shape[1] // 64), 32),
                                  dtype=torch.int32, device=q.device)
-    fn = _build.bind("flash_attention", "flash_fwd_" + _SUFFIX[q.dtype] + _FWD_ENTRY[via],
+    # the one place the mma route picks its forward's design
+    entry = "_wgmma" if via == "mma" and uses_wgmma_forward(q, k, v) else _FWD_ENTRY[via]
+    fn = _build.bind("flash_attention", "flash_fwd_" + _SUFFIX[q.dtype] + entry,
                      [_P] * 6 + _SHAPE)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), _ptr(keep_words),
              *_shape_args(q, k, v, kv_len, causal, rate, seed, blk0))
     _build.check(err, "flash_attention", "flash_mha")
     flash_mha.launches += 1
-    flash_mha.routes[via] += 1
+    if via in flash_mha.routes:
+        flash_mha.routes[via] += 1
+    if entry == "_wgmma":
+        flash_mha.wgmma += 1
     return out, lse, keep_words
 
 
@@ -266,7 +282,21 @@ def keep_mask(B, H, Tq, Tk, *, rate, seed, device, first=0):
     return out
 
 
+def keep_cells_written(Tq: int, Tk: int, kv_len: int, causal: bool):
+    """(4 ceil(Tq / 64), ceil(Tk / 64)) bool: the cells of 16 query rows x 64
+    keys whose keep words the bf16 forward (either design) writes, and the
+    backward reads: each 64-row block's key tiles up to its causal end and
+    kv_len.  The other words of the buffer are never written.  Like
+    ``keep_mask``, for comparisons only (two designs' keep words, cell by
+    cell): no path of the port calls it."""
+    rows16, tiles = 4 * -(-Tq // 64), -(-Tk // 64)
+    blk = torch.arange(rows16) // 4
+    end = torch.clamp((blk + 1) * 64, max=kv_len) if causal else torch.full_like(blk, kv_len)
+    return torch.arange(tiles)[None, :] * 64 < end[:, None]
+
+
 flash_mha.launches = 0
 flash_mha.routes = dict.fromkeys(ROUTES, 0)      # the forward's launches by route
+flash_mha.wgmma = 0         # of routes["mma"], the launches of the wgmma forward
 flash_mha_bwd.launches = 0
 flash_mha_bwd.routes = dict.fromkeys(ROUTES[:2], 0)   # the backward's launches by route

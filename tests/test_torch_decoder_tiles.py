@@ -153,16 +153,20 @@ def emulate(stacked, x, anc, ck, cv, cross_heads, i, H, G, rounding, eps=1e-5, S
     """The tensor-core kernel's arithmetic on f32 tensors: (h, k_new, v_new).
     `rounding`: False (f32 throughout, the bf16 route's tiling) or True (the
     bf16 route), "tf32" (the f32 route: three TF32 products a product, 16
-    memory rows a cross stage) or "tf32x1" (one TF32 product, hi hi)."""
+    memory rows a cross stage) or "tf32x1" (one TF32 product, hi hi).  The
+    cross layout's head pad and a stage's memory rows follow the head dim as
+    the kernel's do (``head_pad``, ``cross_tile``: heads of 33 to 64 dims
+    padded to 64, 16 rows a stage)."""
     tc = rounding in ("tf32", "tf32x1")
     r = _bf16 if rounding is True else (lambda t: t)
-    XT = tds.CROSS_TILE[torch.float32 if tc else torch.bfloat16]
     terms = 1 if rounding == "tf32x1" else 3
     nL, B, LK, D = ck.shape
     K = x.shape[1]
     L = LK // K
     M = cross_heads[0].shape[2]
     Hd = D // H
+    HDP = tds.head_pad(Hd)
+    XT = tds.cross_tile(torch.float32 if tc else torch.bfloat16, Hd)
     F = stacked.f1_w.shape[-1]
     pack, unpack = (tds.pack_tf32, unpack_tf32) if tc else (tds.pack_mma, unpack_fragments)
     mma = tds.PackedLinears(*(pack(w.float()) for w in (
@@ -227,7 +231,7 @@ def emulate(stacked, x, anc, ck, cv, cross_heads, i, H, G, rounding, eps=1e-5, S
 
             # cross-attention over the ring's stages of this layer
             qc = r(lin(2, xs) + bias[2][l]).view(ROWS, H, Hd)
-            qp = torch.nn.functional.pad(qc, (0, HDP - Hd))           # (16, H, 32)
+            qp = torch.nn.functional.pad(qc, (0, HDP - Hd))           # (16, H, HDP)
             c = scale * LOG2E
             ab = torch.zeros((ROWS, D))
             for _ in range(nimg * -(-M // XT)):
@@ -438,9 +442,10 @@ def test_padded_cross_through_the_wrapper_on_cpu():
 
 def test_route_predicate_and_groups():
     """bf16 and f32 at the geo beam shape take the tensor-core route, which
-    fits the card's shared memory in both, and so do beams wider than 16;
-    more heads than warps, an odd head dim, a head dim above 32 and unpacked
-    weights do not (they take the CUDA-core kernel).  G images a block: one
+    fits the card's shared memory in both, and so do beams wider than 16,
+    and bf16 heads of 33 to 64 dims (pad 64); more heads than warps, an odd
+    head dim, an f32 head dim above 32 and unpacked weights do not (they
+    take the CUDA-core kernel).  G images a block: one
     wave on 132 SMs."""
     geo = dict(D=300, H=10, F=512, L=30)
     assert tds.mma_smem_bytes(**geo) == 196992 <= tds.MAX_SMEM
@@ -467,7 +472,8 @@ def test_route_predicate_and_groups():
     assert not case(D=360, H=12)               # more heads than warps
     assert not case(D=360, H=12, dtype=torch.float32)
     assert not case(D=330, H=10)               # head dim 33
-    assert not case(D=400, H=10)               # head dim 40 > 32
+    assert case(D=400, H=10)                   # head dim 40: bf16 at pad 64
+    assert not case(D=400, H=10, dtype=torch.float32)   # f32 heads above 32
     assert not case(packed=False)
     assert not case(packed=False, dtype=torch.float32)
     assert tds.images_per_block(256, 5, 132) == 2

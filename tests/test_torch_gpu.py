@@ -335,11 +335,12 @@ def test_decoder_step_f32_route_holds_1e4_at_geo_widths(cuda):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
 
 
-def _geo_step_inputs(cuda, B, K, step, M=497, L=30, seed=4, dtype=torch.bfloat16):
-    """The geo decoder's widths (3 layers, D 300, H 10, F 512) in `dtype`."""
+def _geo_step_inputs(cuda, B, K, step, M=497, L=30, seed=4, dtype=torch.bfloat16, D=300, H=10,
+                     F=512):
+    """The geo decoder's widths (3 layers, D 300, H 10, F 512; or D, H, F
+    given, such as --geometry 512x8's 512, 8, 512) in `dtype`."""
     from icek_torch.models import transformer as tfm
 
-    D, H, F = 300, 10, 512
     g = _gen(seed)
     layers = tfm.init_decoder_stack(g, 3, D, F)
     for lay in layers["layers"]:
@@ -389,6 +390,47 @@ def test_decoder_step_tensor_cores_match_plain(cuda, B, K, step):
     for a, b, c in zip(got, again, want):
         assert torch.equal(a, b)
         torch.testing.assert_close(a.float(), c.float(), rtol=0, atol=0.15)
+
+
+@pytest.mark.parametrize("D,H,B,M,step", [(512, 8, 256, 497, 15), (512, 8, 3, 17, 29),
+                                           (320, 8, 5, 497, 15), (128, 2, 3, 33, 0)])
+def test_decoder_step_wide_heads_on_tensor_cores(cuda, D, H, B, M, step):
+    """bf16 heads of 33 to 64 dims on the tensor-core route, the cross heads
+    padded to 64 and streamed 16 memory rows a stage: --geometry 512x8 at
+    the beam shape (B 256, K 5, M 497, step 15) and at a memory of one full
+    stage and a row, Hd 40 (D 320), two heads of 64 (D 128) at step 0 and
+    M 33; against the plain version at 0.15, two launches bit-identical,
+    the CUDA-core kernel not launched."""
+    stacked, x, anc, ck, cv, xk, xv, _ = _geo_step_inputs(cuda, B, 5, step, M=M, D=D, H=H)
+    assert tds.uses_tensor_cores(stacked, ck, 5, H)
+    heads = _padded(xk, xv, H)
+    assert heads[0].shape[-1] == 64 * H
+    before = _route_launches()
+    runs = [tds.fused_beam_decoder_step(stacked, x, anc, ck, cv, None, None, step, num_heads=H,
+                                        cross_heads=heads) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert _ran(before) == {"tensor_cores": 2}
+    want = tds.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv, step, num_heads=H)
+    for a, b, c in zip(*runs, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), c.float(), rtol=0, atol=0.15)
+
+
+def test_decoder_step_f32_512x8_keeps_the_cuda_cores(cuda):
+    """f32 at --geometry 512x8: its tensor-core block would need 364,416
+    bytes of shared memory, so the step runs the CUDA-core kernel (counted
+    as cuda_cores), within 1e-3 of the plain f32 version."""
+    stacked, x, anc, ck, cv, xk, xv, H = _geo_step_inputs(cuda, 4, 5, 15, dtype=torch.float32,
+                                                          D=512, H=8)
+    assert not tds.uses_tensor_cores(stacked, ck, 5, H)
+    assert tds.mma_smem_bytes(512, 8, 512, 30, torch.float32) > tds.MAX_SMEM
+    before = _route_launches()
+    got = tds.fused_beam_decoder_step(stacked, x, anc, ck, cv, xk, xv, 15, num_heads=H)
+    torch.cuda.synchronize()
+    assert _ran(before) == {"cuda_cores": 1}
+    want = tds.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv, 15, num_heads=H)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3)
 
 
 @pytest.mark.parametrize("M", [1, 31, 32, 33, 64, 200])
@@ -1209,6 +1251,127 @@ def test_flash_backward_kernels_by_head_dim(cuda, dtype):
             else:
                 want = rf"flash_bwd_{part}_mma_kernel<{pad[hd]}, [24], true>"
             assert any(re.search(want, n) for n in got), (hd, part, got)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("hd,h,tq,tk,kv_len,causal", [
+    (64, 8, 301, 301, 301, False), (128, 4, 301, 301, 301, False), (64, 2, 33, 70, 70, True),
+    (64, 3, 130, 130, 100, True), (40, 3, 65, 129, 129, False), (100, 2, 70, 129, 90, True),
+    (64, 8, 32, 32, 32, True), (128, 4, 32, 497, 497, False), (64, 2, 7, 40, 33, False)])
+def test_flash_wgmma_forward(cuda, hd, h, tq, tk, kv_len, causal, rate):
+    """The bf16 forward on wgmma (head dims above 32, any number of query
+    rows: the --geometry 512x8 encoder site at B 8, its decoder's 32-row
+    self and cross sites, Hd 128, ragged and causal shapes, keys past
+    kv_len) against the plain version under the kernel's
+    own mask at 3e-2 of the largest expected value, counted in
+    flash_mha.wgmma; its lse equal to the mma.sync forward's (the design it
+    replaced, through its entry) within 1e-5 and its keep words equal on
+    every cell the backward reads; the backward on its output against the
+    plain version's autograd at 4e-2."""
+    B = 8 if tq == 301 else 2
+    g = _gen(hd + tq)
+    qkv = torch.randn((B, tk, 3 * h * hd), generator=g).to(cuda, torch.bfloat16)
+    q0 = torch.randn((B, tq, h * hd), generator=g).to(cuda, torch.bfloat16)
+    q = q0.view(B, tq, h, hd)
+    k, v = (qkv[..., i * h * hd:(i + 1) * h * hd].view(B, tk, h, hd) for i in (1, 2))
+    assert tfa.uses_wgmma_forward(q, k, v)
+    keep = tfa.keep_mask(B, h, tq, tk, rate=rate, seed=5, device=cuda) if rate else None
+    before = tfa.flash_mha.wgmma
+    out, lse, words = tfa._forward(q, k, v, kv_len, causal, rate, 5)
+    torch.cuda.synchronize()
+    assert tfa.flash_mha.wgmma == before + 1
+    want = tfa.reference_mha(q, k, v, kv_len=kv_len, causal=causal, dropout_rate=rate, keep=keep)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0,
+                               atol=3e-2 * max(1.0, float(want.float().abs().max())))
+    _, lse_sync, words_sync = tfa._forward(q, k, v, kv_len, causal, rate, 5, via="mma_sync")
+    assert tfa.flash_mha.wgmma == before + 1
+    torch.testing.assert_close(lse, lse_sync, rtol=0, atol=1e-5)
+    if rate:
+        cells = tfa.keep_cells_written(tq, tk, kv_len, causal).to(cuda)[None, None, :, :, None]
+        assert torch.equal(torch.where(cells, words, 0), torch.where(cells, words_sync, 0))
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    d_out = torch.randn((B, tq, h, hd), generator=g).to(cuda, torch.bfloat16)
+    run = lambda fn, **kw: fn(*leaves, kv_len=kv_len, causal=causal, dropout_rate=rate, **kw)
+    got = torch.autograd.grad(run(tfa.flash_mha, seed=5), leaves, d_out)
+    ref = torch.autograd.grad(run(tfa.reference_mha, keep=keep), leaves, d_out)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=4e-2 * max(1.0, float(b.float().abs().max())))
+
+
+def test_flash_forward_kernels_by_head_dim(cuda):
+    """The bf16 forward's kernel, by name in a profiler trace: at head dim 30
+    (HDP 32) the unchanged mma.sync forward, at 64 and 128 the wgmma forward
+    at any number of query rows (32: the 512x8 decoder's sites)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    want = {(30, 70): "flash_fwd_mma_kernel<32, 4", (64, 70): "flash_fwd_wgmma_kernel<64,",
+            (128, 33): "flash_fwd_wgmma_kernel<128,", (64, 32): "flash_fwd_wgmma_kernel<64,",
+            (30, 32): "flash_fwd_mma_kernel<32, 2"}
+    for (hd, tq), name in want.items():
+        g = _gen(hd + tq)
+        q, k, v = (torch.randn((2, tq, 2, hd), generator=g).to(cuda, torch.bfloat16)
+                   for _ in range(3))
+        tfa.flash_mha(q, k, v)
+        torch.cuda.synchronize()
+        # three calls a session: once in six runs the trace of a single
+        # few-microsecond launch came back empty
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                tfa.flash_mha(q, k, v)
+            torch.cuda.synchronize()
+        got = {e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA and "flash_fwd" in e.name}
+        assert len(got) == 1 and name in next(iter(got)).replace(" ", "").replace(",", ", "), \
+            (hd, tq, got)
+
+
+def test_geometry_512x8_bf16_step_feeds_the_backward_from_wgmma(cuda):
+    """A bf16 geo train step at --geometry 512x8 with the preset's dropout
+    and 40 entity rows: the entity encoder's forwards (L of them) and the
+    decoder's (2 L, 7 query rows) run on the wgmma forward, and every
+    backward (the wgmma pair at HDP 64) reads their lse and keep words;
+    the losses are finite and the deterministic eval loss falls over three
+    steps on one batch."""
+    import copy
+
+    from icek_torch import bridge
+    from icek_torch.core import config as cfgs
+    from icek_torch.models import captioner
+    from icek_torch.train import step as tstep
+
+    geo = cfgs.apply_geometry(cfgs.georic(), "512x8")
+    V, E, B, T, L = 60, 40, 4, 7, 2
+    g = _gen(65)
+    ents = torch.zeros((B, E, 5))
+    ents[:, :, 0] = torch.arange(E)
+    ents[:, :, 1:4] = torch.rand((B, E, 3), generator=g)
+    ents[:, :, 4] = torch.randint(0, 20, (B, E), generator=g)
+    caps = torch.randint(1, V + E, (B, T), generator=g)
+    batch = {"caption_ids": caps, "caption_mask": (caps >= V).long(),
+             "lengths": torch.tensor([7, 5, 3, 6]), "entity_features": ents,
+             "image_tokens": torch.randn((B, 12, 512), generator=g)}
+    batch = {k: t.to(cuda) for k, t in batch.items()}
+    cfg = geo.replace(model=dataclasses.replace(geo.model, num_layers=L, type_vocab=20))
+    params = captioner.init_captioner_params(g, cfg.model, V)
+    p = bridge.trainable(copy.deepcopy(params), cuda)
+    opt = tstep.make_optimizer(1e-3)
+    state = opt.init(p)
+    train, evaluate = tstep.make_train_step(cfg, V, 0, opt, encode_images=False, device=cuda,
+                                            compute_dtype=torch.bfloat16)
+    eval_before = float(evaluate(p, None, batch)[0])
+    before = (tfa.flash_mha.wgmma, dict(tfa.flash_mha.routes), dict(tfa.flash_mha_bwd.routes))
+    losses = []
+    for i in range(3):
+        _, _, loss, _ = train(p, state, None, batch, torch.Generator().manual_seed(i))
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    assert tfa.flash_mha.wgmma - before[0] == 3 * 3 * L
+    assert tfa.flash_mha.routes["mma"] - before[1]["mma"] == 3 * 3 * L
+    assert tfa.flash_mha_bwd.routes["mma"] - before[2]["mma"] == 3 * 3 * L
+    assert all(torch.isfinite(torch.tensor(losses)))
+    assert float(evaluate(p, None, batch)[0]) < eval_before
 
 
 def test_geometry_512x8_train_step_on_card(cuda):
