@@ -87,13 +87,16 @@ Phases (any failure raises and exits non-zero):
               the wgmma forward, the bf16 decoder step on its tensor-core
               route with the cross heads padded to 64: 30 a batch, none on
               the CUDA-core kernel; launches by route held), f32 beam tokens
-              equal to the CPU's (the f32 step on its CUDA-core route,
-              counted), bf16 train steps at batch 256 with the preset's
+              equal to the CPU's (the f32 step on its f32 tensor-core route
+              at pad 64, counted), an f32 beam-5 batch of 256 (30 f32
+              tensor-core steps a batch, none on the CUDA-core kernel; ms a
+              batch, captions/s and its breakdown), bf16 train steps at
+              batch 256 with the preset's
               dropout and f32 ones (forwards on mma / tf32, the encoder's on
               wgmma, a backward launch each on the same route,
               flash_mha_bwd.routes held), the f32 step at dropout 0 held to
               the CPU's over the gradient tree, the decoder step at this
-              width beside the CUDA-core kernel;
+              width in both dtypes beside the CUDA-core kernel;
   wide beam   the score head at k 10 and 20 and the decoder step at K 10
               and 20 (both routes, each dtype; K 20: parts of an image a
               tensor-core block) against their plain versions, then geo beams 10 and 20
@@ -1038,8 +1041,8 @@ def check_decoder_step_geometry(dev, geometry, L=MAX_LEN, M=IMG_TOKENS + ENT_ROW
                                 K=BEAM, want_routes=None):
     """The decoder step of a --geometry model at the middle step of the beam
     shape, bf16 and f32, on the route the beam loop takes there (at heads
-    of 33 to 64 dims bf16 on the tensor cores with the cross heads padded to
-    64, f32 on the CUDA-core kernel), held to `want_routes` ({dtype: route})
+    of 33 to 64 dims both on the tensor cores with the cross heads padded to
+    64), held to `want_routes` ({dtype: route})
     when given, against its plain version and the bound, two launches
     bit-identical, and timed beside the CUDA-core kernel on the same inputs
     (`cuda_cores_ms`: the tensor-core route's "was"); {"bfloat16" /
@@ -4124,8 +4127,8 @@ def geometry_path(dev):
     and none on the CUDA-core kernel; bf16 token agreement with the stock
     step logged); the f32 Evaluators on the card and on the CPU
     (cross_check: f32 beam tokens equal, the flash forwards on the TF32
-    kernels, the decoder step on its CUDA-core route: the f32 tensor-core
-    block at heads of 64 would not fit the card's shared memory); bf16 train
+    kernels, the decoder step on its f32 tensor-core route); an f32 beam-5
+    batch of 256 (f32_serving: 30 f32 tensor-core steps a batch); bf16 train
     steps at batch 256 with the preset's dropout (run_train_path: forwards
     on mma, the encoder's on wgmma, one backward launch each, the wgmma
     backward pair reading the wgmma forward's lse and keep bits); the f32 step
@@ -4137,19 +4140,59 @@ def geometry_path(dev):
     require((m.emb_dim, m.num_heads, m.num_layers) == (512, 8, 3),
             f"--geometry {GEOMETRY}: D {m.emb_dim}, {m.num_heads} heads, {m.num_layers} layers")
     label = f"geo {GEOMETRY}"
-    # heads of 64: bf16 on the tensor cores (pad 64), f32 on the CUDA cores
+    # heads of 64: both dtypes on the tensor cores (pad 64)
     launches, serving, _ = serve(dev, model, decoder="decoder_step", label=label)
-    checked = cross_check(dev, model, decoder="decoder_step_cuda_cores")
+    checked = cross_check(dev, model, decoder="decoder_step_f32")
+    f32_serve = f32_serving(dev, model, label)
     train_launches, train, _ = run_train_path(dev, model, steps=GEOMETRY_TRAIN_STEPS)
     f32 = f32_train_path(dev, model, train, oracle="cpu")
     step = check_decoder_step_geometry(
-        dev, GEOMETRY, want_routes={torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"})
+        dev, GEOMETRY, want_routes={torch.bfloat16: "tensor_cores",
+                                    torch.float32: "tensor_cores_f32"})
     del model
     rec = dict(serving=serving, serving_launches=launches, f32_check=checked,
-               train=train, train_launches=train_launches, f32_train=f32,
+               f32_serving=f32_serve, train=train, train_launches=train_launches, f32_train=f32,
                decoder_step=step)
-    log(f"{label} path: captions/s {serving['captions_per_s_median']}, bf16 samples/s "
+    log(f"{label} path: captions/s {serving['captions_per_s_median']}, f32 captions/s "
+        f"{f32_serve['captions_per_s_median']}, bf16 samples/s "
         f"{train['samples_per_s_median']}, f32 samples/s {f32['samples_per_s_median']}")
+    return rec
+
+
+def f32_serving(dev, model, label):
+    """The f32 beam-5 batch of 256 through Evaluator.decode_batch: a warm-up,
+    then three timed batches (host clock, from the numpy batch to the ids),
+    the decoder step's launches held to L a batch on its f32 tensor-core
+    route and none on any other, the upload / encode / context / decode
+    breakdown of one batch, and (logged, not asserted) its beam-5 token
+    agreement with the stock f32 step on the same batch."""
+    from icek_torch import eval_driver
+
+    cfg, wm, params, enc = model
+    L = cfg.decode.max_caption_len
+    ev = eval_driver.Evaluator(cfg, wm, params, enc, device=dev, compute_dtype=torch.float32)
+    require(ev.batch_size == BATCH, f"{label} f32 serving: batch {ev.batch_size}")
+    rng = np.random.default_rng(SEED + 13)
+    batches = [make_batch(rng, BATCH) for _ in range(4)]
+    ev.decode_batch(batches[0])                                  # warm-up
+    _zero_serving_counts()
+    times = []
+    for b in batches[1:]:
+        t0 = time.perf_counter()
+        out = ev.decode_batch(b)
+        times.append((time.perf_counter() - t0) * 1e3)
+        require(out.shape == (BATCH, L) and out.min() >= 0 and out.max() < VOCAB + ENT_ROWS,
+                f"{label} f32 serving: ids {out.shape}, {out.min()}..{out.max()}")
+    launches = {k: v for k, v in _read_serving_counts().items() if k in DECODER_ROUTES}
+    want = decoder_launches(decoder_step_f32=L * len(times))
+    require(launches == want, f"{label} f32 beam-5 batches: decoder-step launches {launches} "
+                              f"!= {want}")
+    ms = statistics.median(times)
+    rec = dict(batch_ms=times, batch_ms_median=ms, captions_per_s_median=BATCH / ms * 1e3,
+               decoder_launches_per_batch={k: v // len(times) for k, v in launches.items()},
+               breakdown=breakdown(ev, batches[1]),
+               stock_step_agreement=megakernel_agreement(ev, batches[1]))
+    log(f"{label} f32 serving (batch {BATCH}, beam {BEAM}, L {L}): {rec}")
     return rec
 
 
@@ -4650,6 +4693,19 @@ def run_phases(dev, card) -> list:
         "launches_cuda_cores": wide_geo["serving_launches"]["decoder_step_cuda_cores"],
         "decoder_route": bf["route"], "dtype": "bfloat16", "f32": f32,
         "launches_f32": wide_geo["f32_check"][2]["decoder"]})
+    # its f32 route (decoder_step_mma_kernel<float, 64>), launches from the
+    # f32 beam-5 batches of 256 (per batch)
+    f32_batch = wide_geo["f32_serving"]
+    rows.append({
+        "name": "decoder_step_512x8_f32", "route": "cuda",
+        "source": "icek_torch/csrc/decoder_step.cu", "replaces": meta["decoder_step"][1],
+        "launches": f32_batch["decoder_launches_per_batch"]["decoder_step_f32"],
+        **{k: f32[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "shape", "tol", "kernel", "cuda_cores_ms")},
+        "launches_cuda_cores": f32_batch["decoder_launches_per_batch"]["decoder_step_cuda_cores"],
+        "decoder_route": f32["route"], "dtype": "float32",
+        "batch_ms_median": f32_batch["batch_ms_median"],
+        "captions_per_s_median": f32_batch["captions_per_s_median"]})
     head = int8["sites"]["1x1_s1"]
     rows.append({
         "name": "int8_conv", "route": "cuda", "source": "icek_torch/csrc/int8_conv.cu",

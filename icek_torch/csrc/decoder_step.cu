@@ -51,39 +51,43 @@
 //     across the layers, so the first tiles of layer l + 1 load while layer
 //     l's FFN and layer l + 1's self-attention and projections run.  Warp h
 //     takes head h: S = Q K^T and O += P V on the tensor cores, online
-//     softmax in f32, flash style (f32: P split like any A operand and taken
-//     in a permuted k order, cross_tile_f32);
+//     softmax in f32, flash style (f32: Q's fragments read from shared
+//     memory and split each tile, P split like any A operand and taken in a
+//     permuted k order, cross_tile_f32);
 //   * HP, the head pad, is a template parameter: 32 for heads of at most 32
-//     dims (the presets' 10 heads of 30), 64 for bf16 heads of 33 to 64
+//     dims (the presets' 10 heads of 30), 64 for heads of 33 to 64
 //     (--geometry 512x8's 8 heads of 64).  At 64 warp h's S takes four k16
-//     steps and its O is 16 x 64, and a stage holds 16 memory rows: with
-//     32-row stages D 512's block would need 316,800 bytes (117,120 of
-//     activations beside a 199,680-byte ring), with 16 it needs 216,960.
-//     f32 keeps HP 32: at 512x8 its activations alone take 166,272 bytes
-//     and a 16-row ring 198,144 more (only an 8-row, two-stage ring would
-//     fit), so f32 heads above 32 dims run route 2;
+//     steps (bf16) or eight k8 steps (f32) and its O is 16 x 64, and a stage
+//     holds 16 bf16 memory rows: with 32-row stages D 512's block would need
+//     316,800 bytes (117,120 of activations beside a 199,680-byte ring), with
+//     16 it needs 216,960.  f32 at 64 stages 8 rows (one k8 step of P V) and
+//     keeps q alone in the projection buffer, the step's own K/V rows read
+//     back from k_new / v_new (kv_out): 200,064 bytes at 512x8, where the
+//     bf16 layout would take 166,272 of activations and a 198,144-byte ring;
 //   * self-attention: two threads a (row, head), each half of the head's
 //     dims (16 at HP 32, 32 at HP 64), an online softmax over the
 //     ancestry-gathered cache rows (4-byte bf16 or 8-byte f32 loads, the
-//     next row's in flight) and the current step's own K/V, on the CUDA
-//     cores in f32;
+//     next row's in flight, except f32 at HP 64, which fetches a row after
+//     the last row's math) and the current step's own K/V, on the CUDA cores
+//     in f32;
 //   * biases, residual adds, LayerNorm and softmax statistics in f32 in
 //     shared memory and registers.
 //   On an H100 at step 15 of the beam shape bf16 takes 0.37-0.38 ms against
 //   the 0.154 ms byte bound (PERF.md): the stream runs at ~2.9 TB/s, but
 //   the linears, bound by L2 (~5.5 TB/s of weight reads), and the stream
 //   take turns (python -m icek_torch.kernels._variants decoder_step).  f32
-//   takes 0.93-0.94 ms against 0.308: its linears issue ~7 instructions an
+//   takes 0.90-0.95 ms against 0.308: its linears issue ~7 instructions an
 //   mma (each block splits every weight), the cross attention's chains are
 //   latency-bound at 10 warps; packed hi / lo weights (twice the L2 bytes)
 //   were slower, 1.235 ms (PERF.md).  At 512x8 (HP 64, G = 2: 128 blocks)
-//   bf16 takes about 0.89 ms against a 0.264 ms byte bound, where the
-//   CUDA-core kernel took 7.1 (G = 3, 86 blocks reading the 12.6 MB of
-//   weights from L2 a third fewer times, measured slower: PERF.md).
+//   bf16 takes about 0.89 ms against a 0.264 ms byte bound and f32 about
+//   1.9 against 0.528, where the CUDA-core kernel takes 7.1 (G = 3, 86
+//   blocks reading the weights from L2 a third fewer times, measured slower
+//   in both: PERF.md).
 // Route 2, the CUDA-core kernel (decoder_step_kernel): the shapes route 1
-// refuses (more than 10 heads, a head dim above 64 or odd, an f32 head dim
-// above 32, or route 1's shared memory past the card's), and bf16 or f32
-// weights stacked without their packed copy.  A block owns R <= 8 hypotheses of one image (grid B x
+// refuses (more than 10 heads, a head dim above 64 or odd, or route 1's
+// shared memory past the card's), and bf16 or f32 weights stacked without
+// their packed copy.  A block owns R <= 8 hypotheses of one image (grid B x
 // ceil(K / R)): R = min(K, 8), lowered until the block's shared memory fits
 // the card, so beams of any width run (two or more blocks an image above 8,
 // each reading the image's memory once).  Activations (R x D, R x 3D, R x F)
@@ -405,10 +409,10 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 // What differs between the element types.  bf16: mma.sync m16n8k16, a lane's
 // 16-byte weight load holds two k16 steps (a k-pair 32 deep), 32 memory rows
-// a cross stage.  f32: three TF32 products of m16n8k8 (3xTF32: hi hi + hi lo
-// + lo hi, each operand split in registers), a lane's 16-byte weight load
-// holds two k8 steps (16 deep), 16 memory rows a stage (a stage of 32 f32
-// rows would not leave three stages room).  Row pitches are padded by 16
+// a cross stage at HP 32.  f32: three TF32 products of m16n8k8 (3xTF32: hi
+// hi + hi lo + lo hi, each operand split in registers), a lane's 16-byte
+// weight load holds two k8 steps (16 deep), 16 memory rows a stage at HP 32
+// (a stage of 32 f32 rows would not leave three stages room).  Row pitches are padded by 16
 // bytes past a whole k-pair, which puts the eight rows of an ldmatrix (and
 // the f32 fragments' eight rows g at word t) on distinct banks.
 template <typename T> struct Tc;
@@ -425,12 +429,20 @@ template <> struct Tc<float> {
 template <typename T> constexpr int PAD = 16 / sizeof(T);   // 16 bytes of pitch pad
 
 // The head dim of the padded cross layout, HP: 32 for heads of at most 32
-// dims, 64 above (bf16 only).  A cross stage holds XT memory rows: Tc<T>::XT
-// at HP 32; 16 at HP 64, whose rows are twice as long, so that three stages
-// fit beside the activations of D 512 (216,960 bytes at 512x8).
+// dims, 64 above.  A cross stage holds XT memory rows: Tc<T>::XT at HP 32; at
+// HP 64, whose rows are twice as long, 16 bf16 or 8 f32 rows, so that three
+// stages fit beside the activations of D 512 (216,960 bytes at 512x8 in bf16,
+// 200,064 in f32).
 __host__ __device__ constexpr int head_pad(int Hd) { return Hd <= 32 ? 32 : 64; }
 template <typename T, int HP> __host__ __device__ constexpr int xt_of() {
-  return HP == 32 ? Tc<T>::XT : 16;
+  return HP == 32 ? Tc<T>::XT : sizeof(T) == 2 ? 16 : 8;
+}
+// Whether the step's own K/V rows go out to k_new / v_new only, `big` holding
+// q alone, and the self-attention reads them back from there (f32 at HP 64:
+// a 3D-wide `big` beside three stages of 8 rows would pass the card's shared
+// memory at D 512, 364,416 bytes with 16-row stages)
+template <typename T, int HP> __host__ __device__ constexpr bool kv_out() {
+  return sizeof(T) == 4 && HP == 64;
 }
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
@@ -454,14 +466,14 @@ __host__ __device__ inline MmaSmem mma_smem(int D, int H, int F, int L) {
   s.pa = a_pitch<T>(D);
   s.pq = H * HP + PAD<T>;
   s.pf = a_pitch<T>(F);
-  s.pb = max(max(round_up(3 * D, 8), s.pq), s.pf);
+  s.pb = max(max(round_up(kv_out<T, HP>() ? D : 3 * D, 8), s.pq), s.pf);
   // f32: x is its own A operand (pitch pa, zeros in the pad); bf16: x in f32
   // (ROWS, D) and rounded to bf16 in xa
   s.px = E == 4 ? s.pa : D;
   s.xs = 0;
   s.xa = E == 4 ? 0 : round_up(4 * ROWS * D, 16);
   s.ab = s.xa + E * ROWS * s.pa;                      // T (ROWS, pa): attention out
-  s.big = s.ab + E * ROWS * s.pa;                     // T (ROWS, pb): qkv | q | hidden
+  s.big = s.ab + E * ROWS * s.pa;                     // T (ROWS, pb): qkv (or q) | q | hidden
   s.anc = s.big + E * ROWS * s.pb;                    // int (ROWS, L)
   s.ring = round_up(s.anc + 4 * ROWS * L, 16);        // T XSTAGES x (K, V) x (XT, pq)
   s.total = s.ring + E * XSTAGES * 2 * xt_of<T, HP>() * s.pq;
@@ -673,32 +685,38 @@ __device__ __forceinline__ void norm_rows(float* xs, int px, T* xa, int pa, cons
   }
 }
 
-// One memory tile of the cross attention for warp hh's head, flash style, in
-// f32: S = Q K^T and O += P V in 3xTF32 (mma3; a tile's P V formed apart and
-// added to O in f32).  Q's fragments (4 k8 steps over the padded head dim)
-// were split once for the image.  P reaches its product
+// One memory tile of XT rows of the cross attention for warp hh's head,
+// flash style, in f32: S = Q K^T and O += P V in 3xTF32 (mma3; a tile's P V
+// formed apart and added to O in f32).  Q's fragments (HP / 8 k8 steps over
+// the padded head dim) are read from shared memory at qt, where q stays
+// through the loop, and split for each tile: held in registers for the image
+// instead, their split pieces (64 registers a lane at HP 64) spill in the
+// loop, 2.69 ms a step against 1.91 at 512x8, and at HP 32 they measured 2%
+// slower too (PERF.md).  P reaches its product
 // without a shuffle: the accumulator holds keys 2 t, 2 t + 1 where the A
 // fragment wants k = t, t + 4, so P is taken as A with its k order permuted
 // (key 2 t as k t, 2 t + 1 as t + 4) and V's rows are read in that order.
-__device__ __forceinline__ void cross_tile_f32(const float* kt, const float* vt, int PQ,
-                                               const FragA<2> (&qf)[4], float (&acc)[4][4],
-                                               float (&mrow)[2], float (&lrow)[2], int m0, int M,
-                                               float c) {
-  constexpr int XT = Tc<float>::XT;
+template <int HP, int XT>
+__device__ __forceinline__ void cross_tile_f32(const float* qt, const float* kt, const float* vt,
+                                               int PQ, float (&acc)[HP / 8][4], float (&mrow)[2],
+                                               float (&lrow)[2], int m0, int M, float c) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   float sv[XT / 8][4];
 #pragma unroll
   for (int j = 0; j < XT / 8; ++j) {
-    uint32_t kb[2][4];                  // K rows 8 j + g, dims 4 q + t (matrix q = lane / 8)
+    uint32_t kb[HP / 16][4];            // K rows 8 j + g, dims 16 h + 4 q + t (matrix q = lane / 8)
     const float* kr = kt + (8 * j + (lane & 7)) * PQ + 4 * (lane >> 3);
-    ldsm_x4(kb[0], kr);
-    ldsm_x4(kb[1], kr + 16);
+#pragma unroll
+    for (int h = 0; h < HP / 16; ++h) ldsm_x4(kb[h], kr + 16 * h);
 #pragma unroll
     for (int e = 0; e < 4; ++e) sv[j][e] = 0.f;
 #pragma unroll
-    for (int ds = 0; ds < 4; ++ds)
-      mma3(sv[j], qf[ds], __uint_as_float(kb[ds >> 1][2 * (ds & 1)]),
+    for (int ds = 0; ds < HP / 8; ++ds) {
+      uint32_t q4[4];                   // Q rows g, g + 8 by dims 8 ds + t, + 4
+      ldsm_x4(q4, qt + 8 * ds);
+      mma3(sv[j], split_frag(q4), __uint_as_float(kb[ds >> 1][2 * (ds & 1)]),
            __uint_as_float(kb[ds >> 1][2 * (ds & 1) + 1]));
+    }
   }
   if (m0 + XT > M) {                    // the ragged last tile
 #pragma unroll
@@ -718,7 +736,7 @@ __device__ __forceinline__ void cross_tile_f32(const float* kt, const float* vt,
     mrow[r] = m_new;
     lrow[r] *= alpha[r];
   }
-  float pv[4][4] = {};
+  float pv[HP / 8][4] = {};
 #pragma unroll
   for (int j = 0; j < XT / 8; ++j) {
     float p[4];
@@ -732,10 +750,10 @@ __device__ __forceinline__ void cross_tile_f32(const float* kt, const float* vt,
     const FragA<2> pf = split_frag(pa);
     const float* v0 = vt + (8 * j + 2 * t) * PQ + g;
 #pragma unroll
-    for (int n = 0; n < 4; ++n) mma3(pv[n], pf, v0[8 * n], v0[PQ + 8 * n]);
+    for (int n = 0; n < HP / 8; ++n) mma3(pv[n], pf, v0[8 * n], v0[PQ + 8 * n]);
   }
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
+  for (int n = 0; n < HP / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = fmaf(acc[n][e], alpha[e >> 1], pv[n][e]);
 }
@@ -743,10 +761,16 @@ __device__ __forceinline__ void cross_tile_f32(const float* kt, const float* vt,
 template <typename T, int HP>
 __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
   constexpr bool F32 = sizeof(T) == 4;
-  static_assert(HP == 32 || (HP == 64 && !F32), "f32 takes heads of at most 32 dims");
+  static_assert(HP == 32 || HP == 64, "heads of at most 64 dims");
   constexpr int XT = xt_of<T, HP>(), KP = Tc<T>::KP;
+  constexpr bool KV_OUT = kv_out<T, HP>();
   constexpr int SW = HP / 4;        // words (element pairs) of a self-attention thread
   using Word = typename Tc<T>::Word;
+  // a self-attention thread fetches the next row's K and V during this row's
+  // math where they take at most 64 bytes each (32 registers); f32 at HP 64
+  // (128 bytes each) fetches after it: ahead, beside the 168 registers ten
+  // warps allow, it measured 11% slower a step (PERF.md)
+  constexpr bool AHEAD = SW * sizeof(Word) <= 64;
   extern __shared__ __align__(16) unsigned char smem[];
   const int K = a.K, D = a.D, H = a.H, F = a.F, L = a.L, M = a.M, i = a.step;
   const int Hd = D / H, HPT = H * HP;
@@ -839,7 +863,7 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
                  [&](int row, int col, float y0, float y1) {
                    if (col >= 3 * D) return;
                    const Word p = pack_word(big, y0 + bias[col], y1 + bias[col + 1]);
-                   *reinterpret_cast<Word*>(big + row * PB + col) = p;
+                   if (!KV_OUT || col < D) *reinterpret_cast<Word*>(big + row * PB + col) = p;
                    if (row < R && col >= D) {
                      T* dst = col < 2 * D ? a.k_new + col - D : a.v_new + col - 2 * D;
                      *reinterpret_cast<Word*>(dst + out0 + (long long)row * D) = p;
@@ -857,8 +881,13 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
         const int r = task / H, hh = task - r * H;
         const int col = hh * Hd + 2 * w0;
         const Word* qs = reinterpret_cast<const Word*>(big + r * PB + col);
-        const Word* ks_ = reinterpret_cast<const Word*>(big + r * PB + D + col);
-        const Word* vs_ = reinterpret_cast<const Word*>(big + r * PB + 2 * D + col);
+        // this step's own K/V: beside q, or (KV_OUT) this block's rows of k_new /
+        // v_new, written above and visible after the barrier (plain loads)
+        const long long own = ((long long)l * a.B * K + row0 + r) * D + col;
+        const Word* ks_ = reinterpret_cast<const Word*>(KV_OUT ? a.k_new + own
+                                                                : big + r * PB + D + col);
+        const Word* vs_ = reinterpret_cast<const Word*>(KV_OUT ? a.v_new + own
+                                                                : big + r * PB + 2 * D + col);
         const long long base = ((long long)l * a.B + (row0 + r) / K) * img + col;
         const T* kb = a.ck + base;
         const T* vb = a.cv + base;
@@ -896,7 +925,9 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
         float m = -INFINITY, s = 0.f;
         for (int tt = 0; tt <= i; ++tt) {
           Word kn[SW], vn[SW];
-          if (tt < i) fetch(tt + 1, kn, vn);
+          if constexpr (AHEAD) {
+            if (tt < i) fetch(tt + 1, kn, vn);
+          }
           float dot = 0.f;
 #pragma unroll
           for (int w = 0; w < SW; ++w) {
@@ -916,10 +947,14 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
           }
           m = m_new;
           if (tt < i) {
+            if constexpr (AHEAD) {
 #pragma unroll
-            for (int w = 0; w < SW; ++w) {
-              kw[w] = kn[w];
-              vw[w] = vn[w];
+              for (int w = 0; w < SW; ++w) {
+                kw[w] = kn[w];
+                vw[w] = vn[w];
+              }
+            } else {
+              fetch(tt + 1, kw, vw);
             }
           }
         }
@@ -956,8 +991,8 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
       const int hh = warp;
       const float c = sc * LOG2E;
       uint32_t qf[HP / 16][4];                // bf16: Q's A fragments (HP / 16 k16 steps)
-      FragA<2> qs[F32 ? 4 : 1];               // f32: split (4 k8 steps)
       float acc[HP / 8][4], mrow[2], lrow[2];
+      const T* qsrc = big + (lane & 15) * PQ + hh * HP + (lane >> 4) * PAD<T>;
       const int s0 = l * per_layer;
       for (int s = s0; s < s0 + per_layer; ++s) {
         cp_async_wait<XSTAGES - 2>();
@@ -968,15 +1003,7 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
         const T* kt = ring + (s % XSTAGES) * 2 * XT * PQ + hh * HP;
         const T* vt = kt + XT * PQ;
         if (mt == 0) {                        // an image's first tile: fresh state
-          const T* qsrc = big + (lane & 15) * PQ + hh * HP + (lane >> 4) * PAD<T>;
-          if constexpr (F32) {
-#pragma unroll
-            for (int ds = 0; ds < 4; ++ds) {
-              uint32_t r4[4];
-              ldsm_x4(r4, qsrc + 8 * ds);
-              qs[ds] = split_frag(r4);
-            }
-          } else {
+          if constexpr (!F32) {
 #pragma unroll
             for (int ks = 0; ks < HP / 16; ++ks) ldsm_x4(qf[ks], qsrc + 16 * ks);
           }
@@ -988,7 +1015,7 @@ __global__ void __launch_bounds__(MT, 1) decoder_step_mma_kernel(MmaArgs<T> a) {
           lrow[0] = lrow[1] = 0.f;
         }
         if constexpr (F32) {
-          cross_tile_f32(kt, vt, PQ, qs, acc, mrow, lrow, m0, M, c);
+          cross_tile_f32<HP, XT>(qsrc, kt, vt, PQ, acc, mrow, lrow, m0, M, c);
         } else {
           // S: XT / 8 n8 tiles of keys, each HP / 16 k-steps (an ldmatrix.x4
           // gives two); O: HP / 8 n8 tiles of dims, XT / 16 k-steps of keys
@@ -1104,20 +1131,17 @@ int launch_mma(const MmaArgs<T>& a, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// heads of at most 32 dims at pad 32 (bf16 and f32); 33-64 at pad 64 (bf16)
+// heads of at most 32 dims at pad 32, 33-64 at pad 64 (bf16 and f32)
 template <typename T>
 int run_mma(const MmaArgs<T>& a, void* stream) {
   const int Hd = a.H > 0 ? a.D / a.H : 0;
   const bool rows_ok = a.S == 1 ? a.G >= 1 && a.G * a.K <= ROWS
                                 : a.G == 1 && a.S > 1 && a.S <= a.K &&
                                       (a.K + a.S - 1) / a.S <= ROWS;
-  const int hd_max = sizeof(T) == 4 ? 32 : 64;
   if (a.K < 1 || !rows_ok || a.H < 1 || a.H > MW || a.D % a.H != 0 || Hd % 2 != 0 ||
-      Hd > hd_max || a.F % 2 != 0 || a.step < 0 || a.step >= a.L || a.M < 1)
+      Hd > 64 || a.F % 2 != 0 || a.step < 0 || a.step >= a.L || a.M < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (sizeof(T) == 2) {
-    if (head_pad(Hd) == 64) return launch_mma<T, 64>(a, stream);
-  }
+  if (head_pad(Hd) == 64) return launch_mma<T, 64>(a, stream);
   return launch_mma<T, 32>(a, stream);
 }
 

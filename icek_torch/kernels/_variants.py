@@ -105,6 +105,38 @@ _HINTS_OFF = [
      "cp_async16(smem_u32(vd + r * PQ + PAD<T> * c), a.xv + src, ok);"),
 ]
 _NO_CROSS_MATH = [("        if (hh >= H) continue;\n", "        continue;\n")]
+# the f32 cross tile's S = Q K^T: one chain of HP / 8 k8 steps, or four at pad 64
+_S_CHAIN = """#pragma unroll
+    for (int e = 0; e < 4; ++e) sv[j][e] = 0.f;
+#pragma unroll
+    for (int ds = 0; ds < HP / 8; ++ds) {
+      uint32_t q4[4];                   // Q rows g, g + 8 by dims 8 ds + t, + 4
+      ldsm_x4(q4, qt + 8 * ds);
+      mma3(sv[j], split_frag(q4), __uint_as_float(kb[ds >> 1][2 * (ds & 1)]),
+           __uint_as_float(kb[ds >> 1][2 * (ds & 1) + 1]));
+    }
+"""
+_S_CHAINS = """    constexpr int SC = HP == 64 ? 4 : 1, NK = HP / 8 / SC;
+    float part[SC][4] = {};
+#pragma unroll
+    for (int k = 0; k < NK; ++k)
+#pragma unroll
+      for (int q = 0; q < SC; ++q) {
+        const int ds = q * NK + k;
+        uint32_t q4[4];
+        ldsm_x4(q4, qt + 8 * ds);
+        mma3(part[q], split_frag(q4), __uint_as_float(kb[ds >> 1][2 * (ds & 1)]),
+             __uint_as_float(kb[ds >> 1][2 * (ds & 1) + 1]));
+      }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sv[j][e] = part[0][e];
+#pragma unroll
+      for (int q = 1; q < SC; ++q) sv[j][e] += part[q][e];
+    }
+"""
+
+
 # source -> name -> [(text, replacement)] or, for a replacement of everything
 # between two marks, [((begin, end), replacement)]
 # the TF32 flash forward's P V: V split by split_tf32_bits (the kernel), or
@@ -433,6 +465,11 @@ VARIANTS = {
           mma_tf32(s, f1.p[1], h1.x, h1.y);
           mma_tf32(s, f1.p[0], h1.x, h1.y);"""),
                  ("(round_up(din, KP) / KP) * 32;", "(round_up(din, KP) / KP) * 64;")],
+        # f32 at pad 64: the self-attention fetching a row ahead, as the other layouts do
+        "ahead": [("constexpr bool AHEAD = SW * sizeof(Word) <= 64;", "constexpr bool AHEAD = true;")],
+        # f32 at pad 64: S's eight k8 steps in four chains of their own
+        # (contiguous quarters), added in f32
+        "s4": [(_S_CHAIN, _S_CHAINS)],
         # the linears' weight loads three k-pairs ahead of the products, not two
         "ahead3": [("""    fetch(b0, 0);
     fetch(b1, 1);

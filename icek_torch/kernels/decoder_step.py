@@ -17,16 +17,17 @@ batch).
 
 A CUDA call takes one of two kernels, by ``uses_tensor_cores`` alone:
 bfloat16 and float32 at widths the tensor-core kernel holds (10 heads of at
-most 32 dims, bf16 also of 33 to 64 such as ``--geometry 512x8``'s 8 heads
-of 64; shared memory within the card's, weights stacked with their packed
-copy) run ``decoder_step_mma_kernel<T, HP>`` (the linears and the cross
-attention on the tensor cores: bf16 products, or three TF32 products each
-in f32; the weights packed by ``pack_mma`` / ``pack_tf32``; HP the head
-pad, whose cross ring stages 16 memory rows at 64), G images a block up to
-16 hypotheses an image and ``image_parts`` blocks an image above; the rest
-(f32 heads wider than 32 among them: at 512x8 its block would not fit the
-card's shared memory) run the CUDA-core ``decoder_step_kernel``.  Neither gives
-way to the other or to the plain version.  Each route counts its launches
+most 64 dims, such as the presets' 10 heads of 30 and ``--geometry
+512x8``'s 8 heads of 64; shared memory within the card's, weights stacked
+with their packed copy) run ``decoder_step_mma_kernel<T, HP>`` (the linears
+and the cross attention on the tensor cores: bf16 products, or three TF32
+products each in f32; the weights packed by ``pack_mma`` / ``pack_tf32``;
+HP the head pad, whose cross ring stages 16 bf16 or 8 f32 memory rows at
+64), G images a block up to 16 hypotheses an image and ``image_parts``
+blocks an image above; the rest (more than 10 heads, heads wider than 64
+or odd, weights without the packed copy) run the CUDA-core
+``decoder_step_kernel``.  Neither gives way to the other or to the plain
+version.  Each route counts its launches
 in ``fused_beam_decoder_step.routes`` (``route``: tensor_cores,
 tensor_cores_f32, wide_tensor_cores, wide_tensor_cores_f32, cuda_cores);
 ``fused_beam_decoder_step.launches`` counts them all.
@@ -51,9 +52,9 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 ROWS = 16           # hypothesis rows of a block (one m16 tile)
 WARPS = 10          # warps of a block; warp h takes head h of the cross attention
 HEAD_PAD = 32       # head dim of the padded cross layout, heads of at most 32 dims
-WIDE_HEAD_PAD = 64  # ... heads of 33 to 64 dims (bf16 only)
+WIDE_HEAD_PAD = 64  # ... heads of 33 to 64 dims
 CROSS_TILE = {torch.bfloat16: 32, torch.float32: 16}   # memory rows of a cross ring stage
-WIDE_CROSS_TILE = 16                                   # ... at the wide head pad
+WIDE_CROSS_TILE = {torch.bfloat16: 16, torch.float32: 8}   # ... at the wide head pad
 KPAIR = {torch.bfloat16: 32, torch.float32: 16}        # depth of a lane's 16-byte weight load
 CROSS_STAGES = 3
 MAX_SMEM = 232448   # shared memory a block may use on sm_90
@@ -185,8 +186,15 @@ def head_pad(head_dim: int) -> int:
 
 def cross_tile(dtype, head_dim: int) -> int:
     """Memory rows of a cross ring stage (csrc/decoder_step.cu::xt_of): 32
-    bf16 or 16 f32 rows at pad 32, 16 at pad 64."""
-    return CROSS_TILE[dtype] if head_pad(head_dim) == HEAD_PAD else WIDE_CROSS_TILE
+    bf16 or 16 f32 rows at pad 32, 16 bf16 or 8 f32 rows at pad 64."""
+    return (CROSS_TILE if head_pad(head_dim) == HEAD_PAD else WIDE_CROSS_TILE)[dtype]
+
+
+def kv_out(dtype, head_dim: int) -> bool:
+    """Whether the kernel's block keeps q alone in its projection buffer and
+    reads the step's own K/V rows back from k_new / v_new
+    (csrc/decoder_step.cu::kv_out): f32 at pad 64."""
+    return dtype == torch.float32 and head_pad(head_dim) == WIDE_HEAD_PAD
 
 
 def pad_cross_heads(cross_kvs, dtype):
@@ -208,12 +216,13 @@ def mma_smem_bytes(D: int, H: int, F: int, L: int, dtype=torch.bfloat16) -> int:
     """Shared memory of a tensor-core block (csrc/decoder_step.cu::mma_smem)
     at the head pad of D / H: row pitches padded by 16 bytes past whole
     k-pairs; bf16 keeps x in f32 beside its bf16 copy, f32's x is its own A
-    operand; a three-stage ring of ``cross_tile`` memory rows."""
+    operand; the projection buffer 3D wide, or D (``kv_out``); a three-stage
+    ring of ``cross_tile`` memory rows."""
     e, kp = dtype.itemsize, KPAIR[dtype]
     pad = 16 // e
     pa, pf = _round_up(D, kp) + pad, _round_up(F, kp) + pad
     pq = H * head_pad(D // H) + pad
-    pb = max(_round_up(3 * D, 8), pq, pf)
+    pb = max(_round_up(D if kv_out(dtype, D // H) else 3 * D, 8), pq, pf)
     xa = _round_up(4 * ROWS * D, 16) if e == 2 else 0
     ring = _round_up(xa + e * ROWS * (2 * pa + pb) + 4 * ROWS * L, 16)
     return ring + e * CROSS_STAGES * 2 * cross_tile(dtype, D // H) * pq
@@ -223,17 +232,15 @@ def uses_tensor_cores(stacked: StackedDecoder, caches_k, K: int, num_heads: int)
     """Whether a CUDA call with these weights, caches and beam width takes the
     tensor-core kernel: bfloat16 or float32 with packed weights, any K >= 1
     (G images a block up to 16, ``image_parts`` blocks an image above), at
-    most 10 heads of an even head dim, <= 32 (f32) or <= 64 (bf16: pad 64
-    from 33 dims on), an even FFN width, and a block's shared memory within
-    the card's.  (f32 at pad 64 would not fit: 166,272 bytes of activations
-    at D 512 beside a ring of 198,144.)"""
+    most 10 heads of an even head dim <= 64 (pad 64 from 33 dims on), an
+    even FFN width, and a block's shared memory within the card's (f32 at
+    512x8: 200,064 bytes with 8-row stages and ``kv_out``)."""
     nL, B, LK, D = caches_k.shape
     H, F = num_heads, stacked.f1_w.shape[-1]
     dt = caches_k.dtype
     if dt not in CROSS_TILE or stacked.mma is None or K < 1:
         return False
-    widest = WIDE_HEAD_PAD if dt == torch.bfloat16 else HEAD_PAD
-    if H > WARPS or D % H or (D // H) % 2 or D // H > widest or F % 2:
+    if H > WARPS or D % H or (D // H) % 2 or D // H > WIDE_HEAD_PAD or F % 2:
         return False
     return mma_smem_bytes(D, H, F, LK // K, dt) <= MAX_SMEM
 

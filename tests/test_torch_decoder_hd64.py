@@ -148,20 +148,29 @@ def _case(K=5, D=512, H=8, F=512, L=30, dtype=torch.bfloat16):
 def test_shared_memory_and_route_at_512x8():
     """bf16 at 512x8 (D 512, 8 heads of 64, F 512, L 30) takes the tensor-core
     route in 216,960 bytes (117,120 of activations, a ring of three 16-row
-    stages); f32 at 512x8 would need 364,416 and keeps the CUDA-core kernel.
-    The 300x10 layout (pad 32, 32-row bf16 / 16-row f32 stages) is
-    unchanged; heads above 64 dims, odd ones and more than 10 are refused."""
+    stages); f32 at 512x8 too, in 200,064 (q alone in the projection
+    buffer, a ring of three 8-row stages), where the bf16 layout's 3D-wide
+    buffer and 16-row stages would need 364,416.  The 300x10 layout (pad 32,
+    32-row bf16 / 16-row f32 stages) is unchanged; heads above 64 dims, odd
+    ones and more than 10 are refused."""
     assert tds.mma_smem_bytes(512, 8, 512, 30) == 216960 <= tds.MAX_SMEM
-    assert tds.mma_smem_bytes(512, 8, 512, 30, torch.float32) == 364416 > tds.MAX_SMEM
+    assert tds.mma_smem_bytes(512, 8, 512, 30, torch.float32) == 200064 <= tds.MAX_SMEM
+    # f32 rows of x, the attention output and q (pitch 516), the ancestry,
+    # three stages of 8 K and V rows; the bf16 layout in f32: a 1536-wide
+    # projection buffer and three stages of 16 rows
+    assert 4 * 16 * 3 * 516 + 4 * 16 * 30 + 4 * 3 * 2 * 8 * 516 == 200064
+    assert 4 * 16 * (2 * 516 + 1536) + 4 * 16 * 30 + 4 * 3 * 2 * 16 * 516 == 364416 > tds.MAX_SMEM
     assert tds.mma_smem_bytes(300, 10, 512, 30) == 196992
     assert tds.mma_smem_bytes(300, 10, 512, 30, torch.float32) == 223616
     assert (tds.head_pad(30), tds.head_pad(32), tds.head_pad(33), tds.head_pad(64)) == (32, 32, 64, 64)
     assert tds.cross_tile(torch.bfloat16, 30) == 32 and tds.cross_tile(torch.float32, 30) == 16
-    assert tds.cross_tile(torch.bfloat16, 64) == 16
+    assert tds.cross_tile(torch.bfloat16, 64) == 16 and tds.cross_tile(torch.float32, 64) == 8
     assert _case() and _case(K=1) and _case(K=16) and _case(K=20)
     assert _case(D=320, H=8)                                # Hd 40
     assert not _case(D=640, H=10)                           # 10 heads of 64: past the card
-    assert not _case(dtype=torch.float32)
+    assert not _case(D=640, H=10, dtype=torch.float32)
+    assert _case(dtype=torch.float32) and _case(K=1, dtype=torch.float32)
+    assert _case(K=20, dtype=torch.float32) and _case(D=320, H=8, dtype=torch.float32)
     assert not _case(D=528, H=8)                            # Hd 66
     assert not _case(D=520, H=8)                            # Hd 65, odd
     assert not _case(D=704, H=11)                           # 11 heads
@@ -181,10 +190,12 @@ def test_ring_at_pad64_runs_on_across_layers():
 
 def test_kernel_source_agrees():
     """The constants the wrapper mirrors are the kernel's: the pad 64 from 33
-    dims, 16-row stages there, bf16 only."""
+    dims, 16-row bf16 stages there (8-row f32 ones), in both dtypes."""
     with open(os.path.join(_build.CSRC, "decoder_step.cu")) as f:
         src = f.read()
     assert "constexpr int head_pad(int Hd) { return Hd <= 32 ? 32 : 64; }" in src
-    assert "return HP == 32 ? Tc<T>::XT : 16;" in src
-    assert "const int hd_max = sizeof(T) == 4 ? 32 : 64;" in src
-    assert (tds.HEAD_PAD, tds.WIDE_HEAD_PAD, tds.WIDE_CROSS_TILE) == (32, 64, 16)
+    assert "return HP == 32 ? Tc<T>::XT : sizeof(T) == 2 ? 16 : 8;" in src
+    assert "Hd > 64 || a.F % 2 != 0" in src and "hd_max" not in src
+    assert "if (head_pad(Hd) == 64) return launch_mma<T, 64>(a, stream);" in src
+    assert (tds.HEAD_PAD, tds.WIDE_HEAD_PAD) == (32, 64)
+    assert tds.WIDE_CROSS_TILE == {torch.bfloat16: 16, torch.float32: 8}

@@ -443,9 +443,9 @@ def test_padded_cross_through_the_wrapper_on_cpu():
 def test_route_predicate_and_groups():
     """bf16 and f32 at the geo beam shape take the tensor-core route, which
     fits the card's shared memory in both, and so do beams wider than 16,
-    and bf16 heads of 33 to 64 dims (pad 64); more heads than warps, an odd
-    head dim, an f32 head dim above 32 and unpacked weights do not (they
-    take the CUDA-core kernel).  G images a block: one
+    and heads of 33 to 64 dims (pad 64, bf16 and f32); more heads than
+    warps, an odd head dim, a head dim above 64 and unpacked weights do not
+    (they take the CUDA-core kernel).  G images a block: one
     wave on 132 SMs."""
     geo = dict(D=300, H=10, F=512, L=30)
     assert tds.mma_smem_bytes(**geo) == 196992 <= tds.MAX_SMEM
@@ -473,7 +473,8 @@ def test_route_predicate_and_groups():
     assert not case(D=360, H=12, dtype=torch.float32)
     assert not case(D=330, H=10)               # head dim 33
     assert case(D=400, H=10)                   # head dim 40: bf16 at pad 64
-    assert not case(D=400, H=10, dtype=torch.float32)   # f32 heads above 32
+    assert case(D=400, H=10, dtype=torch.float32)       # f32 at pad 64 too
+    assert not case(D=660, H=10, dtype=torch.float32)   # head dim 66
     assert not case(packed=False)
     assert not case(packed=False, dtype=torch.float32)
     assert tds.images_per_block(256, 5, 132) == 2

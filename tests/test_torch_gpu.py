@@ -416,21 +416,35 @@ def test_decoder_step_wide_heads_on_tensor_cores(cuda, D, H, B, M, step):
         torch.testing.assert_close(a.float(), c.float(), rtol=0, atol=0.15)
 
 
-def test_decoder_step_f32_512x8_keeps_the_cuda_cores(cuda):
-    """f32 at --geometry 512x8: its tensor-core block would need 364,416
-    bytes of shared memory, so the step runs the CUDA-core kernel (counted
-    as cuda_cores), within 1e-3 of the plain f32 version."""
-    stacked, x, anc, ck, cv, xk, xv, H = _geo_step_inputs(cuda, 4, 5, 15, dtype=torch.float32,
-                                                          D=512, H=8)
-    assert not tds.uses_tensor_cores(stacked, ck, 5, H)
-    assert tds.mma_smem_bytes(512, 8, 512, 30, torch.float32) > tds.MAX_SMEM
+@pytest.mark.parametrize("B,K,M,step", [(256, 5, 497, 15), (3, 5, 1, 15), (3, 5, 7, 15),
+                                         (3, 5, 8, 15), (3, 5, 9, 29), (3, 5, 497, 0),
+                                         (5, 20, 497, 15), (4, 1, 497, 15), (3, 1, 9, 29)])
+def test_decoder_step_f32_512x8_on_tensor_cores(cuda, B, K, M, step):
+    """f32 at --geometry 512x8 on the tensor-core route
+    (decoder_step_mma_kernel<float, 64>: the cross heads padded to 64, three
+    8-row ring stages, the step's own K/V read back from k_new / v_new): the
+    beam shape (B 256, K 5, M 497, step 15), memories of one row, a stage
+    less a row, one stage and a stage and a row, the first and the last
+    step, K 20 on the wide route (wide_tensor_cores_f32) and K 1; within
+    1e-3 of the plain f32 version, two launches bit-identical, the CUDA-core
+    kernel not launched."""
+    stacked, x, anc, ck, cv, xk, xv, H = _geo_step_inputs(cuda, B, K, step, M=M,
+                                                          dtype=torch.float32, D=512, H=8)
+    assert tds.uses_tensor_cores(stacked, ck, K, H)
+    assert tds.mma_smem_bytes(512, 8, 512, 30, torch.float32) == 200064
+    heads = _padded(xk, xv, H)
+    assert heads[0].shape[-1] == 64 * H
     before = _route_launches()
-    got = tds.fused_beam_decoder_step(stacked, x, anc, ck, cv, xk, xv, 15, num_heads=H)
+    runs = [tds.fused_beam_decoder_step(stacked, x, anc, ck, cv, None, None, step, num_heads=H,
+                                        cross_heads=heads) for _ in range(2)]
     torch.cuda.synchronize()
-    assert _ran(before) == {"cuda_cores": 1}
-    want = tds.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv, 15, num_heads=H)
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-3)
+    assert _ran(before) == {tds.route(torch.float32, K, True): 2}
+    assert tds.route(torch.float32, K, True) == ("wide_tensor_cores_f32" if K > 16
+                                                 else "tensor_cores_f32")
+    want = tds.reference_decoder_step(stacked, x, anc, ck, cv, xk, xv, step, num_heads=H)
+    for a, b, c in zip(*runs, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=0, atol=1e-3)
 
 
 @pytest.mark.parametrize("M", [1, 31, 32, 33, 64, 200])
@@ -472,7 +486,8 @@ def test_decoder_step_route_predicate(cuda):
     from icek_torch.kernels import _build
 
     smem = _build.bind("decoder_step", "decoder_step_mma_smem", [ctypes.c_int] * 5)
-    for dims in ((300, 10, 512, 30), (300, 10, 512, 40), (60, 6, 48, 8), (40, 4, 64, 6)):
+    for dims in ((300, 10, 512, 30), (300, 10, 512, 40), (60, 6, 48, 8), (40, 4, 64, 6),
+                 (512, 8, 512, 30), (320, 8, 512, 30), (128, 2, 96, 6)):
         for f32, dt in ((0, torch.bfloat16), (1, torch.float32)):
             assert smem(*dims, f32) == tds.mma_smem_bytes(*dims, dt)   # the predicate's copy
     routes = tds.fused_beam_decoder_step.routes
