@@ -97,6 +97,13 @@ Phases (any failure raises and exits non-zero):
               flash_mha_bwd.routes held), the f32 step at dropout 0 held to
               the CPU's over the gradient tree, the decoder step at this
               width in both dtypes beside the CUDA-core kernel;
+  6c. 512x4   the geo model at --geometry 512x4 (D 512, 4 heads of 128;
+              geometry_hd128_path): bf16 train steps at batch 256 with the
+              preset's dropout (every backward on the HDP-128 wgmma pair,
+              none on another pair: flash_mha_bwd.kernels held) and f32
+              ones (the HDP-128 TF32 pair), the f32 step at dropout 0 held to the
+              CPU's over the gradient tree; no serving (its beam loop would
+              run the CUDA-core decoder step);
   wide beam   the score head at k 10 and 20 and the decoder step at K 10
               and 20 (both routes, each dtype; K 20: parts of an image a
               tensor-core block) against their plain versions, then geo beams 10 and 20
@@ -568,14 +575,19 @@ def check_flash(dev):
     return fwd, bwd
 
 
-# the backward's kernels at padded head dim 64, by route (the 512x8 path)
-HD64_BWD_KERNELS = {"mma": ["flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"],
+# the backward's kernels at padded head dim 64, by route (the 512x8 path),
+# and at 128 (the 512x4 path)
+HD64_BWD_KERNELS = {"mma": ["flash_bwd_dq_wgmma_kernel<64, *>", "flash_bwd_dkv_wgmma_kernel<64, *>"],
                     "tf32": ["flash_bwd_dq_tf32_kernel<float, 64, 4, *>",
                              "flash_bwd_dkv_tf32_kernel<float, 64, 4, *>"]}
+HD128_BWD_KERNELS = {"mma": ["flash_bwd_dq_wgmma_kernel<128, *>",
+                             "flash_bwd_dkv_wgmma_kernel<128, *>"],
+                     "tf32": ["flash_bwd_dq_tf32_kernel<float, 128, 4, *>",
+                              "flash_bwd_dkv_tf32_kernel<float, 128, 4, *>"]}
 
 # head dims above 32 (fault F4): (Hd, heads) with D near the geo widths; 64 x 8
-# is the --geometry 512x8 model (the slice's path), at all three train-step
-# sites; the others at the encoder and the causal decoder self site
+# and 128 x 4 are the --geometry 512x8 and 512x4 models, at all three
+# train-step sites; the others at the encoder and the causal decoder self site
 WIDE_HEADS = ((64, 8), (40, 8), (75, 4), (128, 4))
 
 
@@ -589,7 +601,7 @@ def check_flash_wide(dev):
     record}}}."""
     out = {}
     for Hd, H in WIDE_HEADS:
-        sites = FLASH_SITES if Hd == 64 else FLASH_SITES[:2]
+        sites = FLASH_SITES if Hd in (64, 128) else FLASH_SITES[:2]
         cases = [(dt, tol, btol, False) for dt, tol, btol in FLASH_TOLS]
         if Hd == 64:
             cases.append((torch.bfloat16, FLASH_TOLS[1][1], FLASH_TOLS[1][2], True))
@@ -1381,7 +1393,7 @@ def zero_route_counts():
     from icek_torch.kernels import copy_scores, flash_attention
 
     for counts in (flash_attention.flash_mha.routes, copy_scores.fused_score_topk.routes,
-                   flash_attention.flash_mha_bwd.routes):
+                   flash_attention.flash_mha_bwd.routes, flash_attention.flash_mha_bwd.kernels):
         counts.update(dict.fromkeys(counts, 0))
     flash_attention.flash_mha.wgmma = 0
 
@@ -1395,10 +1407,31 @@ def wide_heads(m) -> bool:
 
 def bwd_route_counts():
     """The flash backward's launches by route (flash_mha_bwd.routes): mma
-    (bf16; at head dim 64 the wgmma pair) and tf32."""
+    (bf16; at head dims above 32 the wgmma pair) and tf32."""
     from icek_torch.kernels import flash_attention
 
     return dict(flash_attention.flash_mha_bwd.routes)
+
+
+def bwd_pair_counts():
+    """The flash backward's launches by kernel pair (flash_mha_bwd.kernels,
+    flash_attention.BWD_KERNELS)."""
+    from icek_torch.kernels import flash_attention
+
+    return dict(flash_attention.flash_mha_bwd.kernels)
+
+
+def bwd_pair_prediction(m, dtype, n) -> dict:
+    """Every backward pair's count when a model with config `m` takes `n`
+    backward launches in `dtype`: all on the pair its head dim takes (bf16:
+    the mma.sync pair at 32 dims or fewer, the wgmma pair above; f32: the
+    TF32 pair of the padded head dim), none on another."""
+    from icek_torch.kernels import flash_attention as fa
+
+    hdp = fa.head_pad(m.emb_dim // m.num_heads)
+    pair = (f"tf32_{hdp}" if dtype == torch.float32
+            else "mma_sync32" if hdp == 32 else f"wgmma{hdp}")
+    return {name: n if name == pair else 0 for name in fa.BWD_KERNELS}
 
 
 def route_prediction(**counts):
@@ -3917,6 +3950,12 @@ def run_train_path(dev, model, preset="georic", steps=TRAIN_STEPS):
     want_bwd = {"mma": counted["flash_attention_bwd"][1] * steps, "tf32": 0}
     require(bwd_routes == want_bwd,
             f"{preset} bf16 train step: backward routes {bwd_routes} != {want_bwd}")
+    # ... on the pair of the model's head dim (at 128 the wgmma pair, none on
+    # the mma.sync pair it replaced)
+    bwd_pairs = bwd_pair_counts()
+    want_pairs = bwd_pair_prediction(m, torch.bfloat16, want_bwd["mma"])
+    require(bwd_pairs == want_pairs,
+            f"{preset} bf16 train step: backward pairs {bwd_pairs} != {want_pairs}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     eval_after = float(eval_step(params, None, batch)[0])
     log(f"{preset} train path launches over {steps} steps: {launches}")
@@ -3958,7 +3997,7 @@ def run_train_path(dev, model, preset="georic", steps=TRAIN_STEPS):
         samples_per_s_median=BATCH / statistics.median(times),
         tokens_per_step=int(count), losses=losses, eval_loss_before=eval_before,
         eval_loss_after=eval_after, peak_mem_gb=peak_gb, routes=routes,
-        bwd_routes=bwd_routes, **stages)
+        bwd_routes=bwd_routes, bwd_pairs=bwd_pairs, **stages)
     log(f"{preset} train path (batch {BATCH}, T {T}, bf16, dropout on): {summary}")
     return launches, summary, lambda: float(train_step(params, opt_state, None, batch, gen)[2])
 
@@ -4022,6 +4061,9 @@ def f32_train_path(dev, model, bf16_summary, oracle="plain"):
     bwd_routes = bwd_route_counts()
     want_bwd = {"mma": 0, "tf32": counted["flash_attention_bwd"][1] * F32_STEPS}
     require(bwd_routes == want_bwd, f"f32 train step: backward routes {bwd_routes} != {want_bwd}")
+    bwd_pairs = bwd_pair_counts()
+    want_pairs = bwd_pair_prediction(cfg.model, torch.float32, want_bwd["tf32"])
+    require(bwd_pairs == want_pairs, f"f32 train step: backward pairs {bwd_pairs} != {want_pairs}")
     eval_after = float(eval_step(p, None, batch)[0])
     for name, (_, per_step) in counted.items():
         require(launches[name] == per_step * F32_STEPS,
@@ -4067,7 +4109,8 @@ def f32_train_path(dev, model, bf16_summary, oracle="plain"):
                    step_ms_median=statistics.median(times) * 1e3,
                    samples_per_s_median=BATCH / statistics.median(times),
                    bf16_samples_per_s_median=bf16_summary["samples_per_s_median"],
-                   launches=launches, routes=routes, bwd_routes=bwd_routes, losses=losses,
+                   launches=launches, routes=routes, bwd_routes=bwd_routes,
+                   bwd_pairs=bwd_pairs, losses=losses,
                    eval_loss_before=eval_before, eval_loss_after=eval_after,
                    dropout0_loss_rel=loss_rel, dropout0_oracle=f"{oracle} at batch {n0}",
                    dropout0_grad_tree_rel=tree_rel, dropout0_worst_leaf_rel=grad_rel)
@@ -4156,6 +4199,41 @@ def geometry_path(dev):
     log(f"{label} path: captions/s {serving['captions_per_s_median']}, f32 captions/s "
         f"{f32_serve['captions_per_s_median']}, bf16 samples/s "
         f"{train['samples_per_s_median']}, f32 samples/s {f32['samples_per_s_median']}")
+    return rec
+
+
+# --------------------------------------------------------------------------
+# phase 6c: the geo model at --geometry 512x4 (heads of 128), train
+# --------------------------------------------------------------------------
+
+GEOMETRY_HD128 = "512x4"     # D 512 as 512x8, 4 heads of 128: the flash backward at HDP 128
+
+
+def geometry_hd128_path(dev):
+    """The geo preset at --geometry 512x4 (D 512, 4 heads of 128, 3 layers,
+    FFN 512, seeded weights) trained through the entry points: bf16 train
+    steps at batch 256 with the preset's dropout (run_train_path: every
+    forward on the wgmma forward, every backward on the HDP-128 wgmma pair
+    reading its lse and keep bits, none on another pair) and the f32 step
+    (f32_train_path: the TF32 forward and the HDP-128 TF32 pair; at dropout
+    0 held to the CPU's step over the gradient tree, as 512x8's).  No serving: a 512x4 beam loop
+    would run the CUDA-core decoder step (heads above 64 dims).  Returns its
+    records."""
+    model = full_width_model(geometry=GEOMETRY_HD128)
+    m = model[0].model
+    require((m.emb_dim, m.num_heads, m.num_layers) == (512, 4, 3),
+            f"--geometry {GEOMETRY_HD128}: D {m.emb_dim}, {m.num_heads} heads, "
+            f"{m.num_layers} layers")
+    t0 = time.perf_counter()
+    train_launches, train, _ = run_train_path(dev, model, steps=GEOMETRY_TRAIN_STEPS)
+    f32 = f32_train_path(dev, model, train, oracle="cpu")
+    del model
+    rec = dict(train=train, train_launches=train_launches, f32_train=f32,
+               phase_s=time.perf_counter() - t0)
+    log(f"geo {GEOMETRY_HD128} path: bf16 samples/s {train['samples_per_s_median']} "
+        f"(step {train['step_ms_median']} ms), f32 samples/s {f32['samples_per_s_median']} "
+        f"(step {f32['step_ms_median']} ms); backward pairs {train['bwd_pairs']} / "
+        f"{f32['bwd_pairs']}")
     return rec
 
 
@@ -4498,6 +4576,7 @@ def run_phases(dev, card) -> list:
     train_launches, train_summary, step_once = run_train_path(dev, geo)
     f32_train = f32_train_path(dev, geo, train_summary)
     wide_geo = geometry_path(dev)
+    wide_geo128 = geometry_hd128_path(dev)
     trained = {p: run_train_path(dev, models[p], p, FACT_TRAIN_STEPS) for p in FACT_PRESETS}
     for preset, model in models.items():
         train_cross_check(dev, model, preset)
@@ -4682,6 +4761,33 @@ def run_phases(dev, card) -> list:
                 "head_dims": {str(hd): flash_wide[hd] for hd in flash_wide if hd != 64},
                 **({"misaligned_bf16": flash_wide[64]["bfloat16 misaligned"]}
                    if fam == "tf32" else {})})
+    # the backward at padded head dim 128 (the --geometry 512x4 path): the
+    # encoder site (B 256, T 301, 4 heads of 128) at rate 0.2, each new pair
+    # with its launches on the 512x4 train steps and its rate-0 time beside
+    # SDPA's (the pair it replaced is timed beside it by
+    # `python -m icek_torch.kernels._variants --parent ROOT flash_attention base 0,0.2 4x128
+    # f32,bf16`)
+    for fam, key in (("mma", "bfloat16"), ("tf32", "float32")):
+        rec = flash_wide[128][key]["encoder"]["backward"]
+        run = wide_geo128["train"] if fam == "mma" else wide_geo128["f32_train"]
+        least, by = rec["bound_ms"], rec["bound_by"]
+        if "bound_tf32_ms" in rec and rec["bound_tf32_ms"] < least:
+            least, by = rec["bound_tf32_ms"], rec["bound_tf32_by"]
+        rows.append({
+            "name": f"flash_attention_bwd_{fam}_hd128", "route": "cuda",
+            "source": "icek_torch/csrc/flash_attention.cu",
+            "replaces": meta["flash_attention_bwd"][1],
+            "launches": (wide_geo128["train_launches"]["flash_attention_bwd"] if fam == "mma"
+                         else run["launches"]["flash_attention_bwd"]),
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": least, "bound_by": by, "library_ms": rec["library_ms"], "dtype": key,
+            "tol": rec["tol"],
+            "site": f"--geometry {GEOMETRY_HD128} encoder B {BATCH} T {ENT_ROWS} H 4 Hd 128, "
+                    f"rate {RATE}",
+            **{k: rec[k] for k in ("rate0_ms", "bound_tf32_ms") if k in rec},
+            "rate0_over_library": rec["rate0_ms"] / rec["library_ms"],
+            "kernels": HD128_BWD_KERNELS[fam], "bwd_pairs": run["bwd_pairs"],
+            "step_ms_median": run["step_ms_median"]})
     step = wide_geo["decoder_step"]
     bf, f32 = step["bfloat16"], step["float32"]
     rows.append({
@@ -4732,6 +4838,8 @@ def run_phases(dev, card) -> list:
     log(f"card: {card}; train path: {json.dumps(train_summary)}")
     log(f"card: {card}; f32 train path: {json.dumps(f32_train)}")
     log(f"card: {card}; --geometry {GEOMETRY} path: {json.dumps(wide_geo, default=str)}")
+    log(f"card: {card}; --geometry {GEOMETRY_HD128} path: "
+        f"{json.dumps(wide_geo128, default=str)}")
     log(f"card: {card}; main path: {json.dumps(summary)}")
     for p in FACT_PRESETS:
         log(f"card: {card}; {p} serving: {json.dumps(served[p][1])}")

@@ -71,8 +71,8 @@
 //      wgmma was not taken for these: it wants 64-row tiles and swizzled
 //      operands, two of the three sites of the presets have 32 query rows,
 //      and at HDP 32 the kernels are not bound by the matrix unit.  At HDP
-//      64 the backward is a wgmma pair (flash_bwd_{dq,dkv}_wgmma_kernel),
-//      and at HDP 64 and 128 the forward is flash_fwd_wgmma_kernel (each
+//      64 and 128 the backward is a wgmma pair (flash_bwd_{dq,dkv}_wgmma_
+//      kernel<HDP, DROP>) and the forward is flash_fwd_wgmma_kernel (each
 //      described where it is defined): there the mma.sync kernels were
 //      bound by the ldmatrix reads of the staged operands and their issue.
 //      The forward takes wgmma at 32-row sites too (the 512x8 decoder's
@@ -87,7 +87,8 @@
 //      K Q^T and dP^T = V dO^T over staged query tiles, so P^T and dS^T are
 //      again A fragments for dV += P^T dO and dK += dS^T Q.  At HDP 128 the
 //      dK and dV accumulators take 128 registers a lane, so K and V are
-//      staged once a block and read back by ldmatrix instead of held.
+//      staged once a block and read back by ldmatrix instead of held (the
+//      wgmma pair stages them too, and reads them as SS operands).
 //    * Above HDP 32 a block has four warps whatever Tq is: each extra
 //      instantiation lengthens the build, and the two-warp block is what
 //      the narrow decoder sites of the presets needed.
@@ -141,13 +142,13 @@
 //      distinct banks), double buffered, and walked 8 keys (queries) at a
 //      time; dK/dV works on the transposed scores; no atomics, so launches
 //      agree bit for bit.
-//    * At HDP 64 every operand is split by integer rounding (split_as,
-//      tf32_bits: three instructions an element, where the cvt.rna pair
-//      expands into compare-and-select code), in the forward and both
-//      backward kernels alike, so S stays the same bits in all three (the
-//      f32 backward at the 512x8 encoder site went from 5.9 to 4.9 ms on an
-//      H100 that way, the forward from 1.14 to 1.00); HDP 32 and 128 keep
-//      cvt.rna and their bits.
+//    * At HDP 64 and 128 every operand is split by integer rounding
+//      (split_as, tf32_bits: three instructions an element, where the
+//      cvt.rna pair expands into compare-and-select code), in the forward
+//      and both backward kernels alike, so S stays the same bits in all
+//      three (the f32 backward at the 512x8 encoder site went from 5.9 to
+//      4.9 ms on an H100 that way, the forward from 1.14 to 1.00); HDP 32
+//      keeps cvt.rna and its bits.
 //    * Where the split A operands live (SplitRows, split_smem): in
 //      registers, or in the warp's own region of shared memory, lane-major,
 //      each lane reading back the fragments it wrote (two 16-byte loads a
@@ -156,6 +157,13 @@
 //      64 (Q and dO, or K and V, split: 128 registers at 64), the forward up
 //      to 32.  The scores are summed over the d-steps in the same order
 //      whatever holds the operand, so S stays the backward's to the bit.
+//      At HDP 128, where a block of four 16-row groups holds 196 KB of
+//      shared memory, two warps share each group's region, each taking half
+//      of every tile's 8-key (query) steps (group_warps: eight warps an SM,
+//      not four), and a warp reads each split A fragment once for its two
+//      steps (first_products_steps), where reading it once a step made the
+//      region's loads the kernels' bound; the pair folds its row statistics
+//      and its sums in warp order.
 //    * P and dS reach their second product without a shuffle: the m16n8k8
 //      accumulator holds columns 2 t and 2 t + 1 where the A fragment
 //      wants t and t + 4, so the accumulator is taken as A with its k order
@@ -436,15 +444,6 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&f)[KS][4], const bf16* s
     }
 }
 
-// The same A fragments of k-step s from a staged tile (rows r0 .. r0 + 15 of
-// it), by ldmatrix: lanes 0-15 give rows 0-15 at column 16 s, lanes 16-31 the
-// same rows at 16 s + 8, which is load_a_frags' register order.
-template <int PT>
-__device__ __forceinline__ void ldsm_a(uint32_t (&f)[4], const bf16 (*tile)[PT], int r0,
-                                       int s, int lane) {
-  ldsm_x4(f, &tile[r0 + (lane & 15)][16 * s + 8 * (lane >> 4)]);
-}
-
 // Keep flags (bit i for accumulator register i) of one 16 x 8 score tile in
 // the row-walking kernels: registers 0, 1 are (row g, keys 2t, 2t + 1),
 // registers 2, 3 the same keys of row g + 8.  Lanes t = 2u and 2u + 1 hold
@@ -478,13 +477,12 @@ __device__ __forceinline__ long long keep_cell(const Shape& a, int b, int h, int
 }
 
 // shared memory of the bf16 tensor-core kernels: two double-buffered tiles
-// (K and V, or Q and dO), and for dK/dV the per-row lse and delta and, at HDP
-// 128, the block's own K and V rows
+// (K and V, or Q and dO), and for dK/dV the per-row lse and delta
 template <int HDP>
 __host__ __device__ constexpr int mma_tiles_bytes() { return 2 * 2 * TILE * pitch_of<HDP>() * 2; }
 template <int HDP>
 __host__ __device__ constexpr int dkv_mma_bytes() {
-  return mma_tiles_bytes<HDP>() + 2 * 2 * TILE * 4 + (HDP > 64 ? 2 * TILE * pitch_of<HDP>() * 2 : 0);
+  return mma_tiles_bytes<HDP>() + 2 * 2 * TILE * 4;
 }
 
 // Forward.  A block of NW warps owns NW * 16 query rows of one (batch, head);
@@ -776,10 +774,9 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_mma_kernel(
 // memory, 32 queries at a time.  The scores are computed transposed (S^T = K
 // Q^T, dP^T = V dO^T), so P^T and dS^T come out as A fragments for dV += P^T
 // dO and dK += dS^T Q.  Keys at or beyond kv_len and causally hidden pairs
-// add exactly zero.  The warp's K and V fragments stay in registers up to
-// HDP 64; at 128 the dK and dV accumulators alone take 128 registers a lane,
-// so the block stages its K and V rows once and reads the fragments with
-// ldmatrix where they are used.
+// add exactly zero.  The warp's K and V fragments stay in registers (up to
+// HDP 64: at 128 the dK and dV accumulators alone take 128 registers a lane,
+// and the wgmma pair runs there).
 template <int HDP, int NW, bool DROP>
 __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
@@ -787,14 +784,12 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_mma_kernel(
     const float* __restrict__ delta, const uint32_t* __restrict__ keep_words,
     bf16* __restrict__ dk, bf16* __restrict__ dv, const Shape a) {
   constexpr int BKT = NW * 16, NT = NW * 32, PT = pitch_of<HDP>(), KS = HDP / 16, NO = HDP / 8;
-  constexpr bool KV_SMEM = HDP > 64;
+  static_assert(HDP <= 64, "K and V fragments in registers");
   extern __shared__ __align__(16) unsigned char smem[];
   bf16(*qs)[TILE][PT] = reinterpret_cast<bf16(*)[TILE][PT]>(smem);
   bf16(*gs)[TILE][PT] = qs + 2;
   float(*ls)[TILE] = reinterpret_cast<float(*)[TILE]>(smem + mma_tiles_bytes<HDP>());
   float(*dls)[TILE] = ls + 2;
-  bf16(*kvs)[TILE][PT] =
-      reinterpret_cast<bf16(*)[TILE][PT]>(smem + mma_tiles_bytes<HDP>() + 2 * 2 * TILE * 4);
   const int h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int hw = a.Hd >> 1;
@@ -821,20 +816,12 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_mma_kernel(
   };
   const bf16* kbase = k + b * a.k_sb + (long long)h * a.Hd;
   const bf16* vbase = v + b * a.v_sb + (long long)h * a.Hd;
-  if constexpr (KV_SMEM) {   // the block's keys, rows blk_key0 .. of kvs[0] (K) and kvs[1] (V)
-    stage_rows<NT, HDP>(kvs[0], kbase + (long long)blk_key0 * a.k_st, a.k_st, 0,
-                        a.kv_len - blk_key0, hw, a.vec);
-    stage_rows<NT, HDP>(kvs[1], vbase + (long long)blk_key0 * a.v_st, a.v_st, 0,
-                        a.kv_len - blk_key0, hw, a.vec);
-  }
   if (first < last) stage(first);
   cp_async_commit();
 
-  uint32_t kf[KV_SMEM ? 1 : KS][4], vf[KV_SMEM ? 1 : KS][4];
-  if constexpr (!KV_SMEM) {
-    load_a_frags<KS>(kf, kbase, a.k_st, key0, a.kv_len, hw, g, t);
-    load_a_frags<KS>(vf, vbase, a.v_st, key0, a.kv_len, hw, g, t);
-  }
+  uint32_t kf[KS][4], vf[KS][4];
+  load_a_frags<KS>(kf, kbase, a.k_st, key0, a.kv_len, hw, g, t);
+  load_a_frags<KS>(vf, vbase, a.v_st, key0, a.kv_len, hw, g, t);
   float dka[NO][4], dva[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -879,18 +866,12 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_mma_kernel(
       for (int d = 0; d < HDP / 32; ++d) {
         uint32_t ka[2][4], va[2][4];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if constexpr (KV_SMEM) {
-            ldsm_a<PT>(ka[e], kvs[0], 16 * warp, 2 * d + e, lane);
-            ldsm_a<PT>(va[e], kvs[1], 16 * warp, 2 * d + e, lane);
-          } else {
+        for (int e = 0; e < 2; ++e)
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              ka[e][i] = kf[2 * d + e][i];
-              va[e][i] = vf[2 * d + e][i];
-            }
+          for (int i = 0; i < 4; ++i) {
+            ka[e][i] = kf[2 * d + e][i];
+            va[e][i] = vf[2 * d + e][i];
           }
-        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           uint32_t qb[4], gb[4];
@@ -1110,26 +1091,75 @@ __device__ __forceinline__ void stage_sw128(uint32_t dst, const bf16* src, long 
   }
 }
 
-// shared memory of the wgmma kernels: four swizzled tiles (two buffers of K
-// and V, or Q and dO), for dK/dV the per-row lse and delta, and 1024 bytes to
-// align the tiles
+// shared memory of the wgmma kernels at HDP 64: four swizzled tiles (two
+// buffers of K and V, or Q and dO), for dK/dV the per-row lse and delta, and
+// 1024 bytes to align the tiles
 constexpr int WG_DQ_BYTES = 4 * SW_TILE + 1024;
 constexpr int WG_DKV_BYTES = 4 * SW_TILE + 2 * 2 * TILE * 4 + 1024;
+// ... and at HDP 128: every tile two 64-dim halves, and the block's own rows
+// (Q and dO, or K and V) staged once besides: 99,328 and 100,352 bytes, two
+// blocks an SM
+template <int HDP> __host__ __device__ constexpr int wg_dq_bytes() {
+  return (HDP > 64 ? 6 : 4) * (HDP / 64) * SW_TILE + 1024;
+}
+template <int HDP> __host__ __device__ constexpr int wg_dkv_bytes() {
+  return (HDP > 64 ? 6 : 4) * (HDP / 64) * SW_TILE + 2 * 2 * TILE * 4 + 1024;
+}
+static_assert(wg_dq_bytes<64>() == WG_DQ_BYTES && wg_dkv_bytes<64>() == WG_DKV_BYTES,
+              "HDP 64 keeps its layout");
 
-// dQ (and delta) at HDP 64: a block owns 64 query rows, warp w rows 16 w ..;
-// per 64-key tile S = Q K^T and dP = dO V^T (four k-steps each), dS, then dQ
-// += dS K (four k-steps of 16 keys, K's tile read MN-major).
-template <bool DROP>
+// d (64 x 64 f32 over the warpgroup) = a b (ACC false) or d += a b, both
+// operands by descriptor, K-major (the SS form): a 64 x 16, b 16 x 64
+template <bool ACC>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b) {
+  if constexpr (ACC) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ICEK_WG_D32
+                 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+                 : ICEK_WG_OUT("+f")
+                 : "l"(a), "l"(b), "r"(1));
+  } else {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ICEK_WG_D32
+                 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+                 : ICEK_WG_OUT("=f")
+                 : "l"(a), "l"(b), "r"(0));
+  }
+}
+
+// d = x y^T over HDP / 16 k-steps, both operands 64-row tiles of HDP / 64
+// 64-dim halves by descriptor (x at `xa`, y at `ya`, half h SW_TILE bytes on):
+// k-step ks reads 32 bytes at 32 (ks % 4) of half ks / 4
+template <int HDP>
+__device__ __forceinline__ void wgmma_ss_rows(float (&d)[32], uint32_t xa, uint32_t ya) {
+  wgmma_ss<false>(d, sw128_desc(xa), sw128_desc(ya));
+#pragma unroll
+  for (int ks = 1; ks < HDP / 16; ++ks) {
+    const uint32_t at = SW_TILE * (ks >> 2) + 32 * (ks & 3);
+    wgmma_ss<true>(d, sw128_desc(xa + at), sw128_desc(ya + at));
+  }
+}
+
+// dQ (and delta) at HDP 64 and 128: a block owns 64 query rows, warp w rows
+// 16 w ..; per 64-key tile S = Q K^T and dP = dO V^T (HDP / 16 k-steps each),
+// dS, then dQ += dS K (four k-steps of 16 keys, K's tile read MN-major, one
+// m64n64k16 a k-step and 64-dim half).  At HDP 64 Q and dO are A fragments in
+// registers (the RS form); at 128 (SS) the block stages its Q and dO rows
+// once, swizzled, and S and dP read both operands from shared memory: the
+// registers go to the dQ accumulator (64 a lane), S and dP (32 each).
+template <int HDP, bool DROP>
 __global__ void __launch_bounds__(128) flash_bwd_dq_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ o, const bf16* __restrict__ d_o,
     const float* __restrict__ lse, const uint32_t* __restrict__ keep_words,
     float* __restrict__ delta, bf16* __restrict__ dq, const Shape a) {
-  constexpr int NT = 128, KS = 4;
+  constexpr int NT = 128, KS = HDP / 16, NH = HDP / 64;
+  constexpr bool SS = HDP > 64;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  auto ktile = [&](int buf) { return base + buf * SW_TILE; };
-  auto vtile = [&](int buf) { return base + (2 + buf) * SW_TILE; };
+  auto ktile = [&](int buf) { return base + buf * NH * SW_TILE; };
+  auto vtile = [&](int buf) { return base + (2 + buf) * NH * SW_TILE; };
+  const uint32_t qtile = base + 4 * NH * SW_TILE, gtile = qtile + NH * SW_TILE;   // SS
   const int h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int hw = a.Hd >> 1;
@@ -1139,17 +1169,32 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_wgmma_kernel(
   const int blk_end = a.causal ? min(a.kv_len, (int)(blockIdx.x + 1) * TILE) : a.kv_len;
   const int ntiles = (blk_end + TILE - 1) / TILE;
   auto stage = [&](int it) {
-    stage_sw128<NT>(ktile(it & 1), kp, a.k_st, it * TILE, blk_end, hw, a.vec);
-    stage_sw128<NT>(vtile(it & 1), vp, a.v_st, it * TILE, blk_end, hw, a.vec);
+#pragma unroll
+    for (int x = 0; x < NH; ++x) {
+      stage_sw128<NT>(ktile(it & 1) + x * SW_TILE, kp + 64 * x, a.k_st, it * TILE, blk_end,
+                      hw - 32 * x, a.vec);
+      stage_sw128<NT>(vtile(it & 1) + x * SW_TILE, vp + 64 * x, a.v_st, it * TILE, blk_end,
+                      hw - 32 * x, a.vec);
+    }
   };
-  stage(0);
-  cp_async_commit();
-
   const long long obase = ((long long)b * a.Tq * a.H + h) * a.Hd;
   const long long ost = (long long)a.H * a.Hd;
   const long long srow0 = ((long long)b * a.H + h) * a.Tq;
-  uint32_t qf[KS][4], gf[KS][4];
-  load_a_frags<KS>(qf, q + b * a.q_sb + (long long)h * a.Hd, a.q_st, row0, a.Tq, hw, g, t);
+  const bf16* qp = q + b * a.q_sb + (long long)h * a.Hd;
+  if constexpr (SS) {     // the block's Q and dO rows, in the first group
+#pragma unroll
+    for (int x = 0; x < NH; ++x) {
+      stage_sw128<NT>(qtile + x * SW_TILE, qp + 64 * x, a.q_st, blockIdx.x * TILE, a.Tq,
+                      hw - 32 * x, a.vec);
+      stage_sw128<NT>(gtile + x * SW_TILE, d_o + obase + 64 * x, ost, blockIdx.x * TILE, a.Tq,
+                      hw - 32 * x, a.vec);
+    }
+  }
+  stage(0);
+  cp_async_commit();
+
+  uint32_t qf[SS ? 1 : KS][4], gf[KS][4];    // dO's fragments: delta, and at HDP 64 dP
+  if constexpr (!SS) load_a_frags<KS>(qf, qp, a.q_st, row0, a.Tq, hw, g, t);
   load_a_frags<KS>(gf, d_o + obase, ost, row0, a.Tq, hw, g, t);
   float dl[2] = {0.f, 0.f}, L2[2];
   {
@@ -1170,9 +1215,11 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_wgmma_kernel(
     L2[r] = row < a.Tq ? lse[srow0 + row] * LOG2E : 0.f;
     if (t == 0 && row < a.Tq) delta[srow0 + row] = dl[r];
   }
-  float acc[32];
+  float acc[NH][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int x = 0; x < NH; ++x)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[x][i] = 0.f;
   const float c = a.scale * LOG2E;
 
   for (int it = 0; it < ntiles; ++it) {
@@ -1187,12 +1234,17 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_wgmma_kernel(
     const uint32_t kt = ktile(it & 1), vt = vtile(it & 1);
     float s[32], dp[32];
     wgmma_fence();
-    wgmma_rs<false, 0>(s, qf[0], sw128_desc(kt));
+    if constexpr (SS) {
+      wgmma_ss_rows<HDP>(s, qtile, kt);
+      wgmma_ss_rows<HDP>(dp, gtile, vt);
+    } else {
+      wgmma_rs<false, 0>(s, qf[0], sw128_desc(kt));
 #pragma unroll
-    for (int ks = 1; ks < KS; ++ks) wgmma_rs<true, 0>(s, qf[ks], sw128_desc(kt + 32 * ks));
-    wgmma_rs<false, 0>(dp, gf[0], sw128_desc(vt));
+      for (int ks = 1; ks < KS; ++ks) wgmma_rs<true, 0>(s, qf[ks], sw128_desc(kt + 32 * ks));
+      wgmma_rs<false, 0>(dp, gf[0], sw128_desc(vt));
 #pragma unroll
-    for (int ks = 1; ks < KS; ++ks) wgmma_rs<true, 0>(dp, gf[ks], sw128_desc(vt + 32 * ks));
+      for (int ks = 1; ks < KS; ++ks) wgmma_rs<true, 0>(dp, gf[ks], sw128_desc(vt + 32 * ks));
+    }
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(s);
@@ -1222,10 +1274,15 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_wgmma_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      if (kk < nk) wgmma_rs<true, 1>(acc, dsf[kk], sw128_desc(kt + 2048 * kk));
+      if (kk < nk) {
+#pragma unroll
+        for (int x = 0; x < NH; ++x)
+          wgmma_rs<true, 1>(acc[x], dsf[kk], sw128_desc(kt + x * SW_TILE + 2048 * kk));
+      }
     wgmma_commit();
     wgmma_wait<0>();
-    reg_fence(acc);
+#pragma unroll
+    for (int x = 0; x < NH; ++x) reg_fence(acc[x]);
     reg_fence(dsf);
     __syncthreads();
   }
@@ -1236,31 +1293,40 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_wgmma_kernel(
     if (row >= a.Tq) continue;
     uint32_t* dp32 = reinterpret_cast<uint32_t*>(dq + obase + (long long)row * ost);
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-      if (4 * n + t < hw)
-        dp32[4 * n + t] = pack_bf16(acc[4 * n + 2 * r] * a.scale, acc[4 * n + 2 * r + 1] * a.scale);
+    for (int x = 0; x < NH; ++x)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        if (32 * x + 4 * n + t < hw)
+          dp32[32 * x + 4 * n + t] = pack_bf16(acc[x][4 * n + 2 * r] * a.scale,
+                                               acc[x][4 * n + 2 * r + 1] * a.scale);
   }
 }
 
-// dK and dV at HDP 64: a block owns 64 keys, warp w keys 16 w .. (K and V
-// fragments in registers); per 64-query tile S^T = K Q^T and dP^T = V dO^T,
-// P^T and dS^T, then dV += P^T dO and dK += dS^T Q (four k-steps of 16
-// queries, the dO and Q tiles read MN-major).  The keep flags are the
-// mma.sync dK/dV kernel's, from four 16-row cells a tile.
-template <bool DROP>
+// dK and dV at HDP 64 and 128: a block owns 64 keys, warp w keys 16 w ..;
+// per 64-query tile S^T = K Q^T and dP^T = V dO^T, P^T and dS^T, then dV +=
+// P^T dO and dK += dS^T Q (four k-steps of 16 queries, the dO and Q tiles read
+// MN-major, one m64n64k16 a k-step and 64-dim half).  The keep flags are the
+// mma.sync dK/dV kernel's, from four 16-row cells a tile.  At HDP 64 K and V
+// are A fragments in registers; at 128 the dK and dV accumulators take 128
+// registers a lane, so the block stages its K and V rows once, swizzled, and
+// S^T and dP^T read both operands from shared memory (SS).
+template <int HDP, bool DROP>
 __global__ void __launch_bounds__(128) flash_bwd_dkv_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ d_o, const float* __restrict__ lse,
     const float* __restrict__ delta, const uint32_t* __restrict__ keep_words,
     bf16* __restrict__ dk, bf16* __restrict__ dv, const Shape a) {
-  constexpr int NT = 128, KS = 4;
+  constexpr int NT = 128, KS = HDP / 16, NH = HDP / 64;
+  constexpr bool SS = HDP > 64;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  auto qtile = [&](int buf) { return base + buf * SW_TILE; };
-  auto gtile = [&](int buf) { return base + (2 + buf) * SW_TILE; };
+  auto qtile = [&](int buf) { return base + buf * NH * SW_TILE; };
+  auto gtile = [&](int buf) { return base + (2 + buf) * NH * SW_TILE; };
   float(*ls)[TILE] = reinterpret_cast<float(*)[TILE]>(smem_raw + (base - smem_u32(smem_raw)) +
-                                                      4 * SW_TILE);
+                                                      4 * NH * SW_TILE);
   float(*dls)[TILE] = ls + 2;
+  // SS: the block's K and V rows, after lse and delta (1024 bytes)
+  const uint32_t ktile = base + 4 * NH * SW_TILE + 2 * 2 * TILE * 4, vtile = ktile + NH * SW_TILE;
   const int h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int hw = a.Hd >> 1;
@@ -1274,8 +1340,13 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_wgmma_kernel(
   const int last = blk_key0 < a.kv_len ? (a.Tq + TILE - 1) / TILE : first;
   auto stage = [&](int it) {
     const int buf = (it - first) & 1;
-    stage_sw128<NT>(qtile(buf), qp, a.q_st, it * TILE, a.Tq, hw, a.vec);
-    stage_sw128<NT>(gtile(buf), gp, ost, it * TILE, a.Tq, hw, a.vec);
+#pragma unroll
+    for (int x = 0; x < NH; ++x) {
+      stage_sw128<NT>(qtile(buf) + x * SW_TILE, qp + 64 * x, a.q_st, it * TILE, a.Tq,
+                      hw - 32 * x, a.vec);
+      stage_sw128<NT>(gtile(buf) + x * SW_TILE, gp + 64 * x, ost, it * TILE, a.Tq, hw - 32 * x,
+                      a.vec);
+    }
     for (int i = threadIdx.x; i < TILE; i += NT) {
       const bool ok = it * TILE + i < a.Tq;
       const long long at = srow0 + (ok ? it * TILE + i : 0);
@@ -1283,15 +1354,30 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_wgmma_kernel(
       cp_async4(smem_u32(&dls[buf][i]), delta + at, ok);
     }
   };
+  const bf16* kbase = k + b * a.k_sb + (long long)h * a.Hd;
+  const bf16* vbase = v + b * a.v_sb + (long long)h * a.Hd;
+  if constexpr (SS) {     // rows at or beyond kv_len as zeros, in the first group
+#pragma unroll
+    for (int x = 0; x < NH; ++x) {
+      stage_sw128<NT>(ktile + x * SW_TILE, kbase + 64 * x, a.k_st, blk_key0, a.kv_len,
+                      hw - 32 * x, a.vec);
+      stage_sw128<NT>(vtile + x * SW_TILE, vbase + 64 * x, a.v_st, blk_key0, a.kv_len,
+                      hw - 32 * x, a.vec);
+    }
+  }
   if (first < last) stage(first);
   cp_async_commit();
 
-  uint32_t kf[KS][4], vf[KS][4];
-  load_a_frags<KS>(kf, k + b * a.k_sb + (long long)h * a.Hd, a.k_st, key0, a.kv_len, hw, g, t);
-  load_a_frags<KS>(vf, v + b * a.v_sb + (long long)h * a.Hd, a.v_st, key0, a.kv_len, hw, g, t);
-  float dka[32], dva[32];
+  uint32_t kf[SS ? 1 : KS][4], vf[SS ? 1 : KS][4];
+  if constexpr (!SS) {
+    load_a_frags<KS>(kf, kbase, a.k_st, key0, a.kv_len, hw, g, t);
+    load_a_frags<KS>(vf, vbase, a.v_st, key0, a.kv_len, hw, g, t);
+  }
+  float dka[NH][32], dva[NH][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
+  for (int x = 0; x < NH; ++x)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[x][i] = dva[x][i] = 0.f;
   const float c = a.scale * LOG2E;
   // the forward's keep flags, as in flash_bwd_dkv_mma_kernel: query tile j's
   // register i is in the cell of rows 16 (j / 2) .. of the tile, lane
@@ -1318,12 +1404,17 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_wgmma_kernel(
     const uint32_t qt = qtile(buf), gt = gtile(buf);
     float st[32], dpt[32];
     wgmma_fence();
-    wgmma_rs<false, 0>(st, kf[0], sw128_desc(qt));
+    if constexpr (SS) {
+      wgmma_ss_rows<HDP>(st, ktile, qt);
+      wgmma_ss_rows<HDP>(dpt, vtile, gt);
+    } else {
+      wgmma_rs<false, 0>(st, kf[0], sw128_desc(qt));
 #pragma unroll
-    for (int ks = 1; ks < KS; ++ks) wgmma_rs<true, 0>(st, kf[ks], sw128_desc(qt + 32 * ks));
-    wgmma_rs<false, 0>(dpt, vf[0], sw128_desc(gt));
+      for (int ks = 1; ks < KS; ++ks) wgmma_rs<true, 0>(st, kf[ks], sw128_desc(qt + 32 * ks));
+      wgmma_rs<false, 0>(dpt, vf[0], sw128_desc(gt));
 #pragma unroll
-    for (int ks = 1; ks < KS; ++ks) wgmma_rs<true, 0>(dpt, vf[ks], sw128_desc(gt + 32 * ks));
+      for (int ks = 1; ks < KS; ++ks) wgmma_rs<true, 0>(dpt, vf[ks], sw128_desc(gt + 32 * ks));
+    }
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(st);
@@ -1363,14 +1454,25 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_wgmma_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      if (kk < nk) wgmma_rs<true, 1>(dva, pf[kk], sw128_desc(gt + 2048 * kk));
+      if (kk < nk) {
+#pragma unroll
+        for (int x = 0; x < NH; ++x)
+          wgmma_rs<true, 1>(dva[x], pf[kk], sw128_desc(gt + x * SW_TILE + 2048 * kk));
+      }
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      if (kk < nk) wgmma_rs<true, 1>(dka, dsf[kk], sw128_desc(qt + 2048 * kk));
+      if (kk < nk) {
+#pragma unroll
+        for (int x = 0; x < NH; ++x)
+          wgmma_rs<true, 1>(dka[x], dsf[kk], sw128_desc(qt + x * SW_TILE + 2048 * kk));
+      }
     wgmma_commit();
     wgmma_wait<0>();
-    reg_fence(dka);
-    reg_fence(dva);
+#pragma unroll
+    for (int x = 0; x < NH; ++x) {
+      reg_fence(dka[x]);
+      reg_fence(dva[x]);
+    }
     reg_fence(pf);
     reg_fence(dsf);
     __syncthreads();
@@ -1384,11 +1486,14 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_wgmma_kernel(
     uint32_t* dk32 = reinterpret_cast<uint32_t*>(dk + krow);
     uint32_t* dv32 = reinterpret_cast<uint32_t*>(dv + krow);
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-      if (4 * n + t < hw) {
-        dk32[4 * n + t] = pack_bf16(dka[4 * n + 2 * r] * a.scale, dka[4 * n + 2 * r + 1] * a.scale);
-        dv32[4 * n + t] = pack_bf16(dva[4 * n + 2 * r], dva[4 * n + 2 * r + 1]);
-      }
+    for (int x = 0; x < NH; ++x)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        if (32 * x + 4 * n + t < hw) {
+          const int e = 4 * n + 2 * r;
+          dk32[32 * x + 4 * n + t] = pack_bf16(dka[x][e] * a.scale, dka[x][e + 1] * a.scale);
+          dv32[32 * x + 4 * n + t] = pack_bf16(dva[x][e], dva[x][e + 1]);
+        }
   }
 }
 
@@ -1646,8 +1751,8 @@ __host__ __device__ constexpr int split_rows_bytes() { return SMEM ? (HDP / 8) *
 // tensor cores to truncate): three instructions where the cvt.rna pair
 // expands into compare-and-select code.  Every operand of a product (A rows
 // and B columns alike) is split one way, so S = Q K^T and S^T = K Q^T stay
-// alike to the bit.  The HDP-64 kernels take BITS (tf32_bits), the others
-// keep cvt.rna, and with it their bits.
+// alike to the bit.  The HDP-64 and HDP-128 kernels take BITS (tf32_bits),
+// HDP 32 keeps cvt.rna, and with it its bits.
 template <int P, bool BITS>
 __device__ __forceinline__ void split_as(float x, uint32_t (&p)[P]) {
   if constexpr (BITS && P == 2) {
@@ -1658,7 +1763,7 @@ __device__ __forceinline__ void split_as(float x, uint32_t (&p)[P]) {
 }
 
 // whether the TF32 kernels of padded head dim HDP split by integer rounding
-template <int HDP> __host__ __device__ constexpr bool tf32_bits() { return HDP == 64; }
+template <int HDP> __host__ __device__ constexpr bool tf32_bits() { return HDP >= 64; }
 
 // One 16-row x 8-column step's S = A B^T over HDP: A the warp's split rows
 // (SplitRows), B their row g of a staged tile (element 8 ds + t and + 4 of
@@ -1699,6 +1804,144 @@ __device__ __forceinline__ void first_products(float (&s)[4], float (&dp)[4],
                                                const float* b1, const float* b2) {
   first_product<P, BITS>(s, a1, b1);
   first_product<P, BITS>(dp, a2, b2);
+}
+
+// The warps of a TF32 backward block that share a 16-row group (its split A
+// operands, SplitRows), each taking an equal share of every tile's 8-key
+// (query) steps: two at HDP 128, where the split operands live in shared
+// memory and a block of four groups takes 196 KB of it, so that an SM runs
+// eight warps and not four; one elsewhere.
+template <int HDP>
+__host__ __device__ constexpr int group_warps() { return HDP > 64 ? 2 : 1; }
+
+// The 8-key (query) steps whose first products a TF32 backward kernel forms
+// at once (first_products_steps): one where the split A operands live in
+// registers (HDP 32 and 64); at HDP 128 a warp's whole share of a 32-row
+// tile, two steps (a warp alone in its group formed four in dQ: PERF.md).
+template <int HDP>
+__host__ __device__ constexpr int steps_at_once() { return HDP > 64 ? 2 : 1; }
+
+// The dQ kernel's pass-0 row statistics of the WG warps that share a 16-row
+// group, each over its share of the keys (max m of x, l = sum 2^(x - m), w =
+// sum 2^(x - m) dP'), folded into the group's in warp order, so that every
+// warp of the group holds the same bits: each warp's lanes t = 0 leave theirs
+// in `buf` (free shared memory: the staged tiles between the passes), then
+// every warp reads its group's.  Barriers after the writes and after the
+// reads (the next pass stages into `buf`).
+template <int WG>
+__device__ __forceinline__ void fold_group_rows(float (&m)[2], float (&l)[2], float (&w)[2],
+                                                float* buf, int warp, int grp, int g, int t) {
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float* e = buf + (warp * 16 + g + 8 * r) * 3;
+      e[0] = m[r];
+      e[1] = l[r];
+      e[2] = w[r];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float M = -INFINITY, L = 0.f, W = 0.f;
+#pragma unroll
+    for (int p = 0; p < WG; ++p) {
+      const float* e = buf + ((grp * WG + p) * 16 + g + 8 * r) * 3;
+      if (e[0] == -INFINITY) continue;
+      const float mn = fmaxf(M, e[0]);
+      const float fo = M == -INFINITY ? 0.f : fast_exp2(M - mn), fp = fast_exp2(e[0] - mn);
+      L = fmaf(L, fo, e[1] * fp);
+      W = fmaf(W, fo, e[2] * fp);
+      M = mn;
+    }
+    m[r] = M;
+    l[r] = L;
+    w[r] = W;
+  }
+  __syncthreads();
+}
+
+// An accumulator (DS x 4 floats a lane) of the WG warps that share a 16-row
+// group, each summed over its share of the steps, added into the first warp's
+// in warp order through `buf` (free shared memory, NW (WG - 1) DS 4 32 floats,
+// lane-major); only the first warp of a group then holds the sums.  A barrier
+// after the writes; the caller's next use of `buf` needs one more.
+template <int WG, int DS>
+__device__ __forceinline__ void add_group_sums(float (&acc)[DS][4], float* buf, int grp,
+                                               int part, int lane) {
+  constexpr int PER = DS * 4 * 32;   // floats a warp leaves
+  if (part != 0) {
+    float* own = buf + (grp * (WG - 1) + part - 1) * PER;
+#pragma unroll
+    for (int n = 0; n < DS; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) own[(n * 4 + i) * 32 + lane] = acc[n][i];
+  }
+  __syncthreads();
+  if (part == 0) {
+#pragma unroll
+    for (int p = 1; p < WG; ++p) {
+      const float* other = buf + (grp * (WG - 1) + p - 1) * PER;
+#pragma unroll
+      for (int n = 0; n < DS; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[n][i] += other[(n * 4 + i) * 32 + lane];
+    }
+  }
+}
+
+// The first products of up to JB consecutive 8-key (query) steps at once:
+// S = A1 B1^T and dP = A2 B2^T of step j read B's rows from b1 + 8 j pitch
+// (b2 alike; b1, b2 point at step 0's row g, element t); steps from `n` on
+// are not formed.  Each split A fragment is read once a d-step for all the
+// steps, where first_products reads it once a step: at HDP 128 that is a
+// reload from the warp's shared-memory region (SplitRows), four 16-byte
+// loads a d-step and step, the reads that held the HDP-128 backward at 2.3x
+// the HDP-64 one's time for the same work.  Each step's three chains run
+// over the d-steps in first_product's order, so its S and dP are
+// first_product's to the bit.
+template <int P, bool BITS, int JB, typename Rows>
+__device__ __forceinline__ void first_products_steps(float (&s)[JB][4], float (&dp)[JB][4],
+                                                     const Rows& a1, const Rows& a2,
+                                                     const float* b1, const float* b2,
+                                                     int pitch, int n) {
+  float c1[JB][3][4], c2[JB][3][4];   // [step][hi hi, lo hi, hi lo]
+#pragma unroll
+  for (int j = 0; j < JB; ++j)
+#pragma unroll
+    for (int w = 0; w < 3; ++w)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c1[j][w][i] = c2[j][w][i] = 0.f;
+#pragma unroll
+  for (int ds = 0; ds < Rows::DS; ++ds) {
+    const FragA<P> f1 = a1(ds), f2 = a2(ds);
+#pragma unroll
+    for (int j = 0; j < JB; ++j) {
+      if (j >= n) break;
+      const float* p1 = b1 + 8 * j * pitch + 8 * ds;
+      const float* p2 = b2 + 8 * j * pitch + 8 * ds;
+      uint32_t x1[P], y1[P], x2[P], y2[P];
+      split_as<P, BITS>(p1[0], x1);
+      split_as<P, BITS>(p1[4], y1);
+      split_as<P, BITS>(p2[0], x2);
+      split_as<P, BITS>(p2[4], y2);
+      mma_tf32(c1[j][0], f1.p[0], x1[0], y1[0]);
+      mma_tf32(c2[j][0], f2.p[0], x2[0], y2[0]);
+      if constexpr (P == 2) {
+        mma_tf32(c1[j][1], f1.p[1], x1[0], y1[0]);
+        mma_tf32(c1[j][2], f1.p[0], x1[1], y1[1]);
+        mma_tf32(c2[j][1], f2.p[1], x2[0], y2[0]);
+        mma_tf32(c2[j][2], f2.p[0], x2[1], y2[1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < JB; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[j][i] = c1[j][0][i] + (c1[j][1][i] + c1[j][2][i]);
+      dp[j][i] = c2[j][0][i] + (c2[j][1][i] + c2[j][2][i]);
+    }
 }
 
 // The d-steps of an m16n8k8 A operand of rows [r0, r0 + 16) of one head
@@ -2039,21 +2282,31 @@ auto fwd_tf32_kernel() {
 // delta = rowsum(P dP') and lse2 = log2 sum 2^x come from the same P and dP'
 // the gradient uses (see the header); pass 1 forms P = 2^(x - lse2) and dS =
 // P (dP' - delta), and dS as the A operand of dQ += dS K with K's rows read in
-// acc_as_a's order.  delta and lse2 go to `rows` (2 x B H Tq) for dK/dV.
+// acc_as_a's order.  delta and lse2 go to `rows` (2 x B H Tq) for dK/dV.  At
+// HDP 128 two warps share each 16-row group, each taking half of every
+// tile's steps (group_warps), and a warp forms its two steps' S and dP at
+// once (first_products_steps); the pair folds its row statistics after pass 0
+// and its dQ sums at the end, in warp order.
 template <typename T, int HDP, int NW, bool DROP>
-__global__ void __launch_bounds__(NW * 32) flash_bwd_dq_tf32_kernel(
+__global__ void __launch_bounds__(NW * 32 * group_warps<HDP>()) flash_bwd_dq_tf32_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ d_o, float* __restrict__ rows, T* __restrict__ dq, const Shape a) {
   constexpr int P = std::is_same<T, float>::value ? 2 : 1;   // bf16 is exact in one piece
-  constexpr int BQ = NW * 16, NT = NW * 32, FP = fpitch_of<HDP>(), TK = ftile_of<HDP, true>();
-  constexpr int DS = HDP / 8;
+  constexpr int WG = group_warps<HDP>(), BQ = NW * 16, NT = NW * WG * 32;
+  constexpr int FP = fpitch_of<HDP>(), TK = ftile_of<HDP, true>();
+  constexpr int DS = HDP / 8, SPW = TK / 8 / WG, JB = steps_at_once<HDP>();
   constexpr bool SS = split_smem<HDP, true>(), BITS = tf32_bits<HDP>();
+  static_assert(SPW % JB == 0, "a warp's steps of a tile in whole blocks of JB");
+  static_assert(NW * WG * 16 * 3 * 4 <= 2 * 2 * TK * FP * 4 &&
+                    NW * (WG - 1) * DS * 4 * 32 * 4 <= 2 * 2 * TK * FP * 4,
+                "the group's row statistics and dQ sums fit the staged tiles");
   extern __shared__ __align__(16) unsigned char smem[];
   float(*ks)[TK][FP] = reinterpret_cast<float(*)[TK][FP]>(smem);
   float(*vs)[TK][FP] = ks + 2;
   const int h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.x * BQ + warp * 16;
+  const int grp = warp / WG, part = warp % WG;   // the 16-row group, this warp's share
+  const int row0 = blockIdx.x * BQ + grp * 16;
   const T* kp = k + b * a.k_sb + (long long)h * a.Hd;
   const T* vp = v + b * a.v_sb + (long long)h * a.Hd;
   const int blk_end = a.causal ? min(a.kv_len, (int)(blockIdx.x + 1) * BQ) : a.kv_len;
@@ -2070,7 +2323,9 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_tf32_kernel(
   const long long srow0 = ((long long)b * a.H + h) * a.Tq;
   SplitRows<P, HDP, SS> qa, ga;
   qa.lane = ga.lane = lane;
-  unsigned char* own = smem + 2 * 2 * TK * FP * 4 + 2 * warp * split_rows_bytes<P, HDP, SS>();
+  // the group's region: its warps write the same pieces, each lane reading
+  // back what it wrote
+  unsigned char* own = smem + 2 * 2 * TK * FP * 4 + 2 * grp * split_rows_bytes<P, HDP, SS>();
   qa.s = reinterpret_cast<uint4*>(own);
   ga.s = reinterpret_cast<uint4*>(own + split_rows_bytes<P, HDP, SS>());
   load_split_rows<P, BITS>(qa, q + b * a.q_sb + (long long)h * a.Hd, a.q_st, row0, a.Tq, a.Hd,
@@ -2100,12 +2355,25 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_tf32_kernel(
       __syncthreads();
       const float(*kt)[FP] = ks[it & 1];
       const float(*vt)[FP] = vs[it & 1];
-#pragma unroll 2
-      for (int j = 0; j < TK / 8; ++j) {
+      float xb[JB][4], db[JB][4];   // JB > 1: the steps' S and dP, formed at once
+#pragma unroll (HDP > 64 ? 4 : 2)
+      for (int jj = 0; jj < SPW; ++jj) {
+        const int j = part * SPW + jj;      // this warp's share of the tile's steps
         const int kb = it * TK + 8 * j;     // first key of this step
         if (kb >= warp_end) break;
         float x[4], d[4];
-        first_products<P, BITS>(x, d, qa, ga, &kt[8 * j + g][t], &vt[8 * j + g][t]);
+        if constexpr (JB > 1) {
+          if (jj % JB == 0)
+            first_products_steps<P, BITS, JB>(xb, db, qa, ga, &kt[8 * j + g][t],
+                                              &vt[8 * j + g][t], FP, (warp_end - kb + 7) >> 3);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            x[i] = xb[jj % JB][i];
+            d[i] = db[jj % JB][i];
+          }
+        } else {
+          first_products<P, BITS>(x, d, qa, ga, &kt[8 * j + g][t], &vt[8 * j + g][t]);
+        }
         const bool full = kb + 8 <= a.kv_len && (!a.causal || kb + 8 <= row0 + 1);
         const uint32_t keep = DROP ? keep4_rows(a, mblk + (kb >> 2), t) : 0xfu;
 #pragma unroll
@@ -2147,26 +2415,34 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_tf32_kernel(
       __syncthreads();
     }
     if (pass == 0) {
+      float m[2], l[2], w[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m[r] = quad_max(mx[r]);
+        const float f = mx[r] == -INFINITY ? 0.f : fast_exp2(mx[r] - m[r]);
+        l[r] = quad_sum(sl[r] * f);
+        w[r] = quad_sum(sw[r] * f);
+      }
+      if constexpr (WG > 1) fold_group_rows<WG>(m, l, w, reinterpret_cast<float*>(smem), warp,
+                                                grp, g, t);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = row0 + g + 8 * r;
-        const float m = quad_max(mx[r]);
-        const float f = mx[r] == -INFINITY ? 0.f : fast_exp2(mx[r] - m);
-        const float l = quad_sum(sl[r] * f), w = quad_sum(sw[r] * f);
-        dl[r] = l > 0.f ? w / l : 0.f;
-        l2[r] = l > 0.f ? m + log2f(l) : 0.f;
-        if (t == 0 && row < a.Tq) {
+        dl[r] = l[r] > 0.f ? w[r] / l[r] : 0.f;
+        l2[r] = l[r] > 0.f ? m[r] + log2f(l[r]) : 0.f;
+        if (part == 0 && t == 0 && row < a.Tq) {
           rows[srow0 + row] = dl[r];
           rows[(long long)gridDim.z * a.H * a.Tq + srow0 + row] = l2[r];
         }
       }
     }
   }
+  if constexpr (WG > 1) add_group_sums<WG, DS>(acc, reinterpret_cast<float*>(smem), grp, part, lane);
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + g + 8 * r;
-    if (row >= a.Tq) continue;
+    if (part != 0 || row >= a.Tq) continue;
     T* out = dq + obase + (long long)row * ost;
 #pragma unroll
     for (int n = 0; n < DS; ++n)
@@ -2182,16 +2458,23 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dq_tf32_kernel(
 // keys (K and V as split A fragments, SplitRows) and walks the staged query
 // tiles 8 queries at a time: S^T = K Q^T and dP^T = V dO^T, then P^T and dS^T
 // as A operands of dV += P^T dO and dK += dS^T Q.  Keys at or beyond kv_len
-// and causally hidden pairs add exactly zero.
+// and causally hidden pairs add exactly zero.  At HDP 128 two warps share each
+// 16-key group, each taking half of every tile's query steps (group_warps)
+// and forming its two steps' S^T and dP^T at once, and add their dK and dV
+// sums at the end in warp order.
 template <typename T, int HDP, int NW, bool DROP>
-__global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_tf32_kernel(
+__global__ void __launch_bounds__(NW * 32 * group_warps<HDP>()) flash_bwd_dkv_tf32_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ d_o, const float* __restrict__ rows, T* __restrict__ dk,
     T* __restrict__ dv, const Shape a) {
   constexpr int P = std::is_same<T, float>::value ? 2 : 1;   // bf16 is exact in one piece
-  constexpr int BKT = NW * 16, NT = NW * 32, FP = fpitch_of<HDP>(), TK = ftile_of<HDP, true>();
-  constexpr int DS = HDP / 8;
+  constexpr int WG = group_warps<HDP>(), BKT = NW * 16, NT = NW * WG * 32;
+  constexpr int FP = fpitch_of<HDP>(), TK = ftile_of<HDP, true>();
+  constexpr int DS = HDP / 8, SPW = TK / 8 / WG, JB = steps_at_once<HDP>();
   constexpr bool SS = split_smem<HDP, true>(), BITS = tf32_bits<HDP>();
+  static_assert(SPW % JB == 0, "a warp's steps of a tile in whole blocks of JB");
+  static_assert(2 * NW * (WG - 1) * DS * 4 * 32 * 4 <= 2 * 2 * TK * FP * 4,
+                "the group's dK and dV sums fit the staged tiles");
   extern __shared__ __align__(16) unsigned char smem[];
   float(*qs)[TK][FP] = reinterpret_cast<float(*)[TK][FP]>(smem);
   float(*gs)[TK][FP] = qs + 2;
@@ -2199,7 +2482,8 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_tf32_kernel(
   float(*dls)[TK] = ls + 2;
   const int h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int blk_key0 = blockIdx.x * BKT, key0 = blk_key0 + warp * 16;
+  const int grp = warp / WG, part = warp % WG;   // the 16-key group, this warp's share
+  const int blk_key0 = blockIdx.x * BKT, key0 = blk_key0 + grp * 16;
   const long long obase = ((long long)b * a.Tq * a.H + h) * a.Hd;   // of d_o
   const long long ost = (long long)a.H * a.Hd;
   const long long srow0 = ((long long)b * a.H + h) * a.Tq;
@@ -2224,8 +2508,8 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_tf32_kernel(
 
   SplitRows<P, HDP, SS> ka, va;
   ka.lane = va.lane = lane;
-  unsigned char* own =
-      smem + 2 * 2 * TK * FP * 4 + 2 * 2 * TK * 4 + 2 * warp * split_rows_bytes<P, HDP, SS>();
+  unsigned char* own =   // the group's region, as in the dQ kernel
+      smem + 2 * 2 * TK * FP * 4 + 2 * 2 * TK * 4 + 2 * grp * split_rows_bytes<P, HDP, SS>();
   ka.s = reinterpret_cast<uint4*>(own);
   va.s = reinterpret_cast<uint4*>(own + split_rows_bytes<P, HDP, SS>());
   load_split_rows<P, BITS>(ka, k + b * a.k_sb + (long long)h * a.Hd, a.k_st, key0, a.kv_len,
@@ -2251,13 +2535,28 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_tf32_kernel(
     const int buf = (it - first) & 1;
     const float(*qt)[FP] = qs[buf];
     const float(*gt)[FP] = gs[buf];
-#pragma unroll 2
-    for (int j = 0; j < TK / 8; ++j) {
+    float sb[JB][4], pb[JB][4];   // JB > 1: the steps' S^T and dP^T, formed at once
+#pragma unroll (HDP > 64 ? 4 : 2)
+    for (int jj = 0; jj < SPW; ++jj) {
+      const int j = part * SPW + jj;      // this warp's share of the tile's steps
       const int qb = it * TK + 8 * j;     // first query of this step
       if (qb >= a.Tq) break;
+      if constexpr (JB > 1) {
+        if (jj % JB == 0 && !(a.causal && qb + 8 * JB - 1 < key0))
+          first_products_steps<P, BITS, JB>(sb, pb, ka, va, &qt[8 * j + g][t],
+                                            &gt[8 * j + g][t], FP, (a.Tq - qb + 7) >> 3);
+      }
       if (a.causal && qb + 7 < key0) continue;
       float st[4], dpt[4];
-      first_products<P, BITS>(st, dpt, ka, va, &qt[8 * j + g][t], &gt[8 * j + g][t]);
+      if constexpr (JB > 1) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          st[i] = sb[jj % JB][i];
+          dpt[i] = pb[jj % JB][i];
+        }
+      } else {
+        first_products<P, BITS>(st, dpt, ka, va, &qt[8 * j + g][t], &gt[8 * j + g][t]);
+      }
       const bool full = qb + 8 <= a.Tq && key0 + 16 <= a.kv_len &&
                         (!a.causal || key0 + 15 <= qb);
       const int qi = 8 * j + 2 * t;         // in the tile; + (i & 1)
@@ -2298,11 +2597,16 @@ __global__ void __launch_bounds__(NW * 32) flash_bwd_dkv_tf32_kernel(
     }
     __syncthreads();
   }
+  if constexpr (WG > 1) {   // dK's and dV's sums through the free tiles, one half each
+    float* buf = reinterpret_cast<float*>(smem);
+    add_group_sums<WG, DS>(dka, buf, grp, part, lane);
+    add_group_sums<WG, DS>(dva, buf + NW * (WG - 1) * DS * 4 * 32, grp, part, lane);
+  }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = key0 + g + 8 * r;
-    if (key >= a.Tk) continue;
+    if (part != 0 || key >= a.Tk) continue;
     const long long krow = (((long long)b * a.Tk + key) * a.H + h) * a.Hd;
 #pragma unroll
     for (int n = 0; n < DS; ++n)
@@ -2408,14 +2712,16 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// the HDP-64 bf16 backward on wgmma: one warpgroup a block, 64 rows
+// the bf16 backward on wgmma at HDP 64 / 128: one warpgroup a block, 64 rows
+template <int HDP>
 int launch_dq_wgmma(const void* q, const void* k, const void* v, const void* o,
                     const void* d_o, const void* lse, const void* keep_words, void* delta,
                     void* dq, int B, const Shape& a, cudaStream_t s) {
-  auto kernel = flash_bwd_dq_wgmma_kernel<false>;
-  if (a.thresh < KEEP_ALL) kernel = flash_bwd_dq_wgmma_kernel<true>;
-  if (const int err = allow_smem(kernel, WG_DQ_BYTES)) return err;
-  kernel<<<dim3((a.Tq + TILE - 1) / TILE, a.H, B), 128, WG_DQ_BYTES, s>>>(
+  auto kernel = flash_bwd_dq_wgmma_kernel<HDP, false>;
+  if (a.thresh < KEEP_ALL) kernel = flash_bwd_dq_wgmma_kernel<HDP, true>;
+  constexpr int smem = wg_dq_bytes<HDP>();
+  if (const int err = allow_smem(kernel, smem)) return err;
+  kernel<<<dim3((a.Tq + TILE - 1) / TILE, a.H, B), 128, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(o),
       static_cast<const bf16*>(d_o), static_cast<const float*>(lse),
@@ -2424,13 +2730,15 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int HDP>
 int launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* d_o,
                      const void* lse, const void* delta, const void* keep_words, void* dk,
                      void* dv, int B, const Shape& a, cudaStream_t s) {
-  auto kernel = flash_bwd_dkv_wgmma_kernel<false>;
-  if (a.thresh < KEEP_ALL) kernel = flash_bwd_dkv_wgmma_kernel<true>;
-  if (const int err = allow_smem(kernel, WG_DKV_BYTES)) return err;
-  kernel<<<dim3((a.Tk + TILE - 1) / TILE, a.H, B), 128, WG_DKV_BYTES, s>>>(
+  auto kernel = flash_bwd_dkv_wgmma_kernel<HDP, false>;
+  if (a.thresh < KEEP_ALL) kernel = flash_bwd_dkv_wgmma_kernel<HDP, true>;
+  constexpr int smem = wg_dkv_bytes<HDP>();
+  if (const int err = allow_smem(kernel, smem)) return err;
+  kernel<<<dim3((a.Tk + TILE - 1) / TILE, a.H, B), 128, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(d_o),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -2480,7 +2788,8 @@ int launch_bwd_tf32_dq(const void* q, const void* k, const void* v, const void* 
   constexpr int P = std::is_same<T, float>::value ? 2 : 1;
   constexpr int smem = tf32_bytes<P, HDP, NW, 2, false, true>();
   if (const int err = allow_smem(kernel, smem)) return err;
-  kernel<<<dim3((a.Tq + NW * 16 - 1) / (NW * 16), a.H, B), NW * 32, smem, s>>>(
+  kernel<<<dim3((a.Tq + NW * 16 - 1) / (NW * 16), a.H, B), NW * 32 * group_warps<HDP>(),
+           smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(d_o), static_cast<float*>(rows), static_cast<T*>(dq), a);
   return static_cast<int>(cudaGetLastError());
@@ -2495,7 +2804,8 @@ int launch_bwd_tf32_dkv(const void* q, const void* k, const void* v, const void*
   constexpr int P = std::is_same<T, float>::value ? 2 : 1;
   constexpr int smem = tf32_bytes<P, HDP, NW, 2, true, true>();
   if (const int err = allow_smem(kernel, smem)) return err;
-  kernel<<<dim3((a.Tk + NW * 16 - 1) / (NW * 16), a.H, B), NW * 32, smem, s>>>(
+  kernel<<<dim3((a.Tk + NW * 16 - 1) / (NW * 16), a.H, B), NW * 32 * group_warps<HDP>(),
+           smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(d_o), static_cast<const float*>(rows), static_cast<T*>(dk),
       static_cast<T*>(dv), a);
@@ -2662,6 +2972,8 @@ ICEK_EXPORT int flash_fwd_bf16_wgmma(const void* q, const void* k, const void* v
   }
 }
 
+// The bf16 backward: the mma.sync pair at HDP 32, the wgmma pair at 64 and
+// 128
 template <int HDP>
 int backward_mma(const void* q, const void* k, const void* v, const void* o, const void* d_o,
                  const void* lse, const void* kw, void* delta, void* dq, void* dk, void* dv,
@@ -2673,14 +2985,10 @@ int backward_mma(const void* q, const void* k, const void* v, const void* o, con
     if (err) return err;
     return a.Tk > 32 ? launch_dkv_mma<32, 4>(q, k, v, d_o, lse, delta, kw, dk, dv, B, a, s)
                      : launch_dkv_mma<32, 2>(q, k, v, d_o, lse, delta, kw, dk, dv, B, a, s);
-  } else if constexpr (HDP == 64) {   // the wgmma pair
-    err = launch_dq_wgmma(q, k, v, o, d_o, lse, kw, delta, dq, B, a, s);
+  } else {   // the wgmma pair
+    err = launch_dq_wgmma<HDP>(q, k, v, o, d_o, lse, kw, delta, dq, B, a, s);
     if (err) return err;
-    return launch_dkv_wgmma(q, k, v, d_o, lse, delta, kw, dk, dv, B, a, s);
-  } else {
-    err = launch_dq_mma<HDP, 4>(q, k, v, o, d_o, lse, kw, delta, dq, B, a, s);
-    if (err) return err;
-    return launch_dkv_mma<HDP, 4>(q, k, v, d_o, lse, delta, kw, dk, dv, B, a, s);
+    return launch_dkv_wgmma<HDP>(q, k, v, d_o, lse, delta, kw, dk, dv, B, a, s);
   }
 }
 

@@ -215,10 +215,16 @@ def _fwd_presplit(which):
 
 
 # the bf16 backward's dispatch at HDP 64, and the TF32 kernels' split there
-_WG64 = "  } else if constexpr (HDP == 64) {   // the wgmma pair"
-_BITS64 = "template <int HDP> __host__ __device__ constexpr bool tf32_bits() { return HDP == 64; }"
-_DQ_STEP = "#pragma unroll 2\n      for (int j = 0; j < TK / 8; ++j) {\n        const int kb"
-_DKV_STEP = "#pragma unroll 2\n    for (int j = 0; j < TK / 8; ++j) {\n      const int qb"
+_WG64 = "  } else {   // the wgmma pair"
+_BITS64 = "template <int HDP> __host__ __device__ constexpr bool tf32_bits() { return HDP >= 64; }"
+_DQ_STEP = ("#pragma unroll (HDP > 64 ? 4 : 2)\n      for (int jj = 0; jj < SPW; ++jj) {\n"
+            "        const int j")
+_DKV_STEP = ("#pragma unroll (HDP > 64 ? 4 : 2)\n    for (int jj = 0; jj < SPW; ++jj) {\n"
+             "      const int j")
+# the TF32 backward at HDP 128: the 8-key (query) steps formed at once (dQ,
+# dK/dV), and the warps that share a 16-row group
+_STEPS = "constexpr int steps_at_once() { return HDP > 64 ? 2 : 1; }"
+_GROUP = "constexpr int group_warps() { return HDP > 64 ? 2 : 1; }"
 # the TF32 backward at HDP 64 with the B operands of its first and second
 # products split once a tile by the block (hi in place, lo in a tile of its
 # own, the integer split: the same pieces, so the same bits) instead of by
@@ -288,13 +294,13 @@ _PRESPLIT64 = [
      "      cp_async_wait<1>();\n      __syncthreads();\n"
      + _pre_pass("ks", ("klo", "vlo"), "it & 1")
      + "      const float(*kt)[FP] = ks[it & 1];\n"),
-    ("        first_products<P, BITS>(x, d, qa, ga, &kt[8 * j + g][t], &vt[8 * j + g][t]);\n",
-     """        if constexpr (P == 2 && BITS) {
-          first_product_pre(x, qa, &kt[8 * j + g][t], &klo[8 * j + g][t]);
-          first_product_pre(d, ga, &vt[8 * j + g][t], &vlo[8 * j + g][t]);
-        } else {
-          first_products<P, BITS>(x, d, qa, ga, &kt[8 * j + g][t], &vt[8 * j + g][t]);
-        }
+    ("          first_products<P, BITS>(x, d, qa, ga, &kt[8 * j + g][t], &vt[8 * j + g][t]);\n",
+     """          if constexpr (P == 2 && BITS) {
+            first_product_pre(x, qa, &kt[8 * j + g][t], &klo[8 * j + g][t]);
+            first_product_pre(d, ga, &vt[8 * j + g][t], &vlo[8 * j + g][t]);
+          } else {
+            first_products<P, BITS>(x, d, qa, ga, &kt[8 * j + g][t], &vt[8 * j + g][t]);
+          }
 """),
     ("          mma_add_as<P, BITS>(acc[n], dsa, kr[0], kr[FP]);\n",
      """          if constexpr (P == 2 && BITS)
@@ -309,13 +315,13 @@ _PRESPLIT64 = [
      "    const int buf = (it - first) & 1;\n"
      + _pre_pass("qs", ("qlo", "glo"), "buf")
      + "    const float(*qt)[FP] = qs[buf];\n"),
-    ("      first_products<P, BITS>(st, dpt, ka, va, &qt[8 * j + g][t], &gt[8 * j + g][t]);\n",
-     """      if constexpr (P == 2 && BITS) {
-        first_product_pre(st, ka, &qt[8 * j + g][t], &qlo[8 * j + g][t]);
-        first_product_pre(dpt, va, &gt[8 * j + g][t], &glo[8 * j + g][t]);
-      } else {
-        first_products<P, BITS>(st, dpt, ka, va, &qt[8 * j + g][t], &gt[8 * j + g][t]);
-      }
+    ("        first_products<P, BITS>(st, dpt, ka, va, &qt[8 * j + g][t], &gt[8 * j + g][t]);\n",
+     """        if constexpr (P == 2 && BITS) {
+          first_product_pre(st, ka, &qt[8 * j + g][t], &qlo[8 * j + g][t]);
+          first_product_pre(dpt, va, &gt[8 * j + g][t], &glo[8 * j + g][t]);
+        } else {
+          first_products<P, BITS>(st, dpt, ka, va, &qt[8 * j + g][t], &gt[8 * j + g][t]);
+        }
 """),
     ("        mma_add_as<P, BITS>(dva[n], pa, gr[0], gr[FP]);\n"
      "        mma_add_as<P, BITS>(dka[n], dsa, qr[0], qr[FP]);\n",
@@ -583,22 +589,32 @@ VARIANTS = {
                    "        mma_pieces<P>(dka[n], dsa, qr[0], qr[FP]);")],
         # the bf16 backward at HDP 64 on the mma.sync pair (its first design)
         # instead of the wgmma pair
-        "mma64": [(_WG64, _WG64.replace("HDP == 64", "HDP == -64"))],
+        "mma64": [(_WG64, "  } else if constexpr (HDP == 64) {\n"
+                   "    err = launch_dq_mma<HDP, 4>(q, k, v, o, d_o, lse, kw, delta, dq, B, a, s);\n"
+                   "    if (err) return err;\n"
+                   "    return launch_dkv_mma<HDP, 4>(q, k, v, d_o, lse, delta, kw, dk, dv, B, a, s);\n"
+                   + _WG64)],
+        # the TF32 backward at HDP 128 one 8-key step at a time
+        "jb1": [(_STEPS, _STEPS.replace("HDP > 64 ? 2 : 1", "1"))],
+        # ... one warp a 16-row group (one block of four warps an SM), two
+        # steps at once
+        "wg1": [(_GROUP, _GROUP.replace("HDP > 64 ? 2 : 1", "1"))],
+
         # the TF32 backward's 8-key (query) steps unrolled once or four times, not twice
-        "unroll1": [(_DQ_STEP, _DQ_STEP.replace("unroll 2", "unroll 1")),
-                    (_DKV_STEP, _DKV_STEP.replace("unroll 2", "unroll 1"))],
-        "unroll4": [(_DQ_STEP, _DQ_STEP.replace("unroll 2", "unroll 4")),
-                    (_DKV_STEP, _DKV_STEP.replace("unroll 2", "unroll 4"))],
+        "unroll1": [(_DQ_STEP, _DQ_STEP.replace("? 4 : 2)", "? 4 : 1)")),
+                    (_DKV_STEP, _DKV_STEP.replace("? 4 : 2)", "? 4 : 1)"))],
+        "unroll4": [(_DQ_STEP, _DQ_STEP.replace("? 4 : 2)", "? 4 : 4)")),
+                    (_DKV_STEP, _DKV_STEP.replace("? 4 : 2)", "? 4 : 4)"))],
         "presplit64": _PRESPLIT64,
         # the wgmma dK/dV kernel held to 168 registers (three blocks an SM)
         "wg3": [("__global__ void __launch_bounds__(128) flash_bwd_dkv_wgmma_kernel(",
                  "__global__ void __launch_bounds__(128, 3) flash_bwd_dkv_wgmma_kernel(")],
         # the TF32 kernels at HDP 64 split by cvt.rna (their first design),
         # not by integer rounding
-        "rna64": [(_BITS64, _BITS64.replace("HDP == 64", "false"))],
+        "rna64": [(_BITS64, _BITS64.replace("HDP >= 64", "HDP == 128"))],
         # ... with only the backward's second products split by integer
         # rounding (at every head dim)
-        "bits2nd": [(_BITS64, _BITS64.replace("HDP == 64", "false")),
+        "bits2nd": [(_BITS64, _BITS64.replace("HDP >= 64", "false")),
                     ("  if constexpr (BITS) {\n    mma_add_bits<P>(c, a, b0, b1);",
                      "  if constexpr (P == 2) {\n    mma_add_bits<P>(c, a, b0, b1);")],
         # the dQ kernel's pass 0 skipped: delta and lse2 left unwritten (cut)

@@ -36,11 +36,14 @@ family:
 Both families pad the head dim to 32, 64 or 128; a head dim above 128
 raises, as the JAX package's ``head_slot`` does.  At 64 and 128 the ``mma``
 forward runs on wgmma (``flash_fwd_wgmma_kernel``: one warpgroup a block of
-64 query rows, ``uses_wgmma_forward``), at 64 the ``mma`` backward too (the
-wgmma pair), and the ``tf32`` kernels split every operand by integer
-rounding (see the source).  ``flash_mha.routes`` counts the forward's launches by route (and
+64 query rows, ``uses_wgmma_forward``), and so does the ``mma`` backward
+(the wgmma pair; at 128 both of its first products read their operands from
+shared memory), and the ``tf32`` kernels split every operand by integer
+rounding (see the source; at 128 the backward forms several steps' first
+products at once).  ``flash_mha.routes`` counts the forward's launches by route (and
 ``flash_mha.wgmma`` those of the wgmma forward among ``mma``'s),
-``flash_mha_bwd.routes`` the backward's.  No route gives way to another or
+``flash_mha_bwd.routes`` the backward's, and ``flash_mha_bwd.kernels`` the
+backward's by kernel pair (``bwd_kernels``).  No route gives way to another or
 to the plain version: a kernel that fails to build or launch raises.
 
 Dropout: an element keeps iff the top 24 of its random bits lie below
@@ -135,6 +138,25 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+# the backward's kernel pairs, by design and padded head dim
+BWD_KERNELS = ("mma_sync32", "wgmma64", "wgmma128", "tf32_32", "tf32_64", "tf32_128")
+
+
+def head_pad(Hd: int) -> int:
+    """The kernels' padded head dim: 32, 64 or 128 (``hd_pad`` in the source)."""
+    return 32 if Hd <= 32 else 64 if Hd <= 64 else 128
+
+
+def bwd_kernels(q, k, v) -> str:
+    """The backward kernel pair a call launches (a key of BWD_KERNELS): on
+    the mma route the mma.sync pair at a padded head dim of 32 and the wgmma
+    pair at 64 and 128; on tf32 the TF32 pair."""
+    hdp = head_pad(q.shape[-1])
+    if route(q, k, v) == "mma":
+        return f"mma_sync{hdp}" if hdp == 32 else f"wgmma{hdp}"
+    return f"tf32_{hdp}"
+
+
 def block0(first: int, H: int, Tq: int, Tk: int) -> int:
     """The Philox block of score (first, 0, 0, 0) of a (B, H, Tq, Tk) mask:
     what the kernels add for a call whose batch rows start at row `first`
@@ -209,6 +231,7 @@ def flash_mha_bwd(q, k, v, out, lse, keep_words, d_out, kv_len, causal, rate, se
     _build.check(err, "flash_attention", "flash_mha backward")
     flash_mha_bwd.launches += 1
     flash_mha_bwd.routes[via] += 1
+    flash_mha_bwd.kernels[bwd_kernels(q, k, v)] += 1
     return dq, dk, dv
 
 
@@ -300,3 +323,4 @@ flash_mha.routes = dict.fromkeys(ROUTES, 0)      # the forward's launches by rou
 flash_mha.wgmma = 0         # of routes["mma"], the launches of the wgmma forward
 flash_mha_bwd.launches = 0
 flash_mha_bwd.routes = dict.fromkeys(ROUTES[:2], 0)   # the backward's launches by route
+flash_mha_bwd.kernels = dict.fromkeys(BWD_KERNELS, 0)  # ... by kernel pair

@@ -18,7 +18,8 @@ Two kernel pairs run there on the card (tests/test_torch_gpu.py):
 
 Here their walks are held against ``reference_mha``'s autograd and the JAX
 package's Pallas backward (interpret mode), at head dims 40, 64 and 75
-(the last padded to 128, where the TF32 kernels keep cvt.rna); the wgmma kernels' swizzled staging and their matrix descriptors
+(the last padded to 128, where the TF32 kernels split by integer rounding
+too: tests/test_torch_flash_bwd_hd128.py); the wgmma kernels' swizzled staging and their matrix descriptors
 against the tiles they must read (a model of the descriptor's address
 arithmetic); the keep-flag index map from the transposed side; the TF32
 emulation's S and dP against the forward's to the bit; and each launch's
@@ -349,8 +350,8 @@ def test_swizzled_tile_reads_as_both_operands(src, vec):
         f = _desc_fields(desc_of(2048 * kk))
         got = _read_b(mem, f["start"], f["sbo"], False)
         np.testing.assert_array_equal(got, tile[16 * kk:16 * kk + 16])
-    assert "sw128_desc(kt + 32 * ks)" in src and "sw128_desc(kt + 2048 * kk)" in src
-    assert "sw128_desc(qt + 32 * ks)" in src and "sw128_desc(gt + 2048 * kk)" in src
+    assert "sw128_desc(kt + 32 * ks)" in src and "sw128_desc(kt + x * SW_TILE + 2048 * kk)" in src
+    assert "sw128_desc(qt + 32 * ks)" in src and "sw128_desc(gt + x * SW_TILE + 2048 * kk)" in src
     assert "__device__ __forceinline__ int sw128_chunk(int r, int j) { return j ^ (r & 7); }" in src
 
 
@@ -481,7 +482,7 @@ def _f64_grads(q, k, v, d_out, rate=0.0, keep=None, **kw):
                                                  (32, 70, 70, False)])
 def test_tf32_walk_within_1e_5_of_f64(tq, tk, kv_len, causal, hd, rate):
     """The TF32 pair's walk (HDP 64: integer split; Hd 75 pads to 128:
-    cvt.rna, 32-query tiles) against float64 autograd
+    the integer split too, 32-query tiles) against float64 autograd
     under the same mask: dq, dk, dv within 1e-5 of the largest value, where
     the card holds the kernels to 1e-4."""
     q, k, v, g = map(torch.as_tensor, _inputs(tq + 3 * hd, tq, tk, hd))
@@ -552,16 +553,16 @@ def test_tf32_one_hot_rows_keep_p_exactly_one():
 
 
 def test_split_by_head_dim_in_the_source(src):
-    """Only HDP 64 takes the integer split: HDP 32 and 128 keep cvt.rna
-    (their bits), and the bf16 backward keeps the mma.sync pair at HDP 32
-    and 128."""
+    """HDP 64 (and since the HDP-128 redesign 128) takes the integer split:
+    HDP 32 keeps cvt.rna (its bits); the bf16 backward keeps the mma.sync
+    pair at HDP 32 and takes the wgmma pair at 64 and 128."""
     assert ("template <int HDP> __host__ __device__ constexpr bool tf32_bits() "
-            "{ return HDP == 64; }") in src
+            "{ return HDP >= 64; }") in src
     assert "split_as<P, BITS>(bp[8 * ds], x);" in src
     body = src[src.index("int backward_mma("):src.index("ICEK_EXPORT int flash_bwd_bf16_mma(")]
     assert "launch_dq_mma<32, 4>" in body and "launch_dkv_mma<32, 2>" in body
-    assert "} else if constexpr (HDP == 64) {   // the wgmma pair" in body
-    assert "launch_dq_mma<HDP, 4>" in body          # 128
+    assert "} else {   // the wgmma pair" in body
+    assert "launch_dq_wgmma<HDP>(" in body and "launch_dq_mma<HDP" not in body
 
 
 # --------------------------------------------------------------------------

@@ -73,9 +73,9 @@ def hd_pad(hd):
 
 def split_of(hdp):
     """How the kernels of padded head dim `hdp` split an operand
-    (``split_as`` / ``tf32_bits``): by integer rounding at HDP 64 (lo's low
-    13 bits truncated by the tensor cores), by cvt.rna elsewhere."""
-    return split_bits if hdp == 64 else split
+    (``split_as`` / ``tf32_bits``): by integer rounding at HDP 64 and 128
+    (lo's low 13 bits truncated by the tensor cores), by cvt.rna at 32."""
+    return split_bits if hdp >= 64 else split
 
 
 def first_product(a, b, pieces, hdp=32):

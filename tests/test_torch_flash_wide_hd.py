@@ -180,7 +180,8 @@ def _mma_bytes(hdp, dkv):
     tiles = 2 * 2 * 64 * (hdp + 8) * 2
     if not dkv:
         return tiles
-    return tiles + 2 * 2 * 64 * 4 + (2 * 64 * (hdp + 8) * 2 if hdp > 64 else 0)
+    assert hdp <= 64            # the mma.sync dK/dV kernel's limit (the wgmma pair above)
+    return tiles + 2 * 2 * 64 * 4
 
 
 def _tf32_bytes(pieces, hdp, warps, ops, rows, bwd):
@@ -200,8 +201,8 @@ def test_source_smem_formulas():
     with open(os.path.join(_build.CSRC, "flash_attention.cu")) as f:
         src = f.read()
     for text in ("__host__ __device__ constexpr int mma_tiles_bytes() { return 2 * 2 * TILE * pitch_of<HDP>() * 2; }",
-                 "return mma_tiles_bytes<HDP>() + 2 * 2 * TILE * 4 + (HDP > 64 ? 2 * TILE * "
-                 "pitch_of<HDP>() * 2 : 0);",
+                 "return mma_tiles_bytes<HDP>() + 2 * 2 * TILE * 4;",
+                 'static_assert(HDP <= 64, "K and V fragments in registers");',
                  "template <int HDP> __host__ __device__ constexpr int pitch_of() { return HDP + 8; }",
                  "template <int HDP> __host__ __device__ constexpr int fpitch_of() { return HDP + 4; }",
                  "constexpr int ftile_of() { return HDP > (BWD ? 64 : 32) ? 32 : 64; }",
@@ -215,17 +216,19 @@ def test_source_smem_formulas():
 @pytest.mark.parametrize("hdp", [32, 64, 128])
 def test_every_launch_fits_a_block_s_shared_memory(hdp):
     """Every instantiation's dynamic shared memory fits what an H100 block
-    may have (the launch would be refused otherwise): the bf16 kernels at
-    most 105 KB (dK/dV at HDP 128), the TF32 kernels at most 195 KB (dQ and
+    may have (the launch would be refused otherwise): the bf16 mma.sync
+    kernels at most 68 KB (the forward at HDP 128; the mma.sync backward
+    pair runs at HDP 32, and at 64 in a `_variants` cut), the TF32 kernels
+    at most 195 KB (dQ and
     dK/dV in f32 at HDP 128, four warps each with two split operands)."""
-    for dkv in (False, True):
+    for dkv in (False, True) if hdp <= 64 else (False,):
         assert _mma_bytes(hdp, dkv) <= SMEM_LIMIT
     warps = (2, 4) if hdp == 32 else (4,)
     for pieces in (1, 2):
         for nw in warps:
             for ops, rows, bwd in ((1, False, False), (2, False, True), (2, True, True)):
                 assert _tf32_bytes(pieces, hdp, nw, ops, rows, bwd) <= SMEM_LIMIT
-    assert max(_mma_bytes(128, True), _mma_bytes(128, False)) == 105472
+    assert max(_mma_bytes(64, True), _mma_bytes(128, False)) == 69632
     assert _tf32_bytes(2, 128, 4, 2, True, True) == 199168
 
 

@@ -1,7 +1,9 @@
 """The geo model at a head dim of 64 (``--geometry 128x2``, the 512x8
 model's head width at a width the CPU can run) through both packages:
 the teacher-forced loss and gradients of a train step at dropout 0, and
-greedy and beam-5 tokens, float32 on the CPU.
+greedy and beam-5 tokens, float32 on the CPU; and a train step at a head
+dim of 128 (``--geometry 256x2``, the 512x4 model's head width), where the
+JAX package's flash kernel runs at head slot 128.
 
 Both configs go through their package's ``apply_geometry``, and the port's
 params come from the JAX tree through the bridge.  The JAX side runs with
@@ -48,10 +50,10 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def _cfgs():
+def _cfgs(geometry=GEOMETRY):
     out = []
     for mod in (jcfg, tcfg):
-        c = mod.apply_geometry(mod.georic(), GEOMETRY)
+        c = mod.apply_geometry(mod.georic(), geometry)
         out.append(c.replace(
             model=dataclasses.replace(
                 c.model, decoder_ffn_dim=64, encoder_ffn_dim=64, num_layers=1,
@@ -60,19 +62,24 @@ def _cfgs():
             decode=dataclasses.replace(c.decode, max_caption_len=L),
             train=dataclasses.replace(c.train, grad_accum_steps=1)))
     jc, tc = out
-    assert jc.model.emb_dim // jc.model.num_heads == 64 == tc.model.emb_dim // tc.model.num_heads
+    hd = int(geometry.split("x")[0]) // int(geometry.split("x")[1])
+    assert jc.model.emb_dim // jc.model.num_heads == hd == tc.model.emb_dim // tc.model.num_heads
     return jc, tc
 
 
-@pytest.fixture(scope="module")
-def models():
-    jc, tc = _cfgs()
+def _models(geometry=GEOMETRY):
+    jc, tc = _cfgs(geometry)
     tree = jax_params_numpy(jc.model, V, seed=3)
     tree["fc_entity"]["w"] = tree["fc_entity"]["w"] * 6.0    # entity ids get emitted too
     return jc, tc, tree
 
 
-def _batch(seed=0):
+@pytest.fixture(scope="module")
+def models():
+    return _models()
+
+
+def _batch(seed=0, D=128):
     rng = np.random.default_rng(seed)
     caps = rng.integers(1, V, (B, T)).astype(np.int32)
     caps[:, 0] = V - 2
@@ -82,7 +89,7 @@ def _batch(seed=0):
         caps[b, lengths[b]:] = PAD
     return {"caption_ids": caps, "caption_mask": (caps >= V).astype(np.int32),
             "lengths": lengths, "entity_features": entity_rows(rng, B, E, 20),
-            "image_tokens": rng.standard_normal((B, P, 128)).astype(np.float32)}
+            "image_tokens": rng.standard_normal((B, P, D)).astype(np.float32)}
 
 
 def _leaves(tree):
@@ -109,8 +116,18 @@ def _adam_mu(opt_state):
 def test_train_step_at_head_dim_64_matches_jax(models):
     """One step: the loss within 1e-5, every clipped gradient (the JAX
     step's as 10 x Adam's first moment) within 1e-5."""
-    jc, tc, tree = models
-    batch = _batch()
+    _train_step_matches(*models, _batch())
+
+
+def test_train_step_at_head_dim_128_matches_jax():
+    """The same step at --geometry 256x2 (two heads of 128: JAX's Pallas
+    flash forward and backward at head slot 128 in the interpreter, the
+    port's plain version, which the HDP-128 kernels are held to on the
+    card): the loss within 1e-5, every clipped gradient within 1e-5."""
+    _train_step_matches(*_models("256x2"), _batch(D=256))
+
+
+def _train_step_matches(jc, tc, tree, batch):
     jp = jax.tree.map(jnp.asarray, tree)
     tp = bridge.trainable(bridge.from_jax_params(tree, tc.model, V), "cpu")
     opt = jstep.make_optimizer(LR)

@@ -1089,14 +1089,14 @@ def test_flash_bf16_odd_offset_takes_cuda_core_path(cuda, rate):
         torch.testing.assert_close(a, b, rtol=0, atol=tol)
 
 
-@pytest.mark.parametrize("hd,H", [(30, 10), (40, 8), (64, 8)])
+@pytest.mark.parametrize("hd,H", [(30, 10), (40, 8), (64, 8), (96, 4), (128, 4)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,tq,tk", [(False, 301, 301), (True, 32, 32), (False, 32, 497)])
 def test_flash_backward_is_bit_identical_between_launches(cuda, dtype, causal, tq, tk, hd, H):
     """No atomics: two backward launches on the same inputs give the same
     bits in dq, dk and dv, and so do two forward launches in the output; at
-    head dims 40 and 64 too (HDP 64: the wgmma pair in bf16, the TF32 pair
-    split by integer rounding in f32)."""
+    head dims 40 to 128 too (HDP 64 and 128: the wgmma pair in bf16, the
+    TF32 pair split by integer rounding in f32)."""
     B, Hd = 4, hd
     g = _gen(12)
     q, k, v, gy = (torch.randn((B, t, H, Hd), generator=g).to(cuda, dtype)
@@ -1236,8 +1236,9 @@ def test_flash_backward_kernels_by_head_dim(cuda, dtype):
     """The backward's kernels, by name in a profiler trace: at head dim 30
     (HDP 32, the presets' path) the unchanged instantiations (bf16: the
     mma.sync pair at <32, ...>; f32: the TF32 pair at <float, 32, ...>), at
-    head dim 64 the redesign (bf16: the wgmma pair; f32: the TF32 pair at
-    <float, 64, ...>), at 96 the mma.sync pair at <128, ...>."""
+    head dim 64 the wgmma pair at <64, ...> (f32: the TF32 pair at <float,
+    64, ...>), at 96 the wgmma pair at <128, ...> (f32: <float, 128, ...>),
+    not the mma.sync pair it replaced there."""
     import re
 
     from torch.autograd import DeviceType
@@ -1261,11 +1262,52 @@ def test_flash_backward_kernels_by_head_dim(cuda, dtype):
         for part in ("dq", "dkv"):
             if dtype == torch.float32:
                 want = rf"flash_bwd_{part}_tf32_kernel<float, {pad[hd]}, 4, true>"
-            elif hd == 64:
-                want = rf"flash_bwd_{part}_wgmma_kernel<true>"
+            elif hd > 32:
+                want = rf"flash_bwd_{part}_wgmma_kernel<{pad[hd]}, true>"
             else:
                 want = rf"flash_bwd_{part}_mma_kernel<{pad[hd]}, [24], true>"
             assert any(re.search(want, n) for n in got), (hd, part, got)
+
+
+# the backward at a padded head dim of 128: (Hd, heads, Tq, Tk, kv_len, causal),
+# the 512x4 encoder site at B 4 among them
+HD128_BWD_CASES = [(128, 4, 301, 301, 301, False), (128, 2, 70, 129, 100, True),
+                   (96, 3, 65, 129, 129, False), (75, 2, 33, 70, 70, True),
+                   (128, 4, 32, 497, 497, False), (100, 2, 15, 17, 17, False)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,h,tq,tk,kv_len,causal", HD128_BWD_CASES)
+def test_flash_hd128_backward_pairs_match_plain(cuda, hd, h, tq, tk, kv_len, causal, dtype,
+                                                rate):
+    """The HDP-128 backward pairs (bf16 at an even head dim: the wgmma pair;
+    f32, and bf16 at the odd Hd 75: the TF32 pair) against the plain
+    version's autograd under the kernel's own mask, f32 within 1e-4 and
+    bf16 within 4e-2 of the largest expected value; each call counted on its
+    pair in flash_mha_bwd.kernels and none on another; padded keys'
+    gradients exactly 0."""
+    B = 4 if tq == 301 else 2
+    g = _gen(hd + tq + int(rate * 10))
+    q, k, v, gy = (torch.randn((B, t, h, hd), generator=g).to(cuda, dtype)
+                   for t in (tq, tk, tk, tq))
+    pair = ("wgmma128" if dtype == torch.bfloat16 and hd % 2 == 0 else "tf32_128")
+    assert tfa.bwd_kernels(q, k, v) == pair
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    before = dict(tfa.flash_mha_bwd.kernels)
+    out = tfa.flash_mha(*leaves, kv_len=kv_len, causal=causal, dropout_rate=rate, seed=21)
+    got = torch.autograd.grad(out, leaves, gy)
+    torch.cuda.synchronize()
+    counts = {n: tfa.flash_mha_bwd.kernels[n] - before[n] for n in tfa.BWD_KERNELS}
+    assert counts == {n: int(n == pair) for n in tfa.BWD_KERNELS}
+    keep = tfa.keep_mask(B, h, tq, tk, rate=rate, seed=21, device=cuda) if rate else None
+    ref = tfa.reference_mha(*leaves, kv_len=kv_len, causal=causal, dropout_rate=rate, keep=keep)
+    want = torch.autograd.grad(ref, leaves, gy)
+    tol = 1e-4 if dtype == torch.float32 else 4e-2
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=tol * max(1.0, float(b.float().abs().max())))
+    assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.2])
@@ -1385,6 +1427,53 @@ def test_geometry_512x8_bf16_step_feeds_the_backward_from_wgmma(cuda):
     assert tfa.flash_mha.wgmma - before[0] == 3 * 3 * L
     assert tfa.flash_mha.routes["mma"] - before[1]["mma"] == 3 * 3 * L
     assert tfa.flash_mha_bwd.routes["mma"] - before[2]["mma"] == 3 * 3 * L
+    assert all(torch.isfinite(torch.tensor(losses)))
+    assert float(evaluate(p, None, batch)[0]) < eval_before
+
+
+def test_geometry_512x4_bf16_train_step_on_card(cuda):
+    """A bf16 geo train step at --geometry 512x4 (4 heads of 128) with the
+    preset's dropout and 40 entity rows: every flash forward on the wgmma
+    forward and every backward on the HDP-128 wgmma pair, none on the
+    mma.sync pair it replaced; the losses finite and the deterministic eval
+    loss falling over three steps on one batch."""
+    import copy
+
+    from icek_torch import bridge
+    from icek_torch.core import config as cfgs
+    from icek_torch.models import captioner
+    from icek_torch.train import step as tstep
+
+    geo = cfgs.apply_geometry(cfgs.georic(), "512x4")
+    assert geo.model.emb_dim // geo.model.num_heads == 128
+    V, E, B, T, L = 60, 40, 4, 7, 2
+    g = _gen(66)
+    ents = torch.zeros((B, E, 5))
+    ents[:, :, 0] = torch.arange(E)
+    ents[:, :, 1:4] = torch.rand((B, E, 3), generator=g)
+    ents[:, :, 4] = torch.randint(0, 20, (B, E), generator=g)
+    caps = torch.randint(1, V + E, (B, T), generator=g)
+    batch = {"caption_ids": caps, "caption_mask": (caps >= V).long(),
+             "lengths": torch.tensor([7, 5, 3, 6]), "entity_features": ents,
+             "image_tokens": torch.randn((B, 12, 512), generator=g)}
+    batch = {k: t.to(cuda) for k, t in batch.items()}
+    cfg = geo.replace(model=dataclasses.replace(geo.model, num_layers=L, type_vocab=20))
+    params = captioner.init_captioner_params(g, cfg.model, V)
+    p = bridge.trainable(copy.deepcopy(params), cuda)
+    opt = tstep.make_optimizer(1e-3)
+    state = opt.init(p)
+    train, evaluate = tstep.make_train_step(cfg, V, 0, opt, encode_images=False, device=cuda,
+                                            compute_dtype=torch.bfloat16)
+    eval_before = float(evaluate(p, None, batch)[0])
+    before = (tfa.flash_mha.wgmma, dict(tfa.flash_mha_bwd.kernels))
+    losses = []
+    for i in range(3):
+        _, _, loss, _ = train(p, state, None, batch, torch.Generator().manual_seed(i))
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    assert tfa.flash_mha.wgmma - before[0] == 3 * 3 * L
+    pairs = {n: tfa.flash_mha_bwd.kernels[n] - before[1][n] for n in tfa.BWD_KERNELS}
+    assert pairs == {n: 3 * 3 * L if n == "wgmma128" else 0 for n in tfa.BWD_KERNELS}
     assert all(torch.isfinite(torch.tensor(losses)))
     assert float(evaluate(p, None, batch)[0]) < eval_before
 
